@@ -1,0 +1,16 @@
+"""The port's hand-written Hopper kernels and their plain PyTorch versions.
+
+Each wrapper launches its CUDA kernel for CUDA tensors (or raises) and runs
+the plain version for CPU tensors; nothing falls back from one to the
+other. ``LAUNCHES`` counts kernel launches per wrapper.
+"""
+
+from ._build import LAUNCHES, build, reset_launches
+from .batch_decode_attention import (batch_decode_attention,
+                                     batch_decode_attention_plain)
+from .gemv_quant import w4a8_matmul, w4a8_matmul_plain
+from .kv_row_write import kv_rows_write, kv_rows_write_plain
+
+__all__ = ["LAUNCHES", "build", "reset_launches", "batch_decode_attention",
+           "batch_decode_attention_plain", "w4a8_matmul", "w4a8_matmul_plain",
+           "kv_rows_write", "kv_rows_write_plain"]

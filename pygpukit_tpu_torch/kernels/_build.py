@@ -1,0 +1,152 @@
+"""Build and load the port's CUDA kernels (``pygpukit_tpu_torch/csrc``).
+
+The sources have a plain C interface and include no PyTorch header, so one
+``nvcc`` call builds them into a shared library in seconds. The library goes
+to ``build/pygpukit_tpu_torch/`` at the repository root (listed in
+``.gitignore``), named by a hash of the sources and flags: a changed source
+rebuilds, an unchanged one loads the library already there. The build runs
+at first use, never at import.
+
+Every entry point takes its pointers and the stream as ``c_void_p`` and
+returns ``cudaGetLastError()``; :func:`launch` raises on a non-zero code and
+counts the launch. The counts let a run show that its main path went through
+the kernels (``chip_smoke.py`` resets them before the path and reads them
+after).
+"""
+
+from __future__ import annotations
+
+import ctypes
+import fcntl
+import hashlib
+import os
+import shutil
+import subprocess
+from ctypes import c_float, c_int, c_void_p
+from pathlib import Path
+
+_PKG = Path(__file__).resolve().parent.parent
+CSRC = _PKG / "csrc"
+BUILD_DIR = _PKG.parent / "build" / "pygpukit_tpu_torch"
+
+NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-O3", "-std=c++17",
+              "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v"]
+
+#: launches of each kernel's wrapper since the last reset
+LAUNCHES: dict[str, int] = {"w4a8_gemv": 0, "w4a8_gemm": 0,
+                            "kv_rows_write": 0, "batch_decode_attention": 0}
+
+_P = c_void_p
+_SIGNATURES = {
+    "pgk_w4a8_gemv": [_P, c_int, _P, _P, _P, _P, _P, c_int, c_int, c_int, _P],
+    "pgk_w4a8_gemm": [_P, c_int, _P, _P, _P, _P, _P, c_int, c_int, c_int, _P],
+    "pgk_kv_rows_write": [_P, _P, _P, _P, _P, c_int, c_int, c_int, c_int,
+                          c_int, _P],
+    "pgk_batch_decode_attention": [_P, _P, _P, _P, _P, c_int, c_int, c_int,
+                                   c_int, c_int, c_int, c_int, c_float,
+                                   c_float, c_int, _P],
+}
+
+_lib: ctypes.CDLL | None = None
+
+
+def reset_launches() -> None:
+    for k in LAUNCHES:
+        LAUNCHES[k] = 0
+
+
+def nvcc_path() -> str:
+    """The CUDA compiler: ``nvcc`` on PATH, else under CUDA_HOME or
+    /usr/local/cuda."""
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    for root in (os.environ.get("CUDA_HOME"), "/usr/local/cuda"):
+        if root and (Path(root) / "bin" / "nvcc").is_file():
+            return str(Path(root) / "bin" / "nvcc")
+    raise RuntimeError("nvcc not found (PATH, CUDA_HOME, /usr/local/cuda)")
+
+
+def _sources() -> list[Path]:
+    return sorted(CSRC.glob("*.cu"))
+
+
+def _digest() -> str:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for p in sorted(CSRC.glob("*.cu*")):
+        h.update(p.name.encode())
+        h.update(p.read_bytes())
+    return h.hexdigest()[:16]
+
+
+def library_path() -> Path:
+    return BUILD_DIR / f"libpgk_kernels_{_digest()}.so"
+
+
+def build() -> Path:
+    """Compile the kernels unless a library for these sources exists.
+    Returns its path. Concurrent builds serialise on a lock file."""
+    out = library_path()
+    if out.is_file():
+        return out
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    with open(BUILD_DIR / "build.lock", "w") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)
+        if out.is_file():
+            return out
+        tmp = out.with_suffix(f".tmp{os.getpid()}")
+        cmd = [nvcc_path(), *NVCC_FLAGS, "-o", str(tmp),
+               *[str(s) for s in _sources()]]
+        res = subprocess.run(cmd, capture_output=True, text=True)
+        (BUILD_DIR / "build.log").write_text(
+            " ".join(cmd) + "\n" + res.stdout + res.stderr)
+        if res.returncode != 0:
+            raise RuntimeError(
+                f"nvcc failed ({res.returncode}):\n{res.stderr[-4000:]}")
+        os.replace(tmp, out)
+    return out
+
+
+def build_log() -> str:
+    p = BUILD_DIR / "build.log"
+    return p.read_text() if p.is_file() else ""
+
+
+def library() -> ctypes.CDLL:
+    """The loaded kernel library, built first when needed."""
+    global _lib
+    if _lib is None:
+        lib = ctypes.CDLL(str(build()))
+        for name, argtypes in _SIGNATURES.items():
+            fn = getattr(lib, name)
+            fn.argtypes = argtypes
+            fn.restype = c_int
+        lib.pgk_error_string.argtypes = [c_int]
+        lib.pgk_error_string.restype = ctypes.c_char_p
+        _lib = lib
+    return _lib
+
+
+def launch(kernel: str, entry: str, *args) -> None:
+    """Call C entry ``entry``; raise on a CUDA error, else count one launch
+    of ``kernel``."""
+    lib = library()
+    rc = getattr(lib, entry)(*args)
+    if rc != 0:
+        msg = lib.pgk_error_string(rc).decode()
+        raise RuntimeError(f"{entry} failed: CUDA error {rc} ({msg})")
+    LAUNCHES[kernel] += 1
+
+
+def require_on(device, **tensors) -> None:
+    """Raise unless every named tensor lies on ``device``: a kernel handed
+    a host or another card's pointer would fault instead of raising."""
+    bad = [name for name, t in tensors.items() if t.device != device]
+    if bad:
+        raise ValueError(f"{', '.join(bad)} not on {device}")
+
+
+def stream_of(t) -> int:
+    """The current CUDA stream on ``t``'s device, as a ``c_void_p`` value."""
+    import torch
+    return torch.cuda.current_stream(t.device).cuda_stream

@@ -1,0 +1,74 @@
+"""KV-cache storage ops (counterpart of ``pygpukit_tpu/ops/embedding.py``).
+
+Caches are preallocated tensors updated in place. The serving pools are
+always merged ``[B, L, MAX, Hk*D]`` (contiguous, so the per-layer and
+per-slot views are free); an int8 cache is a dict ``{"q": int8[shape],
+"s": bf16[shape[:-1]]}`` carrying one scale per written row.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from ..core.dtypes import FP8_MAX
+from ..core.numerics import true_div
+
+_F32 = torch.float32
+
+
+def to_kv_dtype(x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """Cast to the cache storage dtype; fp8 targets clamp to the format's
+    finite range first (out-of-range casts are NaN, not saturating)."""
+    m = FP8_MAX.get(dtype)
+    if m is not None and x.dtype != dtype:
+        x = torch.clamp(x.to(_F32), -m, m)
+    return x.to(dtype)
+
+
+def kv_cache_zeros(shape, dtype: torch.dtype, device=None):
+    """A zeroed merged cache (``[..., Hk*D]`` minor dim): a tensor, or for
+    int8 storage the ``{"q", "s"}`` dict with one scale per row."""
+    if dtype != torch.int8:
+        return torch.zeros(shape, dtype=dtype, device=device)
+    return {"q": torch.zeros(shape, dtype=torch.int8, device=device),
+            "s": torch.zeros(tuple(shape[:-1]), dtype=torch.bfloat16, device=device)}
+
+
+def kv_leaf(cache):
+    """The storage leaf carrying the cache's shape (dict-safe)."""
+    return cache["q"] if isinstance(cache, dict) else cache
+
+
+def kv_quant_rows(new: torch.Tensor, n_red: int):
+    """(int8 rows, bf16 row scales), amax over the last ``n_red`` dims.
+    Quantizes against the bf16-rounded scale so quant and dequant use the
+    identical value; rounds half to even like the reference."""
+    f = new.to(_F32)
+    dims = tuple(range(new.ndim - n_red, new.ndim))
+    amax = torch.amax(torch.abs(f), dim=dims)
+    s = torch.clamp_min(true_div(amax, 127.0), 1e-8).to(torch.bfloat16)
+    sf = s.to(_F32).reshape(s.shape + (1,) * n_red)
+    q = torch.clamp(torch.round(f / sf), -127, 127).to(torch.int8)
+    return q, s
+
+
+def kv_dequant(blk_q: torch.Tensor, blk_s: torch.Tensor) -> torch.Tensor:
+    """bf16 view of an int8 cache block: q * per-row scale."""
+    n_red = blk_q.ndim - blk_s.ndim
+    return blk_q.to(torch.bfloat16) * blk_s.reshape(blk_s.shape + (1,) * n_red)
+
+
+def kv_write(cache, new: torch.Tensor, start: tuple[int, ...]):
+    """Write ``new`` into ``cache`` at ``start`` in place, converting to the
+    storage dtype (int8 dicts quantize per row). Starts clamp into range
+    as ``lax.dynamic_update_slice`` clamps. Returns the cache."""
+    leaf = kv_leaf(cache)
+    idx = tuple(slice(min(max(int(s), 0), dim - n), min(max(int(s), 0), dim - n) + n)
+                for s, dim, n in zip(start, leaf.shape, new.shape))
+    if isinstance(cache, dict):
+        q, s = kv_quant_rows(new, leaf.ndim - cache["s"].ndim)
+        cache["q"][idx] = q
+        cache["s"][idx[:cache["s"].ndim]] = s
+    else:
+        cache[idx] = to_kv_dtype(new, cache.dtype)
+    return cache
