@@ -5,23 +5,42 @@
 
 Phases:
  1. the card's name and power limit; torch, CUDA and nvcc versions;
- 2. build the kernels from pygpukit_tpu_torch/csrc with nvcc (sm_90a);
+ 2. build the kernels from pygpukit_tpu_torch/csrc with nvcc (sm_90a), one
+    nvcc per source, all started together;
  3. each kernel against its plain PyTorch version at the 1.1B slice's
     shapes (w4a8 GEMV at rows 1 and 8 on the four projection shapes, GEMM at
-    M = 32 and 256, the row write and the attention at batch 8, MAX 1024),
-    bitwise where the math is integer or a copy; then kernel and plain times
-    (CUDA events, warmed up, weights cycled through more than the 50 MB L2);
- 4. the main path: the TinyLlama-1.1B shape with random int4 weights and an
-    int8 head, served by the batch-8 ContinuousBatchingEngine
+    M = 32 and 256, the row write and the attention at batch 8, MAX 1024,
+    paged attention at batch 8, block 16, MAX 512 and 1024 over shuffled
+    blocks with two dead slots on the trash table), bitwise where the math
+    is integer or a copy; then kernel and plain times (CUDA events, warmed
+    up, weights or layers cycled through more than the 50 MB L2);
+ 4. the dense path: the TinyLlama-1.1B shape with random int4 weights and
+    an int8 head, served by the batch-8 ContinuousBatchingEngine
     (max_seq_len 1024, 16 steps per dispatch) for 16 requests; every request
     must finish with its token count, every logit stay finite and every
-    kernel's launch counter move;
+    dense-path kernel's launch counter move;
  5. the same requests on a fresh engine: identical token streams and
     bitwise-identical KV pools; single-stream generate against the engine's
     streams (reported); a two-layer full-width model on the card against the
     plain path on the CPU (relative L2 of the logits);
  6. one batch-8 decode step timed eagerly and as a CUDA-graph replay: the
-    device's share of the eager step.
+    device's share of the eager step;
+ 7. the paged path, the reference's serving_1b_int4_paged row
+    (bench.py:256-293) at full width and depth: pipelined, paged (block 16),
+    max_seq_len 512, 128 steps per dispatch; warmup(), 8 warm-up requests,
+    then 32 timed requests of a 16-token prompt (random, one per request,
+    where the reference repeats one prompt) and 128 new tokens: tok/s and
+    TTFT p50/p95. Every request finishes with its count and finite logits;
+    paged_attention launches and the dense attention and row write do not;
+    a fresh engine replays the streams and the pools outside block 0 (the
+    trash block, whose duplicate writes are unordered) bit for bit; the
+    non-pipelined paged engine gives the same streams; the dense pipelined
+    engine's streams are reported; one paged decode step timed eagerly, as
+    a CUDA-graph replay and under torch.profiler (kernels by device time);
+ 8. a tight pool: 16 requests with 16- and 200-token prompts and 48-64 new
+    tokens over a pool that holds at most 4 of them at once; admission
+    waits instead of failing, every request finishes, and every block but
+    the trash block is free at the end.
 
 Any failure exits non-zero. The last two lines are the kernel summary and
 the device line read by automation; it exits 2 with no result when no CUDA
@@ -42,6 +61,23 @@ ROOT = Path(__file__).resolve().parent
 PROJ_SHAPES = {"qkv": (2560, 2048), "o": (2048, 2048), "gate_up": (11264, 2048),
                "down": (2048, 5632)}
 ATTN_TOL = dict(atol=1e-2, rtol=1e-2)     # bf16 output, P rounded to bf16
+CFG_1B = dict(vocab_size=32000, hidden_size=2048, num_layers=22, num_heads=32,
+              num_kv_heads=4, intermediate_size=5632, max_position_embeddings=2048,
+              tie_word_embeddings=False)
+# the kernels' TPU originals, for the summary line
+SOURCES = {"w4a8_gemv": ("pygpukit_tpu_torch/csrc/w4a8_gemv.cu",
+                         "pygpukit_tpu/kernels/gemv_quant.py:609"),
+           "w4a8_gemm": ("pygpukit_tpu_torch/csrc/w4a8_gemm.cu",
+                         "pygpukit_tpu/kernels/gemv_quant.py:830"),
+           "kv_rows_write": ("pygpukit_tpu_torch/csrc/kv_row_write.cu",
+                             "pygpukit_tpu/kernels/kv_row_write.py:116"),
+           "batch_decode_attention": (
+               "pygpukit_tpu_torch/csrc/batch_decode_attention.cu",
+               "pygpukit_tpu/kernels/batch_decode_attention.py:153"),
+           "paged_attention": ("pygpukit_tpu_torch/csrc/paged_attention.cu",
+                               "pygpukit_tpu/kernels/paged_attention.py:80")}
+DENSE_KERNELS = ("w4a8_gemv", "w4a8_gemm", "kv_rows_write", "batch_decode_attention")
+PAGED_KERNELS = ("w4a8_gemv", "w4a8_gemm", "paged_attention")
 # card vs CPU plain path, relative L2 of the logits. Not a rounding-level
 # match: the w4a8 and w8a8 matmuls requantize bf16 activations, and one bf16
 # ulp is about a quarter of an int8 step, so last-bit differences between the
@@ -198,7 +234,60 @@ def check_kernels(dev) -> tuple[dict, dict]:
         lambda i: batch_decode_attention(q, kp, vp, i, lens), nl)}
     res["batch_decode_attention"] = (err, kms, pms)
     del kp, vp
+    res["paged_attention"] = check_paged_attention(dev, g, detail)
     return res, detail
+
+
+def paged_inputs(dev, g, max_len: int, n_layers: int, b: int = 8, bs: int = 16,
+                 hq: int = 32, hk: int = 4, d: int = 64):
+    """Batch-b paged attention inputs at the 1.1B shape: [L, NB, Hk, BS, D]
+    pools, each slot on shuffled non-contiguous blocks, contexts spread from
+    1 to max_len, the last two slots dead on the trash table (block 0)."""
+    import torch
+    mb = max_len // bs
+    nb = b * mb + 2
+    kp = torch.randn((n_layers, nb, hk, bs, d), generator=g, device=dev).to(torch.bfloat16)
+    vp = torch.randn((n_layers, nb, hk, bs, d), generator=g, device=dev).to(torch.bfloat16)
+    q = torch.randn((b, hq, d), generator=g, device=dev).to(torch.bfloat16)
+    perm = torch.randperm(nb - 1, generator=g, device=dev).to(torch.int32) + 1
+    tables = perm[:b * mb].reshape(b, mb).contiguous()
+    tables[-2:] = 0
+    lens = torch.tensor([1, 17, max_len // 2 + 3, max_len - 1, max_len, 300, 5, 40],
+                        dtype=torch.int32, device=dev)
+    return q, kp, vp, tables, lens
+
+
+def check_paged_attention(dev, g, detail: dict) -> tuple:
+    """Phase 3, paged attention: (max_abs_err, ms, plain_ms) at MAX 512 (the
+    paged path's shape); MAX 1024 is checked and timed into ``detail``."""
+    import torch
+    from pygpukit_tpu_torch.kernels import paged_attention, paged_attention_plain
+    err, times = 0.0, {}
+    nl = 22
+    for max_len in (512, 1024):
+        q, kp, vp, tables, lens = paged_inputs(dev, g, max_len, nl)
+        for softcap, window in ((None, None), (30.0, 100)):
+            o = paged_attention(q, kp[5], vp[5], tables, lens, scale=0.125,
+                                softcap=softcap, window=window)
+            r = paged_attention_plain(q, kp[5], vp[5], tables, lens, 0.125,
+                                      softcap, window)
+            torch.cuda.synchronize()
+            e = (o.float() - r.float()).abs().max().item()
+            check(torch.allclose(o.float(), r.float(), **ATTN_TOL),
+                  f"paged_attention MAX {max_len} (softcap={softcap}, "
+                  f"window={window}): max abs err {e}")
+            err = max(err, e)
+        kms = time_ms(lambda i: paged_attention(q, kp[i], vp[i], tables, lens,
+                                                scale=0.125), nl)
+        pms = time_ms(lambda i: paged_attention_plain(q, kp[i], vp[i], tables,
+                                                      lens, 0.125), nl)
+        times[max_len] = (kms, pms)
+        detail[f"paged_attention_max{max_len}"] = {
+            "ms": kms, "plain_ms": pms, "eager_ms": eager_ms(
+                lambda i: paged_attention(q, kp[i], vp[i], tables, lens,
+                                          scale=0.125), nl)}
+        del kp, vp
+    return (err, *times[512])
 
 
 def build_model(cfg, seed: int, dev):
@@ -210,11 +299,20 @@ def build_model(cfg, seed: int, dev):
     return CausalTransformerModel(cfg, params, dtype=torch.bfloat16)
 
 
-def serve(model, requests, n_steps: int):
+def serve(model, requests, n_steps: int, warm=(), max_seq_len: int = 1024,
+          **kw):
+    """A batch-8 engine over ``requests`` [(prompt, max_new)], timed; any
+    ``warm`` requests are served first, untimed. Returns (engine, the timed
+    requests, seconds)."""
     import torch
     from pygpukit_tpu_torch.llm import ContinuousBatchingEngine
-    eng = ContinuousBatchingEngine(model, max_batch=8, max_seq_len=1024,
-                                   steps_per_dispatch=n_steps)
+    eng = ContinuousBatchingEngine(model, max_batch=8, max_seq_len=max_seq_len,
+                                   steps_per_dispatch=n_steps, **kw)
+    if warm:
+        eng.warmup(prompt_lens=sorted({len(p) for p, _ in warm}))
+        for p, m in warm:
+            eng.submit(p, max_new_tokens=m)
+        eng.run_until_complete()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     reqs = [eng.submit(p, max_new_tokens=m) for p, m in requests]
@@ -242,68 +340,69 @@ def decode_step_times(model, dev) -> tuple[float, float]:
     return eager_ms(step, 1, iters=20), time_ms(step, 1, reps=20)
 
 
-def main() -> int:
+def paged_step_times(model, dev) -> tuple[float, float, list]:
+    """One batch-8 paged decode step at the paged path's shape (MAX 512,
+    block 16, every slot at position 143 on its own blocks): eager wall ms,
+    graph-replayed device ms, and the profiler's kernels by device time over
+    three eager steps [(name, calls, device ms per step)]."""
     import torch
-    if not torch.cuda.is_available():
-        print("chip_smoke: no CUDA device is visible", file=sys.stderr)
-        return 2
-    if not (ROOT / "pygpukit_tpu_torch" / "csrc").is_dir():
-        print("chip_smoke: pygpukit_tpu_torch/ is not beside this script",
-              file=sys.stderr)
-        return 2
-    sys.path.insert(0, str(ROOT))
+    from pygpukit_tpu_torch.llm import paged_decode_step_fn
+    cfg, params = model.config, model.params
+    mb, bs, b = 32, 16, 8
+    shape = (cfg.num_layers, b * mb + 2, cfg.num_kv_heads, bs, cfg.head_dim)
+    kp = torch.zeros(shape, dtype=torch.bfloat16, device=dev)
+    vp = torch.zeros(shape, dtype=torch.bfloat16, device=dev)
+    tables = (torch.arange(b * mb, dtype=torch.int32, device=dev) + 1).reshape(b, mb)
+    toks = torch.arange(1, b + 1, device=dev)
+    poss = torch.full((b,), 143, dtype=torch.int32, device=dev)
+
+    def step(_):
+        paged_decode_step_fn(cfg, params, kp, vp, tables, toks, poss)
+    eager, graph = eager_ms(step, 1, iters=20), time_ms(step, 1, reps=20)
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts, acc_events=True) as prof:
+        for _ in range(3):
+            step(0)
+        torch.cuda.synchronize()
+    # kernel events only: a CPU op's row repeats the device time of the
+    # kernels it launched
+    rows = sorted(((e.key, e.count // 3, e.self_device_time_total / 3e3)
+                   for e in prof.key_averages()
+                   if e.device_type == torch.autograd.DeviceType.CUDA),
+                  key=lambda r: -r[2])
+    return eager, graph, rows
+
+
+def ttft_ms(reqs) -> "np.ndarray":
     import numpy as np
-    from pygpukit_tpu_torch import LAUNCHES, require_cuda, reset_launches
-    from pygpukit_tpu_torch import set_deterministic_numerics
-    from pygpukit_tpu_torch.kernels import _build
-    from pygpukit_tpu_torch.llm import TransformerConfig
+    return np.percentile([r.ttft_s for r in reqs], [50, 95]) * 1e3
 
-    dev = require_cuda()
-    set_deterministic_numerics()     # TF32 off: the plain w4a8 dot stays exact
-    card = smi_line()
-    print(f"card: {card}")
-    nvcc_v = subprocess.run([_build.nvcc_path(), "--version"], capture_output=True,
-                            text=True, timeout=60).stdout.strip().splitlines()[-1]
-    print(f"python {sys.version.split()[0]} torch {torch.__version__} "
-          f"cuda {torch.version.cuda} nvcc: {nvcc_v}")
-    print(f"device: {torch.cuda.get_device_name(0)} "
-          f"capability {torch.cuda.get_device_capability(0)}")
 
-    t0 = time.perf_counter()
-    lib = _build.build()
-    build_s = time.perf_counter() - t0
-    print(f"phase 2: built {lib.relative_to(ROOT)} in {build_s:.1f} s")
-    for line in _build.build_log().splitlines():
-        if "registers" in line or "spill" in line:
-            print("  ptxas: " + line.strip())
+def check_served(eng, reqs, requests, what: str) -> int:
+    """Every request finished with its token count and every logit was
+    finite; returns the tokens generated."""
+    for r, (_, m) in zip(reqs, requests):
+        check(r.done and len(r.generated) == m,
+              f"{what}: request {r.request_id} has {len(r.generated)} of {m} tokens")
+    check(eng.logits_finite(), f"{what}: a logit went non-finite")
+    return sum(len(r.generated) for r in reqs)
 
-    results, detail = check_kernels(dev)
-    print("phase 3: kernels match their plain versions")
-    print("kernel_times " + json.dumps(detail))
 
-    cfg = TransformerConfig(vocab_size=32000, hidden_size=2048, num_layers=22,
-                            num_heads=32, num_kv_heads=4, intermediate_size=5632,
-                            max_position_embeddings=2048, tie_word_embeddings=False)
-    t0 = time.perf_counter()
-    model = build_model(cfg, 0, dev)
-    torch.cuda.synchronize()
-    print(f"phase 4: 1.1B int4 model built in {time.perf_counter() - t0:.1f} s")
-    rng = np.random.default_rng(0)
+def dense_path(model, cfg, rng) -> tuple[dict, list]:
+    """Phases 4-6 (the dense path); returns its launch counts and the first
+    prompt (phase 5's CPU comparison reads it)."""
+    import torch
+    from pygpukit_tpu_torch import LAUNCHES, reset_launches
     requests = [(rng.integers(1, cfg.vocab_size, 16 if i % 2 == 0 else 200).tolist(),
                  48 + (i * 5) % 17) for i in range(16)]
-
     reset_launches()
     eng1, reqs1, secs1 = serve(model, requests, 16)
     launches = dict(LAUNCHES)
     reset_launches()
-    n_tok = sum(len(r.generated) for r in reqs1)
-    for r, (_, m) in zip(reqs1, requests):
-        check(r.done and len(r.generated) == m,
-              f"request {r.request_id}: {len(r.generated)} of {m} tokens")
-    check(eng1.logits_finite(), "a logit went non-finite")
-    for name, n in launches.items():
-        check(n > 0, f"kernel {name} was never launched on the main path")
-    ttft = np.percentile([r.ttft_s for r in reqs1], [50, 95]) * 1e3
+    n_tok = check_served(eng1, reqs1, requests, "dense path")
+    for name in DENSE_KERNELS:
+        check(launches[name] > 0, f"kernel {name} was never launched on the dense path")
+    ttft = ttft_ms(reqs1)
     print(f"phase 4: served {len(reqs1)} requests, {n_tok} tokens in {secs1:.3f} s "
           f"= {n_tok / secs1:.1f} tok/s (steps {eng1.stats.steps}, "
           f"prefills {eng1.stats.prefills}), TTFT p50/p95 {ttft[0]:.1f}/"
@@ -320,24 +419,118 @@ def main() -> int:
     del eng1, eng2
     # B = 1 runs the same kernels, but torch's own reductions (norms) may
     # sum in another order at another batch size, so this is reported, not
-    # required; the checked reference is the CPU plain path below.
+    # required; the checked reference is the CPU plain path (cpu_parity).
     for idx in (0, 1):
         model.init_fixed_cache(1024)
         single = model.generate(requests[idx][0], max_new_tokens=requests[idx][1])
         same = sum(a == b for a, b in zip(single, reqs1[idx].generated))
         print(f"phase 5: single-stream generate vs engine, request {idx}: "
               f"{same}/{len(single)} tokens equal")
-    step_eager, step_graph = decode_step_times(model, dev)
+    step_eager, step_graph = decode_step_times(model, model.device)
     print(f"phase 6: batch-8 decode step at context 301: eager {step_eager:.3f} ms "
           f"wall, CUDA-graph replay {step_graph:.3f} ms device; device busy "
           f"{step_graph / step_eager:.3f} of the eager step")
-    del model
-    torch.cuda.empty_cache()
+    return launches, requests[0][0]
 
+
+def paged_path(model, cfg, rng) -> dict:
+    """Phase 7, the reference's serving_1b_int4_paged row; returns the
+    launch counts of its first run (warmup, warm-up and timed requests)."""
+    import torch
+    from pygpukit_tpu_torch import LAUNCHES, reset_launches
+    kw = dict(warm=[(rng.integers(1, cfg.vocab_size, 16).tolist(), 128)
+                    for _ in range(8)], max_seq_len=512)
+    paged = dict(kw, paged=True, block_size=16)
+    requests = [(rng.integers(1, cfg.vocab_size, 16).tolist(), 128) for _ in range(32)]
+    reset_launches()
+    eng1, reqs1, secs1 = serve(model, requests, 128, pipelined=True, **paged)
+    launches = dict(LAUNCHES)
+    reset_launches()
+    n_tok = check_served(eng1, reqs1, requests, "paged path")
+    for name in PAGED_KERNELS:
+        check(launches[name] > 0, f"kernel {name} was never launched on the paged path")
+    for name in ("batch_decode_attention", "kv_rows_write"):
+        check(launches[name] == 0, f"dense kernel {name} ran on the paged path")
+    ttft = ttft_ms(reqs1)
+    print(f"phase 7: paged pipelined engine (MAX 512, block 16, 128 steps per "
+          f"dispatch): 32 requests, {n_tok} tokens in {secs1:.3f} s = "
+          f"{n_tok / secs1:.1f} tok/s (steps {eng1.stats.steps}, prefills "
+          f"{eng1.stats.prefills}), TTFT p50/p95 {ttft[0]:.1f}/{ttft[1]:.1f} ms; "
+          f"launches {json.dumps(launches)}")
+    streams = [r.generated for r in reqs1]
+
+    def live_blocks(eng):       # block 0 is the trash: unordered duplicate writes
+        return [bits(c[:, 1:]) for c in (eng1.k_cache, eng1.v_cache)], \
+            [bits(c[:, 1:]) for c in (eng.k_cache, eng.v_cache)]
+
+    eng2, reqs2, secs2 = serve(model, requests, 128, pipelined=True, **paged)
+    check([r.generated for r in reqs2] == streams, "paged replay: token streams differ")
+    a, b = live_blocks(eng2)
+    check(all(torch.equal(x, y) for x, y in zip(a, b)),
+          "paged replay: pools differ outside the trash block")
+    del eng2, a, b
+    eng3, reqs3, secs3 = serve(model, requests, 128, pipelined=False, **paged)
+    check([r.generated for r in reqs3] == streams,
+          "paged engine, not pipelined: token streams differ")
+    del eng3
+    eng4, reqs4, secs4 = serve(model, requests, 128, pipelined=True, **kw)
+    dense_same = sum(r.generated == t for r, t in zip(reqs4, streams))
+    del eng4
+    eager, graph, rows = paged_step_times(model, model.device)
+    busy = sum(r[2] for r in rows)
+    print(f"phase 7: batch-8 paged decode step at context 144: eager {eager:.3f} ms "
+          f"wall, CUDA-graph replay {graph:.3f} ms device; device busy "
+          f"{graph / eager:.3f} of the eager step; profiler: {busy:.3f} ms of "
+          f"kernels per eager step, the largest: " + "; ".join(
+              f"{name[:60]} x{n} {ms:.3f} ms" for name, n, ms in rows[:8]))
+    print(f"phase 7: replay identical (streams; pools outside block 0), "
+          f"{n_tok / secs2:.1f} tok/s; not pipelined: identical streams, "
+          f"{n_tok / secs3:.1f} tok/s; dense pipelined (MAX 512): "
+          f"{dense_same}/32 streams identical, {n_tok / secs4:.1f} tok/s")
+    return launches
+
+
+def tight_pool(model, cfg, rng) -> None:
+    """Phase 8: more requests than the pool holds; admission must wait."""
+    import torch
+    from pygpukit_tpu_torch.llm import ContinuousBatchingEngine
+    bs, max_len = 16, 512
+    requests = [(rng.integers(1, cfg.vocab_size, 16 if i % 2 == 0 else 200).tolist(),
+                 int(rng.integers(48, 65))) for i in range(16)]
+    needs = sorted(-(-min(len(p) + m + 1, max_len) // bs) for p, m in requests)
+    num_blocks = sum(needs[:4]) + 1       # any five need more; block 0 is trash
+    eng = ContinuousBatchingEngine(model, max_batch=8, max_seq_len=max_len,
+                                   steps_per_dispatch=16, pipelined=True,
+                                   paged=True, block_size=bs, num_blocks=num_blocks)
+    t0 = time.perf_counter()
+    reqs = [eng.submit(p, max_new_tokens=m) for p, m in requests]
+    most = waits = iters = 0
+    while eng.has_work:
+        eng.step()
+        iters += 1
+        active = sum(r is not None for r in eng._slots)
+        most = max(most, active)
+        waits += bool(eng._queue) and active < eng.max_batch
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    n_tok = check_served(eng, reqs, requests, "tight pool")
+    check(most <= 4, f"tight pool: {most} requests held blocks at once")
+    check(waits > 0, "tight pool: admission never waited for blocks")
+    check(eng._alloc.free_blocks == num_blocks - 1,
+          f"tight pool: {eng._alloc.free_blocks} of {num_blocks - 1} blocks free")
+    print(f"phase 8: tight pool of {num_blocks} blocks (needs {needs}): 16 requests, "
+          f"{n_tok} tokens in {secs:.3f} s, at most {most} at once, admission "
+          f"waited in {waits} of {iters} engine steps ({eng.stats.steps} chunks), "
+          f"all blocks free at the end")
+
+
+def cpu_parity(cfg, dev, prompt) -> None:
+    """Phase 5, last part: a two-layer full-width model on the card against
+    the plain path on the CPU."""
+    from pygpukit_tpu_torch.llm import TransformerConfig
     small = TransformerConfig(**{**cfg.__dict__, "num_layers": 2})
     card_model = build_model(small, 1, dev)
     cpu_model = build_model(small, 1, dev).to("cpu")
-    prompt = requests[0][0]
     rel_l2s, max_rel, same_tok = [], 0.0, 0
     for m in (card_model, cpu_model):
         m.init_fixed_cache(64)
@@ -355,23 +548,70 @@ def main() -> int:
           f"prefill and 4 decode steps {[f'{e:.2e}' for e in rel_l2s]} (limit "
           f"{REF_TOL}), max abs {max_rel:.3e} of max |logit|, greedy token "
           f"equal {same_tok}/5")
-    del card_model, cpu_model
+
+
+def main() -> int:
+    import torch
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device is visible", file=sys.stderr)
+        return 2
+    if not (ROOT / "pygpukit_tpu_torch" / "csrc").is_dir():
+        print("chip_smoke: pygpukit_tpu_torch/ is not beside this script",
+              file=sys.stderr)
+        return 2
+    sys.path.insert(0, str(ROOT))
+    import numpy as np
+    from pygpukit_tpu_torch import require_cuda, set_deterministic_numerics
+    from pygpukit_tpu_torch.kernels import _build
+    from pygpukit_tpu_torch.llm import TransformerConfig
+
+    dev = require_cuda()
+    set_deterministic_numerics()     # TF32 off: the plain w4a8 dot stays exact
+    card = smi_line()
+    print(f"card: {card}")
+    nvcc_v = subprocess.run([_build.nvcc_path(), "--version"], capture_output=True,
+                            text=True, timeout=60).stdout.strip().splitlines()[-1]
+    print(f"python {sys.version.split()[0]} torch {torch.__version__} "
+          f"cuda {torch.version.cuda} nvcc: {nvcc_v}")
+    print(f"device: {torch.cuda.get_device_name(0)} "
+          f"capability {torch.cuda.get_device_capability(0)}")
+
+    t_start = time.perf_counter()
+    lib = _build.build()
+    print(f"phase 2: built {lib.relative_to(ROOT)} in "
+          f"{time.perf_counter() - t_start:.1f} s")
+    for line in _build.build_log().splitlines():
+        if "registers" in line or "spill" in line:
+            print("  ptxas: " + line.strip())
+
+    results, detail = check_kernels(dev)
+    print("phase 3: kernels match their plain versions")
+    print("kernel_times " + json.dumps(detail))
+
+    cfg = TransformerConfig(**CFG_1B)
+    t0 = time.perf_counter()
+    model = build_model(cfg, 0, dev)
+    torch.cuda.synchronize()
+    print(f"phase 4: 1.1B int4 model built in {time.perf_counter() - t0:.1f} s")
+    rng = np.random.default_rng(0)
+    dense, prompt = dense_path(model, cfg, rng)
+    paged = paged_path(model, cfg, rng)
+    tight_pool(model, cfg, rng)
+    print(f"phases 4-8 took {time.perf_counter() - t0:.1f} s")
+    del model
+    torch.cuda.empty_cache()
+    cpu_parity(cfg, dev, prompt)
+    # each kernel's launches from the run of the path it belongs to
+    launches = {name: dense[name] for name in DENSE_KERNELS}
+    launches["paged_attention"] = paged["paged_attention"]
 
     summary = {"kernels": []}
-    sources = {"w4a8_gemv": ("pygpukit_tpu_torch/csrc/w4a8_gemv.cu",
-                             "pygpukit_tpu/kernels/gemv_quant.py:609"),
-               "w4a8_gemm": ("pygpukit_tpu_torch/csrc/w4a8_gemm.cu",
-                             "pygpukit_tpu/kernels/gemv_quant.py:830"),
-               "kv_rows_write": ("pygpukit_tpu_torch/csrc/kv_row_write.cu",
-                                 "pygpukit_tpu/kernels/kv_row_write.py:116"),
-               "batch_decode_attention": (
-                   "pygpukit_tpu_torch/csrc/batch_decode_attention.cu",
-                   "pygpukit_tpu/kernels/batch_decode_attention.py:153")}
-    for name, (src, rep) in sources.items():
+    for name, (src, rep) in SOURCES.items():
         err, ms, pms = results[name]
         summary["kernels"].append({"name": name, "route": "cuda", "source": src,
                                    "replaces": rep, "launches": launches[name],
                                    "max_abs_err": err, "ms": ms, "plain_ms": pms})
+    print(f"total {time.perf_counter() - t_start:.1f} s after the build began")
     print(card)
     print(json.dumps(summary))
     print(json.dumps({"ok": True, "device": {

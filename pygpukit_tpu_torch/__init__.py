@@ -8,12 +8,13 @@ plain PyTorch version beside it: CUDA tensors launch the kernel, CPU
 tensors run the plain version.
 
 Ported so far: the int4 batch-8 serving path (``llm.serving``) over the
-unified causal LM (``llm.model``) and its four kernels.
+unified causal LM (``llm.model``), dense or paged (``llm.serving_paged``,
+``ops.paged``), pipelined or not, and its five kernels.
 """
 
 from .core import get_device, require_cuda, set_deterministic_numerics
 from .kernels import (LAUNCHES, batch_decode_attention, kv_rows_write,
-                      reset_launches, w4a8_matmul)
+                      paged_attention, reset_launches, w4a8_matmul)
 from .llm import (CausalTransformerModel, ContinuousBatchingEngine,
                   EngineStats, Request, TransformerConfig, fuse_params,
                   init_params, params_from_jax, quantize_model_params,
@@ -21,7 +22,7 @@ from .llm import (CausalTransformerModel, ContinuousBatchingEngine,
 
 __all__ = ["get_device", "require_cuda", "set_deterministic_numerics",
            "LAUNCHES", "batch_decode_attention", "kv_rows_write",
-           "reset_launches", "w4a8_matmul", "CausalTransformerModel",
-           "ContinuousBatchingEngine", "EngineStats", "Request",
+           "paged_attention", "reset_launches", "w4a8_matmul",
+           "CausalTransformerModel", "ContinuousBatchingEngine", "EngineStats", "Request",
            "TransformerConfig", "fuse_params", "init_params",
            "params_from_jax", "quantize_model_params", "quantize_weight"]

@@ -1,8 +1,9 @@
 """Build and load the port's CUDA kernels (``pygpukit_tpu_torch/csrc``).
 
-The sources have a plain C interface and include no PyTorch header, so one
-``nvcc`` call builds them into a shared library in seconds. The library goes
-to ``build/pygpukit_tpu_torch/`` at the repository root (listed in
+The sources have a plain C interface and include no PyTorch header. Each
+``.cu`` compiles in its own ``nvcc`` process, all started together, and one
+more call links the objects into a shared library, in seconds. The library
+goes to ``build/pygpukit_tpu_torch/`` at the repository root (listed in
 ``.gitignore``), named by a hash of the sources and flags: a changed source
 rebuilds, an unchanged one loads the library already there. The build runs
 at first use, never at import.
@@ -30,11 +31,12 @@ CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG.parent / "build" / "pygpukit_tpu_torch"
 
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-O3", "-std=c++17",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v"]
+              "-Xcompiler", "-fPIC", "-Xptxas=-v"]
 
 #: launches of each kernel's wrapper since the last reset
 LAUNCHES: dict[str, int] = {"w4a8_gemv": 0, "w4a8_gemm": 0,
-                            "kv_rows_write": 0, "batch_decode_attention": 0}
+                            "kv_rows_write": 0, "batch_decode_attention": 0,
+                            "paged_attention": 0}
 
 _P = c_void_p
 _SIGNATURES = {
@@ -45,6 +47,8 @@ _SIGNATURES = {
     "pgk_batch_decode_attention": [_P, _P, _P, _P, _P, c_int, c_int, c_int,
                                    c_int, c_int, c_int, c_int, c_float,
                                    c_float, c_int, _P],
+    "pgk_paged_attention": [_P, _P, _P, _P, _P, _P, c_int, c_int, c_int, c_int,
+                            c_int, c_int, c_float, c_float, c_int, _P],
 }
 
 _lib: ctypes.CDLL | None = None
@@ -95,14 +99,27 @@ def build() -> Path:
         if out.is_file():
             return out
         tmp = out.with_suffix(f".tmp{os.getpid()}")
-        cmd = [nvcc_path(), *NVCC_FLAGS, "-o", str(tmp),
-               *[str(s) for s in _sources()]]
-        res = subprocess.run(cmd, capture_output=True, text=True)
-        (BUILD_DIR / "build.log").write_text(
-            " ".join(cmd) + "\n" + res.stdout + res.stderr)
-        if res.returncode != 0:
-            raise RuntimeError(
-                f"nvcc failed ({res.returncode}):\n{res.stderr[-4000:]}")
+        nvcc = nvcc_path()
+        objs = [tmp.with_name(f"{tmp.name}.{src.stem}.o") for src in _sources()]
+        jobs = {src.name: [nvcc, *NVCC_FLAGS, "-c", str(src), "-o", str(obj)]
+                for src, obj in zip(_sources(), objs)}
+        procs = {name: subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                        stderr=subprocess.STDOUT, text=True)
+                 for name, cmd in jobs.items()}
+        logs = {name: (p.communicate()[0], p.returncode)
+                for name, p in procs.items()}
+        if all(rc == 0 for _, rc in logs.values()):
+            jobs["link"] = [nvcc, "-shared", "-o", str(tmp), *map(str, objs)]
+            res = subprocess.run(jobs["link"], stdout=subprocess.PIPE,
+                                 stderr=subprocess.STDOUT, text=True)
+            logs["link"] = (res.stdout, res.returncode)
+        for obj in objs:
+            obj.unlink(missing_ok=True)
+        (BUILD_DIR / "build.log").write_text("".join(
+            " ".join(jobs[name]) + "\n" + log for name, (log, _) in logs.items()))
+        for name, (log, rc) in logs.items():
+            if rc != 0:
+                raise RuntimeError(f"nvcc failed on {name} ({rc}):\n{log[-4000:]}")
         os.replace(tmp, out)
     return out
 

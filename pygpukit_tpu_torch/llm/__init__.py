@@ -6,6 +6,8 @@ from .model import (CausalTransformerModel, batch_decode_step_fn,
 from .quant import (dequantize_weight, quantize_model_params, quantize_weight,
                     unpack_int4)
 from .serving import ContinuousBatchingEngine, EngineStats, Request
+from .serving_paged import (BlockAllocator, paged_decode_step_fn,
+                            paged_prefill_fn, paged_serve_chunk_fn)
 
 __all__ = ["TransformerConfig", "params_from_jax", "tensor_from_numpy",
            "CausalTransformerModel", "batch_decode_step_fn",
@@ -13,4 +15,6 @@ __all__ = ["TransformerConfig", "params_from_jax", "tensor_from_numpy",
            "fuse_params", "init_params", "prefill_fn", "sample_logits",
            "dequantize_weight",
            "quantize_model_params", "quantize_weight", "unpack_int4",
-           "ContinuousBatchingEngine", "EngineStats", "Request"]
+           "ContinuousBatchingEngine", "EngineStats", "Request",
+           "BlockAllocator", "paged_decode_step_fn", "paged_prefill_fn",
+           "paged_serve_chunk_fn"]

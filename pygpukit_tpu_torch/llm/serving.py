@@ -1,17 +1,34 @@
-"""Continuous-batching serving engine (the non-pipelined dense path of
-``pygpukit_tpu/llm/serving.py``).
+"""Continuous-batching serving engine (port of ``pygpukit_tpu/llm/serving.py``).
 
-A fixed table of ``max_batch`` request slots shares merged KV pools
-``[B, L, MAX, Hk*D]``. Each ``step()`` admits queued requests into free
-slots (one prefill each, written straight into the slot's pool rows), then
-advances every slot ``steps_per_dispatch`` tokens with the batch-rows
-decode step and reads the tokens back once. Free slots decode garbage at
-their stale positions (clamped inside the step) and their tokens are
-dropped, exactly as in the reference.
+A fixed table of ``max_batch`` request slots. Each step admits queued
+requests into free slots (one prefill each), then advances every slot
+``steps_per_dispatch`` tokens with the batch-rows decode step. Free slots
+decode garbage at clamped positions and their tokens are dropped, exactly
+as in the reference. Two options, alone or together:
+
+- ``paged``: KV lives in one shared block pool ``[L, NB, Hk, BS, D]`` with
+  per-slot block tables (``serving_paged.py``); admission reserves a
+  request's worst case and waits while the pool is busy. Otherwise KV lives
+  in merged dense pools ``[B, L, MAX, Hk*D]``.
+- ``pipelined``: the last tokens and positions stay on the device, and
+  chunk N+1 is dispatched before chunk N's tokens are read back. The
+  readback goes through pinned host memory and a CUDA event, so it waits
+  for chunk N only; host uploads are non-blocking copies from pinned
+  memory. Bookkeeping (EOS, admission, TTFT) lags one chunk behind the
+  device; completion and block frees go by request identity.
+
+The reference compiles one executable per prefill bucket, wave size and
+chunk; PyTorch runs eagerly, so those are plain calls, and
+``_prefill_shapes`` only records which (wave size, bucket) shapes have run.
+``PYGPUKIT_SERVE_PREADMIT`` and ``PYGPUKIT_SERVE_TAILSKIP`` switch off
+pre-dispatch admission and the dead-tail-chunk skip, as in the reference.
+Sampling draws from the engine's ``torch.Generator``: greedy streams match
+the reference, sampled streams replay under ``seed``.
 """
 
 from __future__ import annotations
 
+import os
 import time
 from dataclasses import dataclass, field
 from typing import Callable
@@ -20,9 +37,86 @@ import numpy as np
 import torch
 
 from ..ops.embedding import kv_cache_zeros
-from .model import (CausalTransformerModel, _bucket, batch_decode_step_fn,
-                    batch_generate_scan_fn, prefill_fn, sample_logits,
-                    slot_cache)
+from .model import (CausalTransformerModel, _bucket, batch_generate_scan_fn,
+                    prefill_fn, sample_logits, slot_cache)
+from .serving_paged import (BlockAllocator, paged_prefill_fn,
+                            paged_prefill_pl_fn, paged_prefill_wave_pl_fn,
+                            paged_serve_chunk_fn)
+
+
+def _to_device(arr: np.ndarray, dev: torch.device) -> torch.Tensor:
+    """Upload a host array without synchronising the stream: CUDA copies go
+    from a fresh pinned buffer, non-blocking (a pageable copy waits for the
+    whole stream, which would serialise the pipeline)."""
+    t = torch.from_numpy(np.array(arr, order="C"))
+    if dev.type != "cuda":
+        return t
+    return t.pin_memory().to(dev, non_blocking=True)
+
+
+class _Readback:
+    """A device -> host copy that waits only for the work queued before it:
+    pinned memory, a non-blocking copy and an event (``tensor.cpu()`` would
+    wait for the whole stream, the chunk just dispatched included)."""
+
+    def __init__(self, t: torch.Tensor):
+        self.event = None
+        if t.is_cuda:
+            self.host = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+            self.host.copy_(t, non_blocking=True)
+            self.event = torch.cuda.Event()
+            self.event.record(torch.cuda.current_stream(t.device))
+        else:
+            self.host = t.clone()
+
+    def numpy(self) -> np.ndarray:
+        if self.event is not None:
+            self.event.synchronize()
+        return self.host.numpy()
+
+
+def _prefill_into_slot_pl_fn(cfg, temperature: float, top_k: int, generator,
+                             params, k_pool, v_pool, last, poss, tokens,
+                             true_len: int, slot: int, on_logits=None):
+    """Pipelined dense prefill: prefill into slot ``slot`` of the pools,
+    sample the first token on the device and write it and the position into
+    the device-resident ``last``/``poss`` (in place). Returns the token, a
+    device scalar: admission is a dispatch, never a sync."""
+    logits = prefill_fn(cfg, params, slot_cache(k_pool, slot),
+                        slot_cache(v_pool, slot), tokens, true_len)
+    if on_logits is not None:
+        on_logits(logits)
+    tok = sample_logits(logits, temperature, top_k, generator)
+    last[slot] = tok
+    poss[slot] = true_len
+    return tok
+
+
+def _prefill_wave_pl_fn(cfg, temperature: float, top_k: int, generator,
+                        n_wave: int, params, k_pool, v_pool, last, poss,
+                        tokens_w, lens_w, slots_w, on_logits=None):
+    """Pipelined admission wave: ``n_wave`` same-bucket prefills in order
+    (tokens_w [W, S] on the device; lens_w, slots_w host ints). Returns the
+    first tokens [W] on the device."""
+    return torch.stack([
+        _prefill_into_slot_pl_fn(cfg, temperature, top_k, generator, params,
+                                 k_pool, v_pool, last, poss, tokens_w[i],
+                                 int(lens_w[i]), int(slots_w[i]), on_logits)
+        for i in range(n_wave)])
+
+
+def _serve_chunk_batch_fn(cfg, n_steps: int, temperature: float, top_k: int,
+                          generator, max_seq_len: int, params, k_pool, v_pool,
+                          last, poss, on_logits=None):
+    """Advance every slot ``n_steps`` tokens with device-resident last/poss
+    (batch-rows step). Positions clamp to ``max_seq_len - 1`` once, after
+    the chunk; inside it the row write, rope rows and attention bound clamp.
+    Returns (last, poss, toks [B, n_steps]) on the device."""
+    toks = batch_generate_scan_fn(cfg, n_steps, temperature, top_k, params,
+                                  k_pool, v_pool, last, poss, generator,
+                                  on_logits=on_logits)
+    return (toks[:, -1].clone(), torch.clamp(poss + n_steps, max=max_seq_len - 1),
+            toks)
 
 
 @dataclass
@@ -34,7 +128,7 @@ class Request:
     generated: list[int] = field(default_factory=list)
     done: bool = False
     slot: int = -1
-    pos: int = 0
+    pos: int = 0                 # this request's own sequence position
     on_token: Callable | None = None   # streaming callback(request, token)
     submitted_at: float = field(default_factory=time.time)
     first_token_at: float | None = None
@@ -65,12 +159,8 @@ class ContinuousBatchingEngine:
                  pipelined: bool = False, paged: bool = False,
                  block_size: int = 16, num_blocks: int | None = None,
                  mesh=None):
-        later = [name for name, on in (
-            ("pipelined dispatch", pipelined), ("paged pools", paged),
-            ("block_size", block_size != 16), ("num_blocks", num_blocks is not None),
-            ("mesh serving", mesh is not None)) if on]
-        if later:
-            raise NotImplementedError("not ported yet: " + ", ".join(later))
+        if mesh is not None:
+            raise NotImplementedError("not ported yet: mesh serving")
         self.model = model
         self.max_batch = max_batch
         self.max_seq_len = max_seq_len
@@ -78,12 +168,37 @@ class ContinuousBatchingEngine:
         self.temperature = temperature
         self.top_k = top_k
         self.seed = seed
+        self.pipelined = pipelined
+        self.paged = paged
         cfg = model.config
         dev = model.device
-        shape = (max_batch, cfg.num_layers, max_seq_len,
-                 cfg.num_kv_heads * cfg.head_dim)
-        self.k_cache = kv_cache_zeros(shape, model.kv_dtype, device=dev)
-        self.v_cache = kv_cache_zeros(shape, model.kv_dtype, device=dev)
+        if paged:
+            # block 0 is the trash block; the default pool covers the worst
+            # case (admission reserves each request's full need up front)
+            self.block_size = block_size
+            self.max_blocks = -(-max_seq_len // block_size)
+            nb = num_blocks or (max_batch * self.max_blocks + 2)
+            shape = (cfg.num_layers, nb, cfg.num_kv_heads, block_size,
+                     cfg.head_dim)
+            if model.kv_dtype == torch.int8:
+                # int8 dict block pools: one scale per row, [L, NB, BS]
+                self.k_cache, self.v_cache = (
+                    {"q": torch.zeros(shape, dtype=torch.int8, device=dev),
+                     "s": torch.zeros(shape[:2] + shape[3:4],
+                                      dtype=torch.bfloat16, device=dev)}
+                    for _ in range(2))
+            else:
+                self.k_cache = torch.zeros(shape, dtype=model.kv_dtype, device=dev)
+                self.v_cache = torch.zeros(shape, dtype=model.kv_dtype, device=dev)
+            self._alloc = BlockAllocator(nb, block_size)
+            self._tables_np = np.zeros((max_batch, self.max_blocks), np.int32)
+            self._tables_dev = _to_device(self._tables_np, dev)
+            self._tables_dirty = False
+        else:
+            shape = (max_batch, cfg.num_layers, max_seq_len,
+                     cfg.num_kv_heads * cfg.head_dim)
+            self.k_cache = kv_cache_zeros(shape, model.kv_dtype, device=dev)
+            self.v_cache = kv_cache_zeros(shape, model.kv_dtype, device=dev)
         self._generator = torch.Generator(device=dev)
         self._generator.manual_seed(seed)
         self._slots: list[Request | None] = [None] * max_batch
@@ -91,10 +206,16 @@ class ContinuousBatchingEngine:
         self._next_id = 1
         self._last_tokens = np.zeros(max_batch, np.int64)
         self._poss = np.zeros(max_batch, np.int32)
+        self._prefill_shapes: set[tuple[int, int]] = set()   # (wave, bucket)
         # sticky on-device flag: did any prefill or decode logit go
         # non-finite? Read without a sync per step (logits_finite()).
         self._nonfinite = torch.zeros((), dtype=torch.bool, device=dev)
         self.stats = EngineStats()
+        if pipelined:
+            self._last_dev = torch.zeros(max_batch, dtype=torch.long, device=dev)
+            self._poss_dev = torch.zeros(max_batch, dtype=torch.int32, device=dev)
+            self._inflight = None            # (_Readback, [(slot, req), ...])
+            self._pending_first: list = []   # [(req, _Readback, index)]
 
     # -- request lifecycle -------------------------------------------------
 
@@ -107,6 +228,13 @@ class ContinuousBatchingEngine:
                 f"({self.max_seq_len})")
         req = Request(self._next_id, list(prompt), max_new_tokens,
                       eos_token_id, on_token=on_token)
+        if self.paged:
+            need = self._paged_need(req)
+            if need > self._alloc.num_blocks - 1:
+                raise MemoryError(
+                    f"request needs {need} KV blocks; pool has "
+                    f"{self._alloc.num_blocks - 1} usable — raise num_blocks"
+                    f" or lower max_new_tokens")
         self._next_id += 1
         self._queue.append(req)
         self.stats.requests_submitted += 1
@@ -131,26 +259,90 @@ class ContinuousBatchingEngine:
                 req.on_token = None
 
     def _admit(self) -> None:
-        """Move queued requests into free slots, running their prefills."""
+        """Move queued requests into free slots, running their prefills
+        (pipelined mode batches same-bucket admissions into waves)."""
+        pairs = []
         for slot in [i for i, r in enumerate(self._slots) if r is None]:
             if not self._queue:
                 break
+            if self.paged and not self._can_admit_paged(self._queue[0], pairs):
+                break                      # pool busy: admit when blocks free
             req = self._queue.pop(0)
             req.slot = slot
             self._slots[slot] = req
-            self._prefill_slot(slot, req)
+            pairs.append((slot, req))
+        self._dispatch_prefills(pairs)
 
-    @torch.no_grad()
+    def _dispatch_prefills(self, pairs: list) -> None:
+        """Run prefills for (slot, request) pairs; in pipelined mode,
+        same-bucket groups go in power-of-two sub-waves (the reference's
+        bounded executable key space, which warmup() covers)."""
+        if not self.pipelined:
+            for slot, req in pairs:
+                self._prefill_slot(slot, req)
+            return
+        by_bucket: dict[int, list] = {}
+        for slot, req in pairs:
+            by_bucket.setdefault(self._bucket_of(req), []).append((slot, req))
+        for bucket, group in by_bucket.items():
+            i = 0
+            while i < len(group):
+                w = 1 << ((len(group) - i).bit_length() - 1)
+                self._prefill_wave(bucket, group[i:i + w])
+                i += w
+
+    def _bucket_of(self, req: Request) -> int:
+        return min(_bucket(max(len(req.prompt), 8)), self.max_seq_len)
+
+    def _run_prefills(self, bucket: int, slots: list[int], lens: list[int],
+                      tokens: torch.Tensor, tables: torch.Tensor | None):
+        """The one call site of the prefill functions (tokens [W, bucket],
+        tables [W, MB] on the device for paged engines). Pipelined engines
+        sample on the device into last/poss and get the first tokens [W];
+        the others prefill one request and get its logits. The reference
+        compiles an executable per (wave size, bucket); ``_prefill_shapes``
+        records the shapes run, which warmup() covers."""
+        self._prefill_shapes.add((len(slots), bucket))
+        m = self.model
+        if not self.pipelined:
+            if self.paged:
+                return paged_prefill_fn(m.config, m.params, self.k_cache,
+                                        self.v_cache, tables[0], tokens[0], lens[0])
+            return prefill_fn(m.config, m.params, slot_cache(self.k_cache, slots[0]),
+                              slot_cache(self.v_cache, slots[0]), tokens[0], lens[0])
+        head = (m.config, float(self.temperature), int(self.top_k),
+                self._generator, len(slots), m.params, self.k_cache,
+                self.v_cache, self._last_dev, self._poss_dev)
+        if self.paged:
+            return paged_prefill_wave_pl_fn(*head, tables, tokens, lens, slots,
+                                            on_logits=self._track)
+        return _prefill_wave_pl_fn(*head, tokens, lens, slots,
+                                   on_logits=self._track)
+
+    def _prefill_inputs(self, bucket: int, group: list):
+        """(slots, lengths, padded prompts [W, bucket], block-table rows
+        [W, MB] or None) of (slot, request) pairs, on the device. Paged
+        engines reserve each request's full worst case first (see
+        _can_admit_paged)."""
+        slots = [slot for slot, _ in group]
+        padded = np.zeros((len(group), bucket), np.int64)
+        for i, (slot, req) in enumerate(group):
+            padded[i, :len(req.prompt)] = req.prompt
+            if self.paged:
+                self._ensure_blocks(req, slot,
+                                    len(req.prompt) + req.max_new_tokens + 1)
+        dev = self.model.device
+        tables = _to_device(self._tables_np[slots], dev) if self.paged else None
+        return (slots, [len(r.prompt) for _, r in group], _to_device(padded, dev),
+                tables)
+
     def _prefill_slot(self, slot: int, req: Request) -> None:
-        model = self.model
+        """Non-pipelined admission: prefill, then sample and read the first
+        token back at once."""
         n = len(req.prompt)
-        bucket = min(_bucket(max(n, 8)), self.max_seq_len)
-        padded = torch.zeros(bucket, dtype=torch.long)
-        padded[:n] = torch.as_tensor(req.prompt, dtype=torch.long)
-        logits = prefill_fn(model.config, model.params,
-                            slot_cache(self.k_cache, slot),
-                            slot_cache(self.v_cache, slot),
-                            padded.to(model.device), n)
+        bucket = self._bucket_of(req)
+        logits = self._run_prefills(bucket,
+                                    *self._prefill_inputs(bucket, [(slot, req)]))
         self._track(logits)
         tok = int(sample_logits(logits, self.temperature, self.top_k,
                                 self._generator))
@@ -162,6 +354,58 @@ class ContinuousBatchingEngine:
         self.stats.prefills += 1
         self._maybe_finish(slot, tok)
 
+    def _prefill_wave(self, bucket: int, group: list) -> None:
+        """Pipelined admission of same-bucket (slot, request) pairs: one
+        dispatch each, the first tokens sampled on the device and read back
+        at the next resolution (by then computed; the pinned copy waits for
+        nothing dispatched after it). The reference's single and wave,
+        dense and paged variants (_prefill_slot_pl, _prefill_wave_pl,
+        _prefill_slot_paged_pl, _prefill_wave_paged_pl) are this method."""
+        rb = _Readback(self._run_prefills(bucket,
+                                          *self._prefill_inputs(bucket, group)))
+        for i, (slot, req) in enumerate(group):
+            self._poss[slot] = len(req.prompt)
+            req.pos = len(req.prompt)      # per-request: the slot may be
+            self._pending_first.append((req, rb, i))   # reused before it resolves
+            self.stats.prefills += 1
+
+    # -- paged mode ----------------------------------------------------------
+
+    def _sync_tables(self) -> None:
+        if self._tables_dirty:
+            self._tables_dev = _to_device(self._tables_np, self.model.device)
+            self._tables_dirty = False
+
+    def _paged_need(self, req: Request) -> int:
+        """Worst-case blocks this request can ever need (context-clamped)."""
+        n = min(len(req.prompt) + req.max_new_tokens + 1, self.max_seq_len)
+        return -(-n // self.block_size)
+
+    def _can_admit_paged(self, req: Request, pending=()) -> bool:
+        """Admission reserves the full worst case, so growth mid-chunk never
+        exhausts the pool; never-fitting requests are refused at submit().
+        ``pending``: the (slot, request) pairs this admission pass took
+        already, whose blocks are allocated only when their prefills run.
+        (The reference checks each request against the free count alone, so
+        one pass over several free slots can admit more than the pool holds
+        and fail with MemoryError; ROADMAP E.)"""
+        held = sum(self._paged_need(r) for _, r in pending)
+        return self._paged_need(req) <= self._alloc.free_blocks - held
+
+    def _ensure_blocks(self, req: Request, slot: int, n_tokens: int) -> None:
+        n_tokens = min(n_tokens, self.max_seq_len)   # table capacity
+        blocks = self._alloc.alloc_for(req.request_id, n_tokens)
+        row = self._tables_np[slot]
+        if not np.array_equal(row[:len(blocks)], blocks):
+            row[:] = 0
+            row[:len(blocks)] = blocks
+            self._tables_dirty = True
+
+    def _release_paged(self, req: Request, slot: int) -> None:
+        self._alloc.free(req.request_id)
+        self._tables_np[slot] = 0          # clamped writes land in trash
+        self._tables_dirty = True
+
     def _maybe_finish(self, slot: int, tok: int) -> None:
         req = self._slots[slot]
         if req is not None:
@@ -169,6 +413,10 @@ class ContinuousBatchingEngine:
 
     def _maybe_finish_req(self, req: Request, slot: int, tok: int,
                           pos: int | None = None) -> None:
+        """Request-bound finish check: in pipelined mode resolution lags a
+        chunk, so ``slot`` may already host a newer request; the request's
+        identity decides completion, and the slot (and its table row) is
+        freed only if this request still owns it."""
         if pos is None:
             pos = self._poss[slot]
         if ((req.eos_token_id is not None and tok == req.eos_token_id)
@@ -178,6 +426,13 @@ class ContinuousBatchingEngine:
             req.finished_at = time.time()
             if self._slots[slot] is req:
                 self._slots[slot] = None
+                if self.paged:
+                    self._release_paged(req, slot)
+            elif self.paged:
+                # the slot already hosts a newer request whose table row
+                # replaced ours: free the finished request's blocks by
+                # identity so they don't leak
+                self._alloc.free(req.request_id)
             self.stats.requests_completed += 1
 
     # -- engine loop -------------------------------------------------------
@@ -186,6 +441,8 @@ class ContinuousBatchingEngine:
     def step(self) -> int:
         """Admit, then advance every active slot by steps_per_dispatch
         tokens. Returns the number of active slots."""
+        if self.pipelined:
+            return self._step_pipelined()
         self._admit()
         active = [i for i, r in enumerate(self._slots) if r is not None]
         if not active:
@@ -194,17 +451,25 @@ class ContinuousBatchingEngine:
         cfg, params = self.model.config, self.model.params
         last = torch.as_tensor(self._last_tokens).to(dev)
         poss = torch.as_tensor(self._poss).to(dev)
-        n = self.steps_per_dispatch
-        if n <= 1:
-            logits = batch_decode_step_fn(cfg, params, self.k_cache,
-                                          self.v_cache, last, poss)
-            self._track(logits)
-            toks_d = sample_logits(logits, self.temperature, self.top_k,
-                                   self._generator)[:, None]
+        if self.paged:
+            n = max(self.steps_per_dispatch, 1)
+            for i in active:
+                req = self._slots[i]
+                # never demand past the admission-time reservation
+                # (overflow positions land in the trash block)
+                self._ensure_blocks(req, i, min(
+                    int(self._poss[i]) + n + 1,
+                    len(req.prompt) + req.max_new_tokens + 1))
+            self._sync_tables()
+            toks_d = paged_serve_chunk_fn(
+                cfg, n, self.temperature, self.top_k, self._generator,
+                self.max_seq_len, params, self.k_cache, self.v_cache,
+                self._tables_dev, last, poss, on_logits=self._track)[2]
         else:
             toks_d = batch_generate_scan_fn(
-                cfg, n, self.temperature, self.top_k, params, self.k_cache,
-                self.v_cache, last, poss, self._generator, on_logits=self._track)
+                cfg, max(self.steps_per_dispatch, 1), self.temperature,
+                self.top_k, params, self.k_cache, self.v_cache, last, poss,
+                self._generator, on_logits=self._track)
         toks = toks_d.cpu().numpy()                          # [B, n]
         self.stats.steps += 1
         for i in active:
@@ -222,6 +487,120 @@ class ContinuousBatchingEngine:
                     break
         return len(active)
 
+    def _step_pipelined(self) -> int:
+        """One pipelined engine step:
+
+        1. dispatch a chunk over the current device state (admissions from
+           the previous call are already queued on the device), unless
+           every active request is length-certain to finish inside the
+           chunk already in flight (_tail_covered): that chunk would be
+           fully dead;
+        2. resolve the previous chunk's tokens; its readback waits for that
+           chunk only, so the host bookkeeping overlaps the chunk just
+           dispatched;
+        3. admissions prefill into the freed slots (queued after this
+           chunk, picked up by the next one).
+        """
+        if (os.environ.get("PYGPUKIT_SERVE_PREADMIT", "1") != "0"
+                and self._queue and any(r is None for r in self._slots)):
+            # fill already-free slots before dispatching: the prefills are
+            # queued ahead of the chunk, no sync needed
+            self._admit()
+        active = [(i, self._slots[i]) for i in range(self.max_batch)
+                  if self._slots[i] is not None]
+        dispatched = None
+        if active and self._tail_covered(active):
+            active = []
+        if active:
+            model = self.model
+            n = max(self.steps_per_dispatch, 1)
+            if self.paged:
+                self._sync_tables()
+                last, poss, toks = paged_serve_chunk_fn(
+                    model.config, n, self.temperature, self.top_k,
+                    self._generator, self.max_seq_len, model.params,
+                    self.k_cache, self.v_cache, self._tables_dev,
+                    self._last_dev, self._poss_dev, on_logits=self._track)
+            else:
+                last, poss, toks = _serve_chunk_batch_fn(
+                    model.config, n, self.temperature, self.top_k,
+                    self._generator, self.max_seq_len, model.params,
+                    self.k_cache, self.v_cache, self._last_dev,
+                    self._poss_dev, on_logits=self._track)
+            self._last_dev, self._poss_dev = last, poss
+            dispatched = (_Readback(toks), active)
+            self.stats.steps += 1
+        self._resolve_inflight()
+        self._inflight = dispatched
+        self._admit()
+        self._early_admit()
+        return len(active)
+
+    def _tail_covered(self, active) -> bool:
+        """True when every active slot holds a request that was already in
+        the inflight chunk and is length-bound to complete there: another
+        chunk over these slots yields no useful token. Early-admitted
+        replacements are not in the inflight snapshot, so their presence
+        forces a dispatch."""
+        if os.environ.get("PYGPUKIT_SERVE_TAILSKIP", "1") == "0":
+            return False
+        if self._inflight is None:
+            return False
+        n = max(self.steps_per_dispatch, 1)
+        inflight_ids = {id(r) for _, r in self._inflight[1]}
+        return all(id(req) in inflight_ids
+                   and len(req.generated) + n >= req.max_new_tokens
+                   for _, req in active)
+
+    def _early_admit(self) -> None:
+        """Admission lookahead: a length-bound request certain to complete
+        within the inflight chunk gets its replacement prefilled now (queued
+        after that chunk), so the slot decodes useful tokens in the very
+        next chunk. EOS-bound finishes keep the one-chunk lag."""
+        if self._inflight is None or not self._queue:
+            return
+        n = max(self.steps_per_dispatch, 1)
+        pairs = []
+        for slot, req in self._inflight[1]:
+            if not self._queue:
+                break
+            if (self._slots[slot] is req and not req.done
+                    and len(req.generated) + n >= req.max_new_tokens):
+                if self.paged and not self._can_admit_paged(self._queue[0], pairs):
+                    break
+                nxt = self._queue.pop(0)
+                nxt.slot = slot
+                self._slots[slot] = nxt
+                pairs.append((slot, nxt))
+        self._dispatch_prefills(pairs)
+
+    def _resolve_inflight(self) -> None:
+        # prefill first tokens were dispatched before the inflight chunk:
+        # resolve them first so request.generated stays in stream order
+        for req, rb, i in self._pending_first:
+            tok = int(rb.numpy()[i])
+            self._emit(req, tok)
+            req.first_token_at = time.time()
+            self._last_tokens[req.slot] = tok
+            self._maybe_finish_req(req, req.slot, tok, pos=req.pos)
+        self._pending_first = []
+        if self._inflight is None:
+            return
+        rb, snapshot = self._inflight
+        self._inflight = None
+        toks = rb.numpy()
+        for slot, req in snapshot:
+            for j in range(toks.shape[1]):
+                if req.done:
+                    break
+                tok = int(toks[slot, j])
+                req.pos += 1
+                if self._slots[slot] is req:   # slot may be early-readmitted
+                    self._poss[slot] = req.pos
+                self._emit(req, tok)
+                self._last_tokens[slot] = tok
+                self._maybe_finish_req(req, slot, tok, pos=req.pos)
+
     def run_until_complete(self, max_steps: int = 10000) -> None:
         for _ in range(max_steps):
             if not self.has_work:
@@ -230,4 +609,48 @@ class ContinuousBatchingEngine:
 
     @property
     def has_work(self) -> bool:
-        return bool(self._queue) or any(r is not None for r in self._slots)
+        return (bool(self._queue) or any(r is not None for r in self._slots)
+                or (self.pipelined and (self._inflight is not None
+                                        or bool(self._pending_first))))
+
+    @torch.no_grad()
+    def warmup(self, prompt_lens=(16,), wave_sizes=None) -> None:
+        """Build the kernels and run every prefill shape the given prompt
+        lengths can hit once, so neither lands mid-workload: each prefill
+        bucket and, in pipelined mode, each power-of-two wave size (the only
+        sizes _dispatch_prefills forms). Runs on an idle engine. Paged
+        prefills write into the trash block (all-zero tables), dense ones
+        into free slots; the generator, device last/poss and the
+        non-finite flag are restored, so warmup changes no stream.
+
+        Unlike the reference, this works on a paged engine that is not
+        pipelined, and a paged pipelined engine warms the prefills it runs
+        (the reference's serving.py:1154 raises and :1158 installs the
+        non-pipelined chunk)."""
+        if self.has_work:
+            raise RuntimeError("warmup() runs on an idle engine")
+        dev = self.model.device
+        if dev.type == "cuda":
+            from ..kernels import build
+            build()
+        ws = (wave_sizes if wave_sizes is not None else
+              [w for w in (2, 4, 8, 16, 32, 64, 128) if w <= self.max_batch])
+        ws = [1] + (ws if self.pipelined else [])
+        buckets = sorted({min(_bucket(max(int(n), 8)), self.max_seq_len)
+                          for n in prompt_lens})
+        gen_state = self._generator.get_state()
+        saved = [self._nonfinite.clone()]
+        if self.pipelined:
+            saved += [self._last_dev.clone(), self._poss_dev.clone()]
+        trash = (torch.zeros((self.max_batch, self.max_blocks), dtype=torch.int32,
+                             device=dev) if self.paged else None)
+        for b in buckets:
+            tokens = torch.zeros((self.max_batch, b), dtype=torch.long, device=dev)
+            for w in ws:
+                self._run_prefills(b, list(range(w)), [1] * w, tokens[:w],
+                                   None if trash is None else trash[:w])
+        self._nonfinite.copy_(saved[0])
+        if self.pipelined:
+            self._last_dev.copy_(saved[1])
+            self._poss_dev.copy_(saved[2])
+        self._generator.set_state(gen_state)

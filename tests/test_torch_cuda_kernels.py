@@ -12,7 +12,10 @@ import torch
 from pygpukit_tpu_torch.kernels import (LAUNCHES, batch_decode_attention,
                                         batch_decode_attention_plain,
                                         kv_rows_write, kv_rows_write_plain,
+                                        paged_attention, paged_attention_plain,
                                         w4a8_matmul, w4a8_matmul_plain)
+from pygpukit_tpu_torch.ops.paged import (paged_attention_dispatch,
+                                          paged_attention_fn)
 
 pytestmark = pytest.mark.cuda
 
@@ -84,6 +87,49 @@ def test_batch_decode_attention_close(dev, softcap, window):
     assert torch.allclose(out.float(), ref.float(), atol=1e-2, rtol=1e-2)
 
 
+def _paged_inputs(dev, max_len, seed, b=8, bs=16, hq=32, hk=4, d=64):
+    """Slots over shuffled physical blocks, contexts spread from 1 to
+    max_len, the last two slots dead on the trash table (block 0)."""
+    g = _gen(dev, seed)
+    mb = max_len // bs
+    nb = b * mb + 2
+    kp = torch.randn((nb, hk, bs, d), generator=g, device=dev).to(torch.bfloat16)
+    vp = torch.randn((nb, hk, bs, d), generator=g, device=dev).to(torch.bfloat16)
+    q = torch.randn((b, hq, d), generator=g, device=dev).to(torch.bfloat16)
+    perm = torch.randperm(nb - 1, generator=g, device=dev).to(torch.int32) + 1
+    tables = perm[:b * mb].reshape(b, mb).contiguous()
+    tables[-2:] = 0
+    lens = torch.tensor([1, 17, max_len // 2 + 3, max_len - 1, max_len, 300 % max_len,
+                         5, 40], dtype=torch.int32, device=dev)
+    return q, kp, vp, tables, lens
+
+
+@pytest.mark.parametrize("max_len", [512, 1024])
+@pytest.mark.parametrize("softcap,window", [(None, None), (30.0, 100)])
+def test_paged_attention_close(dev, max_len, softcap, window):
+    q, kp, vp, tables, lens = _paged_inputs(dev, max_len, 5)
+    before = LAUNCHES["paged_attention"]
+    out = paged_attention(q, kp, vp, tables, lens, scale=0.125, softcap=softcap,
+                          window=window)
+    assert LAUNCHES["paged_attention"] == before + 1
+    ref = paged_attention_plain(q, kp, vp, tables, lens, 0.125, softcap, window)
+    # bf16 output; the kernel rounds P to bf16 before P@V, the plain version
+    # keeps it f32
+    assert torch.allclose(out.float(), ref.float(), atol=1e-2, rtol=1e-2)
+
+
+def test_paged_attention_dispatch_uses_the_kernel(dev):
+    """ops.paged on CUDA tensors: the kernel over transposed [NB, BS, Hk, D]
+    pools, against the gather formulation."""
+    q, kp, vp, tables, lens = _paged_inputs(dev, 512, 6)
+    kp, vp = kp.transpose(1, 2).contiguous(), vp.transpose(1, 2).contiguous()
+    before = LAUNCHES["paged_attention"]
+    out = paged_attention_dispatch(q[3], kp, vp, tables[3], int(lens[3]))
+    assert LAUNCHES["paged_attention"] == before + 1
+    ref = paged_attention_fn(q[3], kp, vp, tables[3], int(lens[3]))
+    assert torch.allclose(out.float(), ref.float(), atol=1e-2, rtol=1e-2)
+
+
 def test_cuda_wrappers_raise_on_unsupported_storage(dev):
     pools = torch.zeros((2, 1, 64, 128), dtype=torch.float32, device=dev)
     rows = torch.zeros((2, 2, 64), dtype=torch.float32, device=dev)
@@ -93,6 +139,13 @@ def test_cuda_wrappers_raise_on_unsupported_storage(dev):
     with pytest.raises(NotImplementedError):
         batch_decode_attention(torch.zeros((2, 1, 4, 64), device=dev), pools, pools, 0,
                                torch.ones(2, dtype=torch.int32, device=dev))
+    blocks = torch.zeros((4, 2, 16, 64), dtype=torch.int8, device=dev)
+    with pytest.raises(NotImplementedError):
+        paged_attention(torch.zeros((2, 4, 64), dtype=torch.bfloat16, device=dev),
+                        {"q": blocks, "s": torch.zeros((4, 16), device=dev)},
+                        {"q": blocks, "s": torch.zeros((4, 16), device=dev)},
+                        torch.zeros((2, 2), dtype=torch.int32, device=dev),
+                        torch.ones(2, dtype=torch.int32, device=dev))
     w = torch.zeros((64, 16), dtype=torch.uint8, device=dev)
     with pytest.raises(ValueError, match="scale"):     # a host scale pointer
         w4a8_matmul(torch.zeros((1, 32), dtype=torch.bfloat16, device=dev), w,

@@ -143,8 +143,7 @@ def test_int4_model_logits_within_int8_envelope(monkeypatch):
 
 def test_unported_options_raise(f32_pair):
     _, tm = f32_pair
-    for kw in (dict(pipelined=True), dict(paged=True), dict(mesh=object()),
-               dict(num_blocks=64), dict(block_size=32)):
+    for kw in (dict(mesh=object()), dict(mesh=object(), paged=True)):
         with pytest.raises(NotImplementedError):
             ContinuousBatchingEngine(tm, max_batch=2, max_seq_len=64, **kw)
     with pytest.raises(NotImplementedError):
