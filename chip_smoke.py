@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch port (pygpukit_tpu_torch) on one CUDA card.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py                    # every phase, as automation runs it
+    python3 chip_smoke.py --phases ladder    # one or more phases alone
 
 Phases:
  1. the card's name and power limit; torch, CUDA and nvcc versions;
@@ -13,7 +14,10 @@ Phases:
     paged attention at batch 8, block 16, MAX 512 and 1024 over shuffled
     blocks with two dead slots on the trash table), bitwise where the math
     is integer or a copy; then kernel and plain times (CUDA events, warmed
-    up, weights or layers cycled through more than the 50 MB L2);
+    up, weights or layers cycled through more than the 50 MB L2); the four
+    ladder GEMVs (w4a16, block w4a8, block w4a16, converting fp8) at the
+    four projection shapes, rows 1 and 8: block w4a8 bitwise, the others
+    within one bf16 ulp plus 1e-4 of max |y|, with GB/s of weight bytes;
  4. the dense path: the TinyLlama-1.1B shape with random int4 weights and
     an int8 head, served by the batch-8 ContinuousBatchingEngine
     (max_seq_len 1024, 16 steps per dispatch) for 16 requests; every request
@@ -40,7 +44,18 @@ Phases:
  8. a tight pool: 16 requests with 16- and 200-token prompts and 48-64 new
     tokens over a pool that holds at most 4 of them at once; admission
     waits instead of failing, every request finishes, and every block but
-    the trash block is free at the end.
+    the trash block is free at the end;
+ 9. the decode ladder, the reference's bench_decode (bench.py:172-253) at
+    full width and depth: bf16, fp8, int8 (w8a8), int4, int4 under
+    PYGPUKIT_INT4_MODE=w4a16, int4_block and int4_block under
+    PYGPUKIT_INT4_BLOCK=w4a16, each a warm and a timed generate of 256
+    tokens after a 16-token prompt (cache 512, one chunk): identical
+    tokens, finite logits, 88 launches per decode step of the rung's GEMV
+    and none of any other; tok/s, one step's eager wall ms and graph
+    device ms, bytes streamed per step and GB/s;
+10. phase 4's workload on the int4_block model, replayed bitwise, against
+    single-stream generate (reported), and its 2-layer model on the card
+    against the CPU plain path.
 
 Any failure exits non-zero. The last two lines are the kernel summary and
 the device line read by automation; it exits 2 with no result when no CUDA
@@ -67,6 +82,14 @@ CFG_1B = dict(vocab_size=32000, hidden_size=2048, num_layers=22, num_heads=32,
 # the kernels' TPU originals, for the summary line
 SOURCES = {"w4a8_gemv": ("pygpukit_tpu_torch/csrc/w4a8_gemv.cu",
                          "pygpukit_tpu/kernels/gemv_quant.py:609"),
+           "w4a16_gemv": ("pygpukit_tpu_torch/csrc/w4a16_gemv.cu",
+                          "pygpukit_tpu/kernels/gemv_quant.py:158"),
+           "block_w4a8_gemv": ("pygpukit_tpu_torch/csrc/block_w4a8_gemv.cu",
+                               "pygpukit_tpu/kernels/gemv_quant.py:1137"),
+           "block_w4a16_gemv": ("pygpukit_tpu_torch/csrc/block_w4a16_gemv.cu",
+                                "pygpukit_tpu/kernels/gemv_quant.py:1260"),
+           "conv_gemv": ("pygpukit_tpu_torch/csrc/conv_gemv.cu",
+                         "pygpukit_tpu/kernels/gemv_quant.py:714"),
            "w4a8_gemm": ("pygpukit_tpu_torch/csrc/w4a8_gemm.cu",
                          "pygpukit_tpu/kernels/gemv_quant.py:830"),
            "kv_rows_write": ("pygpukit_tpu_torch/csrc/kv_row_write.cu",
@@ -78,6 +101,21 @@ SOURCES = {"w4a8_gemv": ("pygpukit_tpu_torch/csrc/w4a8_gemv.cu",
                                "pygpukit_tpu/kernels/paged_attention.py:80")}
 DENSE_KERNELS = ("w4a8_gemv", "w4a8_gemm", "kv_rows_write", "batch_decode_attention")
 PAGED_KERNELS = ("w4a8_gemv", "w4a8_gemm", "paged_attention")
+GEMVS = ("w4a8_gemv", "w4a16_gemv", "block_w4a8_gemv", "block_w4a16_gemv", "conv_gemv")
+# the reference's decode ladder (bench.py:469-486): rung -> (quant mode or
+# None for bf16, route switches, the GEMV every decode projection launches)
+LADDER = {"bf16": (None, {}, None), "fp8": ("fp8", {}, "conv_gemv"),
+          "int8": ("int8", {}, None), "int4": ("int4", {}, "w4a8_gemv"),
+          "int4 w4a16": ("int4", {"PYGPUKIT_INT4_MODE": "w4a16"}, "w4a16_gemv"),
+          "int4_block": ("int4_block", {}, "block_w4a8_gemv"),
+          "int4_block w4a16": ("int4_block", {"PYGPUKIT_INT4_BLOCK": "w4a16"},
+                               "block_w4a16_gemv")}
+LADDER_PROMPT, LADDER_NEW, LADDER_MAX = list(range(1, 17)), 256, 512
+# the ladder GEMVs against their plain versions: one bf16 ulp plus 1e-4 of
+# the largest |output| (the same exact f32 products summed in another
+# order; the block w4a8 GEMV is held bitwise instead)
+ULP_REL, NEAR_ZERO = 2.0 ** -7, 1e-4
+PHASES = ("kernels", "dense", "paged", "tight", "ladder", "block", "parity")
 # card vs CPU plain path, relative L2 of the logits. Not a rounding-level
 # match: the w4a8 and w8a8 matmuls requantize bf16 activations, and one bf16
 # ulp is about a quarter of an int8 step, so last-bit differences between the
@@ -290,13 +328,86 @@ def check_paged_attention(dev, g, detail: dict) -> tuple:
     return (err, *times[512])
 
 
-def build_model(cfg, seed: int, dev):
+def ladder_weights(dev, g, n: int, k: int, n_var: int) -> dict:
+    """``n_var`` weights of each ladder GEMV at [N, K] (distinct weights
+    cycle through more than the L2): name -> (tuple of per-variant argument
+    tuples, weight and scale bytes of one variant)."""
+    import torch
+    kmajor = torch.randint(0, 256, (n_var, k // 2, n), generator=g, device=dev,
+                           dtype=torch.uint8)
+    sblock = (torch.rand((n_var, k // 32, n), generator=g, device=dev) * 1e-3
+              + 1e-4).to(torch.bfloat16)
+    packed = torch.randint(0, 256, (n_var, n, k // 2), generator=g, device=dev,
+                           dtype=torch.uint8)
+    sc = torch.rand((n_var, n), generator=g, device=dev) * 1e-3 + 1e-4
+    fp8 = (torch.randn((n_var, k, n), generator=g, device=dev) * 64).to(torch.float8_e4m3fn)
+    block = [(kmajor[i], sblock[i]) for i in range(n_var)]
+    block_bytes = k // 2 * n + k // 32 * n * 2
+    return {"block_w4a8_gemv": (block, block_bytes),
+            "block_w4a16_gemv": (block, block_bytes),
+            "w4a16_gemv": ([(packed[i], sc[i]) for i in range(n_var)], k // 2 * n + 4 * n),
+            "conv_gemv": ([(fp8[i], sc[i]) for i in range(n_var)], k * n + 4 * n)}
+
+
+def check_ladder_kernels(dev, g, detail: dict) -> dict:
+    """Phase 3, the four ladder GEMVs at the four projection shapes, rows 1
+    and 8: the block w4a8 GEMV bitwise, the others within one bf16 ulp plus
+    1e-4 of max |y| (max abs error and share of equal elements reported);
+    kernel and plain device ms and GB/s of weight and scale bytes. Returns
+    {name: (max_abs_err, ms, plain_ms)} with the times summed over the four
+    shapes at one row (the decode step's projections, per layer)."""
+    import torch
+    from pygpukit_tpu_torch import kernels as K
+    fns = {"block_w4a8_gemv": (K.block_w4a8_matmul, K.block_w4a8_matmul_plain),
+           "block_w4a16_gemv": (K.block_w4a16_matmul, K.block_w4a16_matmul_plain),
+           "w4a16_gemv": (K.w4a16_matmul, K.w4a16_matmul_plain),
+           "conv_gemv": (K.conv_matmul, K.conv_matmul_plain)}
+    res = {name: [0.0, 0.0, 0.0] for name in fns}
+    n_var = 8
+    for shape, (n, k) in PROJ_SHAPES.items():
+        weights = ladder_weights(dev, g, n, k, n_var)
+        for rows in (1, 8):
+            x = (torch.randn((rows, k), generator=g, device=dev) * 2).to(torch.bfloat16)
+            for name, (fn, plain) in fns.items():
+                args, nbytes = weights[name]
+                y, ref = fn(x, *args[0]), plain(x, *args[0])
+                torch.cuda.synchronize()
+                diff = (y.float() - ref.float()).abs()
+                err = diff.max().item()
+                equal = torch.eq(bits(y), bits(ref)).float().mean().item()
+                if name == "block_w4a8_gemv":
+                    check(equal == 1.0, f"{name} {shape} rows={rows}: not bitwise "
+                          f"(max abs err {err})")
+                else:
+                    tol = ref.float().abs() * ULP_REL + NEAR_ZERO * ref.float().abs().max()
+                    check(bool((diff <= tol).all()), f"{name} {shape} rows={rows}: "
+                          f"max abs err {err}")
+                kms = time_ms(lambda i: fn(x, *args[i]), n_var)
+                pms = time_ms(lambda i: plain(x, *args[i]), n_var)
+                detail[f"{name}_{shape}_rows{rows}"] = {
+                    "ms": kms, "plain_ms": pms, "GBps": nbytes / kms / 1e6,
+                    "plain_GBps": nbytes / pms / 1e6, "max_abs_err": err,
+                    "equal_share": equal}
+                r = res[name]
+                r[0] = max(r[0], err)
+                if rows == 1:
+                    r[1] += kms
+                    r[2] += pms
+        del weights
+    return {name: tuple(r) for name, r in res.items()}
+
+
+def build_model(cfg, seed: int, dev, mode: str | None = "int4", base=None):
+    """The model of ``cfg`` with random bf16 weights from ``seed`` (or the
+    dense tree ``base``), quantized with ``mode`` (None keeps bf16) and
+    fused, as bench.py:198-202 builds its decode models."""
     import torch
     from pygpukit_tpu_torch.llm import (CausalTransformerModel, fuse_params,
                                         init_params, quantize_model_params)
-    params = fuse_params(quantize_model_params(
-        init_params(cfg, seed, torch.bfloat16, dev), "int4"))
-    return CausalTransformerModel(cfg, params, dtype=torch.bfloat16)
+    params = base if base is not None else init_params(cfg, seed, torch.bfloat16, dev)
+    if mode is not None:
+        params = quantize_model_params(params, mode)
+    return CausalTransformerModel(cfg, fuse_params(params), dtype=torch.bfloat16)
 
 
 def serve(model, requests, n_steps: int, warm=(), max_seq_len: int = 1024,
@@ -321,23 +432,25 @@ def serve(model, requests, n_steps: int, warm=(), max_seq_len: int = 1024,
     return eng, reqs, time.perf_counter() - t0
 
 
-def decode_step_times(model, dev) -> tuple[float, float]:
-    """(eager wall ms, graph-replayed device ms) of one batch-8 decode step
-    of ``model`` with every slot at position 300: how much of the eager
-    step is the device's work and how much host launch cost."""
+def decode_step_times(model, b: int, max_len: int, pos: int) -> tuple[float, float, list]:
+    """(eager wall ms, graph-replayed device ms, kernel profile) of one
+    batch-``b`` decode step of ``model`` over ``[b, L, max_len, Hk*D]``
+    pools with every slot at position ``pos``: how much of the eager step
+    is the device's work and how much host launch cost. At b = 1 this is
+    the single-stream step (``decode_step_fn``)."""
     import torch
     from pygpukit_tpu_torch.llm import batch_decode_step_fn
     from pygpukit_tpu_torch.ops.embedding import kv_cache_zeros
-    cfg, params = model.config, model.params
-    shape = (8, cfg.num_layers, 1024, cfg.num_kv_heads * cfg.head_dim)
+    cfg, params, dev = model.config, model.params, model.device
+    shape = (b, cfg.num_layers, max_len, cfg.num_kv_heads * cfg.head_dim)
     kp = kv_cache_zeros(shape, torch.bfloat16, device=dev)
     vp = kv_cache_zeros(shape, torch.bfloat16, device=dev)
-    toks = torch.arange(1, 9, device=dev)
-    poss = torch.full((8,), 300, dtype=torch.int32, device=dev)
+    toks = torch.arange(1, b + 1, device=dev)
+    poss = torch.full((b,), pos, dtype=torch.int32, device=dev)
 
     def step(_):
         batch_decode_step_fn(cfg, params, kp, vp, toks, poss)
-    return eager_ms(step, 1, iters=20), time_ms(step, 1, reps=20)
+    return eager_ms(step, 1, iters=20), time_ms(step, 1, reps=20), kernel_profile(step)
 
 
 def paged_step_times(model, dev) -> tuple[float, float, list]:
@@ -358,19 +471,30 @@ def paged_step_times(model, dev) -> tuple[float, float, list]:
 
     def step(_):
         paged_decode_step_fn(cfg, params, kp, vp, tables, toks, poss)
-    eager, graph = eager_ms(step, 1, iters=20), time_ms(step, 1, reps=20)
+    return eager_ms(step, 1, iters=20), time_ms(step, 1, reps=20), kernel_profile(step)
+
+
+def kernel_profile(step, n: int = 3) -> list:
+    """torch.profiler over ``n`` eager calls of ``step(0)``: the kernels by
+    device time [(name, calls, device ms per call of step)], largest first."""
+    import torch
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
     with torch.profiler.profile(activities=acts, acc_events=True) as prof:
-        for _ in range(3):
+        for _ in range(n):
             step(0)
         torch.cuda.synchronize()
     # kernel events only: a CPU op's row repeats the device time of the
     # kernels it launched
-    rows = sorted(((e.key, e.count // 3, e.self_device_time_total / 3e3)
+    return sorted(((e.key, e.count // n, e.self_device_time_total / (n * 1e3))
                    for e in prof.key_averages()
                    if e.device_type == torch.autograd.DeviceType.CUDA),
                   key=lambda r: -r[2])
-    return eager, graph, rows
+
+
+def profile_line(rows: list, top: int) -> str:
+    busy = sum(r[2] for r in rows)
+    return (f"profiler: {busy:.3f} ms of kernels per eager step, the largest: "
+            + "; ".join(f"{name[:60]} x{n} {ms:.3f} ms" for name, n, ms in rows[:top]))
 
 
 def ttft_ms(reqs) -> "np.ndarray":
@@ -388,34 +512,41 @@ def check_served(eng, reqs, requests, what: str) -> int:
     return sum(len(r.generated) for r in reqs)
 
 
-def dense_path(model, cfg, rng) -> tuple[dict, list]:
-    """Phases 4-6 (the dense path); returns its launch counts and the first
-    prompt (phase 5's CPU comparison reads it)."""
+def dense_requests(cfg, rng) -> list:
+    """The dense path's workload: 16 requests, 16- and 200-token prompts,
+    48-64 new tokens."""
+    return [(rng.integers(1, cfg.vocab_size, 16 if i % 2 == 0 else 200).tolist(),
+             48 + (i * 5) % 17) for i in range(16)]
+
+
+def engine_replay(model, requests, kernels, what: str, phases=("4", "5")) -> dict:
+    """The batch-8 engine over ``requests`` twice: every request finishes,
+    every kernel of ``kernels`` launches, the second run gives the same
+    streams and bitwise the same KV pools; then two requests through
+    single-stream generate (reported). Returns the first run's launches."""
     import torch
     from pygpukit_tpu_torch import LAUNCHES, reset_launches
-    requests = [(rng.integers(1, cfg.vocab_size, 16 if i % 2 == 0 else 200).tolist(),
-                 48 + (i * 5) % 17) for i in range(16)]
     reset_launches()
     eng1, reqs1, secs1 = serve(model, requests, 16)
     launches = dict(LAUNCHES)
     reset_launches()
-    n_tok = check_served(eng1, reqs1, requests, "dense path")
-    for name in DENSE_KERNELS:
-        check(launches[name] > 0, f"kernel {name} was never launched on the dense path")
+    n_tok = check_served(eng1, reqs1, requests, what)
+    for name in kernels:
+        check(launches[name] > 0, f"kernel {name} was never launched on the {what}")
     ttft = ttft_ms(reqs1)
-    print(f"phase 4: served {len(reqs1)} requests, {n_tok} tokens in {secs1:.3f} s "
-          f"= {n_tok / secs1:.1f} tok/s (steps {eng1.stats.steps}, "
+    print(f"phase {phases[0]}: {what}: served {len(reqs1)} requests, {n_tok} tokens "
+          f"in {secs1:.3f} s = {n_tok / secs1:.1f} tok/s (steps {eng1.stats.steps}, "
           f"prefills {eng1.stats.prefills}), TTFT p50/p95 {ttft[0]:.1f}/"
           f"{ttft[1]:.1f} ms; launches {json.dumps(launches)}")
 
     eng2, reqs2, secs2 = serve(model, requests, 16)
     check([r.generated for r in reqs1] == [r.generated for r in reqs2],
-          "second run: token streams differ")
+          f"{what}, second run: token streams differ")
     check(torch.equal(bits(eng1.k_cache), bits(eng2.k_cache))
           and torch.equal(bits(eng1.v_cache), bits(eng2.v_cache)),
-          "second run: KV pools differ")
-    print(f"phase 5: replay identical (streams and pools); second run "
-          f"{n_tok / secs2:.1f} tok/s")
+          f"{what}, second run: KV pools differ")
+    print(f"phase {phases[1]}: {what}: replay identical (streams and pools); second "
+          f"run {n_tok / secs2:.1f} tok/s")
     del eng1, eng2
     # B = 1 runs the same kernels, but torch's own reductions (norms) may
     # sum in another order at another batch size, so this is reported, not
@@ -424,13 +555,112 @@ def dense_path(model, cfg, rng) -> tuple[dict, list]:
         model.init_fixed_cache(1024)
         single = model.generate(requests[idx][0], max_new_tokens=requests[idx][1])
         same = sum(a == b for a, b in zip(single, reqs1[idx].generated))
-        print(f"phase 5: single-stream generate vs engine, request {idx}: "
-              f"{same}/{len(single)} tokens equal")
-    step_eager, step_graph = decode_step_times(model, model.device)
-    print(f"phase 6: batch-8 decode step at context 301: eager {step_eager:.3f} ms "
-          f"wall, CUDA-graph replay {step_graph:.3f} ms device; device busy "
-          f"{step_graph / step_eager:.3f} of the eager step")
-    return launches, requests[0][0]
+        print(f"phase {phases[1]}: {what}: single-stream generate vs engine, request "
+              f"{idx}: {same}/{len(single)} tokens equal")
+    return launches
+
+
+def dense_path(model, requests) -> dict:
+    """Phases 4-6 (the dense path on the int4 model); returns its launch
+    counts."""
+    launches = engine_replay(model, requests, DENSE_KERNELS, "dense path")
+    eager, graph, prof = decode_step_times(model, 8, 1024, 300)
+    print(f"phase 6: batch-8 decode step at context 301: eager {eager:.3f} ms "
+          f"wall, CUDA-graph replay {graph:.3f} ms device; device busy "
+          f"{graph / eager:.3f} of the eager step; " + profile_line(prof, 6))
+    return launches
+
+
+def streamed_bytes(params: dict) -> int:
+    """Bytes one decode step streams: every layer leaf (weights, scales,
+    norms) and the head. The embedding table is left out, where
+    bench.py:218-220 counts it: a step reads one row of it."""
+    import torch
+    total = 0
+    for leaf in [params["layers"], params.get("lm_head")]:
+        stack = [leaf]
+        while stack:
+            t = stack.pop()
+            if isinstance(t, dict):
+                stack.extend(t.values())
+            elif isinstance(t, torch.Tensor):
+                total += t.numel() * t.element_size()
+    return total
+
+
+def ladder_rung(model, rung: str, card: str) -> dict:
+    """One rung of the decode ladder (the reference's bench_decode,
+    bench.py:172-253): a warm and a timed generate of LADDER_NEW tokens
+    after a 16-token prompt, cache LADDER_MAX, one chunk. Checks identical
+    tokens, finite logits and the GEMV launches of the timed run's decode
+    (88 per step for the rung's GEMV, none for any other). Returns the
+    timed run's launches."""
+    import os
+    import torch
+    from pygpukit_tpu_torch import LAUNCHES, reset_launches
+    _, switches, gemv = LADDER[rung]
+    saved = {k: os.environ.get(k) for k in switches}
+    os.environ.update(switches)
+    try:
+        runs = []
+        for _ in range(2):
+            model.init_fixed_cache(LADDER_MAX)
+            torch.cuda.synchronize()
+            reset_launches()
+            t0 = time.perf_counter()
+            toks = model.generate(LADDER_PROMPT, max_new_tokens=LADDER_NEW,
+                                  chunk_size=LADDER_NEW)
+            torch.cuda.synchronize()
+            runs.append((toks, time.perf_counter() - t0, dict(LAUNCHES),
+                         model.logits_finite()))
+        eager, graph, prof = decode_step_times(model, 1, LADDER_MAX,
+                                               len(LADDER_PROMPT) + LADDER_NEW // 2)
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+    (toks1, _, _, fin1), (toks2, secs, launches, fin2) = runs
+    check(len(toks2) == LADDER_NEW, f"ladder {rung}: {len(toks2)} tokens")
+    check(toks1 == toks2, f"ladder {rung}: the timed run's tokens differ from the warm run's")
+    check(fin1 and fin2, f"ladder {rung}: a logit went non-finite")
+    steps = LADDER_NEW - 1
+    projections = 4 * model.config.num_layers
+    for name in GEMVS:
+        want = projections * steps if name == gemv else 0
+        check(launches[name] == want, f"ladder {rung}: {name} launched "
+              f"{launches[name]} times in decode, expected {want}")
+    nbytes = streamed_bytes(model.params)
+    print(f"phase 9: ladder {rung}: {LADDER_NEW / secs:.1f} tok/s eager; one decode step "
+          f"eager {eager:.3f} ms wall, CUDA-graph replay {graph:.3f} ms device; "
+          f"{nbytes / 1e9:.4f} GB streamed per step = {nbytes / graph / 1e6:.1f} GB/s "
+          f"on the device; GEMV launches {json.dumps({g: launches[g] for g in GEMVS})} "
+          f"({projections} per step x {steps} steps for {gemv}); [{card}]")
+    print(f"phase 9: ladder {rung}: " + profile_line(prof, 6))
+    return launches
+
+
+def ladder(cfg, dev, card: str) -> dict:
+    """Phase 9: the decode ladder on the 1.1B model at full width and
+    depth, one bf16 weight tree (seed 0) quantized per rung. Returns each
+    ladder GEMV's launches from its rung's timed run."""
+    import torch
+    from pygpukit_tpu_torch.llm import init_params
+    base = init_params(cfg, 0, torch.bfloat16, dev)
+    launches: dict = {}
+    model, model_mode = None, "none yet"
+    for rung, (mode, _, gemv) in LADDER.items():
+        if mode != model_mode:              # rungs of one mode share a model
+            model = None
+            torch.cuda.empty_cache()
+            model, model_mode = build_model(cfg, 0, dev, mode, base=base), mode
+        got = ladder_rung(model, rung, card)
+        if gemv is not None:
+            launches[gemv] = got[gemv]
+    del model, base
+    torch.cuda.empty_cache()
+    return launches
 
 
 def paged_path(model, cfg, rng) -> dict:
@@ -477,12 +707,9 @@ def paged_path(model, cfg, rng) -> dict:
     dense_same = sum(r.generated == t for r, t in zip(reqs4, streams))
     del eng4
     eager, graph, rows = paged_step_times(model, model.device)
-    busy = sum(r[2] for r in rows)
     print(f"phase 7: batch-8 paged decode step at context 144: eager {eager:.3f} ms "
           f"wall, CUDA-graph replay {graph:.3f} ms device; device busy "
-          f"{graph / eager:.3f} of the eager step; profiler: {busy:.3f} ms of "
-          f"kernels per eager step, the largest: " + "; ".join(
-              f"{name[:60]} x{n} {ms:.3f} ms" for name, n, ms in rows[:8]))
+          f"{graph / eager:.3f} of the eager step; " + profile_line(rows, 8))
     print(f"phase 7: replay identical (streams; pools outside block 0), "
           f"{n_tok / secs2:.1f} tok/s; not pipelined: identical streams, "
           f"{n_tok / secs3:.1f} tok/s; dense pipelined (MAX 512): "
@@ -524,13 +751,13 @@ def tight_pool(model, cfg, rng) -> None:
           f"all blocks free at the end")
 
 
-def cpu_parity(cfg, dev, prompt) -> None:
-    """Phase 5, last part: a two-layer full-width model on the card against
-    the plain path on the CPU."""
+def cpu_parity(cfg, dev, prompt, mode: str = "int4", phase: str = "5") -> None:
+    """A two-layer full-width ``mode`` model on the card against the plain
+    path on the CPU (relative L2 of the logits)."""
     from pygpukit_tpu_torch.llm import TransformerConfig
     small = TransformerConfig(**{**cfg.__dict__, "num_layers": 2})
-    card_model = build_model(small, 1, dev)
-    cpu_model = build_model(small, 1, dev).to("cpu")
+    card_model = build_model(small, 1, dev, mode)
+    cpu_model = build_model(small, 1, dev, mode).to("cpu")
     rel_l2s, max_rel, same_tok = [], 0.0, 0
     for m in (card_model, cpu_model):
         m.init_fixed_cache(64)
@@ -543,14 +770,38 @@ def cpu_parity(cfg, dev, prompt) -> None:
         same_tok += int(tok == int(lr.argmax()))
         lc, lr = card_model.decode_step(tok), cpu_model.decode_step(tok)
     check(max(rel_l2s) <= REF_TOL,
-          f"card vs CPU plain logits: relative L2 {max(rel_l2s):.3e}")
-    print("phase 5: 2-layer card logits vs CPU plain path, relative L2 at "
-          f"prefill and 4 decode steps {[f'{e:.2e}' for e in rel_l2s]} (limit "
+          f"{mode} card vs CPU plain logits: relative L2 {max(rel_l2s):.3e}")
+    print(f"phase {phase}: 2-layer {mode} card logits vs CPU plain path, relative L2 "
+          f"at prefill and 4 decode steps {[f'{e:.2e}' for e in rel_l2s]} (limit "
           f"{REF_TOL}), max abs {max_rel:.3e} of max |logit|, greedy token "
           f"equal {same_tok}/5")
 
 
-def main() -> int:
+def block_engine(cfg, dev, requests) -> dict:
+    """Phase 10: the dense path's workload on the int4_block model (w4a8
+    block GEMV) with the batch-8 engine, replayed; returns its launches."""
+    import torch
+    model = build_model(cfg, 0, dev, "int4_block")
+    launches = engine_replay(model, requests, ("block_w4a8_gemv", "kv_rows_write",
+                                               "batch_decode_attention"),
+                             "int4_block engine", phases=("10", "10"))
+    del model
+    torch.cuda.empty_cache()
+    cpu_parity(cfg, dev, requests[0][0], "int4_block", phase="10")
+    return launches
+
+
+def main(argv: list[str]) -> int:
+    import argparse
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--phases", default=",".join(PHASES),
+                    help="comma-separated subset of " + ",".join(PHASES)
+                    + "; a subset prints no summary and no device line")
+    args = ap.parse_args(argv)
+    phases = args.phases.split(",")
+    bad = sorted(set(phases) - set(PHASES))
+    if bad:
+        ap.error(f"unknown phases {bad}")
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is visible", file=sys.stderr)
@@ -566,7 +817,7 @@ def main() -> int:
     from pygpukit_tpu_torch.llm import TransformerConfig
 
     dev = require_cuda()
-    set_deterministic_numerics()     # TF32 off: the plain w4a8 dot stays exact
+    set_deterministic_numerics()     # TF32 off: the plain integer dots stay exact
     card = smi_line()
     print(f"card: {card}")
     nvcc_v = subprocess.run([_build.nvcc_path(), "--version"], capture_output=True,
@@ -584,26 +835,50 @@ def main() -> int:
         if "registers" in line or "spill" in line:
             print("  ptxas: " + line.strip())
 
-    results, detail = check_kernels(dev)
-    print("phase 3: kernels match their plain versions")
-    print("kernel_times " + json.dumps(detail))
+    results: dict = {}
+    if "kernels" in phases:
+        results, detail = check_kernels(dev)
+        g = torch.Generator(device=dev)
+        g.manual_seed(4321)
+        results.update(check_ladder_kernels(dev, g, detail))
+        print("phase 3: kernels match their plain versions")
+        print("kernel_times " + json.dumps(detail))
 
     cfg = TransformerConfig(**CFG_1B)
-    t0 = time.perf_counter()
-    model = build_model(cfg, 0, dev)
-    torch.cuda.synchronize()
-    print(f"phase 4: 1.1B int4 model built in {time.perf_counter() - t0:.1f} s")
     rng = np.random.default_rng(0)
-    dense, prompt = dense_path(model, cfg, rng)
-    paged = paged_path(model, cfg, rng)
-    tight_pool(model, cfg, rng)
-    print(f"phases 4-8 took {time.perf_counter() - t0:.1f} s")
-    del model
-    torch.cuda.empty_cache()
-    cpu_parity(cfg, dev, prompt)
-    # each kernel's launches from the run of the path it belongs to
-    launches = {name: dense[name] for name in DENSE_KERNELS}
-    launches["paged_attention"] = paged["paged_attention"]
+    requests = dense_requests(cfg, rng)
+    launches: dict = {}
+    if {"dense", "paged", "tight"} & set(phases):
+        t0 = time.perf_counter()
+        model = build_model(cfg, 0, dev)
+        torch.cuda.synchronize()
+        print(f"phase 4: 1.1B int4 model built in {time.perf_counter() - t0:.1f} s")
+        # each kernel's launches from the run of the path it belongs to
+        if "dense" in phases:
+            dense = dense_path(model, requests)
+            launches.update({name: dense[name] for name in DENSE_KERNELS})
+        if "paged" in phases:
+            launches["paged_attention"] = paged_path(model, cfg, rng)["paged_attention"]
+        if "tight" in phases:
+            tight_pool(model, cfg, rng)
+        print(f"phases 4-8 took {time.perf_counter() - t0:.1f} s")
+        del model
+        torch.cuda.empty_cache()
+    if "ladder" in phases:
+        t0 = time.perf_counter()
+        for name, n in ladder(cfg, dev, card).items():   # w4a8_gemv keeps phase 4's
+            launches.setdefault(name, n)
+        print(f"phase 9 took {time.perf_counter() - t0:.1f} s")
+    if "block" in phases:
+        t0 = time.perf_counter()
+        block_engine(cfg, dev, requests)
+        print(f"phase 10 took {time.perf_counter() - t0:.1f} s")
+    if "parity" in phases:
+        cpu_parity(cfg, dev, requests[0][0])
+    print(f"total {time.perf_counter() - t_start:.1f} s after the build began")
+    if set(phases) != set(PHASES):
+        print(f"partial run ({args.phases}): no summary")
+        return 0
 
     summary = {"kernels": []}
     for name, (src, rep) in SOURCES.items():
@@ -611,7 +886,6 @@ def main() -> int:
         summary["kernels"].append({"name": name, "route": "cuda", "source": src,
                                    "replaces": rep, "launches": launches[name],
                                    "max_abs_err": err, "ms": ms, "plain_ms": pms})
-    print(f"total {time.perf_counter() - t_start:.1f} s after the build began")
     print(card)
     print(json.dumps(summary))
     print(json.dumps({"ok": True, "device": {
@@ -621,4 +895,4 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(main(sys.argv[1:]))

@@ -28,8 +28,11 @@ def require_cuda() -> torch.device:
 
 
 def set_deterministic_numerics() -> None:
-    """Full-precision float32 products (no TF32) for matmuls and cuDNN.
-    TF32 keeps about three decimal digits, which breaks f32 parity with
-    the reference package."""
+    """Full-precision float32 products (no TF32) for matmuls and cuDNN, and
+    f32 sums inside bf16 matmuls. TF32 keeps about three decimal digits,
+    which breaks f32 parity with the reference package; a bf16 product with
+    reduced-precision reductions may round partial sums to bf16, where the
+    reference accumulates bf16 operands in f32."""
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False

@@ -8,11 +8,17 @@ other. ``LAUNCHES`` counts kernel launches per wrapper.
 from ._build import LAUNCHES, build, reset_launches
 from .batch_decode_attention import (batch_decode_attention,
                                      batch_decode_attention_plain)
-from .gemv_quant import w4a8_matmul, w4a8_matmul_plain
+from .gemv_quant import (block_w4a8_matmul, block_w4a8_matmul_plain,
+                         block_w4a16_matmul, block_w4a16_matmul_plain,
+                         conv_matmul, conv_matmul_plain, w4a8_matmul,
+                         w4a8_matmul_plain, w4a16_matmul, w4a16_matmul_plain)
 from .kv_row_write import kv_rows_write, kv_rows_write_plain
 from .paged_attention import paged_attention, paged_attention_plain
 
 __all__ = ["LAUNCHES", "build", "reset_launches", "batch_decode_attention",
-           "batch_decode_attention_plain", "w4a8_matmul", "w4a8_matmul_plain",
-           "kv_rows_write", "kv_rows_write_plain", "paged_attention",
-           "paged_attention_plain"]
+           "batch_decode_attention_plain", "block_w4a8_matmul",
+           "block_w4a8_matmul_plain", "block_w4a16_matmul",
+           "block_w4a16_matmul_plain", "conv_matmul", "conv_matmul_plain",
+           "w4a8_matmul", "w4a8_matmul_plain", "w4a16_matmul",
+           "w4a16_matmul_plain", "kv_rows_write", "kv_rows_write_plain",
+           "paged_attention", "paged_attention_plain"]

@@ -36,12 +36,19 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-O3", "-std=c++17",
 #: launches of each kernel's wrapper since the last reset
 LAUNCHES: dict[str, int] = {"w4a8_gemv": 0, "w4a8_gemm": 0,
                             "kv_rows_write": 0, "batch_decode_attention": 0,
-                            "paged_attention": 0}
+                            "paged_attention": 0, "w4a16_gemv": 0,
+                            "block_w4a8_gemv": 0, "block_w4a16_gemv": 0,
+                            "conv_gemv": 0}
 
 _P = c_void_p
 _SIGNATURES = {
     "pgk_w4a8_gemv": [_P, c_int, _P, _P, _P, _P, _P, c_int, c_int, c_int, _P],
     "pgk_w4a8_gemm": [_P, c_int, _P, _P, _P, _P, _P, c_int, c_int, c_int, _P],
+    "pgk_w4a16_gemv": [_P, _P, _P, _P, c_int, c_int, c_int, _P],
+    "pgk_block_w4a8_gemv": [_P, c_int, _P, _P, _P, _P, _P, c_int, c_int, c_int,
+                            c_int, _P],
+    "pgk_block_w4a16_gemv": [_P, _P, _P, _P, c_int, c_int, c_int, c_int, _P],
+    "pgk_conv_gemv": [_P, _P, c_int, _P, _P, c_int, c_int, c_int, _P],
     "pgk_kv_rows_write": [_P, _P, _P, _P, _P, c_int, c_int, c_int, c_int,
                           c_int, _P],
     "pgk_batch_decode_attention": [_P, _P, _P, _P, _P, c_int, c_int, c_int,

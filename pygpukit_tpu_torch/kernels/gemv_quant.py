@@ -1,12 +1,25 @@
-"""w4a8 int4 matmul: the port of the reference's w4a8 GEMV and GEMM
-(``pygpukit_tpu/kernels/gemv_quant.py``).
+"""Quantized decode matmuls: the port of the reference's GEMVs and w4a8
+GEMM (``pygpukit_tpu/kernels/gemv_quant.py``).
 
-``y[M, N] = bf16((acc * scale[n]) * sx[m])`` where each activation row is
-quantized to int8 (``sx = max(amax/127, 1e-12)``, round half to even) and
-``acc`` is the exact integer dot with the split-half packed int4 weight
-``[N, K/2]`` (low nibble = k < K/2). One entry point: on a CUDA tensor,
-rows <= 8 launch the GEMV kernel (``csrc/w4a8_gemv.cu``) and rows > 8 the
-GEMM kernel (``csrc/w4a8_gemm.cu``); on a CPU tensor the plain version runs.
+Five products, each a wrapper over a hand-written kernel beside a plain
+PyTorch version. A CUDA tensor launches the kernel or raises; a CPU tensor
+takes the plain version.
+
+- ``w4a8_matmul``: int4 ``[N, K/2]`` + per-column scale, per-row int8
+  activations; rows <= 8 the GEMV kernel (``csrc/w4a8_gemv.cu``), rows > 8
+  the GEMM (``csrc/w4a8_gemm.cu``).
+- ``w4a16_matmul``: the same int4 leaf against bf16 activations
+  (``csrc/w4a16_gemv.cu``).
+- ``block_w4a8_matmul`` / ``block_w4a16_matmul``: int4_block K-major
+  ``[K/2, N]`` + bf16 block scales ``[K/B, N]`` (``csrc/block_w4a8_gemv.cu``,
+  ``csrc/block_w4a16_gemv.cu``).
+- ``conv_matmul``: a K-major ``[K, N]`` fp8 e4m3fn / e5m2, int8 or bf16
+  weight converted to bf16 in the kernel, times a per-column scale
+  (``csrc/conv_gemv.cu``).
+
+The four GEMVs take rows <= 8 on the card; the model sends more rows to the
+plain versions (``llm/model.py`` route rule), whose ``out_dtype`` keeps the
+head's logits in f32.
 """
 
 from __future__ import annotations
@@ -18,7 +31,12 @@ from ..core.numerics import true_div
 from ._build import launch, require_on, stream_of
 
 _F32 = torch.float32
+_BF16 = torch.bfloat16
 GEMV_MAX_ROWS = 8
+
+#: conv_gemv's storage kinds (the C entry's ``kind``)
+CONV_KINDS = {torch.float8_e4m3fn: 0, torch.float8_e5m2: 1, torch.int8: 2,
+              torch.bfloat16: 3}
 
 
 def quantize_acts(x2: torch.Tensor):
@@ -30,17 +48,46 @@ def quantize_acts(x2: torch.Tensor):
     return xq, sx
 
 
-def _rows(x: torch.Tensor, k_half: int) -> torch.Tensor:
-    """x as [M, 2*k_half]: 1-D becomes one row; an odd in-dim the weight was
-    pack-padded for is zero-extended (zeros leave amax unchanged)."""
+def _rows(x: torch.Tensor, k: int) -> torch.Tensor:
+    """x as [M, k]: 1-D becomes one row; an in-dim the weight was padded
+    for (int4 pack padding, int4_block block padding) is zero-extended
+    (zeros leave amax and every dot unchanged)."""
     x2 = x.reshape(-1, x.shape[-1])
-    if x2.shape[-1] < 2 * k_half:
-        x2 = F.pad(x2, (0, 2 * k_half - x2.shape[-1]))
-    elif x2.shape[-1] > 2 * k_half:
-        raise ValueError(f"x K dim {x2.shape[-1]} exceeds packed weight K "
-                         f"{2 * k_half}")
+    if x2.shape[-1] < k:
+        x2 = F.pad(x2, (0, k - x2.shape[-1]))
+    elif x2.shape[-1] > k:
+        raise ValueError(f"x K dim {x2.shape[-1]} exceeds the weight's K {k}")
     return x2
 
+
+def _full_f32(x: torch.Tensor, name: str) -> None:
+    if x.is_cuda and torch.backends.cuda.matmul.allow_tf32:
+        raise RuntimeError(f"{name} needs allow_tf32=False on CUDA for full "
+                           "f32 products")
+
+
+def _gemv_rows(x2: torch.Tensor, name: str) -> int:
+    m = x2.shape[0]
+    if not 1 <= m <= GEMV_MAX_ROWS:
+        raise ValueError(f"{name} takes 1 to {GEMV_MAX_ROWS} rows, got {m}")
+    return m
+
+
+def _col_scale(scale: torch.Tensor, n: int) -> torch.Tensor:
+    sc = scale.reshape(-1)
+    if sc.dtype != _F32 or sc.numel() != n or not sc.is_contiguous():
+        raise TypeError("scale must be a contiguous f32 tensor of N values")
+    return sc
+
+
+def _packed_u8(packed: torch.Tensor) -> None:
+    if packed.dtype != torch.uint8 or packed.dim() != 2 or not packed.is_contiguous():
+        raise TypeError("packed weight must be a contiguous 2-D uint8 tensor")
+
+
+# ---------------------------------------------------------------------------
+# int4 [N, K/2]: w4a8 and w4a16
+# ---------------------------------------------------------------------------
 
 def w4a8_matmul_plain(x: torch.Tensor, packed: torch.Tensor,
                       scale: torch.Tensor) -> torch.Tensor:
@@ -49,15 +96,13 @@ def w4a8_matmul_plain(x: torch.Tensor, packed: torch.Tensor,
     (|acc| <= 127 * 8 * K), so it is exact in any summation order, provided
     the product is true f32 (TF32 off on CUDA)."""
     from ..llm.quant import unpack_int4
-    if x.is_cuda and torch.backends.cuda.matmul.allow_tf32:
-        raise RuntimeError("w4a8_matmul_plain needs allow_tf32=False on CUDA "
-                           "for an exact integer dot")
-    x2 = _rows(x, packed.shape[-1])
+    _full_f32(x, "w4a8_matmul_plain")
+    x2 = _rows(x, 2 * packed.shape[-1])
     xq, sx = quantize_acts(x2)
     q = unpack_int4(packed)                                  # [N, K] int8
     acc = torch.matmul(xq.to(_F32), q.to(_F32).t())
     y = (acc * scale.reshape(1, -1).to(_F32)) * sx
-    return y.to(torch.bfloat16)
+    return y.to(_BF16)
 
 
 def w4a8_matmul(x: torch.Tensor, packed: torch.Tensor,
@@ -68,24 +113,224 @@ def w4a8_matmul(x: torch.Tensor, packed: torch.Tensor,
     if not x.is_cuda:
         return w4a8_matmul_plain(x, packed, scale)
     n, k_half = packed.shape
-    x2 = _rows(x, k_half)
-    if x2.dtype not in (torch.bfloat16, _F32):
+    x2 = _rows(x, 2 * k_half)
+    if x2.dtype not in (_BF16, _F32):
         raise TypeError(f"w4a8 kernels take bf16 or f32 activations, got {x2.dtype}")
     require_on(x2.device, packed=packed, scale=scale)
-    if packed.dtype != torch.uint8 or not packed.is_contiguous():
-        raise TypeError("packed weight must be a contiguous uint8 tensor")
+    _packed_u8(packed)
     if k_half % 16:
         raise ValueError(f"w4a8 kernels need K % 32 == 0, got K={2 * k_half}")
-    sc = scale.reshape(-1)
-    if sc.dtype != _F32 or sc.numel() != n or not sc.is_contiguous():
-        raise TypeError("scale must be a contiguous f32 tensor of N values")
+    sc = _col_scale(scale, n)
     x2 = x2.contiguous()
     m = x2.shape[0]
     xq = torch.empty((m, 2 * k_half), dtype=torch.int8, device=x2.device)
     sx = torch.empty((m,), dtype=_F32, device=x2.device)
-    out = torch.empty((m, n), dtype=torch.bfloat16, device=x2.device)
+    out = torch.empty((m, n), dtype=_BF16, device=x2.device)
     name = "w4a8_gemv" if m <= GEMV_MAX_ROWS else "w4a8_gemm"
     launch(name, "pgk_" + name, x2.data_ptr(), int(x2.dtype == _F32),
            packed.data_ptr(), sc.data_ptr(), xq.data_ptr(), sx.data_ptr(),
            out.data_ptr(), m, n, k_half, stream_of(x2))
+    return out
+
+
+def w4a16_matmul_plain(x: torch.Tensor, packed: torch.Tensor, scale: torch.Tensor,
+                       out_dtype: torch.dtype = _BF16) -> torch.Tensor:
+    """Plain w4a16 product: bf16 x against the unpacked nibbles in f32,
+    ``(acc * scale[n])`` rounded once to ``out_dtype`` (the reference's
+    XLA route, ``model.py:292-299``, and its GEMV's math)."""
+    from ..llm.quant import unpack_int4
+    _full_f32(x, "w4a16_matmul_plain")
+    x2 = _rows(x, 2 * packed.shape[-1]).to(_BF16).to(_F32)
+    acc = torch.matmul(x2, unpack_int4(packed).to(_F32).t())
+    return (acc * scale.reshape(1, -1).to(_F32)).to(out_dtype)
+
+
+def w4a16_matmul(x: torch.Tensor, packed: torch.Tensor,
+                 scale: torch.Tensor) -> torch.Tensor:
+    """x [M, K] or [K], packed [N, K/2] uint8, scale [N] or [1, N] f32 ->
+    y [M, N] bf16 with x rounded to bf16. CUDA: the w4a16 GEMV kernel
+    (M <= 8); CPU: the plain version."""
+    if not x.is_cuda:
+        return w4a16_matmul_plain(x, packed, scale)
+    n, k_half = packed.shape
+    x2 = _rows(x, 2 * k_half)
+    m = _gemv_rows(x2, "w4a16_gemv")
+    require_on(x2.device, packed=packed, scale=scale)
+    _packed_u8(packed)
+    if k_half % 16:
+        raise ValueError(f"w4a16_gemv needs K % 32 == 0, got K={2 * k_half}")
+    sc = _col_scale(scale, n)
+    xb = x2.to(_BF16).contiguous()
+    out = torch.empty((m, n), dtype=_BF16, device=x2.device)
+    launch("w4a16_gemv", "pgk_w4a16_gemv", xb.data_ptr(), packed.data_ptr(),
+           sc.data_ptr(), out.data_ptr(), m, n, k_half, stream_of(xb))
+    return out
+
+
+# ---------------------------------------------------------------------------
+# int4_block [K/2, N] + [K/B, N]: w4a8 and w4a16
+# ---------------------------------------------------------------------------
+
+def _block_size(packed: torch.Tensor, scale_block: torch.Tensor) -> int:
+    k = 2 * packed.shape[-2]
+    nb = scale_block.shape[-2]
+    if k % nb or scale_block.shape[-1] != packed.shape[-1]:
+        raise ValueError(f"scale_block {tuple(scale_block.shape)} does not fit a "
+                         f"[K/2, N] = {tuple(packed.shape)} weight")
+    return k // nb
+
+
+def _block_storage(packed, scale_block, b: int, n: int) -> None:
+    _packed_u8(packed)
+    if scale_block.dtype != _BF16 or scale_block.dim() != 2 \
+            or not scale_block.is_contiguous():
+        raise TypeError("scale_block must be a contiguous 2-D bf16 tensor")
+    if n % 4 or b % 8:
+        raise ValueError(f"int4_block GEMVs need N % 4 == 0 and B % 8 == 0, "
+                         f"got N={n}, B={b}")
+
+
+def _half_block_dots(xq: torch.Tensor, q: torch.Tensor, lo: int, hi: int,
+                     b: int) -> tuple[int, torch.Tensor]:
+    """Exact dots of rows [lo, hi) of K, block by block: (first block,
+    Z [blocks, M, N]) with Z[j] over the rows of block first + j inside
+    [lo, hi). Operands carry integer values in f32; every sum is an integer
+    below 2^24, so the batched matmul is exact in any order."""
+    b0, b1 = lo // b, -(-hi // b)
+    front, back = lo - b0 * b, b1 * b - hi
+    xs = F.pad(xq[:, lo:hi], (front, back))                     # [M, nbk * B]
+    qs = F.pad(q[lo:hi], (0, 0, front, back))                   # [nbk * B, N]
+    nbk, m = b1 - b0, xq.shape[0]
+    z = torch.bmm(xs.reshape(m, nbk, b).transpose(0, 1), qs.reshape(nbk, b, -1))
+    return b0, z
+
+
+def block_w4a8_matmul_plain(x: torch.Tensor, packed: torch.Tensor,
+                            scale_block: torch.Tensor) -> torch.Tensor:
+    """Plain int4_block w4a8 product, bitwise the kernel's:
+    ``bf16((Y_lo + Y_hi) * sx)`` with ``Y_h = sum_b Z_h[b] * s[b]`` over
+    the blocks of half h in ascending order, one rounding per multiply and
+    per add (a Python loop: ``torch.sum``'s order is open). Z_h[b] is the
+    exact dot of block b's rows inside half h, so a block straddling K/2
+    adds its two parts into Y_lo and Y_hi."""
+    from ..llm.quant import unpack_int4
+    _full_f32(x, "block_w4a8_matmul_plain")
+    k_half = packed.shape[-2]
+    b = _block_size(packed, scale_block)
+    xq, sx = quantize_acts(_rows(x, 2 * k_half))
+    xf = xq.to(_F32)
+    q = unpack_int4(packed, axis=-2).to(_F32)                   # [K, N]
+    s = scale_block.to(_F32)
+    y = []
+    for lo, hi in ((0, k_half), (k_half, 2 * k_half)):
+        b0, z = _half_block_dots(xf, q, lo, hi, b)
+        acc = torch.zeros_like(z[0])
+        for j in range(z.shape[0]):
+            acc = acc + z[j] * s[b0 + j]
+        y.append(acc)
+    return ((y[0] + y[1]) * sx).to(_BF16)
+
+
+def block_w4a8_matmul(x: torch.Tensor, packed: torch.Tensor,
+                      scale_block: torch.Tensor) -> torch.Tensor:
+    """x [M, K] or [K] (bf16/f32), packed [K/2, N] uint8, scale_block
+    [K/B, N] bf16 -> y [M, N] bf16. CUDA: the block w4a8 GEMV kernel
+    (M <= 8); CPU: the plain version."""
+    if not x.is_cuda:
+        return block_w4a8_matmul_plain(x, packed, scale_block)
+    k_half, n = packed.shape
+    b = _block_size(packed, scale_block)
+    x2 = _rows(x, 2 * k_half)
+    m = _gemv_rows(x2, "block_w4a8_gemv")
+    if x2.dtype not in (_BF16, _F32):
+        raise TypeError(f"block_w4a8_gemv takes bf16 or f32 activations, got {x2.dtype}")
+    require_on(x2.device, packed=packed, scale_block=scale_block)
+    _block_storage(packed, scale_block, b, n)
+    x2 = x2.contiguous()
+    xq = torch.empty((m, 2 * k_half), dtype=torch.int8, device=x2.device)
+    sx = torch.empty((m,), dtype=_F32, device=x2.device)
+    out = torch.empty((m, n), dtype=_BF16, device=x2.device)
+    launch("block_w4a8_gemv", "pgk_block_w4a8_gemv", x2.data_ptr(),
+           int(x2.dtype == _F32), packed.data_ptr(), scale_block.data_ptr(),
+           xq.data_ptr(), sx.data_ptr(), out.data_ptr(), m, n, k_half, b,
+           stream_of(x2))
+    return out
+
+
+def block_w4a16_matmul_plain(x: torch.Tensor, packed: torch.Tensor,
+                             scale_block: torch.Tensor,
+                             out_dtype: torch.dtype = _BF16) -> torch.Tensor:
+    """Plain int4_block w4a16 product: ``w = bf16(nibble * s)``, bf16 x, f32
+    sums, rounded once to ``out_dtype`` (the reference's block GEMV and its
+    XLA dequant route, ``model.py:277-291``)."""
+    from ..llm.quant import dequantize_block
+    _full_f32(x, "block_w4a16_matmul_plain")
+    x2 = _rows(x, 2 * packed.shape[-2]).to(_BF16).to(_F32)
+    w = dequantize_block(packed, scale_block, _BF16).to(_F32)
+    return torch.matmul(x2, w).to(out_dtype)
+
+
+def block_w4a16_matmul(x: torch.Tensor, packed: torch.Tensor,
+                       scale_block: torch.Tensor) -> torch.Tensor:
+    """x [M, K] or [K], packed [K/2, N] uint8, scale_block [K/B, N] bf16 ->
+    y [M, N] bf16 with x rounded to bf16. CUDA: the block w4a16 GEMV kernel
+    (M <= 8); CPU: the plain version."""
+    if not x.is_cuda:
+        return block_w4a16_matmul_plain(x, packed, scale_block)
+    k_half, n = packed.shape
+    b = _block_size(packed, scale_block)
+    x2 = _rows(x, 2 * k_half)
+    m = _gemv_rows(x2, "block_w4a16_gemv")
+    require_on(x2.device, packed=packed, scale_block=scale_block)
+    _block_storage(packed, scale_block, b, n)
+    xb = x2.to(_BF16).contiguous()
+    out = torch.empty((m, n), dtype=_BF16, device=x2.device)
+    launch("block_w4a16_gemv", "pgk_block_w4a16_gemv", xb.data_ptr(),
+           packed.data_ptr(), scale_block.data_ptr(), out.data_ptr(), m, n,
+           k_half, b, stream_of(xb))
+    return out
+
+
+# ---------------------------------------------------------------------------
+# K-major [K, N] fp8 / int8 / bf16: the converting GEMV
+# ---------------------------------------------------------------------------
+
+def conv_matmul_plain(x: torch.Tensor, w: torch.Tensor, scale: torch.Tensor,
+                      out_dtype: torch.dtype = _BF16) -> torch.Tensor:
+    """Plain converting product: bf16 x against w converted to f32 (exact
+    for all four storage types), ``(acc * scale[n])`` rounded once to
+    ``out_dtype`` (the reference's XLA route, ``model.py:374-376``)."""
+    _full_f32(x, "conv_matmul_plain")
+    k = w.shape[-2]
+    x2 = x.reshape(-1, x.shape[-1])
+    if x2.shape[-1] != k:
+        raise ValueError(f"x K dim {x2.shape[-1]} != weight K {k}")
+    acc = torch.matmul(x2.to(_BF16).to(_F32), w.to(_F32))
+    return (acc * scale.reshape(1, -1).to(_F32)).to(out_dtype)
+
+
+def conv_matmul(x: torch.Tensor, w: torch.Tensor,
+                scale: torch.Tensor) -> torch.Tensor:
+    """x [M, K] or [K], w [K, N] fp8 e4m3fn / e5m2, int8 or bf16, scale [N]
+    or [1, N] f32 -> y [M, N] bf16 with x rounded to bf16. CUDA: the
+    converting GEMV kernel (M <= 8); CPU: the plain version."""
+    if not x.is_cuda:
+        return conv_matmul_plain(x, w, scale)
+    if w.dtype not in CONV_KINDS or w.dim() != 2 or not w.is_contiguous():
+        raise TypeError("conv_gemv takes a contiguous 2-D fp8 e4m3fn/e5m2, int8 "
+                        f"or bf16 weight, got {w.dtype} {tuple(w.shape)}")
+    k, n = w.shape
+    x2 = x.reshape(-1, x.shape[-1])
+    if x2.shape[-1] != k:
+        raise ValueError(f"x K dim {x2.shape[-1]} != weight K {k}")
+    m = _gemv_rows(x2, "conv_gemv")
+    require_on(x2.device, w=w, scale=scale)
+    if n % 4 or k % 4:
+        raise ValueError(f"conv_gemv needs N % 4 == 0 and K % 4 == 0, got K={k}, N={n}")
+    sc = _col_scale(scale, n)
+    xb = x2.to(_BF16).contiguous()
+    out = torch.empty((m, n), dtype=_BF16, device=x2.device)
+    launch("conv_gemv", "pgk_conv_gemv", xb.data_ptr(), w.data_ptr(),
+           CONV_KINDS[w.dtype], sc.data_ptr(), out.data_ptr(), m, n, k,
+           stream_of(xb))
     return out

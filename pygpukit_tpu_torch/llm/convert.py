@@ -3,8 +3,8 @@
 ``params_from_jax`` takes the reference package's param pytree with its
 leaves as numpy arrays (``jax.tree.map(np.asarray, params)``) and returns
 the same nested dict of torch tensors on ``device``, bytes unchanged:
-stacked ``[L, ...]`` leaves, ``{"q_packed", "scale"}`` and ``{"q",
-"scale"}`` dicts, rope tables. numpy's bf16 and fp8 (ml_dtypes) have no
+stacked ``[L, ...]`` leaves, ``{"q_packed", "scale"}``, ``{"q_packed",
+"scale_block"}`` and ``{"q", "scale"}`` dicts, rope tables. numpy's bf16 and fp8 (ml_dtypes) have no
 ``torch.from_numpy`` route, so those leaves cross as same-width unsigned
 integers and are reinterpreted in torch.
 """
@@ -36,10 +36,31 @@ def tensor_from_numpy(a, device=None) -> torch.Tensor:
     return t.to(device) if device is not None else t
 
 
+def _drop_split_scales(leaf: dict) -> dict:
+    """An int4_block dict of a built reference model carries ``scale_lo``
+    and ``scale_hi``, the two halves of ``scale_block`` along K/B (the
+    reference's ``prepare_block_scales``). In torch a half is a free view,
+    so the port keeps ``scale_block`` alone: the two leaves are checked to
+    equal its halves and dropped. ValueError when they differ."""
+    leaf = dict(leaf)
+    lo, hi = leaf.pop("scale_lo"), leaf.pop("scale_hi")
+    s = np.asarray(leaf["scale_block"])
+    half = s.shape[-2] // 2
+    for name, part, ref in (("scale_lo", lo, s[..., :half, :]),
+                            ("scale_hi", hi, s[..., half:, :])):
+        part = np.asarray(part)
+        if part.shape != ref.shape or part.tobytes() != ref.tobytes():
+            raise ValueError(f"{name} is not the matching half of scale_block")
+    return leaf
+
+
 def params_from_jax(tree, device=None):
     """A reference param tree of numpy leaves -> the port's tensors.
-    ``None`` leaves (a tied head) stay ``None``."""
+    ``None`` leaves (a tied head) stay ``None``; int4_block dicts lose
+    their ``scale_lo``/``scale_hi`` copies (see ``_drop_split_scales``)."""
     if isinstance(tree, dict):
+        if "scale_block" in tree and "scale_lo" in tree:
+            tree = _drop_split_scales(tree)
         return {k: params_from_jax(v, device) for k, v in tree.items()}
     if tree is None:
         return None

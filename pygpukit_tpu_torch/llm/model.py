@@ -5,28 +5,53 @@ Parameters keep the reference's stacked layout: every per-layer leaf is one
 eagerly, so the layer loop is a Python loop and a cache update is an
 in-place write (the reference threads donated buffers through ``fori_loop``).
 
-Route rule (the one place it is written down, with ``batch_decode_step_fn``):
+Route rule (the one place it is written down, with ``batch_decode_step_fn``).
+Weight leaves by kind, rows = activation rows of the call:
 
-- packed-int4 leaves always go through ``kernels.w4a8_matmul``: GEMV kernel
-  for rows <= 8, GEMM kernel above;
-- the batch-rows decode step always uses ``kernels.kv_rows_write`` and
-  ``kernels.batch_decode_attention``; single-stream decode is that step
-  with B = 1 over a ``[1, L, MAX, Hk*D]`` pool;
-- int8 leaves are w8a8 (``torch._int_mm`` on the card, an int32 product on
-  the CPU) and dense leaves an f32-accumulated ``torch.matmul``: the
-  reference leaves those to XLA, not to a kernel of its own;
-- the device picks only the implementation: the kernel for CUDA tensors,
-  the plain version for CPU tensors.
+- int4 ``{"q_packed" [N, K/2], "scale"}``, INT4_MODE=w4a8 (default):
+  ``w4a8_matmul``, the w4a8 GEMV kernel for rows <= 8 and the GEMM kernel
+  above (the head included: it is never int4);
+- int4, INT4_MODE=w4a16: ``w4a16_matmul`` for rows <= 8, dequant + matmul
+  above;
+- int4_block ``{"q_packed" [K/2, N], "scale_block" [K/B, N]}``,
+  INT4_BLOCK=w4a8 (default): ``block_w4a8_matmul`` for rows <= 8, dequant +
+  matmul above;
+- int4_block, INT4_BLOCK=w4a16: ``block_w4a16_matmul``, dequant + matmul
+  above;
+- fp8 ``{"q" e4m3fn/e5m2 [K, N], "scale"}``: ``conv_matmul`` for rows <= 8,
+  convert + matmul above and for the head;
+- int8 ``{"q" [K, N], "scale"}``, INT8_MODE=w8a8 (default): w8a8 at every
+  row count (``torch._int_mm`` on the card, an int32 product on the CPU;
+  the reference leaves it to XLA);
+- int8, INT8_MODE=w8a16: ``conv_matmul`` for rows <= 8, convert + matmul
+  above and for the head;
+- dense [K, N]: ``torch.matmul``, bf16 x bf16 -> bf16 on the card, in f32
+  otherwise.
 
-The reference's size and regime gates (minimum weight sizes, exact tiles,
-the M >= 256 rule for layer-sliced operands, the MAX >= 1024 attention gate)
-work around TPU compilers and are not ported: the port always computes what
-the TPU kernels compute.
+The switches are the environment variables ``PYGPUKIT_INT4_MODE``,
+``PYGPUKIT_INT4_BLOCK`` and ``PYGPUKIT_INT8_MODE``, read per call. The
+head (``_logits`` passes ``out_dtype=torch.float32``) never takes a bf16
+GEMV: an fp8 or w8a16 head is the plain convert + matmul with f32 logits,
+as the reference's 2-D head always takes its XLA route. "dequant + matmul"
+and "convert + matmul" are the kernels' plain versions with the output in
+``out_dtype`` (the reference's XLA routes).
+
+The batch-rows decode step always uses ``kernels.kv_rows_write`` and
+``kernels.batch_decode_attention``; single-stream decode is that step with
+B = 1 over a ``[1, L, MAX, Hk*D]`` pool.
+
+The device picks only the implementation: the kernel for CUDA tensors, the
+plain version for CPU tensors. The reference's size and regime gates
+(``on_tpu``, minimum weight sizes, exact tiles, the M >= 256 rule for
+layer-sliced operands, the XLA default of its fp8 GEMV, the MAX >= 1024
+attention gate) work around TPU compilers and are not ported: the port
+always computes what the TPU kernels compute.
 """
 
 from __future__ import annotations
 
 import math
+import os
 
 import numpy as np
 import torch
@@ -36,7 +61,11 @@ from torch import nn
 from ..core.backend import get_device
 from ..core.dtypes import resolve_dtype
 from ..core.numerics import true_div
-from ..kernels import batch_decode_attention, kv_rows_write, w4a8_matmul
+from ..kernels import (batch_decode_attention, block_w4a8_matmul,
+                       block_w4a16_matmul, block_w4a16_matmul_plain, conv_matmul,
+                       conv_matmul_plain, kv_rows_write, w4a8_matmul,
+                       w4a16_matmul, w4a16_matmul_plain)
+from ..kernels.gemv_quant import GEMV_MAX_ROWS
 from ..ops.embedding import kv_cache_zeros, kv_leaf, kv_write
 from ..ops.nn import apply_rope_fn, rmsnorm_fn, rope_init, swiglu_fn
 from .config import TransformerConfig
@@ -77,10 +106,29 @@ _TOP_LEAVES = {"embed", "final_norm_w", "lm_head", "layers", "rope_cos",
                "rope_sin"}
 
 
+#: weight leaf kinds: dict keys -> the storage dtypes of "q"/"q_packed"
+_LEAF_KINDS = {
+    frozenset({"q_packed", "scale"}): {torch.uint8},                 # int4
+    frozenset({"q_packed", "scale_block"}): {torch.uint8},           # int4_block
+    frozenset({"q", "scale"}): {torch.int8, torch.float8_e4m3fn,     # int8, fp8
+                                torch.float8_e5m2},
+}
+
+
 def _check_params(params: dict) -> None:
     extra = (set(params) - _TOP_LEAVES) | (set(params["layers"]) - _LAYER_LEAVES)
     if extra:
         raise NotImplementedError(f"param leaves not ported yet: {sorted(extra)}")
+    leaves = dict(params["layers"], lm_head=params.get("lm_head"))
+    for name, leaf in leaves.items():
+        if not isinstance(leaf, dict):
+            continue
+        dtypes = _LEAF_KINDS.get(frozenset(leaf))
+        q = leaf.get("q", leaf.get("q_packed"))
+        if dtypes is None or q.dtype not in dtypes:
+            raise NotImplementedError(
+                f"weight leaf {name} ({sorted(leaf)}, "
+                f"{getattr(q, 'dtype', None)}) is not a ported kind")
 
 
 # ---------------------------------------------------------------------------
@@ -109,21 +157,53 @@ def _w8a8(x: torch.Tensor, q: torch.Tensor, scale: torch.Tensor) -> torch.Tensor
     return y.reshape(*x.shape[:-1], q.shape[-1])
 
 
+#: the route switches: environment variable -> (default, choices)
+SWITCHES = {"PYGPUKIT_INT4_MODE": ("w4a8", ("w4a8", "w4a16")),
+            "PYGPUKIT_INT4_BLOCK": ("w4a8", ("w4a8", "w4a16")),
+            "PYGPUKIT_INT8_MODE": ("w8a8", ("w8a8", "w8a16"))}
+
+
+def _switch(name: str) -> str:
+    default, choices = SWITCHES[name]
+    value = os.environ.get(name, default)
+    if value not in choices:
+        raise ValueError(f"{name}={value!r}; one of {choices}")
+    return value
+
+
 def _mm(x: torch.Tensor, w, out_dtype: torch.dtype | None = None) -> torch.Tensor:
-    """Matmul against a weight leaf (see the route rule above). Packed int4
-    ``{"q_packed" [N, K/2], "scale"}``, int8 ``{"q" [K, N], "scale"}`` or a
-    dense [K, N] tensor; ``out_dtype`` defaults to x's (the head asks f32)."""
+    """Matmul against a weight leaf (see the route rule above); x [..., K].
+    ``out_dtype`` defaults to x's; an explicit f32 marks the head."""
+    head = out_dtype == _F32
     out_dtype = out_dtype or x.dtype
-    if isinstance(w, dict):
-        if "q_packed" in w:
-            if "scale_block" in w:
-                raise NotImplementedError("int4_block leaves are not ported yet")
-            y = w4a8_matmul(x, w["q_packed"], w["scale"])
-            return y.reshape(*x.shape[:-1], y.shape[-1]).to(out_dtype)
-        if w["q"].dtype == torch.int8:
-            return _w8a8(x, w["q"], w["scale"]).to(out_dtype)
-        raise NotImplementedError(f"{w['q'].dtype} weight leaves are not ported yet")
-    return torch.matmul(x.to(_F32), w.to(_F32)).to(out_dtype)
+    if not isinstance(w, dict):
+        if x.is_cuda and x.dtype == w.dtype == out_dtype == torch.bfloat16:
+            return torch.matmul(x, w)
+        return torch.matmul(x.to(_F32), w.to(_F32)).to(out_dtype)
+    lead = x.shape[:-1]
+    x2 = x.reshape(-1, x.shape[-1])
+    gemv = x2.shape[0] <= GEMV_MAX_ROWS and not head
+    if "scale_block" in w:
+        if not gemv:
+            y = block_w4a16_matmul_plain(x2, w["q_packed"], w["scale_block"], out_dtype)
+        elif _switch("PYGPUKIT_INT4_BLOCK") == "w4a8":
+            y = block_w4a8_matmul(x2, w["q_packed"], w["scale_block"])
+        else:
+            y = block_w4a16_matmul(x2, w["q_packed"], w["scale_block"])
+    elif "q_packed" in w:
+        if _switch("PYGPUKIT_INT4_MODE") == "w4a8":
+            y = w4a8_matmul(x2, w["q_packed"], w["scale"])
+        elif gemv:
+            y = w4a16_matmul(x2, w["q_packed"], w["scale"])
+        else:
+            y = w4a16_matmul_plain(x2, w["q_packed"], w["scale"], out_dtype)
+    elif w["q"].dtype == torch.int8 and _switch("PYGPUKIT_INT8_MODE") == "w8a8":
+        y = _w8a8(x2, w["q"], w["scale"])
+    elif gemv:
+        y = conv_matmul(x2, w["q"], w["scale"])
+    else:
+        y = conv_matmul_plain(x2, w["q"], w["scale"], out_dtype)
+    return y.reshape(*lead, y.shape[-1]).to(out_dtype)
 
 
 # ---------------------------------------------------------------------------
@@ -337,9 +417,11 @@ def batch_generate_scan_fn(cfg: TransformerConfig, n_steps: int,
 
 def fuse_params(params: dict) -> dict:
     """Fuse per-layer q/k/v into ``w_qkv`` and gate/up into ``w_gate_up``
-    along the out axis: dense leaves and int8 ``{"q","scale"}`` on the last
-    dim, packed int4 ``[L, N, K/2]`` on the N axis (split-half packing is per
-    out-column, so this is layout-exact); scales and biases likewise."""
+    along the out axis: dense leaves and int8/fp8 ``{"q","scale"}`` on the
+    last dim (scales broadcast to ``[L, 1, N]``), packed int4 ``[L, N, K/2]``
+    on the N axis (split-half packing is per out-column, so this is
+    layout-exact), int4_block ``[L, K/2, N]`` and its ``[L, K/B, N]`` scales
+    on the last axis; biases likewise."""
     layers = dict(params["layers"])
 
     def fusable(keys):
@@ -350,6 +432,9 @@ def fuse_params(params: dict) -> dict:
             return True
         if all(isinstance(v, dict) and "q" in v for v in leaves):
             return len({v["q"].dtype for v in leaves}) == 1
+        if all(isinstance(v, dict) and "scale_block" in v for v in leaves):
+            return (len({v["q_packed"].shape[-2] for v in leaves}) == 1
+                    and len({v["scale_block"].shape[-2] for v in leaves}) == 1)
         if all(isinstance(v, dict) and "q_packed" in v and "scale_block" not in v
                for v in leaves):
             return len({v["q_packed"].shape[-1] for v in leaves}) == 1
@@ -357,6 +442,9 @@ def fuse_params(params: dict) -> dict:
 
     def cat(keys):
         leaves = [layers.pop(k) for k in keys]
+        if isinstance(leaves[0], dict) and "scale_block" in leaves[0]:
+            return {"q_packed": torch.cat([v["q_packed"] for v in leaves], dim=-1),
+                    "scale_block": torch.cat([v["scale_block"] for v in leaves], dim=-1)}
         if isinstance(leaves[0], dict) and "q_packed" in leaves[0]:
             return {"q_packed": torch.cat([v["q_packed"] for v in leaves], dim=-2),
                     "scale": torch.cat([v["scale"].to(_F32) for v in leaves], dim=-1)}
@@ -463,6 +551,7 @@ class CausalTransformerModel(nn.Module):
         self.max_seq_len: int | None = None
         self.k_pool = self.v_pool = None
         self.pos = 0
+        self._nonfinite = None
 
     @property
     def params(self) -> dict:
@@ -486,6 +575,17 @@ class CausalTransformerModel(nn.Module):
         self.v_pool = kv_cache_zeros(shape, self.kv_dtype, device=self.device)
         self.max_seq_len = max_seq_len
         self.pos = 0
+        # set on the device by any non-finite logit since this cache was
+        # made; read without a sync per step (logits_finite())
+        self._nonfinite = torch.zeros((), dtype=torch.bool, device=self.device)
+
+    def _note_logits(self, logits: torch.Tensor) -> None:
+        self._nonfinite |= ~torch.isfinite(logits).all()
+
+    def logits_finite(self) -> bool:
+        """True when every logit since the last ``init_fixed_cache`` (or the
+        cache ``generate`` made) was finite."""
+        return self._nonfinite is None or not bool(self._nonfinite)
 
     @torch.no_grad()
     def prefill(self, input_ids) -> torch.Tensor:
@@ -502,6 +602,7 @@ class CausalTransformerModel(nn.Module):
         padded[:n] = ids
         logits = prefill_fn(self.config, self.params, slot_cache(self.k_pool, 0),
                             slot_cache(self.v_pool, 0), padded.to(self.device), n)
+        self._note_logits(logits)
         self.pos = n
         return logits
 
@@ -512,6 +613,7 @@ class CausalTransformerModel(nn.Module):
         poss = torch.tensor([self.pos], dtype=torch.int32, device=self.device)
         logits = decode_step_fn(self.config, self.params, self.k_pool,
                                 self.v_pool, tok, poss)
+        self._note_logits(logits)
         self.pos += 1
         return logits
 
@@ -524,7 +626,7 @@ class CausalTransformerModel(nn.Module):
         poss = torch.tensor([self.pos], dtype=torch.int32, device=self.device)
         toks = batch_generate_scan_fn(self.config, n_steps, temperature, top_k,
                                       self.params, self.k_pool, self.v_pool,
-                                      tok, poss, generator)
+                                      tok, poss, generator, self._note_logits)
         self.pos += n_steps
         return toks[0]
 

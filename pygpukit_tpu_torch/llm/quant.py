@@ -1,57 +1,108 @@
 """Weight quantization (counterpart of ``pygpukit_tpu/llm/quant.py``).
 
-Leaves are byte-for-byte the reference's: int8 ``{"q" [.., in, out] int8,
-"scale" [.., 1, out] f32}`` and packed int4 ``{"q_packed" [.., out, in/2]
-uint8, "scale" [.., 1, out] f32}`` with split-half packing (low nibble =
-first half of the in-dim). Rounding is half to even against an f32 divide,
-as ``jnp.round`` does. The fp8 and int4_block rungs come with their kernels.
+Leaves are byte-for-byte the reference's:
+
+- int8 ``{"q" [.., in, out] int8, "scale" [.., 1, out] f32}``;
+- fp8 ``{"q" [.., in, out] float8_e4m3fn, "scale" [.., 1, out] f32}``,
+  ``scale = amax/448``;
+- packed int4 ``{"q_packed" [.., out, in/2] uint8, "scale" [.., 1, out]
+  f32}``, split-half along the in-dim (low nibble = first half);
+- int4_block (alias nvf4) ``{"q_packed" [.., K/2, out] uint8,
+  "scale_block" [.., K/B, out] bf16}``: K-major split-half storage with one
+  scale per (K-block of B rows, column); K is the in-dim padded to a
+  multiple of B, and the scale is rounded to bf16 before quantizing.
+
+Rounding is half to even against an IEEE f32 divide, as ``jnp.round`` does.
 """
 
 from __future__ import annotations
 
 import torch
+import torch.nn.functional as F
 
 from ..core.numerics import true_div
 
 _F32 = torch.float32
+FP8_E4M3_MAX = 448.0
 
 _QUANT_KEYS = {
     "w_q", "w_k", "w_v", "w_o", "w_qkv", "w_gate", "w_up", "w_gate_up",
     "w_down", "w_fc1", "w_fc2",
 }
+_PACKED4 = ("int4", "int4_block", "nvf4")
 
 
-def quantize_weight(w: torch.Tensor, mode: str = "int4") -> dict:
-    """One weight [..., in, out] -> a quantized leaf with per-column scales
-    (``mode`` "int4" or "int8")."""
+def _pack_split_half(q: torch.Tensor, dim: int) -> torch.Tensor:
+    """Signed nibbles along ``dim`` (even length) -> uint8, low nibble =
+    first half."""
+    lo, hi = torch.chunk(q.to(torch.int16), 2, dim=dim)
+    return ((lo & 0xF) | ((hi & 0xF) << 4)).to(torch.uint8).contiguous()
+
+
+def quantize_weight(w: torch.Tensor, mode: str = "int4",
+                    block_size: int = 32) -> dict:
+    """One weight [..., in, out] -> a quantized leaf (``mode`` "int4",
+    "int8", "fp8", "int4_block" or "nvf4"); ``block_size`` is B of the
+    block mode."""
     wf = w.to(_F32)
+    if mode in ("int4_block", "nvf4"):
+        b = block_size
+        kpad = (-wf.shape[-2]) % b
+        if kpad:
+            wf = F.pad(wf, (0, 0, 0, kpad))
+        *lead, k, n = wf.shape
+        blk = wf.reshape(*lead, k // b, b, n)
+        amax = torch.amax(torch.abs(blk), dim=-2, keepdim=True)   # [.., K/B, 1, N]
+        scale = torch.clamp_min(true_div(amax, 7.0), 1e-12) \
+            .to(torch.bfloat16).to(_F32)
+        q = torch.clamp(torch.round(blk / scale), -7, 7).reshape(*lead, k, n)
+        return {"q_packed": _pack_split_half(q, -2),
+                "scale_block": scale[..., 0, :].to(torch.bfloat16).contiguous()}
     amax = torch.amax(torch.abs(wf), dim=-2, keepdim=True)       # [..., 1, out]
+    if mode == "fp8":
+        # |wf / scale| <= 448 * (1 + 2^-23), which rounds to 448: torch's
+        # saturating cast and the reference's NaN-on-overflow cast agree
+        scale = torch.clamp_min(true_div(amax, FP8_E4M3_MAX), 1e-12)
+        return {"q": (wf / scale).to(torch.float8_e4m3fn), "scale": scale}
     if mode == "int8":
         scale = torch.clamp_min(true_div(amax, 127.0), 1e-12)
         q = torch.clamp(torch.round(wf / scale), -127, 127).to(torch.int8)
         return {"q": q, "scale": scale}
     if mode != "int4":
-        raise NotImplementedError(f"quant mode {mode!r} is not ported yet")
+        raise ValueError(f"unknown quant mode {mode!r}")
     scale = torch.clamp_min(true_div(amax, 7.0), 1e-12)
-    q = torch.clamp(torch.round(wf / scale), -7, 7).to(torch.int16)
+    q = torch.clamp(torch.round(wf / scale), -7, 7)
     if q.shape[-2] % 2:                             # odd in-dim: pack-pad
-        q = torch.nn.functional.pad(q, (0, 0, 0, 1))
-    qt = q.transpose(-1, -2)                        # [..., out, in]
-    half = qt.shape[-1] // 2
-    packed = ((qt[..., :half] & 0xF) | ((qt[..., half:] & 0xF) << 4))
-    return {"q_packed": packed.to(torch.uint8).contiguous(), "scale": scale}
+        q = F.pad(q, (0, 0, 0, 1))
+    return {"q_packed": _pack_split_half(q.transpose(-1, -2), -1), "scale": scale}
 
 
-def unpack_int4(packed: torch.Tensor) -> torch.Tensor:
-    """Split-half nibble unpack along the last dim: [..., N, K/2] uint8 ->
-    [..., N, K] int8 (low nibbles first). Includes any pack padding."""
+def unpack_int4(packed: torch.Tensor, axis: int = -1) -> torch.Tensor:
+    """Split-half nibble unpack along ``axis``: int4 ``[..., N, K/2]``
+    (axis -1) -> ``[..., N, K]``; int4_block ``[..., K/2, N]`` (axis -2) ->
+    ``[..., K, N]``. int8 values, low nibbles first, any pack padding
+    included."""
     lo = (packed << 4).view(torch.int8) >> 4
     hi = packed.view(torch.int8) >> 4
-    return torch.cat([lo, hi], dim=-1)
+    return torch.cat([lo, hi], dim=axis)
+
+
+def dequantize_block(packed: torch.Tensor, scale_block: torch.Tensor,
+                     dtype=torch.bfloat16) -> torch.Tensor:
+    """int4_block ``[..., K/2, N]`` + ``[..., K/B, N]`` -> ``[..., K, N]``:
+    ``nibble * scale`` in f32, then ``dtype``."""
+    q = unpack_int4(packed, axis=-2)
+    *lead, k, n = q.shape
+    nb = scale_block.shape[-2]
+    blk = q.reshape(*lead, nb, k // nb, n).to(_F32)
+    return (blk * scale_block.to(_F32)[..., :, None, :]).reshape(*lead, k, n).to(dtype)
 
 
 def dequantize_weight(wq: dict, dtype=torch.bfloat16) -> torch.Tensor:
-    """A quantized leaf back to a dense [..., in, out] weight."""
+    """A quantized leaf back to a dense [..., in, out] weight (any pack or
+    block padding of the in-dim included)."""
+    if "scale_block" in wq:
+        return dequantize_block(wq["q_packed"], wq["scale_block"], dtype)
     if "q_packed" in wq:
         q = unpack_int4(wq["q_packed"]).transpose(-1, -2)        # [..., K, N]
         return (q.to(_F32) * wq["scale"]).to(dtype)
@@ -62,7 +113,7 @@ def quantize_model_params(params: dict, mode: str = "int4",
                           keys: set[str] | None = None,
                           head: bool | str = True) -> dict:
     """Quantize a model's projection leaves in place of their dense ones.
-    An untied head is quantized too: int8 for the packed int4 mode (int4
+    An untied head is quantized too: int8 for the packed 4-bit modes (int4
     logit error shifts greedy order), ``mode`` otherwise; ``head=False``
     keeps it dense, a mode string overrides."""
     keys = _QUANT_KEYS if keys is None else keys
@@ -74,6 +125,6 @@ def quantize_model_params(params: dict, mode: str = "int4",
     out["layers"] = layers
     if head and isinstance(out.get("lm_head"), torch.Tensor):
         head_mode = head if isinstance(head, str) else (
-            "int8" if mode == "int4" else mode)
+            "int8" if mode in _PACKED4 else mode)
         out["lm_head"] = quantize_weight(out["lm_head"], head_mode)
     return out

@@ -11,9 +11,14 @@ import torch
 
 from pygpukit_tpu_torch.kernels import (LAUNCHES, batch_decode_attention,
                                         batch_decode_attention_plain,
-                                        kv_rows_write, kv_rows_write_plain,
-                                        paged_attention, paged_attention_plain,
-                                        w4a8_matmul, w4a8_matmul_plain)
+                                        block_w4a8_matmul, block_w4a8_matmul_plain,
+                                        block_w4a16_matmul,
+                                        block_w4a16_matmul_plain, conv_matmul,
+                                        conv_matmul_plain, kv_rows_write,
+                                        kv_rows_write_plain, paged_attention,
+                                        paged_attention_plain, w4a8_matmul,
+                                        w4a8_matmul_plain, w4a16_matmul,
+                                        w4a16_matmul_plain)
 from pygpukit_tpu_torch.ops.paged import (paged_attention_dispatch,
                                           paged_attention_fn)
 
@@ -150,3 +155,119 @@ def test_cuda_wrappers_raise_on_unsupported_storage(dev):
     with pytest.raises(ValueError, match="scale"):     # a host scale pointer
         w4a8_matmul(torch.zeros((1, 32), dtype=torch.bfloat16, device=dev), w,
                     torch.ones(64))
+
+
+def _ladder_inputs(dev, n, k, rows, seed):
+    """x [rows, K] bf16 and the four ladder GEMVs' weights at [N, K]: int4
+    [N, K/2] + scale, int4_block [K/2, N] + bf16 block scales (B = 32),
+    fp8 e4m3fn [K, N] + scale."""
+    g = _gen(dev, seed)
+    x = (torch.randn((rows, k), generator=g, device=dev) * 2).to(torch.bfloat16)
+    packed = torch.randint(0, 256, (n, k // 2), generator=g, device=dev, dtype=torch.uint8)
+    kmajor = torch.randint(0, 256, (k // 2, n), generator=g, device=dev, dtype=torch.uint8)
+    sblock = (torch.rand((k // 32, n), generator=g, device=dev) * 1e-3 + 1e-4
+              ).to(torch.bfloat16)
+    sc = torch.rand((n,), generator=g, device=dev) * 1e-3 + 1e-4
+    fp8 = (torch.randn((k, n), generator=g, device=dev) * 64).to(torch.float8_e4m3fn)
+    return x, packed, kmajor, sblock, sc, fp8
+
+
+def _close(y, ref):
+    """Within one bf16 ulp of the plain version, plus 1e-4 of the largest
+    |output| for values near zero: both sum the same exact f32 products,
+    in another order."""
+    tol = ref.float().abs() * 2.0 ** -7 + 1e-4 * ref.float().abs().max()
+    return bool(((y.float() - ref.float()).abs() <= tol).all())
+
+
+@pytest.mark.parametrize("rows", [1, 8])
+@pytest.mark.parametrize("nk", PROJ_SHAPES)
+def test_ladder_gemvs_match_plain(dev, nk, rows):
+    n, k = nk
+    x, packed, kmajor, sblock, sc, fp8 = _ladder_inputs(dev, n, k, rows, rows + n)
+    cases = [("block_w4a8_gemv", block_w4a8_matmul, block_w4a8_matmul_plain, (kmajor, sblock)),
+             ("block_w4a16_gemv", block_w4a16_matmul, block_w4a16_matmul_plain,
+              (kmajor, sblock)),
+             ("w4a16_gemv", w4a16_matmul, w4a16_matmul_plain, (packed, sc)),
+             ("conv_gemv", conv_matmul, conv_matmul_plain, (fp8, sc))]
+    for name, fn, plain, w in cases:
+        before = LAUNCHES[name]
+        y = fn(x, *w)
+        assert LAUNCHES[name] == before + 1
+        ref = plain(x, *w)
+        if name == "block_w4a8_gemv":
+            assert torch.equal(_bits(y), _bits(ref)), name
+        else:
+            assert _close(y, ref), (name, (y.float() - ref.float()).abs().max().item())
+
+
+@pytest.mark.parametrize("wdt", [torch.float8_e5m2, torch.int8, torch.bfloat16])
+def test_conv_gemv_storage_types(dev, wdt):
+    g = _gen(dev, 11)
+    x = torch.randn((3, 2048), generator=g, device=dev).to(torch.bfloat16)
+    w = (torch.randn((2048, 2560), generator=g, device=dev) * 20).clamp(-127, 127)
+    w = w.round().to(wdt) if wdt == torch.int8 else w.to(wdt)
+    sc = torch.rand((2560,), generator=g, device=dev) * 1e-2
+    assert _close(conv_matmul(x, w, sc), conv_matmul_plain(x, w, sc))
+
+
+@pytest.mark.parametrize("k", [96, 2080])
+def test_block_gemvs_straddling_block(dev, k):
+    """B = 32 does not divide K/2 (48, 1040): one block straddles the
+    halves; the kernels index each k's block as k // B like the plain
+    versions."""
+    g = _gen(dev, k)
+    n = 256
+    x = torch.randn((5, k), generator=g, device=dev).to(torch.bfloat16)
+    w = torch.randint(0, 256, (k // 2, n), generator=g, device=dev, dtype=torch.uint8)
+    s = (torch.rand((k // 32, n), generator=g, device=dev) + 0.5).to(torch.bfloat16)
+    assert torch.equal(_bits(block_w4a8_matmul(x, w, s)),
+                       _bits(block_w4a8_matmul_plain(x, w, s)))
+    assert _close(block_w4a16_matmul(x, w, s), block_w4a16_matmul_plain(x, w, s))
+
+
+def test_ladder_wrappers_raise_on_unsupported_storage(dev):
+    x = torch.zeros((1, 64), dtype=torch.bfloat16, device=dev)
+    kmajor = torch.zeros((32, 64), dtype=torch.uint8, device=dev)
+    sblock = torch.ones((2, 64), dtype=torch.bfloat16, device=dev)
+    with pytest.raises(ValueError, match="rows"):
+        block_w4a8_matmul(torch.zeros((9, 64), device=dev), kmajor, sblock)
+    with pytest.raises(TypeError):                      # f32 block scales
+        block_w4a16_matmul(x, kmajor, sblock.float())
+    with pytest.raises(TypeError):                      # a non-contiguous weight
+        block_w4a8_matmul(x, torch.zeros((64, 32), dtype=torch.uint8,
+                                         device=dev).t(), sblock)
+    with pytest.raises(ValueError, match="B % 8"):      # B = 4
+        block_w4a16_matmul(x, kmajor, torch.ones((16, 64), dtype=torch.bfloat16,
+                                                 device=dev))
+    with pytest.raises(ValueError, match="scale"):      # a host scale pointer
+        w4a16_matmul(x, torch.zeros((64, 32), dtype=torch.uint8, device=dev),
+                     torch.ones(64))
+    with pytest.raises(TypeError):                      # f32 weights
+        conv_matmul(x, torch.zeros((64, 64), device=dev), torch.ones(64, device=dev))
+    with pytest.raises(ValueError, match="N % 4"):
+        conv_matmul(x, torch.zeros((64, 30), dtype=torch.int8, device=dev),
+                    torch.ones(30, device=dev))
+
+
+def test_model_routes_launch_the_ladder_kernels(dev, monkeypatch):
+    """_mm on CUDA leaves: each leaf kind and switch launches its kernel
+    at rows <= 8 (the head takes the plain convert)."""
+    from pygpukit_tpu_torch.llm import model as port_model
+    from pygpukit_tpu_torch.llm import quantize_weight
+    w = torch.randn((2048, 256), device=dev) * 0.02
+    x = torch.randn((1, 2048), device=dev).to(torch.bfloat16)
+    for mode, env, name in (("int4", ("PYGPUKIT_INT4_MODE", "w4a16"), "w4a16_gemv"),
+                            ("int4_block", ("PYGPUKIT_INT4_BLOCK", "w4a8"),
+                             "block_w4a8_gemv"),
+                            ("int4_block", ("PYGPUKIT_INT4_BLOCK", "w4a16"),
+                             "block_w4a16_gemv"),
+                            ("fp8", ("PYGPUKIT_INT8_MODE", "w8a8"), "conv_gemv"),
+                            ("int8", ("PYGPUKIT_INT8_MODE", "w8a16"), "conv_gemv")):
+        monkeypatch.setenv(*env)
+        leaf = quantize_weight(w, mode)
+        before = dict(LAUNCHES)
+        assert port_model._mm(x, leaf).dtype == torch.bfloat16
+        assert LAUNCHES[name] == before[name] + 1, (mode, env)
+        assert port_model._mm(x, leaf, torch.float32).dtype == torch.float32
+        assert LAUNCHES[name] == before[name] + 1, (mode, env, "head")
