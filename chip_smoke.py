@@ -55,7 +55,28 @@ Phases:
     device ms, bytes streamed per step and GB/s;
 10. phase 4's workload on the int4_block model, replayed bitwise, against
     single-stream generate (reported), and its 2-layer model on the card
-    against the CPU plain path.
+    against the CPU plain path;
+11. the uncached forward on the 1.1B bf16 model (random weights, seed 0):
+    get_logits on 2048 tokens (shape, finite, 22 flash_attention launches
+    and no other attention kernel, a bitwise second call), tokens/s and
+    device ms of one forward with its share of 989 TFLOP/s and a kernel
+    profile; its last row against cached prefill (relative L2, reported);
+    uncached greedy generation of 8 tokens after a 16-token prompt
+    (replayed, launches checked, compared with cached generate: reported);
+    a 2-layer full-width bf16 model's forward on the card against the CPU
+    plain forward (relative L2 within FWD_TOL).
+
+Phase 3 also checks flash_attention (causal bf16 at S 1000, 2048 and 8192,
+once full, once at D 128, f32 at S 1000) and flash_decode (MAX 8192, ctx 1,
+700 and 8192, bf16 and f32) against their plain versions. For every kernel
+it prints the least time the card could take for the same work (bound_ms:
+the larger of the bytes each input and output moves once over 3.35 TB/s and
+the operations over the peak of their type, 989 TFLOP/s bf16, 1979 TOP/s
+int8, 67 TFLOP/s f32) with the kernel's share of it, and, where one
+PyTorch call computes the same function, that call's time (library_ms; the
+port never calls it).
+Launches per decode step, prefill or forward are counted in phases 6, 7, 9
+and 11 and printed on one line before the summary.
 
 Any failure exits non-zero. The last two lines are the kernel summary and
 the device line read by automation; it exits 2 with no result when no CUDA
@@ -98,7 +119,11 @@ SOURCES = {"w4a8_gemv": ("pygpukit_tpu_torch/csrc/w4a8_gemv.cu",
                "pygpukit_tpu_torch/csrc/batch_decode_attention.cu",
                "pygpukit_tpu/kernels/batch_decode_attention.py:153"),
            "paged_attention": ("pygpukit_tpu_torch/csrc/paged_attention.cu",
-                               "pygpukit_tpu/kernels/paged_attention.py:80")}
+                               "pygpukit_tpu/kernels/paged_attention.py:80"),
+           "flash_attention": ("pygpukit_tpu_torch/csrc/flash_attention.cu",
+                               "pygpukit_tpu/kernels/flash_attention.py:90"),
+           "flash_decode": ("pygpukit_tpu_torch/csrc/flash_attention.cu",
+                            "pygpukit_tpu/kernels/flash_attention.py:194")}
 DENSE_KERNELS = ("w4a8_gemv", "w4a8_gemm", "kv_rows_write", "batch_decode_attention")
 PAGED_KERNELS = ("w4a8_gemv", "w4a8_gemm", "paged_attention")
 GEMVS = ("w4a8_gemv", "w4a16_gemv", "block_w4a8_gemv", "block_w4a16_gemv", "conv_gemv")
@@ -115,7 +140,29 @@ LADDER_PROMPT, LADDER_NEW, LADDER_MAX = list(range(1, 17)), 256, 512
 # the largest |output| (the same exact f32 products summed in another
 # order; the block w4a8 GEMV is held bitwise instead)
 ULP_REL, NEAR_ZERO = 2.0 ** -7, 1e-4
-PHASES = ("kernels", "dense", "paged", "tight", "ladder", "block", "parity")
+PHASES = ("kernels", "dense", "paged", "tight", "ladder", "block", "parity",
+          "forward")
+# the card's published peaks (H100 SXM data sheet, dense): bytes/s of HBM
+# and operations/s by operand type; a bound is the larger of the two times
+HBM_BYTES_S = 3.35e12
+PEAK_OPS_S = {"bf16": 989e12, "int8": 1979e12, "f32": 67e12}
+# flash_attention against its plain version in f32: the same products summed
+# in another order, so within 1e-4 of the largest |output|
+F32_REL = 1e-4
+# (S, Hq, Hk, D, dtype, causal) of the flash_attention checks; the summary
+# line's numbers are the forward's layer shape, the second entry
+FLASH_CASES = [(1000, 32, 4, 64, "bf16", True), (2048, 32, 4, 64, "bf16", True),
+               (8192, 32, 4, 64, "bf16", True), (2048, 32, 4, 64, "bf16", False),
+               (2048, 32, 8, 128, "bf16", True), (1000, 32, 4, 64, "f32", True)]
+DECODE_MAX, DECODE_CTXS = 8192, (1, 700, 8192)
+FWD_S, FWD_PROMPT, FWD_NEW = 2048, 16, 8
+FWD_PARITY_S = 1024      # past the CPU plain route's 512-key chunk
+# 2-layer full-width bf16 forward, card against the CPU plain forward,
+# relative L2 of the logits. Both round every matmul output to bf16, summed
+# in another order; the card's attention rounds P to bf16 where the CPU's
+# chunked route keeps it f32. Expected 1e-3 to 1e-2; a wrong layout, rope or
+# mask gives order 1.
+FWD_TOL = 5e-2
 # card vs CPU plain path, relative L2 of the logits. Not a rounding-level
 # match: the w4a8 and w8a8 matmuls requantize bf16 activations, and one bf16
 # ulp is about a quarter of an int8 step, so last-bit differences between the
@@ -183,13 +230,48 @@ def eager_ms(fn, n_variants: int, iters: int = 40) -> float:
     return (time.perf_counter() - t0) * 1e3 / iters
 
 
+def bound(nbytes: float, ops: float, kind: str) -> tuple[float, str]:
+    """(ms, "bytes" or "operations"): the least time the card could take to
+    move ``nbytes`` once and do ``ops`` operations of type ``kind``."""
+    t_bytes, t_ops = nbytes / HBM_BYTES_S * 1e3, ops / PEAK_OPS_S[kind] * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def kernel_row(err: float, ms: float, plain_ms: float, nbytes: float, ops: float,
+               kind: str, library_ms: float | None) -> dict:
+    """One kernel's numbers for the summary line."""
+    bms, by = bound(nbytes, ops, kind)
+    return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "bound_ms": bms,
+            "bound_by": by, "library_ms": library_ms}
+
+
+def sdpa(q, k, v, **kw):
+    """The library yardstick: one scaled_dot_product_attention call over
+    [B, H, S, D] views (timed only; the port never calls it)."""
+    import torch.nn.functional as F
+    return F.scaled_dot_product_attention(q, k, v, enable_gqa=True, **kw)
+
+
+def step_launches(step) -> dict:
+    """Kernel launches of one call ``step(0)``, counted from zero."""
+    import torch
+    from pygpukit_tpu_torch import LAUNCHES, reset_launches
+    reset_launches()
+    step(0)
+    torch.cuda.synchronize()
+    counts = {k: n for k, n in LAUNCHES.items() if n}
+    reset_launches()
+    return counts
+
+
 def bits(t):
     import torch
     return t.view(torch.int16) if t.element_size() == 2 else t
 
 
 def check_kernels(dev) -> tuple[dict, dict]:
-    """Phase 3. Returns ({name: (max_abs_err, ms, plain_ms)}, detail)."""
+    """Phase 3, the PR 1 and PR 2 kernels. Returns ({name: kernel_row},
+    detail)."""
     import torch
     from pygpukit_tpu_torch.kernels import (batch_decode_attention,
                                             batch_decode_attention_plain,
@@ -200,8 +282,10 @@ def check_kernels(dev) -> tuple[dict, dict]:
     detail: dict = {}
     res: dict = {}
     n_var = 8
-    gemv = {"err": 0.0, "ms": 0.0, "plain_ms": 0.0}
-    gemm = {"err": 0.0, "ms": 0.0, "plain_ms": 0.0}
+    # per route: err, ms, plain_ms, bytes and int8 operations, summed over
+    # the four projections at rows 8 (GEMV) and 256 (GEMM)
+    gemv = dict.fromkeys(("err", "ms", "plain_ms", "bytes", "ops"), 0.0)
+    gemm = dict(gemv)
     for name, (n, k) in PROJ_SHAPES.items():
         w = torch.randint(0, 256, (n_var, n, k // 2), generator=g, device=dev,
                           dtype=torch.uint8)
@@ -224,9 +308,13 @@ def check_kernels(dev) -> tuple[dict, dict]:
                                                      "eager_ms": ems}
                 acc["ms"] += kms
                 acc["plain_ms"] += pms
+                acc["bytes"] += n * k // 2 + 4 * n + rows * (k + n) * 2
+                acc["ops"] += 2 * rows * n * k
         del w
-    res["w4a8_gemv"] = (gemv["err"], gemv["ms"], gemv["plain_ms"])
-    res["w4a8_gemm"] = (gemm["err"], gemm["ms"], gemm["plain_ms"])
+    # no single PyTorch call multiplies packed int4 by int8-quantized rows
+    for name, acc in (("w4a8_gemv", gemv), ("w4a8_gemm", gemm)):
+        res[name] = kernel_row(acc["err"], acc["ms"], acc["plain_ms"], acc["bytes"],
+                               acc["ops"], "int8", None)
 
     b, nl, mx, lanes, hq, d = 8, 22, 1024, 256, 32, 64
     kp = torch.randn((b, nl, mx, lanes), generator=g, device=dev).to(torch.bfloat16)
@@ -245,11 +333,21 @@ def check_kernels(dev) -> tuple[dict, dict]:
         check(torch.equal(bits(k1[slot, 3, mx - 1]), bits(kn[slot].reshape(-1))),
               f"kv_rows_write: slot {slot} row not at MAX-1")
     del k2, v2
+    slots = torch.arange(b, device=dev)
+    rows_at = poss.clamp(0, mx - 1).long()           # the kernel's clamp, untimed
+
+    def index_put(i):                                # one index_put_ per pool
+        k1[slots, i, rows_at] = kn.reshape(b, lanes)
+        v1[slots, i, rows_at] = vn.reshape(b, lanes)
     kms = time_ms(lambda i: kv_rows_write(k1, v1, kn, vn, i, poss), nl)
     pms = time_ms(lambda i: kv_rows_write_plain(k1, v1, kn, vn, i, poss), nl)
-    detail["kv_rows_write"] = {"ms": kms, "plain_ms": pms, "eager_ms": eager_ms(
-        lambda i: kv_rows_write(k1, v1, kn, vn, i, poss), nl)}
-    res["kv_rows_write"] = (0.0, kms, pms)
+    lms = time_ms(index_put, nl)
+    detail["kv_rows_write"] = {"ms": kms, "plain_ms": pms, "library_ms": lms,
+                               "eager_ms": eager_ms(
+                                   lambda i: kv_rows_write(k1, v1, kn, vn, i, poss), nl)}
+    # the B new K and V rows read once and written once, and the positions
+    res["kv_rows_write"] = kernel_row(0.0, kms, pms, 4 * b * lanes * 2 + 4 * b, 0,
+                                      "bf16", lms)
     del k1, v1
 
     q = torch.randn((b, 1, hq, d), generator=g, device=dev).to(torch.bfloat16)
@@ -265,12 +363,24 @@ def check_kernels(dev) -> tuple[dict, dict]:
               f"batch_decode_attention (softcap={softcap}, window={window}): "
               f"max abs err {e}")
         err = max(err, e)
+    live = lens.clamp(max=mx)
+    live_mask = (torch.arange(mx, device=dev)[None, :] < live[:, None])[:, None, None, :]
+
+    def library(i):                      # the layer's pools as [B, Hk, MAX, D] views
+        kk = kp[:, i].view(b, mx, lanes // d, d).transpose(1, 2)
+        vv = vp[:, i].view(b, mx, lanes // d, d).transpose(1, 2)
+        sdpa(q.transpose(1, 2), kk, vv, attn_mask=live_mask, scale=0.125)
     kms = time_ms(lambda i: batch_decode_attention(q, kp, vp, i, lens), nl)
     pms = time_ms(lambda i: batch_decode_attention_plain(q, kp, vp, i, lens, 0.125),
                   nl)
-    detail["batch_decode_attention"] = {"ms": kms, "plain_ms": pms, "eager_ms": eager_ms(
+    lms = time_ms(library, nl)
+    detail["batch_decode_attention"] = {"ms": kms, "plain_ms": pms, "library_ms": lms,
+                                        "eager_ms": eager_ms(
         lambda i: batch_decode_attention(q, kp, vp, i, lens), nl)}
-    res["batch_decode_attention"] = (err, kms, pms)
+    n_live = int(live.sum())
+    res["batch_decode_attention"] = kernel_row(
+        err, kms, pms, 2 * n_live * lanes * 2 + 2 * q.numel() * 2 + 4 * b,
+        4 * hq * d * n_live, "bf16", lms)
     del kp, vp
     res["paged_attention"] = check_paged_attention(dev, g, detail)
     return res, detail
@@ -295,12 +405,15 @@ def paged_inputs(dev, g, max_len: int, n_layers: int, b: int = 8, bs: int = 16,
     return q, kp, vp, tables, lens
 
 
-def check_paged_attention(dev, g, detail: dict) -> tuple:
-    """Phase 3, paged attention: (max_abs_err, ms, plain_ms) at MAX 512 (the
-    paged path's shape); MAX 1024 is checked and timed into ``detail``."""
+def check_paged_attention(dev, g, detail: dict) -> dict:
+    """Phase 3, paged attention: the kernel_row at MAX 512 (the paged path's
+    shape); MAX 1024 is checked and timed into ``detail``. The library
+    yardstick runs over a contiguous copy of each slot's blocks, made
+    outside the timing."""
     import torch
     from pygpukit_tpu_torch.kernels import paged_attention, paged_attention_plain
-    err, times = 0.0, {}
+    from pygpukit_tpu_torch.kernels.paged_attention import _paged_gather
+    err, rows = 0.0, {}
     nl = 22
     for max_len in (512, 1024):
         q, kp, vp, tables, lens = paged_inputs(dev, g, max_len, nl)
@@ -315,17 +428,27 @@ def check_paged_attention(dev, g, detail: dict) -> tuple:
                   f"paged_attention MAX {max_len} (softcap={softcap}, "
                   f"window={window}): max abs err {e}")
             err = max(err, e)
+        seqs = [(_paged_gather(kp[i], tables), _paged_gather(vp[i], tables))
+                for i in range(nl)]                  # [B, Hk, MB*BS, D], untimed
+        t = seqs[0][0].shape[2]
+        live_mask = (torch.arange(t, device=dev)[None, :]
+                     < lens[:, None])[:, None, None, :]
         kms = time_ms(lambda i: paged_attention(q, kp[i], vp[i], tables, lens,
                                                 scale=0.125), nl)
         pms = time_ms(lambda i: paged_attention_plain(q, kp[i], vp[i], tables,
                                                       lens, 0.125), nl)
-        times[max_len] = (kms, pms)
-        detail[f"paged_attention_max{max_len}"] = {
-            "ms": kms, "plain_ms": pms, "eager_ms": eager_ms(
-                lambda i: paged_attention(q, kp[i], vp[i], tables, lens,
-                                          scale=0.125), nl)}
-        del kp, vp
-    return (err, *times[512])
+        lms = time_ms(lambda i: sdpa(q[:, :, None], seqs[i][0], seqs[i][1],
+                                     attn_mask=live_mask, scale=0.125), nl)
+        n_live = int(lens.sum())
+        hk, d = kp.shape[2], kp.shape[4]
+        rows[max_len] = kernel_row(
+            err, kms, pms, 2 * n_live * hk * d * 2 + 2 * q.numel() * 2
+            + tables.numel() * 4 + lens.numel() * 4, 4 * q.shape[1] * d * n_live,
+            "bf16", lms)
+        detail[f"paged_attention_max{max_len}"] = dict(rows[max_len], eager_ms=eager_ms(
+            lambda i: paged_attention(q, kp[i], vp[i], tables, lens, scale=0.125), nl))
+        del kp, vp, seqs
+    return dict(rows[512], max_abs_err=err)
 
 
 def ladder_weights(dev, g, n: int, k: int, n_var: int) -> dict:
@@ -355,14 +478,17 @@ def check_ladder_kernels(dev, g, detail: dict) -> dict:
     1e-4 of max |y| (max abs error and share of equal elements reported);
     kernel and plain device ms and GB/s of weight and scale bytes. Returns
     {name: (max_abs_err, ms, plain_ms)} with the times summed over the four
-    shapes at one row (the decode step's projections, per layer)."""
+    shapes at one row (the decode step's projections, per layer), and the
+    bytes (weights, scales, x and y once) and operations of those four
+    calls; no single PyTorch call computes an int4, int4_block or
+    converting GEMV, so there is no library time."""
     import torch
     from pygpukit_tpu_torch import kernels as K
     fns = {"block_w4a8_gemv": (K.block_w4a8_matmul, K.block_w4a8_matmul_plain),
            "block_w4a16_gemv": (K.block_w4a16_matmul, K.block_w4a16_matmul_plain),
            "w4a16_gemv": (K.w4a16_matmul, K.w4a16_matmul_plain),
            "conv_gemv": (K.conv_matmul, K.conv_matmul_plain)}
-    res = {name: [0.0, 0.0, 0.0] for name in fns}
+    res = {name: [0.0, 0.0, 0.0, 0.0, 0.0] for name in fns}
     n_var = 8
     for shape, (n, k) in PROJ_SHAPES.items():
         weights = ladder_weights(dev, g, n, k, n_var)
@@ -393,8 +519,94 @@ def check_ladder_kernels(dev, g, detail: dict) -> dict:
                 if rows == 1:
                     r[1] += kms
                     r[2] += pms
+                    r[3] += nbytes + (k + n) * 2
+                    r[4] += 2 * n * k
         del weights
-    return {name: tuple(r) for name, r in res.items()}
+    return {name: kernel_row(*r, "int8" if name == "block_w4a8_gemv" else "bf16", None)
+            for name, r in res.items()}
+
+
+def _attn_err(out, ref, kind: str, what: str) -> float:
+    """Max abs error, checked: bf16 within ATTN_TOL (both round P to bf16,
+    the kernel against a running maximum), f32 within F32_REL of max
+    |ref|."""
+    import torch
+    e = (out.float() - ref.float()).abs().max().item()
+    if kind == "bf16":
+        check(torch.allclose(out.float(), ref.float(), **ATTN_TOL),
+              f"{what}: max abs err {e}")
+    else:
+        check(e <= F32_REL * ref.float().abs().max().item(), f"{what}: max abs err {e}")
+    return e
+
+
+def check_flash_kernels(dev, g, detail: dict) -> dict:
+    """Phase 3, flash_attention over FLASH_CASES and flash_decode at MAX
+    DECODE_MAX over DECODE_CTXS, bf16 and f32: each against its plain
+    version, replayed bitwise, timed with its plain version, the library
+    call (scaled_dot_product_attention, enable_gqa) and its bound. Returns
+    the summary rows: flash_attention at the forward's layer shape (S 2048
+    causal bf16), flash_decode at ctx 8192 bf16."""
+    import torch
+    from pygpukit_tpu_torch.kernels import (flash_attention, flash_attention_plain,
+                                            flash_decode, flash_decode_plain)
+    dts = {"bf16": torch.bfloat16, "f32": torch.float32}
+    res = {}
+    for s_len, hq, hk, d, kind, causal in FLASH_CASES:
+        what = f"flash_attention S {s_len} Hq {hq} Hk {hk} D {d} {kind}" + (
+            "" if causal else " full")
+        n_var = 2 if s_len > 2048 else 4            # sets cycle past the L2
+        qs = [torch.randn((s_len, hq, d), generator=g, device=dev).to(dts[kind])
+              for _ in range(n_var)]
+        ks = [torch.randn((s_len, hk, d), generator=g, device=dev).to(dts[kind])
+              for _ in range(n_var)]
+        vs = [torch.randn((s_len, hk, d), generator=g, device=dev).to(dts[kind])
+              for _ in range(n_var)]
+        out = flash_attention(qs[0], ks[0], vs[0], causal)
+        err = _attn_err(out, flash_attention_plain(qs[0], ks[0], vs[0], causal),
+                        kind, what)
+        check(torch.equal(out, flash_attention(qs[0], ks[0], vs[0], causal)),
+              f"{what}: a second launch differs")
+        kms = time_ms(lambda i: flash_attention(qs[i], ks[i], vs[i], causal), n_var)
+        pms = time_ms(lambda i: flash_attention_plain(qs[i], ks[i], vs[i], causal),
+                      n_var, reps=2)
+        lms = time_ms(lambda i: sdpa(qs[i].transpose(0, 1)[None],
+                                     ks[i].transpose(0, 1)[None],
+                                     vs[i].transpose(0, 1)[None], is_causal=causal),
+                      n_var)
+        pairs = s_len * (s_len + 1) / 2 if causal else s_len * s_len
+        elt = out.element_size()
+        row = kernel_row(err, kms, pms, (2 * hq + 2 * hk) * s_len * d * elt,
+                         4 * hq * d * pairs, kind, lms)
+        detail[what.replace(" ", "_")] = dict(row, share=row["bound_ms"] / kms)
+        if (s_len, hk, kind, causal) == (2048, 4, "bf16", True):
+            res["flash_attention"] = row
+        del qs, ks, vs, out
+    hq, hk, d = 32, 4, 64
+    for kind in ("bf16", "f32"):
+        nl = 22                                    # per-layer caches cycle past the L2
+        kc = torch.randn((nl, DECODE_MAX, hk, d), generator=g, device=dev).to(dts[kind])
+        vc = torch.randn((nl, DECODE_MAX, hk, d), generator=g, device=dev).to(dts[kind])
+        q = torch.randn((1, hq, d), generator=g, device=dev).to(dts[kind])
+        for ctx in DECODE_CTXS:
+            what = f"flash_decode MAX {DECODE_MAX} ctx {ctx} {kind}"
+            out = flash_decode(q, kc[3], vc[3], ctx)
+            err = _attn_err(out, flash_decode_plain(q, kc[3], vc[3], ctx), kind, what)
+            check(torch.equal(out, flash_decode(q, kc[3], vc[3], ctx)),
+                  f"{what}: a second launch differs")
+            kms = time_ms(lambda i: flash_decode(q, kc[i], vc[i], ctx), nl)
+            pms = time_ms(lambda i: flash_decode_plain(q, kc[i], vc[i], ctx), nl)
+            lms = time_ms(lambda i: sdpa(q.transpose(0, 1)[None],
+                                         kc[i, :ctx].permute(1, 0, 2)[None],
+                                         vc[i, :ctx].permute(1, 0, 2)[None]), nl)
+            elt = q.element_size()
+            row = kernel_row(err, kms, pms, (2 * ctx * hk * d + 2 * hq * d) * elt,
+                             4 * hq * d * ctx, kind, lms)
+            detail[what.replace(" ", "_")] = dict(row, share=row["bound_ms"] / kms)
+            if (ctx, kind) == (DECODE_MAX, "bf16"):
+                res["flash_decode"] = row
+        del kc, vc
+    return res
 
 
 def build_model(cfg, seed: int, dev, mode: str | None = "int4", base=None):
@@ -432,8 +644,9 @@ def serve(model, requests, n_steps: int, warm=(), max_seq_len: int = 1024,
     return eng, reqs, time.perf_counter() - t0
 
 
-def decode_step_times(model, b: int, max_len: int, pos: int) -> tuple[float, float, list]:
-    """(eager wall ms, graph-replayed device ms, kernel profile) of one
+def decode_step_times(model, b: int, max_len: int, pos: int) -> tuple:
+    """(eager wall ms, graph-replayed device ms, kernel profile, launches
+    of one step) of one
     batch-``b`` decode step of ``model`` over ``[b, L, max_len, Hk*D]``
     pools with every slot at position ``pos``: how much of the eager step
     is the device's work and how much host launch cost. At b = 1 this is
@@ -450,14 +663,16 @@ def decode_step_times(model, b: int, max_len: int, pos: int) -> tuple[float, flo
 
     def step(_):
         batch_decode_step_fn(cfg, params, kp, vp, toks, poss)
-    return eager_ms(step, 1, iters=20), time_ms(step, 1, reps=20), kernel_profile(step)
+    return (eager_ms(step, 1, iters=20), time_ms(step, 1, reps=20), kernel_profile(step),
+            step_launches(step))
 
 
-def paged_step_times(model, dev) -> tuple[float, float, list]:
+def paged_step_times(model, dev) -> tuple:
     """One batch-8 paged decode step at the paged path's shape (MAX 512,
     block 16, every slot at position 143 on its own blocks): eager wall ms,
-    graph-replayed device ms, and the profiler's kernels by device time over
-    three eager steps [(name, calls, device ms per step)]."""
+    graph-replayed device ms, the profiler's kernels by device time over
+    three eager steps [(name, calls, device ms per step)], and the launches
+    of one step."""
     import torch
     from pygpukit_tpu_torch.llm import paged_decode_step_fn
     cfg, params = model.config, model.params
@@ -471,7 +686,8 @@ def paged_step_times(model, dev) -> tuple[float, float, list]:
 
     def step(_):
         paged_decode_step_fn(cfg, params, kp, vp, tables, toks, poss)
-    return eager_ms(step, 1, iters=20), time_ms(step, 1, reps=20), kernel_profile(step)
+    return (eager_ms(step, 1, iters=20), time_ms(step, 1, reps=20), kernel_profile(step),
+            step_launches(step))
 
 
 def kernel_profile(step, n: int = 3) -> list:
@@ -560,11 +776,17 @@ def engine_replay(model, requests, kernels, what: str, phases=("4", "5")) -> dic
     return launches
 
 
-def dense_path(model, requests) -> dict:
+def dense_path(model, requests, per_step: dict) -> dict:
     """Phases 4-6 (the dense path on the int4 model); returns its launch
-    counts."""
+    counts and records its per-step launches in ``per_step``."""
     launches = engine_replay(model, requests, DENSE_KERNELS, "dense path")
-    eager, graph, prof = decode_step_times(model, 8, 1024, 300)
+    eager, graph, prof, counts = decode_step_times(model, 8, 1024, 300)
+    for name, n in counts.items():
+        per_step[name] = (n, "batch-8 decode step")
+    model.init_fixed_cache(1024)
+    counts = step_launches(lambda _: model.prefill(requests[1][0]))
+    per_step["w4a8_gemm"] = (counts.get("w4a8_gemm", 0),
+                             f"{len(requests[1][0])}-token prefill")
     print(f"phase 6: batch-8 decode step at context 301: eager {eager:.3f} ms "
           f"wall, CUDA-graph replay {graph:.3f} ms device; device busy "
           f"{graph / eager:.3f} of the eager step; " + profile_line(prof, 6))
@@ -588,7 +810,7 @@ def streamed_bytes(params: dict) -> int:
     return total
 
 
-def ladder_rung(model, rung: str, card: str) -> dict:
+def ladder_rung(model, rung: str, card: str, per_step: dict) -> dict:
     """One rung of the decode ladder (the reference's bench_decode,
     bench.py:172-253): a warm and a timed generate of LADDER_NEW tokens
     after a 16-token prompt, cache LADDER_MAX, one chunk. Checks identical
@@ -613,8 +835,8 @@ def ladder_rung(model, rung: str, card: str) -> dict:
             torch.cuda.synchronize()
             runs.append((toks, time.perf_counter() - t0, dict(LAUNCHES),
                          model.logits_finite()))
-        eager, graph, prof = decode_step_times(model, 1, LADDER_MAX,
-                                               len(LADDER_PROMPT) + LADDER_NEW // 2)
+        eager, graph, prof, counts = decode_step_times(
+            model, 1, LADDER_MAX, len(LADDER_PROMPT) + LADDER_NEW // 2)
     finally:
         for k, v in saved.items():
             if v is None:
@@ -631,6 +853,8 @@ def ladder_rung(model, rung: str, card: str) -> dict:
         want = projections * steps if name == gemv else 0
         check(launches[name] == want, f"ladder {rung}: {name} launched "
               f"{launches[name]} times in decode, expected {want}")
+    if gemv is not None:
+        per_step.setdefault(gemv, (counts.get(gemv, 0), "single-stream decode step"))
     nbytes = streamed_bytes(model.params)
     print(f"phase 9: ladder {rung}: {LADDER_NEW / secs:.1f} tok/s eager; one decode step "
           f"eager {eager:.3f} ms wall, CUDA-graph replay {graph:.3f} ms device; "
@@ -641,7 +865,7 @@ def ladder_rung(model, rung: str, card: str) -> dict:
     return launches
 
 
-def ladder(cfg, dev, card: str) -> dict:
+def ladder(cfg, dev, card: str, per_step: dict) -> dict:
     """Phase 9: the decode ladder on the 1.1B model at full width and
     depth, one bf16 weight tree (seed 0) quantized per rung. Returns each
     ladder GEMV's launches from its rung's timed run."""
@@ -655,7 +879,7 @@ def ladder(cfg, dev, card: str) -> dict:
             model = None
             torch.cuda.empty_cache()
             model, model_mode = build_model(cfg, 0, dev, mode, base=base), mode
-        got = ladder_rung(model, rung, card)
+        got = ladder_rung(model, rung, card, per_step)
         if gemv is not None:
             launches[gemv] = got[gemv]
     del model, base
@@ -663,7 +887,7 @@ def ladder(cfg, dev, card: str) -> dict:
     return launches
 
 
-def paged_path(model, cfg, rng) -> dict:
+def paged_path(model, cfg, rng, per_step: dict) -> dict:
     """Phase 7, the reference's serving_1b_int4_paged row; returns the
     launch counts of its first run (warmup, warm-up and timed requests)."""
     import torch
@@ -706,7 +930,9 @@ def paged_path(model, cfg, rng) -> dict:
     eng4, reqs4, secs4 = serve(model, requests, 128, pipelined=True, **kw)
     dense_same = sum(r.generated == t for r, t in zip(reqs4, streams))
     del eng4
-    eager, graph, rows = paged_step_times(model, model.device)
+    eager, graph, rows, counts = paged_step_times(model, model.device)
+    per_step["paged_attention"] = (counts.get("paged_attention", 0),
+                                   "batch-8 paged decode step")
     print(f"phase 7: batch-8 paged decode step at context 144: eager {eager:.3f} ms "
           f"wall, CUDA-graph replay {graph:.3f} ms device; device busy "
           f"{graph / eager:.3f} of the eager step; " + profile_line(rows, 8))
@@ -791,6 +1017,121 @@ def block_engine(cfg, dev, requests) -> dict:
     return launches
 
 
+def forward_flops(cfg, s_len: int) -> float:
+    """2 * (matmul weight parameters) * S plus the causal attention's 4 Hq D
+    S(S+1)/2 per layer."""
+    e, inter, v = cfg.hidden_size, cfg.intermediate_size, cfg.vocab_size
+    hq, hk, d = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    per_layer = e * (hq + 2 * hk) * d + hq * d * e + 3 * e * inter
+    weights = cfg.num_layers * per_layer + e * v
+    return 2 * weights * s_len + cfg.num_layers * 4 * hq * d * s_len * (s_len + 1) / 2
+
+
+def forward_phase(cfg, dev, card: str, per_step: dict) -> dict:
+    """Phase 11: the uncached forward on the 1.1B bf16 model. Returns the
+    launches of its main-path run (get_logits on FWD_S tokens)."""
+    import numpy as np
+    import torch
+    from pygpukit_tpu_torch import LAUNCHES, reset_launches
+    from pygpukit_tpu_torch.llm import forward_fn
+    t0 = time.perf_counter()
+    model = build_model(cfg, 0, dev, None)
+    ids = np.random.default_rng(11).integers(1, cfg.vocab_size, FWD_S).tolist()
+    torch.cuda.synchronize()
+    reset_launches()
+    logits = model.get_logits(ids)
+    launches = dict(LAUNCHES)
+    reset_launches()
+    check(logits.shape == (FWD_S, cfg.vocab_size), f"forward: logits {logits.shape}")
+    check(bool(np.isfinite(logits).all()), "forward: a logit is not finite")
+    want = cfg.num_layers
+    check(launches["flash_attention"] == want,
+          f"forward: flash_attention launched {launches['flash_attention']} times, "
+          f"expected {want}")
+    others = {k: n for k, n in launches.items() if k != "flash_attention" and n}
+    check(not others, f"forward: other kernels launched {others}")
+    per_step["flash_attention"] = (want, f"one {FWD_S}-token forward")
+    again = model.get_logits(ids)
+    check(np.array_equal(logits.view(np.uint32), again.view(np.uint32)),
+          "forward: a second call's logits differ")
+    del again
+
+    tokens = torch.tensor(ids, device=dev)
+
+    def fwd(_):
+        forward_fn(cfg, model.params, tokens)
+    fwd(0)
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(3):
+        fwd(0)
+    end.record()
+    end.synchronize()
+    ms = start.elapsed_time(end) / 3
+    graph = time_ms(fwd, 1, reps=3)
+    prof = kernel_profile(fwd, n=2)
+    flops = forward_flops(cfg, FWD_S)
+    print(f"phase 11: forward of {FWD_S} tokens: {ms:.3f} ms (CUDA events, eager) = "
+          f"{FWD_S / ms * 1e3:.0f} tok/s, {flops / 1e12:.3f} TFLOP = "
+          f"{flops / (ms * 1e-3) / PEAK_OPS_S['bf16']:.4f} of 989 TFLOP/s; graph "
+          f"replay {graph:.3f} ms device; shape {logits.shape}, finite, launches "
+          f"{json.dumps({k: n for k, n in launches.items() if n})}, second call "
+          f"bitwise equal; [{card}]")
+    print("phase 11: " + profile_line(prof, 8))
+
+    model.init_fixed_cache(FWD_S)
+    pre = model.prefill(ids).cpu().numpy()
+    rel = float(np.linalg.norm(logits[-1] - pre) / np.linalg.norm(pre))
+    print(f"phase 11: forward's last row vs cached prefill (plain f32 softmax): "
+          f"relative L2 {rel:.3e}, argmax equal {int(logits[-1].argmax() == pre.argmax())}")
+    del logits, pre
+
+    prompt = ids[:FWD_PROMPT]
+    reset_launches()
+    gen1 = model.generate(prompt, max_new_tokens=FWD_NEW, use_cache=False)
+    gen_launches = dict(LAUNCHES)
+    gen2 = model.generate(prompt, max_new_tokens=FWD_NEW, use_cache=False)
+    check(len(gen1) == FWD_NEW and gen1 == gen2,
+          f"uncached generate: {gen1} then {gen2}")
+    check(gen_launches["flash_attention"] == want * FWD_NEW,
+          f"uncached generate: flash_attention launched "
+          f"{gen_launches['flash_attention']} times, expected {want * FWD_NEW}")
+    model.init_fixed_cache(64)
+    cached = model.generate(prompt, max_new_tokens=FWD_NEW)
+    same = sum(a == b for a, b in zip(gen1, cached))
+    print(f"phase 11: uncached greedy generate, {FWD_NEW} tokens after a {FWD_PROMPT}-"
+          f"token prompt: replay identical, flash_attention launched "
+          f"{gen_launches['flash_attention']} times; cached generate equal in "
+          f"{same}/{FWD_NEW} tokens")
+    del model
+    torch.cuda.empty_cache()
+    forward_cpu_parity(cfg, dev)
+    print(f"phase 11 took {time.perf_counter() - t0:.1f} s")
+    return launches
+
+
+def forward_cpu_parity(cfg, dev) -> None:
+    """A two-layer full-width bf16 model's forward on the card (the
+    flash_attention kernel) against the CPU plain forward (the chunked
+    route past S 512), relative L2 of the logits within FWD_TOL."""
+    import numpy as np
+    from pygpukit_tpu_torch.llm import TransformerConfig
+    small = TransformerConfig(**{**cfg.__dict__, "num_layers": 2})
+    card_model = build_model(small, 1, dev, None)
+    cpu_model = build_model(small, 1, dev, None).to("cpu")
+    s_len = FWD_PARITY_S
+    ids = np.random.default_rng(12).integers(1, cfg.vocab_size, s_len).tolist()
+    lc, lr = card_model.get_logits(ids), cpu_model.get_logits(ids)
+    rel = float(np.linalg.norm(lc - lr) / np.linalg.norm(lr))
+    top = float((lc.argmax(-1) == lr.argmax(-1)).mean())
+    check(rel <= FWD_TOL, f"2-layer bf16 forward, card vs CPU: relative L2 {rel:.3e}")
+    print(f"phase 11: 2-layer bf16 forward of {s_len} tokens, card vs CPU plain "
+          f"forward: relative L2 {rel:.3e} (limit {FWD_TOL}), max abs "
+          f"{np.abs(lc - lr).max() / np.abs(lr).max():.3e} of max |logit|, argmax "
+          f"equal in {top:.4f} of rows")
+
+
 def main(argv: list[str]) -> int:
     import argparse
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
@@ -841,13 +1182,21 @@ def main(argv: list[str]) -> int:
         g = torch.Generator(device=dev)
         g.manual_seed(4321)
         results.update(check_ladder_kernels(dev, g, detail))
+        results.update(check_flash_kernels(dev, g, detail))
         print("phase 3: kernels match their plain versions")
         print("kernel_times " + json.dumps(detail))
+        print("phase 3: bounds " + json.dumps({
+            name: {"ms": r["ms"], "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
+                   "share": r["bound_ms"] / r["ms"], "library_ms": r["library_ms"]}
+            for name, r in results.items()}))
 
     cfg = TransformerConfig(**CFG_1B)
     rng = np.random.default_rng(0)
     requests = dense_requests(cfg, rng)
     launches: dict = {}
+    # launches per decode step, prefill or forward, by kernel, recorded by
+    # the phase that drives each path: name -> (launches, what ran once)
+    per_step = {"flash_decode": (0, "a library function: no path of the port calls it")}
     if {"dense", "paged", "tight"} & set(phases):
         t0 = time.perf_counter()
         model = build_model(cfg, 0, dev)
@@ -855,10 +1204,11 @@ def main(argv: list[str]) -> int:
         print(f"phase 4: 1.1B int4 model built in {time.perf_counter() - t0:.1f} s")
         # each kernel's launches from the run of the path it belongs to
         if "dense" in phases:
-            dense = dense_path(model, requests)
+            dense = dense_path(model, requests, per_step)
             launches.update({name: dense[name] for name in DENSE_KERNELS})
         if "paged" in phases:
-            launches["paged_attention"] = paged_path(model, cfg, rng)["paged_attention"]
+            launches["paged_attention"] = paged_path(model, cfg, rng,
+                                                     per_step)["paged_attention"]
         if "tight" in phases:
             tight_pool(model, cfg, rng)
         print(f"phases 4-8 took {time.perf_counter() - t0:.1f} s")
@@ -866,7 +1216,7 @@ def main(argv: list[str]) -> int:
         torch.cuda.empty_cache()
     if "ladder" in phases:
         t0 = time.perf_counter()
-        for name, n in ladder(cfg, dev, card).items():   # w4a8_gemv keeps phase 4's
+        for name, n in ladder(cfg, dev, card, per_step).items():  # w4a8_gemv: phase 4's
             launches.setdefault(name, n)
         print(f"phase 9 took {time.perf_counter() - t0:.1f} s")
     if "block" in phases:
@@ -875,17 +1225,21 @@ def main(argv: list[str]) -> int:
         print(f"phase 10 took {time.perf_counter() - t0:.1f} s")
     if "parity" in phases:
         cpu_parity(cfg, dev, requests[0][0])
+    if "forward" in phases:
+        launches["flash_attention"] = forward_phase(cfg, dev, card,
+                                                    per_step)["flash_attention"]
+        launches["flash_decode"] = 0       # no path calls it (per_step)
     print(f"total {time.perf_counter() - t_start:.1f} s after the build began")
     if set(phases) != set(PHASES):
         print(f"partial run ({args.phases}): no summary")
         return 0
 
+    print("launches_per_step " + json.dumps(per_step))
     summary = {"kernels": []}
     for name, (src, rep) in SOURCES.items():
-        err, ms, pms = results[name]
         summary["kernels"].append({"name": name, "route": "cuda", "source": src,
                                    "replaces": rep, "launches": launches[name],
-                                   "max_abs_err": err, "ms": ms, "plain_ms": pms})
+                                   **results[name]})
     print(card)
     print(json.dumps(summary))
     print(json.dumps({"ok": True, "device": {

@@ -9,7 +9,10 @@ tensors run the plain version.
 
 Ported so far: the int4 batch-8 serving path (``llm.serving``) over the
 unified causal LM (``llm.model``), dense or paged (``llm.serving_paged``,
-``ops.paged``), pipelined or not, and its five kernels.
+``ops.paged``), pipelined or not; the decode weight-format ladder; the
+uncached forward (``CausalTransformerModel.forward`` / ``get_logits``,
+``ops.nn.flash_attention_fn``) with uncached and top-p generation; and
+their eleven kernels.
 """
 
 from .core import get_device, require_cuda, set_deterministic_numerics

@@ -8,6 +8,8 @@ other. ``LAUNCHES`` counts kernel launches per wrapper.
 from ._build import LAUNCHES, build, reset_launches
 from .batch_decode_attention import (batch_decode_attention,
                                      batch_decode_attention_plain)
+from .flash_attention import (flash_attention, flash_attention_plain,
+                              flash_decode, flash_decode_plain)
 from .gemv_quant import (block_w4a8_matmul, block_w4a8_matmul_plain,
                          block_w4a16_matmul, block_w4a16_matmul_plain,
                          conv_matmul, conv_matmul_plain, w4a8_matmul,
@@ -16,7 +18,9 @@ from .kv_row_write import kv_rows_write, kv_rows_write_plain
 from .paged_attention import paged_attention, paged_attention_plain
 
 __all__ = ["LAUNCHES", "build", "reset_launches", "batch_decode_attention",
-           "batch_decode_attention_plain", "block_w4a8_matmul",
+           "batch_decode_attention_plain", "flash_attention",
+           "flash_attention_plain", "flash_decode", "flash_decode_plain",
+           "block_w4a8_matmul",
            "block_w4a8_matmul_plain", "block_w4a16_matmul",
            "block_w4a16_matmul_plain", "conv_matmul", "conv_matmul_plain",
            "w4a8_matmul", "w4a8_matmul_plain", "w4a16_matmul",

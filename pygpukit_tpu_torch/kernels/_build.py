@@ -38,7 +38,8 @@ LAUNCHES: dict[str, int] = {"w4a8_gemv": 0, "w4a8_gemm": 0,
                             "kv_rows_write": 0, "batch_decode_attention": 0,
                             "paged_attention": 0, "w4a16_gemv": 0,
                             "block_w4a8_gemv": 0, "block_w4a16_gemv": 0,
-                            "conv_gemv": 0}
+                            "conv_gemv": 0, "flash_attention": 0,
+                            "flash_decode": 0}
 
 _P = c_void_p
 _SIGNATURES = {
@@ -56,6 +57,10 @@ _SIGNATURES = {
                                    c_float, c_int, _P],
     "pgk_paged_attention": [_P, _P, _P, _P, _P, _P, c_int, c_int, c_int, c_int,
                             c_int, c_int, c_float, c_float, c_int, _P],
+    "pgk_flash_attention": [_P, _P, _P, _P, c_int, c_int, c_int, c_int, c_int,
+                            c_int, c_float, _P],
+    "pgk_flash_decode": [_P, _P, _P, _P, _P, _P, _P, c_int, c_int, c_int, c_int,
+                         c_int, c_int, c_int, c_float, _P],
 }
 
 _lib: ctypes.CDLL | None = None

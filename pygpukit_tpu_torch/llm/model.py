@@ -38,20 +38,29 @@ and "convert + matmul" are the kernels' plain versions with the output in
 
 The batch-rows decode step always uses ``kernels.kv_rows_write`` and
 ``kernels.batch_decode_attention``; single-stream decode is that step with
-B = 1 over a ``[1, L, MAX, Hk*D]`` pool.
+B = 1 over a ``[1, L, MAX, Hk*D]`` pool. Cached prefill attends with the
+plain f32 softmax (``_prefill_attn``). The uncached forward
+(``forward_fn``, ``get_logits``, ``generate(use_cache=False)``) attends
+through ``ops.nn.flash_attention_fn``: on CUDA tensors the
+``kernels.flash_attention`` kernel at every length, bf16 or f32, unless the
+layer has a softcap, a window or a non-default scale, which take the plain
+route (as the reference sends them to XLA); its weight leaves follow the
+rows > 8 routes above (the forward is M = S rows, as prefill is).
 
 The device picks only the implementation: the kernel for CUDA tensors, the
 plain version for CPU tensors. The reference's size and regime gates
 (``on_tpu``, minimum weight sizes, exact tiles, the M >= 256 rule for
 layer-sliced operands, the XLA default of its fp8 GEMV, the MAX >= 1024
-attention gate) work around TPU compilers and are not ported: the port
-always computes what the TPU kernels compute.
+attention gate, the bf16-only S >= 8192 flash-attention gate) work around
+TPU compilers and are not ported: the port always computes what the TPU
+kernels compute.
 """
 
 from __future__ import annotations
 
 import math
 import os
+from collections.abc import Iterator
 
 import numpy as np
 import torch
@@ -67,7 +76,10 @@ from ..kernels import (batch_decode_attention, block_w4a8_matmul,
                        w4a16_matmul, w4a16_matmul_plain)
 from ..kernels.gemv_quant import GEMV_MAX_ROWS
 from ..ops.embedding import kv_cache_zeros, kv_leaf, kv_write
-from ..ops.nn import apply_rope_fn, rmsnorm_fn, rope_init, swiglu_fn
+from ..ops.nn import (apply_rope_fn, flash_attention_fn, rmsnorm_fn,
+                      rope_init, swiglu_fn)
+from ..ops.sampling import (sample_greedy_fn, sample_temperature_fn,
+                            sample_topk_fn, sample_topp_fn)
 from .config import TransformerConfig
 
 _F32 = torch.float32
@@ -294,6 +306,38 @@ def _layer_window(cfg: TransformerConfig, i: int) -> int | None:
 
 
 # ---------------------------------------------------------------------------
+# Forward (no cache)
+# ---------------------------------------------------------------------------
+
+def layer_stack_fn(cfg: TransformerConfig, layers: dict, h: torch.Tensor,
+                   rope_cos, rope_sin) -> torch.Tensor:
+    """Run h [S, E] through the stacked layers (a Python loop over the layer
+    views); attention through ``flash_attention_fn`` (route rule above)."""
+    s = h.shape[0]
+    for i in range(layers["attn_norm_w"].shape[0]):
+        lp = _slice_layer_params(layers, i)
+        x = _attn_in(cfg, lp, h)
+        q, k, v = _project_qkv(cfg, lp, x)
+        if cfg.use_rope:
+            q = _rope(cfg, q, rope_cos[:s], rope_sin[:s])
+            k = _rope(cfg, k, rope_cos[:s], rope_sin[:s])
+        attn = flash_attention_fn(q, k, v, scale=cfg.attn_scale,
+                                  softcap=cfg.attn_logit_softcap,
+                                  window=_layer_window(cfg, i))
+        h = _residual_tail(cfg, lp, h, attn, s)
+    return h
+
+
+def forward_fn(cfg: TransformerConfig, params: dict, tokens: torch.Tensor) -> torch.Tensor:
+    """tokens [S] -> f32 logits [S, V], every position, no cache."""
+    h = _embed_tokens(cfg, params, tokens)
+    h = layer_stack_fn(cfg, params["layers"], h, params.get("rope_cos"),
+                       params.get("rope_sin"))
+    h = _norm(cfg, h, params["final_norm_w"])
+    return _logits(cfg, params, h)
+
+
+# ---------------------------------------------------------------------------
 # Prefill and decode
 # ---------------------------------------------------------------------------
 
@@ -380,17 +424,19 @@ def decode_step_fn(cfg: TransformerConfig, params: dict, k_pool, v_pool,
 
 
 def sample_logits(logits: torch.Tensor, temperature: float = 0.0, top_k: int = 0,
-                  generator: torch.Generator | None = None) -> torch.Tensor:
-    """Greedy argmax (first index on ties), or temperature / top-k sampling
-    drawn from ``generator``. logits [..., V] -> [...] int64."""
+                  generator: torch.Generator | None = None,
+                  top_p: float = 0.0) -> torch.Tensor:
+    """Greedy argmax (first index on ties), or a tempered draw from
+    ``generator``: top-k when ``top_k > 0``, else the top-p nucleus when
+    ``0 < top_p < 1``, else the whole softmax (the reference's
+    ``generate_stream`` order). logits [..., V] -> [...] int64."""
     if temperature <= 0.0:
-        return torch.argmax(logits, dim=-1)
-    lf = logits.to(_F32) / temperature
+        return sample_greedy_fn(logits)
     if top_k > 0:
-        kth = torch.topk(lf, top_k, dim=-1).values[..., -1:]
-        lf = torch.where(lf < kth, torch.full_like(lf, _NEG_INF), lf)
-    probs = torch.softmax(lf, dim=-1).reshape(-1, lf.shape[-1])
-    return torch.multinomial(probs, 1, generator=generator).reshape(lf.shape[:-1])
+        return sample_topk_fn(logits, generator, top_k, temperature)
+    if 0.0 < top_p < 1.0:
+        return sample_topp_fn(logits, generator, top_p, temperature)
+    return sample_temperature_fn(logits, generator, temperature)
 
 
 def batch_generate_scan_fn(cfg: TransformerConfig, n_steps: int,
@@ -588,6 +634,17 @@ class CausalTransformerModel(nn.Module):
         return self._nonfinite is None or not bool(self._nonfinite)
 
     @torch.no_grad()
+    def forward(self, input_ids) -> torch.Tensor:
+        """The uncached forward: token ids [S] -> f32 logits [S, V] on the
+        model's device (``model(ids)``)."""
+        ids = torch.as_tensor(np.asarray(input_ids, np.int64).reshape(-1))
+        return forward_fn(self.config, self.params, ids.to(self.device))
+
+    def get_logits(self, input_ids) -> np.ndarray:
+        """``forward`` as a numpy f32 array [S, V]."""
+        return self(input_ids).cpu().numpy().astype(np.float32, copy=False)
+
+    @torch.no_grad()
     def prefill(self, input_ids) -> torch.Tensor:
         """Run the prompt through cached prefill; f32 logits [V] of its
         last position."""
@@ -630,6 +687,18 @@ class CausalTransformerModel(nn.Module):
         self.pos += n_steps
         return toks[0]
 
+    def _ensure_cache(self, n_ids: int, max_new_tokens: int) -> None:
+        """A cache for the prompt and the new tokens, unless one exists."""
+        if self.k_pool is None:
+            self.init_fixed_cache(_bucket(max(n_ids + max_new_tokens + 1, 256)))
+
+    def _sampler(self, temperature: float, seed: int):
+        if temperature <= 0:
+            return None
+        gen = torch.Generator(device=self.device)
+        gen.manual_seed(seed)
+        return gen
+
     @torch.no_grad()
     def generate(self, input_ids, max_new_tokens: int = 32,
                  temperature: float = 0.0, top_k: int = 0, top_p: float = 0.0,
@@ -637,17 +706,16 @@ class CausalTransformerModel(nn.Module):
                  use_cache: bool = True, chunk_size: int = 32) -> list[int]:
         """Greedy or temperature/top-k generation with one host read per
         ``chunk_size`` tokens; stops at ``eos_token_id`` (kept) or when the
-        cache is full."""
-        if top_p > 0.0 or not use_cache:
-            raise NotImplementedError("top-p and uncached generation are not "
-                                      "ported yet")
+        cache is full. Uncached generation and top-p sampling (temperature
+        > 0, no top-k) take the per-token ``generate_stream``, as the
+        reference routes them."""
+        if not use_cache or (temperature > 0 and not (top_k > 0 or top_p == 0.0)):
+            return list(self.generate_stream(input_ids, max_new_tokens, temperature,
+                                             top_k, top_p, eos_token_id, seed,
+                                             use_cache))
         ids = np.asarray(input_ids, np.int64).reshape(-1)
-        if self.k_pool is None:
-            self.init_fixed_cache(_bucket(max(len(ids) + max_new_tokens + 1, 256)))
-        gen = None
-        if temperature > 0:
-            gen = torch.Generator(device=self.device)
-            gen.manual_seed(seed)
+        self._ensure_cache(len(ids), max_new_tokens)
+        gen = self._sampler(temperature, seed)
         logits = self.prefill(ids)
         out = [int(sample_logits(logits, temperature, top_k, gen))]
         while len(out) < max_new_tokens and out[-1] != eos_token_id:
@@ -660,3 +728,37 @@ class CausalTransformerModel(nn.Module):
                 toks = toks[:toks.index(eos_token_id) + 1]
             out.extend(toks)
         return out[:max_new_tokens]
+
+    @torch.no_grad()
+    def generate_stream(self, input_ids, max_new_tokens: int = 32,
+                        temperature: float = 0.0, top_k: int = 0,
+                        top_p: float = 0.0, eos_token_id: int | None = None,
+                        seed: int = 0, use_cache: bool = True) -> Iterator[int]:
+        """One token at a time, each drawn from a generator seeded with
+        ``seed``. Uncached: the forward over the growing id list, sampling
+        its last row. Cached: prefill, then one decode step per token,
+        stopping when the cache is full."""
+        gen = self._sampler(temperature, seed)
+
+        def sample(logits):
+            return int(sample_logits(logits, temperature, top_k, gen, top_p))
+
+        if not use_cache:
+            ids = [int(t) for t in np.asarray(input_ids, np.int64).reshape(-1)]
+            for _ in range(max_new_tokens):
+                tok = sample(self(ids)[-1])
+                yield tok
+                ids.append(tok)
+                if eos_token_id is not None and tok == eos_token_id:
+                    return
+            return
+        self._ensure_cache(np.asarray(input_ids).size, max_new_tokens)
+        logits = self.prefill(input_ids)
+        for _ in range(max_new_tokens):
+            tok = sample(logits)
+            yield tok
+            if eos_token_id is not None and tok == eos_token_id:
+                return
+            if self.pos >= self.max_seq_len:
+                return
+            logits = self.decode_step(tok)

@@ -11,6 +11,8 @@ import torch
 
 from pygpukit_tpu_torch.kernels import (LAUNCHES, batch_decode_attention,
                                         batch_decode_attention_plain,
+                                        flash_attention, flash_attention_plain,
+                                        flash_decode, flash_decode_plain,
                                         block_w4a8_matmul, block_w4a8_matmul_plain,
                                         block_w4a16_matmul,
                                         block_w4a16_matmul_plain, conv_matmul,
@@ -19,6 +21,7 @@ from pygpukit_tpu_torch.kernels import (LAUNCHES, batch_decode_attention,
                                         paged_attention_plain, w4a8_matmul,
                                         w4a8_matmul_plain, w4a16_matmul,
                                         w4a16_matmul_plain)
+from pygpukit_tpu_torch.ops.nn import flash_attention_fn
 from pygpukit_tpu_torch.ops.paged import (paged_attention_dispatch,
                                           paged_attention_fn)
 
@@ -271,3 +274,84 @@ def test_model_routes_launch_the_ladder_kernels(dev, monkeypatch):
         assert LAUNCHES[name] == before[name] + 1, (mode, env)
         assert port_model._mm(x, leaf, torch.float32).dtype == torch.float32
         assert LAUNCHES[name] == before[name] + 1, (mode, env, "head")
+
+
+def _attn_close(out, ref):
+    """bf16: atol/rtol 1e-2 (both round P to bf16, the kernel against a
+    running maximum); f32: 1e-4 of max |out| (the same products summed in
+    another order)."""
+    if ref.dtype == torch.bfloat16:
+        return torch.allclose(out.float(), ref.float(), atol=1e-2, rtol=1e-2)
+    return bool(((out - ref).abs() <= 1e-4 * ref.abs().max()).all())
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("s,hq,hk,d", [(1, 4, 2, 64), (65, 4, 2, 64), (300, 8, 2, 128),
+                                       (257, 32, 4, 64)])
+def test_flash_attention_matches_plain(dev, s, hq, hk, d, causal, dtype):
+    g = _gen(dev, s + d)
+    q = torch.randn((s, hq, d), generator=g, device=dev).to(dtype)
+    k = torch.randn((s, hk, d), generator=g, device=dev).to(dtype)
+    v = torch.randn((s, hk, d), generator=g, device=dev).to(dtype)
+    before = LAUNCHES["flash_attention"]
+    out = flash_attention(q, k, v, causal=causal)
+    assert LAUNCHES["flash_attention"] == before + 1
+    assert out.shape == q.shape and out.dtype == dtype
+    ref = flash_attention_plain(q, k, v, causal=causal)
+    assert torch.isfinite(out.float()).all() and _attn_close(out, ref)
+    assert torch.equal(out, flash_attention(q, k, v, causal=causal))   # replay
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("ctx", [0, 1, 100, 700, 5000])
+def test_flash_decode_matches_plain(dev, ctx, dtype):
+    g = _gen(dev, ctx)
+    q = torch.randn((1, 32, 64), generator=g, device=dev).to(dtype)
+    kc = torch.randn((700, 4, 64), generator=g, device=dev).to(dtype)
+    vc = torch.randn((700, 4, 64), generator=g, device=dev).to(dtype)
+    before = LAUNCHES["flash_decode"]
+    out = flash_decode(q, kc, vc, ctx)                   # 5000 > MAX: every row
+    assert LAUNCHES["flash_decode"] == before + 1
+    assert _attn_close(out, flash_decode_plain(q, kc, vc, ctx))
+    assert torch.equal(out, flash_decode(q, kc, vc, ctx))
+
+
+def test_flash_attention_fn_routes_on_the_card(dev):
+    """The kernel for the default scale (the config's head_dim ** -0.5 at D
+    128 included); softcap, window and another scale on the plain route."""
+    g = _gen(dev, 9)
+    q = torch.randn((70, 8, 128), generator=g, device=dev).to(torch.bfloat16)
+    k = torch.randn((70, 2, 128), generator=g, device=dev).to(torch.bfloat16)
+    before = LAUNCHES["flash_attention"]
+    flash_attention_fn(q, k, k, scale=128 ** -0.5)
+    assert LAUNCHES["flash_attention"] == before + 1
+    for kw in (dict(softcap=30.0), dict(window=16), dict(scale=0.1)):
+        flash_attention_fn(q, k, k, **kw)
+    assert LAUNCHES["flash_attention"] == before + 1
+
+
+def test_flash_wrappers_raise_on_unsupported_operands(dev):
+    q = torch.zeros((8, 4, 64), dtype=torch.float16, device=dev)
+    with pytest.raises(NotImplementedError):
+        flash_attention(q, q[:, :2], q[:, :2])
+    q = torch.zeros((8, 4, 96), dtype=torch.bfloat16, device=dev)
+    with pytest.raises(ValueError):
+        flash_attention(q, q[:, :2], q[:, :2])
+    q = torch.zeros((1, 4, 64), dtype=torch.bfloat16, device=dev)
+    with pytest.raises(ValueError):
+        flash_decode(q, torch.zeros((8, 2, 64), dtype=torch.bfloat16), q, 4)
+
+
+def test_forward_launches_flash_attention_per_layer(dev):
+    from pygpukit_tpu_torch.llm import (CausalTransformerModel, TransformerConfig,
+                                        fuse_params, init_params)
+    cfg = TransformerConfig(vocab_size=256, hidden_size=256, num_layers=3, num_heads=4,
+                            num_kv_heads=2, intermediate_size=512,
+                            max_position_embeddings=512, tie_word_embeddings=False)
+    m = CausalTransformerModel(cfg, fuse_params(init_params(cfg, 0, torch.bfloat16, dev)))
+    before = dict(LAUNCHES)
+    logits = m.get_logits(list(range(1, 200)))
+    assert logits.shape == (199, 256)
+    assert LAUNCHES["flash_attention"] == before["flash_attention"] + 3
+    assert all(LAUNCHES[n] == before[n] for n in LAUNCHES if n != "flash_attention")

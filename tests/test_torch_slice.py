@@ -149,8 +149,6 @@ def test_unported_options_raise(f32_pair):
     with pytest.raises(NotImplementedError):
         CausalTransformerModel(TransformerConfig(**dict(F32_CFG, use_qk_norm=True)),
                                tm.params)
-    with pytest.raises(NotImplementedError):
-        tm.generate([1, 2], max_new_tokens=2, top_p=0.9)
     params = tm.params
     params["layers"] = dict(params["layers"], b_o=params["layers"]["attn_norm_w"])
     with pytest.raises(NotImplementedError, match="b_o"):
