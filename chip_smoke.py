@@ -64,9 +64,23 @@ Phases:
     uncached greedy generation of 8 tokens after a 16-token prompt
     (replayed, launches checked, compared with cached generate: reported);
     a 2-layer full-width bf16 model's forward on the card against the CPU
-    plain forward (relative L2 within FWD_TOL).
+    plain forward (relative L2 within FWD_TOL);
+12. the Array API (``import pygpukit_tpu_torch as gp``) at full width:
+    layer 0 of the 1.1B bf16 model (random weights, seed 0) written with
+    Array ops (rmsnorm, matmul per projection under PYGPUKIT_GEMM=pallas,
+    rope_inplace, flash_attention, add, swiglu) on 2048 seeded hidden rows,
+    against the model's own layer (layer_stack_fn; relative L2 within
+    FWD_TOL), one gemm launch per projection, a bitwise second call; the
+    reference's GEMM cells through the API (bench.py:73-139): bf16 8192^3
+    with the switch (the gemm kernel) and without (cuBLAS), checked against
+    each other, fp8 (quantize_fp8 + matmul_fp8) and int8 (matmul_int8) at
+    M 8192, K 4096, N 14336 (plain routes), TFLOP/s and TOP/s; gemv_quant
+    through its library entry at the four projection shapes.
 
-Phase 3 also checks flash_attention (causal bf16 at S 1000, 2048 and 8192,
+Phase 3 also checks gemm (bf16 at M 2048 on the four projection products
+as [K, N] weights, bf16 at 8192^3, f32 at 2048^3) and gemv_quant (the four
+projection shapes N-major, fp8 e4m3, int8 and bf16) against their plain
+versions, and flash_attention (causal bf16 at S 1000, 2048 and 8192,
 once full, once at D 128, f32 at S 1000) and flash_decode (MAX 8192, ctx 1,
 700 and 8192, bf16 and f32) against their plain versions. For every kernel
 it prints the least time the card could take for the same work (bound_ms:
@@ -74,9 +88,10 @@ the larger of the bytes each input and output moves once over 3.35 TB/s and
 the operations over the peak of their type, 989 TFLOP/s bf16, 1979 TOP/s
 int8, 67 TFLOP/s f32) with the kernel's share of it, and, where one
 PyTorch call computes the same function, that call's time (library_ms; the
-port never calls it).
-Launches per decode step, prefill or forward are counted in phases 6, 7, 9
-and 11 and printed on one line before the summary.
+port never calls it: torch.matmul for gemm, torch.mv for gemv_quant on a
+bf16 weight with no scale).
+Launches per decode step, prefill, forward or layer are counted in phases
+6, 7, 9, 11 and 12 and printed on one line before the summary.
 
 Any failure exits non-zero. The last two lines are the kernel summary and
 the device line read by automation; it exits 2 with no result when no CUDA
@@ -123,7 +138,10 @@ SOURCES = {"w4a8_gemv": ("pygpukit_tpu_torch/csrc/w4a8_gemv.cu",
            "flash_attention": ("pygpukit_tpu_torch/csrc/flash_attention.cu",
                                "pygpukit_tpu/kernels/flash_attention.py:90"),
            "flash_decode": ("pygpukit_tpu_torch/csrc/flash_attention.cu",
-                            "pygpukit_tpu/kernels/flash_attention.py:194")}
+                            "pygpukit_tpu/kernels/flash_attention.py:194"),
+           "gemm": ("pygpukit_tpu_torch/csrc/gemm.cu", "pygpukit_tpu/kernels/gemm.py:58"),
+           "gemv_quant": ("pygpukit_tpu_torch/csrc/gemv_quant.cu",
+                          "pygpukit_tpu/kernels/gemv_quant.py:54")}
 DENSE_KERNELS = ("w4a8_gemv", "w4a8_gemm", "kv_rows_write", "batch_decode_attention")
 PAGED_KERNELS = ("w4a8_gemv", "w4a8_gemm", "paged_attention")
 GEMVS = ("w4a8_gemv", "w4a16_gemv", "block_w4a8_gemv", "block_w4a16_gemv", "conv_gemv")
@@ -141,7 +159,7 @@ LADDER_PROMPT, LADDER_NEW, LADDER_MAX = list(range(1, 17)), 256, 512
 # order; the block w4a8 GEMV is held bitwise instead)
 ULP_REL, NEAR_ZERO = 2.0 ** -7, 1e-4
 PHASES = ("kernels", "dense", "paged", "tight", "ladder", "block", "parity",
-          "forward")
+          "forward", "ops")
 # the card's published peaks (H100 SXM data sheet, dense): bytes/s of HBM
 # and operations/s by operand type; a bound is the larger of the two times
 HBM_BYTES_S = 3.35e12
@@ -156,6 +174,9 @@ FLASH_CASES = [(1000, 32, 4, 64, "bf16", True), (2048, 32, 4, 64, "bf16", True),
                (2048, 32, 8, 128, "bf16", True), (1000, 32, 4, 64, "f32", True)]
 DECODE_MAX, DECODE_CTXS = 8192, (1, 700, 8192)
 FWD_S, FWD_PROMPT, FWD_NEW = 2048, 16, 8
+GEMM_BENCH_N = 8192                       # the reference's bf16 GEMM cell (bench.py:73)
+QUANT_MKN = (8192, 4096, 14336)           # its fp8 and int8 cells (bench.py:92-139)
+GEMV_STORAGE = ("e4m3", "int8", "bf16")
 FWD_PARITY_S = 1024      # past the CPU plain route's 512-key chunk
 # 2-layer full-width bf16 forward, card against the CPU plain forward,
 # relative L2 of the logits. Both round every matmul output to bf16, summed
@@ -606,6 +627,95 @@ def check_flash_kernels(dev, g, detail: dict) -> dict:
             if (ctx, kind) == (DECODE_MAX, "bf16"):
                 res["flash_decode"] = row
         del kc, vc
+    return res
+
+
+def _bf16_err(y, ref, what: str) -> float:
+    """Max abs error of a bf16 result, checked within one bf16 ulp of |ref|
+    plus NEAR_ZERO of max |ref| (f32 sums in another order, rounded once)."""
+    r = ref.float()
+    diff = (y.float() - r).abs()
+    check(bool((diff <= r.abs() * ULP_REL + NEAR_ZERO * r.abs().max()).all()),
+          f"{what}: max abs err {diff.max().item()}")
+    return diff.max().item()
+
+
+def check_gemm_kernels(dev, g, detail: dict) -> dict:
+    """Phase 3, gemm (bf16 at M FWD_S on the four projection products as
+    [K, N] weights, bf16 at GEMM_BENCH_N^3, f32 at 2048^3) and gemv_quant
+    (the four projection shapes N-major in GEMV_STORAGE) against their
+    plain versions, replayed bitwise, timed with the plain version and the
+    library call. Returns the summary rows: gemm summed over the four
+    projection products (the forward's per-layer GEMMs), gemv_quant summed
+    over the four shapes on a bf16 weight with no scale (the function
+    torch.mv computes)."""
+    import torch
+    from pygpukit_tpu_torch.kernels import gemm, gemm_plain, gemv_quant, gemv_quant_plain
+    bf16, f32 = torch.bfloat16, torch.float32
+    keys = ("err", "ms", "plain_ms", "lib_ms", "bytes", "ops")
+    proj = dict.fromkeys(keys, 0.0)
+    cases = [(f"proj_{name}", FWD_S, n, k, bf16, 2) for name, (n, k) in PROJ_SHAPES.items()]
+    cases += [(f"bf16_{GEMM_BENCH_N}cube", GEMM_BENCH_N, GEMM_BENCH_N, GEMM_BENCH_N, bf16, 1),
+              ("f32_2048cube", 2048, 2048, 2048, f32, 2)]
+    for what, m, n, k, dt, n_var in cases:
+        a = [torch.randn((m, k), generator=g, device=dev).to(dt) for _ in range(n_var)]
+        b = [torch.randn((k, n), generator=g, device=dev).to(dt) for _ in range(n_var)]
+        y, ref = gemm(a[0], b[0], force="pallas"), gemm_plain(a[0], b[0], dt)
+        torch.cuda.synchronize()
+        if dt == bf16:
+            err = _bf16_err(y, ref, f"gemm {what}")
+        else:
+            err = (y - ref).abs().max().item()
+            check(err <= F32_REL * ref.abs().max().item(), f"gemm {what}: max abs err {err}")
+        check(torch.equal(y, gemm(a[0], b[0], force="pallas")),
+              f"gemm {what}: a second launch differs")
+        del y, ref
+        reps = 3 if m >= GEMM_BENCH_N else 10
+        kms = time_ms(lambda i: gemm(a[i], b[i], force="pallas"), n_var, reps)
+        pms = time_ms(lambda i: gemm_plain(a[i], b[i], dt), n_var, reps)
+        lms = time_ms(lambda i: torch.matmul(a[i], b[i]), n_var, reps)
+        nbytes, ops = (m * k + k * n + m * n) * a[0].element_size(), 2 * m * n * k
+        row = kernel_row(err, kms, pms, nbytes, ops, "bf16" if dt == bf16 else "f32", lms)
+        detail[f"gemm_{what}"] = dict(row, share=row["bound_ms"] / kms,
+                                      tflops=ops / kms / 1e9, library_tflops=ops / lms / 1e9)
+        if what.startswith("proj"):
+            for key, v in zip(keys, (err, kms, pms, lms, nbytes, ops)):
+                proj[key] = max(proj[key], v) if key == "err" else proj[key] + v
+        del a, b
+    res = {"gemm": kernel_row(proj["err"], proj["ms"], proj["plain_ms"], proj["bytes"],
+                              proj["ops"], "bf16", proj["lib_ms"])}
+    gv = dict.fromkeys(keys, 0.0)
+    n_var = 8
+    for name, (n, k) in PROJ_SHAPES.items():
+        x = torch.randn((k,), generator=g, device=dev).to(bf16)
+        sc = torch.rand((n_var, n), generator=g, device=dev) + 0.5
+        for storage in GEMV_STORAGE:
+            if storage == "int8":
+                w = torch.randint(-127, 128, (n_var, n, k), generator=g, device=dev,
+                                  dtype=torch.int8)
+            else:
+                w = (torch.randn((n_var, n, k), generator=g, device=dev) * 4).to(
+                    torch.float8_e4m3fn if storage == "e4m3" else bf16)
+            scales = [None] * n_var if storage == "bf16" else list(sc)
+            what = f"gemv_quant {name} {storage}"
+            y, ref = gemv_quant(w[0], x, scales[0]), gemv_quant_plain(w[0], x, scales[0])
+            torch.cuda.synchronize()
+            err = _bf16_err(y, ref, what)
+            check(torch.equal(y, gemv_quant(w[0], x, scales[0])), f"{what}: a second launch differs")
+            kms = time_ms(lambda i: gemv_quant(w[i], x, scales[i]), n_var)
+            pms = time_ms(lambda i: gemv_quant_plain(w[i], x, scales[i]), n_var)
+            lms = time_ms(lambda i: torch.mv(w[i], x), n_var) if storage == "bf16" else None
+            nbytes = n * k * w.element_size() + 2 * (k + n) + (0 if storage == "bf16" else 4 * n)
+            row = kernel_row(err, kms, pms, nbytes, 2 * n * k, "bf16", lms)
+            detail[what.replace(" ", "_")] = dict(row, share=row["bound_ms"] / kms,
+                                                  GBps=nbytes / kms / 1e6)
+            gv["err"] = max(gv["err"], err)
+            if storage == "bf16":
+                for key, v in zip(keys[1:], (kms, pms, lms, nbytes, 2 * n * k)):
+                    gv[key] += v
+            del w
+    res["gemv_quant"] = kernel_row(gv["err"], gv["ms"], gv["plain_ms"], gv["bytes"], gv["ops"],
+                                   "bf16", gv["lib_ms"])
     return res
 
 
@@ -1132,6 +1242,149 @@ def forward_cpu_parity(cfg, dev) -> None:
           f"equal in {top:.4f} of rows")
 
 
+def array_layer(gp, cfg, x, w: dict, cos, sin):
+    """One pre-norm decoder layer written with Array ops: rmsnorm, a matmul
+    per projection, rope_inplace, flash_attention, add, swiglu."""
+    s, hq, hk, d = x.shape[0], cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    y = gp.rmsnorm(x, w["attn_norm_w"], cfg.norm_eps)
+    q = gp.matmul(y, w["w_q"]).reshape(s, hq, d)
+    k = gp.matmul(y, w["w_k"]).reshape(s, hk, d)
+    v = gp.matmul(y, w["w_v"]).reshape(s, hk, d)
+    gp.rope_inplace(q, k, cos, sin)
+    h = gp.add(x, gp.matmul(gp.flash_attention(q, k, v).reshape(s, hq * d), w["w_o"]))
+    y = gp.rmsnorm(h, w["mlp_norm_w"], cfg.norm_eps)
+    return gp.add(h, gp.matmul(gp.swiglu(gp.matmul(y, w["w_gate"]), gp.matmul(y, w["w_up"])),
+                               w["w_down"]))
+
+
+def ops_phase(cfg, dev, card: str, per_step: dict) -> dict:
+    """Phase 12, the Array API. Returns the launches of its main-path runs:
+    gemm from the layer (a), gemv_quant from its library calls (c)."""
+    import os
+    import torch
+    import pygpukit_tpu_torch as gp
+    from pygpukit_tpu_torch import LAUNCHES, reset_launches
+    from pygpukit_tpu_torch.kernels import gemv_quant
+    from pygpukit_tpu_torch.llm import init_params
+    from pygpukit_tpu_torch.llm.model import _slice_layer_params, layer_stack_fn
+    t0 = time.perf_counter()
+    params = init_params(cfg, 0, torch.bfloat16, dev)
+    layers = {name: leaf[:1] for name, leaf in params["layers"].items()}     # layer 0
+    del params
+    w = {name: gp.Array(t) for name, t in _slice_layer_params(layers, 0).items()}
+    g = torch.Generator(device=dev)
+    g.manual_seed(12)
+    h = torch.randn((FWD_S, cfg.hidden_size), generator=g, device=dev).to(torch.bfloat16)
+    cos, sin = gp.rope_init(cfg.max_position_embeddings, cfg.head_dim, cfg.rope_theta)
+    check(cos.device == dev, f"rope_init with no device named: {cos.device}")
+
+    def layer(_=None):
+        return array_layer(gp, cfg, gp.Array(h), w, cos, sin)
+
+    saved = os.environ.get("PYGPUKIT_GEMM")
+    os.environ["PYGPUKIT_GEMM"] = "pallas"
+    try:
+        torch.cuda.synchronize()
+        reset_launches()
+        out = layer()
+        torch.cuda.synchronize()
+        launches = dict(LAUNCHES)
+        reset_launches()
+        again = layer()
+        kernel_layer_ms = time_ms(layer, 1, reps=10)
+    finally:
+        if saved is None:
+            os.environ.pop("PYGPUKIT_GEMM", None)
+        else:
+            os.environ["PYGPUKIT_GEMM"] = saved
+    n_proj = 7                                   # q, k, v, o, gate, up, down
+    check(launches["gemm"] == n_proj, f"ops layer: gemm launched {launches['gemm']} "
+          f"times, expected {n_proj}")
+    check(launches["flash_attention"] == 1, "ops layer: flash_attention launched "
+          f"{launches['flash_attention']} times, expected 1")
+    others = {k: n for k, n in launches.items() if k not in ("gemm", "flash_attention") and n}
+    check(not others, f"ops layer: other kernels launched {others}")
+    check(torch.equal(out.torch, again.torch), "ops layer: a second call differs")
+    ref = layer_stack_fn(cfg, layers, h, cos.torch, sin.torch)
+    rel = ((out.torch.float() - ref.float()).norm() / ref.float().norm()).item()
+    check(out.shape == tuple(ref.shape) and bool(torch.isfinite(out.torch).all()),
+          f"ops layer: shape {out.shape} or a value not finite")
+    check(rel <= FWD_TOL, f"ops layer vs the model's layer: relative L2 {rel:.3e}")
+    model_layer_ms = time_ms(lambda _: layer_stack_fn(cfg, layers, h, cos.torch, sin.torch),
+                             1, reps=10)
+    per_step["gemm"] = (n_proj, f"one Array-API 1.1B layer on {FWD_S} rows "
+                        "under PYGPUKIT_GEMM=pallas")
+    print(f"phase 12: 1.1B layer 0 through the Array API on {FWD_S} rows: relative L2 "
+          f"{rel:.3e} against the model's layer (limit {FWD_TOL}), launches "
+          f"{json.dumps({k: n for k, n in launches.items() if n})}, second call bitwise "
+          f"equal; graph replay {kernel_layer_ms:.3f} ms device (the model's layer, cuBLAS "
+          f"projections: {model_layer_ms:.3f} ms); [{card}]")
+    del out, again, ref, layers, w
+
+    n = GEMM_BENCH_N
+    a, b = gp.randn(n, n, dtype="bf16", seed=1), gp.randn(n, n, dtype="bf16", seed=2)
+    os.environ["PYGPUKIT_GEMM"] = "pallas"
+    try:
+        ck = gp.matmul(a, b)
+        k_ms = time_ms(lambda _: gp.matmul(a, b), 1, reps=5)
+    finally:
+        if saved is None:
+            os.environ.pop("PYGPUKIT_GEMM", None)
+        else:
+            os.environ["PYGPUKIT_GEMM"] = saved
+    cc = gp.matmul(a, b)
+    c_ms = time_ms(lambda _: gp.matmul(a, b), 1, reps=5)
+    err = _bf16_err(ck.torch, cc.torch, f"ops bf16 {n}^3: kernel vs cuBLAS")
+    flops = 2.0 * n ** 3
+    del a, b, ck, cc
+    m, k, nn = QUANT_MKN
+    qa, sa = gp.ops.quantize_fp8(gp.randn(m, k, seed=3))
+    qb, sb = gp.ops.quantize_fp8(gp.randn(k, nn, seed=4))
+    y = gp.matmul_fp8(qa, qb, sa, sb)
+    check(y.shape == (m, nn) and y.dtype.name == "bfloat16"
+          and bool(torch.isfinite(y.torch).all()), "ops fp8 GEMM: shape, dtype or finite")
+    fp8_ms = time_ms(lambda _: gp.matmul_fp8(qa, qb, sa, sb), 1, reps=3)
+    del qa, qb, y
+    gi = torch.Generator(device=dev)
+    gi.manual_seed(5)
+    ia = torch.randint(-127, 128, (m, k), generator=gi, device=dev, dtype=torch.int8)
+    ib = torch.randint(-127, 128, (k, nn), generator=gi, device=dev, dtype=torch.int8)
+    ones_a, ones_b = gp.ones((m, 1)), gp.ones((1, nn))
+    y = gp.matmul_int8(gp.Array(ia), gp.Array(ib), ones_a, ones_b)
+    exact = (ia[:2].cpu().long() @ ib[:, :512].cpu().long()).float().to(torch.bfloat16)
+    check(torch.equal(y.torch[:2, :512].cpu(), exact), "ops int8 GEMM: not the exact product")
+    i8_ms = time_ms(lambda _: gp.matmul_int8(gp.Array(ia), gp.Array(ib), ones_a, ones_b), 1,
+                    reps=5)
+    qflops = 2.0 * m * k * nn
+    del ia, ib, y
+    print(f"phase 12: GEMM cells through the API: bf16 {n}^3 PYGPUKIT_GEMM=pallas (gemm "
+          f"kernel) {k_ms:.3f} ms = {flops / k_ms / 1e9:.1f} TFLOP/s, default (cuBLAS) "
+          f"{c_ms:.3f} ms = {flops / c_ms / 1e9:.1f} TFLOP/s, max abs diff {err:.3e}; fp8 "
+          f"(quantize_fp8 + matmul_fp8, f32 product) at {m}x{k}x{nn} {fp8_ms:.3f} ms = "
+          f"{qflops / fp8_ms / 1e9:.1f} TFLOP/s; int8 (matmul_int8, torch._int_mm) "
+          f"{i8_ms:.3f} ms = {qflops / i8_ms / 1e9:.1f} TOP/s; [{card}]")
+
+    gw = [(torch.randn((nq, kq), generator=g, device=dev) * 4).to(torch.float8_e4m3fn)
+          for nq, kq in PROJ_SHAPES.values()]
+    xs = [torch.randn((kq,), generator=g, device=dev).to(torch.bfloat16)
+          for _, kq in PROJ_SHAPES.values()]
+    torch.cuda.synchronize()
+    reset_launches()
+    ys = [gemv_quant(wq, xq) for wq, xq in zip(gw, xs)]
+    torch.cuda.synchronize()
+    gemv_launches = LAUNCHES["gemv_quant"]
+    reset_launches()
+    check(gemv_launches == len(PROJ_SHAPES) and all(bool(torch.isfinite(y.float()).all())
+                                                    for y in ys),
+          f"ops gemv_quant: {gemv_launches} launches or a value not finite")
+    per_step["gemv_quant"] = (0, "a library function: no path of the port calls it "
+                              f"(phase 12 calls it {gemv_launches} times directly)")
+    print(f"phase 12: gemv_quant through its library entry at the four projection shapes "
+          f"(fp8 e4m3): {gemv_launches} launches, finite; phase 12 took "
+          f"{time.perf_counter() - t0:.1f} s")
+    return {"gemm": launches["gemm"], "gemv_quant": gemv_launches}
+
+
 def main(argv: list[str]) -> int:
     import argparse
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
@@ -1183,6 +1436,7 @@ def main(argv: list[str]) -> int:
         g.manual_seed(4321)
         results.update(check_ladder_kernels(dev, g, detail))
         results.update(check_flash_kernels(dev, g, detail))
+        results.update(check_gemm_kernels(dev, g, detail))
         print("phase 3: kernels match their plain versions")
         print("kernel_times " + json.dumps(detail))
         print("phase 3: bounds " + json.dumps({
@@ -1229,6 +1483,8 @@ def main(argv: list[str]) -> int:
         launches["flash_attention"] = forward_phase(cfg, dev, card,
                                                     per_step)["flash_attention"]
         launches["flash_decode"] = 0       # no path calls it (per_step)
+    if "ops" in phases:
+        launches.update(ops_phase(cfg, dev, card, per_step))
     print(f"total {time.perf_counter() - t_start:.1f} s after the build began")
     if set(phases) != set(PHASES):
         print(f"partial run ({args.phases}): no summary")

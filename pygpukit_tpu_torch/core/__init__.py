@@ -1,5 +1,13 @@
-from .backend import get_device, require_cuda, set_deterministic_numerics
-from .dtypes import DTYPES, FP8_MAX, resolve_dtype
+from . import dtypes
+from .array import Array, as_tensor, wrap
+from .backend import require_cuda, resolve_device, set_deterministic_numerics
+from .dtypes import (DTYPES, FP8_MAX, DataType, DataTypeKind, resolve_dtype,
+                     to_dtype)
+from .factory import (arange, empty, from_numpy, full, ones, ones_like, randn,
+                      zeros, zeros_like)
 
-__all__ = ["get_device", "require_cuda", "set_deterministic_numerics",
-           "DTYPES", "FP8_MAX", "resolve_dtype"]
+__all__ = ["dtypes", "Array", "as_tensor", "wrap", "require_cuda",
+           "resolve_device", "set_deterministic_numerics", "DTYPES", "FP8_MAX",
+           "DataType", "DataTypeKind", "resolve_dtype", "to_dtype", "arange",
+           "empty", "from_numpy", "full", "ones", "ones_like", "randn", "zeros",
+           "zeros_like"]

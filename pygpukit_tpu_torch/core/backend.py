@@ -1,9 +1,11 @@
 """Device selection for the PyTorch port.
 
 Counterpart of ``pygpukit_tpu/core/backend.py``. There the backend picks a
-TPU or the CPU interpreter; here it picks a CUDA card when one is visible
-and the CPU otherwise. Kernel wrappers do not consult this module: they key
-on the device of the tensor they are given (CUDA tensor -> hand-written
+TPU or the CPU interpreter; here every public constructor places its
+tensors on ``cuda:0`` unless the caller names a device, and raises when no
+card is visible: the CPU is used only when the caller asks for it
+(``device="cpu"``). Kernel wrappers do not consult this module: they key on
+the device of the tensor they are given (CUDA tensor -> hand-written
 kernel, CPU tensor -> its plain PyTorch version).
 """
 
@@ -12,19 +14,17 @@ from __future__ import annotations
 import torch
 
 
-def get_device() -> torch.device:
-    """``cuda:0`` when a CUDA card is visible, else ``cpu``."""
-    return torch.device("cuda", 0) if torch.cuda.is_available() \
-        else torch.device("cpu")
-
-
 def require_cuda() -> torch.device:
-    """The CUDA device, or RuntimeError when no card is visible. Entry
-    points that measure or exercise the kernels call this: they must not
-    fall back to the CPU."""
+    """The CUDA device, or RuntimeError when no card is visible."""
     if not torch.cuda.is_available():
-        raise RuntimeError("no CUDA device is visible to torch")
+        raise RuntimeError("no CUDA device is visible to torch; pass device='cpu' "
+                           "to run on the CPU")
     return torch.device("cuda", 0)
+
+
+def resolve_device(device=None) -> torch.device:
+    """``device`` as a torch.device; None means the card (``require_cuda``)."""
+    return torch.device(device) if device is not None else require_cuda()
 
 
 def set_deterministic_numerics() -> None:

@@ -39,7 +39,7 @@ LAUNCHES: dict[str, int] = {"w4a8_gemv": 0, "w4a8_gemm": 0,
                             "paged_attention": 0, "w4a16_gemv": 0,
                             "block_w4a8_gemv": 0, "block_w4a16_gemv": 0,
                             "conv_gemv": 0, "flash_attention": 0,
-                            "flash_decode": 0}
+                            "flash_decode": 0, "gemm": 0, "gemv_quant": 0}
 
 _P = c_void_p
 _SIGNATURES = {
@@ -61,6 +61,9 @@ _SIGNATURES = {
                             c_int, c_float, _P],
     "pgk_flash_decode": [_P, _P, _P, _P, _P, _P, _P, c_int, c_int, c_int, c_int,
                          c_int, c_int, c_int, c_float, _P],
+    "pgk_gemm": [_P, _P, _P, c_int, c_int, c_int, c_int, c_int, c_int, c_int,
+                 c_int, _P],
+    "pgk_gemv_quant": [_P, c_int, _P, c_int, _P, _P, c_int, c_int, _P],
 }
 
 _lib: ctypes.CDLL | None = None

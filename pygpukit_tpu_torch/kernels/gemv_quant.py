@@ -16,6 +16,9 @@ takes the plain version.
 - ``conv_matmul``: a K-major ``[K, N]`` fp8 e4m3fn / e5m2, int8 or bf16
   weight converted to bf16 in the kernel, times a per-column scale
   (``csrc/conv_gemv.cu``).
+- ``gemv_quant``: the reference's library GEMV over an N-major ``[N, K]``
+  weight of the same four storage types against one row
+  (``csrc/gemv_quant.cu``).
 
 The four GEMVs take rows <= 8 on the card; the model sends more rows to the
 plain versions (``llm/model.py`` route rule), whose ``out_dtype`` keeps the
@@ -27,7 +30,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
-from ..core.numerics import true_div
+from ..core.numerics import require_full_f32, true_div
 from ._build import launch, require_on, stream_of
 
 _F32 = torch.float32
@@ -60,12 +63,6 @@ def _rows(x: torch.Tensor, k: int) -> torch.Tensor:
     return x2
 
 
-def _full_f32(x: torch.Tensor, name: str) -> None:
-    if x.is_cuda and torch.backends.cuda.matmul.allow_tf32:
-        raise RuntimeError(f"{name} needs allow_tf32=False on CUDA for full "
-                           "f32 products")
-
-
 def _gemv_rows(x2: torch.Tensor, name: str) -> int:
     m = x2.shape[0]
     if not 1 <= m <= GEMV_MAX_ROWS:
@@ -96,7 +93,7 @@ def w4a8_matmul_plain(x: torch.Tensor, packed: torch.Tensor,
     (|acc| <= 127 * 8 * K), so it is exact in any summation order, provided
     the product is true f32 (TF32 off on CUDA)."""
     from ..llm.quant import unpack_int4
-    _full_f32(x, "w4a8_matmul_plain")
+    require_full_f32(x, "w4a8_matmul_plain")
     x2 = _rows(x, 2 * packed.shape[-1])
     xq, sx = quantize_acts(x2)
     q = unpack_int4(packed)                                  # [N, K] int8
@@ -139,7 +136,7 @@ def w4a16_matmul_plain(x: torch.Tensor, packed: torch.Tensor, scale: torch.Tenso
     ``(acc * scale[n])`` rounded once to ``out_dtype`` (the reference's
     XLA route, ``model.py:292-299``, and its GEMV's math)."""
     from ..llm.quant import unpack_int4
-    _full_f32(x, "w4a16_matmul_plain")
+    require_full_f32(x, "w4a16_matmul_plain")
     x2 = _rows(x, 2 * packed.shape[-1]).to(_BF16).to(_F32)
     acc = torch.matmul(x2, unpack_int4(packed).to(_F32).t())
     return (acc * scale.reshape(1, -1).to(_F32)).to(out_dtype)
@@ -214,7 +211,7 @@ def block_w4a8_matmul_plain(x: torch.Tensor, packed: torch.Tensor,
     exact dot of block b's rows inside half h, so a block straddling K/2
     adds its two parts into Y_lo and Y_hi."""
     from ..llm.quant import unpack_int4
-    _full_f32(x, "block_w4a8_matmul_plain")
+    require_full_f32(x, "block_w4a8_matmul_plain")
     k_half = packed.shape[-2]
     b = _block_size(packed, scale_block)
     xq, sx = quantize_acts(_rows(x, 2 * k_half))
@@ -264,7 +261,7 @@ def block_w4a16_matmul_plain(x: torch.Tensor, packed: torch.Tensor,
     sums, rounded once to ``out_dtype`` (the reference's block GEMV and its
     XLA dequant route, ``model.py:277-291``)."""
     from ..llm.quant import dequantize_block
-    _full_f32(x, "block_w4a16_matmul_plain")
+    require_full_f32(x, "block_w4a16_matmul_plain")
     x2 = _rows(x, 2 * packed.shape[-2]).to(_BF16).to(_F32)
     w = dequantize_block(packed, scale_block, _BF16).to(_F32)
     return torch.matmul(x2, w).to(out_dtype)
@@ -300,7 +297,7 @@ def conv_matmul_plain(x: torch.Tensor, w: torch.Tensor, scale: torch.Tensor,
     """Plain converting product: bf16 x against w converted to f32 (exact
     for all four storage types), ``(acc * scale[n])`` rounded once to
     ``out_dtype`` (the reference's XLA route, ``model.py:374-376``)."""
-    _full_f32(x, "conv_matmul_plain")
+    require_full_f32(x, "conv_matmul_plain")
     k = w.shape[-2]
     x2 = x.reshape(-1, x.shape[-1])
     if x2.shape[-1] != k:
@@ -333,4 +330,50 @@ def conv_matmul(x: torch.Tensor, w: torch.Tensor,
     launch("conv_gemv", "pgk_conv_gemv", xb.data_ptr(), w.data_ptr(),
            CONV_KINDS[w.dtype], sc.data_ptr(), out.data_ptr(), m, n, k,
            stream_of(xb))
+    return out
+
+
+# ---------------------------------------------------------------------------
+# N-major [N, K] fp8 / int8 / bf16: the library GEMV
+# ---------------------------------------------------------------------------
+
+def gemv_quant_plain(w_q: torch.Tensor, x: torch.Tensor,
+                     scale: torch.Tensor | None = None) -> torch.Tensor:
+    """Plain ``gemv_quant``: w converted to f32 (exact for all four storage
+    types) against x rounded to bf16, f32 sums, ``(acc * scale[n])``
+    rounded once to bf16."""
+    require_full_f32(x, "gemv_quant_plain")
+    acc = torch.matmul(w_q.to(_F32), x.reshape(-1).to(_BF16).to(_F32))
+    if scale is not None:
+        acc = acc * scale.reshape(-1).to(_F32)
+    return acc.to(_BF16)
+
+
+def gemv_quant(w_q: torch.Tensor, x: torch.Tensor,
+               scale: torch.Tensor | None = None) -> torch.Tensor:
+    """y[N] = (W[N, K] @ x[K]) * scale[N] in bf16 (the reference's
+    ``gemv_quant``): w_q N-major (K contiguous per output) in fp8
+    e4m3fn / e5m2, int8 or bf16; x bf16 or f32, rounded to bf16; scale f32
+    [N] or None (1.0). CUDA: the gemv_quant kernel; CPU: the plain
+    version."""
+    if not x.is_cuda:
+        return gemv_quant_plain(w_q, x, scale)
+    if w_q.dtype not in CONV_KINDS or w_q.dim() != 2:
+        raise NotImplementedError("gemv_quant takes a 2-D fp8 e4m3fn/e5m2, int8 or bf16 "
+                                  f"weight, got {w_q.dtype} {tuple(w_q.shape)}")
+    if x.dtype not in (_BF16, _F32):
+        raise NotImplementedError(f"gemv_quant takes bf16 or f32 x, got {x.dtype}")
+    n, k = w_q.shape
+    xv = x.reshape(-1).contiguous()
+    if xv.numel() != k:
+        raise ValueError(f"x has {xv.numel()} values, the weight's K is {k}")
+    sc = None if scale is None else scale.reshape(-1).to(_F32).contiguous()
+    require_on(xv.device, w_q=w_q, **({} if sc is None else {"scale": sc}))
+    if sc is not None and sc.numel() != n:
+        raise ValueError(f"scale has {sc.numel()} values, the weight's N is {n}")
+    w = w_q.contiguous()
+    out = torch.empty((n,), dtype=_BF16, device=xv.device)
+    launch("gemv_quant", "pgk_gemv_quant", w.data_ptr(), CONV_KINDS[w.dtype],
+           xv.data_ptr(), int(xv.dtype == _F32), None if sc is None else sc.data_ptr(),
+           out.data_ptr(), n, k, stream_of(xv))
     return out

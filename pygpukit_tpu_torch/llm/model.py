@@ -64,10 +64,9 @@ from collections.abc import Iterator
 
 import numpy as np
 import torch
-import torch.nn.functional as F
 from torch import nn
 
-from ..core.backend import get_device
+from ..core.backend import resolve_device
 from ..core.dtypes import resolve_dtype
 from ..core.numerics import true_div
 from ..kernels import (batch_decode_attention, block_w4a8_matmul,
@@ -76,8 +75,9 @@ from ..kernels import (batch_decode_attention, block_w4a8_matmul,
                        w4a16_matmul, w4a16_matmul_plain)
 from ..kernels.gemv_quant import GEMV_MAX_ROWS
 from ..ops.embedding import kv_cache_zeros, kv_leaf, kv_write
+from ..ops.matmul import int8_dot
 from ..ops.nn import (apply_rope_fn, flash_attention_fn, rmsnorm_fn,
-                      rope_init, swiglu_fn)
+                      rope_tables, swiglu_fn)
 from ..ops.sampling import (sample_greedy_fn, sample_temperature_fn,
                             sample_topk_fn, sample_topp_fn)
 from .config import TransformerConfig
@@ -147,17 +147,6 @@ def _check_params(params: dict) -> None:
 # Matmul routing
 # ---------------------------------------------------------------------------
 
-def _int8_dot(xi: torch.Tensor, q: torch.Tensor) -> torch.Tensor:
-    """Exact int8 x int8 -> int32 product [M, K] @ [K, N]."""
-    if xi.is_cuda:
-        m = xi.shape[0]
-        mp = max(32, -(-m // 8) * 8)          # torch._int_mm takes M > 16
-        if mp != m:
-            xi = F.pad(xi, (0, 0, 0, mp - m))
-        return torch._int_mm(xi, q)[:m]
-    return torch.matmul(xi.to(torch.int32), q.to(torch.int32))
-
-
 def _w8a8(x: torch.Tensor, q: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
     """Per-row int8 activation quant, int8 dot, f32 epilogue
     ``(acc * sx) * scale`` (the reference's TPU w8a8 route)."""
@@ -165,7 +154,7 @@ def _w8a8(x: torch.Tensor, q: torch.Tensor, scale: torch.Tensor) -> torch.Tensor
     amax = torch.amax(torch.abs(x2), dim=-1, keepdim=True).to(_F32)
     sx = torch.clamp_min(true_div(amax, 127.0), 1e-12)
     xi = torch.round(x2.to(_F32) / sx).to(torch.int8)
-    y = (_int8_dot(xi, q).to(_F32) * sx) * scale.to(_F32)
+    y = (int8_dot(xi, q).to(_F32) * sx) * scale.to(_F32)
     return y.reshape(*x.shape[:-1], q.shape[-1])
 
 
@@ -516,11 +505,12 @@ def fuse_params(params: dict) -> dict:
 def init_params(cfg: TransformerConfig, seed: int = 0,
                 dtype: torch.dtype = torch.bfloat16, device=None) -> dict:
     """Random params (std 0.02, norms at one) in the reference's stacked
-    layout (``_build_random_params``), drawn on ``device`` from a
-    ``torch.Generator`` seeded with ``seed``. Values differ from the
-    reference's init (another generator); the layout is the same."""
+    layout (``_build_random_params``), drawn on ``device`` (the card unless
+    the caller names one) from a ``torch.Generator`` seeded with ``seed``.
+    Values differ from the reference's init (another generator); the layout
+    is the same."""
     check_supported(cfg)
-    device = torch.device(device) if device is not None else get_device()
+    device = resolve_device(device)
     gen = torch.Generator(device=device)
     gen.manual_seed(seed)
 
@@ -585,7 +575,7 @@ class CausalTransformerModel(nn.Module):
         params = dict(params)
         _check_params(params)
         if config.use_rope and "rope_cos" not in params:
-            params["rope_cos"], params["rope_sin"] = rope_init(
+            params["rope_cos"], params["rope_sin"] = rope_tables(
                 config.max_position_embeddings, config.head_dim,
                 config.rope_theta, device=params["embed"].device)
         self._paths = []

@@ -1,4 +1,5 @@
-"""KV-cache storage ops (counterpart of ``pygpukit_tpu/ops/embedding.py``).
+"""Embedding lookup and KV-cache storage ops (counterpart of
+``pygpukit_tpu/ops/embedding.py``).
 
 Caches are preallocated tensors updated in place. The serving pools are
 always merged ``[B, L, MAX, Hk*D]`` (contiguous, so the per-layer and
@@ -10,8 +11,11 @@ from __future__ import annotations
 
 import torch
 
+from ..core.array import Array
+from ..core.backend import resolve_device
 from ..core.dtypes import FP8_MAX
 from ..core.numerics import true_div
+from ._common import apply_op, tensors
 
 _F32 = torch.float32
 
@@ -25,9 +29,20 @@ def to_kv_dtype(x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
     return x.to(dtype)
 
 
+def embedding_lookup(table, ids, *, out: Array | None = None) -> Array:
+    """Rows of ``table`` [V, E] at ``ids`` (any shape)."""
+    tt, ti = tensors(table, ids)
+    return apply_op(lambda t: t[ti.to(torch.long)], tt, out=out)
+
+
+embedding_lookup_batch = embedding_lookup
+
+
 def kv_cache_zeros(shape, dtype: torch.dtype, device=None):
-    """A zeroed merged cache (``[..., Hk*D]`` minor dim): a tensor, or for
-    int8 storage the ``{"q", "s"}`` dict with one scale per row."""
+    """A zeroed merged cache (``[..., Hk*D]`` minor dim) on ``device`` (the
+    card unless the caller names one): a tensor, or for int8 storage the
+    ``{"q", "s"}`` dict with one scale per row."""
+    device = resolve_device(device)
     if dtype != torch.int8:
         return torch.zeros(shape, dtype=dtype, device=device)
     return {"q": torch.zeros(shape, dtype=torch.int8, device=device),

@@ -1,7 +1,8 @@
-"""Prefill attention: causal SDPA and the flash (chunked online-softmax)
-recurrence (counterpart of ``pygpukit_tpu/ops/nn/attention.py``, the part
-the uncached forward needs; the fixed-cache decode routes come with the
-ops layer).
+"""Attention: causal SDPA, the flash (chunked online-softmax) recurrence
+and decode over a fixed cache (counterpart of
+``pygpukit_tpu/ops/nn/attention.py``; the batched ``sdpa_batch_*`` forms
+serve the reference's vmapped serving step, which the port replaces with
+its batch-rows kernels).
 
 Layouts follow the reference: q/k/v are ``[S, H, D]``; GQA by repeating
 each kv head over its group on the plain route.
@@ -20,16 +21,31 @@ ported; nor are ``PYGPUKIT_FLASH_ATTENTION`` and the jax-shipped TPU flash
 kernel. CPU tensors always take the plain route: ``sdpa_causal_fn`` (or
 ``_full_attn``) for S <= ``chunk_size`` and the chunked recurrence above,
 f32 throughout, as the reference computes off the TPU.
+
+Fixed-cache decode (``sdpa_fixed_cache_fn``) is plain torch on every
+device, as it is XLA in the reference: the full softmax over the whole
+cache, or, for caches of ``FLASH_DECODING_MIN_CACHE`` rows and more (or as
+``PYGPUKIT_FLASH_DECODING[_CHUNK]`` or ``decode_pref`` choose), the
+kv-chunk online softmax over the live chunks only. Caches are ``[MAX, Hk,
+D]`` tensors (fp8 read as bf16) or int8 ``{"q", "s"}`` dicts dequantised
+against their per-row scales.
 """
 
 from __future__ import annotations
 
+import contextlib
+import contextvars
+import functools
 import math
+import os
 
 import numpy as np
 import torch
 
-from ...kernels.flash_attention import flash_attention
+from ...core.array import Array
+from ...core.dtypes import FP8_MAX
+from ...kernels.flash_attention import flash_attention as _flash_kernel
+from .._common import apply_op
 
 _F32 = torch.float32
 _NEG_INF = -1e30
@@ -103,7 +119,7 @@ def flash_attention_fn(q, k, v, scale: float | None = None,
     scale = scale if scale is not None else 1.0 / math.sqrt(d)
     if (q.is_cuda and softcap is None and window is None
             and _kernel_scale(scale, d)):
-        return flash_attention(q, k, v, causal=causal)
+        return _flash_kernel(q, k, v, causal=causal)
     k, v = _gqa_expand(k, h), _gqa_expand(v, h)
     if s <= chunk_size:
         if causal:
@@ -138,3 +154,189 @@ def flash_attention_fn(q, k, v, scale: float | None = None,
         m = m_new
     out = acc / torch.clamp_min(l_sum, 1e-30)
     return out.permute(1, 0, 2).to(q.dtype)
+
+
+# ---------------------------------------------------------------------------
+# Decode over a fixed cache
+# ---------------------------------------------------------------------------
+
+#: cache size from which decode switches to the kv-chunk route (the
+#: reference gates on the cache capacity); PYGPUKIT_FLASH_DECODING=
+#: full|chunked overrides
+FLASH_DECODING_MIN_CACHE = 8192
+FLASH_DECODING_CHUNK = 2048
+
+#: scoped decode-attention preference (mode, chunk), set by ``decode_pref``
+_decode_pref: contextvars.ContextVar = contextvars.ContextVar("pygpukit_decode_pref",
+                                                              default=None)
+
+
+@contextlib.contextmanager
+def decode_pref(mode: str, chunk: int | None = None):
+    """Prefer a fixed-cache decode route ("full"/"chunked") and kv-chunk
+    size inside the block. ``PYGPUKIT_FLASH_DECODING[_CHUNK]`` still win."""
+    tok = _decode_pref.set((mode, chunk))
+    try:
+        yield
+    finally:
+        _decode_pref.reset(tok)
+
+
+def _decode_backend(max_len: int) -> str:
+    mode = os.environ.get("PYGPUKIT_FLASH_DECODING", "")
+    if mode in ("full", "chunked"):
+        return mode
+    pref = _decode_pref.get()
+    if pref is not None:
+        return pref[0]
+    return "chunked" if max_len >= FLASH_DECODING_MIN_CACHE else "full"
+
+
+def _flash_chunk() -> int:
+    """kv-chunk size of the chunked route (PYGPUKIT_FLASH_DECODING_CHUNK
+    overrides, then ``decode_pref``)."""
+    env = os.environ.get("PYGPUKIT_FLASH_DECODING_CHUNK")
+    if env:
+        return int(env)
+    pref = _decode_pref.get()
+    if pref is not None and pref[1]:
+        return pref[1]
+    return FLASH_DECODING_CHUNK
+
+
+def _kv_load(blk):
+    """A cache block for attention math: fp8 storage reads as bf16, int8
+    dicts dequantise against their per-row scales, others as stored."""
+    if isinstance(blk, dict):
+        from ..embedding import kv_dequant
+        return kv_dequant(blk["q"], blk["s"])
+    if blk.dtype in FP8_MAX:
+        return blk.to(torch.bfloat16)
+    return blk
+
+
+def _kv_shape(cache) -> tuple[int, ...]:
+    """Storage-leaf shape of a plain or int8-dict cache."""
+    return tuple((cache["q"] if isinstance(cache, dict) else cache).shape)
+
+
+def _round_as(p: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """p rounded to the cache's compute dtype, carried in f32."""
+    return p.to(dtype).to(_F32)
+
+
+def sdpa_fixed_cache_fn(q, k_cache, v_cache, ctx_len, scale: float | None = None,
+                        softcap: float | None = None, window=None) -> torch.Tensor:
+    """Decode attention over a fixed cache: q [T, Hq, D] (T > 1 for a
+    lookahead window), caches [MAX, Hk, D]; query row i attends positions
+    below ``ctx_len - (T - 1) + i``. Long caches take the kv-chunk route
+    (module docstring)."""
+    if _decode_backend(_kv_shape(k_cache)[0]) == "chunked":
+        return sdpa_fixed_cache_chunked_fn(q, k_cache, v_cache, ctx_len, scale,
+                                           softcap=softcap, window=window)
+    return _sdpa_fixed_cache_full(q, k_cache, v_cache, ctx_len, scale,
+                                  softcap=softcap, window=window)
+
+
+def _grouped_q(q: torch.Tensor, hk: int) -> torch.Tensor:
+    t, h, d = q.shape
+    return q.reshape(t, hk, h // hk, d).permute(1, 2, 0, 3).to(_F32)    # [Hk, G, T, D]
+
+
+def _limit(ctx_len, t: int, device) -> torch.Tensor:
+    return int(ctx_len) - (t - 1) + torch.arange(t, device=device)[None, None, :, None]
+
+
+def _sdpa_fixed_cache_full(q, k_cache, v_cache, ctx_len, scale: float | None = None,
+                           softcap: float | None = None, window=None) -> torch.Tensor:
+    k_cache, v_cache = _kv_load(k_cache), _kv_load(v_cache)
+    t, h, d = q.shape
+    max_len, hk, _ = k_cache.shape
+    scale = scale if scale is not None else 1.0 / math.sqrt(d)
+    kk = k_cache.permute(1, 0, 2)                                       # [Hk, MAX, D]
+    vv = v_cache.permute(1, 0, 2)
+    scores = torch.einsum("hgtd,hkd->hgtk", _grouped_q(q, hk), kk.to(_F32)) * scale
+    scores = _apply_softcap(scores, softcap)
+    kv_idx = torch.arange(max_len, device=q.device)[None, None, None, :]
+    limit = _limit(ctx_len, t, q.device)
+    mask = kv_idx >= limit
+    w_eff = _window_or_inf(window)
+    if w_eff is not None:
+        mask = mask | (kv_idx < limit - w_eff)
+    scores = torch.where(mask, torch.full_like(scores, _NEG_INF), scores)
+    probs = _round_as(torch.softmax(scores, dim=-1), vv.dtype)
+    out = torch.einsum("hgtk,hkd->hgtd", probs, vv.to(_F32))
+    return out.permute(2, 0, 1, 3).reshape(t, h, d).to(q.dtype)
+
+
+def _cache_rows(cache, start: int, chunk: int):
+    if isinstance(cache, dict):
+        return {"q": cache["q"][start:start + chunk], "s": cache["s"][start:start + chunk]}
+    return cache[start:start + chunk]
+
+
+def sdpa_fixed_cache_chunked_fn(q, k_cache, v_cache, ctx_len, scale: float | None = None,
+                                chunk: int | None = None, softcap: float | None = None,
+                                window=None) -> torch.Tensor:
+    """kv-chunk online-softmax decode: only the ceil(ctx / chunk) live
+    chunks are read (and dequantised), each chunk's dead rows masked with
+    p = 0; f32 running max, sum and accumulator, P rounded to the cache's
+    compute dtype before P.V, as the reference's loop."""
+    t, h, d = q.shape
+    max_len, hk, _ = _kv_shape(k_cache)
+    g = h // hk
+    scale = scale if scale is not None else 1.0 / math.sqrt(d)
+    chunk = min(chunk if chunk is not None else _flash_chunk(), max_len)
+    n_chunks = -(-max_len // chunk)
+    ctx = int(ctx_len)
+    qh = _grouped_q(q, hk)
+    limit = _limit(ctx, t, q.device)
+    w_eff = _window_or_inf(window)
+    i = 0 if w_eff is None else max(0, (ctx - t - w_eff + 1) // chunk)
+    m = torch.full((hk, g, t, 1), _NEG_INF, dtype=_F32, device=q.device)
+    l_sum = torch.zeros((hk, g, t, 1), dtype=_F32, device=q.device)
+    acc = torch.zeros((hk, g, t, d), dtype=_F32, device=q.device)
+    while i * chunk < ctx and i < n_chunks:
+        start_log = i * chunk
+        start = min(start_log, max_len - chunk)
+        k_blk = _kv_load(_cache_rows(k_cache, start, chunk))
+        v_blk = _kv_load(_cache_rows(v_cache, start, chunk))
+        s = torch.einsum("hgtd,hkd->hgtk", qh, k_blk.permute(1, 0, 2).to(_F32)) * scale
+        s = _apply_softcap(s, softcap)
+        kv_idx = start + torch.arange(chunk, device=q.device)[None, None, None, :]
+        dead = (kv_idx >= limit) | (kv_idx < start_log)
+        if w_eff is not None:
+            dead = dead | (kv_idx < limit - w_eff)
+        s = torch.where(dead, torch.full_like(s, _NEG_INF), s)
+        m_new = torch.maximum(m, torch.amax(s, dim=-1, keepdim=True))
+        p = torch.where(dead, torch.zeros_like(s), torch.exp(s - m_new))
+        alpha = torch.exp(m - m_new)
+        l_sum = l_sum * alpha + torch.sum(p, dim=-1, keepdim=True)
+        acc = acc * alpha + torch.einsum("hgtk,hkd->hgtd", _round_as(p, v_blk.dtype),
+                                         v_blk.permute(1, 0, 2).to(_F32))
+        m = m_new
+        i += 1
+    out = acc / torch.clamp_min(l_sum, 1e-30)
+    return out.permute(2, 0, 1, 3).reshape(t, h, d).to(q.dtype)
+
+
+# ---------------------------------------------------------------------------
+# Array-facing wrappers
+# ---------------------------------------------------------------------------
+
+def sdpa_causal(q, k, v, scale: float | None = None, *,
+                out: Array | None = None) -> Array:
+    return apply_op(functools.partial(sdpa_causal_fn, scale=scale), q, k, v, out=out)
+
+
+def flash_attention(q, k, v, scale: float | None = None, chunk_size: int = 512,
+                    *, out: Array | None = None) -> Array:
+    return apply_op(functools.partial(flash_attention_fn, scale=scale,
+                                      chunk_size=chunk_size), q, k, v, out=out)
+
+
+def sdpa_causal_fixed_cache(q, k_cache, v_cache, ctx_len: int,
+                            scale: float | None = None, *,
+                            out: Array | None = None) -> Array:
+    return apply_op(lambda a, b, c: sdpa_fixed_cache_fn(a, b, c, ctx_len, scale),
+                    q, k_cache, v_cache, out=out)

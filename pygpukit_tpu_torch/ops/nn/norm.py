@@ -1,9 +1,13 @@
 """Normalization (counterpart of ``pygpukit_tpu/ops/nn/norm.py``).
-Reductions accumulate in f32 whatever the input dtype."""
+Reductions accumulate in f32 whatever the input dtype. ``*_fn`` work on
+tensors inside the model; the wrappers take and return Arrays."""
 
 from __future__ import annotations
 
 import torch
+
+from ...core.array import Array
+from .._common import apply_op
 
 _F32 = torch.float32
 
@@ -24,3 +28,25 @@ def layernorm_fn(x: torch.Tensor, weight: torch.Tensor, bias=None,
     if bias is not None:
         y = y + bias.to(_F32)
     return y.to(x.dtype)
+
+
+def l2norm_fn(x: torch.Tensor, eps: float = 1e-12):
+    """Parameterless L2 norm over the last dim (unit-vector scaling)."""
+    xf = x.to(_F32)
+    inv = torch.rsqrt(torch.sum(xf * xf, dim=-1, keepdim=True) + eps)
+    return (xf * inv).to(x.dtype)
+
+
+def rmsnorm(x, weight, eps: float = 1e-6, *, out: Array | None = None) -> Array:
+    return apply_op(lambda a, w: rmsnorm_fn(a, w, eps), x, weight, out=out)
+
+
+def layernorm(x, weight, bias=None, eps: float = 1e-5, *,
+              out: Array | None = None) -> Array:
+    if bias is None:
+        return apply_op(lambda a, w: layernorm_fn(a, w, None, eps), x, weight, out=out)
+    return apply_op(lambda a, w, b: layernorm_fn(a, w, b, eps), x, weight, bias, out=out)
+
+
+def l2norm(x, eps: float = 1e-12, *, out: Array | None = None) -> Array:
+    return apply_op(lambda a: l2norm_fn(a, eps), x, out=out)

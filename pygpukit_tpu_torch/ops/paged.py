@@ -18,6 +18,7 @@ from dataclasses import dataclass, field
 import numpy as np
 import torch
 
+from ..core.backend import resolve_device
 from ..kernels.paged_attention import paged_attention, paged_attention_plain
 from .embedding import to_kv_dtype
 
@@ -75,7 +76,7 @@ class PagedKVCache:
     """Block-table allocator and device pools ``[L, NB, BS, Hk, D]``.
 
     Host-side free-list allocation; the pools are written in place by
-    ``reshape_and_cache_fn``."""
+    ``reshape_and_cache_fn``. ``device`` None places them on the card."""
 
     num_blocks: int
     block_size: int
@@ -91,6 +92,7 @@ class PagedKVCache:
     _lens: dict = field(default_factory=dict)
 
     def __post_init__(self):
+        self.device = resolve_device(self.device)
         shape = (self.num_layers, self.num_blocks, self.block_size,
                  self.num_kv_heads, self.head_dim)
         self.k_pool = torch.zeros(shape, dtype=self.dtype, device=self.device)

@@ -13,7 +13,8 @@ from pygpukit_tpu_torch.kernels import (LAUNCHES, batch_decode_attention,
                                         batch_decode_attention_plain,
                                         flash_attention, flash_attention_plain,
                                         flash_decode, flash_decode_plain,
-                                        block_w4a8_matmul, block_w4a8_matmul_plain,
+                                        gemm, gemm_plain, gemv_quant,
+                                        gemv_quant_plain, block_w4a8_matmul, block_w4a8_matmul_plain,
                                         block_w4a16_matmul,
                                         block_w4a16_matmul_plain, conv_matmul,
                                         conv_matmul_plain, kv_rows_write,
@@ -355,3 +356,115 @@ def test_forward_launches_flash_attention_per_layer(dev):
     assert logits.shape == (199, 256)
     assert LAUNCHES["flash_attention"] == before["flash_attention"] + 3
     assert all(LAUNCHES[n] == before[n] for n in LAUNCHES if n != "flash_attention")
+
+
+def _bf16_close(y, ref) -> bool:
+    """Within one bf16 ulp of |ref| plus 1e-4 of max |ref| (f32 sums in
+    another order, rounded once)."""
+    r = ref.float()
+    return bool(((y.float() - r).abs() <= r.abs() * 2.0 ** -7 + 1e-4 * r.abs().max()).all())
+
+
+@pytest.mark.parametrize("dtypes", [("bf16", "bf16"), ("f32", "f32"), ("bf16", "f32")])
+@pytest.mark.parametrize("mnk", [(64, 128, 128), (65, 130, 136), (300, 260, 384),
+                                 (2048, 2560, 2048), (129, 136, 131)])
+def test_gemm_matches_plain(dev, mnk, dtypes):
+    """Ragged edges (M 65, N 130, K 136; K 131 padded for bf16) and mixed
+    bf16/f32 operands (an f32 product); replay bitwise."""
+    m, n, k = mnk
+    dt = {"bf16": torch.bfloat16, "f32": torch.float32}
+    g = _gen(dev, m + n + k)
+    a = torch.randn((m, k), generator=g, device=dev).to(dt[dtypes[0]])
+    b = torch.randn((k, n), generator=g, device=dev).to(dt[dtypes[1]])
+    before = LAUNCHES["gemm"]
+    y = gemm(a, b, force="pallas")
+    assert LAUNCHES["gemm"] == before + 1
+    want = torch.promote_types(a.dtype, b.dtype)
+    assert y.dtype == want and y.shape == (m, n)
+    ref = gemm_plain(a, b, want)
+    if want == torch.bfloat16:
+        assert _bf16_close(y, ref)
+    else:
+        assert ((y - ref).abs() <= 1e-4 * ref.abs().max()).all()
+    assert torch.equal(y, gemm(a, b, force="pallas"))
+    yt = gemm(a, b.t().contiguous().t(), force="pallas")     # a strided B
+    assert torch.equal(yt, y)
+
+
+def test_matmul_counts_gemm_only_under_the_switch(dev, monkeypatch):
+    import pygpukit_tpu_torch as gp
+    a = gp.randn(128, 256, dtype="bf16", seed=1)
+    b = gp.randn(256, 128, dtype="bf16", seed=2)
+    assert a.device == dev
+    monkeypatch.delenv("PYGPUKIT_GEMM", raising=False)
+    before = LAUNCHES["gemm"]
+    c1 = gp.matmul(a, b)
+    assert LAUNCHES["gemm"] == before
+    monkeypatch.setenv("PYGPUKIT_GEMM", "pallas")
+    c2 = a @ b
+    assert LAUNCHES["gemm"] == before + 1
+    gp.matmul(gp.randn(63, 256, dtype="bf16"), b)            # below the size rule
+    assert LAUNCHES["gemm"] == before + 1
+    assert _bf16_close(c2.torch, c1.torch)
+
+
+def test_gemm_raises_on_unsupported_dtypes(dev):
+    a = torch.zeros((64, 128), dtype=torch.float16, device=dev)
+    b = torch.zeros((128, 128), dtype=torch.float16, device=dev)
+    with pytest.raises(NotImplementedError):
+        gemm(a, b, force="pallas")
+    with pytest.raises(NotImplementedError):
+        gemm(a.to(torch.int32), b.to(torch.int32), force="pallas")
+    with pytest.raises(NotImplementedError):
+        gemm(a.bfloat16(), b.bfloat16(), out_dtype=torch.float16, force="pallas")
+    with pytest.raises(ValueError):
+        gemm(a, a, force="pallas")
+
+
+@pytest.mark.parametrize("storage", [torch.float8_e4m3fn, torch.float8_e5m2, torch.int8,
+                                     torch.bfloat16])
+@pytest.mark.parametrize("nk", PROJ_SHAPES + [(256, 200), (37, 13), (130, 2051)])
+def test_gemv_quant_matches_plain(dev, nk, storage):
+    n, k = nk
+    g = _gen(dev, n + k)
+    if storage == torch.int8:
+        w = torch.randint(-127, 128, (n, k), generator=g, device=dev, dtype=torch.int8)
+    else:
+        w = (torch.randn((n, k), generator=g, device=dev) * 4).to(storage)
+    sc = torch.rand((n,), generator=g, device=dev) + 0.5
+    for x in (torch.randn((k,), generator=g, device=dev).to(torch.bfloat16),
+              torch.randn((k,), generator=g, device=dev)):
+        for s in (sc, None):
+            before = LAUNCHES["gemv_quant"]
+            y = gemv_quant(w, x, s)
+            assert LAUNCHES["gemv_quant"] == before + 1
+            assert y.dtype == torch.bfloat16 and y.shape == (n,)
+            assert _bf16_close(y, gemv_quant_plain(w, x, s))
+            assert torch.equal(y, gemv_quant(w, x, s))
+    y = gemv_quant(w[:, 1:], x[1:].to(torch.bfloat16), sc)     # rows off 16-byte alignment
+    assert _bf16_close(y, gemv_quant_plain(w[:, 1:], x[1:].to(torch.bfloat16), sc))
+
+
+def test_gemv_quant_raises_on_unsupported_dtypes(dev):
+    x = torch.zeros((64,), dtype=torch.bfloat16, device=dev)
+    with pytest.raises(NotImplementedError):
+        gemv_quant(torch.zeros((8, 64), dtype=torch.float16, device=dev), x)
+    with pytest.raises(NotImplementedError):
+        gemv_quant(torch.zeros((8, 64), dtype=torch.int8, device=dev), x.to(torch.float16))
+    with pytest.raises(ValueError):
+        gemv_quant(torch.zeros((8, 64), dtype=torch.int8, device=dev), x[:32])
+
+
+@pytest.mark.parametrize("mkn", [(100, 64, 40), (1, 2048, 2560), (8192, 64, 136)])
+def test_matmul_int8_on_the_card_is_exact(dev, mkn):
+    """torch._int_mm with padded M, K and N gives the CPU's int32 product."""
+    import pygpukit_tpu_torch as gp
+    m, k, n = mkn
+    g = _gen(dev, m + k + n)
+    aq = torch.randint(-127, 128, (m, k), generator=g, device=dev, dtype=torch.int8)
+    bq = torch.randint(-127, 128, (k, n), generator=g, device=dev, dtype=torch.int8)
+    sa = torch.rand((m, 1), generator=g, device=dev)
+    sb = torch.rand((1, n), generator=g, device=dev)
+    y = gp.matmul_int8(gp.Array(aq), gp.Array(bq), gp.Array(sa), gp.Array(sb))
+    ref = gp.matmul_int8(*(gp.Array(t.cpu()) for t in (aq, bq, sa, sb)))
+    assert torch.equal(y.torch.cpu(), ref.torch)

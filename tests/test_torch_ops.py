@@ -49,10 +49,10 @@ def test_swiglu_gelu(rng):
 
 
 def test_rope_tables_and_apply(rng):
-    cos, sin = tnn.rope_init(64, 12, 10000.0)
+    cos, sin = tnn.rope_init(64, 12, 10000.0, device="cpu")
     jcos, jsin = jrope.rope_init(64, 12, 10000.0)
-    _close(cos, jcos.jax)
-    _close(sin, jsin.jax)
+    _close(cos.torch, jcos.jax)
+    _close(sin.torch, jsin.jax)
     x = rng.standard_normal((7, 3, 12)).astype(np.float32)
     rows = np.asarray([0, 5, 9, 17, 33, 62, 63])
     c, s = np.asarray(jcos.jax)[rows], np.asarray(jsin.jax)[rows]
@@ -88,7 +88,7 @@ def test_kv_write_clamps_like_dynamic_update_slice(rng, start):
     for dtype, tdtype in ((jnp.float32, torch.float32), (jnp.int8, torch.int8)):
         jc = jemb.kv_cache_zeros((2, 16, 8), dtype, merged=True)
         ref = jemb.kv_write(jc, jnp.asarray(new), (1, start, 0))
-        tc = temb.kv_cache_zeros((2, 16, 8), tdtype)
+        tc = temb.kv_cache_zeros((2, 16, 8), tdtype, device="cpu")
         got = temb.kv_write(tc, torch.from_numpy(new), (1, start, 0))
         if isinstance(ref, dict):
             np.testing.assert_array_equal(got["q"].numpy(), np.asarray(ref["q"]))

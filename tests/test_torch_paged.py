@@ -284,7 +284,7 @@ def test_paged_kv_cache_matches_reference():
     rng = np.random.default_rng(15)
     kw = dict(num_blocks=6, block_size=4, num_kv_heads=2, head_dim=8, num_layers=2)
     jc = jpaged.PagedKVCache(dtype=jnp.float32, **kw)
-    tc = tpaged.PagedKVCache(dtype=torch.float32, **kw)
+    tc = tpaged.PagedKVCache(dtype=torch.float32, device="cpu", **kw)
     for c in (jc, tc):
         c.allocate(7)
         c.allocate(3)
