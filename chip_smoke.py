@@ -18,6 +18,12 @@ Phases:
     ladder GEMVs (w4a16, block w4a8, block w4a16, converting fp8) at the
     four projection shapes, rows 1 and 8: block w4a8 bitwise, the others
     within one bf16 ulp plus 1e-4 of max |y|, with GB/s of weight bytes;
+    fused_decode (the whole-model decode step) at full width against its
+    plain version at 2 and 22 layers, pos 1, 143 and 511 in cache 512 and
+    pos 3000 in cache 4096 (relative L2 of h_out, k_new and v_new within
+    1e-2 at 2 layers and FUSED_DEEP_TOL at 22, a bitwise second launch),
+    timed at 22 layers, cache 512, pos 143 beside the unfused step and the
+    head;
  4. the dense path: the TinyLlama-1.1B shape with random int4 weights and
     an int8 head, served by the batch-8 ContinuousBatchingEngine
     (max_seq_len 1024, 16 steps per dispatch) for 16 requests; every request
@@ -40,7 +46,10 @@ Phases:
     trash block, whose duplicate writes are unordered) bit for bit; the
     non-pipelined paged engine gives the same streams; the dense pipelined
     engine's streams are reported; one paged decode step timed eagerly, as
-    a CUDA-graph replay and under torch.profiler (kernels by device time);
+    a CUDA-graph replay and under torch.profiler (kernels by device time).
+    Its 16-token prompts pad to 32 rows, which the int4 route sends to the
+    dequant matmul (9 to 255 rows), so the w4a8 GEMM is the dense path's
+    (its 200-token prompts pad to 256);
  8. a tight pool: 16 requests with 16- and 200-token prompts and 48-64 new
     tokens over a pool that holds at most 4 of them at once; admission
     waits instead of failing, every request finishes, and every block but
@@ -51,8 +60,9 @@ Phases:
     PYGPUKIT_INT4_BLOCK=w4a16, each a warm and a timed generate of 256
     tokens after a 16-token prompt (cache 512, one chunk): identical
     tokens, finite logits, 88 launches per decode step of the rung's GEMV
-    and none of any other; tok/s, one step's eager wall ms and graph
-    device ms, bytes streamed per step and GB/s;
+    and none of any other; tok/s, one single-stream step's (decode_step_fn
+    over [L, MAX, Hk, D] caches) eager wall ms and graph device ms, bytes
+    streamed per step and GB/s;
 10. phase 4's workload on the int4_block model, replayed bitwise, against
     single-stream generate (reported), and its 2-layer model on the card
     against the CPU plain path;
@@ -75,14 +85,26 @@ Phases:
     with the switch (the gemm kernel) and without (cuBLAS), checked against
     each other, fp8 (quantize_fp8 + matmul_fp8) and int8 (matmul_int8) at
     M 8192, K 4096, N 14336 (plain routes), TFLOP/s and TOP/s; gemv_quant
-    through its library entry at the four projection shapes.
+    through its library entry at the four projection shapes;
+13. the single-stream fixed-cache decode on the 1.1B bf16 model with
+    separate q/k/v and gate/up leaves (random weights, seed 0, no
+    fuse_params), cache 512, the ladder's 16-token prompt: a warm and a
+    timed generate of 256 tokens on the unfused step (flash_decode, 22
+    launches a step, no serving kernel or GEMV) and under
+    PYGPUKIT_DECODE=fused (one fused_decode launch a step, no
+    flash_decode), identical tokens within each route, finite logits; one
+    step's fused logits against the unfused step's at the same cache
+    (relative L2 within FWD_TOL; token agreement reported); a snapshot
+    after 100 tokens, 50 more, a restore and the same 50 again, identical;
+    eager wall and graph device ms of both steps.
 
 Phase 3 also checks gemm (bf16 at M 2048 on the four projection products
 as [K, N] weights, bf16 at 8192^3, f32 at 2048^3) and gemv_quant (the four
 projection shapes N-major, fp8 e4m3, int8 and bf16) against their plain
 versions, and flash_attention (causal bf16 at S 1000, 2048 and 8192,
 once full, once at D 128, f32 at S 1000) and flash_decode (MAX 8192, ctx 1,
-700 and 8192, bf16 and f32) against their plain versions. For every kernel
+700 and 8192, and ctx 144 in MAX 512, the decode phase's shape, bf16 and f32)
+against their plain versions. For every kernel
 it prints the least time the card could take for the same work (bound_ms:
 the larger of the bytes each input and output moves once over 3.35 TB/s and
 the operations over the peak of their type, 989 TFLOP/s bf16, 1979 TOP/s
@@ -91,7 +113,7 @@ PyTorch call computes the same function, that call's time (library_ms; the
 port never calls it: torch.matmul for gemm, torch.mv for gemv_quant on a
 bf16 weight with no scale).
 Launches per decode step, prefill, forward or layer are counted in phases
-6, 7, 9, 11 and 12 and printed on one line before the summary.
+6, 7, 9, 11, 12 and 13 and printed on one line before the summary.
 
 Any failure exits non-zero. The last two lines are the kernel summary and
 the device line read by automation; it exits 2 with no result when no CUDA
@@ -141,9 +163,13 @@ SOURCES = {"w4a8_gemv": ("pygpukit_tpu_torch/csrc/w4a8_gemv.cu",
                             "pygpukit_tpu/kernels/flash_attention.py:194"),
            "gemm": ("pygpukit_tpu_torch/csrc/gemm.cu", "pygpukit_tpu/kernels/gemm.py:58"),
            "gemv_quant": ("pygpukit_tpu_torch/csrc/gemv_quant.cu",
-                          "pygpukit_tpu/kernels/gemv_quant.py:54")}
+                          "pygpukit_tpu/kernels/gemv_quant.py:54"),
+           "fused_decode": ("pygpukit_tpu_torch/csrc/fused_decode.cu",
+                            "pygpukit_tpu/kernels/fused_decode.py:393")}
 DENSE_KERNELS = ("w4a8_gemv", "w4a8_gemm", "kv_rows_write", "batch_decode_attention")
-PAGED_KERNELS = ("w4a8_gemv", "w4a8_gemm", "paged_attention")
+# no w4a8_gemm: the paged path's 16-token prompts pad to 32 rows, which the
+# int4 route sends to the dequant matmul (the GEMM takes 256 rows and more)
+PAGED_KERNELS = ("w4a8_gemv", "paged_attention")
 GEMVS = ("w4a8_gemv", "w4a16_gemv", "block_w4a8_gemv", "block_w4a16_gemv", "conv_gemv")
 # the reference's decode ladder (bench.py:469-486): rung -> (quant mode or
 # None for bf16, route switches, the GEMV every decode projection launches)
@@ -159,7 +185,7 @@ LADDER_PROMPT, LADDER_NEW, LADDER_MAX = list(range(1, 17)), 256, 512
 # order; the block w4a8 GEMV is held bitwise instead)
 ULP_REL, NEAR_ZERO = 2.0 ** -7, 1e-4
 PHASES = ("kernels", "dense", "paged", "tight", "ladder", "block", "parity",
-          "forward", "ops")
+          "forward", "ops", "decode")
 # the card's published peaks (H100 SXM data sheet, dense): bytes/s of HBM
 # and operations/s by operand type; a bound is the larger of the two times
 HBM_BYTES_S = 3.35e12
@@ -172,7 +198,22 @@ F32_REL = 1e-4
 FLASH_CASES = [(1000, 32, 4, 64, "bf16", True), (2048, 32, 4, 64, "bf16", True),
                (8192, 32, 4, 64, "bf16", True), (2048, 32, 4, 64, "bf16", False),
                (2048, 32, 8, 128, "bf16", True), (1000, 32, 4, 64, "f32", True)]
-DECODE_MAX, DECODE_CTXS = 8192, (1, 700, 8192)
+# (MAX, ctx) of the flash_decode checks; the summary row is the decode
+# phase's shape (cache 512, the step at pos 143 attends 144 rows)
+DECODE_CASES = ((8192, 1), (8192, 700), (8192, 8192), (512, 144))
+# (layers, pos, MAX) of the fused_decode checks; the summary row times the
+# decode phase's shape, the last entry is past the reference's VMEM gate
+FUSED_CASES = ((2, 1, 512), (2, 143, 512), (2, 511, 512), (22, 1, 512), (22, 143, 512),
+               (22, 511, 512), (22, 3000, 4096))
+FUSED_TIMED = (22, 143, 512)
+# fused_decode against its plain version at 22 layers, relative L2: every
+# bf16 rounding of the residual stream that summation order flips moves the
+# next layer's input, so two orders drift apart with depth. Phase 3 prints
+# the drift of the plain version itself, on the card against on the CPU
+# (cuBLAS against the CPU's BLAS), beside the kernel's; at 2 layers both
+# stay under 1e-2. A wrong layout, offset or mask gives order 1.
+FUSED_DEEP_TOL = 5e-2
+SNAP_AT, SNAP_MORE = 100, 50             # decode phase: snapshot, then replay
 FWD_S, FWD_PROMPT, FWD_NEW = 2048, 16, 8
 GEMM_BENCH_N = 8192                       # the reference's bf16 GEMM cell (bench.py:73)
 QUANT_MKN = (8192, 4096, 14336)           # its fp8 and int8 cells (bench.py:92-139)
@@ -562,12 +603,13 @@ def _attn_err(out, ref, kind: str, what: str) -> float:
 
 
 def check_flash_kernels(dev, g, detail: dict) -> dict:
-    """Phase 3, flash_attention over FLASH_CASES and flash_decode at MAX
-    DECODE_MAX over DECODE_CTXS, bf16 and f32: each against its plain
-    version, replayed bitwise, timed with its plain version, the library
-    call (scaled_dot_product_attention, enable_gqa) and its bound. Returns
-    the summary rows: flash_attention at the forward's layer shape (S 2048
-    causal bf16), flash_decode at ctx 8192 bf16."""
+    """Phase 3, flash_attention over FLASH_CASES and flash_decode over
+    DECODE_CASES, bf16 and f32: each against its plain version, replayed
+    bitwise, timed with its plain version, the library call
+    (scaled_dot_product_attention, enable_gqa) and its bound. Returns the
+    summary rows: flash_attention at the forward's layer shape (S 2048
+    causal bf16), flash_decode at the decode phase's (ctx 144 in MAX 512,
+    bf16)."""
     import torch
     from pygpukit_tpu_torch.kernels import (flash_attention, flash_attention_plain,
                                             flash_decode, flash_decode_plain)
@@ -604,13 +646,14 @@ def check_flash_kernels(dev, g, detail: dict) -> dict:
             res["flash_attention"] = row
         del qs, ks, vs, out
     hq, hk, d = 32, 4, 64
-    for kind in ("bf16", "f32"):
+    for kind, max_len in ((k, m) for k in ("bf16", "f32")
+                          for m in sorted({m for m, _ in DECODE_CASES})):
         nl = 22                                    # per-layer caches cycle past the L2
-        kc = torch.randn((nl, DECODE_MAX, hk, d), generator=g, device=dev).to(dts[kind])
-        vc = torch.randn((nl, DECODE_MAX, hk, d), generator=g, device=dev).to(dts[kind])
+        kc = torch.randn((nl, max_len, hk, d), generator=g, device=dev).to(dts[kind])
+        vc = torch.randn((nl, max_len, hk, d), generator=g, device=dev).to(dts[kind])
         q = torch.randn((1, hq, d), generator=g, device=dev).to(dts[kind])
-        for ctx in DECODE_CTXS:
-            what = f"flash_decode MAX {DECODE_MAX} ctx {ctx} {kind}"
+        for ctx in (c for m, c in DECODE_CASES if m == max_len):
+            what = f"flash_decode MAX {max_len} ctx {ctx} {kind}"
             out = flash_decode(q, kc[3], vc[3], ctx)
             err = _attn_err(out, flash_decode_plain(q, kc[3], vc[3], ctx), kind, what)
             check(torch.equal(out, flash_decode(q, kc[3], vc[3], ctx)),
@@ -624,10 +667,116 @@ def check_flash_kernels(dev, g, detail: dict) -> dict:
             row = kernel_row(err, kms, pms, (2 * ctx * hk * d + 2 * hq * d) * elt,
                              4 * hq * d * ctx, kind, lms)
             detail[what.replace(" ", "_")] = dict(row, share=row["bound_ms"] / kms)
-            if (ctx, kind) == (DECODE_MAX, "bf16"):
+            if (max_len, ctx, kind) == (*DECODE_CASES[-1], "bf16"):
                 res["flash_decode"] = row
         del kc, vc
     return res
+
+
+def rel_l2(a, b) -> float:
+    a, b = a.float(), b.float()
+    return ((a - b).norm() / b.norm()).item()
+
+
+def check_fused_decode(cfg, dev, g, detail: dict) -> dict:
+    """Phase 3, fused_decode over FUSED_CASES on the 1.1B bf16 leaves (seed
+    0, the consolidated q|k|v and gate|up leaves) with random caches: each
+    case against the plain version (relative L2 of h_out, k_new and v_new)
+    and a bitwise second launch. At FUSED_TIMED: kernel, eager and plain
+    ms, its bound (weights, norms, the live K/V rows and the outputs once),
+    and beside it the whole fused step (kernel, k/v scatter, head), the
+    head alone and the unfused step (cuBLAS projections, flash_decode per
+    layer, head) over [L, MAX, Hk, D] caches. No single PyTorch call
+    computes the step: library_ms is null. Returns {"fused_decode": row}."""
+    import torch
+    from pygpukit_tpu_torch.kernels import fused_decode, fused_decode_plain
+    from pygpukit_tpu_torch.kernels.fused_decode import plan_of
+    from pygpukit_tpu_torch.llm import (decode_step_fn, fused_decode_step_fn, init_params,
+                                        prepare_fused_decode_params)
+    from pygpukit_tpu_torch.llm.model import _logits
+    from pygpukit_tpu_torch.ops.nn import rope_tables
+    bf16, f32 = torch.bfloat16, torch.float32
+    max_pos = max(pos for _, pos, _ in FUSED_CASES) + 1
+    params = init_params(cfg, 0, bf16, dev)
+    params["rope_cos"], params["rope_sin"] = rope_tables(max(max_pos, 2048), cfg.head_dim,
+                                                         cfg.rope_theta, device=dev)
+    params = prepare_fused_decode_params(cfg, params)
+    lp = params["layers"]
+    e, inter = cfg.hidden_size, cfg.intermediate_size
+    hq, hk, d = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    kvd = hk * d
+    heads = dict(n_heads=hq, n_kv_heads=hk, head_dim=d, eps=cfg.norm_eps)
+    err, timed = 0.0, {}
+    for n, pos, mx in FUSED_CASES:
+        kc = (torch.randn((n, mx, kvd), generator=g, device=dev) * 0.5).to(bf16)
+        vc = torch.randn((n, mx, kvd), generator=g, device=dev).to(bf16)
+        args = (params["embed"][7:8], params["rope_cos"][pos:pos + 1].to(f32),
+                params["rope_sin"][pos:pos + 1].to(f32),
+                torch.tensor([pos], dtype=torch.int32, device=dev), lp["w_qkv_cat"][:n],
+                lp["w_o"][:n], lp["w_gu_cat"][:n], lp["w_down"][:n],
+                lp["attn_norm_w"][:n].to(f32), lp["mlp_norm_w"][:n].to(f32),
+                params["final_norm_w"].to(f32).reshape(1, -1), kc, vc)
+        out = fused_decode(*args, **heads)
+        ref = fused_decode_plain(*args, **heads)
+        torch.cuda.synchronize()
+        what = f"fused_decode L {n} pos {pos} MAX {mx}"
+        rels = [rel_l2(a, b) for a, b in zip(out, ref)]
+        tol = 1e-2 if n <= 2 else FUSED_DEEP_TOL
+        check(all(bool(torch.isfinite(a.float()).all()) for a in out),
+              f"{what}: a value is not finite")
+        check(max(rels) <= tol, f"{what}: relative L2 of h_out, k_new, v_new {rels} "
+              f"(limit {tol})")
+        check(all(torch.equal(a, b) for a, b in zip(out, fused_decode(*args, **heads))),
+              f"{what}: a second launch differs")
+        e_abs = max((a.float() - b.float()).abs().max().item() for a, b in zip(out, ref))
+        err = max(err, e_abs)
+        detail[what.replace(" ", "_")] = {"rel_l2": rels, "max_abs_err": e_abs}
+        if (n, pos, mx) == FUSED_TIMED:
+            # the same plain function summed by the CPU's BLAS: the depth
+            # drift any two summation orders show (FUSED_DEEP_TOL)
+            on_cpu = fused_decode_plain(*(a.cpu() for a in args), **heads)
+            timed["spread"] = [rel_l2(a.cpu(), b) for a, b in zip(ref, on_cpu)]
+            del on_cpu
+            timed["ms"] = time_ms(lambda i: fused_decode(*args, **heads), 1, reps=20)
+            timed["plain_ms"] = time_ms(lambda i: fused_decode_plain(*args, **heads), 1, reps=5)
+            timed["eager_ms"] = eager_ms(lambda i: fused_decode(*args, **heads), 1, iters=20)
+            weights = n * e * (e + 2 * kvd + e + 2 * inter) + n * inter * e
+            timed["bytes"] = (2 * weights + 4 * (2 * n * e + e) + 2 * (2 * n * pos * kvd)
+                              + 2 * e + 8 * d + 4 + 2 * e + 4 * 2 * n * kvd)
+            timed["ops"] = 2 * weights + n * 4 * hq * d * (pos + 1)
+        del kc, vc, args, out, ref
+    n, pos, mx = FUSED_TIMED
+    kc4 = (torch.randn((n, mx, hk, d), generator=g, device=dev) * 0.5).to(bf16)
+    vc4 = torch.randn((n, mx, hk, d), generator=g, device=dev).to(bf16)
+    tok = torch.tensor([7], device=dev)
+    step_ms = time_ms(lambda i: fused_decode_step_fn(cfg, params, kc4, vc4, tok, pos), 1,
+                      reps=20)
+    unfused_ms = time_ms(lambda i: decode_step_fn(cfg, params, kc4, vc4, tok, pos,
+                                                  allow_fused=False), 1, reps=10)
+    h_row = params["embed"][7].to(bf16)
+    head_ms = time_ms(lambda i: _logits(cfg, params, h_row), 1, reps=20)
+    res = kernel_row(err, timed["ms"], timed["plain_ms"], timed["bytes"], timed["ops"],
+                     "bf16", None)
+    plan = plan_of(dev, n_layers=n, hidden=e, intermediate=inter, n_heads=hq, n_kv_heads=hk,
+                   head_dim=d, max_seq=mx)
+    detail["fused_decode"] = dict(res, share=res["bound_ms"] / timed["ms"],
+                                  eager_ms=timed["eager_ms"], fused_step_ms=step_ms,
+                                  head_ms=head_ms, unfused_step_ms=unfused_ms, plan=plan,
+                                  plain_card_vs_cpu_rel_l2=timed["spread"])
+    print(f"phase 3: fused_decode at {n} layers, cache {mx}, pos {pos}: kernel "
+          f"{timed['ms']:.4f} ms by graph replay (eager {timed['eager_ms']:.4f} ms wall), bound "
+          f"{res['bound_ms']:.4f} ms by {res['bound_by']} = share "
+          f"{res['bound_ms'] / timed['ms']:.3f}, plain {timed['plain_ms']:.4f} ms; the whole "
+          f"fused step (kernel, k/v scatter, head) {step_ms:.4f} ms, the head alone "
+          f"{head_ms:.4f} ms; the unfused step (cuBLAS projections, {n} flash_decode, head) "
+          f"{unfused_ms:.4f} ms; plan {json.dumps(plan)}")
+    rels = detail[f"fused_decode_L_{n}_pos_{pos}_MAX_{mx}"]["rel_l2"]
+    print(f"phase 3: fused_decode relative L2 of h_out, k_new, v_new at {n} layers: kernel vs "
+          f"plain {[f'{r:.2e}' for r in rels]}, the plain version on the card vs on the CPU "
+          f"{[f'{r:.2e}' for r in timed['spread']]} (limit {FUSED_DEEP_TOL})")
+    del params, lp, kc4, vc4
+    torch.cuda.empty_cache()
+    return {"fused_decode": res}
 
 
 def _bf16_err(y, ref, what: str) -> float:
@@ -756,19 +905,29 @@ def serve(model, requests, n_steps: int, warm=(), max_seq_len: int = 1024,
 
 def decode_step_times(model, b: int, max_len: int, pos: int) -> tuple:
     """(eager wall ms, graph-replayed device ms, kernel profile, launches
-    of one step) of one
-    batch-``b`` decode step of ``model`` over ``[b, L, max_len, Hk*D]``
-    pools with every slot at position ``pos``: how much of the eager step
-    is the device's work and how much host launch cost. At b = 1 this is
-    the single-stream step (``decode_step_fn``)."""
+    of one step) of one decode step of ``model`` with every slot at
+    position ``pos``: how much of the eager step is the device's work and
+    how much host launch cost. b > 1: the batch-rows step over ``[b, L,
+    max_len, Hk*D]`` pools; b = 1: the single-stream step
+    (``decode_step_fn``) over ``[L, max_len, Hk, D]`` caches, fused under
+    PYGPUKIT_DECODE=fused for an eligible model."""
     import torch
-    from pygpukit_tpu_torch.llm import batch_decode_step_fn
+    from pygpukit_tpu_torch.llm import batch_decode_step_fn, decode_step_fn
     from pygpukit_tpu_torch.ops.embedding import kv_cache_zeros
     cfg, params, dev = model.config, model.params, model.device
+    toks = torch.arange(1, b + 1, device=dev)
+    if b == 1:
+        shape = (cfg.num_layers, max_len, cfg.num_kv_heads, cfg.head_dim)
+        kc = kv_cache_zeros(shape, torch.bfloat16, device=dev, merged=False)
+        vc = kv_cache_zeros(shape, torch.bfloat16, device=dev, merged=False)
+
+        def step(_):
+            decode_step_fn(cfg, params, kc, vc, toks, pos)
+        return (eager_ms(step, 1, iters=20), time_ms(step, 1, reps=20),
+                kernel_profile(step), step_launches(step))
     shape = (b, cfg.num_layers, max_len, cfg.num_kv_heads * cfg.head_dim)
     kp = kv_cache_zeros(shape, torch.bfloat16, device=dev)
     vp = kv_cache_zeros(shape, torch.bfloat16, device=dev)
-    toks = torch.arange(1, b + 1, device=dev)
     poss = torch.full((b,), pos, dtype=torch.int32, device=dev)
 
     def step(_):
@@ -1385,6 +1544,101 @@ def ops_phase(cfg, dev, card: str, per_step: dict) -> dict:
     return {"gemm": launches["gemm"], "gemv_quant": gemv_launches}
 
 
+def decode_route(model, route: str, per_step: dict) -> dict:
+    """Phase 13, one route of the single-stream decode (the environment is
+    set by the caller): a warm and a timed generate (identical tokens,
+    finite logits, the route's launches and no other), a snapshot replay,
+    and one step's eager and graph times. Returns the timed run's
+    numbers."""
+    import numpy as np
+    import torch
+    from pygpukit_tpu_torch import LAUNCHES, reset_launches
+    runs = []
+    for _ in range(2):
+        model.init_fixed_cache(LADDER_MAX)
+        torch.cuda.synchronize()
+        reset_launches()
+        t0 = time.perf_counter()
+        toks = model.generate(LADDER_PROMPT, max_new_tokens=LADDER_NEW, chunk_size=LADDER_NEW)
+        torch.cuda.synchronize()
+        runs.append((toks, time.perf_counter() - t0, dict(LAUNCHES), model.logits_finite()))
+    reset_launches()
+    (toks1, _, _, fin1), (toks2, secs, launches, fin2) = runs
+    check(len(toks2) == LADDER_NEW and toks1 == toks2,
+          f"decode {route}: the timed run's tokens differ from the warm run's")
+    check(fin1 and fin2, f"decode {route}: a logit went non-finite")
+    steps = LADDER_NEW - 1
+    kernel = "flash_decode" if route == "unfused" else "fused_decode"
+    want = {kernel: steps * (model.config.num_layers if route == "unfused" else 1)}
+    moved = {k: n for k, n in launches.items() if n}
+    check(moved == want, f"decode {route}: launches {moved}, expected {want}")
+
+    model.init_fixed_cache(LADDER_MAX)
+    first = int(model.prefill(LADDER_PROMPT).argmax())
+    head = model.decode_chunk(first, SNAP_AT)
+    snap = model.snapshot_kv_cache()
+    more = model.decode_chunk(int(head[-1]), SNAP_MORE)
+    model.restore_kv_cache(snap)
+    again = model.decode_chunk(int(head[-1]), SNAP_MORE)
+    check(np.array_equal(more, again), f"decode {route}: {SNAP_MORE} tokens after a restore "
+          "differ from the run before it")
+
+    eager, graph, prof, counts = decode_step_times(model, 1, LADDER_MAX,
+                                                   len(LADDER_PROMPT) + LADDER_NEW // 2)
+    per_step[kernel] = (counts.get(kernel, 0), f"single-stream decode step ({route})")
+    print(f"phase 13: {route} step: {LADDER_NEW / secs:.1f} tok/s eager, {LADDER_NEW} tokens "
+          f"replayed identical, launches {json.dumps(moved)}; snapshot after {SNAP_AT} "
+          f"tokens, {SNAP_MORE} more, restore: the same {SNAP_MORE} again; one step at pos "
+          f"{len(LADDER_PROMPT) + LADDER_NEW // 2}: eager {eager:.3f} ms wall, CUDA-graph "
+          f"replay {graph:.3f} ms device, launches {json.dumps(counts)}")
+    print(f"phase 13: {route} step: " + profile_line(prof, 6))
+    return {"toks": toks2, "launches": launches[kernel]}
+
+
+def decode_phase(cfg, dev, card: str, per_step: dict) -> dict:
+    """Phase 13, the single-stream fixed-cache decode on the 1.1B bf16
+    model with separate leaves (no fuse_params): the unfused route, then
+    PYGPUKIT_DECODE=fused, then one step both ways at the same cache.
+    Returns the launches of the main-path runs (each route's timed
+    generate)."""
+    import os
+    import torch
+    from pygpukit_tpu_torch.llm import CausalTransformerModel, init_params
+    t0 = time.perf_counter()
+    model = CausalTransformerModel(cfg, init_params(cfg, 0, torch.bfloat16, dev),
+                                   dtype=torch.bfloat16)
+    saved = os.environ.get("PYGPUKIT_DECODE")
+    try:
+        os.environ.pop("PYGPUKIT_DECODE", None)
+        unfused = decode_route(model, "unfused", per_step)
+        os.environ["PYGPUKIT_DECODE"] = "fused"
+        fused = decode_route(model, "fused", per_step)
+        model.init_fixed_cache(LADDER_MAX)
+        first = int(model.prefill(LADDER_PROMPT).argmax())
+        snap = model.snapshot_kv_cache()
+        lf = model.decode_step(first)
+        model.restore_kv_cache(snap)
+        os.environ.pop("PYGPUKIT_DECODE")
+        lu = model.decode_step(first)
+    finally:
+        if saved is None:
+            os.environ.pop("PYGPUKIT_DECODE", None)
+        else:
+            os.environ["PYGPUKIT_DECODE"] = saved
+    rel = rel_l2(lf, lu)
+    check(bool(torch.isfinite(lf).all()) and rel <= FWD_TOL,
+          f"decode: fused vs unfused logits at one cache, relative L2 {rel:.3e}")
+    same = sum(a == b for a, b in zip(fused["toks"], unfused["toks"]))
+    print(f"phase 13: one step at pos {len(LADDER_PROMPT)}, fused vs unfused logits at the "
+          f"same cache: relative L2 {rel:.3e} (limit {FWD_TOL}), argmax equal "
+          f"{int(lf.argmax() == lu.argmax())}; the {LADDER_NEW}-token greedy streams agree in "
+          f"{same}/{LADDER_NEW} tokens (random weights: reported); [{card}]")
+    del model
+    torch.cuda.empty_cache()
+    print(f"phase 13 took {time.perf_counter() - t0:.1f} s")
+    return {"flash_decode": unfused["launches"], "fused_decode": fused["launches"]}
+
+
 def main(argv: list[str]) -> int:
     import argparse
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
@@ -1437,6 +1691,7 @@ def main(argv: list[str]) -> int:
         results.update(check_ladder_kernels(dev, g, detail))
         results.update(check_flash_kernels(dev, g, detail))
         results.update(check_gemm_kernels(dev, g, detail))
+        results.update(check_fused_decode(TransformerConfig(**CFG_1B), dev, g, detail))
         print("phase 3: kernels match their plain versions")
         print("kernel_times " + json.dumps(detail))
         print("phase 3: bounds " + json.dumps({
@@ -1450,7 +1705,7 @@ def main(argv: list[str]) -> int:
     launches: dict = {}
     # launches per decode step, prefill or forward, by kernel, recorded by
     # the phase that drives each path: name -> (launches, what ran once)
-    per_step = {"flash_decode": (0, "a library function: no path of the port calls it")}
+    per_step: dict = {}
     if {"dense", "paged", "tight"} & set(phases):
         t0 = time.perf_counter()
         model = build_model(cfg, 0, dev)
@@ -1482,9 +1737,10 @@ def main(argv: list[str]) -> int:
     if "forward" in phases:
         launches["flash_attention"] = forward_phase(cfg, dev, card,
                                                     per_step)["flash_attention"]
-        launches["flash_decode"] = 0       # no path calls it (per_step)
     if "ops" in phases:
         launches.update(ops_phase(cfg, dev, card, per_step))
+    if "decode" in phases:
+        launches.update(decode_phase(cfg, dev, card, per_step))
     print(f"total {time.perf_counter() - t_start:.1f} s after the build began")
     if set(phases) != set(PHASES):
         print(f"partial run ({args.phases}): no summary")

@@ -10,6 +10,7 @@ from .batch_decode_attention import (batch_decode_attention,
                                      batch_decode_attention_plain)
 from .flash_attention import (flash_attention, flash_attention_plain,
                               flash_decode, flash_decode_plain)
+from .fused_decode import fused_decode, fused_decode_plain
 from .gemm import batched_gemm, gemm, gemm_plain
 from .gemv_quant import (block_w4a8_matmul, block_w4a8_matmul_plain,
                          block_w4a16_matmul, block_w4a16_matmul_plain,
@@ -22,6 +23,7 @@ from .paged_attention import paged_attention, paged_attention_plain
 __all__ = ["LAUNCHES", "build", "reset_launches", "batch_decode_attention",
            "batch_decode_attention_plain", "flash_attention",
            "flash_attention_plain", "flash_decode", "flash_decode_plain",
+           "fused_decode", "fused_decode_plain",
            "batched_gemm", "gemm", "gemm_plain", "gemv_quant", "gemv_quant_plain",
            "block_w4a8_matmul",
            "block_w4a8_matmul_plain", "block_w4a16_matmul",

@@ -8,9 +8,13 @@ in-place write (the reference threads donated buffers through ``fori_loop``).
 Route rule (the one place it is written down, with ``batch_decode_step_fn``).
 Weight leaves by kind, rows = activation rows of the call:
 
-- int4 ``{"q_packed" [N, K/2], "scale"}``, INT4_MODE=w4a8 (default):
-  ``w4a8_matmul``, the w4a8 GEMV kernel for rows <= 8 and the GEMM kernel
-  above (the head included: it is never int4);
+- int4 ``{"q_packed" [N, K/2], "scale"}``, INT4_MODE=w4a8 (default), as
+  the reference's TPU route takes a layer-sliced operand: the w4a8 GEMV
+  kernel (``w4a8_matmul``) for rows <= 8, the bf16 dequant + matmul with
+  no activation quant (``w4a16_matmul_plain``) for 9 <= rows < 256, the
+  w4a8 GEMM kernel (``w4a8_matmul``) for rows >= 256; the head takes
+  ``w4a8_matmul`` at every row count, as the reference's unsliced 2-D
+  leaf does (the reference never quantizes the head to int4);
 - int4, INT4_MODE=w4a16: ``w4a16_matmul`` for rows <= 8, dequant + matmul
   above;
 - int4_block ``{"q_packed" [K/2, N], "scale_block" [K/B, N]}``,
@@ -36,9 +40,16 @@ as the reference's 2-D head always takes its XLA route. "dequant + matmul"
 and "convert + matmul" are the kernels' plain versions with the output in
 ``out_dtype`` (the reference's XLA routes).
 
-The batch-rows decode step always uses ``kernels.kv_rows_write`` and
-``kernels.batch_decode_attention``; single-stream decode is that step with
-B = 1 over a ``[1, L, MAX, Hk*D]`` pool. Cached prefill attends with the
+The batch-rows decode step (the serving engines) always uses
+``kernels.kv_rows_write`` and ``kernels.batch_decode_attention``. The
+single-stream step (``decode_step_fn``) runs over the model's fixed caches
+``[L, MAX, Hk, D]`` and attends through ``ops.nn.sdpa_fixed_cache_fn``: on
+CUDA tensors one query row over a bf16 or f32 cache launches
+``kernels.flash_decode``, anything else takes the plain route (that
+function's rule). Under ``PYGPUKIT_DECODE=fused`` (read per call) an
+eligible model (``fused_decode_eligible``) with a bf16 cache runs the step
+between the embedding and the head as one ``kernels.fused_decode`` launch,
+or its plain version for CPU tensors. Cached prefill attends with the
 plain f32 softmax (``_prefill_attn``). The uncached forward
 (``forward_fn``, ``get_logits``, ``generate(use_cache=False)``) attends
 through ``ops.nn.flash_attention_fn``: on CUDA tensors the
@@ -49,9 +60,9 @@ rows > 8 routes above (the forward is M = S rows, as prefill is).
 
 The device picks only the implementation: the kernel for CUDA tensors, the
 plain version for CPU tensors. The reference's size and regime gates
-(``on_tpu``, minimum weight sizes, exact tiles, the M >= 256 rule for
-layer-sliced operands, the XLA default of its fp8 GEMV, the MAX >= 1024
-attention gate, the bf16-only S >= 8192 flash-attention gate) work around
+(``on_tpu``, minimum weight sizes, exact tiles, the XLA default of its fp8
+GEMV, the MAX >= 1024 attention gate, the bf16-only S >= 8192
+flash-attention gate, the fused kernel's VMEM and tile gates) work around
 TPU compilers and are not ported: the port always computes what the TPU
 kernels compute.
 """
@@ -61,6 +72,7 @@ from __future__ import annotations
 import math
 import os
 from collections.abc import Iterator
+from dataclasses import dataclass
 
 import numpy as np
 import torch
@@ -68,22 +80,28 @@ from torch import nn
 
 from ..core.backend import resolve_device
 from ..core.dtypes import resolve_dtype
+from ..core.host import tensor_from_numpy, tensor_to_numpy
 from ..core.numerics import true_div
 from ..kernels import (batch_decode_attention, block_w4a8_matmul,
                        block_w4a16_matmul, block_w4a16_matmul_plain, conv_matmul,
                        conv_matmul_plain, kv_rows_write, w4a8_matmul,
                        w4a16_matmul, w4a16_matmul_plain)
+from ..kernels.fused_decode import fused_decode
+from ..kernels.fused_decode import supports as fused_decode_supports
 from ..kernels.gemv_quant import GEMV_MAX_ROWS
 from ..ops.embedding import kv_cache_zeros, kv_leaf, kv_write
 from ..ops.matmul import int8_dot
 from ..ops.nn import (apply_rope_fn, flash_attention_fn, rmsnorm_fn,
-                      rope_tables, swiglu_fn)
+                      rope_tables, sdpa_fixed_cache_fn, swiglu_fn)
 from ..ops.sampling import (sample_greedy_fn, sample_temperature_fn,
                             sample_topk_fn, sample_topp_fn)
 from .config import TransformerConfig
 
 _F32 = torch.float32
 _NEG_INF = -1e30
+#: int4 layer operands take the w4a8 GEMM from this many rows (below it,
+#: from 9 rows, the dequant matmul), as the reference's TPU route does
+W4A8_GEMM_MIN_ROWS = 256
 
 
 def check_supported(cfg: TransformerConfig) -> None:
@@ -113,7 +131,8 @@ def check_supported(cfg: TransformerConfig) -> None:
 #: the leaves the slice reads; a param tree with others (biases, MoE or
 #: norm variants) is refused rather than partly ignored
 _LAYER_LEAVES = {"w_qkv", "w_q", "w_k", "w_v", "w_o", "w_gate_up", "w_gate",
-                 "w_up", "w_down", "attn_norm_w", "mlp_norm_w", "attn_window"}
+                 "w_up", "w_down", "attn_norm_w", "mlp_norm_w", "attn_window",
+                 "w_qkv_cat", "w_gu_cat"}
 _TOP_LEAVES = {"embed", "final_norm_w", "lm_head", "layers", "rope_cos",
                "rope_sin"}
 
@@ -193,7 +212,10 @@ def _mm(x: torch.Tensor, w, out_dtype: torch.dtype | None = None) -> torch.Tenso
             y = block_w4a16_matmul(x2, w["q_packed"], w["scale_block"])
     elif "q_packed" in w:
         if _switch("PYGPUKIT_INT4_MODE") == "w4a8":
-            y = w4a8_matmul(x2, w["q_packed"], w["scale"])
+            if head or gemv or x2.shape[0] >= W4A8_GEMM_MIN_ROWS:
+                y = w4a8_matmul(x2, w["q_packed"], w["scale"])
+            else:
+                y = w4a16_matmul_plain(x2, w["q_packed"], w["scale"], out_dtype)
         elif gemv:
             y = w4a16_matmul(x2, w["q_packed"], w["scale"])
         else:
@@ -404,14 +426,6 @@ def batch_decode_step_fn(cfg: TransformerConfig, params: dict, k_pool, v_pool,
     return _logits(cfg, params, h)
 
 
-def decode_step_fn(cfg: TransformerConfig, params: dict, k_pool, v_pool,
-                   token: torch.Tensor, pos: torch.Tensor) -> torch.Tensor:
-    """One single-stream decode step: the batch-rows step with B = 1 over
-    one-slot pools ``[1, L, MAX, Hk*D]``, so it runs the same two serving
-    kernels (route rule above). token [1], pos [1] int32 -> f32 logits [V]."""
-    return batch_decode_step_fn(cfg, params, k_pool, v_pool, token, pos)[0]
-
-
 def sample_logits(logits: torch.Tensor, temperature: float = 0.0, top_k: int = 0,
                   generator: torch.Generator | None = None,
                   top_p: float = 0.0) -> torch.Tensor:
@@ -444,6 +458,192 @@ def batch_generate_scan_fn(cfg: TransformerConfig, n_steps: int,
         out.append(tokens)
         poss = poss + 1
     return torch.stack(out, dim=1)
+
+
+# ---------------------------------------------------------------------------
+# Single-stream decode over the fixed caches [L, MAX, Hk, D]
+# ---------------------------------------------------------------------------
+
+def _kv_layer(cache, i: int):
+    """Layer ``i``'s ``[MAX, Hk, D]`` view of a fixed cache (dict-safe)."""
+    if isinstance(cache, dict):
+        return {"q": cache["q"][i], "s": cache["s"][i]}
+    return cache[i]
+
+
+def _merged(cache):
+    """The ``[L, MAX, Hk*D]`` view of a fixed cache (free: contiguous), the
+    layout ``prefill_fn`` writes; an int8 dict keeps its ``[L, MAX]``
+    scales, one per row either way."""
+    if isinstance(cache, dict):
+        q = cache["q"]
+        return {"q": q.view(*q.shape[:2], -1), "s": cache["s"]}
+    return cache.view(*cache.shape[:2], -1)
+
+
+def _token_row(token, device) -> torch.Tensor:
+    """A token id (int or device scalar) as a [1] tensor on ``device``."""
+    return torch.as_tensor(token, device=device).reshape(1)
+
+
+def decode_step_fn(cfg: TransformerConfig, params: dict, k_cache, v_cache, token,
+                   pos: int, allow_fused: bool = True) -> torch.Tensor:
+    """One single-stream decode step (reference ``decode_step_fn``): write
+    the token's k/v at ``pos`` of every layer of the fixed caches ``[L, MAX,
+    Hk, D]`` (in place) and return the f32 logits [V] of the next
+    position. ``pos`` is a host int (the model tracks it); ``token`` an int
+    or a device scalar. The unfused step is the one-token window, whose
+    attention (``sdpa_fixed_cache_fn``, route rule above) launches
+    ``flash_decode`` on the card. Under ``PYGPUKIT_DECODE=fused`` an
+    eligible model with a bf16 cache takes ``fused_decode_step_fn`` instead
+    (``allow_fused=False`` opts a call site out)."""
+    if (allow_fused and not isinstance(k_cache, dict)
+            and k_cache.dtype == torch.bfloat16
+            and use_fused_decode(cfg, params, k_cache.shape[1])):
+        return fused_decode_step_fn(cfg, params, k_cache, v_cache, token, pos)
+    tokens = _token_row(token, kv_leaf(k_cache).device)
+    return decode_window_fn(cfg, params, k_cache, v_cache, tokens, pos)[0]
+
+
+def decode_window_fn(cfg: TransformerConfig, params: dict, k_cache, v_cache,
+                     tokens: torch.Tensor, pos: int) -> torch.Tensor:
+    """Lookahead decode (reference ``decode_window_fn``): ``tokens`` [T]
+    written at positions pos..pos+T-1 of the fixed caches (in place), f32
+    logits [T, V] for all T positions; token t attends cache positions
+    below pos + t + 1. Rows past an accepted prefix are left behind and
+    masked by every later step. The layer loop is bounded by the cache's
+    layer dim, not ``cfg.num_layers``, so sliced layer stacks run their own
+    depth."""
+    t = tokens.shape[0]
+    h = _embed_tokens(cfg, params, tokens)                    # [T, E]
+    c, sn = _rope_rows_for(params, pos, t) if cfg.use_rope else (None, None)
+    for i in range(kv_leaf(k_cache).shape[0]):
+        lp = _slice_layer_params(params["layers"], i)
+        x = _attn_in(cfg, lp, h)
+        q, k, v = _project_qkv(cfg, lp, x)                    # [T, H, D]
+        if cfg.use_rope:
+            q, k = _rope(cfg, q, c, sn), _rope(cfg, k, c, sn)
+        kv_write(k_cache, k[None], (i, pos, 0, 0))
+        kv_write(v_cache, v[None], (i, pos, 0, 0))
+        attn = sdpa_fixed_cache_fn(q, _kv_layer(k_cache, i), _kv_layer(v_cache, i), pos + t,
+                                   scale=cfg.attn_scale, softcap=cfg.attn_logit_softcap,
+                                   window=_layer_window(cfg, i))
+        h = _residual_tail(cfg, lp, h, attn, t)
+    h = _norm(cfg, h, params["final_norm_w"])
+    return _logits(cfg, params, h)
+
+
+def generate_scan_fn(cfg: TransformerConfig, n_steps: int, temperature: float,
+                     top_k: int, params: dict, k_cache, v_cache, token, pos: int,
+                     generator=None, on_logits=None) -> torch.Tensor:
+    """``n_steps`` decode steps from ``token`` at ``pos`` (reference
+    ``generate_scan_fn``): each step's token is the argmax, or a tempered
+    (top-k) draw from ``generator`` (``sample_logits``). Returns the int32
+    tokens [n_steps] on the device; nothing is read back. ``on_logits``
+    sees each step's logits."""
+    out = []
+    tok = token
+    for i in range(n_steps):
+        logits = decode_step_fn(cfg, params, k_cache, v_cache, tok, pos + i)
+        if on_logits is not None:
+            on_logits(logits)
+        tok = sample_logits(logits, temperature, top_k, generator).to(torch.int32)
+        out.append(tok)
+    if not out:
+        return torch.zeros((0,), dtype=torch.int32, device=kv_leaf(k_cache).device)
+    return torch.stack(out)
+
+
+def use_fused_decode(cfg: TransformerConfig, params: dict, max_seq: int) -> bool:
+    """True when the single-stream step takes the fused kernel: opted in
+    with ``PYGPUKIT_DECODE=fused`` (read per call) and an eligible model.
+    The device then picks the implementation (the kernel for CUDA tensors,
+    the plain fused step for CPU tensors) where the reference also
+    requires a TPU backend."""
+    if os.environ.get("PYGPUKIT_DECODE", "") != "fused":
+        return False
+    return fused_decode_eligible(cfg, params, max_seq)
+
+
+def fused_decode_eligible(cfg: TransformerConfig, params: dict, max_seq: int) -> bool:
+    """The reference's architecture checks (``pygpukit_tpu/llm/model.py:
+    780-797``): no gemma, olmo2, cohere, glm4 or granite conventions,
+    separate dense bf16 ``w_q`` ... ``w_down`` leaves (so ``fuse_params``
+    output never qualifies), no biases, no ``attn_window`` leaf; then
+    ``kernels.fused_decode.supports``, which keeps the architecture checks
+    and states the CUDA kernel's own limits in place of the TPU's VMEM and
+    tile gates (no ``max_seq`` limit)."""
+    if (cfg.use_post_norms or cfg.attn_logit_softcap is not None
+            or cfg.final_logit_softcap is not None
+            or cfg.sliding_window is not None
+            or cfg.embed_scale is not None or cfg.query_scale is not None):
+        return False
+    if (not cfg.pre_norms or cfg.parallel_block or cfg.rope_interleaved
+            or cfg.rope_partial_factor != 1.0
+            or cfg.residual_multiplier is not None or cfg.logit_scale is not None):
+        return False
+    lp = params["layers"]
+    for leaf in ("w_q", "w_k", "w_v", "w_o", "w_gate", "w_up", "w_down"):
+        if leaf not in lp or isinstance(lp[leaf], dict) or lp[leaf].dtype != torch.bfloat16:
+            return False
+    if "b_q" in lp or "b_qkv" in lp or "attn_window" in lp:
+        return False
+    return fused_decode_supports(
+        hidden=cfg.hidden_size, intermediate=cfg.intermediate_size,
+        n_heads=cfg.num_heads, n_kv_heads=cfg.num_kv_heads, head_dim=cfg.head_dim,
+        max_seq=max_seq, norm_type=cfg.norm_type, activation=cfg.activation,
+        use_rope=cfg.use_rope, has_bias=False, use_qk_norm=cfg.use_qk_norm,
+        is_moe=cfg.is_moe)
+
+
+def prepare_fused_decode_params(cfg: TransformerConfig, params: dict) -> dict:
+    """Add the fused kernel's consolidated leaves: ``w_qkv_cat`` (q|k|v on
+    N, ``[L, H, H + 2 Hk D]``) and ``w_gu_cat`` (gate|up, ``[L, H, 2 I]``);
+    ``w_o`` and ``w_down`` serve as they are. The originals stay (prefill
+    and the unfused step read them). The reference's ``[L, NT, K, C]`` tile
+    arenas feed the TPU's DMA engines and are not made."""
+    layers = dict(params["layers"])
+    layers["w_qkv_cat"] = torch.cat([layers["w_q"], layers["w_k"], layers["w_v"]], dim=-1)
+    layers["w_gu_cat"] = torch.cat([layers["w_gate"], layers["w_up"]], dim=-1)
+    out = dict(params)
+    out["layers"] = layers
+    return out
+
+
+def fused_decode_step_fn(cfg: TransformerConfig, params: dict, k_cache, v_cache, token,
+                         pos: int) -> torch.Tensor:
+    """``decode_step_fn`` through ``kernels.fused_decode`` (reference
+    ``fused_decode_step_fn``): the embedding row in bf16, the rope row at
+    ``pos`` in f32 and ``pos`` as a device int32 [1] (an int becomes one
+    without a host transfer; the kernel reads nothing on the host), the
+    kernel, then k_new/v_new cast to the cache dtype and scattered at
+    ``pos`` clamped into the cache (as ``dynamic_update_slice``), then the
+    head on the final row in the cache dtype. Needs the leaves of
+    ``prepare_fused_decode_params`` (``init_fixed_cache`` adds them)."""
+    lp = params["layers"]
+    if "w_qkv_cat" not in lp or "w_gu_cat" not in lp:
+        raise ValueError("fused decode needs the consolidated leaves of "
+                         "prepare_fused_decode_params (init_fixed_cache adds them "
+                         "under PYGPUKIT_DECODE=fused)")
+    n_layers, max_len, hk, d = k_cache.shape
+    dev = k_cache.device
+    h = params["embed"][_token_row(token, dev).to(torch.long)].to(torch.bfloat16)   # [1, H]
+    pos_t = torch.full((1,), int(pos), dtype=torch.int32, device=dev)
+    row = torch.clamp(pos_t, 0, params["rope_cos"].shape[0] - 1).to(torch.long)
+    cos = params["rope_cos"].index_select(0, row).to(_F32)
+    sin = params["rope_sin"].index_select(0, row).to(_F32)
+    kc = k_cache.view(n_layers, max_len, hk * d)
+    vc = v_cache.view(n_layers, max_len, hk * d)
+    h_out, k_new, v_new = fused_decode(
+        h, cos, sin, pos_t, lp["w_qkv_cat"], lp["w_o"], lp["w_gu_cat"], lp["w_down"],
+        lp["attn_norm_w"].to(_F32), lp["mlp_norm_w"].to(_F32),
+        params["final_norm_w"].to(_F32).reshape(1, -1), kc, vc,
+        n_heads=cfg.num_heads, n_kv_heads=cfg.num_kv_heads, head_dim=cfg.head_dim,
+        eps=cfg.norm_eps)
+    at = torch.clamp(pos_t, 0, max_len - 1).to(torch.long)
+    kc.index_copy_(1, at, k_new[:, None, :].to(kc.dtype))
+    vc.index_copy_(1, at, v_new[:, None, :].to(vc.dtype))
+    return _logits(cfg, params, h_out[0].to(k_cache.dtype))
 
 
 # ---------------------------------------------------------------------------
@@ -559,11 +759,38 @@ def slot_cache(pool, slot: int):
 # Model
 # ---------------------------------------------------------------------------
 
+@dataclass
+class KVSnapshot:
+    """Host copy of the fixed caches and the position (reference
+    ``KVSnapshot``). Leaves are numpy arrays in the storage dtype (bf16 and
+    fp8 as ``ml_dtypes`` arrays); where ``ml_dtypes`` is missing, bf16 and
+    fp8 leaves stay torch CPU tensors. An int8 cache is a ``{"q", "s"}``
+    dict of them."""
+    k: object
+    v: object
+    pos: int
+
+
+def _to_host(leaf: torch.Tensor):
+    """A host copy (never a view of a CPU cache)."""
+    copy = leaf.detach().to("cpu", copy=True)
+    try:
+        return tensor_to_numpy(copy)
+    except TypeError:                       # bf16 / fp8 without ml_dtypes
+        return copy
+
+
+def _from_host(leaf, device, dtype=None) -> torch.Tensor:
+    t = leaf if isinstance(leaf, torch.Tensor) else tensor_from_numpy(leaf)
+    return t.to(device=device, dtype=dtype or t.dtype, copy=True)
+
+
 class CausalTransformerModel(nn.Module):
     """Unified causal LM with a fixed KV cache. Stacked leaves are module
     buffers; ``params`` rebuilds the reference-shaped nested dict over them.
-    The single-stream cache is a one-slot serving pool ``[1, L, MAX,
-    Hk*D]``, so decode runs the serving kernels with B = 1."""
+    The single-stream caches are the reference's ``[L, MAX, Hk, D]``
+    (``k_cache``/``v_cache``, int8 ``{"q", "s"}`` dicts for an int8
+    ``kv_dtype``), updated in place."""
 
     def __init__(self, config: TransformerConfig, params: dict,
                  dtype: torch.dtype = torch.bfloat16, kv_dtype=None):
@@ -579,15 +806,22 @@ class CausalTransformerModel(nn.Module):
                 config.max_position_embeddings, config.head_dim,
                 config.rope_theta, device=params["embed"].device)
         self._paths = []
+        self._register(params)
+        self.max_seq_len: int | None = None
+        self.k_cache = self.v_cache = None
+        self.pos = 0
+        self._nonfinite = None
+
+    def _register(self, params: dict) -> None:
+        """Make the leaves of ``params`` not yet registered module buffers."""
+        known = {path for path, _ in self._paths}
         for path, t in _flatten(params):
+            if path in known:
+                continue
             name = "__".join(path)
             self._paths.append((path, name if t is not None else None))
             if t is not None:
                 self.register_buffer(name, t)
-        self.max_seq_len: int | None = None
-        self.k_pool = self.v_pool = None
-        self.pos = 0
-        self._nonfinite = None
 
     @property
     def params(self) -> dict:
@@ -604,16 +838,22 @@ class CausalTransformerModel(nn.Module):
         return self.embed.device
 
     def init_fixed_cache(self, max_seq_len: int) -> None:
-        """Zeroed one-slot pools of capacity ``max_seq_len``."""
+        """Zeroed caches ``[L, MAX, Hk, D]`` of capacity ``max_seq_len`` in
+        ``kv_dtype``; position 0. Under ``PYGPUKIT_DECODE=fused`` an
+        eligible model gains the fused kernel's consolidated leaves here,
+        once (``prepare_fused_decode_params``)."""
         cfg = self.config
-        shape = (1, cfg.num_layers, max_seq_len, cfg.num_kv_heads * cfg.head_dim)
-        self.k_pool = kv_cache_zeros(shape, self.kv_dtype, device=self.device)
-        self.v_pool = kv_cache_zeros(shape, self.kv_dtype, device=self.device)
+        shape = (cfg.num_layers, max_seq_len, cfg.num_kv_heads, cfg.head_dim)
+        self.k_cache = kv_cache_zeros(shape, self.kv_dtype, device=self.device, merged=False)
+        self.v_cache = kv_cache_zeros(shape, self.kv_dtype, device=self.device, merged=False)
         self.max_seq_len = max_seq_len
         self.pos = 0
         # set on the device by any non-finite logit since this cache was
         # made; read without a sync per step (logits_finite())
         self._nonfinite = torch.zeros((), dtype=torch.bool, device=self.device)
+        params = self.params
+        if use_fused_decode(cfg, params, max_seq_len) and "w_qkv_cat" not in params["layers"]:
+            self._register(prepare_fused_decode_params(cfg, params))
 
     def _note_logits(self, logits: torch.Tensor) -> None:
         self._nonfinite |= ~torch.isfinite(logits).all()
@@ -640,15 +880,15 @@ class CausalTransformerModel(nn.Module):
         last position."""
         ids = torch.as_tensor(np.asarray(input_ids, np.int64).reshape(-1))
         n = ids.numel()
-        if self.k_pool is None:
+        if self.k_cache is None:
             self.init_fixed_cache(_bucket(max(n * 2, 256)))
         if n > self.max_seq_len:
             raise ValueError(f"prompt ({n}) exceeds cache ({self.max_seq_len})")
         bucket = min(_bucket(n), self.max_seq_len)
         padded = torch.zeros(bucket, dtype=torch.long)
         padded[:n] = ids
-        logits = prefill_fn(self.config, self.params, slot_cache(self.k_pool, 0),
-                            slot_cache(self.v_pool, 0), padded.to(self.device), n)
+        logits = prefill_fn(self.config, self.params, _merged(self.k_cache),
+                            _merged(self.v_cache), padded.to(self.device), n)
         self._note_logits(logits)
         self.pos = n
         return logits
@@ -656,67 +896,95 @@ class CausalTransformerModel(nn.Module):
     @torch.no_grad()
     def decode_step(self, token) -> torch.Tensor:
         """One cached decode step; f32 logits [V] for the next position."""
-        tok = torch.as_tensor(token, device=self.device).reshape(1)
-        poss = torch.tensor([self.pos], dtype=torch.int32, device=self.device)
-        logits = decode_step_fn(self.config, self.params, self.k_pool,
-                                self.v_pool, tok, poss)
+        logits = decode_step_fn(self.config, self.params, self.k_cache, self.v_cache,
+                                token, self.pos)
         self._note_logits(logits)
         self.pos += 1
         return logits
 
     @torch.no_grad()
-    def decode_chunk(self, token, n_steps: int, temperature: float = 0.0,
-                     top_k: int = 0, generator=None) -> torch.Tensor:
-        """``n_steps`` decode steps; the generated tokens [n_steps] stay on
-        the device."""
-        tok = torch.as_tensor(token, device=self.device).reshape(1)
-        poss = torch.tensor([self.pos], dtype=torch.int32, device=self.device)
-        toks = batch_generate_scan_fn(self.config, n_steps, temperature, top_k,
-                                      self.params, self.k_pool, self.v_pool,
-                                      tok, poss, generator, self._note_logits)
-        self.pos += n_steps
-        return toks[0]
+    def decode_window(self, tokens, advance: int | None = None) -> torch.Tensor:
+        """Lookahead window decode: T tokens in, f32 logits [T, V] out;
+        ``pos`` advances by ``advance`` (default T). Rows of rejected tokens
+        are masked by later steps."""
+        toks = torch.as_tensor(np.asarray(tokens, np.int64).reshape(-1)).to(self.device)
+        logits = decode_window_fn(self.config, self.params, self.k_cache, self.v_cache,
+                                  toks, self.pos)
+        self._note_logits(logits)
+        self.pos += toks.numel() if advance is None else advance
+        return logits
 
-    def _ensure_cache(self, n_ids: int, max_new_tokens: int) -> None:
-        """A cache for the prompt and the new tokens, unless one exists."""
-        if self.k_pool is None:
-            self.init_fixed_cache(_bucket(max(n_ids + max_new_tokens + 1, 256)))
-
-    def _sampler(self, temperature: float, seed: int):
-        if temperature <= 0:
-            return None
+    def _generator(self, seed: int) -> torch.Generator:
         gen = torch.Generator(device=self.device)
         gen.manual_seed(seed)
         return gen
+
+    @torch.no_grad()
+    def decode_chunk(self, token, n_steps: int, temperature: float = 0.0,
+                     top_k: int = 0, seed: int = 0) -> np.ndarray:
+        """``n_steps`` decode steps; the generated tokens as numpy int32."""
+        return self.decode_chunk_device(token, n_steps, temperature, top_k,
+                                        seed).cpu().numpy()
+
+    @torch.no_grad()
+    def decode_chunk_device(self, token, n_steps: int, temperature: float = 0.0,
+                            top_k: int = 0, seed: int = 0) -> torch.Tensor:
+        """``decode_chunk`` without the read back: int32 tokens [n_steps]
+        on the device; ``token`` may be a device scalar. Draws come from a
+        generator seeded with ``seed + pos`` (the reference folds
+        ``PRNGKey(seed + pos)``)."""
+        gen = self._generator(seed + self.pos) if temperature > 0 else None
+        toks = generate_scan_fn(self.config, n_steps, temperature, top_k, self.params,
+                                self.k_cache, self.v_cache, token, self.pos, gen,
+                                self._note_logits)
+        self.pos += n_steps
+        return toks
 
     @torch.no_grad()
     def generate(self, input_ids, max_new_tokens: int = 32,
                  temperature: float = 0.0, top_k: int = 0, top_p: float = 0.0,
                  eos_token_id: int | None = None, seed: int = 0,
                  use_cache: bool = True, chunk_size: int = 32) -> list[int]:
-        """Greedy or temperature/top-k generation with one host read per
-        ``chunk_size`` tokens; stops at ``eos_token_id`` (kept) or when the
-        cache is full. Uncached generation and top-p sampling (temperature
-        > 0, no top-k) take the per-token ``generate_stream``, as the
-        reference routes them."""
+        """Greedy or temperature/top-k generation, the reference's route:
+        prefill, the first token sampled on the device (a generator seeded
+        with ``seed``), then ``decode_chunk_device`` chunks of up to
+        ``chunk_size`` tokens with one host read each (the first chunk also
+        returns the first token, so an EOS first token is seen one chunk
+        late); stops at ``eos_token_id`` (kept) or a full cache. Uncached
+        generation and top-p sampling (temperature > 0, no top-k) take the
+        per-token ``generate_stream``."""
         if not use_cache or (temperature > 0 and not (top_k > 0 or top_p == 0.0)):
             return list(self.generate_stream(input_ids, max_new_tokens, temperature,
                                              top_k, top_p, eos_token_id, seed,
                                              use_cache))
         ids = np.asarray(input_ids, np.int64).reshape(-1)
-        self._ensure_cache(len(ids), max_new_tokens)
-        gen = self._sampler(temperature, seed)
+        if self.k_cache is None:
+            self.init_fixed_cache(_bucket(max(len(ids) + max_new_tokens + 1, 256)))
         logits = self.prefill(ids)
-        out = [int(sample_logits(logits, temperature, top_k, gen))]
-        while len(out) < max_new_tokens and out[-1] != eos_token_id:
-            n = min(max_new_tokens - len(out), chunk_size,
+        if temperature <= 0:
+            cur = torch.argmax(logits)
+        else:
+            cur = sample_logits(logits, temperature, top_k, self._generator(seed))
+        cur = cur.to(torch.int32)
+        out: list[int] = []
+        first = True
+        while len(out) < max_new_tokens:
+            n = min(max_new_tokens - len(out) - (1 if first else 0), chunk_size,
                     self.max_seq_len - self.pos)
             if n <= 0:
+                if first:
+                    out.append(int(cur))
                 break
-            toks = self.decode_chunk(out[-1], n, temperature, top_k, gen).tolist()
+            toks_d = self.decode_chunk_device(cur, n, temperature, top_k, seed)
+            if first:
+                toks_d = torch.cat([cur.reshape(1), toks_d])
+                first = False
+            toks = toks_d.tolist()
             if eos_token_id is not None and eos_token_id in toks:
-                toks = toks[:toks.index(eos_token_id) + 1]
+                out.extend(toks[:toks.index(eos_token_id) + 1])
+                return out[:max_new_tokens]
             out.extend(toks)
+            cur = toks[-1]
         return out[:max_new_tokens]
 
     @torch.no_grad()
@@ -728,7 +996,7 @@ class CausalTransformerModel(nn.Module):
         ``seed``. Uncached: the forward over the growing id list, sampling
         its last row. Cached: prefill, then one decode step per token,
         stopping when the cache is full."""
-        gen = self._sampler(temperature, seed)
+        gen = self._generator(seed) if temperature > 0 else None
 
         def sample(logits):
             return int(sample_logits(logits, temperature, top_k, gen, top_p))
@@ -742,7 +1010,6 @@ class CausalTransformerModel(nn.Module):
                 if eos_token_id is not None and tok == eos_token_id:
                     return
             return
-        self._ensure_cache(np.asarray(input_ids).size, max_new_tokens)
         logits = self.prefill(input_ids)
         for _ in range(max_new_tokens):
             tok = sample(logits)
@@ -752,3 +1019,37 @@ class CausalTransformerModel(nn.Module):
             if self.pos >= self.max_seq_len:
                 return
             logits = self.decode_step(tok)
+
+    # -- KV snapshot / restore --------------------------------------------
+
+    def snapshot_kv_cache(self) -> KVSnapshot:
+        """A host copy of the caches and the position."""
+        def host(cache):
+            if isinstance(cache, dict):
+                return {k: _to_host(v) for k, v in cache.items()}
+            return _to_host(cache)
+        return KVSnapshot(k=host(self.k_cache), v=host(self.v_cache), pos=self.pos)
+
+    def restore_kv_cache(self, snap: KVSnapshot) -> None:
+        """Copy a snapshot back into fresh caches on the model's device: an
+        int8 dict in its storage dtypes, a plain array converted to the
+        model's ``kv_dtype``. TypeError when the snapshot's structure (dict
+        or array) does not match ``kv_dtype``."""
+        want_dict = self.kv_dtype == torch.int8
+        have_dict = isinstance(snap.k, dict)
+        if want_dict != have_dict:
+            raise TypeError(
+                f"KV snapshot structure ({'int8 dict' if have_dict else 'array'}) "
+                f"does not match model kv_dtype={self.kv_dtype} "
+                f"({'int8 dict' if want_dict else 'array'} pools); "
+                "re-quantize or rebuild the model with the matching kv_dtype")
+        if want_dict:
+            self.k_cache = {k: _from_host(v, self.device) for k, v in snap.k.items()}
+            self.v_cache = {k: _from_host(v, self.device) for k, v in snap.v.items()}
+        else:
+            self.k_cache = _from_host(snap.k, self.device, self.kv_dtype)
+            self.v_cache = _from_host(snap.v, self.device, self.kv_dtype)
+        self.max_seq_len = kv_leaf(self.k_cache).shape[1]
+        self.pos = snap.pos
+        if self._nonfinite is None:
+            self._nonfinite = torch.zeros((), dtype=torch.bool, device=self.device)

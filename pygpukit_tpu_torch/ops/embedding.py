@@ -38,15 +38,18 @@ def embedding_lookup(table, ids, *, out: Array | None = None) -> Array:
 embedding_lookup_batch = embedding_lookup
 
 
-def kv_cache_zeros(shape, dtype: torch.dtype, device=None):
-    """A zeroed merged cache (``[..., Hk*D]`` minor dim) on ``device`` (the
-    card unless the caller names one): a tensor, or for int8 storage the
-    ``{"q", "s"}`` dict with one scale per row."""
+def kv_cache_zeros(shape, dtype: torch.dtype, device=None, merged: bool = True):
+    """A zeroed cache on ``device`` (the card unless the caller names one):
+    a tensor, or for int8 storage the ``{"q", "s"}`` dict with one scale per
+    row. ``merged``: the minor dim is ``Hk*D`` (the serving pools); else
+    the minor dims are ``[Hk, D]`` (the single-stream ``[L, MAX, Hk, D]``
+    caches) and a row's scale covers both."""
     device = resolve_device(device)
     if dtype != torch.int8:
         return torch.zeros(shape, dtype=dtype, device=device)
+    rows = tuple(shape[:-1] if merged else shape[:-2])
     return {"q": torch.zeros(shape, dtype=torch.int8, device=device),
-            "s": torch.zeros(tuple(shape[:-1]), dtype=torch.bfloat16, device=device)}
+            "s": torch.zeros(rows, dtype=torch.bfloat16, device=device)}
 
 
 def kv_leaf(cache):

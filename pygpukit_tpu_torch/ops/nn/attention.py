@@ -22,13 +22,19 @@ kernel. CPU tensors always take the plain route: ``sdpa_causal_fn`` (or
 ``_full_attn``) for S <= ``chunk_size`` and the chunked recurrence above,
 f32 throughout, as the reference computes off the TPU.
 
-Fixed-cache decode (``sdpa_fixed_cache_fn``) is plain torch on every
-device, as it is XLA in the reference: the full softmax over the whole
-cache, or, for caches of ``FLASH_DECODING_MIN_CACHE`` rows and more (or as
-``PYGPUKIT_FLASH_DECODING[_CHUNK]`` or ``decode_pref`` choose), the
-kv-chunk online softmax over the live chunks only. Caches are ``[MAX, Hk,
-D]`` tensors (fp8 read as bf16) or int8 ``{"q", "s"}`` dicts dequantised
-against their per-row scales.
+Route of fixed-cache decode (``sdpa_fixed_cache_fn``), by the same rule:
+one query row (T = 1) on CUDA tensors over bf16 or f32 caches of q's
+dtype, with no softcap, no window and the default scale (compared in f32),
+launches the hand-written ``kernels.flash_decode`` kernel (split context,
+ordered combine; ``ctx_len`` is read on the host). Everything else takes
+the plain route on every device, as the reference computes it in XLA:
+lookahead windows (T > 1), int8 dicts, fp8 caches, a softcap, a window or
+another scale, and every CPU tensor. The plain route is the full softmax
+over the whole cache, or, for caches of ``FLASH_DECODING_MIN_CACHE`` rows
+and more (or as ``PYGPUKIT_FLASH_DECODING[_CHUNK]`` or ``decode_pref``
+choose), the kv-chunk online softmax over the live chunks only. Caches are
+``[MAX, Hk, D]`` tensors (fp8 read as bf16) or int8 ``{"q", "s"}`` dicts
+dequantised against their per-row scales.
 """
 
 from __future__ import annotations
@@ -45,6 +51,7 @@ import torch
 from ...core.array import Array
 from ...core.dtypes import FP8_MAX
 from ...kernels.flash_attention import flash_attention as _flash_kernel
+from ...kernels.flash_attention import flash_decode as _flash_decode_kernel
 from .._common import apply_op
 
 _F32 = torch.float32
@@ -230,7 +237,16 @@ def sdpa_fixed_cache_fn(q, k_cache, v_cache, ctx_len, scale: float | None = None
     """Decode attention over a fixed cache: q [T, Hq, D] (T > 1 for a
     lookahead window), caches [MAX, Hk, D]; query row i attends positions
     below ``ctx_len - (T - 1) + i``. Long caches take the kv-chunk route
-    (module docstring)."""
+    (module docstring); on the card one query row may launch the
+    flash_decode kernel (route in the module docstring)."""
+    t, _, d = q.shape
+    if (q.is_cuda and t == 1 and not isinstance(k_cache, dict)
+            and not isinstance(v_cache, dict)
+            and k_cache.dtype in (torch.bfloat16, _F32)
+            and q.dtype == k_cache.dtype == v_cache.dtype
+            and softcap is None and window is None
+            and _kernel_scale(scale if scale is not None else 1.0 / math.sqrt(d), d)):
+        return _flash_decode_kernel(q, k_cache, v_cache, ctx_len)
     if _decode_backend(_kv_shape(k_cache)[0]) == "chunked":
         return sdpa_fixed_cache_chunked_fn(q, k_cache, v_cache, ctx_len, scale,
                                            softcap=softcap, window=window)

@@ -468,3 +468,158 @@ def test_matmul_int8_on_the_card_is_exact(dev, mkn):
     y = gp.matmul_int8(gp.Array(aq), gp.Array(bq), gp.Array(sa), gp.Array(sb))
     ref = gp.matmul_int8(*(gp.Array(t.cpu()) for t in (aq, bq, sa, sb)))
     assert torch.equal(y.torch.cpu(), ref.torch)
+
+
+# -- the single-stream decode: fused_decode, and flash_decode on its route --
+
+CFG_1B = dict(vocab_size=32000, hidden_size=2048, num_layers=22, num_heads=32,
+              num_kv_heads=4, intermediate_size=5632, max_position_embeddings=4096,
+              tie_word_embeddings=False)
+
+
+# the fused step against its plain version at 22 layers, relative L2: every
+# bf16 rounding of the residual stream that summation order flips moves the
+# next layer's input, so two orders drift apart with depth; chip_smoke.py
+# phase 3 prints the plain version's own drift (on the card against on the
+# CPU) beside the kernel's. A wrong layout, offset or mask gives order 1.
+FUSED_DEEP_TOL = 5e-2
+
+
+@pytest.fixture(scope="module")
+def fused_1b():
+    """The 1.1B shape's bf16 leaves (seed 0) with the consolidated q|k|v and
+    gate|up leaves, as the fused step takes them."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernels have no CPU mode)")
+    from pygpukit_tpu_torch.llm import (TransformerConfig, init_params,
+                                        prepare_fused_decode_params)
+    from pygpukit_tpu_torch.ops.nn import rope_tables
+    cfg = TransformerConfig(**CFG_1B)
+    dev = torch.device("cuda", 0)
+    params = init_params(cfg, 0, torch.bfloat16, dev)
+    params["rope_cos"], params["rope_sin"] = rope_tables(
+        cfg.max_position_embeddings, cfg.head_dim, cfg.rope_theta, device=dev)
+    return cfg, prepare_fused_decode_params(cfg, params)
+
+
+def _rel_l2(a, b) -> float:
+    a, b = a.float(), b.float()
+    return ((a - b).norm() / b.norm()).item()
+
+
+@pytest.mark.parametrize("n_layers,pos,max_len", [(2, 1, 512), (2, 143, 512), (2, 511, 512),
+                                                  (22, 1, 512), (22, 143, 512),
+                                                  (22, 511, 512), (22, 3000, 4096)])
+def test_fused_decode_matches_plain(dev, fused_1b, n_layers, pos, max_len):
+    """Against the plain fused step (the same roundings, sums in another
+    order, the softmax as an online recurrence over context chunks):
+    relative L2 of h_out, k_new and v_new within 1e-2 at 2 layers and
+    within FUSED_DEEP_TOL at 22; a second launch gives the same bits. MAX
+    4096 is past the reference kernel's VMEM gate."""
+    from pygpukit_tpu_torch.kernels import fused_decode, fused_decode_plain
+    cfg, params = fused_1b
+    lp = {k: v[:n_layers] for k, v in params["layers"].items()}
+    g = _gen(dev, pos)
+    kvd = cfg.num_kv_heads * cfg.head_dim
+    kc = (torch.randn((n_layers, max_len, kvd), generator=g, device=dev) * 0.5).to(torch.bfloat16)
+    vc = torch.randn((n_layers, max_len, kvd), generator=g, device=dev).to(torch.bfloat16)
+    h0 = params["embed"][7:8].to(torch.bfloat16)
+    cos = params["rope_cos"][pos:pos + 1].float()
+    sin = params["rope_sin"][pos:pos + 1].float()
+    pos_t = torch.tensor([pos], dtype=torch.int32, device=dev)
+    args = (h0, cos, sin, pos_t, lp["w_qkv_cat"], lp["w_o"], lp["w_gu_cat"], lp["w_down"],
+            lp["attn_norm_w"].float(), lp["mlp_norm_w"].float(),
+            params["final_norm_w"].float().reshape(1, -1), kc, vc)
+    heads = dict(n_heads=cfg.num_heads, n_kv_heads=cfg.num_kv_heads, head_dim=cfg.head_dim,
+                 eps=cfg.norm_eps)
+    before = LAUNCHES["fused_decode"]
+    got = fused_decode(*args, **heads)
+    assert LAUNCHES["fused_decode"] == before + 1
+    ref = fused_decode_plain(*args, **heads)
+    for name, a, b in zip(("h_out", "k_new", "v_new"), got, ref):
+        assert a.shape == b.shape and a.dtype == b.dtype, name
+        tol = 1e-2 if n_layers <= 2 else FUSED_DEEP_TOL
+        assert torch.isfinite(a.float()).all() and _rel_l2(a, b) <= tol, (name, _rel_l2(a, b))
+    again = fused_decode(*args, **heads)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+
+
+def test_fused_decode_raises_on_bad_operands(dev, fused_1b):
+    from pygpukit_tpu_torch.kernels import fused_decode
+    cfg, params = fused_1b
+    lp = {k: v[:1] for k, v in params["layers"].items()}
+    kc = torch.zeros((1, 64, 256), dtype=torch.bfloat16, device=dev)
+    args = [params["embed"][:1], params["rope_cos"][:1].float(), params["rope_sin"][:1].float(),
+            torch.zeros(1, dtype=torch.int32, device=dev), lp["w_qkv_cat"], lp["w_o"],
+            lp["w_gu_cat"], lp["w_down"], lp["attn_norm_w"].float(), lp["mlp_norm_w"].float(),
+            params["final_norm_w"].float().reshape(1, -1), kc, kc]
+    heads = dict(n_heads=32, n_kv_heads=4, head_dim=64)
+    bad = list(args)
+    bad[3] = torch.zeros(1, dtype=torch.int32)                       # a host pos
+    with pytest.raises(ValueError, match="pos"):
+        fused_decode(*bad, **heads)
+    bad = list(args)
+    bad[11] = kc.float()
+    with pytest.raises(ValueError, match="k_cache"):
+        fused_decode(*bad, **heads)
+
+
+def test_sdpa_fixed_cache_route_launches_flash_decode(dev):
+    """One bf16 query row launches flash_decode; a lookahead window, an int8
+    cache and a softcap take the plain route."""
+    from pygpukit_tpu_torch.ops.embedding import kv_quant_rows
+    from pygpukit_tpu_torch.ops.nn import sdpa_fixed_cache_fn
+    g = _gen(dev, 21)
+    kc = torch.randn((512, 4, 64), generator=g, device=dev).to(torch.bfloat16)
+    vc = torch.randn((512, 4, 64), generator=g, device=dev).to(torch.bfloat16)
+    q = torch.randn((2, 32, 64), generator=g, device=dev).to(torch.bfloat16)
+    before = LAUNCHES["flash_decode"]
+    out = sdpa_fixed_cache_fn(q[:1], kc, vc, 144)
+    assert LAUNCHES["flash_decode"] == before + 1
+    assert _attn_close(out, flash_decode_plain(q[:1], kc, vc, 144))
+    kq, ks = kv_quant_rows(kc, 2)
+    vq, vs = kv_quant_rows(vc, 2)
+    sdpa_fixed_cache_fn(q, kc, vc, 144)
+    sdpa_fixed_cache_fn(q[:1], {"q": kq, "s": ks}, {"q": vq, "s": vs}, 144)
+    sdpa_fixed_cache_fn(q[:1], kc, vc, 144, softcap=30.0)
+    assert LAUNCHES["flash_decode"] == before + 1
+
+
+def test_int4_layer_route_by_rows(dev):
+    """An int4 layer leaf under w4a8: the GEMV at 8 rows, the dequant matmul
+    (no kernel) at 32, the GEMM at 256."""
+    from pygpukit_tpu_torch.llm import model as port_model
+    from pygpukit_tpu_torch.llm import quantize_weight
+    leaf = quantize_weight(torch.randn((2048, 2560), device=dev) * 0.02, "int4")
+    for rows, name in ((8, "w4a8_gemv"), (32, None), (256, "w4a8_gemm")):
+        before = dict(LAUNCHES)
+        y = port_model._mm(torch.randn((rows, 2048), device=dev).to(torch.bfloat16), leaf)
+        assert y.shape == (rows, 2560) and y.dtype == torch.bfloat16
+        moved = {k for k in LAUNCHES if LAUNCHES[k] != before[k]}
+        assert moved == ({name} if name else set()), (rows, moved)
+
+
+def test_single_stream_decode_launches(dev, monkeypatch):
+    """decode_step on a small bf16 model: one flash_decode per layer and no
+    serving kernel; under PYGPUKIT_DECODE=fused one fused_decode launch and
+    no flash_decode, the two steps' logits close."""
+    from pygpukit_tpu_torch.llm import CausalTransformerModel, TransformerConfig, init_params
+    cfg = TransformerConfig(vocab_size=256, hidden_size=256, num_layers=3, num_heads=4,
+                            num_kv_heads=2, intermediate_size=512,
+                            max_position_embeddings=512, tie_word_embeddings=False)
+    m = CausalTransformerModel(cfg, init_params(cfg, 0, torch.bfloat16, dev))
+    m.init_fixed_cache(256)
+    m.prefill(list(range(1, 40)))
+    snap = m.snapshot_kv_cache()
+    before = dict(LAUNCHES)
+    unfused = m.decode_step(5)
+    moved = {k: LAUNCHES[k] - before[k] for k in LAUNCHES if LAUNCHES[k] != before[k]}
+    assert moved == {"flash_decode": 3}
+    monkeypatch.setenv("PYGPUKIT_DECODE", "fused")
+    m.init_fixed_cache(256)
+    m.restore_kv_cache(snap)
+    before = dict(LAUNCHES)
+    fused = m.decode_step(5)
+    moved = {k: LAUNCHES[k] - before[k] for k in LAUNCHES if LAUNCHES[k] != before[k]}
+    assert moved == {"fused_decode": 1}
+    assert _rel_l2(fused, unfused) <= 5e-2

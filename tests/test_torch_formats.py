@@ -380,7 +380,10 @@ LEAVES = {
 ])
 def test_route_reaches_the_wrapper(monkeypatch, leaf, switch, gemv, big):
     """Rows <= 8 reach the GEMV wrapper, more rows and the f32 head the
-    plain route; every switch is read per call."""
+    plain route; every switch is read per call. An int4 layer leaf under
+    the default w4a8 switch takes the reference's TPU route: the dequant
+    matmul (no activation quant) for 9 <= rows < 256, the w4a8 GEMM wrapper
+    from 256 rows; its head takes w4a8 at every row count."""
     for k, v in switch.items():
         monkeypatch.setenv(k, v)
     calls = []
@@ -391,8 +394,10 @@ def test_route_reaches_the_wrapper(monkeypatch, leaf, switch, gemv, big):
         monkeypatch.setattr(port_model, name,
                             lambda *a, _n=name, _f=fn, **kw: calls.append(_n) or _f(*a, **kw))
     w = LEAVES[leaf](torch.randn(64, 32) * 0.02)
-    x = torch.randn(9, 64).to(torch.bfloat16)
-    for rows, out_dtype, want in ((1, None, gemv), (8, None, gemv), (9, None, big)):
+    x = torch.randn(256, 64).to(torch.bfloat16)
+    mid = "w4a16_matmul_plain" if leaf == "int4" and not switch else big
+    for rows, out_dtype, want in ((1, None, gemv), (8, None, gemv), (9, None, mid),
+                                  (255, None, mid), (256, None, big)):
         calls.clear()
         y = port_model._mm(x[:rows], w, out_dtype)
         assert calls == [want] and y.shape == (rows, 32) and y.dtype == torch.bfloat16
@@ -400,6 +405,9 @@ def test_route_reaches_the_wrapper(monkeypatch, leaf, switch, gemv, big):
     head = port_model._mm(x[:1], w, torch.float32)
     assert head.dtype == torch.float32
     assert calls == [big if gemv != "w4a8_matmul" else gemv]
+    calls.clear()
+    port_model._mm(x[:9], w, torch.float32)
+    assert calls == [big]
 
 
 def test_unknown_switch_value_raises(monkeypatch):
