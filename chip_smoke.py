@@ -96,7 +96,22 @@ Phases:
     step's fused logits against the unfused step's at the same cache
     (relative L2 within FWD_TOL; token agreement reported); a snapshot
     after 100 tokens, 50 more, a restore and the same 50 again, identical;
-    eager wall and graph device ms of both steps.
+    eager wall and graph device ms of both steps;
+14. the MoE path on Mixtral-8x7B widths (hidden 4096, intermediate 14336,
+    8 experts, top-2, 32/8 heads, head_dim 128, vocab 32000, rope theta
+    1e6) at 16 of its 32 layers (about 47 GB of random bf16 weights, seed
+    0, fuse_params): get_logits on 2048 tokens (shape, finite, 48 gmm and
+    16 flash_attention launches, a bitwise second call, device ms, tok/s,
+    a kernel profile); generate of 64 greedy tokens after a 512-token
+    prompt, twice (identical tokens, finite logits, 48 gmm launches in the
+    prefill and none in decode, 16 flash_decode a step), one decode step's
+    eager and graph ms beside the gather route's device ms; the batch-8
+    engine on 8 requests of 200 + 32 tokens (every request finishes, gmm
+    in the prefills, 16 kv_rows_write and 16 batch_decode_attention a
+    decode step on the dense MoE route, a fresh engine replays streams and
+    pools bitwise); a 2-layer full-width model drawn on the CPU, on the
+    card (gmm) against the CPU plain path (dense route), held row by row
+    (MOE_ROWS_Q).
 
 Phase 3 also checks gemm (bf16 at M 2048 on the four projection products
 as [K, N] weights, bf16 at 8192^3, f32 at 2048^3) and gemv_quant (the four
@@ -104,16 +119,20 @@ projection shapes N-major, fp8 e4m3, int8 and bf16) against their plain
 versions, and flash_attention (causal bf16 at S 1000, 2048 and 8192,
 once full, once at D 128, f32 at S 1000) and flash_decode (MAX 8192, ctx 1,
 700 and 8192, and ctx 144 in MAX 512, the decode phase's shape, bf16 and f32)
-against their plain versions. For every kernel
+against their plain versions, and gmm (GMM_CASES: Mixtral's expert
+products at M 1024 and 4096 from a seeded top-2 routing, an empty group, a
+one-row group, all rows in one group, M off the 128-row tile, and
+Qwen3-30B-A3B's 128 small experts) against gmm_plain within GMM_REL of max
+|out|, a second launch bitwise. For every kernel
 it prints the least time the card could take for the same work (bound_ms:
 the larger of the bytes each input and output moves once over 3.35 TB/s and
 the operations over the peak of their type, 989 TFLOP/s bf16, 1979 TOP/s
 int8, 67 TFLOP/s f32) with the kernel's share of it, and, where one
 PyTorch call computes the same function, that call's time (library_ms; the
 port never calls it: torch.matmul for gemm, torch.mv for gemv_quant on a
-bf16 weight with no scale).
+bf16 weight with no scale, torch._grouped_mm for gmm, bf16 out).
 Launches per decode step, prefill, forward or layer are counted in phases
-6, 7, 9, 11, 12 and 13 and printed on one line before the summary.
+6, 7, 9, 11, 12, 13 and 14 and printed on one line before the summary.
 
 Any failure exits non-zero. The last two lines are the kernel summary and
 the device line read by automation; it exits 2 with no result when no CUDA
@@ -165,7 +184,8 @@ SOURCES = {"w4a8_gemv": ("pygpukit_tpu_torch/csrc/w4a8_gemv.cu",
            "gemv_quant": ("pygpukit_tpu_torch/csrc/gemv_quant.cu",
                           "pygpukit_tpu/kernels/gemv_quant.py:54"),
            "fused_decode": ("pygpukit_tpu_torch/csrc/fused_decode.cu",
-                            "pygpukit_tpu/kernels/fused_decode.py:393")}
+                            "pygpukit_tpu/kernels/fused_decode.py:393"),
+           "gmm": ("pygpukit_tpu_torch/csrc/gmm.cu", "pygpukit_tpu/ops/moe.py:60")}
 DENSE_KERNELS = ("w4a8_gemv", "w4a8_gemm", "kv_rows_write", "batch_decode_attention")
 # no w4a8_gemm: the paged path's 16-token prompts pad to 32 rows, which the
 # int4 route sends to the dequant matmul (the GEMM takes 256 rows and more)
@@ -185,7 +205,7 @@ LADDER_PROMPT, LADDER_NEW, LADDER_MAX = list(range(1, 17)), 256, 512
 # order; the block w4a8 GEMV is held bitwise instead)
 ULP_REL, NEAR_ZERO = 2.0 ** -7, 1e-4
 PHASES = ("kernels", "dense", "paged", "tight", "ladder", "block", "parity",
-          "forward", "ops", "decode")
+          "forward", "ops", "decode", "moe")
 # the card's published peaks (H100 SXM data sheet, dense): bytes/s of HBM
 # and operations/s by operand type; a bound is the larger of the two times
 HBM_BYTES_S = 3.35e12
@@ -232,6 +252,41 @@ FWD_TOL = 5e-2
 # move int8 values and spread through the layers. Measured 2.9e-2 on an H100
 # for this 2-layer model; a wrong layout, rope or mask gives order 1.
 REF_TOL = 1e-1
+# Mixtral-8x7B-v0.1 (huggingface.co/mistralai/Mixtral-8x7B-v0.1, config.json)
+# at its published widths, 16 of its 32 layers: all 32 are 93 GB of bf16
+# weights, more than the card's 80 GB; 16 are about 47 GB
+CFG_MIXTRAL = dict(vocab_size=32000, hidden_size=4096, num_layers=16, num_heads=32,
+                   num_kv_heads=8, intermediate_size=14336, num_experts=8,
+                   num_experts_per_tok=2, max_position_embeddings=32768, rope_theta=1e6,
+                   norm_eps=1e-5, tie_word_embeddings=False)
+MOE_FWD_S, MOE_PROMPT, MOE_NEW, MOE_MAX = 2048, 512, 64, 1024
+MOE_REQUESTS, MOE_REQ_PROMPT, MOE_REQ_NEW, MOE_ENGINE_MAX = 8, 200, 32, 512
+MOE_PARITY_S = 256
+# the 2-layer Mixtral, card (gmm) against the CPU (dense route), is held
+# row by row: the routes round gate, up and down at different points, so a
+# token whose router logits nearly tie can pick another expert on each
+# side and its row moves by order 1. A wrong layout or offset moves every
+# row, a fault in one expert of 8 about a quarter of the rows or more; so
+# this quantile of the rows' relative L2 stays within FWD_TOL
+MOE_ROWS_Q = 0.95
+# gmm against gmm_plain: both sum exact bf16 products in f32, in another order
+GMM_REL = 1e-4
+# gmm checks: (name, tokens, top-k, K, N, groups, sizes or None for a seeded
+# top-k routing of the tokens, timed). Mixtral's gate/up (K 4096, N 14336)
+# and down (K 14336, N 4096) at a 512-token prefill (M 1024) and the
+# 2048-token forward (M 4096); an empty group, a one-row group, all rows in
+# one group and M off the 128-row tile at the gate/up shape; Qwen3-30B-A3B's
+# experts (K 2048, N 768, 128 groups, top-8 of 512 tokens): many small groups
+GMM_CASES = [("gate_up_M1024", 512, 2, 4096, 14336, 8, None, True),
+             ("down_M1024", 512, 2, 14336, 4096, 8, None, True),
+             ("gate_up_M4096", 2048, 2, 4096, 14336, 8, None, True),
+             ("down_M4096", 2048, 2, 14336, 4096, 8, None, True),
+             ("empty_groups", 0, 0, 4096, 14336, 8, (300, 0, 200, 0, 250, 250, 0, 24), False),
+             ("one_row_group", 0, 0, 4096, 14336, 8, (1, 200, 1, 300, 100, 200, 22, 200),
+              False),
+             ("one_group", 0, 0, 4096, 14336, 8, (0, 0, 0, 1024, 0, 0, 0, 0), False),
+             ("M_off_tile", 100, 2, 4096, 14336, 8, None, False),
+             ("qwen3_30b_a3b", 512, 8, 2048, 768, 128, None, True)]
 
 
 class SmokeFailure(RuntimeError):
@@ -866,6 +921,70 @@ def check_gemm_kernels(dev, g, detail: dict) -> dict:
     res["gemv_quant"] = kernel_row(gv["err"], gv["ms"], gv["plain_ms"], gv["bytes"], gv["ops"],
                                    "bf16", gv["lib_ms"])
     return res
+
+
+def gmm_sizes(dev, g, tokens: int, k: int, n_groups: int):
+    """Group sizes of a seeded top-k routing of ``tokens`` tokens over
+    ``n_groups`` experts (the port's topk_route_fn), int32 on the card."""
+    import torch
+    from pygpukit_tpu_torch.ops.moe import topk_route_fn
+    _, ids = topk_route_fn(torch.randn((tokens, n_groups), generator=g, device=dev), k)
+    return torch.bincount(ids.reshape(-1), minlength=n_groups).to(torch.int32)
+
+
+def check_gmm_kernels(dev, g, detail: dict) -> dict:
+    """Phase 3, gmm over GMM_CASES against gmm_plain (within GMM_REL of max
+    |out|) and a bitwise second launch; the timed cases beside the plain
+    version, the library call (``torch._grouped_mm``, which writes bf16
+    where the kernel writes f32; the port never calls it) and the bound
+    (each input read once: lhs, the weights of the groups that have rows,
+    the sizes; the f32 output written once). Returns {"gmm": row}: one
+    Mixtral layer's three products at M 4096 (gate, up, down of the
+    2048-token forward)."""
+    import torch
+    from pygpukit_tpu_torch.kernels import gmm, gmm_plain
+    keys = ("ms", "plain_ms", "lib_ms", "bytes", "ops")
+    layer = dict.fromkeys(keys, 0.0)
+    err_all = 0.0
+    for name, tokens, k, kk, n, n_groups, sizes, timed in GMM_CASES:
+        gs = (gmm_sizes(dev, g, tokens, k, n_groups) if sizes is None
+              else torch.tensor(sizes, dtype=torch.int32, device=dev))
+        host_sizes = gs.tolist()
+        m = sum(host_sizes)
+        lhs = torch.randn((m, kk), generator=g, device=dev).to(torch.bfloat16)
+        rhs = torch.empty((n_groups, kk, n), dtype=torch.bfloat16, device=dev)
+        for i in range(n_groups):
+            rhs[i] = torch.randn((kk, n), generator=g, device=dev) * 0.02
+        out, ref = gmm(lhs, rhs, gs), gmm_plain(lhs, rhs, host_sizes)
+        torch.cuda.synchronize()
+        err = (out - ref).abs().max().item()
+        what = f"gmm {name} (M {m}, K {kk}, N {n}, G {n_groups})"
+        check(err <= GMM_REL * ref.abs().max().item(), f"{what}: max abs err {err}")
+        check(torch.equal(out, gmm(lhs, rhs, gs)), f"{what}: a second launch differs")
+        err_all = max(err_all, err)
+        del out, ref
+        if timed:
+            offs = torch.cumsum(gs, 0, dtype=torch.int32)
+            kms = time_ms(lambda i: gmm(lhs, rhs, gs), 1, reps=5)
+            pms = time_ms(lambda i: gmm_plain(lhs, rhs, host_sizes), 1, reps=2)
+            lms = time_ms(lambda i: torch._grouped_mm(lhs, rhs, offs=offs), 1, reps=5)
+            live = sum(1 for x in host_sizes if x)
+            nbytes = 2 * m * kk + 2 * live * kk * n + 4 * m * n + 4 * n_groups
+            ops = 2 * m * kk * n
+            row = kernel_row(err, kms, pms, nbytes, ops, "bf16", lms)
+            detail[f"gmm_{name}"] = dict(row, share=row["bound_ms"] / kms, M=m,
+                                         tflops=ops / kms / 1e9)
+            print(f"phase 3: {what}: kernel {kms:.4f} ms = {ops / kms / 1e9:.1f} TFLOP/s, "
+                  f"bound {row['bound_ms']:.4f} ms by {row['bound_by']} = share "
+                  f"{row['bound_ms'] / kms:.3f}, plain {pms:.4f} ms, library "
+                  f"(torch._grouped_mm, bf16 out) {lms:.4f} ms; max abs err {err:.3e}")
+            if name.endswith("M4096"):               # gate and up, or down
+                for key, v in zip(keys, (kms, pms, lms, nbytes, ops)):
+                    layer[key] += v * (2 if name.startswith("gate_up") else 1)
+        del lhs, rhs
+    torch.cuda.empty_cache()
+    return {"gmm": kernel_row(err_all, layer["ms"], layer["plain_ms"], layer["bytes"],
+                              layer["ops"], "bf16", layer["lib_ms"])}
 
 
 def build_model(cfg, seed: int, dev, mode: str | None = "int4", base=None):
@@ -1639,6 +1758,226 @@ def decode_phase(cfg, dev, card: str, per_step: dict) -> dict:
     return {"flash_decode": unfused["launches"], "fused_decode": fused["launches"]}
 
 
+def moe_forward_flops(cfg, s_len: int) -> float:
+    """forward_flops with the routed MLP: per token the router and the
+    top-k experts' three products in place of the dense MLP."""
+    e, v, mi = cfg.hidden_size, cfg.vocab_size, cfg.moe_intermediate_size
+    hq, hk, d = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    per_layer = (e * (hq + 2 * hk) * d + hq * d * e + e * cfg.num_experts
+                 + cfg.num_experts_per_tok * 3 * e * mi)
+    weights = cfg.num_layers * per_layer + e * v
+    return 2 * weights * s_len + cfg.num_layers * 4 * hq * d * s_len * (s_len + 1) / 2
+
+
+def moe_forward(model, cfg, dev, card: str, per_step: dict) -> dict:
+    """Phase 14, step 1: get_logits on MOE_FWD_S tokens (shape, finite, 3
+    gmm and 1 flash_attention launches a layer and nothing else, a bitwise
+    second call), device ms by CUDA events and graph replay, a kernel
+    profile. Returns the launches of the first call."""
+    import numpy as np
+    import torch
+    from pygpukit_tpu_torch import LAUNCHES, reset_launches
+    from pygpukit_tpu_torch.llm import forward_fn
+    n_layers = cfg.num_layers
+    ids = np.random.default_rng(14).integers(1, cfg.vocab_size, MOE_FWD_S).tolist()
+    torch.cuda.synchronize()
+    reset_launches()
+    logits = model.get_logits(ids)
+    launches = dict(LAUNCHES)
+    reset_launches()
+    check(logits.shape == (MOE_FWD_S, cfg.vocab_size) and bool(np.isfinite(logits).all()),
+          f"moe forward: logits {logits.shape} or a value not finite")
+    moved = {k: n for k, n in launches.items() if n}
+    want = {"gmm": 3 * n_layers, "flash_attention": n_layers}
+    check(moved == want, f"moe forward: launches {moved}, expected {want}")
+    again = model.get_logits(ids)
+    check(np.array_equal(logits.view(np.uint32), again.view(np.uint32)),
+          "moe forward: a second call's logits differ")
+    del logits, again
+    per_step["gmm"] = (3 * n_layers, f"one {MOE_FWD_S}-token forward of the "
+                       f"{n_layers}-layer Mixtral (3 a MoE layer)")
+    tokens = torch.tensor(ids, device=dev)
+
+    def fwd(_):
+        forward_fn(cfg, model.params, tokens)
+    fwd(0)
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(3):
+        fwd(0)
+    end.record()
+    end.synchronize()
+    ms = start.elapsed_time(end) / 3
+    graph = time_ms(fwd, 1, reps=3)
+    prof = kernel_profile(fwd, n=2)
+    flops = moe_forward_flops(cfg, MOE_FWD_S)
+    print(f"phase 14: forward of {MOE_FWD_S} tokens: {ms:.3f} ms (CUDA events, eager) = "
+          f"{MOE_FWD_S / ms * 1e3:.0f} tok/s, {flops / 1e12:.3f} TFLOP = "
+          f"{flops / (ms * 1e-3) / PEAK_OPS_S['bf16']:.4f} of 989 TFLOP/s; graph replay "
+          f"{graph:.3f} ms device; launches {json.dumps(moved)}, second call bitwise "
+          f"equal; [{card}]")
+    print("phase 14: " + profile_line(prof, 8))
+    return launches
+
+
+def moe_generate(model, cfg, dev) -> None:
+    """Phase 14, step 2: generate MOE_NEW greedy tokens after a
+    MOE_PROMPT-token prompt twice (identical tokens, finite logits, 3 gmm
+    launches a layer in the prefill and none in decode, one flash_decode a
+    layer a step); one decode step's eager and graph ms beside the gather
+    route's device ms (one _moe_mlp call at T 1 a layer)."""
+    import numpy as np
+    import torch
+    from pygpukit_tpu_torch import LAUNCHES, reset_launches
+    from pygpukit_tpu_torch.llm.model import _moe_mlp, _slice_layer_params
+    n_layers = cfg.num_layers
+    prompt = np.random.default_rng(15).integers(1, cfg.vocab_size, MOE_PROMPT).tolist()
+    runs = []
+    for _ in range(2):
+        model.init_fixed_cache(MOE_MAX)
+        torch.cuda.synchronize()
+        reset_launches()
+        t0 = time.perf_counter()
+        toks = model.generate(prompt, max_new_tokens=MOE_NEW, chunk_size=MOE_NEW)
+        torch.cuda.synchronize()
+        runs.append((toks, time.perf_counter() - t0, dict(LAUNCHES), model.logits_finite()))
+    reset_launches()
+    (toks1, _, _, fin1), (toks2, secs, launches, fin2) = runs
+    check(len(toks2) == MOE_NEW and toks1 == toks2,
+          "moe generate: the second run's tokens differ from the first's")
+    check(fin1 and fin2, "moe generate: a logit went non-finite")
+    moved = {k: n for k, n in launches.items() if n}
+    want = {"gmm": 3 * n_layers, "flash_decode": n_layers * (MOE_NEW - 1)}
+    check(moved == want, f"moe generate: launches {moved}, expected {want}")
+    pos = MOE_PROMPT + MOE_NEW // 2
+    eager, graph, prof, counts = decode_step_times(model, 1, MOE_MAX, pos)
+    check(counts == {"flash_decode": n_layers}, f"moe decode step: launches {counts}")
+    lps = [_slice_layer_params(model.params["layers"], i) for i in range(n_layers)]
+    g = torch.Generator(device=dev)
+    g.manual_seed(16)
+    y1 = torch.randn((1, cfg.hidden_size), generator=g, device=dev).to(torch.bfloat16)
+    gather_ms = time_ms(lambda i: _moe_mlp(cfg, lps[i], y1), n_layers, reps=5) * n_layers
+    print(f"phase 14: generate {MOE_NEW} greedy tokens after a {MOE_PROMPT}-token prompt "
+          f"(prefill {2 * MOE_PROMPT} routed rows): {MOE_NEW / secs:.1f} tok/s eager, "
+          f"replayed identical, launches {json.dumps(moved)} (gmm only in the prefill); "
+          f"one decode step at pos {pos}: eager {eager:.3f} ms wall, CUDA-graph replay "
+          f"{graph:.3f} ms device, launches {json.dumps(counts)}; the gather route "
+          f"({n_layers} _moe_mlp calls at T 1) {gather_ms:.3f} ms device = "
+          f"{gather_ms / graph:.3f} of the step")
+    print("phase 14: decode step " + profile_line(prof, 6))
+
+
+def moe_engine(model, cfg) -> None:
+    """Phase 14, step 3: the batch-8 engine on MOE_REQUESTS requests of
+    MOE_REQ_PROMPT-token prompts and MOE_REQ_NEW new tokens: every request
+    finishes, gmm in the prefills, one kv_rows_write and one
+    batch_decode_attention a layer a decode step on the dense MoE route
+    (no gmm), a fresh engine replays the streams and pools bitwise."""
+    import numpy as np
+    import torch
+    from pygpukit_tpu_torch import LAUNCHES, reset_launches
+    n_layers = cfg.num_layers
+    rng = np.random.default_rng(17)
+    requests = [(rng.integers(1, cfg.vocab_size, MOE_REQ_PROMPT).tolist(), MOE_REQ_NEW)
+                for _ in range(MOE_REQUESTS)]
+    reset_launches()
+    eng1, reqs1, secs1 = serve(model, requests, 16, max_seq_len=MOE_ENGINE_MAX)
+    launches = {k: n for k, n in LAUNCHES.items() if n}
+    reset_launches()
+    n_tok = check_served(eng1, reqs1, requests, "moe engine")
+    for name in ("gmm", "kv_rows_write", "batch_decode_attention"):
+        check(launches.get(name, 0) > 0, f"moe engine: {name} was never launched")
+    eager, graph, prof, counts = decode_step_times(model, 8, MOE_ENGINE_MAX,
+                                                   MOE_REQ_PROMPT + MOE_REQ_NEW // 2)
+    want = {"kv_rows_write": n_layers, "batch_decode_attention": n_layers}
+    check(counts == want, f"moe engine decode step: launches {counts}, expected {want}")
+    eng2, reqs2, secs2 = serve(model, requests, 16, max_seq_len=MOE_ENGINE_MAX)
+    check([r.generated for r in reqs1] == [r.generated for r in reqs2],
+          "moe engine, second run: token streams differ")
+    check(torch.equal(bits(eng1.k_cache), bits(eng2.k_cache))
+          and torch.equal(bits(eng1.v_cache), bits(eng2.v_cache)),
+          "moe engine, second run: KV pools differ")
+    ttft = ttft_ms(reqs1)
+    print(f"phase 14: batch-8 engine, {MOE_REQUESTS} requests of {MOE_REQ_PROMPT} + "
+          f"{MOE_REQ_NEW} tokens: {n_tok} tokens in {secs1:.3f} s = {n_tok / secs1:.1f} tok/s "
+          f"(second run {n_tok / secs2:.1f}), TTFT p50/p95 {ttft[0]:.1f}/{ttft[1]:.1f} ms, "
+          f"launches {json.dumps(launches)}; replay identical (streams and pools); one "
+          f"batch-8 decode step (dense MoE route): eager {eager:.3f} ms wall, CUDA-graph "
+          f"replay {graph:.3f} ms device, launches {json.dumps(counts)}")
+    print("phase 14: batch-8 step " + profile_line(prof, 6))
+
+
+def moe_cpu_parity(cfg, dev) -> None:
+    """Phase 14, step 4: a 2-layer full-width Mixtral drawn on the CPU and
+    copied to the card; get_logits on MOE_PARITY_S tokens, the card (gmm, 6
+    launches) against the CPU plain path (the dense route): the MOE_ROWS_Q
+    quantile of the rows' relative L2 within FWD_TOL (see MOE_ROWS_Q)."""
+    import numpy as np
+    import torch
+    from pygpukit_tpu_torch import LAUNCHES, reset_launches
+    from pygpukit_tpu_torch.llm import (CausalTransformerModel, TransformerConfig, fuse_params,
+                                        init_params)
+    small = TransformerConfig(**{**cfg.__dict__, "num_layers": 2})
+    params = fuse_params(init_params(small, 1, torch.bfloat16, "cpu"))
+
+    def to_card(tree):
+        if isinstance(tree, dict):
+            return {k: to_card(v) for k, v in tree.items()}
+        return None if tree is None else tree.to(dev)
+    cpu_model = CausalTransformerModel(small, params, dtype=torch.bfloat16)
+    card_model = CausalTransformerModel(small, to_card(params), dtype=torch.bfloat16)
+    ids = np.random.default_rng(18).integers(1, cfg.vocab_size, MOE_PARITY_S).tolist()
+    torch.cuda.synchronize()
+    reset_launches()
+    lc = card_model.get_logits(ids)
+    n_gmm = LAUNCHES["gmm"]
+    reset_launches()
+    check(n_gmm == 6, f"moe 2-layer forward: gmm launched {n_gmm} times, expected 6")
+    t0 = time.perf_counter()
+    lr = cpu_model.get_logits(ids)
+    cpu_s = time.perf_counter() - t0
+    rel = float(np.linalg.norm(lc - lr) / np.linalg.norm(lr))
+    rows = np.linalg.norm(lc - lr, axis=1) / np.linalg.norm(lr, axis=1)
+    top = float((lc.argmax(-1) == lr.argmax(-1)).mean())
+    check(np.quantile(rows, MOE_ROWS_Q) <= FWD_TOL,
+          f"moe 2-layer forward, card vs CPU: {MOE_ROWS_Q} quantile of the rows' relative "
+          f"L2 {np.quantile(rows, MOE_ROWS_Q):.3e} (all rows {rel:.3e})")
+    print(f"phase 14: 2-layer Mixtral forward of {MOE_PARITY_S} tokens, card (gmm) vs CPU "
+          f"plain path (dense route, {cpu_s:.1f} s): relative L2 of the rows: median "
+          f"{np.median(rows):.3e}, {MOE_ROWS_Q} quantile {np.quantile(rows, MOE_ROWS_Q):.3e} "
+          f"(limit {FWD_TOL}), max {rows.max():.3e}, {int((rows > FWD_TOL).sum())} rows above "
+          f"the limit; all rows {rel:.3e}; argmax equal in {top:.4f} of rows")
+
+
+def moe_phase(dev, card: str, per_step: dict) -> dict:
+    """Phase 14, the MoE path on CFG_MIXTRAL (random bf16 weights, seed 0,
+    fuse_params): the forward, generate, the batch-8 engine, then a 2-layer
+    model against the CPU plain path. Returns the launches of the main-path
+    run (the forward's first get_logits)."""
+    import torch
+    from pygpukit_tpu_torch.llm import (CausalTransformerModel, TransformerConfig, fuse_params,
+                                        init_params)
+    t0 = time.perf_counter()
+    cfg = TransformerConfig(**CFG_MIXTRAL)
+    model = CausalTransformerModel(cfg, fuse_params(init_params(cfg, 0, torch.bfloat16, dev)),
+                                   dtype=torch.bfloat16)
+    torch.cuda.synchronize()
+    weights = sum(t.numel() * t.element_size() for t in model.buffers())
+    print(f"phase 14: Mixtral-8x7B widths at {cfg.num_layers} layers: {weights / 1e9:.2f} GB "
+          f"of bf16 weights built in {time.perf_counter() - t0:.1f} s, "
+          f"{torch.cuda.memory_allocated() / 1e9:.2f} GB allocated")
+    launches = moe_forward(model, cfg, dev, card, per_step)
+    moe_generate(model, cfg, dev)
+    moe_engine(model, cfg)
+    del model
+    torch.cuda.empty_cache()
+    moe_cpu_parity(cfg, dev)
+    torch.cuda.empty_cache()
+    print(f"phase 14 took {time.perf_counter() - t0:.1f} s")
+    return launches
+
+
 def main(argv: list[str]) -> int:
     import argparse
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
@@ -1692,6 +2031,7 @@ def main(argv: list[str]) -> int:
         results.update(check_flash_kernels(dev, g, detail))
         results.update(check_gemm_kernels(dev, g, detail))
         results.update(check_fused_decode(TransformerConfig(**CFG_1B), dev, g, detail))
+        results.update(check_gmm_kernels(dev, g, detail))
         print("phase 3: kernels match their plain versions")
         print("kernel_times " + json.dumps(detail))
         print("phase 3: bounds " + json.dumps({
@@ -1741,6 +2081,8 @@ def main(argv: list[str]) -> int:
         launches.update(ops_phase(cfg, dev, card, per_step))
     if "decode" in phases:
         launches.update(decode_phase(cfg, dev, card, per_step))
+    if "moe" in phases:
+        launches["gmm"] = moe_phase(dev, card, per_step)["gmm"]
     print(f"total {time.perf_counter() - t_start:.1f} s after the build began")
     if set(phases) != set(PHASES):
         print(f"partial run ({args.phases}): no summary")

@@ -16,7 +16,8 @@ over the unified causal LM (``llm.model``), dense or paged
 (``llm.serving_paged``, ``ops.paged``), pipelined or not; the decode
 weight-format ladder; the uncached forward (``CausalTransformerModel.forward``
 / ``get_logits``, ``ops.nn.flash_attention_fn``) with uncached and top-p
-generation; and their thirteen kernels.
+generation; the single-stream fixed-cache decode; the MoE family's routed
+expert MLP (``ops.moe``, Mixtral); and their fifteen kernels.
 """
 
 from . import core, kernels, llm, ops

@@ -9,15 +9,12 @@
 // cell's 8192^3 about 2700, so the tensor cores (989 TFLOP/s bf16) bound
 // both, and the f32 route the CUDA cores (67 TFLOP/s FFMA).
 //
-// bf16 design: a 128 x 128 output tile per block of 8 warps (2 x 4, each warp
-// 64 x 32), K in steps of 32. A and B tiles stream into padded shared memory
-// by 16-byte cp.async, double-buffered; a vector past the M, N or K edge is
-// zero-filled (source size 0), so ragged edges need no padding of the
-// operands beyond 16-byte rows (K % 8 == 0 and N % 8 == 0; the wrapper pads
-// otherwise). A fragments come from ldmatrix, B fragments ([K, N] row-major,
-// the layout of V in flash_attention.cu) from ldmatrix.trans, and the
-// products run on mma.sync m16n8k16 into f32 accumulators. The epilogue
-// rounds once and stores with predicates.
+// bf16 design: the 128 x 128 block tile of mma.cuh (8 warps, K in steps of
+// 32, double-buffered 16-byte cp.async, mma.sync m16n8k16 into f32); a
+// vector past the M, N or K edge is zero-filled, so ragged edges need no
+// padding of the operands beyond 16-byte rows (K % 8 == 0 and N % 8 == 0;
+// the wrapper pads otherwise). The epilogue rounds once and stores with
+// predicates.
 //
 // f32 design: no TF32 (the reference asks for HIGHEST precision): a 128 x 128
 // tile per block of 256 threads, each thread an 8 x 8 register tile of FFMA
@@ -41,90 +38,23 @@ template <>
 __device__ __forceinline__ bf16 store_cast<bf16>(float x) { return __float2bfloat16_rn(x); }
 
 // ---------------------------------------------------------------------------
-// bf16: tensor cores
+// bf16: tensor cores (the block tile of mma.cuh)
 // ---------------------------------------------------------------------------
 
-constexpr int kBM = 128, kBN = 128, kBK = 32;
-constexpr int kThreads = 256;
-constexpr int kAS = kBK + 8;      // padded shared rows: ldmatrix rows hit distinct banks
-constexpr int kBS = kBN + 8;
+constexpr int kBM = kTileM, kBN = kTileN;
+constexpr int kThreads = kTileThreads;
 
 template <typename OutT>
 __global__ void __launch_bounds__(kThreads)
 gemm_bf16_kernel(const bf16* __restrict__ a, const bf16* __restrict__ b, OutT* __restrict__ c,
                  int m, int n, int k, int lda, int ldb, int ldc) {
-  __shared__ __align__(16) bf16 as[2][kBM * kAS];
-  __shared__ __align__(16) bf16 bs[2][kBK * kBS];
+  __shared__ __align__(16) TileSmem sm;
   const int m0 = blockIdx.y * kBM, n0 = blockIdx.x * kBN;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int wm = (warp >> 2) * 64, wn = (warp & 3) * 32;   // this warp's 64 x 32
-
-  auto load_tile = [&](int kt, int buf) {
-    const int k0 = kt * kBK;
-#pragma unroll
-    for (int j = 0; j < 2; ++j) {
-      const int i = threadIdx.x + j * kThreads;
-      {  // A: 128 rows x 4 vectors
-        const int r = i >> 2, col = (i & 3) * 8;
-        const bool ok = m0 + r < m && k0 + col < k;
-        const bf16* src = a + (ok ? (size_t)(m0 + r) * lda + k0 + col : 0);
-        cp_async16(&as[buf][r * kAS + col], src, ok);
-      }
-      {  // B: 32 rows x 16 vectors
-        const int r = i >> 4, col = (i & 15) * 8;
-        const bool ok = k0 + r < k && n0 + col < n;
-        const bf16* src = b + (ok ? (size_t)(k0 + r) * ldb + n0 + col : 0);
-        cp_async16(&bs[buf][r * kBS + col], src, ok);
-      }
-    }
-    cp_async_commit();
-  };
-
   float acc[4][4][4];
-#pragma unroll
-  for (int mi = 0; mi < 4; ++mi)
-#pragma unroll
-    for (int ni = 0; ni < 4; ++ni)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) acc[mi][ni][e] = 0.f;
+  mma_tile_bf16(a, lda, m0, 0, m, b, ldb, n0, n, k, sm, acc);
 
-  const int n_k = (k + kBK - 1) / kBK;
-  load_tile(0, 0);
-  for (int kt = 0; kt < n_k; ++kt) {
-    if (kt + 1 < n_k) {
-      load_tile(kt + 1, (kt + 1) & 1);
-      cp_async_wait<1>();
-    } else {
-      cp_async_wait<0>();
-    }
-    __syncthreads();
-    const bf16* at = as[kt & 1];
-    const bf16* bt = bs[kt & 1];
-#pragma unroll
-    for (int kk = 0; kk < kBK / 16; ++kk) {
-      uint32_t af[4][4], bf[4][2];
-#pragma unroll
-      for (int mi = 0; mi < 4; ++mi)   // matrices: rows 0-7 / 8-15 x k lo, then x k hi
-        ldmatrix_x4(af[mi], at + (wm + mi * 16 + (lane & 15)) * kAS + kk * 16 + (lane >> 4) * 8);
-#pragma unroll
-      for (int nj = 0; nj < 2; ++nj) {
-        // matrices: k (16kk.., 16kk+8..) x n tile 2nj, then x n tile 2nj+1
-        uint32_t r[4];
-        const int key = kk * 16 + (lane & 7) + ((lane >> 3) & 1) * 8;
-        ldmatrix_x4_trans(r, bt + key * kBS + wn + nj * 16 + (lane >> 4) * 8);
-        bf[2 * nj][0] = r[0];
-        bf[2 * nj][1] = r[1];
-        bf[2 * nj + 1][0] = r[2];
-        bf[2 * nj + 1][1] = r[3];
-      }
-#pragma unroll
-      for (int mi = 0; mi < 4; ++mi)
-#pragma unroll
-        for (int ni = 0; ni < 4; ++ni) mma_bf16(acc[mi][ni], af[mi], bf[ni][0], bf[ni][1]);
-    }
-    __syncthreads();                   // this buffer is refilled two tiles on
-  }
-
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int wm = (warp >> 2) * 64, wn = (warp & 3) * 32;
   const int g = lane >> 2, t = lane & 3;
 #pragma unroll
   for (int mi = 0; mi < 4; ++mi) {

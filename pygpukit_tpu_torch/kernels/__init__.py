@@ -12,6 +12,7 @@ from .flash_attention import (flash_attention, flash_attention_plain,
                               flash_decode, flash_decode_plain)
 from .fused_decode import fused_decode, fused_decode_plain
 from .gemm import batched_gemm, gemm, gemm_plain
+from .gmm import gmm, gmm_plain
 from .gemv_quant import (block_w4a8_matmul, block_w4a8_matmul_plain,
                          block_w4a16_matmul, block_w4a16_matmul_plain,
                          conv_matmul, conv_matmul_plain, gemv_quant,
@@ -24,7 +25,8 @@ __all__ = ["LAUNCHES", "build", "reset_launches", "batch_decode_attention",
            "batch_decode_attention_plain", "flash_attention",
            "flash_attention_plain", "flash_decode", "flash_decode_plain",
            "fused_decode", "fused_decode_plain",
-           "batched_gemm", "gemm", "gemm_plain", "gemv_quant", "gemv_quant_plain",
+           "batched_gemm", "gemm", "gemm_plain", "gmm", "gmm_plain",
+           "gemv_quant", "gemv_quant_plain",
            "block_w4a8_matmul",
            "block_w4a8_matmul_plain", "block_w4a16_matmul",
            "block_w4a16_matmul_plain", "conv_matmul", "conv_matmul_plain",

@@ -40,7 +40,7 @@ LAUNCHES: dict[str, int] = {"w4a8_gemv": 0, "w4a8_gemm": 0,
                             "block_w4a8_gemv": 0, "block_w4a16_gemv": 0,
                             "conv_gemv": 0, "flash_attention": 0,
                             "flash_decode": 0, "gemm": 0, "gemv_quant": 0,
-                            "fused_decode": 0}
+                            "fused_decode": 0, "gmm": 0}
 
 _P = c_void_p
 _SIGNATURES = {
@@ -67,6 +67,7 @@ _SIGNATURES = {
     "pgk_gemv_quant": [_P, c_int, _P, c_int, _P, _P, c_int, c_int, _P],
     "pgk_fused_decode_plan": [c_int] * 7 + [_P],
     "pgk_fused_decode": [_P] * 19 + [c_int] * 7 + [c_float, c_float, _P],
+    "pgk_gmm": [_P, _P, _P, _P, c_int, c_int, c_int, c_int, c_int, _P],
 }
 
 _lib: ctypes.CDLL | None = None

@@ -58,13 +58,24 @@ layer has a softcap, a window or a non-default scale, which take the plain
 route (as the reference sends them to XLA); its weight leaves follow the
 rows > 8 routes above (the forward is M = S rows, as prefill is).
 
+A MoE config (``num_experts > 1``) runs ``_moe_mlp`` in place of the MLP
+in every path: the router as a full f32 product, then the formulation of
+``ops.moe.select_moe_fn`` for the call's T rows at top-k: on CUDA tensors
+``moe_gmm_fn`` (three ``kernels.gmm`` launches) from T * k >= 128, else
+``moe_gather_fn`` up to T 4 and ``moe_dense_fn`` above; CPU tensors take
+gather up to T 4 and dense above; ``PYGPUKIT_MOE=dense`` (read per call)
+forces dense. So a prefill or forward of 64 tokens and more at top-2
+launches the kernel, a single-stream decode step gathers and a batch-8
+decode step takes the dense route.
+
 The device picks only the implementation: the kernel for CUDA tensors, the
 plain version for CPU tensors. The reference's size and regime gates
 (``on_tpu``, minimum weight sizes, exact tiles, the XLA default of its fp8
 GEMV, the MAX >= 1024 attention gate, the bf16-only S >= 8192
 flash-attention gate, the fused kernel's VMEM and tile gates) work around
 TPU compilers and are not ported: the port always computes what the TPU
-kernels compute.
+kernels compute. The MoE route's 128-row minimum stays: the three
+formulations round at different points, so the rule decides the bits.
 """
 
 from __future__ import annotations
@@ -81,7 +92,7 @@ from torch import nn
 from ..core.backend import resolve_device
 from ..core.dtypes import resolve_dtype
 from ..core.host import tensor_from_numpy, tensor_to_numpy
-from ..core.numerics import true_div
+from ..core.numerics import require_full_f32, true_div
 from ..kernels import (batch_decode_attention, block_w4a8_matmul,
                        block_w4a16_matmul, block_w4a16_matmul_plain, conv_matmul,
                        conv_matmul_plain, kv_rows_write, w4a8_matmul,
@@ -91,6 +102,7 @@ from ..kernels.fused_decode import supports as fused_decode_supports
 from ..kernels.gemv_quant import GEMV_MAX_ROWS
 from ..ops.embedding import kv_cache_zeros, kv_leaf, kv_write
 from ..ops.matmul import int8_dot
+from ..ops.moe import select_moe_fn
 from ..ops.nn import (apply_rope_fn, flash_attention_fn, rmsnorm_fn,
                       rope_tables, sdpa_fixed_cache_fn, swiglu_fn)
 from ..ops.sampling import (sample_greedy_fn, sample_temperature_fn,
@@ -109,7 +121,7 @@ def check_supported(cfg: TransformerConfig) -> None:
     not ported, instead of computing something else silently."""
     missing = [name for name, on in (
         ("layernorm", cfg.norm_type != "rmsnorm"),
-        ("MoE", cfg.is_moe), ("qk norm", cfg.use_qk_norm),
+        ("qk norm", cfg.use_qk_norm),
         ("post norms", cfg.use_post_norms), ("post-norm-only blocks", not cfg.pre_norms),
         ("parallel blocks", cfg.parallel_block),
         ("interleaved rope", cfg.rope_interleaved),
@@ -128,11 +140,14 @@ def check_supported(cfg: TransformerConfig) -> None:
         raise NotImplementedError("not ported yet: " + ", ".join(missing))
 
 
-#: the leaves the slice reads; a param tree with others (biases, MoE or
-#: norm variants) is refused rather than partly ignored
+#: the MoE expert stacks [L, E, in, out]: bf16 or f32 tensors, or
+#: {"q", "scale"} fp8/int8 dicts
+_EXPERT_LEAVES = {"w_experts_gate", "w_experts_up", "w_experts_down"}
+#: the leaves the slice reads; a param tree with others (biases or norm
+#: variants) is refused rather than partly ignored
 _LAYER_LEAVES = {"w_qkv", "w_q", "w_k", "w_v", "w_o", "w_gate_up", "w_gate",
                  "w_up", "w_down", "attn_norm_w", "mlp_norm_w", "attn_window",
-                 "w_qkv_cat", "w_gu_cat"}
+                 "w_qkv_cat", "w_gu_cat", "w_router"} | _EXPERT_LEAVES
 _TOP_LEAVES = {"embed", "final_norm_w", "lm_head", "layers", "rope_cos",
                "rope_sin"}
 
@@ -160,6 +175,14 @@ def _check_params(params: dict) -> None:
             raise NotImplementedError(
                 f"weight leaf {name} ({sorted(leaf)}, "
                 f"{getattr(q, 'dtype', None)}) is not a ported kind")
+    for name in _EXPERT_LEAVES & set(params["layers"]):
+        leaf = params["layers"][name]
+        quantized = isinstance(leaf, dict) and set(leaf) == {"q", "scale"}
+        q = leaf["q"] if quantized else leaf
+        if (not isinstance(q, torch.Tensor) or q.dim() != 4
+                or not (quantized or q.dtype in (torch.bfloat16, _F32))):
+            raise NotImplementedError(f"expert stack {name} must be a bf16 or f32 [L, E, in, "
+                                      "out] tensor or an fp8/int8 {q, scale} dict")
 
 
 # ---------------------------------------------------------------------------
@@ -282,7 +305,21 @@ def _out_proj(lp: dict, attn, s: int, dtype):
     return _mm(attn.reshape(s, -1), lp["w_o"]).to(dtype)
 
 
+def _moe_mlp(cfg: TransformerConfig, lp: dict, y):
+    """Top-k routed expert MLP (reference ``_moe_mlp``): the router logits
+    as a full-precision f32 product, then the formulation
+    ``ops.moe.select_moe_fn`` picks for y's rows and device."""
+    require_full_f32(y, "the MoE router")
+    router = torch.matmul(y.to(_F32), lp["w_router"].to(_F32))         # [T, E]
+    k = cfg.num_experts_per_tok
+    fn = select_moe_fn(y.shape[0], k, y.device.type)
+    out = fn(y, lp["w_experts_gate"], lp["w_experts_up"], lp["w_experts_down"], router, k)
+    return out.to(y.dtype)
+
+
 def _mlp(cfg: TransformerConfig, lp: dict, y):
+    if cfg.is_moe:
+        return _moe_mlp(cfg, lp, y)
     if "w_gate_up" in lp:
         gate, up = torch.chunk(_mm(y, lp["w_gate_up"]), 2, dim=-1)
     else:
@@ -708,15 +745,25 @@ def init_params(cfg: TransformerConfig, seed: int = 0,
     layout (``_build_random_params``), drawn on ``device`` (the card unless
     the caller names one) from a ``torch.Generator`` seeded with ``seed``.
     Values differ from the reference's init (another generator); the layout
-    is the same."""
+    is the same. A MoE config gets an f32 router ``[L, H, E]`` and expert
+    stacks ``[L, E, H, I]`` / ``[L, E, I, H]`` in place of the dense MLP,
+    drawn one expert matrix at a time (an f32 temporary of one matrix, not
+    of the whole stack)."""
     check_supported(cfg)
     device = resolve_device(device)
     gen = torch.Generator(device=device)
     gen.manual_seed(seed)
 
-    def w(*shape):
+    def w(*shape, dt=dtype):
         return (torch.randn(shape, generator=gen, device=device, dtype=_F32)
-                * 0.02).to(dtype)
+                * 0.02).to(dt)
+
+    def stack(*shape):
+        out = torch.empty(shape, dtype=dtype, device=device)
+        for i in range(shape[0]):
+            for j in range(shape[1]):
+                out[i, j] = w(*shape[2:])
+        return out
 
     def ones(*shape):
         return torch.ones(shape, dtype=_F32, device=device)
@@ -725,9 +772,15 @@ def init_params(cfg: TransformerConfig, seed: int = 0,
     hq, hk, d = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
     lp = {"w_q": w(nl, e, hq * d), "w_k": w(nl, e, hk * d),
           "w_v": w(nl, e, hk * d), "w_o": w(nl, hq * d, e),
-          "attn_norm_w": ones(nl, e), "mlp_norm_w": ones(nl, e),
-          "w_gate": w(nl, e, inter), "w_up": w(nl, e, inter),
-          "w_down": w(nl, inter, e)}
+          "attn_norm_w": ones(nl, e), "mlp_norm_w": ones(nl, e)}
+    if cfg.is_moe:
+        ne, mi = cfg.num_experts, cfg.moe_intermediate_size
+        lp["w_router"] = w(nl, e, ne, dt=_F32)
+        lp["w_experts_gate"] = stack(nl, ne, e, mi)
+        lp["w_experts_up"] = stack(nl, ne, e, mi)
+        lp["w_experts_down"] = stack(nl, ne, mi, e)
+    else:
+        lp.update(w_gate=w(nl, e, inter), w_up=w(nl, e, inter), w_down=w(nl, inter, e))
     return {"embed": w(cfg.vocab_size, e), "final_norm_w": ones(e),
             "lm_head": None if cfg.tie_word_embeddings else w(e, cfg.vocab_size),
             "layers": lp}

@@ -29,6 +29,10 @@ _QUANT_KEYS = {
     "w_q", "w_k", "w_v", "w_o", "w_qkv", "w_gate", "w_up", "w_gate_up",
     "w_down", "w_fc1", "w_fc2",
 }
+# MoE expert stacks [L, E, in, out], quantized for fp8 and int8 only (the
+# packed 4-bit layouts serve the decode GEMVs, which the expert matmuls do
+# not use)
+_MOE_QUANT_KEYS = {"w_experts_gate", "w_experts_up", "w_experts_down"}
 _PACKED4 = ("int4", "int4_block", "nvf4")
 
 
@@ -112,11 +116,13 @@ def dequantize_weight(wq: dict, dtype=torch.bfloat16) -> torch.Tensor:
 def quantize_model_params(params: dict, mode: str = "int4",
                           keys: set[str] | None = None,
                           head: bool | str = True) -> dict:
-    """Quantize a model's projection leaves in place of their dense ones.
-    An untied head is quantized too: int8 for the packed 4-bit modes (int4
-    logit error shifts greedy order), ``mode`` otherwise; ``head=False``
-    keeps it dense, a mode string overrides."""
-    keys = _QUANT_KEYS if keys is None else keys
+    """Quantize a model's projection leaves in place of their dense ones,
+    and the MoE expert stacks for fp8 and int8 (never for the packed 4-bit
+    modes). An untied head is quantized too: int8 for the packed 4-bit
+    modes (int4 logit error shifts greedy order), ``mode`` otherwise;
+    ``head=False`` keeps it dense, a mode string overrides."""
+    if keys is None:
+        keys = _QUANT_KEYS | (set() if mode in _PACKED4 else _MOE_QUANT_KEYS)
     out = dict(params)
     layers = dict(params["layers"])
     for k in list(layers):

@@ -1,11 +1,11 @@
 """Ops re-export hub (counterpart of ``pygpukit_tpu/ops/__init__.py``): the
 reference's names for every ported module. Not ported, so not exported:
-audio, batching, conv, the fused ``linear_bias_gelu``, moe, recurrent and
+audio, batching, conv, the fused ``linear_bias_gelu``, recurrent and
 llama4 ops, the scaled and interleaved rope tables, ALiBi and PoPE, and the
 Array-handle KV-cache updates (``kv_cache_update``/``prefill``)."""
 
-from . import (elementwise, embedding, matmul, nn, paged, reduction, sampling,
-               tensor, unary)
+from . import (elementwise, embedding, matmul, moe, nn, paged, reduction,
+               sampling, tensor, unary)
 from .elementwise import add, add_scaled, clamp, div, maximum, minimum, mul, sub, where
 from .embedding import (embedding_lookup, embedding_lookup_batch, kv_cache_zeros,
                         kv_dequant, kv_leaf, kv_quant_rows, kv_write, to_kv_dtype)

@@ -7,20 +7,24 @@ its batch-rows kernels).
 Layouts follow the reference: q/k/v are ``[S, H, D]``; GQA by repeating
 each kv head over its group on the plain route.
 
-Route of ``flash_attention_fn`` (the reference's route test at :164-169):
-on CUDA tensors, with no softcap, no window and the default scale, the
-hand-written ``kernels.flash_attention`` kernel, at every length and for
-bf16 and f32 alike; softcap, window or another scale take the plain route
-on the card too, as the reference sends them to XLA. The scale counts as
-the default when it equals ``1/sqrt(D)`` once rounded to f32, the kernel's
-scale: the reference compares Python floats, and ``head_dim ** -0.5`` (the
-config's scale) differs from ``1/math.sqrt(head_dim)`` in the last bit at D
-128. The reference's other conditions (a TPU backend, bf16 only, S >= 8192,
-S % 256 == 0, D % 128 == 0) are TPU compiler workarounds and are not
-ported; nor are ``PYGPUKIT_FLASH_ATTENTION`` and the jax-shipped TPU flash
-kernel. CPU tensors always take the plain route: ``sdpa_causal_fn`` (or
-``_full_attn``) for S <= ``chunk_size`` and the chunked recurrence above,
-f32 throughout, as the reference computes off the TPU.
+Route of ``flash_attention_fn`` (``flash_attention_route``; the
+reference's route test at :131-169): on CUDA tensors, with no softcap, no
+window and the default scale, the hand-written ``kernels.flash_attention``
+kernel, at every length and for bf16 and f32 alike; softcap, window or
+another scale take the plain route on the card too, as the reference sends
+them to XLA. ``PYGPUKIT_FLASH_ATTENTION`` is read per call: ``pallas`` and
+``jax`` take the kernel (the jax-shipped TPU flash kernel computes the same
+function, causal softmax(QK^T scale)V, in another summation order, so the
+port routes both names to its one kernel), ``xla`` forces the plain route.
+The scale counts as the default when it equals ``1/sqrt(D)`` once rounded
+to f32, the kernel's scale: the reference compares Python floats, and
+``head_dim ** -0.5`` (the config's scale) differs from
+``1/math.sqrt(head_dim)`` in the last bit at D 128. The reference's other
+conditions (a TPU backend, bf16 only, S >= 8192, S % 256 == 0, D % 128 ==
+0) are TPU compiler workarounds and are not ported. CPU tensors always
+take the plain route: ``sdpa_causal_fn`` (or ``_full_attn``) for S <=
+``chunk_size`` and the chunked recurrence above, f32 throughout, as the
+reference computes off the TPU.
 
 Route of fixed-cache decode (``sdpa_fixed_cache_fn``), by the same rule:
 one query row (T = 1) on CUDA tensors over bf16 or f32 caches of q's
@@ -115,6 +119,19 @@ def _kernel_scale(scale: float, d: int) -> bool:
     return np.float32(scale) == np.float32(1.0 / math.sqrt(d))
 
 
+FLASH_ENV = "PYGPUKIT_FLASH_ATTENTION"
+
+
+def flash_attention_route(device_type: str, scale: float, d: int,
+                          softcap: float | None = None, window=None) -> str:
+    """"kernel" or "plain": the route of ``flash_attention_fn`` for a
+    ``device_type`` tensor (the rule in the module docstring)."""
+    if (device_type != "cuda" or softcap is not None or window is not None
+            or not _kernel_scale(scale, d) or os.environ.get(FLASH_ENV, "") == "xla"):
+        return "plain"
+    return "kernel"
+
+
 def flash_attention_fn(q, k, v, scale: float | None = None,
                        chunk_size: int = 512, causal: bool = True,
                        softcap: float | None = None, window=None) -> torch.Tensor:
@@ -124,8 +141,7 @@ def flash_attention_fn(q, k, v, scale: float | None = None,
     ``chunk_size``, keys padded to a chunk multiple and masked."""
     s, h, d = q.shape
     scale = scale if scale is not None else 1.0 / math.sqrt(d)
-    if (q.is_cuda and softcap is None and window is None
-            and _kernel_scale(scale, d)):
+    if flash_attention_route(q.device.type, scale, d, softcap, window) == "kernel":
         return _flash_kernel(q, k, v, causal=causal)
     k, v = _gqa_expand(k, h), _gqa_expand(v, h)
     if s <= chunk_size:

@@ -623,3 +623,118 @@ def test_single_stream_decode_launches(dev, monkeypatch):
     moved = {k: LAUNCHES[k] - before[k] for k in LAUNCHES if LAUNCHES[k] != before[k]}
     assert moved == {"fused_decode": 1}
     assert _rel_l2(fused, unfused) <= 5e-2
+
+
+# ---------------------------------------------------------------------------
+# gmm (megablox's grouped matmul) and the MoE routes
+# ---------------------------------------------------------------------------
+
+GMM_CASES = {                       # name -> (group sizes, rows M, K, N)
+    "empty groups": ([100, 0, 156, 0], 256, 256, 384),
+    "a one-row group": ([1, 127, 128], 256, 128, 256),
+    "all rows in one group": ([0, 300, 0, 0], 300, 136, 264),
+    "M off the tile": ([37, 90, 73], 200, 512, 128),
+    "M below 16": ([3, 0, 5], 8, 64, 72),
+    "rows past the sum": ([100, 50], 300, 128, 128),
+    "routed, 8 experts": (None, 1024, 1024, 512),
+}
+
+
+def _gmm_inputs(dev, name):
+    sizes, m, k, n = GMM_CASES[name]
+    g = _gen(dev, m + k + n)
+    if sizes is None:                   # a seeded top-2 routing of M / 2 tokens
+        top2 = torch.rand((m // 2, 8), generator=g, device=dev).argsort(dim=-1)[:, :2]
+        sizes = torch.bincount(top2.reshape(-1), minlength=8).tolist()
+    lhs = torch.randn((m, k), generator=g, device=dev).to(torch.bfloat16)
+    rhs = (torch.randn((len(sizes), k, n), generator=g, device=dev) * 0.1).to(torch.bfloat16)
+    return lhs, rhs, torch.tensor(sizes, dtype=torch.int32, device=dev)
+
+
+@pytest.mark.parametrize("name", list(GMM_CASES))
+def test_gmm_matches_plain(dev, name):
+    """Within 1e-4 of max |out| of the plain version (both sum exact bf16
+    products in f32, in another order), rows past the sum of the sizes
+    zero, a second launch bitwise."""
+    from pygpukit_tpu_torch.kernels import gmm, gmm_plain
+    lhs, rhs, sizes = _gmm_inputs(dev, name)
+    before = LAUNCHES["gmm"]
+    out = gmm(lhs, rhs, sizes)
+    assert LAUNCHES["gmm"] == before + 1
+    ref = gmm_plain(lhs, rhs, sizes)
+    assert out.shape == ref.shape and out.dtype == torch.float32
+    assert (out - ref).abs().max() <= 1e-4 * ref.abs().max()
+    assert torch.equal(out[int(sizes.sum()):], torch.zeros_like(out[int(sizes.sum()):]))
+    assert torch.equal(out, gmm(lhs, rhs, sizes))
+
+
+def test_gmm_raises_on_unsupported_operands(dev):
+    from pygpukit_tpu_torch.kernels import gmm
+    sizes = torch.tensor([4, 4], dtype=torch.int32, device=dev)
+    lhs = torch.zeros((8, 16), dtype=torch.bfloat16, device=dev)
+    rhs = torch.zeros((2, 16, 24), dtype=torch.bfloat16, device=dev)
+    before = LAUNCHES["gmm"]
+    for bad in ((lhs.float(), rhs.float()), (lhs, rhs.float()),
+                (lhs[:, :12], rhs[:, :12]), (lhs, rhs[..., :20])):
+        with pytest.raises(NotImplementedError):
+            gmm(*bad, sizes)
+    with pytest.raises(ValueError):
+        gmm(lhs, rhs, sizes.cpu())
+    assert LAUNCHES["gmm"] == before
+
+
+def _moe_inputs(dev, t, e=4, h=256, inter=384, k=2):
+    g = _gen(dev, t)
+    y = torch.randn((t, h), generator=g, device=dev).to(torch.bfloat16)
+    ws = [(torch.randn(shape, generator=g, device=dev) * 0.05).to(torch.bfloat16)
+          for shape in ((e, h, inter), (e, h, inter), (e, inter, h))]
+    router = torch.randn((t, e), generator=g, device=dev)
+    return y, ws, router, k
+
+
+def test_moe_gmm_fn_on_the_card_matches_the_cpu(dev):
+    """The CUDA moe_gmm_fn (three gmm launches) against the CPU one (the
+    plain gmm): within 1e-2 of max |out| (the f32 gate and up summed in
+    another order can flip the bf16 rounding of the SiLU product)."""
+    from pygpukit_tpu_torch.ops.moe import moe_gmm_fn
+    y, ws, router, k = _moe_inputs(dev, 128)
+    before = LAUNCHES["gmm"]
+    out = moe_gmm_fn(y, *ws, router, k)
+    assert LAUNCHES["gmm"] == before + 3
+    ref = moe_gmm_fn(y.cpu(), *(w.cpu() for w in ws), router.cpu(), k)
+    assert (out.cpu() - ref).abs().max() <= 1e-2 * ref.abs().max()
+    assert torch.equal(out, moe_gmm_fn(y, *ws, router, k))
+
+
+@pytest.mark.parametrize("t,want", [(64, 3), (8, 0), (1, 0)])
+def test_moe_mlp_routes_by_rows_on_the_card(dev, t, want, monkeypatch):
+    """T * k >= 128 launches gmm three times a layer; T 8 (dense) and T 1
+    (gather) launch nothing; PYGPUKIT_MOE=dense forces dense."""
+    from pygpukit_tpu_torch.llm import TransformerConfig, init_params
+    from pygpukit_tpu_torch.llm.model import _mlp, _slice_layer_params
+    cfg = TransformerConfig(vocab_size=64, hidden_size=256, num_layers=1, num_heads=4,
+                            num_kv_heads=2, intermediate_size=384, num_experts=4,
+                            num_experts_per_tok=2)
+    lp = _slice_layer_params(init_params(cfg, 0, torch.bfloat16, dev)["layers"], 0)
+    y = torch.randn((t, 256), generator=_gen(dev, t), device=dev).to(torch.bfloat16)
+    before = LAUNCHES["gmm"]
+    out = _mlp(cfg, lp, y)
+    assert out.shape == y.shape and torch.isfinite(out.float()).all()
+    assert LAUNCHES["gmm"] == before + want
+    monkeypatch.setenv("PYGPUKIT_MOE", "dense")
+    _mlp(cfg, lp, y)
+    assert LAUNCHES["gmm"] == before + want
+
+
+@pytest.mark.parametrize("mode,launches", [("", 1), ("pallas", 1), ("jax", 1), ("xla", 0)])
+def test_flash_attention_switch_on_the_card(dev, mode, launches, monkeypatch):
+    """PYGPUKIT_FLASH_ATTENTION: pallas and jax take the kernel, xla the
+    plain route; both routes agree."""
+    g = _gen(dev, 10)
+    q = torch.randn((70, 8, 128), generator=g, device=dev).to(torch.bfloat16)
+    k = torch.randn((70, 2, 128), generator=g, device=dev).to(torch.bfloat16)
+    monkeypatch.setenv("PYGPUKIT_FLASH_ATTENTION", mode)
+    before = LAUNCHES["flash_attention"]
+    out = flash_attention_fn(q, k, k)
+    assert LAUNCHES["flash_attention"] == before + launches
+    assert _attn_close(out, flash_attention_plain(q, k, k, causal=True))

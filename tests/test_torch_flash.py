@@ -8,7 +8,9 @@
 - ``ops.nn.flash_attention_fn`` against the JAX ``flash_attention_fn`` on
   its CPU route, across the dense/chunked boundary (chunk 512, keys padded)
   with softcap and window, rtol 1e-4;
-- the wrappers on CPU tensors are their plain versions and launch nothing.
+- the wrappers on CPU tensors are their plain versions and launch nothing;
+- ``PYGPUKIT_FLASH_ATTENTION`` by the route's decision function: ``pallas``
+  and ``jax`` take the kernel on CUDA tensors, ``xla`` the plain route.
 """
 
 import math
@@ -30,7 +32,7 @@ from pygpukit_tpu_torch.kernels.flash_attention import (DECODE_BLOCKS,
                                                         decode_split)
 from pygpukit_tpu_torch.llm import params_from_jax
 from pygpukit_tpu_torch.ops.nn import flash_attention_fn
-from pygpukit_tpu_torch.ops.nn.attention import _kernel_scale
+from pygpukit_tpu_torch.ops.nn.attention import _kernel_scale, flash_attention_route
 
 torch.set_num_threads(2)
 
@@ -134,3 +136,18 @@ def test_decode_split_covers_the_context(live, hk):
     assert (n - 1) * chunk < live <= n * chunk              # none empty, all covered
     assert n * hk <= max(DECODE_BLOCKS, hk)
     assert decode_split(0, hk)[1] == 0
+
+
+@pytest.mark.parametrize("mode,want", [("", "kernel"), ("pallas", "kernel"), ("jax", "kernel"),
+                                       ("xla", "plain")])
+def test_flash_attention_switch_route(monkeypatch, mode, want):
+    """The jax-shipped TPU flash kernel computes the kernel's function, so
+    both switch names take the one kernel; xla forces the plain route.
+    CPU tensors, a softcap, a window or another scale stay plain."""
+    monkeypatch.setenv("PYGPUKIT_FLASH_ATTENTION", mode)
+    scale = 128 ** -0.5
+    assert flash_attention_route("cuda", scale, 128) == want
+    assert flash_attention_route("cpu", scale, 128) == "plain"
+    for kw in (dict(softcap=30.0), dict(window=16)):
+        assert flash_attention_route("cuda", scale, 128, **kw) == "plain"
+    assert flash_attention_route("cuda", 0.1, 128) == "plain"
