@@ -45,7 +45,7 @@ Phases:
     a fresh engine replays the streams and the pools outside block 0 (the
     trash block, whose duplicate writes are unordered) bit for bit; the
     non-pipelined paged engine gives the same streams; the dense pipelined
-    engine's streams are reported; one paged decode step timed eagerly, as
+    engine's streams for the first 8 requests are reported; one paged decode step timed eagerly, as
     a CUDA-graph replay and under torch.profiler (kernels by device time).
     Its 16-token prompts pad to 32 rows, which the int4 route sends to the
     dequant matmul (9 to 255 rows), so the w4a8 GEMM is the dense path's
@@ -57,12 +57,13 @@ Phases:
  9. the decode ladder, the reference's bench_decode (bench.py:172-253) at
     full width and depth: bf16, fp8, int8 (w8a8), int4, int4 under
     PYGPUKIT_INT4_MODE=w4a16, int4_block and int4_block under
-    PYGPUKIT_INT4_BLOCK=w4a16, each a warm and a timed generate of 256
-    tokens after a 16-token prompt (cache 512, one chunk): identical
-    tokens, finite logits, 88 launches per decode step of the rung's GEMV
-    and none of any other; tok/s, one single-stream step's (decode_step_fn
-    over [L, MAX, Hk, D] caches) eager wall ms and graph device ms, bytes
-    streamed per step and GB/s;
+    PYGPUKIT_INT4_BLOCK=w4a16, each a warm generate of 16 tokens and a
+    timed one of 128 after a 16-token prompt (cache 512, one chunk): the
+    timed run starts with the warm run's tokens, finite logits, 88
+    launches per decode step of the rung's GEMV and none of any other;
+    tok/s, one single-stream step's (decode_step_fn over [L, MAX, Hk, D]
+    caches) eager wall ms and graph device ms, bytes streamed per step and
+    GB/s;
 10. phase 4's workload on the int4_block model, replayed bitwise, against
     single-stream generate (reported), and its 2-layer model on the card
     against the CPU plain path;
@@ -89,7 +90,7 @@ Phases:
 13. the single-stream fixed-cache decode on the 1.1B bf16 model with
     separate q/k/v and gate/up leaves (random weights, seed 0, no
     fuse_params), cache 512, the ladder's 16-token prompt: a warm and a
-    timed generate of 256 tokens on the unfused step (flash_decode, 22
+    timed generate of 128 tokens on the unfused step (flash_decode, 22
     launches a step, no serving kernel or GEMV) and under
     PYGPUKIT_DECODE=fused (one fused_decode launch a step, no
     flash_decode), identical tokens within each route, finite logits; one
@@ -111,14 +112,27 @@ Phases:
     decode step on the dense MoE route, a fresh engine replays streams and
     pools bitwise); a 2-layer full-width model drawn on the CPU, on the
     card (gmm) against the CPU plain path (dense route), held row by row
-    (MOE_ROWS_Q).
+    (MOE_ROWS_Q);
+15. the reference's bench_serving_kv (bench.py:390-428) at full width and
+    depth: the 1.1B shape with int8 (w8a8) weights, the batch-8 pipelined
+    engine at MAX 4096, 32 steps a dispatch, 8 warm-up requests, then 16
+    timed requests of one 16-token prompt and 128 new tokens, on bf16,
+    int8 and fp8 KV: every request finishes with finite logits, 22
+    kv_rows_write and 22 batch_decode_attention launches a step, the int8
+    run replayed bitwise (streams and pools) by a fresh engine; tok/s,
+    TTFT, one step's eager and graph device ms, greedy tokens equal to the
+    bf16 run's.
 
-Phase 3 also checks gemm (bf16 at M 2048 on the four projection products
+Phase 3 also checks the row write (bitwise) and the split-KV attention
+kernels (within ATTN_TOL, F32_REL under f32 queries; a second launch
+bitwise; the masks of BDA_MASKS) on f32, fp8 e4m3, fp8 e5m2 and int8 KV,
+each timed, and gemm (bf16 at M 2048 on the four projection products
 as [K, N] weights, bf16 at 8192^3, f32 at 2048^3) and gemv_quant (the four
 projection shapes N-major, fp8 e4m3, int8 and bf16) against their plain
 versions, and flash_attention (causal bf16 at S 1000, 2048 and 8192,
-once full, once at D 128, f32 at S 1000) and flash_decode (MAX 8192, ctx 1,
-700 and 8192, and ctx 144 in MAX 512, the decode phase's shape, bf16 and f32)
+once full, at D 128 and S 1, 63, 129, 2048 and 8192, f32 at S 1000) and
+flash_decode (MAX 8192, ctx 1, 700 and 8192, and ctx 144 in MAX 512, the
+decode phase's shape, bf16 and f32)
 against their plain versions, and gmm (GMM_CASES: Mixtral's expert
 products at M 1024 and 4096 from a seeded top-2 routing, an empty group, a
 one-row group, all rows in one group, M off the 128-row tile, and
@@ -132,7 +146,8 @@ PyTorch call computes the same function, that call's time (library_ms; the
 port never calls it: torch.matmul for gemm, torch.mv for gemv_quant on a
 bf16 weight with no scale, torch._grouped_mm for gmm, bf16 out).
 Launches per decode step, prefill, forward or layer are counted in phases
-6, 7, 9, 11, 12, 13 and 14 and printed on one line before the summary.
+6, 7, 9, 11, 12, 13, 14 and 15 and printed (phases 6-14) on one line
+before the summary.
 
 Any failure exits non-zero. The last two lines are the kernel summary and
 the device line read by automation; it exits 2 with no result when no CUDA
@@ -153,6 +168,11 @@ ROOT = Path(__file__).resolve().parent
 PROJ_SHAPES = {"qkv": (2560, 2048), "o": (2048, 2048), "gate_up": (11264, 2048),
                "down": (2048, 5632)}
 ATTN_TOL = dict(atol=1e-2, rtol=1e-2)     # bf16 output, P rounded to bf16
+# phase 3's batch attention case (B 8, MAX 1024): contexts from 1 to past
+# MAX, and the masks: none, then a softcap with window 100, then window 300
+# (slot 5's window starts at 400, inside a 64-row chunk of its split)
+BDA_LENS = (1, 513, 1024, 1500, 37, 700, 1025, 256)
+BDA_MASKS = ((None, None), (30.0, 100), (None, 300))
 CFG_1B = dict(vocab_size=32000, hidden_size=2048, num_layers=22, num_heads=32,
               num_kv_heads=4, intermediate_size=5632, max_position_embeddings=2048,
               tie_word_embeddings=False)
@@ -199,13 +219,19 @@ LADDER = {"bf16": (None, {}, None), "fp8": ("fp8", {}, "conv_gemv"),
           "int4_block": ("int4_block", {}, "block_w4a8_gemv"),
           "int4_block w4a16": ("int4_block", {"PYGPUKIT_INT4_BLOCK": "w4a16"},
                                "block_w4a16_gemv")}
-LADDER_PROMPT, LADDER_NEW, LADDER_MAX = list(range(1, 17)), 256, 512
+# the ladder's and the decode phase's generate: 128 new tokens (the
+# reference's bench_decode takes 256; cut to keep the script's time)
+LADDER_PROMPT, LADDER_NEW, LADDER_MAX = list(range(1, 17)), 128, 512
+LADDER_WARM = 16             # the warm run's tokens: a prefix of the timed run's
 # the ladder GEMVs against their plain versions: one bf16 ulp plus 1e-4 of
 # the largest |output| (the same exact f32 products summed in another
 # order; the block w4a8 GEMV is held bitwise instead)
 ULP_REL, NEAR_ZERO = 2.0 ** -7, 1e-4
 PHASES = ("kernels", "dense", "paged", "tight", "ladder", "block", "parity",
-          "forward", "ops", "decode", "moe")
+          "forward", "ops", "decode", "moe", "kv")
+# phase 15, the reference's bench_serving_kv (bench.py:390-428): one 16-token
+# prompt, 8 warm-up requests of one dispatch, 16 timed requests
+KV_PROMPT, KV_WARM, KV_REQS, KV_NEW, KV_STEPS, KV_MAX = list(range(1, 17)), 8, 16, 128, 32, 4096
 # the card's published peaks (H100 SXM data sheet, dense): bytes/s of HBM
 # and operations/s by operand type; a bound is the larger of the two times
 HBM_BYTES_S = 3.35e12
@@ -217,7 +243,9 @@ F32_REL = 1e-4
 # line's numbers are the forward's layer shape, the second entry
 FLASH_CASES = [(1000, 32, 4, 64, "bf16", True), (2048, 32, 4, 64, "bf16", True),
                (8192, 32, 4, 64, "bf16", True), (2048, 32, 4, 64, "bf16", False),
-               (2048, 32, 8, 128, "bf16", True), (1000, 32, 4, 64, "f32", True)]
+               (2048, 32, 8, 128, "bf16", True), (1, 32, 8, 128, "bf16", True),
+               (63, 32, 8, 128, "bf16", True), (129, 32, 8, 128, "bf16", True),
+               (8192, 32, 8, 128, "bf16", True), (1000, 32, 4, 64, "f32", True)]
 # (MAX, ctx) of the flash_decode checks; the summary row is the decode
 # phase's shape (cache 512, the step at pos 143 attends 144 rows)
 DECODE_CASES = ((8192, 1), (8192, 700), (8192, 8192), (512, 144))
@@ -234,6 +262,7 @@ FUSED_TIMED = (22, 143, 512)
 # stay under 1e-2. A wrong layout, offset or mask gives order 1.
 FUSED_DEEP_TOL = 5e-2
 SNAP_AT, SNAP_MORE = 100, 50             # decode phase: snapshot, then replay
+DENSE_COMPARED = 8       # phase 7: the paged requests the dense pipelined engine reruns
 FWD_S, FWD_PROMPT, FWD_NEW = 2048, 16, 8
 GEMM_BENCH_N = 8192                       # the reference's bf16 GEMM cell (bench.py:73)
 QUANT_MKN = (8192, 4096, 14336)           # its fp8 and int8 cells (bench.py:92-139)
@@ -468,18 +497,17 @@ def check_kernels(dev) -> tuple[dict, dict]:
     del k1, v1
 
     q = torch.randn((b, 1, hq, d), generator=g, device=dev).to(torch.bfloat16)
-    lens = torch.tensor([1, 513, 1024, 1500, 37, 700, 1025, 256],
-                        dtype=torch.int32, device=dev)
+    lens = torch.tensor(BDA_LENS, dtype=torch.int32, device=dev)
     err = 0.0
-    for softcap, window in ((None, None), (30.0, 100)):
+    for softcap, window in BDA_MASKS:
         o = batch_decode_attention(q, kp, vp, 5, lens, softcap=softcap, window=window)
         r = batch_decode_attention_plain(q, kp, vp, 5, lens, 0.125, softcap, window)
         torch.cuda.synchronize()
-        e = (o.float() - r.float()).abs().max().item()
-        check(torch.allclose(o.float(), r.float(), **ATTN_TOL),
-              f"batch_decode_attention (softcap={softcap}, window={window}): "
-              f"max abs err {e}")
-        err = max(err, e)
+        err = max(err, _attn_err(o, r, "bf16", f"batch_decode_attention (softcap="
+                                 f"{softcap}, window={window})"))
+        check(torch.equal(o, batch_decode_attention(q, kp, vp, 5, lens, softcap=softcap,
+                                                    window=window)),
+              "batch_decode_attention: a second launch differs")
     live = lens.clamp(max=mx)
     live_mask = (torch.arange(mx, device=dev)[None, :] < live[:, None])[:, None, None, :]
 
@@ -498,9 +526,88 @@ def check_kernels(dev) -> tuple[dict, dict]:
     res["batch_decode_attention"] = kernel_row(
         err, kms, pms, 2 * n_live * lanes * 2 + 2 * q.numel() * 2 + 4 * b,
         4 * hq * d * n_live, "bf16", lms)
+    detail["batch_decode_attention"].update(
+        {k: res["batch_decode_attention"][k] for k in ("bound_ms", "bound_by")},
+        share=res["batch_decode_attention"]["bound_ms"] / kms)
+    check_dense_storages(dev, kp, vp, kn, vn, poss, q, lens, detail)
     del kp, vp
     res["paged_attention"] = check_paged_attention(dev, g, detail)
     return res, detail
+
+
+def to_storage(rows, kind: str, n_red: int):
+    """bf16 or f32 ``rows`` in pool storage ``kind``: int8 as the {"q", "s"}
+    dict (amax over the last ``n_red`` dims), fp8 clamped."""
+    import torch
+    from pygpukit_tpu_torch.ops.embedding import kv_quant_rows, to_kv_dtype
+    if kind == "int8":
+        qq, sc = kv_quant_rows(rows, n_red)
+        return {"q": qq, "s": sc}
+    return to_kv_dtype(rows, {"bf16": torch.bfloat16, "f32": torch.float32,
+                              "e4m3": torch.float8_e4m3fn, "e5m2": torch.float8_e5m2}[kind])
+
+
+def pool_bits(pool) -> list:
+    import torch
+    leaves = [pool["q"], pool["s"]] if isinstance(pool, dict) else [pool]
+    return [t.contiguous().view(-1).view(torch.uint8) for t in leaves]
+
+
+def pool_nbytes(pool) -> int:
+    leaves = [pool["q"], pool["s"]] if isinstance(pool, dict) else [pool]
+    return sum(t.numel() * t.element_size() for t in leaves)
+
+
+def check_dense_storages(dev, kp, vp, kn, vn, poss, q, lens, detail: dict) -> None:
+    """Phase 3: kv_rows_write (bitwise) and batch_decode_attention (within
+    ATTN_TOL under bf16 queries, F32_REL under f32, a second launch
+    bitwise) on every other pool storage, made from the bf16 pools; each
+    timed. fp8 and int8 read half the bytes of bf16."""
+    import torch
+    from pygpukit_tpu_torch.kernels import (batch_decode_attention,
+                                            batch_decode_attention_plain,
+                                            kv_rows_write, kv_rows_write_plain)
+    b, nl, mx, lanes = kp.shape
+    live = lens.clamp(max=mx)
+    n_live = int(live.sum())
+    out = {}
+    for kind in ("f32", "e4m3", "e5m2", "int8"):
+        qk = q.float() if kind == "f32" else q
+        nk, nv = (kn.float(), vn.float()) if kind == "f32" else (kn, vn)
+        src = (kp.float(), vp.float()) if kind == "f32" else (kp, vp)
+        pools = [to_storage(t, kind, 1) for t in src]
+        copies = [to_storage(t, kind, 1) for t in src]
+        kv_rows_write(pools[0], pools[1], nk, nv, 3, poss)
+        kv_rows_write_plain(copies[0], copies[1], nk, nv, 3, poss)
+        torch.cuda.synchronize()
+        check(all(torch.equal(x, y) for a, c in zip(pools, copies)
+                  for x, y in zip(pool_bits(a), pool_bits(c))),
+              f"kv_rows_write {kind}: not bitwise")
+        del copies
+        err = 0.0
+        for softcap, window in BDA_MASKS:
+            o = batch_decode_attention(qk, pools[0], pools[1], 5, lens, softcap=softcap,
+                                       window=window)
+            r = batch_decode_attention_plain(qk, pools[0], pools[1], 5, lens, 0.125,
+                                             softcap, window)
+            torch.cuda.synchronize()
+            err = max(err, _attn_err(o, r, "f32" if kind == "f32" else "bf16",
+                                     f"batch_decode_attention {kind} (softcap={softcap}, "
+                                     f"window={window})"))
+            check(torch.equal(o, batch_decode_attention(qk, pools[0], pools[1], 5, lens,
+                                                        softcap=softcap, window=window)),
+                  f"batch_decode_attention {kind}: a second launch differs")
+        elt = pool_nbytes(pools[0]) / (b * nl * mx * lanes)
+        wms = time_ms(lambda i: kv_rows_write(pools[0], pools[1], nk, nv, i, poss), nl)
+        ams = time_ms(lambda i: batch_decode_attention(qk, pools[0], pools[1], i, lens), nl)
+        nbytes = 2 * n_live * lanes * elt + 2 * qk.numel() * qk.element_size() + 4 * b
+        out[kind] = {"kv_rows_write_ms": wms, "attention_ms": ams, "max_abs_err": err,
+                     "bound_ms": bound(nbytes, 4 * q.shape[2] * q.shape[3] * n_live,
+                                       "f32" if kind == "f32" else "bf16")[0]}
+        del pools
+        torch.cuda.empty_cache()
+    detail["kv_storages_dense"] = out
+    print("phase 3: row write and batch attention by storage " + json.dumps(out))
 
 
 def paged_inputs(dev, g, max_len: int, n_layers: int, b: int = 8, bs: int = 16,
@@ -563,9 +670,60 @@ def check_paged_attention(dev, g, detail: dict) -> dict:
             + tables.numel() * 4 + lens.numel() * 4, 4 * q.shape[1] * d * n_live,
             "bf16", lms)
         detail[f"paged_attention_max{max_len}"] = dict(rows[max_len], eager_ms=eager_ms(
-            lambda i: paged_attention(q, kp[i], vp[i], tables, lens, scale=0.125), nl))
-        del kp, vp, seqs
+            lambda i: paged_attention(q, kp[i], vp[i], tables, lens, scale=0.125), nl),
+            share=rows[max_len]["bound_ms"] / kms)
+        check(torch.equal(paged_attention(q, kp[5], vp[5], tables, lens, scale=0.125),
+                          paged_attention(q, kp[5], vp[5], tables, lens, scale=0.125)),
+              f"paged_attention MAX {max_len}: a second launch differs")
+        del seqs
+        if max_len == 512:
+            check_paged_storages(q, kp, vp, tables, lens, detail)
+        del kp, vp
     return dict(rows[512], max_abs_err=err)
+
+
+def check_paged_storages(q, kp, vp, tables, lens, detail: dict) -> None:
+    """Phase 3: paged_attention on every other block-pool storage (int8:
+    [L, NB, BS] scales, one a (block, offset) row over its heads), made
+    from the bf16 pools [L, NB, Hk, BS, D]: against the plain version
+    (ATTN_TOL; F32_REL under f32 queries), a second launch bitwise, timed."""
+    import torch
+    from pygpukit_tpu_torch.kernels import paged_attention, paged_attention_plain
+    nl, _, hk, _, d = kp.shape
+    n_live = int(lens.sum())
+    out = {}
+    for kind in ("f32", "e4m3", "e5m2", "int8"):
+        qk = q.float() if kind == "f32" else q
+        pools = []
+        for src in (kp, vp):
+            t = to_storage(src.transpose(2, 3), kind, 2)      # rows [.., BS, Hk, D]
+            pools.append({"q": t["q"].transpose(2, 3).contiguous(), "s": t["s"]}
+                         if isinstance(t, dict) else t.transpose(2, 3).contiguous())
+        layer = [{"q": p["q"][5], "s": p["s"][5]} if isinstance(p, dict) else p[5]
+                 for p in pools]
+        o = paged_attention(qk, *layer, tables, lens, scale=0.125, window=100)
+        r = paged_attention_plain(qk, *layer, tables, lens, 0.125, None, 100)
+        torch.cuda.synchronize()
+        # the plain version dequantizes int8 blocks to bf16 (the reference
+        # engine's gather); the kernel folds the exact scales in
+        err = _attn_err(o, r, "f32" if kind == "f32" else "bf16",
+                        f"paged_attention {kind} (window 100)")
+        check(torch.equal(o, paged_attention(qk, *layer, tables, lens, scale=0.125,
+                                             window=100)),
+              f"paged_attention {kind}: a second launch differs")
+
+        def at(i, pools=pools):
+            return [{"q": p["q"][i], "s": p["s"][i]} if isinstance(p, dict) else p[i]
+                    for p in pools]
+        ms = time_ms(lambda i: paged_attention(qk, *at(i), tables, lens, scale=0.125), nl)
+        elt = pool_nbytes(pools[0]) / kp.numel()
+        nbytes = 2 * n_live * hk * d * elt + 2 * qk.numel() * qk.element_size()
+        out[kind] = {"ms": ms, "max_abs_err": err,
+                     "bound_ms": bound(nbytes, 4 * q.shape[1] * d * n_live,
+                                       "f32" if kind == "f32" else "bf16")[0]}
+        del pools, layer
+    detail["kv_storages_paged_max512"] = out
+    print("phase 3: paged attention (MAX 512) by storage " + json.dumps(out))
 
 
 def ladder_weights(dev, g, n: int, k: int, n_var: int) -> dict:
@@ -1022,12 +1180,12 @@ def serve(model, requests, n_steps: int, warm=(), max_seq_len: int = 1024,
     return eng, reqs, time.perf_counter() - t0
 
 
-def decode_step_times(model, b: int, max_len: int, pos: int) -> tuple:
+def decode_step_times(model, b: int, max_len: int, pos: int, profile: bool = True) -> tuple:
     """(eager wall ms, graph-replayed device ms, kernel profile, launches
     of one step) of one decode step of ``model`` with every slot at
     position ``pos``: how much of the eager step is the device's work and
     how much host launch cost. b > 1: the batch-rows step over ``[b, L,
-    max_len, Hk*D]`` pools; b = 1: the single-stream step
+    max_len, Hk*D]`` pools of the model's KV storage; b = 1: the single-stream step
     (``decode_step_fn``) over ``[L, max_len, Hk, D]`` caches, fused under
     PYGPUKIT_DECODE=fused for an eligible model."""
     import torch
@@ -1045,14 +1203,14 @@ def decode_step_times(model, b: int, max_len: int, pos: int) -> tuple:
         return (eager_ms(step, 1, iters=20), time_ms(step, 1, reps=20),
                 kernel_profile(step), step_launches(step))
     shape = (b, cfg.num_layers, max_len, cfg.num_kv_heads * cfg.head_dim)
-    kp = kv_cache_zeros(shape, torch.bfloat16, device=dev)
-    vp = kv_cache_zeros(shape, torch.bfloat16, device=dev)
+    kp = kv_cache_zeros(shape, model.kv_dtype, device=dev)
+    vp = kv_cache_zeros(shape, model.kv_dtype, device=dev)
     poss = torch.full((b,), pos, dtype=torch.int32, device=dev)
 
     def step(_):
         batch_decode_step_fn(cfg, params, kp, vp, toks, poss)
-    return (eager_ms(step, 1, iters=20), time_ms(step, 1, reps=20), kernel_profile(step),
-            step_launches(step))
+    return (eager_ms(step, 1, iters=20), time_ms(step, 1, reps=20),
+            kernel_profile(step) if profile else [], step_launches(step))
 
 
 def paged_step_times(model, dev) -> tuple:
@@ -1200,9 +1358,10 @@ def streamed_bytes(params: dict) -> int:
 
 def ladder_rung(model, rung: str, card: str, per_step: dict) -> dict:
     """One rung of the decode ladder (the reference's bench_decode,
-    bench.py:172-253): a warm and a timed generate of LADDER_NEW tokens
-    after a 16-token prompt, cache LADDER_MAX, one chunk. Checks identical
-    tokens, finite logits and the GEMV launches of the timed run's decode
+    bench.py:172-253): a warm generate of LADDER_WARM tokens and a timed
+    one of LADDER_NEW after a 16-token prompt, cache LADDER_MAX, one chunk.
+    Checks that the timed run starts with the warm run's tokens, finite
+    logits and the GEMV launches of the timed run's decode
     (88 per step for the rung's GEMV, none for any other). Returns the
     timed run's launches."""
     import os
@@ -1213,12 +1372,12 @@ def ladder_rung(model, rung: str, card: str, per_step: dict) -> dict:
     os.environ.update(switches)
     try:
         runs = []
-        for _ in range(2):
+        for n_new in (LADDER_WARM, LADDER_NEW):
             model.init_fixed_cache(LADDER_MAX)
             torch.cuda.synchronize()
             reset_launches()
             t0 = time.perf_counter()
-            toks = model.generate(LADDER_PROMPT, max_new_tokens=LADDER_NEW,
+            toks = model.generate(LADDER_PROMPT, max_new_tokens=n_new,
                                   chunk_size=LADDER_NEW)
             torch.cuda.synchronize()
             runs.append((toks, time.perf_counter() - t0, dict(LAUNCHES),
@@ -1233,7 +1392,8 @@ def ladder_rung(model, rung: str, card: str, per_step: dict) -> dict:
                 os.environ[k] = v
     (toks1, _, _, fin1), (toks2, secs, launches, fin2) = runs
     check(len(toks2) == LADDER_NEW, f"ladder {rung}: {len(toks2)} tokens")
-    check(toks1 == toks2, f"ladder {rung}: the timed run's tokens differ from the warm run's")
+    check(toks1 == toks2[:LADDER_WARM],
+          f"ladder {rung}: the timed run's tokens differ from the warm run's")
     check(fin1 and fin2, f"ladder {rung}: a logit went non-finite")
     steps = LADDER_NEW - 1
     projections = 4 * model.config.num_layers
@@ -1315,7 +1475,8 @@ def paged_path(model, cfg, rng, per_step: dict) -> dict:
     check([r.generated for r in reqs3] == streams,
           "paged engine, not pipelined: token streams differ")
     del eng3
-    eng4, reqs4, secs4 = serve(model, requests, 128, pipelined=True, **kw)
+    dense = requests[:DENSE_COMPARED]
+    eng4, reqs4, secs4 = serve(model, dense, 128, pipelined=True, **kw)
     dense_same = sum(r.generated == t for r, t in zip(reqs4, streams))
     del eng4
     eager, graph, rows, counts = paged_step_times(model, model.device)
@@ -1327,7 +1488,8 @@ def paged_path(model, cfg, rng, per_step: dict) -> dict:
     print(f"phase 7: replay identical (streams; pools outside block 0), "
           f"{n_tok / secs2:.1f} tok/s; not pipelined: identical streams, "
           f"{n_tok / secs3:.1f} tok/s; dense pipelined (MAX 512): "
-          f"{dense_same}/32 streams identical, {n_tok / secs4:.1f} tok/s")
+          f"{dense_same}/{DENSE_COMPARED} streams identical, "
+          f"{sum(len(r.generated) for r in reqs4) / secs4:.1f} tok/s")
     return launches
 
 
@@ -1758,6 +1920,78 @@ def decode_phase(cfg, dev, card: str, per_step: dict) -> dict:
     return {"flash_decode": unfused["launches"], "fused_decode": fused["launches"]}
 
 
+def kv_phase(cfg, dev, card: str) -> None:
+    """Phase 15, the reference's bench_serving_kv (bench.py:390-428) at full
+    width and depth: the 1.1B shape with int8 (w8a8) weights, the batch-8
+    pipelined engine at MAX 4096, 32 steps a dispatch, 8 warm-up requests,
+    then 16 timed requests of one 16-token prompt and 128 new tokens, on
+    bf16, int8 and fp8 KV. Every request finishes with finite logits; the
+    row write and the attention launch once a layer a step; a fresh engine
+    replays the int8 run's streams and pools bitwise (the reference cell's
+    storage; bf16's replay is phase 5's, fp8 shares int8's kernels but
+    the convert); tok/s, TTFT, one step's eager and graph device ms and the
+    greedy tokens that agree with the bf16 run, per storage."""
+    import torch
+    from pygpukit_tpu_torch import LAUNCHES, reset_launches
+    from pygpukit_tpu_torch.llm import CausalTransformerModel, ContinuousBatchingEngine
+    t0 = time.perf_counter()
+    params = build_model(cfg, 0, dev, "int8").params
+    requests = [(KV_PROMPT, KV_NEW)] * KV_REQS
+
+    def run(model):
+        eng = ContinuousBatchingEngine(model, max_batch=8, max_seq_len=KV_MAX,
+                                       steps_per_dispatch=KV_STEPS, pipelined=True)
+        for _ in range(KV_WARM):
+            eng.submit(KV_PROMPT, max_new_tokens=KV_STEPS)
+        eng.run_until_complete()
+        torch.cuda.synchronize()
+        reset_launches()
+        t1 = time.perf_counter()
+        reqs = [eng.submit(p, max_new_tokens=m) for p, m in requests]
+        eng.run_until_complete()
+        torch.cuda.synchronize()
+        return eng, reqs, time.perf_counter() - t1, dict(LAUNCHES)
+
+    base_streams = None
+    for kind in ("bf16", "int8", "fp8"):
+        model = CausalTransformerModel(cfg, params, dtype=torch.bfloat16,
+                                       kv_dtype=None if kind == "bf16" else kind)
+        eng, reqs, secs, launches = run(model)
+        n_tok = check_served(eng, reqs, requests, f"kv {kind}")
+        for name in ("kv_rows_write", "batch_decode_attention"):
+            check(launches[name] > 0, f"kv {kind}: {name} was never launched")
+        streams = [r.generated for r in reqs]
+        if kind == "int8":
+            eng2, reqs2, _, _ = run(model)
+            check([r.generated for r in reqs2] == streams, f"kv {kind} replay: streams differ")
+            check(all(torch.equal(x, y) for a, c in ((eng.k_cache, eng2.k_cache),
+                                                     (eng.v_cache, eng2.v_cache))
+                      for x, y in zip(pool_bits(a), pool_bits(c))),
+                  f"kv {kind} replay: pools differ")
+            del eng2
+        del eng
+        eager, graph, _, counts = decode_step_times(model, 8, KV_MAX, 1000, profile=False)
+        for name in ("kv_rows_write", "batch_decode_attention"):
+            check(counts.get(name) == cfg.num_layers,
+                  f"kv {kind}: {name} launched {counts.get(name)} times a step")
+        if base_streams is None:
+            base_streams = streams
+        agree = sum(a == b for s1, s2 in zip(streams, base_streams) for a, b in zip(s1, s2))
+        ttft = ttft_ms(reqs)
+        print(f"phase 15: kv {kind} (int8 weights, MAX {KV_MAX}, {KV_STEPS} steps a dispatch): "
+              f"{n_tok} tokens in {secs:.3f} s = {n_tok / secs:.1f} tok/s, TTFT p50/p95 "
+              f"{ttft[0]:.1f}/{ttft[1]:.1f} ms; a batch-8 step at context 1001: eager "
+              f"{eager:.3f} ms wall, CUDA-graph replay {graph:.3f} ms device; launches a step "
+              f"{json.dumps(counts)}; greedy tokens equal to bf16's {agree}/{n_tok}"
+              + ("; replay identical (streams and pools)" if kind == "int8" else "")
+              + f"; [{card}]")
+        del model
+        torch.cuda.empty_cache()
+    del params
+    torch.cuda.empty_cache()
+    print(f"phase 15 took {time.perf_counter() - t0:.1f} s")
+
+
 def moe_forward_flops(cfg, s_len: int) -> float:
     """forward_flops with the routed MLP: per token the router and the
     top-k experts' three products in place of the dense MLP."""
@@ -2019,7 +2253,7 @@ def main(argv: list[str]) -> int:
     print(f"phase 2: built {lib.relative_to(ROOT)} in "
           f"{time.perf_counter() - t_start:.1f} s")
     for line in _build.build_log().splitlines():
-        if "registers" in line or "spill" in line:
+        if "registers" in line or "spill" in line or "(C75" in line:
             print("  ptxas: " + line.strip())
 
     results: dict = {}
@@ -2083,6 +2317,8 @@ def main(argv: list[str]) -> int:
         launches.update(decode_phase(cfg, dev, card, per_step))
     if "moe" in phases:
         launches["gmm"] = moe_phase(dev, card, per_step)["gmm"]
+    if "kv" in phases:
+        kv_phase(cfg, dev, card)
     print(f"total {time.perf_counter() - t_start:.1f} s after the build began")
     if set(phases) != set(PHASES):
         print(f"partial run ({args.phases}): no summary")

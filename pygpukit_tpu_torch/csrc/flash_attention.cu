@@ -12,19 +12,33 @@
 // flash_attention. Bound: operations. The causal work is 4 Hq D S(S+1)/2
 // flops for (q + k + v + out) bytes once, so above S of a few hundred the
 // tensor cores bound it (1.1B layer at S 2048: 17.2 GFLOP, 17.4 us at 989
-// TFLOP/s; 18.9 MB, 5.6 us at 3.35 TB/s). Design (bf16): one block of four
-// warps per (query head, 64-query tile), heaviest causal tiles first; each
-// warp keeps its 16 query rows as mma A fragments in registers. K and V
-// tiles of 64 keys stream through shared memory with 16-byte cp.async,
-// double-buffered; Q.K^T and P.V run on the tensor cores (mma.sync m16n8k16
-// bf16 -> f32), B fragments through ldmatrix (.trans for V), and the score
-// accumulators turn into P's A fragments in registers. Tiles past the
-// causal diagonal are never loaded. GQA: a query head reads its kv head's
-// tiles; the G heads of a group hit the same tiles in L2, so the expanded
-// K/V of the reference's jnp.repeat never exist. f32 inputs run on CUDA
-// cores (f32 FMA, never TF32: the reference holds f32 at HIGHEST), 16 query
-// rows per block, one lane per key for the scores and per head dimension
-// for P.V.
+// TFLOP/s; 18.9 MB, 5.6 us at 3.35 TB/s). At D 64 the exponentials bound it
+// as much: Hq S(S+1)/2 ex2 at 16 a clock per SM take about as long again.
+// Only wgmma reaches the tensor cores' full rate, so the bf16 path takes
+// the Hopper shape:
+// - one block per (query head, 128-row query tile), heaviest causal tiles
+//   first, of three warpgroups: a producer (one thread issues every TMA
+//   load; setmaxnreg hands its registers to the others) and two consumers
+//   of 64 query rows each, which the SMs interleave;
+// - TMA loads the Q tile once and 128-key K and V tiles into a two-stage
+//   ring, 128-byte swizzled, as 64-column sub-tiles of the [S, H*D]
+//   row-major views (GQA: the box starts at column kvh*D, so no head is
+//   expanded; rows past S arrive as zeros). Full/empty mbarriers per stage,
+//   K and V apart: a K stage frees once S has read it;
+// - S = Q.K^T is wgmma m64n128k16 with both operands in shared memory (K
+//   stored [keys][D] is K-major); P.V is wgmma with P from registers (the f32
+//   score accumulator packed to bf16 pairs is the A-register layout, no
+//   shuffle) and V [keys][D] MN-major (the transpose bit);
+// - the online softmax runs in registers, scale*log2(e) folded into one
+//   FFMA before ex2; masks apply only on the diagonal and ragged tiles, and
+//   tiles past the causal diagonal are never loaded.
+// Each consumer runs S, softmax and P.V of a tile one after another. FA3's
+// overlap of one tile's softmax with the next tile's products, and its
+// ping-pong turn between the consumers, both measured slower or no faster
+// here (ptxas serialized the overlapped products: C7513/C7514).
+// f32 inputs run on CUDA cores (f32 FMA, never TF32: the reference holds f32
+// at HIGHEST), 16 query rows per block, one lane per key for the scores and
+// per head dimension for P.V.
 //
 // flash_decode. Bound: bytes. One query row per head reads every live K and
 // V row once (2 ctx Hk D elt bytes, 8.4 MB at ctx 8192, Hk 4, D 64, bf16:
@@ -34,201 +48,258 @@
 // each; K/V staged once in shared memory as f32), pass two folds the
 // chunks' (m, l, acc) in ascending chunk order. The split depends only on
 // ctx and Hk, so a replay gives the same bits.
-#include "mma.cuh"
+#include "hopper.cuh"
 
 namespace {
 
 using bf16 = __nv_bfloat16;
 
 constexpr float kNegInf = -1e30f;
-
-__device__ __forceinline__ uint32_t ld_u32(const bf16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
-}
+constexpr int kThreads = 128;        // the f32 kernel's block
 
 // ---------------------------------------------------------------------------
-// flash_attention, bf16: tensor cores
+// flash_attention, bf16: TMA + wgmma, warp-specialised
 // ---------------------------------------------------------------------------
 
-constexpr int kBM = 64;              // query rows per block (4 warps x 16)
-constexpr int kBN = 64;              // keys per tile
-constexpr int kThreads = 128;
+constexpr int kFaBM = 128;           // query rows per block: two consumer warpgroups of 64
+constexpr int kFaBN = 128;           // keys per tile
+constexpr int kFaStages = 2;         // K/V ring depth
+constexpr int kFaThreads = 384;      // producer warpgroup + two consumer warpgroups
+constexpr int kFaConsumers = 256;
 
 template <int D>
-constexpr int fa_smem_bytes() {
-  return 2 * 2 * kBN * (D + 8) * 2;  // {K, V} x 2 buffers x padded rows
+struct FaLayout {
+  static constexpr int kSub = D / 64;                      // 64-column (128-byte) sub-tiles
+  static constexpr int kQBytes = kFaBM * D * 2;
+  static constexpr int kTileBytes = kFaBN * D * 2;         // one K or V tile
+  static constexpr int kBarOff = kQBytes + 2 * kFaStages * kTileBytes;
+  static constexpr int kBytes = kBarOff + 8 * (1 + 4 * kFaStages) + 1024;  // + alignment slack
+};
+
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
 }
 
 template <int D>
-__global__ void __launch_bounds__(kThreads)
-flash_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                  const bf16* __restrict__ v, bf16* __restrict__ o, int s, int hq, int hk,
-                  int causal, float scale) {
-  constexpr int kStride = D + 8;     // padded shared row: ldmatrix rows hit distinct banks
-  constexpr int kKS = D / 16;        // k-steps of Q.K^T
-  constexpr int kDT = D / 8;         // 8-wide output column tiles
-  constexpr int kNT = kBN / 8;       // 8-key score tiles
-  extern __shared__ __align__(16) unsigned char fa_smem[];
-  bf16* ks = reinterpret_cast<bf16*>(fa_smem);          // [2][kBN][kStride]
-  bf16* vs = ks + 2 * kBN * kStride;                    // [2][kBN][kStride]
+__device__ __forceinline__ void wgmma_pv(float (&o)[D / 2], const uint32_t (&a)[4], uint64_t db);
+template <>
+__device__ __forceinline__ void wgmma_pv<64>(float (&o)[32], const uint32_t (&a)[4], uint64_t db) {
+  wgmma_rs_m64n64_tb(o, a, db);
+}
+template <>
+__device__ __forceinline__ void wgmma_pv<128>(float (&o)[64], const uint32_t (&a)[4],
+                                              uint64_t db) {
+  wgmma_rs_m64n128_tb(o, a, db);
+}
 
-  const int n_q = (s + kBM - 1) / kBM;
-  const int qt = n_q - 1 - (int)blockIdx.x;             // heaviest causal tiles first
+// Online softmax of one 64 x 128 score tile (rows r0: e 0-1, r1: e 2-3 of
+// each 8-key group n) into P's bf16 A registers; returns O's rescale factors
+// in alpha. The max is taken on the raw scores (scale > 0), so a score costs
+// one FFMA into ex2: p = 2^(s * scale * log2(e) - m). Masked keys (past S,
+// or past the row when causal) count as -1e30 with p = 0; only a tile that
+// holds one (past S, or past the warpgroup's first row q_lo) takes that
+// path. The scores are only read: a product may be writing the next tile's
+// into other registers meanwhile.
+template <bool kMasked>
+__device__ __forceinline__ void fa_softmax_tile(const float (&sc)[64],
+                                                uint32_t (&pa)[kFaBN / 16][4], float (&m_i)[2],
+                                                float (&l_i)[2], float (&alpha)[2], int kv0,
+                                                int s, int causal, int r0, int r1, int t,
+                                                float scale_log2) {
+  auto dead = [&](int n, int e) {
+    const int key = kv0 + n * 8 + 2 * t + (e & 1);
+    return key >= s || (causal && key > (e < 2 ? r0 : r1));
+  };
+  float mx[2] = {kNegInf, kNegInf};
+#pragma unroll
+  for (int n = 0; n < 16; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e)
+      mx[e >> 1] = fmaxf(mx[e >> 1], kMasked && dead(n, e) ? kNegInf : sc[4 * n + e]);
+  float m_new[2], rs[2] = {0.f, 0.f};
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 1));
+    mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 2));
+    // a row with every key masked so far keeps -1e30 (never scaled)
+    m_new[i] = fmaxf(m_i[i], mx[i] == kNegInf ? kNegInf : mx[i] * scale_log2);
+    alpha[i] = ex2(m_i[i] - m_new[i]);
+  }
+#pragma unroll
+  for (int n = 0; n < 16; ++n) {
+    float p[4];
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      p[e] = ex2(fmaf(sc[4 * n + e], scale_log2, -m_new[e >> 1]));
+      if (kMasked && dead(n, e)) p[e] = 0.f;
+    }
+    rs[0] += p[0] + p[1];
+    rs[1] += p[2] + p[3];
+    pa[n >> 1][(n & 1) * 2 + 0] = pack_bf16(p[0], p[1]);
+    pa[n >> 1][(n & 1) * 2 + 1] = pack_bf16(p[2], p[3]);
+  }
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    rs[i] += __shfl_xor_sync(0xffffffffu, rs[i], 1);
+    rs[i] += __shfl_xor_sync(0xffffffffu, rs[i], 2);
+    l_i[i] = l_i[i] * alpha[i] + rs[i];
+    m_i[i] = m_new[i];
+  }
+}
+
+__device__ __forceinline__ void fa_softmax(const float (&sc)[64], uint32_t (&pa)[kFaBN / 16][4],
+                                           float (&m_i)[2], float (&l_i)[2], float (&alpha)[2],
+                                           int kv0, int s, int causal, int q_lo, int r0, int r1,
+                                           int t, float scale_log2) {
+  if (kv0 + kFaBN > s || (causal && kv0 + kFaBN - 1 > q_lo))
+    fa_softmax_tile<true>(sc, pa, m_i, l_i, alpha, kv0, s, causal, r0, r1, t, scale_log2);
+  else
+    fa_softmax_tile<false>(sc, pa, m_i, l_i, alpha, kv0, s, causal, r0, r1, t, scale_log2);
+}
+
+template <int D>
+__device__ __forceinline__ void fa_issue_s(float (&sc)[64], const bf16* qw, const bf16* kt) {
+#pragma unroll
+  for (int kk = 0; kk < D / 16; ++kk) {
+    const int sub = kk >> 2, kin = (kk & 3) * 16;
+    wgmma_ss_m64n128(sc, wgmma_desc_sw128(qw + sub * kFaBM * 64 + kin, 16, 1024),
+                     wgmma_desc_sw128(kt + sub * kFaBN * 64 + kin, 16, 1024), kk > 0);
+  }
+  wgmma_commit();
+}
+
+template <int D>
+__device__ __forceinline__ void fa_issue_pv(float (&o)[D / 2], const uint32_t (&pa)[kFaBN / 16][4],
+                                            const bf16* vt) {
+#pragma unroll
+  for (int kk = 0; kk < kFaBN / 16; ++kk)
+    wgmma_pv<D>(o, pa[kk], wgmma_desc_sw128(vt + kk * 16 * 64, kFaBN * 128, 1024));
+  wgmma_commit();
+}
+
+template <int D>
+__device__ __forceinline__ void fa_rescale(float (&o)[D / 2], const float (&alpha)[2]) {
+#pragma unroll
+  for (int n = 0; n < D / 8; ++n) {
+    o[4 * n + 0] *= alpha[0];
+    o[4 * n + 1] *= alpha[0];
+    o[4 * n + 2] *= alpha[1];
+    o[4 * n + 3] *= alpha[1];
+  }
+}
+
+template <int D>
+__global__ void __launch_bounds__(kFaThreads, 1)
+flash_bf16_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tk,
+                  const __grid_constant__ CUtensorMap tv, bf16* __restrict__ o, int s, int hq,
+                  int hk, int causal, float scale_log2) {
+  using L = FaLayout<D>;
+  extern __shared__ __align__(1024) unsigned char fa_raw[];
+  unsigned char* base = fa_raw + ((1024 - (smem_u32(fa_raw) & 1023)) & 1023);
+  bf16* qs = reinterpret_cast<bf16*>(base);                        // [kSub][kFaBM][64]
+  bf16* ks = reinterpret_cast<bf16*>(base + L::kQBytes);           // [stage][kSub][kFaBN][64]
+  bf16* vs = ks + kFaStages * kFaBN * D;
+  uint64_t* q_full = reinterpret_cast<uint64_t*>(base + L::kBarOff);
+  uint64_t* k_full = q_full + 1;
+  uint64_t* v_full = k_full + kFaStages;
+  uint64_t* k_empty = v_full + kFaStages;
+  uint64_t* v_empty = k_empty + kFaStages;
+
+  const int n_q = (s + kFaBM - 1) / kFaBM;
+  const int qt = n_q - 1 - (int)blockIdx.x;                        // heaviest causal tiles first
   const int h = blockIdx.y;
   const int kvh = h / (hq / hk);
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int g = lane >> 2, t = lane & 3;
-  const int q0 = qt * kBM;
-  const int r0 = q0 + warp * 16 + g, r1 = r0 + 8;       // this thread's two rows
-  const size_t row_q = (size_t)hq * D, row_kv = (size_t)hk * D;
+  const int q0 = qt * kFaBM;
+  const int n_kv = (s + kFaBN - 1) / kFaBN;
+  const int last = causal ? min(n_kv - 1, (min(s - 1, q0 + kFaBM - 1)) / kFaBN) : n_kv - 1;
 
-  uint32_t qa[kKS][4];
-  {
-    const bf16* p0 = q + (size_t)r0 * row_q + (size_t)h * D;
-    const bf16* p1 = q + (size_t)r1 * row_q + (size_t)h * D;
-#pragma unroll
-    for (int kk = 0; kk < kKS; ++kk) {
-      const int c = kk * 16 + 2 * t;
-      qa[kk][0] = r0 < s ? ld_u32(p0 + c) : 0u;
-      qa[kk][1] = r1 < s ? ld_u32(p1 + c) : 0u;
-      qa[kk][2] = r0 < s ? ld_u32(p0 + c + 8) : 0u;
-      qa[kk][3] = r1 < s ? ld_u32(p1 + c + 8) : 0u;
+  if (threadIdx.x == 0) {
+    mbar_init(q_full, 1);
+    for (int st = 0; st < kFaStages; ++st) {
+      mbar_init(&k_full[st], 1);
+      mbar_init(&v_full[st], 1);
+      mbar_init(&k_empty[st], kFaConsumers);
+      mbar_init(&v_empty[st], kFaConsumers);
     }
+    mbar_fence_init();
   }
+  __syncthreads();
 
-  auto load_tile = [&](int j, int buf) {
-    constexpr int kVec = D / 8;                         // 16-byte vectors per row
-    bf16* kd = ks + buf * kBN * kStride;
-    bf16* vd = vs + buf * kBN * kStride;
-    for (int i = threadIdx.x; i < kBN * kVec; i += kThreads) {
-      const int r = i / kVec, c = (i % kVec) * 8;
-      const int p = j * kBN + r;
-      const bool ok = p < s;
-      const size_t off = (size_t)(ok ? p : 0) * row_kv + (size_t)kvh * D + c;
-      cp_async16(kd + r * kStride + c, k + off, ok);
-      cp_async16(vd + r * kStride + c, v + off, ok);
-    }
-    cp_async_commit();
-  };
-
-  float m_i[2] = {kNegInf, kNegInf}, l_i[2] = {0.f, 0.f};
-  float acc[kDT][4];
-#pragma unroll
-  for (int dt = 0; dt < kDT; ++dt)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) acc[dt][e] = 0.f;
-
-  const int n_kv = (s + kBN - 1) / kBN;
-  const int diag = min(s - 1, q0 + kBM - 1) / kBN;      // last tile a row of this block sees
-  const int last = causal ? min(n_kv - 1, diag) : n_kv - 1;
-  load_tile(0, 0);
-  for (int j = 0; j <= last; ++j) {
-    if (j < last) {
-      load_tile(j + 1, (j + 1) & 1);
-      cp_async_wait<1>();
-    } else {
-      cp_async_wait<0>();
-    }
-    __syncthreads();
-    const bf16* kt = ks + (j & 1) * kBN * kStride;
-    const bf16* vt = vs + (j & 1) * kBN * kStride;
-
-    float sc[kNT][4];
-#pragma unroll
-    for (int nt = 0; nt < kNT; ++nt)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) sc[nt][e] = 0.f;
-#pragma unroll
-    for (int nt = 0; nt < kNT; nt += 2) {
-#pragma unroll
-      for (int kk = 0; kk < kKS; ++kk) {
-        // matrices: keys nt*8.. x (d lo, d hi), keys nt*8+8.. x (d lo, d hi)
-        uint32_t b[4];
-        const int key = nt * 8 + (lane & 7) + (lane >> 4) * 8;
-        const int col = kk * 16 + ((lane >> 3) & 1) * 8;
-        ldmatrix_x4(b, kt + key * kStride + col);
-        mma_bf16(sc[nt], qa[kk], b[0], b[1]);
-        mma_bf16(sc[nt + 1], qa[kk], b[2], b[3]);
+  if (threadIdx.x < 128) {
+    // producer warpgroup: one thread keeps the ring full; a K stage frees
+    // once S has read it, a V stage once P.V has
+    setmaxnreg_dec<40>();
+    if (threadIdx.x == 0) {
+      mbar_arrive_expect_tx(q_full, L::kQBytes);
+      for (int sub = 0; sub < L::kSub; ++sub)
+        tma_load_2d(qs + sub * kFaBM * 64, &tq, q_full, h * D + sub * 64, q0);
+      for (int j = 0; j <= last; ++j) {
+        const int st = j % kFaStages;
+        const uint32_t free_ph = ((j / kFaStages) & 1) ^ 1;
+        mbar_wait(&k_empty[st], free_ph);
+        mbar_arrive_expect_tx(&k_full[st], L::kTileBytes);
+        for (int sub = 0; sub < L::kSub; ++sub)
+          tma_load_2d(ks + st * kFaBN * D + sub * kFaBN * 64, &tk, &k_full[st],
+                      kvh * D + sub * 64, j * kFaBN);
+        mbar_wait(&v_empty[st], free_ph);
+        mbar_arrive_expect_tx(&v_full[st], L::kTileBytes);
+        for (int sub = 0; sub < L::kSub; ++sub)
+          tma_load_2d(vs + st * kFaBN * D + sub * kFaBN * 64, &tv, &v_full[st],
+                      kvh * D + sub * 64, j * kFaBN);
       }
     }
+  } else {
+    setmaxnreg_inc<232>();
+    const int ct = threadIdx.x - 128;
+    const int cwg = ct >> 7;                                      // consumer warpgroup
+    const int warp = (ct >> 5) & 3, lane = ct & 31;
+    const int g = lane >> 2, t = lane & 3;
+    const int q_lo = q0 + cwg * 64;
+    const int r0 = q_lo + warp * 16 + g, r1 = r0 + 8;             // this thread's two rows
+    const bf16* qw = qs + cwg * 64 * 64;                          // its 64 rows of each sub-tile
 
-    // scale, mask, running max (rows r0: e 0-1, r1: e 2-3)
-    const int kv0 = j * kBN;
-    float mx[2] = {kNegInf, kNegInf};
+    float oacc[D / 2];
 #pragma unroll
-    for (int nt = 0; nt < kNT; ++nt)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int key = kv0 + nt * 8 + 2 * t + (e & 1);
-        const int row = e < 2 ? r0 : r1;
-        const bool dead = key >= s || (causal && key > row);
-        const float x = dead ? kNegInf : sc[nt][e] * scale;
-        sc[nt][e] = x;
-        mx[e >> 1] = fmaxf(mx[e >> 1], x);
-      }
-    float m_new[2], alpha[2], rs[2] = {0.f, 0.f};
-#pragma unroll
-    for (int i = 0; i < 2; ++i) {
-      mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 1));
-      mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 2));
-      m_new[i] = fmaxf(m_i[i], mx[i]);
-      alpha[i] = expf(m_i[i] - m_new[i]);
+    for (int i = 0; i < D / 2; ++i) oacc[i] = 0.f;
+    float m_i[2] = {kNegInf, kNegInf}, l_i[2] = {0.f, 0.f}, alpha[2];
+    float sc[64];                                                 // S: 64 rows x 128 keys
+    uint32_t pa[kFaBN / 16][4];                                   // P as bf16 A registers
+    mbar_wait(q_full, 0);
+    for (int j = 0; j <= last; ++j) {
+      const int st = j % kFaStages;
+      const uint32_t ph = (j / kFaStages) & 1;
+      mbar_wait(&k_full[st], ph);
+      wgmma_fence();
+      fa_issue_s<D>(sc, qw, ks + st * kFaBN * D);
+      wgmma_wait<0>();
+      wgmma_fence_regs(sc);
+      mbar_arrive(&k_empty[st]);
+      fa_softmax(sc, pa, m_i, l_i, alpha, j * kFaBN, s, causal, q_lo, r0, r1, t, scale_log2);
+      fa_rescale<D>(oacc, alpha);
+      mbar_wait(&v_full[st], ph);
+      wgmma_fence_regs(oacc);
+      wgmma_fence();
+      fa_issue_pv<D>(oacc, pa, vs + st * kFaBN * D);
+      wgmma_wait<0>();
+      wgmma_fence_regs(oacc);
+      mbar_arrive(&v_empty[st]);
     }
-    // p, its row sums, and P rounded to bf16 as A fragments (keys 16kk..)
-    uint32_t pa[kBN / 16][4];
-#pragma unroll
-    for (int nt = 0; nt < kNT; ++nt) {
-      float p[4];
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int key = kv0 + nt * 8 + 2 * t + (e & 1);
-        const int row = e < 2 ? r0 : r1;
-        const bool dead = key >= s || (causal && key > row);
-        p[e] = dead ? 0.f : expf(sc[nt][e] - m_new[e >> 1]);
-      }
-      rs[0] += p[0] + p[1];
-      rs[1] += p[2] + p[3];
-      pa[nt >> 1][(nt & 1) * 2 + 0] = pack_bf16(p[0], p[1]);
-      pa[nt >> 1][(nt & 1) * 2 + 1] = pack_bf16(p[2], p[3]);
-    }
-#pragma unroll
-    for (int i = 0; i < 2; ++i) {
-      rs[i] += __shfl_xor_sync(0xffffffffu, rs[i], 1);
-      rs[i] += __shfl_xor_sync(0xffffffffu, rs[i], 2);
-      l_i[i] = l_i[i] * alpha[i] + rs[i];
-      m_i[i] = m_new[i];
-    }
-#pragma unroll
-    for (int dt = 0; dt < kDT; ++dt) {
-      acc[dt][0] *= alpha[0];
-      acc[dt][1] *= alpha[0];
-      acc[dt][2] *= alpha[1];
-      acc[dt][3] *= alpha[1];
-    }
-#pragma unroll
-    for (int kk = 0; kk < kBN / 16; ++kk) {
-#pragma unroll
-      for (int dt = 0; dt < kDT; dt += 2) {
-        // matrices: keys (16kk.., 16kk+8..) x d dt*8.., then x d dt*8+8..
-        uint32_t b[4];
-        const int key = kk * 16 + (lane & 7) + ((lane >> 3) & 1) * 8;
-        const int col = dt * 8 + (lane >> 4) * 8;
-        ldmatrix_x4_trans(b, vt + key * kStride + col);
-        mma_bf16(acc[dt], pa[kk], b[0], b[1]);
-        mma_bf16(acc[dt + 1], pa[kk], b[2], b[3]);
-      }
-    }
-    __syncthreads();                   // this buffer is refilled two tiles on
-  }
 
-  const float l0 = fmaxf(l_i[0], 1e-30f), l1 = fmaxf(l_i[1], 1e-30f);
-  bf16* o0 = o + (size_t)r0 * row_q + (size_t)h * D;
-  bf16* o1 = o + (size_t)r1 * row_q + (size_t)h * D;
+    const float l0 = fmaxf(l_i[0], 1e-30f), l1 = fmaxf(l_i[1], 1e-30f);
+    const size_t row_q = (size_t)hq * D;
+    bf16* o0 = o + (size_t)r0 * row_q + (size_t)h * D;
+    bf16* o1 = o + (size_t)r1 * row_q + (size_t)h * D;
 #pragma unroll
-  for (int dt = 0; dt < kDT; ++dt) {
-    const int c = dt * 8 + 2 * t;
-    if (r0 < s) *reinterpret_cast<uint32_t*>(o0 + c) = pack_bf16(acc[dt][0] / l0, acc[dt][1] / l0);
-    if (r1 < s) *reinterpret_cast<uint32_t*>(o1 + c) = pack_bf16(acc[dt][2] / l1, acc[dt][3] / l1);
+    for (int n = 0; n < D / 8; ++n) {
+      const int c = n * 8 + 2 * t;
+      if (r0 < s)
+        *reinterpret_cast<uint32_t*>(o0 + c) = pack_bf16(oacc[4 * n] / l0, oacc[4 * n + 1] / l0);
+      if (r1 < s)
+        *reinterpret_cast<uint32_t*>(o1 + c) =
+            pack_bf16(oacc[4 * n + 2] / l1, oacc[4 * n + 3] / l1);
+    }
   }
 }
 
@@ -335,16 +406,19 @@ cudaError_t launch_flash(const void* q, const void* k, const void* v, void* out,
         static_cast<const float*>(v), static_cast<float*>(out), s, hq, hk, causal, scale);
     return cudaGetLastError();
   }
-  constexpr int smem = fa_smem_bytes<D>();
-  if (smem > 48 * 1024) {
-    cudaError_t e = cudaFuncSetAttribute(flash_bf16_kernel<D>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-    if (e != cudaSuccess) return e;
-  }
-  const dim3 grid((s + kBM - 1) / kBM, hq);
-  flash_bf16_kernel<D><<<grid, kThreads, smem, st>>>(
-      static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
-      static_cast<bf16*>(out), s, hq, hk, causal, scale);
+  CUtensorMap tq, tk, tv;
+  const uint64_t qrow = (uint64_t)hq * D, kvrow = (uint64_t)hk * D;
+  cudaError_t e = pgk_tensor_map_bf16(&tq, q, qrow, s, qrow * 2, 64, kFaBM);
+  if (e == cudaSuccess) e = pgk_tensor_map_bf16(&tk, k, kvrow, s, kvrow * 2, 64, kFaBN);
+  if (e == cudaSuccess) e = pgk_tensor_map_bf16(&tv, v, kvrow, s, kvrow * 2, 64, kFaBN);
+  if (e != cudaSuccess) return e;
+  constexpr int smem = FaLayout<D>::kBytes;
+  e = cudaFuncSetAttribute(flash_bf16_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           smem);
+  if (e != cudaSuccess) return e;
+  const dim3 grid((s + kFaBM - 1) / kFaBM, hq);
+  flash_bf16_kernel<D><<<grid, kFaThreads, smem, st>>>(
+      tq, tk, tv, static_cast<bf16*>(out), s, hq, hk, causal, scale * 1.4426950408889634f);
   return cudaGetLastError();
 }
 

@@ -1,7 +1,7 @@
-// Tensor-core and async-copy helpers shared by the mma.sync kernels
-// (flash_attention.cu, gemm.cu, gmm.cu): 16-byte cp.async into shared
-// memory, ldmatrix fragments, the bf16 m16n8k16 product with f32 sums, and
-// the 128 x 128 block tile of gemm.cu and gmm.cu.
+// Tensor-core and async-copy helpers: 16-byte cp.async into shared memory
+// (decode_attention.cuh's ring, the tile below), ldmatrix fragments, the
+// bf16 m16n8k16 product with f32 sums and bf16 packing (hopper.cuh builds
+// on these), and the 128 x 128 mma.sync block tile of gemm.cu and gmm.cu.
 #pragma once
 
 #include "common.cuh"

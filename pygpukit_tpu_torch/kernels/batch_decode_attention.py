@@ -4,9 +4,16 @@
 One query per head for all B slots against layer ``layer`` of the merged
 ``[B, L, MAX, Hk*D]`` pools, masked to each slot's context
 ``pos < min(ctx_lens[b], MAX)`` and, with a window, ``pos >= ctx - window``;
-GQA, optional softcap ``cap * tanh(s / cap)``. CUDA tensors launch
-``csrc/batch_decode_attention.cu`` (bf16 pools and queries); CPU tensors take
-the plain version, which also covers f32, fp8 and int8 ``{"q", "s"}`` pools.
+GQA, optional softcap ``cap * tanh(s / cap)``. Pools of every storage the
+engines build: bf16, f32, fp8 e4m3/e5m2 and int8 ``{"q", "s"}`` dicts, under
+bf16 or f32 queries. CUDA tensors launch ``csrc/batch_decode_attention.cu``
+(or raise); CPU tensors take the plain version.
+
+The kernel splits each slot's live window over blocks (split-KV):
+:func:`attention_splits` picks the number of splits from the shapes alone and
+:func:`split_bounds` deals the 64-row chunks out, as the CUDA body
+(``csrc/decode_attention.cuh``) does; a second pass folds the splits in
+ascending order. ``paged_attention`` shares both.
 """
 
 from __future__ import annotations
@@ -20,6 +27,88 @@ from ._build import launch, require_on, stream_of
 
 _F32 = torch.float32
 _NEG_INF = -1e30
+#: the kernels' numbers for the query dtypes and the pool storages
+#: (``csrc/decode_attention.cuh``; int8 ``{"q", "s"}`` dicts are INT8_KIND)
+_Q_KINDS = {torch.bfloat16: 0, _F32: 1}
+_KV_KINDS = {torch.bfloat16: 0, _F32: 1, torch.float8_e4m3fn: 2,
+             torch.float8_e5m2: 3}
+INT8_KIND = 4
+#: rows per chunk of the kernel's split and shared-memory ring
+ATTN_CHUNK = 64
+#: the split aims at about this many pass-one blocks: two per SM of the
+#: card's 132
+SPLIT_BLOCKS = 264
+
+
+def attention_splits(b: int, hk: int, capacity: int) -> int:
+    """Splits per (slot, kv head) for a batch of ``b`` slots over ``hk`` kv
+    heads whose contexts hold at most ``capacity`` rows: enough blocks to
+    fill the card, never more splits than chunks. Shapes only, never a
+    context length, so a launch captured in a CUDA graph stays valid."""
+    chunks = max(1, -(-capacity // ATTN_CHUNK))
+    return max(1, min(chunks, -(-SPLIT_BLOCKS // (b * hk))))
+
+
+def split_bounds(lo: int, live: int, n_split: int) -> list[tuple[int, int]]:
+    """[start, end) of each split over the live window ``[max(lo, 0),
+    live)``: its 64-row chunks (counted from position 0) dealt out evenly
+    and in order, ``ceil(chunks / n_split)`` to a split; the first start
+    and the last end fall inside a chunk, every other bound on a chunk
+    edge; empty splits are ``(s, s)``. ``pgk_split_bounds`` in
+    ``csrc/decode_attention.cuh`` is the same function."""
+    lo0 = max(lo, 0)
+    if live <= lo0:
+        return [(0, 0)] * n_split
+    c_begin, c_end = lo0 // ATTN_CHUNK, -(-live // ATTN_CHUNK)
+    per = -(-(c_end - c_begin) // n_split)
+    out = []
+    for split in range(n_split):
+        cs = c_begin + split * per
+        start = max(lo0, cs * ATTN_CHUNK)
+        out.append((start, max(start, min(live, (cs + per) * ATTN_CHUNK))))
+    return out
+
+
+def storage_kinds(q: torch.Tensor, k_pool, v_pool) -> tuple[int, int]:
+    """(query kind, storage kind) of the kernels; NotImplementedError for
+    a dtype no engine builds (an f16 pool, say) or two storages."""
+    kinds = {_kv_kind(k_pool), _kv_kind(v_pool)}
+    if q.dtype not in _Q_KINDS or len(kinds) != 1 or None in kinds:
+        raise NotImplementedError(
+            f"the CUDA attention kernels take bf16 or f32 queries over one of "
+            f"bf16, f32, fp8 or int8 {{q, s}} pools (got {q.dtype} over "
+            f"{_kv_dtype(k_pool)} / {_kv_dtype(v_pool)})")
+    return _Q_KINDS[q.dtype], kinds.pop()
+
+
+def _kv_dtype(pool):
+    return {k: v.dtype for k, v in pool.items()} if isinstance(pool, dict) \
+        else pool.dtype
+
+
+def _kv_kind(pool) -> int | None:
+    if isinstance(pool, dict):
+        ok = pool["q"].dtype == torch.int8 and pool["s"].dtype == torch.bfloat16
+        return INT8_KIND if ok else None
+    return _KV_KINDS.get(pool.dtype)
+
+
+def kernel_leaves(pool, what: str):
+    """(values, row scales or None) of a pool for a kernel: contiguous, the
+    values 16-byte aligned (the cp.async rows), both on one device."""
+    vals, scales = (pool["q"], pool["s"]) if isinstance(pool, dict) else (pool, None)
+    if not (vals.is_contiguous() and vals.data_ptr() % 16 == 0):
+        raise ValueError(f"{what} must be contiguous and 16-byte aligned")
+    if scales is not None:
+        if not scales.is_contiguous():
+            raise ValueError(f"{what} row scales must be contiguous")
+        require_on(vals.device, **{f"{what} scales": scales})
+    return vals, scales
+
+
+def ptr_or_null(t) -> int | None:
+    """A tensor's device pointer, or None (NULL to ctypes) for no tensor."""
+    return None if t is None else t.data_ptr()
 
 
 def _layer_rows(pool, layer: int, hk: int, d: int):
@@ -91,23 +180,25 @@ def batch_decode_attention(q: torch.Tensor, k_pool, v_pool, layer: int,
     if not leaf.is_cuda:
         return batch_decode_attention_plain(q, k_pool, v_pool, layer, ctx_lens,
                                             scale, softcap, window)
-    if isinstance(k_pool, dict) or k_pool.dtype != torch.bfloat16 \
-            or v_pool.dtype != torch.bfloat16 or q.dtype != torch.bfloat16:
-        raise NotImplementedError("the CUDA attention kernel takes bf16 "
-                                  "queries and pools")
-    require_on(leaf.device, q=q, v_pool=v_pool)
-    if k_pool.ndim != 4 or not (k_pool.is_contiguous() and v_pool.is_contiguous()):
-        raise ValueError("pools must be contiguous merged [B, L, MAX, Hk*D]")
-    _, n_layers, max_len, lanes = k_pool.shape
+    q_kind, kv_kind = storage_kinds(q, k_pool, v_pool)
+    kq, ks = kernel_leaves(k_pool, "k_pool")
+    vq, vs = kernel_leaves(v_pool, "v_pool")
+    require_on(leaf.device, q=q, v_pool=vq)
+    if kq.ndim != 4 or kq.shape != vq.shape:
+        raise ValueError("pools must be merged [B, L, MAX, Hk*D] of one shape")
+    _, n_layers, max_len, lanes = kq.shape
     hk = lanes // d
     if hk * d != lanes or hq % hk or hq // hk > 16 or d not in (64, 128):
         raise ValueError(f"unsupported attention shape: Hq={hq} Hk*D={lanes} D={d}")
     qc = q.contiguous()
     lens = ctx_lens.to(device=leaf.device, dtype=torch.int32).contiguous()
+    n_split = attention_splits(b, hk, max_len)
+    part = torch.empty(b * hq * n_split * (d + 2), device=leaf.device, dtype=_F32)
     out = torch.empty_like(qc)
     launch("batch_decode_attention", "pgk_batch_decode_attention",
-           qc.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(), lens.data_ptr(),
-           out.data_ptr(), b, hq, hk, d, int(layer), n_layers, max_len,
+           qc.data_ptr(), kq.data_ptr(), vq.data_ptr(), ptr_or_null(ks),
+           ptr_or_null(vs), lens.data_ptr(), out.data_ptr(), part.data_ptr(), b, hq, hk, d,
+           int(layer), n_layers, max_len, n_split, q_kind, kv_kind,
            float(scale), float(softcap) if softcap else 0.0,
            int(window) if window else 0, stream_of(leaf))
     return out

@@ -4,9 +4,10 @@
 Writes one K row and one V row per slot, in place, into layer ``layer`` of
 the merged ``[B, L, MAX, Hk*D]`` pools at positions ``poss`` clamped to
 ``[0, MAX-1]`` (where ``lax.dynamic_update_slice`` clamps in the XLA write
-the TPU kernel replaced). CUDA tensors launch ``csrc/kv_row_write.cu``
-(bf16 pools); CPU tensors take the plain version, which also covers f32,
-fp8 (clamped) and int8 ``{"q", "s"}`` pools.
+the TPU kernel replaced), converted to the pools' storage: bf16, f32, fp8
+(clamped) or int8 ``{"q", "s"}`` (quantized per row). CUDA tensors launch
+``csrc/kv_row_write.cu``, bitwise the plain version; CPU tensors take the
+plain version.
 """
 
 from __future__ import annotations
@@ -15,6 +16,7 @@ import torch
 
 from ..ops.embedding import kv_leaf, kv_quant_rows, to_kv_dtype
 from ._build import launch, require_on, stream_of
+from .batch_decode_attention import kernel_leaves, ptr_or_null, storage_kinds
 
 
 def kv_rows_write_plain(k_pool, v_pool, k_new: torch.Tensor,
@@ -41,17 +43,22 @@ def kv_rows_write(k_pool, v_pool, k_new: torch.Tensor, v_new: torch.Tensor,
     leaf = kv_leaf(k_pool)
     if not leaf.is_cuda:
         return kv_rows_write_plain(k_pool, v_pool, k_new, v_new, layer, poss)
-    if isinstance(k_pool, dict) or k_pool.dtype != torch.bfloat16 \
-            or v_pool.dtype != torch.bfloat16:
-        raise NotImplementedError("the CUDA row write takes bf16 pools")
-    require_on(leaf.device, v_pool=v_pool, k_new=k_new, v_new=v_new)
-    if not (k_pool.is_contiguous() and v_pool.is_contiguous()):
-        raise ValueError("pools must be contiguous")
-    b, n_layers, max_len = k_pool.shape[:3]
-    row = k_pool[0, 0, 0].numel()
-    kr = k_new.reshape(b, row).to(torch.bfloat16).contiguous()
-    vr = v_new.reshape(b, row).to(torch.bfloat16).contiguous()
+    if k_new.dtype not in (torch.bfloat16, torch.float32) or v_new.dtype != k_new.dtype:
+        raise NotImplementedError(f"the CUDA row write takes bf16 or f32 rows "
+                                  f"(got {k_new.dtype}, {v_new.dtype})")
+    new_kind, pool_kind = storage_kinds(k_new, k_pool, v_pool)
+    kq, ks = kernel_leaves(k_pool, "k_pool")
+    vq, vs = kernel_leaves(v_pool, "v_pool")
+    require_on(leaf.device, v_pool=vq, k_new=k_new, v_new=v_new)
+    if kq.ndim != 4 or kq.shape != vq.shape:
+        raise ValueError("pools must be merged [B, L, MAX, Hk*D] of one shape")
+    b, n_layers, max_len, row = kq.shape
+    if ks is not None and ks.shape != kq.shape[:3]:
+        raise ValueError("int8 row scales must be [B, L, MAX]")
+    kr = k_new.reshape(b, row).contiguous()
+    vr = v_new.reshape(b, row).contiguous()
     p = poss.to(device=leaf.device, dtype=torch.int32).contiguous()
     launch("kv_rows_write", "pgk_kv_rows_write", kr.data_ptr(), vr.data_ptr(),
-           k_pool.data_ptr(), v_pool.data_ptr(), p.data_ptr(), b, int(layer),
-           n_layers, max_len, row, stream_of(leaf))
+           kq.data_ptr(), vq.data_ptr(), ptr_or_null(ks), ptr_or_null(vs),
+           p.data_ptr(), b, int(layer), n_layers, max_len, row, new_kind, pool_kind,
+           stream_of(leaf))

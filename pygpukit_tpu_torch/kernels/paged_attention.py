@@ -4,10 +4,12 @@
 One query per head for all B slots against one layer's block pool
 ``[NB, Hk, BS, D]``; slot b's position p is offset ``p % BS`` of block
 ``tables[b, p // BS]``. Masked to ``p < ctx_lens[b]`` and, with a window,
-``p >= ctx - window``; GQA; optional softcap ``cap * tanh(s / cap)``. CUDA
-tensors launch ``csrc/paged_attention.cu`` once for every slot (bf16 pools
-and queries); CPU tensors take the plain version, which also covers f32,
-fp8 and int8 ``{"q": [NB, Hk, BS, D], "s": [NB, BS]}`` pools.
+``p >= ctx - window``; GQA; optional softcap ``cap * tanh(s / cap)``. Pools
+of bf16, f32, fp8 or int8 ``{"q": [NB, Hk, BS, D], "s": [NB, BS]}`` under
+bf16 or f32 queries. CUDA tensors launch ``csrc/paged_attention.cu`` once
+for every slot, split over blocks as ``batch_decode_attention`` splits
+(``attention_splits`` of the table's capacity); CPU tensors take the plain
+version.
 
 The plain version is the reference engine's XLA path
 (``serving_paged._paged_gather`` + ``_paged_attn_one``) batched over slots:
@@ -83,28 +85,35 @@ def paged_attention(q: torch.Tensor, k_pool_l, v_pool_l, tables: torch.Tensor,
     if not leaf.is_cuda:
         return paged_attention_plain(q, k_pool_l, v_pool_l, tables, ctx_lens,
                                      scale, softcap, window)
-    if isinstance(k_pool_l, dict) or isinstance(v_pool_l, dict) \
-            or k_pool_l.dtype != torch.bfloat16 \
-            or v_pool_l.dtype != torch.bfloat16 or q.dtype != torch.bfloat16:
-        raise NotImplementedError("the CUDA paged attention kernel takes bf16 "
-                                  "queries and pools")
-    require_on(leaf.device, q=q, v_pool=v_pool_l, tables=tables,
-               ctx_lens=ctx_lens)
-    if k_pool_l.ndim != 4 or k_pool_l.shape != v_pool_l.shape \
-            or not (k_pool_l.is_contiguous() and v_pool_l.is_contiguous()):
+    # imported here: batch_decode_attention imports ops, whose paged module
+    # imports this one
+    from .batch_decode_attention import (attention_splits, kernel_leaves,
+                                         ptr_or_null, storage_kinds)
+    q_kind, kv_kind = storage_kinds(q, k_pool_l, v_pool_l)
+    kq, ks = kernel_leaves(k_pool_l, "k_pool")
+    vq, vs = kernel_leaves(v_pool_l, "v_pool")
+    require_on(leaf.device, q=q, v_pool=vq, tables=tables, ctx_lens=ctx_lens)
+    if kq.ndim != 4 or kq.shape != vq.shape:
         raise ValueError("pools must be contiguous [NB, Hk, BS, D] of one shape")
-    _, hk, bs, dp = k_pool_l.shape
+    nb, hk, bs, dp = kq.shape
     if dp != d or hq % hk or hq // hk > 16 or d not in (64, 128):
         raise ValueError(f"unsupported paged attention shape: Hq={hq} Hk={hk} D={d}")
+    if ks is not None and ks.shape != (nb, bs):
+        raise ValueError("int8 row scales must be [NB, BS]")
     if tables.ndim != 2 or tables.shape[0] != b or ctx_lens.shape != (b,):
         raise ValueError("tables must be [B, MB] and ctx_lens [B]")
     qc = q.contiguous()
     tbl = tables.to(torch.int32).contiguous()
     lens = ctx_lens.to(torch.int32).contiguous()
+    mb = tbl.shape[1]
+    n_split = attention_splits(b, hk, mb * bs)
+    part = torch.empty(b * hq * n_split * (d + 2), device=leaf.device, dtype=_F32)
     out = torch.empty_like(qc)
     launch("paged_attention", "pgk_paged_attention", qc.data_ptr(),
-           k_pool_l.data_ptr(), v_pool_l.data_ptr(), tbl.data_ptr(),
-           lens.data_ptr(), out.data_ptr(), b, hq, hk, d, bs, tbl.shape[1],
-           float(scale), float(softcap) if softcap else 0.0,
-           int(window) if window else 0, stream_of(leaf))
+           kq.data_ptr(), vq.data_ptr(), ptr_or_null(ks), ptr_or_null(vs),
+           tbl.data_ptr(),
+           lens.data_ptr(), out.data_ptr(), part.data_ptr(), b, hq, hk, d, bs, mb,
+           n_split, q_kind, kv_kind, float(scale),
+           float(softcap) if softcap else 0.0, int(window) if window else 0,
+           stream_of(leaf))
     return out

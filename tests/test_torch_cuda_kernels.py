@@ -1,6 +1,9 @@
 """The port's CUDA kernels against their plain PyTorch versions on the card,
-at the 1.1B slice's shapes (the checks chip_smoke.py makes). Marked
-``cuda``; without a CUDA device every test skips with the reason.
+at the 1.1B slice's shapes (the checks chip_smoke.py makes): among them the
+row write and both decode-attention kernels on every KV storage,
+flash_attention over short, ragged and GQA shapes at D 64 and 128, a CUDA
+graph of the batch-8 step replayed bitwise, and engines on int8 and fp8 KV.
+Marked ``cuda``; without a CUDA device every test skips with the reason.
 
 Run on a card:  python -m pytest tests/test_torch_cuda_kernels.py -m cuda -q --noconftest
 (tests/conftest.py imports jax, which the card needs no part of).
@@ -140,25 +143,138 @@ def test_paged_attention_dispatch_uses_the_kernel(dev):
 
 
 def test_cuda_wrappers_raise_on_unsupported_storage(dev):
-    pools = torch.zeros((2, 1, 64, 128), dtype=torch.float32, device=dev)
-    rows = torch.zeros((2, 2, 64), dtype=torch.float32, device=dev)
+    """Every storage an engine builds launches (below); f16 pools, f16
+    queries, two storages at once and f16 rows raise before a launch."""
+    pools = torch.zeros((2, 1, 64, 128), dtype=torch.float16, device=dev)
+    rows = torch.zeros((2, 2, 64), dtype=torch.bfloat16, device=dev)
+    ones = torch.ones(2, dtype=torch.int32, device=dev)
+    before = dict(LAUNCHES)
     with pytest.raises(NotImplementedError):
-        kv_rows_write(pools, pools.clone(), rows, rows, 0,
-                      torch.zeros(2, dtype=torch.int32, device=dev))
+        kv_rows_write(pools, pools.clone(), rows, rows, 0, ones)
     with pytest.raises(NotImplementedError):
-        batch_decode_attention(torch.zeros((2, 1, 4, 64), device=dev), pools, pools, 0,
-                               torch.ones(2, dtype=torch.int32, device=dev))
-    blocks = torch.zeros((4, 2, 16, 64), dtype=torch.int8, device=dev)
+        kv_rows_write(pools.bfloat16(), pools.bfloat16(), rows.half(), rows.half(), 0, ones)
     with pytest.raises(NotImplementedError):
-        paged_attention(torch.zeros((2, 4, 64), dtype=torch.bfloat16, device=dev),
-                        {"q": blocks, "s": torch.zeros((4, 16), device=dev)},
-                        {"q": blocks, "s": torch.zeros((4, 16), device=dev)},
-                        torch.zeros((2, 2), dtype=torch.int32, device=dev),
-                        torch.ones(2, dtype=torch.int32, device=dev))
+        batch_decode_attention(torch.zeros((2, 1, 4, 64), dtype=torch.bfloat16, device=dev),
+                               pools, pools, 0, ones)
+    with pytest.raises(NotImplementedError):
+        batch_decode_attention(torch.zeros((2, 1, 4, 64), dtype=torch.float16, device=dev),
+                               pools.bfloat16(), pools.bfloat16(), 0, ones)
+    with pytest.raises(NotImplementedError):
+        batch_decode_attention(torch.zeros((2, 1, 4, 64), dtype=torch.bfloat16, device=dev),
+                               pools.bfloat16(), pools.float(), 0, ones)
+    blocks = torch.zeros((4, 2, 16, 64), dtype=torch.float16, device=dev)
+    with pytest.raises(NotImplementedError):
+        paged_attention(torch.zeros((2, 4, 64), dtype=torch.bfloat16, device=dev), blocks,
+                        blocks, torch.zeros((2, 2), dtype=torch.int32, device=dev), ones)
+    assert LAUNCHES == before
     w = torch.zeros((64, 16), dtype=torch.uint8, device=dev)
     with pytest.raises(ValueError, match="scale"):     # a host scale pointer
         w4a8_matmul(torch.zeros((1, 32), dtype=torch.bfloat16, device=dev), w,
                     torch.ones(64))
+
+
+# the storages the engines build: (pool storage, query dtype)
+STORAGES = {"bf16": (torch.bfloat16, torch.bfloat16), "f32": (torch.float32, torch.float32),
+            "e4m3": (torch.float8_e4m3fn, torch.bfloat16),
+            "e5m2": (torch.float8_e5m2, torch.bfloat16), "int8": (torch.int8, torch.bfloat16),
+            "int8 f32 queries": (torch.int8, torch.float32),
+            "bf16 f32 queries": (torch.bfloat16, torch.float32)}
+
+
+def _store(rows, dtype, n_red):
+    """rows (f32) in a pool storage: int8 as the {"q", "s"} dict (amax over
+    the last n_red dims), fp8 clamped."""
+    from pygpukit_tpu_torch.ops.embedding import kv_quant_rows, to_kv_dtype
+    if dtype == torch.int8:
+        q, sc = kv_quant_rows(rows, n_red)
+        return {"q": q, "s": sc}
+    return to_kv_dtype(rows, dtype)
+
+
+def _pool_bits(pool):
+    leaves = [pool["q"], pool["s"]] if isinstance(pool, dict) else [pool]
+    return [t.contiguous().view(torch.uint8) for t in leaves]
+
+
+@pytest.mark.parametrize("new_dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("storage", ["bf16", "f32", "e4m3", "e5m2", "int8"])
+def test_kv_rows_write_every_storage_bitwise(dev, storage, new_dtype):
+    """The row write on each storage, bitwise its plain version: fp8 clamped
+    (rows reach 600, past e4m3's 448), int8 quantized per row with its bf16
+    scale; positions past MAX clamp."""
+    g = _gen(dev, 31)
+    b, nl, mx, lanes = 8, 3, 256, 256
+    dtype = STORAGES[storage][0]
+    base = torch.randn((b, nl, mx, lanes), generator=g, device=dev)
+    kn = (torch.randn((b, 4, 64), generator=g, device=dev) * 200).to(new_dtype)
+    vn = torch.randn((b, 4, 64), generator=g, device=dev).to(new_dtype)
+    kn[2] = 0                                           # an all-zero row: the 1e-8 scale floor
+    poss = torch.tensor([0, 5, 100, mx - 1, mx, mx + 37, 64, 2 * mx],
+                        dtype=torch.int32, device=dev)
+    pools = [_store(base, dtype, 1) for _ in range(4)]
+    before = LAUNCHES["kv_rows_write"]
+    kv_rows_write(pools[0], pools[1], kn, vn, 1, poss)
+    assert LAUNCHES["kv_rows_write"] == before + 1
+    kv_rows_write_plain(pools[2], pools[3], kn, vn, 1, poss)
+    for got, ref in ((pools[0], pools[2]), (pools[1], pools[3])):
+        assert all(torch.equal(a, r) for a, r in zip(_pool_bits(got), _pool_bits(ref)))
+
+
+def _attn_pools(dev, g, storage, b, nl, mx, lanes):
+    dtype, qdt = STORAGES[storage]
+    kp = _store(torch.randn((b, nl, mx, lanes), generator=g, device=dev), dtype, 1)
+    vp = _store(torch.randn((b, nl, mx, lanes), generator=g, device=dev), dtype, 1)
+    return kp, vp, qdt
+
+
+def _storage_close(out, ref, qdt):
+    """bf16 queries: ATTN_TOL (P rounded to bf16 against running maxima); f32:
+    within 1e-4 of max |ref| (the same products summed in another order)."""
+    if qdt == torch.bfloat16:
+        return torch.allclose(out.float(), ref.float(), atol=1e-2, rtol=1e-2)
+    return bool(((out - ref).abs() <= 1e-4 * ref.abs().max()).all())
+
+
+@pytest.mark.parametrize("softcap,window", [(None, None), (30.0, 300)])
+@pytest.mark.parametrize("storage", list(STORAGES))
+def test_batch_decode_attention_every_storage(dev, storage, softcap, window):
+    """The split kernel on each storage against its plain version: contexts
+    from 1 to past MAX, and with window 300 starts inside a split; a second
+    launch gives the same bits."""
+    g = _gen(dev, 41)
+    b, nl, mx, lanes, hq, d = 8, 3, 1024, 256, 32, 64
+    kp, vp, qdt = _attn_pools(dev, g, storage, b, nl, mx, lanes)
+    q = torch.randn((b, 1, hq, d), generator=g, device=dev).to(qdt)
+    lens = torch.tensor([1, 513, 1024, 1500, 37, 700, 1025, 256], dtype=torch.int32, device=dev)
+    before = LAUNCHES["batch_decode_attention"]
+    out = batch_decode_attention(q, kp, vp, 2, lens, softcap=softcap, window=window)
+    assert LAUNCHES["batch_decode_attention"] == before + 1
+    assert out.dtype == qdt and torch.isfinite(out.float()).all()
+    ref = batch_decode_attention_plain(q, kp, vp, 2, lens, 0.125, softcap, window)
+    assert _storage_close(out, ref, qdt), (out.float() - ref.float()).abs().max().item()
+    assert torch.equal(out, batch_decode_attention(q, kp, vp, 2, lens, softcap=softcap,
+                                                   window=window))
+
+
+@pytest.mark.parametrize("storage", list(STORAGES))
+def test_paged_attention_every_storage(dev, storage):
+    q, kp, vp, tables, lens = _paged_inputs(dev, 512, 8)
+    dtype, qdt = STORAGES[storage]
+    # int8 block pools [NB, Hk, BS, D] with [NB, BS] scales: one scale per
+    # (block, offset) row over its heads
+    kp, vp = (_store(p.float().transpose(1, 2), dtype, 2) for p in (kp, vp))
+    kp, vp = ({"q": p["q"].transpose(1, 2).contiguous(), "s": p["s"]} if isinstance(p, dict)
+              else p.transpose(1, 2).contiguous() for p in (kp, vp))
+    q = q.to(qdt)
+    before = LAUNCHES["paged_attention"]
+    out = paged_attention(q, kp, vp, tables, lens, scale=0.125, window=100)
+    assert LAUNCHES["paged_attention"] == before + 1
+    ref = paged_attention_plain(q, kp, vp, tables, lens, 0.125, None, 100)
+    # the plain version dequantizes int8 blocks to bf16 (the reference
+    # engine's gather); the kernel folds the exact scales into the scores
+    tol_dt = torch.bfloat16 if dtype == torch.int8 else qdt
+    assert _storage_close(out, ref, tol_dt), (out.float() - ref.float()).abs().max().item()
+    assert torch.equal(out, paged_attention(q, kp, vp, tables, lens, scale=0.125, window=100))
 
 
 def _ladder_inputs(dev, n, k, rows, seed):
@@ -738,3 +854,98 @@ def test_flash_attention_switch_on_the_card(dev, mode, launches, monkeypatch):
     out = flash_attention_fn(q, k, k)
     assert LAUNCHES["flash_attention"] == before + launches
     assert _attn_close(out, flash_attention_plain(q, k, k, causal=True))
+
+
+@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("hq,hk", [(4, 4), (16, 4), (32, 4)])
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("s", [1, 63, 64, 65, 127, 129, 1000, 2048])
+def test_flash_attention_bf16_shapes(dev, s, causal, hq, hk, d):
+    """The TMA + wgmma kernel on short rows, rows off the 128-row tile, full
+    and causal, G 1, 4 and 8 at D 64 and 128: within ATTN_TOL of the plain
+    version, a second launch bitwise."""
+    g = _gen(dev, s * 7 + d + hq)
+    q = torch.randn((s, hq, d), generator=g, device=dev).to(torch.bfloat16)
+    k = torch.randn((s, hk, d), generator=g, device=dev).to(torch.bfloat16)
+    v = torch.randn((s, hk, d), generator=g, device=dev).to(torch.bfloat16)
+    out = flash_attention(q, k, v, causal=causal)
+    ref = flash_attention_plain(q, k, v, causal=causal)
+    assert _attn_close(out, ref), (out.float() - ref.float()).abs().max().item()
+    assert torch.equal(out, flash_attention(q, k, v, causal=causal))
+
+
+def _small_1b(dev, n_layers=2, kv_dtype=None):
+    from pygpukit_tpu_torch.llm import CausalTransformerModel, TransformerConfig, init_params
+    cfg = TransformerConfig(**dict(CFG_1B, num_layers=n_layers, max_position_embeddings=2048))
+    return CausalTransformerModel(cfg, init_params(cfg, 0, torch.bfloat16, dev),
+                                  dtype=torch.bfloat16, kv_dtype=kv_dtype)
+
+
+@pytest.mark.parametrize("kv_dtype", [None, "int8", "fp8"])
+def test_batch_step_graph_replay_bitwise(dev, kv_dtype):
+    """The batch-8 decode step (row write + split attention per layer)
+    captured in a CUDA graph: its replay gives the eager step's logits and
+    pools bit for bit (the launch plan depends on shapes only)."""
+    from pygpukit_tpu_torch.llm import batch_decode_step_fn
+    from pygpukit_tpu_torch.ops.embedding import kv_cache_zeros
+    m = _small_1b(dev, kv_dtype=kv_dtype)
+    cfg, b, mx = m.config, 8, 1024
+    shape = (b, cfg.num_layers, mx, cfg.num_kv_heads * cfg.head_dim)
+    g = _gen(dev, 51)
+    pools = [kv_cache_zeros(shape, m.kv_dtype, device=dev) for _ in range(2)]
+    for p in pools:
+        leaf = p["q"] if isinstance(p, dict) else p
+        leaf.copy_((torch.randn(shape, generator=g, device=dev) * 3).to(leaf.dtype))
+        if isinstance(p, dict):
+            p["s"].copy_(torch.rand(shape[:3], generator=g, device=dev).to(torch.bfloat16))
+    toks = torch.arange(1, b + 1, device=dev)
+    poss = torch.tensor([0, 300, 511, 1023, 5, 700, 64, 129], dtype=torch.int32, device=dev)
+    snap = [[t.clone() for t in _pool_bits(p)] for p in pools]
+
+    def restore():
+        for p, saved in zip(pools, snap):
+            for t, s0 in zip(_pool_bits(p), saved):
+                t.copy_(s0)
+
+    def step():
+        return batch_decode_step_fn(cfg, m.params, pools[0], pools[1], toks, poss)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        step()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        static = step()
+    restore()
+    eager = step().clone()
+    after = [[t.clone() for t in _pool_bits(p)] for p in pools]
+    restore()
+    graph.replay()
+    torch.cuda.synchronize()
+    assert torch.isfinite(eager).all() and torch.equal(static, eager)
+    assert all(torch.equal(a, t) for p, saved in zip(pools, after)
+               for a, t in zip(saved, _pool_bits(p)))
+
+
+@pytest.mark.parametrize("paged", [False, True])
+@pytest.mark.parametrize("kv_dtype", ["int8", "fp8"])
+def test_quantized_kv_engine_serves_on_the_card(dev, kv_dtype, paged):
+    """ContinuousBatchingEngine on a 2-layer model with int8 or fp8 KV: every
+    request finishes with finite logits, through the kernels (dense: the row
+    write and the split attention, 2 a step; paged: paged_attention)."""
+    from pygpukit_tpu_torch import reset_launches
+    from pygpukit_tpu_torch.llm import ContinuousBatchingEngine
+    m = _small_1b(dev, kv_dtype=kv_dtype)
+    kw = dict(paged=True, block_size=16) if paged else {}
+    eng = ContinuousBatchingEngine(m, max_batch=8, max_seq_len=256, steps_per_dispatch=8, **kw)
+    reset_launches()
+    reqs = [eng.submit(list(range(1 + i, 17 + i)), max_new_tokens=24) for i in range(10)]
+    eng.run_until_complete()
+    assert all(r.done and len(r.generated) == 24 for r in reqs)
+    assert eng.logits_finite()
+    if paged:
+        assert LAUNCHES["paged_attention"] > 0 and LAUNCHES["batch_decode_attention"] == 0
+    else:
+        assert LAUNCHES["batch_decode_attention"] > 0
+        assert LAUNCHES["kv_rows_write"] == LAUNCHES["batch_decode_attention"]
