@@ -127,7 +127,8 @@ Phase 3 also checks the row write (bitwise) and the split-KV attention
 kernels (within ATTN_TOL, F32_REL under f32 queries; a second launch
 bitwise; the masks of BDA_MASKS) on f32, fp8 e4m3, fp8 e5m2 and int8 KV,
 each timed, and gemm (bf16 at M 2048 on the four projection products
-as [K, N] weights, bf16 at 8192^3, f32 at 2048^3) and gemv_quant (the four
+as [K, N] weights, each with its launch plan: tile width, grid, waves;
+bf16 at 8192^3 in TFLOP/s beside cuBLAS; f32 at 2048^3) and gemv_quant (the four
 projection shapes N-major, fp8 e4m3, int8 and bf16) against their plain
 versions, and flash_attention (causal bf16 at S 1000, 2048 and 8192,
 once full, at D 128 and S 1, 63, 129, 2048 and 8192, f32 at S 1000) and
@@ -1013,7 +1014,13 @@ def check_gemm_kernels(dev, g, detail: dict) -> dict:
     torch.mv computes)."""
     import torch
     from pygpukit_tpu_torch.kernels import gemm, gemm_plain, gemv_quant, gemv_quant_plain
+    import ctypes
+    from pygpukit_tpu_torch.kernels._build import library
+    from pygpukit_tpu_torch.kernels.gemm import gemm_plan
     bf16, f32 = torch.bfloat16, torch.float32
+    card_plan = (ctypes.c_int * 4)()
+    check(library().pgk_gemm_plan(2048, 2048, card_plan) == 0, "pgk_gemm_plan failed")
+    clusters = {256: card_plan[2], 128: card_plan[3]}    # clusters the card runs at once
     keys = ("err", "ms", "plain_ms", "lib_ms", "bytes", "ops")
     proj = dict.fromkeys(keys, 0.0)
     cases = [(f"proj_{name}", FWD_S, n, k, bf16, 2) for name, (n, k) in PROJ_SHAPES.items()]
@@ -1038,8 +1045,21 @@ def check_gemm_kernels(dev, g, detail: dict) -> dict:
         lms = time_ms(lambda i: torch.matmul(a[i], b[i]), n_var, reps)
         nbytes, ops = (m * k + k * n + m * n) * a[0].element_size(), 2 * m * n * k
         row = kernel_row(err, kms, pms, nbytes, ops, "bf16" if dt == bf16 else "f32", lms)
+        plan = gemm_plan(m, n, clusters) if dt == bf16 else None
         detail[f"gemm_{what}"] = dict(row, share=row["bound_ms"] / kms,
-                                      tflops=ops / kms / 1e9, library_tflops=ops / lms / 1e9)
+                                      tflops=ops / kms / 1e9, library_tflops=ops / lms / 1e9,
+                                      plan=plan)
+        if plan:
+            cm, cn = plan["cluster"]
+            tile = (f"tile 128 x {plan['bn']}, {plan['units']} units of {cm} x {cn} tiles on "
+                    f"{plan['grid']} CTAs, {plan['waves']} waves "
+                    f"({plan['units'] / (plan['waves'] * clusters[plan['bn']]):.2f} full); ")
+        else:
+            tile = "f32 FFMA tile; "
+        print(f"phase 3: gemm {what} (M {m}, N {n}, K {k}): {tile}kernel {kms:.4f} ms = "
+              f"{ops / kms / 1e9:.1f} TFLOP/s, torch.matmul {lms:.4f} ms = "
+              f"{ops / lms / 1e9:.1f} TFLOP/s, bound {row['bound_ms']:.4f} ms = share "
+              f"{row['bound_ms'] / kms:.3f}, plain {pms:.4f} ms; max abs err {err:.3e}")
         if what.startswith("proj"):
             for key, v in zip(keys, (err, kms, pms, lms, nbytes, ops)):
                 proj[key] = max(proj[key], v) if key == "err" else proj[key] + v

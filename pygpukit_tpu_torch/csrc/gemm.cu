@@ -9,11 +9,16 @@
 // cell's 8192^3 about 2700, so the tensor cores (989 TFLOP/s bf16) bound
 // both, and the f32 route the CUDA cores (67 TFLOP/s FFMA).
 //
-// bf16 design: the 128 x 128 block tile of mma.cuh (8 warps, K in steps of
-// 32, double-buffered 16-byte cp.async, mma.sync m16n8k16 into f32); a
-// vector past the M, N or K edge is zero-filled, so ragged edges need no
-// padding of the operands beyond 16-byte rows (K % 8 == 0 and N % 8 == 0;
-// the wrapper pads otherwise). The epilogue rounds once and stores with
+// bf16 design: the TMA + wgmma mainloop of hopper_gemm.cuh (a producer
+// warpgroup, two consumer warpgroups, a 4- or 6-stage ring), 128 x BN
+// tiles in clusters that share their operand loads by TMA multicast:
+// 128 x 256 tiles in pairs along M (sharing B), 128 x 128 tiles in 2 x 2
+// (sharing A and B). BN is picked per launch by the fewest wasted slots
+// (plan_gemm), and a persistent grid of as many clusters as fit on the card
+// walks the units of tiles in raster groups of 16 row units. TMA zero-fills
+// past the M, N and K edges, so ragged shapes need no padding of the
+// operands beyond 16-byte rows (K % 8 == 0 and N % 8 == 0; the wrapper pads
+// otherwise). The epilogue rounds once and stores 16-byte words with
 // predicates.
 //
 // f32 design: no TF32 (the reference asks for HIGHEST precision): a 128 x 128
@@ -23,52 +28,71 @@
 // runs unpadded.
 //
 // Every output element is one thread's sum in ascending K order (bf16: per
-// 16-wide mma step): a replay gives the same bits.
-#include "mma.cuh"
+// 16-wide wgmma step): a replay gives the same bits.
+#include "hopper_gemm.cuh"
 
 namespace {
 
 using bf16 = __nv_bfloat16;
 
-template <typename T>
-__device__ __forceinline__ T store_cast(float x);
-template <>
-__device__ __forceinline__ float store_cast<float>(float x) { return x; }
-template <>
-__device__ __forceinline__ bf16 store_cast<bf16>(float x) { return __float2bfloat16_rn(x); }
-
 // ---------------------------------------------------------------------------
-// bf16: tensor cores (the block tile of mma.cuh)
+// bf16: tensor cores (the mainloop of hopper_gemm.cuh)
 // ---------------------------------------------------------------------------
 
-constexpr int kBM = kTileM, kBN = kTileN;
-constexpr int kThreads = kTileThreads;
+// The cluster of a tile width: CM row tiles x CN column tiles (HgCluster).
+// A 128 x 128 tile moves twice the bytes a flop of a 128 x 256 one, and a
+// card full of them waits on L2, so they share A and B in clusters of 2 x 2;
+// the 128 x 256 tile is bound by the tensor cores and shares B in pairs.
+template <int BN>
+struct GemmCl;
+template <>
+struct GemmCl<256> {
+  static constexpr int kCM = 2, kCN = 1;
+};
+template <>
+struct GemmCl<128> {
+  static constexpr int kCM = 2, kCN = 2;
+};
 
-template <typename OutT>
-__global__ void __launch_bounds__(kThreads)
-gemm_bf16_kernel(const bf16* __restrict__ a, const bf16* __restrict__ b, OutT* __restrict__ c,
-                 int m, int n, int k, int lda, int ldb, int ldc) {
-  __shared__ __align__(16) TileSmem sm;
-  const int m0 = blockIdx.y * kBM, n0 = blockIdx.x * kBN;
-  float acc[4][4][4];
-  mma_tile_bf16(a, lda, m0, 0, m, b, ldb, n0, n, k, sm, acc);
-
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int wm = (warp >> 2) * 64, wn = (warp & 3) * 32;
-  const int g = lane >> 2, t = lane & 3;
-#pragma unroll
-  for (int mi = 0; mi < 4; ++mi) {
-#pragma unroll
-    for (int half = 0; half < 2; ++half) {
-      const int row = m0 + wm + mi * 16 + g + half * 8;
-      if (row >= m) continue;
-      OutT* crow = c + (size_t)row * ldc;
-#pragma unroll
-      for (int ni = 0; ni < 4; ++ni) {
-        const int col = n0 + wn + ni * 8 + 2 * t;
-        if (col < n) crow[col] = store_cast<OutT>(acc[mi][ni][2 * half]);
-        if (col + 1 < n) crow[col + 1] = store_cast<OutT>(acc[mi][ni][2 * half + 1]);
+template <int BN, typename OutT>
+__global__ void __launch_bounds__(kHgThreads, 1)
+gemm_bf16_kernel(const __grid_constant__ CUtensorMap ta, const __grid_constant__ CUtensorMap tb,
+                 OutT* __restrict__ c, int m, int n, int k, int ldc) {
+  constexpr int kCM = GemmCl<BN>::kCM, kCN = GemmCl<BN>::kCN;
+  extern __shared__ __align__(1024) unsigned char gemm_raw[];
+  const HgRing ring = hg_ring<BN>(gemm_raw);
+  if (threadIdx.x == 0) hg_init<BN, kCM, kCN>(ring);
+  cluster_sync();
+  // the cluster walks units of kCM x kCN tiles; this CTA computes tile
+  // (kCM um + rm, kCN un + rn) of unit (um, un)
+  const uint32_t rank = cluster_ctarank();
+  const int rm = rank % kCM, rn = rank / kCM;
+  const int units_m = hg_cdiv(hg_cdiv(m, kHgBM), kCM);
+  const int units_n = hg_cdiv(hg_cdiv(n, BN), kCN);
+  const int n_units = units_m * units_n, n_k = hg_cdiv(k, kHgBK);
+  const int first = cluster_id_x(), step = cluster_count_x();
+  uint32_t it = 0;
+  if (threadIdx.x < 128) {
+    setmaxnreg_dec<kHgProducerRegs>();
+    if (threadIdx.x == 0) {
+      for (int u = first; u < n_units; u += step) {
+        int um, un;
+        hg_raster(u, units_m, units_n, um, un);
+        hg_produce<BN, kCM, kCN>(&ta, &tb, ring, (um * kCM + rm) * kHgBM,
+                                 (un * kCN + rn) * BN, 0, n_k, rank, it);
       }
+      hg_produce_tail<BN>(ring, it);
+    }
+  } else {
+    setmaxnreg_inc<kHgConsumerRegs>();
+    const int cwg = (threadIdx.x - 128) >> 7;
+    float acc[BN / 2];
+    for (int u = first; u < n_units; u += step) {
+      int um, un;
+      hg_raster(u, units_m, units_n, um, un);
+      hg_consume<BN, kCM, kCN>(acc, ring, cwg, n_k, rank, it);
+      hg_store<BN, OutT>(acc, c, ldc, (um * kCM + rm) * kHgBM + cwg * 64, (un * kCN + rn) * BN,
+                         0, m, n);
     }
   }
 }
@@ -77,6 +101,8 @@ gemm_bf16_kernel(const bf16* __restrict__ a, const bf16* __restrict__ b, OutT* _
 // f32: CUDA cores
 // ---------------------------------------------------------------------------
 
+constexpr int kBM = 128, kBN = 128;
+constexpr int kThreads = 256;
 constexpr int kFK = 8;
 constexpr int kFPad = kBM + 4;    // float4-aligned rows
 
@@ -137,25 +163,119 @@ gemm_f32_kernel(const float* __restrict__ a, const float* __restrict__ b, OutT* 
 #pragma unroll
     for (int j = 0; j < 8; ++j) {
       const int col = n0 + (j < 4 ? tx * 4 + j : 64 + tx * 4 + j - 4);
-      if (col < n) c[(size_t)row * ldc + col] = store_cast<OutT>(acc[i][j]);
+      if (col < n) c[(size_t)row * ldc + col] = hg_cast<OutT>(acc[i][j]);
     }
   }
 }
 
-template <typename InT, typename OutT>
-cudaError_t launch_gemm(const void* a, const void* b, void* c, int m, int n, int k, int lda,
-                        int ldb, int ldc, cudaStream_t st) {
+template <typename OutT>
+cudaError_t launch_gemm_f32(const void* a, const void* b, void* c, int m, int n, int k, int lda,
+                            int ldb, int ldc, cudaStream_t st) {
   const dim3 grid((n + kBN - 1) / kBN, (m + kBM - 1) / kBM);
-  if constexpr (sizeof(InT) == 2) {
-    gemm_bf16_kernel<OutT><<<grid, kThreads, 0, st>>>(
-        static_cast<const bf16*>(a), static_cast<const bf16*>(b), static_cast<OutT*>(c), m, n,
-        k, lda, ldb, ldc);
-  } else {
-    gemm_f32_kernel<OutT><<<grid, kThreads, 0, st>>>(
-        static_cast<const float*>(a), static_cast<const float*>(b), static_cast<OutT*>(c), m,
-        n, k, lda, ldb, ldc);
-  }
+  gemm_f32_kernel<OutT><<<grid, kThreads, 0, st>>>(
+      static_cast<const float*>(a), static_cast<const float*>(b), static_cast<OutT*>(c), m, n, k,
+      lda, ldb, ldc);
   return cudaGetLastError();
+}
+
+// The CTAs of a cluster of tile width BN, and its units (CM x CN tiles) for
+// an [m, n] output.
+template <int BN>
+constexpr int cluster_size() {
+  return GemmCl<BN>::kCM * GemmCl<BN>::kCN;
+}
+template <int BN>
+int gemm_units(int m, int n) {
+  return hg_cdiv(hg_cdiv(m, kHgBM), GemmCl<BN>::kCM) * hg_cdiv(hg_cdiv(n, BN), GemmCl<BN>::kCN);
+}
+
+template <int BN>
+cudaLaunchAttribute cluster_attr() {
+  cudaLaunchAttribute attr;
+  attr.id = cudaLaunchAttributeClusterDimension;
+  attr.val.clusterDim.x = cluster_size<BN>();
+  attr.val.clusterDim.y = 1;
+  attr.val.clusterDim.z = 1;
+  return attr;
+}
+
+// Clusters of this kernel that fit on the card at once: the persistent
+// grid's size (queried once; it depends on the card and the kernel alone).
+template <int BN>
+cudaError_t max_clusters(int* clusters) {
+  static int cached = 0;
+  if (cached == 0) {
+    constexpr int smem = HgLayout<BN>::kBytes;
+    cudaError_t e = cudaFuncSetAttribute(gemm_bf16_kernel<BN, bf16>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (e != cudaSuccess) return e;
+    cudaLaunchAttribute attr = cluster_attr<BN>();
+    cudaLaunchConfig_t cfg = {};
+    cfg.gridDim = dim3(cluster_size<BN>() * 128);
+    cfg.blockDim = dim3(kHgThreads);
+    cfg.dynamicSmemBytes = smem;
+    cfg.attrs = &attr;
+    cfg.numAttrs = 1;
+    e = cudaOccupancyMaxActiveClusters(&cached, gemm_bf16_kernel<BN, bf16>, &cfg);
+    if (e != cudaSuccess) return e;
+    if (cached < 1) return cudaErrorInvalidConfiguration;
+  }
+  *clusters = cached;
+  return cudaSuccess;
+}
+
+template <int BN, typename OutT>
+cudaError_t launch_gemm_bf16(const void* a, const void* b, void* c, int m, int n, int k, int lda,
+                             int ldb, int ldc, int clusters, cudaStream_t st) {
+  CUtensorMap ta, tb;
+  cudaError_t e = pgk_tensor_map_bf16(&ta, a, k, m, (uint64_t)lda * 2, kHgBK,
+                                      kHgBM / GemmCl<BN>::kCN);
+  if (e == cudaSuccess)
+    e = pgk_tensor_map_bf16_3d(&tb, b, n, k, 1, (uint64_t)ldb * 2, (uint64_t)ldb * 2 * k, 64,
+                               kHgBK);
+  if (e != cudaSuccess) return e;
+  constexpr int smem = HgLayout<BN>::kBytes;
+  e = cudaFuncSetAttribute(gemm_bf16_kernel<BN, OutT>,
+                           cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (e != cudaSuccess) return e;
+  cudaLaunchAttribute attr = cluster_attr<BN>();
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(cluster_size<BN>() * min(gemm_units<BN>(m, n), clusters));
+  cfg.blockDim = dim3(kHgThreads);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = st;
+  cfg.attrs = &attr;
+  cfg.numAttrs = 1;
+  e = cudaLaunchKernelEx(&cfg, gemm_bf16_kernel<BN, OutT>, ta, tb, static_cast<OutT*>(c), m, n,
+                         k, ldc);
+  if (e != cudaSuccess) return e;
+  return cudaGetLastError();
+}
+
+// The launch plan of an [m, k] x [k, n] product (kernels/gemm.py gemm_plan
+// is the same rule): the tile width whose waves of units cost least (waves
+// x BN, 256 on a tie), and the clusters of its persistent grid.
+cudaError_t plan_gemm(int m, int n, int* bn, int* clusters) {
+  int c256 = 0, c128 = 0;
+  cudaError_t e = max_clusters<256>(&c256);
+  if (e == cudaSuccess) e = max_clusters<128>(&c128);
+  if (e != cudaSuccess) return e;
+  const int cost256 = hg_cdiv(gemm_units<256>(m, n), c256) * 256;
+  const int cost128 = hg_cdiv(gemm_units<128>(m, n), c128) * 128;
+  *bn = cost128 < cost256 ? 128 : 256;
+  *clusters = *bn == 256 ? c256 : c128;
+  return cudaSuccess;
+}
+
+template <typename OutT>
+cudaError_t launch_gemm_bf16(const void* a, const void* b, void* c, int m, int n, int k, int lda,
+                             int ldb, int ldc, cudaStream_t st) {
+  int bn = 0, clusters = 0;
+  cudaError_t e = plan_gemm(m, n, &bn, &clusters);
+  if (e != cudaSuccess) return e;
+  if (bn == 256)
+    return launch_gemm_bf16<256, OutT>(a, b, c, m, n, k, lda, ldb, ldc, clusters, st);
+  return launch_gemm_bf16<128, OutT>(a, b, c, m, n, k, lda, ldb, ldc, clusters, st);
 }
 
 }  // namespace
@@ -173,8 +293,24 @@ PGK_API int pgk_gemm(const void* a, const void* b, void* c, int m, int n, int k,
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (in_f32)
-    return out_f32 ? (int)launch_gemm<float, float>(a, b, c, m, n, k, lda, ldb, ldc, st)
-                   : (int)launch_gemm<float, bf16>(a, b, c, m, n, k, lda, ldb, ldc, st);
-  return out_f32 ? (int)launch_gemm<bf16, float>(a, b, c, m, n, k, lda, ldb, ldc, st)
-                 : (int)launch_gemm<bf16, bf16>(a, b, c, m, n, k, lda, ldb, ldc, st);
+    return out_f32 ? (int)launch_gemm_f32<float>(a, b, c, m, n, k, lda, ldb, ldc, st)
+                   : (int)launch_gemm_f32<bf16>(a, b, c, m, n, k, lda, ldb, ldc, st);
+  return out_f32 ? (int)launch_gemm_bf16<float>(a, b, c, m, n, k, lda, ldb, ldc, st)
+                 : (int)launch_gemm_bf16<bf16>(a, b, c, m, n, k, lda, ldb, ldc, st);
+}
+
+// The bf16 launch plan on this card, for the tests that hold its Python
+// mirror (kernels/gemm.py gemm_plan): plan[0] the tile width BN, plan[1] the
+// CTAs of the persistent grid, plan[2] and plan[3] the clusters of the
+// 256- and 128-wide tiles that fit at once.
+PGK_API int pgk_gemm_plan(int m, int n, int* plan) {
+  int bn = 0, clusters = 0;
+  cudaError_t e = plan_gemm(m, n, &bn, &clusters);
+  if (e == cudaSuccess) e = max_clusters<256>(&plan[2]);
+  if (e == cudaSuccess) e = max_clusters<128>(&plan[3]);
+  if (e != cudaSuccess) return (int)e;
+  plan[0] = bn;
+  plan[1] = bn == 256 ? cluster_size<256>() * min(gemm_units<256>(m, n), clusters)
+                      : cluster_size<128>() * min(gemm_units<128>(m, n), clusters);
+  return 0;
 }

@@ -12,25 +12,30 @@
 // 512-token prefill) 120 GFLOP over 1.01 GB, most of it the eight experts'
 // weights (bytes, 0.30 ms at 3.35 TB/s).
 //
-// Design: the 128 x 128 tensor-core block tile of gemm.cu (mma.cuh
-// mma_tile_bf16), one tile of one group per block. Nothing is read on the
-// host: the grid is the upper bound of (group, row tile) pairs,
-// ceil(M/128) + G (G - 1 for the boundaries between groups, one more for
-// the rows past the sum), on x, times the column tiles on y. Warp 0 of
-// every block scans group_sizes from device memory, 32 groups a step, into
-// row and tile offsets and picks the block's (group, row tile); a block
-// past the count returns. Row tiles are aligned to multiples of 128 rows as
-// in megablox's make_group_metadata, so a tile that straddles two groups is
-// computed once for each, and each computation zero-fills the other
-// group's rows on load and stores only its own. A group with no rows has no
-// tile and reads no weights. Row tiles vary fastest, so the blocks that
-// share one column tile of an expert's weights run together and read it
-// from L2 rather than from device memory.
+// Design: the TMA + wgmma mainloop of hopper_gemm.cuh (gemm.cu's), rhs
+// through a 3-D tensor map (N, K, group), so a K tile past K reads zeros
+// and never the next group's rows. Row tiles start at each group's first
+// row (lo + j * 128): TMA starts a box at any row, so no tile straddles two
+// groups and none is computed twice (megablox aligns tiles to 128 rows). A
+// tile may read the next group's lhs rows, or rows past M (zeros): each
+// output row depends only on its own lhs row, so those rows are computed
+// and not stored. The rows past the sum form one more segment, stored as
+// zeros without a product. Nothing is read on the host: the grid is
+// persistent, min(upper bound of tiles, SMs) blocks, the upper bound
+// (ceil(M/128) + G row tiles) x column tiles depending on shapes alone;
+// every warp that needs a tile's (group, rows) scans group_sizes from
+// device memory, 32 groups a step (gmm_locate), and the blocks walk the
+// actual tiles in hg_raster's order (row tiles fastest within groups of
+// 16), so the blocks that share one column tile of an expert's weights run
+// together and read it from L2. A group with no rows has no tile and reads
+// no weights.
 //
 // Deterministic: exactly one block owns each output element, K is walked in
-// ascending 16-wide mma steps into one f32 accumulator, no split-K, no
-// atomics. Needs no host sync, so it captures into a CUDA graph.
-#include "mma.cuh"
+// ascending 16-wide wgmma steps into one f32 accumulator, no split-K, no
+// atomics. Needs no host sync, so it captures into a CUDA graph. The tile
+// enumeration is mirrored in Python by kernels/gmm.py (gmm_row_tiles),
+// which the CPU tests hold.
+#include "hopper_gemm.cuh"
 
 namespace {
 
@@ -45,84 +50,115 @@ __device__ __forceinline__ int warp_inclusive_sum(int v, int lane) {
   return v;
 }
 
-// Row tiles [lo/128, ceil(hi/128)) of the rows [lo, hi); none when empty.
-__device__ __forceinline__ int tiles_of(int lo, int hi) {
-  return hi > lo ? (hi + kTileM - 1) / kTileM - lo / kTileM : 0;
+// One row tile: segment g (a group, or n_groups for the rows past the sum),
+// whose rows [lo, hi) it stores; its first row m0 = lo + 128 j.
+struct GmmTile {
+  int g, lo, hi, m0;
+};
+
+// Row tile r of the segments in order (every lane of the warp gets it;
+// g = -1 past the last), and the count of row tiles in `total`. Segment g
+// holds rows [min(offs[g], m), min(offs[g + 1], m)), ceil(rows / 128) tiles.
+__device__ __forceinline__ GmmTile gmm_locate(const int* __restrict__ group_sizes,
+                                              int n_groups, int m, int r, int lane,
+                                              int& total) {
+  GmmTile tile{-1, 0, 0, 0};
+  int rows_before = 0, tiles_before = 0;
+  for (int base = 0; base < n_groups; base += 32) {
+    const int g = base + lane;
+    const int size = g < n_groups ? max(group_sizes[g], 0) : 0;
+    const int end = rows_before + warp_inclusive_sum(size, lane);
+    const int lo = min(end - size, m), hi = min(end, m);
+    const int nt = hg_cdiv(hi - lo, kHgBM);
+    const int t_end = tiles_before + warp_inclusive_sum(nt, lane);
+    const unsigned mine = __ballot_sync(0xffffffffu, r >= t_end - nt && r < t_end);
+    if (mine) {
+      const int src = __ffs(mine) - 1;
+      tile.g = __shfl_sync(0xffffffffu, g, src);
+      tile.lo = __shfl_sync(0xffffffffu, lo, src);
+      tile.hi = __shfl_sync(0xffffffffu, hi, src);
+      tile.m0 = tile.lo + (r - __shfl_sync(0xffffffffu, t_end - nt, src)) * kHgBM;
+    }
+    rows_before = __shfl_sync(0xffffffffu, end, 31);
+    tiles_before = __shfl_sync(0xffffffffu, t_end, 31);
+  }
+  // the rows past the sum of the sizes: segment n_groups, written as zeros
+  const int lo = min(rows_before, m);
+  const int nt = hg_cdiv(m - lo, kHgBM);
+  if (r >= tiles_before && r < tiles_before + nt)
+    tile = GmmTile{n_groups, lo, m, lo + (r - tiles_before) * kHgBM};
+  total = tiles_before + nt;
+  return tile;
 }
 
-__global__ void __launch_bounds__(kTileThreads)
-gmm_kernel(const bf16* __restrict__ lhs, const bf16* __restrict__ rhs,
+template <int BN>
+__global__ void __launch_bounds__(kHgThreads, 1)
+gmm_kernel(const __grid_constant__ CUtensorMap tl, const __grid_constant__ CUtensorMap tr,
            const int* __restrict__ group_sizes, float* __restrict__ out, int m, int n, int k,
-           int n_groups, int lda) {
-  __shared__ __align__(16) TileSmem sm;
-  __shared__ int s_group, s_lo, s_hi, s_tile;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int want = blockIdx.x;
-  if (threadIdx.x == 0) s_group = -1;
+           int n_groups) {
+  extern __shared__ __align__(1024) unsigned char gmm_raw[];
+  const HgRing ring = hg_ring<BN>(gmm_raw);
+  if (threadIdx.x == 0) hg_init<BN, 1, 1>(ring);
   __syncthreads();
-  if (warp == 0) {
-    int rows_before = 0, tiles_before = 0;
-    for (int base = 0; base < n_groups; base += 32) {
-      const int g = base + lane;
-      const int size = g < n_groups ? max(group_sizes[g], 0) : 0;
-      const int end = rows_before + warp_inclusive_sum(size, lane);
-      const int lo = min(end - size, m), hi = min(end, m);
-      const int nt = tiles_of(lo, hi);
-      const int t_end = tiles_before + warp_inclusive_sum(nt, lane);
-      if (want >= t_end - nt && want < t_end) {
-        s_group = g;
-        s_lo = lo;
-        s_hi = hi;
-        s_tile = lo / kTileM + want - (t_end - nt);
+  const int lane = threadIdx.x & 31;
+  const int tiles_n = hg_cdiv(n, BN), n_k = hg_cdiv(k, kHgBK);
+  uint32_t it = 0;
+  int rows;
+  if (threadIdx.x < 128) {
+    setmaxnreg_dec<kHgProducerRegs>();
+    if (threadIdx.x < 32) {            // warp 0 scans, its lane 0 issues the loads
+      gmm_locate(group_sizes, n_groups, m, -1, lane, rows);
+      for (int t = blockIdx.x; t < rows * tiles_n; t += gridDim.x) {
+        int tm, tn;
+        hg_raster(t, rows, tiles_n, tm, tn);
+        const GmmTile tile = gmm_locate(group_sizes, n_groups, m, tm, lane, rows);
+        if (lane == 0 && tile.g < n_groups)
+          hg_produce<BN, 1, 1>(&tl, &tr, ring, tile.m0, tn * BN, tile.g, n_k, 0, it);
+        __syncwarp();
       }
-      rows_before = __shfl_sync(0xffffffffu, end, 31);
-      tiles_before = __shfl_sync(0xffffffffu, t_end, 31);
     }
-    // the rows past the sum of the sizes: group n_groups, written as zeros
-    const int lo = min(rows_before, m);
-    if (lane == 0 && want >= tiles_before && want < tiles_before + tiles_of(lo, m)) {
-      s_group = n_groups;
-      s_lo = lo;
-      s_hi = m;
-      s_tile = lo / kTileM + want - tiles_before;
-    }
-  }
-  __syncthreads();
-  const int grp = s_group;
-  if (grp < 0) return;
-  const int m0 = s_tile * kTileM, lo = s_lo, hi = s_hi;
-  const int n0 = blockIdx.y * kTileN;
-
-  float acc[4][4][4];
-  if (grp < n_groups) {
-    mma_tile_bf16(lhs, lda, m0, lo, hi, rhs + (size_t)grp * k * n, n, n0, n, k, sm, acc);
   } else {
-#pragma unroll
-    for (int mi = 0; mi < 4; ++mi)
-#pragma unroll
-      for (int ni = 0; ni < 4; ++ni)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) acc[mi][ni][e] = 0.f;
-  }
-
-  const int wm = (warp >> 2) * 64, wn = (warp & 3) * 32;
-  const int g = lane >> 2, t = lane & 3;
-#pragma unroll
-  for (int mi = 0; mi < 4; ++mi) {
-#pragma unroll
-    for (int half = 0; half < 2; ++half) {
-      const int row = m0 + wm + mi * 16 + g + half * 8;
-      if (row < lo || row >= hi) continue;      // another group's row, or past M
-      float* orow = out + (size_t)row * n;
-#pragma unroll
-      for (int ni = 0; ni < 4; ++ni) {
-        const int col = n0 + wn + ni * 8 + 2 * t;  // even, and n % 8 == 0
-        if (col < n)
-          *reinterpret_cast<float2*>(orow + col) =
-              make_float2(acc[mi][ni][2 * half], acc[mi][ni][2 * half + 1]);
-      }
+    setmaxnreg_inc<kHgConsumerRegs>();
+    const int cwg = (threadIdx.x - 128) >> 7;
+    float acc[BN / 2];
+    gmm_locate(group_sizes, n_groups, m, -1, lane, rows);
+    for (int t = blockIdx.x; t < rows * tiles_n; t += gridDim.x) {
+      int tm, tn;
+      hg_raster(t, rows, tiles_n, tm, tn);
+      const GmmTile tile = gmm_locate(group_sizes, n_groups, m, tm, lane, rows);
+      const bool zeros = tile.g == n_groups;          // the rows past the sum
+      if (!zeros) hg_consume<BN, 1, 1>(acc, ring, cwg, n_k, 0, it);
+      hg_store<BN, float>(acc, out, n, tile.m0 + cwg * 64, tn * BN, tile.lo, tile.hi, n, zeros);
     }
   }
+}
+
+// The tile width for row_tiles 128-row tiles over n columns on sms SMs: the
+// width whose waves cost least (waves x BN), 256 on a tie (kernels/gemm.py
+// pick_bn is the same rule).
+int pick_bn(int row_tiles, int n, int sms) {
+  const int w256 = hg_cdiv(row_tiles * hg_cdiv(n, 256), sms);
+  const int w128 = hg_cdiv(row_tiles * hg_cdiv(n, 128), sms);
+  return w128 * 128 < w256 * 256 ? 128 : 256;
+}
+
+template <int BN>
+cudaError_t launch_gmm(const void* lhs, const void* rhs, const void* group_sizes, void* out,
+                       int m, int n, int k, int n_groups, int lda, int sms, cudaStream_t st) {
+  CUtensorMap tl, tr;
+  cudaError_t e = pgk_tensor_map_bf16(&tl, lhs, k, m, (uint64_t)lda * 2, kHgBK, kHgBM);
+  if (e == cudaSuccess)
+    e = pgk_tensor_map_bf16_3d(&tr, rhs, n, k, n_groups, (uint64_t)n * 2, (uint64_t)n * 2 * k,
+                               64, kHgBK);
+  if (e != cudaSuccess) return e;
+  constexpr int smem = HgLayout<BN>::kBytes;
+  e = cudaFuncSetAttribute(gmm_kernel<BN>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (e != cudaSuccess) return e;
+  const long long tiles = (long long)(hg_cdiv(m, kHgBM) + n_groups) * hg_cdiv(n, BN);
+  gmm_kernel<BN><<<tiles < sms ? (int)tiles : sms, kHgThreads, smem, st>>>(
+      tl, tr, static_cast<const int*>(group_sizes), static_cast<float*>(out), m, n, k,
+      n_groups);
+  return cudaGetLastError();
 }
 
 }  // namespace
@@ -133,12 +169,14 @@ gmm_kernel(const bf16* __restrict__ lhs, const bf16* __restrict__ rhs,
 // pointers; m, n, k, n_groups >= 1.
 PGK_API int pgk_gmm(const void* lhs, const void* rhs, const void* group_sizes, void* out,
                     int m, int n, int k, int n_groups, int lda, void* stream) {
-  if (m < 1 || n < 1 || k < 1 || n_groups < 1 || lda < k || k % 8 || n % 8 || lda % 8 ||
-      (n + kTileN - 1) / kTileN > 65535)
+  if (m < 1 || n < 1 || k < 1 || n_groups < 1 || lda < k || k % 8 || n % 8 || lda % 8)
     return (int)cudaErrorInvalidValue;
-  const dim3 grid((m + kTileM - 1) / kTileM + n_groups, (n + kTileN - 1) / kTileN);
-  gmm_kernel<<<grid, kTileThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const bf16*>(lhs), static_cast<const bf16*>(rhs),
-      static_cast<const int*>(group_sizes), static_cast<float*>(out), m, n, k, n_groups, lda);
-  return (int)cudaGetLastError();
+  int dev = 0, sms = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e == cudaSuccess) e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (e != cudaSuccess) return (int)e;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (pick_bn(hg_cdiv(m, kHgBM) + n_groups, n, sms) == 256)
+    return (int)launch_gmm<256>(lhs, rhs, group_sizes, out, m, n, k, n_groups, lda, sms, st);
+  return (int)launch_gmm<128>(lhs, rhs, group_sizes, out, m, n, k, n_groups, lda, sms, st);
 }

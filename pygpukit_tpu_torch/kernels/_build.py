@@ -5,8 +5,9 @@ The sources have a plain C interface and include no PyTorch header. Each
 more call links the objects into a shared library: about 22 s on the H100
 machine, bound by the two decode-attention files (20 storage, query and
 head-dim variants each). The Hopper instructions (TMA, mbarriers, wgmma,
-setmaxnreg) are raw PTX in ``csrc/hopper.cuh``: no CUTLASS or CuTe header
-is compiled, and the tensor-map encoder is the driver's, fetched at run
+setmaxnreg) are raw PTX in ``csrc/hopper.cuh`` (the GEMM mainloop of
+``gemm.cu`` and ``gmm.cu`` in ``csrc/hopper_gemm.cuh``): no CUTLASS or CuTe
+header is compiled, and the tensor-map encoder is libcuda's, fetched at run
 time (no ``-lcuda``). The library
 goes to ``build/pygpukit_tpu_torch/`` at the repository root (listed in
 ``.gitignore``), named by a hash of the sources and flags: a changed source
@@ -70,6 +71,7 @@ _SIGNATURES = {
     "pgk_fused_decode_plan": [c_int] * 7 + [_P],
     "pgk_fused_decode": [_P] * 19 + [c_int] * 7 + [c_float, c_float, _P],
     "pgk_gmm": [_P, _P, _P, _P, c_int, c_int, c_int, c_int, c_int, _P],
+    "pgk_gemm_plan": [c_int, c_int, _P],
 }
 
 _lib: ctypes.CDLL | None = None

@@ -12,8 +12,11 @@ device memory and needs no host sync; a CPU tensor runs ``gmm_plain``.
 
 The kernel takes bf16 operands with K and N multiples of 8 (16-byte rows)
 and raises NotImplementedError on anything else; it has no fall-back.
-Unlike megablox, M need not be a multiple of 128: a partial row tile is
-zero-filled on load and stored with predicates.
+Unlike megablox, M need not be a multiple of 128, and row tiles start at
+each group's first row rather than on 128-row boundaries, so no tile spans
+two groups: :func:`gmm_row_tiles` enumerates them as the kernel's device
+scan (``gmm_locate`` in ``csrc/gmm.cu``) does, and :func:`gmm_plan` gives
+the launch, which depends on the shapes alone.
 """
 
 from __future__ import annotations
@@ -22,7 +25,7 @@ import torch
 
 from ..core.numerics import require_full_f32
 from ._build import launch, require_on, stream_of
-from .gemm import _rows16
+from .gemm import H100_SMS, TILE_M, _cdiv, _rows16, pick_bn
 
 _F32 = torch.float32
 _BF16 = torch.bfloat16
@@ -33,6 +36,33 @@ def _check_shapes(lhs: torch.Tensor, rhs: torch.Tensor, group_sizes: torch.Tenso
             or lhs.shape[1] != rhs.shape[1] or group_sizes.shape[0] != rhs.shape[0]):
         raise ValueError(f"gmm shapes: lhs {tuple(lhs.shape)}, rhs {tuple(rhs.shape)}, "
                          f"group_sizes {tuple(group_sizes.shape)}")
+
+
+def gmm_row_tiles(sizes, m: int) -> list[tuple[int, int, int, int]]:
+    """The kernel's row tiles in order, each ``(segment, lo, hi, m0)``: the
+    tile computes rows ``[m0, m0 + TILE_M)`` and stores those in ``[lo,
+    hi)``. Segment g < G holds group g's rows clamped to ``m``; segment G the
+    rows past the sum of the sizes (stored as zeros). A segment of r rows
+    has ``ceil(r / TILE_M)`` tiles starting at its first row."""
+    tiles, end = [], 0
+    for g, size in enumerate(list(sizes) + [None]):
+        if size is None:                       # the rows past the sum
+            lo, hi = min(end, m), m
+        else:
+            lo, hi = min(end, m), min(end + max(int(size), 0), m)
+            end += max(int(size), 0)
+        tiles += [(g, lo, hi, lo + j * TILE_M) for j in range(_cdiv(hi - lo, TILE_M))]
+    return tiles
+
+
+def gmm_plan(m: int, n: int, n_groups: int, sms: int = H100_SMS) -> dict:
+    """The launch of an [m, k] x [n_groups, k, n] product: the tile width,
+    the upper bound of row tiles (``ceil(m / TILE_M) + n_groups``) and the
+    persistent grid. Depends on shapes alone, never on the group sizes."""
+    row_bound = _cdiv(m, TILE_M) + n_groups
+    bn = pick_bn(row_bound, n, sms)       # one CTA a tile, one tile an SM
+    return {"bn": bn, "row_bound": row_bound, "tiles_n": _cdiv(n, bn),
+            "grid": min(row_bound * _cdiv(n, bn), sms)}
 
 
 def gmm_plain(lhs: torch.Tensor, rhs: torch.Tensor, group_sizes) -> torch.Tensor:

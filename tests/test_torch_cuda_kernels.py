@@ -483,10 +483,13 @@ def _bf16_close(y, ref) -> bool:
 
 @pytest.mark.parametrize("dtypes", [("bf16", "bf16"), ("f32", "f32"), ("bf16", "f32")])
 @pytest.mark.parametrize("mnk", [(64, 128, 128), (65, 130, 136), (300, 260, 384),
-                                 (2048, 2560, 2048), (129, 136, 131)])
+                                 (2048, 2560, 2048), (129, 136, 131), (200, 384, 200),
+                                 (2048, 2048, 5632), (300, 2560, 520)])
 def test_gemm_matches_plain(dev, mnk, dtypes):
-    """Ragged edges (M 65, N 130, K 136; K 131 padded for bf16) and mixed
-    bf16/f32 operands (an f32 product); replay bitwise."""
+    """Ragged edges (M 65, N 130, K 136; K 131 padded for bf16; K 200 and 520
+    off the 64-deep stage), N between the tile widths (384) and on the
+    128-wide plan (2560), and mixed bf16/f32 operands (an f32 product);
+    replay bitwise."""
     m, n, k = mnk
     dt = {"bf16": torch.bfloat16, "f32": torch.float32}
     g = _gen(dev, m + n + k)
@@ -505,6 +508,46 @@ def test_gemm_matches_plain(dev, mnk, dtypes):
     assert torch.equal(y, gemm(a, b, force="pallas"))
     yt = gemm(a, b.t().contiguous().t(), force="pallas")     # a strided B
     assert torch.equal(yt, y)
+
+
+@pytest.mark.parametrize("m", [1, 7, 63])
+@pytest.mark.parametrize("out_dtype", [torch.bfloat16, torch.float32])
+def test_gemm_kernel_small_m_and_a_column_slice(dev, m, out_dtype):
+    """M below the route's 64 through the kernel entry, and an A whose rows
+    are longer than K (a column slice, lda 264 > K 200): TMA reads the
+    slice in place."""
+    from pygpukit_tpu_torch.kernels.gemm import _gemm_kernel
+    g = _gen(dev, m)
+    wide = torch.randn((m, 264), generator=g, device=dev).to(torch.bfloat16)
+    a = wide[:, 8:208]
+    b = torch.randn((200, 384), generator=g, device=dev).to(torch.bfloat16)
+    assert a.stride(0) == 264
+    before = LAUNCHES["gemm"]
+    y = _gemm_kernel(a, b, out_dtype)
+    assert LAUNCHES["gemm"] == before + 1
+    ref = gemm_plain(a, b, out_dtype)
+    if out_dtype == torch.bfloat16:
+        assert _bf16_close(y, ref)
+    else:
+        assert ((y - ref).abs() <= 1e-4 * ref.abs().max()).all()
+    assert torch.equal(y, _gemm_kernel(a, b, out_dtype))
+    assert torch.equal(y, _gemm_kernel(a.contiguous(), b, out_dtype))
+
+
+def test_gemm_plan_matches_its_python_mirror(dev):
+    """The C launch plan (tile width, persistent grid) equals gemm_plan on
+    the clusters this card runs at once."""
+    import ctypes
+    from pygpukit_tpu_torch.kernels._build import library
+    from pygpukit_tpu_torch.kernels.gemm import gemm_plan
+    plan = (ctypes.c_int * 4)()
+    for m in (1, 64, 300, 2048, 8192):
+        for n in (128, 130, 384, 2048, 2560, 11264, 8192):
+            assert library().pgk_gemm_plan(m, n, plan) == 0
+            want = gemm_plan(m, n, {256: plan[2], 128: plan[3]})
+            assert (plan[0], plan[1]) == (want["bn"], want["grid"]), (m, n)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    assert 1 <= plan[2] <= sms // 2 and 1 <= plan[3] <= sms // 4
 
 
 def test_matmul_counts_gemm_only_under_the_switch(dev, monkeypatch):
@@ -753,6 +796,9 @@ GMM_CASES = {                       # name -> (group sizes, rows M, K, N)
     "M below 16": ([3, 0, 5], 8, 64, 72),
     "rows past the sum": ([100, 50], 300, 128, 128),
     "routed, 8 experts": (None, 1024, 1024, 512),
+    "K 136 over four groups": ([50, 70, 0, 80], 200, 136, 256),
+    "128 groups of 0-9 rows": ("qwen3", 0, 512, 768),
+    "a group that starts mid-tile": ([60, 200, 10, 130], 400, 256, 384),
 }
 
 
@@ -762,6 +808,9 @@ def _gmm_inputs(dev, name):
     if sizes is None:                   # a seeded top-2 routing of M / 2 tokens
         top2 = torch.rand((m // 2, 8), generator=g, device=dev).argsort(dim=-1)[:, :2]
         sizes = torch.bincount(top2.reshape(-1), minlength=8).tolist()
+    elif sizes == "qwen3":              # many small experts, some empty
+        sizes = torch.randint(0, 10, (128,), generator=g, device=dev).tolist()
+        m = sum(sizes)
     lhs = torch.randn((m, k), generator=g, device=dev).to(torch.bfloat16)
     rhs = (torch.randn((len(sizes), k, n), generator=g, device=dev) * 0.1).to(torch.bfloat16)
     return lhs, rhs, torch.tensor(sizes, dtype=torch.int32, device=dev)
@@ -782,6 +831,37 @@ def test_gmm_matches_plain(dev, name):
     assert (out - ref).abs().max() <= 1e-4 * ref.abs().max()
     assert torch.equal(out[int(sizes.sum()):], torch.zeros_like(out[int(sizes.sum()):]))
     assert torch.equal(out, gmm(lhs, rhs, sizes))
+
+
+def test_gmm_graph_replays_new_group_sizes(dev):
+    """gmm captured once in a CUDA graph reads the group sizes at each
+    replay: sizes changed in place give each replay the plain version's
+    result for the new sizes (rows past the sum zero), replayed bitwise."""
+    from pygpukit_tpu_torch.kernels import gmm, gmm_plain
+    g = _gen(dev, 11)
+    m, k, n = 384, 256, 384
+    lhs = torch.randn((m, k), generator=g, device=dev).to(torch.bfloat16)
+    rhs = (torch.randn((4, k, n), generator=g, device=dev) * 0.1).to(torch.bfloat16)
+    sizes = torch.tensor([100, 100, 100, 84], dtype=torch.int32, device=dev)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        gmm(lhs, rhs, sizes)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = gmm(lhs, rhs, sizes)
+    for new in ([100, 100, 100, 84], [0, 384, 0, 0], [1, 130, 0, 200], [60, 0, 70, 10],
+                [0, 0, 0, 0]):
+        sizes.copy_(torch.tensor(new, dtype=torch.int32))
+        graph.replay()
+        torch.cuda.synchronize()
+        ref = gmm_plain(lhs, rhs, new)
+        assert (out - ref).abs().max() <= 1e-4 * max(ref.abs().max().item(), 1e-30)
+        assert torch.equal(out[sum(new):], torch.zeros_like(out[sum(new):]))
+        first = out.clone()
+        graph.replay()
+        assert torch.equal(out, first)
 
 
 def test_gmm_raises_on_unsupported_operands(dev):
