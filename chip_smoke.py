@@ -132,9 +132,14 @@ bf16 at 8192^3 in TFLOP/s beside cuBLAS; f32 at 2048^3) and gemv_quant (the four
 projection shapes N-major, fp8 e4m3, int8 and bf16) against their plain
 versions, and flash_attention (causal bf16 at S 1000, 2048 and 8192,
 once full, at D 128 and S 1, 63, 129, 2048 and 8192, f32 at S 1000) and
-flash_decode (MAX 8192, ctx 1, 700 and 8192, and ctx 144 in MAX 512, the
-decode phase's shape, bf16 and f32)
-against their plain versions, and gmm (GMM_CASES: Mixtral's expert
+flash_decode (DECODE_CASES: the 1.1B heads at MAX 8192, ctx 1, 700 and
+8192, and ctx 144 and 512 in MAX 512, the decode phase's shape, bf16 and
+f32; Mixtral's heads at phase 14's step; each beside SDPA, with its bound
+and share; one launch captured in a CUDA graph with ctx_len on the card,
+replayed at DECODE_GRAPH_CTX against the eager call, bitwise) against
+their plain versions, gemv_quant's fp8, int8 and bf16 totals over the four
+shapes (ms, GB/s, share, torch.mv for bf16) and at GEMV_UNALIGNED beside
+the aligned gate_up, and gmm (GMM_CASES: Mixtral's expert
 products at M 1024 and 4096 from a seeded top-2 routing, an empty group, a
 one-row group, all rows in one group, M off the 128-row tile, and
 Qwen3-30B-A3B's 128 small experts) against gmm_plain within GMM_REL of max
@@ -199,7 +204,7 @@ SOURCES = {"w4a8_gemv": ("pygpukit_tpu_torch/csrc/w4a8_gemv.cu",
                                "pygpukit_tpu/kernels/paged_attention.py:80"),
            "flash_attention": ("pygpukit_tpu_torch/csrc/flash_attention.cu",
                                "pygpukit_tpu/kernels/flash_attention.py:90"),
-           "flash_decode": ("pygpukit_tpu_torch/csrc/flash_attention.cu",
+           "flash_decode": ("pygpukit_tpu_torch/csrc/flash_decode.cu",
                             "pygpukit_tpu/kernels/flash_attention.py:194"),
            "gemm": ("pygpukit_tpu_torch/csrc/gemm.cu", "pygpukit_tpu/kernels/gemm.py:58"),
            "gemv_quant": ("pygpukit_tpu_torch/csrc/gemv_quant.cu",
@@ -247,9 +252,19 @@ FLASH_CASES = [(1000, 32, 4, 64, "bf16", True), (2048, 32, 4, 64, "bf16", True),
                (2048, 32, 8, 128, "bf16", True), (1, 32, 8, 128, "bf16", True),
                (63, 32, 8, 128, "bf16", True), (129, 32, 8, 128, "bf16", True),
                (8192, 32, 8, 128, "bf16", True), (1000, 32, 4, 64, "f32", True)]
-# (MAX, ctx) of the flash_decode checks; the summary row is the decode
-# phase's shape (cache 512, the step at pos 143 attends 144 rows)
-DECODE_CASES = ((8192, 1), (8192, 700), (8192, 8192), (512, 144))
+# (Hq, Hk, D, MAX, ctx, dtypes) of the flash_decode checks: the 1.1B heads
+# at MAX 8192 and in the decode phase's 512-row cache (the step at pos 143
+# attends 144 rows, the summary row; at pos 511, 512), and Mixtral's heads
+# as phase 14's decode step gives them (MOE_MAX 1024, the step at pos
+# MOE_PROMPT + MOE_NEW // 2 = 544 attends 545 rows)
+DECODE_CASES = ((32, 4, 64, 8192, 1, ("bf16", "f32")), (32, 4, 64, 8192, 700, ("bf16", "f32")),
+                (32, 4, 64, 8192, 8192, ("bf16", "f32")), (32, 4, 64, 512, 144, ("bf16", "f32")),
+                (32, 4, 64, 512, 512, ("bf16",)), (32, 8, 128, 1024, 545, ("bf16",)))
+DECODE_ROW = (32, 4, 64, 512, 144, "bf16")
+# contexts a flash_decode graph captured once (ctx_len on the card) replays
+# at, against the eager call with an int: below 0, one row, chunk edges,
+# the decode phase's 144, MAX and past it
+DECODE_GRAPH_CTX = (0, 1, 64, 65, 144, 511, 512, 519, -3)
 # (layers, pos, MAX) of the fused_decode checks; the summary row times the
 # decode phase's shape, the last entry is past the reference's VMEM gate
 FUSED_CASES = ((2, 1, 512), (2, 143, 512), (2, 511, 512), (22, 1, 512), (22, 143, 512),
@@ -268,6 +283,9 @@ FWD_S, FWD_PROMPT, FWD_NEW = 2048, 16, 8
 GEMM_BENCH_N = 8192                       # the reference's bf16 GEMM cell (bench.py:73)
 QUANT_MKN = (8192, 4096, 14336)           # its fp8 and int8 cells (bench.py:92-139)
 GEMV_STORAGE = ("e4m3", "int8", "bf16")
+# gate_up's N with K off whole 16-byte vectors: every row but one in eight
+# (bf16) starts off a 16-byte boundary (the kernel's head-and-tail walk)
+GEMV_UNALIGNED = (11264, 2051)
 FWD_PARITY_S = 1024      # past the CPU plain route's 512-key chunk
 # 2-layer full-width bf16 forward, card against the CPU plain forward,
 # relative L2 of the logits. Both round every matmul output to bf16, summed
@@ -859,15 +877,17 @@ def check_flash_kernels(dev, g, detail: dict) -> dict:
         if (s_len, hk, kind, causal) == (2048, 4, "bf16", True):
             res["flash_attention"] = row
         del qs, ks, vs, out
-    hq, hk, d = 32, 4, 64
-    for kind, max_len in ((k, m) for k in ("bf16", "f32")
-                          for m in sorted({m for m, _ in DECODE_CASES})):
+    caches = sorted({(hq, hk, d, m, kind) for hq, hk, d, m, _, kinds in DECODE_CASES
+                     for kind in kinds}, key=lambda c: (c[4], c[:4]))
+    for hq, hk, d, max_len, kind in caches:
         nl = 22                                    # per-layer caches cycle past the L2
         kc = torch.randn((nl, max_len, hk, d), generator=g, device=dev).to(dts[kind])
         vc = torch.randn((nl, max_len, hk, d), generator=g, device=dev).to(dts[kind])
         q = torch.randn((1, hq, d), generator=g, device=dev).to(dts[kind])
-        for ctx in (c for m, c in DECODE_CASES if m == max_len):
-            what = f"flash_decode MAX {max_len} ctx {ctx} {kind}"
+        for ctx in (c[4] for c in DECODE_CASES if c[:4] == (hq, hk, d, max_len)
+                    and kind in c[5]):
+            heads = "" if (hq, hk, d) == DECODE_ROW[:3] else f" Hq {hq} Hk {hk} D {d}"
+            what = f"flash_decode{heads} MAX {max_len} ctx {ctx} {kind}"
             out = flash_decode(q, kc[3], vc[3], ctx)
             err = _attn_err(out, flash_decode_plain(q, kc[3], vc[3], ctx), kind, what)
             check(torch.equal(out, flash_decode(q, kc[3], vc[3], ctx)),
@@ -881,10 +901,44 @@ def check_flash_kernels(dev, g, detail: dict) -> dict:
             row = kernel_row(err, kms, pms, (2 * ctx * hk * d + 2 * hq * d) * elt,
                              4 * hq * d * ctx, kind, lms)
             detail[what.replace(" ", "_")] = dict(row, share=row["bound_ms"] / kms)
-            if (max_len, ctx, kind) == (*DECODE_CASES[-1], "bf16"):
+            print(f"phase 3: {what}: kernel {kms:.5f} ms, SDPA {lms:.5f} ms, bound "
+                  f"{row['bound_ms']:.6f} ms = share {row['bound_ms'] / kms:.3f}, plain "
+                  f"{pms:.4f} ms; max abs err {err:.3e}")
+            if (hq, hk, d, max_len, ctx, kind) == DECODE_ROW:
                 res["flash_decode"] = row
+                decode_graph_replay(q, kc[3], vc[3], kind)
         del kc, vc
     return res
+
+
+def decode_graph_replay(q, kc, vc, kind: str) -> None:
+    """flash_decode with ctx_len an int32 tensor on the card, captured once
+    in a CUDA graph: one launch, and each replay after ctx.fill_(v) bitwise
+    the eager call at the int v, for v in DECODE_GRAPH_CTX."""
+    import torch
+    from pygpukit_tpu_torch.kernels import LAUNCHES, flash_decode, flash_decode_plain
+    ctx = torch.zeros(1, dtype=torch.int32, device=q.device)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        flash_decode(q, kc, vc, ctx)                 # warm-up outside the capture
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    before = LAUNCHES["flash_decode"]
+    with torch.cuda.graph(graph):
+        out = flash_decode(q, kc, vc, ctx)
+    launches = LAUNCHES["flash_decode"] - before
+    check(launches == 1, f"flash_decode captured {launches} launches, not one")
+    for v in DECODE_GRAPH_CTX:
+        ctx.fill_(v)
+        graph.replay()
+        eager = flash_decode(q, kc, vc, v)
+        torch.cuda.synchronize()
+        check(torch.equal(out, eager), f"flash_decode graph replay at ctx {v} differs from eager")
+        _attn_err(eager, flash_decode_plain(q, kc, vc, v), kind, f"flash_decode ctx {v}")
+    print(f"phase 3: flash_decode captured once with ctx_len on the card (MAX "
+          f"{kc.shape[0]}, {kind}): {launches} launch a call; replays at ctx "
+          f"{list(DECODE_GRAPH_CTX)} bitwise the eager calls")
 
 
 def rel_l2(a, b) -> float:
@@ -1067,17 +1121,13 @@ def check_gemm_kernels(dev, g, detail: dict) -> dict:
     res = {"gemm": kernel_row(proj["err"], proj["ms"], proj["plain_ms"], proj["bytes"],
                               proj["ops"], "bf16", proj["lib_ms"])}
     gv = dict.fromkeys(keys, 0.0)
+    totals: dict = {}
     n_var = 8
     for name, (n, k) in PROJ_SHAPES.items():
         x = torch.randn((k,), generator=g, device=dev).to(bf16)
         sc = torch.rand((n_var, n), generator=g, device=dev) + 0.5
         for storage in GEMV_STORAGE:
-            if storage == "int8":
-                w = torch.randint(-127, 128, (n_var, n, k), generator=g, device=dev,
-                                  dtype=torch.int8)
-            else:
-                w = (torch.randn((n_var, n, k), generator=g, device=dev) * 4).to(
-                    torch.float8_e4m3fn if storage == "e4m3" else bf16)
+            w = gemv_weights(storage, (n_var, n, k), g, dev)
             scales = [None] * n_var if storage == "bf16" else list(sc)
             what = f"gemv_quant {name} {storage}"
             y, ref = gemv_quant(w[0], x, scales[0]), gemv_quant_plain(w[0], x, scales[0])
@@ -1095,10 +1145,48 @@ def check_gemm_kernels(dev, g, detail: dict) -> dict:
             if storage == "bf16":
                 for key, v in zip(keys[1:], (kms, pms, lms, nbytes, 2 * n * k)):
                     gv[key] += v
+            tot = totals.setdefault(storage, dict.fromkeys(("ms", "bytes", "lib_ms"), 0.0))
+            for key, v in (("ms", kms), ("bytes", nbytes), ("lib_ms", lms or 0.0)):
+                tot[key] += v
             del w
+    for storage, tot in totals.items():
+        bms = tot["bytes"] / HBM_BYTES_S * 1e3
+        lib = f", torch.mv {tot['lib_ms']:.5f} ms" if storage == "bf16" else ""
+        print(f"phase 3: gemv_quant {storage}, the four projections: kernel {tot['ms']:.5f} ms "
+              f"= {tot['bytes'] / tot['ms'] / 1e6:.1f} GB/s, bound {bms:.5f} ms = share "
+              f"{bms / tot['ms']:.3f}{lib}")
+    n, k = GEMV_UNALIGNED
+    x = torch.randn((k,), generator=g, device=dev).to(bf16)
+    sc = torch.rand((n_var, n), generator=g, device=dev) + 0.5
+    for storage in GEMV_STORAGE:
+        w = gemv_weights(storage, (n_var, n, k), g, dev)
+        what = f"gemv_quant N {n} K {k} {storage}"
+        y, ref = gemv_quant(w[0], x, sc[0]), gemv_quant_plain(w[0], x, sc[0])
+        torch.cuda.synchronize()
+        err = _bf16_err(y, ref, what)
+        check(torch.equal(y, gemv_quant(w[0], x, sc[0])), f"{what}: a second launch differs")
+        kms = time_ms(lambda i: gemv_quant(w[i], x, sc[i]), n_var)
+        nbytes = n * k * w.element_size() + 2 * (k + n) + 4 * n
+        bms = nbytes / HBM_BYTES_S * 1e3
+        aligned = detail[f"gemv_quant_gate_up_{storage}"]["ms"]
+        detail[what.replace(" ", "_")] = {"ms": kms, "max_abs_err": err, "share": bms / kms}
+        print(f"phase 3: {what} (rows off 16-byte vectors): kernel {kms:.5f} ms = "
+              f"{nbytes / kms / 1e6:.1f} GB/s, bound {bms:.5f} ms = share {bms / kms:.3f}; "
+              f"gate_up at K {PROJ_SHAPES['gate_up'][1]} {aligned:.5f} ms; max abs err {err:.3e}")
+        del w
     res["gemv_quant"] = kernel_row(gv["err"], gv["ms"], gv["plain_ms"], gv["bytes"], gv["ops"],
                                    "bf16", gv["lib_ms"])
     return res
+
+
+def gemv_weights(storage: str, shape: tuple, g, dev):
+    """Seeded N-major gemv_quant weights: int8 in [-127, 127], else
+    4 * N(0, 1) in fp8 e4m3 or bf16."""
+    import torch
+    if storage == "int8":
+        return torch.randint(-127, 128, shape, generator=g, device=dev, dtype=torch.int8)
+    return (torch.randn(shape, generator=g, device=dev) * 4).to(
+        torch.float8_e4m3fn if storage == "e4m3" else torch.bfloat16)
 
 
 def gmm_sizes(dev, g, tokens: int, k: int, n_groups: int):

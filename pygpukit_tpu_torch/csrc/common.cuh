@@ -5,8 +5,9 @@
 // An entry point launches on the stream it is given, allocates nothing, and
 // returns cudaGetLastError() as an int; the Python wrapper raises on non-zero.
 //
-// Determinism: no atomics, and every reduction runs in a fixed order, so a
-// replay of the same inputs gives the same bits.
+// Determinism: every reduction runs in a fixed order and no sum is taken by
+// atomics (flash_decode's atomic ticket only elects the block that folds),
+// so a replay of the same inputs gives the same bits.
 #pragma once
 
 #include <cuda_bf16.h>

@@ -1,11 +1,13 @@
 // One decode query per head against a KV sequence: the body shared by
-// batch_decode_attention.cu (dense serving pools) and paged_attention.cu
-// (block pools behind a block table). The two kernels differ only in where
-// position p's K and V rows (and int8 row scales) live, which they pass in
-// as a row-offset functor; everything below is the same arithmetic.
+// batch_decode_attention.cu (dense serving pools), paged_attention.cu
+// (block pools behind a block table) and flash_decode.cu (one query row over
+// a fixed [MAX, Hk, D] cache). The kernels differ only in where position p's
+// K and V rows (and int8 row scales) live, which they pass in as a
+// row-offset functor; everything below is the same arithmetic.
 //
 // Replaces the reference's _bda_kernel (pygpukit_tpu/kernels/
-// batch_decode_attention.py) and _paged_kernel (kernels/paged_attention.py).
+// batch_decode_attention.py), _paged_kernel (kernels/paged_attention.py)
+// and _decode_pallas (kernels/flash_attention.py).
 //
 // Bound: bytes. A call reads every live K and V row of every slot once:
 // 2 * live * Hk * D * elt bytes (4.69 MB in bf16 at batch 8, MAX 1024 and the
@@ -15,17 +17,20 @@
 // blocks for 132 SMs, each walking its chunks one after another with no load
 // in flight during the math. So:
 // - split-KV: pass one runs one block per (split, slot, kv head). n_split
-//   comes from the shapes alone (B, Hk, MAX; kernels/batch_decode_attention.
+//   comes from the shapes alone (B, Hk, MAX; kernels/attention_split.
 //   attention_splits), and each block reads its slot's ctx from device
 //   memory and takes an equal share, in 64-row chunks, of the live window
 //   [max(ctx - window, 0), min(ctx, MAX)) (split_bounds there, mirrored
 //   below). The launch plan never reads the host, so a step captures into a
-//   CUDA graph. Each block writes its (m, l, acc); pass two folds the splits
-//   in ascending order, as flash_decode_combine_kernel does. An empty split
-//   writes m = -1e30, l = 0 and weighs nothing. No atomics: a replay is
-//   bitwise.
+//   CUDA graph. Each block writes its (m, l, acc), and the splits are folded
+//   in ascending order (pgk_attn_fold): by a second launch
+//   (pgk_attn_combine_kernel; rows 6 and 17) or, in flash_decode, by the
+//   block of a group that arrives last (pgk_attn_fold_last: an atomic
+//   ticket elects the folding block and never orders a sum). An empty split
+//   writes m = -1e30, l = 0 and weighs nothing. A replay is bitwise.
 // - K and V chunks arrive by 16-byte cp.async into a two-stage ring, the
-//   next chunk's load in flight during this chunk's math; ragged edges and
+//   next chunk's load in flight during this chunk's math (the first chunk's
+//   load is issued before the query rows are read); ragged edges and
 //   dead rows are zero-filled through the source size. Shared rows are
 //   padded by 16 bytes (an odd number of 16-byte units), so the score
 //   loop's one-row-per-lane 16-byte reads hit distinct banks.
@@ -126,7 +131,7 @@ struct PgkAttnSmem {
 
 // [start, end) of split `split` of n_split: 64-row chunks of the live window
 // [max(lo, 0), live) dealt out evenly and in order (split_bounds in
-// kernels/batch_decode_attention.py is the same function).
+// kernels/attention_split.py is the same function).
 __device__ __forceinline__ void pgk_split_bounds(int lo, int live, int split, int n_split,
                                                  int& start, int& end) {
   const int lo0 = lo > 0 ? lo : 0;
@@ -141,19 +146,63 @@ __device__ __forceinline__ void pgk_split_bounds(int lo, int live, int split, in
   if (end < start) end = start;
 }
 
+// How many of the n_split splits above are not empty: they are the first
+// ones (live_splits in kernels/attention_split.py is the same function).
+__device__ __forceinline__ int pgk_live_splits(int lo, int live, int n_split) {
+  const int lo0 = lo > 0 ? lo : 0;
+  if (live <= lo0) return 0;
+  const int chunks = (live + kPgkAttnChunk - 1) / kPgkAttnChunk - lo0 / kPgkAttnChunk;
+  const int per = (chunks + n_split - 1) / n_split;
+  return (chunks + per - 1) / per;
+}
+
+// One warp's running state for its query head after a split: max, sum and
+// unnormalised accumulator (lane holds dims lane * D / 32 + j).
+template <int D>
+struct PgkAttnState {
+  float m, l, acc[D / 32];
+};
+
+// Writes head gh's (m, l, acc) at pm[gh * n_split + split], pl[...] and
+// pacc[(gh * n_split + split) * D ...] (gh: the warp).
+template <int D>
+__device__ __forceinline__ void pgk_attn_store(const PgkAttnState<D>& st, float* __restrict__ pm,
+                                               float* __restrict__ pl, float* __restrict__ pacc,
+                                               int split, int n_split) {
+  constexpr int kDPL = D / 32;
+  const int lane = threadIdx.x & 31;
+  const int slot = (threadIdx.x >> 5) * n_split + split;
+  if (lane == 0) {
+    pm[slot] = st.m;
+    pl[slot] = st.l;
+  }
+#pragma unroll
+  for (int j = 0; j < kDPL; ++j) pacc[(size_t)slot * D + lane * kDPL + j] = st.acc[j];
+}
+
+// The output of a head whose context is one split (or none): acc / max(l,
+// 1e-30), the bits pgk_attn_fold gives for one split (its weight is exp(0)).
+template <class Q, int D>
+__device__ __forceinline__ void pgk_attn_finish(const PgkAttnState<D>& st, Q* __restrict__ out) {
+  constexpr int kDPL = D / 32;
+  const int lane = threadIdx.x & 31;
+  const float lf = fmaxf(st.l, 1e-30f);
+#pragma unroll
+  for (int j = 0; j < kDPL; ++j) out[lane * kDPL + j] = pgk_from_f32<Q>(st.acc[j] / lf);
+}
+
 // Pass one for one (split, slot, kv head) block of 32 * G threads, a warp
 // per query head. qb: the G query heads [G, D]; kbase/vbase: this kv head's
 // K and V, position p at rows(p) elements from them (called only for live
 // p); ksb/vsb: int8 row scales, position p at rows.scale(p) (null for other
 // storage). ctx: the length the window counts back from; live <= ctx: the
-// positions that hold rows. Writes head gh's (m, l, acc) at pm[gh * n_split
-// + split], pl[...] and pacc[(gh * n_split + split) * D ...].
+// positions that hold rows. Returns the warp's head's state after the split.
 template <class Q, class KV, int D, class Rows>
-__device__ __forceinline__ void pgk_decode_attention_split(
+__device__ __forceinline__ PgkAttnState<D> pgk_decode_attention_run(
     const Q* __restrict__ qb, const KV* __restrict__ kbase, const KV* __restrict__ vbase,
     const __nv_bfloat16* __restrict__ ksb, const __nv_bfloat16* __restrict__ vsb, Rows rows,
     int g_heads, int ctx, int live, int window, int split, int n_split, float scale,
-    float softcap, float* __restrict__ pm, float* __restrict__ pl, float* __restrict__ pacc) {
+    float softcap) {
   using L = PgkAttnSmem<KV, D>;
   constexpr bool kInt8 = std::is_same<KV, int8_t>::value;
   constexpr int kChunk = kPgkAttnChunk;
@@ -166,8 +215,6 @@ __device__ __forceinline__ void pgk_decode_attention_split(
   float* ps = qs + g_heads * D;                                           // [G][chunk]
   const int warp = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
-
-  for (int i = threadIdx.x; i < g_heads * D; i += blockDim.x) qs[i] = pgk_kv_f32(qb[i]);
 
   const int lo = window > 0 ? ctx - window : -(1 << 30);
   int start, end;
@@ -211,6 +258,8 @@ __device__ __forceinline__ void pgk_decode_attention_split(
     load(c0, 0);
     if (kInt8) load_scales(c0, ksn, vsn);
   }
+  // behind the first chunk's load; the loop's first barrier publishes them
+  for (int i = threadIdx.x; i < g_heads * D; i += blockDim.x) qs[i] = pgk_kv_f32(qb[i]);
   for (int i = 0; i < n_chunks; ++i) {
     if (kInt8) {
 #pragma unroll
@@ -230,7 +279,7 @@ __device__ __forceinline__ void pgk_decode_attention_split(
     const uint4* kt = ks + (i & 1) * L::kTile;
     const uint4* vt = vs + (i & 1) * L::kTile;
     const int cbase = (c0 + i) * kChunk;
-    const float* qh = qs + warp * D;
+    const float4* qh = reinterpret_cast<const float4*>(qs + warp * D);
     float sv[2];
     bool dead[2];
 #pragma unroll
@@ -245,10 +294,14 @@ __device__ __forceinline__ void pgk_decode_attention_split(
         const uint4 w = kr[v];
         const KV* e = reinterpret_cast<const KV*>(&w);
 #pragma unroll
-        for (int x = 0; x < kEl; x += 2) {
-          const float2 kf = pgk_kv2_as_q<Q>(e + x);
-          dot += qh[v * kEl + x] * kf.x;
-          dot += qh[v * kEl + x + 1] * kf.y;
+        for (int x = 0; x < kEl; x += 4) {
+          const float4 q4 = qh[(v * kEl + x) / 4];
+          const float2 k01 = pgk_kv2_as_q<Q>(e + x);
+          const float2 k23 = pgk_kv2_as_q<Q>(e + x + 2);
+          dot += q4.x * k01.x;
+          dot += q4.y * k01.y;
+          dot += q4.z * k23.x;
+          dot += q4.w * k23.y;
         }
       }
       float sc = dot * scale;
@@ -271,56 +324,469 @@ __device__ __forceinline__ void pgk_decode_attention_split(
     __syncwarp();
 #pragma unroll
     for (int j = 0; j < kDPL; ++j) acc[j] *= alpha;
-    for (int r = 0; r < kChunk; ++r) {
-      const float pr = pw[r];
-      const PgkVec<KV, kDPL> vv =
-          reinterpret_cast<const PgkVec<KV, kDPL>*>(vt + r * L::kRow)[lane];
+    for (int r4 = 0; r4 < kChunk; r4 += 4) {
+      const float4 p4 = *reinterpret_cast<const float4*>(pw + r4);
 #pragma unroll
-      for (int j = 0; j < kDPL; j += 2) {
-        const float2 vf = pgk_kv2_as_q<Q>(vv.v + j);
-        acc[j] += pr * vf.x;
-        acc[j + 1] += pr * vf.y;
+      for (int u = 0; u < 4; ++u) {
+        const float pr = u == 0 ? p4.x : u == 1 ? p4.y : u == 2 ? p4.z : p4.w;
+        const PgkVec<KV, kDPL> vv =
+            reinterpret_cast<const PgkVec<KV, kDPL>*>(vt + (r4 + u) * L::kRow)[lane];
+#pragma unroll
+        for (int j = 0; j < kDPL; j += 2) {
+          const float2 vf = pgk_kv2_as_q<Q>(vv.v + j);
+          acc[j] += pr * vf.x;
+          acc[j + 1] += pr * vf.y;
+        }
       }
     }
     m = m_new;
     __syncthreads();                    // buffer i & 1 is refilled by the next iteration's load
   }
-  const int slot = warp * n_split + split;
-  if (lane == 0) {
-    pm[slot] = m;
-    pl[slot] = l;
-  }
+  PgkAttnState<D> st;
+  st.m = m;
+  st.l = l;
 #pragma unroll
-  for (int j = 0; j < kDPL; ++j) pacc[(size_t)slot * D + lane * kDPL + j] = acc[j];
+  for (int j = 0; j < kDPL; ++j) st.acc[j] = acc[j];
+  return st;
 }
 
-// Pass two: one warp per (slot, query head) folds its splits in ascending
-// order: out = sum_s acc_s w_s / max(sum_s l_s w_s, 1e-30), w_s = exp(m_s -
-// max_s m_s).
+// Pass one of the two-launch kernels: the split's state written for
+// pgk_attn_combine_kernel (pgk_attn_store's layout).
+template <class Q, class KV, int D, class Rows>
+__device__ __forceinline__ void pgk_decode_attention_split(
+    const Q* __restrict__ qb, const KV* __restrict__ kbase, const KV* __restrict__ vbase,
+    const __nv_bfloat16* __restrict__ ksb, const __nv_bfloat16* __restrict__ vsb, Rows rows,
+    int g_heads, int ctx, int live, int window, int split, int n_split, float scale,
+    float softcap, float* __restrict__ pm, float* __restrict__ pl, float* __restrict__ pacc) {
+  pgk_attn_store<D>(pgk_decode_attention_run<Q, KV, D>(qb, kbase, vbase, ksb, vsb, rows, g_heads,
+                                                       ctx, live, window, split, n_split, scale,
+                                                       softcap),
+                    pm, pl, pacc, split, n_split);
+}
+
+// One warp folds one query head's first n splits in ascending order: out =
+// sum_s acc_s w_s / max(sum_s l_s w_s, 1e-30), w_s = exp(m_s - max_s m_s).
+// mh, lh: the head's maxima and sums; ah: its [splits, D] accumulators. The
+// loads run ahead of the sums (the first eight splits' accumulators beside
+// the maxima, then eight splits ahead), but the sums themselves run split
+// after split, so the bits are those of a plain ordered loop. The reads go
+// to L2 (__ldcg): in the one-launch fold other blocks wrote them.
+template <class Q, int D>
+__device__ __forceinline__ void pgk_attn_fold(const float* __restrict__ mh,
+                                              const float* __restrict__ lh,
+                                              const float* __restrict__ ah, Q* __restrict__ out,
+                                              int n) {
+  constexpr int kDPL = D / 32;
+  constexpr int kAhead = 8;                      // divides 32
+  const int lane = threadIdx.x & 31;
+  float nxt[kAhead][kDPL];
+  auto fetch = [&](int c) {
+#pragma unroll
+    for (int u = 0; u < kAhead; ++u)
+#pragma unroll
+      for (int j = 0; j < kDPL; ++j)
+        nxt[u][j] = c + u < n ? __ldcg(ah + (size_t)(c + u) * D + lane * kDPL + j) : 0.f;
+  };
+  fetch(0);
+  float m_mine = lane < n ? __ldcg(mh + lane) : kPgkAttnNegInf;
+  float l_mine = lane < n ? __ldcg(lh + lane) : 0.f;
+  float mx = m_mine;
+  for (int c = lane + 32; c < n; c += 32) mx = fmaxf(mx, __ldcg(mh + c));
+  mx = pgk_warp_max(mx);
+  float l = 0.f, acc[kDPL];
+#pragma unroll
+  for (int j = 0; j < kDPL; ++j) acc[j] = 0.f;
+  for (int c0 = 0; c0 < n; c0 += 32) {
+    if (c0 > 0) {
+      m_mine = c0 + lane < n ? __ldcg(mh + c0 + lane) : kPgkAttnNegInf;
+      l_mine = c0 + lane < n ? __ldcg(lh + c0 + lane) : 0.f;
+    }
+    const float w_mine = c0 + lane < n ? expf(m_mine - mx) : 0.f;
+    const int count = min(32, n - c0);
+    for (int b = 0; b < count; b += kAhead) {
+      float cur[kAhead][kDPL];
+#pragma unroll
+      for (int u = 0; u < kAhead; ++u)
+#pragma unroll
+        for (int j = 0; j < kDPL; ++j) cur[u][j] = nxt[u][j];
+      if (c0 + b + kAhead < n) fetch(c0 + b + kAhead);
+#pragma unroll
+      for (int u = 0; u < kAhead; ++u) {
+        if (b + u < count) {                       // uniform across the warp
+          const float w = __shfl_sync(0xffffffffu, w_mine, b + u);
+          l += __shfl_sync(0xffffffffu, l_mine, b + u) * w;
+#pragma unroll
+          for (int j = 0; j < kDPL; ++j) acc[j] += cur[u][j] * w;
+        }
+      }
+    }
+  }
+  const float lf = fmaxf(l, 1e-30f);
+#pragma unroll
+  for (int j = 0; j < kDPL; ++j) out[lane * kDPL + j] = pgk_from_f32<Q>(acc[j] / lf);
+}
+
+// Pass two: one warp per (slot, query head) folds its splits.
 template <class Q, int D>
 __global__ void pgk_attn_combine_kernel(const float* __restrict__ pm,
                                         const float* __restrict__ pl,
                                         const float* __restrict__ pacc, Q* __restrict__ out,
                                         int n_split) {
-  constexpr int kDPL = D / 32;
   const size_t h = blockIdx.x;
-  const int lane = threadIdx.x;
-  const float* mh = pm + h * n_split;
-  float mx = kPgkAttnNegInf;
-  for (int c = 0; c < n_split; ++c) mx = fmaxf(mx, mh[c]);
-  float l = 0.f, acc[kDPL];
-#pragma unroll
-  for (int j = 0; j < kDPL; ++j) acc[j] = 0.f;
-  for (int c = 0; c < n_split; ++c) {
-    const float w = expf(mh[c] - mx);
-    l += pl[h * n_split + c] * w;
-    const float* a = pacc + (h * n_split + c) * D + lane * kDPL;
-#pragma unroll
-    for (int j = 0; j < kDPL; ++j) acc[j] += a[j] * w;
+  pgk_attn_fold<Q, D>(pm + h * n_split, pl + h * n_split, pacc + h * n_split * D, out + h * D,
+                      n_split);
+}
+
+// Whether this block is the last of n_live to arrive at the group's
+// counter (which it then resets to 0). Every thread calls it after storing
+// its share of the block's results: a barrier, then thread 0's acq_rel
+// ticket (release: the block's stores, which the barrier ordered before it;
+// acquire: every other block's), then a barrier that hands the answer and
+// the acquire to the block.
+__device__ __forceinline__ int pgk_take_ticket(unsigned* arrivals, int n_live) {
+  __shared__ int last;
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    unsigned ticket;
+    asm volatile("atom.add.acq_rel.gpu.u32 %0, [%1], 1;\n"
+                 : "=r"(ticket)
+                 : "l"(arrivals)
+                 : "memory");
+    last = ticket == (unsigned)n_live - 1;
+    if (last) atomicExch(arrivals, 0u);   // every block of the group has arrived
   }
-  const float lf = fmaxf(l, 1e-30f);
+  __syncthreads();
+  return last;
+}
+
+// The one-launch fold, called by each of the n_live blocks of a group (the
+// non-empty splits of one kv head) after it stored its split's (m, l, acc):
+// the block publishes them, takes a ticket from the group's arrival
+// counter, and the block that arrives last folds the group's n_live splits,
+// its warps taking the g_heads query heads in turn (pm, pl, pacc, out: the
+// group's first head; n_split: the splits per head in pm), then resets the
+// counter to 0. The counters are zero before a launch and after it, so a
+// captured graph replays; two launches in flight at once (on two streams)
+// must not share them.
+template <class Q, int D>
+__device__ __forceinline__ void pgk_attn_fold_last(unsigned* __restrict__ arrivals, int n_live,
+                                                   int n_split, int g_heads, const float* pm,
+                                                   const float* pl, const float* pacc,
+                                                   Q* __restrict__ out) {
+  if (!pgk_take_ticket(arrivals, n_live)) return;
+  for (int h = threadIdx.x >> 5; h < g_heads; h += blockDim.x >> 5)
+    pgk_attn_fold<Q, D>(pm + h * n_split, pl + h * n_split, pacc + (size_t)h * n_split * D,
+                        out + h * D, n_live);
+}
+
+// ---------------------------------------------------------------------------
+// The tensor-core body: bf16 queries over bf16 rows, G <= 16 query heads
+// ---------------------------------------------------------------------------
+// The CUDA-core body above converts every K and V element once per query
+// head and takes a shared load per product; at the single-stream step's
+// short contexts that issue time is most of a launch, at long ones more
+// than the bytes' time (measured on the H100 by phase stamps). Here
+// the G heads of a kv head are the rows of one m16n8k16 tile (padded to
+// 16): S = Q K^T and O += P V are warp MMAs with f32 sums, Q's A fragments
+// come from global memory once, K (ldmatrix) and V (ldmatrix.trans) from
+// shared rows padded by 16 bytes (eight rows hit distinct banks), and P
+// goes from the S accumulators to the A fragments of P V in registers,
+// rounded to bf16 as the reference rounds it. The softmax runs in base 2:
+// the scale and log2(e) fold into one multiply and p = 2^(s2 - m2) is one
+// ex2.approx (as flash_attention's bf16 path computes it); with G <= 8 the
+// tile's upper eight rows are padding and skip it. A block of kPgkMmaWarps
+// warps takes one split; warp w runs the online softmax over the split's
+// chunks w, w + 4, ... (its own cp.async ring, no block barrier in the
+// loop), and the warps' states fold in a fixed order at the end. One
+// launch is mostly latency at the single-stream step's contexts, so the
+// code on that path is kept short: every warp's loads leave first, and the
+// fold computes each head's weights once.
+constexpr int kPgkMmaWarps = 4;
+
+template <int D>
+struct PgkMmaSmem {
+  static constexpr int kStages = D == 64 ? 2 : 1;               // chunks in flight a warp
+  static constexpr int kRowBytes = D * 2 + 16;
+  static constexpr int kTile = kPgkAttnChunk * kRowBytes;       // one K or V chunk
+  static constexpr int kWarpBytes = kStages * 2 * kTile;
+  static constexpr int kBytes = kPgkMmaWarps * kWarpBytes;      // the merge reuses it
+  static constexpr int kState = D + 2;                          // m, l, o[D] of a warp's head
+};
+
+// The block's state after pgk_decode_attention_mma, in shared memory: ws,
+// each warp's [16][D + 2] rows (m in base 2, l, o[D]); hw, each head's
+// [2 + warps]: m (base e), l, and the warps' weights.
+struct PgkMmaState {
+  const float* ws;
+  const float* hw;
+};
+
+// 2^x (ex2.approx, flushing denormals; 2^-huge = 0).
+__device__ __forceinline__ float pgk_ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// One split [start, end) of a kv head for its g_heads (<= 16; <= 8 unless
+// kUpper) query heads qb [G, D]; rows(p) as in pgk_decode_attention_run.
+template <int D, bool kUpper, class Rows>
+__device__ __forceinline__ PgkMmaState pgk_decode_attention_mma(
+    const __nv_bfloat16* __restrict__ qb, const __nv_bfloat16* __restrict__ kbase,
+    const __nv_bfloat16* __restrict__ vbase, Rows rows, int g_heads, int start, int end,
+    float scale) {
+  using L = PgkMmaSmem<D>;
+  constexpr int kChunk = kPgkAttnChunk;
+  constexpr int kKS = D / 16;                // k-steps of Q K^T
+  constexpr int kDN = D / 8;                 // n-tiles of P V
+  constexpr int kNT = kChunk / 8;            // n-tiles of S
+  constexpr int kVecs = D / 8;               // 16-byte vectors a row
+  extern __shared__ __align__(16) uint8_t pgk_mma_smem[];
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3;
+  uint8_t* ring = pgk_mma_smem + warp * L::kWarpBytes;
+  const int c_first = start / kChunk;
+  const int n_chunks = end > start ? (end - 1) / kChunk - c_first + 1 : 0;
+  const int mine = n_chunks > warp ? (n_chunks - warp + kPgkMmaWarps - 1) / kPgkMmaWarps : 0;
+
+  auto load = [&](int i) {                   // this warp's i-th chunk into stage i % kStages
+    const int c = c_first + warp + kPgkMmaWarps * i;
+    uint8_t* kd = ring + (i % L::kStages) * 2 * L::kTile;
+    uint8_t* vd = kd + L::kTile;
+    for (int e = lane; e < kChunk * kVecs; e += 32) {
+      const int r = e / kVecs, v = e % kVecs;
+      const int p = c * kChunk + r;
+      const bool ok = p >= start && p < end;
+      const size_t off = ok ? rows(p) : 0;
+      cp_async16(kd + r * L::kRowBytes + v * 16, reinterpret_cast<const uint4*>(kbase + off) + v,
+                 ok);
+      cp_async16(vd + r * L::kRowBytes + v * 16, reinterpret_cast<const uint4*>(vbase + off) + v,
+                 ok);
+    }
+    cp_async_commit();
+  };
+  for (int i = 0; i < mine && i < L::kStages; ++i) load(i);
+
+  // Q as A fragments (heads g and g + 8, dims ks * 16 + 2t and + 8), behind the loads
+  uint32_t qa[kKS][4];
 #pragma unroll
-  for (int j = 0; j < kDPL; ++j) out[h * D + lane * kDPL + j] = pgk_from_f32<Q>(acc[j] / lf);
+  for (int ks = 0; ks < kKS; ++ks) {
+    const uint32_t* q0 = reinterpret_cast<const uint32_t*>(qb + g * D + ks * 16 + 2 * t);
+    const uint32_t* q8 = q0 + 4 * D;         // eight heads on
+    qa[ks][0] = g < g_heads ? q0[0] : 0u;
+    qa[ks][1] = g + 8 < g_heads ? q8[0] : 0u;
+    qa[ks][2] = g < g_heads ? q0[4] : 0u;
+    qa[ks][3] = g + 8 < g_heads ? q8[4] : 0u;
+  }
+
+  // scores in base 2: s2 = (q.k) * scale * log2(e), p = 2^(s2 - m2)
+  const float scale2 = scale * 1.4426950408889634f;
+  float m[2] = {kPgkAttnNegInf, kPgkAttnNegInf}, l[2] = {0.f, 0.f};
+  float o[kDN][4];
+#pragma unroll
+  for (int dn = 0; dn < kDN; ++dn) o[dn][0] = o[dn][1] = o[dn][2] = o[dn][3] = 0.f;
+  for (int i = 0; i < mine; ++i) {
+    if (L::kStages > 1 && i + 1 < mine) cp_async_wait<1>();
+    else cp_async_wait<0>();
+    __syncwarp();
+    const uint8_t* kt = ring + (i % L::kStages) * 2 * L::kTile;
+    const uint8_t* vt = kt + L::kTile;
+    const int cbase = (c_first + warp + kPgkMmaWarps * i) * kChunk;
+    float sc[kNT][4];
+#pragma unroll
+    for (int nt = 0; nt < kNT; ++nt) {
+      sc[nt][0] = sc[nt][1] = sc[nt][2] = sc[nt][3] = 0.f;
+#pragma unroll
+      for (int j = 0; j < kKS / 2; ++j) {
+        uint32_t b[4];
+        ldmatrix_x4(b, kt + (nt * 8 + (lane & 7)) * L::kRowBytes + ((lane >> 3) * 8 + j * 32) * 2);
+        mma_bf16_16816(sc[nt], qa[2 * j], b[0], b[1]);
+        mma_bf16_16816(sc[nt], qa[2 * j + 1], b[2], b[3]);
+      }
+    }
+    float mx[2] = {m[0], m[1]};
+#pragma unroll
+    for (int nt = 0; nt < kNT; ++nt)
+#pragma unroll
+      for (int e = 0; e < (kUpper ? 4 : 2); ++e) {
+        const int p = cbase + nt * 8 + 2 * t + (e & 1);
+        sc[nt][e] = p < start || p >= end ? kPgkAttnNegInf : sc[nt][e] * scale2;
+        mx[e >> 1] = fmaxf(mx[e >> 1], sc[nt][e]);
+      }
+    float alpha[2], rs[2] = {0.f, 0.f};
+#pragma unroll
+    for (int r = 0; r < (kUpper ? 2 : 1); ++r) {
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+      alpha[r] = pgk_ex2(m[r] - mx[r]);
+    }
+#pragma unroll
+    for (int nt = 0; nt < kNT; ++nt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        if (!kUpper && e >= 2) {                 // rows past the G <= 8 heads: P = 0
+          sc[nt][e] = 0.f;
+          continue;
+        }
+        const int p = cbase + nt * 8 + 2 * t + (e & 1);
+        sc[nt][e] = p < start || p >= end ? 0.f : pgk_ex2(sc[nt][e] - mx[e >> 1]);
+        rs[e >> 1] += sc[nt][e];
+      }
+#pragma unroll
+    for (int r = 0; r < (kUpper ? 2 : 1); ++r) {
+      rs[r] += __shfl_xor_sync(0xffffffffu, rs[r], 1);
+      rs[r] += __shfl_xor_sync(0xffffffffu, rs[r], 2);
+      l[r] = l[r] * alpha[r] + rs[r];
+      m[r] = mx[r];
+    }
+#pragma unroll
+    for (int dn = 0; dn < kDN; ++dn) {
+      o[dn][0] *= alpha[0];
+      o[dn][1] *= alpha[0];
+      if (kUpper) {
+        o[dn][2] *= alpha[1];
+        o[dn][3] *= alpha[1];
+      }
+    }
+#pragma unroll
+    for (int kk = 0; kk < kChunk / 16; ++kk) {
+      const uint32_t pa[4] = {pack_bf16(sc[2 * kk][0], sc[2 * kk][1]),
+                              pack_bf16(sc[2 * kk][2], sc[2 * kk][3]),
+                              pack_bf16(sc[2 * kk + 1][0], sc[2 * kk + 1][1]),
+                              pack_bf16(sc[2 * kk + 1][2], sc[2 * kk + 1][3])};
+#pragma unroll
+      for (int e = 0; e < kDN / 2; ++e) {
+        uint32_t b[4];
+        ldmatrix_x4_trans(b, vt + (kk * 16 + ((lane >> 3) & 1) * 8 + (lane & 7)) * L::kRowBytes +
+                                 (2 * e + (lane >> 4)) * 16);
+        mma_bf16_16816(o[2 * e], pa, b[0], b[1]);
+        mma_bf16_16816(o[2 * e + 1], pa, b[2], b[3]);
+      }
+    }
+    __syncwarp();                            // the stage is free
+    if (i + L::kStages < mine) load(i + L::kStages);
+  }
+
+  // the warps' states, then each head's weights: m2 = max_w m2_w, the
+  // weights 2^(m2_w - m2), l = sum_w l_w weight_w, in warp order
+  __syncthreads();                           // every warp is done with its ring
+  float* ws = reinterpret_cast<float*>(pgk_mma_smem);          // [warp][16][kState]
+  float* hw = ws + kPgkMmaWarps * 16 * L::kState;             // [G][2 + warps]
+#pragma unroll
+  for (int r = 0; r < (kUpper ? 2 : 1); ++r) {
+    float* row = ws + (warp * 16 + g + 8 * r) * L::kState;
+    if (t == 0) {
+      row[0] = m[r];
+      row[1] = l[r];
+    }
+#pragma unroll
+    for (int dn = 0; dn < kDN; ++dn) {
+      row[2 + dn * 8 + 2 * t] = o[dn][2 * r];
+      row[2 + dn * 8 + 2 * t + 1] = o[dn][2 * r + 1];
+    }
+  }
+  __syncthreads();
+  if ((int)threadIdx.x < g_heads) {
+    const int h = threadIdx.x;
+    float top = kPgkAttnNegInf, lsum = 0.f, wt[kPgkMmaWarps];
+#pragma unroll
+    for (int w = 0; w < kPgkMmaWarps; ++w) top = fmaxf(top, ws[(w * 16 + h) * L::kState]);
+#pragma unroll
+    for (int w = 0; w < kPgkMmaWarps; ++w) {
+      wt[w] = pgk_ex2(ws[(w * 16 + h) * L::kState] - top);
+      lsum += ws[(w * 16 + h) * L::kState + 1] * wt[w];
+      hw[h * (2 + kPgkMmaWarps) + 2 + w] = wt[w];
+    }
+    hw[h * (2 + kPgkMmaWarps)] = top * 0.6931471805599453f;    // back to base e for the fold
+    hw[h * (2 + kPgkMmaWarps) + 1] = lsum;
+  }
+  __syncthreads();
+  return {ws, hw};
+}
+
+// Head h's accumulator elements d .. d + 3 of the block state
+// pgk_decode_attention_mma returned: sum_w o_w[h][d] weight_w, in warp
+// order.
+template <int D>
+__device__ __forceinline__ float4 pgk_mma_acc4(const PgkMmaState& st, int h, int d) {
+  constexpr int kS = PgkMmaSmem<D>::kState;
+  const float* wt = st.hw + h * (2 + kPgkMmaWarps) + 2;
+  float4 acc = make_float4(0.f, 0.f, 0.f, 0.f);
+#pragma unroll
+  for (int w = 0; w < kPgkMmaWarps; ++w) {
+    const float* o = st.ws + (w * 16 + h) * kS + 2 + d;   // 8-byte aligned: kS and d even
+    const float2 a = *reinterpret_cast<const float2*>(o);
+    const float2 b = *reinterpret_cast<const float2*>(o + 2);
+    acc.x += a.x * wt[w];
+    acc.y += a.y * wt[w];
+    acc.z += b.x * wt[w];
+    acc.w += b.y * wt[w];
+  }
+  return acc;
+}
+
+// Splits a tensor-core block can fold in one pass (pgk_mma_fold_last stages
+// them all in the ring): the plan keeps n_split within it
+// (kernels/flash_attention.decode_plan mirrors it).
+template <int D>
+__host__ __device__ constexpr int pgk_mma_fold_splits(int g_heads) {
+  return (PgkMmaSmem<D>::kBytes - g_heads * 4) / (g_heads * (D + 3) * 4);
+}
+
+// The tensor-core kernels' one-launch fold: as pgk_attn_fold_last, the
+// n_live blocks of a group take tickets and the last one folds, but it
+// stages every split of the group in shared memory with one round of
+// cp.async (accumulators) and L2 loads (maxima, sums), computes each head's
+// maximum, weights and sum once (a thread a head), and then every thread
+// folds its output elements in ascending split order. part layout: pacc
+// [G][n_split][D], then pm and pl [G][n_split] (pacc first keeps its rows
+// 16-byte aligned).
+template <int D>
+__device__ __forceinline__ void pgk_mma_fold_last(unsigned* __restrict__ arrivals, int n_live,
+                                                  int n_split, int g_heads, const float* pacc,
+                                                  const float* pm, const float* pl,
+                                                  __nv_bfloat16* __restrict__ out) {
+  if (!pgk_take_ticket(arrivals, n_live)) return;
+  extern __shared__ __align__(16) uint8_t pgk_mma_smem[];
+  float* sacc = reinterpret_cast<float*>(pgk_mma_smem);        // [G][n_live][D]
+  float* sm = sacc + g_heads * n_live * D;                     // [G][n_live]
+  float* sl = sm + g_heads * n_live;
+  float* sw = sl + g_heads * n_live;
+  float* sden = sw + g_heads * n_live;                         // [G]
+  const int run = n_live * D / 4;                              // 16-byte pieces a head
+  for (int i = threadIdx.x; i < g_heads * run; i += blockDim.x) {
+    const int h = i / run, j = i % run;
+    cp_async16(sacc + h * n_live * D + j * 4, pacc + (size_t)h * n_split * D + j * 4, true);
+  }
+  cp_async_commit();
+  for (int i = threadIdx.x; i < g_heads * n_live; i += blockDim.x) {
+    const int h = i / n_live, c = i % n_live;
+    sm[i] = __ldcg(pm + h * n_split + c);
+    sl[i] = __ldcg(pl + h * n_split + c);
+  }
+  cp_async_wait<0>();
+  __syncthreads();
+  if ((int)threadIdx.x < g_heads) {
+    const float* mh = sm + threadIdx.x * n_live;
+    float top = kPgkAttnNegInf, lsum = 0.f;
+    for (int c = 0; c < n_live; ++c) top = fmaxf(top, mh[c]);
+    for (int c = 0; c < n_live; ++c) {
+      const float w = expf(mh[c] - top);
+      sw[threadIdx.x * n_live + c] = w;
+      lsum += sl[threadIdx.x * n_live + c] * w;
+    }
+    sden[threadIdx.x] = fmaxf(lsum, 1e-30f);
+  }
+  __syncthreads();
+  for (int i = threadIdx.x; i < g_heads * D; i += blockDim.x) {
+    const int h = i / D, d = i % D;
+    const float* a = sacc + h * n_live * D + d;
+    const float* w = sw + h * n_live;
+    float acc = 0.f;
+    for (int c = 0; c < n_live; ++c) acc += a[c * D] * w[c];
+    out[i] = __float2bfloat16_rn(acc / sden[h]);
+  }
 }
 
 // Launch pass one (`kernel` over (n_split, bh) blocks of 32 * g threads

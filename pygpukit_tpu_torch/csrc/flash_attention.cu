@@ -1,9 +1,9 @@
-// Flash attention (prefill) and flash decoding.
+// Flash attention (prefill).
 //
-// Replaces pygpukit_tpu/kernels/flash_attention.py _flash_pallas (the
-// prefill kernel) and _decode_pallas (one query row over a fixed cache).
+// Replaces pygpukit_tpu/kernels/flash_attention.py _flash_pallas. (The
+// decode kernel, _decode_pallas, is flash_decode.cu.)
 //
-// Both compute the reference's online-softmax recurrence: running max from
+// It computes the reference's online-softmax recurrence: running max from
 // -1e30, sum and accumulator in f32, s = (q.k) * scale, masked keys at -1e30
 // with p = 0, p = exp(s - m_new), alpha = exp(m_prev - m_new), P rounded to
 // the input dtype before P.V, out = acc / max(l, 1e-30) in the input dtype.
@@ -39,15 +39,6 @@
 // f32 inputs run on CUDA cores (f32 FMA, never TF32: the reference holds f32
 // at HIGHEST), 16 query rows per block, one lane per key for the scores and
 // per head dimension for P.V.
-//
-// flash_decode. Bound: bytes. One query row per head reads every live K and
-// V row once (2 ctx Hk D elt bytes, 8.4 MB at ctx 8192, Hk 4, D 64, bf16:
-// 2.5 us). One block per kv head would give 4 blocks for 132 SMs, so the
-// context splits into chunks (flash decoding): pass one runs the recurrence
-// over one chunk per block for the G query heads of one kv head (a warp
-// each; K/V staged once in shared memory as f32), pass two folds the
-// chunks' (m, l, acc) in ascending chunk order. The split depends only on
-// ctx and Hk, so a replay gives the same bits.
 #include "hopper.cuh"
 
 namespace {
@@ -422,173 +413,6 @@ cudaError_t launch_flash(const void* q, const void* k, const void* v, void* out,
   return cudaGetLastError();
 }
 
-// ---------------------------------------------------------------------------
-// flash_decode: split context, then an ordered combine
-// ---------------------------------------------------------------------------
-
-constexpr int kDecC = 64;                         // cache rows staged per step
-
-template <typename T>
-__device__ __forceinline__ float round_to(float x);
-template <>
-__device__ __forceinline__ float round_to<float>(float x) { return x; }
-template <>
-__device__ __forceinline__ float round_to<bf16>(float x) {
-  return __bfloat162float(__float2bfloat16_rn(x));
-}
-
-template <typename T>
-__device__ __forceinline__ T from_f32(float x);
-template <>
-__device__ __forceinline__ float from_f32<float>(float x) { return x; }
-template <>
-__device__ __forceinline__ bf16 from_f32<bf16>(float x) { return __float2bfloat16_rn(x); }
-
-static inline size_t decode_smem_bytes(int d, int g) {
-  return (size_t)(2 * kDecC * (d + 1) + g * d + g * kDecC) * 4;
-}
-
-// Block (chunk c, kv head): keys [c * chunk, min(live, (c + 1) * chunk)) for
-// the G query heads of the kv head, one warp each. Writes the chunk's
-// running max, sum and unnormalised accumulator.
-template <typename T, int D>
-__global__ void flash_decode_split_kernel(const T* __restrict__ q, const T* __restrict__ kc,
-                                          const T* __restrict__ vc, float* __restrict__ pm,
-                                          float* __restrict__ pl, float* __restrict__ pacc,
-                                          int live, int hq, int hk, int chunk, int n_split,
-                                          float scale) {
-  constexpr int kPad = D + 1;
-  constexpr int kDPL = D / 32;
-  constexpr int kVec = 16 / (int)sizeof(T);       // elements per 16-byte load
-  extern __shared__ __align__(16) float dec_smem[];
-  const int g_heads = hq / hk;
-  float* ks = dec_smem;                           // [kDecC][kPad]
-  float* vs = ks + kDecC * kPad;
-  float* qs = vs + kDecC * kPad;                  // [G][D]
-  float* ps = qs + g_heads * D;                   // [G][kDecC]
-  const int split = blockIdx.x, kvh = blockIdx.y;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int h = kvh * g_heads + warp;
-
-  for (int i = threadIdx.x; i < g_heads * D; i += blockDim.x)
-    qs[i] = pgk_to_f32(q[(size_t)kvh * g_heads * D + i]);
-  const int begin = split * chunk;
-  const int end = min(live, begin + chunk);
-  float m = kNegInf, l = 0.f, acc[kDPL];
-#pragma unroll
-  for (int j = 0; j < kDPL; ++j) acc[j] = 0.f;
-
-  for (int c0 = begin; c0 < end; c0 += kDecC) {
-    __syncthreads();
-    for (int i = threadIdx.x; i < kDecC * (D / kVec); i += blockDim.x) {
-      const int r = i / (D / kVec), c = (i % (D / kVec)) * kVec;
-      const int p = c0 + r;
-      uint4 kr = make_uint4(0u, 0u, 0u, 0u), vr = kr;
-      if (p < end) {
-        const size_t off = (size_t)p * hk * D + (size_t)kvh * D + c;
-        kr = *reinterpret_cast<const uint4*>(kc + off);
-        vr = *reinterpret_cast<const uint4*>(vc + off);
-      }
-      const T* ke = reinterpret_cast<const T*>(&kr);
-      const T* ve = reinterpret_cast<const T*>(&vr);
-#pragma unroll
-      for (int e = 0; e < kVec; ++e) {
-        ks[r * kPad + c + e] = pgk_to_f32(ke[e]);
-        vs[r * kPad + c + e] = pgk_to_f32(ve[e]);
-      }
-    }
-    __syncthreads();
-    const float* qh = qs + warp * D;
-    float sv[2];
-    bool dead[2];
-#pragma unroll
-    for (int u = 0; u < 2; ++u) {
-      const int r = lane + 32 * u;
-      float dot = 0.f;
-#pragma unroll 8
-      for (int d = 0; d < D; ++d) dot += qh[d] * ks[r * kPad + d];
-      dead[u] = c0 + r >= end;
-      sv[u] = dead[u] ? kNegInf : dot * scale;
-    }
-    const float m_new = fmaxf(m, pgk_warp_max(fmaxf(sv[0], sv[1])));
-    const float p0 = dead[0] ? 0.f : expf(sv[0] - m_new);
-    const float p1 = dead[1] ? 0.f : expf(sv[1] - m_new);
-    const float alpha = expf(m - m_new);
-    l = l * alpha + pgk_warp_sum(p0 + p1);
-    m = m_new;
-    float* pw = ps + warp * kDecC;
-    pw[lane] = round_to<T>(p0);
-    pw[lane + 32] = round_to<T>(p1);
-    __syncwarp();
-#pragma unroll
-    for (int j = 0; j < kDPL; ++j) acc[j] *= alpha;
-    for (int r = 0; r < kDecC; ++r) {
-      const float pr = pw[r];
-#pragma unroll
-      for (int j = 0; j < kDPL; ++j) acc[j] += pr * vs[r * kPad + lane + 32 * j];
-    }
-  }
-  const size_t slot = (size_t)h * n_split + split;
-  if (lane == 0) {
-    pm[slot] = m;
-    pl[slot] = l;
-  }
-#pragma unroll
-  for (int j = 0; j < kDPL; ++j) pacc[slot * D + lane + 32 * j] = acc[j];
-}
-
-// One warp per query head: fold the chunks in ascending order.
-template <typename T, int D>
-__global__ void flash_decode_combine_kernel(const float* __restrict__ pm,
-                                            const float* __restrict__ pl,
-                                            const float* __restrict__ pacc, T* __restrict__ out,
-                                            int n_split) {
-  constexpr int kDPL = D / 32;
-  const int h = blockIdx.x, lane = threadIdx.x;
-  const float* mh = pm + (size_t)h * n_split;
-  float mx = kNegInf;
-  for (int c = 0; c < n_split; ++c) mx = fmaxf(mx, mh[c]);
-  float l = 0.f, acc[kDPL];
-#pragma unroll
-  for (int j = 0; j < kDPL; ++j) acc[j] = 0.f;
-  for (int c = 0; c < n_split; ++c) {
-    const float w = expf(mh[c] - mx);
-    l += pl[(size_t)h * n_split + c] * w;
-    const float* a = pacc + ((size_t)h * n_split + c) * D;
-#pragma unroll
-    for (int j = 0; j < kDPL; ++j) acc[j] += a[lane + 32 * j] * w;
-  }
-  const float lf = fmaxf(l, 1e-30f);
-#pragma unroll
-  for (int j = 0; j < kDPL; ++j) out[(size_t)h * D + lane + 32 * j] = from_f32<T>(acc[j] / lf);
-}
-
-template <typename T, int D>
-cudaError_t launch_decode(const void* q, const void* kc, const void* vc, void* out, void* pm,
-                          void* pl, void* pacc, int live, int hq, int hk, int chunk,
-                          int n_split, float scale, cudaStream_t st) {
-  const int g = hq / hk;
-  if (n_split > 0) {
-    const size_t smem = decode_smem_bytes(D, g);
-    if (smem > 48 * 1024) {
-      cudaError_t e = cudaFuncSetAttribute(flash_decode_split_kernel<T, D>,
-                                           cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                           (int)smem);
-      if (e != cudaSuccess) return e;
-    }
-    flash_decode_split_kernel<T, D><<<dim3(n_split, hk), 32 * g, smem, st>>>(
-        static_cast<const T*>(q), static_cast<const T*>(kc), static_cast<const T*>(vc),
-        static_cast<float*>(pm), static_cast<float*>(pl), static_cast<float*>(pacc), live, hq,
-        hk, chunk, n_split, scale);
-    cudaError_t e = cudaGetLastError();
-    if (e != cudaSuccess) return e;
-  }
-  flash_decode_combine_kernel<T, D><<<hq, 32, 0, st>>>(
-      static_cast<const float*>(pm), static_cast<const float*>(pl),
-      static_cast<const float*>(pacc), static_cast<T*>(out), n_split);
-  return cudaGetLastError();
-}
-
 }  // namespace
 
 // q [s, hq, d], k and v [s, hk, d], out [s, hq, d]; contiguous, 16-byte
@@ -601,30 +425,5 @@ PGK_API int pgk_flash_attention(const void* q, const void* k, const void* v, voi
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (d == 64) return (int)launch_flash<64>(q, k, v, out, s, hq, hk, causal, is_f32, scale, st);
   if (d == 128) return (int)launch_flash<128>(q, k, v, out, s, hq, hk, causal, is_f32, scale, st);
-  return (int)cudaErrorInvalidValue;
-}
-
-// q [hq, d], caches [max_len, hk, d] (rows [0, live) read), out [hq, d];
-// contiguous, 16-byte aligned, all bf16 or all f32. pm, pl [hq, n_split] and
-// pacc [hq, n_split, d] f32 scratch; n_split = ceil(live / chunk), chunk a
-// multiple of 64 (n_split 0 writes zeros, as the reference does for an empty
-// context). Requires d in {64, 128}, hq % hk == 0, hq / hk <= 32.
-PGK_API int pgk_flash_decode(const void* q, const void* kc, const void* vc, void* out, void* pm,
-                             void* pl, void* pacc, int live, int hq, int hk, int d, int chunk,
-                             int n_split, int is_f32, float scale, void* stream) {
-  if (hk < 1 || hq % hk != 0 || hq / hk > 32 || chunk < 1 || chunk % kDecC != 0 ||
-      n_split < 0 || (long long)n_split * chunk < live || live < 0)
-    return (int)cudaErrorInvalidValue;
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (d == 64)
-    return is_f32 ? (int)launch_decode<float, 64>(q, kc, vc, out, pm, pl, pacc, live, hq, hk,
-                                                  chunk, n_split, scale, st)
-                  : (int)launch_decode<bf16, 64>(q, kc, vc, out, pm, pl, pacc, live, hq, hk,
-                                                 chunk, n_split, scale, st);
-  if (d == 128)
-    return is_f32 ? (int)launch_decode<float, 128>(q, kc, vc, out, pm, pl, pacc, live, hq, hk,
-                                                   chunk, n_split, scale, st)
-                  : (int)launch_decode<bf16, 128>(q, kc, vc, out, pm, pl, pacc, live, hq, hk,
-                                                  chunk, n_split, scale, st);
   return (int)cudaErrorInvalidValue;
 }

@@ -1,6 +1,7 @@
-// Shared-memory helpers: the shared address of a pointer, 16-byte cp.async
-// into shared memory (decode_attention.cuh's ring) and bf16 packing
-// (hopper.cuh builds on these).
+// Shared-memory and warp-MMA helpers: the shared address of a pointer,
+// 16-byte cp.async into shared memory (decode_attention.cuh's rings),
+// ldmatrix, the bf16 m16n8k16 mma.sync and bf16 packing (hopper.cuh builds
+// on these).
 #pragma once
 
 #include "common.cuh"
@@ -22,6 +23,29 @@ __device__ __forceinline__ void cp_async_commit() {
 template <int N>
 __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
+
+// Four 8x8 b16 matrices from shared memory (lane l gives row l % 8 of
+// matrix l / 8); .trans hands each lane a column pair instead of a row pair.
+__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const void* row) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_u32(row)));
+}
+__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4], const void* row) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_u32(row)));
+}
+
+// d[16 x 8] += a[16 x 16] b[16 x 8]: bf16 operands, f32 sums.
+__device__ __forceinline__ void mma_bf16_16816(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
+                                               uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, "
+      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
 // Two floats -> one register of two bf16 (lo in the low half).

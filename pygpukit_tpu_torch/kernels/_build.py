@@ -63,11 +63,12 @@ _SIGNATURES = {
     "pgk_paged_attention": [_P] * 9 + [c_int] * 9 + [c_float, c_float, c_int, _P],
     "pgk_flash_attention": [_P, _P, _P, _P, c_int, c_int, c_int, c_int, c_int,
                             c_int, c_float, _P],
-    "pgk_flash_decode": [_P, _P, _P, _P, _P, _P, _P, c_int, c_int, c_int, c_int,
-                         c_int, c_int, c_int, c_float, _P],
+    "pgk_flash_decode": [_P, _P, _P, _P, c_int, _P, _P, c_int, c_int, c_int, c_int,
+                         c_int, c_int, c_float, _P],
     "pgk_gemm": [_P, _P, _P, c_int, c_int, c_int, c_int, c_int, c_int, c_int,
                  c_int, _P],
     "pgk_gemv_quant": [_P, c_int, _P, c_int, _P, _P, c_int, c_int, _P],
+    "pgk_gemv_quant_plan": [_P],
     "pgk_fused_decode_plan": [c_int] * 7 + [_P],
     "pgk_fused_decode": [_P] * 19 + [c_int] * 7 + [c_float, c_float, _P],
     "pgk_gmm": [_P, _P, _P, _P, c_int, c_int, c_int, c_int, c_int, _P],

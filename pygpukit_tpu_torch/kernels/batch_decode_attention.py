@@ -10,10 +10,10 @@ bf16 or f32 queries. CUDA tensors launch ``csrc/batch_decode_attention.cu``
 (or raise); CPU tensors take the plain version.
 
 The kernel splits each slot's live window over blocks (split-KV):
-:func:`attention_splits` picks the number of splits from the shapes alone and
-:func:`split_bounds` deals the 64-row chunks out, as the CUDA body
-(``csrc/decode_attention.cuh``) does; a second pass folds the splits in
-ascending order. ``paged_attention`` shares both.
+``attention_split.attention_splits`` picks the number of splits from the
+shapes alone and ``split_bounds`` deals the 64-row chunks out, as the CUDA
+body (``csrc/decode_attention.cuh``) does; a second pass folds the splits in
+ascending order. ``paged_attention`` and ``flash_decode`` share both.
 """
 
 from __future__ import annotations
@@ -24,6 +24,8 @@ import torch
 
 from ..ops.embedding import kv_leaf
 from ._build import launch, require_on, stream_of
+from .attention_split import (ATTN_CHUNK,  # noqa: F401 (re-exported)
+                              attention_splits, split_bounds)
 
 _F32 = torch.float32
 _NEG_INF = -1e30
@@ -33,42 +35,6 @@ _Q_KINDS = {torch.bfloat16: 0, _F32: 1}
 _KV_KINDS = {torch.bfloat16: 0, _F32: 1, torch.float8_e4m3fn: 2,
              torch.float8_e5m2: 3}
 INT8_KIND = 4
-#: rows per chunk of the kernel's split and shared-memory ring
-ATTN_CHUNK = 64
-#: the split aims at about this many pass-one blocks: two per SM of the
-#: card's 132
-SPLIT_BLOCKS = 264
-
-
-def attention_splits(b: int, hk: int, capacity: int) -> int:
-    """Splits per (slot, kv head) for a batch of ``b`` slots over ``hk`` kv
-    heads whose contexts hold at most ``capacity`` rows: enough blocks to
-    fill the card, never more splits than chunks. Shapes only, never a
-    context length, so a launch captured in a CUDA graph stays valid."""
-    chunks = max(1, -(-capacity // ATTN_CHUNK))
-    return max(1, min(chunks, -(-SPLIT_BLOCKS // (b * hk))))
-
-
-def split_bounds(lo: int, live: int, n_split: int) -> list[tuple[int, int]]:
-    """[start, end) of each split over the live window ``[max(lo, 0),
-    live)``: its 64-row chunks (counted from position 0) dealt out evenly
-    and in order, ``ceil(chunks / n_split)`` to a split; the first start
-    and the last end fall inside a chunk, every other bound on a chunk
-    edge; empty splits are ``(s, s)``. ``pgk_split_bounds`` in
-    ``csrc/decode_attention.cuh`` is the same function."""
-    lo0 = max(lo, 0)
-    if live <= lo0:
-        return [(0, 0)] * n_split
-    c_begin, c_end = lo0 // ATTN_CHUNK, -(-live // ATTN_CHUNK)
-    per = -(-(c_end - c_begin) // n_split)
-    out = []
-    for split in range(n_split):
-        cs = c_begin + split * per
-        start = max(lo0, cs * ATTN_CHUNK)
-        out.append((start, max(start, min(live, (cs + per) * ATTN_CHUNK))))
-    return out
-
-
 def storage_kinds(q: torch.Tensor, k_pool, v_pool) -> tuple[int, int]:
     """(query kind, storage kind) of the kernels; NotImplementedError for
     a dtype no engine builds (an f16 pool, say) or two storages."""

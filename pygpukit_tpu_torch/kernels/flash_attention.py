@@ -6,11 +6,18 @@ D]`` in q's dtype, causal or full, scale ``1/sqrt(D)``. ``flash_decode``:
 one query row ``[1, Hq, D]`` over fixed caches ``[MAX, Hk, D]`` whose rows
 ``[0, ctx_len)`` are live. Both keep the reference kernels' arithmetic: f32
 scores and running state, P rounded to the input dtype before P@V, the sum
-floored at 1e-30. CUDA tensors launch ``csrc/flash_attention.cu`` (bf16 or
-f32, D 64 or 128) or raise; CPU tensors take the plain versions, which
-compute the same full softmax with P rounded the same way (the kernels'
-online form rounds P against a running maximum, so the two agree to bf16
-rounding, and to f32 summation order in f32).
+floored at 1e-30. CUDA tensors launch ``csrc/flash_attention.cu`` and
+``csrc/flash_decode.cu`` (bf16 or f32, D 64 or 128) or raise; CPU tensors
+take the plain versions, which compute the same full softmax with P rounded
+the same way (the kernels' online form rounds P against a running maximum,
+so the two agree to bf16 rounding, and to f32 summation order in f32).
+
+``flash_decode`` is one launch over the decode-attention bodies that the
+batch kernels share (``csrc/decode_attention.cuh``): the tensor-core one
+for bf16 with up to 16 query heads a kv head, the CUDA-core one otherwise.
+Its split comes from the shapes alone (:func:`decode_plan`) and
+``ctx_len`` may be an int32 tensor on the card, which the kernel reads, so
+a CUDA graph captured once replays at every context.
 
 The reference's GQA head repeat, its padding to block multiples and its
 eight-row query padding in the decode kernel are TPU layout needs and are
@@ -25,15 +32,17 @@ import math
 import torch
 
 from ._build import launch, require_on, stream_of
+from .attention_split import ATTN_CHUNK, attention_splits
 
 _F32 = torch.float32
 _NEG_INF = -1e30
 _KERNEL_DTYPES = (torch.bfloat16, torch.float32)
-#: flash_decode splits the live context into chunks of a multiple of this
-#: many rows (the kernel's shared-memory step)
-DECODE_ROWS = 64
-#: ... aiming at about this many blocks over all kv heads (132 SMs)
-DECODE_BLOCKS = 128
+#: flash_decode's arrival counters: one per kv head (``csrc/flash_decode.cu``)
+MAX_KV_HEADS = 4096
+#: flash_decode's tensor-core route (bf16, at most 16 query heads a kv
+#: head): the 64-row chunks a block of four warps takes at most (two a
+#: warp, both in flight), and the blocks it aims at (one an SM)
+DECODE_MMA_CHUNKS, DECODE_MMA_BLOCKS = 8, 132
 #: query rows per step of flash_attention_plain (bounds its score memory)
 _PLAIN_Q_BLOCK = 512
 
@@ -134,40 +143,69 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return out
 
 
-def decode_split(live: int, hk: int) -> tuple[int, int]:
-    """(rows per chunk, chunks) of flash_decode's split: chunks of a multiple
-    of DECODE_ROWS rows, about DECODE_BLOCKS blocks over the kv heads, none
-    empty. A function of the context and Hk alone, so a replay splits the
-    same way."""
-    if live <= 0:
-        return DECODE_ROWS, 0
-    per_block = -(-live // max(1, DECODE_BLOCKS // hk))
-    chunk = -(-per_block // DECODE_ROWS) * DECODE_ROWS
-    return chunk, -(-live // chunk)
+def mma_fold_splits(g: int, d: int) -> int:
+    """Splits the tensor-core kernel's last block can stage in its ring to
+    fold them in one pass: ``pgk_mma_fold_splits`` of
+    ``csrc/decode_attention.cuh`` (a ring of four warps x 2 stages at D 64,
+    1 at D 128, x K and V chunks of 64 rows padded by 16 bytes; a split
+    takes G (D + 3) floats, and each head one more)."""
+    ring = 4 * (2 if d == 64 else 1) * 2 * ATTN_CHUNK * (2 * d + 16)
+    return (ring - 4 * g) // (g * (d + 3) * 4)
+
+
+def decode_plan(hq: int, max_len: int, hk: int, d: int = 64,
+                dtype: torch.dtype = torch.bfloat16) -> int:
+    """flash_decode's splits per kv head (its grid is splits x Hk blocks),
+    from the shapes alone, so one captured launch serves every context.
+    Tensor-core route: at most DECODE_MMA_CHUNKS chunks a split, about
+    DECODE_MMA_BLOCKS blocks, no more splits than its last block folds in
+    one pass; CUDA-core route: the batch kernels' plan for one slot (a warp
+    a query head). ValueError for a shape the kernel does not take: more
+    than 32 query heads per kv head, more than MAX_KV_HEADS kv heads."""
+    if hk < 1 or hq % hk or hq // hk > 32 or hk > MAX_KV_HEADS:
+        raise ValueError(f"flash_decode takes 1 to 32 query heads per kv head and at "
+                         f"most {MAX_KV_HEADS} kv heads: Hq {hq}, Hk {hk}")
+    if dtype == torch.bfloat16 and hq // hk <= 16:        # the tensor-core route
+        chunks = -(-max_len // ATTN_CHUNK)
+        return max(1, min(-(-chunks // DECODE_MMA_CHUNKS), -(-DECODE_MMA_BLOCKS // hk),
+                          mma_fold_splits(hq // hk, d)))
+    return attention_splits(1, hk, max_len)
+
+
+def _ctx_operand(ctx_len, device, max_len: int):
+    """(device tensor or None, int) of ``ctx_len`` for the kernel: a CUDA
+    tensor (one int32 element) stays on the card and the kernel reads it;
+    an int or a CPU tensor is passed by value, clamped to [0, MAX] (the
+    kernel's own reading of it)."""
+    if isinstance(ctx_len, torch.Tensor) and ctx_len.is_cuda:
+        require_on(device, ctx_len=ctx_len)
+        if ctx_len.numel() != 1 or ctx_len.dtype != torch.int32:
+            raise ValueError(f"a CUDA ctx_len must be one int32 element, got "
+                             f"{ctx_len.dtype} {tuple(ctx_len.shape)}")
+        return ctx_len, 0
+    return None, max(0, min(int(ctx_len), max_len))
 
 
 def flash_decode(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tensor,
                  ctx_len) -> torch.Tensor:
-    """q [1, Hq, D], caches [MAX, Hk, D], ``ctx_len`` an int (or a 0-d
-    tensor, read on the host) -> [1, Hq, D] in q's dtype."""
+    """q [1, Hq, D], caches [MAX, Hk, D] -> [1, Hq, D] in q's dtype over
+    the cache rows ``[0, ctx_len)`` (below 0: none, zeros out; above MAX:
+    all). ``ctx_len``: an int, or a tensor of one element; on the card an
+    int32 CUDA tensor, which the kernel reads and the host never does."""
     if not q.is_cuda:
         return flash_decode_plain(q, k_cache, v_cache, ctx_len)
     _check_kernel_operands(q, k_cache, v_cache, "flash_decode")
     _, hq, d = q.shape
     max_len, hk, _ = k_cache.shape
-    if q.shape[0] != 1 or hq // hk > 32:
-        raise ValueError(f"flash_decode takes one query row and at most 32 query "
-                         f"heads per kv head: q {tuple(q.shape)}, Hk {hk}")
-    live = max(0, min(int(ctx_len), max_len))
-    chunk, n_split = decode_split(live, hk)
+    if q.shape[0] != 1:
+        raise ValueError(f"flash_decode takes one query row: q {tuple(q.shape)}")
+    n_split = decode_plan(hq, max_len, hk, d, q.dtype)
+    ctx, ctx_val = _ctx_operand(ctx_len, q.device, max_len)
     qc, kc, vc = (_kernel_operand(t) for t in (q, k_cache, v_cache))
-    scratch = dict(device=q.device, dtype=_F32)
-    pm = torch.empty((hq, max(n_split, 1)), **scratch)
-    pl = torch.empty((hq, max(n_split, 1)), **scratch)
-    pacc = torch.empty((hq, max(n_split, 1), d), **scratch)
+    part = torch.empty(hq * n_split * (d + 2), device=q.device, dtype=_F32)
     out = torch.empty_like(qc)
     launch("flash_decode", "pgk_flash_decode", qc.data_ptr(), kc.data_ptr(),
-           vc.data_ptr(), out.data_ptr(), pm.data_ptr(), pl.data_ptr(),
-           pacc.data_ptr(), live, hq, hk, d, chunk, n_split, int(q.dtype == _F32),
-           _scale(d), stream_of(q))
+           vc.data_ptr(), None if ctx is None else ctx.data_ptr(), ctx_val,
+           out.data_ptr(), part.data_ptr(), hq, hk, d, max_len, n_split,
+           int(q.dtype == _F32), _scale(d), stream_of(q))
     return out

@@ -337,6 +337,31 @@ def conv_matmul(x: torch.Tensor, w: torch.Tensor,
 # N-major [N, K] fp8 / int8 / bf16: the library GEMV
 # ---------------------------------------------------------------------------
 
+#: gemv_quant's launch (``csrc/gemv_quant.cu``): warps a block, one output
+#: row each, and the 16-byte vectors of its row a lane has in flight (the
+#: kernel reports its own through ``pgk_gemv_quant_plan``; a card test holds
+#: them equal)
+GEMV_WARPS, GEMV_BATCH = 4, 8
+
+
+def gemv_quant_plan(n: int) -> list[int | None]:
+    """The output row each warp of gemv_quant's grid sums, warps in launch
+    order (block by block; None past N): the fewest blocks of GEMV_WARPS
+    warps that cover N, warp w of block b on row b * GEMV_WARPS + w. The
+    kernel computes the same row from blockIdx and the warp index."""
+    blocks = -(-n // GEMV_WARPS)
+    return [w if w < n else None for w in range(blocks * GEMV_WARPS)]
+
+
+def gemv_lane_vectors(n_vec: int, lane: int) -> list[list[int]]:
+    """The 16-byte vectors of a row that lane ``lane`` of its warp loads,
+    batch by batch (GEMV_BATCH in flight before their math): vector
+    ``base + 32 u + lane`` for u < GEMV_BATCH, bases 256 apart."""
+    step = 32 * GEMV_BATCH
+    return [[v for u in range(GEMV_BATCH) if (v := base + 32 * u + lane) < n_vec]
+            for base in range(0, n_vec, step)]
+
+
 def gemv_quant_plain(w_q: torch.Tensor, x: torch.Tensor,
                      scale: torch.Tensor | None = None) -> torch.Tensor:
     """Plain ``gemv_quant``: w converted to f32 (exact for all four storage
@@ -354,7 +379,9 @@ def gemv_quant(w_q: torch.Tensor, x: torch.Tensor,
     """y[N] = (W[N, K] @ x[K]) * scale[N] in bf16 (the reference's
     ``gemv_quant``): w_q N-major (K contiguous per output) in fp8
     e4m3fn / e5m2, int8 or bf16; x bf16 or f32, rounded to bf16; scale f32
-    [N] or None (1.0). CUDA: the gemv_quant kernel; CPU: the plain
+    [N] or None (1.0). CUDA: the gemv_quant kernel (a row a warp,
+    :func:`gemv_quant_plan`; a row that is not whole 16-byte vectors on
+    16-byte boundaries adds a scalar head and tail); CPU: the plain
     version."""
     if not x.is_cuda:
         return gemv_quant_plain(w_q, x, scale)

@@ -29,8 +29,10 @@ reference computes off the TPU.
 Route of fixed-cache decode (``sdpa_fixed_cache_fn``), by the same rule:
 one query row (T = 1) on CUDA tensors over bf16 or f32 caches of q's
 dtype, with no softcap, no window and the default scale (compared in f32),
-launches the hand-written ``kernels.flash_decode`` kernel (split context,
-ordered combine; ``ctx_len`` is read on the host). Everything else takes
+launches the hand-written ``kernels.flash_decode`` kernel (one launch over
+a split fixed by the shapes; ``ctx_len`` passed through as given: an int,
+or an int32 tensor on the card that the kernel reads, so a captured graph
+serves every position). Everything else takes
 the plain route on every device, as the reference computes it in XLA:
 lookahead windows (T > 1), int8 dicts, fp8 caches, a softcap, a window or
 another scale, and every CPU tensor. The plain route is the full softmax

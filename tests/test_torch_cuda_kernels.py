@@ -432,6 +432,86 @@ def test_flash_decode_matches_plain(dev, ctx, dtype):
     assert LAUNCHES["flash_decode"] == before + 1
     assert _attn_close(out, flash_decode_plain(q, kc, vc, ctx))
     assert torch.equal(out, flash_decode(q, kc, vc, ctx))
+    ctx_t = torch.tensor([ctx], dtype=torch.int32, device=dev)
+    assert torch.equal(out, flash_decode(q, kc, vc, ctx_t))   # read on the card
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_flash_decode_empty_cache_is_zero(dev, dtype):
+    """A cache of no rows gives zeros, in one launch, at any ctx_len."""
+    q = torch.ones((1, 8, 64), dtype=dtype, device=dev)
+    kc = torch.zeros((0, 2, 64), dtype=dtype, device=dev)
+    before = LAUNCHES["flash_decode"]
+    for ctx in (0, 5):
+        assert torch.equal(flash_decode(q, kc, kc, ctx), torch.zeros_like(q))
+    assert LAUNCHES["flash_decode"] == before + 2
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("ctx", [1, 333])
+@pytest.mark.parametrize("hq,hk,d", [(32, 1, 64), (32, 1, 128), (64, 2, 128), (8, 8, 128),
+                                     (32, 8, 128), (48, 4, 64)])
+def test_flash_decode_heads_and_dims(dev, hq, hk, d, ctx, dtype):
+    """G up to 32 query heads per kv head (the CUDA-core body: a block of
+    1024 threads), G 12 (both row halves of the tensor-core tile), G 4 at D
+    128 (Mixtral's shape) and G 1."""
+    g = _gen(dev, hq + hk + d + ctx)
+    q = torch.randn((1, hq, d), generator=g, device=dev).to(dtype)
+    kc = torch.randn((400, hk, d), generator=g, device=dev).to(dtype)
+    vc = torch.randn((400, hk, d), generator=g, device=dev).to(dtype)
+    out = flash_decode(q, kc, vc, ctx)
+    assert out.shape == q.shape and out.dtype == dtype
+    assert _attn_close(out, flash_decode_plain(q, kc, vc, ctx))
+    assert torch.equal(out, flash_decode(q, kc, vc, ctx))
+
+
+@pytest.mark.parametrize("hq,hk,d,dtype,max_len", [
+    (32, 4, 64, torch.bfloat16, 512), (32, 1, 128, torch.bfloat16, 700),
+    (32, 1, 64, torch.float32, 700), (8, 2, 128, torch.float32, 300)])
+def test_flash_decode_graph_replays_device_context(dev, hq, hk, d, dtype, max_len):
+    """One launch captured once with ctx_len on the card; ctx.fill_(v) and a
+    replay give the eager call's bits at every v (past MAX and below 0
+    included), and the arrival counters it leaves at zero serve the next
+    replay."""
+    g = _gen(dev, hq * d + max_len)
+    q = torch.randn((1, hq, d), generator=g, device=dev).to(dtype)
+    kc = torch.randn((max_len, hk, d), generator=g, device=dev).to(dtype)
+    vc = torch.randn((max_len, hk, d), generator=g, device=dev).to(dtype)
+    ctx = torch.zeros(1, dtype=torch.int32, device=dev)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        flash_decode(q, kc, vc, ctx)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    before = LAUNCHES["flash_decode"]
+    with torch.cuda.graph(graph):
+        out = flash_decode(q, kc, vc, ctx)
+    assert LAUNCHES["flash_decode"] == before + 1
+    for v in (0, 1, 143, max_len, max_len + 7, -3, 143):
+        ctx.fill_(v)
+        graph.replay()
+        eager = flash_decode(q, kc, vc, v)
+        torch.cuda.synchronize()
+        assert torch.equal(out, eager), v
+        assert _attn_close(eager, flash_decode_plain(q, kc, vc, v))
+
+
+def test_flash_decode_takes_only_an_int32_device_context(dev):
+    """A CUDA ctx_len is one int32 element, read by the kernel; another
+    dtype or more elements raise rather than cast on the card. A CPU tensor
+    is a value."""
+    q = torch.ones((1, 8, 64), dtype=torch.bfloat16, device=dev)
+    kc = torch.ones((64, 2, 64), dtype=torch.bfloat16, device=dev)
+    for bad in (torch.tensor([5], device=dev), torch.tensor([5, 6], dtype=torch.int32,
+                                                            device=dev),
+                torch.tensor(5, dtype=torch.bool, device=dev)):
+        with pytest.raises(ValueError):
+            flash_decode(q, kc, kc, bad)
+    want = flash_decode(q, kc, kc, 5)
+    assert torch.equal(flash_decode(q, kc, kc, torch.tensor(5)), want)
+    assert torch.equal(flash_decode(q, kc, kc, torch.tensor(5, dtype=torch.int32,
+                                                            device=dev)), want)
 
 
 def test_flash_attention_fn_routes_on_the_card(dev):
@@ -582,8 +662,13 @@ def test_gemm_raises_on_unsupported_dtypes(dev):
 
 @pytest.mark.parametrize("storage", [torch.float8_e4m3fn, torch.float8_e5m2, torch.int8,
                                      torch.bfloat16])
-@pytest.mark.parametrize("nk", PROJ_SHAPES + [(256, 200), (37, 13), (130, 2051)])
+@pytest.mark.parametrize("nk", PROJ_SHAPES + [(256, 200), (37, 13), (130, 2051), (1, 116224),
+                                (7, 116224), (7, 2048), (1, 24)])
 def test_gemv_quant_matches_plain(dev, nk, storage):
+    """Every storage, x in bf16 and f32, with and without a scale: N 1 and 7
+    (an odd last warp), K 116224, rows off whole 16-byte vectors (K 13,
+    2051 and a column slice), a weight base and an x off 16 bytes, on the
+    head-and-tail path; a second launch bitwise."""
     n, k = nk
     g = _gen(dev, n + k)
     if storage == torch.int8:
@@ -600,8 +685,26 @@ def test_gemv_quant_matches_plain(dev, nk, storage):
             assert y.dtype == torch.bfloat16 and y.shape == (n,)
             assert _bf16_close(y, gemv_quant_plain(w, x, s))
             assert torch.equal(y, gemv_quant(w, x, s))
-    y = gemv_quant(w[:, 1:], x[1:].to(torch.bfloat16), sc)     # rows off 16-byte alignment
-    assert _bf16_close(y, gemv_quant_plain(w[:, 1:], x[1:].to(torch.bfloat16), sc))
+    def off(t):                                    # the same values one element off
+        flat = t.reshape(-1)
+        return torch.cat([flat[:1], flat])[1:]
+    xb = x.to(torch.bfloat16)
+    for wq, xq in ((w[:, 1:], xb[1:]), (w[:, 1:], x[1:]), (off(w).view(n, k), off(x)),
+                   (w, off(xb))):
+        y = gemv_quant(wq, xq, sc)
+        assert _bf16_close(y, gemv_quant_plain(wq, xq, sc))
+        assert torch.equal(y, gemv_quant(wq, xq, sc))
+
+
+def test_gemv_quant_plan_matches_its_python_mirror(dev):
+    """The kernel's warps a block and vectors in flight a lane are the
+    Python mirror's GEMV_WARPS and GEMV_BATCH."""
+    import ctypes
+    from pygpukit_tpu_torch.kernels._build import library
+    from pygpukit_tpu_torch.kernels.gemv_quant import GEMV_BATCH, GEMV_WARPS
+    plan = (ctypes.c_int * 2)()
+    assert library().pgk_gemv_quant_plan(plan) == 0
+    assert (plan[0], plan[1]) == (GEMV_WARPS, GEMV_BATCH)
 
 
 def test_gemv_quant_raises_on_unsupported_dtypes(dev):

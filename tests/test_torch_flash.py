@@ -9,6 +9,10 @@
   its CPU route, across the dense/chunked boundary (chunk 512, keys padded)
   with softcap and window, rtol 1e-4;
 - the wrappers on CPU tensors are their plain versions and launch nothing;
+  ``flash_decode`` takes ``ctx_len`` as an int or an int32 tensor (0-d or
+  ``[1]``) and gives the same bits either way;
+- ``flash_decode``'s launch plan (``decode_plan``): a split count from the
+  shapes alone whose ``split_bounds`` cover the live context once, in order;
 - ``PYGPUKIT_FLASH_ATTENTION`` by the route's decision function: ``pallas``
   and ``jax`` take the kernel on CUDA tensors, ``xla`` the plain route.
 """
@@ -27,9 +31,11 @@ from pygpukit_tpu.ops.nn.attention import flash_attention_fn as jax_flash_fn
 from pygpukit_tpu_torch.kernels import (LAUNCHES, flash_attention,
                                         flash_attention_plain, flash_decode,
                                         flash_decode_plain)
-from pygpukit_tpu_torch.kernels.flash_attention import (DECODE_BLOCKS,
-                                                        DECODE_ROWS,
-                                                        decode_split)
+from pygpukit_tpu_torch.kernels.attention_split import (ATTN_CHUNK, SPLIT_BLOCKS,
+                                                        live_splits, split_bounds)
+from pygpukit_tpu_torch.kernels.flash_attention import (DECODE_MMA_BLOCKS,
+                                                        DECODE_MMA_CHUNKS, decode_plan,
+                                                        mma_fold_splits)
 from pygpukit_tpu_torch.llm import params_from_jax
 from pygpukit_tpu_torch.ops.nn import flash_attention_fn
 from pygpukit_tpu_torch.ops.nn.attention import _kernel_scale, flash_attention_route
@@ -128,14 +134,65 @@ def test_default_scale_is_compared_in_f32(d):
     assert not _kernel_scale(1.01 / math.sqrt(d), d)
 
 
-@pytest.mark.parametrize("live", [1, 63, 64, 65, 700, 4096, 8192, 100000])
-@pytest.mark.parametrize("hk", [1, 4, 8])
-def test_decode_split_covers_the_context(live, hk):
-    chunk, n = decode_split(live, hk)
-    assert chunk % DECODE_ROWS == 0
-    assert (n - 1) * chunk < live <= n * chunk              # none empty, all covered
-    assert n * hk <= max(DECODE_BLOCKS, hk)
-    assert decode_split(0, hk)[1] == 0
+@pytest.mark.parametrize("ctx_of", [lambda m: 0, lambda m: 1, lambda m: 63, lambda m: 64,
+                                    lambda m: 65, lambda m: m - 1, lambda m: m,
+                                    lambda m: m + 5],
+                         ids=["0", "1", "63", "64", "65", "MAX-1", "MAX", "MAX+5"])
+@pytest.mark.parametrize("max_len,hk", [(512, 4), (8192, 4), (700, 1), (64, 8)])
+def test_decode_plan_covers_the_context(max_len, hk, ctx_of):
+    """The split count is a function of the shapes and the route alone
+    (the same for every G a route takes: bf16 up to 16 query heads a kv
+    head on the tensor cores, within what its last block folds in one pass,
+    17 to 32 and f32 on the CUDA cores); the splits cover [0, min(ctx,
+    MAX)) once, in ascending order, the non-empty ones first
+    (``live_splits`` of them); 33 query heads a kv head raise."""
+    ctx = ctx_of(max_len)
+    chunks = -(-max_len // ATTN_CHUNK)
+    mma = decode_plan(8 * hk, max_len, hk, 64, torch.bfloat16)
+    cores = decode_plan(8 * hk, max_len, hk, 64, torch.float32)
+    assert all(decode_plan(g * hk, max_len, hk, 64, torch.bfloat16) == mma for g in (1, 4, 8))
+    assert all(decode_plan(g * hk, max_len, hk, 128, torch.float32) == cores
+               for g in (1, 16, 32))
+    assert decode_plan(32 * hk, max_len, hk, 64, torch.bfloat16) == cores
+    assert mma == max(1, min(-(-chunks // DECODE_MMA_CHUNKS), -(-DECODE_MMA_BLOCKS // hk)))
+    assert decode_plan(16 * hk, max_len, hk, 128) <= mma_fold_splits(16, 128) == 16
+    assert cores == max(1, min(chunks, -(-SPLIT_BLOCKS // hk)))
+    live = max(0, min(ctx, max_len))
+    for n_split in (mma, cores):
+        bounds = split_bounds(-(2 ** 30), live, n_split)
+        assert len(bounds) == n_split
+        covered = [p for start, end in bounds for p in range(start, end)]
+        assert covered == list(range(live))
+        n_live = live_splits(-(2 ** 30), live, n_split)
+        assert all(end > start for start, end in bounds[:n_live])
+        assert all(end == start for start, end in bounds[n_live:])
+    with pytest.raises(ValueError):
+        decode_plan(33 * hk, max_len, hk)
+
+
+@pytest.mark.parametrize("form", ["0-d", "[1]"])
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+@pytest.mark.parametrize("max_len,ctx", [(256, 0), (256, 100), (700, 700), (700, 900)])
+def test_flash_decode_tensor_context(max_len, ctx, dtype, form):
+    """ctx_len as an int32 tensor gives the int call's bits, and both match
+    the reference kernel in interpret mode (tolerances as
+    test_flash_decode_plain_matches_pallas); ctx 0 gives zeros. ctx past MAX
+    reads the MAX rows (the reference would also read its block padding),
+    so it is held to the reference at MAX."""
+    rng = np.random.default_rng(max_len * 3 + ctx)
+    qj, qt = _pair(rng, (1, 8, 64), dtype)
+    kj, kt = _pair(rng, (max_len, 2, 64), dtype)
+    vj, vt = _pair(rng, (max_len, 2, 64), dtype)
+    ctx_t = torch.tensor(ctx if form == "0-d" else [ctx], dtype=torch.int32)
+    before = dict(LAUNCHES)
+    got = flash_decode(qt, kt, vt, ctx_t)
+    assert dict(LAUNCHES) == before
+    assert torch.equal(got, flash_decode(qt, kt, vt, ctx))
+    if ctx == 0:
+        assert torch.equal(got, torch.zeros_like(qt))
+    else:
+        assert torch.equal(got, flash_decode(qt, kt, vt, min(ctx, max_len)))
+        _assert_close(got, jax_decode(qj, kj, vj, min(ctx, max_len)), dtype)
 
 
 @pytest.mark.parametrize("mode,want", [("", "kernel"), ("pallas", "kernel"), ("jax", "kernel"),

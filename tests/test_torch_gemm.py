@@ -10,7 +10,10 @@
 - ``batched_gemm`` against the JAX one;
 - ``gemv_quant_plain`` (and ``gemv_quant`` on CPU tensors) against the JAX
   ``gemv_quant`` in interpret mode for fp8 e4m3, int8 and bf16 storage,
-  within one bf16 ulp plus 1e-4 of max |y|.
+  within one bf16 ulp plus 1e-4 of max |y|;
+- ``gemv_quant``'s launch plan, the Python mirror of ``csrc/gemv_quant.cu``:
+  every output row summed by one warp, in ascending order, and every
+  16-byte vector of a row loaded by one lane.
 """
 
 import importlib
@@ -26,6 +29,8 @@ from pygpukit_tpu.kernels.gemm import gemm as jax_gemm
 from pygpukit_tpu.kernels.gemv_quant import gemv_quant as jax_gemv_quant
 from pygpukit_tpu_torch.kernels import (LAUNCHES, batched_gemm, gemm, gemm_plain,
                                         gemv_quant, gemv_quant_plain, reset_launches)
+from pygpukit_tpu_torch.kernels.gemv_quant import (GEMV_BATCH, GEMV_WARPS,
+                                                   gemv_lane_vectors, gemv_quant_plan)
 from pygpukit_tpu_torch.llm import params_from_jax
 
 gemm_module = importlib.import_module("pygpukit_tpu_torch.kernels.gemm")
@@ -154,3 +159,25 @@ def test_gemv_quant_plain_matches_pallas_interpret(nk, storage):
         reset_launches()
         assert torch.equal(gemv_quant(wt, torch.from_numpy(x), st), got)
         assert LAUNCHES["gemv_quant"] == 0
+
+
+@pytest.mark.parametrize("n", [1, 7, 8, 2048, 2560, 11264])
+def test_gemv_quant_plan_covers_n_in_order(n):
+    """Whole blocks of GEMV_WARPS warps, no more than cover N; the warps'
+    rows, in launch order, are 0..N-1 once each, then none."""
+    plan = gemv_quant_plan(n)
+    assert len(plan) % GEMV_WARPS == 0 and len(plan) - GEMV_WARPS < n
+    assert plan[:n] == list(range(n)) and set(plan[n:]) <= {None}
+
+
+@pytest.mark.parametrize("n_vec", [1, 31, 256, 257, 704, 7264])
+def test_gemv_lane_vectors_cover_a_row(n_vec):
+    """A row's vectors (K * elt / 16 of them: 7264 at K 116224 in bf16) are
+    loaded once each, at most GEMV_BATCH a lane a batch, and the warp's
+    lanes take consecutive vectors (coalesced 512-byte loads)."""
+    walks = [gemv_lane_vectors(n_vec, lane) for lane in range(32)]
+    loads = sorted(v for walk in walks for batch in walk for v in batch)
+    assert loads == list(range(n_vec))
+    assert all(len(batch) <= GEMV_BATCH for walk in walks for batch in walk)
+    first = [walk[0][0] for walk in walks if walk and walk[0]]
+    assert first == list(range(min(32, n_vec)))
