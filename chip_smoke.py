@@ -10,7 +10,10 @@ Phases:
     nvcc per source, all started together;
  3. each kernel against its plain PyTorch version at the 1.1B slice's
     shapes (w4a8 GEMV at rows 1 and 8 on the four projection shapes, GEMM at
-    M = 32 and 256, the row write and the attention at batch 8, MAX 1024,
+    M = 32, 256, 300 and 2048 there, at a ragged N and at the reference's
+    int4 GEMM cell M 8192, K 4096, N 14336 beside torch._int_mm of its int8
+    operands, a graph replay and a second launch bitwise; the row write and
+    the attention at batch 8, MAX 1024,
     paged attention at batch 8, block 16, MAX 512 and 1024 over shuffled
     blocks with two dead slots on the trash table), bitwise where the math
     is integer or a copy; then kernel and plain times (CUDA events, warmed
@@ -18,6 +21,9 @@ Phases:
     ladder GEMVs (w4a16, block w4a8, block w4a16, converting fp8) at the
     four projection shapes, rows 1 and 8: block w4a8 bitwise, the others
     within one bf16 ulp plus 1e-4 of max |y|, with GB/s of weight bytes;
+    block w4a8 also at rows 2 and 5, with its activation quantization fused
+    and as a separate launch (both timed), at K 2080 (a block straddling
+    K/2) and a ragged and a narrow N, a graph replay and a second launch;
     fused_decode (the whole-model decode step) at full width against its
     plain version at 2 and 22 layers, pos 1, 143 and 511 in cache 512 and
     pos 3000 in cache 4096 (relative L2 of h_out, k_new and v_new within
@@ -337,6 +343,18 @@ GMM_CASES = [("gate_up_M1024", 512, 2, 4096, 14336, 8, None, True),
              ("qwen3_30b_a3b", 512, 8, 2048, 768, 128, None, True)]
 
 
+# row 4's cases beyond the summary's M 8 and 256 (bitwise each): a ragged M,
+# the 2048-token prefill, a ragged N (odd, off the 128-column tile) and the
+# reference's int4 GEMM cell (bench.py:142-170), QUANT_MKN
+W4A8_MORE_M, W4A8_RAGGED = (300, 2048), (300, 1001, 2048)
+# row 11's cases beyond the ladder's rows 1 and 8 (bitwise each): rows 2
+# and 5 at the four projections; B 32 straddling K/2 (K 2080), a ragged N
+# (a multiple of 4 off every column tile) and a narrow N, at rows 1, 5, 8
+BLOCK_MORE_ROWS, BLOCK_EDGES = (2, 5), ((2048, 2080), (2060, 2048), (100, 2048))
+# the card's name and power limit (nvidia-smi), printed beside every time
+CARD = ""
+
+
 class SmokeFailure(RuntimeError):
     pass
 
@@ -434,8 +452,65 @@ def bits(t):
     return t.view(torch.int16) if t.element_size() == 2 else t
 
 
+def replays_bitwise(fn, what: str) -> None:
+    """``fn()`` launched twice gives the same bits, and a CUDA graph of it
+    captured once and replayed twice gives the eager call's bits."""
+    import torch
+    ref = fn()
+    check(torch.equal(bits(ref), bits(fn())), f"{what}: a second launch differs")
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = fn()
+    for _ in range(2):
+        graph.replay()
+        torch.cuda.synchronize()
+        check(torch.equal(bits(out), bits(ref)), f"{what}: a graph replay differs")
+
+
+def check_w4a8_cell(dev, g, detail: dict) -> None:
+    """Phase 3: row 4 at the reference's int4 GEMM cell (QUANT_MKN, bench.py:
+    142-170), bitwise against its plain version, timed beside the plain
+    version and beside ``torch._int_mm`` of the same int8 activations and
+    the unpacked int8 weight: the integer product alone, which neither
+    unpacks nor scales, so ``int_mm_ms`` is a yardstick and not a library
+    time (the port never calls it)."""
+    import torch
+    from pygpukit_tpu_torch.kernels import w4a8_matmul, w4a8_matmul_plain
+    from pygpukit_tpu_torch.kernels.gemv_quant import quantize_acts
+    from pygpukit_tpu_torch.llm.quant import unpack_int4
+    m, k, n = QUANT_MKN
+    w = torch.randint(0, 256, (n, k // 2), generator=g, device=dev, dtype=torch.uint8)
+    sc = torch.rand((n,), generator=g, device=dev) * 1e-3 + 1e-4
+    x = (torch.randn((m, k), generator=g, device=dev) * 2).to(torch.bfloat16)
+    y, ref = w4a8_matmul(x, w, sc), w4a8_matmul_plain(x, w, sc)
+    torch.cuda.synchronize()
+    check(torch.equal(bits(y), bits(ref)), f"w4a8_gemm M {m} K {k} N {n}: not bitwise")
+    del y, ref
+    kms = time_ms(lambda i: w4a8_matmul(x, w, sc), 1, 5)
+    pms = time_ms(lambda i: w4a8_matmul_plain(x, w, sc), 1, 2)
+    xq, _ = quantize_acts(x)
+    wq = unpack_int4(w)                                   # [N, K] int8; .t() is column-major
+    ims = time_ms(lambda i: torch._int_mm(xq, wq.t()), 1, 5)
+    nbytes, ops = n * k // 2 + 4 * n + m * (k + n) * 2, 2 * m * n * k
+    row = kernel_row(0.0, kms, pms, nbytes, ops, "int8", None)
+    detail["w4a8_gemm_cell"] = dict(row, share=row["bound_ms"] / kms, int_mm_ms=ims,
+                                    tops=ops / kms / 1e9, int_mm_tops=ops / ims / 1e9)
+    print(f"phase 3: w4a8_gemm at M {m}, K {k}, N {n} (the reference's int4 GEMM cell): "
+          f"kernel {kms:.4f} ms = {ops / kms / 1e9:.1f} TOP/s, bound {row['bound_ms']:.4f} ms "
+          f"({row['bound_by']}) = share {row['bound_ms'] / kms:.3f}, plain {pms:.3f} ms; "
+          f"int_mm_ms {ims:.4f} (torch._int_mm of the int8 operands alone, "
+          f"{ops / ims / 1e9:.1f} TOP/s) [{CARD}]")
+
+
 def check_kernels(dev) -> tuple[dict, dict]:
-    """Phase 3, the PR 1 and PR 2 kernels. Returns ({name: kernel_row},
+    """Phase 3, the serving path's kernels: the w4a8 GEMV and GEMM (also
+    at W4A8_MORE_M, W4A8_RAGGED and the reference's GEMM cell), the row
+    write, batch and paged attention. Returns ({name: kernel_row},
     detail)."""
     import torch
     from pygpukit_tpu_torch.kernels import (batch_decode_attention,
@@ -448,14 +523,18 @@ def check_kernels(dev) -> tuple[dict, dict]:
     res: dict = {}
     n_var = 8
     # per route: err, ms, plain_ms, bytes and int8 operations, summed over
-    # the four projections at rows 8 (GEMV) and 256 (GEMM)
+    # the four projections at rows 8 (GEMV) and 256 (GEMM); M 2048 beside
     gemv = dict.fromkeys(("err", "ms", "plain_ms", "bytes", "ops"), 0.0)
     gemm = dict(gemv)
+    m2048 = dict(gemv)
+
+    def w4a8_cost(rows, n, k):        # weights and scales, x in, y out; int8 ops
+        return n * k // 2 + 4 * n + rows * (k + n) * 2, 2 * rows * n * k
     for name, (n, k) in PROJ_SHAPES.items():
         w = torch.randint(0, 256, (n_var, n, k // 2), generator=g, device=dev,
                           dtype=torch.uint8)
         sc = torch.rand((n_var, n), generator=g, device=dev) * 1e-3 + 1e-4
-        for rows in (1, 8, 32, 256):
+        for rows in (1, 8, 32, 256) + W4A8_MORE_M:
             x = (torch.randn((rows, k), generator=g, device=dev) * 2).to(torch.bfloat16)
             y = w4a8_matmul(x, w[0], sc[0])
             ref = w4a8_matmul_plain(x, w[0], sc[0])
@@ -465,17 +544,35 @@ def check_kernels(dev) -> tuple[dict, dict]:
             check(same, f"w4a8 {name} rows={rows}: not bitwise (max abs err {err})")
             acc = gemv if rows <= 8 else gemm
             acc["err"] = max(acc["err"], err)
-            if rows in (8, 256):
+            if rows in (8, 256, 2048):
                 kms = time_ms(lambda i: w4a8_matmul(x, w[i], sc[i]), n_var)
                 pms = time_ms(lambda i: w4a8_matmul_plain(x, w[i], sc[i]), n_var)
                 ems = eager_ms(lambda i: w4a8_matmul(x, w[i], sc[i]), n_var)
                 detail[f"w4a8_{name}_rows{rows}"] = {"ms": kms, "plain_ms": pms,
                                                      "eager_ms": ems}
-                acc["ms"] += kms
-                acc["plain_ms"] += pms
-                acc["bytes"] += n * k // 2 + 4 * n + rows * (k + n) * 2
-                acc["ops"] += 2 * rows * n * k
+                tot = m2048 if rows == 2048 else acc
+                nbytes, ops = w4a8_cost(rows, n, k)
+                for key, v in (("ms", kms), ("plain_ms", pms), ("bytes", nbytes), ("ops", ops)):
+                    tot[key] += v
+            if rows == 256:
+                replays_bitwise(lambda: w4a8_matmul(x, w[0], sc[0]), f"w4a8_gemm {name} M 256")
         del w
+    for what, tot in (("M 256", gemm), ("M 2048", m2048)):
+        bms, by = bound(tot["bytes"], tot["ops"], "int8")
+        detail[f"w4a8_gemm_four_{what.replace(' ', '')}"] = dict(tot, bound_ms=bms,
+                                                                 share=bms / tot["ms"])
+        print(f"phase 3: w4a8_gemm, the four projections at {what} (activation quant "
+              f"included): kernel {tot['ms']:.5f} ms = {tot['ops'] / tot['ms'] / 1e9:.1f} TOP/s, "
+              f"bound {bms:.5f} ms ({by}) = share {bms / tot['ms']:.3f}, plain "
+              f"{tot['plain_ms']:.4f} ms [{CARD}]")
+    m, n, k = W4A8_RAGGED
+    w = torch.randint(0, 256, (n, k // 2), generator=g, device=dev, dtype=torch.uint8)
+    sc = torch.rand((n,), generator=g, device=dev) * 1e-3 + 1e-4
+    x = (torch.randn((m, k), generator=g, device=dev) * 2).to(torch.bfloat16)
+    check(torch.equal(bits(w4a8_matmul(x, w, sc)), bits(w4a8_matmul_plain(x, w, sc))),
+          f"w4a8_gemm M {m} N {n} K {k}: not bitwise")
+    replays_bitwise(lambda: w4a8_matmul(x, w, sc), f"w4a8_gemm M {m} N {n} K {k}")
+    check_w4a8_cell(dev, g, detail)
     # no single PyTorch call multiplies packed int4 by int8-quantized rows
     for name, acc in (("w4a8_gemv", gemv), ("w4a8_gemm", gemm)):
         res[name] = kernel_row(acc["err"], acc["ms"], acc["plain_ms"], acc["bytes"],
@@ -768,7 +865,9 @@ def ladder_weights(dev, g, n: int, k: int, n_var: int) -> dict:
 
 def check_ladder_kernels(dev, g, detail: dict) -> dict:
     """Phase 3, the four ladder GEMVs at the four projection shapes, rows 1
-    and 8: the block w4a8 GEMV bitwise, the others within one bf16 ulp plus
+    and 8 (the block w4a8 GEMV also at BLOCK_MORE_ROWS, both forms of its
+    activation quantization, and at BLOCK_EDGES): the block w4a8 GEMV
+    bitwise, the others within one bf16 ulp plus
     1e-4 of max |y| (max abs error and share of equal elements reported);
     kernel and plain device ms and GB/s of weight and scale bytes. Returns
     {name: (max_abs_err, ms, plain_ms)} with the times summed over the four
@@ -782,13 +881,17 @@ def check_ladder_kernels(dev, g, detail: dict) -> dict:
            "block_w4a16_gemv": (K.block_w4a16_matmul, K.block_w4a16_matmul_plain),
            "w4a16_gemv": (K.w4a16_matmul, K.w4a16_matmul_plain),
            "conv_gemv": (K.conv_matmul, K.conv_matmul_plain)}
+    from pygpukit_tpu_torch.kernels.gemv_quant import block_w4a8_launch
     res = {name: [0.0, 0.0, 0.0, 0.0, 0.0] for name in fns}
+    forms: dict = {}               # block w4a8, rows -> [fused ms, separate ms] over the shapes
     n_var = 8
     for shape, (n, k) in PROJ_SHAPES.items():
         weights = ladder_weights(dev, g, n, k, n_var)
-        for rows in (1, 8):
+        for rows in (1, 8) + BLOCK_MORE_ROWS:
             x = (torch.randn((rows, k), generator=g, device=dev) * 2).to(torch.bfloat16)
             for name, (fn, plain) in fns.items():
+                if rows in BLOCK_MORE_ROWS and name != "block_w4a8_gemv":
+                    continue
                 args, nbytes = weights[name]
                 y, ref = fn(x, *args[0]), plain(x, *args[0])
                 torch.cuda.synchronize()
@@ -796,12 +899,24 @@ def check_ladder_kernels(dev, g, detail: dict) -> dict:
                 err = diff.max().item()
                 equal = torch.eq(bits(y), bits(ref)).float().mean().item()
                 if name == "block_w4a8_gemv":
-                    check(equal == 1.0, f"{name} {shape} rows={rows}: not bitwise "
-                          f"(max abs err {err})")
+                    # torch.equal: the mean of the equal elements need not be
+                    # exactly 1.0 in f32 when they all are
+                    check(torch.equal(bits(y), bits(ref)), f"{name} {shape} rows={rows}: "
+                          f"not bitwise (max abs err {err}, equal share {equal})")
                 else:
                     tol = ref.float().abs() * ULP_REL + NEAR_ZERO * ref.float().abs().max()
                     check(bool((diff <= tol).all()), f"{name} {shape} rows={rows}: "
                           f"max abs err {err}")
+                if name == "block_w4a8_gemv":
+                    # both forms of the activation quantization, bitwise, timed;
+                    # the wrapper takes the faster by rows (BLOCK_FUSED_MAX_ROWS)
+                    tf = forms.setdefault(rows, [0.0, 0.0])
+                    for j, fused in enumerate((True, False)):
+                        check(torch.equal(bits(block_w4a8_launch(x, *args[0], fused)), bits(ref)),
+                              f"{name} {shape} rows={rows} fused={fused}: not bitwise")
+                        tf[j] += time_ms(lambda i: block_w4a8_launch(x, *args[i], fused), n_var)
+                    if shape == "o" and rows in (1, 8):
+                        replays_bitwise(lambda: fn(x, *args[0]), f"{name} {shape} rows {rows}")
                 kms = time_ms(lambda i: fn(x, *args[i]), n_var)
                 pms = time_ms(lambda i: plain(x, *args[i]), n_var)
                 detail[f"{name}_{shape}_rows{rows}"] = {
@@ -816,6 +931,23 @@ def check_ladder_kernels(dev, g, detail: dict) -> dict:
                     r[3] += nbytes + (k + n) * 2
                     r[4] += 2 * n * k
         del weights
+    for rows, (fms, sms) in sorted(forms.items()):
+        detail[f"block_w4a8_forms_rows{rows}"] = {"fused_ms": fms, "separate_ms": sms}
+        print(f"phase 3: block_w4a8_gemv, the four projections at rows {rows}: activation "
+              f"quant fused {fms:.5f} ms, separate launch first {sms:.5f} ms [{CARD}]")
+    bms = res["block_w4a8_gemv"][3] / HBM_BYTES_S * 1e3
+    print(f"phase 3: block_w4a8_gemv, the four projections at rows 1: kernel "
+          f"{res['block_w4a8_gemv'][1]:.5f} ms, bound {bms:.5f} ms (bytes) = share "
+          f"{bms / res['block_w4a8_gemv'][1]:.3f} [{CARD}]")
+    for n, k in BLOCK_EDGES:         # straddling, ragged and narrow N: both forms bitwise
+        w = torch.randint(0, 256, (k // 2, n), generator=g, device=dev, dtype=torch.uint8)
+        sb = (torch.rand((k // 32, n), generator=g, device=dev) * 1e-3 + 1e-4).to(torch.bfloat16)
+        for rows in (1, 5, 8):
+            x = (torch.randn((rows, k), generator=g, device=dev) * 2).to(torch.bfloat16)
+            ref = K.block_w4a8_matmul_plain(x, w, sb)
+            for fused in (True, False):
+                check(torch.equal(bits(block_w4a8_launch(x, w, sb, fused)), bits(ref)),
+                      f"block_w4a8_gemv N {n} K {k} rows={rows} fused={fused}: not bitwise")
     return {name: kernel_row(*r, "int8" if name == "block_w4a8_gemv" else "bf16", None)
             for name, r in res.items()}
 
@@ -1444,6 +1576,14 @@ def dense_path(model, requests, per_step: dict) -> dict:
     print(f"phase 6: batch-8 decode step at context 301: eager {eager:.3f} ms "
           f"wall, CUDA-graph replay {graph:.3f} ms device; device busy "
           f"{graph / eager:.3f} of the eager step; " + profile_line(prof, 6))
+    # the w4a8 GEMM's share of a prefill's device time (profiler, eager)
+    prof = kernel_profile(lambda _: model.prefill(requests[1][0]), n=2)
+    busy = sum(r[2] for r in prof)
+    gemm_ms = sum(r[2] for r in prof if "w4a8_gemm_kernel" in r[0])
+    quant_ms = sum(r[2] for r in prof if "act_quant" in r[0])
+    print(f"phase 6: {len(requests[1][0])}-token prefill: {busy:.3f} ms of kernels, "
+          f"w4a8_gemm {gemm_ms:.3f} ms ({gemm_ms / busy:.3f} of it) and its activation "
+          f"quantization {quant_ms:.3f} ms; " + profile_line(prof, 6) + f" [{CARD}]")
     return launches
 
 
@@ -1669,6 +1809,10 @@ def block_engine(cfg, dev, requests) -> dict:
     launches = engine_replay(model, requests, ("block_w4a8_gemv", "kv_rows_write",
                                                "batch_decode_attention"),
                              "int4_block engine", phases=("10", "10"))
+    eager, graph, prof, _ = decode_step_times(model, 8, 1024, 300)
+    print(f"phase 10: int4_block batch-8 decode step at context 301: eager {eager:.3f} ms "
+          f"wall, CUDA-graph replay {graph:.3f} ms device; " + profile_line(prof, 6)
+          + f" [{CARD}]")
     del model
     torch.cuda.empty_cache()
     cpu_parity(cfg, dev, requests[0][0], "int4_block", phase="10")
@@ -2345,9 +2489,10 @@ def main(argv: list[str]) -> int:
     from pygpukit_tpu_torch.kernels import _build
     from pygpukit_tpu_torch.llm import TransformerConfig
 
+    global CARD
     dev = require_cuda()
     set_deterministic_numerics()     # TF32 off: the plain integer dots stay exact
-    card = smi_line()
+    card = CARD = smi_line()
     print(f"card: {card}")
     nvcc_v = subprocess.run([_build.nvcc_path(), "--version"], capture_output=True,
                             text=True, timeout=60).stdout.strip().splitlines()[-1]

@@ -1,7 +1,7 @@
 // Hopper (sm_90a) building blocks: mbarriers, TMA tile loads and their
-// tensor maps, wgmma descriptors, fences and products, setmaxnreg. Used by
-// flash_attention.cu and by the GEMM mainloop of hopper_gemm.cuh (gemm.cu,
-// gmm.cu).
+// tensor maps, wgmma descriptors, fences and products (bf16; s8 with s32
+// sums), setmaxnreg. Used by flash_attention.cu, by the GEMM mainloop of
+// hopper_gemm.cuh (gemm.cu, gmm.cu) and by w4a8_gemm.cu.
 //
 // Shared-memory layout they assume: a 2-D tile of 16-bit values whose rows
 // are 64 elements (128 bytes), written by TMA with the 128-byte swizzle (the
@@ -140,15 +140,16 @@ typedef CUresult (*PgkEncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t
                                    const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
                                    CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
 
-// A bf16 tensor map of rank 2 or 3 with the 128-byte swizzle; reads past
-// the edges fill zeros. dims[0] is the inner (contiguous) extent, strides
-// the bytes between consecutive indices of dims[1] (and dims[2]), box the
-// extent of one load in each dimension. cuTensorMapEncodeTiled lives in
-// libcuda: the library links the runtime only, so it is fetched once through
-// cudaGetDriverEntryPoint (whose query-result argument exists since 12.5).
-inline cudaError_t pgk_tensor_map_bf16_nd(CUtensorMap* map, const void* base, int rank,
-                                          const uint64_t* dims, const uint64_t* strides,
-                                          const uint32_t* box) {
+// A bf16 (or, with `type`, another element type's) tensor map of rank 2 or
+// 3 with the 128-byte swizzle; reads past the edges fill zeros. dims[0] is
+// the inner (contiguous) extent, strides the bytes between consecutive
+// indices of dims[1] (and dims[2]), box the extent of one load in each
+// dimension. cuTensorMapEncodeTiled lives in libcuda: the library links the
+// runtime only, so it is fetched once through cudaGetDriverEntryPoint (whose
+// query-result argument exists since 12.5).
+inline cudaError_t pgk_tensor_map_bf16_nd(
+    CUtensorMap* map, const void* base, int rank, const uint64_t* dims, const uint64_t* strides,
+    const uint32_t* box, CUtensorMapDataType type = CU_TENSOR_MAP_DATA_TYPE_BFLOAT16) {
   static PgkEncodeTiled encode = nullptr;
   if (encode == nullptr) {
     void* fn = nullptr;
@@ -167,7 +168,7 @@ inline cudaError_t pgk_tensor_map_bf16_nd(CUtensorMap* map, const void* base, in
     b[i] = box[i];
     if (i + 1 < rank) st[i] = strides[i];
   }
-  const CUresult r = encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, rank, const_cast<void*>(base),
+  const CUresult r = encode(map, type, rank, const_cast<void*>(base),
                             d, st, b, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
                             CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
                             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
@@ -194,6 +195,16 @@ inline cudaError_t pgk_tensor_map_bf16_3d(CUtensorMap* map, const void* base, ui
   const uint64_t dims[3] = {inner, mid, outer}, strides[2] = {row_bytes, mat_bytes};
   const uint32_t box[3] = {box_inner, box_mid, 1};
   return pgk_tensor_map_bf16_nd(map, base, 3, dims, strides, box);
+}
+
+// A 2-D map of bytes (int8 / uint8 data) over `outer` rows of `inner` bytes
+// (`row_bytes` apart), boxes of box_inner x box_outer, 128-byte swizzle.
+inline cudaError_t pgk_tensor_map_u8(CUtensorMap* map, const void* base, uint64_t inner,
+                                     uint64_t outer, uint64_t row_bytes, uint32_t box_inner,
+                                     uint32_t box_outer) {
+  const uint64_t dims[2] = {inner, outer}, strides[1] = {row_bytes};
+  const uint32_t box[2] = {box_inner, box_outer};
+  return pgk_tensor_map_bf16_nd(map, base, 2, dims, strides, box, CU_TENSOR_MAP_DATA_TYPE_UINT8);
 }
 
 // -------------------------------------------------------------------- wgmma
@@ -227,6 +238,12 @@ template <int N>
 __device__ __forceinline__ void wgmma_fence_regs(float (&r)[N]) {
 #pragma unroll
   for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
+}
+
+template <int N>
+__device__ __forceinline__ void wgmma_fence_regs(int (&r)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+r"(r[i])::"memory");
 }
 
 // Register budgets of a warp-specialised block (every warp of a warpgroup
@@ -342,6 +359,27 @@ __device__ __forceinline__ void wgmma_ss_m64n256_tb(float (&d)[128], uint64_t da
         "+f"(d[112]), "+f"(d[113]), "+f"(d[114]), "+f"(d[115]), "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]),
         "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]), "+f"(d[124]), "+f"(d[125]), "+f"(d[126]), "+f"(d[127])
       : "l"(da), "l"(db), "r"(scale_d));
+}
+
+// d[64] (s32) += A (64 x 32 s8, registers) * B (32 x 128 s8, K-major in shared: [128 rows][K]);
+// scale_d 0 zeroes d first. A's fragment (warp w of the warpgroup, lane 4 g + t): a[0] row
+// 16 w + g, K 4 t .. 4 t + 3; a[1] row + 8, the same K; a[2], a[3] the same rows at K + 16.
+__device__ __forceinline__ void wgmma_rs_m64n128k32_s8(int (&d)[64], const uint32_t (&a)[4],
+                                                       uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k32.s32.s8.s8 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+      "{%64, %65, %66, %67}, %68, p;\n}\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]), "+r"(d[5]), "+r"(d[6]), "+r"(d[7]),
+        "+r"(d[8]), "+r"(d[9]), "+r"(d[10]), "+r"(d[11]), "+r"(d[12]), "+r"(d[13]), "+r"(d[14]), "+r"(d[15]),
+        "+r"(d[16]), "+r"(d[17]), "+r"(d[18]), "+r"(d[19]), "+r"(d[20]), "+r"(d[21]), "+r"(d[22]), "+r"(d[23]),
+        "+r"(d[24]), "+r"(d[25]), "+r"(d[26]), "+r"(d[27]), "+r"(d[28]), "+r"(d[29]), "+r"(d[30]), "+r"(d[31]),
+        "+r"(d[32]), "+r"(d[33]), "+r"(d[34]), "+r"(d[35]), "+r"(d[36]), "+r"(d[37]), "+r"(d[38]), "+r"(d[39]),
+        "+r"(d[40]), "+r"(d[41]), "+r"(d[42]), "+r"(d[43]), "+r"(d[44]), "+r"(d[45]), "+r"(d[46]), "+r"(d[47]),
+        "+r"(d[48]), "+r"(d[49]), "+r"(d[50]), "+r"(d[51]), "+r"(d[52]), "+r"(d[53]), "+r"(d[54]), "+r"(d[55]),
+        "+r"(d[56]), "+r"(d[57]), "+r"(d[58]), "+r"(d[59]), "+r"(d[60]), "+r"(d[61]), "+r"(d[62]), "+r"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d));
 }
 
 }  // namespace

@@ -7,11 +7,13 @@ takes the plain version.
 
 - ``w4a8_matmul``: int4 ``[N, K/2]`` + per-column scale, per-row int8
   activations; rows <= 8 the GEMV kernel (``csrc/w4a8_gemv.cu``), rows > 8
-  the GEMM (``csrc/w4a8_gemm.cu``).
+  the GEMM (``csrc/w4a8_gemm.cu``, int8 wgmma with split K where the tiles
+  alone fill the card poorly: :func:`w4a8_gemm_plan`).
 - ``w4a16_matmul``: the same int4 leaf against bf16 activations
   (``csrc/w4a16_gemv.cu``).
 - ``block_w4a8_matmul`` / ``block_w4a16_matmul``: int4_block K-major
   ``[K/2, N]`` + bf16 block scales ``[K/B, N]`` (``csrc/block_w4a8_gemv.cu``,
+  a column tile a block over all of K, folded in order: :func:`block_w4a8_plan`;
   ``csrc/block_w4a16_gemv.cu``).
 - ``conv_matmul``: a K-major ``[K, N]`` fp8 e4m3fn / e5m2, int8 or bf16
   weight converted to bf16 in the kernel, times a per-column scale
@@ -32,6 +34,7 @@ import torch.nn.functional as F
 
 from ..core.numerics import require_full_f32, true_div
 from ._build import launch, require_on, stream_of
+from .gemm import H100_SMS, raster
 
 _F32 = torch.float32
 _BF16 = torch.bfloat16
@@ -102,6 +105,57 @@ def w4a8_matmul_plain(x: torch.Tensor, packed: torch.Tensor,
     return y.to(_BF16)
 
 
+#: w4a8_gemm's tile (weight rows = output columns, activation rows), the
+#: packed bytes of K a stage, its K splits at most, and the tiles it splits
+#: at most (``csrc/w4a8_gemm.cu``)
+W4A8_TILE_N, W4A8_TILE_M, W4A8_STAGE_K, W4A8_MAX_SPLITS, W4A8_MAX_SPLIT_TILES = \
+    128, 128, 128, 8, 4096
+#: int32 values of one unit's split-K sums in the GEMM's scratch
+W4A8_UNIT_INTS = W4A8_TILE_N * W4A8_TILE_M
+
+
+def w4a8_gemm_plan(m: int, n: int, k_half: int, sms: int = H100_SMS) -> dict:
+    """The w4a8 GEMM's launch plan for M rows, N columns and K/2 packed
+    bytes on ``sms`` SMs: tiles of 128 x 128, ``n_k`` stages of 128 packed
+    bytes of K, and the K splits whose waves of units cost least (waves x
+    stages a unit, the fewest splits on a tie) among those that keep the
+    units within two waves; a unit is a split of a tile, the persistent
+    grid at most one block an SM. Depends on the shapes (and the card)
+    alone; ``w4a8_plan`` in the kernel is the same rule."""
+    tiles_m, tiles_n = -(-m // W4A8_TILE_M), -(-n // W4A8_TILE_N)
+    n_k = -(-k_half // W4A8_STAGE_K)
+    tiles = tiles_m * tiles_n
+    splits = 1
+    if tiles <= W4A8_MAX_SPLIT_TILES:
+        best = -(-tiles // sms) * n_k
+        for s in range(2, min(W4A8_MAX_SPLITS, n_k, 2 * sms // tiles) + 1):
+            cost = -(-tiles * s // sms) * -(-n_k // s)
+            if cost < best:
+                best, splits = cost, s
+    units = tiles * splits
+    return {"tiles_m": tiles_m, "tiles_n": tiles_n, "n_k": n_k, "splits": splits,
+            "units": units, "grid": min(units, sms)}
+
+
+def w4a8_gemm_unit(u: int, plan: dict) -> tuple[int, int, int, int]:
+    """(activation tile, weight tile, first stage, end stage) of unit ``u``:
+    split ``u % splits`` of tile ``u // splits``, the tiles in
+    :func:`~pygpukit_tpu_torch.kernels.gemm.raster` order (the kernel's
+    ``w4_unit``)."""
+    s, sp, n_k = u % plan["splits"], plan["splits"], plan["n_k"]
+    tm, tn = raster(u // sp, plan["tiles_m"], plan["tiles_n"])
+    return tm, tn, s * n_k // sp, (s + 1) * n_k // sp
+
+
+_SMS: dict = {}
+
+
+def _card_sms(device: torch.device) -> int:
+    if device not in _SMS:
+        _SMS[device] = torch.cuda.get_device_properties(device).multi_processor_count
+    return _SMS[device]
+
+
 def w4a8_matmul(x: torch.Tensor, packed: torch.Tensor,
                 scale: torch.Tensor) -> torch.Tensor:
     """x [M, K] or [K] (bf16/f32), packed [N, K/2] uint8, scale [N] or
@@ -123,9 +177,20 @@ def w4a8_matmul(x: torch.Tensor, packed: torch.Tensor,
     xq = torch.empty((m, 2 * k_half), dtype=torch.int8, device=x2.device)
     sx = torch.empty((m,), dtype=_F32, device=x2.device)
     out = torch.empty((m, n), dtype=_BF16, device=x2.device)
-    name = "w4a8_gemv" if m <= GEMV_MAX_ROWS else "w4a8_gemm"
-    launch(name, "pgk_" + name, x2.data_ptr(), int(x2.dtype == _F32),
-           packed.data_ptr(), sc.data_ptr(), xq.data_ptr(), sx.data_ptr(),
+    args = (x2.data_ptr(), int(x2.dtype == _F32), packed.data_ptr(), sc.data_ptr(),
+            xq.data_ptr(), sx.data_ptr())
+    if m <= GEMV_MAX_ROWS:
+        launch("w4a8_gemv", "pgk_w4a8_gemv", *args, out.data_ptr(), m, n, k_half,
+               stream_of(x2))
+        return out
+    if k_half > 65536:
+        raise ValueError(f"w4a8_gemm takes K up to 131072, got K={2 * k_half}")
+    if packed.data_ptr() % 16:
+        raise ValueError("w4a8_gemm needs a 16-byte aligned packed weight (TMA)")
+    plan = w4a8_gemm_plan(m, n, k_half, _card_sms(x2.device))
+    part = (torch.empty((plan["units"] * W4A8_UNIT_INTS,), dtype=torch.int32,
+                        device=x2.device) if plan["splits"] > 1 else None)
+    launch("w4a8_gemm", "pgk_w4a8_gemm", *args, None if part is None else part.data_ptr(),
            out.data_ptr(), m, n, k_half, stream_of(x2))
     return out
 
@@ -228,29 +293,86 @@ def block_w4a8_matmul_plain(x: torch.Tensor, packed: torch.Tensor,
     return ((y[0] + y[1]) * sx).to(_BF16)
 
 
+#: the block w4a8 GEMV's column tiles (groups of 4 columns: 32, 16 or 8),
+#: the blocks a tile width must reach to be taken (the H100's SMs), and the
+#: segments a chunk (``csrc/block_w4a8_gemv.cu``)
+BLOCK_GROUPS, BLOCK_WAVE, BLOCK_CHUNK = (8, 4, 2), 132, 32
+#: rows up to which the kernel quantizes the activations itself (above, the
+#: separate act_quant launch runs first): a function of the shapes alone
+BLOCK_FUSED_MAX_ROWS = 2
+
+
+def block_segments(k_half: int, b: int) -> list[tuple[int, int]]:
+    """The packed-row segments ``[start, end)`` of a ``[K/2, N]`` int4_block
+    weight with block size ``b``, each inside one low-half block and one
+    high-half block: the blocks themselves when ``b`` divides K/2, else
+    halves of them (low blocks end at multiples of ``b``, high ones where
+    ``(K/2 + r) % b == 0``). The kernel's ``Segments``."""
+    off = (b - k_half % b) % b
+    edges = sorted({e for e in range(0, k_half, b)} | {e for e in range(off, k_half, b)}
+                   | {k_half})
+    return list(zip(edges[:-1], edges[1:]))
+
+
+def block_w4a8_plan(n: int, k_half: int, b: int, rows: int = 1) -> dict:
+    """The block w4a8 GEMV's grid: one block a column tile over all of K,
+    the tile the widest of 32, 16 and 8 columns whose tiles number at least
+    BLOCK_WAVE; the 32-bit words a thread loads from a packed row at once
+    (2 at one row where N allows, else 1); the segments, walked in
+    chunks of BLOCK_CHUNK, each shared by ``parts`` threads. Depends on the
+    shapes alone (``block_groups`` and ``launch_width`` in the kernel)."""
+    groups = next((gr for gr in BLOCK_GROUPS if -(-n // (4 * gr)) >= BLOCK_WAVE),
+                  BLOCK_GROUPS[-1])
+    words = 2 if rows == 1 else 1
+    if n % (4 * words):
+        words = 1
+    segments = len(block_segments(k_half, b))
+    return {"tile_n": 4 * groups, "tiles": -(-n // (4 * groups)), "words": words,
+            "parts": 8 * words // groups, "segments": segments,
+            "chunks": -(-segments // BLOCK_CHUNK)}
+
+
 def block_w4a8_matmul(x: torch.Tensor, packed: torch.Tensor,
                       scale_block: torch.Tensor) -> torch.Tensor:
     """x [M, K] or [K] (bf16/f32), packed [K/2, N] uint8, scale_block
     [K/B, N] bf16 -> y [M, N] bf16. CUDA: the block w4a8 GEMV kernel
-    (M <= 8); CPU: the plain version."""
+    (M <= 8; the activation quantization fused up to BLOCK_FUSED_MAX_ROWS
+    rows); CPU: the plain version."""
     if not x.is_cuda:
         return block_w4a8_matmul_plain(x, packed, scale_block)
+    x2 = _rows(x, 2 * packed.shape[-2])
+    return block_w4a8_launch(x2, packed, scale_block,
+                             x2.shape[0] <= BLOCK_FUSED_MAX_ROWS)
+
+
+def block_w4a8_launch(x2: torch.Tensor, packed: torch.Tensor, scale_block: torch.Tensor,
+                      fused: bool) -> torch.Tensor:
+    """The block w4a8 GEMV kernel on CUDA rows ``x2`` [M, K], with the
+    activation quantization inside the kernel (``fused``) or as the
+    separate act_quant launch before it. :func:`block_w4a8_matmul` picks
+    by rows; both forms are bitwise the plain version, which CPU rows
+    take."""
+    if not x2.is_cuda:
+        return block_w4a8_matmul_plain(x2, packed, scale_block)
     k_half, n = packed.shape
     b = _block_size(packed, scale_block)
-    x2 = _rows(x, 2 * k_half)
     m = _gemv_rows(x2, "block_w4a8_gemv")
     if x2.dtype not in (_BF16, _F32):
         raise TypeError(f"block_w4a8_gemv takes bf16 or f32 activations, got {x2.dtype}")
     require_on(x2.device, packed=packed, scale_block=scale_block)
     _block_storage(packed, scale_block, b, n)
     x2 = x2.contiguous()
-    xq = torch.empty((m, 2 * k_half), dtype=torch.int8, device=x2.device)
-    sx = torch.empty((m,), dtype=_F32, device=x2.device)
+    if x2.data_ptr() % 16:                          # the kernel reads x in 16-byte words
+        x2 = x2.clone()
+    xq = sx = None
+    if not fused:
+        xq = torch.empty((m, 2 * k_half), dtype=torch.int8, device=x2.device)
+        sx = torch.empty((m,), dtype=_F32, device=x2.device)
     out = torch.empty((m, n), dtype=_BF16, device=x2.device)
     launch("block_w4a8_gemv", "pgk_block_w4a8_gemv", x2.data_ptr(),
            int(x2.dtype == _F32), packed.data_ptr(), scale_block.data_ptr(),
-           xq.data_ptr(), sx.data_ptr(), out.data_ptr(), m, n, k_half, b,
-           stream_of(x2))
+           None if xq is None else xq.data_ptr(), None if sx is None else sx.data_ptr(),
+           out.data_ptr(), m, n, k_half, b, int(fused), stream_of(x2))
     return out
 
 

@@ -53,8 +53,8 @@ def _bits(t):
     return t.view(torch.int16)
 
 
-@pytest.mark.parametrize("rows", [1, 8, 32, 256])
-@pytest.mark.parametrize("nk", PROJ_SHAPES)
+@pytest.mark.parametrize("rows", [1, 8, 32, 256, 300, 2048])
+@pytest.mark.parametrize("nk", PROJ_SHAPES + [(1001, 2048)])
 def test_w4a8_kernels_bitwise(dev, nk, rows):
     n, k = nk
     g = _gen(dev, rows)
@@ -66,6 +66,113 @@ def test_w4a8_kernels_bitwise(dev, nk, rows):
     y = w4a8_matmul(x, w, sc)
     assert LAUNCHES[name] == before + 1
     assert torch.equal(_bits(y), _bits(w4a8_matmul_plain(x, w, sc)))
+
+
+def _graph_bitwise(fn):
+    """fn() twice, and a CUDA graph of it captured once and replayed twice:
+    all bitwise the first eager call."""
+    ref = fn()
+    assert torch.equal(_bits(fn()), _bits(ref))
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = fn()
+    for _ in range(2):
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(_bits(out), _bits(ref))
+
+
+@pytest.mark.parametrize("m,nk", [(256, (2048, 2048)), (256, (11264, 2048)), (300, (1001, 2048)),
+                                  (40, (2048, 5632))])
+def test_w4a8_gemm_replays_a_graph_bitwise(dev, m, nk):
+    """Split K (M 256 at o: the last split of a tile to arrive folds, its
+    counters back at zero) and unsplit shapes, eager twice and replayed."""
+    n, k = nk
+    g = _gen(dev, m + n)
+    w = torch.randint(0, 256, (n, k // 2), generator=g, device=dev, dtype=torch.uint8)
+    sc = torch.rand((n,), generator=g, device=dev) * 1e-3 + 1e-4
+    x = (torch.randn((m, k), generator=g, device=dev) * 2).to(torch.bfloat16)
+    _graph_bitwise(lambda: w4a8_matmul(x, w, sc))
+    assert torch.equal(_bits(w4a8_matmul(x, w, sc)), _bits(w4a8_matmul_plain(x, w, sc)))
+
+
+def test_w4a8_plans_match_their_python_mirrors(dev):
+    """The C launch plans equal gemv_quant.w4a8_gemm_plan (on this card's
+    SMs) and block_w4a8_plan."""
+    import ctypes
+    from pygpukit_tpu_torch.kernels._build import library
+    from pygpukit_tpu_torch.kernels.gemv_quant import block_w4a8_plan, w4a8_gemm_plan
+    plan = (ctypes.c_int * 7)()
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    for m in (9, 256, 300, 2048, 8192):
+        for n, k_half in ((2560, 1024), (2048, 1024), (11264, 1024), (2048, 2816), (1001, 16),
+                          (14336, 2048)):
+            assert library().pgk_w4a8_gemm_plan(m, n, k_half, plan) == 0
+            want = w4a8_gemm_plan(m, n, k_half, sms)
+            assert list(plan) == [want[key] for key in ("tiles_m", "tiles_n", "n_k", "splits",
+                                                        "units", "grid")] + [sms], (m, n)
+    bplan = (ctypes.c_int * 3)()
+    for n, k_half, b in ((2560, 1024, 32), (2048, 2816, 32), (11264, 1024, 32), (4, 1040, 32),
+                         (2060, 1024, 64), (100, 48, 32)):
+        assert library().pgk_block_w4a8_plan(n, k_half, b, bplan) == 0
+        want = block_w4a8_plan(n, k_half, b)
+        assert list(bplan) == [want["tile_n"], want["tiles"], want["segments"]], (n, k_half, b)
+
+
+@pytest.mark.parametrize("rows", range(1, 9))
+@pytest.mark.parametrize("nk", PROJ_SHAPES)
+def test_block_w4a8_gemv_rows_bitwise(dev, nk, rows):
+    """The block w4a8 GEMV at rows 1-8 on the four projections: one launch,
+    bitwise its plain version, with the activation quantization fused and
+    as a separate launch alike."""
+    from pygpukit_tpu_torch.kernels.gemv_quant import block_w4a8_launch
+    n, k = nk
+    g = _gen(dev, rows * 31 + n)
+    w = torch.randint(0, 256, (k // 2, n), generator=g, device=dev, dtype=torch.uint8)
+    s = (torch.rand((k // 32, n), generator=g, device=dev) * 1e-3 + 1e-4).to(torch.bfloat16)
+    x = (torch.randn((rows, k), generator=g, device=dev) * 2).to(torch.bfloat16)
+    ref = block_w4a8_matmul_plain(x, w, s)
+    before = LAUNCHES["block_w4a8_gemv"]
+    assert torch.equal(_bits(block_w4a8_matmul(x, w, s)), _bits(ref))
+    assert LAUNCHES["block_w4a8_gemv"] == before + 1
+    for fused in (True, False):
+        assert torch.equal(_bits(block_w4a8_launch(x, w, s, fused)), _bits(ref))
+
+
+@pytest.mark.parametrize("rows", [1, 5])
+def test_block_w4a8_gemv_replays_a_graph_bitwise(dev, rows):
+    g = _gen(dev, rows)
+    n, k = 2048, 2048
+    w = torch.randint(0, 256, (k // 2, n), generator=g, device=dev, dtype=torch.uint8)
+    s = (torch.rand((k // 32, n), generator=g, device=dev) * 1e-3 + 1e-4).to(torch.bfloat16)
+    x = (torch.randn((rows, k), generator=g, device=dev) * 2).to(torch.bfloat16)
+    _graph_bitwise(lambda: block_w4a8_matmul(x, w, s))
+
+
+def test_w4a8_wrappers_raise_on_what_the_kernels_do_not_take(dev):
+    """K off 32 and a misaligned packed weight (the GEMM's TMA needs 16-byte
+    rows and base) raise before a launch; an f16 x raises for both kernels."""
+    before = dict(LAUNCHES)
+    w = torch.zeros((64, 24), dtype=torch.uint8, device=dev)       # K 48
+    sc = torch.ones(64, device=dev)
+    with pytest.raises(ValueError, match="K % 32"):
+        w4a8_matmul(torch.zeros((300, 48), dtype=torch.bfloat16, device=dev), w, sc)
+    off = torch.zeros(64 * 32 + 1, dtype=torch.uint8, device=dev)[1:].view(64, 32)
+    with pytest.raises(ValueError, match="16-byte"):
+        w4a8_matmul(torch.zeros((300, 64), dtype=torch.bfloat16, device=dev), off, sc)
+    with pytest.raises(TypeError):
+        w4a8_matmul(torch.zeros((300, 64), dtype=torch.float16, device=dev),
+                    torch.zeros((64, 32), dtype=torch.uint8, device=dev), sc)
+    with pytest.raises(TypeError):
+        block_w4a8_matmul(torch.zeros((1, 64), dtype=torch.float16, device=dev),
+                          torch.zeros((32, 64), dtype=torch.uint8, device=dev),
+                          torch.ones((2, 64), dtype=torch.bfloat16, device=dev))
+    assert LAUNCHES == before
 
 
 def test_kv_rows_write_bitwise_and_clamped(dev):
