@@ -9,7 +9,10 @@ Phases:
  2. build the kernels from pygpukit_tpu_torch/csrc with nvcc (sm_90a), one
     nvcc per source, all started together;
  3. each kernel against its plain PyTorch version at the 1.1B slice's
-    shapes (w4a8 GEMV at rows 1 and 8 on the four projection shapes, GEMM at
+    shapes (w4a8 GEMV at rows 1, 2, 5 and 8 on the four projection shapes
+    and at a ragged N 1001, launched after its activation quantization and
+    as its programmatic dependent, each bitwise and timed, graph replays at
+    rows 1 and 8; GEMM at
     M = 32, 256, 300 and 2048 there, at a ragged N and at the reference's
     int4 GEMM cell M 8192, K 4096, N 14336 beside torch._int_mm of its int8
     operands, a graph replay and a second launch bitwise; the row write and
@@ -21,6 +24,10 @@ Phases:
     ladder GEMVs (w4a16, block w4a8, block w4a16, converting fp8) at the
     four projection shapes, rows 1 and 8: block w4a8 bitwise, the others
     within one bf16 ulp plus 1e-4 of max |y|, with GB/s of weight bytes;
+    the converting GEMV on all four storages (e4m3, e5m2, int8, bf16) at
+    rows 1 and 8, e4m3 and int8 timed with bound and share, its plan of at
+    least 132 blocks, graph replays and second launches bitwise, a ragged
+    N 2060 and a K 2052 off every split at rows 1, 5 and 8;
     block w4a8 also at rows 2 and 5, with its activation quantization fused
     and as a separate launch (both timed), at K 2080 (a block straddling
     K/2) and a ragged and a narrow N, a graph replay and a second launch;
@@ -69,7 +76,7 @@ Phases:
     launches per decode step of the rung's GEMV and none of any other;
     tok/s, one single-stream step's (decode_step_fn over [L, MAX, Hk, D]
     caches) eager wall ms and graph device ms, bytes streamed per step and
-    GB/s;
+    GB/s; the fp8, bf16, int4 and int4_block steps' device ms on one line;
 10. phase 4's workload on the int4_block model, replayed bitwise, against
     single-stream generate (reported), and its 2-layer model on the card
     against the CPU plain path;
@@ -347,6 +354,19 @@ GMM_CASES = [("gate_up_M1024", 512, 2, 4096, 14336, 8, None, True),
 # the 2048-token prefill, a ragged N (odd, off the 128-column tile) and the
 # reference's int4 GEMM cell (bench.py:142-170), QUANT_MKN
 W4A8_MORE_M, W4A8_RAGGED = (300, 2048), (300, 1001, 2048)
+# row 1 (the w4a8 GEMV): the rows held bitwise at the four projections, the
+# kernel both as the activation quantization's programmatic dependent (pdl,
+# the wrapper's) and launched after it (separate), each bitwise and timed;
+# a ragged N (odd, off the 16-column tile); the rows whose graph replays
+# are held bitwise
+W4A8_GEMV_ROWS, W4A8_FORMS, W4A8_GEMV_RAGGED_N = (1, 2, 5, 8), ("separate", "pdl"), 1001
+W4A8_GEMV_REPLAYED = (1, 8)
+# row 10 (the converting GEMV): its storages at the four projections, rows
+# 1 and 8, within the tolerance; e4m3 and int8 timed; a ragged N (a
+# multiple of 4 off the 64-column tile and the 16-byte load) and a K off
+# every split (K 2052) at rows 1, 5 and 8
+CONV_STORAGE, CONV_TIMED = ("e4m3", "e5m2", "int8", "bf16"), ("e4m3", "int8")
+CONV_EDGES = ((2060, 2048), (2048, 2052))
 # row 11's cases beyond the ladder's rows 1 and 8 (bitwise each): rows 2
 # and 5 at the four projections; B 32 straddling K/2 (K 2080), a ragged N
 # (a multiple of 4 off every column tile) and a narrow N, at rows 1, 5, 8
@@ -517,16 +537,20 @@ def check_kernels(dev) -> tuple[dict, dict]:
                                             batch_decode_attention_plain,
                                             kv_rows_write, kv_rows_write_plain,
                                             w4a8_matmul, w4a8_matmul_plain)
+    from pygpukit_tpu_torch.kernels.gemv_quant import w4a8_gemv_launch
     g = torch.Generator(device=dev)
     g.manual_seed(1234)
     detail: dict = {}
     res: dict = {}
     n_var = 8
     # per route: err, ms, plain_ms, bytes and int8 operations, summed over
-    # the four projections at rows 8 (GEMV) and 256 (GEMM); M 2048 beside
+    # the four projections at rows 8 (GEMV) and 256 (GEMM); M 2048 beside;
+    # the GEMV at rows 1 beside
     gemv = dict.fromkeys(("err", "ms", "plain_ms", "bytes", "ops"), 0.0)
     gemm = dict(gemv)
     m2048 = dict(gemv)
+    gemv1 = dict(gemv)
+    forms: dict = {}               # rows -> {form: ms over the four projections}
 
     def w4a8_cost(rows, n, k):        # weights and scales, x in, y out; int8 ops
         return n * k // 2 + 4 * n + rows * (k + n) * 2, 2 * rows * n * k
@@ -534,7 +558,7 @@ def check_kernels(dev) -> tuple[dict, dict]:
         w = torch.randint(0, 256, (n_var, n, k // 2), generator=g, device=dev,
                           dtype=torch.uint8)
         sc = torch.rand((n_var, n), generator=g, device=dev) * 1e-3 + 1e-4
-        for rows in (1, 8, 32, 256) + W4A8_MORE_M:
+        for rows in W4A8_GEMV_ROWS + (32, 256) + W4A8_MORE_M:
             x = (torch.randn((rows, k), generator=g, device=dev) * 2).to(torch.bfloat16)
             y = w4a8_matmul(x, w[0], sc[0])
             ref = w4a8_matmul_plain(x, w[0], sc[0])
@@ -544,19 +568,50 @@ def check_kernels(dev) -> tuple[dict, dict]:
             check(same, f"w4a8 {name} rows={rows}: not bitwise (max abs err {err})")
             acc = gemv if rows <= 8 else gemm
             acc["err"] = max(acc["err"], err)
-            if rows in (8, 256, 2048):
+            if rows in (1, 8, 256, 2048):
                 kms = time_ms(lambda i: w4a8_matmul(x, w[i], sc[i]), n_var)
                 pms = time_ms(lambda i: w4a8_matmul_plain(x, w[i], sc[i]), n_var)
                 ems = eager_ms(lambda i: w4a8_matmul(x, w[i], sc[i]), n_var)
                 detail[f"w4a8_{name}_rows{rows}"] = {"ms": kms, "plain_ms": pms,
                                                      "eager_ms": ems}
-                tot = m2048 if rows == 2048 else acc
+                tot = m2048 if rows == 2048 else gemv1 if rows == 1 else acc
                 nbytes, ops = w4a8_cost(rows, n, k)
                 for key, v in (("ms", kms), ("plain_ms", pms), ("bytes", nbytes), ("ops", ops)):
                     tot[key] += v
+            if rows <= 8:
+                # the kernel with and without its programmatic launch, bitwise and timed
+                tf = forms.setdefault(rows, dict.fromkeys(W4A8_FORMS, 0.0))
+                for form in W4A8_FORMS:
+                    pdl = form == "pdl"
+                    check(torch.equal(bits(w4a8_gemv_launch(x, w[0], sc[0], pdl)), bits(ref)),
+                          f"w4a8_gemv {name} rows={rows} {form}: not bitwise")
+                    tf[form] += time_ms(lambda i: w4a8_gemv_launch(x, w[i], sc[i], pdl), n_var)
+            if rows in W4A8_GEMV_REPLAYED and name in ("o", "down"):
+                replays_bitwise(lambda: w4a8_matmul(x, w[0], sc[0]), f"w4a8_gemv {name} rows {rows}")
             if rows == 256:
                 replays_bitwise(lambda: w4a8_matmul(x, w[0], sc[0]), f"w4a8_gemm {name} M 256")
         del w
+    for rows, tf in sorted(forms.items()):
+        detail[f"w4a8_gemv_forms_rows{rows}"] = tf
+        print(f"phase 3: w4a8_gemv, the four projections at rows {rows}, activation quant "
+              f"included: launched after it {tf['separate']:.5f} ms, as its programmatic "
+              f"dependent (the wrapper's) {tf['pdl']:.5f} ms [{CARD}]")
+    for what, tot in (("rows 1", gemv1), ("rows 8", gemv)):
+        bms, by = bound(tot["bytes"], tot["ops"], "int8")
+        detail[f"w4a8_gemv_four_{what.replace(' ', '')}"] = dict(tot, bound_ms=bms,
+                                                                 share=bms / tot["ms"])
+        print(f"phase 3: w4a8_gemv, the four projections at {what} (activation quant "
+              f"included): kernel {tot['ms']:.5f} ms, bound {bms:.5f} ms ({by}) = share "
+              f"{bms / tot['ms']:.3f}, plain {tot['plain_ms']:.4f} ms [{CARD}]")
+    n, k = W4A8_GEMV_RAGGED_N, PROJ_SHAPES["o"][1]
+    w = torch.randint(0, 256, (n, k // 2), generator=g, device=dev, dtype=torch.uint8)
+    sc = torch.rand((n,), generator=g, device=dev) * 1e-3 + 1e-4
+    for rows in W4A8_GEMV_ROWS:
+        x = (torch.randn((rows, k), generator=g, device=dev) * 2).to(torch.bfloat16)
+        ref = w4a8_matmul_plain(x, w, sc)
+        for form in W4A8_FORMS:
+            check(torch.equal(bits(w4a8_gemv_launch(x, w, sc, form == "pdl")), bits(ref)),
+                  f"w4a8_gemv N {n} K {k} rows={rows} {form}: not bitwise")
     for what, tot in (("M 256", gemm), ("M 2048", m2048)):
         bms, by = bound(tot["bytes"], tot["ops"], "int8")
         detail[f"w4a8_gemm_four_{what.replace(' ', '')}"] = dict(tot, bound_ms=bms,
@@ -950,6 +1005,77 @@ def check_ladder_kernels(dev, g, detail: dict) -> dict:
                       f"block_w4a8_gemv N {n} K {k} rows={rows} fused={fused}: not bitwise")
     return {name: kernel_row(*r, "int8" if name == "block_w4a8_gemv" else "bf16", None)
             for name, r in res.items()}
+
+
+def conv_weights(storage: str, shape: tuple, g, dev):
+    """Seeded K-major converting-GEMV weights: int8 in [-127, 127], else
+    64 * N(0, 1) in fp8 e4m3 or e5m2 or bf16."""
+    import torch
+    if storage == "int8":
+        return torch.randint(-127, 128, shape, generator=g, device=dev, dtype=torch.int8)
+    dt = {"e4m3": torch.float8_e4m3fn, "e5m2": torch.float8_e5m2, "bf16": torch.bfloat16}
+    return (torch.randn(shape, generator=g, device=dev) * 64).to(dt[storage])
+
+
+def ulp_close(y, ref) -> bool:
+    """Within one bf16 ulp of ``ref`` plus NEAR_ZERO of its largest |value|."""
+    tol = ref.float().abs() * ULP_REL + NEAR_ZERO * ref.float().abs().max()
+    return bool(((y.float() - ref.float()).abs() <= tol).all())
+
+
+def check_conv_kernels(dev, g, detail: dict) -> None:
+    """Phase 3, row 10 beyond the ladder's e4m3 summary: every storage of
+    CONV_STORAGE at the four projection shapes, rows 1 and 8, within one
+    bf16 ulp plus 1e-4 of max |y| of the plain version; the plan's blocks
+    (at least one wave of 132 at every shape); CONV_TIMED storages timed
+    over the four projections with their bytes bound and share; at o, two
+    launches and a graph replay bitwise against the eager call; CONV_EDGES
+    at rows 1, 5 and 8."""
+    import torch
+    from pygpukit_tpu_torch.kernels import conv_matmul, conv_matmul_plain
+    from pygpukit_tpu_torch.kernels.gemv_quant import conv_gemv_plan
+    n_var = 8
+    tot: dict = {}                 # "storage rows" -> [ms, weight, scale, x and y bytes]
+    for shape, (n, k) in PROJ_SHAPES.items():
+        for rows in (1, 8):
+            blocks = conv_gemv_plan(rows, n, k)["blocks"]
+            check(blocks >= 132, f"conv_gemv {shape} rows {rows}: {blocks} blocks")
+        for storage in CONV_STORAGE:
+            w = conv_weights(storage, (n_var, k, n), g, dev)
+            sc = torch.rand((n_var, n), generator=g, device=dev) * 1e-2 + 1e-3
+            for rows in (1, 8):
+                x = torch.randn((rows, k), generator=g, device=dev).to(torch.bfloat16)
+                y, ref = conv_matmul(x, w[0], sc[0]), conv_matmul_plain(x, w[0], sc[0])
+                err = (y.float() - ref.float()).abs().max().item()
+                check(ulp_close(y, ref), f"conv_gemv {storage} {shape} rows {rows}: "
+                      f"max abs err {err}")
+                if storage in CONV_TIMED:
+                    kms = time_ms(lambda i: conv_matmul(x, w[i], sc[i]), n_var)
+                    t = tot.setdefault(f"{storage} rows {rows}", [0.0, 0.0])
+                    t[0] += kms
+                    t[1] += k * n * w.element_size() + 4 * n + 2 * rows * (k + n)
+                if shape == "o":
+                    replays_bitwise(lambda: conv_matmul(x, w[0], sc[0]),
+                                    f"conv_gemv {storage} {shape} rows {rows}")
+            del w
+    for what, (ms, nbytes) in tot.items():
+        bms = nbytes / HBM_BYTES_S * 1e3
+        detail[f"conv_gemv_four_{what.replace(' ', '_')}"] = {"ms": ms, "bound_ms": bms,
+                                                               "share": bms / ms}
+        print(f"phase 3: conv_gemv {what}, the four projections: kernel {ms:.5f} ms = "
+              f"{nbytes / ms / 1e6:.1f} GB/s, bound {bms:.5f} ms (bytes) = share "
+              f"{bms / ms:.3f} [{CARD}]")
+    for n, k in CONV_EDGES:       # a ragged N and a K off every split
+        for storage in CONV_TIMED:
+            w = conv_weights(storage, (k, n), g, dev)
+            sc = torch.rand((n,), generator=g, device=dev) * 1e-2 + 1e-3
+            for rows in (1, 5, 8):
+                x = torch.randn((rows, k), generator=g, device=dev).to(torch.bfloat16)
+                check(ulp_close(conv_matmul(x, w, sc), conv_matmul_plain(x, w, sc)),
+                      f"conv_gemv {storage} N {n} K {k} rows {rows}")
+            replays_bitwise(lambda: conv_matmul(x, w, sc), f"conv_gemv {storage} N {n} K {k}")
+    print(f"phase 3: conv_gemv on {list(CONV_STORAGE)} within the tolerance, replays "
+          f"bitwise, plans of at least 132 blocks [{CARD}]")
 
 
 def _attn_err(out, ref, kind: str, what: str) -> float:
@@ -1604,14 +1730,15 @@ def streamed_bytes(params: dict) -> int:
     return total
 
 
-def ladder_rung(model, rung: str, card: str, per_step: dict) -> dict:
+def ladder_rung(model, rung: str, card: str, per_step: dict, step_ms: dict) -> dict:
     """One rung of the decode ladder (the reference's bench_decode,
     bench.py:172-253): a warm generate of LADDER_WARM tokens and a timed
     one of LADDER_NEW after a 16-token prompt, cache LADDER_MAX, one chunk.
     Checks that the timed run starts with the warm run's tokens, finite
     logits and the GEMV launches of the timed run's decode
     (88 per step for the rung's GEMV, none for any other). Returns the
-    timed run's launches."""
+    timed run's launches; records the graph-replayed step's device ms in
+    ``step_ms``."""
     import os
     import torch
     from pygpukit_tpu_torch import LAUNCHES, reset_launches
@@ -1638,6 +1765,7 @@ def ladder_rung(model, rung: str, card: str, per_step: dict) -> dict:
                 os.environ.pop(k, None)
             else:
                 os.environ[k] = v
+    step_ms[rung] = graph
     (toks1, _, _, fin1), (toks2, secs, launches, fin2) = runs
     check(len(toks2) == LADDER_NEW, f"ladder {rung}: {len(toks2)} tokens")
     check(toks1 == toks2[:LADDER_WARM],
@@ -1669,15 +1797,19 @@ def ladder(cfg, dev, card: str, per_step: dict) -> dict:
     from pygpukit_tpu_torch.llm import init_params
     base = init_params(cfg, 0, torch.bfloat16, dev)
     launches: dict = {}
+    step_ms: dict = {}
     model, model_mode = None, "none yet"
     for rung, (mode, _, gemv) in LADDER.items():
         if mode != model_mode:              # rungs of one mode share a model
             model = None
             torch.cuda.empty_cache()
             model, model_mode = build_model(cfg, 0, dev, mode, base=base), mode
-        got = ladder_rung(model, rung, card, per_step)
+        got = ladder_rung(model, rung, card, per_step, step_ms)
         if gemv is not None:
             launches[gemv] = got[gemv]
+    print(f"phase 9: one decode step by CUDA-graph replay, device ms: fp8 "
+          f"{step_ms['fp8']:.3f} (conv_gemv), bf16 {step_ms['bf16']:.3f} (cuBLAS), int4 "
+          f"{step_ms['int4']:.3f} (w4a8_gemv), int4_block {step_ms['int4_block']:.3f} [{card}]")
     del model, base
     torch.cuda.empty_cache()
     return launches
@@ -2515,6 +2647,7 @@ def main(argv: list[str]) -> int:
         g = torch.Generator(device=dev)
         g.manual_seed(4321)
         results.update(check_ladder_kernels(dev, g, detail))
+        check_conv_kernels(dev, g, detail)
         results.update(check_flash_kernels(dev, g, detail))
         results.update(check_gemm_kernels(dev, g, detail))
         results.update(check_fused_decode(TransformerConfig(**CFG_1B), dev, g, detail))

@@ -1,4 +1,4 @@
-// Per-row int8 activation quantization, the prologue of both w4a8 kernels.
+// Per-row int8 activation quantization, the prologue of the w4a8 kernels.
 //
 // Op for op the reference's _quantize_acts_w4a8 (pygpukit_tpu/kernels/
 // gemv_quant.py): sx = max(amax / 127, 1e-12) with an IEEE f32 divide, then
@@ -14,6 +14,11 @@ template <typename T>
 __global__ void pgk_act_quant_kernel(const T* __restrict__ x, int k,
                                      int8_t* __restrict__ xq,
                                      float* __restrict__ sx) {
+  // a kernel launched after this one with programmatic stream serialization
+  // (the w4a8 GEMV, on rows too long for its own quantization kernel) may
+  // start now; its griddepcontrol.wait still waits for this grid's xq and
+  // sx. Before an ordinary launch it does nothing.
+  asm volatile("griddepcontrol.launch_dependents;");
   __shared__ float red[32];
   const int r = blockIdx.x;
   const T* xr = x + (size_t)r * k;

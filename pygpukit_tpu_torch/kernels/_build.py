@@ -50,7 +50,8 @@ LAUNCHES: dict[str, int] = {"w4a8_gemv": 0, "w4a8_gemm": 0,
 
 _P = c_void_p
 _SIGNATURES = {
-    "pgk_w4a8_gemv": [_P, c_int, _P, _P, _P, _P, _P, c_int, c_int, c_int, _P],
+    "pgk_w4a8_gemv": [_P, c_int, _P, _P, _P, _P, _P, c_int, c_int, c_int, c_int, _P],
+    "pgk_w4a8_gemv_plan": [c_int, c_int, c_int, _P],
     "pgk_w4a8_gemm": [_P, c_int, _P, _P, _P, _P, _P, _P, c_int, c_int, c_int, _P],
     "pgk_w4a8_gemm_plan": [c_int, c_int, c_int, _P],
     "pgk_w4a16_gemv": [_P, _P, _P, _P, c_int, c_int, c_int, _P],
@@ -59,6 +60,7 @@ _SIGNATURES = {
     "pgk_block_w4a8_plan": [c_int, c_int, c_int, _P],
     "pgk_block_w4a16_gemv": [_P, _P, _P, _P, c_int, c_int, c_int, c_int, _P],
     "pgk_conv_gemv": [_P, _P, c_int, _P, _P, c_int, c_int, c_int, _P],
+    "pgk_conv_gemv_plan": [c_int, c_int, c_int, _P],
     "pgk_kv_rows_write": [_P] * 7 + [c_int] * 7 + [_P],
     "pgk_batch_decode_attention": [_P] * 8 + [c_int] * 10 + [c_float, c_float,
                                                              c_int, _P],

@@ -6,9 +6,12 @@ PyTorch version. A CUDA tensor launches the kernel or raises; a CPU tensor
 takes the plain version.
 
 - ``w4a8_matmul``: int4 ``[N, K/2]`` + per-column scale, per-row int8
-  activations; rows <= 8 the GEMV kernel (``csrc/w4a8_gemv.cu``), rows > 8
-  the GEMM (``csrc/w4a8_gemm.cu``, int8 wgmma with split K where the tiles
-  alone fill the card poorly: :func:`w4a8_gemm_plan`).
+  activations; rows <= 8 the GEMV kernel (``csrc/w4a8_gemv.cu``, int8
+  mma.sync over 16-column tiles, K split across a block's warps, launched
+  as the activation quantization's programmatic dependent:
+  :func:`w4a8_gemv_plan`),
+  rows > 8 the GEMM (``csrc/w4a8_gemm.cu``, int8 wgmma with split K where
+  the tiles alone fill the card poorly: :func:`w4a8_gemm_plan`).
 - ``w4a16_matmul``: the same int4 leaf against bf16 activations
   (``csrc/w4a16_gemv.cu``).
 - ``block_w4a8_matmul`` / ``block_w4a16_matmul``: int4_block K-major
@@ -17,7 +20,8 @@ takes the plain version.
   ``csrc/block_w4a16_gemv.cu``).
 - ``conv_matmul``: a K-major ``[K, N]`` fp8 e4m3fn / e5m2, int8 or bf16
   weight converted to bf16 in the kernel, times a per-column scale
-  (``csrc/conv_gemv.cu``).
+  (``csrc/conv_gemv.cu``, 64-column tiles with K split across a cluster's
+  blocks and folded in order: :func:`conv_gemv_plan`).
 - ``gemv_quant``: the reference's library GEMV over an N-major ``[N, K]``
   weight of the same four storage types against one row
   (``csrc/gemv_quant.cu``).
@@ -147,6 +151,75 @@ def w4a8_gemm_unit(u: int, plan: dict) -> tuple[int, int, int, int]:
     return tm, tn, s * n_k // sp, (s + 1) * n_k // sp
 
 
+#: the w4a8 GEMV (``csrc/w4a8_gemv.cu``): output columns a block (the
+#: mma's M), and the 16-byte chunks of a packed column up to which a block
+#: runs 4 warps, then 8 (16 above)
+W4A8_GEMV_TILE, W4A8_GEMV_NARROW_CHUNKS, W4A8_GEMV_WIDE_CHUNKS = 16, 32, 128
+
+
+def w4a8_gemv_plan(rows: int, n: int, k_half: int) -> dict:
+    """The w4a8 GEMV's launch plan: a block a 16-column tile over all of K,
+    its warps (4 up to W4A8_GEMV_NARROW_CHUNKS 16-byte chunks a column, 8 up
+    to W4A8_GEMV_WIDE_CHUNKS, 16 above) each a contiguous slice of the
+    chunks (:func:`w4a8_gemv_slices`); rows do not change it. The kernel's
+    ``pgk_w4a8_gemv_plan`` is the same rule."""
+    chunks = k_half // 16
+    warps = 4 if chunks <= W4A8_GEMV_NARROW_CHUNKS else 8 if chunks <= W4A8_GEMV_WIDE_CHUNKS \
+        else 16
+    return {"tile_n": W4A8_GEMV_TILE, "blocks": -(-n // W4A8_GEMV_TILE), "warps": warps}
+
+
+def w4a8_gemv_slices(k_half: int, warps: int) -> list[tuple[int, int]]:
+    """The 16-byte chunks ``[c0, c1)`` of a packed column that each warp of
+    a block sums; lane t of a group takes chunks c0 + 4 i + t (round i)."""
+    nch = k_half // 16
+    return [(w * nch // warps, (w + 1) * nch // warps) for w in range(warps)]
+
+
+def w4a8_gemv_launch(x2: torch.Tensor, packed: torch.Tensor, scale: torch.Tensor,
+                     pdl: bool = True) -> torch.Tensor:
+    """The w4a8 GEMV kernel on CUDA rows ``x2`` [M <= 8, K]: the activation
+    quantization's launch, then the GEMV as its programmatic dependent
+    (``pdl``, what :func:`w4a8_matmul` takes) or after it. Both are bitwise
+    the plain version, which CPU rows take."""
+    if not x2.is_cuda:
+        return w4a8_matmul_plain(x2, packed, scale)
+    x2 = _rows(x2, 2 * packed.shape[1])
+    _w4a8_operands(x2, packed, scale, packed.shape[1])
+    return _w4a8_gemv(x2, packed, scale, pdl)
+
+
+def _w4a8_gemv(x2: torch.Tensor, packed: torch.Tensor, scale: torch.Tensor,
+               pdl: bool) -> torch.Tensor:
+    """:func:`w4a8_gemv_launch` past the operand checks it shares with the
+    GEMM."""
+    n, k_half = packed.shape
+    m = _gemv_rows(x2, "w4a8_gemv")
+    if packed.data_ptr() % 16:
+        raise ValueError("w4a8_gemv needs a 16-byte aligned packed weight")
+    sc = _col_scale(scale, n)
+    x2 = x2.contiguous()
+    if x2.data_ptr() % 16:                          # the quantization reads x in 16-byte words
+        x2 = x2.clone()
+    xq = torch.empty((m, 2 * k_half), dtype=torch.int8, device=x2.device)
+    sx = torch.empty((m,), dtype=_F32, device=x2.device)
+    out = torch.empty((m, n), dtype=_BF16, device=x2.device)
+    launch("w4a8_gemv", "pgk_w4a8_gemv", x2.data_ptr(), int(x2.dtype == _F32),
+           packed.data_ptr(), sc.data_ptr(), xq.data_ptr(), sx.data_ptr(), out.data_ptr(), m, n,
+           k_half, int(pdl), stream_of(x2))
+    return out
+
+
+def _w4a8_operands(x2: torch.Tensor, packed: torch.Tensor, scale: torch.Tensor,
+                   k_half: int) -> None:
+    if x2.dtype not in (_BF16, _F32):
+        raise TypeError(f"w4a8 kernels take bf16 or f32 activations, got {x2.dtype}")
+    require_on(x2.device, packed=packed, scale=scale)
+    _packed_u8(packed)
+    if k_half % 16:
+        raise ValueError(f"w4a8 kernels need K % 32 == 0, got K={2 * k_half}")
+
+
 _SMS: dict = {}
 
 
@@ -165,24 +238,17 @@ def w4a8_matmul(x: torch.Tensor, packed: torch.Tensor,
         return w4a8_matmul_plain(x, packed, scale)
     n, k_half = packed.shape
     x2 = _rows(x, 2 * k_half)
-    if x2.dtype not in (_BF16, _F32):
-        raise TypeError(f"w4a8 kernels take bf16 or f32 activations, got {x2.dtype}")
-    require_on(x2.device, packed=packed, scale=scale)
-    _packed_u8(packed)
-    if k_half % 16:
-        raise ValueError(f"w4a8 kernels need K % 32 == 0, got K={2 * k_half}")
+    _w4a8_operands(x2, packed, scale, k_half)
+    m = x2.shape[0]
+    if m <= GEMV_MAX_ROWS:
+        return _w4a8_gemv(x2, packed, scale, True)
     sc = _col_scale(scale, n)
     x2 = x2.contiguous()
-    m = x2.shape[0]
     xq = torch.empty((m, 2 * k_half), dtype=torch.int8, device=x2.device)
     sx = torch.empty((m,), dtype=_F32, device=x2.device)
     out = torch.empty((m, n), dtype=_BF16, device=x2.device)
     args = (x2.data_ptr(), int(x2.dtype == _F32), packed.data_ptr(), sc.data_ptr(),
             xq.data_ptr(), sx.data_ptr())
-    if m <= GEMV_MAX_ROWS:
-        launch("w4a8_gemv", "pgk_w4a8_gemv", *args, out.data_ptr(), m, n, k_half,
-               stream_of(x2))
-        return out
     if k_half > 65536:
         raise ValueError(f"w4a8_gemm takes K up to 131072, got K={2 * k_half}")
     if packed.data_ptr() % 16:
@@ -428,11 +494,50 @@ def conv_matmul_plain(x: torch.Tensor, w: torch.Tensor, scale: torch.Tensor,
     return (acc * scale.reshape(1, -1).to(_F32)).to(out_dtype)
 
 
+#: the converting GEMV (``csrc/conv_gemv.cu``): threads a block, output
+#: columns a block, the blocks the K splits aim for (two on each of the
+#: H100's 132 SMs) and the splits at most (a cluster's blocks)
+CONV_THREADS, CONV_TILE_N, CONV_TARGET_BLOCKS, CONV_MAX_SPLITS = 256, 64, 264, 8
+
+
+def conv_row_bound(rows: int) -> int:
+    """The kernel's row bound (1, 2, 4 or 8): its f32 sums a thread."""
+    return 1 if rows <= 1 else 2 if rows <= 2 else 4 if rows <= 4 else 8
+
+
+def conv_gemv_plan(rows: int, n: int, k: int) -> dict:
+    """The converting GEMV's grid: ``tiles`` of 64 columns x ``splits`` of
+    K's quads (groups of 4 rows), a tile's splits one thread-block cluster;
+    a thread owns ``cols`` columns (16 up to 2 rows, 8 up to 4, 4 up to 8)
+    and is one of ``klanes`` K lanes. The splits are the fewest powers of 2
+    that bring the blocks to CONV_TARGET_BLOCKS, at most CONV_MAX_SPLITS and
+    as many as leave every K lane a quad. Depends on the shapes alone
+    (``conv_plan`` in the kernel, reported by ``pgk_conv_gemv_plan``)."""
+    r = conv_row_bound(rows)
+    cols = 16 if r <= 2 else 8 if r == 4 else 4
+    klanes = CONV_THREADS * cols // CONV_TILE_N
+    tiles = -(-n // CONV_TILE_N)
+    splits = 1
+    while (splits < CONV_MAX_SPLITS and tiles * splits < CONV_TARGET_BLOCKS
+           and (k // 4) // (2 * splits) >= klanes):
+        splits *= 2
+    return {"tile_n": CONV_TILE_N, "tiles": tiles, "splits": splits, "cols": cols,
+            "klanes": klanes, "blocks": tiles * splits}
+
+
+def conv_split_quads(k: int, splits: int) -> list[tuple[int, int]]:
+    """The quads ``[q0, q1)`` (K rows 4 q0 .. 4 q1) of each split, in the
+    ascending order block 0 of the cluster folds them."""
+    quads = k // 4
+    return [(s * quads // splits, (s + 1) * quads // splits) for s in range(splits)]
+
+
 def conv_matmul(x: torch.Tensor, w: torch.Tensor,
                 scale: torch.Tensor) -> torch.Tensor:
     """x [M, K] or [K], w [K, N] fp8 e4m3fn / e5m2, int8 or bf16, scale [N]
     or [1, N] f32 -> y [M, N] bf16 with x rounded to bf16. CUDA: the
-    converting GEMV kernel (M <= 8); CPU: the plain version."""
+    converting GEMV kernel (M <= 8; its grid :func:`conv_gemv_plan`, K
+    split across a cluster's blocks); CPU: the plain version."""
     if not x.is_cuda:
         return conv_matmul_plain(x, w, scale)
     if w.dtype not in CONV_KINDS or w.dim() != 2 or not w.is_contiguous():
@@ -446,8 +551,12 @@ def conv_matmul(x: torch.Tensor, w: torch.Tensor,
     require_on(x2.device, w=w, scale=scale)
     if n % 4 or k % 4:
         raise ValueError(f"conv_gemv needs N % 4 == 0 and K % 4 == 0, got K={k}, N={n}")
+    if w.data_ptr() % (4 * w.element_size()):
+        raise ValueError("conv_gemv needs a weight aligned to 4 of its values")
     sc = _col_scale(scale, n)
     xb = x2.to(_BF16).contiguous()
+    if xb.data_ptr() % 8:                           # the kernel reads x in 8-byte words
+        xb = xb.clone()
     out = torch.empty((m, n), dtype=_BF16, device=x2.device)
     launch("conv_gemv", "pgk_conv_gemv", xb.data_ptr(), w.data_ptr(),
            CONV_KINDS[w.dtype], sc.data_ptr(), out.data_ptr(), m, n, k,

@@ -53,7 +53,7 @@ def _bits(t):
     return t.view(torch.int16)
 
 
-@pytest.mark.parametrize("rows", [1, 8, 32, 256, 300, 2048])
+@pytest.mark.parametrize("rows", [1, 2, 5, 8, 32, 256, 300, 2048])
 @pytest.mark.parametrize("nk", PROJ_SHAPES + [(1001, 2048)])
 def test_w4a8_kernels_bitwise(dev, nk, rows):
     n, k = nk
@@ -99,6 +99,63 @@ def test_w4a8_gemm_replays_a_graph_bitwise(dev, m, nk):
     x = (torch.randn((m, k), generator=g, device=dev) * 2).to(torch.bfloat16)
     _graph_bitwise(lambda: w4a8_matmul(x, w, sc))
     assert torch.equal(_bits(w4a8_matmul(x, w, sc)), _bits(w4a8_matmul_plain(x, w, sc)))
+
+
+@pytest.mark.parametrize("pdl", [True, False])
+@pytest.mark.parametrize("rows", range(1, 9))
+@pytest.mark.parametrize("nk", [(2048, 5632), (11264, 2048), (1001, 2048), (40, 96),
+                                (64, 16384)])
+def test_w4a8_gemv_forms_bitwise(dev, nk, rows, pdl):
+    """The GEMV as the quantization's programmatic dependent and launched
+    after it is bitwise the plain version, bf16 and f32 x (K 16384: rows
+    past the registers of the quantization kernel, which act_quant.cuh's
+    launch takes)."""
+    from pygpukit_tpu_torch.kernels.gemv_quant import w4a8_gemv_launch
+    n, k = nk
+    g = _gen(dev, rows * 7 + n)
+    w = torch.randint(0, 256, (n, k // 2), generator=g, device=dev, dtype=torch.uint8)
+    sc = torch.rand((n,), generator=g, device=dev) * 1e-3 + 1e-4
+    x = torch.randn((rows, k), generator=g, device=dev) * 2
+    for xt in (x.to(torch.bfloat16), x):
+        before = LAUNCHES["w4a8_gemv"]
+        y = w4a8_gemv_launch(xt, w, sc, pdl)
+        assert LAUNCHES["w4a8_gemv"] == before + 1
+        assert torch.equal(_bits(y), _bits(w4a8_matmul_plain(xt, w, sc))), xt.dtype
+
+
+@pytest.mark.parametrize("pdl", [True, False])
+@pytest.mark.parametrize("rows", [1, 8])
+def test_w4a8_gemv_replays_a_graph_bitwise(dev, rows, pdl):
+    """Two launches, and a CUDA graph captured once and replayed twice
+    (the pdl form's programmatic edge included), give the same bits."""
+    from pygpukit_tpu_torch.kernels.gemv_quant import w4a8_gemv_launch
+    g = _gen(dev, rows + 3)
+    n, k = 2048, 5632
+    w = torch.randint(0, 256, (n, k // 2), generator=g, device=dev, dtype=torch.uint8)
+    sc = torch.rand((n,), generator=g, device=dev) * 1e-3 + 1e-4
+    x = (torch.randn((rows, k), generator=g, device=dev) * 2).to(torch.bfloat16)
+    _graph_bitwise(lambda: w4a8_gemv_launch(x, w, sc, pdl))
+    assert torch.equal(_bits(w4a8_matmul(x, w, sc)), _bits(w4a8_matmul_plain(x, w, sc)))
+
+
+def test_gemv_plans_match_their_python_mirrors(dev):
+    """The w4a8 GEMV's and the converting GEMV's C plans equal
+    gemv_quant.w4a8_gemv_plan and conv_gemv_plan."""
+    import ctypes
+    from pygpukit_tpu_torch.kernels._build import library
+    from pygpukit_tpu_torch.kernels.gemv_quant import conv_gemv_plan, w4a8_gemv_plan
+    plan = (ctypes.c_int * 5)()
+    for rows in range(1, 9):
+        for n, k in PROJ_SHAPES + [(1001, 2048), (40, 96), (64, 65536), (2060, 2052)]:
+            if k % 32 == 0:                        # the w4a8 GEMV takes K % 32 == 0
+                assert library().pgk_w4a8_gemv_plan(rows, n, k // 2, plan) == 0
+                want = w4a8_gemv_plan(rows, n, k // 2)
+                assert list(plan)[:3] == [want["tile_n"], want["blocks"], want["warps"]], (
+                    rows, n, k)
+            assert library().pgk_conv_gemv_plan(rows, n, k, plan) == 0
+            want = conv_gemv_plan(rows, n, k)
+            assert list(plan) == [want[key] for key in ("tile_n", "tiles", "splits", "cols",
+                                                        "klanes")], (rows, n, k)
 
 
 def test_w4a8_plans_match_their_python_mirrors(dev):
@@ -407,8 +464,8 @@ def _close(y, ref):
     return bool(((y.float() - ref.float()).abs() <= tol).all())
 
 
-@pytest.mark.parametrize("rows", [1, 8])
-@pytest.mark.parametrize("nk", PROJ_SHAPES)
+@pytest.mark.parametrize("rows", range(1, 9))
+@pytest.mark.parametrize("nk", PROJ_SHAPES + [(2060, 2048)])
 def test_ladder_gemvs_match_plain(dev, nk, rows):
     n, k = nk
     x, packed, kmajor, sblock, sc, fp8 = _ladder_inputs(dev, n, k, rows, rows + n)
@@ -428,13 +485,35 @@ def test_ladder_gemvs_match_plain(dev, nk, rows):
             assert _close(y, ref), (name, (y.float() - ref.float()).abs().max().item())
 
 
+@pytest.mark.parametrize("n", [2560, 2060])
+@pytest.mark.parametrize("rows", range(1, 9))
 @pytest.mark.parametrize("wdt", [torch.float8_e5m2, torch.int8, torch.bfloat16])
-def test_conv_gemv_storage_types(dev, wdt):
-    g = _gen(dev, 11)
-    x = torch.randn((3, 2048), generator=g, device=dev).to(torch.bfloat16)
-    w = (torch.randn((2048, 2560), generator=g, device=dev) * 20).clamp(-127, 127)
+def test_conv_gemv_storage_types(dev, wdt, rows, n):
+    """Every storage at rows 1-8 (each row bound of the kernel), at N 2560
+    and at a ragged N (a multiple of 4 off the 128-column tile and off the
+    16-byte load: the 4-column loads)."""
+    g = _gen(dev, 11 + rows)
+    x = torch.randn((rows, 2048), generator=g, device=dev).to(torch.bfloat16)
+    w = (torch.randn((2048, n), generator=g, device=dev) * 20).clamp(-127, 127)
     w = w.round().to(wdt) if wdt == torch.int8 else w.to(wdt)
-    sc = torch.rand((2560,), generator=g, device=dev) * 1e-2
+    sc = torch.rand((n,), generator=g, device=dev) * 1e-2
+    assert _close(conv_matmul(x, w, sc), conv_matmul_plain(x, w, sc))
+
+
+@pytest.mark.parametrize("rows,n,k", [(1, 2048, 2052), (8, 2048, 2052), (1, 11264, 2048),
+                                      (5, 100, 5632), (1, 4, 4)])
+@pytest.mark.parametrize("wdt", [torch.float8_e4m3fn, torch.int8])
+def test_conv_gemv_replays_a_graph_bitwise(dev, wdt, rows, n, k):
+    """K split across a cluster's blocks (K 2052: not a multiple of the
+    splits; N 100: two tiles, 8 splits) and unsplit shapes: two launches
+    and a graph replayed twice give the same bits (the fold's order is
+    fixed), within the tolerance of the plain version."""
+    g = _gen(dev, rows * 3 + n)
+    x = torch.randn((rows, k), generator=g, device=dev).to(torch.bfloat16)
+    w = (torch.randn((k, n), generator=g, device=dev) * 20).clamp(-127, 127)
+    w = w.round().to(wdt) if wdt == torch.int8 else w.to(wdt)
+    sc = torch.rand((n,), generator=g, device=dev) * 1e-2
+    _graph_bitwise(lambda: conv_matmul(x, w, sc))
     assert _close(conv_matmul(x, w, sc), conv_matmul_plain(x, w, sc))
 
 
