@@ -283,6 +283,7 @@ DECODE_GRAPH_CTX = (0, 1, 64, 65, 144, 511, 512, 519, -3)
 FUSED_CASES = ((2, 1, 512), (2, 143, 512), (2, 511, 512), (22, 1, 512), (22, 143, 512),
                (22, 511, 512), (22, 3000, 4096))
 FUSED_TIMED = (22, 143, 512)
+FUSED_GRAPH_POS = (37, 511)               # a graph captured at FUSED_TIMED replays here
 # fused_decode against its plain version at 22 layers, relative L2: every
 # bf16 rounding of the residual stream that summation order flips moves the
 # next layer's input, so two orders drift apart with depth. Phase 3 prints
@@ -920,8 +921,10 @@ def ladder_weights(dev, g, n: int, k: int, n_var: int) -> dict:
 
 def check_ladder_kernels(dev, g, detail: dict) -> dict:
     """Phase 3, the four ladder GEMVs at the four projection shapes, rows 1
-    and 8 (the block w4a8 GEMV also at BLOCK_MORE_ROWS, both forms of its
-    activation quantization, and at BLOCK_EDGES): the block w4a8 GEMV
+    and 8 (the block GEMVs also at BLOCK_MORE_ROWS and BLOCK_EDGES, the
+    block w4a8 GEMV in both forms of its activation quantization, the
+    block w4a16 GEMV's C plan against its Python mirror and its graph
+    replays at every projection): the block w4a8 GEMV
     bitwise, the others within one bf16 ulp plus
     1e-4 of max |y| (max abs error and share of equal elements reported);
     kernel and plain device ms and GB/s of weight and scale bytes. Returns
@@ -936,16 +939,30 @@ def check_ladder_kernels(dev, g, detail: dict) -> dict:
            "block_w4a16_gemv": (K.block_w4a16_matmul, K.block_w4a16_matmul_plain),
            "w4a16_gemv": (K.w4a16_matmul, K.w4a16_matmul_plain),
            "conv_gemv": (K.conv_matmul, K.conv_matmul_plain)}
-    from pygpukit_tpu_torch.kernels.gemv_quant import block_w4a8_launch
+    import ctypes
+    from pygpukit_tpu_torch.kernels._build import library
+    from pygpukit_tpu_torch.kernels.gemv_quant import block_w4a16_plan, block_w4a8_launch
     res = {name: [0.0, 0.0, 0.0, 0.0, 0.0] for name in fns}
     forms: dict = {}               # block w4a8, rows -> [fused ms, separate ms] over the shapes
+    w16: dict = {}                 # block w4a16, rows -> ms over the shapes
+    for n, k in PROJ_SHAPES.values():           # its C plan is the Python mirror, >= 132 blocks
+        for rows in (1, 8):
+            plan = (ctypes.c_int * 6)()
+            check(library().pgk_block_w4a16_plan(rows, n, k // 2, plan) == 0,
+                  "pgk_block_w4a16_plan refused a projection")
+            want = block_w4a16_plan(n, k // 2, rows)
+            check(list(plan) == [want[key] for key in ("tile_n", "tiles", "splits", "warps",
+                                                       "rounds", "smem")] and
+                  want["blocks"] >= 132, f"block_w4a16 plan {n} x {k} rows {rows}: C "
+                  f"{list(plan)}, Python {want}")
     n_var = 8
     for shape, (n, k) in PROJ_SHAPES.items():
         weights = ladder_weights(dev, g, n, k, n_var)
         for rows in (1, 8) + BLOCK_MORE_ROWS:
             x = (torch.randn((rows, k), generator=g, device=dev) * 2).to(torch.bfloat16)
             for name, (fn, plain) in fns.items():
-                if rows in BLOCK_MORE_ROWS and name != "block_w4a8_gemv":
+                if rows in BLOCK_MORE_ROWS and name not in ("block_w4a8_gemv",
+                                                            "block_w4a16_gemv"):
                     continue
                 args, nbytes = weights[name]
                 y, ref = fn(x, *args[0]), plain(x, *args[0])
@@ -972,6 +989,8 @@ def check_ladder_kernels(dev, g, detail: dict) -> dict:
                         tf[j] += time_ms(lambda i: block_w4a8_launch(x, *args[i], fused), n_var)
                     if shape == "o" and rows in (1, 8):
                         replays_bitwise(lambda: fn(x, *args[0]), f"{name} {shape} rows {rows}")
+                if name == "block_w4a16_gemv" and rows in (1, 8):
+                    replays_bitwise(lambda: fn(x, *args[0]), f"{name} {shape} rows {rows}")
                 kms = time_ms(lambda i: fn(x, *args[i]), n_var)
                 pms = time_ms(lambda i: plain(x, *args[i]), n_var)
                 detail[f"{name}_{shape}_rows{rows}"] = {
@@ -980,6 +999,8 @@ def check_ladder_kernels(dev, g, detail: dict) -> dict:
                     "equal_share": equal}
                 r = res[name]
                 r[0] = max(r[0], err)
+                if name == "block_w4a16_gemv":
+                    w16[rows] = w16.get(rows, 0.0) + kms
                 if rows == 1:
                     r[1] += kms
                     r[2] += pms
@@ -990,6 +1011,11 @@ def check_ladder_kernels(dev, g, detail: dict) -> dict:
         detail[f"block_w4a8_forms_rows{rows}"] = {"fused_ms": fms, "separate_ms": sms}
         print(f"phase 3: block_w4a8_gemv, the four projections at rows {rows}: activation "
               f"quant fused {fms:.5f} ms, separate launch first {sms:.5f} ms [{CARD}]")
+    b16 = res["block_w4a16_gemv"][3] / HBM_BYTES_S * 1e3
+    print(f"phase 3: block_w4a16_gemv, the four projections: " + ", ".join(
+        f"rows {r} {ms:.5f} ms" for r, ms in sorted(w16.items())) + f"; bound at rows 1 "
+        f"{b16:.5f} ms (bytes) = share {b16 / w16[1]:.3f} [{CARD}]")
+    detail["block_w4a16_rows"] = w16
     bms = res["block_w4a8_gemv"][3] / HBM_BYTES_S * 1e3
     print(f"phase 3: block_w4a8_gemv, the four projections at rows 1: kernel "
           f"{res['block_w4a8_gemv'][1]:.5f} ms, bound {bms:.5f} ms (bytes) = share "
@@ -1003,6 +1029,11 @@ def check_ladder_kernels(dev, g, detail: dict) -> dict:
             for fused in (True, False):
                 check(torch.equal(bits(block_w4a8_launch(x, w, sb, fused)), bits(ref)),
                       f"block_w4a8_gemv N {n} K {k} rows={rows} fused={fused}: not bitwise")
+            # the block w4a16 GEMV on the same edges, within its tolerance
+            y16, ref16 = K.block_w4a16_matmul(x, w, sb), K.block_w4a16_matmul_plain(x, w, sb)
+            tol = ref16.float().abs() * ULP_REL + NEAR_ZERO * ref16.float().abs().max()
+            check(bool(((y16.float() - ref16.float()).abs() <= tol).all()),
+                  f"block_w4a16_gemv N {n} K {k} rows={rows}: off the tolerance")
     return {name: kernel_row(*r, "int8" if name == "block_w4a8_gemv" else "bf16", None)
             for name, r in res.items()}
 
@@ -1204,11 +1235,42 @@ def rel_l2(a, b) -> float:
     return ((a - b).norm() / b.norm()).item()
 
 
+def fused_graph_positions(args, heads, params, pos: int) -> None:
+    """fused_decode captured once in a CUDA graph (pos, the rope row and the
+    caches in device memory) and replayed at FUSED_GRAPH_POS and back at
+    ``pos``: each replay bitwise the eager call at its position. Restores
+    the arguments."""
+    import torch
+    from pygpukit_tpu_torch.kernels import fused_decode
+    args = list(args)                    # the graph's own pos and rope row
+    cos, sin, pos_t = args[1], args[2], args[3] = (args[1].clone(), args[2].clone(),
+                                                    args[3].clone())
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fused_decode(*args, **heads)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = fused_decode(*args, **heads)
+    for p in FUSED_GRAPH_POS + (pos,):
+        pos_t.fill_(p)
+        cos.copy_(params["rope_cos"][p:p + 1])
+        sin.copy_(params["rope_sin"][p:p + 1])
+        graph.replay()
+        eager = fused_decode(*args, **heads)
+        torch.cuda.synchronize()
+        check(all(torch.equal(a, b) for a, b in zip(out, eager)),
+              f"fused_decode graph replayed at pos {p}: not the eager call's bits")
+    del graph
+
+
 def check_fused_decode(cfg, dev, g, detail: dict) -> dict:
     """Phase 3, fused_decode over FUSED_CASES on the 1.1B bf16 leaves (seed
     0, the consolidated q|k|v and gate|up leaves) with random caches: each
     case against the plain version (relative L2 of h_out, k_new and v_new)
-    and a bitwise second launch. At FUSED_TIMED: kernel, eager and plain
+    and a bitwise second launch. At FUSED_TIMED: a graph replayed at
+    FUSED_GRAPH_POS against eager, the C plan against fused_plan; kernel, eager and plain
     ms, its bound (weights, norms, the live K/V rows and the outputs once),
     and beside it the whole fused step (kernel, k/v scatter, head), the
     head alone and the unfused step (cuBLAS projections, flash_decode per
@@ -1216,7 +1278,7 @@ def check_fused_decode(cfg, dev, g, detail: dict) -> dict:
     computes the step: library_ms is null. Returns {"fused_decode": row}."""
     import torch
     from pygpukit_tpu_torch.kernels import fused_decode, fused_decode_plain
-    from pygpukit_tpu_torch.kernels.fused_decode import plan_of
+    from pygpukit_tpu_torch.kernels.fused_decode import fused_plan, plan_of
     from pygpukit_tpu_torch.llm import (decode_step_fn, fused_decode_step_fn, init_params,
                                         prepare_fused_decode_params)
     from pygpukit_tpu_torch.llm.model import _logits
@@ -1263,6 +1325,7 @@ def check_fused_decode(cfg, dev, g, detail: dict) -> dict:
             on_cpu = fused_decode_plain(*(a.cpu() for a in args), **heads)
             timed["spread"] = [rel_l2(a.cpu(), b) for a, b in zip(ref, on_cpu)]
             del on_cpu
+            fused_graph_positions(args, heads, params, pos)
             timed["ms"] = time_ms(lambda i: fused_decode(*args, **heads), 1, reps=20)
             timed["plain_ms"] = time_ms(lambda i: fused_decode_plain(*args, **heads), 1, reps=5)
             timed["eager_ms"] = eager_ms(lambda i: fused_decode(*args, **heads), 1, iters=20)
@@ -1285,6 +1348,9 @@ def check_fused_decode(cfg, dev, g, detail: dict) -> dict:
                      "bf16", None)
     plan = plan_of(dev, n_layers=n, hidden=e, intermediate=inter, n_heads=hq, n_kv_heads=hk,
                    head_dim=d, max_seq=mx)
+    props = torch.cuda.get_device_properties(dev)
+    want = fused_plan(n, e, inter, hq, hk, d, mx, sms=props.multi_processor_count)
+    check(plan == want, f"fused_decode plan {plan} is not its Python mirror {want}")
     detail["fused_decode"] = dict(res, share=res["bound_ms"] / timed["ms"],
                                   eager_ms=timed["eager_ms"], fused_step_ms=step_ms,
                                   head_ms=head_ms, unfused_step_ms=unfused_ms, plan=plan,
@@ -1809,7 +1875,8 @@ def ladder(cfg, dev, card: str, per_step: dict) -> dict:
             launches[gemv] = got[gemv]
     print(f"phase 9: one decode step by CUDA-graph replay, device ms: fp8 "
           f"{step_ms['fp8']:.3f} (conv_gemv), bf16 {step_ms['bf16']:.3f} (cuBLAS), int4 "
-          f"{step_ms['int4']:.3f} (w4a8_gemv), int4_block {step_ms['int4_block']:.3f} [{card}]")
+          f"{step_ms['int4']:.3f} (w4a8_gemv), int4_block {step_ms['int4_block']:.3f}, "
+          f"int4_block w4a16 {step_ms['int4_block w4a16']:.3f} (block_w4a16_gemv) [{card}]")
     del model, base
     torch.cuda.empty_cache()
     return launches

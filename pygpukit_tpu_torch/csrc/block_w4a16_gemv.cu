@@ -1,9 +1,10 @@
 // int4_block w4a16 GEMV for rows <= 8: y[r, n] = bf16(sum_k x[r, k] * w[k, n])
 // with w[k, n] = bf16(nibble(k, n) * s[k / B, n]) and x in bf16, f32 sums.
 //
-// Replaces pygpukit_tpu/kernels/gemv_quant.py _gemv_block_stacked_pallas and
-// _gemv_block_pallas (the same _block_tile_dots math on a stacked [L, K/2, N]
-// or a 2-D [K/2, N] weight; here a layer of a stack is a free view).
+// Replaces pygpukit_tpu/kernels/gemv_quant.py _gemv_block_stacked_pallas
+// (:1260, pallas_call :1269) and _gemv_block_pallas (:1366, :1373): the
+// same _block_tile_dots math on a stacked [L, K/2, N] or a 2-D [K/2, N]
+// weight (here a layer of a stack is a free view).
 //
 // Storage: K-major split-half packed [K/2, N] uint8 (packed row r holds
 // W[r] in the low nibble and W[K/2 + r] in the high one) and bf16 block
@@ -11,86 +12,87 @@
 // K/2 (B not dividing K/2) is read right, where the reference's lo/hi scale
 // split needs B | K/2.
 //
-// Bound: bytes. Per step each packed byte is read once (plus one bf16 scale
-// per B/2 bytes) for at most 8 rows. Design: kmajor_gemv.cuh's layout; the
-// weight is rounded to bf16 after the scale multiply, as the reference's
-// bf16 tile multiply does, so x * w is exact in f32 and only the order of
-// the f32 sums differs from the reference (and from the plain version).
-#include "kmajor_gemv.cuh"
+// Bound: bytes. Per step each packed byte is read once, with one bf16
+// scale per B/2 bytes, for at most 8 rows: the four 1.1B projections are
+// 24.8 MB (7.4 us at 3.35 TB/s). Design: w4a16_mma.cuh, bf16 tensor cores
+// over a card-filling grid (64-column tiles x K splits in a cluster),
+// launched as its predecessor's programmatic dependent, each weight
+// dequantized in pairs and rounded once to bf16 as the reference's bf16
+// tile multiply does, so only the order of the f32 sums differs from the
+// reference (and from the plain version); that order is fixed.
+#include "w4a16_mma.cuh"
 
 namespace {
 
-__global__ void __launch_bounds__(kKmThreads)
-block_w4a16_gemv_kernel(const uint8_t* __restrict__ w, const __nv_bfloat16* __restrict__ s,
-                        const __nv_bfloat16* __restrict__ x, __nv_bfloat16* __restrict__ out,
-                        int rows, int n, int k_half, int blk) {
-  __shared__ float red[kKmWarps * kKmMaxRows * kKmTN];
-  const int grp = threadIdx.x % kKmGroups;
-  const int slice = threadIdx.x / kKmGroups;
-  const int n0 = blockIdx.x * kKmTN + grp * 4;
-  const int k = 2 * k_half;
-  float acc[kKmMaxRows][4];
-#pragma unroll
-  for (int r = 0; r < kKmMaxRows; ++r)
-#pragma unroll
-    for (int c = 0; c < 4; ++c) acc[r][c] = 0.f;
-
-  if (n0 < n) {
-    for (int r0 = 4 * slice; r0 < k_half; r0 += 4 * kKmSlices) {
-      const unsigned* wp = reinterpret_cast<const unsigned*>(w + (size_t)r0 * n + n0);
-      const size_t st = n / 4;
-      unsigned col[4];
-      pgk_transpose4(__ldg(wp), __ldg(wp + st), __ldg(wp + 2 * st), __ldg(wp + 3 * st), col);
-      // the 4 rows share their lo block and their hi block (B % 8 == 0)
-      const uint2 slo = __ldg(reinterpret_cast<const uint2*>(s + (size_t)(r0 / blk) * n + n0));
-      const uint2 shi = __ldg(reinterpret_cast<const uint2*>(
-          s + (size_t)((k_half + r0) / blk) * n + n0));
-      const __nv_bfloat16* sl = reinterpret_cast<const __nv_bfloat16*>(&slo);
-      const __nv_bfloat16* sh = reinterpret_cast<const __nv_bfloat16*>(&shi);
-      float wl[4][4], wh[4][4];                        // [column][row j]
-#pragma unroll
-      for (int c = 0; c < 4; ++c) {
-        const float fl = __bfloat162float(sl[c]), fh = __bfloat162float(sh[c]);
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          wl[c][j] = __bfloat162float(__float2bfloat16_rn((float)pgk_nibble(col[c], j, 0) * fl));
-          wh[c][j] = __bfloat162float(__float2bfloat16_rn((float)pgk_nibble(col[c], j, 1) * fh));
-        }
-      }
-#pragma unroll
-      for (int r = 0; r < kKmMaxRows; ++r) {
-        if (r < rows) {
-          const uint2 xl = __ldg(reinterpret_cast<const uint2*>(x + (size_t)r * k + r0));
-          const uint2 xh = __ldg(reinterpret_cast<const uint2*>(x + (size_t)r * k + k_half + r0));
-          const __nv_bfloat16* xlb = reinterpret_cast<const __nv_bfloat16*>(&xl);
-          const __nv_bfloat16* xhb = reinterpret_cast<const __nv_bfloat16*>(&xh);
-#pragma unroll
-          for (int j = 0; j < 4; ++j) {
-            const float a = __bfloat162float(xlb[j]), b = __bfloat162float(xhb[j]);
-#pragma unroll
-            for (int c = 0; c < 4; ++c) acc[r][c] += a * wl[c][j] + b * wh[c][j];
-          }
-        }
-      }
-    }
+template <bool kSplitHi>
+cudaError_t launch_block(const void* x, const void* w, const void* s, void* out, int rows, int n,
+                         int k_half, int blk, int wide, cudaStream_t st) {
+  const w4a16::Plan p = w4a16::make_plan(n, k_half);
+  auto kernel = w4a16::block_kernel<kSplitHi>;
+  const size_t smem = w4a16::smem_bytes(p, rows);
+  if (smem > 48 * 1024) {
+    const cudaError_t e =
+        cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (e != cudaSuccess) return e;
   }
-  pgk_km_reduce_store(acc, rows, n, nullptr, out, red);
+  // the cluster of a tile's splits; the programmatic launch: the kernel may
+  // start once the grid before it on the stream has, and waits for it
+  // before it reads x (griddepcontrol.wait)
+  cudaLaunchAttribute attr[2];
+  attr[0].id = cudaLaunchAttributeProgrammaticStreamSerialization;
+  attr[0].val.programmaticStreamSerializationAllowed = 1;
+  attr[1].id = cudaLaunchAttributeClusterDimension;
+  attr[1].val.clusterDim.x = p.splits;
+  attr[1].val.clusterDim.y = 1;
+  attr[1].val.clusterDim.z = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(p.tiles * p.splits);
+  cfg.blockDim = dim3(32 * p.warps);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = st;
+  cfg.attrs = attr;
+  cfg.numAttrs = p.splits > 1 ? 2 : 1;
+  return cudaLaunchKernelEx(&cfg, kernel, static_cast<const uint8_t*>(w),
+                            static_cast<const __nv_bfloat16*>(s),
+                            static_cast<const __nv_bfloat16*>(x),
+                            static_cast<__nv_bfloat16*>(out), rows, n, k_half, blk, p.splits,
+                            wide);
 }
 
 }  // namespace
 
-// x [rows, 2*k_half] bf16; w [k_half, n] uint8; s [2*k_half/blk, n] bf16;
-// out [rows, n] bf16. Requires rows <= 8, n % 4 == 0, blk % 8 == 0 and
-// (2*k_half) % blk == 0.
+// x [rows, 2*k_half] bf16, 16-byte aligned; w [k_half, n] uint8; s
+// [2*k_half/blk, n] bf16; out [rows, n] bf16. Requires rows <= 8, n % 4 ==
+// 0, blk % 8 == 0 and (2*k_half) % blk == 0 (so k_half % 4 == 0).
 PGK_API int pgk_block_w4a16_gemv(const void* x, const void* w, const void* s, void* out,
                                  int rows, int n, int k_half, int blk, void* stream) {
-  if (rows < 1 || rows > kKmMaxRows || n < 4 || n % 4 || blk < 8 || blk % 8 ||
-      k_half < 1 || (2 * k_half) % blk)
+  if (rows < 1 || rows > w4a16::kMaxRows || n < 4 || n % 4 || blk < 8 || blk % 8 ||
+      k_half < 1 || (2 * k_half) % blk || reinterpret_cast<uintptr_t>(x) % 16 ||
+      reinterpret_cast<uintptr_t>(w) % 4 || reinterpret_cast<uintptr_t>(s) % 8)
     return (int)cudaErrorInvalidValue;
-  const int grid = (n + kKmTN - 1) / kKmTN;
-  block_w4a16_gemv_kernel<<<grid, kKmThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const uint8_t*>(w), static_cast<const __nv_bfloat16*>(s),
-      static_cast<const __nv_bfloat16*>(x), static_cast<__nv_bfloat16*>(out), rows, n,
-      k_half, blk);
-  return (int)cudaGetLastError();
+  // 8-byte weight loads and 16-byte scale loads where N keeps the rows on
+  // them, else 4 columns at a time
+  const int wide = n % 8 == 0 && reinterpret_cast<uintptr_t>(w) % 8 == 0 &&
+                   reinterpret_cast<uintptr_t>(s) % 16 == 0;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const cudaError_t e =
+      k_half % 8 != 0 ? launch_block<true>(x, w, s, out, rows, n, k_half, blk, wide, st)
+                      : launch_block<false>(x, w, s, out, rows, n, k_half, blk, wide, st);
+  return (int)(e != cudaSuccess ? e : cudaGetLastError());
+}
+
+// The launch plan (kernels/gemv_quant.py block_w4a16_plan is the same
+// rule): plan[0..5] = columns a block, column tiles, K splits (a cluster's
+// blocks), warps a block, 32-row rounds of K/2, dynamic shared bytes.
+PGK_API int pgk_block_w4a16_plan(int rows, int n, int k_half, int* plan) {
+  if (rows < 1 || rows > w4a16::kMaxRows || n < 1 || k_half < 1)
+    return (int)cudaErrorInvalidValue;
+  const w4a16::Plan p = w4a16::make_plan(n, k_half);
+  plan[0] = p.tile_n;
+  plan[1] = p.tiles;
+  plan[2] = p.splits;
+  plan[3] = p.warps;
+  plan[4] = p.rounds;
+  plan[5] = (int)w4a16::smem_bytes(p, rows);
+  return 0;
 }

@@ -29,6 +29,17 @@
 // writes one f32 partial row for its slice. Units go round-robin over the
 // blocks; the number of K slices per projection is picked on the host so
 // the units fill the grid (o and down: K split 16 ways at the 1.1B shape).
+// The weight stream never drains at a barrier (the rule of the reference's
+// kernel, whose last tile of a projection starts the next one's first):
+// the units' schedule is static and no weight depends on the activations,
+// so a block that has issued its last loads of a stage arrives at the
+// barrier, then asks the TMA engine to prefetch its next unit's first
+// l2_rows rows into L2 (cp.async.bulk.prefetch.tensor: 64-row boxes of a
+// 3-D tensor map over the [L, K, N] weight, no shared memory, nothing to
+// wait for), then waits. The o unit's rows are asked for after q|k|v,
+// across the attention stage. While blocks wait, fold a residual row or
+// attend, DRAM keeps filling L2, and the unit after the barrier streams
+// its first rows from L2.
 // The consumer of a projection folds its slices in ascending order: the
 // attention units fold the q/k/v columns of their kv head, every block
 // folds the o and down rows into its own copy of the residual row (and
@@ -37,13 +48,15 @@
 // 0 alone stores the residual row. No atomics touch data and every sum
 // runs in a fixed order, so two calls give the same bits.
 // Attention: units (kv head, context chunk); pos is read from device
-// memory, chunks of ceil(pos / chunks) cache rows, 32 rows a step with an
+// memory; the live chunks are the fewest of at most `chunks` that hold
+// 16 rows each (ceil(pos / 16), one at pos 0), each ceil(pos / live
+// chunks) cache rows, 32 rows a step staged in shared memory with an
 // online softmax per query head (a warp each), P in f32; chunk 0 also
-// holds the new token's term. Stage C folds the chunks of the heads its
-// K slice covers and divides (IEEE) before rounding to bf16.
+// holds the new token's term. Stage C folds the live chunks of the heads
+// its K slice covers and divides (IEEE) before rounding to bf16.
 // Scratch (partial rows, chunk state, residual rows) is a few MB and stays
 // in L2; cross-block data is read with ld.global.cg, never from L1.
-#include "common.cuh"
+#include "hopper.cuh"
 
 namespace {
 
@@ -53,6 +66,7 @@ constexpr int kThreads = 512;
 constexpr int kWarps = kThreads / 32;
 constexpr int kTN = 256;                 // output columns per GEMV unit
 constexpr int kTR = 32;                  // cache rows per attention step
+constexpr int kChunkRows = 16;           // cache rows an attention unit takes at least
 constexpr int kMaxSlices = 32;
 constexpr int kMaxChunks = 64;
 constexpr float kNegInf = -1e30f;
@@ -63,11 +77,15 @@ struct Dims {
 };
 
 // The host's plan, passed to the kernel and mirrored by the Python
-// wrapper as int[8]: grid, K slices of qkv / o / gate|up / down, context
-// chunks per kv head, scratch f32 words, dynamic shared bytes.
+// wrapper as int[9]: grid, K slices of qkv / o / gate|up / down, context
+// chunks per kv head at most, scratch f32 words, dynamic shared bytes, and
+// the weight rows of a unit prefetched into L2 before a barrier.
 struct Plan {
-  int grid, ks_qkv, ks_o, ks_gu, ks_d, chunks, scratch, smem;
+  int grid, ks_qkv, ks_o, ks_gu, ks_d, chunks, scratch, smem, l2_rows;
 };
+constexpr int kPlanInts = 9;
+constexpr int kBoxRows = 64;             // weight rows of a prefetch box
+constexpr int kL2Rows = 128;             // a unit's rows prefetched at most: 64 KB
 
 __host__ __device__ inline size_t up4(size_t n) { return (n + 3) & ~size_t(3); }
 
@@ -92,7 +110,10 @@ __host__ __device__ inline Layout make_layout(const Dims& m, const Plan& p) {
   return s;
 }
 
+// The weights' tensor maps (q|k|v, o, gate|up, down), [L, K, N] as 3-D (N
+// inner), boxes of kTN columns x kBoxRows rows: the L2 prefetches.
 struct Args {
+  CUtensorMap tm[4];
   const bf16* h0;
   const float* cosr;
   const float* sinr;
@@ -123,8 +144,20 @@ constexpr size_t kRowOff = kRedBytes + kSmallBytes;
 __host__ __device__ inline size_t up16(size_t n) { return (n + 15) & ~size_t(15); }
 
 __host__ __device__ inline size_t attn_smem_bytes(int g, int d) {
-  // raw q/k/v, roped q, k_new, v_new, scores, m, l, acc
-  return (size_t)((g + 2) * d + g * d + 2 * d + g * kTR + 2 * g + g * d) * 4;
+  // raw q/k/v, roped q, k_new, v_new, scores, m, l, acc; a step's K and V
+  // rows (bf16)
+  return up16((size_t)((g + 2) * d + g * d + 2 * d + g * kTR + 2 * g + g * d) * 4) +
+         (size_t)kTR * (2 * d + 8) * 2;
+}
+
+// The stage rows area: the residual row (f32) and its normed bf16 copy,
+// the o / down unit's x slice, or the attention unit's state.
+__host__ __device__ inline size_t rows_bytes(const Dims& m, const Plan& p) {
+  const int ks_max = max((m.H + p.ks_o - 1) / p.ks_o, (m.I + p.ks_d - 1) / p.ks_d);
+  size_t rows = up16((size_t)m.H * 4) + up16((size_t)m.H * 2);
+  rows = rows > up16((size_t)ks_max * 2) ? rows : up16((size_t)ks_max * 2);
+  const size_t attn = attn_smem_bytes(m.HQ / m.HK, m.D);
+  return rows > attn ? rows : attn;
 }
 
 __device__ __forceinline__ float rbf(float v) {
@@ -137,20 +170,63 @@ __device__ __forceinline__ unsigned ld_acquire(const unsigned* p) {
   return v;
 }
 
-// Grid-wide barrier over a counter that only grows: the e-th barrier
-// waits for e * gridDim.x arrivals. Needs every block resident (the
-// cooperative launch refuses a grid that does not fit).
-__device__ __forceinline__ void grid_barrier(unsigned* bar, unsigned& epoch) {
+// Grid-wide barrier over a counter that only grows, in two halves: after
+// the block's stores, thread 0 adds one with release semantics (a red, no
+// reply awaited); the e-th wait spins until e * gridDim.x blocks arrived
+// (an acquire load). Between the two a block asks for its next weights.
+// Needs every block resident (the cooperative launch refuses a grid that
+// does not fit).
+__device__ __forceinline__ void grid_arrive(unsigned* bar) {
   __syncthreads();
+  if (threadIdx.x == 0)
+    asm volatile("red.release.gpu.global.add.u32 [%0], 1;" ::"l"(bar) : "memory");
+}
+
+__device__ __forceinline__ void grid_wait(const unsigned* bar, unsigned& epoch) {
   ++epoch;
   if (threadIdx.x == 0) {
-    __threadfence();
-    atomicAdd(bar, 1u);
     const unsigned target = epoch * gridDim.x;
     while (ld_acquire(bar) < target) __nanosleep(32);
-    __threadfence();
   }
   __syncthreads();
+}
+
+// Unit u of a [k, n] projection cut into `slices` K slices of kTN-column
+// tiles: rows [k0, k1) of columns [col0, col0 + kTN).
+struct Unit {
+  int k0, k1, col0;
+};
+
+__device__ __forceinline__ Unit unit_of(int k, int n, int slices, int u) {
+  const int nt = (n + kTN - 1) / kTN, ks = (k + slices - 1) / slices;
+  const int t = u % nt, sl = u / nt;
+  const int k0 = min(k, sl * ks);
+  return Unit{k0, min(k, k0 + ks), t * kTN};
+}
+
+// Projection st of a layer (0 q|k|v, 1 o, 2 gate|up, 3 down) as a [k, n]
+// weight in `sl` K slices.
+__device__ __forceinline__ void proj_dims(const Args& a, int st, int& k, int& n, int& sl) {
+  const Dims& m = a.m;
+  k = st == 3 ? m.I : m.H;
+  n = st == 0 ? m.H + 2 * m.HK * m.D : st == 2 ? 2 * m.I : m.H;
+  sl = st == 0 ? a.p.ks_qkv : st == 1 ? a.p.ks_o : st == 2 ? a.p.ks_gu : a.p.ks_d;
+}
+
+// Ask for the first l2_rows rows of this block's first unit of projection
+// st of layer `layer` in L2: 64-row boxes, issued by the first lanes of
+// warp 0, nothing waited for.
+__device__ __forceinline__ void prefetch_l2(const Args& a, int st, int layer) {
+  int k, n, sl;
+  proj_dims(a, st, k, n, sl);
+  if ((int)blockIdx.x >= (n + kTN - 1) / kTN * sl) return;
+  const Unit u = unit_of(k, n, sl, blockIdx.x);
+  const int boxes = (min(u.k1 - u.k0, a.p.l2_rows) + kBoxRows - 1) / kBoxRows;
+  if ((int)threadIdx.x < boxes)
+    asm volatile("cp.async.bulk.prefetch.tensor.3d.L2.global.tile [%0, {%1, %2, %3}];" ::"l"(
+                     reinterpret_cast<uint64_t>(&a.tm[st])),
+                 "r"(u.col0), "r"(u.k0 + (int)threadIdx.x * kBoxRows), "r"(layer)
+                 : "memory");
 }
 
 // acc[0..7] += x * the 8 bf16 of w.
@@ -165,16 +241,17 @@ __device__ __forceinline__ void fma8(float* acc, float x, uint4 w) {
 
 // One GEMV unit: out[c] = sum_{k0 <= k < k1} x[k] W[k, c] for the columns
 // c of [col0, col0 + kTN) below N (x indexed as xs[k - xoff]).
-__device__ void gemv_unit(const bf16* __restrict__ w, int n, int k0, int k1, int col0,
-                          const bf16* xs, int xoff, float* red, float* __restrict__ out) {
+__device__ void gemv_unit(const bf16* __restrict__ w, int n, const Unit& un, const bf16* xs,
+                          int xoff, float* red, float* __restrict__ out) {
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int col = col0 + lane * 8;
+  const int col = un.col0 + lane * 8;
+  const int k1 = un.k1;
   float acc[8];
 #pragma unroll
   for (int i = 0; i < 8; ++i) acc[i] = 0.f;
   if (col < n) {
     const bf16* wp = w + col;
-    int k = k0 + warp;
+    int k = un.k0 + warp;
     for (; k + 3 * kWarps < k1; k += 4 * kWarps) {
       const uint4 w0 = __ldcs(reinterpret_cast<const uint4*>(wp + (size_t)k * n));
       const uint4 w1 = __ldcs(reinterpret_cast<const uint4*>(wp + (size_t)(k + kWarps) * n));
@@ -196,10 +273,10 @@ __device__ void gemv_unit(const bf16* __restrict__ w, int n, int k0, int k1, int
 #pragma unroll
   for (int i = 0; i < 8; ++i) r[i] = acc[i];
   __syncthreads();
-  if (threadIdx.x < kTN && col0 + (int)threadIdx.x < n) {
+  if (threadIdx.x < kTN && un.col0 + (int)threadIdx.x < n) {
     float s = 0.f;
     for (int v = 0; v < kWarps; ++v) s += red[v * kTN + threadIdx.x];
-    __stcg(out + col0 + threadIdx.x, s);
+    __stcg(out + un.col0 + threadIdx.x, s);
   }
   __syncthreads();
 }
@@ -241,10 +318,10 @@ __device__ void rms_row(const float* xs, const float* __restrict__ w, int h, flo
 
 // Stage B: attention units (kv head, chunk).
 __device__ void attention_stage(const Args& a, const Layout& lay, int layer, int live,
-                                unsigned char* smem) {
+                                int nch, unsigned char* smem) {
   const Dims& m = a.m;
   const int g_heads = m.HQ / m.HK, d = m.D, half = d / 2, kvd = m.HK * d;
-  const int nqkv = m.H + 2 * kvd, chunks = a.p.chunks;
+  const int nqkv = m.H + 2 * kvd, chunks = a.p.chunks;   // chunks: the slots' stride
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   float* raw = reinterpret_cast<float*>(smem + kRowOff);      // [(G + 2) D]
   float* qs = raw + (g_heads + 2) * d;                         // [G, D]
@@ -254,11 +331,16 @@ __device__ void attention_stage(const Args& a, const Layout& lay, int layer, int
   float* mm = st + g_heads * kTR;                              // [G]
   float* ll = mm + g_heads;                                    // [G]
   float* acc = ll + g_heads;                                   // [G, D]
+  // a step's K rows [kTR][D + 8] (padded a 16-byte piece, so the 32 rows a
+  // warp's scores read fall in different banks) and V rows [kTR][D]
+  bf16* ks = reinterpret_cast<bf16*>(
+      (reinterpret_cast<uintptr_t>(acc + g_heads * d) + 15) & ~uintptr_t(15));
+  bf16* vs = ks + kTR * (d + 8);
   const float* pqkv = a.scratch + lay.qkv;
-  const int rows_per = max(1, (live + chunks - 1) / chunks);
+  const int rows_per = max(1, (live + nch - 1) / nch);
   const size_t cache_layer = (size_t)layer * m.MAX * kvd;
 
-  for (int u = blockIdx.x; u < m.HK * chunks; u += gridDim.x) {
+  for (int u = blockIdx.x; u < m.HK * nch; u += gridDim.x) {
     const int h = u % m.HK, c = u / m.HK;
     const int nq = g_heads * d;
     for (int i = threadIdx.x; i < nq + 2 * d; i += kThreads) {
@@ -300,17 +382,25 @@ __device__ void attention_stage(const Args& a, const Layout& lay, int layer, int
     const bf16* vbase = a.vc + cache_layer + h * d;
     for (int t0 = r0; t0 < r1; t0 += kTR) {
       const int nr = min(kTR, r1 - t0);
+      // the step's K and V rows into shared memory, every thread's 16-byte
+      // pieces loaded at once (one round trip to DRAM a step)
+      const int pieces = nr * (d / 8);
+      for (int i = threadIdx.x; i < 2 * pieces; i += kThreads) {
+        const int v = i >= pieces, j = i - v * pieces, r = j / (d / 8), e = (j % (d / 8)) * 8;
+        *reinterpret_cast<uint4*>(v ? vs + r * d + e : ks + r * (d + 8) + e) =
+            *reinterpret_cast<const uint4*>((v ? vbase : kbase) + (size_t)(t0 + r) * kvd + e);
+      }
+      __syncthreads();
       for (int i = threadIdx.x; i < g_heads * kTR; i += kThreads) {
         const int g = i / kTR, r = i % kTR;
         float s = kNegInf;
         if (r < nr) {
-          const bf16* kr = kbase + (size_t)(t0 + r) * kvd;
+          const bf16* kr = ks + r * (d + 8);
           const float* q = qs + g * d;
           float dot = 0.f;
           for (int e = 0; e < d; e += 8) {
-            const uint4 w = *reinterpret_cast<const uint4*>(kr + e);
             float part[8] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
-            fma8(part, 1.f, w);
+            fma8(part, 1.f, *reinterpret_cast<const uint4*>(kr + e));
 #pragma unroll
             for (int j = 0; j < 8; ++j) dot = fmaf(q[e + j], part[j], dot);
           }
@@ -332,7 +422,7 @@ __device__ void attention_stage(const Args& a, const Layout& lay, int layer, int
         for (int e = lane; e < d; e += 32) {
           float o = 0.f;
           for (int r = 0; r < nr; ++r)
-            o = fmaf(st[g * kTR + r], __bfloat162float(vbase[(size_t)(t0 + r) * kvd + e]), o);
+            o = fmaf(st[g * kTR + r], __bfloat162float(vs[r * d + e]), o);
           acc[g * d + e] = fmaf(acc[g * d + e], alpha, o);
         }
         __syncwarp();
@@ -355,19 +445,20 @@ __device__ void attention_stage(const Args& a, const Layout& lay, int layer, int
   }
 }
 
-// GEMV units of one projection. mode 0: x is the row xn (all of K);
-// 1: x is attention output combined from the chunks for the unit's slice;
-// 2: x is silu(gate) * up for the unit's slice.
-__device__ void gemv_stage(const Args& a, const Layout& lay, const bf16* __restrict__ w, int k,
-                           int n, int slices, float* out, int mode, const bf16* xn,
-                           unsigned char* smem) {
+// GEMV units of projection st of layer l. mode 0: x is the row xn (all of
+// K); 1: x is attention output combined from the `nch` live chunks for the
+// unit's slice; 2: x is silu(gate) * up for the unit's slice.
+__device__ void gemv_stage(const Args& a, const Layout& lay, int st, const bf16* __restrict__ w,
+                           float* out, int mode, const bf16* xn, int nch, unsigned char* smem) {
   const Dims& m = a.m;
   float* red = reinterpret_cast<float*>(smem);
   bf16* slice = reinterpret_cast<bf16*>(smem + kRowOff);
-  const int nt = (n + kTN - 1) / kTN, ks = (k + slices - 1) / slices;
+  int k, n, slices;
+  proj_dims(a, st, k, n, slices);
+  const int nt = (n + kTN - 1) / kTN;
   for (int u = blockIdx.x; u < nt * slices; u += gridDim.x) {
-    const int t = u % nt, s = u / nt;
-    const int k0 = min(k, s * ks), k1 = min(k, k0 + ks);
+    const Unit un = unit_of(k, n, slices, u);
+    const int k0 = un.k0, k1 = un.k1;
     const bf16* x = xn;
     int xoff = 0;
     if (mode == 1) {
@@ -378,9 +469,9 @@ __device__ void gemv_stage(const Args& a, const Layout& lay, const bf16* __restr
         const float* pl = a.scratch + lay.al + (size_t)hq * chunks;
         const float* pa = a.scratch + lay.acc + (size_t)hq * chunks * d + e;
         float mx = kNegInf;
-        for (int c = 0; c < chunks; ++c) mx = fmaxf(mx, __ldcg(pm + c));
+        for (int c = 0; c < nch; ++c) mx = fmaxf(mx, __ldcg(pm + c));
         float den = 0.f, num = 0.f;
-        for (int c = 0; c < chunks; ++c) {
+        for (int c = 0; c < nch; ++c) {
           const float f = expf(__ldcg(pm + c) - mx);
           den = fmaf(__ldcg(pl + c), f, den);
           num = fmaf(__ldcg(pa + (size_t)c * d), f, num);
@@ -400,11 +491,21 @@ __device__ void gemv_stage(const Args& a, const Layout& lay, const bf16* __restr
       x = slice;
       xoff = k0;
     }
-    gemv_unit(w, n, k0, k1, t * kTN, x, xoff, red, out + (size_t)s * n);
+    gemv_unit(w, n, un, x, xoff, red, out + (size_t)(u / nt) * n);
   }
 }
 
-__global__ void __launch_bounds__(kThreads, 1) fused_decode_kernel(Args a) {
+// The grid-wide barrier between two stages: arrive, ask for the next
+// projection's rows in L2 (projection st of layer `layer`; st < 0: none),
+// wait.
+__device__ __forceinline__ void stage_end(const Args& a, unsigned& epoch, int st, int layer) {
+  grid_arrive(a.barrier);
+  if (st >= 0) prefetch_l2(a, st, layer);
+  grid_wait(a.barrier, epoch);
+}
+
+__global__ void __launch_bounds__(kThreads, 1)
+fused_decode_kernel(const __grid_constant__ Args a) {
   extern __shared__ __align__(16) unsigned char smem[];
   const Dims& m = a.m;
   const Layout lay = make_layout(m, a.p);
@@ -413,9 +514,12 @@ __global__ void __launch_bounds__(kThreads, 1) fused_decode_kernel(Args a) {
   bf16* xn = reinterpret_cast<bf16*>(smem + kRowOff + up16((size_t)m.H * 4));
   const int kvd = m.HK * m.D, nqkv = m.H + 2 * kvd;
   const int live = min(max(*a.pos, 0), m.MAX);
+  // the live chunks: kChunkRows rows each at least, the plan's at most
+  const int nch = min(a.p.chunks, max(1, (live + kChunkRows - 1) / kChunkRows));
   float* x0 = a.scratch + lay.x0;
   float* x1 = a.scratch + lay.x1;
   unsigned epoch = 0;
+  prefetch_l2(a, 0, 0);
 
   for (int l = 0; l < m.L; ++l) {
     // A: x = x1 + down(l - 1) (the embedding row at layer 0); q|k|v
@@ -423,28 +527,28 @@ __global__ void __launch_bounds__(kThreads, 1) fused_decode_kernel(Args a) {
     if (blockIdx.x == 0)
       for (int i = threadIdx.x; i < m.H; i += kThreads) __stcg(x0 + i, xs[i]);
     rms_row(xs, a.attn_norm + (size_t)l * m.H, m.H, m.eps, small, xn);
-    gemv_stage(a, lay, a.wqkv + (size_t)l * m.H * nqkv, m.H, nqkv, a.p.ks_qkv,
-               a.scratch + lay.qkv, 0, xn, smem);
-    grid_barrier(a.barrier, epoch);
+    gemv_stage(a, lay, 0, a.wqkv + (size_t)l * m.H * nqkv, a.scratch + lay.qkv, 0, xn, nch,
+               smem);
+    stage_end(a, epoch, 1, l);                    // o's rows across the attention stage
     // B: rope, attention over rows [0, pos) and the new token
-    attention_stage(a, lay, l, live, smem);
-    grid_barrier(a.barrier, epoch);
+    attention_stage(a, lay, l, live, nch, smem);
+    stage_end(a, epoch, -1, l);
     // C: o projection of the combined attention row
-    gemv_stage(a, lay, a.wo + (size_t)l * m.H * m.H, m.H, m.H, a.p.ks_o, a.scratch + lay.o, 1,
-               nullptr, smem);
-    grid_barrier(a.barrier, epoch);
+    gemv_stage(a, lay, 1, a.wo + (size_t)l * m.H * m.H, a.scratch + lay.o, 1, nullptr, nch,
+               smem);
+    stage_end(a, epoch, 2, l);
     // D: x = x0 + o; gate|up
     residual_row(a, x0, a.scratch + lay.o, a.p.ks_o, false, xs);
     if (blockIdx.x == 0)
       for (int i = threadIdx.x; i < m.H; i += kThreads) __stcg(x1 + i, xs[i]);
     rms_row(xs, a.mlp_norm + (size_t)l * m.H, m.H, m.eps, small, xn);
-    gemv_stage(a, lay, a.wgu + (size_t)l * m.H * 2 * m.I, m.H, 2 * m.I, a.p.ks_gu,
-               a.scratch + lay.gu, 0, xn, smem);
-    grid_barrier(a.barrier, epoch);
+    gemv_stage(a, lay, 2, a.wgu + (size_t)l * m.H * 2 * m.I, a.scratch + lay.gu, 0, xn, nch,
+               smem);
+    stage_end(a, epoch, 3, l);
     // E: down projection of silu(gate) * up
-    gemv_stage(a, lay, a.wd + (size_t)l * m.I * m.H, m.I, m.H, a.p.ks_d, a.scratch + lay.d, 2,
-               nullptr, smem);
-    grid_barrier(a.barrier, epoch);
+    gemv_stage(a, lay, 3, a.wd + (size_t)l * m.I * m.H, a.scratch + lay.d, 2, nullptr, nch,
+               smem);
+    stage_end(a, epoch, l + 1 < m.L ? 0 : -1, l + 1);   // the next layer's q|k|v
   }
   if (blockIdx.x == 0) {
     residual_row(a, x1, a.scratch + lay.d, a.p.ks_d, m.L == 0, xs);
@@ -469,14 +573,6 @@ int choose_slices(int k, int n, int grid) {
   return best;
 }
 
-size_t smem_bytes(const Dims& m, const Plan& p) {
-  const int ks_max = max((m.H + p.ks_o - 1) / p.ks_o, (m.I + p.ks_d - 1) / p.ks_d);
-  size_t rows = up16((size_t)m.H * 4) + up16((size_t)m.H * 2);
-  rows = rows > up16((size_t)ks_max * 2) ? rows : up16((size_t)ks_max * 2);
-  const size_t attn = attn_smem_bytes(m.HQ / m.HK, m.D);
-  return kRowOff + (rows > attn ? rows : attn);
-}
-
 bool dims_ok(const Dims& m) {
   return m.L >= 1 && m.HK >= 1 && m.HQ % m.HK == 0 && m.HQ / m.HK <= 32 && m.D % 8 == 0 &&
          m.D <= 128 && m.HQ * m.D == m.H && m.H % 8 == 0 && m.I % 8 == 0 && m.MAX >= 1;
@@ -485,9 +581,11 @@ bool dims_ok(const Dims& m) {
 }  // namespace
 
 // Plan a launch for these dimensions on the current device: writes
-// plan[0..7] (grid, K slices of qkv / o / gate|up / down, chunks, scratch
-// f32 words, dynamic shared bytes). Fails when the dimensions are outside
-// the kernel's limits or one block of 512 threads does not fit an SM.
+// plan[0..8] (grid, K slices of qkv / o / gate|up / down, chunks at most,
+// scratch f32 words, dynamic shared bytes, the rows of a unit prefetched
+// into L2; kernels/fused_decode.py fused_plan mirrors it). Fails when the
+// dimensions are outside the kernel's limits or one block of 512 threads
+// does not fit an SM.
 PGK_API int pgk_fused_decode_plan(int L, int H, int I, int HQ, int HK, int D, int MAX,
                                   int* plan) {
   const Dims m{L, H, I, HQ, HK, D, MAX, 0.f, 0.f};
@@ -505,19 +603,21 @@ PGK_API int pgk_fused_decode_plan(int L, int H, int I, int HQ, int HK, int D, in
   p.ks_d = choose_slices(I, H, p.grid);
   p.chunks = min(kMaxChunks, max(1, p.grid / HK));
   const size_t words = make_layout(m, p).total;
-  const size_t smem = smem_bytes(m, p);
   if (words > (size_t)0x7fffffff) return (int)cudaErrorInvalidValue;
   p.scratch = (int)words;
-  p.smem = (int)smem;
+  p.smem = (int)(kRowOff + rows_bytes(m, p));
+  p.l2_rows = kL2Rows;
   e = cudaFuncSetAttribute(fused_decode_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                            p.smem);
   if (e != cudaSuccess) return (int)e;
   int occ = 0;
-  e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&occ, fused_decode_kernel, kThreads, smem);
+  e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&occ, fused_decode_kernel, kThreads,
+                                                    (size_t)p.smem);
   if (e != cudaSuccess) return (int)e;
   if (occ < 1) return (int)cudaErrorCooperativeLaunchTooLarge;
-  const int vals[8] = {p.grid, p.ks_qkv, p.ks_o, p.ks_gu, p.ks_d, p.chunks, p.scratch, p.smem};
-  for (int i = 0; i < 8; ++i) plan[i] = vals[i];
+  const int vals[kPlanInts] = {p.grid,   p.ks_qkv,  p.ks_o, p.ks_gu,   p.ks_d,
+                               p.chunks, p.scratch, p.smem, p.l2_rows};
+  for (int i = 0; i < kPlanInts; ++i) plan[i] = vals[i];
   return (int)cudaSuccess;
 }
 
@@ -527,7 +627,8 @@ PGK_API int pgk_fused_decode_plan(int L, int H, int I, int HQ, int HK, int D, in
 // [L, H, 2 I], wd [L, I, H] bf16 row-major, norms [L, H] and [H] f32,
 // caches [L, MAX, Hk D] bf16; writes h_out [H] bf16, k_new and v_new
 // [L, Hk D] f32. scratch holds plan[6] f32 words; barrier one zeroed
-// unsigned. All contiguous and 16-byte aligned. One cooperative launch.
+// unsigned. All contiguous and 16-byte aligned. One cooperative launch;
+// plan[7] bytes of dynamic shared memory.
 PGK_API int pgk_fused_decode(const void* h0, const void* cosr, const void* sinr,
                              const void* pos, const void* wqkv, const void* wo,
                              const void* wgu, const void* wd, const void* attn_norm,
@@ -538,8 +639,10 @@ PGK_API int pgk_fused_decode(const void* h0, const void* cosr, const void* sinr,
                              void* stream) {
   const Dims m{L, H, I, HQ, HK, D, MAX, eps, scale};
   if (!dims_ok(m)) return (int)cudaErrorInvalidValue;
-  const Plan p{plan[0], plan[1], plan[2], plan[3], plan[4], plan[5], plan[6], plan[7]};
-  Args a{static_cast<const bf16*>(h0),
+  const Plan p{plan[0], plan[1], plan[2], plan[3], plan[4],
+               plan[5], plan[6], plan[7], plan[8]};
+  Args a{{},
+         static_cast<const bf16*>(h0),
          static_cast<const float*>(cosr),
          static_cast<const float*>(sinr),
          static_cast<const int*>(pos),
@@ -559,8 +662,16 @@ PGK_API int pgk_fused_decode(const void* h0, const void* cosr, const void* sinr,
          static_cast<unsigned*>(barrier),
          m,
          p};
-  cudaError_t e = cudaFuncSetAttribute(fused_decode_kernel,
-                                       cudaFuncAttributeMaxDynamicSharedMemorySize, p.smem);
+  const void* ws[4] = {wqkv, wo, wgu, wd};
+  const int ks[4] = {H, H, H, I}, ns[4] = {H + 2 * HK * D, H, 2 * I, H};
+  cudaError_t e = cudaSuccess;
+  for (int i = 0; i < 4 && e == cudaSuccess; ++i)
+    e = pgk_tensor_map_bf16_3d(&a.tm[i], ws[i], ns[i], ks[i], L, (uint64_t)ns[i] * 2,
+                               (uint64_t)ns[i] * ks[i] * 2, kTN, kBoxRows,
+                               CU_TENSOR_MAP_SWIZZLE_NONE);
+  if (e == cudaSuccess)
+    e = cudaFuncSetAttribute(fused_decode_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             p.smem);
   if (e != cudaSuccess) return (int)e;
   cudaLaunchAttribute attr[1];
   attr[0].id = cudaLaunchAttributeCooperative;

@@ -141,7 +141,8 @@ typedef CUresult (*PgkEncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t
                                    CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
 
 // A bf16 (or, with `type`, another element type's) tensor map of rank 2 or
-// 3 with the 128-byte swizzle; reads past the edges fill zeros. dims[0] is
+// 3 with the 128-byte swizzle (or `swizzle`); reads past the edges fill
+// zeros. dims[0] is
 // the inner (contiguous) extent, strides the bytes between consecutive
 // indices of dims[1] (and dims[2]), box the extent of one load in each
 // dimension. cuTensorMapEncodeTiled lives in libcuda: the library links the
@@ -149,7 +150,8 @@ typedef CUresult (*PgkEncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t
 // query-result argument exists since 12.5).
 inline cudaError_t pgk_tensor_map_bf16_nd(
     CUtensorMap* map, const void* base, int rank, const uint64_t* dims, const uint64_t* strides,
-    const uint32_t* box, CUtensorMapDataType type = CU_TENSOR_MAP_DATA_TYPE_BFLOAT16) {
+    const uint32_t* box, CUtensorMapDataType type = CU_TENSOR_MAP_DATA_TYPE_BFLOAT16,
+    CUtensorMapSwizzle swizzle = CU_TENSOR_MAP_SWIZZLE_128B) {
   static PgkEncodeTiled encode = nullptr;
   if (encode == nullptr) {
     void* fn = nullptr;
@@ -170,7 +172,7 @@ inline cudaError_t pgk_tensor_map_bf16_nd(
   }
   const CUresult r = encode(map, type, rank, const_cast<void*>(base),
                             d, st, b, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
-                            CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+                            swizzle, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
                             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
 }
@@ -188,13 +190,15 @@ inline cudaError_t pgk_tensor_map_bf16(CUtensorMap* map, const void* base, uint6
 // A 3-D map over `outer` matrices of `mid` rows of `inner` elements (rows
 // `row_bytes`, matrices `mat_bytes` apart), boxes of box_inner x box_mid x 1:
 // a box never crosses into the next matrix (a row past `mid` reads zeros).
-inline cudaError_t pgk_tensor_map_bf16_3d(CUtensorMap* map, const void* base, uint64_t inner,
-                                          uint64_t mid, uint64_t outer, uint64_t row_bytes,
-                                          uint64_t mat_bytes, uint32_t box_inner,
-                                          uint32_t box_mid) {
+// SWIZZLE_NONE lands a box as plain rows (an inner extent up to 256).
+inline cudaError_t pgk_tensor_map_bf16_3d(
+    CUtensorMap* map, const void* base, uint64_t inner, uint64_t mid, uint64_t outer,
+    uint64_t row_bytes, uint64_t mat_bytes, uint32_t box_inner, uint32_t box_mid,
+    CUtensorMapSwizzle swizzle = CU_TENSOR_MAP_SWIZZLE_128B) {
   const uint64_t dims[3] = {inner, mid, outer}, strides[2] = {row_bytes, mat_bytes};
   const uint32_t box[3] = {box_inner, box_mid, 1};
-  return pgk_tensor_map_bf16_nd(map, base, 3, dims, strides, box);
+  return pgk_tensor_map_bf16_nd(map, base, 3, dims, strides, box,
+                                CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, swizzle);
 }
 
 // A 2-D map of bytes (int8 / uint8 data) over `outer` rows of `inner` bytes

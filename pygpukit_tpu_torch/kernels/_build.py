@@ -59,6 +59,7 @@ _SIGNATURES = {
                             c_int, c_int, _P],
     "pgk_block_w4a8_plan": [c_int, c_int, c_int, _P],
     "pgk_block_w4a16_gemv": [_P, _P, _P, _P, c_int, c_int, c_int, c_int, _P],
+    "pgk_block_w4a16_plan": [c_int, c_int, c_int, _P],
     "pgk_conv_gemv": [_P, _P, c_int, _P, _P, c_int, c_int, c_int, _P],
     "pgk_conv_gemv_plan": [c_int, c_int, c_int, _P],
     "pgk_kv_rows_write": [_P] * 7 + [c_int] * 7 + [_P],

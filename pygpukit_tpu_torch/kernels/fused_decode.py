@@ -40,6 +40,11 @@ _BF16 = torch.bfloat16
 MAX_GROUP = 32
 MAX_HEAD_DIM = 128
 
+#: the kernel's plan (``pgk_fused_decode_plan``), in order
+PLAN_FIELDS = ("grid", "slices_qkv", "slices_o", "slices_gate_up", "slices_down", "chunks",
+               "scratch_words", "smem_bytes", "l2_rows")
+PLAN_INTS = len(PLAN_FIELDS)
+
 _plans: dict[tuple, ctypes.Array] = {}
 
 
@@ -125,12 +130,121 @@ def fused_decode_plain(h0, cos_p, sin_p, pos, wqkv, wo, wgu, wd, attn_norm, mlp_
     return _rms(x, final_norm.reshape(1, hidden), eps), k_new, v_new
 
 
+#: the kernel's constants (``csrc/fused_decode.cu``): threads a block, output
+#: columns a GEMV unit, cache rows an attention step, K slices and context
+#: chunks at most; the H100's SMs and shared bytes a block may opt into
+THREADS, UNIT_N, ATTN_ROWS, MAX_SLICES, MAX_CHUNKS = 512, 256, 32, 32, 64
+#: cache rows an attention unit takes at least (the live chunks)
+CHUNK_ROWS = 16
+#: the weight rows of an L2 prefetch box, and of a unit prefetched at most
+BOX_ROWS, L2_ROWS = 64, 128
+H100_SMS, H100_SMEM_OPTIN = 132, 232448
+#: the five stages of a layer; "attention" streams no weight
+STAGES = ("qkv", "attention", "o", "gate_up", "down")
+
+
+def _up(n: int, m: int) -> int:
+    return -(-n // m) * m
+
+
+def choose_slices(k: int, n: int, grid: int) -> int:
+    """K slices of a [k, n] projection: the fewest rows a block, plus a
+    little for every slice its consumer folds (the kernel's rule)."""
+    nt = -(-n // UNIT_N)
+    best, best_cost = 1, None
+    for sl in range(1, MAX_SLICES + 1):
+        if sl * 16 > k:
+            break
+        cost = -(-(nt * sl) // grid) * -(-k // sl) + 8 * sl
+        if best_cost is None or cost < best_cost:
+            best, best_cost = sl, cost
+    return best
+
+
+def fused_plan(n_layers: int, hidden: int, intermediate: int, n_heads: int, n_kv_heads: int,
+               head_dim: int, max_seq: int, sms: int = H100_SMS) -> dict:
+    """The launch plan ``pgk_fused_decode_plan`` writes, from the shapes and
+    the SMs: a block per SM, the K slices of each projection, the context
+    chunks at most, the scratch words, the dynamic shared bytes and
+    ``l2_rows``, the rows of a block's next unit it asks for in L2 before a
+    barrier."""
+    h, i, hq, hk, d = hidden, intermediate, n_heads, n_kv_heads, head_dim
+    nqkv = h + 2 * hk * d
+    kn = {"qkv": (h, nqkv), "o": (h, h), "gate_up": (h, 2 * i), "down": (i, h)}
+    ks = {name: choose_slices(k, n, sms) for name, (k, n) in kn.items()}
+    chunks = min(MAX_CHUNKS, max(1, sms // hk))
+    words = (_up(ks["qkv"] * nqkv, 4) + _up(ks["o"] * h, 4) + _up(ks["gate_up"] * 2 * i, 4)
+             + _up(ks["down"] * h, 4) + 2 * _up(hq * chunks, 4) + _up(hq * chunks * d, 4)
+             + 2 * _up(h, 4))
+    row_off = (THREADS // 32) * UNIT_N * 4 + 32 * 4
+    ks_max = max(-(-h // ks["o"]), -(-i // ks["down"]))
+    g = hq // hk
+    attn = (_up(((g + 2) * d + g * d + 2 * d + g * ATTN_ROWS + 2 * g + g * d) * 4, 16)
+            + ATTN_ROWS * (2 * d + 8) * 2)
+    rows = max(_up(h * 4, 16) + _up(h * 2, 16), _up(ks_max * 2, 16), attn)
+    return {"grid": sms, "slices_qkv": ks["qkv"], "slices_o": ks["o"],
+            "slices_gate_up": ks["gate_up"], "slices_down": ks["down"], "chunks": chunks,
+            "scratch_words": words, "smem_bytes": row_off + rows, "l2_rows": L2_ROWS}
+
+
+def projection_units(plan: dict, name: str, hidden: int, intermediate: int, n_kv_heads: int,
+                     head_dim: int) -> list[tuple[int, int, int]]:
+    """The GEMV units of one projection, in unit order: (k0, k1, col0), a
+    [k0, k1) slice of K times UNIT_N columns from col0."""
+    h, i = hidden, intermediate
+    k, n = {"qkv": (h, h + 2 * n_kv_heads * head_dim), "o": (h, h),
+            "gate_up": (h, 2 * i), "down": (i, h)}[name]
+    sl = plan[f"slices_{name}"]
+    nt, ks = -(-n // UNIT_N), -(-k // sl)
+    out = []
+    for u in range(nt * sl):
+        k0 = min(k, (u // nt) * ks)
+        out.append((k0, min(k, k0 + ks), (u % nt) * UNIT_N))
+    return out
+
+
+def fused_schedule(plan: dict, *, hidden: int, intermediate: int, n_kv_heads: int,
+                   head_dim: int, pos: int, max_seq: int) -> dict:
+    """What each block does in one layer: ``units[stage]`` a stage's units,
+    ``blocks[stage][b]`` those block b runs (round-robin over the grid; an
+    attention unit is (kv head, chunk) over the live chunks at ``pos``),
+    ``prefetch[stage][b]`` what it asks for in L2 between its arrival at
+    the barrier that ends ``stage`` and its wait: (projection, unit, first
+    rows of the BOX_ROWS boxes) of its first unit of the next projection
+    (none after attention: the o rows asked for after q|k|v are in flight
+    across it), and ``barriers`` the arrivals each of the layer's five
+    barriers waits for (the counter grows by one a block a barrier)."""
+    grid = plan["grid"]
+    live = min(max(pos, 0), max_seq)
+    nch = min(plan["chunks"], max(1, -(-live // CHUNK_ROWS)))
+    units = {name: projection_units(plan, name, hidden, intermediate, n_kv_heads, head_dim)
+             for name in ("qkv", "o", "gate_up", "down")}
+    units["attention"] = [(u % n_kv_heads, u // n_kv_heads) for u in range(n_kv_heads * nch)]
+    per_block = {st: [list(range(b, len(units[st]), grid)) for b in range(grid)]
+                 for st in STAGES}
+    nxt = {"qkv": "o", "attention": None, "o": "gate_up", "gate_up": "down", "down": "qkv"}
+    prefetch = {}
+    for st in STAGES:
+        target = nxt[st]
+        row = []
+        for b in range(grid):
+            if target is None or b >= len(units[target]):
+                row.append(None)
+                continue
+            k0, k1, _ = units[target][b]
+            rows = min(k1 - k0, plan["l2_rows"])
+            row.append((target, b, list(range(k0, k0 + rows, BOX_ROWS))))
+        prefetch[st] = row
+    return {"units": units, "blocks": per_block, "prefetch": prefetch,
+            "barriers": [grid] * len(STAGES), "live_chunks": nch}
+
+
 def _plan(device: torch.device, dims: tuple) -> ctypes.Array:
     """The kernel's launch plan for ``dims`` on ``device`` (cached): grid,
     K slices per projection, context chunks, scratch words, shared bytes."""
     key = (device.index, *dims)
     if key not in _plans:
-        plan = (ctypes.c_int * 8)()
+        plan = (ctypes.c_int * PLAN_INTS)()
         with torch.cuda.device(device):
             rc = library().pgk_fused_decode_plan(*dims, ctypes.addressof(plan))
         if rc != 0:
@@ -142,11 +256,11 @@ def _plan(device: torch.device, dims: tuple) -> ctypes.Array:
 
 def plan_of(device: torch.device, *, n_layers: int, hidden: int, intermediate: int,
             n_heads: int, n_kv_heads: int, head_dim: int, max_seq: int) -> dict:
-    """The launch plan as a dict (for reports)."""
+    """The launch plan as a dict (for reports; :func:`fused_plan` is its
+    mirror from the shapes)."""
     plan = _plan(device, (n_layers, hidden, intermediate, n_heads, n_kv_heads, head_dim,
                           max_seq))
-    return dict(zip(("grid", "slices_qkv", "slices_o", "slices_gate_up", "slices_down",
-                     "chunks", "scratch_words", "smem_bytes"), list(plan)))
+    return dict(zip(PLAN_FIELDS, list(plan)))
 
 
 def fused_decode(h0, cos_p, sin_p, pos, wqkv, wo, wgu, wd, attn_norm, mlp_norm, final_norm,

@@ -17,7 +17,9 @@ takes the plain version.
 - ``block_w4a8_matmul`` / ``block_w4a16_matmul``: int4_block K-major
   ``[K/2, N]`` + bf16 block scales ``[K/B, N]`` (``csrc/block_w4a8_gemv.cu``,
   a column tile a block over all of K, folded in order: :func:`block_w4a8_plan`;
-  ``csrc/block_w4a16_gemv.cu``).
+  ``csrc/block_w4a16_gemv.cu``, bf16 mma.sync over 64-column tiles with K
+  split across a cluster's blocks, launched as its predecessor's
+  programmatic dependent: :func:`block_w4a16_plan`).
 - ``conv_matmul``: a K-major ``[K, N]`` fp8 e4m3fn / e5m2, int8 or bf16
   weight converted to bf16 in the kernel, times a per-column scale
   (``csrc/conv_gemv.cu``, 64-column tiles with K split across a cluster's
@@ -455,11 +457,47 @@ def block_w4a16_matmul_plain(x: torch.Tensor, packed: torch.Tensor,
     return torch.matmul(x2, w).to(out_dtype)
 
 
+#: the block w4a16 GEMV (``csrc/w4a16_mma.cuh``): packed K rows a warp takes
+#: a round, columns a block, the cluster's blocks at most, warps a block at
+#: most, and the blocks the splits aim for (two on each of the H100's SMs)
+W4A16_ROUND, W4A16_TILE_N, W4A16_MAX_SPLITS, W4A16_MAX_WARPS = 32, 64, 8, 8
+W4A16_TARGET_BLOCKS = 264
+
+
+def block_w4a16_plan(n: int, k_half: int, rows: int = 1) -> dict:
+    """The block w4a16 GEMV's grid: ``tiles`` of 64 columns x ``splits`` of
+    K's 32-row ``rounds`` (a tile's splits one thread-block cluster: the
+    fewest powers of 2 that bring the blocks to W4A16_TARGET_BLOCKS, at most
+    W4A16_MAX_SPLITS, each a round at least); ``warps`` a block, one per
+    round of its split up to W4A16_MAX_WARPS; ``smem`` the dynamic shared
+    bytes (each warp's sums and each split's at ``rows``). Depends on the
+    shapes alone (``make_plan`` in the kernel, reported by
+    ``pgk_block_w4a16_plan``)."""
+    rounds = -(-k_half // W4A16_ROUND)
+    tiles = -(-n // W4A16_TILE_N)
+    splits = 1
+    while (splits < W4A16_MAX_SPLITS and tiles * splits < W4A16_TARGET_BLOCKS
+           and 2 * splits <= rounds):
+        splits *= 2
+    warps = min(-(-rounds // splits), W4A16_MAX_WARPS)
+    return {"tile_n": W4A16_TILE_N, "tiles": tiles, "splits": splits, "warps": warps,
+            "rounds": rounds, "smem": (warps + splits) * rows * W4A16_TILE_N * 4,
+            "blocks": tiles * splits}
+
+
+def block_w4a16_warp_rounds(rounds: int, splits: int, warps: int) -> list[tuple[int, int]]:
+    """The rounds ``[i0, i1)`` of each warp of a tile, split-major (warp w
+    of split s is ``s * warps + w``): the order its sums are folded in."""
+    total = splits * warps
+    return [(gw * rounds // total, (gw + 1) * rounds // total) for gw in range(total)]
+
+
 def block_w4a16_matmul(x: torch.Tensor, packed: torch.Tensor,
                        scale_block: torch.Tensor) -> torch.Tensor:
     """x [M, K] or [K], packed [K/2, N] uint8, scale_block [K/B, N] bf16 ->
     y [M, N] bf16 with x rounded to bf16. CUDA: the block w4a16 GEMV kernel
-    (M <= 8); CPU: the plain version."""
+    (M <= 8; bf16 tensor cores over :func:`block_w4a16_plan`'s grid); CPU:
+    the plain version."""
     if not x.is_cuda:
         return block_w4a16_matmul_plain(x, packed, scale_block)
     k_half, n = packed.shape
@@ -469,6 +507,8 @@ def block_w4a16_matmul(x: torch.Tensor, packed: torch.Tensor,
     require_on(x2.device, packed=packed, scale_block=scale_block)
     _block_storage(packed, scale_block, b, n)
     xb = x2.to(_BF16).contiguous()
+    if xb.data_ptr() % 16:                  # the kernel reads x 16 bytes at a time
+        xb = xb.clone()
     out = torch.empty((m, n), dtype=_BF16, device=x2.device)
     launch("block_w4a16_gemv", "pgk_block_w4a16_gemv", xb.data_ptr(),
            packed.data_ptr(), scale_block.data_ptr(), out.data_ptr(), m, n,

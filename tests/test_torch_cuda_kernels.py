@@ -158,6 +158,21 @@ def test_gemv_plans_match_their_python_mirrors(dev):
                                                         "klanes")], (rows, n, k)
 
 
+def test_block_w4a16_plan_matches_its_python_mirror(dev):
+    """The block w4a16 GEMV's C plan equals gemv_quant.block_w4a16_plan."""
+    import ctypes
+    from pygpukit_tpu_torch.kernels._build import library
+    from pygpukit_tpu_torch.kernels.gemv_quant import block_w4a16_plan
+    plan = (ctypes.c_int * 6)()
+    for rows in range(1, 9):
+        for n, k in PROJ_SHAPES + [(2060, 2048), (100, 96), (256, 2080), (132, 40), (4, 8),
+                                   (64, 65536)]:
+            assert library().pgk_block_w4a16_plan(rows, n, k // 2, plan) == 0
+            want = block_w4a16_plan(n, k // 2, rows)
+            assert list(plan) == [want[key] for key in ("tile_n", "tiles", "splits", "warps",
+                                                        "rounds", "smem")], (rows, n, k)
+
+
 def test_w4a8_plans_match_their_python_mirrors(dev):
     """The C launch plans equal gemv_quant.w4a8_gemm_plan (on this card's
     SMs) and block_w4a8_plan."""
@@ -530,6 +545,36 @@ def test_block_gemvs_straddling_block(dev, k):
     assert torch.equal(_bits(block_w4a8_matmul(x, w, s)),
                        _bits(block_w4a8_matmul_plain(x, w, s)))
     assert _close(block_w4a16_matmul(x, w, s), block_w4a16_matmul_plain(x, w, s))
+
+
+@pytest.mark.parametrize("rows", [1, 2, 5, 8])
+@pytest.mark.parametrize("n,k,b", [(2048, 2048, 32), (11264, 2048, 32), (2048, 5632, 32),
+                                   (2060, 2048, 32), (100, 96, 32), (132, 40, 8), (4, 8, 8)])
+def test_block_w4a16_gemv_replays_a_graph_bitwise(dev, rows, n, k, b):
+    """Two launches and a graph replayed twice give the same bits (the
+    warps and the cluster's splits fold in a fixed order), within the
+    tolerance of the plain version: the projections (64- and 128-column
+    tiles, K split 2-8 ways), a ragged N (4-byte loads), K/2 % 8 == 4 (a
+    lane's high rows straddle a scale block at B 8) and the smallest N."""
+    g = _gen(dev, rows * 5 + n + k)
+    x = torch.randn((rows, k), generator=g, device=dev).to(torch.bfloat16)
+    w = torch.randint(0, 256, (k // 2, n), generator=g, device=dev, dtype=torch.uint8)
+    s = (torch.rand((k // b, n), generator=g, device=dev) + 0.5).to(torch.bfloat16)
+    _graph_bitwise(lambda: block_w4a16_matmul(x, w, s))
+    assert _close(block_w4a16_matmul(x, w, s), block_w4a16_matmul_plain(x, w, s))
+
+
+def test_block_w4a16_gemv_takes_a_misaligned_x(dev):
+    """x off 16 bytes (a view one element in) is copied to an aligned row
+    first; the result is the aligned call's."""
+    g = _gen(dev, 77)
+    flat = torch.randn((2 * 2048 + 1,), generator=g, device=dev).to(torch.bfloat16)
+    x = flat[1:].view(2, 2048)
+    assert x.is_contiguous() and x.data_ptr() % 16
+    w = torch.randint(0, 256, (1024, 2048), generator=g, device=dev, dtype=torch.uint8)
+    s = (torch.rand((64, 2048), generator=g, device=dev) + 0.5).to(torch.bfloat16)
+    assert torch.equal(_bits(block_w4a16_matmul(x, w, s)),
+                       _bits(block_w4a16_matmul(x.contiguous(), w, s)))
 
 
 def test_ladder_wrappers_raise_on_unsupported_storage(dev):
@@ -990,6 +1035,66 @@ def test_fused_decode_matches_plain(dev, fused_1b, n_layers, pos, max_len):
         assert torch.isfinite(a.float()).all() and _rel_l2(a, b) <= tol, (name, _rel_l2(a, b))
     again = fused_decode(*args, **heads)
     assert all(torch.equal(a, b) for a, b in zip(got, again))
+
+
+def _fused_args(dev, cfg, params, n_layers, pos, max_len):
+    lp = {k: v[:n_layers] for k, v in params["layers"].items()}
+    g = _gen(dev, 1000 + max_len)
+    kvd = cfg.num_kv_heads * cfg.head_dim
+    kc = (torch.randn((n_layers, max_len, kvd), generator=g, device=dev) * 0.5).to(torch.bfloat16)
+    vc = torch.randn((n_layers, max_len, kvd), generator=g, device=dev).to(torch.bfloat16)
+    cos = params["rope_cos"][pos:pos + 1].float().clone()      # written by the caller
+    sin = params["rope_sin"][pos:pos + 1].float().clone()
+    pos_t = torch.tensor([pos], dtype=torch.int32, device=dev)
+    return [params["embed"][7:8].to(torch.bfloat16), cos, sin, pos_t, lp["w_qkv_cat"],
+            lp["w_o"], lp["w_gu_cat"], lp["w_down"], lp["attn_norm_w"].float(),
+            lp["mlp_norm_w"].float(), params["final_norm_w"].float().reshape(1, -1), kc, vc]
+
+
+@pytest.mark.parametrize("n_layers", [2, 22])
+def test_fused_decode_graph_replays_two_positions(dev, fused_1b, n_layers):
+    """A step captured once (pos, the rope row and the caches in device
+    memory) and replayed at two positions gives the bits of the eager call
+    at each: the kernel reads pos on the card, and its schedule, weight
+    ring and barrier counter start over every launch."""
+    from pygpukit_tpu_torch.kernels import fused_decode
+    cfg, params = fused_1b
+    heads = dict(n_heads=cfg.num_heads, n_kv_heads=cfg.num_kv_heads, head_dim=cfg.head_dim,
+                 eps=cfg.norm_eps)
+    args = _fused_args(dev, cfg, params, n_layers, 143, 512)
+    cos, sin, pos_t = args[1], args[2], args[3]
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fused_decode(*args, **heads)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = fused_decode(*args, **heads)
+    for pos in (143, 37, 511, 143):
+        pos_t.fill_(pos)
+        cos.copy_(params["rope_cos"][pos:pos + 1])
+        sin.copy_(params["rope_sin"][pos:pos + 1])
+        graph.replay()
+        eager = fused_decode(*args, **heads)
+        torch.cuda.synchronize()
+        assert all(torch.equal(a, b) for a, b in zip(out, eager)), pos
+
+
+def test_fused_decode_plan_matches_its_python_mirror(dev):
+    """pgk_fused_decode_plan equals fused_decode.fused_plan on this card's
+    SMs (the 1.1B shape at three cache lengths, a small model, Mixtral-like
+    heads)."""
+    from pygpukit_tpu_torch.kernels.fused_decode import PLAN_FIELDS, fused_plan, plan_of
+    props = torch.cuda.get_device_properties(dev)
+    for dims in ((22, 2048, 5632, 32, 4, 64, 512), (22, 2048, 5632, 32, 4, 64, 4096),
+                 (1, 2048, 5632, 32, 4, 64, 64), (2, 256, 512, 4, 2, 64, 100),
+                 (4, 4096, 14336, 32, 8, 128, 1024)):
+        keys = ("n_layers", "hidden", "intermediate", "n_heads", "n_kv_heads", "head_dim",
+                "max_seq")
+        got = plan_of(dev, **dict(zip(keys, dims)))
+        want = fused_plan(*dims, sms=props.multi_processor_count)
+        assert [got[f] for f in PLAN_FIELDS] == [want[f] for f in PLAN_FIELDS], dims
 
 
 def test_fused_decode_raises_on_bad_operands(dev, fused_1b):

@@ -4,7 +4,8 @@ the same numpy-seeded inputs and params go through both.
 - BlockAllocator ids and ``_paged_write_rows`` pools: bitwise.
 - Paged attention (plain version) against the reference's ``_paged_attn_one``,
   its Pallas kernel in interpret mode and ``ops.paged``: rtol 1e-4 at f32.
-- Paged prefill and decode-step logits: rtol 1e-4 at f32.
+- Paged prefill and decode-step logits: rtol 1e-4 at f32; the K and V
+  pools they fill: rtol 1e-4 beside 1e-4 of each layer's max |value|.
 - Greedy engine streams: identical to the JAX engine for paged
   non-pipelined serving and dense pipelined serving. The reference's own
   paged+pipelined engine jitters on tiny random CPU models
@@ -347,9 +348,112 @@ def test_paged_prefill_and_decode_logits_match_reference(extra):
         np.testing.assert_allclose(tl.numpy(), np.asarray(jl), rtol=1e-4, atol=1e-5)
         toks = np.asarray(jl).argmax(-1).astype(np.int32)
         poss = poss + 1
-    # every block a live table holds agrees; block 0 is the trash
-    np.testing.assert_allclose(tk[:, 1:].numpy(), np.asarray(jk)[:, 1:],
-                               rtol=1e-4, atol=1e-5)
+    # every block a live table holds agrees; block 0 is the trash. Each
+    # layer of a pool is held to rtol 1e-4 beside 1e-4 of its max |value|
+    # (the f32 norm of the port's kernel checks): both packages compute each
+    # step by the same formula, and layer 1's rows are a second pass of the
+    # tenfold weights over sums that cancel, where the two CPU BLAS
+    # libraries' orders of summation (and XLA's fused multiply-adds and its
+    # own tanh and exp) leave each package about 1.4e-4 from a float64
+    # evaluation of the same layer, on values up to 40
+    for got, ref in ((tk, jk), (tv, jv)):
+        for layer in range(cfg.num_layers):
+            want = np.asarray(ref)[layer, 1:]
+            np.testing.assert_allclose(got[layer, 1:].numpy(), want, rtol=1e-4,
+                                       atol=1e-4 * np.abs(want).max())
+
+
+def _f64_prefill_kv(tm, tokens, true_len):
+    """Float64 K (roped) and V rows [L, true_len, Hk, D] of a prefill of the
+    port model's params: every step of the layer in numpy float64, the
+    reference's formulas (rmsnorm, split-half rope, causal softmax with
+    the window and the softcap, swiglu)."""
+    from pygpukit_tpu_torch.llm.model import _layer_window
+    cfg, p = tm.config, tm.params
+    f = lambda t: t.detach().to(torch.float64).numpy()
+    lay = {k: f(v) for k, v in p["layers"].items()}
+    hq, hk, d, s = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim, len(tokens)
+    cos, sin = f(p["rope_cos"])[:s, None, :d // 2], f(p["rope_sin"])[:s, None, :d // 2]
+
+    def rms(x, w):
+        return x / np.sqrt(np.mean(x * x, -1, keepdims=True) + cfg.norm_eps) * w
+
+    def rope(x):
+        x0, x1 = x[..., :d // 2], x[..., d // 2:]
+        return np.concatenate([x0 * cos - x1 * sin, x1 * cos + x0 * sin], -1)
+
+    h = f(p["embed"])[np.asarray(tokens)]
+    i, j = np.arange(s)[:, None], np.arange(s)[None, :]
+    ks, vs = [], []
+    for layer in range(cfg.num_layers):
+        qkv = rms(h, lay["attn_norm_w"][layer]) @ lay["w_qkv"][layer]
+        q = rope(qkv[:, :hq * d].reshape(s, hq, d))
+        k = rope(qkv[:, hq * d:(hq + hk) * d].reshape(s, hk, d))
+        v = qkv[:, (hq + hk) * d:].reshape(s, hk, d)
+        ks.append(k[:true_len])
+        vs.append(v[:true_len])
+        kk, vv = np.repeat(k, hq // hk, 1), np.repeat(v, hq // hk, 1)
+        sc = np.einsum("qhd,khd->hqk", q, kk) * cfg.attn_scale
+        if cfg.attn_logit_softcap is not None:
+            sc = cfg.attn_logit_softcap * np.tanh(sc / cfg.attn_logit_softcap)
+        mask = (j > i) | (j >= true_len)
+        win = _layer_window(cfg, layer)
+        if win is not None:
+            mask = mask | (j <= i - win)
+        sc = np.where(mask, -1e30, sc)
+        pr = np.exp(sc - sc.max(-1, keepdims=True))
+        pr /= pr.sum(-1, keepdims=True)
+        h = h + np.einsum("hqk,khd->qhd", pr, vv).reshape(s, hq * d) @ lay["w_o"][layer]
+        gu = rms(h, lay["mlp_norm_w"][layer]) @ lay["w_gate_up"][layer]
+        g, u = np.split(gu, 2, -1)
+        h = h + (g / (1 + np.exp(-g)) * u) @ lay["w_down"][layer]
+    return np.stack(ks), np.stack(vs)
+
+
+def paged_prefill_f64_distances(extra, seed=8):
+    """Max |pool - float64| of layer 1's K and V rows after one prefill
+    (the test below's first prompt), for the JAX package and the port:
+    {(package, "k" or "v"): (distance, float64 max |value|)}."""
+    jm, tm = _pair(dict(CFG, **extra), seed=seed)
+    cfg = jm.config
+    shape = (cfg.num_layers, 12, cfg.num_kv_heads, 8, cfg.head_dim)
+    table = np.array([5, 2, 9, 0], np.int32)
+    prompt = [4, 8, 15, 16, 23, 42, 1, 2, 3, 5, 7]
+    padded = np.zeros(32, np.int32)
+    padded[:len(prompt)] = prompt
+    jk, jv, _ = jsp.paged_prefill_fn(cfg, jm.params, jnp.zeros(shape, jnp.float32),
+                                     jnp.zeros(shape, jnp.float32), jnp.asarray(table),
+                                     jnp.asarray(padded), len(prompt))
+    tk, tv = torch.zeros(shape), torch.zeros(shape)
+    tsp.paged_prefill_fn(tm.config, tm.params, tk, tv, torch.from_numpy(table),
+                         torch.from_numpy(padded).long(), len(prompt))
+    rk, rv = _f64_prefill_kv(tm, prompt, len(prompt))
+    n = np.arange(len(prompt))
+    blocks, offs = table[n // 8], n % 8
+
+    def rows(pool):                                  # layer 1's rows [true_len, Hk, D]
+        return np.asarray(pool, np.float64)[1, blocks, :, offs, :]
+
+    out = {}
+    for name, pools in (("jax", (jk, jv)), ("port", (tk.numpy(), tv.numpy()))):
+        for kv, pool, ref in (("k", pools[0], rk[1]), ("v", pools[1], rv[1])):
+            out[(name, kv)] = (float(np.abs(rows(pool) - ref).max()), float(np.abs(ref).max()))
+    return out
+
+
+@pytest.mark.parametrize("extra", [{}, dict(sliding_window=5, attn_logit_softcap=3.0),
+                                   dict(attn_logit_softcap=3.0)])
+def test_paged_prefill_pools_as_close_to_float64_as_the_reference(extra):
+    """The repair of the pool comparison above rests on this: layer 1's K
+    and V after a prefill stand from a float64 evaluation of the same layer
+    no further for the port than for the JAX package (within 2x), and both
+    within 1e-5 of the largest |value|: what separates the two packages is
+    the order of sums and XLA's own roundings, not a formula."""
+    d = paged_prefill_f64_distances(extra)
+    for kv in ("k", "v"):
+        (jdist, top), (pdist, _) = d[("jax", kv)], d[("port", kv)]
+        assert jdist <= 1e-5 * top and pdist <= 1e-5 * top, (kv, d)
+        assert pdist <= 2 * jdist + 1e-6 * top, (kv, d)
 
 
 # -------------------------------------------------------------- the engine --
