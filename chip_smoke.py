@@ -16,7 +16,14 @@ Phases:
     M = 32, 256, 300 and 2048 there, at a ragged N and at the reference's
     int4 GEMM cell M 8192, K 4096, N 14336 beside torch._int_mm of its int8
     operands, a graph replay and a second launch bitwise; the row write and
-    the attention at batch 8, MAX 1024,
+    the attention at batch 8, MAX 1024, and the two as the batch-rows step
+    runs them (kv_write_attention: the rows written by the attention's own
+    pass one; its pools bitwise kv_rows_write_plain's and its output
+    bitwise the two kernels', on every storage; timed over 22 layers in
+    PAIR_TURNS alternating turns beside the two kernels launched one after
+    the other and the attention alone, each with its median and spread;
+    the summary line's kv_rows_write_fused is the time the write adds to
+    the attention),
     paged attention at batch 8, block 16, MAX 512 and 1024 over shuffled
     blocks with two dead slots on the trash table), bitwise where the math
     is integer or a copy; then kernel and plain times (CUDA events, warmed
@@ -24,6 +31,9 @@ Phases:
     ladder GEMVs (w4a16, block w4a8, block w4a16, converting fp8) at the
     four projection shapes, rows 1 and 8: block w4a8 bitwise, the others
     within one bf16 ulp plus 1e-4 of max |y|, with GB/s of weight bytes;
+    the w4a16 and block w4a16 GEMVs' C plans against their Python mirrors
+    and their graph replays, the w4a16 GEMV's four projections at rows 1
+    and 8 with bound, share and plain time;
     the converting GEMV on all four storages (e4m3, e5m2, int8, bf16) at
     rows 1 and 8, e4m3 and int8 timed with bound and share, its plan of at
     least 132 blocks, graph replays and second launches bitwise, a ragged
@@ -41,7 +51,8 @@ Phases:
     an int8 head, served by the batch-8 ContinuousBatchingEngine
     (max_seq_len 1024, 16 steps per dispatch) for 16 requests; every request
     must finish with its token count, every logit stay finite and every
-    dense-path kernel's launch counter move;
+    dense-path kernel's launch counter move (the row write's as the
+    attention's fused write; kv_rows_write's own kernel never runs there);
  5. the same requests on a fresh engine: identical token streams and
     bitwise-identical KV pools; single-stream generate against the engine's
     streams (reported); a two-layer full-width model on the card against the
@@ -99,7 +110,9 @@ Phases:
     with the switch (the gemm kernel) and without (cuBLAS), checked against
     each other, fp8 (quantize_fp8 + matmul_fp8) and int8 (matmul_int8) at
     M 8192, K 4096, N 14336 (plain routes), TFLOP/s and TOP/s; gemv_quant
-    through its library entry at the four projection shapes;
+    through its library entry at the four projection shapes; kv_rows_write
+    through its library entry on every layer of batch-8 pools at the 1.1B
+    width, bitwise its plain version;
 13. the single-stream fixed-cache decode on the 1.1B bf16 model with
     separate q/k/v and gate/up leaves (random weights, seed 0, no
     fuse_params), cache 512, the ladder's 16-token prompt: a warm and a
@@ -121,7 +134,7 @@ Phases:
     prefill and none in decode, 16 flash_decode a step), one decode step's
     eager and graph ms beside the gather route's device ms; the batch-8
     engine on 8 requests of 200 + 32 tokens (every request finishes, gmm
-    in the prefills, 16 kv_rows_write and 16 batch_decode_attention a
+    in the prefills, 16 batch_decode_attention (the row write fused in) a
     decode step on the dense MoE route, a fresh engine replays streams and
     pools bitwise); a 2-layer full-width model drawn on the CPU, on the
     card (gmm) against the CPU plain path (dense route), held row by row
@@ -131,7 +144,7 @@ Phases:
     engine at MAX 4096, 32 steps a dispatch, 8 warm-up requests, then 16
     timed requests of one 16-token prompt and 128 new tokens, on bf16,
     int8 and fp8 KV: every request finishes with finite logits, 22
-    kv_rows_write and 22 batch_decode_attention launches a step, the int8
+    batch_decode_attention launches a step, each writing its rows, the int8
     run replayed bitwise (streams and pools) by a fresh engine; tok/s,
     TTFT, one step's eager and graph device ms, greedy tokens equal to the
     bf16 run's.
@@ -192,6 +205,10 @@ ATTN_TOL = dict(atol=1e-2, rtol=1e-2)     # bf16 output, P rounded to bf16
 # (slot 5's window starts at 400, inside a 64-row chunk of its split)
 BDA_LENS = (1, 513, 1024, 1500, 37, 700, 1025, 256)
 BDA_MASKS = ((None, None), (30.0, 100), (None, 300))
+# phase 3's write-plus-attention timing: alternating turns of fused, two
+# launches and the attention alone, each a 22-layer graph replayed PAIR_REPS
+# times
+PAIR_TURNS, PAIR_REPS = 10, 20
 CFG_1B = dict(vocab_size=32000, hidden_size=2048, num_layers=22, num_heads=32,
               num_kv_heads=4, intermediate_size=5632, max_position_embeddings=2048,
               tie_word_embeddings=False)
@@ -210,6 +227,10 @@ SOURCES = {"w4a8_gemv": ("pygpukit_tpu_torch/csrc/w4a8_gemv.cu",
                          "pygpukit_tpu/kernels/gemv_quant.py:830"),
            "kv_rows_write": ("pygpukit_tpu_torch/csrc/kv_row_write.cu",
                              "pygpukit_tpu/kernels/kv_row_write.py:116"),
+           # the same row write as the batch-rows step runs it: in the
+           # attention's pass one (with csrc/kv_row.cuh), no launch of its own
+           "kv_rows_write_fused": ("pygpukit_tpu_torch/csrc/batch_decode_attention.cu",
+                                   "pygpukit_tpu/kernels/kv_row_write.py:116"),
            "batch_decode_attention": (
                "pygpukit_tpu_torch/csrc/batch_decode_attention.cu",
                "pygpukit_tpu/kernels/batch_decode_attention.py:153"),
@@ -225,7 +246,7 @@ SOURCES = {"w4a8_gemv": ("pygpukit_tpu_torch/csrc/w4a8_gemv.cu",
            "fused_decode": ("pygpukit_tpu_torch/csrc/fused_decode.cu",
                             "pygpukit_tpu/kernels/fused_decode.py:393"),
            "gmm": ("pygpukit_tpu_torch/csrc/gmm.cu", "pygpukit_tpu/ops/moe.py:60")}
-DENSE_KERNELS = ("w4a8_gemv", "w4a8_gemm", "kv_rows_write", "batch_decode_attention")
+DENSE_KERNELS = ("w4a8_gemv", "w4a8_gemm", "kv_rows_write_fused", "batch_decode_attention")
 # no w4a8_gemm: the paged path's 16-token prompts pad to 32 rows, which the
 # int4 route sends to the dequant matmul (the GEMM takes 256 rows and more)
 PAGED_KERNELS = ("w4a8_gemv", "paged_attention")
@@ -701,10 +722,102 @@ def check_kernels(dev) -> tuple[dict, dict]:
     detail["batch_decode_attention"].update(
         {k: res["batch_decode_attention"][k] for k in ("bound_ms", "bound_by")},
         share=res["batch_decode_attention"]["bound_ms"] / kms)
+    res["kv_rows_write_fused"] = check_write_attention(kp, vp, kn, vn, q, detail)
     check_dense_storages(dev, kp, vp, kn, vn, poss, q, lens, detail)
     del kp, vp
     res["paged_attention"] = check_paged_attention(dev, g, detail)
     return res, detail
+
+
+def check_write_attention(kp, vp, kn, vn, q, detail: dict) -> dict:
+    """Phase 3, rows 5 and 6 as the batch-rows step runs them:
+    kv_write_attention (one attention launch whose pass one stores the new
+    rows) at positions BDA_LENS - 1 under the masks of BDA_MASKS: the pools
+    bitwise kv_rows_write_plain's, the output bitwise kv_rows_write then
+    batch_decode_attention. Timed over 22 layers in PAIR_TURNS alternating
+    turns beside those two kernels launched one after the other and the
+    attention alone (each form's median and spread), with the pair's bound
+    (the write's and the attention's bytes and operations summed), share
+    and plain time. Returns row 5's summary-line numbers as the step runs
+    it: the time the fused write adds to the attention (the medians'
+    difference), its bound (the new rows' bytes), the plain write's and the
+    index_put_ pair's times."""
+    import statistics
+    import torch
+    from pygpukit_tpu_torch.kernels import (batch_decode_attention,
+                                            batch_decode_attention_plain, kv_rows_write,
+                                            kv_rows_write_plain, kv_write_attention)
+    b, nl, mx, lanes = kp.shape
+    d = q.shape[3]
+    poss = torch.tensor(BDA_LENS, dtype=torch.int32, device=kp.device) - 1
+    lens = poss + 1
+    for softcap, window in BDA_MASKS:
+        base_k, base_v = kp[:, 4:7].clone(), vp[:, 4:7].clone()
+        k1, v1 = base_k.clone(), base_v.clone()
+        out = kv_write_attention(q, k1, v1, kn, vn, 1, poss, lens, softcap=softcap,
+                                 window=window)
+        k2, v2 = base_k.clone(), base_v.clone()
+        kv_rows_write_plain(k2, v2, kn, vn, 1, poss)
+        k3, v3 = base_k.clone(), base_v.clone()
+        kv_rows_write(k3, v3, kn, vn, 1, poss)
+        want = batch_decode_attention(q, k3, v3, 1, lens, softcap=softcap, window=window)
+        torch.cuda.synchronize()
+        check(torch.equal(bits(k1), bits(k2)) and torch.equal(bits(v1), bits(v2)),
+              f"kv_write_attention (window={window}): pools not bitwise")
+        check(torch.equal(bits(out), bits(want)),
+              f"kv_write_attention (softcap={softcap}, window={window}): output not bitwise "
+              f"the two kernels'")
+        del base_k, base_v, k1, v1, k2, v2, k3, v3
+
+    def separate(i):
+        kv_rows_write(kp, vp, kn, vn, i, poss)
+        batch_decode_attention(q, kp, vp, i, lens)
+    forms = {"fused": lambda i: kv_write_attention(q, kp, vp, kn, vn, i, poss, lens),
+             "separate": separate,
+             "attention": lambda i: batch_decode_attention(q, kp, vp, i, lens)}
+    turns: dict = {f: [] for f in forms}
+    for _ in range(PAIR_TURNS):
+        for f, fn in forms.items():
+            turns[f].append(time_ms(fn, nl, reps=PAIR_REPS))
+    med = {f: statistics.median(v) for f, v in turns.items()}
+    # the fused write: what it adds to the attention's launch
+    wms = med["fused"] - med["attention"]
+    slots = torch.arange(b, device=kp.device)
+    rows_at = poss.clamp(0, mx - 1).long()
+
+    def index_put(i):                                # one index_put_ per pool
+        kp[slots, i, rows_at] = kn.reshape(b, lanes)
+        vp[slots, i, rows_at] = vn.reshape(b, lanes)
+
+    def plain_pair(i):
+        kv_rows_write_plain(kp, vp, kn, vn, i, poss)
+        batch_decode_attention_plain(q, kp, vp, i, lens, 0.125)
+    pms = time_ms(lambda i: kv_rows_write_plain(kp, vp, kn, vn, i, poss), nl)
+    pair_pms = time_ms(plain_pair, nl)
+    lms = time_ms(index_put, nl)
+    write_bytes = 4 * b * lanes * 2 + 4 * b
+    row = kernel_row(0.0, wms, pms, write_bytes, 0, "bf16", lms)
+    row["includes"] = ["pygpukit_tpu_torch/csrc/kv_row.cuh"]
+    # the pair's bound: the write's and the attention's bytes and operations
+    n_live = int(lens.clamp(max=mx).sum())
+    pair_bound, pair_by = bound(write_bytes + 2 * n_live * lanes * 2 + 2 * q.numel() * 2
+                                + 4 * b, 4 * q.shape[2] * d * n_live, "bf16")
+    detail["kv_write_attention"] = dict(
+        turns=turns, median=med, spread={f: max(v) - min(v) for f, v in turns.items()},
+        layers_ms={f: nl * v for f, v in med.items()}, pair_bound_ms=pair_bound,
+        pair_share=pair_bound / med["fused"], pair_plain_ms=pair_pms,
+        fused_write_ms=wms, plain_write_ms=pms, library_ms=lms)
+    print(f"phase 3: row write plus batch attention a layer (B {b}, MAX {mx}, lens "
+          f"BDA_LENS, graph of {nl} layers, {PAIR_TURNS} alternating turns), median "
+          f"[min, max]: " + ", ".join(f"{f} {med[f]:.5f} [{min(v):.5f}, {max(v):.5f}]"
+                                       for f, v in turns.items())
+          + f" ms; over {nl} layers fused {nl * med['fused']:.4f}, separate "
+          f"{nl * med['separate']:.4f} ms; the pair's bound {pair_bound:.6f} ms ({pair_by}) = "
+          f"share {pair_bound / med['fused']:.3f} fused, plain pair {pair_pms:.4f} ms; the "
+          f"fused write adds {wms:.6f} ms a layer to the attention (bound "
+          f"{row['bound_ms']:.6f} ms, {row['bound_by']}), plain write {pms:.4f} ms, "
+          f"index_put_ {lms:.4f} ms [{CARD}]")
+    return row
 
 
 def to_storage(rows, kind: str, n_red: int):
@@ -738,7 +851,8 @@ def check_dense_storages(dev, kp, vp, kn, vn, poss, q, lens, detail: dict) -> No
     import torch
     from pygpukit_tpu_torch.kernels import (batch_decode_attention,
                                             batch_decode_attention_plain,
-                                            kv_rows_write, kv_rows_write_plain)
+                                            kv_rows_write, kv_rows_write_plain,
+                                            kv_write_attention)
     b, nl, mx, lanes = kp.shape
     live = lens.clamp(max=mx)
     n_live = int(live.sum())
@@ -756,6 +870,16 @@ def check_dense_storages(dev, kp, vp, kn, vn, poss, q, lens, detail: dict) -> No
                   for x, y in zip(pool_bits(a), pool_bits(c))),
               f"kv_rows_write {kind}: not bitwise")
         del copies
+        # the step's form of the pair on this storage: the pools of the
+        # write above and the attention over them, bit for bit
+        fused = [to_storage(t, kind, 1) for t in src]
+        o = kv_write_attention(qk, fused[0], fused[1], nk, nv, 3, poss, poss + 1)
+        torch.cuda.synchronize()
+        check(all(torch.equal(x, y) for a, c in zip(fused, pools)
+                  for x, y in zip(pool_bits(a), pool_bits(c))) and
+              torch.equal(o, batch_decode_attention(qk, pools[0], pools[1], 3, poss + 1)),
+              f"kv_write_attention {kind}: not bitwise the two kernels")
+        del fused
         err = 0.0
         for softcap, window in BDA_MASKS:
             o = batch_decode_attention(qk, pools[0], pools[1], 5, lens, softcap=softcap,
@@ -941,12 +1065,21 @@ def check_ladder_kernels(dev, g, detail: dict) -> dict:
            "conv_gemv": (K.conv_matmul, K.conv_matmul_plain)}
     import ctypes
     from pygpukit_tpu_torch.kernels._build import library
-    from pygpukit_tpu_torch.kernels.gemv_quant import block_w4a16_plan, block_w4a8_launch
+    from pygpukit_tpu_torch.kernels.gemv_quant import (block_w4a16_plan, block_w4a8_launch,
+                                                       w4a16_plan)
     res = {name: [0.0, 0.0, 0.0, 0.0, 0.0] for name in fns}
     forms: dict = {}               # block w4a8, rows -> [fused ms, separate ms] over the shapes
     w16: dict = {}                 # block w4a16, rows -> ms over the shapes
+    w4: dict = {}                  # w4a16, rows -> [ms, plain ms, bytes] over the shapes
     for n, k in PROJ_SHAPES.values():           # its C plan is the Python mirror, >= 132 blocks
         for rows in (1, 8):
+            plan = (ctypes.c_int * 4)()
+            check(library().pgk_w4a16_plan(rows, n, k // 2, plan) == 0,
+                  "pgk_w4a16_plan refused a projection")
+            want = w4a16_plan(n, k // 2, rows)
+            check(list(plan) == [want[key] for key in ("tile_n", "blocks", "warps", "batch")]
+                  and want["blocks"] >= 128, f"w4a16 plan {n} x {k} rows {rows}: C "
+                  f"{list(plan)}, Python {want}")
             plan = (ctypes.c_int * 6)()
             check(library().pgk_block_w4a16_plan(rows, n, k // 2, plan) == 0,
                   "pgk_block_w4a16_plan refused a projection")
@@ -989,7 +1122,7 @@ def check_ladder_kernels(dev, g, detail: dict) -> dict:
                         tf[j] += time_ms(lambda i: block_w4a8_launch(x, *args[i], fused), n_var)
                     if shape == "o" and rows in (1, 8):
                         replays_bitwise(lambda: fn(x, *args[0]), f"{name} {shape} rows {rows}")
-                if name == "block_w4a16_gemv" and rows in (1, 8):
+                if name in ("block_w4a16_gemv", "w4a16_gemv") and rows in (1, 8):
                     replays_bitwise(lambda: fn(x, *args[0]), f"{name} {shape} rows {rows}")
                 kms = time_ms(lambda i: fn(x, *args[i]), n_var)
                 pms = time_ms(lambda i: plain(x, *args[i]), n_var)
@@ -1001,6 +1134,10 @@ def check_ladder_kernels(dev, g, detail: dict) -> dict:
                 r[0] = max(r[0], err)
                 if name == "block_w4a16_gemv":
                     w16[rows] = w16.get(rows, 0.0) + kms
+                if name == "w4a16_gemv":
+                    acc4 = w4.setdefault(rows, [0.0, 0.0, 0.0])
+                    for j, v in enumerate((kms, pms, nbytes + rows * (k + n) * 2)):
+                        acc4[j] += v
                 if rows == 1:
                     r[1] += kms
                     r[2] += pms
@@ -1016,6 +1153,12 @@ def check_ladder_kernels(dev, g, detail: dict) -> dict:
         f"rows {r} {ms:.5f} ms" for r, ms in sorted(w16.items())) + f"; bound at rows 1 "
         f"{b16:.5f} ms (bytes) = share {b16 / w16[1]:.3f} [{CARD}]")
     detail["block_w4a16_rows"] = w16
+    for rows, (kms, pms, nbytes) in sorted(w4.items()):
+        bms = nbytes / HBM_BYTES_S * 1e3
+        detail[f"w4a16_gemv_four_rows{rows}"] = {"ms": kms, "plain_ms": pms, "bound_ms": bms,
+                                                 "share": bms / kms}
+        print(f"phase 3: w4a16_gemv, the four projections at rows {rows}: kernel {kms:.5f} ms, "
+              f"bound {bms:.5f} ms (bytes) = share {bms / kms:.3f}, plain {pms:.4f} ms [{CARD}]")
     bms = res["block_w4a8_gemv"][3] / HBM_BYTES_S * 1e3
     print(f"phase 3: block_w4a8_gemv, the four projections at rows 1: kernel "
           f"{res['block_w4a8_gemv'][1]:.5f} ms, bound {bms:.5f} ms (bytes) = share "
@@ -1758,6 +1901,8 @@ def dense_path(model, requests, per_step: dict) -> dict:
     """Phases 4-6 (the dense path on the int4 model); returns its launch
     counts and records its per-step launches in ``per_step``."""
     launches = engine_replay(model, requests, DENSE_KERNELS, "dense path")
+    check(launches["kv_rows_write"] == 0, "kv_rows_write's own kernel ran on the dense path, "
+          "whose rows the attention's pass one writes")
     eager, graph, prof, counts = decode_step_times(model, 8, 1024, 300)
     for name, n in counts.items():
         per_step[name] = (n, "batch-8 decode step")
@@ -1875,7 +2020,8 @@ def ladder(cfg, dev, card: str, per_step: dict) -> dict:
             launches[gemv] = got[gemv]
     print(f"phase 9: one decode step by CUDA-graph replay, device ms: fp8 "
           f"{step_ms['fp8']:.3f} (conv_gemv), bf16 {step_ms['bf16']:.3f} (cuBLAS), int4 "
-          f"{step_ms['int4']:.3f} (w4a8_gemv), int4_block {step_ms['int4_block']:.3f}, "
+          f"{step_ms['int4']:.3f} (w4a8_gemv), int4 w4a16 {step_ms['int4 w4a16']:.3f} "
+          f"(w4a16_gemv), int4_block {step_ms['int4_block']:.3f}, "
           f"int4_block w4a16 {step_ms['int4_block w4a16']:.3f} (block_w4a16_gemv) [{card}]")
     del model, base
     torch.cuda.empty_cache()
@@ -1898,7 +2044,7 @@ def paged_path(model, cfg, rng, per_step: dict) -> dict:
     n_tok = check_served(eng1, reqs1, requests, "paged path")
     for name in PAGED_KERNELS:
         check(launches[name] > 0, f"kernel {name} was never launched on the paged path")
-    for name in ("batch_decode_attention", "kv_rows_write"):
+    for name in ("batch_decode_attention", "kv_rows_write", "kv_rows_write_fused"):
         check(launches[name] == 0, f"dense kernel {name} ran on the paged path")
     ttft = ttft_ms(reqs1)
     print(f"phase 7: paged pipelined engine (MAX 512, block 16, 128 steps per "
@@ -2005,7 +2151,7 @@ def block_engine(cfg, dev, requests) -> dict:
     block GEMV) with the batch-8 engine, replayed; returns its launches."""
     import torch
     model = build_model(cfg, 0, dev, "int4_block")
-    launches = engine_replay(model, requests, ("block_w4a8_gemv", "kv_rows_write",
+    launches = engine_replay(model, requests, ("block_w4a8_gemv", "kv_rows_write_fused",
                                                "batch_decode_attention"),
                              "int4_block engine", phases=("10", "10"))
     eager, graph, prof, _ = decode_step_times(model, 8, 1024, 300)
@@ -2150,12 +2296,13 @@ def array_layer(gp, cfg, x, w: dict, cos, sin):
 
 def ops_phase(cfg, dev, card: str, per_step: dict) -> dict:
     """Phase 12, the Array API. Returns the launches of its main-path runs:
-    gemm from the layer (a), gemv_quant from its library calls (c)."""
+    gemm from the layer (a), gemv_quant and kv_rows_write from their library
+    calls (c)."""
     import os
     import torch
     import pygpukit_tpu_torch as gp
     from pygpukit_tpu_torch import LAUNCHES, reset_launches
-    from pygpukit_tpu_torch.kernels import gemv_quant
+    from pygpukit_tpu_torch.kernels import gemv_quant, kv_rows_write_plain
     from pygpukit_tpu_torch.llm import init_params
     from pygpukit_tpu_torch.llm.model import _slice_layer_params, layer_stack_fn
     t0 = time.perf_counter()
@@ -2271,9 +2418,40 @@ def ops_phase(cfg, dev, card: str, per_step: dict) -> dict:
     per_step["gemv_quant"] = (0, "a library function: no path of the port calls it "
                               f"(phase 12 calls it {gemv_launches} times directly)")
     print(f"phase 12: gemv_quant through its library entry at the four projection shapes "
-          f"(fp8 e4m3): {gemv_launches} launches, finite; phase 12 took "
-          f"{time.perf_counter() - t0:.1f} s")
-    return {"gemm": launches["gemm"], "gemv_quant": gemv_launches}
+          f"(fp8 e4m3): {gemv_launches} launches, finite")
+
+    # the row write through its library entry: every layer of batch-8 pools
+    # at the 1.1B width (MAX 1024), bitwise its plain version
+    b, mx, lanes = 8, 1024, cfg.num_kv_heads * cfg.head_dim
+    shape = (b, cfg.num_layers, mx, lanes)
+    kp = torch.randn(shape, generator=g, device=dev).to(torch.bfloat16)
+    vp = torch.randn(shape, generator=g, device=dev).to(torch.bfloat16)
+    k2, v2 = kp.clone(), vp.clone()
+    rows = torch.randn((2, cfg.num_layers, b, cfg.num_kv_heads, cfg.head_dim), generator=g,
+                       device=dev).to(torch.bfloat16)
+    poss = torch.tensor([0, 5, 300, mx - 1, mx + 3, 37, 700, -1], dtype=torch.int32,
+                        device=dev)
+    torch.cuda.synchronize()
+    reset_launches()
+    for i in range(cfg.num_layers):
+        gp.kv_rows_write(kp, vp, rows[0, i], rows[1, i], i, poss)
+    torch.cuda.synchronize()
+    krw_launches = LAUNCHES["kv_rows_write"]
+    reset_launches()
+    for i in range(cfg.num_layers):
+        kv_rows_write_plain(k2, v2, rows[0, i], rows[1, i], i, poss)
+    check(krw_launches == cfg.num_layers and torch.equal(bits(kp), bits(k2))
+          and torch.equal(bits(vp), bits(v2)),
+          f"ops kv_rows_write: {krw_launches} launches or pools not bitwise the plain write")
+    del kp, vp, k2, v2
+    per_step["kv_rows_write"] = (0, "a library function: the batch-rows step's rows are "
+                                 "written by the attention's launch (kv_rows_write_fused); "
+                                 f"phase 12 calls it {krw_launches} times directly")
+    print(f"phase 12: kv_rows_write through its library entry, {cfg.num_layers} layers of "
+          f"[{b}, {cfg.num_layers}, {mx}, {lanes}] bf16 pools: {krw_launches} launches, "
+          f"bitwise the plain write; phase 12 took {time.perf_counter() - t0:.1f} s")
+    return {"gemm": launches["gemm"], "gemv_quant": gemv_launches,
+            "kv_rows_write": krw_launches}
 
 
 def decode_route(model, route: str, per_step: dict) -> dict:
@@ -2409,7 +2587,7 @@ def kv_phase(cfg, dev, card: str) -> None:
                                        kv_dtype=None if kind == "bf16" else kind)
         eng, reqs, secs, launches = run(model)
         n_tok = check_served(eng, reqs, requests, f"kv {kind}")
-        for name in ("kv_rows_write", "batch_decode_attention"):
+        for name in ("kv_rows_write_fused", "batch_decode_attention"):
             check(launches[name] > 0, f"kv {kind}: {name} was never launched")
         streams = [r.generated for r in reqs]
         if kind == "int8":
@@ -2422,7 +2600,7 @@ def kv_phase(cfg, dev, card: str) -> None:
             del eng2
         del eng
         eager, graph, _, counts = decode_step_times(model, 8, KV_MAX, 1000, profile=False)
-        for name in ("kv_rows_write", "batch_decode_attention"):
+        for name in ("kv_rows_write_fused", "batch_decode_attention"):
             check(counts.get(name) == cfg.num_layers,
                   f"kv {kind}: {name} launched {counts.get(name)} times a step")
         if base_streams is None:
@@ -2556,8 +2734,8 @@ def moe_generate(model, cfg, dev) -> None:
 def moe_engine(model, cfg) -> None:
     """Phase 14, step 3: the batch-8 engine on MOE_REQUESTS requests of
     MOE_REQ_PROMPT-token prompts and MOE_REQ_NEW new tokens: every request
-    finishes, gmm in the prefills, one kv_rows_write and one
-    batch_decode_attention a layer a decode step on the dense MoE route
+    finishes, gmm in the prefills, one batch_decode_attention a layer a
+    decode step, the row write fused in, on the dense MoE route
     (no gmm), a fresh engine replays the streams and pools bitwise."""
     import numpy as np
     import torch
@@ -2571,11 +2749,11 @@ def moe_engine(model, cfg) -> None:
     launches = {k: n for k, n in LAUNCHES.items() if n}
     reset_launches()
     n_tok = check_served(eng1, reqs1, requests, "moe engine")
-    for name in ("gmm", "kv_rows_write", "batch_decode_attention"):
+    for name in ("gmm", "kv_rows_write_fused", "batch_decode_attention"):
         check(launches.get(name, 0) > 0, f"moe engine: {name} was never launched")
     eager, graph, prof, counts = decode_step_times(model, 8, MOE_ENGINE_MAX,
                                                    MOE_REQ_PROMPT + MOE_REQ_NEW // 2)
-    want = {"kv_rows_write": n_layers, "batch_decode_attention": n_layers}
+    want = {"kv_rows_write_fused": n_layers, "batch_decode_attention": n_layers}
     check(counts == want, f"moe engine decode step: launches {counts}, expected {want}")
     eng2, reqs2, secs2 = serve(model, requests, 16, max_seq_len=MOE_ENGINE_MAX)
     check([r.generated for r in reqs1] == [r.generated for r in reqs2],
@@ -2664,6 +2842,7 @@ def moe_phase(dev, card: str, per_step: dict) -> dict:
 
 
 def main(argv: list[str]) -> int:
+    t_script = time.perf_counter()
     import argparse
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--phases", default=",".join(PHASES),
@@ -2772,7 +2951,8 @@ def main(argv: list[str]) -> int:
         launches["gmm"] = moe_phase(dev, card, per_step)["gmm"]
     if "kv" in phases:
         kv_phase(cfg, dev, card)
-    print(f"total {time.perf_counter() - t_start:.1f} s after the build began")
+    print(f"total {time.perf_counter() - t_start:.1f} s after the build began, "
+          f"{time.perf_counter() - t_script:.1f} s the whole script")
     if set(phases) != set(PHASES):
         print(f"partial run ({args.phases}): no summary")
         return 0

@@ -14,37 +14,12 @@
 // of its pool never writes outside it.
 //
 // Every storage the engines build, bitwise as the plain version
-// (ops/embedding.to_kv_dtype and kv_quant_rows) converts:
-// - bf16 and f32: a copy, or one round-to-nearest-even conversion;
-// - fp8 e4m3 and e5m2: clamp to the format's finite range, then convert
-//   with round-to-nearest-even;
-// - int8 {"q", "s"}: the row's amax (a block reduction), scale = max(amax /
-//   127, 1e-8) by an IEEE division (not a reciprocal: a one-ulp scale flips
-//   the rounding of a value), rounded to bf16 and written to "s"; each value
-//   divided by the rounded scale (IEEE again), rounded half to even, clamped
-//   to +-127.
-#include <cuda_fp8.h>
-
-#include <type_traits>
-
-#include "common.cuh"
+// (kv_row.cuh, which batch_decode_attention.cu's fused write shares).
+#include "kv_row.cuh"
 
 namespace {
 
 constexpr int kKrwThreads = 256;
-
-template <class P>
-__device__ __forceinline__ P krw_convert(float x) {
-  if constexpr (std::is_same<P, __nv_bfloat16>::value) {
-    return __float2bfloat16_rn(x);
-  } else if constexpr (std::is_same<P, float>::value) {
-    return x;
-  } else if constexpr (std::is_same<P, __nv_fp8_e4m3>::value) {
-    return __nv_fp8_e4m3(fminf(fmaxf(x, -448.f), 448.f));
-  } else {
-    return __nv_fp8_e5m2(fminf(fmaxf(x, -57344.f), 57344.f));
-  }
-}
 
 template <class N, class P>
 __global__ void __launch_bounds__(kKrwThreads)
@@ -61,25 +36,14 @@ kv_rows_write_kernel(const N* __restrict__ k_new, const N* __restrict__ v_new,
   const N* src = (is_v ? v_new : k_new) + (size_t)b * row;
   P* dst = (is_v ? v_pool : k_pool) + plane_row * row;
   if constexpr (std::is_same<P, int8_t>::value) {
-    __shared__ float part[kKrwThreads / 32];
-    float amax = 0.f;
-    for (int i = threadIdx.x; i < row; i += kKrwThreads)
-      amax = fmaxf(amax, fabsf(pgk_to_f32(src[i])));
-    amax = pgk_warp_max(amax);
-    if ((threadIdx.x & 31) == 0) part[threadIdx.x >> 5] = amax;
-    __syncthreads();
-    amax = part[0];
-#pragma unroll
-    for (int w = 1; w < kKrwThreads / 32; ++w) amax = fmaxf(amax, part[w]);
-    const __nv_bfloat16 sb = __float2bfloat16_rn(fmaxf(__fdiv_rn(amax, 127.f), 1e-8f));
+    __shared__ float red[kKrwThreads / 32];
+    const __nv_bfloat16 sb = kv_row_int8_scale(kv_row_amax(src, row, red));
     const float sf = __bfloat162float(sb);
-    for (int i = threadIdx.x; i < row; i += kKrwThreads) {
-      const float qv = rintf(__fdiv_rn(pgk_to_f32(src[i]), sf));
-      dst[i] = (int8_t)fminf(fmaxf(qv, -127.f), 127.f);
-    }
+    for (int i = threadIdx.x; i < row; i += kKrwThreads) dst[i] = kv_row_int8(pgk_to_f32(src[i]), sf);
     if (threadIdx.x == 0) (is_v ? v_scale : k_scale)[plane_row] = sb;
   } else {
-    for (int i = threadIdx.x; i < row; i += kKrwThreads) dst[i] = krw_convert<P>(pgk_to_f32(src[i]));
+    for (int i = threadIdx.x; i < row; i += kKrwThreads)
+      dst[i] = kv_row_convert<P>(pgk_to_f32(src[i]));
   }
 }
 

@@ -5,9 +5,9 @@
 // bf16(nibble(k, n) * s(k, n))), f32 sums.
 //
 // Used by block_w4a16_gemv.cu (int4_block: a K-major [K/2, N] weight, bf16
-// block scales [K/B, N]); the dequantization, the fragments and the fold
-// take no assumption on where a column's scale comes from, so the plain
-// int4 layout (w4a16_gemv, per-column scales) can take the same body.
+// block scales [K/B, N]), whose body this is, and by w4a16_gemv.cu (the
+// plain int4 [N, K/2] weight with per-column scales), which takes the
+// nibble pairs, the product and the weight loads from here.
 //
 // The design, for a memory-bound stream of 2-12 MB a call:
 // - The dequantization in pairs: a byte's two nibbles are one bf16x2
@@ -97,14 +97,20 @@ __device__ __forceinline__ uint32_t as_u32(__nv_bfloat162 v) {
 }
 
 // Byte e of word `wd` (its high nibbles shifted down in `wd4 = wd >> 4`)
-// as the bf16x2 (bf16(lo * sp.lo), bf16(hi * sp.hi)).
+// as the bf16x2 of its two signed nibbles (lo, hi), exact. w4a16_gemv.cu
+// takes them as they are (its scale is a column's, applied to the f32 sum).
 template <int E>
-__device__ __forceinline__ uint32_t dq_pair(uint32_t wd, uint32_t wd4, uint32_t sp) {
+__device__ __forceinline__ __nv_bfloat162 nibble_pair(uint32_t wd, uint32_t wd4) {
   constexpr uint32_t kSel = E | (E << 4) | ((4 + E) << 8) | ((4 + E) << 12);
   const uint32_t b = __byte_perm(wd, wd4, kSel);
   const uint32_t u = (b & 0x000F000Fu) ^ 0x43084308u;          // 128 + (nibble ^ 8)
-  const __nv_bfloat162 v = __hsub2(as_bf2(u), as_bf2(0x43084308u));   // the nibble
-  return as_u32(__hmul2(v, as_bf2(sp)));
+  return __hsub2(as_bf2(u), as_bf2(0x43084308u));               // the nibble
+}
+
+// The same byte as (bf16(lo * sp.lo), bf16(hi * sp.hi)).
+template <int E>
+__device__ __forceinline__ uint32_t dq_pair(uint32_t wd, uint32_t wd4, uint32_t sp) {
+  return as_u32(__hmul2(nibble_pair<E>(wd, wd4), as_bf2(sp)));
 }
 
 // d += A (16 x 16 bf16) . B (16 x 8 bf16), f32 sums

@@ -18,7 +18,7 @@ from .gemv_quant import (block_w4a8_matmul, block_w4a8_matmul_plain,
                          conv_matmul, conv_matmul_plain, gemv_quant,
                          gemv_quant_plain, w4a8_matmul, w4a8_matmul_plain,
                          w4a16_matmul, w4a16_matmul_plain)
-from .kv_row_write import kv_rows_write, kv_rows_write_plain
+from .kv_row_write import kv_rows_write, kv_rows_write_plain, kv_write_attention
 from .paged_attention import paged_attention, paged_attention_plain
 
 __all__ = ["LAUNCHES", "build", "reset_launches", "batch_decode_attention",
@@ -32,4 +32,5 @@ __all__ = ["LAUNCHES", "build", "reset_launches", "batch_decode_attention",
            "block_w4a16_matmul_plain", "conv_matmul", "conv_matmul_plain",
            "w4a8_matmul", "w4a8_matmul_plain", "w4a16_matmul",
            "w4a16_matmul_plain", "kv_rows_write", "kv_rows_write_plain",
+           "kv_write_attention",
            "paged_attention", "paged_attention_plain"]

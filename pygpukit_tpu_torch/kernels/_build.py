@@ -39,9 +39,12 @@ BUILD_DIR = _PKG.parent / "build" / "pygpukit_tpu_torch"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-O3", "-std=c++17",
               "-Xcompiler", "-fPIC", "-Xptxas=-v"]
 
-#: launches of each kernel's wrapper since the last reset
+#: launches of each kernel's wrapper since the last reset;
+#: "kv_rows_write_fused" counts the batch_decode_attention launches whose
+#: pass one also stores the step's new rows (kv_row_write.kv_write_attention)
 LAUNCHES: dict[str, int] = {"w4a8_gemv": 0, "w4a8_gemm": 0,
-                            "kv_rows_write": 0, "batch_decode_attention": 0,
+                            "kv_rows_write": 0, "kv_rows_write_fused": 0,
+                            "batch_decode_attention": 0,
                             "paged_attention": 0, "w4a16_gemv": 0,
                             "block_w4a8_gemv": 0, "block_w4a16_gemv": 0,
                             "conv_gemv": 0, "flash_attention": 0,
@@ -55,6 +58,7 @@ _SIGNATURES = {
     "pgk_w4a8_gemm": [_P, c_int, _P, _P, _P, _P, _P, _P, c_int, c_int, c_int, _P],
     "pgk_w4a8_gemm_plan": [c_int, c_int, c_int, _P],
     "pgk_w4a16_gemv": [_P, _P, _P, _P, c_int, c_int, c_int, _P],
+    "pgk_w4a16_plan": [c_int, c_int, c_int, _P],
     "pgk_block_w4a8_gemv": [_P, c_int, _P, _P, _P, _P, _P, c_int, c_int, c_int,
                             c_int, c_int, _P],
     "pgk_block_w4a8_plan": [c_int, c_int, c_int, _P],
@@ -63,8 +67,8 @@ _SIGNATURES = {
     "pgk_conv_gemv": [_P, _P, c_int, _P, _P, c_int, c_int, c_int, _P],
     "pgk_conv_gemv_plan": [c_int, c_int, c_int, _P],
     "pgk_kv_rows_write": [_P] * 7 + [c_int] * 7 + [_P],
-    "pgk_batch_decode_attention": [_P] * 8 + [c_int] * 10 + [c_float, c_float,
-                                                             c_int, _P],
+    "pgk_batch_decode_attention": [_P] * 11 + [c_int] * 10 + [c_float, c_float,
+                                                              c_int, _P],
     "pgk_paged_attention": [_P] * 9 + [c_int] * 9 + [c_float, c_float, c_int, _P],
     "pgk_flash_attention": [_P, _P, _P, _P, c_int, c_int, c_int, c_int, c_int,
                             c_int, c_float, _P],

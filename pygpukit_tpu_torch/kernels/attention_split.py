@@ -2,7 +2,9 @@
 (``csrc/decode_attention.cuh``): how many blocks share one (slot, kv head)'s
 context and which positions each takes. ``batch_decode_attention``,
 ``paged_attention`` and ``flash_decode`` plan with it; the CUDA body's
-``pgk_split_bounds`` mirrors :func:`split_bounds`.
+``pgk_split_bounds`` mirrors :func:`split_bounds`, and the batch kernel's
+fused row write (``bda_writes_row`` in ``csrc/batch_decode_attention.cu``)
+:func:`writes_row`.
 """
 
 from __future__ import annotations
@@ -54,3 +56,22 @@ def live_splits(lo: int, live: int, n_split: int) -> int:
     chunks = -(-live // ATTN_CHUNK) - lo0 // ATTN_CHUNK
     per = -(-chunks // n_split)
     return -(-chunks // per)
+
+
+def writes_row(split: int, pos: int, ctx: int, max_len: int, window: int | None,
+               n_split: int) -> bool:
+    """Whether split ``split``'s block of a (slot, kv head) stores the slot's
+    new row in the fused row write of ``batch_decode_attention``'s pass one:
+    the row ``clamp(pos, 0, max_len - 1)`` goes to the split whose
+    :func:`split_bounds` range of the live window (``ctx`` the slot's
+    length, ``window`` as the attention takes it) holds it, or to split 0
+    when none does. ``bda_writes_row`` in ``csrc/batch_decode_attention.cu``
+    is the same rule."""
+    p = min(max(pos, 0), max_len - 1)
+    live = min(ctx, max_len)
+    lo = ctx - window if window is not None and window > 0 else -(1 << 30)
+    if not max(lo, 0) <= p < live:
+        return split == 0
+    start, end = split_bounds(lo, live, n_split)[split]
+    return start <= p < end
+

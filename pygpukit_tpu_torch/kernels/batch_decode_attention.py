@@ -23,7 +23,7 @@ import math
 import torch
 
 from ..ops.embedding import kv_leaf
-from ._build import launch, require_on, stream_of
+from ._build import LAUNCHES, launch, require_on, stream_of
 from .attention_split import (ATTN_CHUNK,  # noqa: F401 (re-exported)
                               attention_splits, split_bounds)
 
@@ -142,10 +142,24 @@ def batch_decode_attention(q: torch.Tensor, k_pool, v_pool, layer: int,
     if t != 1:
         raise ValueError("batch_decode_attention takes one query per slot")
     scale = scale if scale is not None else 1.0 / math.sqrt(d)
-    leaf = kv_leaf(k_pool)
-    if not leaf.is_cuda:
+    if not kv_leaf(k_pool).is_cuda:
         return batch_decode_attention_plain(q, k_pool, v_pool, layer, ctx_lens,
                                             scale, softcap, window)
+    return launch_batch_decode_attention(q, k_pool, v_pool, layer, ctx_lens, scale,
+                                         softcap, window)
+
+
+def launch_batch_decode_attention(q: torch.Tensor, k_pool, v_pool, layer: int,
+                                  ctx_lens: torch.Tensor, scale: float,
+                                  softcap: float | None, window: int | None,
+                                  write: tuple | None = None) -> torch.Tensor:
+    """The kernel's launch on CUDA pools (q [B, 1, Hq, D]). ``write``: (k_new,
+    v_new [B, Hk*D] contiguous in q's dtype, poss [B] int32), the rows pass
+    one stores first (the fused row write of ``kv_row_write.
+    kv_write_attention``), counted as a launch of ``kv_rows_write_fused``
+    too."""
+    b, _, hq, d = q.shape
+    leaf = kv_leaf(k_pool)
     q_kind, kv_kind = storage_kinds(q, k_pool, v_pool)
     kq, ks = kernel_leaves(k_pool, "k_pool")
     vq, vs = kernel_leaves(v_pool, "v_pool")
@@ -161,10 +175,14 @@ def batch_decode_attention(q: torch.Tensor, k_pool, v_pool, layer: int,
     n_split = attention_splits(b, hk, max_len)
     part = torch.empty(b * hq * n_split * (d + 2), device=leaf.device, dtype=_F32)
     out = torch.empty_like(qc)
+    kn, vn, poss = write if write is not None else (None, None, None)
     launch("batch_decode_attention", "pgk_batch_decode_attention",
            qc.data_ptr(), kq.data_ptr(), vq.data_ptr(), ptr_or_null(ks),
-           ptr_or_null(vs), lens.data_ptr(), out.data_ptr(), part.data_ptr(), b, hq, hk, d,
+           ptr_or_null(vs), lens.data_ptr(), ptr_or_null(kn), ptr_or_null(vn),
+           ptr_or_null(poss), out.data_ptr(), part.data_ptr(), b, hq, hk, d,
            int(layer), n_layers, max_len, n_split, q_kind, kv_kind,
            float(scale), float(softcap) if softcap else 0.0,
            int(window) if window else 0, stream_of(leaf))
+    if write is not None:
+        LAUNCHES["kv_rows_write_fused"] += 1
     return out

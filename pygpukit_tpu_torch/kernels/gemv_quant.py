@@ -13,7 +13,9 @@ takes the plain version.
   rows > 8 the GEMM (``csrc/w4a8_gemm.cu``, int8 wgmma with split K where
   the tiles alone fill the card poorly: :func:`w4a8_gemm_plan`).
 - ``w4a16_matmul``: the same int4 leaf against bf16 activations
-  (``csrc/w4a16_gemv.cu``).
+  (``csrc/w4a16_gemv.cu``, bf16 mma.sync over 16-column tiles, K split
+  across a block's warps, launched as its predecessor's programmatic
+  dependent: :func:`w4a16_plan`).
 - ``block_w4a8_matmul`` / ``block_w4a16_matmul``: int4_block K-major
   ``[K/2, N]`` + bf16 block scales ``[K/B, N]`` (``csrc/block_w4a8_gemv.cu``,
   a column tile a block over all of K, folded in order: :func:`block_w4a8_plan`;
@@ -275,11 +277,30 @@ def w4a16_matmul_plain(x: torch.Tensor, packed: torch.Tensor, scale: torch.Tenso
     return (acc * scale.reshape(1, -1).to(_F32)).to(out_dtype)
 
 
+#: the w4a16 GEMV (``csrc/w4a16_gemv.cu``): rounds (two 16-byte weight
+#: vectors each) a lane has in flight before their math
+W4A16_BATCH = 2
+
+
+def w4a16_plan(n: int, k_half: int, rows: int = 1) -> dict:
+    """The w4a16 GEMV's launch plan: a block a 16-column tile over all of K
+    (``blocks`` tiles), its ``warps`` (w4a8_gemv_plan's rule: 4 up to
+    W4A8_GEMV_NARROW_CHUNKS 16-byte chunks a column, 8 up to
+    W4A8_GEMV_WIDE_CHUNKS, 16 above) each a contiguous slice of the chunks
+    (:func:`w4a8_gemv_slices`), ``batch`` rounds of a lane in flight. Rows
+    do not change it; it depends on the shapes alone, so a captured graph
+    stays valid. ``pgk_w4a16_plan`` is the same rule."""
+    p = w4a8_gemv_plan(rows, n, k_half)
+    return {"tile_n": p["tile_n"], "blocks": p["blocks"], "warps": p["warps"],
+            "batch": W4A16_BATCH}
+
+
 def w4a16_matmul(x: torch.Tensor, packed: torch.Tensor,
                  scale: torch.Tensor) -> torch.Tensor:
     """x [M, K] or [K], packed [N, K/2] uint8, scale [N] or [1, N] f32 ->
     y [M, N] bf16 with x rounded to bf16. CUDA: the w4a16 GEMV kernel
-    (M <= 8); CPU: the plain version."""
+    (M <= 8; bf16 tensor cores over :func:`w4a16_plan`'s grid); CPU: the
+    plain version."""
     if not x.is_cuda:
         return w4a16_matmul_plain(x, packed, scale)
     n, k_half = packed.shape
@@ -289,8 +310,12 @@ def w4a16_matmul(x: torch.Tensor, packed: torch.Tensor,
     _packed_u8(packed)
     if k_half % 16:
         raise ValueError(f"w4a16_gemv needs K % 32 == 0, got K={2 * k_half}")
+    if packed.data_ptr() % 16:
+        raise ValueError("w4a16_gemv needs a 16-byte aligned packed weight")
     sc = _col_scale(scale, n)
     xb = x2.to(_BF16).contiguous()
+    if xb.data_ptr() % 16:                  # the kernel reads x 16 bytes at a time
+        xb = xb.clone()
     out = torch.empty((m, n), dtype=_BF16, device=x2.device)
     launch("w4a16_gemv", "pgk_w4a16_gemv", xb.data_ptr(), packed.data_ptr(),
            sc.data_ptr(), out.data_ptr(), m, n, k_half, stream_of(xb))

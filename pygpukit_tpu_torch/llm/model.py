@@ -40,8 +40,10 @@ as the reference's 2-D head always takes its XLA route. "dequant + matmul"
 and "convert + matmul" are the kernels' plain versions with the output in
 ``out_dtype`` (the reference's XLA routes).
 
-The batch-rows decode step (the serving engines) always uses
-``kernels.kv_rows_write`` and ``kernels.batch_decode_attention``. The
+The batch-rows decode step (the serving engines) always writes its rows
+and attends through ``kernels.kv_write_attention``: on CUDA pools one
+``batch_decode_attention`` launch that stores the rows first, on CPU pools
+the plain row write, then the plain attention. The
 single-stream step (``decode_step_fn``) runs over the model's fixed caches
 ``[L, MAX, Hk, D]`` and attends through ``ops.nn.sdpa_fixed_cache_fn``: on
 CUDA tensors one query row over a bf16 or f32 cache launches
@@ -93,10 +95,10 @@ from ..core.backend import resolve_device
 from ..core.dtypes import resolve_dtype
 from ..core.host import tensor_from_numpy, tensor_to_numpy
 from ..core.numerics import require_full_f32, true_div
-from ..kernels import (batch_decode_attention, block_w4a8_matmul,
-                       block_w4a16_matmul, block_w4a16_matmul_plain, conv_matmul,
-                       conv_matmul_plain, kv_rows_write, w4a8_matmul,
-                       w4a16_matmul, w4a16_matmul_plain)
+from ..kernels import (block_w4a8_matmul, block_w4a16_matmul,
+                       block_w4a16_matmul_plain, conv_matmul, conv_matmul_plain,
+                       kv_write_attention, w4a8_matmul, w4a16_matmul,
+                       w4a16_matmul_plain)
 from ..kernels.fused_decode import fused_decode
 from ..kernels.fused_decode import supports as fused_decode_supports
 from ..kernels.gemv_quant import GEMV_MAX_ROWS
@@ -443,7 +445,7 @@ def batch_decode_step_fn(cfg: TransformerConfig, params: dict, k_pool, v_pool,
     Pools ``[B, L, MAX, Hk*D]`` are updated in place; tokens [B], poss [B]
     int32 device tensors (a free slot passes its stale position: rope rows,
     the row write and the attention bound all clamp). Returns f32 logits
-    [B, V]. Always the two serving kernels (route rule above)."""
+    [B, V]. Always ``kv_write_attention`` (route rule above)."""
     b = tokens.shape[0]
     h = _embed_tokens(cfg, params, tokens)
     c, sn = _rope_rows_for(params, poss, 1) if cfg.use_rope else (None, None)
@@ -454,9 +456,8 @@ def batch_decode_step_fn(cfg: TransformerConfig, params: dict, k_pool, v_pool,
         q, k, v = _project_qkv(cfg, lp, x)                    # [B, H, D]
         if cfg.use_rope:
             q, k = _rope(cfg, q, c, sn), _rope(cfg, k, c, sn)
-        kv_rows_write(k_pool, v_pool, k, v, i, poss)
-        attn = batch_decode_attention(
-            q[:, None], k_pool, v_pool, i, lens, scale=cfg.attn_scale,
+        attn = kv_write_attention(
+            q[:, None], k_pool, v_pool, k, v, i, poss, lens, scale=cfg.attn_scale,
             softcap=cfg.attn_logit_softcap, window=_layer_window(cfg, i))
         h = _residual_tail(cfg, lp, h, attn.reshape(b, -1), b)
     h = _norm(cfg, h, params["final_norm_w"])

@@ -62,7 +62,8 @@ NO_FOLD = [(HDR, 'if (splits > 1) asm volatile("barrier.cluster.arrive.relaxed.a
            (HDR, '  if (splits > 1) {\n    asm volatile("barrier.cluster.arrive.aligned;',
             '  if (false) {\n    asm volatile("barrier.cluster.arrive.aligned;'),
            (HDR, "  if (rank != 0) return;", "")]
-NO_DEQUANT = [(HDR, "  return as_u32(__hmul2(v, as_bf2(sp)));", "  return wd ^ sp;")]
+NO_DEQUANT = [(HDR, "  return as_u32(__hmul2(nibble_pair<E>(wd, wd4), as_bf2(sp)));",
+               "  return wd ^ sp;")]
 NO_MMA = [(HDR, '  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, "\n'
                 '      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};"\n'
                 '      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])\n'

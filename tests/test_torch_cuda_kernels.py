@@ -21,7 +21,8 @@ from pygpukit_tpu_torch.kernels import (LAUNCHES, batch_decode_attention,
                                         block_w4a16_matmul,
                                         block_w4a16_matmul_plain, conv_matmul,
                                         conv_matmul_plain, kv_rows_write,
-                                        kv_rows_write_plain, paged_attention,
+                                        kv_rows_write_plain, kv_write_attention,
+                                        paged_attention,
                                         paged_attention_plain, w4a8_matmul,
                                         w4a8_matmul_plain, w4a16_matmul,
                                         w4a16_matmul_plain)
@@ -399,6 +400,107 @@ def test_kv_rows_write_every_storage_bitwise(dev, storage, new_dtype):
         assert all(torch.equal(a, r) for a, r in zip(_pool_bits(got), _pool_bits(ref)))
 
 
+KRW_MAX = 1024
+# slot positions of the fused row write: before the pool, its first row, a
+# row inside the first split, its last row and past it (clamped), and three
+# more spread over the splits
+KRW_POSS = ((-1, 0, 37, KRW_MAX - 1, KRW_MAX + 3, 500, 64, 200),
+            (3, KRW_MAX + 40, 0, -2, 700, 38, KRW_MAX - 1, 129))
+
+
+def _krw_inputs(dev, storage, seed, b=8, nl=3, mx=KRW_MAX, hk=4, hq=32, d=64):
+    """Pools of a storage, new K/V rows and queries in the query dtype
+    (the fused write takes rows in it), both position vectors."""
+    g = _gen(dev, seed)
+    dtype, qdt = STORAGES[storage]
+    pools = [_store(torch.randn((b, nl, mx, hk * d), generator=g, device=dev), dtype, 1)
+             for _ in range(2)]
+    kn = (torch.randn((b, hk, d), generator=g, device=dev) * 200).to(qdt)
+    vn = torch.randn((b, hk, d), generator=g, device=dev).to(qdt)
+    kn[2] = 0                                           # an all-zero row: the 1e-8 scale floor
+    q = torch.randn((b, 1, hq, d), generator=g, device=dev).to(qdt)
+    poss = [torch.tensor(v, dtype=torch.int32, device=dev) for v in KRW_POSS]
+    return pools, kn, vn, q, poss
+
+
+def _pool_copy(pool):
+    return {k: v.clone() for k, v in pool.items()} if isinstance(pool, dict) else pool.clone()
+
+
+def _pools_equal(a, b):
+    return all(torch.equal(x, y) for x, y in zip(_pool_bits(a), _pool_bits(b)))
+
+
+@pytest.mark.parametrize("window", [None, 30])
+@pytest.mark.parametrize("storage", list(STORAGES))
+def test_kv_write_attention_bitwise(dev, storage, window):
+    """The write-plus-attention: the pools bitwise kv_rows_write_plain's,
+    the output bitwise kv_rows_write then batch_decode_attention (both
+    kernels) on the same inputs, at positions -1, 0, 37, MAX - 1 and MAX + 3
+    among others; one attention launch, counted as a fused write too, and
+    no launch of the row-write kernel."""
+    (kp, vp), kn, vn, q, poss = _krw_inputs(dev, storage, 61)
+    for pv in poss:
+        lens = pv + 1
+        k1, v1, k2, v2, k3, v3 = (_pool_copy(p) for p in (kp, vp) * 3)
+        before = dict(LAUNCHES)
+        out = kv_write_attention(q, k1, v1, kn, vn, 1, pv, lens, window=window)
+        assert LAUNCHES["kv_rows_write"] == before["kv_rows_write"]
+        assert LAUNCHES["kv_rows_write_fused"] == before["kv_rows_write_fused"] + 1
+        assert LAUNCHES["batch_decode_attention"] == before["batch_decode_attention"] + 1
+        kv_rows_write_plain(k2, v2, kn, vn, 1, pv)
+        assert _pools_equal(k1, k2) and _pools_equal(v1, v2), pv.tolist()
+        kv_rows_write(k3, v3, kn, vn, 1, pv)
+        ref = batch_decode_attention(q, k3, v3, 1, lens, window=window)
+        assert torch.equal(out, ref), pv.tolist()
+        plain = batch_decode_attention_plain(q, k2, v2, 1, lens, 0.125, None, window)
+        assert _storage_close(out, plain, STORAGES[storage][1])
+
+
+@pytest.mark.parametrize("storage", list(STORAGES))
+def test_kv_write_attention_replays_at_two_position_vectors(dev, storage):
+    """A CUDA graph of one write-plus-attention captured once, replayed with
+    the positions changed in place: each replay gives the pools and output
+    of kv_rows_write then batch_decode_attention at those positions, bit
+    for bit."""
+    (kp, vp), kn, vn, q, poss = _krw_inputs(dev, storage, 67)
+    pv = poss[0].clone()
+    lens = pv + 1
+    k1, v1 = _pool_copy(kp), _pool_copy(vp)
+
+    def call():
+        return kv_write_attention(q, k1, v1, kn, vn, 2, pv, lens, window=300)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        call()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        static = call()
+    for vec in poss:
+        k2, v2 = _pool_copy(kp), _pool_copy(vp)
+        kv_rows_write(k2, v2, kn, vn, 2, vec)
+        want = batch_decode_attention(q, k2, v2, 2, vec + 1, window=300)
+        for dst, src in ((k1, kp), (v1, vp)):
+            for a, s0 in zip(_pool_bits(dst), _pool_bits(src)):
+                a.copy_(s0)
+        pv.copy_(vec)
+        lens.copy_(vec + 1)
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(static, want), vec.tolist()
+        assert _pools_equal(k1, k2) and _pools_equal(v1, v2), vec.tolist()
+
+
+def test_kv_write_attention_raises_on_what_the_fused_form_does_not_take(dev):
+    (kp, vp), kn, vn, q, poss = _krw_inputs(dev, "bf16", 71)
+    with pytest.raises(NotImplementedError, match="dtype"):       # f32 rows, bf16 queries
+        kv_write_attention(q, kp, vp, kn.float(), vn.float(), 1, poss[0], poss[0] + 1)
+    with pytest.raises(ValueError, match="positions"):
+        kv_write_attention(q, kp, vp, kn, vn, 1, poss[0][:4], poss[0] + 1)
+
+
 def _attn_pools(dev, g, storage, b, nl, mx, lanes):
     dtype, qdt = STORAGES[storage]
     kp = _store(torch.randn((b, nl, mx, lanes), generator=g, device=dev), dtype, 1)
@@ -562,6 +664,55 @@ def test_block_w4a16_gemv_replays_a_graph_bitwise(dev, rows, n, k, b):
     s = (torch.rand((k // b, n), generator=g, device=dev) + 0.5).to(torch.bfloat16)
     _graph_bitwise(lambda: block_w4a16_matmul(x, w, s))
     assert _close(block_w4a16_matmul(x, w, s), block_w4a16_matmul_plain(x, w, s))
+
+
+@pytest.mark.parametrize("rows", [1, 2, 5, 8])
+@pytest.mark.parametrize("n,k", PROJ_SHAPES + [(1001, 2048), (37, 64), (16, 5632), (3, 96)])
+def test_w4a16_gemv_replays_a_graph_bitwise(dev, rows, n, k):
+    """Two launches and a graph replayed twice give the same bits (the
+    warps fold in a fixed order), within one bf16 ulp plus 1e-4 of max |y|
+    of the plain version: the projections (4, 8 and 16 warps a block), a
+    ragged N and the smallest K."""
+    g = _gen(dev, rows * 7 + n + k)
+    x = (torch.randn((rows, k), generator=g, device=dev) * 2).to(torch.bfloat16)
+    w = torch.randint(0, 256, (n, k // 2), generator=g, device=dev, dtype=torch.uint8)
+    sc = torch.rand((n,), generator=g, device=dev) * 1e-3 + 1e-4
+    before = LAUNCHES["w4a16_gemv"]
+    _graph_bitwise(lambda: w4a16_matmul(x, w, sc))
+    assert LAUNCHES["w4a16_gemv"] > before
+    assert _close(w4a16_matmul(x, w, sc), w4a16_matmul_plain(x, w, sc))
+
+
+def test_w4a16_gemv_takes_a_misaligned_x_and_a_stacked_layer(dev):
+    """x off 16 bytes (a view one element in) is copied to an aligned row
+    first; a layer of a stacked [L, N, K/2] weight is a free view. The
+    results are the aligned, standalone calls'."""
+    g = _gen(dev, 79)
+    flat = torch.randn((2 * 2048 + 1,), generator=g, device=dev).to(torch.bfloat16)
+    x = flat[1:].view(2, 2048)
+    assert x.is_contiguous() and x.data_ptr() % 16
+    w = torch.randint(0, 256, (3, 2560, 1024), generator=g, device=dev, dtype=torch.uint8)
+    sc = torch.rand((3, 2560), generator=g, device=dev) + 0.5
+    assert torch.equal(_bits(w4a16_matmul(x, w[1], sc[1])),
+                       _bits(w4a16_matmul(x.contiguous().clone(), w[1].clone(),
+                                          sc[1].clone())))
+
+
+def test_w4a16_plan_matches_its_python_mirror(dev):
+    """The w4a16 GEMV's C plan equals gemv_quant.w4a16_plan, with at least
+    128 blocks at the four projections."""
+    import ctypes
+    from pygpukit_tpu_torch.kernels._build import library
+    from pygpukit_tpu_torch.kernels.gemv_quant import w4a16_plan
+    plan = (ctypes.c_int * 4)()
+    for rows in range(1, 9):
+        for n, k in PROJ_SHAPES + [(1001, 2048), (37, 64), (16, 5632), (5, 65536)]:
+            assert library().pgk_w4a16_plan(rows, n, k // 2, plan) == 0
+            want = w4a16_plan(n, k // 2, rows)
+            assert list(plan) == [want[key] for key in ("tile_n", "blocks", "warps",
+                                                        "batch")], (rows, n, k)
+            if (n, k) in PROJ_SHAPES:
+                assert want["blocks"] >= 128
 
 
 def test_block_w4a16_gemv_takes_a_misaligned_x(dev):
@@ -1406,8 +1557,9 @@ def test_batch_step_graph_replay_bitwise(dev, kv_dtype):
 @pytest.mark.parametrize("kv_dtype", ["int8", "fp8"])
 def test_quantized_kv_engine_serves_on_the_card(dev, kv_dtype, paged):
     """ContinuousBatchingEngine on a 2-layer model with int8 or fp8 KV: every
-    request finishes with finite logits, through the kernels (dense: the row
-    write and the split attention, 2 a step; paged: paged_attention)."""
+    request finishes with finite logits, through the kernels (dense: the split
+    attention with the row write fused in, no row-write kernel; paged:
+    paged_attention)."""
     from pygpukit_tpu_torch import reset_launches
     from pygpukit_tpu_torch.llm import ContinuousBatchingEngine
     m = _small_1b(dev, kv_dtype=kv_dtype)
@@ -1422,4 +1574,5 @@ def test_quantized_kv_engine_serves_on_the_card(dev, kv_dtype, paged):
         assert LAUNCHES["paged_attention"] > 0 and LAUNCHES["batch_decode_attention"] == 0
     else:
         assert LAUNCHES["batch_decode_attention"] > 0
-        assert LAUNCHES["kv_rows_write"] == LAUNCHES["batch_decode_attention"]
+        assert LAUNCHES["kv_rows_write"] == 0
+        assert LAUNCHES["kv_rows_write_fused"] == LAUNCHES["batch_decode_attention"]
