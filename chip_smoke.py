@@ -177,9 +177,27 @@ int8, 67 TFLOP/s f32) with the kernel's share of it, and, where one
 PyTorch call computes the same function, that call's time (library_ms; the
 port never calls it: torch.matmul for gemm, torch.mv for gemv_quant on a
 bf16 weight with no scale, torch._grouped_mm for gmm, bf16 out).
+16. the decode strategies and capture/replay on phase 13's model (cache
+    512, the 16-token prompt): the greedy step captured once
+    (core.capture through CausalTransformerModel._ensure_decode_exe, the
+    position a device tensor), unfused and under PYGPUKIT_DECODE=fused,
+    replayed at positions 17, 100, 300 and 511, each replay bitwise the
+    eager step from the same cache state (logits and both caches), twice;
+    the capture leaves the caches and counters as they were; another cache
+    raises; node_count, cost_analysis (22 flash_decode, 1 fused_decode)
+    and the pool's bytes printed; DecodeM1 and DecodeM1Graph for 128
+    tokens, identical, finite, eager and replayed wall ms a token and a
+    step (128 steps back-to-back); DecodeBatch over 8 prompts (slots 0 and
+    5 one prompt: identical tokens; 22 batch_decode_attention and 22
+    kv_rows_write_fused launches a step), DecodeJacobi (window 6),
+    DecodeSpeculative self (2 draft layers, gamma 4) and with a 2-layer
+    draft model made by slice_layers: tok/s, stats, agreement with
+    DecodeM1 (reported: random bf16 weights split window and step
+    formulations on near-ties) and launches (replays: cost_analysis x
+    replays).
 Launches per decode step, prefill, forward or layer are counted in phases
-6, 7, 9, 11, 12, 13, 14 and 15 and printed (phases 6-14) on one line
-before the summary.
+6, 7, 9, 11, 12, 13, 14, 15 and 16 and printed (phases 6-14, 16) on one
+line before the summary.
 
 Any failure exits non-zero. The last two lines are the kernel summary and
 the device line read by automation; it exits 2 with no result when no CUDA
@@ -268,7 +286,10 @@ LADDER_WARM = 16             # the warm run's tokens: a prefix of the timed run'
 # order; the block w4a8 GEMV is held bitwise instead)
 ULP_REL, NEAR_ZERO = 2.0 ** -7, 1e-4
 PHASES = ("kernels", "dense", "paged", "tight", "ladder", "block", "parity",
-          "forward", "ops", "decode", "moe", "kv")
+          "forward", "ops", "decode", "moe", "kv", "strategies")
+# phase 16: the positions the captured step replays at (captured at 16),
+# and the steps of the back-to-back eager and replayed step loops
+STRAT_POSITIONS, STRAT_STEPS = (17, 100, 300, 511), 128
 # phase 15, the reference's bench_serving_kv (bench.py:390-428): one 16-token
 # prompt, 8 warm-up requests of one dispatch, 16 timed requests
 KV_PROMPT, KV_WARM, KV_REQS, KV_NEW, KV_STEPS, KV_MAX = list(range(1, 17)), 8, 16, 128, 32, 4096
@@ -2549,6 +2570,206 @@ def decode_phase(cfg, dev, card: str, per_step: dict) -> dict:
     return {"flash_decode": unfused["launches"], "fused_decode": fused["launches"]}
 
 
+def capture_checks(model, route: str) -> dict:
+    """Phase 16: the model's greedy step captured once at LADDER_PROMPT's
+    cache (``core.capture`` through ``_ensure_decode_exe``), replayed at
+    STRAT_POSITIONS: logits and both caches bitwise the eager step's from
+    the same cache state, twice; the capture leaves the caches and the
+    counters as they were; another cache raises. Returns the executable."""
+    import torch
+    from pygpukit_tpu_torch import LAUNCHES
+
+    def cache_bits():
+        return [bits(t).clone() for t in (model.k_cache, model.v_cache)]
+
+    def put(saved):
+        for t, s0 in zip((model.k_cache, model.v_cache), saved):
+            bits(t).copy_(s0)
+    model.init_fixed_cache(LADDER_MAX)
+    model.prefill(LADDER_PROMPT)
+    saved, counts = cache_bits(), dict(LAUNCHES)
+    exe = model._ensure_decode_exe()
+    torch.cuda.synchronize()
+    check(dict(LAUNCHES) == counts and all(torch.equal(a, b) for a, b in
+                                           zip(cache_bits(), saved)),
+          f"strategies {route}: the capture changed the caches or the launch counters")
+    kernel = "flash_decode" if route == "unfused" else "fused_decode"
+    want = {kernel: model.config.num_layers if route == "unfused" else 1}
+    check(exe.cost_analysis() == want,
+          f"strategies {route}: cost_analysis {exe.cost_analysis()}, expected {want}")
+    for pos in STRAT_POSITIONS:
+        model.pos = pos
+        state = cache_bits()
+        eager = model.decode_step(pos % model.config.vocab_size).clone()
+        after = cache_bits()
+        for _ in range(2):
+            put(state)
+            model.pos = pos
+            got = model.decode_step_replay(pos % model.config.vocab_size)
+            torch.cuda.synchronize()
+            check(bool(torch.isfinite(eager).all()) and torch.equal(got, eager)
+                  and all(torch.equal(a, b) for a, b in zip(cache_bits(), after)),
+                  f"strategies {route}: the replay at pos {pos} is not the eager step's bits")
+    b = model.decode_buffers
+    try:
+        exe.replay(model.params, model.k_cache.clone(), model.v_cache, 1, 20,
+                   model._nonfinite, b.logits, b.sampled)
+        check(False, f"strategies {route}: a replay handed another cache did not raise")
+    except ValueError:
+        pass
+    print(f"phase 16: {route} step captured at pos {len(LADDER_PROMPT)}: node_count "
+          f"{exe.node_count}, cost_analysis {json.dumps(exe.cost_analysis())}, pool "
+          f"{exe.memory_analysis()} bytes; replays at pos {list(STRAT_POSITIONS)} bitwise "
+          f"the eager step (logits and both caches), twice each; another cache raises")
+    return exe
+
+
+def timed_strategy(model, strat, prompt, n_new: int) -> tuple:
+    """(tokens, wall seconds, LAUNCHES of the run) of ``strat.generate``
+    from a fresh cache, the counters set to 0 just before."""
+    import torch
+    from pygpukit_tpu_torch import LAUNCHES, reset_launches
+    if getattr(strat, "init_graph", None) is not None:
+        strat.init_graph(LADDER_MAX)
+    elif model is not None:
+        model.init_fixed_cache(LADDER_MAX)
+    torch.cuda.synchronize()
+    reset_launches()
+    t0 = time.perf_counter()
+    toks = strat.generate(prompt, n_new)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    counts = {k: n for k, n in LAUNCHES.items() if n}
+    reset_launches()
+    return toks, secs, counts
+
+
+def step_loop_ms(model, replay: bool, n: int = STRAT_STEPS) -> float:
+    """Wall ms per step of ``n`` steps fed back-to-back from
+    LADDER_PROMPT's cache with one synchronize at the end: eager steps
+    (``decode_step``) or replays (``decode_step_replay``)."""
+    import torch
+    model.init_fixed_cache(LADDER_MAX)
+    model.prefill(LADDER_PROMPT)
+    step = model.decode_step_replay if replay else model.decode_step
+    step(1)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for i in range(n):
+        step((i + 2) % model.config.vocab_size)
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) * 1e3 / n
+
+
+def strategies_phase(cfg, dev, card: str, per_step: dict) -> dict:
+    """Phase 16, the decode strategies and capture/replay on phase 13's
+    1.1B bf16 model with separate leaves, MAX LADDER_MAX, LADDER_PROMPT.
+    Per route (unfused, then PYGPUKIT_DECODE=fused): the capture checks;
+    DecodeM1 and DecodeM1Graph for LADDER_NEW tokens, identical, finite;
+    eager against replayed wall ms per token (the strategies, each with a
+    host read a token) and per step (STRAT_STEPS steps fed back-to-back).
+    Unfused: DecodeBatch over 8 prompts (two identical, in slots 0 and 5),
+    DecodeJacobi (window 6), DecodeSpeculative self (n_draft 2, gamma 4)
+    and with a separate 2-layer draft made with slice_layers; tok/s,
+    stats, agreement with DecodeM1 (reported) and the launches of every
+    path: eager counts, plus cost_analysis() x replays for replays.
+    Returns the launches of the replayed and batch paths."""
+    import dataclasses
+    import os
+    import numpy as np
+    import torch
+    from pygpukit_tpu_torch.llm import CausalTransformerModel, init_params, slice_layers
+    from pygpukit_tpu_torch.llm.decode import (DecodeBatch, DecodeJacobi, DecodeM1,
+                                               DecodeM1Graph, DecodeSpeculative)
+    t0 = time.perf_counter()
+    model = CausalTransformerModel(cfg, init_params(cfg, 0, torch.bfloat16, dev),
+                                   dtype=torch.bfloat16)
+    layers = cfg.num_layers
+    saved = os.environ.get("PYGPUKIT_DECODE")
+    out: dict = {}
+    try:
+        for route in ("unfused", "fused"):
+            if route == "fused":
+                os.environ["PYGPUKIT_DECODE"] = "fused"
+            else:
+                os.environ.pop("PYGPUKIT_DECODE", None)
+            exe = capture_checks(model, route)
+            kernel = "flash_decode" if route == "unfused" else "fused_decode"
+            per = layers if route == "unfused" else 1
+            m1 = DecodeM1().bind(model)
+            m1_toks, m1_s, m1_l = timed_strategy(model, m1, LADDER_PROMPT, LADDER_NEW)
+            check(m1_l == {kernel: per * LADDER_NEW} and model.logits_finite(),
+                  f"strategies {route}: DecodeM1 launches {m1_l} or a non-finite logit")
+            graph = DecodeM1Graph().bind(model)
+            g_toks, g_s, g_l = timed_strategy(model, graph, LADDER_PROMPT, LADDER_NEW)
+            gexe = model._ensure_decode_exe()
+            replayed = {k: n * gexe.stats.replays for k, n in gexe.cost_analysis().items()}
+            check(g_toks == m1_toks and len(g_toks) == LADDER_NEW and model.logits_finite(),
+                  f"strategies {route}: DecodeM1Graph's tokens differ from DecodeM1's")
+            check(g_l == {} and replayed == {kernel: per * LADDER_NEW},
+                  f"strategies {route}: DecodeM1Graph launched {g_l} eagerly, {replayed} "
+                  "by replay")
+            eager_ms, replay_ms = step_loop_ms(model, False), step_loop_ms(model, True)
+            out[f"{kernel} ({route}, replayed)"] = replayed.get(kernel, 0)
+            per_step[f"{kernel} replayed"] = (per, f"one replay of the captured {route} step")
+            print(f"phase 16: {route}: DecodeM1 {LADDER_NEW / m1_s:.1f} tok/s "
+                  f"({m1_s * 1e3 / LADDER_NEW:.3f} ms/token eager wall, {m1.stats}, launches "
+                  f"{json.dumps(m1_l)}), DecodeM1Graph {LADDER_NEW / g_s:.1f} tok/s "
+                  f"({g_s * 1e3 / LADDER_NEW:.3f} ms/token replayed wall, {graph.stats}, "
+                  f"eager launches "
+                  f"{json.dumps(g_l)}, replayed {json.dumps(replayed)}): {LADDER_NEW} tokens "
+                  f"identical; {STRAT_STEPS} steps back-to-back: eager {eager_ms:.3f} ms/step, "
+                  f"replayed {replay_ms:.3f} ms/step wall; [{card}]")
+            if route == "unfused":
+                ref_toks = m1_toks
+        os.environ.pop("PYGPUKIT_DECODE", None)
+
+        def agree(toks):
+            return sum(a == b for a, b in zip(toks, ref_toks))
+
+        rng = np.random.default_rng(16)
+        prompts = [LADDER_PROMPT] + [rng.integers(1, cfg.vocab_size, int(n)).tolist()
+                                     for n in rng.integers(4, 40, 7)]
+        prompts[5] = LADDER_PROMPT
+        batch = DecodeBatch(max_seq_len=LADDER_MAX).bind(model)
+        b_toks, b_s, b_l = timed_strategy(None, batch, prompts, LADDER_NEW)
+        steps = LADDER_NEW - 1
+        want = {"batch_decode_attention": layers * steps, "kv_rows_write_fused": layers * steps}
+        check(b_toks[0] == b_toks[5] and all(len(t) == LADDER_NEW for t in b_toks),
+              "strategies: DecodeBatch slots 0 and 5 (one prompt) differ")
+        check(b_l == want, f"strategies: DecodeBatch launches {b_l}, expected {want}")
+        out.update({k + " (DecodeBatch)": n for k, n in b_l.items()})
+        print(f"phase 16: DecodeBatch 8 prompts: {8 * LADDER_NEW / b_s:.1f} tok/s "
+              f"({LADDER_NEW / b_s:.1f} steps/s), stats {batch.stats}, slots 0 and 5 "
+              f"identical, slot 0 agrees with DecodeM1 in {agree(b_toks[0])}/{LADDER_NEW}, "
+              f"launches {json.dumps(b_l)}; [{card}]")
+        draft = CausalTransformerModel(dataclasses.replace(cfg, num_layers=2),
+                                       slice_layers(model.params, 2), dtype=torch.bfloat16)
+        for name, strat in (("DecodeJacobi(window 6)", DecodeJacobi(window=6)),
+                            ("DecodeSpeculative(self, n_draft 2, gamma 4)",
+                             DecodeSpeculative(n_draft_layers=2, gamma=4)),
+                            ("DecodeSpeculative(2-layer draft, gamma 4)",
+                             DecodeSpeculative(gamma=4, draft_model=draft))):
+            strat.bind(model)
+            toks, secs, counts = timed_strategy(model, strat, LADDER_PROMPT, LADDER_NEW)
+            check(len(toks) == LADDER_NEW and model.logits_finite(),
+                  f"strategies: {name} gave {len(toks)} tokens or a non-finite logit")
+            st = strat.stats
+            print(f"phase 16: {name}: {LADDER_NEW / secs:.1f} tok/s, stats {st}, "
+                  f"acceptance {st.accepted / max(st.accepted + st.rejected, 1):.3f}, "
+                  f"{st.tokens_per_step:.2f} tokens a step, agrees with DecodeM1 in "
+                  f"{agree(toks)}/{LADDER_NEW}, launches {json.dumps(counts)}; [{card}]")
+    finally:
+        if saved is None:
+            os.environ.pop("PYGPUKIT_DECODE", None)
+        else:
+            os.environ["PYGPUKIT_DECODE"] = saved
+    del model
+    torch.cuda.empty_cache()
+    print(f"phase 16 took {time.perf_counter() - t0:.1f} s")
+    return out
+
+
 def kv_phase(cfg, dev, card: str) -> None:
     """Phase 15, the reference's bench_serving_kv (bench.py:390-428) at full
     width and depth: the 1.1B shape with int8 (w8a8) weights, the batch-8
@@ -2951,6 +3172,9 @@ def main(argv: list[str]) -> int:
         launches["gmm"] = moe_phase(dev, card, per_step)["gmm"]
     if "kv" in phases:
         kv_phase(cfg, dev, card)
+    if "strategies" in phases:
+        launches_16 = strategies_phase(cfg, dev, card, per_step)
+        print("phase 16: launches " + json.dumps(launches_16))
     print(f"total {time.perf_counter() - t_start:.1f} s after the build began, "
           f"{time.perf_counter() - t_script:.1f} s the whole script")
     if set(phases) != set(PHASES):

@@ -16,12 +16,17 @@ over the unified causal LM (``llm.model``), dense or paged
 (``llm.serving_paged``, ``ops.paged``), pipelined or not; the decode
 weight-format ladder; the uncached forward (``CausalTransformerModel.forward``
 / ``get_logits``, ``ops.nn.flash_attention_fn``) with uncached and top-p
-generation; the single-stream fixed-cache decode; the MoE family's routed
-expert MLP (``ops.moe``, Mixtral); and their fifteen kernels.
+generation; the single-stream fixed-cache decode, its position an int or
+a device tensor; the MoE family's routed expert MLP (``ops.moe``,
+Mixtral); the decode strategies (``llm.decode``: M1, M1Graph, Batch,
+Jacobi, Speculative) with ``speculative_scan_fn`` and ``slice_layers``;
+capture and replay (``core.capture``: CUDA graphs on the card, the
+reference's ``Executable`` API) with ``llm.buffers``; and their fifteen
+kernels.
 """
 
 from . import core, kernels, llm, ops
-from .core import (Array, DataType, DataTypeKind, arange, dtypes, empty,
+from .core import (Array, DataType, DataTypeKind, arange, capture, dtypes, empty,
                    from_numpy, full, ones, ones_like, randn, require_cuda,
                    resolve_device, set_deterministic_numerics, to_dtype, zeros,
                    zeros_like)

@@ -51,7 +51,11 @@ CUDA tensors one query row over a bf16 or f32 cache launches
 function's rule). Under ``PYGPUKIT_DECODE=fused`` (read per call) an
 eligible model (``fused_decode_eligible``) with a bf16 cache runs the step
 between the embedding and the head as one ``kernels.fused_decode`` launch,
-or its plain version for CPU tensors. Cached prefill attends with the
+or its plain version for CPU tensors. The single-stream position is a
+host int or a one-element int32 device tensor, with the same bits; with
+the tensor nothing is read on the host, so ``core.capture`` records the
+step once (``CausalTransformerModel._ensure_decode_exe``) and a replay
+serves every position. Cached prefill attends with the
 plain f32 softmax (``_prefill_attn``). The uncached forward
 (``forward_fn``, ``get_logits``, ``generate(use_cache=False)``) attends
 through ``ops.nn.flash_attention_fn``: on CUDA tensors the
@@ -82,6 +86,7 @@ formulations round at different points, so the rule decides the bits.
 
 from __future__ import annotations
 
+import functools
 import math
 import os
 from collections.abc import Iterator
@@ -93,6 +98,7 @@ from torch import nn
 
 from ..core.backend import resolve_device
 from ..core.dtypes import resolve_dtype
+from ..core.executable import Executable, capture
 from ..core.host import tensor_from_numpy, tensor_to_numpy
 from ..core.numerics import require_full_f32, true_div
 from ..kernels import (block_w4a8_matmul, block_w4a16_matmul,
@@ -109,6 +115,7 @@ from ..ops.nn import (apply_rope_fn, flash_attention_fn, rmsnorm_fn,
                       rope_tables, sdpa_fixed_cache_fn, swiglu_fn)
 from ..ops.sampling import (sample_greedy_fn, sample_temperature_fn,
                             sample_topk_fn, sample_topp_fn)
+from .buffers import DecodeBuffers
 from .config import TransformerConfig
 
 _F32 = torch.float32
@@ -265,14 +272,16 @@ def _slice_layer_params(layers: dict, i: int) -> dict:
 
 
 def _rope_rows_for(params: dict, pos, t: int):
-    """Rope table rows. ``pos`` an int: rows pos..pos+t-1, the start clamped
-    to [0, n - t]; a [B] tensor: one row per slot, clamped to [0, n - 1]
-    (the clamps of ``lax.dynamic_slice`` in the reference: a free slot
-    decoding past the table stays in range)."""
+    """Rope table rows pos..pos+t-1, the start clamped to [0, n - t] (the
+    clamps of ``lax.dynamic_slice`` in the reference: a free slot decoding
+    past the table stays in range). ``pos`` an int: a slice; a [B] tensor
+    (the batch-rows step's positions at t = 1, or the single-stream device
+    position [1]): gathered on the device, [B * t] rows."""
     cos, sin = params["rope_cos"], params["rope_sin"]
     n = cos.shape[0]
     if isinstance(pos, torch.Tensor):
-        rows = torch.clamp(pos.to(torch.long), 0, n - 1)
+        start = torch.clamp(pos.reshape(-1).to(torch.long), 0, n - t)
+        rows = (start[:, None] + torch.arange(t, device=pos.device)).reshape(-1)
         return cos[rows], sin[rows]
     start = min(max(int(pos), 0), n - t)
     return cos[start:start + t], sin[start:start + t]
@@ -525,12 +534,15 @@ def _token_row(token, device) -> torch.Tensor:
 
 
 def decode_step_fn(cfg: TransformerConfig, params: dict, k_cache, v_cache, token,
-                   pos: int, allow_fused: bool = True) -> torch.Tensor:
+                   pos, allow_fused: bool = True) -> torch.Tensor:
     """One single-stream decode step (reference ``decode_step_fn``): write
     the token's k/v at ``pos`` of every layer of the fixed caches ``[L, MAX,
     Hk, D]`` (in place) and return the f32 logits [V] of the next
-    position. ``pos`` is a host int (the model tracks it); ``token`` an int
-    or a device scalar. The unfused step is the one-token window, whose
+    position. ``pos`` is a host int (the model tracks it) or a one-element
+    int32 tensor on the caches' device (the device position: the step
+    then reads nothing on the host, so a CUDA graph of it replays at
+    whatever position the tensor holds); ``token`` an int or a device
+    scalar. The unfused step is the one-token window, whose
     attention (``sdpa_fixed_cache_fn``, route rule above) launches
     ``flash_decode`` on the card. Under ``PYGPUKIT_DECODE=fused`` an
     eligible model with a bf16 cache takes ``fused_decode_step_fn`` instead
@@ -544,11 +556,14 @@ def decode_step_fn(cfg: TransformerConfig, params: dict, k_cache, v_cache, token
 
 
 def decode_window_fn(cfg: TransformerConfig, params: dict, k_cache, v_cache,
-                     tokens: torch.Tensor, pos: int) -> torch.Tensor:
+                     tokens: torch.Tensor, pos) -> torch.Tensor:
     """Lookahead decode (reference ``decode_window_fn``): ``tokens`` [T]
     written at positions pos..pos+T-1 of the fixed caches (in place), f32
     logits [T, V] for all T positions; token t attends cache positions
-    below pos + t + 1. Rows past an accepted prefix are left behind and
+    below pos + t + 1. ``pos`` an int, or a one-element int32 tensor on the
+    caches' device: then the rope rows are gathered, the rows written by
+    an index copy at the clamped start and the attention bounded by a
+    device tensor, with the int path's bits. Rows past an accepted prefix are left behind and
     masked by every later step. The layer loop is bounded by the cache's
     layer dim, not ``cfg.num_layers``, so sliced layer stacks run their own
     depth."""
@@ -572,17 +587,20 @@ def decode_window_fn(cfg: TransformerConfig, params: dict, k_cache, v_cache,
 
 
 def generate_scan_fn(cfg: TransformerConfig, n_steps: int, temperature: float,
-                     top_k: int, params: dict, k_cache, v_cache, token, pos: int,
-                     generator=None, on_logits=None) -> torch.Tensor:
+                     top_k: int, params: dict, k_cache, v_cache, token, pos,
+                     generator=None, on_logits=None,
+                     allow_fused: bool = True) -> torch.Tensor:
     """``n_steps`` decode steps from ``token`` at ``pos`` (reference
     ``generate_scan_fn``): each step's token is the argmax, or a tempered
     (top-k) draw from ``generator`` (``sample_logits``). Returns the int32
     tokens [n_steps] on the device; nothing is read back. ``on_logits``
-    sees each step's logits."""
+    sees each step's logits. ``pos`` is passed to each step as it is
+    given plus the step's index (an int stays an int)."""
     out = []
     tok = token
     for i in range(n_steps):
-        logits = decode_step_fn(cfg, params, k_cache, v_cache, tok, pos + i)
+        logits = decode_step_fn(cfg, params, k_cache, v_cache, tok, pos + i,
+                                allow_fused=allow_fused)
         if on_logits is not None:
             on_logits(logits)
         tok = sample_logits(logits, temperature, top_k, generator).to(torch.int32)
@@ -649,11 +667,13 @@ def prepare_fused_decode_params(cfg: TransformerConfig, params: dict) -> dict:
 
 
 def fused_decode_step_fn(cfg: TransformerConfig, params: dict, k_cache, v_cache, token,
-                         pos: int) -> torch.Tensor:
+                         pos) -> torch.Tensor:
     """``decode_step_fn`` through ``kernels.fused_decode`` (reference
     ``fused_decode_step_fn``): the embedding row in bf16, the rope row at
-    ``pos`` in f32 and ``pos`` as a device int32 [1] (an int becomes one
-    without a host transfer; the kernel reads nothing on the host), the
+    ``pos`` in f32 and ``pos`` as a device int32 [1]. ``pos`` is a host int
+    (made into that tensor by a fill, without a host transfer) or that
+    tensor itself, one int32 element on the caches' device, taken as it
+    is (the kernel reads it; the host never does). Then the
     kernel, then k_new/v_new cast to the cache dtype and scattered at
     ``pos`` clamped into the cache (as ``dynamic_update_slice``), then the
     head on the final row in the cache dtype. Needs the leaves of
@@ -666,7 +686,13 @@ def fused_decode_step_fn(cfg: TransformerConfig, params: dict, k_cache, v_cache,
     n_layers, max_len, hk, d = k_cache.shape
     dev = k_cache.device
     h = params["embed"][_token_row(token, dev).to(torch.long)].to(torch.bfloat16)   # [1, H]
-    pos_t = torch.full((1,), int(pos), dtype=torch.int32, device=dev)
+    if isinstance(pos, torch.Tensor):
+        if pos.numel() != 1 or pos.dtype != torch.int32 or pos.device != dev:
+            raise ValueError(f"fused decode takes pos as an int or one int32 element on "
+                             f"{dev}, got {pos.dtype} {tuple(pos.shape)} on {pos.device}")
+        pos_t = pos.reshape(1)
+    else:
+        pos_t = torch.full((1,), int(pos), dtype=torch.int32, device=dev)
     row = torch.clamp(pos_t, 0, params["rope_cos"].shape[0] - 1).to(torch.long)
     cos = params["rope_cos"].index_select(0, row).to(_F32)
     sin = params["rope_sin"].index_select(0, row).to(_F32)
@@ -682,6 +708,70 @@ def fused_decode_step_fn(cfg: TransformerConfig, params: dict, k_cache, v_cache,
     kc.index_copy_(1, at, k_new[:, None, :].to(kc.dtype))
     vc.index_copy_(1, at, v_new[:, None, :].to(vc.dtype))
     return _logits(cfg, params, h_out[0].to(k_cache.dtype))
+
+
+def _first_layers(cache, n: int):
+    """The first ``n`` layers of a fixed cache, as views (dict-safe)."""
+    if isinstance(cache, dict):
+        return {"q": cache["q"][:n], "s": cache["s"][:n]}
+    return cache[:n]
+
+
+def speculative_scan_fn(cfg: TransformerConfig, n_rounds: int, gamma: int, n_draft: int,
+                        params: dict, k_cache, v_cache, token, pos: torch.Tensor,
+                        on_logits=None):
+    """``n_rounds`` rounds of self-speculative greedy decoding with the
+    position on the device (reference ``speculative_scan_fn``). Each round:
+    ``gamma`` greedy draft steps through the first ``n_draft`` layers
+    (``decode_step_fn``, ``allow_fused=False``); one verify window over
+    ``[cur, d1..dγ]`` through every layer (``decode_window_fn``); the
+    leading agreements ``accepted`` (cumprod of proposals == predictions),
+    the correction or bonus token ``preds[accepted]``, and the round's
+    tokens padded with -1. The position advances on the device by
+    ``accepted + 1``: nothing is read on the host.
+
+    The draft's KV rows are written straight into the shared caches'
+    first ``n_draft`` layers, where the reference keeps them in a snapshot
+    of those rows: every row a draft step writes (pos..pos+gamma-1) is
+    rewritten by the verify window before any attention reads it, since
+    ``decode_window_fn`` writes layer i's rows before layer i's attention,
+    and the draft steps read exactly the rows the snapshot would hold.
+
+    ``pos`` is a one-element int32 tensor on the caches' device; the caller
+    leaves room for the all-accept worst case, pos + n_rounds * (gamma + 1)
+    <= MAX. Returns (toks [n_rounds, gamma + 1] int32, -1 padded, counts
+    [n_rounds] int32, the final position [1] int32), all on the device.
+    ``on_logits`` sees each verify window's logits."""
+    draft = slice_layers(params, n_draft)
+    kd, vd = _first_layers(k_cache, n_draft), _first_layers(v_cache, n_draft)
+    dev = kv_leaf(k_cache).device
+    idx = torch.arange(gamma + 1, device=dev)
+    cur = (token.reshape(1).to(torch.int32) if isinstance(token, torch.Tensor) else
+           torch.full((1,), int(token), dtype=torch.int32, device=dev))
+    p = pos.reshape(1)
+    toks, counts = [], []
+    for _ in range(n_rounds):
+        props, tok = [], cur
+        for j in range(gamma):
+            logits = decode_step_fn(cfg, draft, kd, vd, tok, p + j, allow_fused=False)
+            tok = torch.argmax(logits).reshape(1).to(torch.int32)
+            props.append(tok)
+        proposals = torch.cat(props)
+        logits = decode_window_fn(cfg, params, k_cache, v_cache,
+                                  torch.cat([cur, proposals]), p)
+        if on_logits is not None:
+            on_logits(logits)
+        preds = torch.argmax(logits, dim=-1).to(torch.int32)             # [gamma + 1]
+        agree = (proposals == preds[:gamma]).to(torch.int32)
+        accepted = torch.cumprod(agree, 0).sum().reshape(1).to(torch.int32)
+        nxt = preds.index_select(0, accepted)      # correction, or bonus on full accept
+        props_pad = torch.cat([proposals, torch.zeros(1, dtype=torch.int32, device=dev)])
+        minus = torch.full_like(props_pad, -1)
+        toks.append(torch.where(idx < accepted, props_pad,
+                                torch.where(idx == accepted, nxt, minus)))
+        counts.append(accepted + 1)
+        cur, p = nxt, p + accepted + 1
+    return torch.stack(toks), torch.cat(counts), p
 
 
 # ---------------------------------------------------------------------------
@@ -787,6 +877,28 @@ def init_params(cfg: TransformerConfig, seed: int = 0,
             "layers": lp}
 
 
+def slice_layers(params: dict, n_layers: int) -> dict:
+    """The first ``n_layers`` of the stacked layer leaves, as views (the
+    reference's ``slice_layers``: the self-speculative draft)."""
+    out = dict(params)
+    out["layers"] = {k: ({kk: vv[:n_layers] for kk, vv in v.items()}
+                         if isinstance(v, dict) else v[:n_layers])
+                     for k, v in params["layers"].items()}
+    return out
+
+
+def _graph_decode_step(cfg: TransformerConfig, params: dict, k_cache, v_cache, token,
+                       pos, nonfinite, logits_out, sampled_out):
+    """The captured greedy decode step: ``decode_step_fn`` at the device
+    position, the non-finite flag updated, the logits and their argmax
+    written into the ``DecodeBuffers`` outputs."""
+    logits = decode_step_fn(cfg, params, k_cache, v_cache, token, pos)
+    nonfinite |= ~torch.isfinite(logits).all()
+    logits_out.copy_(logits)
+    sampled_out.copy_(torch.argmax(logits).reshape(1))
+    return logits_out, sampled_out
+
+
 def _bucket(n: int, minimum: int = 32) -> int:
     b = minimum
     while b < n:
@@ -865,6 +977,8 @@ class CausalTransformerModel(nn.Module):
         self.k_cache = self.v_cache = None
         self.pos = 0
         self._nonfinite = None
+        self.decode_buffers: DecodeBuffers | None = None
+        self._decode_exes: dict[bool, Executable] = {}
 
     def _register(self, params: dict) -> None:
         """Make the leaves of ``params`` not yet registered module buffers."""
@@ -895,8 +1009,10 @@ class CausalTransformerModel(nn.Module):
         """Zeroed caches ``[L, MAX, Hk, D]`` of capacity ``max_seq_len`` in
         ``kv_dtype``; position 0. Under ``PYGPUKIT_DECODE=fused`` an
         eligible model gains the fused kernel's consolidated leaves here,
-        once (``prepare_fused_decode_params``)."""
+        once (``prepare_fused_decode_params``). The captured decode steps
+        are released: they were bound to the old caches."""
         cfg = self.config
+        self._drop_executables()
         shape = (cfg.num_layers, max_seq_len, cfg.num_kv_heads, cfg.head_dim)
         self.k_cache = kv_cache_zeros(shape, self.kv_dtype, device=self.device, merged=False)
         self.v_cache = kv_cache_zeros(shape, self.kv_dtype, device=self.device, merged=False)
@@ -908,6 +1024,52 @@ class CausalTransformerModel(nn.Module):
         params = self.params
         if use_fused_decode(cfg, params, max_seq_len) and "w_qkv_cat" not in params["layers"]:
             self._register(prepare_fused_decode_params(cfg, params))
+
+    def _drop_executables(self) -> None:
+        for exe in self._decode_exes.values():
+            exe.reset()
+        self._decode_exes = {}
+        self.decode_buffers = None
+
+    def _ensure_decode_exe(self) -> Executable:
+        """The greedy decode step captured at the model's caches (``core.
+        capture``): ``decode_step_fn`` with ``decode_buffers.token`` and
+        ``.position`` as its inputs and ``.logits``/``.sampled`` as its
+        outputs, the caches and the non-finite flag donated. It takes the
+        route ``decode_step_fn`` takes now: fused when
+        ``PYGPUKIT_DECODE=fused`` makes the model eligible, else unfused;
+        one executable per route, until ``init_fixed_cache``."""
+        if self.k_cache is None:
+            raise RuntimeError("capture the decode step after init_fixed_cache")
+        fused = (not isinstance(self.k_cache, dict) and self.k_cache.dtype == torch.bfloat16
+                 and use_fused_decode(self.config, self.params, self.max_seq_len))
+        exe = self._decode_exes.get(fused)
+        if exe is None:
+            if self.decode_buffers is None:
+                self.decode_buffers = DecodeBuffers.allocate(self.config, self.dtype,
+                                                             self.device)
+            b = self.decode_buffers
+            with torch.no_grad():
+                exe = capture(functools.partial(_graph_decode_step, self.config),
+                              self.params, self.k_cache, self.v_cache, b.token, b.position,
+                              self._nonfinite, b.logits, b.sampled,
+                              donate_argnums=(1, 2, 5, 6, 7),
+                              name="decode_step_fused" if fused else "decode_step")
+            self._decode_exes[fused] = exe
+        return exe
+
+    @torch.no_grad()
+    def decode_step_replay(self, token) -> torch.Tensor:
+        """``decode_step`` through the captured executable: the token and
+        the model's position written into ``decode_buffers``, one replay,
+        the position advanced. Returns ``decode_buffers.logits`` (f32 [V]),
+        which the next replay overwrites."""
+        exe = self._ensure_decode_exe()
+        b = self.decode_buffers
+        logits, _ = exe.replay(self.params, self.k_cache, self.v_cache, token, self.pos,
+                               self._nonfinite, b.logits, b.sampled)
+        self.pos += 1
+        return logits
 
     def _note_logits(self, logits: torch.Tensor) -> None:
         self._nonfinite |= ~torch.isfinite(logits).all()
@@ -993,6 +1155,29 @@ class CausalTransformerModel(nn.Module):
                                 self._note_logits)
         self.pos += n_steps
         return toks
+
+    @torch.no_grad()
+    def decode_spec_chunk(self, token, n_rounds: int, gamma: int,
+                          n_draft: int) -> tuple[np.ndarray, np.ndarray]:
+        """``n_rounds`` self-speculative rounds (``speculative_scan_fn``)
+        with the position on the device; the tokens, counts and final
+        position are read back once, at the end. Returns (toks [n_rounds,
+        gamma + 1] with -1 padding, counts [n_rounds]) as numpy int32 and
+        advances ``pos`` by the accepted totals. ValueError when the
+        all-accept worst case, pos + n_rounds * (gamma + 1), passes the
+        cache."""
+        if self.pos + n_rounds * (gamma + 1) > self.max_seq_len:
+            raise ValueError(
+                f"speculative chunk worst case ({n_rounds}x{gamma + 1} from "
+                f"pos {self.pos}) exceeds cache ({self.max_seq_len})")
+        pos = torch.full((1,), self.pos, dtype=torch.int32, device=self.device)
+        toks, counts, pos = speculative_scan_fn(
+            self.config, n_rounds, gamma, n_draft, self.params, self.k_cache,
+            self.v_cache, token, pos, self._note_logits)
+        host = torch.cat([toks.reshape(-1), counts, pos]).cpu().numpy()
+        self.pos = int(host[-1])
+        return (host[:toks.numel()].reshape(n_rounds, gamma + 1),
+                host[toks.numel():-1])
 
     @torch.no_grad()
     def generate(self, input_ids, max_new_tokens: int = 32,
@@ -1105,5 +1290,6 @@ class CausalTransformerModel(nn.Module):
             self.v_cache = _from_host(snap.v, self.device, self.kv_dtype)
         self.max_seq_len = kv_leaf(self.k_cache).shape[1]
         self.pos = snap.pos
+        self._drop_executables()
         if self._nonfinite is None:
             self._nonfinite = torch.zeros((), dtype=torch.bool, device=self.device)

@@ -76,17 +76,37 @@ def kv_dequant(blk_q: torch.Tensor, blk_s: torch.Tensor) -> torch.Tensor:
     return blk_q.to(torch.bfloat16) * blk_s.reshape(blk_s.shape + (1,) * n_red)
 
 
-def kv_write(cache, new: torch.Tensor, start: tuple[int, ...]):
+def kv_write(cache, new: torch.Tensor, start: tuple):
     """Write ``new`` into ``cache`` at ``start`` in place, converting to the
     storage dtype (int8 dicts quantize per row). Starts clamp into range
-    as ``lax.dynamic_update_slice`` clamps. Returns the cache."""
+    as ``lax.dynamic_update_slice`` clamps. One start may be a one-element
+    integer tensor on the cache's device (the decode position): that axis
+    is written by an index copy at the clamped start, and the host never
+    reads it. Returns the cache."""
     leaf = kv_leaf(cache)
-    idx = tuple(slice(min(max(int(s), 0), dim - n), min(max(int(s), 0), dim - n) + n)
-                for s, dim, n in zip(start, leaf.shape, new.shape))
+    dyn = [a for a, s in enumerate(start) if isinstance(s, torch.Tensor)]
+    if len(dyn) > 1:
+        raise ValueError(f"kv_write takes one tensor start, got {len(dyn)}")
+    idx = tuple(slice(None) if a in dyn else
+                slice(min(max(int(s), 0), dim - n), min(max(int(s), 0), dim - n) + n)
+                for a, (s, dim, n) in enumerate(zip(start, leaf.shape, new.shape)))
+    if dyn:
+        a = dyn[0]
+        at = torch.clamp(start[a].reshape(()).to(torch.long), 0,
+                         leaf.shape[a] - new.shape[a])
+        rows = at + torch.arange(new.shape[a], device=leaf.device)
+
+        def put(view, src):
+            if view.dtype in FP8_MAX:       # index_copy_ takes no fp8: copy the bytes
+                view, src = view.view(torch.uint8), src.view(torch.uint8)
+            view.index_copy_(a, rows, src)
+    else:
+        def put(view, src):
+            view[...] = src
     if isinstance(cache, dict):
         q, s = kv_quant_rows(new, leaf.ndim - cache["s"].ndim)
-        cache["q"][idx] = q
-        cache["s"][idx[:cache["s"].ndim]] = s
+        put(cache["q"][idx], q)
+        put(cache["s"][idx[:cache["s"].ndim]], s)
     else:
-        cache[idx] = to_kv_dtype(new, cache.dtype)
+        put(cache[idx], to_kv_dtype(new, cache.dtype))
     return cache

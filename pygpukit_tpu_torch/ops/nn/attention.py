@@ -38,7 +38,10 @@ lookahead windows (T > 1), int8 dicts, fp8 caches, a softcap, a window or
 another scale, and every CPU tensor. The plain route is the full softmax
 over the whole cache, or, for caches of ``FLASH_DECODING_MIN_CACHE`` rows
 and more (or as ``PYGPUKIT_FLASH_DECODING[_CHUNK]`` or ``decode_pref``
-choose), the kv-chunk online softmax over the live chunks only. Caches are
+choose), the kv-chunk online softmax over the live chunks only (every
+chunk when ``ctx_len`` is a tensor: the dead ones are selected away on the
+device). ``ctx_len`` is an int or a one-element integer tensor (the
+device position), never read on the host when it is a tensor. Caches are
 ``[MAX, Hk, D]`` tensors (fp8 read as bf16) or int8 ``{"q", "s"}`` dicts
 dequantised against their per-row scales.
 """
@@ -254,7 +257,7 @@ def sdpa_fixed_cache_fn(q, k_cache, v_cache, ctx_len, scale: float | None = None
                         softcap: float | None = None, window=None) -> torch.Tensor:
     """Decode attention over a fixed cache: q [T, Hq, D] (T > 1 for a
     lookahead window), caches [MAX, Hk, D]; query row i attends positions
-    below ``ctx_len - (T - 1) + i``. Long caches take the kv-chunk route
+    below ``ctx_len - (T - 1) + i`` (an int or a one-element tensor). Long caches take the kv-chunk route
     (module docstring); on the card one query row may launch the
     flash_decode kernel (route in the module docstring)."""
     t, _, d = q.shape
@@ -277,8 +280,16 @@ def _grouped_q(q: torch.Tensor, hk: int) -> torch.Tensor:
     return q.reshape(t, hk, h // hk, d).permute(1, 2, 0, 3).to(_F32)    # [Hk, G, T, D]
 
 
+def _ctx_scalar(ctx_len):
+    """``ctx_len`` as a host int, or as a 0-d int64 tensor where it is a
+    tensor (the device position: never read on the host)."""
+    if isinstance(ctx_len, torch.Tensor):
+        return ctx_len.reshape(()).to(torch.long)
+    return int(ctx_len)
+
+
 def _limit(ctx_len, t: int, device) -> torch.Tensor:
-    return int(ctx_len) - (t - 1) + torch.arange(t, device=device)[None, None, :, None]
+    return _ctx_scalar(ctx_len) - (t - 1) + torch.arange(t, device=device)[None, None, :, None]
 
 
 def _sdpa_fixed_cache_full(q, k_cache, v_cache, ctx_len, scale: float | None = None,
@@ -315,22 +326,33 @@ def sdpa_fixed_cache_chunked_fn(q, k_cache, v_cache, ctx_len, scale: float | Non
     """kv-chunk online-softmax decode: only the ceil(ctx / chunk) live
     chunks are read (and dequantised), each chunk's dead rows masked with
     p = 0; f32 running max, sum and accumulator, P rounded to the cache's
-    compute dtype before P.V, as the reference's loop."""
+    compute dtype before P.V, as the reference's loop. ``ctx_len`` a
+    tensor (the device position): every chunk is read, and a chunk the
+    host loop would not reach (past the context, or wholly before a
+    sliding window) leaves the running max, sum and accumulator as they
+    were, selected on the device, so the result is the host loop's bits."""
     t, h, d = q.shape
     max_len, hk, _ = _kv_shape(k_cache)
     g = h // hk
     scale = scale if scale is not None else 1.0 / math.sqrt(d)
     chunk = min(chunk if chunk is not None else _flash_chunk(), max_len)
     n_chunks = -(-max_len // chunk)
-    ctx = int(ctx_len)
+    ctx = _ctx_scalar(ctx_len)
+    on_device = isinstance(ctx, torch.Tensor)
     qh = _grouped_q(q, hk)
     limit = _limit(ctx, t, q.device)
     w_eff = _window_or_inf(window)
-    i = 0 if w_eff is None else max(0, (ctx - t - w_eff + 1) // chunk)
+    if on_device:
+        first = (torch.zeros((), dtype=torch.long, device=q.device) if w_eff is None else
+                 torch.clamp_min(torch.div(ctx - t - w_eff + 1, chunk,
+                                           rounding_mode="floor"), 0))
+        i = 0
+    else:
+        i = 0 if w_eff is None else max(0, (ctx - t - w_eff + 1) // chunk)
     m = torch.full((hk, g, t, 1), _NEG_INF, dtype=_F32, device=q.device)
     l_sum = torch.zeros((hk, g, t, 1), dtype=_F32, device=q.device)
     acc = torch.zeros((hk, g, t, d), dtype=_F32, device=q.device)
-    while i * chunk < ctx and i < n_chunks:
+    while i < n_chunks and (on_device or i * chunk < ctx):
         start_log = i * chunk
         start = min(start_log, max_len - chunk)
         k_blk = _kv_load(_cache_rows(k_cache, start, chunk))
@@ -345,10 +367,15 @@ def sdpa_fixed_cache_chunked_fn(q, k_cache, v_cache, ctx_len, scale: float | Non
         m_new = torch.maximum(m, torch.amax(s, dim=-1, keepdim=True))
         p = torch.where(dead, torch.zeros_like(s), torch.exp(s - m_new))
         alpha = torch.exp(m - m_new)
-        l_sum = l_sum * alpha + torch.sum(p, dim=-1, keepdim=True)
-        acc = acc * alpha + torch.einsum("hgtk,hkd->hgtd", _round_as(p, v_blk.dtype),
-                                         v_blk.permute(1, 0, 2).to(_F32))
-        m = m_new
+        l_new = l_sum * alpha + torch.sum(p, dim=-1, keepdim=True)
+        acc_new = acc * alpha + torch.einsum("hgtk,hkd->hgtd", _round_as(p, v_blk.dtype),
+                                             v_blk.permute(1, 0, 2).to(_F32))
+        if on_device:
+            live = (i >= first) & (start_log < ctx)
+            m_new = torch.where(live, m_new, m)
+            l_new = torch.where(live, l_new, l_sum)
+            acc_new = torch.where(live, acc_new, acc)
+        m, l_sum, acc = m_new, l_new, acc_new
         i += 1
     out = acc / torch.clamp_min(l_sum, 1e-30)
     return out.permute(2, 0, 1, 3).reshape(t, h, d).to(q.dtype)

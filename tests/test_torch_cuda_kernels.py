@@ -1576,3 +1576,162 @@ def test_quantized_kv_engine_serves_on_the_card(dev, kv_dtype, paged):
         assert LAUNCHES["batch_decode_attention"] > 0
         assert LAUNCHES["kv_rows_write"] == 0
         assert LAUNCHES["kv_rows_write_fused"] == LAUNCHES["batch_decode_attention"]
+
+
+# ---------------------------------------------------------------------------
+# Capture and replay (core/executable.py) with the device position
+# ---------------------------------------------------------------------------
+
+def _cache_copy(m):
+    return [t.clone() for t in _pool_bits(m.k_cache) + _pool_bits(m.v_cache)]
+
+
+def _cache_put(m, saved):
+    for t, s0 in zip(_pool_bits(m.k_cache) + _pool_bits(m.v_cache), saved):
+        t.copy_(s0)
+
+
+@pytest.mark.parametrize("route", ["unfused", "fused"])
+def test_captured_decode_step_replays_bitwise(dev, route, monkeypatch):
+    """The model's captured greedy step (2 layers at the 1.1B widths, MAX
+    512), captured once and replayed at four positions: logits and both
+    caches bitwise the eager step's from the same cache state; a second
+    replay at the same state bitwise the first; the warm-up leaves the
+    caches and LAUNCHES as they were; cost_analysis() is one eager step's
+    launches; another cache tensor raises."""
+    if route == "fused":
+        monkeypatch.setenv("PYGPUKIT_DECODE", "fused")
+    else:
+        monkeypatch.delenv("PYGPUKIT_DECODE", raising=False)
+    m = _small_1b(dev)
+    m.init_fixed_cache(512)
+    m.prefill(list(range(1, 17)))
+    saved, before = _cache_copy(m), dict(LAUNCHES)
+    exe = m._ensure_decode_exe()
+    torch.cuda.synchronize()
+    assert dict(LAUNCHES) == before
+    assert all(torch.equal(a, b) for a, b in zip(_cache_copy(m), saved))
+    kernel = {"unfused": ("flash_decode", 2), "fused": ("fused_decode", 1)}[route]
+    assert exe.cost_analysis() == dict([kernel]) and exe.node_count > 0
+    assert exe.memory_analysis() > 0
+    for pos, tok in ((16, 7), (17, 900), (200, 31999), (511, 3)):
+        m.pos = pos
+        state = _cache_copy(m)
+        before = dict(LAUNCHES)
+        eager = m.decode_step(tok).clone()
+        moved = {k: LAUNCHES[k] - before[k] for k in LAUNCHES if LAUNCHES[k] != before[k]}
+        assert moved == dict([kernel])
+        after = _cache_copy(m)
+        for _ in range(2):
+            _cache_put(m, state)
+            m.pos = pos
+            before = dict(LAUNCHES)
+            got = m.decode_step_replay(tok)
+            torch.cuda.synchronize()
+            assert dict(LAUNCHES) == before           # a replay ticks no counter
+            assert torch.isfinite(eager).all() and torch.equal(got, eager), pos
+            assert all(torch.equal(a, b) for a, b in zip(_cache_copy(m), after)), pos
+            assert int(m.decode_buffers.sampled) == int(torch.argmax(eager))
+    assert exe.stats.replays == 8
+    b = m.decode_buffers
+    with pytest.raises(ValueError, match="donated argument 1"):
+        exe.replay(m.params, m.k_cache.clone(), m.v_cache, 1, 20, m._nonfinite, b.logits,
+                   b.sampled)
+
+
+def test_captured_batch_step_replays_two_position_vectors(dev):
+    """batch_decode_step_fn captured with the positions as a static input:
+    replays at two position vectors, copied in, give the eager step's
+    logits and pools bitwise; 2 kv_write_attention launches a replay."""
+    from pygpukit_tpu_torch.core import capture
+    from pygpukit_tpu_torch.llm import batch_decode_step_fn
+    from pygpukit_tpu_torch.ops.embedding import kv_cache_zeros
+    m = _small_1b(dev)
+    cfg, b, mx = m.config, 8, 512
+    shape = (b, cfg.num_layers, mx, cfg.num_kv_heads * cfg.head_dim)
+    g = _gen(dev, 61)
+    pools = [kv_cache_zeros(shape, torch.bfloat16, device=dev) for _ in range(2)]
+    for p in pools:
+        p.copy_((torch.randn(shape, generator=g, device=dev) * 2).to(torch.bfloat16))
+    toks = torch.arange(1, b + 1, device=dev, dtype=torch.int32)
+    poss = torch.zeros(b, dtype=torch.int32, device=dev)
+
+    def fn(params, kp, vp, tokens, positions):
+        return batch_decode_step_fn(cfg, params, kp, vp, tokens, positions)
+    exe = capture(fn, m.params, pools[0], pools[1], toks, poss, donate_argnums=(1, 2))
+    assert exe.cost_analysis() == {"batch_decode_attention": 2, "kv_rows_write_fused": 2}
+    for vec in ([0, 300, 511, 17, 5, 200, 64, 129], [1, 301, 511, 18, 6, 201, 65, 130]):
+        pv = torch.tensor(vec, dtype=torch.int32, device=dev)
+        state = [t.clone() for t in pools]
+        eager = fn(m.params, pools[0], pools[1], toks, pv).clone()
+        after = [t.clone() for t in pools]
+        for t, s0 in zip(pools, state):
+            t.copy_(s0)
+        got = exe.replay(m.params, pools[0], pools[1], toks, pv)
+        torch.cuda.synchronize()
+        assert torch.equal(got, eager) and torch.equal(poss, pv)
+        assert all(torch.equal(_bits(a), _bits(t)) for a, t in zip(after, pools))
+
+
+def test_failed_capture_raises(dev):
+    """A host read inside the captured function fails the capture, which
+    raises (no eager fallback); the card works afterwards."""
+    from pygpukit_tpu_torch.core import capture
+    state = torch.zeros(4, device=dev)
+
+    def fn(s, x):
+        s.add_(x * int(x.sum()))
+        return s
+    with pytest.raises(RuntimeError):
+        capture(fn, state, torch.ones(4, device=dev), donate_argnums=(0,))
+    assert torch.equal(state, torch.zeros(4, device=dev))
+    assert float(torch.ones(3, device=dev).sum()) == 3.0
+
+
+@pytest.mark.parametrize("route", ["unfused", "fused"])
+def test_m1_graph_tokens_match_m1(dev, route, monkeypatch):
+    """DecodeM1Graph's tokens are DecodeM1's on a 2-layer model at the 1.1B
+    widths, 48 tokens, unfused and fused."""
+    from pygpukit_tpu_torch.llm.decode import DecodeM1, DecodeM1Graph
+    if route == "fused":
+        monkeypatch.setenv("PYGPUKIT_DECODE", "fused")
+    else:
+        monkeypatch.delenv("PYGPUKIT_DECODE", raising=False)
+    m = _small_1b(dev)
+    m.init_fixed_cache(512)
+    eager = DecodeM1().bind(m).generate(list(range(1, 17)), 48)
+    strat = DecodeM1Graph().bind(m)
+    strat.init_graph(512)
+    assert strat.node_count > 0
+    assert strat.generate(list(range(1, 17)), 48) == eager
+    assert m.logits_finite()
+
+
+@pytest.mark.parametrize("route", ["unfused", "fused"])
+def test_device_position_reads_nothing_on_the_host(dev, route, monkeypatch):
+    """With the position a device tensor, the step (unfused or fused), a
+    lookahead window and three speculative rounds run under
+    torch.cuda.set_sync_debug_mode("error"): no host read and no
+    synchronizing copy."""
+    from pygpukit_tpu_torch.llm import decode_step_fn, decode_window_fn, speculative_scan_fn
+    if route == "fused":
+        monkeypatch.setenv("PYGPUKIT_DECODE", "fused")
+    else:
+        monkeypatch.delenv("PYGPUKIT_DECODE", raising=False)
+    m = _small_1b(dev)
+    m.init_fixed_cache(512)
+    m.prefill(list(range(1, 17)))
+    cfg, params, kc, vc = m.config, m.params, m.k_cache, m.v_cache
+    pos = torch.full((1,), 16, dtype=torch.int32, device=dev)
+    tok = torch.full((1,), 5, dtype=torch.int32, device=dev)
+    window = torch.tensor([5, 9, 11], dtype=torch.int32, device=dev)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        logits = decode_step_fn(cfg, params, kc, vc, tok, pos)
+        wl = decode_window_fn(cfg, params, kc, vc, window, pos + 1)
+        toks, counts, end = speculative_scan_fn(cfg, 3, 3, 1, params, kc, vc, tok, pos + 4)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert torch.isfinite(logits).all() and torch.isfinite(wl).all()
+    assert toks.shape == (3, 4) and int(end) == 4 + 16 + int(counts.sum())
