@@ -53,8 +53,9 @@ Phases:
     must finish with its token count, every logit stay finite and every
     dense-path kernel's launch counter move (the row write's as the
     attention's fused write; kv_rows_write's own kernel never runs there);
- 5. the same requests on a fresh engine: identical token streams and
-    bitwise-identical KV pools; single-stream generate against the engine's
+ 5. the same requests served again by the engine from a zeroed state, its
+    programs replayed: identical token streams and bitwise-identical KV
+    pools; single-stream generate against the engine's
     streams (reported); a two-layer full-width model on the card against the
     plain path on the CPU (relative L2 of the logits);
  6. one batch-8 decode step timed eagerly and as a CUDA-graph replay: the
@@ -66,11 +67,13 @@ Phases:
     where the reference repeats one prompt) and 128 new tokens: tok/s and
     TTFT p50/p95. Every request finishes with its count and finite logits;
     paged_attention launches and the dense attention and row write do not;
-    a fresh engine replays the streams and the pools outside block 0 (the
-    trash block, whose duplicate writes are unordered) bit for bit; the
+    the engine served again from a zeroed state (warm-up requests and a
+    fresh block allocator included) replays the streams and the pools
+    outside block 0 (the trash block, whose duplicate writes are unordered) bit for bit; the
     non-pipelined paged engine gives the same streams; the dense pipelined
     engine's streams for the first 8 requests are reported; one paged decode step timed eagerly, as
-    a CUDA-graph replay and under torch.profiler (kernels by device time).
+    a CUDA-graph replay and under torch.profiler (kernels by device time);
+    the two cross-checks run CROSS_STEPS steps a dispatch.
     Its 16-token prompts pad to 32 rows, which the int4 route sends to the
     dequant matmul (9 to 255 rows), so the w4a8 GEMM is the dense path's
     (its 200-token prompts pad to 256);
@@ -81,8 +84,9 @@ Phases:
  9. the decode ladder, the reference's bench_decode (bench.py:172-253) at
     full width and depth: bf16, fp8, int8 (w8a8), int4, int4 under
     PYGPUKIT_INT4_MODE=w4a16, int4_block and int4_block under
-    PYGPUKIT_INT4_BLOCK=w4a16, each a warm generate of 16 tokens and a
-    timed one of 128 after a 16-token prompt (cache 512, one chunk): the
+    PYGPUKIT_INT4_BLOCK=w4a16, each a warm generate and a timed one of
+    128 tokens after a 16-token prompt (cache 512, chunks of
+    GEN_CHUNK, each a captured program the warm run captures): the
     timed run starts with the warm run's tokens, finite logits, 88
     launches per decode step of the rung's GEMV and none of any other;
     tok/s, one single-stream step's (decode_step_fn over [L, MAX, Hk, D]
@@ -135,8 +139,8 @@ Phases:
     eager and graph ms beside the gather route's device ms; the batch-8
     engine on 8 requests of 200 + 32 tokens (every request finishes, gmm
     in the prefills, 16 batch_decode_attention (the row write fused in) a
-    decode step on the dense MoE route, a fresh engine replays streams and
-    pools bitwise); a 2-layer full-width model drawn on the CPU, on the
+    decode step on the dense MoE route, the engine served again from a
+    zeroed state replays streams and pools bitwise); a 2-layer full-width model drawn on the CPU, on the
     card (gmm) against the CPU plain path (dense route), held row by row
     (MOE_ROWS_Q);
 15. the reference's bench_serving_kv (bench.py:390-428) at full width and
@@ -145,7 +149,8 @@ Phases:
     timed requests of one 16-token prompt and 128 new tokens, on bf16,
     int8 and fp8 KV: every request finishes with finite logits, 22
     batch_decode_attention launches a step, each writing its rows, the int8
-    run replayed bitwise (streams and pools) by a fresh engine; tok/s,
+    run replayed bitwise (streams and pools) by the engine served again
+    from a zeroed state; tok/s,
     TTFT, one step's eager and graph device ms, greedy tokens equal to the
     bf16 run's.
 
@@ -167,9 +172,11 @@ their plain versions, gemv_quant's fp8, int8 and bf16 totals over the four
 shapes (ms, GB/s, share, torch.mv for bf16) and at GEMV_UNALIGNED beside
 the aligned gate_up, and gmm (GMM_CASES: Mixtral's expert
 products at M 1024 and 4096 from a seeded top-2 routing, an empty group, a
-one-row group, all rows in one group, M off the 128-row tile, and
-Qwen3-30B-A3B's 128 small experts) against gmm_plain within GMM_REL of max
-|out|, a second launch bitwise. For every kernel
+one-row group, all rows in one group, M off the 128-row tile,
+Qwen3-30B-A3B's 128 small experts, and on the CUDA-core route an f32
+Mixtral layer's gate/up and down at M 256 and K, N 1001, 1003 on bf16 and
+f32) against gmm_plain within GMM_REL of max |out|, a second launch
+bitwise (torch._grouped_mm, which takes no f32 operands, is then "—"). For every kernel
 it prints the least time the card could take for the same work (bound_ms:
 the larger of the bytes each input and output moves once over 3.35 TB/s and
 the operations over the peak of their type, 989 TFLOP/s bf16, 1979 TOP/s
@@ -186,18 +193,42 @@ bf16 weight with no scale, torch._grouped_mm for gmm, bf16 out).
     the capture leaves the caches and counters as they were; another cache
     raises; node_count, cost_analysis (22 flash_decode, 1 fused_decode)
     and the pool's bytes printed; DecodeM1 and DecodeM1Graph for 128
-    tokens, identical, finite, eager and replayed wall ms a token and a
-    step (128 steps back-to-back); DecodeBatch over 8 prompts (slots 0 and
+    tokens (both replay the step now), identical, finite, replayed wall ms
+    a token, and eager (decode_step_fn) against replayed wall ms a step
+    (128 steps back-to-back); each strategy runs warm (capturing its
+    programs), then timed; DecodeBatch over 8 prompts (slots 0 and
     5 one prompt: identical tokens; 22 batch_decode_attention and 22
     kv_rows_write_fused launches a step), DecodeJacobi (window 6),
     DecodeSpeculative self (2 draft layers, gamma 4) and with a 2-layer
     draft model made by slice_layers: tok/s, stats, agreement with
-    DecodeM1 (reported: random bf16 weights split window and step
-    formulations on near-ties) and launches (replays: cost_analysis x
-    replays).
+    DecodeM1 and launches; each strategy's tokens then fed to DecodeM1's
+    program (teacher forcing, forced_m1): every token must be DecodeM1's
+    argmax at each step whose top-2 gap exceeds STRAT_TIE of its largest
+    |logit|, and the KV rows the strategy wrote must be DecodeM1's within
+    STRAT_KV_TOL (relative L2, each layer), a check that rests on the
+    context, so on attention and the KV pools; the top-2 gap where each
+    strategy parts from DecodeM1's own run printed; then a peaked model
+    (peaked_agreement) on which DecodeBatch's slot 0, Jacobi and both
+    speculations must give DecodeM1's 128 tokens;
+17. the captured programs (graphs_phase, ``--phases graphs``) on the 1.1B
+    int4 model: the dense pipelined engine over phase 4's requests, the
+    paged pipelined engine over phase 7's (block 16, MAX 512, 32 steps a
+    dispatch), the non-pipelined dense engine, each warmed up (every
+    program captured) and run twice, the second time replaying the same
+    programs from a zeroed state: identical streams and pools (paged:
+    outside block 0); every executable of each engine, of the model
+    (prefill, decode_step, decode_window T 6, decode_chunk_device of 16
+    steps greedy and at temperature 0.8, top-k 40), of DecodeBatch (8
+    prompts) and of speculation with a separate 2-layer draft replayed
+    against one eager call of its function on clones of its donated state
+    at two random inputs: outputs and state bitwise; per executable its
+    graph nodes, pool bytes, capture seconds, eager and replayed wall ms;
+    tok/s, TTFT and the chunk's launches a step.
 Launches per decode step, prefill, forward or layer are counted in phases
-6, 7, 9, 11, 12, 13, 14, 15 and 16 and printed (phases 6-14, 16) on one
-line before the summary.
+6, 7, 9, 11, 12, 13, 14, 15, 16 and 17 and printed (phases 6-14, 16, 17)
+on one line before the summary. A count is the wrappers' eager launches
+(LAUNCHES) plus cost_analysis() x replays of every captured program
+(launch_counts()): a replay ticks no wrapper counter.
 
 Any failure exits non-zero. The last two lines are the kernel summary and
 the device line read by automation; it exits 2 with no result when no CUDA
@@ -280,16 +311,42 @@ LADDER = {"bf16": (None, {}, None), "fp8": ("fp8", {}, "conv_gemv"),
 # the ladder's and the decode phase's generate: 128 new tokens (the
 # reference's bench_decode takes 256; cut to keep the script's time)
 LADDER_PROMPT, LADDER_NEW, LADDER_MAX = list(range(1, 17)), 128, 512
-LADDER_WARM = 16             # the warm run's tokens: a prefix of the timed run's
+# the warm run's tokens: a prefix of the timed run's (all of them: the warm
+# run captures the prefill and the chunks the timed run replays)
+LADDER_WARM = LADDER_NEW
+# generate's chunk in phases 9 and 13: each chunk size is a captured
+# program whose capture runs it eagerly once, so 16-step chunks (two
+# programs, 15 and 16 steps) cost an eighth of one 127-step chunk's capture
+GEN_CHUNK = 16
 # the ladder GEMVs against their plain versions: one bf16 ulp plus 1e-4 of
 # the largest |output| (the same exact f32 products summed in another
 # order; the block w4a8 GEMV is held bitwise instead)
 ULP_REL, NEAR_ZERO = 2.0 ** -7, 1e-4
 PHASES = ("kernels", "dense", "paged", "tight", "ladder", "block", "parity",
-          "forward", "ops", "decode", "moe", "kv", "strategies")
+          "forward", "ops", "decode", "moe", "kv", "strategies", "graphs")
+# phase 17 (graphs): the model's window and chunk, the sampled chunk's
+# temperature and top-k, the draft's tokens, the paged engine's requests
+GRAPH_WINDOW, GRAPH_CHUNK, GRAPH_TEMP, GRAPH_TOPK = 6, 16, 0.8, 40
+# phase 7's requests at 32 steps a dispatch (phase 7 runs 128): its chunk
+# program is a fourth of phase 7's to capture and to run eagerly
+GRAPH_DRAFT_NEW, GRAPH_PAGED_REQS, GRAPH_PAGED_STEPS = 64, 32, 32
 # phase 16: the positions the captured step replays at (captured at 16),
 # and the steps of the back-to-back eager and replayed step loops
 STRAT_POSITIONS, STRAT_STEPS = (17, 100, 300, 511), 128
+# phase 16's context check: a step is a near-tie when DecodeM1's top-2 gap
+# is at most STRAT_TIE of its largest |logit| (eight bf16 roundings, 2^-8
+# each), and a strategy's KV rows must be DecodeM1's within STRAT_KV_TOL
+# (relative L2 a layer; FUSED_DEEP_TOL's bound for 22 bf16 layers)
+STRAT_TIE, STRAT_KV_TOL = 2.0 ** -5, 5e-2
+# phase 16's peaked model: the embedding scaled by PEAKED_EMBED and the head
+# the scaled embedding's rows in a seeded permuted order, so the residual
+# stream carries the token and the head maps it to its permuted successor
+# with a wide margin: well-separated greedy choices on every route (128
+# distinct tokens). The head x 20 of tests/test_torch_moe.py's peaked pair
+# leaves every argmax where it was (a scale), and the permuted head alone
+# (x 1) agreed in 1-2 of 128 tokens; x 30, 300 and 3000 in all 128 on an
+# H100 80GB HBM3 at 700 W (PERF.md)
+PEAKED_EMBED = 30.0
 # phase 15, the reference's bench_serving_kv (bench.py:390-428): one 16-token
 # prompt, 8 warm-up requests of one dispatch, 16 timed requests
 KV_PROMPT, KV_WARM, KV_REQS, KV_NEW, KV_STEPS, KV_MAX = list(range(1, 17)), 8, 16, 128, 32, 4096
@@ -335,6 +392,11 @@ FUSED_GRAPH_POS = (37, 511)               # a graph captured at FUSED_TIMED repl
 FUSED_DEEP_TOL = 5e-2
 SNAP_AT, SNAP_MORE = 100, 50             # decode phase: snapshot, then replay
 DENSE_COMPARED = 8       # phase 7: the paged requests the dense pipelined engine reruns
+# phase 7's cross-checks (the paged engine not pipelined, the dense
+# pipelined engine) at 32 steps a dispatch: a 128-step chunk's capture
+# runs it eagerly once (about 10 s), and a request's stream does not
+# depend on the dispatch
+CROSS_STEPS = 32
 FWD_S, FWD_PROMPT, FWD_NEW = 2048, 16, 8
 GEMM_BENCH_N = 8192                       # the reference's bf16 GEMM cell (bench.py:73)
 QUANT_MKN = (8192, 4096, 14336)           # its fp8 and int8 cells (bench.py:92-139)
@@ -390,7 +452,14 @@ GMM_CASES = [("gate_up_M1024", 512, 2, 4096, 14336, 8, None, True),
               False),
              ("one_group", 0, 0, 4096, 14336, 8, (0, 0, 0, 1024, 0, 0, 0, 0), False),
              ("M_off_tile", 100, 2, 4096, 14336, 8, None, False),
-             ("qwen3_30b_a3b", 512, 8, 2048, 768, 128, None, True)]
+             ("qwen3_30b_a3b", 512, 8, 2048, 768, 128, None, True),
+             # the CUDA-core route: an f32 Mixtral's layer at M 256 (a 128-token
+             # prefill at top-2: the smallest M the MoE route sends to gmm), and
+             # K and N off 8 on bf16 and on f32 operands
+             ("f32_gate_up_M256", 128, 2, 4096, 14336, 8, None, True),
+             ("f32_down_M256", 128, 2, 14336, 4096, 8, None, True),
+             ("bf16_K_N_off_8", 300, 2, 1001, 1003, 8, None, False),
+             ("f32_K_N_off_8", 300, 2, 1001, 1003, 8, None, False)]
 
 
 # row 4's cases beyond the summary's M 8 and 256 (bitwise each): a ragged M,
@@ -501,13 +570,47 @@ def sdpa(q, k, v, **kw):
 def step_launches(step) -> dict:
     """Kernel launches of one call ``step(0)``, counted from zero."""
     import torch
-    from pygpukit_tpu_torch import LAUNCHES, reset_launches
-    reset_launches()
+    reset_counts()
     step(0)
     torch.cuda.synchronize()
-    counts = {k: n for k, n in LAUNCHES.items() if n}
-    reset_launches()
+    counts = {k: n for k, n in launch_counts().items() if n}
+    reset_counts()
     return counts
+
+
+def reset_counts() -> None:
+    """Set every launch count to 0: the wrappers' LAUNCHES and the launches
+    of replays (``core.replayed_launches``)."""
+    from pygpukit_tpu_torch import reset_launches
+    from pygpukit_tpu_torch.core import reset_replayed_launches
+    reset_launches()
+    reset_replayed_launches()
+
+
+def launch_counts() -> dict:
+    """Kernel launches since ``reset_counts()``: each wrapper's eager
+    launches (LAUNCHES) plus cost_analysis() x replays of every captured
+    executable (a replay ticks no wrapper counter)."""
+    from pygpukit_tpu_torch import LAUNCHES
+    from pygpukit_tpu_torch.core import replayed_launches
+    out = dict(LAUNCHES)
+    for name, n in replayed_launches().items():
+        out[name] = out.get(name, 0) + n
+    return out
+
+
+def zero_cache(model, max_len: int) -> None:
+    """The model's caches of ``max_len`` rows zeroed at position 0, in place
+    when it has them (its captured programs stay bound; init_fixed_cache
+    releases them)."""
+    if model.k_cache is None or model.max_seq_len != max_len:
+        model.init_fixed_cache(max_len)
+        return
+    for cache in (model.k_cache, model.v_cache):
+        for t in (cache.values() if isinstance(cache, dict) else (cache,)):
+            t.zero_()
+    model.pos = 0
+    model._nonfinite.zero_()
 
 
 def bits(t):
@@ -1697,22 +1800,25 @@ def check_gmm_kernels(dev, g, detail: dict) -> dict:
     2048-token forward)."""
     import torch
     from pygpukit_tpu_torch.kernels import gmm, gmm_plain
+    from pygpukit_tpu_torch.kernels.gmm import gmm_route
     keys = ("ms", "plain_ms", "lib_ms", "bytes", "ops")
     layer = dict.fromkeys(keys, 0.0)
     err_all = 0.0
     for name, tokens, k, kk, n, n_groups, sizes, timed in GMM_CASES:
+        dt = torch.float32 if name.startswith("f32") else torch.bfloat16
         gs = (gmm_sizes(dev, g, tokens, k, n_groups) if sizes is None
               else torch.tensor(sizes, dtype=torch.int32, device=dev))
         host_sizes = gs.tolist()
         m = sum(host_sizes)
-        lhs = torch.randn((m, kk), generator=g, device=dev).to(torch.bfloat16)
-        rhs = torch.empty((n_groups, kk, n), dtype=torch.bfloat16, device=dev)
+        lhs = torch.randn((m, kk), generator=g, device=dev).to(dt)
+        rhs = torch.empty((n_groups, kk, n), dtype=dt, device=dev)
         for i in range(n_groups):
             rhs[i] = torch.randn((kk, n), generator=g, device=dev) * 0.02
         out, ref = gmm(lhs, rhs, gs), gmm_plain(lhs, rhs, host_sizes)
         torch.cuda.synchronize()
         err = (out - ref).abs().max().item()
-        what = f"gmm {name} (M {m}, K {kk}, N {n}, G {n_groups})"
+        route = gmm_route(lhs.dtype, rhs.dtype, kk, n)
+        what = f"gmm {name} ({route} route, M {m}, K {kk}, N {n}, G {n_groups})"
         check(err <= GMM_REL * ref.abs().max().item(), f"{what}: max abs err {err}")
         check(torch.equal(out, gmm(lhs, rhs, gs)), f"{what}: a second launch differs")
         err_all = max(err_all, err)
@@ -1721,17 +1827,23 @@ def check_gmm_kernels(dev, g, detail: dict) -> dict:
             offs = torch.cumsum(gs, 0, dtype=torch.int32)
             kms = time_ms(lambda i: gmm(lhs, rhs, gs), 1, reps=5)
             pms = time_ms(lambda i: gmm_plain(lhs, rhs, host_sizes), 1, reps=2)
-            lms = time_ms(lambda i: torch._grouped_mm(lhs, rhs, offs=offs), 1, reps=5)
+            try:                     # torch._grouped_mm may take no f32 operands
+                lms = time_ms(lambda i: torch._grouped_mm(lhs, rhs, offs=offs), 1, reps=5)
+            except RuntimeError as e:
+                lms = None
+                print(f"phase 3: {what}: torch._grouped_mm refuses it: {str(e)[:120]}")
             live = sum(1 for x in host_sizes if x)
-            nbytes = 2 * m * kk + 2 * live * kk * n + 4 * m * n + 4 * n_groups
+            size = lhs.element_size()
+            nbytes = size * m * kk + size * live * kk * n + 4 * m * n + 4 * n_groups
             ops = 2 * m * kk * n
-            row = kernel_row(err, kms, pms, nbytes, ops, "bf16", lms)
+            row = kernel_row(err, kms, pms, nbytes, ops, "f32" if size == 4 else "bf16", lms)
             detail[f"gmm_{name}"] = dict(row, share=row["bound_ms"] / kms, M=m,
                                          tflops=ops / kms / 1e9)
+            lib = "—" if lms is None else f"{lms:.4f} ms"
             print(f"phase 3: {what}: kernel {kms:.4f} ms = {ops / kms / 1e9:.1f} TFLOP/s, "
                   f"bound {row['bound_ms']:.4f} ms by {row['bound_by']} = share "
                   f"{row['bound_ms'] / kms:.3f}, plain {pms:.4f} ms, library "
-                  f"(torch._grouped_mm, bf16 out) {lms:.4f} ms; max abs err {err:.3e}")
+                  f"(torch._grouped_mm) {lib}; max abs err {err:.3e} [{CARD}]")
             if name.endswith("M4096"):               # gate and up, or down
                 for key, v in zip(keys, (kms, pms, lms, nbytes, ops)):
                     layer[key] += v * (2 if name.startswith("gate_up") else 1)
@@ -1755,14 +1867,18 @@ def build_model(cfg, seed: int, dev, mode: str | None = "int4", base=None):
 
 
 def serve(model, requests, n_steps: int, warm=(), max_seq_len: int = 1024,
-          **kw):
+          prewarm: bool = False, **kw):
     """A batch-8 engine over ``requests`` [(prompt, max_new)], timed; any
-    ``warm`` requests are served first, untimed. Returns (engine, the timed
-    requests, seconds)."""
+    ``warm`` requests are served first, untimed, after warmup() (which
+    captures the engine's programs); ``prewarm`` runs warmup() for the
+    requests' prompt lengths, untimed. Returns (engine, the timed requests,
+    seconds)."""
     import torch
     from pygpukit_tpu_torch.llm import ContinuousBatchingEngine
     eng = ContinuousBatchingEngine(model, max_batch=8, max_seq_len=max_seq_len,
                                    steps_per_dispatch=n_steps, **kw)
+    if prewarm:
+        eng.warmup(prompt_lens=sorted({len(p) for p, _ in requests}))
     if warm:
         eng.warmup(prompt_lens=sorted({len(p) for p, _ in warm}))
         for p, m in warm:
@@ -1855,6 +1971,43 @@ def profile_line(rows: list, top: int) -> str:
             + "; ".join(f"{name[:60]} x{n} {ms:.3f} ms" for name, n, ms in rows[:top]))
 
 
+def serve_again(eng, requests, warm=()):
+    """``requests`` served again by ``eng`` from the state serve() gives a
+    new engine, its captured programs kept: the pools, the last tokens and
+    positions (host and device) and the paged tables zeroed in place and a
+    fresh block allocator (blocks go out in a new engine's order); any
+    ``warm`` requests first, untimed. Returns (the timed requests,
+    seconds)."""
+    import torch
+    for cache in (eng.k_cache, eng.v_cache):
+        for t in (cache.values() if isinstance(cache, dict) else (cache,)):
+            t.zero_()
+    eng._last_tokens[:] = 0
+    eng._poss[:] = 0
+    if eng.pipelined:
+        eng._last_dev.zero_()
+        eng._poss_dev.zero_()
+    if eng.paged:
+        eng._alloc = type(eng._alloc)(eng._alloc.num_blocks, eng.block_size)
+        eng._tables_np[:] = 0
+        eng._tables_dev.zero_()
+    for p, m in warm:
+        eng.submit(p, max_new_tokens=m)
+    eng.run_until_complete()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    reqs = [eng.submit(p, max_new_tokens=m) for p, m in requests]
+    eng.run_until_complete()
+    torch.cuda.synchronize()
+    return reqs, time.perf_counter() - t0
+
+
+def pool_copy(eng) -> list:
+    """Bitwise copies of the engine's K and V pools."""
+    return [bits(t).clone() for cache in (eng.k_cache, eng.v_cache)
+            for t in (cache.values() if isinstance(cache, dict) else (cache,))]
+
+
 def ttft_ms(reqs) -> "np.ndarray":
     import numpy as np
     return np.percentile([r.ttft_s for r in reqs], [50, 95]) * 1e3
@@ -1878,16 +2031,18 @@ def dense_requests(cfg, rng) -> list:
 
 
 def engine_replay(model, requests, kernels, what: str, phases=("4", "5")) -> dict:
-    """The batch-8 engine over ``requests`` twice: every request finishes,
-    every kernel of ``kernels`` launches, the second run gives the same
-    streams and bitwise the same KV pools; then two requests through
-    single-stream generate (reported). Returns the first run's launches."""
+    """The batch-8 engine over ``requests`` twice, its programs captured by
+    warmup() before the first timed run: every request finishes, every
+    kernel of ``kernels`` launches (cost_analysis x replays), the second
+    run (serve_again: the same programs replayed from a zeroed state) gives
+    the same streams and bitwise the same KV pools; then two requests
+    through single-stream generate (reported). Returns the first run's
+    launches."""
     import torch
-    from pygpukit_tpu_torch import LAUNCHES, reset_launches
-    reset_launches()
-    eng1, reqs1, secs1 = serve(model, requests, 16)
-    launches = dict(LAUNCHES)
-    reset_launches()
+    reset_counts()
+    eng1, reqs1, secs1 = serve(model, requests, 16, prewarm=True)
+    launches = launch_counts()
+    reset_counts()
     n_tok = check_served(eng1, reqs1, requests, what)
     for name in kernels:
         check(launches[name] > 0, f"kernel {name} was never launched on the {what}")
@@ -1897,15 +2052,15 @@ def engine_replay(model, requests, kernels, what: str, phases=("4", "5")) -> dic
           f"prefills {eng1.stats.prefills}), TTFT p50/p95 {ttft[0]:.1f}/"
           f"{ttft[1]:.1f} ms; launches {json.dumps(launches)}")
 
-    eng2, reqs2, secs2 = serve(model, requests, 16)
+    pools = pool_copy(eng1)
+    reqs2, secs2 = serve_again(eng1, requests)
     check([r.generated for r in reqs1] == [r.generated for r in reqs2],
           f"{what}, second run: token streams differ")
-    check(torch.equal(bits(eng1.k_cache), bits(eng2.k_cache))
-          and torch.equal(bits(eng1.v_cache), bits(eng2.v_cache)),
+    check(all(torch.equal(a, b) for a, b in zip(pools, pool_copy(eng1))),
           f"{what}, second run: KV pools differ")
     print(f"phase {phases[1]}: {what}: replay identical (streams and pools); second "
           f"run {n_tok / secs2:.1f} tok/s")
-    del eng1, eng2
+    del eng1, pools
     # B = 1 runs the same kernels, but torch's own reductions (norms) may
     # sum in another order at another batch size, so this is reported, not
     # required; the checked reference is the CPU plain path (cpu_parity).
@@ -1965,7 +2120,8 @@ def streamed_bytes(params: dict) -> int:
 def ladder_rung(model, rung: str, card: str, per_step: dict, step_ms: dict) -> dict:
     """One rung of the decode ladder (the reference's bench_decode,
     bench.py:172-253): a warm generate of LADDER_WARM tokens and a timed
-    one of LADDER_NEW after a 16-token prompt, cache LADDER_MAX, one chunk.
+    one of LADDER_NEW after a 16-token prompt, cache LADDER_MAX, chunks of
+    GEN_CHUNK (the warm run captures them, the timed run replays).
     Checks that the timed run starts with the warm run's tokens, finite
     logits and the GEMV launches of the timed run's decode
     (88 per step for the rung's GEMV, none for any other). Returns the
@@ -1973,21 +2129,21 @@ def ladder_rung(model, rung: str, card: str, per_step: dict, step_ms: dict) -> d
     ``step_ms``."""
     import os
     import torch
-    from pygpukit_tpu_torch import LAUNCHES, reset_launches
     _, switches, gemv = LADDER[rung]
     saved = {k: os.environ.get(k) for k in switches}
     os.environ.update(switches)
     try:
         runs = []
+        model.init_fixed_cache(LADDER_MAX)     # programs captured under this rung's switches
         for n_new in (LADDER_WARM, LADDER_NEW):
-            model.init_fixed_cache(LADDER_MAX)
+            zero_cache(model, LADDER_MAX)
             torch.cuda.synchronize()
-            reset_launches()
+            reset_counts()
             t0 = time.perf_counter()
             toks = model.generate(LADDER_PROMPT, max_new_tokens=n_new,
-                                  chunk_size=LADDER_NEW)
+                                  chunk_size=GEN_CHUNK)
             torch.cuda.synchronize()
-            runs.append((toks, time.perf_counter() - t0, dict(LAUNCHES),
+            runs.append((toks, time.perf_counter() - t0, launch_counts(),
                          model.logits_finite()))
         eager, graph, prof, counts = decode_step_times(
             model, 1, LADDER_MAX, len(LADDER_PROMPT) + LADDER_NEW // 2)
@@ -2012,7 +2168,7 @@ def ladder_rung(model, rung: str, card: str, per_step: dict, step_ms: dict) -> d
     if gemv is not None:
         per_step.setdefault(gemv, (counts.get(gemv, 0), "single-stream decode step"))
     nbytes = streamed_bytes(model.params)
-    print(f"phase 9: ladder {rung}: {LADDER_NEW / secs:.1f} tok/s eager; one decode step "
+    print(f"phase 9: ladder {rung}: {LADDER_NEW / secs:.1f} tok/s (generate replays its prefill and chunks); one decode step "
           f"eager {eager:.3f} ms wall, CUDA-graph replay {graph:.3f} ms device; "
           f"{nbytes / 1e9:.4f} GB streamed per step = {nbytes / graph / 1e6:.1f} GB/s "
           f"on the device; GEMV launches {json.dumps({g: launches[g] for g in GEMVS})} "
@@ -2053,15 +2209,14 @@ def paged_path(model, cfg, rng, per_step: dict) -> dict:
     """Phase 7, the reference's serving_1b_int4_paged row; returns the
     launch counts of its first run (warmup, warm-up and timed requests)."""
     import torch
-    from pygpukit_tpu_torch import LAUNCHES, reset_launches
     kw = dict(warm=[(rng.integers(1, cfg.vocab_size, 16).tolist(), 128)
                     for _ in range(8)], max_seq_len=512)
     paged = dict(kw, paged=True, block_size=16)
     requests = [(rng.integers(1, cfg.vocab_size, 16).tolist(), 128) for _ in range(32)]
-    reset_launches()
+    reset_counts()
     eng1, reqs1, secs1 = serve(model, requests, 128, pipelined=True, **paged)
-    launches = dict(LAUNCHES)
-    reset_launches()
+    launches = launch_counts()
+    reset_counts()
     n_tok = check_served(eng1, reqs1, requests, "paged path")
     for name in PAGED_KERNELS:
         check(launches[name] > 0, f"kernel {name} was never launched on the paged path")
@@ -2074,23 +2229,19 @@ def paged_path(model, cfg, rng, per_step: dict) -> dict:
           f"{eng1.stats.prefills}), TTFT p50/p95 {ttft[0]:.1f}/{ttft[1]:.1f} ms; "
           f"launches {json.dumps(launches)}")
     streams = [r.generated for r in reqs1]
-
-    def live_blocks(eng):       # block 0 is the trash: unordered duplicate writes
-        return [bits(c[:, 1:]) for c in (eng1.k_cache, eng1.v_cache)], \
-            [bits(c[:, 1:]) for c in (eng.k_cache, eng.v_cache)]
-
-    eng2, reqs2, secs2 = serve(model, requests, 128, pipelined=True, **paged)
+    # block 0 is the trash: unordered duplicate writes
+    live = [t[:, 1:].clone() for t in pool_copy(eng1)]
+    reqs2, secs2 = serve_again(eng1, requests, warm=kw["warm"])
     check([r.generated for r in reqs2] == streams, "paged replay: token streams differ")
-    a, b = live_blocks(eng2)
-    check(all(torch.equal(x, y) for x, y in zip(a, b)),
+    check(all(torch.equal(x, y[:, 1:]) for x, y in zip(live, pool_copy(eng1))),
           "paged replay: pools differ outside the trash block")
-    del eng2, a, b
-    eng3, reqs3, secs3 = serve(model, requests, 128, pipelined=False, **paged)
+    del eng1, live
+    eng3, reqs3, secs3 = serve(model, requests, CROSS_STEPS, pipelined=False, **paged)
     check([r.generated for r in reqs3] == streams,
           "paged engine, not pipelined: token streams differ")
     del eng3
     dense = requests[:DENSE_COMPARED]
-    eng4, reqs4, secs4 = serve(model, dense, 128, pipelined=True, **kw)
+    eng4, reqs4, secs4 = serve(model, dense, CROSS_STEPS, pipelined=True, **kw)
     dense_same = sum(r.generated == t for r, t in zip(reqs4, streams))
     del eng4
     eager, graph, rows, counts = paged_step_times(model, model.device)
@@ -2100,8 +2251,9 @@ def paged_path(model, cfg, rng, per_step: dict) -> dict:
           f"wall, CUDA-graph replay {graph:.3f} ms device; device busy "
           f"{graph / eager:.3f} of the eager step; " + profile_line(rows, 8))
     print(f"phase 7: replay identical (streams; pools outside block 0), "
-          f"{n_tok / secs2:.1f} tok/s; not pipelined: identical streams, "
-          f"{n_tok / secs3:.1f} tok/s; dense pipelined (MAX 512): "
+          f"{n_tok / secs2:.1f} tok/s; not pipelined ({CROSS_STEPS} steps a dispatch): "
+          f"identical streams, {n_tok / secs3:.1f} tok/s; dense pipelined (MAX 512, "
+          f"{CROSS_STEPS} steps): "
           f"{dense_same}/{DENSE_COMPARED} streams identical, "
           f"{sum(len(r.generated) for r in reqs4) / secs4:.1f} tok/s")
     return launches
@@ -2200,16 +2352,15 @@ def forward_phase(cfg, dev, card: str, per_step: dict) -> dict:
     launches of its main-path run (get_logits on FWD_S tokens)."""
     import numpy as np
     import torch
-    from pygpukit_tpu_torch import LAUNCHES, reset_launches
     from pygpukit_tpu_torch.llm import forward_fn
     t0 = time.perf_counter()
     model = build_model(cfg, 0, dev, None)
     ids = np.random.default_rng(11).integers(1, cfg.vocab_size, FWD_S).tolist()
     torch.cuda.synchronize()
-    reset_launches()
+    reset_counts()
     logits = model.get_logits(ids)
-    launches = dict(LAUNCHES)
-    reset_launches()
+    launches = launch_counts()
+    reset_counts()
     check(logits.shape == (FWD_S, cfg.vocab_size), f"forward: logits {logits.shape}")
     check(bool(np.isfinite(logits).all()), "forward: a logit is not finite")
     want = cfg.num_layers
@@ -2256,9 +2407,9 @@ def forward_phase(cfg, dev, card: str, per_step: dict) -> dict:
     del logits, pre
 
     prompt = ids[:FWD_PROMPT]
-    reset_launches()
+    reset_counts()
     gen1 = model.generate(prompt, max_new_tokens=FWD_NEW, use_cache=False)
-    gen_launches = dict(LAUNCHES)
+    gen_launches = launch_counts()
     gen2 = model.generate(prompt, max_new_tokens=FWD_NEW, use_cache=False)
     check(len(gen1) == FWD_NEW and gen1 == gen2,
           f"uncached generate: {gen1} then {gen2}")
@@ -2322,7 +2473,6 @@ def ops_phase(cfg, dev, card: str, per_step: dict) -> dict:
     import os
     import torch
     import pygpukit_tpu_torch as gp
-    from pygpukit_tpu_torch import LAUNCHES, reset_launches
     from pygpukit_tpu_torch.kernels import gemv_quant, kv_rows_write_plain
     from pygpukit_tpu_torch.llm import init_params
     from pygpukit_tpu_torch.llm.model import _slice_layer_params, layer_stack_fn
@@ -2344,11 +2494,11 @@ def ops_phase(cfg, dev, card: str, per_step: dict) -> dict:
     os.environ["PYGPUKIT_GEMM"] = "pallas"
     try:
         torch.cuda.synchronize()
-        reset_launches()
+        reset_counts()
         out = layer()
         torch.cuda.synchronize()
-        launches = dict(LAUNCHES)
-        reset_launches()
+        launches = launch_counts()
+        reset_counts()
         again = layer()
         kernel_layer_ms = time_ms(layer, 1, reps=10)
     finally:
@@ -2428,11 +2578,11 @@ def ops_phase(cfg, dev, card: str, per_step: dict) -> dict:
     xs = [torch.randn((kq,), generator=g, device=dev).to(torch.bfloat16)
           for _, kq in PROJ_SHAPES.values()]
     torch.cuda.synchronize()
-    reset_launches()
+    reset_counts()
     ys = [gemv_quant(wq, xq) for wq, xq in zip(gw, xs)]
     torch.cuda.synchronize()
-    gemv_launches = LAUNCHES["gemv_quant"]
-    reset_launches()
+    gemv_launches = launch_counts()["gemv_quant"]
+    reset_counts()
     check(gemv_launches == len(PROJ_SHAPES) and all(bool(torch.isfinite(y.float()).all())
                                                     for y in ys),
           f"ops gemv_quant: {gemv_launches} launches or a value not finite")
@@ -2453,12 +2603,12 @@ def ops_phase(cfg, dev, card: str, per_step: dict) -> dict:
     poss = torch.tensor([0, 5, 300, mx - 1, mx + 3, 37, 700, -1], dtype=torch.int32,
                         device=dev)
     torch.cuda.synchronize()
-    reset_launches()
+    reset_counts()
     for i in range(cfg.num_layers):
         gp.kv_rows_write(kp, vp, rows[0, i], rows[1, i], i, poss)
     torch.cuda.synchronize()
-    krw_launches = LAUNCHES["kv_rows_write"]
-    reset_launches()
+    krw_launches = launch_counts()["kv_rows_write"]
+    reset_counts()
     for i in range(cfg.num_layers):
         kv_rows_write_plain(k2, v2, rows[0, i], rows[1, i], i, poss)
     check(krw_launches == cfg.num_layers and torch.equal(bits(kp), bits(k2))
@@ -2483,17 +2633,17 @@ def decode_route(model, route: str, per_step: dict) -> dict:
     numbers."""
     import numpy as np
     import torch
-    from pygpukit_tpu_torch import LAUNCHES, reset_launches
     runs = []
+    model.init_fixed_cache(LADDER_MAX)         # programs captured under this route
     for _ in range(2):
-        model.init_fixed_cache(LADDER_MAX)
+        zero_cache(model, LADDER_MAX)
         torch.cuda.synchronize()
-        reset_launches()
+        reset_counts()
         t0 = time.perf_counter()
-        toks = model.generate(LADDER_PROMPT, max_new_tokens=LADDER_NEW, chunk_size=LADDER_NEW)
+        toks = model.generate(LADDER_PROMPT, max_new_tokens=LADDER_NEW, chunk_size=GEN_CHUNK)
         torch.cuda.synchronize()
-        runs.append((toks, time.perf_counter() - t0, dict(LAUNCHES), model.logits_finite()))
-    reset_launches()
+        runs.append((toks, time.perf_counter() - t0, launch_counts(), model.logits_finite()))
+    reset_counts()
     (toks1, _, _, fin1), (toks2, secs, launches, fin2) = runs
     check(len(toks2) == LADDER_NEW and toks1 == toks2,
           f"decode {route}: the timed run's tokens differ from the warm run's")
@@ -2517,7 +2667,7 @@ def decode_route(model, route: str, per_step: dict) -> dict:
     eager, graph, prof, counts = decode_step_times(model, 1, LADDER_MAX,
                                                    len(LADDER_PROMPT) + LADDER_NEW // 2)
     per_step[kernel] = (counts.get(kernel, 0), f"single-stream decode step ({route})")
-    print(f"phase 13: {route} step: {LADDER_NEW / secs:.1f} tok/s eager, {LADDER_NEW} tokens "
+    print(f"phase 13: {route} step: {LADDER_NEW / secs:.1f} tok/s replayed, {LADDER_NEW} tokens "
           f"replayed identical, launches {json.dumps(moved)}; snapshot after {SNAP_AT} "
           f"tokens, {SNAP_MORE} more, restore: the same {SNAP_MORE} again; one step at pos "
           f"{len(LADDER_PROMPT) + LADDER_NEW // 2}: eager {eager:.3f} ms wall, CUDA-graph "
@@ -2578,6 +2728,7 @@ def capture_checks(model, route: str) -> dict:
     counters as they were; another cache raises. Returns the executable."""
     import torch
     from pygpukit_tpu_torch import LAUNCHES
+    from pygpukit_tpu_torch.llm import decode_step_fn
 
     def cache_bits():
         return [bits(t).clone() for t in (model.k_cache, model.v_cache)]
@@ -2600,12 +2751,13 @@ def capture_checks(model, route: str) -> dict:
     for pos in STRAT_POSITIONS:
         model.pos = pos
         state = cache_bits()
-        eager = model.decode_step(pos % model.config.vocab_size).clone()
+        eager = decode_step_fn(model.config, model.params, model.k_cache, model.v_cache,
+                               pos % model.config.vocab_size, pos).clone()
         after = cache_bits()
         for _ in range(2):
             put(state)
             model.pos = pos
-            got = model.decode_step_replay(pos % model.config.vocab_size)
+            got = model.decode_step(pos % model.config.vocab_size)
             torch.cuda.synchronize()
             check(bool(torch.isfinite(eager).all()) and torch.equal(got, eager)
                   and all(torch.equal(a, b) for a, b in zip(cache_bits(), after)),
@@ -2625,33 +2777,45 @@ def capture_checks(model, route: str) -> dict:
 
 
 def timed_strategy(model, strat, prompt, n_new: int) -> tuple:
-    """(tokens, wall seconds, LAUNCHES of the run) of ``strat.generate``
-    from a fresh cache, the counters set to 0 just before."""
+    """(tokens, wall seconds, launches of the run: eager plus cost_analysis
+    x replays) of ``strat.generate`` from a zeroed cache, after a warm run
+    that captures the programs the timed run replays; the counters set to
+    0 just before the timed run. The tokens of both runs must agree."""
     import torch
-    from pygpukit_tpu_torch import LAUNCHES, reset_launches
     if getattr(strat, "init_graph", None) is not None:
         strat.init_graph(LADDER_MAX)
     elif model is not None:
         model.init_fixed_cache(LADDER_MAX)
+    warm = strat.generate(prompt, n_new)
+    if model is not None:
+        zero_cache(model, LADDER_MAX)
+    strat.stats = type(strat.stats)()
     torch.cuda.synchronize()
-    reset_launches()
+    reset_counts()
     t0 = time.perf_counter()
     toks = strat.generate(prompt, n_new)
     torch.cuda.synchronize()
     secs = time.perf_counter() - t0
-    counts = {k: n for k, n in LAUNCHES.items() if n}
-    reset_launches()
+    counts = {k: n for k, n in launch_counts().items() if n}
+    reset_counts()
+    check(toks == warm, f"strategies: {type(strat).__name__}'s warm and timed runs differ")
     return toks, secs, counts
 
 
 def step_loop_ms(model, replay: bool, n: int = STRAT_STEPS) -> float:
     """Wall ms per step of ``n`` steps fed back-to-back from
     LADDER_PROMPT's cache with one synchronize at the end: eager steps
-    (``decode_step``) or replays (``decode_step_replay``)."""
+    (``decode_step_fn``) or replays (``decode_step``)."""
     import torch
+    from pygpukit_tpu_torch.llm import decode_step_fn
     model.init_fixed_cache(LADDER_MAX)
     model.prefill(LADDER_PROMPT)
-    step = model.decode_step_replay if replay else model.decode_step
+
+    def eager(token):
+        decode_step_fn(model.config, model.params, model.k_cache, model.v_cache, token,
+                       model.pos)
+        model.pos += 1
+    step = model.decode_step if replay else eager
     step(1)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -2659,6 +2823,60 @@ def step_loop_ms(model, replay: bool, n: int = STRAT_STEPS) -> float:
         step((i + 2) % model.config.vocab_size)
     torch.cuda.synchronize()
     return (time.perf_counter() - t0) * 1e3 / n
+
+
+def forced_m1(model, toks) -> tuple:
+    """DecodeM1's program (the model's prefill and captured step) fed
+    LADDER_PROMPT then ``toks`` (teacher forcing) from a zeroed cache: per
+    step its argmax, top-2 gap and near-tie bound (STRAT_TIE of the
+    largest |logit|), and its caches' rows [L, R, Hk*D] of the fed tokens."""
+    import numpy as np
+    import torch
+    zero_cache(model, LADDER_MAX)
+    logits = model.prefill(LADDER_PROMPT)
+    rows = []
+    for i, tok in enumerate(toks):
+        top = torch.topk(logits, 2).values
+        rows.append(torch.stack([torch.argmax(logits).float(), top[0] - top[1],
+                                 logits.abs().max()]))
+        if i + 1 < len(toks):
+            logits = model.decode_step(tok)
+    s = torch.stack(rows).cpu().numpy().astype(np.float64)
+    n = len(LADDER_PROMPT) + len(toks) - 1
+    kv = [c[:, :n].reshape(c.shape[0], n, -1).clone() for c in (model.k_cache, model.v_cache)]
+    return s[:, 0].astype(np.int64), s[:, 1], STRAT_TIE * s[:, 2], kv
+
+
+def kv_rel_l2(rows, ref) -> float:
+    """Largest relative L2 over layers of ``rows`` against ``ref`` [L, R, W]."""
+    import torch
+    a, b = rows.float(), ref[:, :rows.shape[1]].float()
+    return float(((a - b).norm(dim=(1, 2)) / b.norm(dim=(1, 2))).max())
+
+
+def context_check(model, name: str, toks, kv, n_rows: int, ref: tuple) -> str:
+    """Phase 16's context check of one strategy (forced_m1 along its own
+    tokens): its token is DecodeM1's argmax at every step that is no
+    near-tie, and the first ``n_rows`` of its KV rows ``kv`` (k, v [L, R,
+    Hk*D]) are DecodeM1's within STRAT_KV_TOL. ``ref`` is forced_m1 along
+    DecodeM1's own tokens: the gap where the strategy parts from them is
+    reported. Returns the report."""
+    import numpy as np
+    arg, gap, tie, m1_kv = forced_m1(model, toks)
+    sure = gap > tie
+    bad = [i for i in np.flatnonzero(sure) if toks[i] != arg[i]]
+    n_rows = min(n_rows, m1_kv[0].shape[1])
+    err = max(kv_rel_l2(a[:, :n_rows], b) for a, b in zip(kv, m1_kv))
+    ref_toks, ref_gap, ref_tie = ref
+    split = next((i for i, (a, b) in enumerate(zip(toks, ref_toks)) if a != b), None)
+    where = ("none" if split is None else f"token {split}, DecodeM1's top-2 gap there "
+             f"{ref_gap[split]:.5g} (near-tie bound {ref_tie[split]:.5g})")
+    check(not bad and err <= STRAT_KV_TOL,
+          f"strategies: {name} against DecodeM1 fed its tokens: argmax differs at steps "
+          f"{bad} beyond near-ties, or KV rows relative L2 {err:.3e} > {STRAT_KV_TOL}")
+    return (f"{name}: DecodeM1's argmax at all {int(sure.sum())}/{len(toks)} steps beyond "
+            f"a near-tie (smallest gap checked {gap[sure].min():.5g}), KV rows {n_rows} "
+            f"within {err:.3e}; parts from DecodeM1's run at {where}")
 
 
 def strategies_phase(cfg, dev, card: str, per_step: dict) -> dict:
@@ -2671,9 +2889,10 @@ def strategies_phase(cfg, dev, card: str, per_step: dict) -> dict:
     Unfused: DecodeBatch over 8 prompts (two identical, in slots 0 and 5),
     DecodeJacobi (window 6), DecodeSpeculative self (n_draft 2, gamma 4)
     and with a separate 2-layer draft made with slice_layers; tok/s,
-    stats, agreement with DecodeM1 (reported) and the launches of every
-    path: eager counts, plus cost_analysis() x replays for replays.
-    Returns the launches of the replayed and batch paths."""
+    stats, agreement with DecodeM1 (reported), the context check of each
+    (context_check) and the launches of every path: eager counts, plus
+    cost_analysis() x replays for replays. Returns the launches of the
+    replayed and batch paths."""
     import dataclasses
     import os
     import numpy as np
@@ -2702,22 +2921,20 @@ def strategies_phase(cfg, dev, card: str, per_step: dict) -> dict:
                   f"strategies {route}: DecodeM1 launches {m1_l} or a non-finite logit")
             graph = DecodeM1Graph().bind(model)
             g_toks, g_s, g_l = timed_strategy(model, graph, LADDER_PROMPT, LADDER_NEW)
-            gexe = model._ensure_decode_exe()
-            replayed = {k: n * gexe.stats.replays for k, n in gexe.cost_analysis().items()}
+            replayed = g_l                  # every decode step is a replay now
             check(g_toks == m1_toks and len(g_toks) == LADDER_NEW and model.logits_finite(),
                   f"strategies {route}: DecodeM1Graph's tokens differ from DecodeM1's")
-            check(g_l == {} and replayed == {kernel: per * LADDER_NEW},
-                  f"strategies {route}: DecodeM1Graph launched {g_l} eagerly, {replayed} "
-                  "by replay")
+            check(g_l == {kernel: per * LADDER_NEW},
+                  f"strategies {route}: DecodeM1Graph launched {g_l} (cost_analysis x "
+                  "replays)")
             eager_ms, replay_ms = step_loop_ms(model, False), step_loop_ms(model, True)
             out[f"{kernel} ({route}, replayed)"] = replayed.get(kernel, 0)
             per_step[f"{kernel} replayed"] = (per, f"one replay of the captured {route} step")
             print(f"phase 16: {route}: DecodeM1 {LADDER_NEW / m1_s:.1f} tok/s "
-                  f"({m1_s * 1e3 / LADDER_NEW:.3f} ms/token eager wall, {m1.stats}, launches "
+                  f"({m1_s * 1e3 / LADDER_NEW:.3f} ms/token replayed wall, {m1.stats}, launches "
                   f"{json.dumps(m1_l)}), DecodeM1Graph {LADDER_NEW / g_s:.1f} tok/s "
                   f"({g_s * 1e3 / LADDER_NEW:.3f} ms/token replayed wall, {graph.stats}, "
-                  f"eager launches "
-                  f"{json.dumps(g_l)}, replayed {json.dumps(replayed)}): {LADDER_NEW} tokens "
+                  f"launches {json.dumps(g_l)}): {LADDER_NEW} tokens "
                   f"identical; {STRAT_STEPS} steps back-to-back: eager {eager_ms:.3f} ms/step, "
                   f"replayed {replay_ms:.3f} ms/step wall; [{card}]")
             if route == "unfused":
@@ -2743,6 +2960,15 @@ def strategies_phase(cfg, dev, card: str, per_step: dict) -> dict:
               f"({LADDER_NEW / b_s:.1f} steps/s), stats {batch.stats}, slots 0 and 5 "
               f"identical, slot 0 agrees with DecodeM1 in {agree(b_toks[0])}/{LADDER_NEW}, "
               f"launches {json.dumps(b_l)}; [{card}]")
+        # the context check: DecodeM1 fed its own tokens first (it must
+        # reproduce them), then each strategy's
+        ref_arg, ref_gap, ref_tie, _ = forced_m1(model, ref_toks)
+        check(ref_arg.tolist() == ref_toks,
+              "strategies: DecodeM1 fed its own tokens does not reproduce them")
+        ref = (ref_toks, ref_gap, ref_tie)
+        reports = [context_check(model, "DecodeBatch slot 0", b_toks[0],
+                                 [c[0] for c in (batch.k_cache, batch.v_cache)],
+                                 len(LADDER_PROMPT) + LADDER_NEW - 1, ref)]
         draft = CausalTransformerModel(dataclasses.replace(cfg, num_layers=2),
                                        slice_layers(model.params, 2), dtype=torch.bfloat16)
         for name, strat in (("DecodeJacobi(window 6)", DecodeJacobi(window=6)),
@@ -2759,15 +2985,62 @@ def strategies_phase(cfg, dev, card: str, per_step: dict) -> dict:
                   f"acceptance {st.accepted / max(st.accepted + st.rejected, 1):.3f}, "
                   f"{st.tokens_per_step:.2f} tokens a step, agrees with DecodeM1 in "
                   f"{agree(toks)}/{LADDER_NEW}, launches {json.dumps(counts)}; [{card}]")
+            kv = [c.reshape(c.shape[0], c.shape[1], -1).clone()
+                  for c in (model.k_cache, model.v_cache)]
+            reports.append(context_check(model, name, toks, kv, model.pos, ref))
+        print(f"phase 16: context check, random weights (DecodeM1's program fed each "
+              f"strategy's tokens; near-tie: top-2 gap <= {STRAT_TIE:g} of the largest "
+              f"|logit|; KV limit {STRAT_KV_TOL}): " + "; ".join(reports) + f"; [{card}]")
+        del model, draft, strat, batch
+        torch.cuda.empty_cache()
+        peaked_agreement(cfg, dev, prompts, card)
     finally:
         if saved is None:
             os.environ.pop("PYGPUKIT_DECODE", None)
         else:
             os.environ["PYGPUKIT_DECODE"] = saved
-    del model
     torch.cuda.empty_cache()
     print(f"phase 16 took {time.perf_counter() - t0:.1f} s")
     return out
+
+
+def peaked_agreement(cfg, dev, prompts, card: str) -> None:
+    """Phase 16 on a peaked 1.1B-width bf16 model (seed 0; PEAKED_EMBED
+    says how it is built): DecodeBatch's slot 0 (the 8 prompts,
+    LADDER_PROMPT in slot 0), DecodeJacobi (window 6), self-speculation
+    (n_draft 2, gamma 4) and speculation with a separate 2-layer draft
+    must each give DecodeM1's LADDER_NEW tokens."""
+    import dataclasses
+    import torch
+    from pygpukit_tpu_torch.llm import CausalTransformerModel, init_params, slice_layers
+    from pygpukit_tpu_torch.llm.decode import (DecodeBatch, DecodeJacobi, DecodeM1,
+                                               DecodeSpeculative)
+    params = init_params(cfg, 0, torch.bfloat16, dev)
+    params["embed"] = params["embed"] * PEAKED_EMBED
+    perm = torch.randperm(cfg.vocab_size, generator=torch.Generator().manual_seed(0))
+    params["lm_head"] = params["embed"][perm.to(dev)].t().contiguous()
+    model = CausalTransformerModel(cfg, params, dtype=torch.bfloat16)
+    draft = CausalTransformerModel(dataclasses.replace(cfg, num_layers=2),
+                                   slice_layers(model.params, 2), dtype=torch.bfloat16)
+    model.init_fixed_cache(LADDER_MAX)
+    ref = DecodeM1().bind(model).generate(LADDER_PROMPT, LADDER_NEW)
+    got = {"DecodeBatch slot 0": DecodeBatch(max_seq_len=LADDER_MAX).bind(model)
+           .generate(prompts, LADDER_NEW)[0]}
+    for name, strat in (("DecodeJacobi(window 6)", DecodeJacobi(window=6)),
+                        ("DecodeSpeculative(self, n_draft 2, gamma 4)",
+                         DecodeSpeculative(n_draft_layers=2, gamma=4)),
+                        ("DecodeSpeculative(2-layer draft, gamma 4)",
+                         DecodeSpeculative(gamma=4, draft_model=draft))):
+        model.init_fixed_cache(LADDER_MAX)
+        got[name] = strat.bind(model).generate(LADDER_PROMPT, LADDER_NEW)
+    agree = {name: sum(a == b for a, b in zip(toks, ref)) for name, toks in got.items()}
+    print(f"phase 16: peaked model (embed x {PEAKED_EMBED}, permuted head): agreement with "
+          f"DecodeM1's {LADDER_NEW} tokens {json.dumps(agree)} ({len(set(ref))} distinct "
+          f"tokens in DecodeM1's); [{card}]")
+    check(len(ref) == LADDER_NEW and all(toks == ref for toks in got.values()),
+          f"strategies, peaked model: a strategy's tokens differ from DecodeM1's: {agree}")
+    del model, draft
+    torch.cuda.empty_cache()
 
 
 def kv_phase(cfg, dev, card: str) -> None:
@@ -2776,13 +3049,12 @@ def kv_phase(cfg, dev, card: str) -> None:
     pipelined engine at MAX 4096, 32 steps a dispatch, 8 warm-up requests,
     then 16 timed requests of one 16-token prompt and 128 new tokens, on
     bf16, int8 and fp8 KV. Every request finishes with finite logits; the
-    row write and the attention launch once a layer a step; a fresh engine
-    replays the int8 run's streams and pools bitwise (the reference cell's
+    row write and the attention launch once a layer a step; the engine
+    served again (serve_again) replays the int8 run's streams and pools bitwise (the reference cell's
     storage; bf16's replay is phase 5's, fp8 shares int8's kernels but
     the convert); tok/s, TTFT, one step's eager and graph device ms and the
     greedy tokens that agree with the bf16 run, per storage."""
     import torch
-    from pygpukit_tpu_torch import LAUNCHES, reset_launches
     from pygpukit_tpu_torch.llm import CausalTransformerModel, ContinuousBatchingEngine
     t0 = time.perf_counter()
     params = build_model(cfg, 0, dev, "int8").params
@@ -2795,12 +3067,12 @@ def kv_phase(cfg, dev, card: str) -> None:
             eng.submit(KV_PROMPT, max_new_tokens=KV_STEPS)
         eng.run_until_complete()
         torch.cuda.synchronize()
-        reset_launches()
+        reset_counts()
         t1 = time.perf_counter()
         reqs = [eng.submit(p, max_new_tokens=m) for p, m in requests]
         eng.run_until_complete()
         torch.cuda.synchronize()
-        return eng, reqs, time.perf_counter() - t1, dict(LAUNCHES)
+        return eng, reqs, time.perf_counter() - t1, launch_counts()
 
     base_streams = None
     for kind in ("bf16", "int8", "fp8"):
@@ -2812,13 +3084,12 @@ def kv_phase(cfg, dev, card: str) -> None:
             check(launches[name] > 0, f"kv {kind}: {name} was never launched")
         streams = [r.generated for r in reqs]
         if kind == "int8":
-            eng2, reqs2, _, _ = run(model)
+            pools = pool_copy(eng)
+            reqs2, _ = serve_again(eng, requests, warm=[(KV_PROMPT, KV_STEPS)] * KV_WARM)
             check([r.generated for r in reqs2] == streams, f"kv {kind} replay: streams differ")
-            check(all(torch.equal(x, y) for a, c in ((eng.k_cache, eng2.k_cache),
-                                                     (eng.v_cache, eng2.v_cache))
-                      for x, y in zip(pool_bits(a), pool_bits(c))),
+            check(all(torch.equal(x, y) for x, y in zip(pools, pool_copy(eng))),
                   f"kv {kind} replay: pools differ")
-            del eng2
+            del pools
         del eng
         eager, graph, _, counts = decode_step_times(model, 8, KV_MAX, 1000, profile=False)
         for name in ("kv_rows_write_fused", "batch_decode_attention"):
@@ -2860,15 +3131,14 @@ def moe_forward(model, cfg, dev, card: str, per_step: dict) -> dict:
     profile. Returns the launches of the first call."""
     import numpy as np
     import torch
-    from pygpukit_tpu_torch import LAUNCHES, reset_launches
     from pygpukit_tpu_torch.llm import forward_fn
     n_layers = cfg.num_layers
     ids = np.random.default_rng(14).integers(1, cfg.vocab_size, MOE_FWD_S).tolist()
     torch.cuda.synchronize()
-    reset_launches()
+    reset_counts()
     logits = model.get_logits(ids)
-    launches = dict(LAUNCHES)
-    reset_launches()
+    launches = launch_counts()
+    reset_counts()
     check(logits.shape == (MOE_FWD_S, cfg.vocab_size) and bool(np.isfinite(logits).all()),
           f"moe forward: logits {logits.shape} or a value not finite")
     moved = {k: n for k, n in launches.items() if n}
@@ -2913,20 +3183,20 @@ def moe_generate(model, cfg, dev) -> None:
     route's device ms (one _moe_mlp call at T 1 a layer)."""
     import numpy as np
     import torch
-    from pygpukit_tpu_torch import LAUNCHES, reset_launches
     from pygpukit_tpu_torch.llm.model import _moe_mlp, _slice_layer_params
     n_layers = cfg.num_layers
     prompt = np.random.default_rng(15).integers(1, cfg.vocab_size, MOE_PROMPT).tolist()
     runs = []
+    model.init_fixed_cache(MOE_MAX)          # the first run captures, the second replays
     for _ in range(2):
-        model.init_fixed_cache(MOE_MAX)
+        zero_cache(model, MOE_MAX)
         torch.cuda.synchronize()
-        reset_launches()
+        reset_counts()
         t0 = time.perf_counter()
         toks = model.generate(prompt, max_new_tokens=MOE_NEW, chunk_size=MOE_NEW)
         torch.cuda.synchronize()
-        runs.append((toks, time.perf_counter() - t0, dict(LAUNCHES), model.logits_finite()))
-    reset_launches()
+        runs.append((toks, time.perf_counter() - t0, launch_counts(), model.logits_finite()))
+    reset_counts()
     (toks1, _, _, fin1), (toks2, secs, launches, fin2) = runs
     check(len(toks2) == MOE_NEW and toks1 == toks2,
           "moe generate: the second run's tokens differ from the first's")
@@ -2943,7 +3213,7 @@ def moe_generate(model, cfg, dev) -> None:
     y1 = torch.randn((1, cfg.hidden_size), generator=g, device=dev).to(torch.bfloat16)
     gather_ms = time_ms(lambda i: _moe_mlp(cfg, lps[i], y1), n_layers, reps=5) * n_layers
     print(f"phase 14: generate {MOE_NEW} greedy tokens after a {MOE_PROMPT}-token prompt "
-          f"(prefill {2 * MOE_PROMPT} routed rows): {MOE_NEW / secs:.1f} tok/s eager, "
+          f"(prefill {2 * MOE_PROMPT} routed rows): {MOE_NEW / secs:.1f} tok/s replayed, "
           f"replayed identical, launches {json.dumps(moved)} (gmm only in the prefill); "
           f"one decode step at pos {pos}: eager {eager:.3f} ms wall, CUDA-graph replay "
           f"{graph:.3f} ms device, launches {json.dumps(counts)}; the gather route "
@@ -2957,18 +3227,18 @@ def moe_engine(model, cfg) -> None:
     MOE_REQ_PROMPT-token prompts and MOE_REQ_NEW new tokens: every request
     finishes, gmm in the prefills, one batch_decode_attention a layer a
     decode step, the row write fused in, on the dense MoE route
-    (no gmm), a fresh engine replays the streams and pools bitwise."""
+    (no gmm), the engine served again (serve_again) replays the streams and
+    pools bitwise."""
     import numpy as np
     import torch
-    from pygpukit_tpu_torch import LAUNCHES, reset_launches
     n_layers = cfg.num_layers
     rng = np.random.default_rng(17)
     requests = [(rng.integers(1, cfg.vocab_size, MOE_REQ_PROMPT).tolist(), MOE_REQ_NEW)
                 for _ in range(MOE_REQUESTS)]
-    reset_launches()
+    reset_counts()
     eng1, reqs1, secs1 = serve(model, requests, 16, max_seq_len=MOE_ENGINE_MAX)
-    launches = {k: n for k, n in LAUNCHES.items() if n}
-    reset_launches()
+    launches = {k: n for k, n in launch_counts().items() if n}
+    reset_counts()
     n_tok = check_served(eng1, reqs1, requests, "moe engine")
     for name in ("gmm", "kv_rows_write_fused", "batch_decode_attention"):
         check(launches.get(name, 0) > 0, f"moe engine: {name} was never launched")
@@ -2976,12 +3246,13 @@ def moe_engine(model, cfg) -> None:
                                                    MOE_REQ_PROMPT + MOE_REQ_NEW // 2)
     want = {"kv_rows_write_fused": n_layers, "batch_decode_attention": n_layers}
     check(counts == want, f"moe engine decode step: launches {counts}, expected {want}")
-    eng2, reqs2, secs2 = serve(model, requests, 16, max_seq_len=MOE_ENGINE_MAX)
+    pools = pool_copy(eng1)
+    reqs2, secs2 = serve_again(eng1, requests)
     check([r.generated for r in reqs1] == [r.generated for r in reqs2],
           "moe engine, second run: token streams differ")
-    check(torch.equal(bits(eng1.k_cache), bits(eng2.k_cache))
-          and torch.equal(bits(eng1.v_cache), bits(eng2.v_cache)),
+    check(all(torch.equal(a, b) for a, b in zip(pools, pool_copy(eng1))),
           "moe engine, second run: KV pools differ")
+    del pools
     ttft = ttft_ms(reqs1)
     print(f"phase 14: batch-8 engine, {MOE_REQUESTS} requests of {MOE_REQ_PROMPT} + "
           f"{MOE_REQ_NEW} tokens: {n_tok} tokens in {secs1:.3f} s = {n_tok / secs1:.1f} tok/s "
@@ -2999,7 +3270,6 @@ def moe_cpu_parity(cfg, dev) -> None:
     quantile of the rows' relative L2 within FWD_TOL (see MOE_ROWS_Q)."""
     import numpy as np
     import torch
-    from pygpukit_tpu_torch import LAUNCHES, reset_launches
     from pygpukit_tpu_torch.llm import (CausalTransformerModel, TransformerConfig, fuse_params,
                                         init_params)
     small = TransformerConfig(**{**cfg.__dict__, "num_layers": 2})
@@ -3013,10 +3283,10 @@ def moe_cpu_parity(cfg, dev) -> None:
     card_model = CausalTransformerModel(small, to_card(params), dtype=torch.bfloat16)
     ids = np.random.default_rng(18).integers(1, cfg.vocab_size, MOE_PARITY_S).tolist()
     torch.cuda.synchronize()
-    reset_launches()
+    reset_counts()
     lc = card_model.get_logits(ids)
-    n_gmm = LAUNCHES["gmm"]
-    reset_launches()
+    n_gmm = launch_counts()["gmm"]
+    reset_counts()
     check(n_gmm == 6, f"moe 2-layer forward: gmm launched {n_gmm} times, expected 6")
     t0 = time.perf_counter()
     lr = cpu_model.get_logits(ids)
@@ -3059,6 +3329,301 @@ def moe_phase(dev, card: str, per_step: dict) -> dict:
     moe_cpu_parity(cfg, dev)
     torch.cuda.empty_cache()
     print(f"phase 14 took {time.perf_counter() - t0:.1f} s")
+    return launches
+
+
+def clone_tree(t):
+    import torch
+    if isinstance(t, torch.Tensor):
+        return t.clone()
+    if isinstance(t, dict):
+        return {k: clone_tree(v) for k, v in t.items()}
+    if isinstance(t, (tuple, list)):
+        return type(t)(clone_tree(v) for v in t)
+    return t
+
+
+def tree_equal(a, b, trash: bool = False) -> bool:
+    """Leaf by leaf bitwise; ``trash``: paged pools [L, NB, ...] compared
+    outside block 0 (its duplicate writes are unordered)."""
+    import torch
+    if isinstance(a, dict):
+        return all(tree_equal(a[k], b[k], trash) for k in a)
+    if isinstance(a, (tuple, list)):
+        return all(tree_equal(x, y, trash) for x, y in zip(a, b))
+    if isinstance(a, torch.Tensor):
+        if trash:
+            a, b = a[:, 1:], b[:, 1:]
+        return a.shape == b.shape and torch.equal(bits(a), bits(b))
+    return a == b
+
+
+def eager_vs_replay(exe, args, what: str, trash=()) -> tuple[float, float]:
+    """One eager call of ``exe``'s function on clones of its donated
+    arguments against one replay from the same state, the registered
+    generators put back in between: outputs and donated state bitwise
+    (``trash``: the argnums of paged pools). Returns (eager, replay) wall
+    ms, each synchronized."""
+    import torch
+    donated = exe.donate_argnums
+    clones = [clone_tree(a) if i in donated else a for i, a in enumerate(args)]
+    states = [gen.get_state() for gen in exe.generators]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        ref = exe.fn(*clones)
+    torch.cuda.synchronize()
+    eager = (time.perf_counter() - t0) * 1e3
+    ref = clone_tree(ref)
+    for gen, st in zip(exe.generators, states):
+        gen.set_state(st)
+    t0 = time.perf_counter()
+    out = exe.replay(*args)
+    torch.cuda.synchronize()
+    replay = (time.perf_counter() - t0) * 1e3
+    check(tree_equal(out, ref) and all(tree_equal(args[i], clones[i], i in trash)
+                                       for i in donated),
+          f"graphs: {what}: the replay is not the eager call's bits")
+    return eager, replay
+
+
+def exe_lines(pool, what: str) -> str:
+    """Per executable of an owner's ExecutableCache: node count, bytes
+    reserved in the pool, capture seconds, replays."""
+    rows = [f"{e.name}: {e.node_count} nodes, {e.memory_analysis()} B, "
+            f"{e.stats.capture_s:.2f} s, {e.stats.replays} replays"
+            for e in pool.executables().values()]
+    return f"{what}: pool {pool.nbytes} B; " + "; ".join(rows)
+
+
+def engine_inputs(eng, key, rng) -> tuple:
+    """Replay arguments of the engine's executable ``key`` at a fresh
+    random input: prompts, lengths in [1, bucket], distinct slots, distinct
+    blocks for paged tables; the chunk at random tokens and positions (the
+    pipelined engine's own last/poss and the paged tables set in place)."""
+    import numpy as np
+    import torch
+    from pygpukit_tpu_torch.ops.embedding import kv_leaf
+    m = eng.model
+    dev, vocab, b = m.device, m.config.vocab_size, eng.max_batch
+    pools, flag = (m.params, eng.k_cache, eng.v_cache), eng._nonfinite
+
+    def ints(lo, hi, shape, dtype=torch.int32):
+        return torch.as_tensor(rng.integers(lo, hi, shape), dtype=dtype, device=dev)
+
+    def tables(w):
+        nb = kv_leaf(eng.k_cache).shape[1]
+        blocks = rng.permutation(np.arange(1, nb))[:w * eng.max_blocks]
+        return torch.as_tensor(blocks.reshape(w, eng.max_blocks), dtype=torch.int32,
+                               device=dev)
+    if key == "chunk":
+        last, poss = ints(1, vocab, (b,), torch.long), ints(0, eng.max_seq_len - 1, (b,))
+        if eng.pipelined:
+            eng._last_dev.copy_(last)
+            eng._poss_dev.copy_(poss)
+            last, poss = eng._last_dev, eng._poss_dev
+        head = pools
+        if eng.paged:
+            eng._tables_dev.copy_(tables(b))
+            head += (eng._tables_dev,)
+        return head + (last, poss, flag)
+    w, bucket = (key[1] if len(key) == 3 else 1, key[-1]) if isinstance(key, tuple) else (1, key)
+    tokens = ints(1, vocab, (w, bucket), torch.long)
+    lens = ints(1, bucket + 1, (w,))
+    slots = torch.as_tensor(rng.permutation(b)[:w], dtype=torch.int32, device=dev)
+    if not eng.pipelined:
+        if eng.paged:
+            return pools + (tables(1)[0], tokens[0], lens[:1], flag)
+        return pools + (tokens[0], lens[:1], slots[:1], flag)
+    state = pools + (eng._last_dev, eng._poss_dev)
+    if eng.paged:
+        return state + (tables(w), tokens, lens, slots, flag)
+    return state + (tokens, lens, slots, flag)
+
+
+def graphs_engine(model, requests, n_steps: int, what: str, rng, card: str,
+                  **kw) -> dict:
+    """Phase 17, one engine: its programs captured in warmup() (untimed),
+    the requests served twice (the second time by serve_again, replaying
+    the same programs from a zeroed state): identical streams and bitwise
+    pools (paged: outside block 0); tok/s and TTFT; per
+    executable its nodes, pool bytes and capture seconds; every executable
+    replayed bitwise against one eager call of its function at two random
+    inputs, the chunk's eager and replayed wall ms a step; launches a step
+    from cost_analysis(). Returns the first run's launches (cost_analysis
+    x replays)."""
+    paged = kw.get("paged", False)
+    reset_counts()
+    eng, reqs1, secs1 = serve(model, requests, n_steps, prewarm=True, **kw)
+    launches = launch_counts()
+    reset_counts()
+    n_tok = check_served(eng, reqs1, requests, what)
+    pools = pool_copy(eng)
+    reqs2, secs2 = serve_again(eng, requests)
+    check([r.generated for r in reqs1] == [r.generated for r in reqs2],
+          f"graphs: {what}: the second run's streams differ")
+    check(all(tree_equal(a, b, paged) for a, b in zip(pools, pool_copy(eng))),
+          f"graphs: {what}: the second run's pools differ")
+    ttft = ttft_ms(reqs1)
+    del pools
+    chunk = eng.graphs.get("chunk")
+    per_step = {k: n / n_steps for k, n in chunk.cost_analysis().items()}
+    times = {}
+    for key, exe in eng.graphs.executables().items():
+        for _ in range(2):
+            times[exe.name] = eager_vs_replay(exe, engine_inputs(eng, key, rng),
+                                              f"{what} {exe.name}", (1, 2) if paged else ())
+    e_ms, r_ms = times[chunk.name]
+    print(f"phase 17: {what}: {len(reqs1)} requests, {n_tok} tokens in {secs1:.3f} s = "
+          f"{n_tok / secs1:.1f} tok/s (second run {n_tok / secs2:.1f}), TTFT p50/p95 "
+          f"{ttft[0]:.1f}/{ttft[1]:.1f} ms; streams and pools identical over two runs; "
+          f"{chunk.name}: eager {e_ms / n_steps:.3f} ms/step, replayed "
+          f"{r_ms / n_steps:.3f} ms/step wall; launches a step {json.dumps(per_step)}; "
+          f"every executable's replay bitwise its eager call at two inputs; [{card}]")
+    print("phase 17: " + exe_lines(eng.graphs, what) + "; eager/replayed ms "
+          + json.dumps({k: [round(v[0], 3), round(v[1], 3)] for k, v in times.items()}))
+    del eng
+    return launches
+
+
+def model_inputs(model, key, rng) -> tuple:
+    """Replay arguments of the model's executable ``key`` at a random
+    input (position, tokens, true length)."""
+    import torch
+    dev, vocab = model.device, model.config.vocab_size
+    head = (model.params, model.k_cache, model.v_cache)
+
+    def one(lo, hi):
+        return torch.tensor([int(rng.integers(lo, hi))], dtype=torch.int32, device=dev)
+    kind = key[0]
+    if kind == "prefill":
+        tokens = torch.as_tensor(rng.integers(1, vocab, key[1]), dtype=torch.int32, device=dev)
+        return head + (tokens, one(1, key[1] + 1), model._nonfinite)
+    if kind == "decode":
+        b = model.decode_buffers
+        return head + (one(1, vocab), one(16, LADDER_MAX - 1), model._nonfinite, b.logits,
+                       b.sampled)
+    if kind == "window":
+        tokens = torch.as_tensor(rng.integers(1, vocab, key[1]), dtype=torch.long, device=dev)
+        return head + (tokens, one(16, LADDER_MAX - key[1]), model._nonfinite)
+    return head + (one(1, vocab), one(16, LADDER_MAX - key[1]), model._nonfinite)
+
+
+def graphs_model(model, rng, card: str) -> None:
+    """Phase 17, the model's programs at MAX LADDER_MAX: prefill (16-token
+    prompt, bucket 32), decode_step, decode_window (T GRAPH_WINDOW) and
+    decode_chunk_device (GRAPH_CHUNK steps, greedy and at GRAPH_TEMP with
+    top-k GRAPH_TOPK): each replay bitwise one eager call at two inputs
+    (the sampled chunk's generator reseeded alike, two seeds)."""
+    model.init_fixed_cache(LADDER_MAX)
+    logits = model.prefill(LADDER_PROMPT)
+    tok = logits.argmax()
+    model.decode_step(tok)
+    model.decode_window(list(range(1, GRAPH_WINDOW + 1)), advance=0)
+    model.decode_chunk_device(tok, GRAPH_CHUNK)
+    model.decode_chunk_device(tok, GRAPH_CHUNK, GRAPH_TEMP, GRAPH_TOPK, seed=1)
+    times = {}
+    for key, exe in model.graphs.executables().items():
+        for seed in (3, 4):
+            if exe.generators:
+                exe.generators[0].manual_seed(seed)
+            label = exe.name + (" sampled" if exe.generators else "")
+            times[label] = eager_vs_replay(exe, model_inputs(model, key, rng),
+                                           f"model {label}")
+    steps = {f"generate_{GRAPH_CHUNK}": GRAPH_CHUNK,
+             f"generate_{GRAPH_CHUNK} sampled": GRAPH_CHUNK}
+    print("phase 17: model programs, each replay bitwise its eager call at two inputs; "
+          "eager/replayed wall ms a call (a step for the chunks): "
+          + json.dumps({k: [round(v[0] / steps.get(k, 1), 3), round(v[1] / steps.get(k, 1), 3)]
+                        for k, v in times.items()}) + f"; [{card}]")
+    print("phase 17: " + exe_lines(model.graphs, "model"))
+
+
+def graphs_strategies(model, cfg, rng, card: str) -> None:
+    """Phase 17, DecodeBatch over 8 prompts and speculation with a separate
+    2-layer draft (slice_layers of the model): their programs, each replay
+    bitwise one eager call at two inputs."""
+    import dataclasses
+    import torch
+    from pygpukit_tpu_torch.llm import CausalTransformerModel, slice_layers
+    from pygpukit_tpu_torch.llm.decode import DecodeBatch, DecodeSpeculative
+    dev, vocab = model.device, cfg.vocab_size
+    prompts = [LADDER_PROMPT] + [rng.integers(1, vocab, int(n)).tolist()
+                                 for n in rng.integers(4, 40, 7)]
+    batch = DecodeBatch(max_seq_len=LADDER_MAX).bind(model)
+    toks = batch.generate(prompts, GRAPH_CHUNK)
+    check(all(len(t) == GRAPH_CHUNK for t in toks), "graphs: DecodeBatch token counts")
+    times = {}
+    for key, exe in batch.graphs.executables().items():
+        for _ in range(2):
+            if key[0] == "prefill":
+                inputs = (torch.as_tensor(rng.integers(1, vocab, (8, key[2])), device=dev),
+                          torch.as_tensor(rng.integers(1, key[2] + 1, 8), dtype=torch.int32,
+                                          device=dev))
+            else:
+                inputs = (torch.as_tensor(rng.integers(1, vocab, 8), dtype=torch.int32,
+                                          device=dev),
+                          torch.as_tensor(rng.integers(40, LADDER_MAX - 1, 8),
+                                          dtype=torch.int32, device=dev))
+            times[exe.name] = eager_vs_replay(
+                exe, (model.params, batch.k_cache, batch.v_cache) + inputs,
+                f"DecodeBatch {exe.name}")
+    print("phase 17: " + exe_lines(batch.graphs, "DecodeBatch"))
+    del batch
+    draft = CausalTransformerModel(dataclasses.replace(cfg, num_layers=2),
+                                   slice_layers(model.params, 2), dtype=torch.bfloat16)
+    spec = DecodeSpeculative(gamma=4, draft_model=draft).bind(model)
+    model.init_fixed_cache(LADDER_MAX)
+    toks = spec.generate(LADDER_PROMPT, GRAPH_DRAFT_NEW)
+    check(len(toks) == GRAPH_DRAFT_NEW, "graphs: speculation with a draft: token count")
+    for key, exe in spec.graphs.executables().items():
+        for _ in range(2):
+            one = torch.tensor([int(rng.integers(1, key[1] + 1 if key[0] == "prefill"
+                                                 else vocab))], dtype=torch.int32, device=dev)
+            if key[0] == "prefill":
+                first = torch.as_tensor(rng.integers(1, vocab, key[1]), device=dev)
+            else:
+                first = one
+                one = torch.tensor([int(rng.integers(16, LADDER_MAX - key[1]))],
+                                   dtype=torch.int32, device=dev)
+            times[exe.name] = eager_vs_replay(
+                exe, (spec._draft_params, spec._draft_k, spec._draft_v, first, one),
+                f"draft {exe.name}")
+    print(f"phase 17: DecodeBatch and the separate draft: every replay bitwise its eager "
+          f"call at two inputs; eager/replayed wall ms "
+          + json.dumps({k: [round(v[0], 3), round(v[1], 3)] for k, v in times.items()})
+          + f"; speculation stats {spec.stats}; [{card}]")
+    print("phase 17: " + exe_lines(spec.graphs, "draft"))
+    del spec, draft
+
+
+def graphs_phase(cfg, dev, card: str, requests) -> dict:
+    """Phase 17 (graphs): every program the engine, the model, DecodeBatch
+    and the separate draft capture, on the TinyLlama-1.1B shape with random
+    int4 weights (seed 0): the dense pipelined engine (batch 8, MAX 1024,
+    16 steps a dispatch) over phase 4's requests, the paged pipelined
+    engine (block 16, MAX 512, 128 steps) over GRAPH_PAGED_REQS requests of
+    16 + 128 tokens (phase 7's) at GRAPH_PAGED_STEPS steps a dispatch, the
+    non-pipelined dense engine; the
+    model's programs; DecodeBatch and the separate draft. Returns the
+    launches of the dense pipelined run."""
+    import numpy as np
+    import torch
+    t0 = time.perf_counter()
+    model = build_model(cfg, 0, dev)
+    rng = np.random.default_rng(17)
+    launches = graphs_engine(model, requests, 16, "dense pipelined engine", rng, card,
+                             pipelined=True)
+    paged_reqs = [(rng.integers(1, cfg.vocab_size, 16).tolist(), 128)
+                  for _ in range(GRAPH_PAGED_REQS)]
+    graphs_engine(model, paged_reqs, GRAPH_PAGED_STEPS, "paged pipelined engine", rng,
+                  card, max_seq_len=512, pipelined=True, paged=True, block_size=16)
+    graphs_engine(model, requests, 16, "dense engine, not pipelined", rng, card)
+    graphs_model(model, rng, card)
+    graphs_strategies(model, cfg, rng, card)
+    del model
+    torch.cuda.empty_cache()
+    print(f"phase 17 took {time.perf_counter() - t0:.1f} s")
     return launches
 
 
@@ -3175,6 +3740,9 @@ def main(argv: list[str]) -> int:
     if "strategies" in phases:
         launches_16 = strategies_phase(cfg, dev, card, per_step)
         print("phase 16: launches " + json.dumps(launches_16))
+    if "graphs" in phases:
+        launches_17 = graphs_phase(cfg, dev, card, requests)
+        print("phase 17: launches " + json.dumps({k: n for k, n in launches_17.items() if n}))
     print(f"total {time.perf_counter() - t_start:.1f} s after the build began, "
           f"{time.perf_counter() - t_script:.1f} s the whole script")
     if set(phases) != set(PHASES):

@@ -3,14 +3,15 @@ from .array import Array, as_tensor, wrap
 from .backend import require_cuda, resolve_device, set_deterministic_numerics
 from .dtypes import (DTYPES, FP8_MAX, DataType, DataTypeKind, resolve_dtype,
                      to_dtype)
-from .executable import (Executable, ExecutableCache, ExecutableStats, capture,
-                         global_executable_cache)
+from .executable import (Executable, ExecutableCache, ExecutableStats, capture, global_executable_cache, replayed_launches,
+                         reset_replayed_launches)
 from .factory import (arange, empty, from_numpy, full, ones, ones_like, randn,
                       zeros, zeros_like)
 
 __all__ = ["dtypes", "Array", "as_tensor", "wrap", "require_cuda",
            "resolve_device", "set_deterministic_numerics", "Executable",
-           "ExecutableCache", "ExecutableStats", "capture", "global_executable_cache", "DTYPES", "FP8_MAX",
+           "ExecutableCache", "ExecutableStats", "capture",
+           "replayed_launches", "reset_replayed_launches", "global_executable_cache", "DTYPES", "FP8_MAX",
            "DataType", "DataTypeKind", "resolve_dtype", "to_dtype", "arange",
            "empty", "from_numpy", "full", "ones", "ones_like", "randn", "zeros",
            "zeros_like"]

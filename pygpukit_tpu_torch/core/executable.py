@@ -16,6 +16,11 @@ launch parameters, so a replay computes the eager call's bits.
   in place (caches, flags, output buffers): the graph binds them by
   address, and ``replay`` raises ValueError when handed another tensor
   (data pointer, shape or dtype): the port's reading of XLA donation.
+- **Bound arguments** (``bound_argnums``) are read-only state the graph
+  reads in place, such as the weights: bound by address as donated
+  arguments are, and not cloned for the warm-up. ``replay`` raises
+  ValueError when handed other tensors, so an executable never copies one
+  model's weights into another's.
 - **Other tensor arguments.** The example tensors are the graph's static
   inputs. At replay a tensor leaf whose storage is not the captured one is
   copied into it (ValueError on another shape or dtype); a Python number
@@ -34,12 +39,34 @@ launch parameters, so a replay computes the eager call's bits.
   fold keep arrival counters in ``__device__`` memory across launches, so
   replays run on the current stream and never on two streams at once.
 
+- **Shared pools.** An owner (a model, an engine, a strategy) keeps its
+  executables in an ``ExecutableCache(shared_pool=True)``: every capture
+  of the owner records into one ``torch.cuda.graph(pool=...)`` memory
+  pool, whose reserved bytes the cache reports (``nbytes``), and nothing
+  is evicted (an evicted graph would free memory that live static outputs
+  use). Sharing is safe because replays run
+  one at a time on one stream and every executable keeps its static
+  outputs alive, so a later capture never takes their memory. A replay
+  may reuse the memory of another executable's intermediates, so a static
+  output is consumed (copied, read or reduced on the stream) before the
+  next replay of any executable of the pool.
+- **Generators.** ``generators`` are registered with the graph
+  (``CUDAGraph.register_generator_state``): a replay draws from the
+  generator's current seed and offset and advances the offset as the
+  eager call would, so reseeding before a replay gives the eager call's
+  draws. The warm-up and the capture leave each generator's state as it
+  was.
+
 ``ExecutableStats.node_count`` is, on the card, the captured graph's node
 count (``cuGraphGetNodes`` on the graph torch keeps with ``keep_graph``);
 on the CPU, the ATen operations one call dispatches. ``cost_analysis`` is
 the per-kernel ``LAUNCHES`` delta of one replay, recorded while capturing
 (the Python counters do not tick on replay). ``memory_analysis`` is the
-bytes the capture's private memory pool reserved. The reference's
+bytes the capture reserved in its pool (its own, or its owner's shared
+one), ``stats.capture_s`` the seconds the capture took, warm-up and
+instantiation included. ``replayed_launches()`` sums ``cost_analysis()``
+over every replay since ``reset_replayed_launches()``: the launches that
+the ``LAUNCHES`` counters do not see. The reference's
 ``_xla_options`` (``PYGPUKIT_XLA_OPTS``) configures the XLA compiler and has
 no counterpart here.
 """
@@ -47,7 +74,10 @@ no counterpart here.
 from __future__ import annotations
 
 import ctypes
+import gc
 import threading
+import time
+from collections import Counter
 from dataclasses import dataclass
 from typing import Any, Callable
 
@@ -61,6 +91,21 @@ class ExecutableStats:
     captures: int = 0
     replays: int = 0
     node_count: int = 0
+    capture_s: float = 0.0
+
+
+#: kernel launches made by replays, by ``LAUNCHES`` name (module docstring)
+_REPLAYED: Counter = Counter()
+
+
+def replayed_launches() -> dict:
+    """Launches of every replay since ``reset_replayed_launches()``, by
+    kernel: each replay adds its executable's ``cost_analysis()``."""
+    return {k: n for k, n in _REPLAYED.items() if n}
+
+
+def reset_replayed_launches() -> None:
+    _REPLAYED.clear()
 
 
 class _OpCounter(TorchDispatchMode):
@@ -110,8 +155,13 @@ class Executable:
     def __init__(self, fn: Callable, *example_args,
                  donate_argnums: tuple[int, ...] = (),
                  static_argnums: tuple[int, ...] = (),
-                 name: str = "executable"):
+                 bound_argnums: tuple[int, ...] = (),
+                 name: str = "executable", pool: "ExecutableCache | None" = None,
+                 generators: tuple = ()):
+        t0 = time.perf_counter()
         self.name = name
+        self._pool = pool
+        self._generators = tuple(generators)
         self._fn = fn
         self._donate = frozenset(donate_argnums)
         self._static = frozenset(static_argnums)
@@ -122,17 +172,24 @@ class Executable:
                       torch.full((1,), a, device=self.device,
                                  dtype=torch.int32 if isinstance(a, int) else torch.float32)
                       for i, a in enumerate(example_args)]
-        self._donated = {i: _signature(self._args[i]) for i in self._donate}
+        self._bound = frozenset(bound_argnums)
+        self._donated = {i: _signature(self._args[i]) for i in self._donate | self._bound}
         self.stats = ExecutableStats(captures=1)
         self._cost: dict[str, int] = {}
         self._pool_bytes: int | None = None
         self._graph = None
         self._outputs = None
         self._released = False
-        if self.device.type == "cuda":
-            self._capture_graph()
-        else:
-            self._count_cpu_ops()
+        states = [g.get_state() for g in self._generators]
+        try:
+            if self.device.type == "cuda":
+                self._capture_graph()
+            else:
+                self._count_cpu_ops()
+        finally:
+            for g, st in zip(self._generators, states):
+                g.set_state(st)
+        self.stats.capture_s = time.perf_counter() - t0
 
     # -- capture -------------------------------------------------------------
 
@@ -158,14 +215,27 @@ class Executable:
             torch.cuda.synchronize(self.device)
             LAUNCHES.update(saved)
             graph = torch.cuda.CUDAGraph(keep_graph=True)
-            with torch.cuda.graph(graph):
-                # read inside: entering the capture empties the allocator's cache
-                reserved = torch.cuda.memory_reserved(self.device)
-                outputs = self._fn(*self._args)
+            for g in self._generators:
+                graph.register_generator_state(g)
+            handle = self._pool.handle(self.device) if self._pool is not None else None
+            # no collection inside the capture: a collected graph's reset
+            # is an illegal call there and invalidates the capture
+            collecting = gc.isenabled()
+            gc.disable()
+            try:
+                with torch.cuda.graph(graph, pool=handle):
+                    # read inside: entering the capture empties the allocator's cache
+                    reserved = torch.cuda.memory_reserved(self.device)
+                    outputs = self._fn(*self._args)
+            finally:
+                if collecting:
+                    gc.enable()
             self._cost = {k: n - saved[k] for k, n in LAUNCHES.items() if n != saved[k]}
         finally:
             LAUNCHES.update(saved)
         self._pool_bytes = torch.cuda.memory_reserved(self.device) - reserved
+        if self._pool is not None:
+            self._pool.nbytes += self._pool_bytes
         self.stats.node_count = _graph_nodes(graph.raw_cuda_graph())
         graph.instantiate()
         self._graph = graph
@@ -180,9 +250,10 @@ class Executable:
             raise TypeError(f"{self.name}: captured with {len(self._args)} arguments, "
                             f"replayed with {len(args)}")
         for i, (new, old) in enumerate(zip(args, self._args)):
-            if i in self._donate:
+            if i in self._donated:
                 if _signature(new) != self._donated[i]:
-                    raise ValueError(f"{self.name}: donated argument {i} is not the tensor "
+                    kind = "donated" if i in self._donate else "bound"
+                    raise ValueError(f"{self.name}: {kind} argument {i} is not the tensor "
                                      "it was captured with (data pointer, shape or dtype)")
             elif i in self._static:
                 tensors = isinstance(new, torch.Tensor) or isinstance(old, torch.Tensor)
@@ -219,6 +290,7 @@ class Executable:
         call of ``fn`` on the static inputs. Never recaptures."""
         self._bind(args)
         self.stats.replays += 1
+        _REPLAYED.update(self._cost)
         if self._graph is None:
             return self._fn(*self._args)
         self._graph.replay()
@@ -235,6 +307,20 @@ class Executable:
         self._released = True
 
     @property
+    def fn(self) -> Callable:
+        """The captured function (an eager call of it is what a replay
+        reproduces)."""
+        return self._fn
+
+    @property
+    def donate_argnums(self) -> frozenset:
+        return self._donate
+
+    @property
+    def generators(self) -> tuple:
+        return self._generators
+
+    @property
     def node_count(self) -> int:
         """Graph nodes on the card, dispatched ATen operations on the CPU."""
         return self.stats.node_count
@@ -244,45 +330,79 @@ class Executable:
         return dict(self._cost)
 
     def memory_analysis(self) -> int | None:
-        """Bytes the capture's private pool reserved on the card; None on
-        the CPU (no graph, no pool)."""
+        """Bytes the capture reserved in its pool on the card; None on the
+        CPU (no graph, no pool)."""
         return self._pool_bytes
 
 
 def capture(fn: Callable, *example_args, donate_argnums=(), static_argnums=(),
-            name: str = "executable") -> Executable:
+            bound_argnums=(), name: str = "executable",
+            pool: "ExecutableCache | None" = None, generators: tuple = ()) -> Executable:
     """Capture ``fn`` at the example arguments into a replayable executable."""
     return Executable(fn, *example_args, donate_argnums=tuple(donate_argnums),
-                      static_argnums=tuple(static_argnums), name=name)
+                      static_argnums=tuple(static_argnums),
+                      bound_argnums=tuple(bound_argnums), name=name, pool=pool,
+                      generators=tuple(generators))
 
 
 class ExecutableCache:
     """Keyed executable cache (the reference's ``ExecutableCache``): first
-    in, first out past ``max_entries``, the evicted graph released."""
+    in, first out past ``max_entries``, the evicted graph released. With
+    ``shared_pool`` it is an owner's cache (module docstring): its captures
+    share one memory pool, whose bytes ``nbytes`` counts, and nothing is
+    evicted."""
 
-    def __init__(self, max_entries: int = 256):
+    def __init__(self, max_entries: int = 256, shared_pool: bool = False):
         self._cache: dict[Any, Executable] = {}
         self._lock = threading.Lock()
         self._max = max_entries
+        self._shared = shared_pool
+        self._handle = None
+        self.nbytes = 0
         self.hits = 0
         self.misses = 0
 
+    def handle(self, device: torch.device):
+        """The ``torch.cuda.graph`` pool token, made at the first capture."""
+        if self._handle is None:
+            with torch.cuda.device(device):
+                self._handle = torch.cuda.graph_pool_handle()
+        return self._handle
+
     def get_or_capture(self, key, fn, *example_args, **kw) -> Executable:
+        """The executable under ``key``, captured at the example arguments
+        the first time."""
         with self._lock:
             exe = self._cache.get(key)
             if exe is not None:
                 self.hits += 1
                 return exe
             self.misses += 1
-        exe = capture(fn, *example_args, **kw)
+        exe = capture(fn, *example_args, pool=self if self._shared else None, **kw)
         with self._lock:
             if key in self._cache:            # captured meanwhile by another thread
                 exe.reset()
                 return self._cache[key]
-            if len(self._cache) >= self._max:
+            if not self._shared and len(self._cache) >= self._max:
                 self._cache.pop(next(iter(self._cache))).reset()
             self._cache[key] = exe
         return exe
+
+    def get(self, key) -> Executable | None:
+        return self._cache.get(key)
+
+    def executables(self) -> dict:
+        """{key: executable} in capture order."""
+        return dict(self._cache)
+
+    def reset(self) -> None:
+        """Release every executable and the pool."""
+        with self._lock:
+            for exe in self._cache.values():
+                exe.reset()
+            self._cache = {}
+            self._handle = None
+            self.nbytes = 0
 
     def stats(self) -> dict:
         with self._lock:

@@ -35,6 +35,15 @@
 // atomics. Needs no host sync, so it captures into a CUDA graph. The tile
 // enumeration is mirrored in Python by kernels/gmm.py (gmm_row_tiles),
 // which the CPU tests hold.
+//
+// The other operands (f32, as an f32 model passes them, or bf16 with K or N
+// off a multiple of 8, or a row stride off 8) take gmm_simt_kernel: the
+// same row tiles, one 128 x 128 output tile a block on the CUDA cores (f32
+// FMAs, no TF32: the reference's f32 product), operands converted to f32
+// as they are staged in shared memory 8 K rows at a time, every load
+// predicated, so any K, N and stride. The grid is the tiles' upper bound
+// (ceil(M/128) + G row tiles x column tiles); a block past the actual
+// tiles exits after its scan.
 #include "hopper_gemm.cuh"
 
 namespace {
@@ -133,6 +142,99 @@ gmm_kernel(const __grid_constant__ CUtensorMap tl, const __grid_constant__ CUten
   }
 }
 
+__device__ __forceinline__ float gmm_f32(float x) { return x; }
+__device__ __forceinline__ float gmm_f32(bf16 x) { return __bfloat162float(x); }
+
+constexpr int kSimtBM = 128, kSimtBN = 128, kSimtK = 8, kSimtThreads = 256;
+constexpr int kSimtPad = kSimtBM + 4;    // float4-aligned rows
+static_assert(kSimtBM == kHgBM, "the simt route walks gmm_locate's row tiles");
+
+// One 128 x 128 tile of out: row tile blockIdx.y of gmm_locate, column tile
+// blockIdx.x. Thread (ty, tx) owns rows ty*4 + {0..3}, 64 + ty*4 + {0..3}
+// and the same columns with tx; K in ascending order, one FMA chain each.
+template <typename T>
+__global__ void __launch_bounds__(kSimtThreads)
+gmm_simt_kernel(const T* __restrict__ lhs, const T* __restrict__ rhs,
+                const int* __restrict__ group_sizes, float* __restrict__ out, int m, int n,
+                int k, int n_groups, int lda) {
+  __shared__ __align__(16) float as[kSimtK][kSimtPad];   // lhs transposed: [k][row]
+  __shared__ __align__(16) float bs[kSimtK][kSimtPad];   // [k][column]
+  __shared__ GmmTile shared_tile;
+  if (threadIdx.x < 32) {
+    int total;
+    const GmmTile t = gmm_locate(group_sizes, n_groups, m, blockIdx.y, threadIdx.x, total);
+    if (threadIdx.x == 0) shared_tile = t;
+  }
+  __syncthreads();
+  const GmmTile tile = shared_tile;
+  if (tile.g < 0) return;                      // past the actual row tiles
+  const int n0 = blockIdx.x * kSimtBN;
+  const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
+  float acc[8][8];
+#pragma unroll
+  for (int i = 0; i < 8; ++i)
+#pragma unroll
+    for (int j = 0; j < 8; ++j) acc[i][j] = 0.f;
+  if (tile.g < n_groups) {                     // else the rows past the sum: zeros
+    const T* b = rhs + (size_t)tile.g * k * n;
+    for (int k0 = 0; k0 < k; k0 += kSimtK) {
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int i = threadIdx.x + j * kSimtThreads;
+        {  // lhs: 128 rows x 8 k, rows of this tile's segment only
+          const int r = i >> 3, kc = i & 7;
+          const bool ok = tile.m0 + r < tile.hi && k0 + kc < k;
+          as[kc][r] = ok ? gmm_f32(lhs[(size_t)(tile.m0 + r) * lda + k0 + kc]) : 0.f;
+        }
+        {  // rhs[g]: 8 k x 128 columns
+          const int r = i >> 7, col = i & 127;
+          const bool ok = k0 + r < k && n0 + col < n;
+          bs[r][col] = ok ? gmm_f32(b[(size_t)(k0 + r) * n + n0 + col]) : 0.f;
+        }
+      }
+      __syncthreads();
+#pragma unroll
+      for (int kk = 0; kk < kSimtK; ++kk) {
+        float av[8], bv[8];
+        const float4 a0 = *reinterpret_cast<const float4*>(&as[kk][ty * 4]);
+        const float4 a1 = *reinterpret_cast<const float4*>(&as[kk][64 + ty * 4]);
+        const float4 b0 = *reinterpret_cast<const float4*>(&bs[kk][tx * 4]);
+        const float4 b1 = *reinterpret_cast<const float4*>(&bs[kk][64 + tx * 4]);
+        av[0] = a0.x; av[1] = a0.y; av[2] = a0.z; av[3] = a0.w;
+        av[4] = a1.x; av[5] = a1.y; av[6] = a1.z; av[7] = a1.w;
+        bv[0] = b0.x; bv[1] = b0.y; bv[2] = b0.z; bv[3] = b0.w;
+        bv[4] = b1.x; bv[5] = b1.y; bv[6] = b1.z; bv[7] = b1.w;
+#pragma unroll
+        for (int i = 0; i < 8; ++i)
+#pragma unroll
+          for (int j = 0; j < 8; ++j) acc[i][j] = fmaf(av[i], bv[j], acc[i][j]);
+      }
+      __syncthreads();
+    }
+  }
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    const int row = tile.m0 + (i < 4 ? ty * 4 + i : 64 + ty * 4 + i - 4);
+    if (row < tile.lo || row >= tile.hi) continue;
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      const int col = n0 + (j < 4 ? tx * 4 + j : 64 + tx * 4 + j - 4);
+      if (col < n) out[(size_t)row * n + col] = acc[i][j];
+    }
+  }
+}
+
+template <typename T>
+cudaError_t launch_gmm_simt(const void* lhs, const void* rhs, const void* group_sizes,
+                            void* out, int m, int n, int k, int n_groups, int lda,
+                            cudaStream_t st) {
+  const dim3 grid(hg_cdiv(n, kSimtBN), hg_cdiv(m, kSimtBM) + n_groups);
+  gmm_simt_kernel<T><<<grid, kSimtThreads, 0, st>>>(
+      static_cast<const T*>(lhs), static_cast<const T*>(rhs),
+      static_cast<const int*>(group_sizes), static_cast<float*>(out), m, n, k, n_groups, lda);
+  return cudaGetLastError();
+}
+
 // The tile width for row_tiles 128-row tiles over n columns on sms SMs: the
 // width whose waves cost least (waves x BN), 256 on a tie (kernels/gemm.py
 // pick_bn is the same rule).
@@ -179,4 +281,19 @@ PGK_API int pgk_gmm(const void* lhs, const void* rhs, const void* group_sizes, v
   if (pick_bn(hg_cdiv(m, kHgBM) + n_groups, n, sms) == 256)
     return (int)launch_gmm<256>(lhs, rhs, group_sizes, out, m, n, k, n_groups, lda, sms, st);
   return (int)launch_gmm<128>(lhs, rhs, group_sizes, out, m, n, k, n_groups, lda, sms, st);
+}
+
+// The CUDA-core route: lhs [m, k] (row stride lda) and rhs [n_groups, k, n]
+// contiguous, both f32 (in_f32) or both bf16, any k, n and lda >= k;
+// group_sizes [n_groups] int32 in device memory, out [m, n] f32 contiguous.
+PGK_API int pgk_gmm_simt(const void* lhs, const void* rhs, const void* group_sizes, void* out,
+                         int m, int n, int k, int n_groups, int lda, int in_f32,
+                         void* stream) {
+  if (m < 1 || n < 1 || k < 1 || n_groups < 1 || lda < k ||
+      hg_cdiv(m, kSimtBM) + n_groups > 65535)
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (in_f32)
+    return (int)launch_gmm_simt<float>(lhs, rhs, group_sizes, out, m, n, k, n_groups, lda, st);
+  return (int)launch_gmm_simt<bf16>(lhs, rhs, group_sizes, out, m, n, k, n_groups, lda, st);
 }

@@ -81,6 +81,7 @@ _SIGNATURES = {
     "pgk_fused_decode_plan": [c_int] * 7 + [_P],
     "pgk_fused_decode": [_P] * 19 + [c_int] * 7 + [c_float, c_float, _P],
     "pgk_gmm": [_P, _P, _P, _P, c_int, c_int, c_int, c_int, c_int, _P],
+    "pgk_gmm_simt": [_P, _P, _P, _P, c_int, c_int, c_int, c_int, c_int, c_int, _P],
     "pgk_gemm_plan": [c_int, c_int, _P],
 }
 

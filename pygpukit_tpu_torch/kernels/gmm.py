@@ -10,9 +10,13 @@ sizes are zeros (megablox leaves them unwritten). A CUDA tensor launches
 the hand-written kernel (``csrc/gmm.cu``), which reads the sizes from
 device memory and needs no host sync; a CPU tensor runs ``gmm_plain``.
 
-The kernel takes bf16 operands with K and N multiples of 8 (16-byte rows)
-and raises NotImplementedError on anything else; it has no fall-back.
-Unlike megablox, M need not be a multiple of 128, and row tiles start at
+bf16 operands with K, N and the lhs row stride multiples of 8 (16-byte
+rows) take the kernel's TMA + wgmma route; f32 operands (an f32 model's,
+which the reference hands megablox unchanged), bf16 ones off 8, and a
+bf16/f32 pair (cast to f32) take its CUDA-core route
+(``gmm_simt_kernel``: f32 FMAs, no TF32, any K, N and stride). Other
+dtypes raise NotImplementedError. Both routes count as one ``gmm``
+launch. Unlike megablox, M need not be a multiple of 128, and row tiles start at
 each group's first row rather than on 128-row boundaries, so no tile spans
 two groups: :func:`gmm_row_tiles` enumerates them as the kernel's device
 scan (``gmm_locate`` in ``csrc/gmm.cu``) does, and :func:`gmm_plan` gives
@@ -82,25 +86,40 @@ def gmm_plain(lhs: torch.Tensor, rhs: torch.Tensor, group_sizes) -> torch.Tensor
     return out
 
 
+def gmm_route(lhs_dtype: torch.dtype, rhs_dtype: torch.dtype, k: int, n: int) -> str:
+    """The kernel route of CUDA operands (module docstring): "wgmma" or
+    "simt"; NotImplementedError for a dtype neither takes."""
+    for dt in (lhs_dtype, rhs_dtype):
+        if dt not in (_BF16, _F32):
+            raise NotImplementedError(f"the gmm kernel takes bf16 or f32 operands, got "
+                                      f"{lhs_dtype} and {rhs_dtype}")
+    if lhs_dtype == rhs_dtype == _BF16 and k % 8 == 0 and n % 8 == 0:
+        return "wgmma"
+    return "simt"
+
+
 def _gmm_kernel(lhs: torch.Tensor, rhs: torch.Tensor, group_sizes: torch.Tensor) -> torch.Tensor:
     """Launch ``csrc/gmm.cu`` on CUDA operands."""
-    if lhs.dtype != _BF16 or rhs.dtype != _BF16:
-        raise NotImplementedError(f"the gmm kernel takes bf16 operands, got {lhs.dtype} and "
-                                  f"{rhs.dtype}")
     m, k = lhs.shape
     n = rhs.shape[2]
-    if k % 8 or n % 8:
-        raise NotImplementedError(f"the gmm kernel needs K and N multiples of 8, got K {k}, "
-                                  f"N {n}")
+    route = gmm_route(lhs.dtype, rhs.dtype, k, n)
     require_on(lhs.device, rhs=rhs, group_sizes=group_sizes)
     out = torch.empty((m, n), dtype=_F32, device=lhs.device)
     if m == 0:
         return out
-    lhs = _rows16(lhs)
-    rhs = rhs.contiguous()
     sizes = group_sizes.to(torch.int32).contiguous()
-    launch("gmm", "pgk_gmm", lhs.data_ptr(), rhs.data_ptr(), sizes.data_ptr(), out.data_ptr(),
-           m, n, k, rhs.shape[0], lhs.stride(0), stream_of(lhs))
+    rhs = rhs.contiguous()
+    if route == "wgmma":
+        lhs = _rows16(lhs)
+        launch("gmm", "pgk_gmm", lhs.data_ptr(), rhs.data_ptr(), sizes.data_ptr(),
+               out.data_ptr(), m, n, k, rhs.shape[0], lhs.stride(0), stream_of(lhs))
+        return out
+    if lhs.dtype != rhs.dtype:                  # a bf16/f32 pair: the f32 product
+        lhs, rhs = lhs.to(_F32), rhs.to(_F32)
+    lhs = lhs if lhs.stride(-1) == 1 else lhs.contiguous()
+    launch("gmm", "pgk_gmm_simt", lhs.data_ptr(), rhs.data_ptr(), sizes.data_ptr(),
+           out.data_ptr(), m, n, k, rhs.shape[0], lhs.stride(0), int(lhs.dtype == _F32),
+           stream_of(lhs))
     return out
 
 

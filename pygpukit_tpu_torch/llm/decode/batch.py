@@ -5,20 +5,37 @@ The port's batch step is the batch-rows step the serving engines run
 (``batch_decode_step_fn``: the hidden rows batched through every weight
 matmul, the rows written and attended by ``kernels.kv_write_attention``,
 one ``batch_decode_attention`` launch a layer on the card) over pools
-``[B, L, MAX, Hk*D]`` in the model's ``kv_dtype``. Each prompt is
-prefilled into its slot with ``prefill_fn`` over the slot's views, as the
-engine admits a request. The positions stay a device ``[B]`` tensor; the
-host reads each step's greedy tokens, as the reference reads its logits.
+``[B, L, MAX, Hk*D]`` in the model's ``dtype``, as the reference's. Each
+prompt is prefilled into its slot with ``prefill_fn`` over the slot's
+views, as the engine admits a request. Both are captured executables in
+the strategy's pool, as the reference's: the prefill one per (B, bucket)
+(``batch_prefill_{B}x{bucket}``, the lengths a device ``[B]`` tensor), the
+step one (``batch_decode_{B}``, tokens and positions device ``[B]``
+tensors). The programs and the pools belong to the bound model: binding
+another model releases them. The host reads each step's greedy tokens, as
+the reference reads its logits, before the next replay.
 """
 
 from __future__ import annotations
 
+import functools
+
 import numpy as np
 import torch
 
-from ...ops.embedding import kv_cache_zeros
+from ...core.executable import ExecutableCache
+from ...ops.embedding import kv_cache_zeros, kv_leaf
 from ..model import _bucket, batch_decode_step_fn, prefill_fn, slot_cache
 from .base import DecodeStrategy
+
+
+def _batch_prefill_fn(cfg, params, k_pool, v_pool, padded, lens):
+    """Every slot's prompt (padded [B, S], lens [B] on the device) into its
+    slot of the pools; the logits [B, V]."""
+    return torch.stack([
+        prefill_fn(cfg, params, slot_cache(k_pool, i), slot_cache(v_pool, i), padded[i],
+                   lens[i:i + 1])
+        for i in range(padded.shape[0])])
 
 
 class DecodeBatch(DecodeStrategy):
@@ -29,26 +46,55 @@ class DecodeBatch(DecodeStrategy):
         self.max_seq_len = max_seq_len
         self.k_cache = None
         self.v_cache = None
+        self.graphs = ExecutableCache(shared_pool=True)
+
+    def bind(self, model) -> "DecodeBatch":
+        if model is not self.model:
+            self._release()
+        return super().bind(model)
+
+    def _release(self) -> None:
+        """Drop the captured programs and the pools they were bound to."""
+        self.graphs.reset()
+        self.k_cache = self.v_cache = None
 
     def _init_cache(self, batch: int, max_seq_len: int) -> None:
+        """Zeroed pools in the model's dtype; pools of the same shape, dtype
+        and device are zeroed in place, so the captured programs stay bound
+        to them."""
         model = self.model
         cfg = model.config
         shape = (batch, cfg.num_layers, max_seq_len, cfg.num_kv_heads * cfg.head_dim)
-        self.k_cache = kv_cache_zeros(shape, model.kv_dtype, device=model.device)
-        self.v_cache = kv_cache_zeros(shape, model.kv_dtype, device=model.device)
+        leaf = None if self.k_cache is None else kv_leaf(self.k_cache)
+        if (leaf is not None and tuple(leaf.shape) == shape and leaf.dtype == model.dtype
+                and leaf.device == model.device):
+            for pool in (self.k_cache, self.v_cache):
+                pool.zero_()
+        else:
+            self._release()
+            self.k_cache = kv_cache_zeros(shape, model.dtype, device=model.device)
+            self.v_cache = kv_cache_zeros(shape, model.dtype, device=model.device)
         self.max_seq_len = max_seq_len
 
-    def _batch_prefill(self, padded: torch.Tensor, lens: np.ndarray) -> torch.Tensor:
+    def _batch_prefill(self, padded: torch.Tensor, lens: torch.Tensor) -> torch.Tensor:
         model = self.model
-        return torch.stack([
-            prefill_fn(model.config, model.params, slot_cache(self.k_cache, i),
-                       slot_cache(self.v_cache, i), padded[i], int(n))
-            for i, n in enumerate(lens)])                             # [B, V]
+        b, bucket = padded.shape
+        exe = self.graphs.get_or_capture(
+            ("prefill", b, bucket), functools.partial(_batch_prefill_fn, model.config),
+            model.params, self.k_cache, self.v_cache, torch.zeros_like(padded),
+            torch.ones_like(lens), donate_argnums=(1, 2), bound_argnums=(0,),
+            name=f"batch_prefill_{b}x{bucket}")
+        return exe.replay(model.params, self.k_cache, self.v_cache, padded, lens)  # [B, V]
 
     def _batch_decode(self, tokens: torch.Tensor, poss: torch.Tensor) -> torch.Tensor:
         model = self.model
-        return batch_decode_step_fn(model.config, model.params, self.k_cache,
-                                    self.v_cache, tokens, poss)       # [B, V]
+        b = tokens.shape[0]
+        exe = self.graphs.get_or_capture(
+            ("decode", b), functools.partial(batch_decode_step_fn, model.config),
+            model.params, self.k_cache, self.v_cache, torch.zeros_like(tokens),
+            torch.zeros_like(poss), donate_argnums=(1, 2), bound_argnums=(0,),
+            name=f"batch_decode_{b}")
+        return exe.replay(model.params, self.k_cache, self.v_cache, tokens, poss)  # [B, V]
 
     @torch.no_grad()
     def generate(self, input_ids, max_new_tokens: int = 32,
@@ -67,7 +113,8 @@ class DecodeBatch(DecodeStrategy):
         for i, p in enumerate(prompts):
             padded[i, :len(p)] = p
 
-        logits = self._batch_prefill(torch.as_tensor(padded).to(model.device), lens)
+        logits = self._batch_prefill(torch.as_tensor(padded).to(model.device),
+                                     torch.as_tensor(lens).to(model.device))
         poss_host = lens.copy()
         poss = torch.as_tensor(lens).to(model.device)
         done = np.zeros(b, bool)

@@ -36,7 +36,7 @@ class DecodeM1Graph(DecodeStrategy):
         by the next replay."""
         model = self._require_model()
         self.stats.steps += 1
-        return model.decode_step_replay(token)
+        return model.decode_step(token)
 
     def generate(self, input_ids, max_new_tokens: int = 32,
                  eos_token_id: int | None = None) -> list[int]:

@@ -10,8 +10,13 @@ Two draft sources:
   tokens, counts and position once a chunk;
 * a separate draft model (``draft_model=``): any
   ``CausalTransformerModel`` with the same vocabulary, run by the host
-  loop below with its own cache; its prefill, its draft steps and the
-  target's verify window run eagerly.
+  loop below with its own cache. Its prefill (``draft_prefill_{bucket}``)
+  and its gamma greedy steps (``draft_scan_{gamma}``) are captured
+  executables in the strategy's pool, keyed as the reference's; the
+  target's verify window is the model's ``decode_window`` executable. The
+  host reads the proposals after each replay. (The reference's
+  ``_draft_step`` is never called by its ``generate``, so the port has
+  none.)
 
 Each round the draft greedily proposes ``gamma`` tokens, the target runs
 one lookahead window over [cur, d1..dγ], and the longest prefix on which
@@ -23,13 +28,27 @@ construction.
 
 from __future__ import annotations
 
+import functools
+
 import numpy as np
 import torch
 
-from ...ops.embedding import kv_cache_zeros
+from ...core.executable import ExecutableCache
+from ...ops.embedding import kv_cache_zeros, kv_leaf
 from ..model import (CausalTransformerModel, _bucket, _merged, generate_scan_fn,
                      prefill_fn, slice_layers)
 from .base import DecodeStrategy
+
+
+def _draft_scan_fn(cfg, gamma: int, params, k_cache, v_cache, token, pos):
+    """``gamma`` greedy draft steps (``generate_scan_fn``, unfused)."""
+    return generate_scan_fn(cfg, gamma, 0.0, 0, params, k_cache, v_cache, token, pos,
+                            allow_fused=False)
+
+
+def _draft_prefill_fn(cfg, params, k_cache, v_cache, tokens, true_len):
+    """The draft's prefill over its merged caches."""
+    return prefill_fn(cfg, params, _merged(k_cache), _merged(v_cache), tokens, true_len)
 
 
 class DecodeSpeculative(DecodeStrategy):
@@ -47,8 +66,14 @@ class DecodeSpeculative(DecodeStrategy):
         self._draft_k = None
         self._draft_v = None
         self._draft_pos = 0
+        self.graphs = ExecutableCache(shared_pool=True)
 
     def bind(self, model: CausalTransformerModel) -> "DecodeSpeculative":
+        # the draft programs and caches belong to the model they were made
+        # for: binding another model releases them
+        if model is not self.model:
+            self.graphs.reset()
+            self._draft_k = self._draft_v = None
         super().bind(model)
         if self.draft_model is not None:
             if self.draft_model.config.vocab_size != model.config.vocab_size:
@@ -68,20 +93,33 @@ class DecodeSpeculative(DecodeStrategy):
     # -- the separate draft model ------------------------------------------
 
     def _init_draft_cache(self) -> None:
+        """Zeroed draft caches in the model's dtype; caches of the same
+        shape, dtype and device are zeroed in place, so the captured draft
+        programs stay bound."""
         model = self.model
         cfg = self._draft_cfg
         shape = (self._draft_layers, model.max_seq_len, cfg.num_kv_heads, cfg.head_dim)
         dev = self.draft_model.device
-        self._draft_k = kv_cache_zeros(shape, model.dtype, device=dev, merged=False)
-        self._draft_v = kv_cache_zeros(shape, model.dtype, device=dev, merged=False)
+        leaf = None if self._draft_k is None else kv_leaf(self._draft_k)
+        if (leaf is not None and tuple(leaf.shape) == shape and leaf.dtype == model.dtype
+                and leaf.device == dev):
+            self._draft_k.zero_()
+            self._draft_v.zero_()
+        else:
+            self.graphs.reset()
+            self._draft_k = kv_cache_zeros(shape, model.dtype, device=dev, merged=False)
+            self._draft_v = kv_cache_zeros(shape, model.dtype, device=dev, merged=False)
         self._draft_pos = 0
 
     def _draft_propose(self, token: int, gamma: int) -> list[int]:
-        """``gamma`` greedy draft steps from ``token`` at the draft position
-        (``generate_scan_fn``, unfused), read back once."""
-        toks = generate_scan_fn(self._draft_cfg, gamma, 0.0, 0, self._draft_params,
-                                self._draft_k, self._draft_v, token, self._draft_pos,
-                                allow_fused=False)
+        """``gamma`` greedy draft steps from ``token`` at the draft position,
+        one replay of ``draft_scan_{gamma}``, read back once."""
+        exe = self.graphs.get_or_capture(
+            ("scan", gamma), functools.partial(_draft_scan_fn, self._draft_cfg, gamma),
+            self._draft_params, self._draft_k, self._draft_v, 0, 0,
+            donate_argnums=(1, 2), bound_argnums=(0,), name=f"draft_scan_{gamma}")
+        toks = exe.replay(self._draft_params, self._draft_k, self._draft_v, int(token),
+                          self._draft_pos)
         self._draft_pos += gamma
         return toks.tolist()
 
@@ -89,11 +127,16 @@ class DecodeSpeculative(DecodeStrategy):
         model = self.model
         n = len(ids)
         bucket = min(_bucket(n), model.max_seq_len)
+        dev = self.draft_model.device
+        exe = self.graphs.get_or_capture(
+            ("prefill", bucket), functools.partial(_draft_prefill_fn, self._draft_cfg),
+            self._draft_params, self._draft_k, self._draft_v,
+            torch.zeros(bucket, dtype=torch.long, device=dev), 1,
+            donate_argnums=(1, 2), bound_argnums=(0,), name=f"draft_prefill_{bucket}")
         padded = np.zeros((bucket,), np.int64)
         padded[:n] = ids
-        prefill_fn(self._draft_cfg, self._draft_params, _merged(self._draft_k),
-                   _merged(self._draft_v),
-                   torch.as_tensor(padded).to(self.draft_model.device), n)
+        exe.replay(self._draft_params, self._draft_k, self._draft_v,
+                   torch.as_tensor(padded).to(dev), n)
         self._draft_pos = n
 
     # -- generation ----------------------------------------------------------

@@ -55,7 +55,14 @@ or its plain version for CPU tensors. The single-stream position is a
 host int or a one-element int32 device tensor, with the same bits; with
 the tensor nothing is read on the host, so ``core.capture`` records the
 step once (``CausalTransformerModel._ensure_decode_exe``) and a replay
-serves every position. Cached prefill attends with the
+serves every position. The model's entry points replay captured programs,
+keyed as the reference compiles them, in one shared pool
+(``CausalTransformerModel.graphs``): ``prefill`` one per bucket (the true
+length a device tensor), ``decode_step`` one per route, ``decode_window``
+one per T, ``decode_chunk_device`` one per (n_steps, temperature, top_k)
+and ``decode_spec_chunk`` one per (n_rounds, gamma, n_draft). Their
+logits and tokens are static outputs that the next replay overwrites; the
+callers here consume them first. Cached prefill attends with the
 plain f32 softmax (``_prefill_attn``). The uncached forward
 (``forward_fn``, ``get_logits``, ``generate(use_cache=False)``) attends
 through ``ops.nn.flash_attention_fn``: on CUDA tensors the
@@ -98,7 +105,7 @@ from torch import nn
 
 from ..core.backend import resolve_device
 from ..core.dtypes import resolve_dtype
-from ..core.executable import Executable, capture
+from ..core.executable import Executable, ExecutableCache
 from ..core.host import tensor_from_numpy, tensor_to_numpy
 from ..core.numerics import require_full_f32, true_div
 from ..kernels import (block_w4a8_matmul, block_w4a16_matmul,
@@ -115,7 +122,7 @@ from ..ops.nn import (apply_rope_fn, flash_attention_fn, rmsnorm_fn,
                       rope_tables, sdpa_fixed_cache_fn, swiglu_fn)
 from ..ops.sampling import (sample_greedy_fn, sample_temperature_fn,
                             sample_topk_fn, sample_topp_fn)
-from .buffers import DecodeBuffers
+from .buffers import DecodeBuffers, PrefillBuffers
 from .config import TransformerConfig
 
 _F32 = torch.float32
@@ -400,9 +407,9 @@ def forward_fn(cfg: TransformerConfig, params: dict, tokens: torch.Tensor) -> to
 # Prefill and decode
 # ---------------------------------------------------------------------------
 
-def _prefill_attn(q, k, v, true_len: int, scale=None, softcap=None, window=None):
+def _prefill_attn(q, k, v, true_len, scale=None, softcap=None, window=None):
     """Causal attention within the padded prompt, f32; positions >= true_len
-    are masked out."""
+    (an int or a one-element device tensor) are masked out."""
     s, hq, d = q.shape
     hk = k.shape[1]
     if hk != hq:
@@ -423,27 +430,43 @@ def _prefill_attn(q, k, v, true_len: int, scale=None, softcap=None, window=None)
     return out.transpose(0, 1).to(q.dtype)
 
 
+def _last_row(h: torch.Tensor, true_len) -> torch.Tensor:
+    """Row ``true_len - 1`` of ``h``: indexed for an int, gathered for a
+    one-element device tensor (no host read), the same bits."""
+    if isinstance(true_len, torch.Tensor):
+        return h.index_select(0, true_len.reshape(1).to(torch.long) - 1)[0]
+    return h[true_len - 1]
+
+
 def prefill_fn(cfg: TransformerConfig, params: dict, k_cache, v_cache,
-               tokens: torch.Tensor, true_len: int) -> torch.Tensor:
+               tokens: torch.Tensor, true_len, slot=None) -> torch.Tensor:
     """Prefill padded ``tokens`` [S]; write rows [0, S) of every layer of the
     slot caches ``[L, MAX, Hk*D]`` (or int8 dicts) in place; return the f32
-    logits [V] of position ``true_len - 1``."""
+    logits [V] of position ``true_len - 1``. ``true_len`` is an int or a
+    one-element int32 tensor on the device (the mask broadcasts, the last
+    row is gathered: the int path's bits, no host read). With ``slot``, a
+    one-element integer device tensor, the caches are the pools ``[B, L,
+    MAX, Hk*D]`` and the rows land in that slot by an index copy."""
     s = tokens.shape[0]
     h = _embed_tokens(cfg, params, tokens)
     rc, rs = _rope_rows_for(params, 0, s) if cfg.use_rope else (None, None)
-    for i in range(kv_leaf(k_cache).shape[0]):
+    for i in range(kv_leaf(k_cache).shape[0 if slot is None else 1]):
         lp = _slice_layer_params(params["layers"], i)
         x = _attn_in(cfg, lp, h)
         q, k, v = _project_qkv(cfg, lp, x)
         if cfg.use_rope:
             q, k = _rope(cfg, q, rc, rs), _rope(cfg, k, rc, rs)
-        kv_write(k_cache, k.reshape(1, s, -1), (i, 0, 0))
-        kv_write(v_cache, v.reshape(1, s, -1), (i, 0, 0))
+        if slot is None:
+            kv_write(k_cache, k.reshape(1, s, -1), (i, 0, 0))
+            kv_write(v_cache, v.reshape(1, s, -1), (i, 0, 0))
+        else:
+            kv_write(k_cache, k.reshape(1, 1, s, -1), (slot, i, 0, 0))
+            kv_write(v_cache, v.reshape(1, 1, s, -1), (slot, i, 0, 0))
         attn = _prefill_attn(q, k, v, true_len, cfg.attn_scale,
                              cfg.attn_logit_softcap, _layer_window(cfg, i))
         h = _residual_tail(cfg, lp, h, attn, s)
     h = _norm(cfg, h, params["final_norm_w"])
-    return _logits(cfg, params, h[true_len - 1])
+    return _logits(cfg, params, _last_row(h, true_len))
 
 
 def batch_decode_step_fn(cfg: TransformerConfig, params: dict, k_pool, v_pool,
@@ -887,16 +910,62 @@ def slice_layers(params: dict, n_layers: int) -> dict:
     return out
 
 
+def _note_nonfinite(nonfinite: torch.Tensor, logits: torch.Tensor) -> None:
+    """Set the sticky flag when any logit is not finite (in place)."""
+    nonfinite |= ~torch.isfinite(logits).all()
+
+
 def _graph_decode_step(cfg: TransformerConfig, params: dict, k_cache, v_cache, token,
                        pos, nonfinite, logits_out, sampled_out):
     """The captured greedy decode step: ``decode_step_fn`` at the device
     position, the non-finite flag updated, the logits and their argmax
     written into the ``DecodeBuffers`` outputs."""
     logits = decode_step_fn(cfg, params, k_cache, v_cache, token, pos)
-    nonfinite |= ~torch.isfinite(logits).all()
+    _note_nonfinite(nonfinite, logits)
     logits_out.copy_(logits)
     sampled_out.copy_(torch.argmax(logits).reshape(1))
     return logits_out, sampled_out
+
+
+def _graph_prefill(cfg: TransformerConfig, params: dict, k_cache, v_cache, tokens,
+                   true_len, nonfinite) -> torch.Tensor:
+    """The captured prefill of the model's fixed caches (``prefill_fn``
+    over their merged views)."""
+    logits = prefill_fn(cfg, params, _merged(k_cache), _merged(v_cache), tokens, true_len)
+    _note_nonfinite(nonfinite, logits)
+    return logits
+
+
+def _graph_window(cfg: TransformerConfig, params: dict, k_cache, v_cache, tokens, pos,
+                  nonfinite) -> torch.Tensor:
+    """The captured lookahead window (``decode_window_fn``)."""
+    logits = decode_window_fn(cfg, params, k_cache, v_cache, tokens, pos)
+    _note_nonfinite(nonfinite, logits)
+    return logits
+
+
+def _graph_chunk(cfg: TransformerConfig, n_steps: int, temperature: float, top_k: int,
+                 generator, params: dict, k_cache, v_cache, token, pos,
+                 nonfinite) -> torch.Tensor:
+    """The captured decode chunk (``generate_scan_fn``)."""
+    return generate_scan_fn(cfg, n_steps, temperature, top_k, params, k_cache, v_cache,
+                            token, pos, generator,
+                            functools.partial(_note_nonfinite, nonfinite))
+
+
+def _graph_spec(cfg: TransformerConfig, n_rounds: int, gamma: int, n_draft: int,
+                params: dict, k_cache, v_cache, token, pos, nonfinite):
+    """The captured self-speculative chunk (``speculative_scan_fn``)."""
+    return speculative_scan_fn(cfg, n_rounds, gamma, n_draft, params, k_cache, v_cache,
+                               token, pos, functools.partial(_note_nonfinite, nonfinite))
+
+
+def _token_arg(token):
+    """A token for a captured program: an int as it is (written into the
+    static input), a device scalar as an int32 [1] tensor (copied in)."""
+    if isinstance(token, torch.Tensor):
+        return token.reshape(1).to(torch.int32)
+    return int(token)
 
 
 def _bucket(n: int, minimum: int = 32) -> int:
@@ -978,7 +1047,11 @@ class CausalTransformerModel(nn.Module):
         self.pos = 0
         self._nonfinite = None
         self.decode_buffers: DecodeBuffers | None = None
-        self._decode_exes: dict[bool, Executable] = {}
+        self.prefill_buffers: PrefillBuffers | None = None
+        # every captured program of the model, one shared pool; the
+        # sampled chunks' generators, one per executable
+        self.graphs = ExecutableCache(shared_pool=True)
+        self._chunk_generators: dict = {}
 
     def _register(self, params: dict) -> None:
         """Make the leaves of ``params`` not yet registered module buffers."""
@@ -1009,8 +1082,8 @@ class CausalTransformerModel(nn.Module):
         """Zeroed caches ``[L, MAX, Hk, D]`` of capacity ``max_seq_len`` in
         ``kv_dtype``; position 0. Under ``PYGPUKIT_DECODE=fused`` an
         eligible model gains the fused kernel's consolidated leaves here,
-        once (``prepare_fused_decode_params``). The captured decode steps
-        are released: they were bound to the old caches."""
+        once (``prepare_fused_decode_params``). The captured programs are
+        released: they were bound to the old caches."""
         cfg = self.config
         self._drop_executables()
         shape = (cfg.num_layers, max_seq_len, cfg.num_kv_heads, cfg.head_dim)
@@ -1026,10 +1099,9 @@ class CausalTransformerModel(nn.Module):
             self._register(prepare_fused_decode_params(cfg, params))
 
     def _drop_executables(self) -> None:
-        for exe in self._decode_exes.values():
-            exe.reset()
-        self._decode_exes = {}
-        self.decode_buffers = None
+        self.graphs.reset()
+        self._chunk_generators = {}
+        self.decode_buffers = self.prefill_buffers = None
 
     def _ensure_decode_exe(self) -> Executable:
         """The greedy decode step captured at the model's caches (``core.
@@ -1043,36 +1115,33 @@ class CausalTransformerModel(nn.Module):
             raise RuntimeError("capture the decode step after init_fixed_cache")
         fused = (not isinstance(self.k_cache, dict) and self.k_cache.dtype == torch.bfloat16
                  and use_fused_decode(self.config, self.params, self.max_seq_len))
-        exe = self._decode_exes.get(fused)
+        exe = self.graphs.get(("decode", fused))
         if exe is None:
             if self.decode_buffers is None:
                 self.decode_buffers = DecodeBuffers.allocate(self.config, self.dtype,
                                                              self.device)
             b = self.decode_buffers
             with torch.no_grad():
-                exe = capture(functools.partial(_graph_decode_step, self.config),
-                              self.params, self.k_cache, self.v_cache, b.token, b.position,
-                              self._nonfinite, b.logits, b.sampled,
-                              donate_argnums=(1, 2, 5, 6, 7),
-                              name="decode_step_fused" if fused else "decode_step")
-            self._decode_exes[fused] = exe
+                exe = self.graphs.get_or_capture(
+                    ("decode", fused), functools.partial(_graph_decode_step, self.config),
+                    self.params, self.k_cache, self.v_cache, b.token, b.position,
+                    self._nonfinite, b.logits, b.sampled, donate_argnums=(1, 2, 5, 6, 7),
+                    bound_argnums=(0,),
+                    name="decode_step_fused" if fused else "decode_step")
         return exe
 
-    @torch.no_grad()
-    def decode_step_replay(self, token) -> torch.Tensor:
-        """``decode_step`` through the captured executable: the token and
-        the model's position written into ``decode_buffers``, one replay,
-        the position advanced. Returns ``decode_buffers.logits`` (f32 [V]),
-        which the next replay overwrites."""
-        exe = self._ensure_decode_exe()
-        b = self.decode_buffers
-        logits, _ = exe.replay(self.params, self.k_cache, self.v_cache, token, self.pos,
-                               self._nonfinite, b.logits, b.sampled)
-        self.pos += 1
-        return logits
-
-    def _note_logits(self, logits: torch.Tensor) -> None:
-        self._nonfinite |= ~torch.isfinite(logits).all()
+    def _ensure_prefill_exe(self, bucket: int) -> Executable:
+        """The prefill of ``bucket`` padded tokens, captured once per bucket
+        (the reference's ``prefill_{bucket}``): the tokens through
+        ``prefill_buffers``, the true length a one-element device tensor."""
+        if self.prefill_buffers is None:
+            self.prefill_buffers = PrefillBuffers.allocate(self.config, self.max_seq_len,
+                                                           self.device)
+        return self.graphs.get_or_capture(
+            ("prefill", bucket), functools.partial(_graph_prefill, self.config),
+            self.params, self.k_cache, self.v_cache, self.prefill_buffers.tokens[:bucket],
+            1, self._nonfinite, donate_argnums=(1, 2, 5), bound_argnums=(0,),
+            name=f"prefill_{bucket}")
 
     def logits_finite(self) -> bool:
         """True when every logit since the last ``init_fixed_cache`` (or the
@@ -1092,8 +1161,9 @@ class CausalTransformerModel(nn.Module):
 
     @torch.no_grad()
     def prefill(self, input_ids) -> torch.Tensor:
-        """Run the prompt through cached prefill; f32 logits [V] of its
-        last position."""
+        """Run the prompt through cached prefill, the executable of its
+        bucket; f32 logits [V] of its last position, a static output that
+        the next replay of the model's programs overwrites."""
         ids = torch.as_tensor(np.asarray(input_ids, np.int64).reshape(-1))
         n = ids.numel()
         if self.k_cache is None:
@@ -1101,33 +1171,46 @@ class CausalTransformerModel(nn.Module):
         if n > self.max_seq_len:
             raise ValueError(f"prompt ({n}) exceeds cache ({self.max_seq_len})")
         bucket = min(_bucket(n), self.max_seq_len)
-        padded = torch.zeros(bucket, dtype=torch.long)
+        exe = self._ensure_prefill_exe(bucket)
+        padded = torch.zeros(bucket, dtype=torch.int32)
         padded[:n] = ids
-        logits = prefill_fn(self.config, self.params, _merged(self.k_cache),
-                            _merged(self.v_cache), padded.to(self.device), n)
-        self._note_logits(logits)
+        tokens = self.prefill_buffers.tokens[:bucket]
+        tokens.copy_(padded)
+        logits = exe.replay(self.params, self.k_cache, self.v_cache, tokens, n,
+                            self._nonfinite)
         self.pos = n
         return logits
 
     @torch.no_grad()
     def decode_step(self, token) -> torch.Tensor:
-        """One cached decode step; f32 logits [V] for the next position."""
-        logits = decode_step_fn(self.config, self.params, self.k_cache, self.v_cache,
-                                token, self.pos)
-        self._note_logits(logits)
+        """One cached decode step, a replay of the captured step
+        (``_ensure_decode_exe``): the token and the model's position written
+        into ``decode_buffers``, the position advanced. Returns
+        ``decode_buffers.logits`` (f32 [V] for the next position), which the
+        next replay overwrites."""
+        exe = self._ensure_decode_exe()
+        b = self.decode_buffers
+        logits, _ = exe.replay(self.params, self.k_cache, self.v_cache, _token_arg(token),
+                               self.pos, self._nonfinite, b.logits, b.sampled)
         self.pos += 1
         return logits
 
     @torch.no_grad()
     def decode_window(self, tokens, advance: int | None = None) -> torch.Tensor:
-        """Lookahead window decode: T tokens in, f32 logits [T, V] out;
+        """Lookahead window decode: T tokens in, f32 logits [T, V] out, one
+        executable per T (``decode_window_{T}``, its logits a static output);
         ``pos`` advances by ``advance`` (default T). Rows of rejected tokens
         are masked by later steps."""
-        toks = torch.as_tensor(np.asarray(tokens, np.int64).reshape(-1)).to(self.device)
-        logits = decode_window_fn(self.config, self.params, self.k_cache, self.v_cache,
-                                  toks, self.pos)
-        self._note_logits(logits)
-        self.pos += toks.numel() if advance is None else advance
+        toks = torch.as_tensor(np.asarray(tokens, np.int64).reshape(-1))
+        t = toks.numel()
+        exe = self.graphs.get_or_capture(
+            ("window", t), functools.partial(_graph_window, self.config), self.params,
+            self.k_cache, self.v_cache, torch.zeros(t, dtype=torch.long, device=self.device),
+            0, self._nonfinite, donate_argnums=(1, 2, 5), bound_argnums=(0,),
+            name=f"decode_window_{t}")
+        logits = exe.replay(self.params, self.k_cache, self.v_cache, toks.to(self.device),
+                            self.pos, self._nonfinite)
+        self.pos += t if advance is None else advance
         return logits
 
     def _generator(self, seed: int) -> torch.Generator:
@@ -1146,21 +1229,36 @@ class CausalTransformerModel(nn.Module):
     def decode_chunk_device(self, token, n_steps: int, temperature: float = 0.0,
                             top_k: int = 0, seed: int = 0) -> torch.Tensor:
         """``decode_chunk`` without the read back: int32 tokens [n_steps]
-        on the device; ``token`` may be a device scalar. Draws come from a
-        generator seeded with ``seed + pos`` (the reference folds
-        ``PRNGKey(seed + pos)``)."""
-        gen = self._generator(seed + self.pos) if temperature > 0 else None
-        toks = generate_scan_fn(self.config, n_steps, temperature, top_k, self.params,
-                                self.k_cache, self.v_cache, token, self.pos, gen,
-                                self._note_logits)
+        on the device (a static output), one executable per (n_steps,
+        temperature, top_k) (``generate_{n_steps}``); ``token`` may be a
+        device scalar. A sampled chunk draws from its executable's
+        registered generator, reseeded with ``seed + pos`` before each
+        replay (the reference folds ``PRNGKey(seed + pos)``)."""
+        key = ("generate", n_steps, float(temperature), int(top_k))
+        gen = None
+        if temperature > 0:
+            gen = self._chunk_generators.get(key)
+            if gen is None:
+                gen = self._chunk_generators[key] = torch.Generator(device=self.device)
+        exe = self.graphs.get_or_capture(
+            key, functools.partial(_graph_chunk, self.config, n_steps, float(temperature),
+                                   int(top_k), gen),
+            self.params, self.k_cache, self.v_cache, 0, 0, self._nonfinite,
+            donate_argnums=(1, 2, 5), bound_argnums=(0,), generators=() if gen is None else (gen,),
+            name=f"generate_{n_steps}")
+        if gen is not None:
+            gen.manual_seed(seed + self.pos)
+        toks = exe.replay(self.params, self.k_cache, self.v_cache, _token_arg(token),
+                          self.pos, self._nonfinite)
         self.pos += n_steps
         return toks
 
     @torch.no_grad()
     def decode_spec_chunk(self, token, n_rounds: int, gamma: int,
                           n_draft: int) -> tuple[np.ndarray, np.ndarray]:
-        """``n_rounds`` self-speculative rounds (``speculative_scan_fn``)
-        with the position on the device; the tokens, counts and final
+        """``n_rounds`` self-speculative rounds (``speculative_scan_fn``,
+        one executable per (n_rounds, gamma, n_draft)) with the position on
+        the device; the tokens, counts and final
         position are read back once, at the end. Returns (toks [n_rounds,
         gamma + 1] with -1 padding, counts [n_rounds]) as numpy int32 and
         advances ``pos`` by the accepted totals. ValueError when the
@@ -1170,10 +1268,14 @@ class CausalTransformerModel(nn.Module):
             raise ValueError(
                 f"speculative chunk worst case ({n_rounds}x{gamma + 1} from "
                 f"pos {self.pos}) exceeds cache ({self.max_seq_len})")
-        pos = torch.full((1,), self.pos, dtype=torch.int32, device=self.device)
-        toks, counts, pos = speculative_scan_fn(
-            self.config, n_rounds, gamma, n_draft, self.params, self.k_cache,
-            self.v_cache, token, pos, self._note_logits)
+        exe = self.graphs.get_or_capture(
+            ("spec", n_rounds, gamma, n_draft),
+            functools.partial(_graph_spec, self.config, n_rounds, gamma, n_draft),
+            self.params, self.k_cache, self.v_cache, 0, 0, self._nonfinite,
+            donate_argnums=(1, 2, 5), bound_argnums=(0,),
+            name=f"spec_{n_rounds}x{gamma}_d{n_draft}")
+        toks, counts, pos = exe.replay(self.params, self.k_cache, self.v_cache,
+                                       _token_arg(token), self.pos, self._nonfinite)
         host = torch.cat([toks.reshape(-1), counts, pos]).cpu().numpy()
         self.pos = int(host[-1])
         return (host[:toks.numel()].reshape(n_rounds, gamma + 1),

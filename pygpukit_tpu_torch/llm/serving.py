@@ -17,10 +17,24 @@ as in the reference. Two options, alone or together:
   memory. Bookkeeping (EOS, admission, TTFT) lags one chunk behind the
   device; completion and block frees go by request identity.
 
-The reference compiles one executable per prefill bucket, wave size and
-chunk; PyTorch runs eagerly, so those are plain calls, and
-``_prefill_shapes`` only records which (wave size, bucket) shapes have run.
-``PYGPUKIT_SERVE_PREADMIT`` and ``PYGPUKIT_SERVE_TAILSKIP`` switch off
+Every program the engine runs is a captured executable (``core.
+executable``), keyed and named as the reference's: one prefill per
+bucket (``serve_prefill_{bucket}``, ``serve_prefill_paged_{bucket}``), per
+pipelined bucket (``serve_prefill_pl_{bucket}``,
+``serve_prefill_paged_pl_{bucket}``) and per (wave size, bucket)
+(``serve_prefill_wave_{w}_{bucket}``, ``serve_prefill_paged_plw_{w}_
+{bucket}``), and one decode chunk (``serve_decode_br[_{n}]``,
+``serve_chunk_paged_{n}``, ``serve_chunk_br_{n}``,
+``serve_chunk_paged_pl_{n}``), all in the engine's ``graphs`` pool. On the
+card each is a CUDA graph captured at first use (or by ``warmup()``) and
+replayed afterwards; on the CPU each calls its function. Slots, lengths,
+block tables and the pipelined ``last``/``poss`` are device tensors the
+programs read and write in place; the block tables are one tensor that
+``_sync_tables`` copies into, and the pools, ``last``, ``poss`` and the
+non-finite flag are donated. Every static output (logits, tokens) is
+consumed before the next replay: a pinned readback (``_Readback``) or a
+host read at once. ``_prefill_shapes`` records the (wave size, bucket)
+shapes captured. ``PYGPUKIT_SERVE_PREADMIT`` and ``PYGPUKIT_SERVE_TAILSKIP`` switch off
 pre-dispatch admission and the dead-tail-chunk skip, as in the reference.
 Sampling draws from the engine's ``torch.Generator``: greedy streams match
 the reference, sampled streams replay under ``seed``.
@@ -36,12 +50,14 @@ from typing import Callable
 import numpy as np
 import torch
 
+import functools
+
+from ..core.executable import Executable, ExecutableCache
 from ..ops.embedding import kv_cache_zeros
-from .model import (CausalTransformerModel, _bucket, batch_generate_scan_fn,
-                    prefill_fn, sample_logits, slot_cache)
+from .model import (CausalTransformerModel, _bucket, _note_nonfinite,
+                    batch_generate_scan_fn, prefill_fn, sample_logits)
 from .serving_paged import (BlockAllocator, paged_prefill_fn,
-                            paged_prefill_pl_fn, paged_prefill_wave_pl_fn,
-                            paged_serve_chunk_fn)
+                            paged_prefill_wave_pl_fn, paged_serve_chunk_fn, put_at)
 
 
 def _to_device(arr: np.ndarray, dev: torch.device) -> torch.Tensor:
@@ -77,18 +93,19 @@ class _Readback:
 
 def _prefill_into_slot_pl_fn(cfg, temperature: float, top_k: int, generator,
                              params, k_pool, v_pool, last, poss, tokens,
-                             true_len: int, slot: int, on_logits=None):
-    """Pipelined dense prefill: prefill into slot ``slot`` of the pools,
-    sample the first token on the device and write it and the position into
-    the device-resident ``last``/``poss`` (in place). Returns the token, a
-    device scalar: admission is a dispatch, never a sync."""
-    logits = prefill_fn(cfg, params, slot_cache(k_pool, slot),
-                        slot_cache(v_pool, slot), tokens, true_len)
+                             true_len, slot, on_logits=None):
+    """Pipelined dense prefill: prefill into slot ``slot`` of the pools (a
+    one-element device tensor: the rows land by an index copy), sample the
+    first token on the device and write it and the position
+    (``true_len``, a one-element device tensor) into the device-resident
+    ``last``/``poss`` (in place). Returns the token, a device scalar:
+    admission is a dispatch, never a sync."""
+    logits = prefill_fn(cfg, params, k_pool, v_pool, tokens, true_len, slot)
     if on_logits is not None:
         on_logits(logits)
     tok = sample_logits(logits, temperature, top_k, generator)
-    last[slot] = tok
-    poss[slot] = true_len
+    put_at(last, slot, tok)
+    put_at(poss, slot, true_len)
     return tok
 
 
@@ -96,12 +113,12 @@ def _prefill_wave_pl_fn(cfg, temperature: float, top_k: int, generator,
                         n_wave: int, params, k_pool, v_pool, last, poss,
                         tokens_w, lens_w, slots_w, on_logits=None):
     """Pipelined admission wave: ``n_wave`` same-bucket prefills in order
-    (tokens_w [W, S] on the device; lens_w, slots_w host ints). Returns the
-    first tokens [W] on the device."""
+    (tokens_w [W, S], lens_w and slots_w [W] int32, all on the device).
+    Returns the first tokens [W] on the device."""
     return torch.stack([
         _prefill_into_slot_pl_fn(cfg, temperature, top_k, generator, params,
                                  k_pool, v_pool, last, poss, tokens_w[i],
-                                 int(lens_w[i]), int(slots_w[i]), on_logits)
+                                 lens_w[i:i + 1], slots_w[i:i + 1], on_logits)
         for i in range(n_wave)])
 
 
@@ -109,14 +126,39 @@ def _serve_chunk_batch_fn(cfg, n_steps: int, temperature: float, top_k: int,
                           generator, max_seq_len: int, params, k_pool, v_pool,
                           last, poss, on_logits=None):
     """Advance every slot ``n_steps`` tokens with device-resident last/poss
-    (batch-rows step). Positions clamp to ``max_seq_len - 1`` once, after
-    the chunk; inside it the row write, rope rows and attention bound clamp.
-    Returns (last, poss, toks [B, n_steps]) on the device."""
+    (batch-rows step), written in place: the reference donates them and
+    the next chunk chains on them. Positions clamp to ``max_seq_len - 1``
+    once, after the chunk; inside it the row write, rope rows and attention
+    bound clamp. Returns (last, poss, toks [B, n_steps]) on the device."""
     toks = batch_generate_scan_fn(cfg, n_steps, temperature, top_k, params,
                                   k_pool, v_pool, last, poss, generator,
                                   on_logits=on_logits)
-    return (toks[:, -1].clone(), torch.clamp(poss + n_steps, max=max_seq_len - 1),
-            toks)
+    last.copy_(toks[:, -1])
+    poss.copy_(torch.clamp(poss + n_steps, max=max_seq_len - 1))
+    return last, poss, toks
+
+
+def _flagged(fn, *args):
+    """``fn(*args[:-1], on_logits=...)`` that sets the sticky non-finite
+    flag ``args[-1]`` (a donated argument of the captured program)."""
+    return fn(*args[:-1], on_logits=functools.partial(_note_nonfinite, args[-1]))
+
+
+def _noted(fn, *args):
+    """``fn(*args[:-1])``, whose logits set the sticky non-finite flag
+    ``args[-1]`` (a donated argument of the captured program)."""
+    logits = fn(*args[:-1])
+    _note_nonfinite(args[-1], logits)
+    return logits
+
+
+def _serve_decode_fn(cfg, n_steps: int, temperature: float, top_k: int, generator,
+                     params, k_pool, v_pool, tokens, poss, nonfinite):
+    """Non-pipelined dense chunk: ``batch_generate_scan_fn`` from host
+    uploaded tokens and positions; the tokens [B, n_steps]."""
+    return batch_generate_scan_fn(cfg, n_steps, temperature, top_k, params, k_pool,
+                                  v_pool, tokens, poss, generator,
+                                  functools.partial(_note_nonfinite, nonfinite))
 
 
 @dataclass
@@ -192,6 +234,7 @@ class ContinuousBatchingEngine:
                 self.v_cache = torch.zeros(shape, dtype=model.kv_dtype, device=dev)
             self._alloc = BlockAllocator(nb, block_size)
             self._tables_np = np.zeros((max_batch, self.max_blocks), np.int32)
+            # the captured chunks read this tensor: _sync_tables copies into it
             self._tables_dev = _to_device(self._tables_np, dev)
             self._tables_dirty = False
         else:
@@ -211,6 +254,8 @@ class ContinuousBatchingEngine:
         # non-finite? Read without a sync per step (logits_finite()).
         self._nonfinite = torch.zeros((), dtype=torch.bool, device=dev)
         self.stats = EngineStats()
+        # every captured program of the engine, one shared memory pool
+        self.graphs = ExecutableCache(shared_pool=True)
         if pipelined:
             self._last_dev = torch.zeros(max_batch, dtype=torch.long, device=dev)
             self._poss_dev = torch.zeros(max_batch, dtype=torch.int32, device=dev)
@@ -243,9 +288,6 @@ class ContinuousBatchingEngine:
     def logits_finite(self) -> bool:
         """True when every logit this engine produced was finite."""
         return not bool(self._nonfinite)
-
-    def _track(self, logits: torch.Tensor) -> None:
-        self._nonfinite |= ~torch.isfinite(logits).all()
 
     def _emit(self, req: Request, tok: int) -> None:
         """Append a token and fire the streaming callback (a raising
@@ -294,30 +336,117 @@ class ContinuousBatchingEngine:
     def _bucket_of(self, req: Request) -> int:
         return min(_bucket(max(len(req.prompt), 8)), self.max_seq_len)
 
-    def _run_prefills(self, bucket: int, slots: list[int], lens: list[int],
-                      tokens: torch.Tensor, tables: torch.Tensor | None):
-        """The one call site of the prefill functions (tokens [W, bucket],
-        tables [W, MB] on the device for paged engines). Pipelined engines
-        sample on the device into last/poss and get the first tokens [W];
-        the others prefill one request and get its logits. The reference
-        compiles an executable per (wave size, bucket); ``_prefill_shapes``
-        records the shapes run, which warmup() covers."""
-        self._prefill_shapes.add((len(slots), bucket))
+    def _capture(self, key, name: str, fn, *example_args, donate_argnums=(),
+                 sampled: bool = False) -> Executable:
+        """The engine's executable under ``key``, captured at first use into
+        the engine's pool; ``sampled`` programs register the generator."""
+        gens = (self._generator,) if sampled and self.temperature > 0 else ()
+        return self.graphs.get_or_capture(key, fn, *example_args,
+                                          donate_argnums=donate_argnums, bound_argnums=(0,),
+                                          generators=gens, name=name)
+
+    def _prefill_exe(self, w: int, bucket: int) -> Executable:
+        """The prefill executable of a ``w``-request wave at ``bucket``
+        (the reference's keys and names, module docstring), captured at
+        zero example inputs the first time."""
         m = self.model
+        cfg, dev = m.config, m.device
+        self._prefill_shapes.add((w, bucket))
+        z = functools.partial(torch.zeros, dtype=torch.int32, device=dev)
+        one = functools.partial(torch.ones, dtype=torch.int32, device=dev)   # lengths
+        tokens = torch.zeros((w, bucket), dtype=torch.long, device=dev)
+        pools = (m.params, self.k_cache, self.v_cache)
         if not self.pipelined:
             if self.paged:
-                return paged_prefill_fn(m.config, m.params, self.k_cache,
-                                        self.v_cache, tables[0], tokens[0], lens[0])
-            return prefill_fn(m.config, m.params, slot_cache(self.k_cache, slots[0]),
-                              slot_cache(self.v_cache, slots[0]), tokens[0], lens[0])
-        head = (m.config, float(self.temperature), int(self.top_k),
-                self._generator, len(slots), m.params, self.k_cache,
-                self.v_cache, self._last_dev, self._poss_dev)
+                return self._capture(
+                    ("paged", bucket), f"serve_prefill_paged_{bucket}",
+                    functools.partial(_noted, functools.partial(paged_prefill_fn, cfg)),
+                    *pools,
+                    z(self.max_blocks), tokens[0], one(1), self._nonfinite,
+                    donate_argnums=(1, 2, 6))
+            return self._capture(bucket, f"serve_prefill_{bucket}",
+                                 functools.partial(_noted, functools.partial(prefill_fn, cfg)),
+                                 *pools,
+                                 tokens[0], one(1), z(1), self._nonfinite,
+                                 donate_argnums=(1, 2, 6))
+        head = (cfg, float(self.temperature), int(self.top_k), self._generator, w)
+        state = pools + (self._last_dev, self._poss_dev)
         if self.paged:
-            return paged_prefill_wave_pl_fn(*head, tables, tokens, lens, slots,
-                                            on_logits=self._track)
-        return _prefill_wave_pl_fn(*head, tokens, lens, slots,
-                                   on_logits=self._track)
+            key, name = ((("paged-pl", bucket), f"serve_prefill_paged_pl_{bucket}")
+                         if w == 1 else (("paged-plw", w, bucket),
+                                         f"serve_prefill_paged_plw_{w}_{bucket}"))
+            return self._capture(
+                key, name, functools.partial(_flagged, functools.partial(
+                    paged_prefill_wave_pl_fn, *head)),
+                *state, z((w, self.max_blocks)), tokens, one(w), z(w), self._nonfinite,
+                donate_argnums=(1, 2, 3, 4, 9), sampled=True)
+        key, name = ((("pl", bucket), f"serve_prefill_pl_{bucket}") if w == 1 else
+                     (("plw", w, bucket), f"serve_prefill_wave_{w}_{bucket}"))
+        return self._capture(
+            key, name, functools.partial(_flagged, functools.partial(
+                _prefill_wave_pl_fn, *head)),
+            *state, tokens, one(w), z(w), self._nonfinite,
+            donate_argnums=(1, 2, 3, 4, 8), sampled=True)
+
+    def _chunk_exe(self) -> Executable:
+        """The decode chunk of ``steps_per_dispatch`` steps (the reference's
+        ``_ensure_decode_exe``, ``_ensure_paged_chunk_exe`` and
+        ``_ensure_chunk_exe``), captured the first time."""
+        m = self.model
+        n = max(self.steps_per_dispatch, 1)
+        head = (m.config, n, float(self.temperature), int(self.top_k), self._generator)
+        pools = (m.params, self.k_cache, self.v_cache)
+        if self.pipelined:
+            if self.paged:
+                return self._capture(
+                    "chunk", f"serve_chunk_paged_pl_{n}",
+                    functools.partial(_flagged, functools.partial(
+                        paged_serve_chunk_fn, *head, self.max_seq_len)),
+                    *pools, self._tables_dev, self._last_dev, self._poss_dev,
+                    self._nonfinite, donate_argnums=(1, 2, 4, 5, 6), sampled=True)
+            return self._capture(
+                "chunk", f"serve_chunk_br_{n}",
+                functools.partial(_flagged, functools.partial(
+                    _serve_chunk_batch_fn, *head, self.max_seq_len)),
+                *pools, self._last_dev, self._poss_dev, self._nonfinite,
+                donate_argnums=(1, 2, 3, 4, 5), sampled=True)
+        dev = m.device
+        last = torch.zeros(self.max_batch, dtype=torch.long, device=dev)
+        poss = torch.zeros(self.max_batch, dtype=torch.int32, device=dev)
+        if self.paged:
+            return self._capture(
+                "chunk", f"serve_chunk_paged_{n}",
+                functools.partial(_flagged, functools.partial(
+                    paged_serve_chunk_fn, *head, self.max_seq_len)),
+                *pools, self._tables_dev, last, poss, self._nonfinite,
+                donate_argnums=(1, 2, 6), sampled=True)
+        return self._capture(
+            "chunk", f"serve_decode_br_{n}" if self.steps_per_dispatch > 1
+            else "serve_decode_br", functools.partial(_serve_decode_fn, *head),
+            *pools, last, poss, self._nonfinite, donate_argnums=(1, 2, 5), sampled=True)
+
+    def _run_prefills(self, bucket: int, slots: list[int], lens: list[int],
+                      tokens: torch.Tensor, tables: torch.Tensor | None):
+        """The one call site of the prefill executables (tokens [W, bucket],
+        tables [W, MB] on the device for paged engines; slots and lengths
+        uploaded as int32 [W]). Pipelined engines sample on the device into
+        last/poss and get the first tokens [W]; the others prefill one
+        request and get its logits. Both are static outputs, consumed
+        before the next replay."""
+        exe = self._prefill_exe(len(slots), bucket)
+        m = self.model
+        dev = m.device
+        lens_d = _to_device(np.asarray(lens, np.int32), dev)
+        slots_d = _to_device(np.asarray(slots, np.int32), dev)
+        pools = (m.params, self.k_cache, self.v_cache)
+        if not self.pipelined:
+            if self.paged:
+                return exe.replay(*pools, tables[0], tokens[0], lens_d, self._nonfinite)
+            return exe.replay(*pools, tokens[0], lens_d, slots_d, self._nonfinite)
+        state = pools + (self._last_dev, self._poss_dev)
+        if self.paged:
+            return exe.replay(*state, tables, tokens, lens_d, slots_d, self._nonfinite)
+        return exe.replay(*state, tokens, lens_d, slots_d, self._nonfinite)
 
     def _prefill_inputs(self, bucket: int, group: list):
         """(slots, lengths, padded prompts [W, bucket], block-table rows
@@ -343,7 +472,6 @@ class ContinuousBatchingEngine:
         bucket = self._bucket_of(req)
         logits = self._run_prefills(bucket,
                                     *self._prefill_inputs(bucket, [(slot, req)]))
-        self._track(logits)
         tok = int(sample_logits(logits, self.temperature, self.top_k,
                                 self._generator))
         self._emit(req, tok)
@@ -372,8 +500,9 @@ class ContinuousBatchingEngine:
     # -- paged mode ----------------------------------------------------------
 
     def _sync_tables(self) -> None:
+        """Copy the host tables into the device tensor the chunks read."""
         if self._tables_dirty:
-            self._tables_dev = _to_device(self._tables_np, self.model.device)
+            self._tables_dev.copy_(_to_device(self._tables_np, self.model.device))
             self._tables_dirty = False
 
     def _paged_need(self, req: Request) -> int:
@@ -448,9 +577,10 @@ class ContinuousBatchingEngine:
         if not active:
             return 0
         dev = self.model.device
-        cfg, params = self.model.config, self.model.params
-        last = torch.as_tensor(self._last_tokens).to(dev)
-        poss = torch.as_tensor(self._poss).to(dev)
+        exe = self._chunk_exe()
+        pools = (self.model.params, self.k_cache, self.v_cache)
+        last = _to_device(self._last_tokens, dev)
+        poss = _to_device(self._poss, dev)
         if self.paged:
             n = max(self.steps_per_dispatch, 1)
             for i in active:
@@ -461,15 +591,10 @@ class ContinuousBatchingEngine:
                     int(self._poss[i]) + n + 1,
                     len(req.prompt) + req.max_new_tokens + 1))
             self._sync_tables()
-            toks_d = paged_serve_chunk_fn(
-                cfg, n, self.temperature, self.top_k, self._generator,
-                self.max_seq_len, params, self.k_cache, self.v_cache,
-                self._tables_dev, last, poss, on_logits=self._track)[2]
+            toks_d = exe.replay(*pools, self._tables_dev, last, poss,
+                                self._nonfinite)[2]
         else:
-            toks_d = batch_generate_scan_fn(
-                cfg, max(self.steps_per_dispatch, 1), self.temperature,
-                self.top_k, params, self.k_cache, self.v_cache, last, poss,
-                self._generator, on_logits=self._track)
+            toks_d = exe.replay(*pools, last, poss, self._nonfinite)
         toks = toks_d.cpu().numpy()                          # [B, n]
         self.stats.steps += 1
         for i in active:
@@ -512,22 +637,13 @@ class ContinuousBatchingEngine:
         if active and self._tail_covered(active):
             active = []
         if active:
-            model = self.model
-            n = max(self.steps_per_dispatch, 1)
+            exe = self._chunk_exe()
+            state = (self.model.params, self.k_cache, self.v_cache)
             if self.paged:
                 self._sync_tables()
-                last, poss, toks = paged_serve_chunk_fn(
-                    model.config, n, self.temperature, self.top_k,
-                    self._generator, self.max_seq_len, model.params,
-                    self.k_cache, self.v_cache, self._tables_dev,
-                    self._last_dev, self._poss_dev, on_logits=self._track)
-            else:
-                last, poss, toks = _serve_chunk_batch_fn(
-                    model.config, n, self.temperature, self.top_k,
-                    self._generator, self.max_seq_len, model.params,
-                    self.k_cache, self.v_cache, self._last_dev,
-                    self._poss_dev, on_logits=self._track)
-            self._last_dev, self._poss_dev = last, poss
+                state += (self._tables_dev,)
+            toks = exe.replay(*state, self._last_dev, self._poss_dev,
+                              self._nonfinite)[2]
             dispatched = (_Readback(toks), active)
             self.stats.steps += 1
         self._resolve_inflight()
@@ -615,13 +731,13 @@ class ContinuousBatchingEngine:
 
     @torch.no_grad()
     def warmup(self, prompt_lens=(16,), wave_sizes=None) -> None:
-        """Build the kernels and run every prefill shape the given prompt
-        lengths can hit once, so neither lands mid-workload: each prefill
+        """Build the kernels and capture every executable the given prompt
+        lengths can reach, so no capture lands mid-workload: each prefill
         bucket and, in pipelined mode, each power-of-two wave size (the only
-        sizes _dispatch_prefills forms). Runs on an idle engine. Paged
-        prefills write into the trash block (all-zero tables), dense ones
-        into free slots; the generator, device last/poss and the
-        non-finite flag are restored, so warmup changes no stream.
+        sizes _dispatch_prefills forms), and the decode chunk. Runs on an
+        idle engine. A capture's warm-up runs on clones of the pools,
+        ``last``/``poss`` and the flag and puts the generator back, so
+        warmup changes no stream.
 
         Unlike the reference, this works on a paged engine that is not
         pipelined, and a paged pipelined engine warms the prefills it runs
@@ -629,8 +745,7 @@ class ContinuousBatchingEngine:
         non-pipelined chunk)."""
         if self.has_work:
             raise RuntimeError("warmup() runs on an idle engine")
-        dev = self.model.device
-        if dev.type == "cuda":
+        if self.model.device.type == "cuda":
             from ..kernels import build
             build()
         ws = (wave_sizes if wave_sizes is not None else
@@ -638,19 +753,7 @@ class ContinuousBatchingEngine:
         ws = [1] + (ws if self.pipelined else [])
         buckets = sorted({min(_bucket(max(int(n), 8)), self.max_seq_len)
                           for n in prompt_lens})
-        gen_state = self._generator.get_state()
-        saved = [self._nonfinite.clone()]
-        if self.pipelined:
-            saved += [self._last_dev.clone(), self._poss_dev.clone()]
-        trash = (torch.zeros((self.max_batch, self.max_blocks), dtype=torch.int32,
-                             device=dev) if self.paged else None)
         for b in buckets:
-            tokens = torch.zeros((self.max_batch, b), dtype=torch.long, device=dev)
             for w in ws:
-                self._run_prefills(b, list(range(w)), [1] * w, tokens[:w],
-                                   None if trash is None else trash[:w])
-        self._nonfinite.copy_(saved[0])
-        if self.pipelined:
-            self._last_dev.copy_(saved[1])
-            self._poss_dev.copy_(saved[2])
-        self._generator.set_state(gen_state)
+                self._prefill_exe(w, b)
+        self._chunk_exe()

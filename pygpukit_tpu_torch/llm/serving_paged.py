@@ -16,6 +16,9 @@ block pools and per-slot block tables for the continuous-batching engine.
 - Sampling draws from a ``torch.Generator`` (the reference folds
   ``jax.random`` keys): greedy streams match the reference, sampled streams
   replay under the engine's seed.
+- Slots, lengths and the chunk's ``last``/``poss`` are device tensors
+  written in place, so the engine captures every function here
+  (``core.executable``) and nothing reads the host inside them.
 """
 
 from __future__ import annotations
@@ -25,8 +28,8 @@ import torch
 from ..kernels.paged_attention import paged_attention
 from ..ops.embedding import kv_leaf, kv_quant_rows, to_kv_dtype
 from .config import TransformerConfig
-from .model import (_attn_in, _embed_tokens, _layer_window, _logits, _norm,
-                    _prefill_attn, _project_qkv, _residual_tail, _rope,
+from .model import (_attn_in, _embed_tokens, _last_row, _layer_window, _logits,
+                    _norm, _prefill_attn, _project_qkv, _residual_tail, _rope,
                     _rope_rows_for, _slice_layer_params, sample_logits)
 
 
@@ -96,6 +99,16 @@ def paged_decode_step_fn(cfg: TransformerConfig, params: dict, k_pool, v_pool,
     return _logits(cfg, params, h)
 
 
+def put_at(t: torch.Tensor, at, value) -> None:
+    """``t[at] = value`` in place; ``at`` an int, or a one-element integer
+    device tensor with ``value`` a device tensor (an index copy: no host
+    read)."""
+    if isinstance(at, torch.Tensor):
+        t.index_copy_(0, at.reshape(1).to(torch.long), value.reshape(1).to(t.dtype))
+    else:
+        t[at] = value
+
+
 def paged_serve_chunk_fn(cfg: TransformerConfig, n_steps: int,
                          temperature: float, top_k: int, generator,
                          max_seq_len: int, params: dict, k_pool, v_pool,
@@ -103,9 +116,10 @@ def paged_serve_chunk_fn(cfg: TransformerConfig, n_steps: int,
                          poss: torch.Tensor, on_logits=None):
     """Advance all slots ``n_steps`` tokens over the paged pool with
     device-resident sampling; positions clamp to ``max_seq_len - 1`` after
-    every step, so the table lookups stay in range. Returns (last, poss,
-    toks [B, n_steps]) on the device; ``on_logits`` sees each step's
-    logits."""
+    every step, so the table lookups stay in range. ``last`` and ``poss``
+    are written in place (the reference donates them and the next chunk
+    chains on them). Returns (last, poss, toks [B, n_steps]) on the device;
+    ``on_logits`` sees each step's logits."""
     out = []
     tok, ps = last, poss
     for _ in range(n_steps):
@@ -116,15 +130,18 @@ def paged_serve_chunk_fn(cfg: TransformerConfig, n_steps: int,
         tok = sample_logits(logits, temperature, top_k, generator)
         out.append(tok)
         ps = torch.clamp(ps + 1, max=max_seq_len - 1)
-    return tok, ps, torch.stack(out, dim=1)
+    last.copy_(tok)
+    poss.copy_(ps)
+    return last, poss, torch.stack(out, dim=1)
 
 
 def paged_prefill_fn(cfg: TransformerConfig, params: dict, k_pool, v_pool,
                      table: torch.Tensor, tokens: torch.Tensor,
-                     true_len: int) -> torch.Tensor:
+                     true_len) -> torch.Tensor:
     """Prefill one sequence into its blocks (table [MB]), in place; returns
-    the f32 logits [V] of position ``true_len - 1``. Padded rows scatter
-    zeros into the trash block (block 0, offset 0)."""
+    the f32 logits [V] of position ``true_len - 1`` (an int or a
+    one-element device tensor, ``model.prefill_fn``'s rule). Padded rows
+    scatter zeros into the trash block (block 0, offset 0)."""
     s = tokens.shape[0]
     bs = kv_leaf(k_pool).shape[3]
     h = _embed_tokens(cfg, params, tokens)
@@ -146,25 +163,26 @@ def paged_prefill_fn(cfg: TransformerConfig, params: dict, k_pool, v_pool,
                              cfg.attn_logit_softcap, _layer_window(cfg, i))
         h = _residual_tail(cfg, lp, h, attn, s)
     h = _norm(cfg, h, params["final_norm_w"])
-    return _logits(cfg, params, h[true_len - 1])
+    return _logits(cfg, params, _last_row(h, true_len))
 
 
 def paged_prefill_pl_fn(cfg: TransformerConfig, temperature: float,
                         top_k: int, generator, params: dict, k_pool, v_pool,
                         last: torch.Tensor, poss: torch.Tensor,
                         table: torch.Tensor, tokens: torch.Tensor,
-                        true_len: int, slot: int, on_logits=None) -> torch.Tensor:
+                        true_len, slot, on_logits=None) -> torch.Tensor:
     """Pipelined paged admission: prefill into the request's blocks, sample
     the first token on the device and write it and the position into the
-    device-resident ``last``/``poss`` (in place). Returns the token, a
-    device scalar; nothing is read back."""
+    device-resident ``last``/``poss`` (in place; ``true_len`` and ``slot``
+    ints or one-element device tensors). Returns the token, a device
+    scalar; nothing is read back."""
     logits = paged_prefill_fn(cfg, params, k_pool, v_pool, table, tokens,
                               true_len)
     if on_logits is not None:
         on_logits(logits)
     tok = sample_logits(logits, temperature, top_k, generator)
-    last[slot] = tok
-    poss[slot] = true_len
+    put_at(last, slot, tok)
+    put_at(poss, slot, true_len)
     return tok
 
 
@@ -175,12 +193,12 @@ def paged_prefill_wave_pl_fn(cfg: TransformerConfig, temperature: float,
                              tokens_w: torch.Tensor, lens_w, slots_w,
                              on_logits=None) -> torch.Tensor:
     """Pipelined paged admission wave: ``n_wave`` same-bucket prefills in
-    order (tables_w [W, MB], tokens_w [W, S] device; lens_w, slots_w host
-    ints). Returns their first tokens [W] on the device."""
+    order (tables_w [W, MB], tokens_w [W, S], lens_w and slots_w [W] int32,
+    all on the device). Returns their first tokens [W] on the device."""
     return torch.stack([
         paged_prefill_pl_fn(cfg, temperature, top_k, generator, params, k_pool,
                             v_pool, last, poss, tables_w[i], tokens_w[i],
-                            int(lens_w[i]), int(slots_w[i]), on_logits)
+                            lens_w[i:i + 1], slots_w[i:i + 1], on_logits)
         for i in range(n_wave)])
 
 

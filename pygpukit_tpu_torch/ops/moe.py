@@ -20,8 +20,9 @@ tensors"): ``PYGPUKIT_MOE=dense`` (read per call) forces dense; on CUDA,
 gmm from ``T * k >= GMM_MIN_ROWS`` (megablox's 128-row tile minimum,
 kept); then gather up to ``GATHER_MAX_TOKENS`` tokens; dense above. CPU
 tensors take the reference's off-TPU route: gather to T 4, dense above.
-The gmm kernel takes bf16 activations; an f32 model on the card raises
-NotImplementedError at T * k >= 128 (``kernels.gmm``).
+The gmm kernel takes the model's operands as they are, bf16 or f32 (an
+f32 model's through its CUDA-core route, ``kernels.gmm``), as the
+reference hands megablox an f32 model's operands unchanged.
 """
 
 from __future__ import annotations

@@ -5,8 +5,14 @@ comes from a ``torch.Generator`` the caller seeds, so the same seed replays
 the same tokens. The two packages' generators give different numbers: only
 the masks (which tokens may be drawn) and greedy choices match across them.
 The Array API's ``sample_token_gpu`` and ``sample_multinomial`` draw from a
-module-level generator per device, seeded by ``set_sampling_seed`` (0 until
-then), and return int32 token ids as the reference does.
+module-level generator per device (``sampling_generator``), seeded by
+``set_sampling_seed`` (0 until then), and return int32 token ids as the
+reference does.
+
+Nothing here reads the host, so every function runs inside a capture
+(``core.capture``): a draw from a generator that the capture registers
+(``generators=``; for the Array API, ``sampling_generator(device)``)
+replays the eager draws of that generator's state at each replay.
 """
 
 from __future__ import annotations
@@ -71,6 +77,12 @@ def set_sampling_seed(seed: int) -> None:
     the same seed replays the same tokens."""
     _seed_state["seed"] = seed
     _seed_state["generators"] = {}
+
+
+def sampling_generator(device) -> torch.Generator:
+    """The generator ``sample_token_gpu`` and ``sample_multinomial`` draw
+    from on ``device``: register it with a capture of either."""
+    return _generator(torch.device(device))
 
 
 def _generator(device: torch.device) -> torch.Generator:

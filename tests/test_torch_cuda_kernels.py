@@ -54,6 +54,17 @@ def _bits(t):
     return t.view(torch.int16)
 
 
+def _launches() -> dict:
+    """Kernel launches so far: the wrappers' eager LAUNCHES plus
+    cost_analysis() x replays of the captured programs (a replay ticks no
+    wrapper counter)."""
+    from pygpukit_tpu_torch.core import replayed_launches
+    out = dict(LAUNCHES)
+    for name, n in replayed_launches().items():
+        out[name] = out.get(name, 0) + n
+    return out
+
+
 @pytest.mark.parametrize("rows", [1, 2, 5, 8, 32, 256, 300, 2048])
 @pytest.mark.parametrize("nk", PROJ_SHAPES + [(1001, 2048)])
 def test_w4a8_kernels_bitwise(dev, nk, rows):
@@ -1315,16 +1326,18 @@ def test_single_stream_decode_launches(dev, monkeypatch):
     m.init_fixed_cache(256)
     m.prefill(list(range(1, 40)))
     snap = m.snapshot_kv_cache()
-    before = dict(LAUNCHES)
-    unfused = m.decode_step(5)
-    moved = {k: LAUNCHES[k] - before[k] for k in LAUNCHES if LAUNCHES[k] != before[k]}
+    before = _launches()
+    unfused = m.decode_step(5)                 # a replay of the captured step
+    after = _launches()
+    moved = {k: n - before.get(k, 0) for k, n in after.items() if n != before.get(k, 0)}
     assert moved == {"flash_decode": 3}
     monkeypatch.setenv("PYGPUKIT_DECODE", "fused")
     m.init_fixed_cache(256)
     m.restore_kv_cache(snap)
-    before = dict(LAUNCHES)
+    before = _launches()
     fused = m.decode_step(5)
-    moved = {k: LAUNCHES[k] - before[k] for k in LAUNCHES if LAUNCHES[k] != before[k]}
+    after = _launches()
+    moved = {k: n - before.get(k, 0) for k, n in after.items() if n != before.get(k, 0)}
     assert moved == {"fused_decode": 1}
     assert _rel_l2(fused, unfused) <= 5e-2
 
@@ -1410,18 +1423,82 @@ def test_gmm_graph_replays_new_group_sizes(dev):
 
 
 def test_gmm_raises_on_unsupported_operands(dev):
+    """f16 operands (neither route's) raise NotImplementedError, host group
+    sizes ValueError; nothing launches. f32 and operands off 8 compute
+    (test_gmm_f32_and_off_8_match_plain)."""
     from pygpukit_tpu_torch.kernels import gmm
     sizes = torch.tensor([4, 4], dtype=torch.int32, device=dev)
     lhs = torch.zeros((8, 16), dtype=torch.bfloat16, device=dev)
     rhs = torch.zeros((2, 16, 24), dtype=torch.bfloat16, device=dev)
     before = LAUNCHES["gmm"]
-    for bad in ((lhs.float(), rhs.float()), (lhs, rhs.float()),
-                (lhs[:, :12], rhs[:, :12]), (lhs, rhs[..., :20])):
+    for bad in ((lhs.half(), rhs.half()), (lhs, rhs.half())):
         with pytest.raises(NotImplementedError):
             gmm(*bad, sizes)
     with pytest.raises(ValueError):
         gmm(lhs, rhs, sizes.cpu())
     assert LAUNCHES["gmm"] == before
+
+
+GMM_SIMT_CASES = {               # name -> (lhs dtype, rhs dtype, group sizes, M, K, N)
+    "f32": ("f32", "f32", [100, 0, 156, 0], 256, 256, 384),
+    "f32, K and N off 8": ("f32", "f32", [37, 90, 73], 200, 131, 250),
+    "f32, rows past the sum": ("f32", "f32", [100, 50], 300, 128, 128),
+    "f32, a group that starts mid-tile": ("f32", "f32", [60, 200, 10, 130], 400, 256, 384),
+    "bf16, K off 8": ("bf16", "bf16", [60, 200, 10, 130], 400, 261, 384),
+    "bf16, N off 8": ("bf16", "bf16", [1, 127, 128], 256, 128, 250),
+    "bf16 x f32": ("bf16", "f32", [3, 0, 5], 8, 64, 72),
+}
+
+
+def _gmm_simt_inputs(dev, name):
+    lt, rt, sizes, m, k, n = GMM_SIMT_CASES[name]
+    dts = {"f32": torch.float32, "bf16": torch.bfloat16}
+    g = _gen(dev, m + k + n)
+    lhs = torch.randn((m, k), generator=g, device=dev).to(dts[lt])
+    rhs = (torch.randn((len(sizes), k, n), generator=g, device=dev) * 0.1).to(dts[rt])
+    return lhs, rhs, torch.tensor(sizes, dtype=torch.int32, device=dev)
+
+
+@pytest.mark.parametrize("name", list(GMM_SIMT_CASES))
+def test_gmm_f32_and_off_8_match_plain(dev, name):
+    """The CUDA-core route (f32 operands, an f32 model's; bf16 with K or N
+    off 8; a bf16/f32 pair): within 1e-4 of max |out| of the plain version,
+    rows past the sum zero, one gmm launch, a second launch bitwise."""
+    from pygpukit_tpu_torch.kernels import gmm, gmm_plain
+    from pygpukit_tpu_torch.kernels.gmm import gmm_route
+    lhs, rhs, sizes = _gmm_simt_inputs(dev, name)
+    assert gmm_route(lhs.dtype, rhs.dtype, lhs.shape[1], rhs.shape[2]) == "simt"
+    before = LAUNCHES["gmm"]
+    out = gmm(lhs, rhs, sizes)
+    assert LAUNCHES["gmm"] == before + 1
+    ref = gmm_plain(lhs.float(), rhs.float(), sizes)
+    assert out.shape == ref.shape and out.dtype == torch.float32
+    assert (out - ref).abs().max() <= 1e-4 * ref.abs().max()
+    total = int(sizes.sum())
+    assert torch.equal(out[total:], torch.zeros_like(out[total:]))
+    assert torch.equal(out, gmm(lhs, rhs, sizes))
+
+
+def test_gmm_f32_graph_replays_new_group_sizes(dev):
+    """The CUDA-core route captured once reads the group sizes at each
+    replay, as the wgmma route does."""
+    from pygpukit_tpu_torch.kernels import gmm, gmm_plain
+    lhs, rhs, sizes = _gmm_simt_inputs(dev, "f32, a group that starts mid-tile")
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        gmm(lhs, rhs, sizes)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = gmm(lhs, rhs, sizes)
+    for new in ([60, 200, 10, 130], [0, 400, 0, 0], [1, 130, 0, 200], [0, 0, 0, 0]):
+        sizes.copy_(torch.tensor(new, dtype=torch.int32))
+        graph.replay()
+        torch.cuda.synchronize()
+        ref = gmm_plain(lhs, rhs, new)
+        assert (out - ref).abs().max() <= 1e-4 * max(ref.abs().max().item(), 1e-30)
+        assert torch.equal(out[sum(new):], torch.zeros_like(out[sum(new):]))
 
 
 def _moe_inputs(dev, t, e=4, h=256, inter=384, k=2):
@@ -1561,21 +1638,24 @@ def test_quantized_kv_engine_serves_on_the_card(dev, kv_dtype, paged):
     attention with the row write fused in, no row-write kernel; paged:
     paged_attention)."""
     from pygpukit_tpu_torch import reset_launches
+    from pygpukit_tpu_torch.core import reset_replayed_launches
     from pygpukit_tpu_torch.llm import ContinuousBatchingEngine
     m = _small_1b(dev, kv_dtype=kv_dtype)
     kw = dict(paged=True, block_size=16) if paged else {}
     eng = ContinuousBatchingEngine(m, max_batch=8, max_seq_len=256, steps_per_dispatch=8, **kw)
     reset_launches()
+    reset_replayed_launches()
     reqs = [eng.submit(list(range(1 + i, 17 + i)), max_new_tokens=24) for i in range(10)]
     eng.run_until_complete()
     assert all(r.done and len(r.generated) == 24 for r in reqs)
     assert eng.logits_finite()
+    n = _launches()                          # the engine's programs replay
     if paged:
-        assert LAUNCHES["paged_attention"] > 0 and LAUNCHES["batch_decode_attention"] == 0
+        assert n["paged_attention"] > 0 and n["batch_decode_attention"] == 0
     else:
-        assert LAUNCHES["batch_decode_attention"] > 0
-        assert LAUNCHES["kv_rows_write"] == 0
-        assert LAUNCHES["kv_rows_write_fused"] == LAUNCHES["batch_decode_attention"]
+        assert n["batch_decode_attention"] > 0
+        assert n["kv_rows_write"] == 0
+        assert n["kv_rows_write_fused"] == n["batch_decode_attention"]
 
 
 # ---------------------------------------------------------------------------
@@ -1613,12 +1693,13 @@ def test_captured_decode_step_replays_bitwise(dev, route, monkeypatch):
     assert all(torch.equal(a, b) for a, b in zip(_cache_copy(m), saved))
     kernel = {"unfused": ("flash_decode", 2), "fused": ("fused_decode", 1)}[route]
     assert exe.cost_analysis() == dict([kernel]) and exe.node_count > 0
-    assert exe.memory_analysis() > 0
+    assert exe.memory_analysis() >= 0 and m.graphs.nbytes > 0    # the pool the prefill shares
+    from pygpukit_tpu_torch.llm import decode_step_fn
     for pos, tok in ((16, 7), (17, 900), (200, 31999), (511, 3)):
         m.pos = pos
         state = _cache_copy(m)
         before = dict(LAUNCHES)
-        eager = m.decode_step(tok).clone()
+        eager = decode_step_fn(m.config, m.params, m.k_cache, m.v_cache, tok, pos).clone()
         moved = {k: LAUNCHES[k] - before[k] for k in LAUNCHES if LAUNCHES[k] != before[k]}
         assert moved == dict([kernel])
         after = _cache_copy(m)
@@ -1626,7 +1707,7 @@ def test_captured_decode_step_replays_bitwise(dev, route, monkeypatch):
             _cache_put(m, state)
             m.pos = pos
             before = dict(LAUNCHES)
-            got = m.decode_step_replay(tok)
+            got = m.decode_step(tok)
             torch.cuda.synchronize()
             assert dict(LAUNCHES) == before           # a replay ticks no counter
             assert torch.isfinite(eager).all() and torch.equal(got, eager), pos
@@ -1735,3 +1816,60 @@ def test_device_position_reads_nothing_on_the_host(dev, route, monkeypatch):
         torch.cuda.set_sync_debug_mode("default")
     assert torch.isfinite(logits).all() and torch.isfinite(wl).all()
     assert toks.shape == (3, 4) and int(end) == 4 + 16 + int(counts.sum())
+
+
+@pytest.mark.parametrize("sampling", [(0.0, 0), (0.8, 40), (1.0, 0)])
+def test_sampled_chunk_replay_draws_the_eager_draws(dev, sampling):
+    """``decode_chunk_device`` replays its captured chunk with the
+    executable's registered generator reseeded with seed + pos: the tokens
+    and both caches bitwise those of the eager ``generate_scan_fn`` with a
+    generator seeded alike, from the same cache state, at two seeds and
+    two positions; one capture serves them all."""
+    from pygpukit_tpu_torch.llm import generate_scan_fn
+    temperature, top_k = sampling
+    m = _small_1b(dev)
+    m.init_fixed_cache(512)
+    m.prefill(list(range(1, 17)))
+    for seed, pos, tok in ((3, 16, 7), (11, 40, 900)):
+        m.pos = pos
+        state = _cache_copy(m)
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(seed + pos)
+        eager = generate_scan_fn(m.config, 8, temperature, top_k, m.params, m.k_cache,
+                                 m.v_cache, tok, pos, gen if temperature > 0 else None)
+        eager = eager.clone()
+        after = _cache_copy(m)
+        _cache_put(m, state)
+        m.pos = pos
+        got = m.decode_chunk_device(tok, 8, temperature, top_k, seed)
+        torch.cuda.synchronize()
+        assert torch.equal(got, eager), (seed, pos)
+        assert all(torch.equal(a, b) for a, b in zip(_cache_copy(m), after))
+    exes = [e for k, e in m.graphs.executables().items() if k[0] == "generate"]
+    assert len(exes) == 1 and exes[0].stats.replays == 2
+
+
+@pytest.mark.parametrize("paged", [False, True])
+@pytest.mark.parametrize("pipelined", [False, True])
+def test_engine_replays_identical_streams_and_pools(dev, paged, pipelined):
+    """The engine on a 2-layer model at the 1.1B widths replays its
+    captured prefills and chunk: two engines serve the same 12 requests
+    with identical streams and bitwise pools (paged: outside the trash
+    block 0), every request finishing with its count."""
+    from pygpukit_tpu_torch.llm import ContinuousBatchingEngine
+    m = _small_1b(dev)
+    g = torch.Generator().manual_seed(5)
+    reqs_in = [(torch.randint(1, 32000, (int(n),), generator=g).tolist(), 20 + i)
+               for i, n in enumerate(torch.randint(4, 60, (12,), generator=g))]
+    runs = []
+    for _ in range(2):
+        eng = ContinuousBatchingEngine(m, max_batch=4, max_seq_len=256, steps_per_dispatch=8,
+                                       pipelined=pipelined, paged=paged, block_size=16)
+        reqs = [eng.submit(p, max_new_tokens=n) for p, n in reqs_in]
+        eng.run_until_complete()
+        assert all(r.done and len(r.generated) == n for r, (_, n) in zip(reqs, reqs_in))
+        assert eng.logits_finite() and eng.graphs.executables()
+        pools = [c[:, 1:] if paged else c for c in (eng.k_cache, eng.v_cache)]
+        runs.append(([r.generated for r in reqs], [_bits(p).clone() for p in pools]))
+    assert runs[0][0] == runs[1][0]
+    assert all(torch.equal(a, b) for a, b in zip(runs[0][1], runs[1][1]))

@@ -128,6 +128,22 @@ def test_executable_cache_hits_misses_and_fifo_eviction():
     assert isinstance(global_executable_cache(), ExecutableCache)
 
 
+def test_shared_pool_cache_evicts_nothing():
+    """An owner's cache (``shared_pool``) keeps every executable past
+    ``max_entries``: evicting would free pool memory that live static
+    outputs use. ``reset()`` releases them all."""
+    cache = ExecutableCache(max_entries=1, shared_pool=True)
+    x = torch.ones(2)
+    a = cache.get_or_capture("a", lambda t: t + 1, x)
+    b = cache.get_or_capture("b", lambda t: t + 2, x)
+    assert cache.executables() == {"a": a, "b": b} and cache.get("a") is a
+    assert torch.equal(a.replay(x), x + 1) and cache.nbytes == 0    # no pool on the CPU
+    cache.reset()
+    assert cache.executables() == {}
+    with pytest.raises(RuntimeError, match="after reset"):
+        b.replay(x)
+
+
 CFG_1B = dict(vocab_size=32000, hidden_size=2048, num_layers=22, num_heads=32,
               num_kv_heads=4, intermediate_size=5632, max_position_embeddings=2048)
 CFG_TINY = dict(vocab_size=97, hidden_size=48, num_layers=3, num_heads=4, num_kv_heads=2,
@@ -292,9 +308,9 @@ def test_fused_step_device_pos_is_the_int_pos_bitwise(monkeypatch):
 
 @pytest.mark.parametrize("kv", ["f32", "int8"])
 def test_captured_model_step_is_the_eager_step_bitwise(kv):
-    """``decode_step_replay`` (the captured executable over the model's
-    caches, pos and token through ``decode_buffers``) against
-    ``decode_step`` from the same cache state, step by step."""
+    """``decode_step`` (the captured executable over the model's caches,
+    pos and token through ``decode_buffers``) against the eager
+    ``decode_step_fn`` from the same cache state, step by step."""
     cfg = TransformerConfig(**DEV_CFG)
     dtype, kv_dtype = KV[kv]
     eager = CausalTransformerModel(cfg, init_params(cfg, 5, dtype, CPU), dtype=dtype,
@@ -307,8 +323,10 @@ def test_captured_model_step_is_the_eager_step_bitwise(kv):
     assert exe.node_count > 0 and graph._ensure_decode_exe() is exe
     tok = 42
     for _ in range(4):
-        le = eager.decode_step(tok)
-        lg = graph.decode_step_replay(tok)
+        le = port_model.decode_step_fn(cfg, eager.params, eager.k_cache, eager.v_cache, tok,
+                                       eager.pos)
+        eager.pos += 1
+        lg = graph.decode_step(tok)
         assert torch.equal(le, lg) and eager.pos == graph.pos
         assert _same_bits(eager.k_cache, graph.k_cache)
         assert _same_bits(eager.v_cache, graph.v_cache)
@@ -316,7 +334,7 @@ def test_captured_model_step_is_the_eager_step_bitwise(kv):
         tok = int(torch.argmax(le))
     assert exe.stats.replays == 4 and graph.logits_finite()
     graph.init_fixed_cache(MAX)                     # new caches: the executable is released
-    assert graph._decode_exes == {} and graph.decode_buffers is None
+    assert graph.graphs.executables() == {} and graph.decode_buffers is None
     with pytest.raises(RuntimeError, match="after reset"):
         exe.replay()
 
