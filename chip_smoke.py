@@ -223,7 +223,25 @@ bf16 weight with no scale, torch._grouped_mm for gmm, bf16 out).
     against one eager call of its function on clones of its donated state
     at two random inputs: outputs and state bitwise; per executable its
     graph nodes, pool bytes, capture seconds, eager and replayed wall ms;
-    tok/s, TTFT and the chunk's launches a step.
+    tok/s, TTFT and the chunk's launches a step;
+18. checkpoint loading and the chat path (load_phase, ``--phases load``):
+    the 1.1B bf16 model from init_params (seed 0) written as a Hugging Face
+    Llama checkpoint (HF names, [out, in] projections unfused, config.json
+    with model_type llama, a byte-level BPE tokenizer.json with the ChatML
+    specials, made by write_tokenizer) into build/, once as one
+    model.safetensors and once as two shards with an index; each loaded
+    by load_model_from_safetensors (pinned, double-buffered host-to-device
+    copies; the single file once more with pageable copies), every leaf
+    bitwise the source model's fused leaf, the load's wall seconds and
+    GB/s (the file is in the page cache: no disk read) beside a pinned
+    1 GiB host-to-device copy's rate; the loaded and the source model's
+    2048-token forward logits bitwise (22 flash_attention launches each),
+    64 greedy tokens identical (flash_decode); both quantized to int4
+    through the params setter after those captures, a short generate
+    identical, then 8 ChatML requests encoded by the port's Tokenizer (one
+    of 256 tokens or more: w4a8_gemm on its prefill), 32 new tokens each,
+    served by the batch-8 engine on each model: identical streams, each
+    decoded to text; rows 1, 4, 6, 14 and 15 must show launches.
 Launches per decode step, prefill, forward or layer are counted in phases
 6, 7, 9, 11, 12, 13, 14, 15, 16 and 17 and printed (phases 6-14, 16, 17)
 on one line before the summary. A count is the wrappers' eager launches
@@ -323,13 +341,31 @@ GEN_CHUNK = 16
 # order; the block w4a8 GEMV is held bitwise instead)
 ULP_REL, NEAR_ZERO = 2.0 ** -7, 1e-4
 PHASES = ("kernels", "dense", "paged", "tight", "ladder", "block", "parity",
-          "forward", "ops", "decode", "moe", "kv", "strategies", "graphs")
+          "forward", "ops", "decode", "moe", "kv", "strategies", "graphs", "load")
 # phase 17 (graphs): the model's window and chunk, the sampled chunk's
 # temperature and top-k, the draft's tokens, the paged engine's requests
 GRAPH_WINDOW, GRAPH_CHUNK, GRAPH_TEMP, GRAPH_TOPK = 6, 16, 0.8, 40
 # phase 7's requests at 32 steps a dispatch (phase 7 runs 128): its chunk
 # program is a fourth of phase 7's to capture and to run eagerly
 GRAPH_DRAFT_NEW, GRAPH_PAGED_REQS, GRAPH_PAGED_STEPS = 64, 32, 32
+# phase 18: the generate after the load (tokens, cache), the chat requests'
+# new tokens and the least length of the long one (its prefill's rows take
+# the w4a8 GEMM from 256), the host-to-device yardstick's bytes
+LOAD_NEW, LOAD_MAX, LOAD_CHAT_NEW, LOAD_LONG, H2D_BYTES = 64, 1024, 32, 256, 1 << 30
+# the tokenizer's training text (write_tokenizer) and the chat requests
+TOKENIZER_MERGES = 400
+TOKENIZER_TEXT = (
+    "A checkpoint is a directory of weights, a config and a tokenizer. The runtime "
+    "maps the weights, copies them to the card through pinned memory, converts and "
+    "transposes them there, and serves the model to many requests at once. Each "
+    "request is a conversation: a system message, then the user's question, then "
+    "the assistant's answer, token by token, until it has said enough. It's 2024; "
+    "the numbers 0123456789 and the words that people write every day should cost "
+    "few tokens, while rare words cost more.")
+CHAT_QUESTIONS = ("What is a checkpoint?", "How many layers does the model have?",
+                  "Say hello in three languages.", "Why copy through pinned memory?",
+                  "What does the tokenizer do with rare words?", "Count to ten.",
+                  "Summarise the text below in one line.")
 # phase 16: the positions the captured step replays at (captured at 16),
 # and the steps of the back-to-back eager and replayed step loops
 STRAT_POSITIONS, STRAT_STEPS = (17, 100, 300, 511), 128
@@ -3627,6 +3663,328 @@ def graphs_phase(cfg, dev, card: str, requests) -> dict:
     return launches
 
 
+def write_tokenizer(path: Path, vocab_size: int) -> None:
+    """A byte-level BPE tokenizer.json (the Hugging Face format): the
+    ChatML specials (ids 0-2, also added tokens), the 256 byte characters,
+    TOKENIZER_MERGES merges learned from TOKENIZER_TEXT (the most frequent
+    pair first, ties to the larger pair), then two-character tokens up to
+    ``vocab_size``, so every id the model can sample decodes to text."""
+    from collections import Counter
+    from pygpukit_tpu_torch.llm.tokenizer import _bytes_to_unicode, _split_words
+    enc = _bytes_to_unicode()
+    specials = ["<|endoftext|>", "<|im_start|>", "<|im_end|>"]
+    vocab = {t: i for i, t in enumerate(specials)}
+    for b in range(256):
+        vocab[enc[b]] = len(vocab)
+    words = Counter("".join(enc[b] for b in w.encode("utf-8"))
+                    for w in _split_words(TOKENIZER_TEXT))
+    seqs = {w: list(w) for w in words}
+    merges = []
+    for _ in range(TOKENIZER_MERGES):
+        pairs: Counter = Counter()
+        for w, n in words.items():
+            for pair in zip(seqs[w], seqs[w][1:]):
+                pairs[pair] += n
+        if not pairs:
+            break
+        (a, b), _ = max(pairs.items(), key=lambda kv: (kv[1], kv[0]))
+        merges.append(f"{a} {b}")
+        vocab.setdefault(a + b, len(vocab))
+        for w, seq in seqs.items():
+            out, i = [], 0
+            while i < len(seq):
+                if i + 1 < len(seq) and seq[i] == a and seq[i + 1] == b:
+                    out.append(a + b)
+                    i += 2
+                else:
+                    out.append(seq[i])
+                    i += 1
+            seqs[w] = out
+    chars = [enc[b] for b in range(256)]
+    for a in chars:
+        for b in chars:
+            if len(vocab) >= vocab_size:
+                break
+            vocab.setdefault(a + b, len(vocab))
+    added = [{"id": i, "content": t, "single_word": False, "lstrip": False,
+              "rstrip": False, "normalized": False, "special": True}
+             for i, t in enumerate(specials)]
+    byte_level = {"type": "ByteLevel", "add_prefix_space": False, "trim_offsets": True,
+                  "use_regex": True}
+    path.write_text(json.dumps({
+        "version": "1.0", "truncation": None, "padding": None, "added_tokens": added,
+        "normalizer": None, "pre_tokenizer": byte_level, "post_processor": None,
+        "decoder": byte_level,
+        "model": {"type": "BPE", "dropout": None, "unk_token": None,
+                  "continuing_subword_prefix": None, "end_of_word_suffix": None,
+                  "fuse_unk": False, "byte_fallback": False, "ignore_merges": False,
+                  "vocab": vocab, "merges": merges}}, ensure_ascii=False))
+
+
+def hf_llama_tensors(cfg, params: dict) -> dict:
+    """The Hugging Face Llama names of an unfused param tree, projections as
+    ``[out, in]`` views (transposed copies are made one at a time by the
+    writer)."""
+    lp = params["layers"]
+    out = {"model.embed_tokens.weight": params["embed"]}
+    hf = {"w_q": "self_attn.q_proj", "w_k": "self_attn.k_proj", "w_v": "self_attn.v_proj",
+          "w_o": "self_attn.o_proj", "w_gate": "mlp.gate_proj", "w_up": "mlp.up_proj",
+          "w_down": "mlp.down_proj"}
+    for i in range(cfg.num_layers):
+        pre = f"model.layers.{i}."
+        out[pre + "input_layernorm.weight"] = lp["attn_norm_w"][i]
+        out[pre + "post_attention_layernorm.weight"] = lp["mlp_norm_w"][i]
+        for leaf, name in hf.items():
+            out[pre + name + ".weight"] = lp[leaf][i].t()
+    out["model.norm.weight"] = params["final_norm_w"]
+    out["lm_head.weight"] = params["lm_head"].t()
+    return out
+
+
+def write_checkpoint(d: Path, tensors: dict, hf_config: dict, shards: int) -> float:
+    """``tensors`` as one model.safetensors or as ``shards`` files with a
+    model.safetensors.index.json, beside config.json; returns seconds."""
+    from pygpukit_tpu_torch.llm import save_safetensors
+    t0 = time.perf_counter()
+    d.mkdir(parents=True, exist_ok=True)
+    (d / "config.json").write_text(json.dumps(hf_config))
+    names = list(tensors)
+    if shards == 1:
+        save_safetensors(d / "model.safetensors", tensors)
+    else:
+        weight_map, size = {}, 0
+        for k in range(shards):
+            part = names[k * len(names) // shards:(k + 1) * len(names) // shards]
+            shard = f"model-{k + 1:05d}-of-{shards:05d}.safetensors"
+            save_safetensors(d / shard, {n: tensors[n] for n in part})
+            weight_map.update({n: shard for n in part})
+            size += sum(tensors[n].numel() * tensors[n].element_size() for n in part)
+        (d / "model.safetensors.index.json").write_text(json.dumps(
+            {"metadata": {"total_size": size}, "weight_map": weight_map}))
+    return time.perf_counter() - t0
+
+
+def h2d_gbs(dev) -> float:
+    """GB/s of one pinned H2D_BYTES host-to-device copy (CUDA events, the
+    mean of three after a warm one): the yardstick of the load."""
+    import torch
+    host = torch.empty(H2D_BYTES, dtype=torch.uint8, pin_memory=True)
+    buf = torch.empty(H2D_BYTES, dtype=torch.uint8, device=dev)
+    buf.copy_(host, non_blocking=True)
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(3):
+        buf.copy_(host, non_blocking=True)
+    end.record()
+    end.synchronize()
+    return 3 * H2D_BYTES / (start.elapsed_time(end) * 1e-3) / 1e9
+
+
+def timed_load(d: Path, pinned: bool, dev):
+    """(model, wall seconds) of load_model_from_safetensors(d) with pinned
+    or pageable (PYGPUKIT_ASYNC_LOAD=0) copies, synchronized."""
+    import os
+    import torch
+    from pygpukit_tpu_torch.llm import load_model_from_safetensors
+    saved = os.environ.get("PYGPUKIT_ASYNC_LOAD")
+    os.environ["PYGPUKIT_ASYNC_LOAD"] = "1" if pinned else "0"
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        model = load_model_from_safetensors(d, max_seq_len=LOAD_MAX, device=dev)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+    finally:
+        if saved is None:
+            os.environ.pop("PYGPUKIT_ASYNC_LOAD")
+        else:
+            os.environ["PYGPUKIT_ASYNC_LOAD"] = saved
+    return model, secs
+
+
+def host_copy_s(d: Path) -> float:
+    """Seconds to copy every tensor of the checkpoint at ``d`` out of its
+    map into one pinned buffer, the host's share of a pinned load."""
+    import torch
+    from pygpukit_tpu_torch.llm import load_safetensors
+    with load_safetensors(d) as st:
+        buf = torch.empty(max(st.info(k).nbytes for k in st.keys()), dtype=torch.uint8,
+                          pin_memory=True)
+        t0 = time.perf_counter()
+        for k in st.keys():
+            raw = st.tensor_raw(k)
+            buf[:raw.numel()].copy_(raw)
+        return time.perf_counter() - t0
+
+
+def params_bitwise(a: dict, b: dict) -> bool:
+    """Every leaf of two param trees the same dtype, shape and bytes."""
+    from pygpukit_tpu_torch.llm.model import _flatten
+    fa, fb = dict(_flatten(a)), dict(_flatten(b))
+    if fa.keys() != fb.keys():
+        return False
+    return all((x is None and y is None) or (
+        x is not None and y is not None and x.dtype == y.dtype and x.shape == y.shape
+        and torch_equal_bits(x, y)) for x, y in ((fa[k], fb[k]) for k in fa))
+
+
+def torch_equal_bits(x, y) -> bool:
+    import torch
+    return torch.equal(x.contiguous().view(torch.uint8), y.contiguous().view(torch.uint8))
+
+
+def chat_requests(tok, cfg) -> list:
+    """LOAD_CHAT_NEW tokens after each ChatML prompt (CHAT_QUESTIONS under a
+    system message, and one whose user message is TOKENIZER_TEXT repeated
+    to LOAD_LONG tokens or more), encoded by the port's Tokenizer."""
+    from pygpukit_tpu_torch.llm import apply_chat_template
+    system = {"role": "system", "content": "You are a helpful assistant. Answer briefly."}
+    prompts = [apply_chat_template([system, {"role": "user", "content": q}])
+               for q in CHAT_QUESTIONS]
+    long_text = TOKENIZER_TEXT
+    while len(tok.encode(apply_chat_template([system, {"role": "user",
+                                                       "content": long_text}]))) < LOAD_LONG:
+        long_text += " " + TOKENIZER_TEXT
+    prompts.append(apply_chat_template([system, {"role": "user", "content": long_text}]))
+    requests = [(tok.encode(p), LOAD_CHAT_NEW) for p in prompts]
+    check(all(0 <= t < cfg.vocab_size for ids, _ in requests for t in ids),
+          "load: a prompt token is outside the vocabulary")
+    return requests
+
+
+def tok_agrees(tok, own, requests) -> bool:
+    """The own byte-level BPE ``own`` (what serves where ``tokenizers``
+    does not import) gives ``tok``'s ids and text on every prompt."""
+    return all(own.encode(tok.decode(ids)) == ids and own.decode(ids) == tok.decode(ids)
+               for ids, _ in requests)
+
+
+def load_phase(cfg, dev, card: str) -> dict:
+    """Phase 18: checkpoint loading and the chat path (module docstring).
+    Returns the phase's launches by kernel."""
+    import dataclasses
+    import importlib.util
+    import shutil
+    import numpy as np
+    import torch
+    from pygpukit_tpu_torch.llm import (CausalTransformerModel, Tokenizer, fuse_params,
+                                        init_params, quantize_model_params)
+    from pygpukit_tpu_torch.llm.tokenizer import _ByteLevelBPE
+    t0 = time.perf_counter()
+    reset_counts()
+    params = init_params(cfg, 0, torch.bfloat16, dev)
+    src = CausalTransformerModel(cfg, fuse_params(params), dtype=torch.bfloat16)
+    src.init_fixed_cache(LOAD_MAX)
+    tensors = hf_llama_tensors(cfg, params)
+    nbytes = sum(t.numel() * t.element_size() for t in tensors.values())
+    hf_config = {"architectures": ["LlamaForCausalLM"], "model_type": "llama",
+                 "vocab_size": cfg.vocab_size, "hidden_size": cfg.hidden_size,
+                 "intermediate_size": cfg.intermediate_size,
+                 "num_hidden_layers": cfg.num_layers,
+                 "num_attention_heads": cfg.num_heads,
+                 "num_key_value_heads": cfg.num_kv_heads,
+                 "max_position_embeddings": cfg.max_position_embeddings,
+                 "rms_norm_eps": cfg.norm_eps, "rope_theta": cfg.rope_theta,
+                 "tie_word_embeddings": False, "torch_dtype": "bfloat16"}
+    root = ROOT / "build" / "load_phase"
+    shutil.rmtree(root, ignore_errors=True)
+    single, sharded = root / "single", root / "sharded"
+    try:
+        rate = h2d_gbs(dev)
+        w1 = write_checkpoint(single, tensors, hf_config, 1)
+        write_tokenizer(single / "tokenizer.json", cfg.vocab_size)
+        times = {}          # (what, copies) -> [seconds of each load]
+        loaded = None
+        for what, d, pinned in (("one file", single, True), ("one file", single, False),
+                                ("one file", single, True), ("two shards", sharded, True),
+                                ("two shards", sharded, True)):
+            if what == "two shards" and not d.exists():
+                (single / "model.safetensors").unlink()   # one checkpoint on disk at a time
+                w2 = write_checkpoint(sharded, tensors, hf_config, 2)
+            model, secs = timed_load(d, pinned, dev)
+            check(dataclasses.asdict(model.config) == dataclasses.asdict(cfg)
+                  and model.spec.name == "llama", f"load: config {model.config}")
+            check(params_bitwise(model.params, src.params),
+                  f"load: a leaf of the {what} load differs from the source's")
+            times.setdefault((what, "pinned" if pinned else "pageable"), []).append(secs)
+            if loaded is None:
+                loaded = model
+            del model
+        host_s = host_copy_s(sharded)
+        tok, own_bpe = Tokenizer(str(single)), _ByteLevelBPE(str(single / "tokenizer.json"))
+        del tensors, params
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    torch.cuda.empty_cache()
+    loads = "; ".join(f"{what} {copies}: " + ", ".join(
+        f"{t:.3f} s = {nbytes / t / 1e9:.2f} GB/s" for t in ts)
+        for (what, copies), ts in times.items())
+    print(f"phase 18: the 1.1B bf16 checkpoint, {nbytes / 1e9:.3f} GB, written in "
+          f"{w1:.2f} s (one file) and {w2:.2f} s (two shards); loaded with max_seq_len "
+          f"{LOAD_MAX} from the page cache (no disk read): {loads}; the host's copies out "
+          f"of the map alone {host_s:.3f} s = {nbytes / host_s / 1e9:.2f} GB/s; pinned "
+          f"{H2D_BYTES >> 20} MiB host-to-device copy {rate:.2f} GB/s; every leaf bitwise "
+          f"the source model's fused leaf; tokenizer "
+          f"{'HF tokenizers' if tok._hf is not None else 'own byte-level BPE'} "
+          f"({tok.vocab_size} ids); ml_dtypes "
+          f"{'present' if importlib.util.find_spec('ml_dtypes') else 'absent'}; [{card}]")
+
+    ids = np.random.default_rng(18).integers(1, cfg.vocab_size, FWD_S).tolist()
+    a, b = loaded(ids), src(ids)
+    check(tuple(a.shape) == (FWD_S, cfg.vocab_size) and bool(torch.isfinite(a).all()),
+          f"load: forward logits {tuple(a.shape)}")
+    check(torch_equal_bits(a, b), "load: the loaded model's forward logits differ")
+    del a, b
+    requests = chat_requests(tok, cfg)
+    check(tok_agrees(tok, own_bpe, requests), "load: the own byte-level BPE differs from the "
+          "tokenizer's ids or text on a chat prompt")
+    prompt = requests[0][0]
+    g1 = loaded.generate(prompt, max_new_tokens=LOAD_NEW, chunk_size=GEN_CHUNK)
+    g2 = src.generate(prompt, max_new_tokens=LOAD_NEW, chunk_size=GEN_CHUNK)
+    check(len(g1) == LOAD_NEW and g1 == g2,
+          f"load: generate after the load {g1[:8]}... against {g2[:8]}...")
+    check(loaded.logits_finite(), "load: a generate logit went non-finite")
+
+    old = [loaded.params["layers"][k][i].clone() for k in ("w_qkv", "w_down") for i in (0, -1)]
+    old_refs = [loaded.params["layers"][k][i] for k in ("w_qkv", "w_down") for i in (0, -1)]
+    for model in (loaded, src):
+        model.params = quantize_model_params(model.params, "int4")
+        check(not model.graphs.executables() and model.decode_buffers is None,
+              "load: the params setter kept captured programs")
+    q1 = loaded.generate(prompt, max_new_tokens=GEN_CHUNK, chunk_size=GEN_CHUNK)
+    q2 = src.generate(prompt, max_new_tokens=GEN_CHUNK, chunk_size=GEN_CHUNK)
+    check(q1 == q2, f"load: int4 generate after the params setter {q1} against {q2}")
+    eng1, reqs1, secs = serve(loaded, requests, GEN_CHUNK)
+    n_tok = check_served(eng1, reqs1, requests, "load (loaded)")
+    eng2, reqs2, _ = serve(src, requests, GEN_CHUNK)
+    check_served(eng2, reqs2, requests, "load (source)")
+    streams = [r.generated for r in reqs1]
+    check(streams == [r.generated for r in reqs2],
+          "load: the loaded model's chat streams differ from the source's")
+    texts = [tok.decode(s) for s in streams]
+    check(all(isinstance(t, str) and t for t in texts), "load: a stream decoded to no text")
+    check(all(torch.equal(x, y) for x, y in zip(old_refs, old)),
+          "load: the bf16 weights changed after the params setter")
+    launches = {k: n for k, n in launch_counts().items() if n}
+    reset_counts()
+    for name in ("w4a8_gemv", "w4a8_gemm", "batch_decode_attention", "flash_attention",
+                 "flash_decode"):
+        check(launches.get(name, 0) > 0, f"load: {name} never launched ({launches})")
+    print(f"phase 18: 2048-token forward logits bitwise the source's; {LOAD_NEW} greedy "
+          f"tokens identical; int4 through the params setter after those captures: a "
+          f"{GEN_CHUNK}-token generate identical, then {len(requests)} ChatML requests "
+          f"(prompts {min(len(p) for p, _ in requests)}-{max(len(p) for p, _ in requests)} "
+          f"tokens) served by the batch-8 engine: {n_tok} tokens in {secs:.3f} s, streams "
+          f"identical to the source model's; first stream decodes to {texts[0][:40]!r}; "
+          f"the own byte-level BPE gives the tokenizer's ids and text on every prompt; "
+          f"the bf16 weights unchanged; launches {json.dumps(launches)}; [{card}]")
+    del eng1, eng2, loaded, src
+    torch.cuda.empty_cache()
+    print(f"phase 18 took {time.perf_counter() - t0:.1f} s")
+    return launches
+
+
 def main(argv: list[str]) -> int:
     t_script = time.perf_counter()
     import argparse
@@ -3743,6 +4101,8 @@ def main(argv: list[str]) -> int:
     if "graphs" in phases:
         launches_17 = graphs_phase(cfg, dev, card, requests)
         print("phase 17: launches " + json.dumps({k: n for k, n in launches_17.items() if n}))
+    if "load" in phases:
+        load_phase(cfg, dev, card)
     print(f"total {time.perf_counter() - t_start:.1f} s after the build began, "
           f"{time.perf_counter() - t_script:.1f} s the whole script")
     if set(phases) != set(PHASES):

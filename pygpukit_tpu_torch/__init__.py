@@ -21,8 +21,10 @@ a device tensor; the MoE family's routed expert MLP (``ops.moe``,
 Mixtral); the decode strategies (``llm.decode``: M1, M1Graph, Batch,
 Jacobi, Speculative) with ``speculative_scan_fn`` and ``slice_layers``;
 capture and replay (``core.capture``: CUDA graphs on the card, the
-reference's ``Executable`` API) with ``llm.buffers``; and their fifteen
-kernels.
+reference's ``Executable`` API) with ``llm.buffers``; checkpoint loading
+and the model API (``llm.safetensors``, ``llm.config``'s specs and
+``from_hf_config``, ``llm.loader``, ``llm.streaming``, ``llm.tokenizer``,
+``llm.chat``, ``llm.layers``); and their fifteen kernels.
 """
 
 from . import core, kernels, llm, ops
@@ -36,9 +38,10 @@ from .core.dtypes import (bfloat16, bool_, float8_e4m3, float8_e5m2, float16,
 from .kernels import (LAUNCHES, batch_decode_attention, kv_rows_write,
                       paged_attention, reset_launches, w4a8_matmul)
 from .llm import (CausalTransformerModel, ContinuousBatchingEngine,
-                  EngineStats, Request, TransformerConfig, fuse_params,
-                  init_params, params_from_jax, quantize_model_params,
-                  quantize_weight)
+                  EngineStats, Request, Tokenizer, TransformerConfig,
+                  apply_chat_template, fuse_params, init_params,
+                  load_model_from_safetensors, params_from_jax,
+                  quantize_model_params, quantize_weight)
 from .ops import (add, add_scaled, argmax, argmin, batched_matmul, cast, clamp,
                   concat, cos, cumsum, div, embedding_lookup, exp, flash_attention,
                   geglu, gelu, gemv, grouped_matmul, l2norm, layernorm, log,

@@ -11,26 +11,34 @@ and ``{"q", "scale"}`` dicts, rope tables. bf16 and fp8 leaves cross through
 from __future__ import annotations
 
 import numpy as np
+import torch
 
 from ..core.host import tensor_from_numpy
 
 
 def _drop_split_scales(leaf: dict) -> dict:
-    """An int4_block dict of a built reference model carries ``scale_lo``
-    and ``scale_hi``, the two halves of ``scale_block`` along K/B (the
+    """An int4_block dict (numpy or torch leaves) of a built reference
+    model carries ``scale_lo`` and ``scale_hi``, the two halves of
+    ``scale_block`` along K/B (the
     reference's ``prepare_block_scales``). In torch a half is a free view,
     so the port keeps ``scale_block`` alone: the two leaves are checked to
     equal its halves and dropped. ValueError when they differ."""
     leaf = dict(leaf)
     lo, hi = leaf.pop("scale_lo"), leaf.pop("scale_hi")
-    s = np.asarray(leaf["scale_block"])
+    s = leaf["scale_block"]
     half = s.shape[-2] // 2
     for name, part, ref in (("scale_lo", lo, s[..., :half, :]),
                             ("scale_hi", hi, s[..., half:, :])):
-        part = np.asarray(part)
-        if part.shape != ref.shape or part.tobytes() != ref.tobytes():
+        if tuple(part.shape) != tuple(ref.shape) or _bytes(part) != _bytes(ref):
             raise ValueError(f"{name} is not the matching half of scale_block")
     return leaf
+
+
+def _bytes(a) -> bytes:
+    """The bytes of a numpy array or a tensor, C order."""
+    if isinstance(a, torch.Tensor):
+        return a.detach().cpu().contiguous().reshape(-1).view(torch.uint8).numpy().tobytes()
+    return np.ascontiguousarray(a).tobytes()
 
 
 def params_from_jax(tree, device=None):

@@ -104,7 +104,6 @@ import torch
 from torch import nn
 
 from ..core.backend import resolve_device
-from ..core.dtypes import resolve_dtype
 from ..core.executable import Executable, ExecutableCache
 from ..core.host import tensor_from_numpy, tensor_to_numpy
 from ..core.numerics import require_full_f32, true_div
@@ -123,13 +122,36 @@ from ..ops.nn import (apply_rope_fn, flash_attention_fn, rmsnorm_fn,
 from ..ops.sampling import (sample_greedy_fn, sample_temperature_fn,
                             sample_topk_fn, sample_topp_fn)
 from .buffers import DecodeBuffers, PrefillBuffers
-from .config import TransformerConfig
+from .config import ModelSpec, TransformerConfig
 
 _F32 = torch.float32
 _NEG_INF = -1e30
 #: int4 layer operands take the w4a8 GEMM from this many rows (below it,
 #: from 9 rows, the dequant matmul), as the reference's TPU route does
 W4A8_GEMM_MIN_ROWS = 256
+
+
+#: the KV-cache storage names ``resolve_kv_dtype`` accepts (the reference's)
+KV_DTYPES = {"fp8": torch.float8_e4m3fn, "fp8_e4m3": torch.float8_e4m3fn,
+             "e4m3": torch.float8_e4m3fn, "fp8_e5m2": torch.float8_e5m2,
+             "e5m2": torch.float8_e5m2, "int8": torch.int8, "bf16": torch.bfloat16,
+             "bfloat16": torch.bfloat16, "f32": _F32, "float32": _F32}
+
+
+def resolve_kv_dtype(kv_dtype, model_dtype: torch.dtype) -> torch.dtype:
+    """The KV-cache storage dtype (reference ``resolve_kv_dtype``): the
+    argument, else ``PYGPUKIT_KV_DTYPE`` (read per call; empty means unset),
+    else the model dtype. A name must be one of ``KV_DTYPES`` (ValueError
+    otherwise); a torch dtype is taken as it is."""
+    if kv_dtype is None:
+        kv_dtype = os.environ.get("PYGPUKIT_KV_DTYPE", "") or None
+    if kv_dtype is None:
+        return model_dtype
+    if isinstance(kv_dtype, str):
+        if kv_dtype not in KV_DTYPES:
+            raise ValueError(f"unknown kv_dtype {kv_dtype!r}; one of {sorted(KV_DTYPES)}")
+        return KV_DTYPES[kv_dtype]
+    return kv_dtype
 
 
 def check_supported(cfg: TransformerConfig) -> None:
@@ -1028,20 +1050,15 @@ class CausalTransformerModel(nn.Module):
     ``kv_dtype``), updated in place."""
 
     def __init__(self, config: TransformerConfig, params: dict,
-                 dtype: torch.dtype = torch.bfloat16, kv_dtype=None):
+                 spec: ModelSpec | None = None, dtype: torch.dtype = torch.bfloat16,
+                 kv_dtype=None):
         super().__init__()
         check_supported(config)
         self.config = config
+        self.spec = spec
         self.dtype = dtype
-        self.kv_dtype = resolve_dtype(kv_dtype) if kv_dtype is not None else dtype
-        params = dict(params)
-        _check_params(params)
-        if config.use_rope and "rope_cos" not in params:
-            params["rope_cos"], params["rope_sin"] = rope_tables(
-                config.max_position_embeddings, config.head_dim,
-                config.rope_theta, device=params["embed"].device)
+        self.kv_dtype = resolve_kv_dtype(kv_dtype, dtype)
         self._paths = []
-        self._register(params)
         self.max_seq_len: int | None = None
         self.k_cache = self.v_cache = None
         self.pos = 0
@@ -1052,6 +1069,7 @@ class CausalTransformerModel(nn.Module):
         # sampled chunks' generators, one per executable
         self.graphs = ExecutableCache(shared_pool=True)
         self._chunk_generators: dict = {}
+        self.params = params
 
     def _register(self, params: dict) -> None:
         """Make the leaves of ``params`` not yet registered module buffers."""
@@ -1073,6 +1091,29 @@ class CausalTransformerModel(nn.Module):
                 node = node.setdefault(k, {})
             node[path[-1]] = None if name is None else getattr(self, name)
         return out
+
+    @params.setter
+    def params(self, params: dict) -> None:
+        """Take a new param tree, as the reference's attribute does
+        (``model.params = quantize_model_params(model.params, "int4")``):
+        its leaves replace every registered one (the rope tables are made
+        when the tree has none). The captured programs bind the old weights
+        by address, so they are released with the decode and prefill
+        buffers; the old tensors are never written. The caches and the
+        position stay."""
+        params = dict(params)
+        _check_params(params)
+        cfg = self.config
+        if cfg.use_rope and "rope_cos" not in params:
+            params["rope_cos"], params["rope_sin"] = rope_tables(
+                cfg.max_position_embeddings, cfg.head_dim, cfg.rope_theta,
+                device=params["embed"].device)
+        self._drop_executables()
+        for _, name in self._paths:
+            if name is not None:
+                delattr(self, name)
+        self._paths = []
+        self._register(params)
 
     @property
     def device(self) -> torch.device:

@@ -13,9 +13,16 @@ Leaves are byte-for-byte the reference's:
   multiple of B, and the scale is rounded to bf16 before quantizing.
 
 Rounding is half to even against an IEEE f32 divide, as ``jnp.round`` does.
+
+The checkpoint metadata (``FP8QuantConfig`` ... ``QuantizationMetadata``)
+and ``kv_dtype_from_quant_config`` are the reference's, word for word.
 """
 
 from __future__ import annotations
+
+import warnings
+from dataclasses import dataclass, field
+from typing import Literal
 
 import torch
 import torch.nn.functional as F
@@ -34,6 +41,85 @@ _QUANT_KEYS = {
 # not use)
 _MOE_QUANT_KEYS = {"w_experts_gate", "w_experts_up", "w_experts_down"}
 _PACKED4 = ("int4", "int4_block", "nvf4")
+
+
+# ---------------------------------------------------------------------------
+# Checkpoint metadata
+# ---------------------------------------------------------------------------
+
+@dataclass
+class FP8QuantConfig:
+    fmt: Literal["e4m3", "e5m2"] = "e4m3"
+    scale_granularity: Literal["tensor", "channel", "block"] = "channel"
+    block_size: int = 128
+
+
+@dataclass
+class QATConfig:
+    enabled: bool = False
+    bits: int = 8
+    symmetric: bool = True
+
+
+@dataclass
+class PruningConfig:
+    sparsity: float = 0.0
+    structured: bool = False
+    pattern: str = "2:4"
+
+
+@dataclass
+class SparsityConfig:
+    """Structured-sparsity metadata carried on checkpoints (descriptive:
+    inference does not read it)."""
+    pattern: str = "2:4"
+    sparsity: float = 0.5
+    structured: bool = True
+
+
+@dataclass
+class ModelOptimizationInfo:
+    """Aggregate optimization metadata of a checkpoint."""
+    quantization: "FP8QuantConfig | None" = None
+    qat: "QATConfig | None" = None
+    pruning: "PruningConfig | None" = None
+    sparsity: "SparsityConfig | None" = None
+
+
+@dataclass
+class QuantizationMetadata:
+    method: str = "none"
+    fp8: FP8QuantConfig = field(default_factory=FP8QuantConfig)
+    qat: QATConfig = field(default_factory=QATConfig)
+    pruning: PruningConfig = field(default_factory=PruningConfig)
+    #: the KV-cache quantization algo of the checkpoint's
+    #: quantization_config; "FP8" maps to a float8_e4m3fn cache
+    #: (``model.resolve_kv_dtype``)
+    kv_cache_quant_algo: str | None = None
+
+
+#: the reference's alias
+QATQuantConfig = QATConfig
+
+
+def kv_dtype_from_quant_config(qc: dict | None) -> str | None:
+    """A HF quantization_config's ``kv_cache_quant_algo`` as a kv_dtype name
+    that ``model.resolve_kv_dtype`` accepts (None: no KV quantization). An
+    algo it does not know warns and gives None: the weights load either
+    way, and the KV algo is an optimisation hint."""
+    algo = (qc or {}).get("kv_cache_quant_algo")
+    if algo is None:
+        return None
+    a = str(algo).lower()
+    if "e5m2" in a:
+        return "fp8_e5m2"
+    if "fp8" in a or "e4m3" in a:
+        return "fp8_e4m3"
+    if "int8" in a:
+        return "int8"
+    warnings.warn(f"unsupported kv_cache_quant_algo {algo!r}; "
+                  "using the model dtype for the KV cache")
+    return None
 
 
 def _pack_split_half(q: torch.Tensor, dim: int) -> torch.Tensor:
@@ -134,3 +220,39 @@ def quantize_model_params(params: dict, mode: str = "int4",
             "int8" if mode in _PACKED4 else mode)
         out["lm_head"] = quantize_weight(out["lm_head"], head_mode)
     return out
+
+
+def dequantize_model_params(params: dict, dtype=torch.bfloat16) -> dict:
+    """Every quantized layer leaf and a quantized head back to dense
+    ``dtype`` weights (``dequantize_weight``); other leaves as they are."""
+    out = dict(params)
+    layers = dict(params["layers"])
+    for k, v in layers.items():
+        if isinstance(v, dict) and ("q" in v or "q_packed" in v):
+            layers[k] = dequantize_weight(v, dtype)
+    out["layers"] = layers
+    if isinstance(out.get("lm_head"), dict):
+        out["lm_head"] = dequantize_weight(out["lm_head"], dtype)
+    return out
+
+
+def model_quant_bytes(params: dict) -> tuple[int, int]:
+    """(bytes of the layer stack and head as stored, bytes of the same
+    weights dense): a quantized leaf counts its ``q``/``q_packed`` bytes
+    (not its scales) against 2 bytes a value (``q``) or 4 bytes a packed
+    byte (two values); a dense leaf counts its bytes on both sides."""
+    qb = db = 0
+    leaves = dict(params["layers"])
+    if isinstance(params.get("lm_head"), dict):
+        leaves["lm_head"] = params["lm_head"]
+    for v in leaves.values():
+        if isinstance(v, dict) and ("q" in v or "q_packed" in v):
+            q = v.get("q", v.get("q_packed"))
+            n = q.numel()
+            qb += n * q.element_size()
+            db += n * 2 if "q" in v else n * 4
+        else:
+            sz = v.numel() * v.element_size()
+            qb += sz
+            db += sz
+    return qb, db

@@ -1873,3 +1873,81 @@ def test_engine_replays_identical_streams_and_pools(dev, paged, pipelined):
         runs.append(([r.generated for r in reqs], [_bits(p).clone() for p in pools]))
     assert runs[0][0] == runs[1][0]
     assert all(torch.equal(a, b) for a, b in zip(runs[0][1], runs[1][1]))
+
+
+@pytest.mark.parametrize("copies", ["pinned", "pageable"])
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+@pytest.mark.parametrize("shards", [1, 2])
+def test_checkpoint_loads_on_the_card_as_on_the_cpu(dev, tmp_path, monkeypatch, copies,
+                                                     dtype, shards):
+    """A small Llama checkpoint in Hugging Face layout (f32 on disk, [out,
+    in] projections), loaded with device="cuda" through pinned
+    double-buffered copies or pageable ones (PYGPUKIT_ASYNC_LOAD=0),
+    converted and transposed on the card: every leaf equals the CPU load's
+    bitwise, and the model runs."""
+    import json
+    from pygpukit_tpu_torch.llm import (TransformerConfig, init_params,
+                                        load_model_from_safetensors, save_safetensors)
+    monkeypatch.setenv("PYGPUKIT_ASYNC_LOAD", "1" if copies == "pinned" else "0")
+    cfg = TransformerConfig(vocab_size=512, hidden_size=256, num_layers=3, num_heads=4,
+                            num_kv_heads=2, intermediate_size=320,
+                            max_position_embeddings=256, tie_word_embeddings=False)
+    p = init_params(cfg, 7, torch.float32, device="cpu")
+    lp = p["layers"]
+    tensors = {"model.embed_tokens.weight": p["embed"], "model.norm.weight": p["final_norm_w"],
+               "lm_head.weight": p["lm_head"].t()}
+    names = {"w_q": "self_attn.q_proj", "w_k": "self_attn.k_proj", "w_v": "self_attn.v_proj",
+             "w_o": "self_attn.o_proj", "w_gate": "mlp.gate_proj", "w_up": "mlp.up_proj",
+             "w_down": "mlp.down_proj"}
+    for i in range(cfg.num_layers):
+        tensors[f"model.layers.{i}.input_layernorm.weight"] = lp["attn_norm_w"][i]
+        tensors[f"model.layers.{i}.post_attention_layernorm.weight"] = lp["mlp_norm_w"][i]
+        for leaf, name in names.items():
+            tensors[f"model.layers.{i}.{name}.weight"] = lp[leaf][i].t()
+    keys = list(tensors)
+    weight_map = {}
+    for k in range(shards):
+        part = keys[k * len(keys) // shards:(k + 1) * len(keys) // shards]
+        shard = "model.safetensors" if shards == 1 else f"model-{k + 1:05d}-of-00002.safetensors"
+        save_safetensors(tmp_path / shard, {n: tensors[n] for n in part})
+        weight_map.update({n: shard for n in part})
+    if shards > 1:
+        (tmp_path / "model.safetensors.index.json").write_text(
+            json.dumps({"weight_map": weight_map}))
+    (tmp_path / "config.json").write_text(json.dumps({
+        "model_type": "llama", "vocab_size": 512, "hidden_size": 256, "intermediate_size": 320,
+        "num_hidden_layers": 3, "num_attention_heads": 4, "num_key_value_heads": 2,
+        "max_position_embeddings": 256, "tie_word_embeddings": False}))
+    on_card = load_model_from_safetensors(tmp_path, dtype=dtype, device=dev)
+    on_cpu = load_model_from_safetensors(tmp_path, dtype=dtype, device="cpu")
+    card, cpu = on_card.params, on_cpu.params
+    for key in ("embed", "final_norm_w", "lm_head"):
+        assert torch.equal(card[key].cpu(), cpu[key]), key
+    for key, leaf in cpu["layers"].items():
+        assert leaf.dtype == card["layers"][key].dtype, key
+        assert torch.equal(card["layers"][key].cpu(), leaf), key
+    ids = [3, 17, 200, 45, 9]
+    assert on_card(ids).shape == (5, 512)
+
+
+@pytest.mark.parametrize("strategy", ["SIMPLE", "SLIDING_WINDOW", "AUTO_LRU"])
+def test_streaming_on_the_card_matches_the_cpu(dev, tmp_path, strategy):
+    """Layer streaming with the device copies on the card (the sliding
+    window's prefetch on a side stream): the tensors, the loader's stats
+    and its resident names after each layer equal a CPU run's."""
+    from pygpukit_tpu_torch.llm import (LoadingStrategy, create_streaming_context,
+                                        save_safetensors)
+    path = tmp_path / "model.safetensors"
+    save_safetensors(path, {f"layer.{i}.{w}": torch.full((64, 32), float(i + j))
+                            for i in range(5) for j, w in enumerate(("a", "b"))})
+    names = [[f"layer.{i}.a", f"layer.{i}.b"] for i in range(5)]
+    runs = []
+    for device in (dev, "cpu"):
+        seen = []
+        with create_streaming_context(str(path), names, getattr(LoadingStrategy, strategy),
+                                      max_device_bytes=4 * 64 * 32 * 4, device=device) as ctx:
+            for i, tensors in ctx:
+                seen.append((i, {k: t.sum().item() for k, t in tensors.items()},
+                             dict(ctx.loader.stats), list(ctx.loader._device)))
+        runs.append((seen, dict(ctx.loader.stats)))
+    assert runs[0] == runs[1]
