@@ -241,7 +241,30 @@ bf16 weight with no scale, torch._grouped_mm for gmm, bf16 out).
     identical, then 8 ChatML requests encoded by the port's Tokenizer (one
     of 256 tokens or more: w4a8_gemm on its prefill), 32 new tokens each,
     served by the batch-8 engine on each model: identical streams, each
-    decoded to text; rows 1, 4, 6, 14 and 15 must show launches.
+    decoded to text; rows 1, 4, 6, 14 and 15 must show launches;
+19. the model families (families_phase, ``--phases families``) with
+    random weights (seed 0) at their published widths (FAMILIES: the
+    config.json values of Qwen/Qwen2.5-0.5B, Qwen/Qwen3-0.6B,
+    openai-community/gpt2, google/gemma-2-2b, google/gemma-3-1b-pt at
+    full depth, Qwen/Qwen3-30B-A3B at 4 of its 48 layers), the leaves
+    init_params keeps constant drawn (norm weights, biases, Qwen2's and
+    GPT-2's attention biases): per family a bf16 forward of 2048 tokens
+    (GPT-2 1024) with one flash_attention launch a layer the route takes
+    (none on Gemma-2, whose softcap takes the plain route; Gemma-3's four
+    global layers), a bitwise second forward; a 64-token generate warm
+    then replayed (identical tokens, flash_decode on the same layers);
+    Gemma-3-1B and GPT-2 written as Hugging Face checkpoints by
+    save_safetensors and loaded back (config and leaves bitwise, logits
+    bitwise); the first 2 layers (Gemma-3 6) on the card against the CPU
+    plain path (bf16 forward, prefill and decode steps within FWD_TOL,
+    int4 within REF_TOL; MoE the forward's rows, MOE_ROWS_Q); the int4
+    dense engine and the paged pipelined engine on 16 requests (Gemma-3:
+    4 prompts of 600-700 tokens, past its 512 window; Gemma-2: MAX 8192
+    and 2 prompts of about 4200 tokens, past its 4096 window) through
+    phase 17's graphs_engine (streams and pools twice, every program's
+    replay bitwise one eager call); the batch-8 step's device ms and the
+    head's share of it. Then the D-256 rows (d256_kernels) against their
+    plain versions, timed beside SDPA with their bounds.
 Launches per decode step, prefill, forward or layer are counted in phases
 6, 7, 9, 11, 12, 13, 14, 15, 16 and 17 and printed (phases 6-14, 16, 17)
 on one line before the summary. A count is the wrappers' eager launches
@@ -341,7 +364,8 @@ GEN_CHUNK = 16
 # order; the block w4a8 GEMV is held bitwise instead)
 ULP_REL, NEAR_ZERO = 2.0 ** -7, 1e-4
 PHASES = ("kernels", "dense", "paged", "tight", "ladder", "block", "parity",
-          "forward", "ops", "decode", "moe", "kv", "strategies", "graphs", "load")
+          "forward", "ops", "decode", "moe", "kv", "strategies", "graphs", "load",
+          "families")
 # phase 17 (graphs): the model's window and chunk, the sampled chunk's
 # temperature and top-k, the draft's tokens, the paged engine's requests
 GRAPH_WINDOW, GRAPH_CHUNK, GRAPH_TEMP, GRAPH_TOPK = 6, 16, 0.8, 40
@@ -352,6 +376,73 @@ GRAPH_DRAFT_NEW, GRAPH_PAGED_REQS, GRAPH_PAGED_STEPS = 64, 32, 32
 # new tokens and the least length of the long one (its prefill's rows take
 # the w4a8 GEMM from 256), the host-to-device yardstick's bytes
 LOAD_NEW, LOAD_MAX, LOAD_CHAT_NEW, LOAD_LONG, H2D_BYTES = 64, 1024, 32, 256, 1 << 30
+# phase 19: the families at their published widths, the config.json values
+# of each Hugging Face repository written here as numbers (nothing is
+# downloaded): name -> (repository, config.json, layers run or None for all)
+FAMILIES = {
+    "qwen2.5-0.5b": ("Qwen/Qwen2.5-0.5B", dict(
+        model_type="qwen2", vocab_size=151936, hidden_size=896, intermediate_size=4864,
+        num_hidden_layers=24, num_attention_heads=14, num_key_value_heads=2,
+        max_position_embeddings=32768, max_window_layers=24, rms_norm_eps=1e-6,
+        rope_theta=1000000.0, sliding_window=32768, use_sliding_window=False,
+        tie_word_embeddings=True, hidden_act="silu"), None),
+    "qwen3-0.6b": ("Qwen/Qwen3-0.6B", dict(
+        model_type="qwen3", vocab_size=151936, hidden_size=1024, intermediate_size=3072,
+        num_hidden_layers=28, num_attention_heads=16, num_key_value_heads=8, head_dim=128,
+        max_position_embeddings=40960, max_window_layers=28, rms_norm_eps=1e-6,
+        rope_theta=1000000.0, sliding_window=None, use_sliding_window=False,
+        tie_word_embeddings=True, hidden_act="silu"), None),
+    "gpt2": ("openai-community/gpt2", dict(
+        model_type="gpt2", vocab_size=50257, n_embd=768, n_layer=12, n_head=12,
+        n_positions=1024, n_ctx=1024, layer_norm_epsilon=1e-5,
+        activation_function="gelu_new"), None),
+    "gemma-2-2b": ("google/gemma-2-2b", dict(
+        model_type="gemma2", vocab_size=256000, hidden_size=2304, intermediate_size=9216,
+        num_hidden_layers=26, num_attention_heads=8, num_key_value_heads=4, head_dim=256,
+        max_position_embeddings=8192, rms_norm_eps=1e-6, rope_theta=10000.0,
+        sliding_window=4096, attn_logit_softcapping=50.0, final_logit_softcapping=30.0,
+        query_pre_attn_scalar=256, hidden_activation="gelu_pytorch_tanh",
+        tie_word_embeddings=True), None),
+    "gemma-3-1b": ("google/gemma-3-1b-pt", dict(
+        model_type="gemma3_text", vocab_size=262144, hidden_size=1152,
+        intermediate_size=6912, num_hidden_layers=26, num_attention_heads=4,
+        num_key_value_heads=1, head_dim=256, max_position_embeddings=32768,
+        rms_norm_eps=1e-6, rope_theta=1000000.0, rope_local_base_freq=10000.0,
+        rope_scaling=None, sliding_window=512, sliding_window_pattern=6,
+        query_pre_attn_scalar=256, attn_logit_softcapping=None,
+        final_logit_softcapping=None, hidden_activation="gelu_pytorch_tanh",
+        tie_word_embeddings=True), None),
+    # 4 of its 48 layers (128 experts of 768, top-8), for the phase's time
+    "qwen3-30b-a3b": ("Qwen/Qwen3-30B-A3B", dict(
+        model_type="qwen3_moe", vocab_size=151936, hidden_size=2048,
+        intermediate_size=6144, moe_intermediate_size=768, num_hidden_layers=48,
+        num_attention_heads=32, num_key_value_heads=4, head_dim=128, num_experts=128,
+        num_experts_per_tok=8, norm_topk_prob=True, decoder_sparse_step=1,
+        mlp_only_layers=[], max_position_embeddings=40960, max_window_layers=48,
+        rms_norm_eps=1e-6, rope_theta=1000000.0, use_sliding_window=False,
+        sliding_window=None, tie_word_embeddings=False), 4),
+}
+# each family's engine capacity: GPT-2's 1024 learned positions bound it;
+# Gemma-2's 8192 holds prompts past its 4096 window
+FAM_MAX = {"gpt2": 1024, "gemma-2-2b": 8192}
+FAM_MAX_DEFAULT = 1024
+# prompts past the sliding windows: (count, least and most length)
+FAM_LONG = {"gemma-3-1b": (4, 600, 700), "gemma-2-2b": (2, 4150, 4250)}
+# forward tokens (GPT-2: its 1024 positions), generate's new tokens after
+# FAM_PROMPT, the engines' requests and new tokens, the CPU slice's depth
+# (Gemma-3: one global layer, its sixth) and prompt
+FAM_FWD_S = {"gpt2": 1024}
+FAM_NEW, FAM_PROMPT, FAM_REQS, FAM_REQ_NEW = 64, 16, 16, 32
+FAM_SLICE = {"gemma-3-1b": 6}
+FAM_SLICE_S = 64
+# the round trip through a Hugging Face checkpoint written by save_safetensors
+FAM_CHECKPOINT = ("gpt2", "gemma-3-1b")
+# the D-256 variants on the kernels line: name -> the base kernel whose
+# source and TPU original they share, and the family whose path they serve
+D256_ROWS = {"batch_decode_attention_d256": ("batch_decode_attention", "gemma-2-2b"),
+             "paged_attention_d256": ("paged_attention", "gemma-2-2b"),
+             "flash_attention_d256": ("flash_attention", "gemma-3-1b"),
+             "flash_decode_d256": ("flash_decode", "gemma-3-1b")}
 # the tokenizer's training text (write_tokenizer) and the chat requests
 TOKENIZER_MERGES = 400
 TOKENIZER_TEXT = (
@@ -1903,17 +1994,21 @@ def build_model(cfg, seed: int, dev, mode: str | None = "int4", base=None):
 
 
 def serve(model, requests, n_steps: int, warm=(), max_seq_len: int = 1024,
-          prewarm: bool = False, **kw):
+          prewarm: bool = False, warm_plan=None, **kw):
     """A batch-8 engine over ``requests`` [(prompt, max_new)], timed; any
     ``warm`` requests are served first, untimed, after warmup() (which
     captures the engine's programs); ``prewarm`` runs warmup() for the
-    requests' prompt lengths, untimed. Returns (engine, the timed requests,
-    seconds)."""
+    requests' prompt lengths, untimed, or, given ``warm_plan`` [(prompt
+    lengths, wave sizes)], one warmup() an entry. Returns (engine, the
+    timed requests, seconds)."""
     import torch
     from pygpukit_tpu_torch.llm import ContinuousBatchingEngine
     eng = ContinuousBatchingEngine(model, max_batch=8, max_seq_len=max_seq_len,
                                    steps_per_dispatch=n_steps, **kw)
-    if prewarm:
+    if prewarm and warm_plan is not None:
+        for lens, waves in warm_plan:
+            eng.warmup(prompt_lens=lens, wave_sizes=waves)
+    elif prewarm:
         eng.warmup(prompt_lens=sorted({len(p) for p, _ in requests}))
     if warm:
         eng.warmup(prompt_lens=sorted({len(p) for p, _ in warm}))
@@ -3478,6 +3573,7 @@ def engine_inputs(eng, key, rng) -> tuple:
 
 
 def graphs_engine(model, requests, n_steps: int, what: str, rng, card: str,
+                  phase: str = "17", stats: dict | None = None, n_inputs: int = 2,
                   **kw) -> dict:
     """Phase 17, one engine: its programs captured in warmup() (untimed),
     the requests served twice (the second time by serve_again, replaying
@@ -3506,17 +3602,21 @@ def graphs_engine(model, requests, n_steps: int, what: str, rng, card: str,
     per_step = {k: n / n_steps for k, n in chunk.cost_analysis().items()}
     times = {}
     for key, exe in eng.graphs.executables().items():
-        for _ in range(2):
+        for _ in range(n_inputs):
             times[exe.name] = eager_vs_replay(exe, engine_inputs(eng, key, rng),
                                               f"{what} {exe.name}", (1, 2) if paged else ())
     e_ms, r_ms = times[chunk.name]
-    print(f"phase 17: {what}: {len(reqs1)} requests, {n_tok} tokens in {secs1:.3f} s = "
+    if stats is not None:
+        stats.update(tok_s=n_tok / secs1, tok_s_again=n_tok / secs2, ttft_ms=list(ttft),
+                     replayed_ms_step=r_ms / n_steps)
+    print(f"phase {phase}: {what}: {len(reqs1)} requests, {n_tok} tokens in {secs1:.3f} s = "
           f"{n_tok / secs1:.1f} tok/s (second run {n_tok / secs2:.1f}), TTFT p50/p95 "
           f"{ttft[0]:.1f}/{ttft[1]:.1f} ms; streams and pools identical over two runs; "
           f"{chunk.name}: eager {e_ms / n_steps:.3f} ms/step, replayed "
           f"{r_ms / n_steps:.3f} ms/step wall; launches a step {json.dumps(per_step)}; "
-          f"every executable's replay bitwise its eager call at two inputs; [{card}]")
-    print("phase 17: " + exe_lines(eng.graphs, what) + "; eager/replayed ms "
+          f"every executable's replay bitwise its eager call at {n_inputs} input(s); "
+          f"[{card}]")
+    print(f"phase {phase}: " + exe_lines(eng.graphs, what) + "; eager/replayed ms "
           + json.dumps({k: [round(v[0], 3), round(v[1], 3)] for k, v in times.items()}))
     del eng
     return launches
@@ -3985,6 +4085,498 @@ def load_phase(cfg, dev, card: str) -> dict:
     return launches
 
 
+# ---------------------------------------------------------------------------
+# Phase 19: the model families at their published widths
+# ---------------------------------------------------------------------------
+
+def family_config(name: str):
+    """(TransformerConfig, config.json dict) of FAMILIES[name], its depth
+    cut where the entry says so."""
+    import dataclasses
+    from pygpukit_tpu_torch.llm import TransformerConfig
+    _, hf, layers = FAMILIES[name]
+    cfg = TransformerConfig.from_hf_config(hf)
+    if layers is not None:
+        cfg = dataclasses.replace(cfg, num_layers=layers)
+    return cfg, hf
+
+
+def family_params(name: str, cfg, dev) -> dict:
+    """init_params (seed 0, bf16) with the leaves it leaves at a constant
+    drawn as a checkpoint has them: norm weights (pre, sandwich, q/k, final)
+    in [0.5, 1.9], layernorm and MLP biases, and the attention biases of
+    Qwen2 (q, k, v) and GPT-2 (q, k, v, o), which init_params does not
+    make."""
+    import torch
+    from pygpukit_tpu_torch.llm import init_params
+    params = init_params(cfg, 0, torch.bfloat16, dev)
+    g = torch.Generator(device=dev)
+    g.manual_seed(19)
+
+    def rnd(shape, std, dt):
+        return (torch.randn(shape, generator=g, device=dev) * std).to(dt)
+
+    def around_one(t):
+        return torch.clamp(1.0 + rnd(t.shape, 0.1, torch.float32), 0.5, 1.9)
+    lp = params["layers"]
+    for k in list(lp):
+        if k.endswith("norm_w") or k in ("w_q_norm", "w_k_norm"):
+            lp[k] = around_one(lp[k])
+        elif k in ("attn_norm_b", "mlp_norm_b", "b_fc1", "b_fc2"):
+            lp[k] = rnd(lp[k].shape, 0.02, lp[k].dtype)
+    params["final_norm_w"] = around_one(params["final_norm_w"])
+    if "final_norm_b" in params:
+        params["final_norm_b"] = rnd(params["final_norm_b"].shape, 0.02, torch.float32)
+    if name.startswith("qwen2") or name == "gpt2":
+        nl, hq, hk, d = cfg.num_layers, cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+        for leaf, n in (("b_q", hq * d), ("b_k", hk * d), ("b_v", hk * d)):
+            lp[leaf] = rnd((nl, n), 0.1, torch.bfloat16)
+    if name == "gpt2":
+        lp["b_o"] = rnd((cfg.num_layers, cfg.hidden_size), 0.02, torch.bfloat16)
+    return params
+
+
+def kernel_layers(cfg) -> int:
+    """Layers whose uncached and single-stream attention take flash_attention
+    and flash_decode: no softcap, no window, the kernels' scale."""
+    from pygpukit_tpu_torch.llm.model import _layer_window
+    from pygpukit_tpu_torch.ops.nn.attention import flash_attention_route
+    return sum(flash_attention_route("cuda", cfg.attn_scale, cfg.head_dim,
+                                     cfg.attn_logit_softcap, _layer_window(cfg, i)) == "kernel"
+               for i in range(cfg.num_layers))
+
+
+def hf_family_tensors(spec, cfg, params: dict) -> dict:
+    """The checkpoint of an unfused tree under ``spec``'s names (the
+    loader's inverse): projections [out, in] (GPT-2's Conv1D [in, out], its
+    q|k|v one c_attn tensor and bias), Gemma's norm weights less one (its
+    checkpoints store w of an effective 1 + w; exact for w in [0.5, 2])."""
+    import torch
+    lp = params["layers"]
+
+    def lin(w):
+        return w.t() if spec.hf_linear_layout else w
+
+    def norm(w):
+        return w - 1.0 if spec.norm_plus_one else w
+    out = {spec.embed_tokens: params["embed"], spec.final_norm: norm(params["final_norm_w"])}
+    if spec.position_embed:
+        out[spec.position_embed] = params["pos_embed"]
+    if spec.final_norm_bias:
+        out[spec.final_norm_bias] = params["final_norm_b"]
+    if spec.lm_head and params.get("lm_head") is not None:
+        out[spec.lm_head] = params["lm_head"].t()
+    for i in range(cfg.num_layers):
+        def put(template, t):
+            out[template.format(layer=i)] = t
+        put(spec.attn_norm, norm(lp["attn_norm_w"][i]))
+        put(spec.mlp_norm, norm(lp["mlp_norm_w"][i]))
+        for template, leaf in ((spec.attn_norm_bias, "attn_norm_b"),
+                               (spec.mlp_norm_bias, "mlp_norm_b"), (spec.o_bias, "b_o"),
+                               (spec.fc1_bias, "b_fc1"), (spec.fc2_bias, "b_fc2")):
+            if template and leaf in lp:
+                put(template, lp[leaf][i])
+        for template, leaf in ((spec.post_attn_norm, "post_attn_norm_w"),
+                               (spec.post_mlp_norm, "post_mlp_norm_w"),
+                               (spec.q_norm, "w_q_norm"), (spec.k_norm, "w_k_norm")):
+            if template:
+                put(template, norm(lp[leaf][i]))
+        if spec.qkv_combined:
+            put(spec.q_proj, lin(torch.cat([lp[k][i] for k in ("w_q", "w_k", "w_v")], dim=1)))
+            put(spec.q_bias, torch.cat([lp[k][i] for k in ("b_q", "b_k", "b_v")]))
+        else:
+            for template, leaf in ((spec.q_proj, "w_q"), (spec.k_proj, "w_k"),
+                                   (spec.v_proj, "w_v")):
+                put(template, lin(lp[leaf][i]))
+        put(spec.o_proj, lin(lp["w_o"][i]))
+        mlp = (((spec.fc1, "w_fc1"), (spec.fc2, "w_fc2")) if spec.fc1 else
+               ((spec.gate_proj, "w_gate"), (spec.up_proj, "w_up"), (spec.down_proj, "w_down")))
+        for template, leaf in mlp:
+            put(template, lin(lp[leaf][i]))
+    return out
+
+
+def family_checkpoint(name: str, cfg, hf: dict, params: dict, src, ids, logits, dev) -> str:
+    """The round trip: ``params`` written under the family's Hugging Face
+    names by save_safetensors with its config.json, loaded by
+    load_model_from_safetensors on the card: the config and every leaf
+    bitwise the source model's, the forward logits bitwise ``logits`` (the
+    source model's on ``ids``). Returns the report."""
+    import dataclasses
+    import shutil
+    import numpy as np
+    import torch
+    from pygpukit_tpu_torch.llm import MODEL_SPECS, load_model_from_safetensors
+    spec = MODEL_SPECS[{"gpt2": "gpt2", "gemma-3-1b": "gemma3"}[name]]
+    d = ROOT / "build" / "families_phase" / name
+    shutil.rmtree(d, ignore_errors=True)
+    try:
+        secs_w = write_checkpoint(d, hf_family_tensors(spec, cfg, params), hf, 1)
+        nbytes = (d / "model.safetensors").stat().st_size
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        loaded = load_model_from_safetensors(d, device=dev)
+        torch.cuda.synchronize()
+        secs_l = time.perf_counter() - t0
+    finally:
+        shutil.rmtree(d, ignore_errors=True)
+    check(loaded.spec.name == spec.name
+          and dataclasses.asdict(loaded.config) == dataclasses.asdict(cfg),
+          f"families {name}: the loaded config {loaded.config}")
+    check(params_bitwise(loaded.params, src.params),
+          f"families {name}: a loaded leaf differs from the source model's")
+    again = loaded.get_logits(ids)
+    check(np.array_equal(again.view(np.uint32), logits.view(np.uint32)),
+          f"families {name}: the loaded model's logits differ from the source's")
+    del loaded, again
+    return (f"checkpoint {nbytes / 1e9:.3f} GB written in {secs_w:.2f} s, loaded in "
+            f"{secs_l:.2f} s, every leaf and the forward logits bitwise the source's")
+
+
+def family_cpu_slice(name: str, cfg, params: dict, dev) -> str:
+    """The first FAM_SLICE layers (2; Gemma-3 6, its first global layer
+    among them) on the card against the CPU plain path, on a FAM_SLICE_S
+    prompt: the bf16 forward (relative L2 within FWD_TOL), bf16 prefill
+    and four decode steps (FWD_TOL), the int4 model's prefill and four
+    decode steps (REF_TOL). MoE: the bf16 forward only, held row by row as
+    phase 14 holds Mixtral's (MOE_ROWS_Q: the card's gmm and the CPU's
+    dense route round at other points, so a router near-tie moves a row).
+    Returns the report."""
+    import dataclasses
+    import numpy as np
+    import torch
+    from pygpukit_tpu_torch.llm import (CausalTransformerModel, fuse_params,
+                                        quantize_model_params, slice_layers)
+    n = FAM_SLICE.get(name, 2)
+    small = dataclasses.replace(cfg, num_layers=n)
+    tree = slice_layers(params, n)
+    ids = np.random.default_rng(191).integers(1, cfg.vocab_size, FAM_SLICE_S).tolist()
+    out = []
+    for mode, tol in ((None, FWD_TOL),) + ((("int4", REF_TOL),) if not cfg.is_moe else ()):
+        t = tree if mode is None else quantize_model_params(tree, mode)
+        card = CausalTransformerModel(small, fuse_params(t), dtype=torch.bfloat16)
+        cpu = CausalTransformerModel(small, fuse_params(t), dtype=torch.bfloat16).to("cpu")
+        errs = []
+        if mode is None:
+            lc, lr = card.get_logits(ids), cpu.get_logits(ids)
+            rows = np.linalg.norm(lc - lr, axis=1) / np.linalg.norm(lr, axis=1)
+            errs.append(float(np.quantile(rows, MOE_ROWS_Q)) if cfg.is_moe else
+                        float(np.linalg.norm(lc - lr) / np.linalg.norm(lr)))
+        if not cfg.is_moe:
+            for m in (card, cpu):
+                m.init_fixed_cache(128)
+            lc, lr = card.prefill(ids), cpu.prefill(ids)
+            for step in range(5):
+                lc = lc.cpu()
+                errs.append(((lc - lr).norm() / lr.norm()).item())
+                if step < 4:
+                    tok = int(lc.argmax())
+                    lc, lr = card.decode_step(tok), cpu.decode_step(tok)
+        check(max(errs) <= tol, f"families {name}: {n}-layer {mode or 'bf16'} card vs CPU "
+              f"relative L2 {max(errs):.3e} (limit {tol})")
+        out.append(f"{mode or 'bf16'} {[f'{e:.2e}' for e in errs]} (limit {tol})")
+        del card, cpu
+    what = (f"forward rows' {MOE_ROWS_Q} quantile" if cfg.is_moe else
+            "forward, prefill and four decode steps")
+    return f"{n}-layer slice, card vs CPU plain path, relative L2 of the {what}: " + \
+        "; ".join(out)
+
+
+def family_requests(name: str, cfg, rng) -> list:
+    """FAM_REQS requests of FAM_REQ_NEW new tokens: 16- and 200-token
+    prompts, the first FAM_LONG[name] ones past the family's window."""
+    n_long, lo, hi = FAM_LONG.get(name, (0, 0, 0))
+    out = []
+    for i in range(FAM_REQS):
+        n = int(rng.integers(lo, hi + 1)) if i < n_long else (16 if i % 2 == 0 else 200)
+        out.append((rng.integers(1, cfg.vocab_size, n).tolist(), FAM_REQ_NEW))
+    return out
+
+
+def family_run(name: str, dev, card: str, rng) -> dict:
+    """One family of phase 19 (``families_phase``). Returns the launches of
+    its main-path runs by kernel."""
+    import gc
+    import numpy as np
+    import torch
+    from pygpukit_tpu_torch.llm import (CausalTransformerModel, forward_fn, fuse_params,
+                                        quantize_model_params)
+    t0 = time.perf_counter()
+    # what earlier phases and families left in reference cycles (engines,
+    # their captured programs and pools) goes before the next family's
+    # engines: Gemma-2's take about 20 GB beside its weights
+    gc.collect()
+    torch.cuda.empty_cache()
+    held = torch.cuda.memory_allocated() / 1e9 if dev.type == "cuda" else 0.0
+    cfg, hf = family_config(name)
+    params = family_params(name, cfg, dev)
+    model = CausalTransformerModel(cfg, fuse_params(params), dtype=torch.bfloat16)
+    n_fa = kernel_layers(cfg)
+    total: dict = {}
+
+    def add(launches):
+        for k, n in launches.items():
+            total[k] = total.get(k, 0) + n
+    # the uncached forward
+    s_len = FAM_FWD_S.get(name, FWD_S)
+    ids = rng.integers(1, cfg.vocab_size, s_len).tolist()
+    tokens = torch.tensor(ids, device=dev)
+    torch.cuda.synchronize()
+    reset_counts()
+    out = forward_fn(cfg, model.params, tokens)
+    torch.cuda.synchronize()
+    launches = launch_counts()
+    reset_counts()
+    add(launches)
+    check(tuple(out.shape) == (s_len, cfg.vocab_size) and bool(torch.isfinite(out).all()),
+          f"families {name}: forward logits {tuple(out.shape)}")
+    check(launches["flash_attention"] == n_fa,
+          f"families {name}: flash_attention launched {launches['flash_attention']} "
+          f"times in the forward, expected {n_fa}")
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()                          # the second forward, timed (eager)
+    again = forward_fn(cfg, model.params, tokens)
+    end.record()
+    end.synchronize()
+    fwd_ms = start.elapsed_time(end)
+    check(torch.equal(out, again), f"families {name}: a second forward differs")
+    del again
+    logits = out.cpu().numpy()
+    del out
+    # single-stream bf16 generate, warm (capturing) then timed (replaying)
+    prompt = ids[:FAM_PROMPT]
+    runs = []
+    for _ in range(2):
+        zero_cache(model, 256)
+        torch.cuda.synchronize()
+        reset_counts()
+        t1 = time.perf_counter()
+        toks = model.generate(prompt, max_new_tokens=FAM_NEW, chunk_size=GEN_CHUNK)
+        torch.cuda.synchronize()
+        runs.append((toks, time.perf_counter() - t1, launch_counts()))
+    reset_counts()
+    (toks1, _, _), (toks2, gen_s, gen_l) = runs
+    add(gen_l)
+    check(toks1 == toks2 and len(toks2) == FAM_NEW and model.logits_finite(),
+          f"families {name}: generate's replayed tokens differ or a logit is not finite")
+    check(gen_l["flash_decode"] == n_fa * (FAM_NEW - 1),
+          f"families {name}: flash_decode launched {gen_l['flash_decode']} times in "
+          f"generate, expected {n_fa * (FAM_NEW - 1)}")
+    report = [f"forward {s_len} tokens {fwd_ms:.2f} ms = {s_len / fwd_ms * 1e3:.0f} tok/s "
+              f"({n_fa} flash_attention launches); generate {FAM_NEW} tokens "
+              f"{FAM_NEW / gen_s:.1f} tok/s, replay identical ({gen_l['flash_decode']} "
+              f"flash_decode launches)"]
+    if name in FAM_CHECKPOINT:
+        report.append(family_checkpoint(name, cfg, hf, params, model, ids, logits, dev))
+    del model, logits
+    torch.cuda.empty_cache()
+    report.append(family_cpu_slice(name, cfg, params, dev))
+    # the int4 engines, dense and paged, each served twice and every program
+    # replayed against one eager call
+    model = CausalTransformerModel(cfg, fuse_params(quantize_model_params(params, "int4")),
+                                   dtype=torch.bfloat16)
+    del params
+    torch.cuda.empty_cache()
+    requests = family_requests(name, cfg, rng)
+    mx = FAM_MAX.get(name, FAM_MAX_DEFAULT)
+    # the prefill waves the engine can form: up to 4 a bucket from the
+    # alternating 16/200-token prompts of 8 free slots, and of the long
+    # prompts as many as there are (FAM_LONG)
+    n_long = FAM_LONG.get(name, (0,))[0]
+    plan = [(sorted({len(p) for p, _ in requests[n_long:]}), [2, 4])]
+    if n_long:
+        plan.append((sorted({len(p) for p, _ in requests[:n_long]}),
+                     [w for w in (2, 4) if w <= n_long]))
+    for what, kw in (("dense engine", {}),
+                     ("paged pipelined engine", dict(pipelined=True, paged=True,
+                                                     block_size=16))):
+        stats: dict = {}
+        launches = graphs_engine(model, requests, 16, f"{name} {what}", rng, card, "19",
+                                 stats, 1, max_seq_len=mx, warm_plan=plan, **kw)
+        add(launches)
+        attention = "paged_attention" if kw else "batch_decode_attention"
+        for kernel in ("w4a8_gemv", attention) + (("gmm",) if cfg.is_moe else ()):
+            check(launches.get(kernel, 0) > 0,
+                  f"families {name} {what}: {kernel} never launched ({launches})")
+        if not kw:
+            check(launches["kv_rows_write_fused"] == launches["batch_decode_attention"],
+                  f"families {name}: a batch attention launch wrote no rows")
+        report.append(f"{what} {stats['tok_s']:.1f} tok/s (again {stats['tok_s_again']:.1f}), "
+                      f"TTFT p50/p95 {stats['ttft_ms'][0]:.1f}/{stats['ttft_ms'][1]:.1f} ms")
+    # the tied f32 head's share of one batch-8 decode step
+    _, step_ms, _, _ = decode_step_times(model, 8, mx, 300, profile=False)
+    h = torch.randn((8, cfg.hidden_size), device=dev).to(torch.bfloat16)
+    from pygpukit_tpu_torch.llm.model import _logits
+    head_ms = time_ms(lambda i: _logits(cfg, model.params, h), 1, reps=5)
+    report.append(f"batch-8 decode step at context 301 {step_ms:.3f} ms device, the "
+                  f"{'tied f32' if model.params.get('lm_head') is None else 'int8'} head "
+                  f"{head_ms:.3f} ms of it ({head_ms / step_ms:.3f})")
+    del model
+    torch.cuda.empty_cache()
+    report.append(f"{time.perf_counter() - t0:.1f} s ({held:.2f} GB allocated before it)")
+    print(f"phase 19: {name} ({FAMILIES[name][0]}, {cfg.num_layers} layers, hidden "
+          f"{cfg.hidden_size}, heads {cfg.num_heads}/{cfg.num_kv_heads}, D {cfg.head_dim}): "
+          + "; ".join(report) + f"; launches {json.dumps({k: n for k, n in total.items() if n})}"
+          + f" [{card}]")
+    return total
+
+
+def d256_kernels(dev, detail: dict) -> dict:
+    """Phase 19, the four kernels at head_dim 256 on the Gemma paths'
+    shapes against their plain versions (ATTN_TOL), a second launch
+    bitwise, timed beside the plain version and SDPA: rows 5/6 and 17 at
+    Gemma-2-2B's (batch 8, 8/4 heads, MAX 8192, softcap 50, its window 4096
+    with contexts before and past it), rows 14 and 15 at Gemma-3-1B's global
+    layers (4/1 heads; a 2048-token forward, one query over 700 rows of a
+    1024-row cache). Returns the kernels line's rows (D256_ROWS)."""
+    import torch
+    from pygpukit_tpu_torch.kernels import (batch_decode_attention,
+                                            batch_decode_attention_plain, flash_attention,
+                                            flash_attention_plain, flash_decode,
+                                            flash_decode_plain, kv_rows_write_plain,
+                                            kv_write_attention, paged_attention,
+                                            paged_attention_plain)
+    from pygpukit_tpu_torch.kernels.paged_attention import _paged_gather
+    g = torch.Generator(device=dev)
+    g.manual_seed(1919)
+    res = {}
+    b, nl, mx, hq, hk, d, cap, win = 8, 4, 8192, 8, 4, 256, 50.0, 4096
+    lanes, scale = hk * d, 256 ** -0.5
+    kp = torch.randn((b, nl, mx, lanes), generator=g, device=dev).to(torch.bfloat16)
+    vp = torch.randn((b, nl, mx, lanes), generator=g, device=dev).to(torch.bfloat16)
+    q = torch.randn((b, 1, hq, d), generator=g, device=dev).to(torch.bfloat16)
+    kn = torch.randn((b, hk, d), generator=g, device=dev).to(torch.bfloat16)
+    vn = torch.randn((b, hk, d), generator=g, device=dev).to(torch.bfloat16)
+    lens = torch.tensor([1, 700, 4096, 4097, 4300, 6000, 8192, 9000], dtype=torch.int32,
+                        device=dev)
+    err = 0.0
+    for window in (win, None):
+        k1, v1, k2, v2 = kp[:, 1:3].clone(), vp[:, 1:3].clone(), kp[:, 1:3].clone(), \
+            vp[:, 1:3].clone()
+        o = kv_write_attention(q, k1, v1, kn, vn, 1, lens - 1, lens, scale=scale,
+                               softcap=cap, window=window)
+        kv_rows_write_plain(k2, v2, kn, vn, 1, lens - 1)
+        check(torch.equal(bits(k1), bits(k2)) and torch.equal(bits(v1), bits(v2)),
+              "d256 kv_write_attention: the pools differ from the plain write")
+        r = batch_decode_attention_plain(q, k2, v2, 1, lens, scale, cap, window)
+        err = max(err, _attn_err(o, r, "bf16", f"d256 batch attention window {window}"))
+        check(torch.equal(o, batch_decode_attention(q, k1, v1, 1, lens, scale, cap, window)),
+              "d256 batch attention: a second launch differs")
+        del k1, v1, k2, v2
+    live = lens.clamp(max=mx)
+    lo = (lens - win).clamp(min=0)
+    n_live = int((live - lo).clamp(min=0).sum())
+    pos = torch.arange(mx, device=dev)[None, :]
+    mask = ((pos < live[:, None]) & (pos >= lo[:, None]))[:, None, None, :]
+
+    def library(i):
+        kk = kp[:, i].view(b, mx, hk, d).transpose(1, 2)
+        vv = vp[:, i].view(b, mx, hk, d).transpose(1, 2)
+        sdpa(q.transpose(1, 2), kk, vv, attn_mask=mask, scale=scale)
+    kms = time_ms(lambda i: batch_decode_attention(q, kp, vp, i, lens, scale, cap, win), nl)
+    pms = time_ms(lambda i: batch_decode_attention_plain(q, kp, vp, i, lens, scale, cap,
+                                                         win), nl, reps=2)
+    lms = time_ms(library, nl)
+    res["batch_decode_attention_d256"] = kernel_row(
+        err, kms, pms, 2 * n_live * lanes * 2 + 2 * q.numel() * 2 + 4 * b,
+        4 * hq * d * n_live, "bf16", lms)
+    del kp, vp
+    torch.cuda.empty_cache()
+    # row 17 at the same heads over shuffled blocks (MAX 8192, block 16)
+    bs, mb = 16, mx // 16
+    nb = b * mb + 2
+    kpool = torch.randn((nl, nb, hk, bs, d), generator=g, device=dev).to(torch.bfloat16)
+    vpool = torch.randn((nl, nb, hk, bs, d), generator=g, device=dev).to(torch.bfloat16)
+    qp = q[:, 0].contiguous()
+    perm = torch.randperm(nb - 1, generator=g, device=dev).to(torch.int32) + 1
+    tables = perm[:b * mb].reshape(b, mb).contiguous()
+    plens = lens.clamp(max=mx)
+    o = paged_attention(qp, kpool[1], vpool[1], tables, plens, scale, cap, win)
+    err = _attn_err(o, paged_attention_plain(qp, kpool[1], vpool[1], tables, plens, scale,
+                                             cap, win), "bf16", "d256 paged attention")
+    check(torch.equal(o, paged_attention(qp, kpool[1], vpool[1], tables, plens, scale, cap,
+                                         win)), "d256 paged attention: a second launch differs")
+    seqs = [(_paged_gather(kpool[i], tables), _paged_gather(vpool[i], tables))
+            for i in range(nl)]
+    kms = time_ms(lambda i: paged_attention(qp, kpool[i], vpool[i], tables, plens, scale, cap,
+                                            win), nl)
+    pms = time_ms(lambda i: paged_attention_plain(qp, kpool[i], vpool[i], tables, plens,
+                                                  scale, cap, win), nl, reps=2)
+    lms = time_ms(lambda i: sdpa(qp[:, :, None], seqs[i][0], seqs[i][1], attn_mask=mask,
+                                 scale=scale), nl)
+    res["paged_attention_d256"] = kernel_row(
+        err, kms, pms, 2 * n_live * lanes * 2 + 2 * qp.numel() * 2 + 4 * b * (mb + 1),
+        4 * hq * d * n_live, "bf16", lms)
+    del kpool, vpool, seqs
+    torch.cuda.empty_cache()
+    # rows 14 and 15 at Gemma-3-1B's global layers
+    s_len, hq, hk = FWD_S, 4, 1
+    n_var = 4
+    qs = [torch.randn((s_len, hq, d), generator=g, device=dev).to(torch.bfloat16)
+          for _ in range(n_var)]
+    ks = [torch.randn((s_len, hk, d), generator=g, device=dev).to(torch.bfloat16)
+          for _ in range(n_var)]
+    vs = [torch.randn((s_len, hk, d), generator=g, device=dev).to(torch.bfloat16)
+          for _ in range(n_var)]
+    o = flash_attention(qs[0], ks[0], vs[0])
+    err = _attn_err(o, flash_attention_plain(qs[0], ks[0], vs[0]), "bf16",
+                    "d256 flash_attention")
+    check(torch.equal(o, flash_attention(qs[0], ks[0], vs[0])),
+          "d256 flash_attention: a second launch differs")
+    kms = time_ms(lambda i: flash_attention(qs[i], ks[i], vs[i]), n_var)
+    pms = time_ms(lambda i: flash_attention_plain(qs[i], ks[i], vs[i]), n_var, reps=2)
+    lms = time_ms(lambda i: sdpa(qs[i].transpose(0, 1)[None], ks[i].transpose(0, 1)[None],
+                                 vs[i].transpose(0, 1)[None], is_causal=True), n_var)
+    pairs = s_len * (s_len + 1) / 2
+    res["flash_attention_d256"] = kernel_row(err, kms, pms, (2 * hq + 2 * hk) * s_len * d * 2,
+                                             4 * hq * d * pairs, "bf16", lms)
+    del qs, ks, vs
+    max_len, ctx, nl = 1024, 700, 26
+    kc = torch.randn((nl, max_len, hk, d), generator=g, device=dev).to(torch.bfloat16)
+    vc = torch.randn((nl, max_len, hk, d), generator=g, device=dev).to(torch.bfloat16)
+    q1 = torch.randn((1, hq, d), generator=g, device=dev).to(torch.bfloat16)
+    o = flash_decode(q1, kc[3], vc[3], ctx)
+    err = _attn_err(o, flash_decode_plain(q1, kc[3], vc[3], ctx), "bf16", "d256 flash_decode")
+    check(torch.equal(o, flash_decode(q1, kc[3], vc[3], ctx)),
+          "d256 flash_decode: a second launch differs")
+    decode_graph_replay(q1, kc[3], vc[3], "bf16")
+    kms = time_ms(lambda i: flash_decode(q1, kc[i], vc[i], ctx), nl)
+    pms = time_ms(lambda i: flash_decode_plain(q1, kc[i], vc[i], ctx), nl)
+    lms = time_ms(lambda i: sdpa(q1.transpose(0, 1)[None], kc[i, :ctx].permute(1, 0, 2)[None],
+                                 vc[i, :ctx].permute(1, 0, 2)[None]), nl)
+    res["flash_decode_d256"] = kernel_row(err, kms, pms, (2 * ctx * hk * d + 2 * hq * d) * 2,
+                                          4 * hq * d * ctx, "bf16", lms)
+    del kc, vc
+    torch.cuda.empty_cache()
+    for name, row in res.items():
+        detail[name] = dict(row, share=row["bound_ms"] / row["ms"])
+        print(f"phase 19: {name}: kernel {row['ms']:.5f} ms, plain {row['plain_ms']:.4f} ms, "
+              f"SDPA {row['library_ms']:.5f} ms, bound {row['bound_ms']:.6f} ms "
+              f"({row['bound_by']}) = share {row['bound_ms'] / row['ms']:.3f}; max abs err "
+              f"{row['max_abs_err']:.3e} [{CARD}]")
+    return res
+
+
+def families_phase(dev, card: str) -> tuple[dict, dict]:
+    """Phase 19 (``--phases families``; module docstring). Returns (the
+    D256_ROWS rows' launches: the kernel's launches on its family's main
+    path, all of them at D 256, and their kernels-line numbers)."""
+    import numpy as np
+    t0 = time.perf_counter()
+    rng = np.random.default_rng(19)
+    runs = {}
+    for name in FAMILIES:
+        runs[name] = family_run(name, dev, card, rng)
+    detail: dict = {}
+    results = d256_kernels(dev, detail)
+    launches = {row: runs[fam].get(base, 0) for row, (base, fam) in D256_ROWS.items()}
+    for row, n in launches.items():
+        check(n > 0, f"families: {row} never launched on {D256_ROWS[row][1]}'s path")
+    print("phase 19: d256 " + json.dumps(detail))
+    print(f"phase 19 took {time.perf_counter() - t0:.1f} s")
+    return launches, results
+
+
 def main(argv: list[str]) -> int:
     t_script = time.perf_counter()
     import argparse
@@ -4103,6 +4695,10 @@ def main(argv: list[str]) -> int:
         print("phase 17: launches " + json.dumps({k: n for k, n in launches_17.items() if n}))
     if "load" in phases:
         load_phase(cfg, dev, card)
+    if "families" in phases:
+        d256_launches, d256 = families_phase(dev, card)
+        launches.update(d256_launches)
+        results.update(d256)
     print(f"total {time.perf_counter() - t_start:.1f} s after the build began, "
           f"{time.perf_counter() - t_script:.1f} s the whole script")
     if set(phases) != set(PHASES):
@@ -4111,7 +4707,8 @@ def main(argv: list[str]) -> int:
 
     print("launches_per_step " + json.dumps(per_step))
     summary = {"kernels": []}
-    for name, (src, rep) in SOURCES.items():
+    sources = dict(SOURCES, **{row: SOURCES[base] for row, (base, _) in D256_ROWS.items()})
+    for name, (src, rep) in sources.items():
         summary["kernels"].append({"name": name, "route": "cuda", "source": src,
                                    "replaces": rep, "launches": launches[name],
                                    **results[name]})

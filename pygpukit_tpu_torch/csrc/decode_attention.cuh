@@ -57,7 +57,6 @@
 #include "mma.cuh"
 
 constexpr int kPgkAttnChunk = 64;
-constexpr int kPgkAttnStages = 2;
 constexpr float kPgkAttnNegInf = -1e30f;
 
 // storage kinds, as kernels/batch_decode_attention.py _KV_KINDS numbers them
@@ -119,13 +118,19 @@ struct alignas(sizeof(T) * N) PgkVec {
   T v[N];
 };
 
+// The CUDA-core body's shared memory: a ring of kStages K and V chunks,
+// then the G query rows and the G rows of P. Two chunks in flight up to
+// 512-byte rows; f32 rows at D 256 (1 KB: two stages would take 266 KB of
+// the 227 KB a block may have) keep one, loaded after the chunk before it
+// is consumed.
 template <class KV, int D>
 struct PgkAttnSmem {
   static constexpr int kVecs = D * (int)sizeof(KV) / 16;   // 16-byte vectors per row
   static constexpr int kRow = kVecs + 1;                    // padded row, 16-byte units (odd)
   static constexpr int kTile = kPgkAttnChunk * kRow;        // one K or V chunk, 16-byte units
+  static constexpr int kStages = D * (int)sizeof(KV) > 512 ? 1 : 2;
   static size_t bytes(int g) {
-    return (size_t)2 * kPgkAttnStages * kTile * 16 + (size_t)g * (D + kPgkAttnChunk) * 4;
+    return (size_t)2 * kStages * kTile * 16 + (size_t)g * (D + kPgkAttnChunk) * 4;
   }
 };
 
@@ -208,10 +213,12 @@ __device__ __forceinline__ PgkAttnState<D> pgk_decode_attention_run(
   constexpr int kChunk = kPgkAttnChunk;
   constexpr int kEl = 16 / (int)sizeof(KV);   // elements per 16-byte vector
   constexpr int kDPL = D / 32;                // output dims per lane: lane * kDPL + j
+  // V elements a lane reads at once: its kDPL dims, in 16-byte pieces
+  constexpr int kVB = kDPL * (int)sizeof(KV) > 16 ? 16 / (int)sizeof(KV) : kDPL;
   extern __shared__ __align__(16) uint4 pgk_attn_smem[];
   uint4* ks = pgk_attn_smem;                                   // [stage][chunk][kRow]
-  uint4* vs = ks + kPgkAttnStages * L::kTile;
-  float* qs = reinterpret_cast<float*>(vs + kPgkAttnStages * L::kTile);   // [G][D]
+  uint4* vs = ks + L::kStages * L::kTile;
+  float* qs = reinterpret_cast<float*>(vs + L::kStages * L::kTile);       // [G][D]
   float* ps = qs + g_heads * D;                                           // [G][chunk]
   const int warp = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
@@ -269,15 +276,15 @@ __device__ __forceinline__ PgkAttnState<D> pgk_decode_attention_run(
       }
       if (i + 1 < n_chunks) load_scales(c0 + i + 1, ksn, vsn);
     }
-    if (i + 1 < n_chunks) {
+    if (L::kStages > 1 && i + 1 < n_chunks) {
       load(c0 + i + 1, (i + 1) & 1);
       cp_async_wait<1>();
     } else {
       cp_async_wait<0>();
     }
     __syncthreads();                    // chunk i landed for every thread; qs written
-    const uint4* kt = ks + (i & 1) * L::kTile;
-    const uint4* vt = vs + (i & 1) * L::kTile;
+    const uint4* kt = ks + (i % L::kStages) * L::kTile;
+    const uint4* vt = vs + (i % L::kStages) * L::kTile;
     const int cbase = (c0 + i) * kChunk;
     const float4* qh = reinterpret_cast<const float4*>(qs + warp * D);
     float sv[2];
@@ -329,18 +336,23 @@ __device__ __forceinline__ PgkAttnState<D> pgk_decode_attention_run(
 #pragma unroll
       for (int u = 0; u < 4; ++u) {
         const float pr = u == 0 ? p4.x : u == 1 ? p4.y : u == 2 ? p4.z : p4.w;
-        const PgkVec<KV, kDPL> vv =
-            reinterpret_cast<const PgkVec<KV, kDPL>*>(vt + (r4 + u) * L::kRow)[lane];
+        const PgkVec<KV, kVB>* vrow = reinterpret_cast<const PgkVec<KV, kVB>*>(
+            vt + (r4 + u) * L::kRow) + lane * (kDPL / kVB);
 #pragma unroll
-        for (int j = 0; j < kDPL; j += 2) {
-          const float2 vf = pgk_kv2_as_q<Q>(vv.v + j);
-          acc[j] += pr * vf.x;
-          acc[j + 1] += pr * vf.y;
+        for (int h = 0; h < kDPL; h += kVB) {
+          const PgkVec<KV, kVB> vv = vrow[h / kVB];
+#pragma unroll
+          for (int j = 0; j < kVB; j += 2) {
+            const float2 vf = pgk_kv2_as_q<Q>(vv.v + j);
+            acc[h + j] += pr * vf.x;
+            acc[h + j + 1] += pr * vf.y;
+          }
         }
       }
     }
     m = m_new;
-    __syncthreads();                    // buffer i & 1 is refilled by the next iteration's load
+    __syncthreads();                    // buffer i % kStages is refilled by the next load
+    if (L::kStages == 1 && i + 1 < n_chunks) load(c0 + i + 1, 0);
   }
   PgkAttnState<D> st;
   st.m = m;
@@ -501,13 +513,18 @@ __device__ __forceinline__ void pgk_attn_fold_last(unsigned* __restrict__ arriva
 // launch is mostly latency at the single-stream step's contexts, so the
 // code on that path is kept short: every warp's loads leave first, and the
 // fold computes each head's weights once.
+// At D 256 a warp's tile is 32 rows (a 64-row tile of K and V is 66 KB, and
+// four warps' would pass the 227 KB a block may have), and the Q fragments
+// (64 registers at D 256, beside O's 128) are read from global memory (L1)
+// per tile, one k-step pair at a time, instead of held.
 constexpr int kPgkMmaWarps = 4;
 
 template <int D>
 struct PgkMmaSmem {
-  static constexpr int kStages = D == 64 ? 2 : 1;               // chunks in flight a warp
+  static constexpr int kRows = D > 128 ? 32 : kPgkAttnChunk;    // rows of a warp's tile
+  static constexpr int kStages = D == 64 ? 2 : 1;               // tiles in flight a warp
   static constexpr int kRowBytes = D * 2 + 16;
-  static constexpr int kTile = kPgkAttnChunk * kRowBytes;       // one K or V chunk
+  static constexpr int kTile = kRows * kRowBytes;               // one K or V tile
   static constexpr int kWarpBytes = kStages * 2 * kTile;
   static constexpr int kBytes = kPgkMmaWarps * kWarpBytes;      // the merge reuses it
   static constexpr int kState = D + 2;                          // m, l, o[D] of a warp's head
@@ -536,11 +553,12 @@ __device__ __forceinline__ PgkMmaState pgk_decode_attention_mma(
     const __nv_bfloat16* __restrict__ vbase, Rows rows, int g_heads, int start, int end,
     float scale) {
   using L = PgkMmaSmem<D>;
-  constexpr int kChunk = kPgkAttnChunk;
+  constexpr int kChunk = L::kRows;           // the warp's unit: a tile of kRows positions
   constexpr int kKS = D / 16;                // k-steps of Q K^T
   constexpr int kDN = D / 8;                 // n-tiles of P V
   constexpr int kNT = kChunk / 8;            // n-tiles of S
   constexpr int kVecs = D / 8;               // 16-byte vectors a row
+  constexpr bool kQHeld = D <= 128;          // Q's fragments held in registers
   extern __shared__ __align__(16) uint8_t pgk_mma_smem[];
   const int warp = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
@@ -569,15 +587,18 @@ __device__ __forceinline__ PgkMmaState pgk_decode_attention_mma(
   for (int i = 0; i < mine && i < L::kStages; ++i) load(i);
 
   // Q as A fragments (heads g and g + 8, dims ks * 16 + 2t and + 8), behind the loads
-  uint32_t qa[kKS][4];
-#pragma unroll
-  for (int ks = 0; ks < kKS; ++ks) {
+  auto q_frag = [&](int ks, uint32_t (&a)[4]) {
     const uint32_t* q0 = reinterpret_cast<const uint32_t*>(qb + g * D + ks * 16 + 2 * t);
     const uint32_t* q8 = q0 + 4 * D;         // eight heads on
-    qa[ks][0] = g < g_heads ? q0[0] : 0u;
-    qa[ks][1] = g + 8 < g_heads ? q8[0] : 0u;
-    qa[ks][2] = g < g_heads ? q0[4] : 0u;
-    qa[ks][3] = g + 8 < g_heads ? q8[4] : 0u;
+    a[0] = g < g_heads ? q0[0] : 0u;
+    a[1] = g + 8 < g_heads ? q8[0] : 0u;
+    a[2] = g < g_heads ? q0[4] : 0u;
+    a[3] = g + 8 < g_heads ? q8[4] : 0u;
+  };
+  uint32_t qa[kQHeld ? kKS : 1][4];
+  if constexpr (kQHeld) {
+#pragma unroll
+    for (int ks = 0; ks < kKS; ++ks) q_frag(ks, qa[ks]);
   }
 
   // scores in base 2: s2 = (q.k) * scale * log2(e), p = 2^(s2 - m2)
@@ -594,15 +615,33 @@ __device__ __forceinline__ PgkMmaState pgk_decode_attention_mma(
     const uint8_t* vt = kt + L::kTile;
     const int cbase = (c_first + warp + kPgkMmaWarps * i) * kChunk;
     float sc[kNT][4];
+    if constexpr (kQHeld) {
 #pragma unroll
-    for (int nt = 0; nt < kNT; ++nt) {
-      sc[nt][0] = sc[nt][1] = sc[nt][2] = sc[nt][3] = 0.f;
+      for (int nt = 0; nt < kNT; ++nt) {
+        sc[nt][0] = sc[nt][1] = sc[nt][2] = sc[nt][3] = 0.f;
+#pragma unroll
+        for (int j = 0; j < kKS / 2; ++j) {
+          uint32_t b[4];
+          ldmatrix_x4(b, kt + (nt * 8 + (lane & 7)) * L::kRowBytes + ((lane >> 3) * 8 + j * 32) * 2);
+          mma_bf16_16816(sc[nt], qa[2 * j], b[0], b[1]);
+          mma_bf16_16816(sc[nt], qa[2 * j + 1], b[2], b[3]);
+        }
+      }
+    } else {                                 // the same sums, k-step pairs outermost
+#pragma unroll
+      for (int nt = 0; nt < kNT; ++nt) sc[nt][0] = sc[nt][1] = sc[nt][2] = sc[nt][3] = 0.f;
 #pragma unroll
       for (int j = 0; j < kKS / 2; ++j) {
-        uint32_t b[4];
-        ldmatrix_x4(b, kt + (nt * 8 + (lane & 7)) * L::kRowBytes + ((lane >> 3) * 8 + j * 32) * 2);
-        mma_bf16_16816(sc[nt], qa[2 * j], b[0], b[1]);
-        mma_bf16_16816(sc[nt], qa[2 * j + 1], b[2], b[3]);
+        uint32_t a0[4], a1[4];
+        q_frag(2 * j, a0);
+        q_frag(2 * j + 1, a1);
+#pragma unroll
+        for (int nt = 0; nt < kNT; ++nt) {
+          uint32_t b[4];
+          ldmatrix_x4(b, kt + (nt * 8 + (lane & 7)) * L::kRowBytes + ((lane >> 3) * 8 + j * 32) * 2);
+          mma_bf16_16816(sc[nt], a0, b[0], b[1]);
+          mma_bf16_16816(sc[nt], a1, b[2], b[3]);
+        }
       }
     }
     float mx[2] = {m[0], m[1]};
@@ -811,7 +850,7 @@ static cudaError_t pgk_launch_attention(Kernel kernel, int g, int n_split, int b
 }
 
 // Calls Launch<Q, KV, D>::run(args...) for the query kind (0 bf16, 1 f32),
-// the storage kind (kPgkKv*) and D in {64, 128}.
+// the storage kind (kPgkKv*) and D in {64, 128, 256}.
 template <template <class, class, int> class Launch, class Q, int D, class... A>
 static cudaError_t pgk_attn_dispatch_kv(int kv_kind, A... args) {
   switch (kv_kind) {
@@ -832,6 +871,9 @@ static cudaError_t pgk_attn_dispatch(int q_kind, int kv_kind, int d, A... args) 
   } else if (d == 128) {
     if (q_kind == 0) return pgk_attn_dispatch_kv<Launch, __nv_bfloat16, 128>(kv_kind, args...);
     if (q_kind == 1) return pgk_attn_dispatch_kv<Launch, float, 128>(kv_kind, args...);
+  } else if (d == 256) {
+    if (q_kind == 0) return pgk_attn_dispatch_kv<Launch, __nv_bfloat16, 256>(kv_kind, args...);
+    if (q_kind == 1) return pgk_attn_dispatch_kv<Launch, float, 256>(kv_kind, args...);
   }
   return cudaErrorInvalidValue;
 }

@@ -32,6 +32,11 @@
 // - the online softmax runs in registers, scale*log2(e) folded into one
 //   FFMA before ex2; masks apply only on the diagonal and ragged tiles, and
 //   tiles past the causal diagonal are never loaded.
+// At D 256 the key tile is 64 (S = Q.K^T is m64n64k16, P.V m64n256k16):
+// the 128-row Q tile (64 KB) and two stages of 64-key K and V tiles (32 KB
+// each) take 193 KB of the 227 KB a block may have, where 128-key tiles
+// would take 320 KB; a consumer thread holds O's 64 x 256 f32 block in
+// 128 registers.
 // Each consumer runs S, softmax and P.V of a tile one after another. FA3's
 // overlap of one tile's softmax with the next tile's products, and its
 // ping-pong turn between the consumers, both measured slower or no faster
@@ -53,16 +58,16 @@ constexpr int kThreads = 128;        // the f32 kernel's block
 // ---------------------------------------------------------------------------
 
 constexpr int kFaBM = 128;           // query rows per block: two consumer warpgroups of 64
-constexpr int kFaBN = 128;           // keys per tile
 constexpr int kFaStages = 2;         // K/V ring depth
 constexpr int kFaThreads = 384;      // producer warpgroup + two consumer warpgroups
 constexpr int kFaConsumers = 256;
 
 template <int D>
 struct FaLayout {
+  static constexpr int kBN = D > 128 ? 64 : 128;           // keys per tile
   static constexpr int kSub = D / 64;                      // 64-column (128-byte) sub-tiles
   static constexpr int kQBytes = kFaBM * D * 2;
-  static constexpr int kTileBytes = kFaBN * D * 2;         // one K or V tile
+  static constexpr int kTileBytes = kBN * D * 2;           // one K or V tile
   static constexpr int kBarOff = kQBytes + 2 * kFaStages * kTileBytes;
   static constexpr int kBytes = kBarOff + 8 * (1 + 4 * kFaStages) + 1024;  // + alignment slack
 };
@@ -84,8 +89,25 @@ __device__ __forceinline__ void wgmma_pv<128>(float (&o)[64], const uint32_t (&a
                                               uint64_t db) {
   wgmma_rs_m64n128_tb(o, a, db);
 }
+template <>
+__device__ __forceinline__ void wgmma_pv<256>(float (&o)[128], const uint32_t (&a)[4],
+                                              uint64_t db) {
+  wgmma_rs_m64n256_tb(o, a, db);
+}
 
-// Online softmax of one 64 x 128 score tile (rows r0: e 0-1, r1: e 2-3 of
+// S += Q (64 x 16) K^T (kBN keys x 16), both K-major in shared.
+template <int kBN>
+__device__ __forceinline__ void wgmma_qk(float (&sc)[kBN / 2], uint64_t da, uint64_t db, int acc);
+template <>
+__device__ __forceinline__ void wgmma_qk<128>(float (&sc)[64], uint64_t da, uint64_t db, int acc) {
+  wgmma_ss_m64n128(sc, da, db, acc);
+}
+template <>
+__device__ __forceinline__ void wgmma_qk<64>(float (&sc)[32], uint64_t da, uint64_t db, int acc) {
+  wgmma_ss_m64n64(sc, da, db, acc);
+}
+
+// Online softmax of one 64 x kBN score tile (rows r0: e 0-1, r1: e 2-3 of
 // each 8-key group n) into P's bf16 A registers; returns O's rescale factors
 // in alpha. The max is taken on the raw scores (scale > 0), so a score costs
 // one FFMA into ex2: p = 2^(s * scale * log2(e) - m). Masked keys (past S,
@@ -93,9 +115,9 @@ __device__ __forceinline__ void wgmma_pv<128>(float (&o)[64], const uint32_t (&a
 // holds one (past S, or past the warpgroup's first row q_lo) takes that
 // path. The scores are only read: a product may be writing the next tile's
 // into other registers meanwhile.
-template <bool kMasked>
-__device__ __forceinline__ void fa_softmax_tile(const float (&sc)[64],
-                                                uint32_t (&pa)[kFaBN / 16][4], float (&m_i)[2],
+template <int kBN, bool kMasked>
+__device__ __forceinline__ void fa_softmax_tile(const float (&sc)[kBN / 2],
+                                                uint32_t (&pa)[kBN / 16][4], float (&m_i)[2],
                                                 float (&l_i)[2], float (&alpha)[2], int kv0,
                                                 int s, int causal, int r0, int r1, int t,
                                                 float scale_log2) {
@@ -105,7 +127,7 @@ __device__ __forceinline__ void fa_softmax_tile(const float (&sc)[64],
   };
   float mx[2] = {kNegInf, kNegInf};
 #pragma unroll
-  for (int n = 0; n < 16; ++n)
+  for (int n = 0; n < kBN / 8; ++n)
 #pragma unroll
     for (int e = 0; e < 4; ++e)
       mx[e >> 1] = fmaxf(mx[e >> 1], kMasked && dead(n, e) ? kNegInf : sc[4 * n + e]);
@@ -119,7 +141,7 @@ __device__ __forceinline__ void fa_softmax_tile(const float (&sc)[64],
     alpha[i] = ex2(m_i[i] - m_new[i]);
   }
 #pragma unroll
-  for (int n = 0; n < 16; ++n) {
+  for (int n = 0; n < kBN / 8; ++n) {
     float p[4];
 #pragma unroll
     for (int e = 0; e < 4; ++e) {
@@ -140,33 +162,34 @@ __device__ __forceinline__ void fa_softmax_tile(const float (&sc)[64],
   }
 }
 
-__device__ __forceinline__ void fa_softmax(const float (&sc)[64], uint32_t (&pa)[kFaBN / 16][4],
+template <int kBN>
+__device__ __forceinline__ void fa_softmax(const float (&sc)[kBN / 2], uint32_t (&pa)[kBN / 16][4],
                                            float (&m_i)[2], float (&l_i)[2], float (&alpha)[2],
                                            int kv0, int s, int causal, int q_lo, int r0, int r1,
                                            int t, float scale_log2) {
-  if (kv0 + kFaBN > s || (causal && kv0 + kFaBN - 1 > q_lo))
-    fa_softmax_tile<true>(sc, pa, m_i, l_i, alpha, kv0, s, causal, r0, r1, t, scale_log2);
+  if (kv0 + kBN > s || (causal && kv0 + kBN - 1 > q_lo))
+    fa_softmax_tile<kBN, true>(sc, pa, m_i, l_i, alpha, kv0, s, causal, r0, r1, t, scale_log2);
   else
-    fa_softmax_tile<false>(sc, pa, m_i, l_i, alpha, kv0, s, causal, r0, r1, t, scale_log2);
+    fa_softmax_tile<kBN, false>(sc, pa, m_i, l_i, alpha, kv0, s, causal, r0, r1, t, scale_log2);
 }
 
-template <int D>
-__device__ __forceinline__ void fa_issue_s(float (&sc)[64], const bf16* qw, const bf16* kt) {
+template <int D, int kBN = FaLayout<D>::kBN>
+__device__ __forceinline__ void fa_issue_s(float (&sc)[kBN / 2], const bf16* qw, const bf16* kt) {
 #pragma unroll
   for (int kk = 0; kk < D / 16; ++kk) {
     const int sub = kk >> 2, kin = (kk & 3) * 16;
-    wgmma_ss_m64n128(sc, wgmma_desc_sw128(qw + sub * kFaBM * 64 + kin, 16, 1024),
-                     wgmma_desc_sw128(kt + sub * kFaBN * 64 + kin, 16, 1024), kk > 0);
+    wgmma_qk<kBN>(sc, wgmma_desc_sw128(qw + sub * kFaBM * 64 + kin, 16, 1024),
+                  wgmma_desc_sw128(kt + sub * kBN * 64 + kin, 16, 1024), kk > 0);
   }
   wgmma_commit();
 }
 
-template <int D>
-__device__ __forceinline__ void fa_issue_pv(float (&o)[D / 2], const uint32_t (&pa)[kFaBN / 16][4],
+template <int D, int kBN = FaLayout<D>::kBN>
+__device__ __forceinline__ void fa_issue_pv(float (&o)[D / 2], const uint32_t (&pa)[kBN / 16][4],
                                             const bf16* vt) {
 #pragma unroll
-  for (int kk = 0; kk < kFaBN / 16; ++kk)
-    wgmma_pv<D>(o, pa[kk], wgmma_desc_sw128(vt + kk * 16 * 64, kFaBN * 128, 1024));
+  for (int kk = 0; kk < kBN / 16; ++kk)
+    wgmma_pv<D>(o, pa[kk], wgmma_desc_sw128(vt + kk * 16 * 64, kBN * 128, 1024));
   wgmma_commit();
 }
 
@@ -187,6 +210,7 @@ flash_bf16_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant_
                   const __grid_constant__ CUtensorMap tv, bf16* __restrict__ o, int s, int hq,
                   int hk, int causal, float scale_log2) {
   using L = FaLayout<D>;
+  constexpr int kFaBN = L::kBN;
   extern __shared__ __align__(1024) unsigned char fa_raw[];
   unsigned char* base = fa_raw + ((1024 - (smem_u32(fa_raw) & 1023)) & 1023);
   bf16* qs = reinterpret_cast<bf16*>(base);                        // [kSub][kFaBM][64]
@@ -255,7 +279,7 @@ flash_bf16_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant_
 #pragma unroll
     for (int i = 0; i < D / 2; ++i) oacc[i] = 0.f;
     float m_i[2] = {kNegInf, kNegInf}, l_i[2] = {0.f, 0.f}, alpha[2];
-    float sc[64];                                                 // S: 64 rows x 128 keys
+    float sc[kFaBN / 2];                                          // S: 64 rows x kFaBN keys
     uint32_t pa[kFaBN / 16][4];                                   // P as bf16 A registers
     mbar_wait(q_full, 0);
     for (int j = 0; j <= last; ++j) {
@@ -267,7 +291,8 @@ flash_bf16_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant_
       wgmma_wait<0>();
       wgmma_fence_regs(sc);
       mbar_arrive(&k_empty[st]);
-      fa_softmax(sc, pa, m_i, l_i, alpha, j * kFaBN, s, causal, q_lo, r0, r1, t, scale_log2);
+      fa_softmax<kFaBN>(sc, pa, m_i, l_i, alpha, j * kFaBN, s, causal, q_lo, r0, r1, t,
+                        scale_log2);
       fa_rescale<D>(oacc, alpha);
       mbar_wait(&v_full[st], ph);
       wgmma_fence_regs(oacc);
@@ -302,6 +327,13 @@ constexpr int kF32Rows = 4;                       // query rows per warp
 constexpr int kF32Q = 4 * kF32Rows;               // query rows per block
 constexpr int kF32C = 32;                         // keys per tile
 
+// The f32 kernel's shared memory (dynamic: 84 KB at D 256): K and V tiles
+// [kF32C][D + 1], the query rows [kF32Q][D], P [4][kF32Rows][kF32C].
+template <int D>
+constexpr size_t f32_smem_bytes() {
+  return ((size_t)2 * kF32C * (D + 1) + (size_t)kF32Q * D + 4 * kF32Rows * kF32C) * 4;
+}
+
 template <int D>
 __global__ void __launch_bounds__(kThreads)
 flash_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
@@ -309,10 +341,11 @@ flash_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
                  int causal, float scale) {
   constexpr int kPad = D + 1;                     // lane-per-key row reads hit distinct banks
   constexpr int kDPL = D / 32;                    // output dims per lane: lane + 32 j
-  __shared__ float ks[kF32C][kPad];
-  __shared__ float vs[kF32C][kPad];
-  __shared__ float qs[kF32Q][D];
-  __shared__ float ps[4][kF32Rows][kF32C];
+  extern __shared__ float f32_raw[];
+  auto ks = reinterpret_cast<float (*)[kPad]>(f32_raw);
+  auto vs = reinterpret_cast<float (*)[kPad]>(f32_raw + kF32C * kPad);
+  auto qs = reinterpret_cast<float (*)[D]>(f32_raw + 2 * kF32C * kPad);
+  auto ps = reinterpret_cast<float (*)[kF32Rows][kF32C]>(f32_raw + 2 * kF32C * kPad + kF32Q * D);
 
   const int n_q = (s + kF32Q - 1) / kF32Q;
   const int qt = n_q - 1 - (int)blockIdx.x;
@@ -391,8 +424,14 @@ template <int D>
 cudaError_t launch_flash(const void* q, const void* k, const void* v, void* out, int s, int hq,
                          int hk, int causal, int is_f32, float scale, cudaStream_t st) {
   if (is_f32) {
+    constexpr size_t smem = f32_smem_bytes<D>();
+    if (smem > 48 * 1024) {
+      cudaError_t e = cudaFuncSetAttribute(flash_f32_kernel<D>,
+                                           cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+      if (e != cudaSuccess) return e;
+    }
     const dim3 grid((s + kF32Q - 1) / kF32Q, hq);
-    flash_f32_kernel<D><<<grid, kThreads, 0, st>>>(
+    flash_f32_kernel<D><<<grid, kThreads, smem, st>>>(
         static_cast<const float*>(q), static_cast<const float*>(k),
         static_cast<const float*>(v), static_cast<float*>(out), s, hq, hk, causal, scale);
     return cudaGetLastError();
@@ -400,8 +439,8 @@ cudaError_t launch_flash(const void* q, const void* k, const void* v, void* out,
   CUtensorMap tq, tk, tv;
   const uint64_t qrow = (uint64_t)hq * D, kvrow = (uint64_t)hk * D;
   cudaError_t e = pgk_tensor_map_bf16(&tq, q, qrow, s, qrow * 2, 64, kFaBM);
-  if (e == cudaSuccess) e = pgk_tensor_map_bf16(&tk, k, kvrow, s, kvrow * 2, 64, kFaBN);
-  if (e == cudaSuccess) e = pgk_tensor_map_bf16(&tv, v, kvrow, s, kvrow * 2, 64, kFaBN);
+  if (e == cudaSuccess) e = pgk_tensor_map_bf16(&tk, k, kvrow, s, kvrow * 2, 64, FaLayout<D>::kBN);
+  if (e == cudaSuccess) e = pgk_tensor_map_bf16(&tv, v, kvrow, s, kvrow * 2, 64, FaLayout<D>::kBN);
   if (e != cudaSuccess) return e;
   constexpr int smem = FaLayout<D>::kBytes;
   e = cudaFuncSetAttribute(flash_bf16_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -417,7 +456,7 @@ cudaError_t launch_flash(const void* q, const void* k, const void* v, void* out,
 
 // q [s, hq, d], k and v [s, hk, d], out [s, hq, d]; contiguous, 16-byte
 // aligned, all bf16 (is_f32 == 0) or all f32. causal masks keys > query.
-// Requires s >= 1, d in {64, 128}, hq % hk == 0.
+// Requires s >= 1, d in {64, 128, 256}, hq % hk == 0.
 PGK_API int pgk_flash_attention(const void* q, const void* k, const void* v, void* out, int s,
                                 int hq, int hk, int d, int causal, int is_f32, float scale,
                                 void* stream) {
@@ -425,5 +464,6 @@ PGK_API int pgk_flash_attention(const void* q, const void* k, const void* v, voi
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (d == 64) return (int)launch_flash<64>(q, k, v, out, s, hq, hk, causal, is_f32, scale, st);
   if (d == 128) return (int)launch_flash<128>(q, k, v, out, s, hq, hk, causal, is_f32, scale, st);
+  if (d == 256) return (int)launch_flash<256>(q, k, v, out, s, hq, hk, causal, is_f32, scale, st);
   return (int)cudaErrorInvalidValue;
 }

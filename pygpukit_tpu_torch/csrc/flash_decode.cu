@@ -11,7 +11,7 @@
 // 0.05 us, where one launch's start and drain are the time). So:
 // - bf16 with G = Hq / Hk <= 16 runs decode_attention.cuh's tensor-core body
 //   (the G heads are the rows of warp MMAs, a block of four warps a split,
-//   a warp a 64-row chunk at a time); f32, and G 17 to 32, its CUDA-core
+//   a warp a 64-row chunk at a time, 32 rows at D 256); f32, and G 17 to 32, its CUDA-core
 //   body (a warp a head). Position p of kv head h is at p * Hk * D + h * D,
 //   the cache's own row layout, read in place;
 // - the launch plan comes from the shapes alone (kernels/flash_attention.
@@ -176,7 +176,7 @@ cudaError_t launch_decode(const void* q, const void* kc, const void* vc, const i
 // int32 on the device) when ctx_dev is not null, else ctx_val; below 0 it
 // counts as 0 (zeros out), above max_len as max_len. part: hq * n_split *
 // (d + 2) f32 scratch; n_split >= 1 from the shapes alone. Requires d in
-// {64, 128}, hq % hk == 0, hq / hk <= 32, hk <= 4096 (max_len 0: zeros).
+// {64, 128, 256}, hq % hk == 0, hq / hk <= 32, hk <= 4096 (max_len 0: zeros).
 PGK_API int pgk_flash_decode(const void* q, const void* kc, const void* vc, const void* ctx_dev,
                              int ctx_val, void* out, void* part, int hq, int hk, int d,
                              int max_len, int n_split, int is_f32, float scale, void* stream) {
@@ -193,6 +193,11 @@ PGK_API int pgk_flash_decode(const void* q, const void* kc, const void* vc, cons
     return is_f32 ? (int)launch_decode<float, 128>(q, kc, vc, cd, ctx_val, out, part, hq, hk,
                                                    max_len, n_split, scale, st)
                   : (int)launch_decode<__nv_bfloat16, 128>(q, kc, vc, cd, ctx_val, out, part,
+                                                           hq, hk, max_len, n_split, scale, st);
+  if (d == 256)
+    return is_f32 ? (int)launch_decode<float, 256>(q, kc, vc, cd, ctx_val, out, part, hq, hk,
+                                                   max_len, n_split, scale, st)
+                  : (int)launch_decode<__nv_bfloat16, 256>(q, kc, vc, cd, ctx_val, out, part,
                                                            hq, hk, max_len, n_split, scale, st);
   return (int)cudaErrorInvalidValue;
 }

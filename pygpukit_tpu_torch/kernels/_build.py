@@ -2,8 +2,8 @@
 
 The sources have a plain C interface and include no PyTorch header. Each
 ``.cu`` compiles in its own ``nvcc`` process, all started together, and one
-more call links the objects into a shared library: about 22 s on the H100
-machine, bound by the two decode-attention files (20 storage, query and
+more call links the objects into a shared library: about 35 s on the H100
+machine, bound by the two decode-attention files (30 storage, query and
 head-dim variants each). The Hopper instructions (TMA, mbarriers, wgmma,
 setmaxnreg) are raw PTX in ``csrc/hopper.cuh`` (the GEMM mainloop of
 ``gemm.cu`` and ``gmm.cu`` in ``csrc/hopper_gemm.cuh``): no CUTLASS or CuTe

@@ -35,6 +35,10 @@ _Q_KINDS = {torch.bfloat16: 0, _F32: 1}
 _KV_KINDS = {torch.bfloat16: 0, _F32: 1, torch.float8_e4m3fn: 2,
              torch.float8_e5m2: 3}
 INT8_KIND = 4
+#: the head dims the decode-attention kernels are built for
+HEAD_DIMS = (64, 128, 256)
+
+
 def storage_kinds(q: torch.Tensor, k_pool, v_pool) -> tuple[int, int]:
     """(query kind, storage kind) of the kernels; NotImplementedError for
     a dtype no engine builds (an f16 pool, say) or two storages."""
@@ -168,7 +172,7 @@ def launch_batch_decode_attention(q: torch.Tensor, k_pool, v_pool, layer: int,
         raise ValueError("pools must be merged [B, L, MAX, Hk*D] of one shape")
     _, n_layers, max_len, lanes = kq.shape
     hk = lanes // d
-    if hk * d != lanes or hq % hk or hq // hk > 16 or d not in (64, 128):
+    if hk * d != lanes or hq % hk or hq // hk > 16 or d not in HEAD_DIMS:
         raise ValueError(f"unsupported attention shape: Hq={hq} Hk*D={lanes} D={d}")
     qc = q.contiguous()
     lens = ctx_lens.to(device=leaf.device, dtype=torch.int32).contiguous()

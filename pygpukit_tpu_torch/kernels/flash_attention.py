@@ -7,7 +7,7 @@ one query row ``[1, Hq, D]`` over fixed caches ``[MAX, Hk, D]`` whose rows
 ``[0, ctx_len)`` are live. Both keep the reference kernels' arithmetic: f32
 scores and running state, P rounded to the input dtype before P@V, the sum
 floored at 1e-30. CUDA tensors launch ``csrc/flash_attention.cu`` and
-``csrc/flash_decode.cu`` (bf16 or f32, D 64 or 128) or raise; CPU tensors
+``csrc/flash_decode.cu`` (bf16 or f32, D 64, 128 or 256) or raise; CPU tensors
 take the plain versions, which compute the same full softmax with P rounded
 the same way (the kernels' online form rounds P against a running maximum,
 so the two agree to bf16 rounding, and to f32 summation order in f32).
@@ -43,6 +43,8 @@ MAX_KV_HEADS = 4096
 #: head): the 64-row chunks a block of four warps takes at most (two a
 #: warp, both in flight), and the blocks it aims at (one an SM)
 DECODE_MMA_CHUNKS, DECODE_MMA_BLOCKS = 8, 132
+#: the head dims both kernels are built for
+HEAD_DIMS = (64, 128, 256)
 #: query rows per step of flash_attention_plain (bounds its score memory)
 _PLAIN_Q_BLOCK = 512
 
@@ -119,7 +121,7 @@ def _check_kernel_operands(q, k, v, what: str) -> None:
                                   f"{v.dtype})")
     hq, d = q.shape[1], q.shape[2]
     hk = k.shape[1]
-    if (k.shape != v.shape or k.shape[2] != d or hq % hk or d not in (64, 128)):
+    if (k.shape != v.shape or k.shape[2] != d or hq % hk or d not in HEAD_DIMS):
         raise ValueError(f"unsupported {what} shape: q {tuple(q.shape)}, "
                          f"k {tuple(k.shape)}, v {tuple(v.shape)}")
 
@@ -147,9 +149,10 @@ def mma_fold_splits(g: int, d: int) -> int:
     """Splits the tensor-core kernel's last block can stage in its ring to
     fold them in one pass: ``pgk_mma_fold_splits`` of
     ``csrc/decode_attention.cuh`` (a ring of four warps x 2 stages at D 64,
-    1 at D 128, x K and V chunks of 64 rows padded by 16 bytes; a split
-    takes G (D + 3) floats, and each head one more)."""
-    ring = 4 * (2 if d == 64 else 1) * 2 * ATTN_CHUNK * (2 * d + 16)
+    1 above, x K and V tiles of 64 rows, 32 at D 256, padded by 16 bytes;
+    a split takes G (D + 3) floats, and each head one more)."""
+    rows = 32 if d > 128 else ATTN_CHUNK
+    ring = 4 * (2 if d == 64 else 1) * 2 * rows * (2 * d + 16)
     return (ring - 4 * g) // (g * (d + 3) * 4)
 
 

@@ -117,8 +117,8 @@ from ..kernels.gemv_quant import GEMV_MAX_ROWS
 from ..ops.embedding import kv_cache_zeros, kv_leaf, kv_write
 from ..ops.matmul import int8_dot
 from ..ops.moe import select_moe_fn
-from ..ops.nn import (apply_rope_fn, flash_attention_fn, rmsnorm_fn,
-                      rope_tables, sdpa_fixed_cache_fn, swiglu_fn)
+from ..ops.nn import (apply_rope_fn, flash_attention_fn, gelu_fn, layernorm_fn,
+                      rmsnorm_fn, rope_tables, sdpa_fixed_cache_fn, swiglu_fn)
 from ..ops.sampling import (sample_greedy_fn, sample_temperature_fn,
                             sample_topk_fn, sample_topp_fn)
 from .buffers import DecodeBuffers, PrefillBuffers
@@ -126,6 +126,7 @@ from .config import ModelSpec, TransformerConfig
 
 _F32 = torch.float32
 _NEG_INF = -1e30
+_SQRT_2_OVER_PI = math.sqrt(2.0 / math.pi)
 #: int4 layer operands take the w4a8 GEMM from this many rows (below it,
 #: from 9 rows, the dequant matmul), as the reference's TPU route does
 W4A8_GEMM_MIN_ROWS = 256
@@ -156,23 +157,23 @@ def resolve_kv_dtype(kv_dtype, model_dtype: torch.dtype) -> torch.dtype:
 
 def check_supported(cfg: TransformerConfig) -> None:
     """Raise NotImplementedError for architecture features this slice has
-    not ported, instead of computing something else silently."""
+    not ported, instead of computing something else silently. Ported: the
+    Llama/Mistral/Mixtral block and the Qwen2 (biases), Qwen3 and
+    Qwen3-MoE (per-head q/k norm), GPT-2 (layernorm, learned positions,
+    gelu) and Gemma-2/3 (sandwich norms, embedding scale, softcaps, local
+    rope tables, GeGLU) features."""
     missing = [name for name, on in (
-        ("layernorm", cfg.norm_type != "rmsnorm"),
-        ("qk norm", cfg.use_qk_norm),
-        ("post norms", cfg.use_post_norms), ("post-norm-only blocks", not cfg.pre_norms),
+        ("post-norm-only blocks", not cfg.pre_norms),
         ("parallel blocks", cfg.parallel_block),
         ("interleaved rope", cfg.rope_interleaved),
         ("partial rotary", cfg.rope_partial_factor != 1.0),
         ("scaled rope", bool(cfg.rope_scaling)),
-        ("per-layer rope tables", cfg.rope_layers is not None
-         or cfg.rope_local_theta is not None),
+        ("per-layer rope switches (NoPE layers)", cfg.rope_layers is not None),
         ("residual multiplier", cfg.residual_multiplier is not None),
-        ("learned position embeddings", cfg.use_position_embed),
-        ("embedding scale", cfg.embed_scale is not None),
-        ("logit scale or softcap", cfg.logit_scale is not None
-         or cfg.final_logit_softcap is not None),
-        (f"activation {cfg.activation!r}", cfg.activation != "silu"),
+        ("logit scale", cfg.logit_scale is not None),
+        ("wide qk norm", cfg.use_qk_norm and cfg.qk_norm_wide),
+        (f"activation {cfg.activation!r}",
+         cfg.activation not in ("silu", "gelu", "gelu_tanh")),
     ) if on]
     if missing:
         raise NotImplementedError("not ported yet: " + ", ".join(missing))
@@ -181,13 +182,19 @@ def check_supported(cfg: TransformerConfig) -> None:
 #: the MoE expert stacks [L, E, in, out]: bf16 or f32 tensors, or
 #: {"q", "scale"} fp8/int8 dicts
 _EXPERT_LEAVES = {"w_experts_gate", "w_experts_up", "w_experts_down"}
-#: the leaves the slice reads; a param tree with others (biases or norm
-#: variants) is refused rather than partly ignored
+#: the leaves the slice takes (``attn_window`` and ``use_local_rope`` hold
+#: what the config states, which the steps read); a param tree with others
+#: (the lm-head bias, NoPE switches, learned activations) is refused rather
+#: than partly ignored
 _LAYER_LEAVES = {"w_qkv", "w_q", "w_k", "w_v", "w_o", "w_gate_up", "w_gate",
                  "w_up", "w_down", "attn_norm_w", "mlp_norm_w", "attn_window",
-                 "w_qkv_cat", "w_gu_cat", "w_router"} | _EXPERT_LEAVES
+                 "w_qkv_cat", "w_gu_cat", "w_router",
+                 "b_q", "b_k", "b_v", "b_qkv", "b_o", "w_q_norm", "w_k_norm",
+                 "post_attn_norm_w", "post_mlp_norm_w", "attn_norm_b", "mlp_norm_b",
+                 "w_fc1", "w_fc2", "b_fc1", "b_fc2", "use_local_rope"} | _EXPERT_LEAVES
 _TOP_LEAVES = {"embed", "final_norm_w", "lm_head", "layers", "rope_cos",
-               "rope_sin"}
+               "rope_sin", "pos_embed", "final_norm_b", "rope_cos_local",
+               "rope_sin_local"}
 
 
 #: weight leaf kinds: dict keys -> the storage dtypes of "q"/"q_packed"
@@ -300,36 +307,103 @@ def _slice_layer_params(layers: dict, i: int) -> dict:
                 else v[i]) for k, v in layers.items()}
 
 
-def _rope_rows_for(params: dict, pos, t: int):
-    """Rope table rows pos..pos+t-1, the start clamped to [0, n - t] (the
-    clamps of ``lax.dynamic_slice`` in the reference: a free slot decoding
-    past the table stays in range). ``pos`` an int: a slice; a [B] tensor
-    (the batch-rows step's positions at t = 1, or the single-stream device
-    position [1]): gathered on the device, [B * t] rows."""
-    cos, sin = params["rope_cos"], params["rope_sin"]
-    n = cos.shape[0]
+def _table_rows(table: torch.Tensor, pos, t: int) -> torch.Tensor:
+    """Rows pos..pos+t-1 of a position table, the start clamped to [0, n -
+    t] (the clamps of ``lax.dynamic_slice`` in the reference: a free slot
+    decoding past the table stays in range). ``pos`` an int: a slice; a [B]
+    tensor (the batch-rows step's positions at t = 1, or the single-stream
+    device position [1]): gathered on the device, [B * t] rows."""
+    n = table.shape[0]
     if isinstance(pos, torch.Tensor):
         start = torch.clamp(pos.reshape(-1).to(torch.long), 0, n - t)
         rows = (start[:, None] + torch.arange(t, device=pos.device)).reshape(-1)
-        return cos[rows], sin[rows]
+        return table[rows]
     start = min(max(int(pos), 0), n - t)
-    return cos[start:start + t], sin[start:start + t]
+    return table[start:start + t]
 
 
-def _norm(cfg: TransformerConfig, x, w):
-    return rmsnorm_fn(x, w, cfg.norm_eps)
+def _take_rows(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """``jnp.take(table, idx, axis=0)`` with its default fill mode: indices
+    in [-n, 0) count from the end, rows of indices outside [-n, n) are NaN
+    (the reference's learned positions in the batch-rows step)."""
+    n = table.shape[0]
+    i = idx.reshape(-1).to(torch.long)
+    i = torch.where(i < 0, i + n, i)
+    ok = (i >= 0) & (i < n)
+    rows = table[torch.clamp(i, 0, n - 1)]
+    return torch.where(ok[:, None], rows, torch.full_like(rows, float("nan")))
+
+
+@dataclass
+class _RopeRows:
+    """The rope rows of a step: the global tables' and, for a model with
+    local tables (Gemma-3), the local ones (None otherwise)."""
+    cos: torch.Tensor
+    sin: torch.Tensor
+    cos_local: torch.Tensor | None = None
+    sin_local: torch.Tensor | None = None
+
+
+def _rope_rows_for(params: dict, pos, t: int) -> _RopeRows:
+    """Rope rows pos..pos+t-1 of every table (``_table_rows``' clamps)."""
+    local = "rope_cos_local" in params
+    return _RopeRows(
+        _table_rows(params["rope_cos"], pos, t), _table_rows(params["rope_sin"], pos, t),
+        _table_rows(params["rope_cos_local"], pos, t) if local else None,
+        _table_rows(params["rope_sin_local"], pos, t) if local else None)
+
+
+def _layer_rope(cfg: TransformerConfig, i: int, rows: _RopeRows):
+    """(cos, sin) of layer ``i`` (reference ``_layer_rope``): Gemma-3's
+    sliding layers rotate with the local tables. The choice is the
+    config's (``layer_types``, as the ``use_local_rope`` leaf holds it),
+    made on the host, as ``_layer_window`` makes the window's."""
+    if (rows.cos_local is not None and cfg.layer_types is not None
+            and cfg.layer_types[i] == "sliding_attention"):
+        return rows.cos_local, rows.sin_local
+    return rows.cos, rows.sin
+
+
+def _norm(cfg: TransformerConfig, x, w, b=None):
+    if cfg.norm_type == "rmsnorm":
+        return rmsnorm_fn(x, w, cfg.norm_eps)
+    return layernorm_fn(x, w, b, cfg.norm_eps)
 
 
 def _attn_in(cfg: TransformerConfig, lp: dict, h):
-    return _norm(cfg, h, lp["attn_norm_w"])
+    return _norm(cfg, h, lp["attn_norm_w"], lp.get("attn_norm_b"))
+
+
+def _final_norm(cfg: TransformerConfig, params: dict, h):
+    return _norm(cfg, h, params["final_norm_w"], params.get("final_norm_b"))
 
 
 def _rope(cfg: TransformerConfig, x, cos, sin):
     return apply_rope_fn(x, cos, sin)
 
 
+def _rope_qk(cfg: TransformerConfig, i: int, rows: _RopeRows | None, q, k):
+    """q and k rotated with layer ``i``'s tables (unchanged without rope)."""
+    if rows is None:
+        return q, k
+    c, sn = _layer_rope(cfg, i, rows)
+    return _rope(cfg, q, c, sn), _rope(cfg, k, c, sn)
+
+
+def _qk_headnorm(x, w, eps: float, subtract_mean: bool = False):
+    """Per-head norm over head_dim (Qwen3's q_norm/k_norm), w [D]: RMS, or
+    mean-centred first where ``subtract_mean`` (Cohere's flavour), in f32."""
+    xf = x.to(_F32)
+    if subtract_mean:
+        xf = xf - torch.mean(xf, dim=-1, keepdim=True)
+    var = torch.mean(xf * xf, dim=-1, keepdim=True)
+    return (xf * torch.rsqrt(var + eps) * w.to(_F32)).to(x.dtype)
+
+
 def _project_qkv(cfg: TransformerConfig, lp: dict, x):
-    """x [S, E] -> q [S, Hq, D], k and v [S, Hk, D] in x's dtype."""
+    """x [S, E] -> q [S, Hq, D], k and v [S, Hk, D] in x's dtype: the fused
+    or separate projections, their biases added in f32, then the per-head
+    q/k norms."""
     s = x.shape[0]
     hq, hk, d = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
     if "w_qkv" in lp:
@@ -337,12 +411,25 @@ def _project_qkv(cfg: TransformerConfig, lp: dict, x):
         q, k, v = qkv[:, :hq * d], qkv[:, hq * d:(hq + hk) * d], qkv[:, (hq + hk) * d:]
     else:
         q, k, v = (_mm(x, lp[n]).to(_F32) for n in ("w_q", "w_k", "w_v"))
-    return (q.to(x.dtype).reshape(s, hq, d), k.to(x.dtype).reshape(s, hk, d),
-            v.to(x.dtype).reshape(s, hk, d))
+    if "b_qkv" in lp:
+        b = lp["b_qkv"].to(_F32)
+        q, k, v = q + b[:hq * d], k + b[hq * d:(hq + hk) * d], v + b[(hq + hk) * d:]
+    elif "b_q" in lp:
+        q, k, v = (t + lp[n].to(_F32) for t, n in ((q, "b_q"), (k, "b_k"), (v, "b_v")))
+    q, k, v = (q.to(x.dtype).reshape(s, hq, d), k.to(x.dtype).reshape(s, hk, d),
+               v.to(x.dtype).reshape(s, hk, d))
+    if cfg.use_qk_norm:
+        sm = cfg.norm_type == "layernorm"
+        q = _qk_headnorm(q, lp["w_q_norm"], cfg.norm_eps, subtract_mean=sm)
+        k = _qk_headnorm(k, lp["w_k_norm"], cfg.norm_eps, subtract_mean=sm)
+    return q, k, v
 
 
 def _out_proj(lp: dict, attn, s: int, dtype):
-    return _mm(attn.reshape(s, -1), lp["w_o"]).to(dtype)
+    o = _mm(attn.reshape(s, -1), lp["w_o"])
+    if "b_o" in lp:
+        o = o.to(_F32) + lp["b_o"].to(_F32)
+    return o.to(dtype)
 
 
 def _moe_mlp(cfg: TransformerConfig, lp: dict, y):
@@ -357,24 +444,59 @@ def _moe_mlp(cfg: TransformerConfig, lp: dict, y):
     return out.to(y.dtype)
 
 
+def _gelu_tanh(x: torch.Tensor) -> torch.Tensor:
+    """``jax.nn.gelu(x, approximate=True)`` in x's dtype, its order of
+    operations: x * 0.5 * (1 + tanh(sqrt(2 / pi) * (x + 0.044715 x^3)))."""
+    cdf = 0.5 * (1.0 + torch.tanh(_SQRT_2_OVER_PI * (x + 0.044715 * (x ** 3))))
+    return x * cdf
+
+
 def _mlp(cfg: TransformerConfig, lp: dict, y):
+    """The gated MLP (SwiGLU, or Gemma's GeGLU with the tanh gelu on the
+    gate in f32), or GPT-2's fc1 -> gelu -> fc2 with f32 biases."""
     if cfg.is_moe:
         return _moe_mlp(cfg, lp, y)
-    if "w_gate_up" in lp:
-        gate, up = torch.chunk(_mm(y, lp["w_gate_up"]), 2, dim=-1)
-    else:
-        gate, up = _mm(y, lp["w_gate"]), _mm(y, lp["w_up"])
-    return _mm(swiglu_fn(gate, up), lp["w_down"])
+    if "w_gate_up" in lp or "w_gate" in lp:
+        if "w_gate_up" in lp:
+            gate, up = torch.chunk(_mm(y, lp["w_gate_up"]), 2, dim=-1)
+        else:
+            gate, up = _mm(y, lp["w_gate"]), _mm(y, lp["w_up"])
+        if cfg.activation == "gelu_tanh":
+            act = (_gelu_tanh(gate.to(_F32)) * up.to(_F32)).to(y.dtype)
+        else:
+            act = swiglu_fn(gate, up)
+        return _mm(act, lp["w_down"])
+    h = _mm(y, lp["w_fc1"]).to(_F32)
+    if "b_fc1" in lp:
+        h = h + lp["b_fc1"].to(_F32)
+    h = gelu_fn(h.to(y.dtype))
+    out = _mm(h, lp["w_fc2"]).to(_F32)
+    if "b_fc2" in lp:
+        out = out + lp["b_fc2"].to(_F32)
+    return out.to(y.dtype)
 
 
 def _residual_tail(cfg: TransformerConfig, lp: dict, h, attn, s: int):
-    """Out-projection + residual, then the MLP sublayer + residual."""
-    h = h + _out_proj(lp, attn, s, h.dtype)
-    return h + _mlp(cfg, lp, _norm(cfg, h, lp["mlp_norm_w"]))
+    """Out-projection + residual, then the MLP sublayer + residual, with
+    Gemma's sandwich norms on the sublayer outputs (``use_post_norms``)."""
+    o = _out_proj(lp, attn, s, h.dtype)
+    if cfg.use_post_norms:
+        o = _norm(cfg, o, lp["post_attn_norm_w"])
+    h = h + o
+    m = _mlp(cfg, lp, _norm(cfg, h, lp["mlp_norm_w"], lp.get("mlp_norm_b")))
+    if cfg.use_post_norms:
+        m = _norm(cfg, m, lp["post_mlp_norm_w"])
+    return h + m
 
 
 def _embed_tokens(cfg: TransformerConfig, params: dict, tokens):
-    return params["embed"][tokens.to(torch.long)]
+    """Embedding rows, times ``embed_scale`` (Gemma) rounded to the
+    activation dtype first, as HF casts the normalizer before the
+    multiply."""
+    h = params["embed"][tokens.to(torch.long)]
+    if cfg.embed_scale is not None:
+        h = h * torch.tensor(cfg.embed_scale, dtype=h.dtype).item()
+    return h
 
 
 def _logits(cfg: TransformerConfig, params: dict, h):
@@ -385,6 +507,9 @@ def _logits(cfg: TransformerConfig, params: dict, h):
         logits = torch.matmul(h.to(_F32), head.to(_F32))
     else:                                   # tied embeddings
         logits = torch.matmul(h.to(_F32), params["embed"].to(_F32).t())
+    if cfg.final_logit_softcap is not None:
+        cap = cfg.final_logit_softcap
+        logits = cap * torch.tanh(logits * (1.0 / cap))
     return logits
 
 
@@ -398,17 +523,22 @@ def _layer_window(cfg: TransformerConfig, i: int) -> int | None:
 # ---------------------------------------------------------------------------
 
 def layer_stack_fn(cfg: TransformerConfig, layers: dict, h: torch.Tensor,
-                   rope_cos, rope_sin) -> torch.Tensor:
+                   rope_cos, rope_sin, rope_cos_local=None,
+                   rope_sin_local=None) -> torch.Tensor:
     """Run h [S, E] through the stacked layers (a Python loop over the layer
-    views); attention through ``flash_attention_fn`` (route rule above)."""
+    views); attention through ``flash_attention_fn`` (route rule above).
+    The local tables (Gemma-3) rotate the sliding layers."""
     s = h.shape[0]
+    rows = None
+    if cfg.use_rope:
+        rows = _RopeRows(rope_cos[:s], rope_sin[:s],
+                         None if rope_cos_local is None else rope_cos_local[:s],
+                         None if rope_sin_local is None else rope_sin_local[:s])
     for i in range(layers["attn_norm_w"].shape[0]):
         lp = _slice_layer_params(layers, i)
         x = _attn_in(cfg, lp, h)
         q, k, v = _project_qkv(cfg, lp, x)
-        if cfg.use_rope:
-            q = _rope(cfg, q, rope_cos[:s], rope_sin[:s])
-            k = _rope(cfg, k, rope_cos[:s], rope_sin[:s])
+        q, k = _rope_qk(cfg, i, rows, q, k)
         attn = flash_attention_fn(q, k, v, scale=cfg.attn_scale,
                                   softcap=cfg.attn_logit_softcap,
                                   window=_layer_window(cfg, i))
@@ -419,10 +549,12 @@ def layer_stack_fn(cfg: TransformerConfig, layers: dict, h: torch.Tensor,
 def forward_fn(cfg: TransformerConfig, params: dict, tokens: torch.Tensor) -> torch.Tensor:
     """tokens [S] -> f32 logits [S, V], every position, no cache."""
     h = _embed_tokens(cfg, params, tokens)
+    if cfg.use_position_embed:
+        h = h + params["pos_embed"][:tokens.shape[0]]
     h = layer_stack_fn(cfg, params["layers"], h, params.get("rope_cos"),
-                       params.get("rope_sin"))
-    h = _norm(cfg, h, params["final_norm_w"])
-    return _logits(cfg, params, h)
+                       params.get("rope_sin"), params.get("rope_cos_local"),
+                       params.get("rope_sin_local"))
+    return _logits(cfg, params, _final_norm(cfg, params, h))
 
 
 # ---------------------------------------------------------------------------
@@ -471,13 +603,14 @@ def prefill_fn(cfg: TransformerConfig, params: dict, k_cache, v_cache,
     MAX, Hk*D]`` and the rows land in that slot by an index copy."""
     s = tokens.shape[0]
     h = _embed_tokens(cfg, params, tokens)
-    rc, rs = _rope_rows_for(params, 0, s) if cfg.use_rope else (None, None)
+    if cfg.use_position_embed:
+        h = h + params["pos_embed"][:s]
+    rows = _rope_rows_for(params, 0, s) if cfg.use_rope else None
     for i in range(kv_leaf(k_cache).shape[0 if slot is None else 1]):
         lp = _slice_layer_params(params["layers"], i)
         x = _attn_in(cfg, lp, h)
         q, k, v = _project_qkv(cfg, lp, x)
-        if cfg.use_rope:
-            q, k = _rope(cfg, q, rc, rs), _rope(cfg, k, rc, rs)
+        q, k = _rope_qk(cfg, i, rows, q, k)
         if slot is None:
             kv_write(k_cache, k.reshape(1, s, -1), (i, 0, 0))
             kv_write(v_cache, v.reshape(1, s, -1), (i, 0, 0))
@@ -487,8 +620,7 @@ def prefill_fn(cfg: TransformerConfig, params: dict, k_cache, v_cache,
         attn = _prefill_attn(q, k, v, true_len, cfg.attn_scale,
                              cfg.attn_logit_softcap, _layer_window(cfg, i))
         h = _residual_tail(cfg, lp, h, attn, s)
-    h = _norm(cfg, h, params["final_norm_w"])
-    return _logits(cfg, params, _last_row(h, true_len))
+    return _logits(cfg, params, _last_row(_final_norm(cfg, params, h), true_len))
 
 
 def batch_decode_step_fn(cfg: TransformerConfig, params: dict, k_pool, v_pool,
@@ -498,24 +630,26 @@ def batch_decode_step_fn(cfg: TransformerConfig, params: dict, k_pool, v_pool,
 
     Pools ``[B, L, MAX, Hk*D]`` are updated in place; tokens [B], poss [B]
     int32 device tensors (a free slot passes its stale position: rope rows,
-    the row write and the attention bound all clamp). Returns f32 logits
-    [B, V]. Always ``kv_write_attention`` (route rule above)."""
+    the row write and the attention bound all clamp; learned positions
+    take the reference's ``jnp.take``, NaN rows past the table, in that
+    slot's row alone). Returns f32 logits [B, V]. Always
+    ``kv_write_attention`` (route rule above)."""
     b = tokens.shape[0]
     h = _embed_tokens(cfg, params, tokens)
-    c, sn = _rope_rows_for(params, poss, 1) if cfg.use_rope else (None, None)
+    if cfg.use_position_embed:
+        h = h + _take_rows(params["pos_embed"], poss)
+    rows = _rope_rows_for(params, poss, 1) if cfg.use_rope else None
     lens = poss + 1
     for i in range(kv_leaf(k_pool).shape[1]):
         lp = _slice_layer_params(params["layers"], i)
         x = _attn_in(cfg, lp, h)
         q, k, v = _project_qkv(cfg, lp, x)                    # [B, H, D]
-        if cfg.use_rope:
-            q, k = _rope(cfg, q, c, sn), _rope(cfg, k, c, sn)
+        q, k = _rope_qk(cfg, i, rows, q, k)
         attn = kv_write_attention(
             q[:, None], k_pool, v_pool, k, v, i, poss, lens, scale=cfg.attn_scale,
             softcap=cfg.attn_logit_softcap, window=_layer_window(cfg, i))
         h = _residual_tail(cfg, lp, h, attn.reshape(b, -1), b)
-    h = _norm(cfg, h, params["final_norm_w"])
-    return _logits(cfg, params, h)
+    return _logits(cfg, params, _final_norm(cfg, params, h))
 
 
 def sample_logits(logits: torch.Tensor, temperature: float = 0.0, top_k: int = 0,
@@ -614,21 +748,21 @@ def decode_window_fn(cfg: TransformerConfig, params: dict, k_cache, v_cache,
     depth."""
     t = tokens.shape[0]
     h = _embed_tokens(cfg, params, tokens)                    # [T, E]
-    c, sn = _rope_rows_for(params, pos, t) if cfg.use_rope else (None, None)
+    if cfg.use_position_embed:
+        h = h + _table_rows(params["pos_embed"], pos, t)
+    rows = _rope_rows_for(params, pos, t) if cfg.use_rope else None
     for i in range(kv_leaf(k_cache).shape[0]):
         lp = _slice_layer_params(params["layers"], i)
         x = _attn_in(cfg, lp, h)
         q, k, v = _project_qkv(cfg, lp, x)                    # [T, H, D]
-        if cfg.use_rope:
-            q, k = _rope(cfg, q, c, sn), _rope(cfg, k, c, sn)
+        q, k = _rope_qk(cfg, i, rows, q, k)
         kv_write(k_cache, k[None], (i, pos, 0, 0))
         kv_write(v_cache, v[None], (i, pos, 0, 0))
         attn = sdpa_fixed_cache_fn(q, _kv_layer(k_cache, i), _kv_layer(v_cache, i), pos + t,
                                    scale=cfg.attn_scale, softcap=cfg.attn_logit_softcap,
                                    window=_layer_window(cfg, i))
         h = _residual_tail(cfg, lp, h, attn, t)
-    h = _norm(cfg, h, params["final_norm_w"])
-    return _logits(cfg, params, h)
+    return _logits(cfg, params, _final_norm(cfg, params, h))
 
 
 def generate_scan_fn(cfg: TransformerConfig, n_steps: int, temperature: float,
@@ -877,11 +1011,15 @@ def fuse_params(params: dict) -> dict:
 
 def init_params(cfg: TransformerConfig, seed: int = 0,
                 dtype: torch.dtype = torch.bfloat16, device=None) -> dict:
-    """Random params (std 0.02, norms at one) in the reference's stacked
-    layout (``_build_random_params``), drawn on ``device`` (the card unless
-    the caller names one) from a ``torch.Generator`` seeded with ``seed``.
-    Values differ from the reference's init (another generator); the layout
-    is the same. A MoE config gets an f32 router ``[L, H, E]`` and expert
+    """Random params (std 0.02, norm weights at one, norm and MLP biases at
+    zero) in the reference's stacked layout (``_build_random_params``),
+    drawn on ``device`` (the card unless the caller names one) from a
+    ``torch.Generator`` seeded with ``seed``. Values differ from the
+    reference's init (another generator); the leaves are the same: the
+    layernorm biases, per-head q/k norms, sandwich norms, per-layer windows,
+    Gemma-3's ``use_local_rope`` switches, GPT-2's fc1/fc2 MLP and learned
+    positions where the config has them (no attention biases: a checkpoint
+    brings those). A MoE config gets an f32 router ``[L, H, E]`` and expert
     stacks ``[L, E, H, I]`` / ``[L, E, I, H]`` in place of the dense MLP,
     drawn one expert matrix at a time (an f32 temporary of one matrix, not
     of the whole stack)."""
@@ -904,22 +1042,46 @@ def init_params(cfg: TransformerConfig, seed: int = 0,
     def ones(*shape):
         return torch.ones(shape, dtype=_F32, device=device)
 
+    def zeros(*shape, dt=_F32):
+        return torch.zeros(shape, dtype=dt, device=device)
+
     nl, e, inter = cfg.num_layers, cfg.hidden_size, cfg.intermediate_size
     hq, hk, d = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
     lp = {"w_q": w(nl, e, hq * d), "w_k": w(nl, e, hk * d),
           "w_v": w(nl, e, hk * d), "w_o": w(nl, hq * d, e),
           "attn_norm_w": ones(nl, e), "mlp_norm_w": ones(nl, e)}
+    if cfg.norm_type == "layernorm":
+        lp.update(attn_norm_b=zeros(nl, e), mlp_norm_b=zeros(nl, e))
+    if cfg.use_qk_norm:
+        lp.update(w_q_norm=ones(nl, d), w_k_norm=ones(nl, d))
+    if cfg.use_post_norms:
+        lp.update(post_attn_norm_w=ones(nl, e), post_mlp_norm_w=ones(nl, e))
+    wins = cfg.layer_windows()
+    if wins is not None:
+        lp["attn_window"] = torch.tensor(wins, dtype=torch.int32, device=device)
+    if cfg.rope_local_theta is not None and cfg.layer_types is not None:
+        lp["use_local_rope"] = torch.tensor(
+            [1 if t == "sliding_attention" else 0 for t in cfg.layer_types],
+            dtype=torch.int32, device=device)
     if cfg.is_moe:
         ne, mi = cfg.num_experts, cfg.moe_intermediate_size
         lp["w_router"] = w(nl, e, ne, dt=_F32)
         lp["w_experts_gate"] = stack(nl, ne, e, mi)
         lp["w_experts_up"] = stack(nl, ne, e, mi)
         lp["w_experts_down"] = stack(nl, ne, mi, e)
-    else:
+    elif cfg.activation in ("silu", "gelu_tanh"):
         lp.update(w_gate=w(nl, e, inter), w_up=w(nl, e, inter), w_down=w(nl, inter, e))
-    return {"embed": w(cfg.vocab_size, e), "final_norm_w": ones(e),
-            "lm_head": None if cfg.tie_word_embeddings else w(e, cfg.vocab_size),
-            "layers": lp}
+    else:
+        lp.update(w_fc1=w(nl, e, inter), w_fc2=w(nl, inter, e),
+                  b_fc1=zeros(nl, inter, dt=dtype), b_fc2=zeros(nl, e, dt=dtype))
+    params = {"embed": w(cfg.vocab_size, e), "final_norm_w": ones(e),
+              "lm_head": None if cfg.tie_word_embeddings else w(e, cfg.vocab_size),
+              "layers": lp}
+    if cfg.norm_type == "layernorm":
+        params["final_norm_b"] = zeros(e)
+    if cfg.use_position_embed:
+        params["pos_embed"] = w(cfg.max_position_embeddings, e)
+    return params
 
 
 def slice_layers(params: dict, n_layers: int) -> dict:
@@ -1096,8 +1258,8 @@ class CausalTransformerModel(nn.Module):
     def params(self, params: dict) -> None:
         """Take a new param tree, as the reference's attribute does
         (``model.params = quantize_model_params(model.params, "int4")``):
-        its leaves replace every registered one (the rope tables are made
-        when the tree has none). The captured programs bind the old weights
+        its leaves replace every registered one (the rope tables, and
+        Gemma-3's local ones, are made when the tree has none). The captured programs bind the old weights
         by address, so they are released with the decode and prefill
         buffers; the old tensors are never written. The caches and the
         position stay."""
@@ -1107,6 +1269,11 @@ class CausalTransformerModel(nn.Module):
         if cfg.use_rope and "rope_cos" not in params:
             params["rope_cos"], params["rope_sin"] = rope_tables(
                 cfg.max_position_embeddings, cfg.head_dim, cfg.rope_theta,
+                device=params["embed"].device)
+        if (cfg.use_rope and cfg.rope_local_theta is not None
+                and "rope_cos_local" not in params):
+            params["rope_cos_local"], params["rope_sin_local"] = rope_tables(
+                cfg.max_position_embeddings, cfg.head_dim, cfg.rope_local_theta,
                 device=params["embed"].device)
         self._drop_executables()
         for _, name in self._paths:

@@ -28,9 +28,9 @@ import torch
 from ..kernels.paged_attention import paged_attention
 from ..ops.embedding import kv_leaf, kv_quant_rows, to_kv_dtype
 from .config import TransformerConfig
-from .model import (_attn_in, _embed_tokens, _last_row, _layer_window, _logits,
-                    _norm, _prefill_attn, _project_qkv, _residual_tail, _rope,
-                    _rope_rows_for, _slice_layer_params, sample_logits)
+from .model import (_attn_in, _embed_tokens, _final_norm, _last_row, _layer_window,
+                    _logits, _prefill_attn, _project_qkv, _residual_tail, _rope_qk,
+                    _rope_rows_for, _slice_layer_params, _take_rows, sample_logits)
 
 
 def _pool_layer(pool, layer: int):
@@ -71,23 +71,27 @@ def paged_decode_step_fn(cfg: TransformerConfig, params: dict, k_pool, v_pool,
     Pools ``[L, NB, Hk, BS, D]`` (or int8 dicts) are updated in place;
     tables [B, MB] int32, tokens [B], poss [B] device tensors, every poss
     below the table capacity (the chunk clamps it). Returns f32 logits
-    [B, V]. Attention is one ``paged_attention`` launch per layer."""
+    [B, V]. Attention is one ``paged_attention`` launch per layer.
+    Learned positions (GPT-2) are added as the dense batch-rows step adds
+    them; the reference's paged step leaves them out."""
     bs = kv_leaf(k_pool).shape[3]
     b = tokens.shape[0]
     h = _embed_tokens(cfg, params, tokens)                   # [B, E]
+    if cfg.use_position_embed:
+        h = h + _take_rows(params["pos_embed"], poss)
     pl = poss.to(torch.long)
     blocks = tables[torch.arange(b, device=tables.device), pl // bs]
     offs = pl % bs
-    # per-row rope tables (the reference's _rope_rows; its LongRoPE, local
-    # and NoPE tables raise in check_supported)
-    c, sn = _rope_rows_for(params, poss, 1) if cfg.use_rope else (None, None)
+    # per-row rope tables, the local ones on Gemma-3's sliding layers (the
+    # reference's _rope_rows; its LongRoPE and NoPE tables raise in
+    # check_supported)
+    rows = _rope_rows_for(params, poss, 1) if cfg.use_rope else None
     lens = poss + 1
     for i in range(kv_leaf(k_pool).shape[0]):
         lp = _slice_layer_params(params["layers"], i)
         x = _attn_in(cfg, lp, h)
         q, k, v = _project_qkv(cfg, lp, x)                   # [B, H*, D]
-        if cfg.use_rope:
-            q, k = _rope(cfg, q, c, sn), _rope(cfg, k, c, sn)
+        q, k = _rope_qk(cfg, i, rows, q, k)
         _paged_write_rows(k_pool, k, i, blocks, offs)
         _paged_write_rows(v_pool, v, i, blocks, offs)
         attn = paged_attention(q, _pool_layer(k_pool, i), _pool_layer(v_pool, i),
@@ -95,8 +99,7 @@ def paged_decode_step_fn(cfg: TransformerConfig, params: dict, k_pool, v_pool,
                                softcap=cfg.attn_logit_softcap,
                                window=_layer_window(cfg, i))     # [B, Hq, D]
         h = _residual_tail(cfg, lp, h, attn.reshape(b, -1), b)
-    h = _norm(cfg, h, params["final_norm_w"])
-    return _logits(cfg, params, h)
+    return _logits(cfg, params, _final_norm(cfg, params, h))
 
 
 def put_at(t: torch.Tensor, at, value) -> None:
@@ -145,7 +148,9 @@ def paged_prefill_fn(cfg: TransformerConfig, params: dict, k_pool, v_pool,
     s = tokens.shape[0]
     bs = kv_leaf(k_pool).shape[3]
     h = _embed_tokens(cfg, params, tokens)
-    rc, rs = _rope_rows_for(params, 0, s) if cfg.use_rope else (None, None)
+    if cfg.use_position_embed:
+        h = h + params["pos_embed"][:s]
+    rows = _rope_rows_for(params, 0, s) if cfg.use_rope else None
     idx = torch.arange(s, device=tokens.device)
     valid = idx < true_len
     blocks = torch.where(valid, table[idx // bs].to(torch.long),
@@ -155,15 +160,13 @@ def paged_prefill_fn(cfg: TransformerConfig, params: dict, k_pool, v_pool,
         lp = _slice_layer_params(params["layers"], i)
         x = _attn_in(cfg, lp, h)
         q, k, v = _project_qkv(cfg, lp, x)
-        if cfg.use_rope:
-            q, k = _rope(cfg, q, rc, rs), _rope(cfg, k, rc, rs)
+        q, k = _rope_qk(cfg, i, rows, q, k)
         _paged_write_rows(k_pool, k, i, blocks, offs, valid)
         _paged_write_rows(v_pool, v, i, blocks, offs, valid)
         attn = _prefill_attn(q, k, v, true_len, cfg.attn_scale,
                              cfg.attn_logit_softcap, _layer_window(cfg, i))
         h = _residual_tail(cfg, lp, h, attn, s)
-    h = _norm(cfg, h, params["final_norm_w"])
-    return _logits(cfg, params, _last_row(h, true_len))
+    return _logits(cfg, params, _last_row(_final_norm(cfg, params, h), true_len))
 
 
 def paged_prefill_pl_fn(cfg: TransformerConfig, temperature: float,

@@ -1951,3 +1951,130 @@ def test_streaming_on_the_card_matches_the_cpu(dev, tmp_path, strategy):
                              dict(ctx.loader.stats), list(ctx.loader._device)))
         runs.append((seen, dict(ctx.loader.stats)))
     assert runs[0] == runs[1]
+
+
+# ---------------------------------------------------------------------------
+# The new families' attention shapes: head_dim 256 (Gemma-2-2B: 8/4 heads,
+# softcap 50, windows; Gemma-3-1B: 4/1 heads, window 512 or global), G 1
+# (GPT-2, 12/12 heads) and G 7 (Qwen2.5-0.5B, 14/2 heads) at D 64
+# ---------------------------------------------------------------------------
+
+#: (Hq, Hk, D, softcap, window) of the rows 5/6 and 17 checks
+FAMILY_ATTN = {"gemma2": (8, 4, 256, 50.0, 300), "gemma3": (4, 1, 256, None, 512),
+               "gemma3 global": (4, 1, 256, None, None), "gpt2 G1": (12, 12, 64, None, None),
+               "qwen2.5 G7": (14, 2, 64, None, None)}
+
+
+@pytest.mark.parametrize("storage", list(STORAGES))
+@pytest.mark.parametrize("shape", list(FAMILY_ATTN))
+def test_family_kv_write_attention(dev, shape, storage):
+    """Rows 5 and 6 at the families' shapes: the fused write's pools
+    bitwise kv_rows_write_plain's, its output bitwise kv_rows_write then
+    batch_decode_attention and within ATTN_TOL of the plain version, at
+    positions before, inside and past MAX (window 300 starts inside a
+    split)."""
+    hq, hk, d, softcap, window = FAMILY_ATTN[shape]
+    (kp, vp), kn, vn, q, poss = _krw_inputs(dev, storage, 81, b=8, nl=2, hk=hk, hq=hq, d=d)
+    for pv in poss:
+        lens = pv + 1
+        k1, v1, k2, v2, k3, v3 = (_pool_copy(p) for p in (kp, vp) * 3)
+        before = dict(LAUNCHES)
+        out = kv_write_attention(q, k1, v1, kn, vn, 1, pv, lens, scale=d ** -0.5,
+                                 softcap=softcap, window=window)
+        assert LAUNCHES["batch_decode_attention"] == before["batch_decode_attention"] + 1
+        assert LAUNCHES["kv_rows_write_fused"] == before["kv_rows_write_fused"] + 1
+        kv_rows_write_plain(k2, v2, kn, vn, 1, pv)
+        assert _pools_equal(k1, k2) and _pools_equal(v1, v2), pv.tolist()
+        kv_rows_write(k3, v3, kn, vn, 1, pv)
+        ref = batch_decode_attention(q, k3, v3, 1, lens, d ** -0.5, softcap, window)
+        assert torch.equal(out, ref), pv.tolist()
+        plain = batch_decode_attention_plain(q, k2, v2, 1, lens, d ** -0.5, softcap, window)
+        assert _storage_close(out, plain, STORAGES[storage][1]), \
+            (out.float() - plain.float()).abs().max().item()
+
+
+@pytest.mark.parametrize("storage", list(STORAGES))
+@pytest.mark.parametrize("shape", list(FAMILY_ATTN))
+def test_family_paged_attention(dev, shape, storage):
+    """Row 17 at the families' shapes over shuffled blocks, every storage,
+    within ATTN_TOL of the plain version; a second launch bitwise."""
+    hq, hk, d, softcap, window = FAMILY_ATTN[shape]
+    q, kp, vp, tables, lens = _paged_inputs(dev, 1024, 9, hq=hq, hk=hk, d=d)
+    dtype, qdt = STORAGES[storage]
+    kp, vp = (_store(p.float().transpose(1, 2), dtype, 2) for p in (kp, vp))
+    kp, vp = ({"q": p["q"].transpose(1, 2).contiguous(), "s": p["s"]} if isinstance(p, dict)
+              else p.transpose(1, 2).contiguous() for p in (kp, vp))
+    q = q.to(qdt)
+    before = LAUNCHES["paged_attention"]
+    out = paged_attention(q, kp, vp, tables, lens, d ** -0.5, softcap, window)
+    assert LAUNCHES["paged_attention"] == before + 1
+    ref = paged_attention_plain(q, kp, vp, tables, lens, d ** -0.5, softcap, window)
+    # int8 blocks: the plain version's bf16 gather (test_paged_attention_every_storage)
+    tol_dt = torch.bfloat16 if dtype == torch.int8 else qdt
+    assert _storage_close(out, ref, tol_dt), (out.float() - ref.float()).abs().max().item()
+    assert torch.equal(out, paged_attention(q, kp, vp, tables, lens, d ** -0.5, softcap,
+                                            window))
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("s", [1, 63, 65, 300, 2048])
+@pytest.mark.parametrize("hq,hk,d", [(8, 4, 256), (4, 1, 256), (12, 12, 64), (14, 2, 64)])
+def test_family_flash_attention(dev, hq, hk, d, s, causal, dtype):
+    """Row 14 at the families' heads: D 256 on the 64-key tile, G 1 and G
+    7; within ATTN_TOL of the plain version, a second launch bitwise."""
+    g = _gen(dev, s * 3 + hq + d)
+    q = torch.randn((s, hq, d), generator=g, device=dev).to(dtype)
+    k = torch.randn((s, hk, d), generator=g, device=dev).to(dtype)
+    v = torch.randn((s, hk, d), generator=g, device=dev).to(dtype)
+    before = LAUNCHES["flash_attention"]
+    out = flash_attention(q, k, v, causal=causal)
+    assert LAUNCHES["flash_attention"] == before + 1
+    ref = flash_attention_plain(q, k, v, causal=causal)
+    assert torch.isfinite(out.float()).all()
+    assert _attn_close(out, ref), (out.float() - ref.float()).abs().max().item()
+    assert torch.equal(out, flash_attention(q, k, v, causal=causal))
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("ctx", [1, 333, 4100, 9000])
+@pytest.mark.parametrize("hq,hk,d", [(8, 4, 256), (4, 1, 256), (16, 1, 256), (12, 12, 64),
+                                     (14, 2, 64)])
+def test_family_flash_decode(dev, hq, hk, d, ctx, dtype):
+    """Row 15 at the families' heads (G 16 at D 256: both row halves of
+    the tensor-core tile), contexts of one split to past MAX, an int and a
+    device context alike."""
+    g = _gen(dev, hq + hk + d + ctx)
+    q = torch.randn((1, hq, d), generator=g, device=dev).to(dtype)
+    kc = torch.randn((8192, hk, d), generator=g, device=dev).to(dtype)
+    vc = torch.randn((8192, hk, d), generator=g, device=dev).to(dtype)
+    before = LAUNCHES["flash_decode"]
+    out = flash_decode(q, kc, vc, ctx)
+    assert LAUNCHES["flash_decode"] == before + 1
+    assert _attn_close(out, flash_decode_plain(q, kc, vc, ctx)), \
+        (out.float() - flash_decode_plain(q, kc, vc, ctx).float()).abs().max().item()
+    ctx_t = torch.tensor([ctx], dtype=torch.int32, device=dev)
+    assert torch.equal(out, flash_decode(q, kc, vc, ctx_t))
+
+
+def test_family_flash_decode_graph_replays_device_context(dev):
+    """Gemma-3-1B's head shape at D 256: one graph captured once serves
+    every context, bitwise the eager call."""
+    g = _gen(dev, 256)
+    q = torch.randn((1, 4, 256), generator=g, device=dev).to(torch.bfloat16)
+    kc = torch.randn((2048, 1, 256), generator=g, device=dev).to(torch.bfloat16)
+    vc = torch.randn((2048, 1, 256), generator=g, device=dev).to(torch.bfloat16)
+    ctx = torch.tensor([5], dtype=torch.int32, device=dev)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        flash_decode(q, kc, vc, ctx)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        static = flash_decode(q, kc, vc, ctx)
+    for v in (1, 64, 65, 777, 2048, 3000, -3):
+        ctx.fill_(v)
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(static, flash_decode(q, kc, vc, v)), v

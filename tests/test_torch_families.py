@@ -1,0 +1,418 @@
+"""The Qwen2, Qwen3, Qwen3-MoE, GPT-2, Gemma-2 and Gemma-3 families (and
+Mistral's and Qwen2's sliding-window configs, and StarCoder2 and Seed-OSS,
+whose features are all among theirs) in the port against the JAX package
+and ``transformers`` on the CPU.
+
+Every checkpoint is a tiny random ``transformers`` model written by
+``save_pretrained`` (the configs of ``tests/test_llm_families.py``), its
+matrices scaled up fourfold so that greedy streams vary. The port and the
+JAX package load the same files at f32:
+
+- logits within rtol 1e-4, atol 1e-4 of the JAX package's and of
+  ``transformers``', six greedy tokens equal to both, and the leaves each
+  family must load;
+- int4 leaves of ``quantize_model_params`` bitwise the reference's;
+- the reference's ``init_params`` for each family config, through
+  ``params_from_jax``, gives the reference's forward, and the port's
+  ``init_params`` builds the same leaves;
+- ``check_supported`` still refuses the families that wait for rope
+  variants and block forms (Cohere, OLMo-2, GLM-4, Phi-3, SmolLM3), by
+  name, and the fused decode step refuses every family here;
+- the four attention kernels take the plain version at head_dim 256 on
+  CPU tensors, and learned positions and the embedding scale keep the
+  reference's bits.
+
+Cached steps and both engines: ``tests/test_torch_families_serving.py``.
+"""
+
+import dataclasses
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import safetensors
+import safetensors.numpy as stnp
+import torch
+import transformers
+
+import pygpukit_tpu.llm as rl
+from pygpukit_tpu.llm import config as ref_config
+from pygpukit_tpu.llm import model as ref_model
+from pygpukit_tpu.llm import quant as ref_quant
+import pygpukit_tpu_torch.llm as pl
+from pygpukit_tpu_torch import kernels
+from pygpukit_tpu_torch.kernels import _build
+from pygpukit_tpu_torch.llm import config as port_config
+from pygpukit_tpu_torch.llm import model as port_model
+
+torch.set_num_threads(2)
+TOL = dict(rtol=1e-4, atol=1e-4)
+#: HF config class, its arguments, the spec the loader detects, the prompt
+FAMILIES = {
+    "qwen2": ("Qwen2Config", dict(
+        vocab_size=96, hidden_size=32, intermediate_size=64, num_hidden_layers=2,
+        num_attention_heads=4, num_key_value_heads=2, max_position_embeddings=64,
+        tie_word_embeddings=False), "qwen2", (1, 7, 23)),
+    "qwen2_sliding": ("Qwen2Config", dict(
+        vocab_size=96, hidden_size=32, intermediate_size=64, num_hidden_layers=4,
+        num_attention_heads=4, num_key_value_heads=2, use_sliding_window=True,
+        sliding_window=8, max_window_layers=2, max_position_embeddings=64,
+        tie_word_embeddings=False, attn_implementation="eager"), "qwen2",
+        tuple(range(1, 14))),
+    "qwen3": ("Qwen3Config", dict(
+        vocab_size=96, hidden_size=32, intermediate_size=64, num_hidden_layers=2,
+        num_attention_heads=4, num_key_value_heads=2, head_dim=8,
+        max_position_embeddings=64, tie_word_embeddings=False), "qwen3", (1, 7, 23)),
+    "qwen3_moe": ("Qwen3MoeConfig", dict(
+        vocab_size=96, hidden_size=32, intermediate_size=64, num_hidden_layers=2,
+        num_attention_heads=4, num_key_value_heads=2, head_dim=8, num_experts=4,
+        num_experts_per_tok=2, moe_intermediate_size=32, decoder_sparse_step=1,
+        norm_topk_prob=True, max_position_embeddings=64, tie_word_embeddings=False),
+        "qwen3_moe", (1, 7, 23)),
+    "gpt2": ("GPT2Config", dict(vocab_size=96, n_positions=64, n_embd=32, n_layer=2,
+                                n_head=4), "gpt2", (5, 23, 50, 7)),
+    "gemma2": ("Gemma2Config", dict(
+        vocab_size=96, hidden_size=32, intermediate_size=64, num_hidden_layers=4,
+        num_attention_heads=4, num_key_value_heads=2, head_dim=8,
+        query_pre_attn_scalar=16, sliding_window=8, attn_logit_softcapping=50.0,
+        final_logit_softcapping=30.0, max_position_embeddings=64,
+        attn_implementation="eager"), "gemma2", tuple(range(1, 13))),
+    "gemma3": ("Gemma3TextConfig", dict(
+        vocab_size=96, hidden_size=32, intermediate_size=64, num_hidden_layers=6,
+        num_attention_heads=4, num_key_value_heads=2, head_dim=8,
+        query_pre_attn_scalar=16, sliding_window=8, rope_theta=1000000.0,
+        rope_local_base_freq=10000.0, max_position_embeddings=64,
+        attn_implementation="eager"), "gemma3", tuple(range(1, 13))),
+    # two families whose features are all among the above: GPT-2-style
+    # blocks under rope (StarCoder2), biases on all four projections
+    # (Seed-OSS)
+    "starcoder2": ("Starcoder2Config", dict(
+        vocab_size=96, hidden_size=32, intermediate_size=64, num_hidden_layers=2,
+        num_attention_heads=4, num_key_value_heads=2, max_position_embeddings=64,
+        use_bias=True), "starcoder2", (1, 7, 23)),
+    "seed_oss": ("SeedOssConfig", dict(
+        vocab_size=96, hidden_size=32, intermediate_size=64, num_hidden_layers=2,
+        num_attention_heads=4, num_key_value_heads=2, head_dim=8, attention_bias=True,
+        attention_out_bias=True, max_position_embeddings=64, tie_word_embeddings=False,
+        pad_token_id=0), "seed_oss", (1, 7, 23)),
+    "mistral_sliding": ("MistralConfig", dict(
+        vocab_size=96, hidden_size=32, intermediate_size=64, num_hidden_layers=2,
+        num_attention_heads=4, num_key_value_heads=2, sliding_window=8,
+        max_position_embeddings=64, tie_word_embeddings=False,
+        attn_implementation="eager"), "llama", tuple(range(1, 14))),
+}
+#: leaves each family's loaded (fused) tree must hold, and the values of
+#: the per-layer integer leaves
+LEAVES = {
+    "qwen2": dict(layers={"b_qkv"}),
+    "qwen2_sliding": dict(layers={"b_qkv"}, attn_window=[0, 0, 8, 8]),
+    "qwen3": dict(layers={"w_q_norm", "w_k_norm"}),
+    "qwen3_moe": dict(layers={"w_q_norm", "w_k_norm", "w_experts_gate", "w_router"}),
+    "gpt2": dict(layers={"b_qkv", "b_o", "w_fc1", "w_fc2", "b_fc1", "b_fc2", "attn_norm_b",
+                         "mlp_norm_b"}, top={"pos_embed", "final_norm_b"}),
+    "gemma2": dict(layers={"post_attn_norm_w", "post_mlp_norm_w"}, attn_window=[8, 0, 8, 0]),
+    "gemma3": dict(layers={"w_q_norm", "post_mlp_norm_w"}, top={"rope_cos_local"},
+                   attn_window=[8] * 5 + [0], use_local_rope=[1, 1, 1, 1, 1, 0]),
+    "starcoder2": dict(layers={"b_fc1", "b_fc2", "attn_norm_b", "b_qkv", "b_o"},
+                       top={"final_norm_b"}),
+    "seed_oss": dict(layers={"b_qkv", "b_o"}),
+    "mistral_sliding": dict(layers=set(), attn_window=[8, 8]),
+}
+#: families that wait for rope variants or block forms, and a feature
+#: ``check_supported`` names for each
+REFUSED = {
+    "cohere": ("CohereConfig", dict(vocab_size=96, hidden_size=32, intermediate_size=64,
+                                    num_hidden_layers=2, num_attention_heads=4,
+                                    num_key_value_heads=2), "parallel blocks"),
+    "olmo2": ("Olmo2Config", dict(vocab_size=96, hidden_size=32, intermediate_size=64,
+                                  num_hidden_layers=2, num_attention_heads=4,
+                                  num_key_value_heads=2), "post-norm-only blocks"),
+    "glm4": ("Glm4Config", dict(vocab_size=96, hidden_size=32, intermediate_size=64,
+                                num_hidden_layers=2, num_attention_heads=4,
+                                num_key_value_heads=2, head_dim=8), "partial rotary"),
+    "phi3": ("Phi3Config", dict(vocab_size=96, hidden_size=32, intermediate_size=64,
+                                num_hidden_layers=2, num_attention_heads=4,
+                                num_key_value_heads=2, max_position_embeddings=128,
+                                original_max_position_embeddings=64,
+                                rope_scaling={"type": "longrope", "short_factor": [1.0] * 4,
+                                              "long_factor": [2.0] * 4}), "scaled rope"),
+    "smollm3": ("SmolLM3Config", dict(vocab_size=96, hidden_size=32, intermediate_size=64,
+                                      num_hidden_layers=4, num_attention_heads=4,
+                                      num_key_value_heads=2, no_rope_layers=[1, 1, 1, 0]),
+                "NoPE layers"),
+}
+
+
+def _hf_config(cls_name: str, kw: dict):
+    return getattr(transformers, cls_name)(**kw)
+
+
+def _strip_gpt2_prefix(d) -> None:
+    """GPT2LMHeadModel saves its names under ``transformer.``; the spec
+    reads the raw GPT-2 names (as the reference's GPT-2 tests re-save)."""
+    f = d / "model.safetensors"
+    with safetensors.safe_open(str(f), framework="np") as sf:
+        data = {n.replace("transformer.", ""): sf.get_tensor(n) for n in sf.keys()}
+    stnp.save_file(data, str(f))
+
+
+def save_family(tmp_path_factory, fam: str, seed: int = 0):
+    """(checkpoint dir, the transformers model) of a tiny family model,
+    every matrix scaled fourfold."""
+    cls_name, kw, _, _ = FAMILIES[fam]
+    cfg = _hf_config(cls_name, kw)
+    torch.manual_seed(seed)
+    m = transformers.AutoModelForCausalLM.from_config(cfg).eval()
+    with torch.no_grad():
+        for p in m.parameters():
+            if p.dim() >= 2:
+                p.mul_(4.0)
+    d = tmp_path_factory.mktemp(fam)
+    m.save_pretrained(d, safe_serialization=True)
+    if fam == "gpt2":
+        _strip_gpt2_prefix(d)
+    return d, m
+
+
+@pytest.fixture(scope="module", params=list(FAMILIES))
+def family(request, tmp_path_factory):
+    """(family, checkpoint dir, transformers model, JAX model, port model)."""
+    fam = request.param
+    d, m = save_family(tmp_path_factory, fam, seed=list(FAMILIES).index(fam))
+    jm = rl.load_model_from_safetensors(d, dtype="float32")
+    tm = pl.load_model_from_safetensors(d, dtype="float32", device="cpu")
+    return fam, d, m, jm, tm
+
+
+def test_logits_and_greedy_tokens_match_jax_and_transformers(family):
+    fam, _, m, jm, tm = family
+    prompt = list(FAMILIES[fam][3])
+    ours = tm.get_logits(prompt)
+    np.testing.assert_allclose(ours, np.asarray(jm.get_logits(prompt)), **TOL)
+    with torch.no_grad():
+        hf = m(torch.tensor([prompt])).logits[0].numpy()
+    np.testing.assert_allclose(ours, hf, **TOL)
+    got = tm.generate(prompt, max_new_tokens=6)
+    want = m.generate(torch.tensor([prompt]), max_new_tokens=6, do_sample=False,
+                      pad_token_id=0)[0, len(prompt):].tolist()
+    assert got == want == list(jm.generate(prompt, max_new_tokens=6))
+
+
+def test_the_family_loads_its_leaves(family):
+    fam, d, _, jm, tm = family
+    st = pl.load_safetensors(d)
+    assert pl.detect_model_spec(st.keys()).name == FAMILIES[fam][2]
+    st.close()
+    want = LEAVES[fam]
+    layers, top = tm.params["layers"], tm.params
+    assert want["layers"] <= set(layers)
+    assert want.get("top", set()) <= set(top)
+    for leaf in ("attn_window", "use_local_rope"):
+        if leaf in want:
+            assert layers[leaf].tolist() == want[leaf]
+        else:
+            assert leaf not in layers
+    # the reference's loaded tree, leaf for leaf
+    assert set(layers) == set(jm.params["layers"])
+    assert set(top) == set(jm.params)
+
+
+def test_int4_leaves_are_the_references_bitwise(family):
+    fam, _, _, jm, tm = family
+    jq = ref_quant.quantize_model_params(jm.params, "int4")
+    tq = pl.quantize_model_params(tm.params, "int4")
+    n = 0
+    for name, leaf in tq["layers"].items():
+        if isinstance(leaf, dict) and "q_packed" in leaf:
+            for k in ("q_packed", "scale"):
+                np.testing.assert_array_equal(leaf[k].numpy(), np.asarray(jq["layers"][name][k]))
+            n += 1
+    assert n >= 2
+
+
+def _ref_cfg(fam: str):
+    cls_name, kw, _, _ = FAMILIES[fam]
+    return _hf_config(cls_name, kw).to_dict()
+
+
+@pytest.mark.parametrize("fam", list(FAMILIES))
+def test_reference_init_params_give_the_reference_forward(fam):
+    hf = _ref_cfg(fam)
+    jcfg = ref_config.TransformerConfig.from_hf_config(hf)
+    tcfg = port_config.TransformerConfig.from_hf_config(hf)
+    assert dataclasses.asdict(jcfg) == dataclasses.asdict(tcfg)
+    params = jax.tree.map(lambda a: a * 4.0 if a.ndim >= 2 and a.dtype == jnp.float32 else a,
+                          ref_model.init_params(jcfg, 3, jnp.float32))
+    jm = rl.CausalTransformerModel(jcfg, params, dtype=jnp.float32)
+    tm = pl.CausalTransformerModel(tcfg, pl.params_from_jax(jax.tree.map(np.asarray,
+                                                                         jm.params)),
+                                   dtype=torch.float32)
+    ids = [3, 17, 42, 9, 60, 2, 11, 5, 30, 1, 8, 70]
+    np.testing.assert_allclose(tm.get_logits(ids), np.asarray(jm.get_logits(ids)), **TOL)
+    # the port's own init builds the reference's leaves, shapes and dtypes
+    mine = port_model.init_params(tcfg, 3, torch.float32, device="cpu")
+    ref = ref_model.init_params(jcfg, 3, jnp.float32)
+
+    def layout(tree):
+        return {k: (layout(v) if isinstance(v, dict) else
+                    None if v is None else (tuple(v.shape), str(v.dtype).split(".")[-1]))
+                for k, v in tree.items()}
+    assert layout(mine) == layout(ref)
+
+
+@pytest.mark.parametrize("fam", list(REFUSED))
+def test_families_waiting_for_rope_variants_are_refused_by_name(fam):
+    cls_name, kw, feature = REFUSED[fam]
+    cfg = port_config.TransformerConfig.from_hf_config(_hf_config(cls_name, kw).to_dict())
+    with pytest.raises(NotImplementedError, match=feature):
+        port_model.check_supported(cfg)
+
+
+@pytest.mark.parametrize("cfg_kw, feature", [
+    (dict(residual_multiplier=0.5), "residual multiplier"),
+    (dict(logit_scale=0.0625), "logit scale"),
+    (dict(use_qk_norm=True, qk_norm_wide=True), "wide qk norm"),
+    (dict(activation="relu2"), "relu2"),
+    (dict(activation="xielu"), "xielu"),
+    (dict(rope_interleaved=True), "interleaved rope"),
+])
+def test_other_unported_features_are_refused_by_name(cfg_kw, feature):
+    cfg = port_config.TransformerConfig(vocab_size=96, hidden_size=32, num_layers=2,
+                                        num_heads=4, **cfg_kw)
+    with pytest.raises(NotImplementedError, match=feature):
+        port_model.check_supported(cfg)
+
+
+def test_an_lm_head_bias_is_refused():
+    cfg = port_config.TransformerConfig(vocab_size=96, hidden_size=32, num_layers=2,
+                                        num_heads=4, intermediate_size=64)
+    params = port_model.init_params(cfg, 0, torch.float32, device="cpu")
+    with pytest.raises(NotImplementedError, match="lm_head_b"):
+        pl.CausalTransformerModel(cfg, dict(params, lm_head_b=torch.zeros(96)),
+                                  dtype=torch.float32)
+
+
+@pytest.mark.parametrize("fam", list(FAMILIES))
+def test_fused_decode_refuses_every_family(fam, monkeypatch):
+    """As the reference does (its ``fused_decode_eligible``): on the
+    port's own init (separate dense bf16 leaves) and on fused leaves."""
+    monkeypatch.setenv("PYGPUKIT_DECODE", "fused")
+    hf = _ref_cfg(fam)
+    tcfg = port_config.TransformerConfig.from_hf_config(hf)
+    jcfg = ref_config.TransformerConfig.from_hf_config(hf)
+    params = port_model.init_params(tcfg, 0, torch.bfloat16, device="cpu")
+    if fam.startswith("qwen2") or fam == "seed_oss":     # a checkpoint's biases
+        for n, w in (("b_q", "w_q"), ("b_k", "w_k"), ("b_v", "w_v")):
+            params["layers"][n] = torch.zeros(params["layers"][w].shape[::2],
+                                              dtype=torch.bfloat16)
+    assert not port_model.fused_decode_eligible(tcfg, params, 64)
+    assert not port_model.use_fused_decode(tcfg, params, 64)
+    ref_params = ref_model.init_params(jcfg, 0, jnp.bfloat16)
+    if fam.startswith("qwen2") or fam == "seed_oss":
+        ref_params["layers"]["b_q"] = jnp.zeros((jcfg.num_layers, jcfg.num_heads * 8))
+    assert not ref_model.fused_decode_eligible(jcfg, ref_params, 64)
+    model = pl.CausalTransformerModel(tcfg, params)
+    model.init_fixed_cache(64)
+    assert "w_qkv_cat" not in model.params["layers"]
+
+
+def test_qwen3_projection_width_is_not_hidden():
+    """Qwen3-0.6B's q projection is 16 x 128 = 2048 wide at hidden 1024:
+    the fused kernel's check refuses it even without the q/k norm."""
+    from pygpukit_tpu_torch.kernels.fused_decode import supports
+    assert not supports(hidden=1024, intermediate=3072, n_heads=16, n_kv_heads=8,
+                        head_dim=128, max_seq=64, norm_type="rmsnorm", activation="silu",
+                        use_rope=True, has_bias=False, use_qk_norm=False, is_moe=False)
+
+
+# ---------------------------------------------------------------------------
+# head_dim 256 on CPU tensors: the plain versions
+# ---------------------------------------------------------------------------
+
+@pytest.fixture
+def no_launch(monkeypatch):
+    def refuse(*a, **k):
+        raise AssertionError("a CPU tensor reached a kernel launch")
+    monkeypatch.setattr(_build, "launch", refuse)
+    for mod in ("batch_decode_attention", "paged_attention", "flash_attention",
+                "kv_row_write"):
+        m = getattr(kernels, mod)
+        if hasattr(m, "launch"):
+            monkeypatch.setattr(m, "launch", refuse)
+
+
+def _bits(t: torch.Tensor) -> np.ndarray:
+    return t.contiguous().view(torch.int32 if t.element_size() == 4 else torch.int16).numpy()
+
+
+@pytest.mark.parametrize("hq, hk", [(8, 4), (4, 1)])
+def test_d256_on_the_cpu_takes_the_plain_versions(no_launch, hq, hk):
+    """Gemma-2-2B's and Gemma-3-1B's heads at D 256 on CPU tensors: each
+    wrapper returns its plain version's bits and launches nothing."""
+    g = torch.Generator().manual_seed(hq + hk)
+    d, b, n_layers, max_len = 256, 3, 2, 80
+
+    def rnd(*shape, dt=torch.bfloat16):
+        return torch.randn(*shape, generator=g).to(dt)
+    q = rnd(b, 1, hq, d)
+    kp, vp = rnd(b, n_layers, max_len, hk * d), rnd(b, n_layers, max_len, hk * d)
+    lens = torch.tensor([5, 70, 80], dtype=torch.int32)
+    for softcap, window in ((None, None), (50.0, 16)):
+        got = kernels.batch_decode_attention(q, kp, vp, 1, lens, 0.0625, softcap, window)
+        want = kernels.batch_decode_attention_plain(q, kp, vp, 1, lens, 0.0625, softcap,
+                                                    window)
+        np.testing.assert_array_equal(_bits(got), _bits(want))
+    nb, bs = 12, 16
+    kpool, vpool = rnd(nb, hk, bs, d), rnd(nb, hk, bs, d)
+    tables = torch.tensor([[1, 2, 3, 4, 5], [6, 7, 8, 9, 10], [11, 1, 2, 3, 4]],
+                          dtype=torch.int32)
+    got = kernels.paged_attention(q[:, 0], kpool, vpool, tables, lens, 0.0625, 50.0, 16)
+    want = kernels.paged_attention_plain(q[:, 0], kpool, vpool, tables, lens, 0.0625, 50.0,
+                                         16)
+    np.testing.assert_array_equal(_bits(got), _bits(want))
+    s = 40
+    qs, ks, vs = rnd(s, hq, d), rnd(s, hk, d), rnd(s, hk, d)
+    np.testing.assert_array_equal(_bits(kernels.flash_attention(qs, ks, vs)),
+                                  _bits(kernels.flash_attention_plain(qs, ks, vs)))
+    kc, vc = rnd(max_len, hk, d), rnd(max_len, hk, d)
+    np.testing.assert_array_equal(
+        _bits(kernels.flash_decode(qs[:1], kc, vc, 33)),
+        _bits(kernels.flash_decode_plain(qs[:1], kc, vc, 33)))
+
+
+# ---------------------------------------------------------------------------
+# Exact points
+# ---------------------------------------------------------------------------
+
+def test_learned_positions_follow_the_references_take_and_slice():
+    """Batch-rows step: ``jnp.take`` (negative rows count from the end,
+    rows outside [-n, n) NaN); single-stream window: ``dynamic_slice``
+    clamps the start."""
+    table = np.random.default_rng(0).standard_normal((16, 8)).astype(np.float32)
+    idx = np.array([0, 3, 15, 16, 40, -1, -16, -17], np.int32)
+    want = np.asarray(jnp.take(jnp.asarray(table), jnp.asarray(idx), axis=0))
+    got = port_model._take_rows(torch.from_numpy(table), torch.from_numpy(idx)).numpy()
+    np.testing.assert_array_equal(got, want)
+    for pos, t in ((0, 3), (13, 3), (14, 3), (40, 2)):
+        want = np.asarray(jax.lax.dynamic_slice_in_dim(jnp.asarray(table), pos, t, axis=0))
+        for p in (pos, torch.tensor([pos], dtype=torch.int32)):
+            got = port_model._table_rows(torch.from_numpy(table), p, t).numpy()
+            np.testing.assert_array_equal(got, want)
+
+
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+def test_embedding_scale_is_the_references_bitwise(dtype):
+    """Gemma's normalizer is rounded to the activation dtype before the
+    multiply, in both packages."""
+    hf = _ref_cfg("gemma2")
+    jcfg = ref_config.TransformerConfig.from_hf_config(hf)
+    tcfg = port_config.TransformerConfig.from_hf_config(hf)
+    emb = np.random.default_rng(1).standard_normal((96, 32)).astype(np.float32) * 3
+    ids = np.arange(0, 96, 5, dtype=np.int32)
+    jemb = jnp.asarray(emb, getattr(jnp, dtype))
+    want = np.asarray(ref_model._embed_tokens(jcfg, {"embed": jemb}, jnp.asarray(ids)))
+    temb = pl.params_from_jax(np.asarray(jemb))
+    got = port_model._embed_tokens(tcfg, {"embed": temb}, torch.from_numpy(ids))
+    np.testing.assert_array_equal(_bits(got), want.view(np.int16 if dtype == "bfloat16"
+                                                        else np.int32))

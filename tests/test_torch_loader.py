@@ -713,22 +713,32 @@ def test_infer_config_without_config_json_matches_the_reference(tmp_path_factory
 
 
 def test_a_qwen2_checkpoint_is_refused_at_load(tmp_path_factory):
-    cfg = transformers.Qwen2Config(vocab_size=96, hidden_size=32, intermediate_size=64,
+    """Qwen2 loads now (tests/test_torch_families.py); an OLMo-2 checkpoint,
+    whose post-norm-only blocks are not ported, is refused at load, fused
+    or not."""
+    cfg = transformers.Olmo2Config(vocab_size=96, hidden_size=32, intermediate_size=64,
                                    num_hidden_layers=2, num_attention_heads=4,
                                    num_key_value_heads=2, tie_word_embeddings=False)
-    d, _ = _save(tmp_path_factory, "qwen2", cfg, 0)
-    with pytest.raises(NotImplementedError, match="b_qkv"):
+    d, _ = _save(tmp_path_factory, "olmo2", cfg, 0)
+    with pytest.raises(NotImplementedError, match="post-norm-only blocks"):
         pl.load_model_from_safetensors(d, dtype="float32", device="cpu")
-    with pytest.raises(NotImplementedError, match="b_q"):
+    with pytest.raises(NotImplementedError, match="post-norm-only blocks"):
         pl.load_model_from_safetensors(d, dtype="float32", fuse=False, device="cpu")
 
 
-def test_a_qk_norm_checkpoint_is_refused_before_its_weights_load(tmp_path_factory):
-    cfg = transformers.Qwen3Config(vocab_size=96, hidden_size=32, intermediate_size=64,
-                                   num_hidden_layers=2, num_attention_heads=4,
-                                   num_key_value_heads=2, head_dim=8)
-    d, _ = _save(tmp_path_factory, "qwen3", cfg, 0)
-    with pytest.raises(NotImplementedError, match="qk norm"):
+def test_a_qk_norm_checkpoint_is_refused_before_its_weights_load(tmp_path_factory, monkeypatch):
+    """Qwen3's q/k norm loads now; a Cohere checkpoint (parallel blocks,
+    interleaved rope, a logit scale) is refused by its config, before any
+    weight is read."""
+    cfg = transformers.CohereConfig(vocab_size=96, hidden_size=32, intermediate_size=64,
+                                    num_hidden_layers=2, num_attention_heads=4,
+                                    num_key_value_heads=2)
+    d, _ = _save(tmp_path_factory, "cohere", cfg, 0)
+
+    def no_weights(*a, **k):
+        raise AssertionError("a weight was read")
+    monkeypatch.setattr(port_loader, "_build_params", no_weights)
+    with pytest.raises(NotImplementedError, match="parallel blocks"):
         pl.load_model_from_safetensors(d, dtype="float32", device="cpu")
 
 
@@ -784,7 +794,7 @@ def test_params_setter_keeps_the_reference_idiom_working():
     assert len(out) == 3
     with pytest.raises(NotImplementedError):
         model.params = dict(model.params, layers=dict(model.params["layers"],
-                                                      b_q=torch.zeros(2, 8)))
+                                                      use_rope_layer=torch.ones(2)))
 
 
 # ---------------------------------------------------------------------------

@@ -147,11 +147,12 @@ def test_unported_options_raise(f32_pair):
         with pytest.raises(NotImplementedError):
             ContinuousBatchingEngine(tm, max_batch=2, max_seq_len=64, **kw)
     with pytest.raises(NotImplementedError):
-        CausalTransformerModel(TransformerConfig(**dict(F32_CFG, use_qk_norm=True)),
+        CausalTransformerModel(TransformerConfig(**dict(F32_CFG, use_qk_norm=True,
+                                                        qk_norm_wide=True)),
                                tm.params)
     params = tm.params
-    params["layers"] = dict(params["layers"], b_o=params["layers"]["attn_norm_w"])
-    with pytest.raises(NotImplementedError, match="b_o"):
+    params["layers"] = dict(params["layers"], act_beta=params["layers"]["attn_norm_w"])
+    with pytest.raises(NotImplementedError, match="act_beta"):
         CausalTransformerModel(TransformerConfig(**F32_CFG), params)
 
 
