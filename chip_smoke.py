@@ -263,8 +263,28 @@ bf16 weight with no scale, torch._grouped_mm for gmm, bf16 out).
     and 2 prompts of about 4200 tokens, past its 4096 window) through
     phase 17's graphs_engine (streams and pools twice, every program's
     replay bitwise one eager call); the batch-8 step's device ms and the
-    head's share of it. Then the D-256 rows (d256_kernels) against their
-    plain versions, timed beside SDPA with their bounds.
+    head's share of it. Then the D-256 rows (attention_rows) against their
+    plain versions, timed beside SDPA with their bounds;
+20. the rope variants (rope_phase, ``--phases rope``): phase 19's run per
+    config of ROPE_FAMILIES, the config.json values of
+    meta-llama/Llama-3.2-1B (llama3 tables), google/gemma-3-4b-pt's text
+    config (linear 8 on the global layers), microsoft/Phi-3.5-mini-instruct
+    (longrope with stand-in factor lists, D 96), THUDM/GLM-4-9B-0414 at 8
+    of its 40 layers (interleaved partial rotary, sandwich norms, qkv
+    biases), baidu/ERNIE-4.5-0.3B-PT (interleaved pairs),
+    HuggingFaceTB/SmolLM3-3B (NoPE every fourth layer) and Qwen3-0.6B with
+    yarn (Gemma-3-4B and SmolLM3 at 12 layers, the rest at full depth but
+    GLM-4's); beyond it: Phi-3.5's engines at MAX 8192 with 2 prompts of
+    4150-4250 tokens among short ones (rows on both sides of its 4096
+    threshold in one batch; dense and paged streams identical) and its CPU
+    slice past a scaled-down threshold, Llama-3.2-1B's generate under
+    PYGPUKIT_DECODE=fused (row 18 on llama3 tables) against the unfused
+    step (FUSED_DEEP_TOL), Llama-3.2-1B and Phi-3.5-mini written as Hugging
+    Face checkpoints and loaded back (Phi-3's fused qkv_proj and
+    gate_up_proj split at load), Gemma-3-4B's 4 prompts of 1100-1300
+    tokens past its 1024 window; PoPE and ALiBi through the Array API on
+    the card against the CPU; then the D-96 rows (attention_rows) at
+    Phi-3.5's heads, each of which must have launched on its path.
 Launches per decode step, prefill, forward or layer are counted in phases
 6, 7, 9, 11, 12, 13, 14, 15, 16 and 17 and printed (phases 6-14, 16, 17)
 on one line before the summary. A count is the wrappers' eager launches
@@ -279,6 +299,7 @@ card is visible or the package is not beside this script.
 from __future__ import annotations
 
 import json
+import random
 import subprocess
 import sys
 import time
@@ -365,7 +386,7 @@ GEN_CHUNK = 16
 ULP_REL, NEAR_ZERO = 2.0 ** -7, 1e-4
 PHASES = ("kernels", "dense", "paged", "tight", "ladder", "block", "parity",
           "forward", "ops", "decode", "moe", "kv", "strategies", "graphs", "load",
-          "families")
+          "families", "rope")
 # phase 17 (graphs): the model's window and chunk, the sampled chunk's
 # temperature and top-k, the draft's tokens, the paged engine's requests
 GRAPH_WINDOW, GRAPH_CHUNK, GRAPH_TEMP, GRAPH_TOPK = 6, 16, 0.8, 40
@@ -443,6 +464,96 @@ D256_ROWS = {"batch_decode_attention_d256": ("batch_decode_attention", "gemma-2-
              "paged_attention_d256": ("paged_attention", "gemma-2-2b"),
              "flash_attention_d256": ("flash_attention", "gemma-3-1b"),
              "flash_decode_d256": ("flash_decode", "gemma-3-1b")}
+
+
+def stand_in_factors(seed: int, top: float, n: int = 48) -> list:
+    """``n`` LongRoPE factors ascending from 1.0 to under ``top``, drawn
+    from ``seed``: Phi-3.5-mini's published short_factor / long_factor
+    lists are not in the repository, so phase 20 runs these in their place
+    (PERF.md names them stand-ins)."""
+    rng = random.Random(seed)
+    return [1.0] + sorted(1.0 + rng.uniform(0.0, top - 1.0) for _ in range(n - 1))
+
+
+# phase 20 (rope): the families the rope variants brought, at their
+# published widths, config.json values written as numbers as FAMILIES has
+# them: name -> (repository, config.json, layers run or None for all).
+# Depth cut for the script's time (phase 20 took 324-364 s at full depth
+# but GLM-4's): GLM-4-9B 8 of 40 layers, Gemma-3-4B 12 of 34 (its global
+# layers 6 and 12 among them), SmolLM3-3B 12 of 36 (NoPE layers 4, 8, 12)
+ROPE_FAMILIES = {
+    "llama-3.2-1b": ("meta-llama/Llama-3.2-1B", dict(
+        model_type="llama", vocab_size=128256, hidden_size=2048, intermediate_size=8192,
+        num_hidden_layers=16, num_attention_heads=32, num_key_value_heads=8, head_dim=64,
+        max_position_embeddings=131072, rms_norm_eps=1e-5, rope_theta=500000.0,
+        rope_scaling={"rope_type": "llama3", "factor": 32.0, "low_freq_factor": 1.0,
+                      "high_freq_factor": 4.0, "original_max_position_embeddings": 8192},
+        tie_word_embeddings=True, hidden_act="silu"), None),
+    "gemma-3-4b": ("google/gemma-3-4b-pt (text config)", dict(
+        model_type="gemma3_text", vocab_size=262208, hidden_size=2560,
+        intermediate_size=10240, num_hidden_layers=34, num_attention_heads=8,
+        num_key_value_heads=4, head_dim=256, max_position_embeddings=131072,
+        rms_norm_eps=1e-6, rope_theta=1000000.0, rope_local_base_freq=10000.0,
+        rope_scaling={"rope_type": "linear", "factor": 8.0}, sliding_window=1024,
+        sliding_window_pattern=6, query_pre_attn_scalar=256, attn_logit_softcapping=None,
+        final_logit_softcapping=None, hidden_activation="gelu_pytorch_tanh",
+        tie_word_embeddings=True), 12),
+    "phi-3.5-mini": ("microsoft/Phi-3.5-mini-instruct", dict(
+        model_type="phi3", vocab_size=32064, hidden_size=3072, intermediate_size=8192,
+        num_hidden_layers=32, num_attention_heads=32, num_key_value_heads=32,
+        max_position_embeddings=131072, original_max_position_embeddings=4096,
+        rope_theta=10000.0, rope_scaling={"type": "longrope",
+                                          "short_factor": stand_in_factors(35, 3.0),
+                                          "long_factor": stand_in_factors(53, 64.0)},
+        sliding_window=262144, rms_norm_eps=1e-5, tie_word_embeddings=False,
+        hidden_act="silu"), None),
+    "glm-4-9b": ("THUDM/GLM-4-9B-0414", dict(
+        model_type="glm4", vocab_size=151552, hidden_size=4096, intermediate_size=13696,
+        num_hidden_layers=40, num_attention_heads=32, num_key_value_heads=2, head_dim=128,
+        partial_rotary_factor=0.5, max_position_embeddings=32768, rope_theta=10000.0,
+        attention_bias=True, rms_norm_eps=1e-5, tie_word_embeddings=False,
+        hidden_act="silu"), 8),
+    "ernie-4.5-0.3b": ("baidu/ERNIE-4.5-0.3B-PT", dict(
+        model_type="ernie4_5", vocab_size=103424, hidden_size=1024, intermediate_size=3072,
+        num_hidden_layers=18, num_attention_heads=16, num_key_value_heads=2, head_dim=128,
+        max_position_embeddings=131072, rope_theta=500000.0, rms_norm_eps=1e-5,
+        use_bias=False, tie_word_embeddings=True, hidden_act="silu"), None),
+    "smollm3-3b": ("HuggingFaceTB/SmolLM3-3B", dict(
+        model_type="smollm3", vocab_size=128256, hidden_size=2048, intermediate_size=11008,
+        num_hidden_layers=36, num_attention_heads=16, num_key_value_heads=4,
+        no_rope_layer_interval=4, max_position_embeddings=65536, rope_theta=5000000.0,
+        rms_norm_eps=1e-6, use_sliding_window=False, sliding_window=None,
+        tie_word_embeddings=True, hidden_act="silu"), 12),
+    "qwen3-0.6b-yarn": ("Qwen/Qwen3-0.6B with its model card's yarn block", dict(
+        FAMILIES["qwen3-0.6b"][1], rope_scaling={
+            "rope_type": "yarn", "factor": 4.0, "original_max_position_embeddings": 32768}),
+        None),
+}
+# the engines' capacity past Phi-3.5's 4096-token threshold and Gemma-3-4B's
+# 1024 window, and the prompts past them (count, least and most length)
+FAM_MAX.update({"phi-3.5-mini": 8192, "gemma-3-4b": 2048})
+FAM_LONG.update({"phi-3.5-mini": (2, 4150, 4250), "gemma-3-4b": (4, 1100, 1300)})
+# the CPU slice's depth: Gemma-3-4B's first global layer is its sixth,
+# SmolLM3's first NoPE layer its fourth
+FAM_SLICE.update({"gemma-3-4b": 6, "smollm3-3b": 4})
+# LongRoPE's original_max in the CPU slice: below its FAM_SLICE_S prompt
+FAM_SLICE_THRESHOLD = {"phi-3.5-mini": 32}
+FAM_CHECKPOINT += ("llama-3.2-1b", "phi-3.5-mini")
+# each round trip's Hugging Face layout (a MODEL_SPECS name)
+FAM_SPEC = {"gpt2": "gpt2", "gemma-3-1b": "gemma3", "llama-3.2-1b": "llama",
+            "phi-3.5-mini": "phi3"}
+# the single-stream generate's cache rows
+FAM_GEN_MAX = 256
+# the fused step (row 18) on scaled tables, against the unfused step
+FAM_FUSED = ("llama-3.2-1b",)
+# the dense and paged engines must give the same streams: rows on both
+# sides of LongRoPE's threshold in one batch
+FAM_ENGINES_EQUAL = ("phi-3.5-mini",)
+# the D-96 variants on the kernels line (Phi-3.5-mini's path), as D256_ROWS
+D96_ROWS = {"batch_decode_attention_d96": ("batch_decode_attention", "phi-3.5-mini"),
+            "paged_attention_d96": ("paged_attention", "phi-3.5-mini"),
+            "flash_attention_d96": ("flash_attention", "phi-3.5-mini"),
+            "flash_decode_d96": ("flash_decode", "phi-3.5-mini")}
 # the tokenizer's training text (write_tokenizer) and the chat requests
 TOKENIZER_MERGES = 400
 TOKENIZER_TEXT = (
@@ -2133,10 +2244,34 @@ def serve_again(eng, requests, warm=()):
     return reqs, time.perf_counter() - t0
 
 
-def pool_copy(eng) -> list:
-    """Bitwise copies of the engine's K and V pools."""
-    return [bits(t).clone() for cache in (eng.k_cache, eng.v_cache)
+def pool_copy(eng, device=None) -> list:
+    """Bitwise copies of the engine's K and V pools, on ``device`` (theirs
+    unless named)."""
+    return [bits(t).to(device or t.device, copy=True) for cache in (eng.k_cache, eng.v_cache)
             for t in (cache.values() if isinstance(cache, dict) else (cache,))]
+
+
+# engine pools past this many bytes are copied to the host for the replay
+# check: Phi-3.5's dense pools at MAX 8192 are 26 GB, and two device copies
+# beside them would not fit the card
+POOL_HOST_BYTES = 8 << 30
+
+
+def pools_equal(copies: list, eng, trash: bool = False) -> bool:
+    """The engine's live pools bitwise ``copies`` (``pool_copy``'s), a
+    slice of the leading dimension at a time on the copies' device;
+    ``trash``: paged pools compared outside block 0 (``tree_equal``)."""
+    import torch
+    live = [bits(t) for cache in (eng.k_cache, eng.v_cache)
+            for t in (cache.values() if isinstance(cache, dict) else (cache,))]
+    for a, b in zip(copies, live):
+        if a.shape != b.shape:
+            return False
+        for i in range(a.shape[0]):
+            x, y = a[i], b[i].to(a.device)
+            if not torch.equal(x[1:] if trash else x, y[1:] if trash else y):
+                return False
+    return True
 
 
 def ttft_ms(reqs) -> "np.ndarray":
@@ -3590,12 +3725,13 @@ def graphs_engine(model, requests, n_steps: int, what: str, rng, card: str,
     launches = launch_counts()
     reset_counts()
     n_tok = check_served(eng, reqs1, requests, what)
-    pools = pool_copy(eng)
+    pool_bytes = sum(t.numel() * t.element_size() for c in (eng.k_cache, eng.v_cache)
+                     for t in (c.values() if isinstance(c, dict) else (c,)))
+    pools = pool_copy(eng, "cpu" if pool_bytes > POOL_HOST_BYTES else None)
     reqs2, secs2 = serve_again(eng, requests)
     check([r.generated for r in reqs1] == [r.generated for r in reqs2],
           f"graphs: {what}: the second run's streams differ")
-    check(all(tree_equal(a, b, paged) for a, b in zip(pools, pool_copy(eng))),
-          f"graphs: {what}: the second run's pools differ")
+    check(pools_equal(pools, eng, paged), f"graphs: {what}: the second run's pools differ")
     ttft = ttft_ms(reqs1)
     del pools
     chunk = eng.graphs.get("chunk")
@@ -3608,7 +3744,7 @@ def graphs_engine(model, requests, n_steps: int, what: str, rng, card: str,
     e_ms, r_ms = times[chunk.name]
     if stats is not None:
         stats.update(tok_s=n_tok / secs1, tok_s_again=n_tok / secs2, ttft_ms=list(ttft),
-                     replayed_ms_step=r_ms / n_steps)
+                     replayed_ms_step=r_ms / n_steps, streams=[r.generated for r in reqs1])
     print(f"phase {phase}: {what}: {len(reqs1)} requests, {n_tok} tokens in {secs1:.3f} s = "
           f"{n_tok / secs1:.1f} tok/s (second run {n_tok / secs2:.1f}), TTFT p50/p95 "
           f"{ttft[0]:.1f}/{ttft[1]:.1f} ms; streams and pools identical over two runs; "
@@ -3931,7 +4067,8 @@ def params_bitwise(a: dict, b: dict) -> bool:
 
 def torch_equal_bits(x, y) -> bool:
     import torch
-    return torch.equal(x.contiguous().view(torch.uint8), y.contiguous().view(torch.uint8))
+    x, y = x.reshape(-1).contiguous(), y.reshape(-1).contiguous()   # a 0-d leaf: one element
+    return torch.equal(x.view(torch.uint8), y.view(torch.uint8))
 
 
 def chat_requests(tok, cfg) -> list:
@@ -4089,15 +4226,25 @@ def load_phase(cfg, dev, card: str) -> dict:
 # Phase 19: the model families at their published widths
 # ---------------------------------------------------------------------------
 
+def family_entry(name: str) -> tuple:
+    """(repository, config.json, layers run) of a phase-19 family or a
+    phase-20 rope family."""
+    return FAMILIES[name] if name in FAMILIES else ROPE_FAMILIES[name]
+
+
 def family_config(name: str):
-    """(TransformerConfig, config.json dict) of FAMILIES[name], its depth
-    cut where the entry says so."""
+    """(TransformerConfig, config.json dict) of ``family_entry(name)``, its
+    depth cut where the entry says so."""
     import dataclasses
     from pygpukit_tpu_torch.llm import TransformerConfig
-    _, hf, layers = FAMILIES[name]
+    _, hf, layers = family_entry(name)
     cfg = TransformerConfig.from_hf_config(hf)
     if layers is not None:
-        cfg = dataclasses.replace(cfg, num_layers=layers)
+        # the per-layer lists (Gemma-3's layer types, SmolLM3's NoPE
+        # switches) cut with the depth
+        cut = {k: getattr(cfg, k)[:layers] for k in ("layer_types", "rope_layers")
+               if getattr(cfg, k) is not None}
+        cfg = dataclasses.replace(cfg, num_layers=layers, **cut)
     return cfg, hf
 
 
@@ -4105,8 +4252,8 @@ def family_params(name: str, cfg, dev) -> dict:
     """init_params (seed 0, bf16) with the leaves it leaves at a constant
     drawn as a checkpoint has them: norm weights (pre, sandwich, q/k, final)
     in [0.5, 1.9], layernorm and MLP biases, and the attention biases of
-    Qwen2 (q, k, v) and GPT-2 (q, k, v, o), which init_params does not
-    make."""
+    Qwen2 and GLM-4 (q, k, v) and GPT-2 (q, k, v, o), which init_params
+    does not make."""
     import torch
     from pygpukit_tpu_torch.llm import init_params
     params = init_params(cfg, 0, torch.bfloat16, dev)
@@ -4127,7 +4274,7 @@ def family_params(name: str, cfg, dev) -> dict:
     params["final_norm_w"] = around_one(params["final_norm_w"])
     if "final_norm_b" in params:
         params["final_norm_b"] = rnd(params["final_norm_b"].shape, 0.02, torch.float32)
-    if name.startswith("qwen2") or name == "gpt2":
+    if name.startswith(("qwen2", "glm")) or name == "gpt2":
         nl, hq, hk, d = cfg.num_layers, cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
         for leaf, n in (("b_q", hq * d), ("b_k", hk * d), ("b_v", hk * d)):
             lp[leaf] = rnd((nl, n), 0.1, torch.bfloat16)
@@ -4136,13 +4283,16 @@ def family_params(name: str, cfg, dev) -> dict:
     return params
 
 
-def kernel_layers(cfg) -> int:
-    """Layers whose uncached and single-stream attention take flash_attention
-    and flash_decode: no softcap, no window, the kernels' scale."""
+def kernel_layers(cfg, n_keys: int) -> int:
+    """Layers whose uncached and single-stream attention over ``n_keys``
+    keys (the forward's length, the cache's rows) take flash_attention and
+    flash_decode: no softcap, no window shorter than the keys, the
+    kernels' scale."""
     from pygpukit_tpu_torch.llm.model import _layer_window
-    from pygpukit_tpu_torch.ops.nn.attention import flash_attention_route
+    from pygpukit_tpu_torch.ops.nn.attention import effective_window, flash_attention_route
     return sum(flash_attention_route("cuda", cfg.attn_scale, cfg.head_dim,
-                                     cfg.attn_logit_softcap, _layer_window(cfg, i)) == "kernel"
+                                     cfg.attn_logit_softcap,
+                                     effective_window(_layer_window(cfg, i), n_keys)) == "kernel"
                for i in range(cfg.num_layers))
 
 
@@ -4183,12 +4333,17 @@ def hf_family_tensors(spec, cfg, params: dict) -> dict:
                 put(template, norm(lp[leaf][i]))
         if spec.qkv_combined:
             put(spec.q_proj, lin(torch.cat([lp[k][i] for k in ("w_q", "w_k", "w_v")], dim=1)))
-            put(spec.q_bias, torch.cat([lp[k][i] for k in ("b_q", "b_k", "b_v")]))
+            if spec.q_bias:
+                put(spec.q_bias, torch.cat([lp[k][i] for k in ("b_q", "b_k", "b_v")]))
         else:
             for template, leaf in ((spec.q_proj, "w_q"), (spec.k_proj, "w_k"),
                                    (spec.v_proj, "w_v")):
                 put(template, lin(lp[leaf][i]))
         put(spec.o_proj, lin(lp["w_o"][i]))
+        if spec.gate_up_combined:              # Phi-3: one gate_up_proj, gate rows first
+            put(spec.gate_proj, lin(torch.cat([lp["w_gate"][i], lp["w_up"][i]], dim=1)))
+            put(spec.down_proj, lin(lp["w_down"][i]))
+            continue
         mlp = (((spec.fc1, "w_fc1"), (spec.fc2, "w_fc2")) if spec.fc1 else
                ((spec.gate_proj, "w_gate"), (spec.up_proj, "w_up"), (spec.down_proj, "w_down")))
         for template, leaf in mlp:
@@ -4207,7 +4362,7 @@ def family_checkpoint(name: str, cfg, hf: dict, params: dict, src, ids, logits, 
     import numpy as np
     import torch
     from pygpukit_tpu_torch.llm import MODEL_SPECS, load_model_from_safetensors
-    spec = MODEL_SPECS[{"gpt2": "gpt2", "gemma-3-1b": "gemma3"}[name]]
+    spec = MODEL_SPECS[FAM_SPEC[name]]
     d = ROOT / "build" / "families_phase" / name
     shutil.rmtree(d, ignore_errors=True)
     try:
@@ -4241,7 +4396,9 @@ def family_cpu_slice(name: str, cfg, params: dict, dev) -> str:
     decode steps (REF_TOL). MoE: the bf16 forward only, held row by row as
     phase 14 holds Mixtral's (MOE_ROWS_Q: the card's gmm and the CPU's
     dense route round at other points, so a router near-tie moves a row).
-    Returns the report."""
+    LongRoPE (FAM_SLICE_THRESHOLD): the slice's original_max is scaled
+    down below the prompt, so both sides take the long tables. Returns the
+    report."""
     import dataclasses
     import numpy as np
     import torch
@@ -4249,6 +4406,9 @@ def family_cpu_slice(name: str, cfg, params: dict, dev) -> str:
                                         quantize_model_params, slice_layers)
     n = FAM_SLICE.get(name, 2)
     small = dataclasses.replace(cfg, num_layers=n)
+    if name in FAM_SLICE_THRESHOLD:
+        small = dataclasses.replace(small, rope_scaling=dict(
+            cfg.rope_scaling, original_max_position_embeddings=FAM_SLICE_THRESHOLD[name]))
     tree = slice_layers(params, n)
     ids = np.random.default_rng(191).integers(1, cfg.vocab_size, FAM_SLICE_S).tolist()
     out = []
@@ -4278,7 +4438,9 @@ def family_cpu_slice(name: str, cfg, params: dict, dev) -> str:
         del card, cpu
     what = (f"forward rows' {MOE_ROWS_Q} quantile" if cfg.is_moe else
             "forward, prefill and four decode steps")
-    return f"{n}-layer slice, card vs CPU plain path, relative L2 of the {what}: " + \
+    past = (f" (original_max {FAM_SLICE_THRESHOLD[name]}, the {FAM_SLICE_S}-token prompt "
+            f"past it)" if name in FAM_SLICE_THRESHOLD else "")
+    return f"{n}-layer slice{past}, card vs CPU plain path, relative L2 of the {what}: " + \
         "; ".join(out)
 
 
@@ -4293,9 +4455,10 @@ def family_requests(name: str, cfg, rng) -> list:
     return out
 
 
-def family_run(name: str, dev, card: str, rng) -> dict:
-    """One family of phase 19 (``families_phase``). Returns the launches of
-    its main-path runs by kernel."""
+def family_run(name: str, dev, card: str, rng, phase: str = "19") -> dict:
+    """One family of phase 19 (``families_phase``) or phase 20
+    (``rope_phase``). Returns the launches of its main-path runs by
+    kernel."""
     import gc
     import numpy as np
     import torch
@@ -4311,14 +4474,14 @@ def family_run(name: str, dev, card: str, rng) -> dict:
     cfg, hf = family_config(name)
     params = family_params(name, cfg, dev)
     model = CausalTransformerModel(cfg, fuse_params(params), dtype=torch.bfloat16)
-    n_fa = kernel_layers(cfg)
+    s_len = FAM_FWD_S.get(name, FWD_S)
+    n_fa, n_fd = kernel_layers(cfg, s_len), kernel_layers(cfg, FAM_GEN_MAX)
     total: dict = {}
 
     def add(launches):
         for k, n in launches.items():
             total[k] = total.get(k, 0) + n
     # the uncached forward
-    s_len = FAM_FWD_S.get(name, FWD_S)
     ids = rng.integers(1, cfg.vocab_size, s_len).tolist()
     tokens = torch.tensor(ids, device=dev)
     torch.cuda.synchronize()
@@ -4347,7 +4510,7 @@ def family_run(name: str, dev, card: str, rng) -> dict:
     prompt = ids[:FAM_PROMPT]
     runs = []
     for _ in range(2):
-        zero_cache(model, 256)
+        zero_cache(model, FAM_GEN_MAX)
         torch.cuda.synchronize()
         reset_counts()
         t1 = time.perf_counter()
@@ -4359,24 +4522,32 @@ def family_run(name: str, dev, card: str, rng) -> dict:
     add(gen_l)
     check(toks1 == toks2 and len(toks2) == FAM_NEW and model.logits_finite(),
           f"families {name}: generate's replayed tokens differ or a logit is not finite")
-    check(gen_l["flash_decode"] == n_fa * (FAM_NEW - 1),
+    check(gen_l["flash_decode"] == n_fd * (FAM_NEW - 1),
           f"families {name}: flash_decode launched {gen_l['flash_decode']} times in "
-          f"generate, expected {n_fa * (FAM_NEW - 1)}")
+          f"generate, expected {n_fd * (FAM_NEW - 1)}")
     report = [f"forward {s_len} tokens {fwd_ms:.2f} ms = {s_len / fwd_ms * 1e3:.0f} tok/s "
               f"({n_fa} flash_attention launches); generate {FAM_NEW} tokens "
               f"{FAM_NEW / gen_s:.1f} tok/s, replay identical ({gen_l['flash_decode']} "
               f"flash_decode launches)"]
+    if name in FAM_FUSED:
+        report.append(family_fused(name, cfg, params, prompt, total))
     if name in FAM_CHECKPOINT:
         report.append(family_checkpoint(name, cfg, hf, params, model, ids, logits, dev))
+    # a model is a reference cycle (its captured programs hold it): collect
+    # the bf16 models before the engines' pools (Phi-3.5's are 26 GB a pair)
     del model, logits
+    gc.collect()
     torch.cuda.empty_cache()
     report.append(family_cpu_slice(name, cfg, params, dev))
+    gc.collect()
     # the int4 engines, dense and paged, each served twice and every program
     # replayed against one eager call
     model = CausalTransformerModel(cfg, fuse_params(quantize_model_params(params, "int4")),
                                    dtype=torch.bfloat16)
     del params
+    gc.collect()
     torch.cuda.empty_cache()
+    held_engines = torch.cuda.memory_allocated() / 1e9 if dev.type == "cuda" else 0.0
     requests = family_requests(name, cfg, rng)
     mx = FAM_MAX.get(name, FAM_MAX_DEFAULT)
     # the prefill waves the engine can form: up to 4 a bucket from the
@@ -4387,12 +4558,18 @@ def family_run(name: str, dev, card: str, rng) -> dict:
     if n_long:
         plan.append((sorted({len(p) for p, _ in requests[:n_long]}),
                      [w for w in (2, 4) if w <= n_long]))
+    streams = {}
     for what, kw in (("dense engine", {}),
                      ("paged pipelined engine", dict(pipelined=True, paged=True,
                                                      block_size=16))):
         stats: dict = {}
-        launches = graphs_engine(model, requests, 16, f"{name} {what}", rng, card, "19",
+        launches = graphs_engine(model, requests, 16, f"{name} {what}", rng, card, phase,
                                  stats, 1, max_seq_len=mx, warm_plan=plan, **kw)
+        streams[what] = stats["streams"]
+        # the engine's pools and programs go before the next one's (Phi-3.5's
+        # dense pools at MAX 8192 are 26 GB)
+        gc.collect()
+        torch.cuda.empty_cache()
         add(launches)
         attention = "paged_attention" if kw else "batch_decode_attention"
         for kernel in ("w4a8_gemv", attention) + (("gmm",) if cfg.is_moe else ()):
@@ -4403,6 +4580,11 @@ def family_run(name: str, dev, card: str, rng) -> dict:
                   f"families {name}: a batch attention launch wrote no rows")
         report.append(f"{what} {stats['tok_s']:.1f} tok/s (again {stats['tok_s_again']:.1f}), "
                       f"TTFT p50/p95 {stats['ttft_ms'][0]:.1f}/{stats['ttft_ms'][1]:.1f} ms")
+    if name in FAM_ENGINES_EQUAL:
+        # LongRoPE: rows on both sides of the threshold in one batch
+        check(streams["dense engine"] == streams["paged pipelined engine"],
+              f"families {name}: the dense and paged engines' streams differ")
+        report.append("dense and paged engines' streams identical")
     # the tied f32 head's share of one batch-8 decode step
     _, step_ms, _, _ = decode_step_times(model, 8, mx, 300, profile=False)
     h = torch.randn((8, cfg.hidden_size), device=dev).to(torch.bfloat16)
@@ -4413,22 +4595,38 @@ def family_run(name: str, dev, card: str, rng) -> dict:
                   f"{head_ms:.3f} ms of it ({head_ms / step_ms:.3f})")
     del model
     torch.cuda.empty_cache()
-    report.append(f"{time.perf_counter() - t0:.1f} s ({held:.2f} GB allocated before it)")
-    print(f"phase 19: {name} ({FAMILIES[name][0]}, {cfg.num_layers} layers, hidden "
+    report.append(f"{time.perf_counter() - t0:.1f} s ({held:.2f} GB allocated before it, "
+                  f"{held_engines:.2f} GB before the engines)")
+    print(f"phase {phase}: {name} ({family_entry(name)[0]}, {cfg.num_layers} layers, hidden "
           f"{cfg.hidden_size}, heads {cfg.num_heads}/{cfg.num_kv_heads}, D {cfg.head_dim}): "
           + "; ".join(report) + f"; launches {json.dumps({k: n for k, n in total.items() if n})}"
           + f" [{card}]")
     return total
 
 
-def d256_kernels(dev, detail: dict) -> dict:
-    """Phase 19, the four kernels at head_dim 256 on the Gemma paths'
-    shapes against their plain versions (ATTN_TOL), a second launch
-    bitwise, timed beside the plain version and SDPA: rows 5/6 and 17 at
-    Gemma-2-2B's (batch 8, 8/4 heads, MAX 8192, softcap 50, its window 4096
-    with contexts before and past it), rows 14 and 15 at Gemma-3-1B's global
-    layers (4/1 heads; a 2048-token forward, one query over 700 rows of a
-    1024-row cache). Returns the kernels line's rows (D256_ROWS)."""
+# the family attention rows against their plain versions: rows 5/6 and 17
+# at (Hq, Hk, D, softcap, window), B 8, MAX 8192 and ATTN_LENS, row 14 at
+# (Hq, Hk) over FWD_S tokens, row 15 at (Hq, Hk, MAX, ctx, layers)
+ATTN_LENS, ATTN_MAX = (1, 700, 4096, 4097, 4300, 6000, 8192, 9000), 8192
+ATTN_ROWS = {
+    # Gemma-2-2B's softcap and window; Gemma-3-1B's global layers
+    "d256": dict(rows=(8, 4, 256, 50.0, 4096), flash=(4, 1), decode=(4, 1, 1024, 700, 26),
+                 phase="19"),
+    # Phi-3.5-mini (its 262144 window masks nothing: none); row 15 at the
+    # long prompts' context in its 8192-row cache
+    "d96": dict(rows=(32, 32, 96, None, None), flash=(32, 32),
+                decode=(32, 32, 8192, 4200, 8), phase="20"),
+}
+
+
+def attention_rows(dev, detail: dict, tag: str) -> dict:
+    """The four kernels at ATTN_ROWS[tag]'s shapes against their plain
+    versions (ATTN_TOL), a second launch bitwise, timed beside the plain
+    version and SDPA with their bounds: rows 5/6 written and read by
+    kv_write_attention (its pools bitwise the plain write), with and
+    without the window; row 17 over shuffled blocks (block 16); row 14 a
+    causal forward; row 15 one query, with a graph replayed at device
+    contexts. Returns the kernels line's rows (``<kernel>_<tag>``)."""
     import torch
     from pygpukit_tpu_torch.kernels import (batch_decode_attention,
                                             batch_decode_attention_plain, flash_attention,
@@ -4437,34 +4635,35 @@ def d256_kernels(dev, detail: dict) -> dict:
                                             kv_write_attention, paged_attention,
                                             paged_attention_plain)
     from pygpukit_tpu_torch.kernels.paged_attention import _paged_gather
+    shapes = ATTN_ROWS[tag]
     g = torch.Generator(device=dev)
     g.manual_seed(1919)
     res = {}
-    b, nl, mx, hq, hk, d, cap, win = 8, 4, 8192, 8, 4, 256, 50.0, 4096
-    lanes, scale = hk * d, 256 ** -0.5
+    hq, hk, d, cap, win = shapes["rows"]
+    b, nl, mx = 8, 4, ATTN_MAX
+    lanes, scale = hk * d, d ** -0.5
     kp = torch.randn((b, nl, mx, lanes), generator=g, device=dev).to(torch.bfloat16)
     vp = torch.randn((b, nl, mx, lanes), generator=g, device=dev).to(torch.bfloat16)
     q = torch.randn((b, 1, hq, d), generator=g, device=dev).to(torch.bfloat16)
     kn = torch.randn((b, hk, d), generator=g, device=dev).to(torch.bfloat16)
     vn = torch.randn((b, hk, d), generator=g, device=dev).to(torch.bfloat16)
-    lens = torch.tensor([1, 700, 4096, 4097, 4300, 6000, 8192, 9000], dtype=torch.int32,
-                        device=dev)
+    lens = torch.tensor(ATTN_LENS, dtype=torch.int32, device=dev)
     err = 0.0
-    for window in (win, None):
+    for window in dict.fromkeys((win, None)):
         k1, v1, k2, v2 = kp[:, 1:3].clone(), vp[:, 1:3].clone(), kp[:, 1:3].clone(), \
             vp[:, 1:3].clone()
         o = kv_write_attention(q, k1, v1, kn, vn, 1, lens - 1, lens, scale=scale,
                                softcap=cap, window=window)
         kv_rows_write_plain(k2, v2, kn, vn, 1, lens - 1)
         check(torch.equal(bits(k1), bits(k2)) and torch.equal(bits(v1), bits(v2)),
-              "d256 kv_write_attention: the pools differ from the plain write")
+              f"{tag} kv_write_attention: the pools differ from the plain write")
         r = batch_decode_attention_plain(q, k2, v2, 1, lens, scale, cap, window)
-        err = max(err, _attn_err(o, r, "bf16", f"d256 batch attention window {window}"))
+        err = max(err, _attn_err(o, r, "bf16", f"{tag} batch attention window {window}"))
         check(torch.equal(o, batch_decode_attention(q, k1, v1, 1, lens, scale, cap, window)),
-              "d256 batch attention: a second launch differs")
+              f"{tag} batch attention: a second launch differs")
         del k1, v1, k2, v2
     live = lens.clamp(max=mx)
-    lo = (lens - win).clamp(min=0)
+    lo = (lens - win).clamp(min=0) if win else torch.zeros_like(lens)
     n_live = int((live - lo).clamp(min=0).sum())
     pos = torch.arange(mx, device=dev)[None, :]
     mask = ((pos < live[:, None]) & (pos >= lo[:, None]))[:, None, None, :]
@@ -4477,7 +4676,7 @@ def d256_kernels(dev, detail: dict) -> dict:
     pms = time_ms(lambda i: batch_decode_attention_plain(q, kp, vp, i, lens, scale, cap,
                                                          win), nl, reps=2)
     lms = time_ms(library, nl)
-    res["batch_decode_attention_d256"] = kernel_row(
+    res[f"batch_decode_attention_{tag}"] = kernel_row(
         err, kms, pms, 2 * n_live * lanes * 2 + 2 * q.numel() * 2 + 4 * b,
         4 * hq * d * n_live, "bf16", lms)
     del kp, vp
@@ -4493,9 +4692,9 @@ def d256_kernels(dev, detail: dict) -> dict:
     plens = lens.clamp(max=mx)
     o = paged_attention(qp, kpool[1], vpool[1], tables, plens, scale, cap, win)
     err = _attn_err(o, paged_attention_plain(qp, kpool[1], vpool[1], tables, plens, scale,
-                                             cap, win), "bf16", "d256 paged attention")
+                                             cap, win), "bf16", f"{tag} paged attention")
     check(torch.equal(o, paged_attention(qp, kpool[1], vpool[1], tables, plens, scale, cap,
-                                         win)), "d256 paged attention: a second launch differs")
+                                         win)), f"{tag} paged attention: a second launch differs")
     seqs = [(_paged_gather(kpool[i], tables), _paged_gather(vpool[i], tables))
             for i in range(nl)]
     kms = time_ms(lambda i: paged_attention(qp, kpool[i], vpool[i], tables, plens, scale, cap,
@@ -4504,13 +4703,13 @@ def d256_kernels(dev, detail: dict) -> dict:
                                                   scale, cap, win), nl, reps=2)
     lms = time_ms(lambda i: sdpa(qp[:, :, None], seqs[i][0], seqs[i][1], attn_mask=mask,
                                  scale=scale), nl)
-    res["paged_attention_d256"] = kernel_row(
+    res[f"paged_attention_{tag}"] = kernel_row(
         err, kms, pms, 2 * n_live * lanes * 2 + 2 * qp.numel() * 2 + 4 * b * (mb + 1),
         4 * hq * d * n_live, "bf16", lms)
     del kpool, vpool, seqs
     torch.cuda.empty_cache()
-    # rows 14 and 15 at Gemma-3-1B's global layers
-    s_len, hq, hk = FWD_S, 4, 1
+    # row 14: a causal forward of FWD_S tokens
+    s_len, (hq, hk) = FWD_S, shapes["flash"]
     n_var = 4
     qs = [torch.randn((s_len, hq, d), generator=g, device=dev).to(torch.bfloat16)
           for _ in range(n_var)]
@@ -4520,41 +4719,160 @@ def d256_kernels(dev, detail: dict) -> dict:
           for _ in range(n_var)]
     o = flash_attention(qs[0], ks[0], vs[0])
     err = _attn_err(o, flash_attention_plain(qs[0], ks[0], vs[0]), "bf16",
-                    "d256 flash_attention")
+                    f"{tag} flash_attention")
     check(torch.equal(o, flash_attention(qs[0], ks[0], vs[0])),
-          "d256 flash_attention: a second launch differs")
+          f"{tag} flash_attention: a second launch differs")
     kms = time_ms(lambda i: flash_attention(qs[i], ks[i], vs[i]), n_var)
     pms = time_ms(lambda i: flash_attention_plain(qs[i], ks[i], vs[i]), n_var, reps=2)
     lms = time_ms(lambda i: sdpa(qs[i].transpose(0, 1)[None], ks[i].transpose(0, 1)[None],
                                  vs[i].transpose(0, 1)[None], is_causal=True), n_var)
     pairs = s_len * (s_len + 1) / 2
-    res["flash_attention_d256"] = kernel_row(err, kms, pms, (2 * hq + 2 * hk) * s_len * d * 2,
-                                             4 * hq * d * pairs, "bf16", lms)
+    res[f"flash_attention_{tag}"] = kernel_row(err, kms, pms,
+                                               (2 * hq + 2 * hk) * s_len * d * 2,
+                                               4 * hq * d * pairs, "bf16", lms)
     del qs, ks, vs
-    max_len, ctx, nl = 1024, 700, 26
+    # row 15: one query over ctx rows of a MAX-row cache, layers cycled
+    hq, hk, max_len, ctx, nl = shapes["decode"]
     kc = torch.randn((nl, max_len, hk, d), generator=g, device=dev).to(torch.bfloat16)
     vc = torch.randn((nl, max_len, hk, d), generator=g, device=dev).to(torch.bfloat16)
     q1 = torch.randn((1, hq, d), generator=g, device=dev).to(torch.bfloat16)
     o = flash_decode(q1, kc[3], vc[3], ctx)
-    err = _attn_err(o, flash_decode_plain(q1, kc[3], vc[3], ctx), "bf16", "d256 flash_decode")
+    err = _attn_err(o, flash_decode_plain(q1, kc[3], vc[3], ctx), "bf16", f"{tag} flash_decode")
     check(torch.equal(o, flash_decode(q1, kc[3], vc[3], ctx)),
-          "d256 flash_decode: a second launch differs")
+          f"{tag} flash_decode: a second launch differs")
     decode_graph_replay(q1, kc[3], vc[3], "bf16")
     kms = time_ms(lambda i: flash_decode(q1, kc[i], vc[i], ctx), nl)
     pms = time_ms(lambda i: flash_decode_plain(q1, kc[i], vc[i], ctx), nl)
     lms = time_ms(lambda i: sdpa(q1.transpose(0, 1)[None], kc[i, :ctx].permute(1, 0, 2)[None],
                                  vc[i, :ctx].permute(1, 0, 2)[None]), nl)
-    res["flash_decode_d256"] = kernel_row(err, kms, pms, (2 * ctx * hk * d + 2 * hq * d) * 2,
-                                          4 * hq * d * ctx, "bf16", lms)
+    res[f"flash_decode_{tag}"] = kernel_row(err, kms, pms, (2 * ctx * hk * d + 2 * hq * d) * 2,
+                                            4 * hq * d * ctx, "bf16", lms)
     del kc, vc
     torch.cuda.empty_cache()
     for name, row in res.items():
         detail[name] = dict(row, share=row["bound_ms"] / row["ms"])
-        print(f"phase 19: {name}: kernel {row['ms']:.5f} ms, plain {row['plain_ms']:.4f} ms, "
-              f"SDPA {row['library_ms']:.5f} ms, bound {row['bound_ms']:.6f} ms "
-              f"({row['bound_by']}) = share {row['bound_ms'] / row['ms']:.3f}; max abs err "
-              f"{row['max_abs_err']:.3e} [{CARD}]")
+        print(f"phase {shapes['phase']}: {name}: kernel {row['ms']:.5f} ms, plain "
+              f"{row['plain_ms']:.4f} ms, SDPA {row['library_ms']:.5f} ms, bound "
+              f"{row['bound_ms']:.6f} ms ({row['bound_by']}) = share "
+              f"{row['bound_ms'] / row['ms']:.3f}; max abs err {row['max_abs_err']:.3e} "
+              f"[{CARD}]")
     return res
+
+
+def family_fused(name: str, cfg, params: dict, prompt: list, total: dict) -> str:
+    """Row 18 on scaled tables: a model of separate bf16 leaves (the fused
+    kernel's layout) under PYGPUKIT_DECODE=fused, a FAM_NEW-token generate
+    warm then replayed (identical, one fused_decode launch a step and no
+    flash_decode); then at the prompt's end and after the generate, the
+    fused step's logits against the unfused step's from the same cache
+    (relative L2 within FUSED_DEEP_TOL, phase 3's bound for the fused
+    kernel's drift with depth). Adds the timed run's launches to ``total``.
+    Returns the report."""
+    import os
+    import torch
+    from pygpukit_tpu_torch.llm import CausalTransformerModel
+    from pygpukit_tpu_torch.llm.model import use_fused_decode
+    old = os.environ.get("PYGPUKIT_DECODE")
+    os.environ["PYGPUKIT_DECODE"] = "fused"
+    try:
+        model = CausalTransformerModel(cfg, params, dtype=torch.bfloat16)
+        check(use_fused_decode(cfg, model.params, FAM_GEN_MAX),
+              f"families {name}: the fused step refuses the model")
+        runs = []
+        for _ in range(2):
+            zero_cache(model, FAM_GEN_MAX)
+            torch.cuda.synchronize()
+            reset_counts()
+            t1 = time.perf_counter()
+            toks = model.generate(prompt, max_new_tokens=FAM_NEW, chunk_size=GEN_CHUNK)
+            torch.cuda.synchronize()
+            runs.append((toks, time.perf_counter() - t1, launch_counts()))
+        reset_counts()
+        (toks1, _, _), (toks2, secs, launches) = runs
+        check(toks1 == toks2 and model.logits_finite(),
+              f"families {name}: the fused generate's replay differs or a logit is not finite")
+        check(launches.get("fused_decode", 0) == FAM_NEW - 1
+              and launches.get("flash_decode", 0) == 0,
+              f"families {name}: fused generate launches {launches}")
+        for k, n in launches.items():
+            total[k] = total.get(k, 0) + n
+        errs, agree = [], []
+        for ctx in (prompt, prompt + toks2):
+            zero_cache(model, FAM_GEN_MAX)
+            tok = int(model.prefill(ctx).argmax())
+            snap = model.snapshot_kv_cache()
+            fused = model.decode_step(tok).float().clone()
+            model.restore_kv_cache(snap)
+            os.environ["PYGPUKIT_DECODE"] = ""
+            plain = model.decode_step(tok).float().clone()
+            os.environ["PYGPUKIT_DECODE"] = "fused"
+            errs.append(rel_l2(fused, plain))
+            agree.append(int(fused.argmax()) == int(plain.argmax()))
+        check(max(errs) <= FUSED_DEEP_TOL, f"families {name}: fused vs unfused step relative "
+              f"L2 {errs} (limit {FUSED_DEEP_TOL})")
+        del model
+    finally:
+        if old is None:
+            os.environ.pop("PYGPUKIT_DECODE", None)
+        else:
+            os.environ["PYGPUKIT_DECODE"] = old
+    return (f"fused route (PYGPUKIT_DECODE=fused): generate {FAM_NEW} tokens "
+            f"{FAM_NEW / secs:.1f} tok/s, replay identical, {launches['fused_decode']} "
+            f"fused_decode launches; fused vs unfused step at positions {len(prompt)} and "
+            f"{len(prompt) + FAM_NEW}: relative L2 {[f'{e:.2e}' for e in errs]} (limit "
+            f"{FUSED_DEEP_TOL}), argmax agrees {agree}")
+
+
+def pope_alibi_check(dev) -> str:
+    """PoPE (pope_init_encoding, pope_inplace) and ALiBi (alibi_init_slopes,
+    alibi_compute_bias, alibi_add_bias) through the Array API on the card
+    against the CPU, one call each on seeded f32 inputs at Phi-3.5's heads:
+    within 1e-5 (f32 sin and cos of two libraries)."""
+    import numpy as np
+    import torch
+    from pygpukit_tpu_torch.core.array import Array
+    from pygpukit_tpu_torch.ops.nn import (alibi_add_bias, alibi_compute_bias,
+                                           alibi_init_slopes, pope_init_encoding, pope_inplace)
+    rng = np.random.default_rng(20)
+    q = rng.standard_normal((512, 32, 96)).astype(np.float32)
+    k = rng.standard_normal((512, 32, 96)).astype(np.float32)
+    sc = rng.standard_normal((32, 512, 512)).astype(np.float32)
+    out = []
+    for d in (dev, torch.device("cpu")):
+        enc = pope_init_encoding(4096, 96, 10000.0, device=d)
+        qa, ka = Array(torch.from_numpy(q).to(d)), Array(torch.from_numpy(k).to(d))
+        pope_inplace(qa, ka, enc, start_pos=100)
+        slopes = alibi_init_slopes(32, device=d)
+        bias = alibi_compute_bias(512, 32, slopes)
+        scores = Array(torch.from_numpy(sc).to(d))
+        alibi_add_bias(scores, slopes)
+        out.append([a.torch.cpu() for a in (enc, qa, ka, slopes, bias, scores)])
+    err = max((a - b).abs().max().item() for a, b in zip(*out))
+    check(err <= 1e-5, f"rope: PoPE/ALiBi card vs CPU max abs err {err:.3e}")
+    return f"PoPE and ALiBi on the card against the CPU: max abs err {err:.3e}"
+
+
+def rope_phase(dev, card: str) -> tuple[dict, dict]:
+    """Phase 20 (``--phases rope``; module docstring). Returns (the D96_ROWS
+    rows' launches on Phi-3.5-mini's main path, all of them at D 96, and
+    their kernels-line numbers)."""
+    import numpy as np
+    t0 = time.perf_counter()
+    rng = np.random.default_rng(20)
+    runs = {}
+    for name in ROPE_FAMILIES:
+        runs[name] = family_run(name, dev, card, rng, "20")
+    check(runs["llama-3.2-1b"].get("fused_decode", 0) > 0,
+          "rope: fused_decode never launched on Llama-3.2-1B's llama3 tables")
+    print("phase 20: " + pope_alibi_check(dev) + f" [{card}]")
+    detail: dict = {}
+    results = attention_rows(dev, detail, "d96")
+    launches = {row: runs[fam].get(base, 0) for row, (base, fam) in D96_ROWS.items()}
+    for row, n in launches.items():
+        check(n > 0, f"rope: {row} never launched on {D96_ROWS[row][1]}'s path")
+    print("phase 20: d96 " + json.dumps(detail))
+    print(f"phase 20 took {time.perf_counter() - t0:.1f} s")
+    return launches, results
 
 
 def families_phase(dev, card: str) -> tuple[dict, dict]:
@@ -4568,7 +4886,7 @@ def families_phase(dev, card: str) -> tuple[dict, dict]:
     for name in FAMILIES:
         runs[name] = family_run(name, dev, card, rng)
     detail: dict = {}
-    results = d256_kernels(dev, detail)
+    results = attention_rows(dev, detail, "d256")
     launches = {row: runs[fam].get(base, 0) for row, (base, fam) in D256_ROWS.items()}
     for row, n in launches.items():
         check(n > 0, f"families: {row} never launched on {D256_ROWS[row][1]}'s path")
@@ -4699,6 +5017,10 @@ def main(argv: list[str]) -> int:
         d256_launches, d256 = families_phase(dev, card)
         launches.update(d256_launches)
         results.update(d256)
+    if "rope" in phases:
+        d96_launches, d96 = rope_phase(dev, card)
+        launches.update(d96_launches)
+        results.update(d96)
     print(f"total {time.perf_counter() - t_start:.1f} s after the build began, "
           f"{time.perf_counter() - t_script:.1f} s the whole script")
     if set(phases) != set(PHASES):
@@ -4707,7 +5029,8 @@ def main(argv: list[str]) -> int:
 
     print("launches_per_step " + json.dumps(per_step))
     summary = {"kernels": []}
-    sources = dict(SOURCES, **{row: SOURCES[base] for row, (base, _) in D256_ROWS.items()})
+    sources = dict(SOURCES, **{row: SOURCES[base]
+                               for row, (base, _) in {**D256_ROWS, **D96_ROWS}.items()})
     for name, (src, rep) in sources.items():
         summary["kernels"].append({"name": name, "route": "cuda", "source": src,
                                    "replaces": rep, "launches": launches[name],

@@ -78,13 +78,15 @@ __device__ __forceinline__ void bda_write_row(const Q* __restrict__ kn, const Q*
 
 // k_new, v_new, poss: the fused row write's operands, or null (no write).
 template <class Q, class KV, int D>
-__global__ void bda_kernel(const Q* __restrict__ q, KV* __restrict__ k_pool,
-                           KV* __restrict__ v_pool, __nv_bfloat16* __restrict__ k_scale,
-                           __nv_bfloat16* __restrict__ v_scale,
-                           const int* __restrict__ ctx_lens, const Q* __restrict__ k_new,
-                           const Q* __restrict__ v_new, const int* __restrict__ poss,
-                           float* __restrict__ part, int hq, int hk, int layer, int n_layers,
-                           int max_len, int n_split, float scale, float softcap, int window) {
+__device__ __forceinline__ void bda_body(const Q* __restrict__ q, KV* __restrict__ k_pool,
+                                         KV* __restrict__ v_pool,
+                                         __nv_bfloat16* __restrict__ k_scale,
+                                         __nv_bfloat16* __restrict__ v_scale,
+                                         const int* __restrict__ ctx_lens,
+                                         const Q* __restrict__ k_new, const Q* __restrict__ v_new,
+                                         const int* __restrict__ poss, float* __restrict__ part,
+                                         int hq, int hk, int layer, int n_layers, int max_len,
+                                         int n_split, float scale, float softcap, int window) {
   const int g_heads = hq / hk;
   const int b = blockIdx.y / hk;
   const int h = blockIdx.y % hk;
@@ -114,6 +116,28 @@ __global__ void bda_kernel(const Q* __restrict__ q, KV* __restrict__ k_pool,
       part + 2 * n + head0 * n_split * D);
 }
 
+#define PGK_BDA_PARAMS                                                                       \
+  const Q *__restrict__ q, KV *__restrict__ k_pool, KV *__restrict__ v_pool,                 \
+      __nv_bfloat16 *__restrict__ k_scale, __nv_bfloat16 *__restrict__ v_scale,              \
+      const int *__restrict__ ctx_lens, const Q *__restrict__ k_new,                         \
+      const Q *__restrict__ v_new, const int *__restrict__ poss, float *__restrict__ part,   \
+      int hq, int hk, int layer, int n_layers, int max_len, int n_split, float scale,        \
+      float softcap, int window
+#define PGK_BDA_ARGS                                                                         \
+  q, k_pool, v_pool, k_scale, v_scale, ctx_lens, k_new, v_new, poss, part, hq, hk, layer,    \
+      n_layers, max_len, n_split, scale, softcap, window
+
+// Up to 8 query heads a kv head (256 threads) the compiler takes the
+// registers it likes; 9 to 16 (512 threads) cap a thread at 128, or the
+// launch would ask for more than an SM holds.
+template <class Q, class KV, int D>
+__global__ void bda_kernel(PGK_BDA_PARAMS) { bda_body<Q, KV, D>(PGK_BDA_ARGS); }
+
+template <class Q, class KV, int D>
+__global__ void __launch_bounds__(512) bda_kernel_wide(PGK_BDA_PARAMS) {
+  bda_body<Q, KV, D>(PGK_BDA_ARGS);
+}
+
 template <class Q, class KV, int D>
 struct LaunchBda {
   static cudaError_t run(const void* q, const void* k_pool, const void* v_pool,
@@ -123,7 +147,8 @@ struct LaunchBda {
                          int max_len, int n_split, float scale, float softcap, int window,
                          cudaStream_t st) {
     return pgk_launch_attention<Q, KV, D>(
-        bda_kernel<Q, KV, D>, hq / hk, n_split, b * hk, b * hq, static_cast<float*>(part),
+        hq / hk > 8 ? bda_kernel_wide<Q, KV, D> : bda_kernel<Q, KV, D>, hq / hk, n_split,
+        b * hk, b * hq, static_cast<float*>(part),
         static_cast<Q*>(out), st, static_cast<const Q*>(q), (KV*)k_pool, (KV*)v_pool,
         (__nv_bfloat16*)k_scale, (__nv_bfloat16*)v_scale, static_cast<const int*>(ctx_lens),
         static_cast<const Q*>(k_new), static_cast<const Q*>(v_new),
@@ -142,7 +167,7 @@ struct LaunchBda {
 // n_split], then pacc [b*hq, n_split, d]). softcap <= 0 disables it, window
 // <= 0 means none. k_new, v_new [b, hk*d] in q's dtype and poss [b] int32:
 // the fused row write's operands (written in place first), or all null.
-// Requires d in {64, 128, 256}, hq % hk == 0, hq / hk <= 16, n_split >= 1,
+// Requires d in {64, 96, 128, 256}, hq % hk == 0, hq / hk <= 16, n_split >= 1,
 // 16-byte aligned pools.
 PGK_API int pgk_batch_decode_attention(const void* q, const void* k_pool, const void* v_pool,
                                        const void* k_scale, const void* v_scale,

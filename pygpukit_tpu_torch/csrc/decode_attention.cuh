@@ -213,7 +213,8 @@ __device__ __forceinline__ PgkAttnState<D> pgk_decode_attention_run(
   constexpr int kChunk = kPgkAttnChunk;
   constexpr int kEl = 16 / (int)sizeof(KV);   // elements per 16-byte vector
   constexpr int kDPL = D / 32;                // output dims per lane: lane * kDPL + j
-  // V elements a lane reads at once: its kDPL dims, in 16-byte pieces
+  // V elements a lane reads at once: its kDPL dims, in 16-byte pieces (an
+  // odd kDPL, 3 at D 96, reads them one at a time)
   constexpr int kVB = kDPL * (int)sizeof(KV) > 16 ? 16 / (int)sizeof(KV) : kDPL;
   extern __shared__ __align__(16) uint4 pgk_attn_smem[];
   uint4* ks = pgk_attn_smem;                                   // [stage][chunk][kRow]
@@ -336,17 +337,23 @@ __device__ __forceinline__ PgkAttnState<D> pgk_decode_attention_run(
 #pragma unroll
       for (int u = 0; u < 4; ++u) {
         const float pr = u == 0 ? p4.x : u == 1 ? p4.y : u == 2 ? p4.z : p4.w;
-        const PgkVec<KV, kVB>* vrow = reinterpret_cast<const PgkVec<KV, kVB>*>(
-            vt + (r4 + u) * L::kRow) + lane * (kDPL / kVB);
+        if constexpr (kDPL % 2 == 0) {
+          const PgkVec<KV, kVB>* vrow = reinterpret_cast<const PgkVec<KV, kVB>*>(
+              vt + (r4 + u) * L::kRow) + lane * (kDPL / kVB);
 #pragma unroll
-        for (int h = 0; h < kDPL; h += kVB) {
-          const PgkVec<KV, kVB> vv = vrow[h / kVB];
+          for (int h = 0; h < kDPL; h += kVB) {
+            const PgkVec<KV, kVB> vv = vrow[h / kVB];
 #pragma unroll
-          for (int j = 0; j < kVB; j += 2) {
-            const float2 vf = pgk_kv2_as_q<Q>(vv.v + j);
-            acc[h + j] += pr * vf.x;
-            acc[h + j + 1] += pr * vf.y;
+            for (int j = 0; j < kVB; j += 2) {
+              const float2 vf = pgk_kv2_as_q<Q>(vv.v + j);
+              acc[h + j] += pr * vf.x;
+              acc[h + j + 1] += pr * vf.y;
+            }
           }
+        } else {                           // the same exact converts, one element each
+          const KV* vrow = reinterpret_cast<const KV*>(vt + (r4 + u) * L::kRow) + lane * kDPL;
+#pragma unroll
+          for (int j = 0; j < kDPL; ++j) acc[j] += pr * pgk_kv_as_q<Q>(vrow[j]);
         }
       }
     }
@@ -513,6 +520,9 @@ __device__ __forceinline__ void pgk_attn_fold_last(unsigned* __restrict__ arriva
 // launch is mostly latency at the single-stream step's contexts, so the
 // code on that path is kept short: every warp's loads leave first, and the
 // fold computes each head's weights once.
+// D 96 (Phi-3) runs the D-128 shape with 6 k-steps of Q K^T and 12 n-tiles
+// of P V (208-byte padded rows: 13 16-byte units, odd, so ldmatrix's eight
+// rows still hit distinct banks), one stage a warp.
 // At D 256 a warp's tile is 32 rows (a 64-row tile of K and V is 66 KB, and
 // four warps' would pass the 227 KB a block may have), and the Q fragments
 // (64 registers at D 256, beside O's 128) are read from global memory (L1)
@@ -835,14 +845,14 @@ __device__ __forceinline__ void pgk_mma_fold_last(unsigned* __restrict__ arrival
 template <class Q, class KV, int D, class Kernel, class... Args>
 static cudaError_t pgk_launch_attention(Kernel kernel, int g, int n_split, int bh, int heads,
                                         float* part, Q* out, cudaStream_t st, Args... args) {
+  // set whatever the size: at exactly 48 KB (int8 rows at G 16) the int8
+  // writer's static reduction buffer would push the block past the default
   const size_t smem = PgkAttnSmem<KV, D>::bytes(g);
-  if (smem > 48 * 1024) {
-    cudaError_t e =
-        cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (e != cudaSuccess) return e;
-  }
+  cudaError_t e =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (e != cudaSuccess) return e;
   kernel<<<dim3(n_split, bh), g * 32, smem, st>>>(args...);
-  cudaError_t e = cudaGetLastError();
+  e = cudaGetLastError();
   if (e != cudaSuccess) return e;
   const size_t n = (size_t)heads * n_split;
   pgk_attn_combine_kernel<Q, D><<<heads, 32, 0, st>>>(part, part + n, part + 2 * n, out, n_split);
@@ -850,7 +860,7 @@ static cudaError_t pgk_launch_attention(Kernel kernel, int g, int n_split, int b
 }
 
 // Calls Launch<Q, KV, D>::run(args...) for the query kind (0 bf16, 1 f32),
-// the storage kind (kPgkKv*) and D in {64, 128, 256}.
+// the storage kind (kPgkKv*) and D in {64, 96, 128, 256}.
 template <template <class, class, int> class Launch, class Q, int D, class... A>
 static cudaError_t pgk_attn_dispatch_kv(int kv_kind, A... args) {
   switch (kv_kind) {
@@ -868,6 +878,9 @@ static cudaError_t pgk_attn_dispatch(int q_kind, int kv_kind, int d, A... args) 
   if (d == 64) {
     if (q_kind == 0) return pgk_attn_dispatch_kv<Launch, __nv_bfloat16, 64>(kv_kind, args...);
     if (q_kind == 1) return pgk_attn_dispatch_kv<Launch, float, 64>(kv_kind, args...);
+  } else if (d == 96) {
+    if (q_kind == 0) return pgk_attn_dispatch_kv<Launch, __nv_bfloat16, 96>(kv_kind, args...);
+    if (q_kind == 1) return pgk_attn_dispatch_kv<Launch, float, 96>(kv_kind, args...);
   } else if (d == 128) {
     if (q_kind == 0) return pgk_attn_dispatch_kv<Launch, __nv_bfloat16, 128>(kv_kind, args...);
     if (q_kind == 1) return pgk_attn_dispatch_kv<Launch, float, 128>(kv_kind, args...);

@@ -37,6 +37,12 @@
 // each) take 193 KB of the 227 KB a block may have, where 128-key tiles
 // would take 320 KB; a consumer thread holds O's 64 x 256 f32 block in
 // 128 registers.
+// At D 96 (Phi-3) the rows are not whole 128-byte sub-tiles: Q, K and V
+// arrive as three 32-column sub-tiles under the 64-byte swizzle (64-byte
+// TMA boxes; descriptors of layout type 2, 512-byte 8-row groups), S =
+// Q.K^T takes 6 k-steps of m64n128k16 and P.V is one m64n96k16 a k-step
+// (V's LBO the 32-column sub-tile's bytes); O is 48 registers a thread and
+// the key tile stays 128 (123 KB of shared memory).
 // Each consumer runs S, softmax and P.V of a tile one after another. FA3's
 // overlap of one tile's softmax with the next tile's products, and its
 // ping-pong turn between the consumers, both measured slower or no faster
@@ -65,7 +71,9 @@ constexpr int kFaConsumers = 256;
 template <int D>
 struct FaLayout {
   static constexpr int kBN = D > 128 ? 64 : 128;           // keys per tile
-  static constexpr int kSub = D / 64;                      // 64-column (128-byte) sub-tiles
+  static constexpr int kCols = D % 64 == 0 ? 64 : 32;      // columns of a swizzled sub-tile
+  static constexpr int kSw = kCols * 2;                    // its row bytes: the swizzle span
+  static constexpr int kSub = D / kCols;                   // sub-tiles a row
   static constexpr int kQBytes = kFaBM * D * 2;
   static constexpr int kTileBytes = kBN * D * 2;           // one K or V tile
   static constexpr int kBarOff = kQBytes + 2 * kFaStages * kTileBytes;
@@ -83,6 +91,10 @@ __device__ __forceinline__ void wgmma_pv(float (&o)[D / 2], const uint32_t (&a)[
 template <>
 __device__ __forceinline__ void wgmma_pv<64>(float (&o)[32], const uint32_t (&a)[4], uint64_t db) {
   wgmma_rs_m64n64_tb(o, a, db);
+}
+template <>
+__device__ __forceinline__ void wgmma_pv<96>(float (&o)[48], const uint32_t (&a)[4], uint64_t db) {
+  wgmma_rs_m64n96_tb(o, a, db);
 }
 template <>
 __device__ __forceinline__ void wgmma_pv<128>(float (&o)[64], const uint32_t (&a)[4],
@@ -173,13 +185,24 @@ __device__ __forceinline__ void fa_softmax(const float (&sc)[kBN / 2], uint32_t 
     fa_softmax_tile<kBN, false>(sc, pa, m_i, l_i, alpha, kv0, s, causal, r0, r1, t, scale_log2);
 }
 
+// A descriptor of D's sub-tiles: the 128-byte swizzle, or the 64-byte one
+// of 32-column rows; SBO one 8-row group.
+template <int D>
+__device__ __forceinline__ uint64_t fa_desc(const bf16* p, uint32_t lbo_bytes) {
+  constexpr int kSw = FaLayout<D>::kSw;
+  return kSw == 128 ? wgmma_desc_sw128(p, lbo_bytes, 8 * kSw)
+                    : wgmma_desc_sw64(p, lbo_bytes, 8 * kSw);
+}
+
 template <int D, int kBN = FaLayout<D>::kBN>
 __device__ __forceinline__ void fa_issue_s(float (&sc)[kBN / 2], const bf16* qw, const bf16* kt) {
+  constexpr int kCols = FaLayout<D>::kCols;
+  constexpr int kSteps = kCols / 16;                       // k-steps a sub-tile
 #pragma unroll
   for (int kk = 0; kk < D / 16; ++kk) {
-    const int sub = kk >> 2, kin = (kk & 3) * 16;
-    wgmma_qk<kBN>(sc, wgmma_desc_sw128(qw + sub * kFaBM * 64 + kin, 16, 1024),
-                  wgmma_desc_sw128(kt + sub * kBN * 64 + kin, 16, 1024), kk > 0);
+    const int sub = kk / kSteps, kin = (kk % kSteps) * 16;
+    wgmma_qk<kBN>(sc, fa_desc<D>(qw + sub * kFaBM * kCols + kin, 16),
+                  fa_desc<D>(kt + sub * kBN * kCols + kin, 16), kk > 0);
   }
   wgmma_commit();
 }
@@ -187,9 +210,10 @@ __device__ __forceinline__ void fa_issue_s(float (&sc)[kBN / 2], const bf16* qw,
 template <int D, int kBN = FaLayout<D>::kBN>
 __device__ __forceinline__ void fa_issue_pv(float (&o)[D / 2], const uint32_t (&pa)[kBN / 16][4],
                                             const bf16* vt) {
+  constexpr int kCols = FaLayout<D>::kCols;
 #pragma unroll
   for (int kk = 0; kk < kBN / 16; ++kk)
-    wgmma_pv<D>(o, pa[kk], wgmma_desc_sw128(vt + kk * 16 * 64, kBN * 128, 1024));
+    wgmma_pv<D>(o, pa[kk], fa_desc<D>(vt + kk * 16 * kCols, kBN * kCols * 2));
   wgmma_commit();
 }
 
@@ -213,8 +237,8 @@ flash_bf16_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant_
   constexpr int kFaBN = L::kBN;
   extern __shared__ __align__(1024) unsigned char fa_raw[];
   unsigned char* base = fa_raw + ((1024 - (smem_u32(fa_raw) & 1023)) & 1023);
-  bf16* qs = reinterpret_cast<bf16*>(base);                        // [kSub][kFaBM][64]
-  bf16* ks = reinterpret_cast<bf16*>(base + L::kQBytes);           // [stage][kSub][kFaBN][64]
+  bf16* qs = reinterpret_cast<bf16*>(base);                        // [kSub][kFaBM][kCols]
+  bf16* ks = reinterpret_cast<bf16*>(base + L::kQBytes);           // [stage][kSub][kFaBN][kCols]
   bf16* vs = ks + kFaStages * kFaBN * D;
   uint64_t* q_full = reinterpret_cast<uint64_t*>(base + L::kBarOff);
   uint64_t* k_full = q_full + 1;
@@ -249,20 +273,20 @@ flash_bf16_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant_
     if (threadIdx.x == 0) {
       mbar_arrive_expect_tx(q_full, L::kQBytes);
       for (int sub = 0; sub < L::kSub; ++sub)
-        tma_load_2d(qs + sub * kFaBM * 64, &tq, q_full, h * D + sub * 64, q0);
+        tma_load_2d(qs + sub * kFaBM * L::kCols, &tq, q_full, h * D + sub * L::kCols, q0);
       for (int j = 0; j <= last; ++j) {
         const int st = j % kFaStages;
         const uint32_t free_ph = ((j / kFaStages) & 1) ^ 1;
         mbar_wait(&k_empty[st], free_ph);
         mbar_arrive_expect_tx(&k_full[st], L::kTileBytes);
         for (int sub = 0; sub < L::kSub; ++sub)
-          tma_load_2d(ks + st * kFaBN * D + sub * kFaBN * 64, &tk, &k_full[st],
-                      kvh * D + sub * 64, j * kFaBN);
+          tma_load_2d(ks + st * kFaBN * D + sub * kFaBN * L::kCols, &tk, &k_full[st],
+                      kvh * D + sub * L::kCols, j * kFaBN);
         mbar_wait(&v_empty[st], free_ph);
         mbar_arrive_expect_tx(&v_full[st], L::kTileBytes);
         for (int sub = 0; sub < L::kSub; ++sub)
-          tma_load_2d(vs + st * kFaBN * D + sub * kFaBN * 64, &tv, &v_full[st],
-                      kvh * D + sub * 64, j * kFaBN);
+          tma_load_2d(vs + st * kFaBN * D + sub * kFaBN * L::kCols, &tv, &v_full[st],
+                      kvh * D + sub * L::kCols, j * kFaBN);
       }
     }
   } else {
@@ -273,7 +297,7 @@ flash_bf16_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant_
     const int g = lane >> 2, t = lane & 3;
     const int q_lo = q0 + cwg * 64;
     const int r0 = q_lo + warp * 16 + g, r1 = r0 + 8;             // this thread's two rows
-    const bf16* qw = qs + cwg * 64 * 64;                          // its 64 rows of each sub-tile
+    const bf16* qw = qs + cwg * 64 * L::kCols;                    // its 64 rows of each sub-tile
 
     float oacc[D / 2];
 #pragma unroll
@@ -437,10 +461,13 @@ cudaError_t launch_flash(const void* q, const void* k, const void* v, void* out,
     return cudaGetLastError();
   }
   CUtensorMap tq, tk, tv;
+  using L = FaLayout<D>;
   const uint64_t qrow = (uint64_t)hq * D, kvrow = (uint64_t)hk * D;
-  cudaError_t e = pgk_tensor_map_bf16(&tq, q, qrow, s, qrow * 2, 64, kFaBM);
-  if (e == cudaSuccess) e = pgk_tensor_map_bf16(&tk, k, kvrow, s, kvrow * 2, 64, FaLayout<D>::kBN);
-  if (e == cudaSuccess) e = pgk_tensor_map_bf16(&tv, v, kvrow, s, kvrow * 2, 64, FaLayout<D>::kBN);
+  const CUtensorMapSwizzle sw =
+      L::kSw == 128 ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_64B;
+  cudaError_t e = pgk_tensor_map_bf16(&tq, q, qrow, s, qrow * 2, L::kCols, kFaBM, sw);
+  if (e == cudaSuccess) e = pgk_tensor_map_bf16(&tk, k, kvrow, s, kvrow * 2, L::kCols, L::kBN, sw);
+  if (e == cudaSuccess) e = pgk_tensor_map_bf16(&tv, v, kvrow, s, kvrow * 2, L::kCols, L::kBN, sw);
   if (e != cudaSuccess) return e;
   constexpr int smem = FaLayout<D>::kBytes;
   e = cudaFuncSetAttribute(flash_bf16_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -456,13 +483,14 @@ cudaError_t launch_flash(const void* q, const void* k, const void* v, void* out,
 
 // q [s, hq, d], k and v [s, hk, d], out [s, hq, d]; contiguous, 16-byte
 // aligned, all bf16 (is_f32 == 0) or all f32. causal masks keys > query.
-// Requires s >= 1, d in {64, 128, 256}, hq % hk == 0.
+// Requires s >= 1, d in {64, 96, 128, 256}, hq % hk == 0.
 PGK_API int pgk_flash_attention(const void* q, const void* k, const void* v, void* out, int s,
                                 int hq, int hk, int d, int causal, int is_f32, float scale,
                                 void* stream) {
   if (s < 1 || hk < 1 || hq % hk != 0) return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (d == 64) return (int)launch_flash<64>(q, k, v, out, s, hq, hk, causal, is_f32, scale, st);
+  if (d == 96) return (int)launch_flash<96>(q, k, v, out, s, hq, hk, causal, is_f32, scale, st);
   if (d == 128) return (int)launch_flash<128>(q, k, v, out, s, hq, hk, causal, is_f32, scale, st);
   if (d == 256) return (int)launch_flash<256>(q, k, v, out, s, hq, hk, causal, is_f32, scale, st);
   return (int)cudaErrorInvalidValue;

@@ -157,12 +157,11 @@ cudaError_t launch_decode(const void* q, const void* kc, const void* vc, const i
                                                max_len, n_split, scale, st);
   const auto kernel =
       g <= 16 ? &flash_decode_kernel<Q, D, 512> : &flash_decode_kernel<Q, D, 1024>;
+  // set whatever the size: the fold's static ticket word counts beside it
   const size_t smem = PgkAttnSmem<Q, D>::bytes(g);
-  if (smem > 48 * 1024) {
-    cudaError_t e =
-        cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (e != cudaSuccess) return e;
-  }
+  cudaError_t e =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (e != cudaSuccess) return e;
   kernel<<<dim3(n_split, hk), g * 32, smem, st>>>(
       static_cast<const Q*>(q), static_cast<const Q*>(kc), static_cast<const Q*>(vc), ctx_dev,
       ctx_val, static_cast<Q*>(out), static_cast<float*>(part), hq, hk, max_len, n_split, scale);
@@ -176,7 +175,7 @@ cudaError_t launch_decode(const void* q, const void* kc, const void* vc, const i
 // int32 on the device) when ctx_dev is not null, else ctx_val; below 0 it
 // counts as 0 (zeros out), above max_len as max_len. part: hq * n_split *
 // (d + 2) f32 scratch; n_split >= 1 from the shapes alone. Requires d in
-// {64, 128, 256}, hq % hk == 0, hq / hk <= 32, hk <= 4096 (max_len 0: zeros).
+// {64, 96, 128, 256}, hq % hk == 0, hq / hk <= 32, hk <= 4096 (max_len 0: zeros).
 PGK_API int pgk_flash_decode(const void* q, const void* kc, const void* vc, const void* ctx_dev,
                              int ctx_val, void* out, void* part, int hq, int hk, int d,
                              int max_len, int n_split, int is_f32, float scale, void* stream) {
@@ -188,6 +187,11 @@ PGK_API int pgk_flash_decode(const void* q, const void* kc, const void* vc, cons
     return is_f32 ? (int)launch_decode<float, 64>(q, kc, vc, cd, ctx_val, out, part, hq, hk,
                                                   max_len, n_split, scale, st)
                   : (int)launch_decode<__nv_bfloat16, 64>(q, kc, vc, cd, ctx_val, out, part,
+                                                          hq, hk, max_len, n_split, scale, st);
+  if (d == 96)
+    return is_f32 ? (int)launch_decode<float, 96>(q, kc, vc, cd, ctx_val, out, part, hq, hk,
+                                                  max_len, n_split, scale, st)
+                  : (int)launch_decode<__nv_bfloat16, 96>(q, kc, vc, cd, ctx_val, out, part,
                                                           hq, hk, max_len, n_split, scale, st);
   if (d == 128)
     return is_f32 ? (int)launch_decode<float, 128>(q, kc, vc, cd, ctx_val, out, part, hq, hk,

@@ -6,7 +6,10 @@
 // Shared-memory layout they assume: a 2-D tile of 16-bit values whose rows
 // are 64 elements (128 bytes), written by TMA with the 128-byte swizzle (the
 // 16-byte chunk c of row r lands at chunk c ^ (r % 8)) into a 1024-byte
-// aligned buffer. A wider tile is a row of such 64-column sub-tiles.
+// aligned buffer. A wider tile is a row of such 64-column sub-tiles. A
+// width that is not a multiple of 64 (D 96) takes 32-column (64-byte) rows
+// under the 64-byte swizzle (chunk c of row r at c ^ (r / 2 % 4)), whose
+// descriptors use layout type 2 and an 8-row group of 512 bytes.
 // - As a K-major operand ([rows][K], K contiguous: Q and K of attention, A
 //   and B^T of a GEMM) its descriptor has SBO = 1024 bytes (one 8-row
 //   group) and steps 16 K elements by adding 32 bytes to the start address.
@@ -181,10 +184,12 @@ inline cudaError_t pgk_tensor_map_bf16_nd(
 // of box_inner x box_outer.
 inline cudaError_t pgk_tensor_map_bf16(CUtensorMap* map, const void* base, uint64_t inner,
                                        uint64_t outer, uint64_t row_bytes, uint32_t box_inner,
-                                       uint32_t box_outer) {
+                                       uint32_t box_outer,
+                                       CUtensorMapSwizzle swizzle = CU_TENSOR_MAP_SWIZZLE_128B) {
   const uint64_t dims[2] = {inner, outer}, strides[1] = {row_bytes};
   const uint32_t box[2] = {box_inner, box_outer};
-  return pgk_tensor_map_bf16_nd(map, base, 2, dims, strides, box);
+  return pgk_tensor_map_bf16_nd(map, base, 2, dims, strides, box,
+                                CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, swizzle);
 }
 
 // A 3-D map over `outer` matrices of `mid` rows of `inner` elements (rows
@@ -222,6 +227,12 @@ __device__ __forceinline__ uint64_t wgmma_desc_sw128(const void* p, uint32_t lbo
   d |= (uint64_t)((sbo_bytes >> 4) & 0x3FFF) << 32;
   d |= (uint64_t)1 << 62;
   return d;
+}
+
+// The same for 32-column rows under the 64-byte swizzle (layout type 2).
+__device__ __forceinline__ uint64_t wgmma_desc_sw64(const void* p, uint32_t lbo_bytes,
+                                                    uint32_t sbo_bytes) {
+  return (wgmma_desc_sw128(p, lbo_bytes, sbo_bytes) & ~((uint64_t)3 << 62)) | (uint64_t)2 << 62;
 }
 
 __device__ __forceinline__ void wgmma_fence() {
@@ -310,6 +321,22 @@ __device__ __forceinline__ void wgmma_rs_m64n64_tb(float (&d)[32], const uint32_
         "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
         "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
         "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+// d[48] += A (64 x 16, registers) * B (16 x 96, MN-major in shared: the transpose bit).
+__device__ __forceinline__ void wgmma_rs_m64n96_tb(float (&d)[48], const uint32_t (&a)[4], uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %53, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n96k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47}, "
+      "{%48, %49, %50, %51}, %52, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
 }
 

@@ -33,14 +33,15 @@ struct PagedRows {
 };
 
 template <class Q, class KV, int D>
-__global__ void paged_attention_kernel(const Q* __restrict__ q, const KV* __restrict__ k_pool,
-                                       const KV* __restrict__ v_pool,
-                                       const __nv_bfloat16* __restrict__ k_scale,
-                                       const __nv_bfloat16* __restrict__ v_scale,
-                                       const int* __restrict__ tables,
-                                       const int* __restrict__ ctx_lens, float* __restrict__ part,
-                                       int hq, int hk, int bs, int max_blocks, int n_split,
-                                       float scale, float softcap, int window) {
+__device__ __forceinline__ void paged_body(const Q* __restrict__ q, const KV* __restrict__ k_pool,
+                                           const KV* __restrict__ v_pool,
+                                           const __nv_bfloat16* __restrict__ k_scale,
+                                           const __nv_bfloat16* __restrict__ v_scale,
+                                           const int* __restrict__ tables,
+                                           const int* __restrict__ ctx_lens,
+                                           float* __restrict__ part, int hq, int hk, int bs,
+                                           int max_blocks, int n_split, float scale,
+                                           float softcap, int window) {
   const int g_heads = hq / hk;
   const int b = blockIdx.y / hk;
   const int h = blockIdx.y % hk;
@@ -57,6 +58,26 @@ __global__ void paged_attention_kernel(const Q* __restrict__ q, const KV* __rest
       part + n + head0 * n_split, part + 2 * n + head0 * n_split * D);
 }
 
+#define PGK_PAGED_PARAMS                                                                     \
+  const Q *__restrict__ q, const KV *__restrict__ k_pool, const KV *__restrict__ v_pool,     \
+      const __nv_bfloat16 *__restrict__ k_scale, const __nv_bfloat16 *__restrict__ v_scale,  \
+      const int *__restrict__ tables, const int *__restrict__ ctx_lens,                      \
+      float *__restrict__ part, int hq, int hk, int bs, int max_blocks, int n_split,         \
+      float scale, float softcap, int window
+#define PGK_PAGED_ARGS                                                                       \
+  q, k_pool, v_pool, k_scale, v_scale, tables, ctx_lens, part, hq, hk, bs, max_blocks,       \
+      n_split, scale, softcap, window
+
+// As batch_decode_attention.cu: 9 to 16 query heads a kv head (512
+// threads) cap a thread at 128 registers.
+template <class Q, class KV, int D>
+__global__ void paged_attention_kernel(PGK_PAGED_PARAMS) { paged_body<Q, KV, D>(PGK_PAGED_ARGS); }
+
+template <class Q, class KV, int D>
+__global__ void __launch_bounds__(512) paged_attention_kernel_wide(PGK_PAGED_PARAMS) {
+  paged_body<Q, KV, D>(PGK_PAGED_ARGS);
+}
+
 template <class Q, class KV, int D>
 struct LaunchPaged {
   static cudaError_t run(const void* q, const void* k_pool, const void* v_pool,
@@ -65,7 +86,8 @@ struct LaunchPaged {
                          int bs, int max_blocks, int n_split, float scale, float softcap,
                          int window, cudaStream_t st) {
     return pgk_launch_attention<Q, KV, D>(
-        paged_attention_kernel<Q, KV, D>, hq / hk, n_split, b * hk, b * hq,
+        hq / hk > 8 ? paged_attention_kernel_wide<Q, KV, D> : paged_attention_kernel<Q, KV, D>,
+        hq / hk, n_split, b * hk, b * hq,
         static_cast<float*>(part), static_cast<Q*>(out), st, static_cast<const Q*>(q),
         static_cast<const KV*>(k_pool), static_cast<const KV*>(v_pool),
         static_cast<const __nv_bfloat16*>(k_scale), static_cast<const __nv_bfloat16*>(v_scale),
@@ -81,7 +103,7 @@ struct LaunchPaged {
 // v_scale, else those may be null); tables [b, max_blocks] int32 physical
 // block ids; ctx_lens [b] int32; out [b, hq, d] in q's dtype; part: b * hq *
 // n_split * (d + 2) f32 scratch. softcap <= 0 disables it, window <= 0 means
-// none. Requires d in {64, 128, 256}, hq % hk == 0, hq / hk <= 16, n_split >= 1,
+// none. Requires d in {64, 96, 128, 256}, hq % hk == 0, hq / hk <= 16, n_split >= 1,
 // 16-byte aligned pools.
 PGK_API int pgk_paged_attention(const void* q, const void* k_pool, const void* v_pool,
                                 const void* k_scale, const void* v_scale, const void* tables,

@@ -7,7 +7,7 @@ one query row ``[1, Hq, D]`` over fixed caches ``[MAX, Hk, D]`` whose rows
 ``[0, ctx_len)`` are live. Both keep the reference kernels' arithmetic: f32
 scores and running state, P rounded to the input dtype before P@V, the sum
 floored at 1e-30. CUDA tensors launch ``csrc/flash_attention.cu`` and
-``csrc/flash_decode.cu`` (bf16 or f32, D 64, 128 or 256) or raise; CPU tensors
+``csrc/flash_decode.cu`` (bf16 or f32, D 64, 96, 128 or 256) or raise; CPU tensors
 take the plain versions, which compute the same full softmax with P rounded
 the same way (the kernels' online form rounds P against a running maximum,
 so the two agree to bf16 rounding, and to f32 summation order in f32).
@@ -44,7 +44,7 @@ MAX_KV_HEADS = 4096
 #: warp, both in flight), and the blocks it aims at (one an SM)
 DECODE_MMA_CHUNKS, DECODE_MMA_BLOCKS = 8, 132
 #: the head dims both kernels are built for
-HEAD_DIMS = (64, 128, 256)
+HEAD_DIMS = (64, 96, 128, 256)
 #: query rows per step of flash_attention_plain (bounds its score memory)
 _PLAIN_Q_BLOCK = 512
 

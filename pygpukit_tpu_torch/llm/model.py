@@ -117,8 +117,10 @@ from ..kernels.gemv_quant import GEMV_MAX_ROWS
 from ..ops.embedding import kv_cache_zeros, kv_leaf, kv_write
 from ..ops.matmul import int8_dot
 from ..ops.moe import select_moe_fn
-from ..ops.nn import (apply_rope_fn, flash_attention_fn, gelu_fn, layernorm_fn,
-                      rmsnorm_fn, rope_tables, sdpa_fixed_cache_fn, swiglu_fn)
+from ..ops.nn import (apply_rope_fn, apply_rope_interleaved_fn, flash_attention_fn,
+                      gelu_fn, layernorm_fn, rmsnorm_fn, rope_tables, rope_tables_linear,
+                      rope_tables_llama3, rope_tables_longrope, rope_tables_ntk_aware,
+                      rope_tables_yarn, sdpa_fixed_cache_fn, swiglu_fn)
 from ..ops.sampling import (sample_greedy_fn, sample_temperature_fn,
                             sample_topk_fn, sample_topp_fn)
 from .buffers import DecodeBuffers, PrefillBuffers
@@ -161,14 +163,12 @@ def check_supported(cfg: TransformerConfig) -> None:
     Llama/Mistral/Mixtral block and the Qwen2 (biases), Qwen3 and
     Qwen3-MoE (per-head q/k norm), GPT-2 (layernorm, learned positions,
     gelu) and Gemma-2/3 (sandwich norms, embedding scale, softcaps, local
-    rope tables, GeGLU) features."""
+    rope tables, GeGLU) features, and every rope variant: scaled tables
+    (yarn, llama3, longrope, linear, ntk), interleaved and partial rotary
+    and NoPE layers (Llama-3.x, Phi-3, GLM-4, Ernie 4.5, SmolLM3)."""
     missing = [name for name, on in (
         ("post-norm-only blocks", not cfg.pre_norms),
         ("parallel blocks", cfg.parallel_block),
-        ("interleaved rope", cfg.rope_interleaved),
-        ("partial rotary", cfg.rope_partial_factor != 1.0),
-        ("scaled rope", bool(cfg.rope_scaling)),
-        ("per-layer rope switches (NoPE layers)", cfg.rope_layers is not None),
         ("residual multiplier", cfg.residual_multiplier is not None),
         ("logit scale", cfg.logit_scale is not None),
         ("wide qk norm", cfg.use_qk_norm and cfg.qk_norm_wide),
@@ -182,19 +182,20 @@ def check_supported(cfg: TransformerConfig) -> None:
 #: the MoE expert stacks [L, E, in, out]: bf16 or f32 tensors, or
 #: {"q", "scale"} fp8/int8 dicts
 _EXPERT_LEAVES = {"w_experts_gate", "w_experts_up", "w_experts_down"}
-#: the leaves the slice takes (``attn_window`` and ``use_local_rope`` hold
-#: what the config states, which the steps read); a param tree with others
-#: (the lm-head bias, NoPE switches, learned activations) is refused rather
-#: than partly ignored
+#: the leaves the slice takes (``attn_window``, ``use_local_rope`` and
+#: ``use_rope_layer`` hold what the config states, which the steps read); a
+#: param tree with others (the lm-head bias, learned activations) is
+#: refused rather than partly ignored
 _LAYER_LEAVES = {"w_qkv", "w_q", "w_k", "w_v", "w_o", "w_gate_up", "w_gate",
                  "w_up", "w_down", "attn_norm_w", "mlp_norm_w", "attn_window",
                  "w_qkv_cat", "w_gu_cat", "w_router",
                  "b_q", "b_k", "b_v", "b_qkv", "b_o", "w_q_norm", "w_k_norm",
                  "post_attn_norm_w", "post_mlp_norm_w", "attn_norm_b", "mlp_norm_b",
-                 "w_fc1", "w_fc2", "b_fc1", "b_fc2", "use_local_rope"} | _EXPERT_LEAVES
+                 "w_fc1", "w_fc2", "b_fc1", "b_fc2", "use_local_rope",
+                 "use_rope_layer"} | _EXPERT_LEAVES
 _TOP_LEAVES = {"embed", "final_norm_w", "lm_head", "layers", "rope_cos",
                "rope_sin", "pos_embed", "final_norm_b", "rope_cos_local",
-               "rope_sin_local"}
+               "rope_sin_local", "rope_cos_long", "rope_sin_long", "rope_long_threshold"}
 
 
 #: weight leaf kinds: dict keys -> the storage dtypes of "q"/"q_packed"
@@ -334,6 +335,66 @@ def _take_rows(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     return torch.where(ok[:, None], rows, torch.full_like(rows, float("nan")))
 
 
+def rope_tables_for(cfg: TransformerConfig, device) -> dict:
+    """The model's rope leaves (reference ``CausalTransformerModel.__init__``),
+    [max_position_embeddings, rope_dim] f32 on ``device``: ``rope_cos`` /
+    ``rope_sin`` from ``rope_scaling``'s type (yarn, llama3, longrope's
+    short factors, linear, ntk or dynamic, else standard); for longrope
+    with max_position_embeddings past original_max, the long factors'
+    ``rope_cos_long`` / ``rope_sin_long`` and ``rope_long_threshold`` (the
+    original_max, an int32 scalar); for Gemma-3 the unscaled local tables
+    ``rope_cos_local`` / ``rope_sin_local``. Partial rotary builds them at
+    ``rope_dim``."""
+    scaling = cfg.rope_scaling or {}
+    st = scaling.get("type", scaling.get("rope_type", ""))
+    n, d, theta = cfg.max_position_embeddings, cfg.rope_dim, cfg.rope_theta
+    out: dict = {}
+    if st == "yarn":
+        cos, sin = rope_tables_yarn(
+            n, d, theta, scaling.get("factor", 1.0),
+            scaling.get("original_max_position_embeddings", n),
+            beta_fast=scaling.get("beta_fast") or 32.0,
+            beta_slow=scaling.get("beta_slow") or 1.0, mscale=scaling.get("mscale"),
+            mscale_all_dim=scaling.get("mscale_all_dim"),
+            attention_factor=scaling.get("attention_factor"),
+            truncate=scaling.get("truncate", True), device=device)
+    elif st == "llama3":
+        cos, sin = rope_tables_llama3(
+            n, d, theta, scaling.get("factor", 8.0),
+            scaling.get("original_max_position_embeddings", 8192),
+            scaling.get("low_freq_factor", 1.0), scaling.get("high_freq_factor", 4.0),
+            device=device)
+    elif st == "longrope":
+        # HF switches the factor set per forward by its total length
+        # against original_max: both pairs, and the threshold, are leaves
+        orig = int(scaling.get("original_max_position_embeddings", n))
+        factor = n / orig
+        attn_f = scaling.get("attention_factor")
+        if attn_f is None:
+            attn_f = (1.0 if factor <= 1.0 else
+                      math.sqrt(1 + math.log(factor) / math.log(orig)))
+        cos, sin = rope_tables_longrope(n, d, theta,
+                                        scaling.get("short_factor", [1.0] * (d // 2)),
+                                        attn_f, device=device)
+        if n > orig and "long_factor" in scaling:
+            out["rope_cos_long"], out["rope_sin_long"] = rope_tables_longrope(
+                n, d, theta, scaling["long_factor"], attn_f, device=device)
+            out["rope_long_threshold"] = torch.tensor(orig, dtype=torch.int32,
+                                                      device=device)
+    elif st == "linear":
+        cos, sin = rope_tables_linear(n, d, theta, scaling.get("factor", 1.0), device=device)
+    elif st in ("ntk", "dynamic"):
+        cos, sin = rope_tables_ntk_aware(n, d, theta, scaling.get("factor", 1.0),
+                                         device=device)
+    else:
+        cos, sin = rope_tables(n, d, theta, device=device)
+    out["rope_cos"], out["rope_sin"] = cos, sin
+    if cfg.rope_local_theta is not None:
+        out["rope_cos_local"], out["rope_sin_local"] = rope_tables(
+            n, d, cfg.rope_local_theta, device=device)
+    return out
+
+
 @dataclass
 class _RopeRows:
     """The rope rows of a step: the global tables' and, for a model with
@@ -344,20 +405,44 @@ class _RopeRows:
     sin_local: torch.Tensor | None = None
 
 
-def _rope_rows_for(params: dict, pos, t: int) -> _RopeRows:
-    """Rope rows pos..pos+t-1 of every table (``_table_rows``' clamps)."""
+def _long_select(params: dict, rows: torch.Tensor, name: str, pos, t: int,
+                 total_len) -> torch.Tensor:
+    """LongRoPE's switch: ``name``'s rows where ``total_len`` (an int, or a
+    device tensor of one length or of one per row) passes the threshold,
+    ``rows`` elsewhere. A device-side select: no host read, so one captured
+    program serves both regimes."""
+    use_long = params["rope_long_threshold"] < total_len
+    return torch.where(use_long.reshape(-1, 1), _table_rows(params[name], pos, t), rows)
+
+
+def _rope_rows_for(params: dict, pos, t: int, total_len) -> _RopeRows:
+    """Rope rows pos..pos+t-1 of every table (``_table_rows``' clamps) for a
+    forward whose total length is ``total_len`` (reference
+    ``_rope_rows_for``): a LongRoPE model (Phi-3) takes its long tables'
+    rows where that length exceeds ``rope_long_threshold``, HF's per-forward
+    switch; for the batch-rows steps ``pos`` and ``total_len`` are [B]
+    tensors and each row decides alone."""
     local = "rope_cos_local" in params
+    cos = _table_rows(params["rope_cos"], pos, t)
+    sin = _table_rows(params["rope_sin"], pos, t)
+    if "rope_cos_long" in params:
+        cos = _long_select(params, cos, "rope_cos_long", pos, t, total_len)
+        sin = _long_select(params, sin, "rope_sin_long", pos, t, total_len)
     return _RopeRows(
-        _table_rows(params["rope_cos"], pos, t), _table_rows(params["rope_sin"], pos, t),
+        cos, sin,
         _table_rows(params["rope_cos_local"], pos, t) if local else None,
         _table_rows(params["rope_sin_local"], pos, t) if local else None)
 
 
 def _layer_rope(cfg: TransformerConfig, i: int, rows: _RopeRows):
     """(cos, sin) of layer ``i`` (reference ``_layer_rope``): Gemma-3's
-    sliding layers rotate with the local tables. The choice is the
-    config's (``layer_types``, as the ``use_local_rope`` leaf holds it),
-    made on the host, as ``_layer_window`` makes the window's."""
+    sliding layers rotate with the local tables, SmolLM3's NoPE layers
+    with identity tables (cos 1, sin 0: a rotation by zero). Both choices
+    are the config's (``layer_types`` and ``rope_layers``, as the
+    ``use_local_rope`` and ``use_rope_layer`` leaves hold them), made on the
+    host, as ``_layer_window`` makes the window's."""
+    if cfg.rope_layers is not None and not cfg.rope_layers[i]:
+        return torch.ones_like(rows.cos), torch.zeros_like(rows.sin)
     if (rows.cos_local is not None and cfg.layer_types is not None
             and cfg.layer_types[i] == "sliding_attention"):
         return rows.cos_local, rows.sin_local
@@ -379,7 +464,17 @@ def _final_norm(cfg: TransformerConfig, params: dict, h):
 
 
 def _rope(cfg: TransformerConfig, x, cos, sin):
-    return apply_rope_fn(x, cos, sin)
+    """Rope in the model's convention (reference ``_rope``): split-half, or
+    interleaved even/odd pairs (GLM-4, Ernie 4.5); with partial rotary
+    (GLM-4) only the first ``rope_dim`` dims rotate and the tail passes
+    through (the tables are [S, rope_dim])."""
+    rd = cfg.rope_dim
+    x_rot = x if rd == x.shape[-1] else x[..., :rd]
+    fn = apply_rope_interleaved_fn if cfg.rope_interleaved else apply_rope_fn
+    out = fn(x_rot, cos, sin)
+    if rd != x.shape[-1]:
+        out = torch.cat([out, x[..., rd:]], dim=-1)
+    return out
 
 
 def _rope_qk(cfg: TransformerConfig, i: int, rows: _RopeRows | None, q, k):
@@ -527,7 +622,9 @@ def layer_stack_fn(cfg: TransformerConfig, layers: dict, h: torch.Tensor,
                    rope_sin_local=None) -> torch.Tensor:
     """Run h [S, E] through the stacked layers (a Python loop over the layer
     views); attention through ``flash_attention_fn`` (route rule above).
-    The local tables (Gemma-3) rotate the sliding layers."""
+    The tables' first S rows rotate positions 0..S-1 (``forward_fn`` passes
+    LongRoPE's rows already chosen); the local tables (Gemma-3) rotate the
+    sliding layers."""
     s = h.shape[0]
     rows = None
     if cfg.use_rope:
@@ -551,8 +648,11 @@ def forward_fn(cfg: TransformerConfig, params: dict, tokens: torch.Tensor) -> to
     h = _embed_tokens(cfg, params, tokens)
     if cfg.use_position_embed:
         h = h + params["pos_embed"][:tokens.shape[0]]
-    h = layer_stack_fn(cfg, params["layers"], h, params.get("rope_cos"),
-                       params.get("rope_sin"), params.get("rope_cos_local"),
+    rc, rs = params.get("rope_cos"), params.get("rope_sin")
+    if cfg.use_rope and "rope_cos_long" in params:
+        rows = _rope_rows_for(params, 0, tokens.shape[0], tokens.shape[0])
+        rc, rs = rows.cos, rows.sin
+    h = layer_stack_fn(cfg, params["layers"], h, rc, rs, params.get("rope_cos_local"),
                        params.get("rope_sin_local"))
     return _logits(cfg, params, _final_norm(cfg, params, h))
 
@@ -561,9 +661,17 @@ def forward_fn(cfg: TransformerConfig, params: dict, tokens: torch.Tensor) -> to
 # Prefill and decode
 # ---------------------------------------------------------------------------
 
+#: the f32 scores one pass of ``_prefill_attn`` may hold: past it the heads
+#: go in groups (Phi-3.5's 32 heads at a bucket of 8192 rows: 8.6 GB, four
+#: heads a pass)
+PREFILL_SCORE_BYTES = 1 << 30
+
+
 def _prefill_attn(q, k, v, true_len, scale=None, softcap=None, window=None):
     """Causal attention within the padded prompt, f32; positions >= true_len
-    (an int or a one-element device tensor) are masked out."""
+    (an int or a one-element device tensor) are masked out. The [heads, S,
+    S] scores are scaled, capped and masked in place, for as many heads at
+    a time as ``PREFILL_SCORE_BYTES`` holds."""
     s, hq, d = q.shape
     hk = k.shape[1]
     if hk != hq:
@@ -571,16 +679,21 @@ def _prefill_attn(q, k, v, true_len, scale=None, softcap=None, window=None):
         v = v.repeat_interleave(hq // hk, dim=1)
     scale = scale if scale is not None else 1.0 / math.sqrt(d)
     qh, kh, vh = (t.transpose(0, 1).to(_F32) for t in (q, k, v))
-    scores = torch.matmul(qh, kh.transpose(1, 2)) * scale
-    if softcap is not None:
-        scores = softcap * torch.tanh(scores * (1.0 / softcap))
     i = torch.arange(s, device=q.device)[:, None]
     j = torch.arange(s, device=q.device)[None, :]
     mask = (j > i) | (j >= true_len)
     if window is not None:
         mask = mask | (j <= i - window)
-    scores = torch.where(mask, torch.full_like(scores, _NEG_INF), scores)
-    out = torch.matmul(torch.softmax(scores, dim=-1), vh)
+    step = max(1, PREFILL_SCORE_BYTES // (s * s * 4))
+    outs = []
+    for h0 in range(0, hq, step):
+        scores = torch.matmul(qh[h0:h0 + step], kh[h0:h0 + step].transpose(1, 2)).mul_(scale)
+        if softcap is not None:
+            scores.mul_(1.0 / softcap).tanh_().mul_(softcap)
+        scores.masked_fill_(mask, _NEG_INF)
+        outs.append(torch.matmul(torch.softmax(scores, dim=-1), vh[h0:h0 + step]))
+        del scores
+    out = outs[0] if len(outs) == 1 else torch.cat(outs)
     return out.transpose(0, 1).to(q.dtype)
 
 
@@ -605,7 +718,7 @@ def prefill_fn(cfg: TransformerConfig, params: dict, k_cache, v_cache,
     h = _embed_tokens(cfg, params, tokens)
     if cfg.use_position_embed:
         h = h + params["pos_embed"][:s]
-    rows = _rope_rows_for(params, 0, s) if cfg.use_rope else None
+    rows = _rope_rows_for(params, 0, s, true_len) if cfg.use_rope else None
     for i in range(kv_leaf(k_cache).shape[0 if slot is None else 1]):
         lp = _slice_layer_params(params["layers"], i)
         x = _attn_in(cfg, lp, h)
@@ -638,8 +751,8 @@ def batch_decode_step_fn(cfg: TransformerConfig, params: dict, k_pool, v_pool,
     h = _embed_tokens(cfg, params, tokens)
     if cfg.use_position_embed:
         h = h + _take_rows(params["pos_embed"], poss)
-    rows = _rope_rows_for(params, poss, 1) if cfg.use_rope else None
     lens = poss + 1
+    rows = _rope_rows_for(params, poss, 1, lens) if cfg.use_rope else None
     for i in range(kv_leaf(k_pool).shape[1]):
         lp = _slice_layer_params(params["layers"], i)
         x = _attn_in(cfg, lp, h)
@@ -750,7 +863,7 @@ def decode_window_fn(cfg: TransformerConfig, params: dict, k_cache, v_cache,
     h = _embed_tokens(cfg, params, tokens)                    # [T, E]
     if cfg.use_position_embed:
         h = h + _table_rows(params["pos_embed"], pos, t)
-    rows = _rope_rows_for(params, pos, t) if cfg.use_rope else None
+    rows = _rope_rows_for(params, pos, t, pos + t) if cfg.use_rope else None
     for i in range(kv_leaf(k_cache).shape[0]):
         lp = _slice_layer_params(params["layers"], i)
         x = _attn_in(cfg, lp, h)
@@ -802,9 +915,12 @@ def use_fused_decode(cfg: TransformerConfig, params: dict, max_seq: int) -> bool
 
 def fused_decode_eligible(cfg: TransformerConfig, params: dict, max_seq: int) -> bool:
     """The reference's architecture checks (``pygpukit_tpu/llm/model.py:
-    780-797``): no gemma, olmo2, cohere, glm4 or granite conventions,
-    separate dense bf16 ``w_q`` ... ``w_down`` leaves (so ``fuse_params``
-    output never qualifies), no biases, no ``attn_window`` leaf; then
+    780-797``): no gemma, olmo2, cohere, glm4 or granite conventions (so
+    no interleaved or partial rope; scaled tables qualify, since the kernel
+    rotates with the rows it is given), separate dense bf16 ``w_q`` ...
+    ``w_down`` leaves (so ``fuse_params`` output never qualifies), no
+    biases, no ``attn_window`` leaf, and, where the reference lets them
+    through, no NoPE layers (the kernel rotates every layer); then
     ``kernels.fused_decode.supports``, which keeps the architecture checks
     and states the CUDA kernel's own limits in place of the TPU's VMEM and
     tile gates (no ``max_seq`` limit)."""
@@ -817,6 +933,8 @@ def fused_decode_eligible(cfg: TransformerConfig, params: dict, max_seq: int) ->
             or cfg.rope_partial_factor != 1.0
             or cfg.residual_multiplier is not None or cfg.logit_scale is not None):
         return False
+    if cfg.rope_layers is not None and not all(cfg.rope_layers):
+        return False    # the kernel rotates every layer: NoPE layers stay off it
     lp = params["layers"]
     for leaf in ("w_q", "w_k", "w_v", "w_o", "w_gate", "w_up", "w_down"):
         if leaf not in lp or isinstance(lp[leaf], dict) or lp[leaf].dtype != torch.bfloat16:
@@ -849,7 +967,10 @@ def fused_decode_step_fn(cfg: TransformerConfig, params: dict, k_cache, v_cache,
                          pos) -> torch.Tensor:
     """``decode_step_fn`` through ``kernels.fused_decode`` (reference
     ``fused_decode_step_fn``): the embedding row in bf16, the rope row at
-    ``pos`` in f32 and ``pos`` as a device int32 [1]. ``pos`` is a host int
+    ``pos`` in f32 (LongRoPE's long row past its threshold, chosen on the
+    device as the unfused step chooses it, where the reference's fused
+    step reads the short tables alone) and ``pos`` as a device int32
+    [1]. ``pos`` is a host int
     (made into that tensor by a fill, without a host transfer) or that
     tensor itself, one int32 element on the caches' device, taken as it
     is (the kernel reads it; the host never does). Then the
@@ -872,9 +993,8 @@ def fused_decode_step_fn(cfg: TransformerConfig, params: dict, k_cache, v_cache,
         pos_t = pos.reshape(1)
     else:
         pos_t = torch.full((1,), int(pos), dtype=torch.int32, device=dev)
-    row = torch.clamp(pos_t, 0, params["rope_cos"].shape[0] - 1).to(torch.long)
-    cos = params["rope_cos"].index_select(0, row).to(_F32)
-    sin = params["rope_sin"].index_select(0, row).to(_F32)
+    rows = _rope_rows_for(params, pos_t, 1, pos_t + 1)
+    cos, sin = rows.cos.to(_F32), rows.sin.to(_F32)
     kc = k_cache.view(n_layers, max_len, hk * d)
     vc = v_cache.view(n_layers, max_len, hk * d)
     h_out, k_new, v_new = fused_decode(
@@ -1017,7 +1137,8 @@ def init_params(cfg: TransformerConfig, seed: int = 0,
     ``torch.Generator`` seeded with ``seed``. Values differ from the
     reference's init (another generator); the leaves are the same: the
     layernorm biases, per-head q/k norms, sandwich norms, per-layer windows,
-    Gemma-3's ``use_local_rope`` switches, GPT-2's fc1/fc2 MLP and learned
+    Gemma-3's ``use_local_rope`` and SmolLM3's ``use_rope_layer`` switches,
+    GPT-2's fc1/fc2 MLP and learned
     positions where the config has them (no attention biases: a checkpoint
     brings those). A MoE config gets an f32 router ``[L, H, E]`` and expert
     stacks ``[L, E, H, I]`` / ``[L, E, I, H]`` in place of the dense MLP,
@@ -1063,6 +1184,8 @@ def init_params(cfg: TransformerConfig, seed: int = 0,
         lp["use_local_rope"] = torch.tensor(
             [1 if t == "sliding_attention" else 0 for t in cfg.layer_types],
             dtype=torch.int32, device=device)
+    if cfg.rope_layers is not None:
+        lp["use_rope_layer"] = torch.tensor(cfg.rope_layers, dtype=torch.int32, device=device)
     if cfg.is_moe:
         ne, mi = cfg.num_experts, cfg.moe_intermediate_size
         lp["w_router"] = w(nl, e, ne, dt=_F32)
@@ -1258,8 +1381,8 @@ class CausalTransformerModel(nn.Module):
     def params(self, params: dict) -> None:
         """Take a new param tree, as the reference's attribute does
         (``model.params = quantize_model_params(model.params, "int4")``):
-        its leaves replace every registered one (the rope tables, and
-        Gemma-3's local ones, are made when the tree has none). The captured programs bind the old weights
+        its leaves replace every registered one (the rope leaves of
+        ``rope_tables_for`` are made when the tree has none). The captured programs bind the old weights
         by address, so they are released with the decode and prefill
         buffers; the old tensors are never written. The caches and the
         position stay."""
@@ -1267,14 +1390,7 @@ class CausalTransformerModel(nn.Module):
         _check_params(params)
         cfg = self.config
         if cfg.use_rope and "rope_cos" not in params:
-            params["rope_cos"], params["rope_sin"] = rope_tables(
-                cfg.max_position_embeddings, cfg.head_dim, cfg.rope_theta,
-                device=params["embed"].device)
-        if (cfg.use_rope and cfg.rope_local_theta is not None
-                and "rope_cos_local" not in params):
-            params["rope_cos_local"], params["rope_sin_local"] = rope_tables(
-                cfg.max_position_embeddings, cfg.head_dim, cfg.rope_local_theta,
-                device=params["embed"].device)
+            params.update(rope_tables_for(cfg, params["embed"].device))
         self._drop_executables()
         for _, name in self._paths:
             if name is not None:

@@ -82,11 +82,11 @@ def paged_decode_step_fn(cfg: TransformerConfig, params: dict, k_pool, v_pool,
     pl = poss.to(torch.long)
     blocks = tables[torch.arange(b, device=tables.device), pl // bs]
     offs = pl % bs
-    # per-row rope tables, the local ones on Gemma-3's sliding layers (the
-    # reference's _rope_rows; its LongRoPE and NoPE tables raise in
-    # check_supported)
-    rows = _rope_rows_for(params, poss, 1) if cfg.use_rope else None
+    # per-row rope tables (the reference's _rope_rows): LongRoPE's long rows
+    # where a row's own length passes the threshold, the local ones on
+    # Gemma-3's sliding layers, identity tables on NoPE layers
     lens = poss + 1
+    rows = _rope_rows_for(params, poss, 1, lens) if cfg.use_rope else None
     for i in range(kv_leaf(k_pool).shape[0]):
         lp = _slice_layer_params(params["layers"], i)
         x = _attn_in(cfg, lp, h)
@@ -150,7 +150,7 @@ def paged_prefill_fn(cfg: TransformerConfig, params: dict, k_pool, v_pool,
     h = _embed_tokens(cfg, params, tokens)
     if cfg.use_position_embed:
         h = h + params["pos_embed"][:s]
-    rows = _rope_rows_for(params, 0, s) if cfg.use_rope else None
+    rows = _rope_rows_for(params, 0, s, true_len) if cfg.use_rope else None
     idx = torch.arange(s, device=tokens.device)
     valid = idx < true_len
     blocks = torch.where(valid, table[idx // bs].to(torch.long),

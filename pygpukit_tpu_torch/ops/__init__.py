@@ -1,8 +1,9 @@
 """Ops re-export hub (counterpart of ``pygpukit_tpu/ops/__init__.py``): the
 reference's names for every ported module. Not ported, so not exported:
 audio, batching, conv, the fused ``linear_bias_gelu``, recurrent and
-llama4 ops, the scaled and interleaved rope tables, ALiBi and PoPE, and the
-Array-handle KV-cache updates (``kv_cache_update``/``prefill``)."""
+llama4 ops, and the Array-handle KV-cache updates
+(``kv_cache_update``/``prefill``). The rope variants, ALiBi and PoPE are
+exported by ``ops.nn``, as the reference exports them."""
 
 from . import (elementwise, embedding, matmul, moe, nn, paged, reduction,
                sampling, tensor, unary)

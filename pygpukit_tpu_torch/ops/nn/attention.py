@@ -12,7 +12,8 @@ reference's route test at :131-169): on CUDA tensors, with no softcap, no
 window and the default scale, the hand-written ``kernels.flash_attention``
 kernel, at every length and for bf16 and f32 alike; softcap, window or
 another scale take the plain route on the card too, as the reference sends
-them to XLA. ``PYGPUKIT_FLASH_ATTENTION`` is read per call: ``pallas`` and
+them to XLA. A window no shorter than the keys masks nothing and counts as
+none (``effective_window``; here and for fixed-cache decode). ``PYGPUKIT_FLASH_ATTENTION`` is read per call: ``pallas`` and
 ``jax`` take the kernel (the jax-shipped TPU flash kernel computes the same
 function, causal softmax(QK^T scale)V, in another summation order, so the
 port routes both names to its one kernel), ``xla`` forces the plain route.
@@ -127,6 +128,13 @@ def _kernel_scale(scale: float, d: int) -> bool:
 FLASH_ENV = "PYGPUKIT_FLASH_ATTENTION"
 
 
+def effective_window(window, n_keys: int):
+    """``window``, or None where it is at least ``n_keys``: a window that
+    long masks none of the keys (Phi-3.5's 262144 over a 2048-token
+    forward or an 8192-row cache), so the kernels' route takes it."""
+    return None if window is not None and window >= n_keys else window
+
+
 def flash_attention_route(device_type: str, scale: float, d: int,
                           softcap: float | None = None, window=None) -> str:
     """"kernel" or "plain": the route of ``flash_attention_fn`` for a
@@ -146,6 +154,7 @@ def flash_attention_fn(q, k, v, scale: float | None = None,
     ``chunk_size``, keys padded to a chunk multiple and masked."""
     s, h, d = q.shape
     scale = scale if scale is not None else 1.0 / math.sqrt(d)
+    window = effective_window(window, s)
     if flash_attention_route(q.device.type, scale, d, softcap, window) == "kernel":
         return _flash_kernel(q, k, v, causal=causal)
     k, v = _gqa_expand(k, h), _gqa_expand(v, h)
@@ -261,6 +270,7 @@ def sdpa_fixed_cache_fn(q, k_cache, v_cache, ctx_len, scale: float | None = None
     (module docstring); on the card one query row may launch the
     flash_decode kernel (route in the module docstring)."""
     t, _, d = q.shape
+    window = effective_window(window, _kv_shape(k_cache)[0])
     if (q.is_cuda and t == 1 and not isinstance(k_cache, dict)
             and not isinstance(v_cache, dict)
             and k_cache.dtype in (torch.bfloat16, _F32)

@@ -925,7 +925,7 @@ def test_flash_wrappers_raise_on_unsupported_operands(dev):
     q = torch.zeros((8, 4, 64), dtype=torch.float16, device=dev)
     with pytest.raises(NotImplementedError):
         flash_attention(q, q[:, :2], q[:, :2])
-    q = torch.zeros((8, 4, 96), dtype=torch.bfloat16, device=dev)
+    q = torch.zeros((8, 4, 80), dtype=torch.bfloat16, device=dev)     # a D no kernel takes
     with pytest.raises(ValueError):
         flash_attention(q, q[:, :2], q[:, :2])
     q = torch.zeros((1, 4, 64), dtype=torch.bfloat16, device=dev)
@@ -1956,13 +1956,18 @@ def test_streaming_on_the_card_matches_the_cpu(dev, tmp_path, strategy):
 # ---------------------------------------------------------------------------
 # The new families' attention shapes: head_dim 256 (Gemma-2-2B: 8/4 heads,
 # softcap 50, windows; Gemma-3-1B: 4/1 heads, window 512 or global), G 1
-# (GPT-2, 12/12 heads) and G 7 (Qwen2.5-0.5B, 14/2 heads) at D 64
+# (GPT-2, 12/12 heads) and G 7 (Qwen2.5-0.5B, 14/2 heads) at D 64, and
+# head_dim 96 (Phi-3.5-mini: 32/32 heads; G 4 with a softcap and a window
+# for the masks), and G 16 (GLM-4: 32/2 heads; the kernels' 512-thread
+# blocks)
 # ---------------------------------------------------------------------------
 
 #: (Hq, Hk, D, softcap, window) of the rows 5/6 and 17 checks
 FAMILY_ATTN = {"gemma2": (8, 4, 256, 50.0, 300), "gemma3": (4, 1, 256, None, 512),
                "gemma3 global": (4, 1, 256, None, None), "gpt2 G1": (12, 12, 64, None, None),
-               "qwen2.5 G7": (14, 2, 64, None, None)}
+               "qwen2.5 G7": (14, 2, 64, None, None), "phi3.5 D96": (32, 32, 96, None, None),
+               "D96 G4": (32, 8, 96, 50.0, 300), "glm4 G16": (32, 2, 128, None, None),
+               "D96 G16": (32, 2, 96, 50.0, 300)}
 
 
 @pytest.mark.parametrize("storage", list(STORAGES))
@@ -2019,10 +2024,12 @@ def test_family_paged_attention(dev, shape, storage):
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 @pytest.mark.parametrize("causal", [True, False])
 @pytest.mark.parametrize("s", [1, 63, 65, 300, 2048])
-@pytest.mark.parametrize("hq,hk,d", [(8, 4, 256), (4, 1, 256), (12, 12, 64), (14, 2, 64)])
+@pytest.mark.parametrize("hq,hk,d", [(8, 4, 256), (4, 1, 256), (12, 12, 64), (14, 2, 64),
+                                     (32, 32, 96), (32, 8, 96)])
 def test_family_flash_attention(dev, hq, hk, d, s, causal, dtype):
-    """Row 14 at the families' heads: D 256 on the 64-key tile, G 1 and G
-    7; within ATTN_TOL of the plain version, a second launch bitwise."""
+    """Row 14 at the families' heads: D 256 on the 64-key tile, D 96 on
+    32-column sub-tiles, G 1 and G 7; within ATTN_TOL of the plain version,
+    a second launch bitwise."""
     g = _gen(dev, s * 3 + hq + d)
     q = torch.randn((s, hq, d), generator=g, device=dev).to(dtype)
     k = torch.randn((s, hk, d), generator=g, device=dev).to(dtype)
@@ -2039,11 +2046,11 @@ def test_family_flash_attention(dev, hq, hk, d, s, causal, dtype):
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 @pytest.mark.parametrize("ctx", [1, 333, 4100, 9000])
 @pytest.mark.parametrize("hq,hk,d", [(8, 4, 256), (4, 1, 256), (16, 1, 256), (12, 12, 64),
-                                     (14, 2, 64)])
+                                     (14, 2, 64), (32, 32, 96), (32, 8, 96), (32, 2, 96)])
 def test_family_flash_decode(dev, hq, hk, d, ctx, dtype):
-    """Row 15 at the families' heads (G 16 at D 256: both row halves of
-    the tensor-core tile), contexts of one split to past MAX, an int and a
-    device context alike."""
+    """Row 15 at the families' heads (G 16 at D 256 and D 96: both row
+    halves of the tensor-core tile), contexts of one split to past MAX, an
+    int and a device context alike."""
     g = _gen(dev, hq + hk + d + ctx)
     q = torch.randn((1, hq, d), generator=g, device=dev).to(dtype)
     kc = torch.randn((8192, hk, d), generator=g, device=dev).to(dtype)
@@ -2057,13 +2064,14 @@ def test_family_flash_decode(dev, hq, hk, d, ctx, dtype):
     assert torch.equal(out, flash_decode(q, kc, vc, ctx_t))
 
 
-def test_family_flash_decode_graph_replays_device_context(dev):
-    """Gemma-3-1B's head shape at D 256: one graph captured once serves
-    every context, bitwise the eager call."""
-    g = _gen(dev, 256)
-    q = torch.randn((1, 4, 256), generator=g, device=dev).to(torch.bfloat16)
-    kc = torch.randn((2048, 1, 256), generator=g, device=dev).to(torch.bfloat16)
-    vc = torch.randn((2048, 1, 256), generator=g, device=dev).to(torch.bfloat16)
+@pytest.mark.parametrize("hq,hk,d", [(4, 1, 256), (32, 32, 96)])
+def test_family_flash_decode_graph_replays_device_context(dev, hq, hk, d):
+    """Gemma-3-1B's head shape at D 256 and Phi-3.5's at D 96: one graph
+    captured once serves every context, bitwise the eager call."""
+    g = _gen(dev, d)
+    q = torch.randn((1, hq, d), generator=g, device=dev).to(torch.bfloat16)
+    kc = torch.randn((2048, hk, d), generator=g, device=dev).to(torch.bfloat16)
+    vc = torch.randn((2048, hk, d), generator=g, device=dev).to(torch.bfloat16)
     ctx = torch.tensor([5], dtype=torch.int32, device=dev)
     side = torch.cuda.Stream()
     side.wait_stream(torch.cuda.current_stream())

@@ -1,7 +1,10 @@
 """The Qwen2, Qwen3, Qwen3-MoE, GPT-2, Gemma-2 and Gemma-3 families (and
 Mistral's and Qwen2's sliding-window configs, and StarCoder2 and Seed-OSS,
-whose features are all among theirs) in the port against the JAX package
-and ``transformers`` on the CPU.
+whose features are all among theirs), and the families the rope variants
+bring (Llama-3.1's llama3 tables, Phi-3's longrope in both regimes, Qwen3
+with yarn, GLM-4's interleaved partial rotary, Ernie 4.5's interleaved
+pairs, SmolLM3's NoPE layers, Gemma-3 with linear scaling), in the port
+against the JAX package and ``transformers`` on the CPU.
 
 Every checkpoint is a tiny random ``transformers`` model written by
 ``save_pretrained`` (the configs of ``tests/test_llm_families.py``), its
@@ -15,12 +18,16 @@ JAX package load the same files at f32:
 - the reference's ``init_params`` for each family config, through
   ``params_from_jax``, gives the reference's forward, and the port's
   ``init_params`` builds the same leaves;
-- ``check_supported`` still refuses the families that wait for rope
-  variants and block forms (Cohere, OLMo-2, GLM-4, Phi-3, SmolLM3), by
-  name, and the fused decode step refuses every family here;
-- the four attention kernels take the plain version at head_dim 256 on
-  CPU tensors, and learned positions and the embedding scale keep the
-  reference's bits.
+- every rope leaf (scaled, long, local, partial-width tables, the long
+  threshold) within atol 1e-5 of the reference's;
+- ``check_supported`` still refuses the families that wait for block
+  forms and activations (Cohere, OLMo-2, Granite, Nemotron, Apertus,
+  Phi-2), by name, and the fused decode step refuses every family here
+  but the split-half ones with plain blocks (Llama-3.1, Phi-3), which it
+  takes with their scaled tables;
+- the four attention kernels take the plain version at head_dim 256 and
+  96 on CPU tensors, and learned positions and the embedding scale keep
+  the reference's bits.
 
 Cached steps and both engines: ``tests/test_torch_families_serving.py``.
 """
@@ -101,7 +108,57 @@ FAMILIES = {
         num_attention_heads=4, num_key_value_heads=2, sliding_window=8,
         max_position_embeddings=64, tie_word_embeddings=False,
         attn_implementation="eager"), "llama", tuple(range(1, 14))),
+    # the rope variants (tests/test_llm_families.py's configs): prompts past
+    # original_max / 4 so that the scaled frequencies move the logits
+    "llama31": ("LlamaConfig", dict(
+        vocab_size=96, hidden_size=32, intermediate_size=64, num_hidden_layers=2,
+        num_attention_heads=4, num_key_value_heads=2, max_position_embeddings=64,
+        rope_theta=10000.0, rope_scaling={"rope_type": "llama3", "factor": 4.0,
+                                          "low_freq_factor": 1.0, "high_freq_factor": 4.0,
+                                          "original_max_position_embeddings": 16},
+        tie_word_embeddings=False, eos_token_id=None), "llama", tuple(range(1, 25))),
+    # longrope: the short regime (19 + 6 tokens under original_max 32); the
+    # long one, a 39-token prompt, is phi3_long's
+    "phi3": ("Phi3Config", dict(
+        vocab_size=96, hidden_size=32, intermediate_size=64, num_hidden_layers=2,
+        num_attention_heads=4, num_key_value_heads=2, max_position_embeddings=64,
+        tie_word_embeddings=False, pad_token_id=0, bos_token_id=1, eos_token_id=2,
+        original_max_position_embeddings=32,
+        rope_scaling={"type": "longrope", "short_factor": [1.0 + 0.05 * i for i in range(4)],
+                      "long_factor": [1.5 + 0.3 * i for i in range(4)]}),
+        "phi3", tuple(range(1, 20))),
+    "qwen3_yarn": ("Qwen3Config", dict(
+        vocab_size=96, hidden_size=32, intermediate_size=64, num_hidden_layers=2,
+        num_attention_heads=4, num_key_value_heads=2, head_dim=8,
+        max_position_embeddings=128, rope_theta=10000.0,
+        rope_scaling={"rope_type": "yarn", "factor": 4.0,
+                      "original_max_position_embeddings": 32},
+        tie_word_embeddings=False), "qwen3", tuple(range(1, 40))),
+    "glm4": ("Glm4Config", dict(
+        vocab_size=96, hidden_size=32, intermediate_size=64, num_hidden_layers=2,
+        num_attention_heads=4, num_key_value_heads=2, max_position_embeddings=64,
+        partial_rotary_factor=0.5, attention_bias=True, head_dim=8,
+        tie_word_embeddings=False, pad_token_id=0, eos_token_id=1), "glm4",
+        tuple(range(1, 10))),
+    "ernie45": ("Ernie4_5Config", dict(
+        vocab_size=96, hidden_size=32, intermediate_size=64, num_hidden_layers=2,
+        num_attention_heads=4, num_key_value_heads=2, max_position_embeddings=64,
+        head_dim=8, tie_word_embeddings=True, pad_token_id=0), "llama",
+        tuple(range(1, 10))),
+    "smollm3": ("SmolLM3Config", dict(
+        vocab_size=96, hidden_size=32, intermediate_size=64, num_hidden_layers=4,
+        num_attention_heads=4, num_key_value_heads=2, max_position_embeddings=64,
+        no_rope_layers=[1, 1, 1, 0], tie_word_embeddings=True, pad_token_id=0,
+        eos_token_id=1, bos_token_id=2), "llama", tuple(range(1, 10))),
+    "gemma3_linear": ("Gemma3TextConfig", dict(
+        vocab_size=96, hidden_size=32, intermediate_size=64, num_hidden_layers=6,
+        num_attention_heads=4, num_key_value_heads=2, head_dim=8,
+        query_pre_attn_scalar=16, sliding_window=8, rope_theta=1000000.0,
+        rope_local_base_freq=10000.0, rope_scaling={"rope_type": "linear", "factor": 8.0},
+        max_position_embeddings=64, attn_implementation="eager"), "gemma3",
+        tuple(range(1, 13))),
 }
+FAMILIES["phi3_long"] = FAMILIES["phi3"][:3] + (tuple(range(1, 40)),)
 #: leaves each family's loaded (fused) tree must hold, and the values of
 #: the per-layer integer leaves
 LEAVES = {
@@ -118,9 +175,24 @@ LEAVES = {
                        top={"final_norm_b"}),
     "seed_oss": dict(layers={"b_qkv", "b_o"}),
     "mistral_sliding": dict(layers=set(), attn_window=[8, 8]),
+    "llama31": dict(layers=set()),
+    "phi3": dict(layers=set(), top={"rope_cos_long", "rope_sin_long", "rope_long_threshold"}),
+    "phi3_long": dict(layers=set(),
+                      top={"rope_cos_long", "rope_sin_long", "rope_long_threshold"}),
+    "qwen3_yarn": dict(layers={"w_q_norm", "w_k_norm"}),
+    "glm4": dict(layers={"b_qkv", "post_attn_norm_w", "post_mlp_norm_w"}),
+    "ernie45": dict(layers=set()),
+    "smollm3": dict(layers=set(), use_rope_layer=[1, 1, 1, 0]),
+    "gemma3_linear": dict(layers={"w_q_norm", "post_mlp_norm_w"}, top={"rope_cos_local"},
+                          attn_window=[8] * 5 + [0], use_local_rope=[1, 1, 1, 1, 1, 0]),
 }
-#: families that wait for rope variants or block forms, and a feature
-#: ``check_supported`` names for each
+#: the families the fused decode step takes (split-half rope over plain
+#: pre-norm blocks, scaled tables included)
+FUSED_FAMILIES = ("llama31", "phi3", "phi3_long")
+#: families that wait for block forms or activations, and a feature
+#: ``check_supported`` names for each (the rope variants' GLM-4, Phi-3 and
+#: SmolLM3 run since they were ported; Granite, Nemotron and Apertus took
+#: their places here, and Phi-2 the interleaved-rope case below)
 REFUSED = {
     "cohere": ("CohereConfig", dict(vocab_size=96, hidden_size=32, intermediate_size=64,
                                     num_hidden_layers=2, num_attention_heads=4,
@@ -128,19 +200,17 @@ REFUSED = {
     "olmo2": ("Olmo2Config", dict(vocab_size=96, hidden_size=32, intermediate_size=64,
                                   num_hidden_layers=2, num_attention_heads=4,
                                   num_key_value_heads=2), "post-norm-only blocks"),
-    "glm4": ("Glm4Config", dict(vocab_size=96, hidden_size=32, intermediate_size=64,
-                                num_hidden_layers=2, num_attention_heads=4,
-                                num_key_value_heads=2, head_dim=8), "partial rotary"),
-    "phi3": ("Phi3Config", dict(vocab_size=96, hidden_size=32, intermediate_size=64,
-                                num_hidden_layers=2, num_attention_heads=4,
-                                num_key_value_heads=2, max_position_embeddings=128,
-                                original_max_position_embeddings=64,
-                                rope_scaling={"type": "longrope", "short_factor": [1.0] * 4,
-                                              "long_factor": [2.0] * 4}), "scaled rope"),
-    "smollm3": ("SmolLM3Config", dict(vocab_size=96, hidden_size=32, intermediate_size=64,
-                                      num_hidden_layers=4, num_attention_heads=4,
-                                      num_key_value_heads=2, no_rope_layers=[1, 1, 1, 0]),
-                "NoPE layers"),
+    "granite": ("GraniteConfig", dict(vocab_size=96, hidden_size=32, intermediate_size=64,
+                                      num_hidden_layers=2, num_attention_heads=4,
+                                      num_key_value_heads=2, residual_multiplier=0.22,
+                                      embedding_multiplier=12.0, logits_scaling=8.0),
+                "residual multiplier"),
+    "nemotron": ("NemotronConfig", dict(vocab_size=96, hidden_size=32, intermediate_size=64,
+                                        num_hidden_layers=2, num_attention_heads=4,
+                                        num_key_value_heads=2), "relu2"),
+    "apertus": ("ApertusConfig", dict(vocab_size=96, hidden_size=32, intermediate_size=64,
+                                      num_hidden_layers=2, num_attention_heads=4,
+                                      num_key_value_heads=2), "xielu"),
 }
 
 
@@ -208,7 +278,7 @@ def test_the_family_loads_its_leaves(family):
     layers, top = tm.params["layers"], tm.params
     assert want["layers"] <= set(layers)
     assert want.get("top", set()) <= set(top)
-    for leaf in ("attn_window", "use_local_rope"):
+    for leaf in ("attn_window", "use_local_rope", "use_rope_layer"):
         if leaf in want:
             assert layers[leaf].tolist() == want[leaf]
         else:
@@ -216,6 +286,28 @@ def test_the_family_loads_its_leaves(family):
     # the reference's loaded tree, leaf for leaf
     assert set(layers) == set(jm.params["layers"])
     assert set(top) == set(jm.params)
+
+
+def test_rope_leaves_match_the_references(family):
+    """Every rope leaf the reference makes (scaled tables, LongRoPE's long
+    pair and threshold, Gemma-3's local tables, GLM-4's at rope_dim), of
+    its shape, within atol 1e-5; NoPE switches and partial width follow the
+    config."""
+    fam, _, _, jm, tm = family
+    names = {k for k in jm.params if k.startswith("rope_")}
+    assert names == {k for k in tm.params if k.startswith("rope_")}
+    for k in names:
+        want = np.asarray(jm.params[k])
+        got = tm.params[k].numpy()
+        assert got.shape == want.shape and got.dtype == want.dtype, k
+        if k == "rope_long_threshold":
+            assert got == want == tm.config.rope_scaling["original_max_position_embeddings"]
+        else:
+            np.testing.assert_allclose(got, want, rtol=0, atol=1e-5, err_msg=k)
+    if "rope_cos" in names:
+        assert tm.params["rope_cos"].shape[-1] == tm.config.rope_dim
+    if fam == "glm4":
+        assert tm.config.rope_dim == 4 and tm.config.rope_interleaved
 
 
 def test_int4_leaves_are_the_references_bitwise(family):
@@ -275,7 +367,7 @@ def test_families_waiting_for_rope_variants_are_refused_by_name(fam):
     (dict(use_qk_norm=True, qk_norm_wide=True), "wide qk norm"),
     (dict(activation="relu2"), "relu2"),
     (dict(activation="xielu"), "xielu"),
-    (dict(rope_interleaved=True), "interleaved rope"),
+    (dict(parallel_block=True), "parallel blocks"),          # Phi-2's block
 ])
 def test_other_unported_features_are_refused_by_name(cfg_kw, feature):
     cfg = port_config.TransformerConfig(vocab_size=96, hidden_size=32, num_layers=2,
@@ -293,10 +385,13 @@ def test_an_lm_head_bias_is_refused():
                                   dtype=torch.float32)
 
 
-@pytest.mark.parametrize("fam", list(FAMILIES))
+@pytest.mark.parametrize("fam", [f for f in FAMILIES if f not in FUSED_FAMILIES])
 def test_fused_decode_refuses_every_family(fam, monkeypatch):
     """As the reference does (its ``fused_decode_eligible``): on the
-    port's own init (separate dense bf16 leaves) and on fused leaves."""
+    port's own init (separate dense bf16 leaves) and on fused leaves.
+    SmolLM3's NoPE layers are refused by the port's own check (the
+    reference's architecture checks let them through, though its kernel
+    rotates every layer; its kernel's tile gates refuse these widths)."""
     monkeypatch.setenv("PYGPUKIT_DECODE", "fused")
     hf = _ref_cfg(fam)
     tcfg = port_config.TransformerConfig.from_hf_config(hf)
@@ -315,6 +410,21 @@ def test_fused_decode_refuses_every_family(fam, monkeypatch):
     model = pl.CausalTransformerModel(tcfg, params)
     model.init_fixed_cache(64)
     assert "w_qkv_cat" not in model.params["layers"]
+
+
+@pytest.mark.parametrize("fam", FUSED_FAMILIES)
+def test_fused_decode_takes_split_half_scaled_rope(fam, monkeypatch):
+    """Scaled tables stay on the fused route (the kernel rotates with the
+    rows it is given): Llama-3.1's and Phi-3's configs are eligible on the
+    port's own init, as in the reference."""
+    monkeypatch.setenv("PYGPUKIT_DECODE", "fused")
+    tcfg = port_config.TransformerConfig.from_hf_config(_ref_cfg(fam))
+    assert tcfg.rope_scaling
+    params = port_model.init_params(tcfg, 0, torch.bfloat16, device="cpu")
+    assert port_model.fused_decode_eligible(tcfg, params, 64)
+    model = pl.CausalTransformerModel(tcfg, params)
+    model.init_fixed_cache(64)
+    assert "w_qkv_cat" in model.params["layers"]
 
 
 def test_qwen3_projection_width_is_not_hidden():
@@ -350,8 +460,19 @@ def _bits(t: torch.Tensor) -> np.ndarray:
 def test_d256_on_the_cpu_takes_the_plain_versions(no_launch, hq, hk):
     """Gemma-2-2B's and Gemma-3-1B's heads at D 256 on CPU tensors: each
     wrapper returns its plain version's bits and launches nothing."""
+    _plain_versions_on_the_cpu(hq, hk, 256)
+
+
+@pytest.mark.parametrize("hq, hk", [(32, 32), (32, 8)])
+def test_d96_on_the_cpu_takes_the_plain_versions(no_launch, hq, hk):
+    """Phi-3.5-mini's heads (and G 4) at D 96 on CPU tensors: each wrapper
+    returns its plain version's bits and launches nothing."""
+    _plain_versions_on_the_cpu(hq, hk, 96)
+
+
+def _plain_versions_on_the_cpu(hq: int, hk: int, d: int) -> None:
     g = torch.Generator().manual_seed(hq + hk)
-    d, b, n_layers, max_len = 256, 3, 2, 80
+    b, n_layers, max_len = 3, 2, 80
 
     def rnd(*shape, dt=torch.bfloat16):
         return torch.randn(*shape, generator=g).to(dt)
@@ -416,3 +537,40 @@ def test_embedding_scale_is_the_references_bitwise(dtype):
     got = port_model._embed_tokens(tcfg, {"embed": temb}, torch.from_numpy(ids))
     np.testing.assert_array_equal(_bits(got), want.view(np.int16 if dtype == "bfloat16"
                                                         else np.int32))
+
+
+@pytest.mark.parametrize("softcap, window", [(None, None), (50.0, 5)])
+def test_prefill_attention_in_head_groups_matches_one_pass(monkeypatch, softcap, window):
+    """Past PREFILL_SCORE_BYTES the cached prefill attends a group of heads
+    at a time (Phi-3.5's 32 heads at a bucket of 8192 rows): the same
+    values as one pass over every head, softcap and window included."""
+    g = torch.Generator().manual_seed(7)
+    s, hq, hk, d = 24, 8, 2, 16
+    q = torch.randn(s, hq, d, generator=g)
+    k = torch.randn(s, hk, d, generator=g)
+    v = torch.randn(s, hk, d, generator=g)
+    whole = port_model._prefill_attn(q, k, v, 20, 0.3, softcap, window)
+    monkeypatch.setattr(port_model, "PREFILL_SCORE_BYTES", 3 * s * s * 4)
+    grouped = port_model._prefill_attn(q, k, v, 20, 0.3, softcap, window)
+    np.testing.assert_allclose(grouped.numpy(), whole.numpy(), rtol=1e-6, atol=1e-6)
+    # the reference's one pass
+    want = ref_model._prefill_attn(jnp.asarray(q.numpy()), jnp.asarray(k.numpy()),
+                                   jnp.asarray(v.numpy()), 20, 0.3, softcap, window)
+    np.testing.assert_allclose(grouped.numpy(), np.asarray(want), rtol=1e-5, atol=1e-5)
+
+
+def test_a_window_no_shorter_than_the_keys_counts_as_none():
+    """Phi-3.5's 262144 window over a forward or a cache masks nothing: the
+    routes drop it (so the card takes the kernels) and the plain results
+    keep their bits."""
+    from pygpukit_tpu_torch.ops.nn.attention import (effective_window, flash_attention_fn,
+                                                     sdpa_fixed_cache_fn)
+    assert effective_window(262144, 2048) is None and effective_window(None, 8) is None
+    assert effective_window(512, 2048) == 512 and effective_window(8, 8) is None
+    g = torch.Generator().manual_seed(3)
+    q, k, v = (torch.randn(40, h, 16, generator=g) for h in (4, 2, 2))
+    np.testing.assert_array_equal(flash_attention_fn(q, k, v, window=40).numpy(),
+                                  flash_attention_fn(q, k, v).numpy())
+    kc, vc = torch.randn(64, 2, 16, generator=g), torch.randn(64, 2, 16, generator=g)
+    np.testing.assert_array_equal(sdpa_fixed_cache_fn(q[:1], kc, vc, 30, window=64).numpy(),
+                                  sdpa_fixed_cache_fn(q[:1], kc, vc, 30).numpy())

@@ -6,7 +6,9 @@ same tiny ``transformers`` checkpoints loaded at f32 by both packages.
   within rtol 1e-4, atol 1e-4 of the JAX package's; cached ``generate``
   tokens equal.
 - The dense engine, the paged engine and the pipelined paged engine: greedy
-  streams equal to the JAX package's dense engine. (The reference's paged
+  streams equal to the JAX package's dense engine; for Phi-3 also on a
+  batch whose rows sit on both sides of LongRoPE's threshold (original_max
+  32), each row switching on its own length. (The reference's paged
   step leaves GPT-2's learned positions out, so its paged engine is not
   the reference for GPT-2; its dense engine is for every family.)
 """
@@ -76,3 +78,33 @@ def test_engines_match_the_jax_dense_engine(pair, kw):
     got, eng = _serve(pl.ContinuousBatchingEngine, tm, **kw)
     assert got == want
     assert eng.logits_finite()
+
+
+#: prompts around Phi-3's original_max 32: one starts past it, two cross it
+#: while they decode, one stays under it
+STRADDLE = [list(range(1, 41)), list(range(3, 31)), [5, 11, 42], list(range(9, 38))]
+STRADDLE_NEW = [6, 9, 8, 4]
+
+
+@pytest.mark.parametrize("kw", [dict(), dict(paged=True, block_size=8),
+                                dict(paged=True, block_size=8, pipelined=True)],
+                         ids=["dense", "paged", "paged_pipelined"])
+def test_longrope_rows_straddling_the_threshold(tmp_path_factory, kw):
+    """One batch holds rows on both sides of Phi-3's threshold: the port's
+    engines give the JAX dense engine's streams, and each stream is the
+    single-stream generate of its prompt."""
+    d, _ = save_family(tmp_path_factory, "phi3", seed=list(FAMILIES).index("phi3"))
+    jm = rl.load_model_from_safetensors(d, dtype="float32")
+    tm = pl.load_model_from_safetensors(d, dtype="float32", device="cpu")
+
+    def serve(engine_cls, model, **extra):
+        eng = engine_cls(model, max_batch=4, max_seq_len=64, steps_per_dispatch=4, **extra)
+        reqs = [eng.submit(p, max_new_tokens=n) for p, n in zip(STRADDLE, STRADDLE_NEW)]
+        eng.run_until_complete()
+        assert all(r.done for r in reqs)
+        return [list(r.generated) for r in reqs]
+    want = serve(JaxEngine, jm)
+    assert serve(pl.ContinuousBatchingEngine, tm, **kw) == want
+    for p, n, stream in zip(STRADDLE, STRADDLE_NEW, want):
+        tm.init_fixed_cache(64)
+        assert tm.generate(p, max_new_tokens=n) == stream

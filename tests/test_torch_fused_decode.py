@@ -282,3 +282,62 @@ def test_fused_step_without_leaves_raises(tiny):
     shape = (2, MAX, 2, 64)
     with pytest.raises(ValueError, match="prepare_fused_decode_params"):
         port_model.fused_decode_step_fn(tcfg, {"layers": {}}, torch.zeros(shape), None, 1, 0)
+
+
+# ---------------------------------------------------------------------------
+# LongRoPE past its threshold (a fault of the reference's fused step)
+# ---------------------------------------------------------------------------
+
+PHI3 = dict(TINY, max_position_embeddings=128, rope_theta=10000.0,
+            rope_scaling={"type": "longrope", "original_max_position_embeddings": 32,
+                          "short_factor": [1.0 + 0.02 * i for i in range(32)],
+                          "long_factor": [2.0 + 0.5 * i for i in range(32)]})
+
+
+def test_fused_step_takes_longrope_long_rows_past_the_threshold():
+    """A tiny Phi-3 (longrope, original_max 32) decoding at position 40:
+    the port's fused step (``fused_decode_plain`` on the CPU) equals its
+    unfused step, which rotates with the long factors there. The
+    reference's ``fused_decode_step_fn`` (interpret mode) reads the short
+    tables alone: its logits are bitwise those of the same params without
+    the long tables, and the port's fused step agrees with it only once its
+    short tables are replaced by the long ones (ROADMAP.md, section C)."""
+    jcfg = JaxConfig(**PHI3)
+    jm = jax_model.CausalTransformerModel(jcfg, jax_model.init_params(jcfg, 3, jnp.bfloat16),
+                                          dtype=jnp.bfloat16)
+    assert "rope_cos_long" in jm.params
+    tcfg = TransformerConfig(**PHI3)
+    tm = CausalTransformerModel(tcfg, params_from_jax(_host(jm.params)), dtype=torch.bfloat16)
+    tparams = port_model.prepare_fused_decode_params(tcfg, tm.params)
+    assert port_model.fused_decode_eligible(tcfg, tparams, MAX)
+    pos = 40
+    prompt = np.random.default_rng(pos).integers(1, 128, pos)
+    shape = (tcfg.num_layers, MAX, tcfg.num_kv_heads, tcfg.head_dim)
+    kc = torch.zeros(shape, dtype=torch.bfloat16)
+    vc = torch.zeros(shape, dtype=torch.bfloat16)
+    padded = torch.zeros(64, dtype=torch.long)
+    padded[:pos] = torch.from_numpy(prompt)
+    tok = int(port_model.prefill_fn(tcfg, tparams, port_model._merged(kc),
+                                    port_model._merged(vc), padded, pos).argmax())
+    jk, jv = jnp.asarray(kc.float().numpy(), jnp.bfloat16), jnp.asarray(vc.float().numpy(),
+                                                                         jnp.bfloat16)
+    ku, vu = kc.clone(), vc.clone()
+    lu = port_model.decode_step_fn(tcfg, tparams, ku, vu, tok, pos, allow_fused=False)
+    lf = port_model.fused_decode_step_fn(tcfg, tparams, kc, vc, tok, pos)
+    assert int(lu.argmax()) == int(lf.argmax())
+    np.testing.assert_allclose(lf.numpy(), lu.numpy(), rtol=0.05, atol=0.05)
+
+    def jax_fused(params):
+        fp = jax_model.prepare_fused_decode_params(jcfg, params)
+        return np.asarray(_bf16_exact(functools.partial(jax_model.fused_decode_step_fn, jcfg,
+                                                        interpret=True),
+                                      fp, jk, jv, jnp.int32(tok), jnp.int32(pos))[2],
+                          np.float32)
+    short_only = {k: v for k, v in jm.params.items() if not k.startswith("rope_") or
+                  k in ("rope_cos", "rope_sin")}
+    as_is = jax_fused(jm.params)
+    assert np.array_equal(as_is, jax_fused(short_only))
+    long_rows = dict(short_only, rope_cos=jm.params["rope_cos_long"],
+                     rope_sin=jm.params["rope_sin_long"])
+    np.testing.assert_allclose(lf.numpy(), jax_fused(long_rows), **CLOSE)
+    assert not np.allclose(lf.numpy(), as_is, **CLOSE)

@@ -792,9 +792,9 @@ def test_params_setter_keeps_the_reference_idiom_working():
                                                        "w_up", "w_down")} | {"lm_head"}
     out = model.generate([1, 2, 3], max_new_tokens=3)
     assert len(out) == 3
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(NotImplementedError):     # Apertus's learned xIELU leaf stays refused
         model.params = dict(model.params, layers=dict(model.params["layers"],
-                                                      use_rope_layer=torch.ones(2)))
+                                                      act_alpha_p=torch.ones(2)))
 
 
 # ---------------------------------------------------------------------------
