@@ -167,7 +167,7 @@ struct LaunchBda {
 // n_split], then pacc [b*hq, n_split, d]). softcap <= 0 disables it, window
 // <= 0 means none. k_new, v_new [b, hk*d] in q's dtype and poss [b] int32:
 // the fused row write's operands (written in place first), or all null.
-// Requires d in {64, 96, 128, 256}, hq % hk == 0, hq / hk <= 16, n_split >= 1,
+// Requires d in {64, 80, 96, 128, 256}, hq % hk == 0, hq / hk <= 16, n_split >= 1,
 // 16-byte aligned pools.
 PGK_API int pgk_batch_decode_attention(const void* q, const void* k_pool, const void* v_pool,
                                        const void* k_scale, const void* v_scale,

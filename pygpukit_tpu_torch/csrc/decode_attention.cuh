@@ -118,17 +118,35 @@ struct alignas(sizeof(T) * N) PgkVec {
   T v[N];
 };
 
+// The output dims a lane owns in the CUDA-core body (dims lane * kDPL + j,
+// j < kDPL): D / 32, rounded up where D is not a multiple of 32 (D 80: 3,
+// the last lanes owning fewer or none; pgk_lane_owns says which).
+template <int D>
+__host__ __device__ constexpr int pgk_lane_dims() {
+  return (D + 31) / 32;
+}
+template <int D>
+__device__ __forceinline__ bool pgk_lane_owns(int lane, int j) {
+  return D % 32 == 0 || lane * pgk_lane_dims<D>() + j < D;
+}
+
 // The CUDA-core body's shared memory: a ring of kStages K and V chunks,
 // then the G query rows and the G rows of P. Two chunks in flight up to
 // 512-byte rows; f32 rows at D 256 (1 KB: two stages would take 266 KB of
 // the 227 KB a block may have) keep one, loaded after the chunk before it
-// is consumed.
+// is consumed. A shared row holds the kCols = 32 * kDPL dims the lanes own,
+// the ones past D zero-filled (D 80 takes the D-96 rows); the pools keep
+// their D columns.
 template <class KV, int D>
 struct PgkAttnSmem {
-  static constexpr int kVecs = D * (int)sizeof(KV) / 16;   // 16-byte vectors per row
-  static constexpr int kRow = kVecs + 1;                    // padded row, 16-byte units (odd)
+  static_assert(D % 16 == 0 && D > 0, "a row must be whole 16-byte vectors in every storage");
+  static constexpr int kCols = 32 * pgk_lane_dims<D>();    // dims of a shared row
+  static constexpr int kVecs = D * (int)sizeof(KV) / 16;   // 16-byte vectors per pool row
+  static constexpr int kSVecs = kCols * (int)sizeof(KV) / 16;   // per shared row
+  static_assert(kSVecs % 2 == 0, "the padded shared row must stay an odd number of units");
+  static constexpr int kRow = kSVecs + 1;                   // padded row, 16-byte units (odd)
   static constexpr int kTile = kPgkAttnChunk * kRow;        // one K or V chunk, 16-byte units
-  static constexpr int kStages = D * (int)sizeof(KV) > 512 ? 1 : 2;
+  static constexpr int kStages = kCols * (int)sizeof(KV) > 512 ? 1 : 2;
   static size_t bytes(int g) {
     return (size_t)2 * kStages * kTile * 16 + (size_t)g * (D + kPgkAttnChunk) * 4;
   }
@@ -162,10 +180,10 @@ __device__ __forceinline__ int pgk_live_splits(int lo, int live, int n_split) {
 }
 
 // One warp's running state for its query head after a split: max, sum and
-// unnormalised accumulator (lane holds dims lane * D / 32 + j).
+// unnormalised accumulator (lane holds dims lane * kDPL + j).
 template <int D>
 struct PgkAttnState {
-  float m, l, acc[D / 32];
+  float m, l, acc[pgk_lane_dims<D>()];
 };
 
 // Writes head gh's (m, l, acc) at pm[gh * n_split + split], pl[...] and
@@ -174,7 +192,7 @@ template <int D>
 __device__ __forceinline__ void pgk_attn_store(const PgkAttnState<D>& st, float* __restrict__ pm,
                                                float* __restrict__ pl, float* __restrict__ pacc,
                                                int split, int n_split) {
-  constexpr int kDPL = D / 32;
+  constexpr int kDPL = pgk_lane_dims<D>();
   const int lane = threadIdx.x & 31;
   const int slot = (threadIdx.x >> 5) * n_split + split;
   if (lane == 0) {
@@ -182,18 +200,20 @@ __device__ __forceinline__ void pgk_attn_store(const PgkAttnState<D>& st, float*
     pl[slot] = st.l;
   }
 #pragma unroll
-  for (int j = 0; j < kDPL; ++j) pacc[(size_t)slot * D + lane * kDPL + j] = st.acc[j];
+  for (int j = 0; j < kDPL; ++j)
+    if (pgk_lane_owns<D>(lane, j)) pacc[(size_t)slot * D + lane * kDPL + j] = st.acc[j];
 }
 
 // The output of a head whose context is one split (or none): acc / max(l,
 // 1e-30), the bits pgk_attn_fold gives for one split (its weight is exp(0)).
 template <class Q, int D>
 __device__ __forceinline__ void pgk_attn_finish(const PgkAttnState<D>& st, Q* __restrict__ out) {
-  constexpr int kDPL = D / 32;
+  constexpr int kDPL = pgk_lane_dims<D>();
   const int lane = threadIdx.x & 31;
   const float lf = fmaxf(st.l, 1e-30f);
 #pragma unroll
-  for (int j = 0; j < kDPL; ++j) out[lane * kDPL + j] = pgk_from_f32<Q>(st.acc[j] / lf);
+  for (int j = 0; j < kDPL; ++j)
+    if (pgk_lane_owns<D>(lane, j)) out[lane * kDPL + j] = pgk_from_f32<Q>(st.acc[j] / lf);
 }
 
 // Pass one for one (split, slot, kv head) block of 32 * G threads, a warp
@@ -212,9 +232,9 @@ __device__ __forceinline__ PgkAttnState<D> pgk_decode_attention_run(
   constexpr bool kInt8 = std::is_same<KV, int8_t>::value;
   constexpr int kChunk = kPgkAttnChunk;
   constexpr int kEl = 16 / (int)sizeof(KV);   // elements per 16-byte vector
-  constexpr int kDPL = D / 32;                // output dims per lane: lane * kDPL + j
+  constexpr int kDPL = pgk_lane_dims<D>();    // output dims per lane: lane * kDPL + j
   // V elements a lane reads at once: its kDPL dims, in 16-byte pieces (an
-  // odd kDPL, 3 at D 96, reads them one at a time)
+  // odd kDPL, 3 at D 80 and 96, reads them one at a time)
   constexpr int kVB = kDPL * (int)sizeof(KV) > 16 ? 16 / (int)sizeof(KV) : kDPL;
   extern __shared__ __align__(16) uint4 pgk_attn_smem[];
   uint4* ks = pgk_attn_smem;                                   // [stage][chunk][kRow]
@@ -233,10 +253,10 @@ __device__ __forceinline__ PgkAttnState<D> pgk_decode_attention_run(
   auto load = [&](int c, int buf) {
     uint4* kd = ks + buf * L::kTile;
     uint4* vd = vs + buf * L::kTile;
-    for (int i = threadIdx.x; i < kChunk * L::kVecs; i += blockDim.x) {
-      const int r = i / L::kVecs, v = i % L::kVecs;
+    for (int i = threadIdx.x; i < kChunk * L::kSVecs; i += blockDim.x) {
+      const int r = i / L::kSVecs, v = i % L::kSVecs;
       const int p = c * kChunk + r;
-      const bool ok = p >= start && p < end;
+      const bool ok = p >= start && p < end && v < L::kVecs;   // dims past D: zeros
       const size_t off = ok ? rows(p) : 0;
       cp_async16(kd + r * L::kRow + v, reinterpret_cast<const uint4*>(kbase + off) + v, ok);
       cp_async16(vd + r * L::kRow + v, reinterpret_cast<const uint4*>(vbase + off) + v, ok);
@@ -395,7 +415,7 @@ __device__ __forceinline__ void pgk_attn_fold(const float* __restrict__ mh,
                                               const float* __restrict__ lh,
                                               const float* __restrict__ ah, Q* __restrict__ out,
                                               int n) {
-  constexpr int kDPL = D / 32;
+  constexpr int kDPL = pgk_lane_dims<D>();
   constexpr int kAhead = 8;                      // divides 32
   const int lane = threadIdx.x & 31;
   float nxt[kAhead][kDPL];
@@ -404,7 +424,9 @@ __device__ __forceinline__ void pgk_attn_fold(const float* __restrict__ mh,
     for (int u = 0; u < kAhead; ++u)
 #pragma unroll
       for (int j = 0; j < kDPL; ++j)
-        nxt[u][j] = c + u < n ? __ldcg(ah + (size_t)(c + u) * D + lane * kDPL + j) : 0.f;
+        nxt[u][j] = c + u < n && pgk_lane_owns<D>(lane, j)
+                        ? __ldcg(ah + (size_t)(c + u) * D + lane * kDPL + j)
+                        : 0.f;
   };
   fetch(0);
   float m_mine = lane < n ? __ldcg(mh + lane) : kPgkAttnNegInf;
@@ -442,7 +464,8 @@ __device__ __forceinline__ void pgk_attn_fold(const float* __restrict__ mh,
   }
   const float lf = fmaxf(l, 1e-30f);
 #pragma unroll
-  for (int j = 0; j < kDPL; ++j) out[lane * kDPL + j] = pgk_from_f32<Q>(acc[j] / lf);
+  for (int j = 0; j < kDPL; ++j)
+    if (pgk_lane_owns<D>(lane, j)) out[lane * kDPL + j] = pgk_from_f32<Q>(acc[j] / lf);
 }
 
 // Pass two: one warp per (slot, query head) folds its splits.
@@ -523,6 +546,10 @@ __device__ __forceinline__ void pgk_attn_fold_last(unsigned* __restrict__ arriva
 // D 96 (Phi-3) runs the D-128 shape with 6 k-steps of Q K^T and 12 n-tiles
 // of P V (208-byte padded rows: 13 16-byte units, odd, so ldmatrix's eight
 // rows still hit distinct banks), one stage a warp.
+// D 80 (Phi-2) runs the D-96 shape: its shared rows hold 96 columns, the 16
+// past the row zero-filled by the cp.async source size (the pools keep 80),
+// Q's sixth k-step is zeros, so Q K^T's 6 k-steps (3 pairs) give the 80
+// columns' sums, and P V takes the 10 n-tiles of the 80 columns alone.
 // At D 256 a warp's tile is 32 rows (a 64-row tile of K and V is 66 KB, and
 // four warps' would pass the 227 KB a block may have), and the Q fragments
 // (64 registers at D 256, beside O's 128) are read from global memory (L1)
@@ -531,9 +558,11 @@ constexpr int kPgkMmaWarps = 4;
 
 template <int D>
 struct PgkMmaSmem {
+  static_assert(D % 16 == 0 && D > 0, "whole k-steps and n-tile pairs");
   static constexpr int kRows = D > 128 ? 32 : kPgkAttnChunk;    // rows of a warp's tile
   static constexpr int kStages = D == 64 ? 2 : 1;               // tiles in flight a warp
-  static constexpr int kRowBytes = D * 2 + 16;
+  static constexpr int kCols = (D + 31) / 32 * 32;              // columns of a shared row
+  static constexpr int kRowBytes = kCols * 2 + 16;
   static constexpr int kTile = kRows * kRowBytes;               // one K or V tile
   static constexpr int kWarpBytes = kStages * 2 * kTile;
   static constexpr int kBytes = kPgkMmaWarps * kWarpBytes;      // the merge reuses it
@@ -564,11 +593,13 @@ __device__ __forceinline__ PgkMmaState pgk_decode_attention_mma(
     float scale) {
   using L = PgkMmaSmem<D>;
   constexpr int kChunk = L::kRows;           // the warp's unit: a tile of kRows positions
-  constexpr int kKS = D / 16;                // k-steps of Q K^T
-  constexpr int kDN = D / 8;                 // n-tiles of P V
+  constexpr int kKS = L::kCols / 16;         // k-steps of Q K^T (in pairs; past D zeros)
+  constexpr int kDN = D / 8;                 // n-tiles of P V (in pairs)
   constexpr int kNT = kChunk / 8;            // n-tiles of S
-  constexpr int kVecs = D / 8;               // 16-byte vectors a row
+  constexpr int kVecs = D / 8;               // 16-byte vectors a pool row
+  constexpr int kSVecs = L::kCols / 8;       // a shared row's
   constexpr bool kQHeld = D <= 128;          // Q's fragments held in registers
+  static_assert(kKS % 2 == 0 && kDN % 2 == 0, "k-steps and n-tiles go in pairs");
   extern __shared__ __align__(16) uint8_t pgk_mma_smem[];
   const int warp = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
@@ -582,10 +613,10 @@ __device__ __forceinline__ PgkMmaState pgk_decode_attention_mma(
     const int c = c_first + warp + kPgkMmaWarps * i;
     uint8_t* kd = ring + (i % L::kStages) * 2 * L::kTile;
     uint8_t* vd = kd + L::kTile;
-    for (int e = lane; e < kChunk * kVecs; e += 32) {
-      const int r = e / kVecs, v = e % kVecs;
+    for (int e = lane; e < kChunk * kSVecs; e += 32) {
+      const int r = e / kSVecs, v = e % kSVecs;
       const int p = c * kChunk + r;
-      const bool ok = p >= start && p < end;
+      const bool ok = p >= start && p < end && v < kVecs;   // columns past D: zeros
       const size_t off = ok ? rows(p) : 0;
       cp_async16(kd + r * L::kRowBytes + v * 16, reinterpret_cast<const uint4*>(kbase + off) + v,
                  ok);
@@ -600,10 +631,11 @@ __device__ __forceinline__ PgkMmaState pgk_decode_attention_mma(
   auto q_frag = [&](int ks, uint32_t (&a)[4]) {
     const uint32_t* q0 = reinterpret_cast<const uint32_t*>(qb + g * D + ks * 16 + 2 * t);
     const uint32_t* q8 = q0 + 4 * D;         // eight heads on
-    a[0] = g < g_heads ? q0[0] : 0u;
-    a[1] = g + 8 < g_heads ? q8[0] : 0u;
-    a[2] = g < g_heads ? q0[4] : 0u;
-    a[3] = g + 8 < g_heads ? q8[4] : 0u;
+    const bool in = ks * 16 < D;             // a k-step past D is zeros
+    a[0] = in && g < g_heads ? q0[0] : 0u;
+    a[1] = in && g + 8 < g_heads ? q8[0] : 0u;
+    a[2] = in && g < g_heads ? q0[4] : 0u;
+    a[3] = in && g + 8 < g_heads ? q8[4] : 0u;
   };
   uint32_t qa[kQHeld ? kKS : 1][4];
   if constexpr (kQHeld) {
@@ -860,7 +892,8 @@ static cudaError_t pgk_launch_attention(Kernel kernel, int g, int n_split, int b
 }
 
 // Calls Launch<Q, KV, D>::run(args...) for the query kind (0 bf16, 1 f32),
-// the storage kind (kPgkKv*) and D in {64, 96, 128, 256}.
+// the storage kind (kPgkKv*) and D in {64, 80, 96, 128, 256}; any other D
+// is cudaErrorInvalidValue.
 template <template <class, class, int> class Launch, class Q, int D, class... A>
 static cudaError_t pgk_attn_dispatch_kv(int kv_kind, A... args) {
   switch (kv_kind) {
@@ -878,6 +911,9 @@ static cudaError_t pgk_attn_dispatch(int q_kind, int kv_kind, int d, A... args) 
   if (d == 64) {
     if (q_kind == 0) return pgk_attn_dispatch_kv<Launch, __nv_bfloat16, 64>(kv_kind, args...);
     if (q_kind == 1) return pgk_attn_dispatch_kv<Launch, float, 64>(kv_kind, args...);
+  } else if (d == 80) {
+    if (q_kind == 0) return pgk_attn_dispatch_kv<Launch, __nv_bfloat16, 80>(kv_kind, args...);
+    if (q_kind == 1) return pgk_attn_dispatch_kv<Launch, float, 80>(kv_kind, args...);
   } else if (d == 96) {
     if (q_kind == 0) return pgk_attn_dispatch_kv<Launch, __nv_bfloat16, 96>(kv_kind, args...);
     if (q_kind == 1) return pgk_attn_dispatch_kv<Launch, float, 96>(kv_kind, args...);

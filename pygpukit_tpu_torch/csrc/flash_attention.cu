@@ -43,6 +43,13 @@
 // Q.K^T takes 6 k-steps of m64n128k16 and P.V is one m64n96k16 a k-step
 // (V's LBO the 32-column sub-tile's bytes); O is 48 registers a thread and
 // the key tile stays 128 (123 KB of shared memory).
+// At D 80 (Phi-2) the rows are two and a half 32-column sub-tiles: they
+// land as D 96's three, through 3-D tensor maps over [S][H][80] (box 32
+// columns x 1 head x the tile's rows) whose inner extent is 80, so the
+// third sub-tile's last 16 columns read as zeros (out of bounds) and no
+// tensor is padded. S = Q.K^T takes the 5 k-steps of the 80 columns; P.V
+// is D 96's m64n96k16 over V's zero columns, whose 16 outputs are not
+// stored.
 // Each consumer runs S, softmax and P.V of a tile one after another. FA3's
 // overlap of one tile's softmax with the next tile's products, and its
 // ping-pong turn between the consumers, both measured slower or no faster
@@ -70,12 +77,15 @@ constexpr int kFaConsumers = 256;
 
 template <int D>
 struct FaLayout {
+  static_assert(D % 16 == 0 && D > 0, "whole k-steps of 16 columns");
   static constexpr int kBN = D > 128 ? 64 : 128;           // keys per tile
   static constexpr int kCols = D % 64 == 0 ? 64 : 32;      // columns of a swizzled sub-tile
   static constexpr int kSw = kCols * 2;                    // its row bytes: the swizzle span
-  static constexpr int kSub = D / kCols;                   // sub-tiles a row
-  static constexpr int kQBytes = kFaBM * D * 2;
-  static constexpr int kTileBytes = kBN * D * 2;           // one K or V tile
+  static constexpr int kSub = (D + kCols - 1) / kCols;     // sub-tiles a row
+  static constexpr int kDP = kSub * kCols;                 // a shared row's columns (>= D)
+  static constexpr bool kRagged = kDP != D;                // the last sub-tile reads zeros
+  static constexpr int kQBytes = kFaBM * kDP * 2;
+  static constexpr int kTileBytes = kBN * kDP * 2;         // one K or V tile
   static constexpr int kBarOff = kQBytes + 2 * kFaStages * kTileBytes;
   static constexpr int kBytes = kBarOff + 8 * (1 + 4 * kFaStages) + 1024;  // + alignment slack
 };
@@ -207,13 +217,13 @@ __device__ __forceinline__ void fa_issue_s(float (&sc)[kBN / 2], const bf16* qw,
   wgmma_commit();
 }
 
-template <int D, int kBN = FaLayout<D>::kBN>
-__device__ __forceinline__ void fa_issue_pv(float (&o)[D / 2], const uint32_t (&pa)[kBN / 16][4],
+template <int D, int kBN = FaLayout<D>::kBN, int kDP = FaLayout<D>::kDP>
+__device__ __forceinline__ void fa_issue_pv(float (&o)[kDP / 2], const uint32_t (&pa)[kBN / 16][4],
                                             const bf16* vt) {
   constexpr int kCols = FaLayout<D>::kCols;
 #pragma unroll
   for (int kk = 0; kk < kBN / 16; ++kk)
-    wgmma_pv<D>(o, pa[kk], fa_desc<D>(vt + kk * 16 * kCols, kBN * kCols * 2));
+    wgmma_pv<kDP>(o, pa[kk], fa_desc<D>(vt + kk * 16 * kCols, kBN * kCols * 2));
   wgmma_commit();
 }
 
@@ -235,11 +245,12 @@ flash_bf16_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant_
                   int hk, int causal, float scale_log2) {
   using L = FaLayout<D>;
   constexpr int kFaBN = L::kBN;
+  constexpr int kDP = L::kDP;
   extern __shared__ __align__(1024) unsigned char fa_raw[];
   unsigned char* base = fa_raw + ((1024 - (smem_u32(fa_raw) & 1023)) & 1023);
   bf16* qs = reinterpret_cast<bf16*>(base);                        // [kSub][kFaBM][kCols]
   bf16* ks = reinterpret_cast<bf16*>(base + L::kQBytes);           // [stage][kSub][kFaBN][kCols]
-  bf16* vs = ks + kFaStages * kFaBN * D;
+  bf16* vs = ks + kFaStages * kFaBN * kDP;
   uint64_t* q_full = reinterpret_cast<uint64_t*>(base + L::kBarOff);
   uint64_t* k_full = q_full + 1;
   uint64_t* v_full = k_full + kFaStages;
@@ -271,22 +282,32 @@ flash_bf16_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant_
     // once S has read it, a V stage once P.V has
     setmaxnreg_dec<40>();
     if (threadIdx.x == 0) {
+      // sub-tile `sub` of head `head`'s rows from `row`: a 2-D box at column
+      // head * D, or (ragged D) a 3-D box whose columns past D are zeros;
+      // either way the box's full bytes count toward the barrier
+      auto load = [&](bf16* dst, const CUtensorMap* map, uint64_t* bar, int head, int sub,
+                      int row) {
+        if constexpr (L::kRagged)
+          tma_load_3d(dst, map, bar, sub * L::kCols, head, row);
+        else
+          tma_load_2d(dst, map, bar, head * D + sub * L::kCols, row);
+      };
       mbar_arrive_expect_tx(q_full, L::kQBytes);
       for (int sub = 0; sub < L::kSub; ++sub)
-        tma_load_2d(qs + sub * kFaBM * L::kCols, &tq, q_full, h * D + sub * L::kCols, q0);
+        load(qs + sub * kFaBM * L::kCols, &tq, q_full, h, sub, q0);
       for (int j = 0; j <= last; ++j) {
         const int st = j % kFaStages;
         const uint32_t free_ph = ((j / kFaStages) & 1) ^ 1;
         mbar_wait(&k_empty[st], free_ph);
         mbar_arrive_expect_tx(&k_full[st], L::kTileBytes);
         for (int sub = 0; sub < L::kSub; ++sub)
-          tma_load_2d(ks + st * kFaBN * D + sub * kFaBN * L::kCols, &tk, &k_full[st],
-                      kvh * D + sub * L::kCols, j * kFaBN);
+          load(ks + st * kFaBN * kDP + sub * kFaBN * L::kCols, &tk, &k_full[st], kvh, sub,
+               j * kFaBN);
         mbar_wait(&v_empty[st], free_ph);
         mbar_arrive_expect_tx(&v_full[st], L::kTileBytes);
         for (int sub = 0; sub < L::kSub; ++sub)
-          tma_load_2d(vs + st * kFaBN * D + sub * kFaBN * L::kCols, &tv, &v_full[st],
-                      kvh * D + sub * L::kCols, j * kFaBN);
+          load(vs + st * kFaBN * kDP + sub * kFaBN * L::kCols, &tv, &v_full[st], kvh, sub,
+               j * kFaBN);
       }
     }
   } else {
@@ -299,9 +320,9 @@ flash_bf16_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant_
     const int r0 = q_lo + warp * 16 + g, r1 = r0 + 8;             // this thread's two rows
     const bf16* qw = qs + cwg * 64 * L::kCols;                    // its 64 rows of each sub-tile
 
-    float oacc[D / 2];
+    float oacc[kDP / 2];                                          // columns past D: zeros
 #pragma unroll
-    for (int i = 0; i < D / 2; ++i) oacc[i] = 0.f;
+    for (int i = 0; i < kDP / 2; ++i) oacc[i] = 0.f;
     float m_i[2] = {kNegInf, kNegInf}, l_i[2] = {0.f, 0.f}, alpha[2];
     float sc[kFaBN / 2];                                          // S: 64 rows x kFaBN keys
     uint32_t pa[kFaBN / 16][4];                                   // P as bf16 A registers
@@ -311,17 +332,17 @@ flash_bf16_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant_
       const uint32_t ph = (j / kFaStages) & 1;
       mbar_wait(&k_full[st], ph);
       wgmma_fence();
-      fa_issue_s<D>(sc, qw, ks + st * kFaBN * D);
+      fa_issue_s<D>(sc, qw, ks + st * kFaBN * kDP);
       wgmma_wait<0>();
       wgmma_fence_regs(sc);
       mbar_arrive(&k_empty[st]);
       fa_softmax<kFaBN>(sc, pa, m_i, l_i, alpha, j * kFaBN, s, causal, q_lo, r0, r1, t,
                         scale_log2);
-      fa_rescale<D>(oacc, alpha);
+      fa_rescale<kDP>(oacc, alpha);
       mbar_wait(&v_full[st], ph);
       wgmma_fence_regs(oacc);
       wgmma_fence();
-      fa_issue_pv<D>(oacc, pa, vs + st * kFaBN * D);
+      fa_issue_pv<D>(oacc, pa, vs + st * kFaBN * kDP);
       wgmma_wait<0>();
       wgmma_fence_regs(oacc);
       mbar_arrive(&v_empty[st]);
@@ -364,7 +385,8 @@ flash_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
                  const float* __restrict__ v, float* __restrict__ o, int s, int hq, int hk,
                  int causal, float scale) {
   constexpr int kPad = D + 1;                     // lane-per-key row reads hit distinct banks
-  constexpr int kDPL = D / 32;                    // output dims per lane: lane + 32 j
+  constexpr int kDPL = (D + 31) / 32;             // output dims per lane: lane + 32 j < D
+  auto owns = [&](int lane, int j) { return D % 32 == 0 || lane + 32 * j < D; };
   extern __shared__ float f32_raw[];
   auto ks = reinterpret_cast<float (*)[kPad]>(f32_raw);
   auto vs = reinterpret_cast<float (*)[kPad]>(f32_raw + kF32C * kPad);
@@ -428,7 +450,8 @@ flash_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
       for (int rr = 0; rr < kF32Rows; ++rr) {
         const float pr = ps[warp][rr][c];
 #pragma unroll
-        for (int j = 0; j < kDPL; ++j) acc[rr][j] += pr * vs[c][lane + 32 * j];
+        for (int j = 0; j < kDPL; ++j)
+          if (owns(lane, j)) acc[rr][j] += pr * vs[c][lane + 32 * j];
       }
     }
     __syncwarp();
@@ -440,7 +463,7 @@ flash_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
     const float lf = fmaxf(l[rr], 1e-30f);
 #pragma unroll
     for (int j = 0; j < kDPL; ++j)
-      o[(size_t)row * row_q + (size_t)h * D + lane + 32 * j] = acc[rr][j] / lf;
+      if (owns(lane, j)) o[(size_t)row * row_q + (size_t)h * D + lane + 32 * j] = acc[rr][j] / lf;
   }
 }
 
@@ -465,9 +488,22 @@ cudaError_t launch_flash(const void* q, const void* k, const void* v, void* out,
   const uint64_t qrow = (uint64_t)hq * D, kvrow = (uint64_t)hk * D;
   const CUtensorMapSwizzle sw =
       L::kSw == 128 ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_64B;
-  cudaError_t e = pgk_tensor_map_bf16(&tq, q, qrow, s, qrow * 2, L::kCols, kFaBM, sw);
-  if (e == cudaSuccess) e = pgk_tensor_map_bf16(&tk, k, kvrow, s, kvrow * 2, L::kCols, L::kBN, sw);
-  if (e == cudaSuccess) e = pgk_tensor_map_bf16(&tv, v, kvrow, s, kvrow * 2, L::kCols, L::kBN, sw);
+  // [rows][heads][D] with boxes of kCols x 1 x box_rows (ragged D), else
+  // the [rows][heads * D] plane with boxes of kCols x box_rows
+  auto map = [&](CUtensorMap* m, const void* base, int heads, uint32_t box_rows) {
+    if (L::kRagged) {
+      const uint64_t dims[3] = {(uint64_t)D, (uint64_t)heads, (uint64_t)s};
+      const uint64_t strides[2] = {(uint64_t)D * 2, (uint64_t)heads * D * 2};
+      const uint32_t box[3] = {(uint32_t)L::kCols, 1, box_rows};
+      return pgk_tensor_map_bf16_nd(m, base, 3, dims, strides, box,
+                                    CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, sw);
+    }
+    const uint64_t row = (uint64_t)heads * D;
+    return pgk_tensor_map_bf16(m, base, row, s, row * 2, L::kCols, box_rows, sw);
+  };
+  cudaError_t e = map(&tq, q, hq, kFaBM);
+  if (e == cudaSuccess) e = map(&tk, k, hk, L::kBN);
+  if (e == cudaSuccess) e = map(&tv, v, hk, L::kBN);
   if (e != cudaSuccess) return e;
   constexpr int smem = FaLayout<D>::kBytes;
   e = cudaFuncSetAttribute(flash_bf16_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -483,13 +519,15 @@ cudaError_t launch_flash(const void* q, const void* k, const void* v, void* out,
 
 // q [s, hq, d], k and v [s, hk, d], out [s, hq, d]; contiguous, 16-byte
 // aligned, all bf16 (is_f32 == 0) or all f32. causal masks keys > query.
-// Requires s >= 1, d in {64, 96, 128, 256}, hq % hk == 0.
+// Requires s >= 1, d in {64, 80, 96, 128, 256} (any other:
+// cudaErrorInvalidValue), hq % hk == 0.
 PGK_API int pgk_flash_attention(const void* q, const void* k, const void* v, void* out, int s,
                                 int hq, int hk, int d, int causal, int is_f32, float scale,
                                 void* stream) {
   if (s < 1 || hk < 1 || hq % hk != 0) return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (d == 64) return (int)launch_flash<64>(q, k, v, out, s, hq, hk, causal, is_f32, scale, st);
+  if (d == 80) return (int)launch_flash<80>(q, k, v, out, s, hq, hk, causal, is_f32, scale, st);
   if (d == 96) return (int)launch_flash<96>(q, k, v, out, s, hq, hk, causal, is_f32, scale, st);
   if (d == 128) return (int)launch_flash<128>(q, k, v, out, s, hq, hk, causal, is_f32, scale, st);
   if (d == 256) return (int)launch_flash<256>(q, k, v, out, s, hq, hk, causal, is_f32, scale, st);

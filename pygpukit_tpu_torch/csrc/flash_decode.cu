@@ -175,7 +175,8 @@ cudaError_t launch_decode(const void* q, const void* kc, const void* vc, const i
 // int32 on the device) when ctx_dev is not null, else ctx_val; below 0 it
 // counts as 0 (zeros out), above max_len as max_len. part: hq * n_split *
 // (d + 2) f32 scratch; n_split >= 1 from the shapes alone. Requires d in
-// {64, 96, 128, 256}, hq % hk == 0, hq / hk <= 32, hk <= 4096 (max_len 0: zeros).
+// {64, 80, 96, 128, 256} (any other: cudaErrorInvalidValue), hq % hk == 0,
+// hq / hk <= 32, hk <= 4096 (max_len 0: zeros).
 PGK_API int pgk_flash_decode(const void* q, const void* kc, const void* vc, const void* ctx_dev,
                              int ctx_val, void* out, void* part, int hq, int hk, int d,
                              int max_len, int n_split, int is_f32, float scale, void* stream) {
@@ -187,6 +188,11 @@ PGK_API int pgk_flash_decode(const void* q, const void* kc, const void* vc, cons
     return is_f32 ? (int)launch_decode<float, 64>(q, kc, vc, cd, ctx_val, out, part, hq, hk,
                                                   max_len, n_split, scale, st)
                   : (int)launch_decode<__nv_bfloat16, 64>(q, kc, vc, cd, ctx_val, out, part,
+                                                          hq, hk, max_len, n_split, scale, st);
+  if (d == 80)
+    return is_f32 ? (int)launch_decode<float, 80>(q, kc, vc, cd, ctx_val, out, part, hq, hk,
+                                                  max_len, n_split, scale, st)
+                  : (int)launch_decode<__nv_bfloat16, 80>(q, kc, vc, cd, ctx_val, out, part,
                                                           hq, hk, max_len, n_split, scale, st);
   if (d == 96)
     return is_f32 ? (int)launch_decode<float, 96>(q, kc, vc, cd, ctx_val, out, part, hq, hk,

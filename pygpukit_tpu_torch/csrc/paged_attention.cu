@@ -103,7 +103,7 @@ struct LaunchPaged {
 // v_scale, else those may be null); tables [b, max_blocks] int32 physical
 // block ids; ctx_lens [b] int32; out [b, hq, d] in q's dtype; part: b * hq *
 // n_split * (d + 2) f32 scratch. softcap <= 0 disables it, window <= 0 means
-// none. Requires d in {64, 96, 128, 256}, hq % hk == 0, hq / hk <= 16, n_split >= 1,
+// none. Requires d in {64, 80, 96, 128, 256}, hq % hk == 0, hq / hk <= 16, n_split >= 1,
 // 16-byte aligned pools.
 PGK_API int pgk_paged_attention(const void* q, const void* k_pool, const void* v_pool,
                                 const void* k_scale, const void* v_scale, const void* tables,

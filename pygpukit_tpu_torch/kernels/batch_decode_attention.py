@@ -36,7 +36,7 @@ _KV_KINDS = {torch.bfloat16: 0, _F32: 1, torch.float8_e4m3fn: 2,
              torch.float8_e5m2: 3}
 INT8_KIND = 4
 #: the head dims the decode-attention kernels are built for
-HEAD_DIMS = (64, 96, 128, 256)
+HEAD_DIMS = (64, 80, 96, 128, 256)
 
 
 def storage_kinds(q: torch.Tensor, k_pool, v_pool) -> tuple[int, int]:

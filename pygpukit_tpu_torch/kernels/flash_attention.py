@@ -7,7 +7,7 @@ one query row ``[1, Hq, D]`` over fixed caches ``[MAX, Hk, D]`` whose rows
 ``[0, ctx_len)`` are live. Both keep the reference kernels' arithmetic: f32
 scores and running state, P rounded to the input dtype before P@V, the sum
 floored at 1e-30. CUDA tensors launch ``csrc/flash_attention.cu`` and
-``csrc/flash_decode.cu`` (bf16 or f32, D 64, 96, 128 or 256) or raise; CPU tensors
+``csrc/flash_decode.cu`` (bf16 or f32, D 64, 80, 96, 128 or 256) or raise; CPU tensors
 take the plain versions, which compute the same full softmax with P rounded
 the same way (the kernels' online form rounds P against a running maximum,
 so the two agree to bf16 rounding, and to f32 summation order in f32).
@@ -44,7 +44,7 @@ MAX_KV_HEADS = 4096
 #: warp, both in flight), and the blocks it aims at (one an SM)
 DECODE_MMA_CHUNKS, DECODE_MMA_BLOCKS = 8, 132
 #: the head dims both kernels are built for
-HEAD_DIMS = (64, 96, 128, 256)
+HEAD_DIMS = (64, 80, 96, 128, 256)
 #: query rows per step of flash_attention_plain (bounds its score memory)
 _PLAIN_Q_BLOCK = 512
 
@@ -149,10 +149,12 @@ def mma_fold_splits(g: int, d: int) -> int:
     """Splits the tensor-core kernel's last block can stage in its ring to
     fold them in one pass: ``pgk_mma_fold_splits`` of
     ``csrc/decode_attention.cuh`` (a ring of four warps x 2 stages at D 64,
-    1 above, x K and V tiles of 64 rows, 32 at D 256, padded by 16 bytes;
-    a split takes G (D + 3) floats, and each head one more)."""
+    1 above, x K and V tiles of 64 rows, 32 at D 256, of D rounded up to 32
+    columns and padded by 16 bytes; a split takes G (D + 3) floats, and each
+    head one more)."""
     rows = 32 if d > 128 else ATTN_CHUNK
-    ring = 4 * (2 if d == 64 else 1) * 2 * rows * (2 * d + 16)
+    cols = -(-d // 32) * 32
+    ring = 4 * (2 if d == 64 else 1) * 2 * rows * (2 * cols + 16)
     return (ring - 4 * g) // (g * (d + 3) * 4)
 
 

@@ -9,9 +9,7 @@ Weight-name templates are the standard Hugging Face checkpoint names of
 each family. Projections are stored ``[in_features, out_features]`` so a
 forward is ``x @ W``: HF Linear ``[out, in]`` tensors are transposed once
 at load (``hf_linear_layout``); GPT-2 Conv1D tensors already are
-``[in, out]``. The specs are data: families the model does not run yet
-(``model.check_supported``) are described here all the same, and the
-loader refuses them.
+``[in, out]``. The specs are data; the model runs every family here.
 """
 
 from __future__ import annotations

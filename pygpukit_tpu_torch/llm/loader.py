@@ -6,9 +6,9 @@ per-architecture loaders.
 The tree is the one ``model.py`` reads: per-layer weights stacked on a
 leading layer axis, projections ``[in, out]`` (``x @ W``), norm weights and
 the MoE router in f32, an untied head ``[E, V]`` and a tied one ``None``.
-Families the model does not run yet (``model.check_supported``,
-``model._LAYER_LEAVES``) raise NotImplementedError at load; nothing is
-dropped.
+The model runs every family of ``config.MODEL_SPECS``; a config or a
+leaf it does not know (``model.check_supported``, ``model._LAYER_LEAVES``)
+raises NotImplementedError at load, and nothing is dropped.
 
 Host -> device. On the card a tensor's bytes are copied as they lie in the
 file, then converted to the model's dtype and, for HF ``[out, in]``

@@ -159,41 +159,37 @@ def resolve_kv_dtype(kv_dtype, model_dtype: torch.dtype) -> torch.dtype:
 
 def check_supported(cfg: TransformerConfig) -> None:
     """Raise NotImplementedError for architecture features this slice has
-    not ported, instead of computing something else silently. Ported: the
-    Llama/Mistral/Mixtral block and the Qwen2 (biases), Qwen3 and
-    Qwen3-MoE (per-head q/k norm), GPT-2 (layernorm, learned positions,
-    gelu) and Gemma-2/3 (sandwich norms, embedding scale, softcaps, local
-    rope tables, GeGLU) features, and every rope variant: scaled tables
-    (yarn, llama3, longrope, linear, ntk), interleaved and partial rotary
-    and NoPE layers (Llama-3.x, Phi-3, GLM-4, Ernie 4.5, SmolLM3)."""
-    missing = [name for name, on in (
-        ("post-norm-only blocks", not cfg.pre_norms),
-        ("parallel blocks", cfg.parallel_block),
-        ("residual multiplier", cfg.residual_multiplier is not None),
-        ("logit scale", cfg.logit_scale is not None),
-        ("wide qk norm", cfg.use_qk_norm and cfg.qk_norm_wide),
-        (f"activation {cfg.activation!r}",
-         cfg.activation not in ("silu", "gelu", "gelu_tanh")),
-    ) if on]
-    if missing:
-        raise NotImplementedError("not ported yet: " + ", ".join(missing))
+    not ported, instead of computing something else silently: the one place
+    for such refusals. Every block form, norm, activation and head
+    convention that ``TransformerConfig`` can express is ported: the
+    Llama/Mistral/Mixtral block, Qwen2 (biases), Qwen3 and Qwen3-MoE
+    (per-head q/k norm), GPT-2 (layernorm, learned positions, gelu),
+    Gemma-2/3 (sandwich norms, embedding scale, softcaps, local rope tables,
+    GeGLU), every rope variant (scaled tables, interleaved and partial
+    rotary, NoPE layers), OLMo-2 (post-norm-only blocks, whole-width q/k
+    norms), Cohere and Phi (parallel blocks, logit scale, lm-head bias),
+    Granite (residual multiplier), Nemotron (relu2) and Apertus (xIELU).
+    So it refuses only an activation name outside the config's own set."""
+    if cfg.activation not in ("silu", "gelu", "gelu_tanh", "relu2", "xielu"):
+        raise NotImplementedError(f"not ported yet: activation {cfg.activation!r}")
 
 
 #: the MoE expert stacks [L, E, in, out]: bf16 or f32 tensors, or
 #: {"q", "scale"} fp8/int8 dicts
 _EXPERT_LEAVES = {"w_experts_gate", "w_experts_up", "w_experts_down"}
 #: the leaves the slice takes (``attn_window``, ``use_local_rope`` and
-#: ``use_rope_layer`` hold what the config states, which the steps read); a
-#: param tree with others (the lm-head bias, learned activations) is
-#: refused rather than partly ignored
+#: ``use_rope_layer`` hold what the config states, which the steps read;
+#: ``act_*`` are Apertus's learned xIELU parameters, [L, 1] each); a param
+#: tree with others is refused rather than partly ignored
 _LAYER_LEAVES = {"w_qkv", "w_q", "w_k", "w_v", "w_o", "w_gate_up", "w_gate",
                  "w_up", "w_down", "attn_norm_w", "mlp_norm_w", "attn_window",
                  "w_qkv_cat", "w_gu_cat", "w_router",
                  "b_q", "b_k", "b_v", "b_qkv", "b_o", "w_q_norm", "w_k_norm",
                  "post_attn_norm_w", "post_mlp_norm_w", "attn_norm_b", "mlp_norm_b",
                  "w_fc1", "w_fc2", "b_fc1", "b_fc2", "use_local_rope",
-                 "use_rope_layer"} | _EXPERT_LEAVES
-_TOP_LEAVES = {"embed", "final_norm_w", "lm_head", "layers", "rope_cos",
+                 "use_rope_layer", "act_alpha_p", "act_alpha_n", "act_beta",
+                 "act_eps"} | _EXPERT_LEAVES
+_TOP_LEAVES = {"embed", "final_norm_w", "lm_head", "lm_head_b", "layers", "rope_cos",
                "rope_sin", "pos_embed", "final_norm_b", "rope_cos_local",
                "rope_sin_local", "rope_cos_long", "rope_sin_long", "rope_long_threshold"}
 
@@ -456,6 +452,10 @@ def _norm(cfg: TransformerConfig, x, w, b=None):
 
 
 def _attn_in(cfg: TransformerConfig, lp: dict, h):
+    """The attention sublayer's input: the pre-norm of the residual stream,
+    or the raw stream where the blocks have no input norms (OLMo-2)."""
+    if not cfg.pre_norms:
+        return h
     return _norm(cfg, h, lp["attn_norm_w"], lp.get("attn_norm_b"))
 
 
@@ -486,8 +486,10 @@ def _rope_qk(cfg: TransformerConfig, i: int, rows: _RopeRows | None, q, k):
 
 
 def _qk_headnorm(x, w, eps: float, subtract_mean: bool = False):
-    """Per-head norm over head_dim (Qwen3's q_norm/k_norm), w [D]: RMS, or
-    mean-centred first where ``subtract_mean`` (Cohere's flavour), in f32."""
+    """Norm over the last dim in f32: per head over head_dim (Qwen3's
+    q_norm/k_norm, w [D]; Cohere's per-head weights [H, D]), or over the
+    whole projection width (OLMo-2, w [H*D]); RMS, or mean-centred first
+    where ``subtract_mean`` (Cohere's flavour)."""
     xf = x.to(_F32)
     if subtract_mean:
         xf = xf - torch.mean(xf, dim=-1, keepdim=True)
@@ -497,8 +499,9 @@ def _qk_headnorm(x, w, eps: float, subtract_mean: bool = False):
 
 def _project_qkv(cfg: TransformerConfig, lp: dict, x):
     """x [S, E] -> q [S, Hq, D], k and v [S, Hk, D] in x's dtype: the fused
-    or separate projections, their biases added in f32, then the per-head
-    q/k norms."""
+    or separate projections, their biases added in f32, then the q/k norms:
+    OLMo-2's over the whole ``Hq*D`` / ``Hk*D`` width before the head
+    reshape (the mean runs across the heads), the others per head."""
     s = x.shape[0]
     hq, hk, d = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
     if "w_qkv" in lp:
@@ -511,9 +514,13 @@ def _project_qkv(cfg: TransformerConfig, lp: dict, x):
         q, k, v = q + b[:hq * d], k + b[hq * d:(hq + hk) * d], v + b[(hq + hk) * d:]
     elif "b_q" in lp:
         q, k, v = (t + lp[n].to(_F32) for t, n in ((q, "b_q"), (k, "b_k"), (v, "b_v")))
+    wide = cfg.use_qk_norm and cfg.qk_norm_wide
+    if wide:
+        q = _qk_headnorm(q.to(x.dtype), lp["w_q_norm"], cfg.norm_eps)
+        k = _qk_headnorm(k.to(x.dtype), lp["w_k_norm"], cfg.norm_eps)
     q, k, v = (q.to(x.dtype).reshape(s, hq, d), k.to(x.dtype).reshape(s, hk, d),
                v.to(x.dtype).reshape(s, hk, d))
-    if cfg.use_qk_norm:
+    if cfg.use_qk_norm and not wide:
         sm = cfg.norm_type == "layernorm"
         q = _qk_headnorm(q, lp["w_q_norm"], cfg.norm_eps, subtract_mean=sm)
         k = _qk_headnorm(k, lp["w_k_norm"], cfg.norm_eps, subtract_mean=sm)
@@ -546,9 +553,24 @@ def _gelu_tanh(x: torch.Tensor) -> torch.Tensor:
     return x * cdf
 
 
+def _xielu(lp: dict, h: torch.Tensor) -> torch.Tensor:
+    """Apertus's xIELU on f32 ``h`` with the layer's learned ``act_*``
+    leaves, in the reference's order: alpha_p = softplus(a_p), alpha_n =
+    beta + softplus(a_n); ``alpha_p h^2 + beta h`` where h > 0, else
+    ``(expm1(min(h, eps)) - h) alpha_n + beta h``."""
+    ap = nn.functional.softplus(lp["act_alpha_p"].to(_F32))
+    beta = lp["act_beta"].to(_F32)
+    an = beta + nn.functional.softplus(lp["act_alpha_n"].to(_F32))
+    eps = lp["act_eps"].to(_F32)
+    return torch.where(h > 0, ap * h * h + beta * h,
+                       (torch.expm1(torch.minimum(h, eps)) - h) * an + beta * h)
+
+
 def _mlp(cfg: TransformerConfig, lp: dict, y):
     """The gated MLP (SwiGLU, or Gemma's GeGLU with the tanh gelu on the
-    gate in f32), or GPT-2's fc1 -> gelu -> fc2 with f32 biases."""
+    gate in f32), or the gateless fc1 -> activation -> fc2 with f32 biases:
+    gelu (GPT-2, Phi), relu^2 in f32 (Nemotron) or xIELU in f32
+    (Apertus)."""
     if cfg.is_moe:
         return _moe_mlp(cfg, lp, y)
     if "w_gate_up" in lp or "w_gate" in lp:
@@ -564,24 +586,40 @@ def _mlp(cfg: TransformerConfig, lp: dict, y):
     h = _mm(y, lp["w_fc1"]).to(_F32)
     if "b_fc1" in lp:
         h = h + lp["b_fc1"].to(_F32)
-    h = gelu_fn(h.to(y.dtype))
+    if cfg.activation == "relu2":
+        h = torch.square(torch.relu(h)).to(y.dtype)
+    elif cfg.activation == "xielu":
+        h = _xielu(lp, h).to(y.dtype)
+    else:
+        h = gelu_fn(h.to(y.dtype))
     out = _mm(h, lp["w_fc2"]).to(_F32)
     if "b_fc2" in lp:
         out = out + lp["b_fc2"].to(_F32)
     return out.to(y.dtype)
 
 
-def _residual_tail(cfg: TransformerConfig, lp: dict, h, attn, s: int):
-    """Out-projection + residual, then the MLP sublayer + residual, with
-    Gemma's sandwich norms on the sublayer outputs (``use_post_norms``)."""
+def _residual_tail(cfg: TransformerConfig, lp: dict, h, attn, s: int, x):
+    """Out-projection + residual, then the MLP sublayer + residual, with the
+    sandwich norms on the sublayer outputs (``use_post_norms``: Gemma,
+    GLM-4, OLMo-2). ``x`` is the attention's input (``_attn_in``): a
+    parallel block (Cohere, Phi) runs its MLP off it too, ``h + o +
+    mlp(x)``. Granite's ``residual_multiplier`` rm scales the sublayers as
+    the reference does: ``h + rm * (o + m)`` in a parallel block, ``h + rm
+    * o`` then ``h + rm * m`` in a sequential one. Without input norms
+    (OLMo-2) the MLP reads the raw stream."""
     o = _out_proj(lp, attn, s, h.dtype)
+    rm = cfg.residual_multiplier
+    if cfg.parallel_block:
+        m = _mlp(cfg, lp, x)
+        return h + o + m if rm is None else h + rm * (o + m)
     if cfg.use_post_norms:
         o = _norm(cfg, o, lp["post_attn_norm_w"])
-    h = h + o
-    m = _mlp(cfg, lp, _norm(cfg, h, lp["mlp_norm_w"], lp.get("mlp_norm_b")))
+    h = h + o if rm is None else h + rm * o
+    y = _norm(cfg, h, lp["mlp_norm_w"], lp.get("mlp_norm_b")) if cfg.pre_norms else h
+    m = _mlp(cfg, lp, y)
     if cfg.use_post_norms:
         m = _norm(cfg, m, lp["post_mlp_norm_w"])
-    return h + m
+    return h + m if rm is None else h + rm * m
 
 
 def _embed_tokens(cfg: TransformerConfig, params: dict, tokens):
@@ -595,6 +633,9 @@ def _embed_tokens(cfg: TransformerConfig, params: dict, tokens):
 
 
 def _logits(cfg: TransformerConfig, params: dict, h):
+    """f32 logits of the final rows h: the head (quantized, dense or the
+    tied embedding), then the reference's order of the head conventions:
+    the lm-head bias in f32, the logit scale, the final softcap."""
     head = params.get("lm_head")
     if isinstance(head, dict):
         logits = _mm(h, head, out_dtype=_F32)
@@ -602,10 +643,23 @@ def _logits(cfg: TransformerConfig, params: dict, h):
         logits = torch.matmul(h.to(_F32), head.to(_F32))
     else:                                   # tied embeddings
         logits = torch.matmul(h.to(_F32), params["embed"].to(_F32).t())
+    if params.get("lm_head_b") is not None:  # Phi's biased head
+        logits = logits + params["lm_head_b"].to(_F32)
+    if cfg.logit_scale is not None:         # Cohere's scale, Granite's 1/logits_scaling
+        logits = logits * cfg.logit_scale
     if cfg.final_logit_softcap is not None:
         cap = cfg.final_logit_softcap
         logits = cap * torch.tanh(logits * (1.0 / cap))
     return logits
+
+
+def _num_layers(layers: dict) -> int:
+    """The depth of a stacked layer tree: its out-projection's leading dim
+    (every block has one, with or without input norms; quantized or not)."""
+    w = layers["w_o"]
+    if isinstance(w, dict):
+        w = w.get("q", w.get("q_packed"))
+    return w.shape[0]
 
 
 def _layer_window(cfg: TransformerConfig, i: int) -> int | None:
@@ -631,7 +685,7 @@ def layer_stack_fn(cfg: TransformerConfig, layers: dict, h: torch.Tensor,
         rows = _RopeRows(rope_cos[:s], rope_sin[:s],
                          None if rope_cos_local is None else rope_cos_local[:s],
                          None if rope_sin_local is None else rope_sin_local[:s])
-    for i in range(layers["attn_norm_w"].shape[0]):
+    for i in range(_num_layers(layers)):
         lp = _slice_layer_params(layers, i)
         x = _attn_in(cfg, lp, h)
         q, k, v = _project_qkv(cfg, lp, x)
@@ -639,7 +693,7 @@ def layer_stack_fn(cfg: TransformerConfig, layers: dict, h: torch.Tensor,
         attn = flash_attention_fn(q, k, v, scale=cfg.attn_scale,
                                   softcap=cfg.attn_logit_softcap,
                                   window=_layer_window(cfg, i))
-        h = _residual_tail(cfg, lp, h, attn, s)
+        h = _residual_tail(cfg, lp, h, attn, s, x)
     return h
 
 
@@ -732,7 +786,7 @@ def prefill_fn(cfg: TransformerConfig, params: dict, k_cache, v_cache,
             kv_write(v_cache, v.reshape(1, 1, s, -1), (slot, i, 0, 0))
         attn = _prefill_attn(q, k, v, true_len, cfg.attn_scale,
                              cfg.attn_logit_softcap, _layer_window(cfg, i))
-        h = _residual_tail(cfg, lp, h, attn, s)
+        h = _residual_tail(cfg, lp, h, attn, s, x)
     return _logits(cfg, params, _last_row(_final_norm(cfg, params, h), true_len))
 
 
@@ -761,7 +815,7 @@ def batch_decode_step_fn(cfg: TransformerConfig, params: dict, k_pool, v_pool,
         attn = kv_write_attention(
             q[:, None], k_pool, v_pool, k, v, i, poss, lens, scale=cfg.attn_scale,
             softcap=cfg.attn_logit_softcap, window=_layer_window(cfg, i))
-        h = _residual_tail(cfg, lp, h, attn.reshape(b, -1), b)
+        h = _residual_tail(cfg, lp, h, attn.reshape(b, -1), b, x)
     return _logits(cfg, params, _final_norm(cfg, params, h))
 
 
@@ -874,7 +928,7 @@ def decode_window_fn(cfg: TransformerConfig, params: dict, k_cache, v_cache,
         attn = sdpa_fixed_cache_fn(q, _kv_layer(k_cache, i), _kv_layer(v_cache, i), pos + t,
                                    scale=cfg.attn_scale, softcap=cfg.attn_logit_softcap,
                                    window=_layer_window(cfg, i))
-        h = _residual_tail(cfg, lp, h, attn, t)
+        h = _residual_tail(cfg, lp, h, attn, t, x)
     return _logits(cfg, params, _final_norm(cfg, params, h))
 
 
@@ -1136,12 +1190,15 @@ def init_params(cfg: TransformerConfig, seed: int = 0,
     drawn on ``device`` (the card unless the caller names one) from a
     ``torch.Generator`` seeded with ``seed``. Values differ from the
     reference's init (another generator); the leaves are the same: the
-    layernorm biases, per-head q/k norms, sandwich norms, per-layer windows,
-    Gemma-3's ``use_local_rope`` and SmolLM3's ``use_rope_layer`` switches,
-    GPT-2's fc1/fc2 MLP and learned
-    positions where the config has them (no attention biases: a checkpoint
-    brings those). A MoE config gets an f32 router ``[L, H, E]`` and expert
-    stacks ``[L, E, H, I]`` / ``[L, E, I, H]`` in place of the dense MLP,
+    input norms where the blocks have them (none for OLMo-2, one for a
+    parallel block), the layernorm biases, per-head or whole-width (OLMo-2)
+    q/k norms, sandwich norms, per-layer windows, Gemma-3's
+    ``use_local_rope`` and SmolLM3's ``use_rope_layer`` switches, the
+    gateless fc1/fc2 MLP with Apertus's xIELU leaves at their initial
+    values, and learned positions where the config has them (no attention
+    or lm-head biases: a checkpoint brings those). A MoE config gets an f32
+    router ``[L, H, E]`` and expert stacks ``[L, E, H, I]`` / ``[L, E, I,
+    H]`` in place of the dense MLP,
     drawn one expert matrix at a time (an f32 temporary of one matrix, not
     of the whole stack)."""
     check_supported(cfg)
@@ -1169,12 +1226,19 @@ def init_params(cfg: TransformerConfig, seed: int = 0,
     nl, e, inter = cfg.num_layers, cfg.hidden_size, cfg.intermediate_size
     hq, hk, d = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
     lp = {"w_q": w(nl, e, hq * d), "w_k": w(nl, e, hk * d),
-          "w_v": w(nl, e, hk * d), "w_o": w(nl, hq * d, e),
-          "attn_norm_w": ones(nl, e), "mlp_norm_w": ones(nl, e)}
-    if cfg.norm_type == "layernorm":
-        lp.update(attn_norm_b=zeros(nl, e), mlp_norm_b=zeros(nl, e))
+          "w_v": w(nl, e, hk * d), "w_o": w(nl, hq * d, e)}
+    if cfg.pre_norms:                   # OLMo-2 has none; a parallel block one
+        lp["attn_norm_w"] = ones(nl, e)
+        if cfg.norm_type == "layernorm":
+            lp["attn_norm_b"] = zeros(nl, e)
+        if not cfg.parallel_block:
+            lp["mlp_norm_w"] = ones(nl, e)
+            if cfg.norm_type == "layernorm":
+                lp["mlp_norm_b"] = zeros(nl, e)
     if cfg.use_qk_norm:
-        lp.update(w_q_norm=ones(nl, d), w_k_norm=ones(nl, d))
+        wide = cfg.qk_norm_wide
+        lp.update(w_q_norm=ones(nl, hq * d if wide else d),
+                  w_k_norm=ones(nl, hk * d if wide else d))
     if cfg.use_post_norms:
         lp.update(post_attn_norm_w=ones(nl, e), post_mlp_norm_w=ones(nl, e))
     wins = cfg.layer_windows()
@@ -1197,6 +1261,11 @@ def init_params(cfg: TransformerConfig, seed: int = 0,
     else:
         lp.update(w_fc1=w(nl, e, inter), w_fc2=w(nl, inter, e),
                   b_fc1=zeros(nl, inter, dt=dtype), b_fc2=zeros(nl, e, dt=dtype))
+        if cfg.activation == "xielu":   # XIELUActivation's initial values
+            for leaf, v in (("act_alpha_p", math.log(math.expm1(0.8))),
+                            ("act_alpha_n", math.log(math.expm1(0.3))),
+                            ("act_beta", 0.5), ("act_eps", -1e-6)):
+                lp[leaf] = torch.full((nl, 1), v, dtype=_F32, device=device)
     params = {"embed": w(cfg.vocab_size, e), "final_norm_w": ones(e),
               "lm_head": None if cfg.tie_word_embeddings else w(e, cfg.vocab_size),
               "layers": lp}

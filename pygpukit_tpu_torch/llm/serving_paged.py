@@ -98,7 +98,7 @@ def paged_decode_step_fn(cfg: TransformerConfig, params: dict, k_pool, v_pool,
                                tables, lens, scale=cfg.attn_scale,
                                softcap=cfg.attn_logit_softcap,
                                window=_layer_window(cfg, i))     # [B, Hq, D]
-        h = _residual_tail(cfg, lp, h, attn.reshape(b, -1), b)
+        h = _residual_tail(cfg, lp, h, attn.reshape(b, -1), b, x)
     return _logits(cfg, params, _final_norm(cfg, params, h))
 
 
@@ -165,7 +165,7 @@ def paged_prefill_fn(cfg: TransformerConfig, params: dict, k_pool, v_pool,
         _paged_write_rows(v_pool, v, i, blocks, offs, valid)
         attn = _prefill_attn(q, k, v, true_len, cfg.attn_scale,
                              cfg.attn_logit_softcap, _layer_window(cfg, i))
-        h = _residual_tail(cfg, lp, h, attn, s)
+        h = _residual_tail(cfg, lp, h, attn, s, x)
     return _logits(cfg, params, _last_row(_final_norm(cfg, params, h), true_len))
 
 

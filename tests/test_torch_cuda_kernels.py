@@ -925,7 +925,7 @@ def test_flash_wrappers_raise_on_unsupported_operands(dev):
     q = torch.zeros((8, 4, 64), dtype=torch.float16, device=dev)
     with pytest.raises(NotImplementedError):
         flash_attention(q, q[:, :2], q[:, :2])
-    q = torch.zeros((8, 4, 80), dtype=torch.bfloat16, device=dev)     # a D no kernel takes
+    q = torch.zeros((8, 4, 112), dtype=torch.bfloat16, device=dev)    # a D no kernel takes
     with pytest.raises(ValueError):
         flash_attention(q, q[:, :2], q[:, :2])
     q = torch.zeros((1, 4, 64), dtype=torch.bfloat16, device=dev)
@@ -1959,7 +1959,8 @@ def test_streaming_on_the_card_matches_the_cpu(dev, tmp_path, strategy):
 # (GPT-2, 12/12 heads) and G 7 (Qwen2.5-0.5B, 14/2 heads) at D 64, and
 # head_dim 96 (Phi-3.5-mini: 32/32 heads; G 4 with a softcap and a window
 # for the masks), and G 16 (GLM-4: 32/2 heads; the kernels' 512-thread
-# blocks)
+# blocks), and head_dim 80 (Phi-2: 32/32 heads; G 4 and G 16 with a softcap
+# and a window), the first D that is not a multiple of 32
 # ---------------------------------------------------------------------------
 
 #: (Hq, Hk, D, softcap, window) of the rows 5/6 and 17 checks
@@ -1967,7 +1968,8 @@ FAMILY_ATTN = {"gemma2": (8, 4, 256, 50.0, 300), "gemma3": (4, 1, 256, None, 512
                "gemma3 global": (4, 1, 256, None, None), "gpt2 G1": (12, 12, 64, None, None),
                "qwen2.5 G7": (14, 2, 64, None, None), "phi3.5 D96": (32, 32, 96, None, None),
                "D96 G4": (32, 8, 96, 50.0, 300), "glm4 G16": (32, 2, 128, None, None),
-               "D96 G16": (32, 2, 96, 50.0, 300)}
+               "D96 G16": (32, 2, 96, 50.0, 300), "phi2 D80": (32, 32, 80, None, None),
+               "D80 G4": (32, 8, 80, 50.0, 300), "D80 G16": (32, 2, 80, 50.0, 300)}
 
 
 @pytest.mark.parametrize("storage", list(STORAGES))
@@ -2025,11 +2027,12 @@ def test_family_paged_attention(dev, shape, storage):
 @pytest.mark.parametrize("causal", [True, False])
 @pytest.mark.parametrize("s", [1, 63, 65, 300, 2048])
 @pytest.mark.parametrize("hq,hk,d", [(8, 4, 256), (4, 1, 256), (12, 12, 64), (14, 2, 64),
-                                     (32, 32, 96), (32, 8, 96)])
+                                     (32, 32, 96), (32, 8, 96), (32, 32, 80), (32, 8, 80)])
 def test_family_flash_attention(dev, hq, hk, d, s, causal, dtype):
     """Row 14 at the families' heads: D 256 on the 64-key tile, D 96 on
-    32-column sub-tiles, G 1 and G 7; within ATTN_TOL of the plain version,
-    a second launch bitwise."""
+    32-column sub-tiles, D 80 on three of them (the last half out of the
+    tensor maps' bounds), G 1 and G 7; within ATTN_TOL of the plain
+    version, a second launch bitwise."""
     g = _gen(dev, s * 3 + hq + d)
     q = torch.randn((s, hq, d), generator=g, device=dev).to(dtype)
     k = torch.randn((s, hk, d), generator=g, device=dev).to(dtype)
@@ -2046,9 +2049,10 @@ def test_family_flash_attention(dev, hq, hk, d, s, causal, dtype):
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 @pytest.mark.parametrize("ctx", [1, 333, 4100, 9000])
 @pytest.mark.parametrize("hq,hk,d", [(8, 4, 256), (4, 1, 256), (16, 1, 256), (12, 12, 64),
-                                     (14, 2, 64), (32, 32, 96), (32, 8, 96), (32, 2, 96)])
+                                     (14, 2, 64), (32, 32, 96), (32, 8, 96), (32, 2, 96),
+                                     (32, 32, 80), (32, 8, 80), (32, 2, 80)])
 def test_family_flash_decode(dev, hq, hk, d, ctx, dtype):
-    """Row 15 at the families' heads (G 16 at D 256 and D 96: both row
+    """Row 15 at the families' heads (G 16 at D 256, 96 and 80: both row
     halves of the tensor-core tile), contexts of one split to past MAX, an
     int and a device context alike."""
     g = _gen(dev, hq + hk + d + ctx)
@@ -2064,9 +2068,10 @@ def test_family_flash_decode(dev, hq, hk, d, ctx, dtype):
     assert torch.equal(out, flash_decode(q, kc, vc, ctx_t))
 
 
-@pytest.mark.parametrize("hq,hk,d", [(4, 1, 256), (32, 32, 96)])
+@pytest.mark.parametrize("hq,hk,d", [(4, 1, 256), (32, 32, 96), (32, 32, 80)])
 def test_family_flash_decode_graph_replays_device_context(dev, hq, hk, d):
-    """Gemma-3-1B's head shape at D 256 and Phi-3.5's at D 96: one graph
+    """Gemma-3-1B's head shape at D 256, Phi-3.5's at D 96 and Phi-2's at
+    D 80: one graph
     captured once serves every context, bitwise the eager call."""
     g = _gen(dev, d)
     q = torch.randn((1, hq, d), generator=g, device=dev).to(torch.bfloat16)
@@ -2086,3 +2091,48 @@ def test_family_flash_decode_graph_replays_device_context(dev, hq, hk, d):
         graph.replay()
         torch.cuda.synchronize()
         assert torch.equal(static, flash_decode(q, kc, vc, v)), v
+
+
+def test_an_unbuilt_head_dim_raises(dev):
+    """D 112 (whole 16-byte vectors, but no kernel is built for it): every
+    wrapper raises before a launch, and every C entry returns an error
+    instead of running a body that would cover fewer dims."""
+    from pygpukit_tpu_torch.kernels import _build
+    g = _gen(dev, 112)
+    d, hq, hk = 112, 8, 2
+    q = torch.randn((1, hq, d), generator=g, device=dev).to(torch.bfloat16)
+    kc = torch.randn((64, hk, d), generator=g, device=dev).to(torch.bfloat16)
+    lens = torch.tensor([40], dtype=torch.int32, device=dev)
+    pools = [torch.zeros((1, 1, 64, hk * d), device=dev, dtype=torch.bfloat16)
+             for _ in range(2)]
+    blocks = [torch.zeros((4, hk, 16, d), device=dev, dtype=torch.bfloat16) for _ in range(2)]
+    tables = torch.arange(4, dtype=torch.int32, device=dev)[None]
+    before = dict(LAUNCHES)
+    for call in (lambda: flash_attention(q[0][None].expand(4, hq, d).contiguous(),
+                                         kc[:4], kc[:4]),
+                 lambda: flash_decode(q, kc, kc, 40),
+                 lambda: batch_decode_attention(q[:, None], *pools, 0, lens, d ** -0.5),
+                 lambda: paged_attention(q, *blocks, tables, lens, d ** -0.5)):
+        with pytest.raises(ValueError):
+            call()
+    assert dict(LAUNCHES) == before
+    out = torch.empty_like(q)
+    part = torch.empty(hq * 64 * (d + 2), device=dev)
+    stream = torch.cuda.current_stream().cuda_stream
+    lib = _build.library()
+    rcs = [lib.pgk_flash_attention(q.data_ptr(), kc.data_ptr(), kc.data_ptr(), out.data_ptr(),
+                                   1, hq, hk, d, 1, 0, d ** -0.5, stream),
+           lib.pgk_flash_decode(q.data_ptr(), kc.data_ptr(), kc.data_ptr(), None, 40,
+                                out.data_ptr(), part.data_ptr(), hq, hk, d, 64, 1, 0,
+                                d ** -0.5, stream),
+           lib.pgk_batch_decode_attention(q.data_ptr(), pools[0].data_ptr(),
+                                          pools[1].data_ptr(), None, None, lens.data_ptr(),
+                                          None, None, None, out.data_ptr(), part.data_ptr(),
+                                          1, hq, hk, d, 0, 1, 64, 1, 0, 0, d ** -0.5, 0.0, 0,
+                                          stream),
+           lib.pgk_paged_attention(q.data_ptr(), blocks[0].data_ptr(), blocks[1].data_ptr(),
+                                   None, None, tables.data_ptr(), lens.data_ptr(),
+                                   out.data_ptr(), part.data_ptr(), 1, hq, hk, d, 16, 4, 1,
+                                   0, 0, d ** -0.5, 0.0, 0, stream)]
+    torch.cuda.synchronize()
+    assert all(rc != 0 for rc in rcs), rcs

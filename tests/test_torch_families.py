@@ -1,10 +1,11 @@
 """The Qwen2, Qwen3, Qwen3-MoE, GPT-2, Gemma-2 and Gemma-3 families (and
 Mistral's and Qwen2's sliding-window configs, and StarCoder2 and Seed-OSS,
-whose features are all among theirs), and the families the rope variants
+whose features are all among theirs), the families the rope variants
 bring (Llama-3.1's llama3 tables, Phi-3's longrope in both regimes, Qwen3
 with yarn, GLM-4's interleaved partial rotary, Ernie 4.5's interleaved
-pairs, SmolLM3's NoPE layers, Gemma-3 with linear scaling), in the port
-against the JAX package and ``transformers`` on the CPU.
+pairs, SmolLM3's NoPE layers, Gemma-3 with linear scaling), and OLMo-2,
+Cohere (with and without q/k norms), Granite, Nemotron, Apertus and Phi,
+in the port against the JAX package and ``transformers`` on the CPU.
 
 Every checkpoint is a tiny random ``transformers`` model written by
 ``save_pretrained`` (the configs of ``tests/test_llm_families.py``), its
@@ -20,14 +21,18 @@ JAX package load the same files at f32:
   ``init_params`` builds the same leaves;
 - every rope leaf (scaled, long, local, partial-width tables, the long
   threshold) within atol 1e-5 of the reference's;
-- ``check_supported`` still refuses the families that wait for block
-  forms and activations (Cohere, OLMo-2, Granite, Nemotron, Apertus,
-  Phi-2), by name, and the fused decode step refuses every family here
-  but the split-half ones with plain blocks (Llama-3.1, Phi-3), which it
-  takes with their scaled tables;
-- the four attention kernels take the plain version at head_dim 256 and
-  96 on CPU tensors, and learned positions and the embedding scale keep
-  the reference's bits.
+- the block, norm, activation and head conventions (OLMo-2's
+  post-norm-only blocks and whole-width q/k norms, Cohere's and Phi's
+  parallel blocks, Granite's residual multiplier, the logit scale,
+  Nemotron's relu2, Apertus's xIELU, Phi's lm-head bias): each family's
+  config states them, and each alone on a Llama block gives the
+  reference's forward;
+- the fused decode step refuses every family here but the split-half
+  ones with plain blocks (Llama-3.1, Phi-3), which it takes with their
+  scaled tables;
+- the four attention kernels take the plain version at head_dim 256, 96
+  and 80 on CPU tensors, and learned positions and the embedding scale
+  keep the reference's bits.
 
 Cached steps and both engines: ``tests/test_torch_families_serving.py``.
 """
@@ -159,6 +164,43 @@ FAMILIES = {
         tuple(range(1, 13))),
 }
 FAMILIES["phi3_long"] = FAMILIES["phi3"][:3] + (tuple(range(1, 40)),)
+FAMILIES.update({
+    # the block, norm, activation and head conventions (the reference's
+    # tests/test_llm_families.py configs)
+    "olmo2": ("Olmo2Config", dict(
+        vocab_size=96, hidden_size=32, intermediate_size=64, num_hidden_layers=2,
+        num_attention_heads=4, num_key_value_heads=2, max_position_embeddings=64,
+        tie_word_embeddings=False), "olmo2", (1, 7, 23)),
+    "cohere": ("CohereConfig", dict(
+        vocab_size=96, hidden_size=32, intermediate_size=64, num_hidden_layers=2,
+        num_attention_heads=4, num_key_value_heads=2, max_position_embeddings=64,
+        logit_scale=0.0625), "cohere", (1, 7, 23)),
+    "cohere_qk": ("CohereConfig", dict(
+        vocab_size=96, hidden_size=32, intermediate_size=64, num_hidden_layers=2,
+        num_attention_heads=4, num_key_value_heads=2, max_position_embeddings=64,
+        logit_scale=0.0625, use_qk_norm=True), "cohere", (1, 7, 23)),
+    "granite": ("GraniteConfig", dict(
+        vocab_size=96, hidden_size=32, intermediate_size=64, num_hidden_layers=2,
+        num_attention_heads=4, num_key_value_heads=2, max_position_embeddings=64,
+        embedding_multiplier=12.0, residual_multiplier=0.22,
+        attention_multiplier=0.015625, logits_scaling=8.0, tie_word_embeddings=False),
+        "llama", (1, 7, 23)),
+    "nemotron": ("NemotronConfig", dict(
+        vocab_size=96, hidden_size=32, intermediate_size=64, num_hidden_layers=2,
+        num_attention_heads=4, num_key_value_heads=2, max_position_embeddings=64,
+        partial_rotary_factor=0.5, tie_word_embeddings=False), "nemotron",
+        tuple(range(1, 10))),
+    "apertus": ("ApertusConfig", dict(
+        vocab_size=96, hidden_size=32, intermediate_size=64, num_hidden_layers=2,
+        num_attention_heads=4, num_key_value_heads=2, max_position_embeddings=64,
+        tie_word_embeddings=False, pad_token_id=0, eos_token_id=None), "apertus",
+        tuple(range(1, 10))),
+    "phi": ("PhiConfig", dict(
+        vocab_size=96, hidden_size=32, intermediate_size=64, num_hidden_layers=2,
+        num_attention_heads=4, num_key_value_heads=2, max_position_embeddings=64,
+        partial_rotary_factor=0.5, tie_word_embeddings=False), "phi",
+        tuple(range(1, 10))),
+})
 #: leaves each family's loaded (fused) tree must hold, and the values of
 #: the per-layer integer leaves
 LEAVES = {
@@ -185,32 +227,32 @@ LEAVES = {
     "smollm3": dict(layers=set(), use_rope_layer=[1, 1, 1, 0]),
     "gemma3_linear": dict(layers={"w_q_norm", "post_mlp_norm_w"}, top={"rope_cos_local"},
                           attn_window=[8] * 5 + [0], use_local_rope=[1, 1, 1, 1, 1, 0]),
+    "olmo2": dict(layers={"w_q_norm", "w_k_norm", "post_attn_norm_w", "post_mlp_norm_w"},
+                  absent={"attn_norm_w", "mlp_norm_w"}),
+    "cohere": dict(layers={"attn_norm_w"}, absent={"mlp_norm_w", "w_q_norm"}),
+    "cohere_qk": dict(layers={"w_q_norm", "w_k_norm"}, absent={"mlp_norm_w"}),
+    "granite": dict(layers={"attn_norm_w", "mlp_norm_w"}),
+    "nemotron": dict(layers={"w_fc1", "w_fc2", "attn_norm_b", "mlp_norm_b"},
+                     top={"final_norm_b"}),
+    "apertus": dict(layers={"w_fc1", "w_fc2", "w_q_norm", "w_k_norm", "act_alpha_p",
+                            "act_alpha_n", "act_beta", "act_eps"}),
+    "phi": dict(layers={"b_qkv", "b_o", "w_fc1", "b_fc1", "attn_norm_b"},
+                top={"lm_head_b", "final_norm_b"}, absent={"mlp_norm_w"}),
 }
 #: the families the fused decode step takes (split-half rope over plain
 #: pre-norm blocks, scaled tables included)
 FUSED_FAMILIES = ("llama31", "phi3", "phi3_long")
-#: families that wait for block forms or activations, and a feature
-#: ``check_supported`` names for each (the rope variants' GLM-4, Phi-3 and
-#: SmolLM3 run since they were ported; Granite, Nemotron and Apertus took
-#: their places here, and Phi-2 the interleaved-rope case below)
-REFUSED = {
-    "cohere": ("CohereConfig", dict(vocab_size=96, hidden_size=32, intermediate_size=64,
-                                    num_hidden_layers=2, num_attention_heads=4,
-                                    num_key_value_heads=2), "parallel blocks"),
-    "olmo2": ("Olmo2Config", dict(vocab_size=96, hidden_size=32, intermediate_size=64,
-                                  num_hidden_layers=2, num_attention_heads=4,
-                                  num_key_value_heads=2), "post-norm-only blocks"),
-    "granite": ("GraniteConfig", dict(vocab_size=96, hidden_size=32, intermediate_size=64,
-                                      num_hidden_layers=2, num_attention_heads=4,
-                                      num_key_value_heads=2, residual_multiplier=0.22,
-                                      embedding_multiplier=12.0, logits_scaling=8.0),
-                "residual multiplier"),
-    "nemotron": ("NemotronConfig", dict(vocab_size=96, hidden_size=32, intermediate_size=64,
-                                        num_hidden_layers=2, num_attention_heads=4,
-                                        num_key_value_heads=2), "relu2"),
-    "apertus": ("ApertusConfig", dict(vocab_size=96, hidden_size=32, intermediate_size=64,
-                                      num_hidden_layers=2, num_attention_heads=4,
-                                      num_key_value_heads=2), "xielu"),
+#: the conventions each family brings, as its config states them
+#: (``check_supported`` refused these five families until they were ported)
+CONVENTIONS = {
+    "cohere": dict(parallel_block=True, logit_scale=0.0625, rope_interleaved=True,
+                   norm_type="layernorm"),
+    "olmo2": dict(pre_norms=False, use_post_norms=True, use_qk_norm=True, qk_norm_wide=True),
+    "granite": dict(residual_multiplier=0.22, logit_scale=0.125, embed_scale=12.0,
+                    query_scale=0.015625),
+    "nemotron": dict(activation="relu2", rope_dim=4, rope_interleaved=False,
+                     norm_type="layernorm"),
+    "apertus": dict(activation="xielu", use_qk_norm=True, qk_norm_wide=False),
 }
 
 
@@ -242,7 +284,11 @@ def save_family(tmp_path_factory, fam: str, seed: int = 0):
     m.save_pretrained(d, safe_serialization=True)
     if fam == "gpt2":
         _strip_gpt2_prefix(d)
-    return d, m
+    # Apertus's xIELU parameters are bf16 in an f32 model, and transformers'
+    # Python path rounds softplus(alpha) to bf16; the checkpoint keeps those
+    # bf16 values, and the comparison runs in f32 throughout, as both
+    # packages compute it (ROADMAP.md, C.6)
+    return d, m.float()
 
 
 @pytest.fixture(scope="module", params=list(FAMILIES))
@@ -278,6 +324,7 @@ def test_the_family_loads_its_leaves(family):
     layers, top = tm.params["layers"], tm.params
     assert want["layers"] <= set(layers)
     assert want.get("top", set()) <= set(top)
+    assert not want.get("absent", set()) & set(layers)
     for leaf in ("attn_window", "use_local_rope", "use_rope_layer"):
         if leaf in want:
             assert layers[leaf].tolist() == want[leaf]
@@ -353,36 +400,89 @@ def test_reference_init_params_give_the_reference_forward(fam):
     assert layout(mine) == layout(ref)
 
 
-@pytest.mark.parametrize("fam", list(REFUSED))
-def test_families_waiting_for_rope_variants_are_refused_by_name(fam):
-    cls_name, kw, feature = REFUSED[fam]
+@pytest.mark.parametrize("fam", list(CONVENTIONS))
+def test_the_families_once_refused_carry_their_conventions(fam):
+    """The config states each family's conventions, the model takes it,
+    and its leaves load (parity: the family's cases above)."""
+    cls_name, kw, _, _ = FAMILIES[fam]
     cfg = port_config.TransformerConfig.from_hf_config(_hf_config(cls_name, kw).to_dict())
-    with pytest.raises(NotImplementedError, match=feature):
-        port_model.check_supported(cfg)
+    for name, want in CONVENTIONS[fam].items():
+        assert getattr(cfg, name) == want, name
+    port_model.check_supported(cfg)
 
 
-@pytest.mark.parametrize("cfg_kw, feature", [
-    (dict(residual_multiplier=0.5), "residual multiplier"),
-    (dict(logit_scale=0.0625), "logit scale"),
-    (dict(use_qk_norm=True, qk_norm_wide=True), "wide qk norm"),
-    (dict(activation="relu2"), "relu2"),
-    (dict(activation="xielu"), "xielu"),
-    (dict(parallel_block=True), "parallel blocks"),          # Phi-2's block
-])
-def test_other_unported_features_are_refused_by_name(cfg_kw, feature):
-    cfg = port_config.TransformerConfig(vocab_size=96, hidden_size=32, num_layers=2,
-                                        num_heads=4, **cfg_kw)
-    with pytest.raises(NotImplementedError, match=feature):
-        port_model.check_supported(cfg)
+#: one convention at a time on a plain Llama block (Phi-2's parallel block
+#: among them), the config's own fields
+CONVENTION_KW = [dict(residual_multiplier=0.5), dict(logit_scale=0.0625),
+                 dict(use_qk_norm=True, qk_norm_wide=True), dict(activation="relu2"),
+                 dict(activation="xielu"), dict(parallel_block=True),
+                 dict(pre_norms=False, use_post_norms=True)]
 
 
-def test_an_lm_head_bias_is_refused():
-    cfg = port_config.TransformerConfig(vocab_size=96, hidden_size=32, num_layers=2,
-                                        num_heads=4, intermediate_size=64)
-    params = port_model.init_params(cfg, 0, torch.float32, device="cpu")
-    with pytest.raises(NotImplementedError, match="lm_head_b"):
-        pl.CausalTransformerModel(cfg, dict(params, lm_head_b=torch.zeros(96)),
-                                  dtype=torch.float32)
+def _init_pair(jcfg, tcfg, seed: int = 5):
+    """(JAX model, port model) of the reference's f32 ``init_params``,
+    matrices scaled fourfold and the xIELU leaves moved off their initial
+    values, carried across by ``params_from_jax``."""
+    params = jax.tree.map(lambda a: a * 4.0 if a.ndim >= 2 and a.shape[-1] > 1
+                          and a.dtype == jnp.float32 else a,
+                          ref_model.init_params(jcfg, seed, jnp.float32))
+    for i, leaf in enumerate(("act_alpha_p", "act_alpha_n", "act_beta")):
+        if leaf in params["layers"]:
+            params["layers"][leaf] = params["layers"][leaf] + 0.1 * (i + 1)
+    jm = rl.CausalTransformerModel(jcfg, params, dtype=jnp.float32)
+    tm = pl.CausalTransformerModel(tcfg, pl.params_from_jax(jax.tree.map(np.asarray,
+                                                                         jm.params)),
+                                   dtype=torch.float32)
+    return jm, tm
+
+
+@pytest.mark.parametrize("cfg_kw", CONVENTION_KW,
+                         ids=["residual_multiplier", "logit_scale", "wide_qk_norm", "relu2",
+                              "xielu", "parallel_block", "post_norm_only"])
+def test_each_convention_alone_matches_the_reference(cfg_kw):
+    """Each convention that ``check_supported`` once refused, alone on a
+    Llama block: the port's forward within rtol 1e-4 of the reference's,
+    and the port's ``init_params`` builds the reference's leaves."""
+    kw = dict(vocab_size=96, hidden_size=32, num_layers=2, num_heads=4, num_kv_heads=2,
+              intermediate_size=64, max_position_embeddings=64, **cfg_kw)
+    jcfg = ref_config.TransformerConfig(**kw)
+    tcfg = port_config.TransformerConfig(**kw)
+    jm, tm = _init_pair(jcfg, tcfg)
+    ids = [3, 17, 42, 9, 60, 2, 11, 5, 30, 1]
+    np.testing.assert_allclose(tm.get_logits(ids), np.asarray(jm.get_logits(ids)), **TOL)
+    mine = port_model.init_params(tcfg, 0, torch.float32, device="cpu")
+    ref = ref_model.init_params(jcfg, 0, jnp.float32)
+    assert {k: tuple(v.shape) for k, v in mine["layers"].items()} == \
+        {k: tuple(v.shape) for k, v in ref["layers"].items()}
+
+
+def test_an_lm_head_bias_is_added_before_the_scale_and_the_softcap():
+    """Phi's lm-head bias: added in f32, then the logit scale, then the
+    final softcap, in the reference's order; the model takes the leaf,
+    carried across from the reference's tree."""
+    kw = dict(vocab_size=96, hidden_size=32, num_layers=2, num_heads=4,
+              intermediate_size=64, logit_scale=0.5, final_logit_softcap=3.0)
+    jcfg = ref_config.TransformerConfig(**kw)
+    tcfg = port_config.TransformerConfig(**kw)
+    rng = np.random.default_rng(4)
+    head = rng.standard_normal((32, 96)).astype(np.float32)
+    bias = rng.standard_normal(96).astype(np.float32) * 4
+    h = rng.standard_normal((5, 32)).astype(np.float32)
+    want = ref_model._logits(jcfg, {"lm_head": jnp.asarray(head),
+                                    "lm_head_b": jnp.asarray(bias)}, jnp.asarray(h))
+    got = port_model._logits(tcfg, {"lm_head": torch.from_numpy(head),
+                                    "lm_head_b": torch.from_numpy(bias)}, torch.from_numpy(h))
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-6, atol=1e-6)
+    # the leaf crosses by params_from_jax, and the two models agree
+    jparams = ref_model.init_params(jcfg, 0, jnp.float32)
+    jparams["lm_head_b"] = jnp.asarray(bias)
+    jm = rl.CausalTransformerModel(jcfg, jparams, dtype=jnp.float32)
+    tm = pl.CausalTransformerModel(tcfg, pl.params_from_jax(jax.tree.map(np.asarray,
+                                                                         jm.params)),
+                                   dtype=torch.float32)
+    np.testing.assert_array_equal(tm.params["lm_head_b"].numpy(), bias)
+    ids = [3, 17, 42, 9, 60, 2]
+    np.testing.assert_allclose(tm.get_logits(ids), np.asarray(jm.get_logits(ids)), **TOL)
 
 
 @pytest.mark.parametrize("fam", [f for f in FAMILIES if f not in FUSED_FAMILIES])
@@ -427,6 +527,22 @@ def test_fused_decode_takes_split_half_scaled_rope(fam, monkeypatch):
     assert "w_qkv_cat" in model.params["layers"]
 
 
+@pytest.mark.parametrize("activation", ["xielu", "relu2", "gelu"])
+def test_fused_decode_supports_rejects_the_gateless_activations(activation):
+    """Apertus passes the architecture checks of ``fused_decode_eligible``
+    but for its leaves (fc1/fc2, no gate): the kernel's own check refuses
+    its activation too, in both packages, at Apertus-8B's widths (head_dim
+    128, 32/8 heads) where a SwiGLU model is taken."""
+    from pygpukit_tpu.kernels.fused_decode import supports as ref_supports
+    from pygpukit_tpu_torch.kernels.fused_decode import supports
+    kw = dict(hidden=4096, intermediate=21504, n_heads=32, n_kv_heads=8, head_dim=128,
+              max_seq=64, norm_type="rmsnorm", use_rope=True, has_bias=False,
+              use_qk_norm=False, is_moe=False)
+    assert supports(activation="silu", **kw)
+    assert not supports(activation=activation, **kw)
+    assert not ref_supports(activation=activation, **kw)
+
+
 def test_qwen3_projection_width_is_not_hidden():
     """Qwen3-0.6B's q projection is 16 x 128 = 2048 wide at hidden 1024:
     the fused kernel's check refuses it even without the q/k norm."""
@@ -461,6 +577,13 @@ def test_d256_on_the_cpu_takes_the_plain_versions(no_launch, hq, hk):
     """Gemma-2-2B's and Gemma-3-1B's heads at D 256 on CPU tensors: each
     wrapper returns its plain version's bits and launches nothing."""
     _plain_versions_on_the_cpu(hq, hk, 256)
+
+
+@pytest.mark.parametrize("hq, hk", [(32, 32), (32, 8)])
+def test_d80_on_the_cpu_takes_the_plain_versions(no_launch, hq, hk):
+    """Phi-2's heads (and G 4) at D 80 on CPU tensors: each wrapper returns
+    its plain version's bits and launches nothing."""
+    _plain_versions_on_the_cpu(hq, hk, 80)
 
 
 @pytest.mark.parametrize("hq, hk", [(32, 32), (32, 8)])

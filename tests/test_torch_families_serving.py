@@ -1,6 +1,7 @@
-"""The families of ``tests/test_torch_families.py`` through the cached
-steps and both serving engines, against the JAX package on the CPU: the
-same tiny ``transformers`` checkpoints loaded at f32 by both packages.
+"""The families of ``tests/test_torch_families.py`` (OLMo-2, Cohere,
+Granite, Nemotron, Apertus and Phi among them) through the cached steps
+and both serving engines, against the JAX package on the CPU: the same
+tiny ``transformers`` checkpoints loaded at f32 by both packages.
 
 - Prefill, three decode steps and a three-token lookahead window: logits
   within rtol 1e-4, atol 1e-4 of the JAX package's; cached ``generate``

@@ -713,33 +713,49 @@ def test_infer_config_without_config_json_matches_the_reference(tmp_path_factory
 
 
 def test_a_qwen2_checkpoint_is_refused_at_load(tmp_path_factory):
-    """Qwen2 loads now (tests/test_torch_families.py); an OLMo-2 checkpoint,
-    whose post-norm-only blocks are not ported, is refused at load, fused
-    or not."""
+    """Qwen2 and OLMo-2 load now (tests/test_torch_families.py): an OLMo-2
+    checkpoint loads fused or not, its leaves bitwise the reference's (no
+    input norms, whole-width q/k norms); a config naming an activation
+    outside the config's set is refused at load, fused or not."""
     cfg = transformers.Olmo2Config(vocab_size=96, hidden_size=32, intermediate_size=64,
                                    num_hidden_layers=2, num_attention_heads=4,
                                    num_key_value_heads=2, tie_word_embeddings=False)
     d, _ = _save(tmp_path_factory, "olmo2", cfg, 0)
-    with pytest.raises(NotImplementedError, match="post-norm-only blocks"):
-        pl.load_model_from_safetensors(d, dtype="float32", device="cpu")
-    with pytest.raises(NotImplementedError, match="post-norm-only blocks"):
-        pl.load_model_from_safetensors(d, dtype="float32", fuse=False, device="cpu")
+    for fuse in (True, False):
+        jm = rl.load_model_from_safetensors(d, dtype="float32", fuse=fuse)
+        tm = pl.load_model_from_safetensors(d, dtype="float32", fuse=fuse, device="cpu")
+        want = pl.params_from_jax(jax.tree.map(np.asarray, jm.params))
+        _tree_equal(_without_rope(want), _without_rope(tm.params))
+        assert "attn_norm_w" not in tm.params["layers"]
+        assert tuple(tm.params["layers"]["w_k_norm"].shape) == (2, 16)
+        bad = dataclasses.replace(tm.config, activation="relu")
+        with pytest.raises(NotImplementedError, match="relu"):
+            pl.load_model_from_safetensors(d, dtype="float32", fuse=fuse, config=bad,
+                                           device="cpu")
 
 
 def test_a_qk_norm_checkpoint_is_refused_before_its_weights_load(tmp_path_factory, monkeypatch):
-    """Qwen3's q/k norm loads now; a Cohere checkpoint (parallel blocks,
-    interleaved rope, a logit scale) is refused by its config, before any
-    weight is read."""
+    """Qwen3's and Cohere's q/k norms load now: a Cohere checkpoint with
+    them (parallel blocks, interleaved rope, a logit scale, per-head norm
+    weights [L, H, D]) loads bitwise the reference's leaves; a config the
+    model refuses is refused before any weight is read."""
     cfg = transformers.CohereConfig(vocab_size=96, hidden_size=32, intermediate_size=64,
                                     num_hidden_layers=2, num_attention_heads=4,
-                                    num_key_value_heads=2)
+                                    num_key_value_heads=2, use_qk_norm=True)
     d, _ = _save(tmp_path_factory, "cohere", cfg, 0)
+    jm = rl.load_model_from_safetensors(d, dtype="float32")
+    tm = pl.load_model_from_safetensors(d, dtype="float32", device="cpu")
+    want = pl.params_from_jax(jax.tree.map(np.asarray, jm.params))
+    _tree_equal(_without_rope(want), _without_rope(tm.params))
+    assert tuple(tm.params["layers"]["w_q_norm"].shape) == (2, 4, 8)
 
     def no_weights(*a, **k):
         raise AssertionError("a weight was read")
     monkeypatch.setattr(port_loader, "_build_params", no_weights)
-    with pytest.raises(NotImplementedError, match="parallel blocks"):
-        pl.load_model_from_safetensors(d, dtype="float32", device="cpu")
+    with pytest.raises(NotImplementedError, match="relu"):
+        pl.load_model_from_safetensors(d, dtype="float32", device="cpu",
+                                       config=dataclasses.replace(tm.config,
+                                                                  activation="relu"))
 
 
 # ---------------------------------------------------------------------------
@@ -792,9 +808,9 @@ def test_params_setter_keeps_the_reference_idiom_working():
                                                        "w_up", "w_down")} | {"lm_head"}
     out = model.generate([1, 2, 3], max_new_tokens=3)
     assert len(out) == 3
-    with pytest.raises(NotImplementedError):     # Apertus's learned xIELU leaf stays refused
+    with pytest.raises(NotImplementedError):     # a leaf the model does not know
         model.params = dict(model.params, layers=dict(model.params["layers"],
-                                                      act_alpha_p=torch.ones(2)))
+                                                      act_gamma=torch.ones(2)))
 
 
 # ---------------------------------------------------------------------------

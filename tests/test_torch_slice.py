@@ -146,13 +146,12 @@ def test_unported_options_raise(f32_pair):
     for kw in (dict(mesh=object()), dict(mesh=object(), paged=True)):
         with pytest.raises(NotImplementedError):
             ContinuousBatchingEngine(tm, max_batch=2, max_seq_len=64, **kw)
-    with pytest.raises(NotImplementedError):
-        CausalTransformerModel(TransformerConfig(**dict(F32_CFG, use_qk_norm=True,
-                                                        qk_norm_wide=True)),
+    with pytest.raises(NotImplementedError):      # an activation outside the set
+        CausalTransformerModel(TransformerConfig(**dict(F32_CFG, activation="relu")),
                                tm.params)
     params = tm.params
-    params["layers"] = dict(params["layers"], act_beta=params["layers"]["attn_norm_w"])
-    with pytest.raises(NotImplementedError, match="act_beta"):
+    params["layers"] = dict(params["layers"], act_gamma=params["layers"]["attn_norm_w"])
+    with pytest.raises(NotImplementedError, match="act_gamma"):
         CausalTransformerModel(TransformerConfig(**F32_CFG), params)
 
 
