@@ -37,6 +37,17 @@ _KV_KINDS = {torch.bfloat16: 0, _F32: 1, torch.float8_e4m3fn: 2,
 INT8_KIND = 4
 #: the head dims the decode-attention kernels are built for
 HEAD_DIMS = (64, 80, 96, 128, 256)
+#: the most query heads a kv head that the kernel (and row 17's) takes
+MAX_GROUP = 16
+
+
+def supports(hq: int, hk: int, d: int) -> bool:
+    """The split-KV attention body (this kernel and ``paged_attention``)
+    is built for this shape: D one of HEAD_DIMS, 1 to MAX_GROUP query heads
+    a kv head. Reads the shape and nothing else: the batch-rows and paged
+    steps send other shapes to the plain versions, and the wrappers raise
+    on them."""
+    return d in HEAD_DIMS and hk >= 1 and hq % hk == 0 and hq // hk <= MAX_GROUP
 
 
 def storage_kinds(q: torch.Tensor, k_pool, v_pool) -> tuple[int, int]:
@@ -172,7 +183,7 @@ def launch_batch_decode_attention(q: torch.Tensor, k_pool, v_pool, layer: int,
         raise ValueError("pools must be merged [B, L, MAX, Hk*D] of one shape")
     _, n_layers, max_len, lanes = kq.shape
     hk = lanes // d
-    if hk * d != lanes or hq % hk or hq // hk > 16 or d not in HEAD_DIMS:
+    if hk * d != lanes or not supports(hq, hk, d):
         raise ValueError(f"unsupported attention shape: Hq={hq} Hk*D={lanes} D={d}")
     qc = q.contiguous()
     lens = ctx_lens.to(device=leaf.device, dtype=torch.int32).contiguous()

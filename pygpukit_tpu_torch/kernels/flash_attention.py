@@ -53,6 +53,22 @@ def _scale(d: int) -> float:
     return 1.0 / math.sqrt(d)
 
 
+def supports(hq: int, hk: int, d: int) -> bool:
+    """``flash_attention`` is built for this shape: D one of HEAD_DIMS and
+    whole groups of query heads. Reads the shape and nothing else; the
+    routes send other shapes to the plain version, and the wrapper raises
+    on them."""
+    return d in HEAD_DIMS and hk >= 1 and hq % hk == 0
+
+
+def decode_supports(hq: int, hk: int, d: int) -> bool:
+    """``flash_decode`` is built for this shape: D one of HEAD_DIMS, 1 to
+    32 query heads a kv head, at most MAX_KV_HEADS kv heads (as
+    ``supports``: the shape alone)."""
+    return (d in HEAD_DIMS and 1 <= hk <= MAX_KV_HEADS and hq % hk == 0
+            and hq // hk <= 32)
+
+
 def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                           causal: bool = True) -> torch.Tensor:
     """Full masked softmax in f32, 512 query rows at a time (causal

@@ -102,13 +102,19 @@ def w4a8_matmul_plain(x: torch.Tensor, packed: torch.Tensor,
     """Plain PyTorch w4a8 product. The integer dot runs as an f32 matmul of
     integer values: every product and partial sum is an integer below 2^24
     (|acc| <= 127 * 8 * K), so it is exact in any summation order, provided
-    the product is true f32 (TF32 off on CUDA)."""
+    the product is true f32 (TF32 off on CUDA); on CPU tensors as the int8
+    product ``ops.matmul.int8_dot`` (the same integers, without an f32 copy
+    of the weight)."""
     from ..llm.quant import unpack_int4
+    from ..ops.matmul import int8_dot
     require_full_f32(x, "w4a8_matmul_plain")
     x2 = _rows(x, 2 * packed.shape[-1])
     xq, sx = quantize_acts(x2)
     q = unpack_int4(packed)                                  # [N, K] int8
-    acc = torch.matmul(xq.to(_F32), q.to(_F32).t())
+    if x2.is_cuda:
+        acc = torch.matmul(xq.to(_F32), q.to(_F32).t())
+    else:
+        acc = int8_dot(q, xq.t()).t().to(_F32)
     y = (acc * scale.reshape(1, -1).to(_F32)) * sx
     return y.to(_BF16)
 

@@ -87,8 +87,8 @@ def paged_attention(q: torch.Tensor, k_pool_l, v_pool_l, tables: torch.Tensor,
                                      scale, softcap, window)
     # imported here: batch_decode_attention imports ops, whose paged module
     # imports this one
-    from .batch_decode_attention import (HEAD_DIMS, attention_splits, kernel_leaves,
-                                         ptr_or_null, storage_kinds)
+    from .batch_decode_attention import (attention_splits, kernel_leaves, ptr_or_null,
+                                         storage_kinds, supports)
     q_kind, kv_kind = storage_kinds(q, k_pool_l, v_pool_l)
     kq, ks = kernel_leaves(k_pool_l, "k_pool")
     vq, vs = kernel_leaves(v_pool_l, "v_pool")
@@ -96,7 +96,7 @@ def paged_attention(q: torch.Tensor, k_pool_l, v_pool_l, tables: torch.Tensor,
     if kq.ndim != 4 or kq.shape != vq.shape:
         raise ValueError("pools must be contiguous [NB, Hk, BS, D] of one shape")
     nb, hk, bs, dp = kq.shape
-    if dp != d or hq % hk or hq // hk > 16 or d not in HEAD_DIMS:
+    if dp != d or not supports(hq, hk, d):
         raise ValueError(f"unsupported paged attention shape: Hq={hq} Hk={hk} D={d}")
     if ks is not None and ks.shape != (nb, bs):
         raise ValueError("int8 row scales must be [NB, BS]")

@@ -33,20 +33,28 @@ Weight leaves by kind, rows = activation rows of the call:
   otherwise.
 
 The switches are the environment variables ``PYGPUKIT_INT4_MODE``,
-``PYGPUKIT_INT4_BLOCK`` and ``PYGPUKIT_INT8_MODE``, read per call. The
+``PYGPUKIT_INT4_BLOCK``, ``PYGPUKIT_INT8_MODE``, ``PYGPUKIT_INT8_HEAD`` (an
+int8 head's mode, ``PYGPUKIT_INT8_MODE``'s when unset) and
+``PYGPUKIT_ACT_QUANT`` (w8a8's activation chain), read per call. The
 head (``_logits`` passes ``out_dtype=torch.float32``) never takes a bf16
 GEMV: an fp8 or w8a16 head is the plain convert + matmul with f32 logits,
 as the reference's 2-D head always takes its XLA route. "dequant + matmul"
 and "convert + matmul" are the kernels' plain versions with the output in
 ``out_dtype`` (the reference's XLA routes).
 
-The batch-rows decode step (the serving engines) always writes its rows
-and attends through ``kernels.kv_write_attention``: on CUDA pools one
+The batch-rows decode step (the serving engines) writes its rows and
+attends through ``kernels.kv_write_attention``: on CUDA pools one
 ``batch_decode_attention`` launch that stores the rows first, on CPU pools
-the plain row write, then the plain attention. The
+the plain row write, then the plain attention; a shape the kernel is not
+built for takes the plain pair on the card too (``batch_attention_route``:
+a head dim outside 64, 80, 96, 128 and 256, more than 16 query heads a kv
+head), as the paged step does (``serving_paged.paged_attention_route``),
+the uncached forward (``flash_attention_route``) and the single-stream step
+(``fixed_cache_route``). The
 single-stream step (``decode_step_fn``) runs over the model's fixed caches
 ``[L, MAX, Hk, D]`` and attends through ``ops.nn.sdpa_fixed_cache_fn``: on
-CUDA tensors one query row over a bf16 or f32 cache launches
+CUDA tensors one query row over a bf16 or f32 cache (of a shape the kernel
+is built for) launches
 ``kernels.flash_decode``, anything else takes the plain route (that
 function's rule). Under ``PYGPUKIT_DECODE=fused`` (read per call) an
 eligible model (``fused_decode_eligible``) with a bf16 cache runs the step
@@ -107,10 +115,11 @@ from ..core.backend import resolve_device
 from ..core.executable import Executable, ExecutableCache
 from ..core.host import tensor_from_numpy, tensor_to_numpy
 from ..core.numerics import require_full_f32, true_div
-from ..kernels import (block_w4a8_matmul, block_w4a16_matmul,
-                       block_w4a16_matmul_plain, conv_matmul, conv_matmul_plain,
-                       kv_write_attention, w4a8_matmul, w4a16_matmul,
-                       w4a16_matmul_plain)
+from ..kernels import (batch_decode_attention_plain, block_w4a8_matmul,
+                       block_w4a16_matmul, block_w4a16_matmul_plain, conv_matmul,
+                       conv_matmul_plain, kv_rows_write_plain, kv_write_attention,
+                       w4a8_matmul, w4a16_matmul, w4a16_matmul_plain)
+from ..kernels.batch_decode_attention import supports as batch_attention_supports
 from ..kernels.fused_decode import fused_decode
 from ..kernels.fused_decode import supports as fused_decode_supports
 from ..kernels.gemv_quant import GEMV_MAX_ROWS
@@ -233,8 +242,21 @@ def _check_params(params: dict) -> None:
 
 def _w8a8(x: torch.Tensor, q: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
     """Per-row int8 activation quant, int8 dot, f32 epilogue
-    ``(acc * sx) * scale`` (the reference's TPU w8a8 route)."""
+    ``(acc * sx) * scale`` (the reference's TPU w8a8 route). Under
+    ``PYGPUKIT_ACT_QUANT=bf16`` (read per call; ``f32`` the default) the
+    reference's experimental lean chain: the row quantized in bf16 against
+    126 / amax (a bf16 quotient and bf16 products), ``sx = amax * (1 /
+    126)``, epilogue ``acc * (sx * scale)``."""
     x2 = x.reshape(-1, x.shape[-1])
+    if _switch("PYGPUKIT_ACT_QUANT") == "bf16":
+        xb = x2.to(torch.bfloat16)
+        amax = torch.clamp_min(torch.amax(torch.abs(xb), dim=-1, keepdim=True),
+                               torch.tensor(1e-8, dtype=torch.bfloat16).item())
+        inv = torch.full_like(amax, 126.0) / amax
+        xi = torch.round(xb * inv).to(torch.int8)
+        sx = amax.to(_F32) * (1.0 / 126.0)
+        y = int8_dot(xi, q).to(_F32) * (sx * scale.to(_F32))
+        return y.reshape(*x.shape[:-1], q.shape[-1])
     amax = torch.amax(torch.abs(x2), dim=-1, keepdim=True).to(_F32)
     sx = torch.clamp_min(true_div(amax, 127.0), 1e-12)
     xi = torch.round(x2.to(_F32) / sx).to(torch.int8)
@@ -242,23 +264,30 @@ def _w8a8(x: torch.Tensor, q: torch.Tensor, scale: torch.Tensor) -> torch.Tensor
     return y.reshape(*x.shape[:-1], q.shape[-1])
 
 
-#: the route switches: environment variable -> (default, choices)
+#: the route switches: environment variable -> (default, choices); a None
+#: default means unset (``PYGPUKIT_INT8_HEAD``: the head follows
+#: ``PYGPUKIT_INT8_MODE``)
 SWITCHES = {"PYGPUKIT_INT4_MODE": ("w4a8", ("w4a8", "w4a16")),
             "PYGPUKIT_INT4_BLOCK": ("w4a8", ("w4a8", "w4a16")),
-            "PYGPUKIT_INT8_MODE": ("w8a8", ("w8a8", "w8a16"))}
+            "PYGPUKIT_INT8_MODE": ("w8a8", ("w8a8", "w8a16")),
+            "PYGPUKIT_INT8_HEAD": (None, ("w8a8", "w8a16")),
+            "PYGPUKIT_ACT_QUANT": ("f32", ("f32", "bf16"))}
 
 
-def _switch(name: str) -> str:
+def _switch(name: str) -> str | None:
     default, choices = SWITCHES[name]
-    value = os.environ.get(name, default)
-    if value not in choices:
+    value = os.environ.get(name) or default
+    if value is not None and value not in choices:
         raise ValueError(f"{name}={value!r}; one of {choices}")
     return value
 
 
-def _mm(x: torch.Tensor, w, out_dtype: torch.dtype | None = None) -> torch.Tensor:
+def _mm(x: torch.Tensor, w, out_dtype: torch.dtype | None = None,
+        int8_mode: str | None = None) -> torch.Tensor:
     """Matmul against a weight leaf (see the route rule above); x [..., K].
-    ``out_dtype`` defaults to x's; an explicit f32 marks the head."""
+    ``out_dtype`` defaults to x's; an explicit f32 marks the head.
+    ``int8_mode`` ("w8a8"/"w8a16") overrides ``PYGPUKIT_INT8_MODE`` for an
+    int8 leaf (``_logits`` passes ``PYGPUKIT_INT8_HEAD``)."""
     head = out_dtype == _F32
     out_dtype = out_dtype or x.dtype
     if not isinstance(w, dict):
@@ -285,7 +314,7 @@ def _mm(x: torch.Tensor, w, out_dtype: torch.dtype | None = None) -> torch.Tenso
             y = w4a16_matmul(x2, w["q_packed"], w["scale"])
         else:
             y = w4a16_matmul_plain(x2, w["q_packed"], w["scale"], out_dtype)
-    elif w["q"].dtype == torch.int8 and _switch("PYGPUKIT_INT8_MODE") == "w8a8":
+    elif w["q"].dtype == torch.int8 and (int8_mode or _switch("PYGPUKIT_INT8_MODE")) == "w8a8":
         y = _w8a8(x2, w["q"], w["scale"])
     elif gemv:
         y = conv_matmul(x2, w["q"], w["scale"])
@@ -638,7 +667,7 @@ def _logits(cfg: TransformerConfig, params: dict, h):
     the lm-head bias in f32, the logit scale, the final softcap."""
     head = params.get("lm_head")
     if isinstance(head, dict):
-        logits = _mm(h, head, out_dtype=_F32)
+        logits = _mm(h, head, out_dtype=_F32, int8_mode=_switch("PYGPUKIT_INT8_HEAD"))
     elif head is not None:
         logits = torch.matmul(h.to(_F32), head.to(_F32))
     else:                                   # tied embeddings
@@ -790,6 +819,31 @@ def prefill_fn(cfg: TransformerConfig, params: dict, k_cache, v_cache,
     return _logits(cfg, params, _last_row(_final_norm(cfg, params, h), true_len))
 
 
+def batch_attention_route(device_type: str, hq: int, hk: int, d: int) -> str:
+    """"kernel" or "plain": the batch-rows step's write and attention for
+    pools on a ``device_type`` device, by the shape alone: CUDA pools of a
+    shape the kernel is built for (``kernels.batch_decode_attention.
+    supports``) take ``kv_write_attention``'s one launch; other shapes, and
+    CPU pools, the plain row write and attention (the reference takes its
+    XLA formulation where its kernel is not eligible)."""
+    if device_type == "cuda" and batch_attention_supports(hq, hk, d):
+        return "kernel"
+    return "plain"
+
+
+def _write_attend(q, k_pool, v_pool, k, v, layer: int, poss, lens, scale, softcap,
+                  window):
+    """Write k/v [B, Hk, D] at ``poss`` into layer ``layer`` of the pools and
+    attend q [B, 1, Hq, D] over ``lens`` (route: ``batch_attention_route``)."""
+    if batch_attention_route(kv_leaf(k_pool).device.type, q.shape[2], k.shape[1],
+                             q.shape[3]) == "kernel":
+        return kv_write_attention(q, k_pool, v_pool, k, v, layer, poss, lens,
+                                  scale=scale, softcap=softcap, window=window)
+    kv_rows_write_plain(k_pool, v_pool, k, v, layer, poss)
+    return batch_decode_attention_plain(q, k_pool, v_pool, layer, lens, scale, softcap,
+                                        window)
+
+
 def batch_decode_step_fn(cfg: TransformerConfig, params: dict, k_pool, v_pool,
                          tokens: torch.Tensor, poss: torch.Tensor) -> torch.Tensor:
     """One decode step for all B slots with the hidden rows batched through
@@ -812,9 +866,8 @@ def batch_decode_step_fn(cfg: TransformerConfig, params: dict, k_pool, v_pool,
         x = _attn_in(cfg, lp, h)
         q, k, v = _project_qkv(cfg, lp, x)                    # [B, H, D]
         q, k = _rope_qk(cfg, i, rows, q, k)
-        attn = kv_write_attention(
-            q[:, None], k_pool, v_pool, k, v, i, poss, lens, scale=cfg.attn_scale,
-            softcap=cfg.attn_logit_softcap, window=_layer_window(cfg, i))
+        attn = _write_attend(q[:, None], k_pool, v_pool, k, v, i, poss, lens,
+                             cfg.attn_scale, cfg.attn_logit_softcap, _layer_window(cfg, i))
         h = _residual_tail(cfg, lp, h, attn.reshape(b, -1), b, x)
     return _logits(cfg, params, _final_norm(cfg, params, h))
 

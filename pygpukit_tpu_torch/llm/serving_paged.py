@@ -25,7 +25,8 @@ from __future__ import annotations
 
 import torch
 
-from ..kernels.paged_attention import paged_attention
+from ..kernels.batch_decode_attention import supports as paged_attention_supports
+from ..kernels.paged_attention import paged_attention, paged_attention_plain
 from ..ops.embedding import kv_leaf, kv_quant_rows, to_kv_dtype
 from .config import TransformerConfig
 from .model import (_attn_in, _embed_tokens, _final_norm, _last_row, _layer_window,
@@ -71,7 +72,9 @@ def paged_decode_step_fn(cfg: TransformerConfig, params: dict, k_pool, v_pool,
     Pools ``[L, NB, Hk, BS, D]`` (or int8 dicts) are updated in place;
     tables [B, MB] int32, tokens [B], poss [B] device tensors, every poss
     below the table capacity (the chunk clamps it). Returns f32 logits
-    [B, V]. Attention is one ``paged_attention`` launch per layer.
+    [B, V]. Attention is one ``paged_attention`` launch per layer
+    (``paged_attention_route``: the plain version on the card for a shape
+    the kernel is not built for).
     Learned positions (GPT-2) are added as the dense batch-rows step adds
     them; the reference's paged step leaves them out."""
     bs = kv_leaf(k_pool).shape[3]
@@ -94,12 +97,24 @@ def paged_decode_step_fn(cfg: TransformerConfig, params: dict, k_pool, v_pool,
         q, k = _rope_qk(cfg, i, rows, q, k)
         _paged_write_rows(k_pool, k, i, blocks, offs)
         _paged_write_rows(v_pool, v, i, blocks, offs)
-        attn = paged_attention(q, _pool_layer(k_pool, i), _pool_layer(v_pool, i),
-                               tables, lens, scale=cfg.attn_scale,
-                               softcap=cfg.attn_logit_softcap,
-                               window=_layer_window(cfg, i))     # [B, Hq, D]
+        attend = (paged_attention if paged_attention_route(
+            kv_leaf(k_pool).device.type, q.shape[1], k.shape[1], q.shape[2]) == "kernel"
+            else paged_attention_plain)
+        attn = attend(q, _pool_layer(k_pool, i), _pool_layer(v_pool, i), tables, lens,
+                      scale=cfg.attn_scale, softcap=cfg.attn_logit_softcap,
+                      window=_layer_window(cfg, i))              # [B, Hq, D]
         h = _residual_tail(cfg, lp, h, attn.reshape(b, -1), b, x)
     return _logits(cfg, params, _final_norm(cfg, params, h))
+
+
+def paged_attention_route(device_type: str, hq: int, hk: int, d: int) -> str:
+    """"kernel" or "plain": the paged step's attention over pools on a
+    ``device_type`` device, by the shape alone (the kernel shares the
+    batch kernel's body and its ``supports``); CPU pools and unbuilt shapes
+    take ``paged_attention_plain``."""
+    if device_type == "cuda" and paged_attention_supports(hq, hk, d):
+        return "kernel"
+    return "plain"
 
 
 def put_at(t: torch.Tensor, at, value) -> None:

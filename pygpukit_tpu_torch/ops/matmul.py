@@ -126,12 +126,13 @@ def matmul_w8a16(a, w_q, w_scale, *, out_dtype=_BF16, out: Array | None = None) 
 
 
 def int8_dot(xi: torch.Tensor, q: torch.Tensor) -> torch.Tensor:
-    """Exact int8 x int8 -> int32 product [M, K] @ [K, N]: ``torch._int_mm``
-    on the card, an int32 product on the CPU. The card's product takes K and
-    N in multiples of 8 and refuses some small K for M off a multiple of 32
-    (measured on an H100), so M, K and N are zero-padded to those."""
+    """Exact int8 x int8 -> int32 product [M, K] @ [K, N]:
+    ``torch._int_mm``. On the card it takes K and N in multiples of 8 and
+    refuses some small K for M off a multiple of 32 (measured on an H100),
+    so M, K and N are zero-padded to those; on the CPU it takes any shape
+    (oneDNN's s8 x s8 -> s32 product, the int32 product's bits)."""
     if not xi.is_cuda:
-        return torch.matmul(xi.to(torch.int32), q.to(torch.int32))
+        return torch._int_mm(xi.contiguous(), q.contiguous())
     m, k = xi.shape
     n = q.shape[1]
     mp, kp, np_ = -(-m // 32) * 32, -(-k // 8) * 8, -(-n // 8) * 8

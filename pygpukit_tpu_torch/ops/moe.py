@@ -10,6 +10,13 @@ and three exact formulations of the routed expert MLP (no token dropping).
   reference's XLA gather does); for decode-sized T.
 * ``moe_dense_fn``: every expert over every token, a one-hot combine.
 
+The gmm and gather formulations take a routing made elsewhere:
+``gmm_experts`` and ``gather_experts`` are given the weights, the expert
+ids and the activation between the two products (and a down bias), so the
+standalone families (``llm/models``) run their own routers and activations
+through them; ``moe_gmm_fn`` and ``moe_gather_fn`` are them with the
+softmax top-k router and the SiLU product.
+
 Rounding points follow the reference, formulation by formulation: dense
 rounds gate, up and down to the activation dtype (``_expert_dot``); gmm and
 gather keep them in f32 and round only the SiLU product. So moving a token
@@ -43,15 +50,22 @@ GMM_MIN_ROWS = 128
 GATHER_MAX_TOKENS = 4
 
 
+def top_k_fn(x: torch.Tensor, k: int):
+    """``lax.top_k`` over the last axis: (values, indices [..., k]) with
+    floats in their total order (-0 below +0) and the lower index first on
+    ties (a stable descending sort of the f32 bits mapped to
+    order-preserving integers)."""
+    bits = x.to(_F32).view(torch.int32)
+    keys = bits ^ ((bits >> 31) & 0x7FFFFFFF)
+    idx = torch.sort(keys, dim=-1, descending=True, stable=True).indices[..., :k]
+    return torch.gather(x, -1, idx), idx
+
+
 def topk_route_fn(router_logits: torch.Tensor, k: int):
     """[T, E] logits -> (softmaxed weights [T, k], expert ids [T, k]) in
-    ``lax.top_k``'s order: floats in their total order (-0 below +0), the
-    lower index first on ties (a stable descending sort of the f32 bits
-    mapped to order-preserving integers)."""
-    bits = router_logits.to(_F32).view(torch.int32)
-    keys = bits ^ ((bits >> 31) & 0x7FFFFFFF)
-    idx = torch.sort(keys, dim=-1, descending=True, stable=True).indices[:, :k]
-    return torch.softmax(torch.gather(router_logits, -1, idx), dim=-1), idx
+    ``lax.top_k``'s order (``top_k_fn``)."""
+    top, idx = top_k_fn(router_logits, k)
+    return torch.softmax(top, dim=-1), idx
 
 
 def _expert_dot(x: torch.Tensor, w) -> torch.Tensor:
@@ -78,26 +92,31 @@ def _silu_mul(gate: torch.Tensor, up: torch.Tensor, dtype: torch.dtype) -> torch
     return (torch.sigmoid(g) * g * u).to(dtype)
 
 
-def moe_gmm_fn(y, w_gate, w_up, w_down, router_logits, k: int) -> torch.Tensor:
-    """Exact ragged MoE via grouped matmuls. y [T, H]; w_* [E, H, I] /
-    [E, I, H]; router_logits [T, E]; f32 [T, H]. Each token's k rows are
-    combined in the reference's scatter order (ascending expert id),
+def gmm_experts(y, w_in, w_down, weights, topi, act, down_bias=None) -> torch.Tensor:
+    """The grouped-matmul formulation over a given routing. y [T, H]; w_in
+    a tuple of expert stacks [E, H, *] (gate and up, or one interleaved
+    gate_up), w_down [E, I, H]; weights and expert ids topi [T, k] (the
+    family's router). ``act(outs, eids)`` takes the first products (f32
+    [T*k, *], one per stack, rows sorted by expert) and their expert ids
+    and returns the down product's rows in y's dtype; ``down_bias`` [E, H]
+    is added to the down rows in f32 by expert. f32 [T, H], each token's
+    k rows combined in the reference's scatter order (ascending expert id),
     without atomics."""
-    w_gate, w_up, w_down = (_dequant_stack(w, y.dtype) for w in (w_gate, w_up, w_down))
-    t = y.shape[0]
-    weights, topi = topk_route_fn(router_logits.to(_F32), k)
+    t, k = topi.shape
     flat_expert = topi.reshape(-1)                            # [T*k]
     order = torch.argsort(flat_expert, stable=True)
     sorted_tokens = torch.div(order, k, rounding_mode="floor")
     sorted_w = weights.reshape(-1)[order]
-    experts = torch.arange(w_gate.shape[0], device=y.device)
+    experts = torch.arange(w_down.shape[0], device=y.device)
     # a one-hot count: bincount would read its output size on the host
     group_sizes = (flat_expert[:, None] == experts).sum(dim=0, dtype=torch.int32)
 
     lhs = y[sorted_tokens]                                    # [T*k, H]
-    gate = gmm(lhs, w_gate, group_sizes)                      # [T*k, I] f32
-    up = gmm(lhs, w_up, group_sizes)
-    down = gmm(_silu_mul(gate, up, lhs.dtype), w_down, group_sizes)
+    outs = [gmm(lhs, w, group_sizes) for w in w_in]           # [T*k, *] f32
+    eids = flat_expert[order]
+    down = gmm(act(outs, eids), w_down, group_sizes)
+    if down_bias is not None:
+        down = down + down_bias[eids].to(_F32)
     contrib = down * sorted_w[:, None]
     # token i's rows sit at sorted positions inv[i*k : i*k + k]; in
     # ascending position they are in ascending expert id
@@ -109,31 +128,51 @@ def moe_gmm_fn(y, w_gate, w_up, w_down, router_logits, k: int) -> torch.Tensor:
     return out
 
 
-def moe_gather_fn(y, w_gate, w_up, w_down, router_logits, k: int) -> torch.Tensor:
-    """Small-T formulation: per j, each token's expert slabs gathered
-    (``w[eids]``) and multiplied in f32. Exact (the dense route's math)."""
+def moe_gmm_fn(y, w_gate, w_up, w_down, router_logits, k: int) -> torch.Tensor:
+    """Exact ragged MoE via grouped matmuls (``gmm_experts`` with the
+    softmax top-k routing and the SiLU product). y [T, H]; w_* [E, H, I] /
+    [E, I, H]; router_logits [T, E]; f32 [T, H]."""
+    w_gate, w_up, w_down = (_dequant_stack(w, y.dtype) for w in (w_gate, w_up, w_down))
     weights, topi = topk_route_fn(router_logits.to(_F32), k)
+    return gmm_experts(y, (w_gate, w_up), w_down, weights, topi,
+                       lambda outs, _: _silu_mul(outs[0], outs[1], y.dtype))
 
-    def dot_gathered(x_rows, w_stack, eids):
-        """x_rows [T, in] times gathered expert mats [T, in, out] -> f32 [T, out]."""
-        if isinstance(w_stack, dict):
-            q = w_stack["q"][eids]                            # [T, in, out]
-            acc = xla_dot(x_rows.to(_BF16)[:, None], q.to(_BF16), _F32)[:, 0]
-            scale = w_stack["scale"]
-            per_expert = scale.dim() >= 1 and scale.shape[0] == w_stack["q"].shape[0]
-            sc = scale[eids] if per_expert else scale
-            return acc * sc.reshape(-1, acc.shape[-1])
-        return xla_dot(x_rows[:, None], w_stack[eids], _F32)[:, 0]
 
+def _dot_gathered(x_rows, w_stack, eids):
+    """x_rows [T, in] times gathered expert mats [T, in, out] -> f32 [T, out]."""
+    if isinstance(w_stack, dict):
+        q = w_stack["q"][eids]                                # [T, in, out]
+        acc = xla_dot(x_rows.to(_BF16)[:, None], q.to(_BF16), _F32)[:, 0]
+        scale = w_stack["scale"]
+        per_expert = scale.dim() >= 1 and scale.shape[0] == w_stack["q"].shape[0]
+        sc = scale[eids] if per_expert else scale
+        return acc * sc.reshape(-1, acc.shape[-1])
+    return xla_dot(x_rows[:, None], w_stack[eids], _F32)[:, 0]
+
+
+def gather_experts(y, w_in, w_down, weights, topi, act, down_bias=None) -> torch.Tensor:
+    """The gather formulation over a given routing (arguments as
+    ``gmm_experts``; ``act`` sees [T, *] rows and the j-th expert ids): per
+    j, each token's expert slabs gathered (``w[eids]``) and multiplied in
+    f32."""
     w_out = w_down["q"] if isinstance(w_down, dict) else w_down
     out = torch.zeros((y.shape[0], w_out.shape[-1]), dtype=_F32, device=y.device)
-    for j in range(k):
+    for j in range(topi.shape[1]):
         eids = topi[:, j]
-        g = dot_gathered(y, w_gate, eids)
-        u = dot_gathered(y, w_up, eids)
-        d = dot_gathered(_silu_mul(g, u, y.dtype), w_down, eids)
+        outs = [_dot_gathered(y, w, eids) for w in w_in]
+        d = _dot_gathered(act(outs, eids), w_down, eids)
+        if down_bias is not None:
+            d = d + down_bias[eids].to(_F32)
         out = out + d * weights[:, j:j + 1]
     return out
+
+
+def moe_gather_fn(y, w_gate, w_up, w_down, router_logits, k: int) -> torch.Tensor:
+    """Small-T formulation (``gather_experts`` with the softmax top-k
+    routing and the SiLU product). Exact (the dense route's math)."""
+    weights, topi = topk_route_fn(router_logits.to(_F32), k)
+    return gather_experts(y, (w_gate, w_up), w_down, weights, topi,
+                          lambda outs, _: _silu_mul(outs[0], outs[1], y.dtype))
 
 
 def moe_dense_fn(y, w_gate, w_up, w_down, router_logits, k: int) -> torch.Tensor:
@@ -157,13 +196,20 @@ def use_gmm(device_type: str) -> bool:
     return device_type == "cuda"
 
 
-def select_moe_fn(n_tokens: int, top_k: int, device_type: str):
-    """The formulation for ``n_tokens`` tokens at top-``top_k`` on a
-    ``device_type`` tensor (route in the module docstring)."""
+def moe_route(n_tokens: int, top_k: int, device_type: str) -> str:
+    """"gmm", "gather" or "dense": the formulation for ``n_tokens`` tokens
+    at top-``top_k`` on a ``device_type`` tensor (route in the module
+    docstring)."""
     if os.environ.get(MOE_ENV, "") == "dense":
-        return moe_dense_fn
+        return "dense"
     if use_gmm(device_type) and n_tokens * top_k >= GMM_MIN_ROWS:
-        return moe_gmm_fn
+        return "gmm"
     if n_tokens <= GATHER_MAX_TOKENS:
-        return moe_gather_fn
-    return moe_dense_fn
+        return "gather"
+    return "dense"
+
+
+def select_moe_fn(n_tokens: int, top_k: int, device_type: str):
+    """Mixtral's formulation function for ``moe_route``'s route."""
+    return {"gmm": moe_gmm_fn, "gather": moe_gather_fn,
+            "dense": moe_dense_fn}[moe_route(n_tokens, top_k, device_type)]

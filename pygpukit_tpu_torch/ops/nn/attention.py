@@ -12,7 +12,9 @@ reference's route test at :131-169): on CUDA tensors, with no softcap, no
 window and the default scale, the hand-written ``kernels.flash_attention``
 kernel, at every length and for bf16 and f32 alike; softcap, window or
 another scale take the plain route on the card too, as the reference sends
-them to XLA. A window no shorter than the keys masks nothing and counts as
+them to XLA, and so does a shape the kernel is not built for
+(``kernels.flash_attention.supports``: a head dim outside its five, as
+the reference checks eligibility before its kernels). A window no shorter than the keys masks nothing and counts as
 none (``effective_window``; here and for fixed-cache decode). ``PYGPUKIT_FLASH_ATTENTION`` is read per call: ``pallas`` and
 ``jax`` take the kernel (the jax-shipped TPU flash kernel computes the same
 function, causal softmax(QK^T scale)V, in another summation order, so the
@@ -29,7 +31,9 @@ reference computes off the TPU.
 
 Route of fixed-cache decode (``sdpa_fixed_cache_fn``), by the same rule:
 one query row (T = 1) on CUDA tensors over bf16 or f32 caches of q's
-dtype, with no softcap, no window and the default scale (compared in f32),
+dtype, with no softcap, no window, the default scale (compared in f32) and
+a shape the kernel is built for (``kernels.flash_attention.
+decode_supports``: its five head dims, at most 32 query heads a kv head),
 launches the hand-written ``kernels.flash_decode`` kernel (one launch over
 a split fixed by the shapes; ``ctx_len`` passed through as given: an int,
 or an int32 tensor on the card that the kernel reads, so a captured graph
@@ -60,8 +64,10 @@ import torch
 
 from ...core.array import Array
 from ...core.dtypes import FP8_MAX
+from ...kernels.flash_attention import decode_supports as _flash_decode_supports
 from ...kernels.flash_attention import flash_attention as _flash_kernel
 from ...kernels.flash_attention import flash_decode as _flash_decode_kernel
+from ...kernels.flash_attention import supports as _flash_supports
 from .._common import apply_op
 
 _F32 = torch.float32
@@ -136,11 +142,16 @@ def effective_window(window, n_keys: int):
 
 
 def flash_attention_route(device_type: str, scale: float, d: int,
-                          softcap: float | None = None, window=None) -> str:
+                          softcap: float | None = None, window=None,
+                          n_heads: int | None = None, n_kv_heads: int | None = None) -> str:
     """"kernel" or "plain": the route of ``flash_attention_fn`` for a
-    ``device_type`` tensor (the rule in the module docstring)."""
+    ``device_type`` tensor (the rule in the module docstring). A shape the
+    kernel is not built for (``kernels.flash_attention.supports``: the
+    head dim, and the heads when given) takes the plain route."""
+    hq = n_heads or 1
     if (device_type != "cuda" or softcap is not None or window is not None
-            or not _kernel_scale(scale, d) or os.environ.get(FLASH_ENV, "") == "xla"):
+            or not _kernel_scale(scale, d) or os.environ.get(FLASH_ENV, "") == "xla"
+            or not _flash_supports(hq, n_kv_heads or hq, d)):
         return "plain"
     return "kernel"
 
@@ -155,7 +166,8 @@ def flash_attention_fn(q, k, v, scale: float | None = None,
     s, h, d = q.shape
     scale = scale if scale is not None else 1.0 / math.sqrt(d)
     window = effective_window(window, s)
-    if flash_attention_route(q.device.type, scale, d, softcap, window) == "kernel":
+    if flash_attention_route(q.device.type, scale, d, softcap, window, h,
+                             k.shape[1]) == "kernel":
         return _flash_kernel(q, k, v, causal=causal)
     k, v = _gqa_expand(k, h), _gqa_expand(v, h)
     if s <= chunk_size:
@@ -262,6 +274,22 @@ def _round_as(p: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
     return p.to(dtype).to(_F32)
 
 
+def fixed_cache_route(device_type: str, t: int, hq: int, hk: int, d: int,
+                      q_dtype: torch.dtype, k_dtype: torch.dtype | None,
+                      v_dtype: torch.dtype | None, scale: float | None = None,
+                      softcap: float | None = None, window=None) -> str:
+    """"kernel" or "plain": the route of ``sdpa_fixed_cache_fn`` (module
+    docstring) for T query rows of Hq heads over caches of Hk heads of
+    ``k_dtype``/``v_dtype`` (None for an int8 dict), the window already
+    through ``effective_window``. Reads shapes and dtypes, nothing else."""
+    scale = scale if scale is not None else 1.0 / math.sqrt(d)
+    if (device_type == "cuda" and t == 1 and _flash_decode_supports(hq, hk, d)
+            and k_dtype in (torch.bfloat16, _F32) and q_dtype == k_dtype == v_dtype
+            and softcap is None and window is None and _kernel_scale(scale, d)):
+        return "kernel"
+    return "plain"
+
+
 def sdpa_fixed_cache_fn(q, k_cache, v_cache, ctx_len, scale: float | None = None,
                         softcap: float | None = None, window=None) -> torch.Tensor:
     """Decode attention over a fixed cache: q [T, Hq, D] (T > 1 for a
@@ -269,14 +297,13 @@ def sdpa_fixed_cache_fn(q, k_cache, v_cache, ctx_len, scale: float | None = None
     below ``ctx_len - (T - 1) + i`` (an int or a one-element tensor). Long caches take the kv-chunk route
     (module docstring); on the card one query row may launch the
     flash_decode kernel (route in the module docstring)."""
-    t, _, d = q.shape
+    t, h, d = q.shape
     window = effective_window(window, _kv_shape(k_cache)[0])
-    if (q.is_cuda and t == 1 and not isinstance(k_cache, dict)
-            and not isinstance(v_cache, dict)
-            and k_cache.dtype in (torch.bfloat16, _F32)
-            and q.dtype == k_cache.dtype == v_cache.dtype
-            and softcap is None and window is None
-            and _kernel_scale(scale if scale is not None else 1.0 / math.sqrt(d), d)):
+    dicts = isinstance(k_cache, dict) or isinstance(v_cache, dict)
+    if fixed_cache_route(q.device.type, t, h, _kv_shape(k_cache)[1], d, q.dtype,
+                         None if dicts else k_cache.dtype,
+                         None if dicts else v_cache.dtype, scale, softcap,
+                         window) == "kernel":
         return _flash_decode_kernel(q, k_cache, v_cache, ctx_len)
     if _decode_backend(_kv_shape(k_cache)[0]) == "chunked":
         return sdpa_fixed_cache_chunked_fn(q, k_cache, v_cache, ctx_len, scale,

@@ -2136,3 +2136,101 @@ def test_an_unbuilt_head_dim_raises(dev):
                                    0, 0, d ** -0.5, 0.0, 0, stream)]
     torch.cuda.synchronize()
     assert all(rc != 0 for rc in rcs), rcs
+
+
+UNBUILT_SHAPES = {"d32": (32, 4, 2), "d112": (112, 4, 2), "g24": (64, 48, 2)}
+
+
+def _rel(a, b) -> float:
+    a, b = a.float().cpu(), b.float().cpu()
+    return float(torch.linalg.norm(a - b) / torch.linalg.norm(b))
+
+
+@pytest.mark.parametrize("shape", list(UNBUILT_SHAPES))
+def test_unbuilt_attention_shapes_serve_on_the_card(dev, shape):
+    """D 32, D 112 and G 24: the uncached forward, the single-stream step
+    and both engines run on the card in f32 (the routes send the shapes
+    their kernels are not built for to the plain versions) and match the
+    CPU plain path: forward logits within 1e-3 relative L2 of the CPU's,
+    each engine's stream the card's own greedy generate. No kernel launches
+    for an unbuilt shape; G 24 keeps flash_attention and flash_decode."""
+    from pygpukit_tpu_torch.llm import (CausalTransformerModel, ContinuousBatchingEngine,
+                                        TransformerConfig, init_params)
+    d, hq, hk = UNBUILT_SHAPES[shape]
+    cfg = TransformerConfig(vocab_size=512, hidden_size=hq * d, num_layers=2, num_heads=hq,
+                            num_kv_heads=hk, intermediate_size=256,
+                            max_position_embeddings=256, tie_word_embeddings=False)
+    params = init_params(cfg, 0, torch.float32, device="cpu")
+    cpu = CausalTransformerModel(cfg, params, dtype=torch.float32)
+    card = CausalTransformerModel(cfg, _to_dev(params, dev), dtype=torch.float32)
+    prompt = list(range(3, 40))
+    before = _launches()
+    assert _rel(card(prompt), cpu(prompt)) < 1e-3
+    card.init_fixed_cache(128)
+    want = card.generate(prompt, 12, chunk_size=4)
+    streams = []
+    for paged in (False, True):
+        eng = ContinuousBatchingEngine(card, max_batch=2, max_seq_len=128,
+                                       steps_per_dispatch=4, paged=paged)
+        req = eng.submit(prompt, max_new_tokens=12)
+        eng.run_until_complete()
+        streams.append(req.generated)
+    assert streams == [want, want]
+    moved = {k for k, n in _launches().items() if n != before.get(k, 0)}
+    served = {"flash_attention", "flash_decode"} if shape == "g24" else set()
+    assert moved & {"flash_attention", "flash_decode", "batch_decode_attention",
+                    "paged_attention", "kv_rows_write_fused"} == served
+
+
+@pytest.mark.parametrize("family", ["deepseek", "gptoss"])
+def test_standalone_families_on_the_card(dev, family):
+    """A small random DeepSeek-V3 (noaux_tc) or gpt-oss in bf16 on the card:
+    the 160-token forward launches gmm (T * k >= 128) and is within 3e-2
+    relative L2 of the CPU plain path's logits (the one-hot experts in
+    f32); greedy generate twice gives the same tokens (captured programs
+    replayed); the hybrid engine's streams equal generate's at the same
+    cache length, and a second run over the same requests replays its
+    programs to the same caches, bit for bit."""
+    from pygpukit_tpu_torch.llm.models import deepseek, gptoss
+    from pygpukit_tpu_torch.llm.serving_hybrid import HybridServingEngine
+    if family == "deepseek":
+        cfg = deepseek.DeepseekV3Config(
+            vocab_size=512, hidden_size=256, num_layers=2, num_heads=4, q_lora_rank=64,
+            kv_lora_rank=64, qk_nope_head_dim=32, qk_rope_head_dim=16, v_head_dim=32,
+            intermediate_size=256, moe_intermediate_size=64, n_routed_experts=16,
+            n_group=4, topk_group=2, num_experts_per_tok=4, first_k_dense=1,
+            max_position_embeddings=512)
+        mod, cls = deepseek, deepseek.DeepseekV3Model
+    else:
+        cfg = gptoss.GptOssConfig(
+            vocab_size=512, hidden_size=256, num_layers=2, num_heads=8, num_kv_heads=2,
+            head_dim=32, intermediate_size=128, num_experts=8, num_experts_per_tok=2,
+            sliding_window=16, layer_types=("sliding_attention", "full_attention"),
+            max_position_embeddings=512)
+        mod, cls = gptoss, gptoss.GptOssModel
+    params = mod.init_params(cfg, 0, torch.bfloat16, "cpu")
+    cpu = cls(cfg, params, dtype=torch.bfloat16)
+    card = cls(cfg, _to_dev(params, dev), dtype=torch.bfloat16)
+    prompt = list(range(5, 165))
+    before = LAUNCHES["gmm"]
+    assert _rel(card.forward(prompt), cpu.forward(prompt)) < 3e-2
+    launched = LAUNCHES["gmm"] > before
+    card.init_fixed_cache(256)
+    want = card.generate(prompt[:40], 16, chunk_size=8)
+    card.init_fixed_cache(256)
+    assert card.generate(prompt[:40], 16, chunk_size=8) == want
+    eng = HybridServingEngine(card, max_batch=2, max_seq_len=256, steps_per_dispatch=8)
+    caches = []
+    for _ in range(2):                       # the second run replays the first's programs
+        reqs = [eng.submit(prompt[:40], max_new_tokens=16) for _ in range(3)]
+        eng.run_until_complete()
+        assert all(r.generated == want for r in reqs)
+        caches.append({k: v.clone() for k, v in eng._caches.items()})
+    assert all(torch.equal(caches[0][k], caches[1][k]) for k in caches[0])
+    assert launched
+
+
+def _to_dev(tree, dev):
+    if isinstance(tree, dict):
+        return {k: _to_dev(v, dev) for k, v in tree.items()}
+    return None if tree is None else tree.to(dev)
