@@ -322,13 +322,35 @@ bf16 weight with no scale, torch._grouped_mm for gmm, bf16 out).
     launched by every MoE layer and nothing else, a bitwise second
     forward, device ms by graph replay, tok/s), gmm at the model's expert
     shape against gmm_plain and timed with its bound and
-    torch._grouped_mm, a greedy generate replayed identical (64 tokens
+    torch._grouped_mm, a greedy generate replayed identical (32 tokens
     after a 512-token prompt; V3 32 after 64); V2-Lite and gpt-oss: the
-    hybrid engine (4 slots, MAX 1024, 8 requests of 32 new tokens after a
+    hybrid engine (4 slots, MAX 1024, 8 requests of 16 new tokens after a
     warm-up request a prompt bucket that captures its programs), each
     stream its prompt's generate on the card, tok/s and TTFT, and a 2-layer
     slice against the CPU plain path (MOE_ROWS_Q); V3: its MoE layer's gmm
-    route against the gather formula on 16 rows (SA_GATHER_TOL).
+    route against the gather formula on 16 rows (SA_GATHER_TOL);
+23. Llama-4 and the families with one per-layer cache tree (trees_phase,
+    ``--phases trees``): one at a time with the card freed between them,
+    random bf16 weights (seed 0) at the config.json values of
+    TREE_FAMILIES (recalled, not read from the files):
+    meta-llama/Llama-Guard-4-12B's text model at full depth (48 layers,
+    NoPE every fourth, 40/8 heads, D 128; about 23 GB),
+    state-spaces/mamba-2.8b-hf at full depth (64 layers; about 5.5 GB),
+    tiiuae/falcon-mamba-7b's widths at 8 of 64 layers and
+    LiquidAI/LFM2-1.2B at full depth (16 layers, attention at six): per
+    model a 2048-token forward (no kernel launched: the attention and the
+    scan are plain, as the reference's; a bitwise second forward, device
+    ms by graph replay, tok/s) and a greedy generate run twice to the same
+    tokens (Llama-4: 16 tokens after 32, a forward a token, no cache; the
+    others 32 after 512 at MAX 1024, LFM2 launching flash_decode once an
+    attention layer a step); Mamba: a 1024-token prefill in blocks of 512
+    against one shot (the last logits' argmax, 16 greedy tokens equal; on
+    an f32 copy of the weights the last logits within TR_BLOCKED_F32_TOL);
+    Mamba and LFM2: the hybrid engine on phase 22's workload, each stream
+    its prompt's generate on the card; all but FalconMamba: a 2-layer
+    slice against the CPU plain path (FWD_TOL, the largest row); then row
+    15 at LFM2-1.2B's attention against its plain version, timed beside
+    SDPA with its bound.
 Launches per decode step, prefill, forward or layer are counted in phases
 6, 7, 9, 11, 12, 13, 14, 15, 16 and 17 and printed (phases 6-14, 16, 17)
 on one line before the summary. A count is the wrappers' eager launches
@@ -430,7 +452,7 @@ GEN_CHUNK = 16
 ULP_REL, NEAR_ZERO = 2.0 ** -7, 1e-4
 PHASES = ("kernels", "dense", "paged", "tight", "ladder", "block", "parity",
           "forward", "ops", "decode", "moe", "kv", "strategies", "graphs", "load",
-          "families", "rope", "conventions", "standalone")
+          "families", "rope", "conventions", "standalone", "trees")
 # phase 17 (graphs): the model's window and chunk, the sampled chunk's
 # temperature and top-k, the draft's tokens, the paged engine's requests
 GRAPH_WINDOW, GRAPH_CHUNK, GRAPH_TEMP, GRAPH_TOPK = 6, 16, 0.8, 40
@@ -5174,9 +5196,10 @@ STANDALONE = {
 # after a 64-token prompt), the hybrid engine's slots, capacity, requests,
 # new tokens and steps a dispatch, its prompts' least and most length
 # (33-120: the engine's prefill bucket is generate's), the CPU slice's
-# prompt, the rows of DeepSeek-V3's gmm-against-gather check
-SA_FWD_S, SA_PROMPT, SA_NEW, SA_V3_PROMPT, SA_V3_NEW = 2048, 512, 64, 64, 32
-SA_BATCH, SA_MAX, SA_REQS, SA_REQ_NEW, SA_STEPS, SA_REQ_LEN = 4, 1024, 8, 32, 4, (40, 120)
+# prompt, the rows of DeepSeek-V3's gmm-against-gather check. Since phase
+# 23 came: 32 new tokens a generate and 16 a request (64 and 32 before)
+SA_FWD_S, SA_PROMPT, SA_NEW, SA_V3_PROMPT, SA_V3_NEW = 2048, 512, 32, 64, 32
+SA_BATCH, SA_MAX, SA_REQS, SA_REQ_NEW, SA_STEPS, SA_REQ_LEN = 4, 1024, 8, 16, 4, (40, 120)
 SA_SLICE_S, SA_GATHER_ROWS = 64, 16
 # generate's chunk: each chunk length is a captured program whose capture
 # runs it eagerly once, so 8-step chunks (programs of 7 and 8 steps) cost
@@ -5545,6 +5568,344 @@ def standalone_phase(dev, card: str) -> int:
     return n_gmm
 
 
+# phase 23: Llama-4 and the families with one per-layer cache tree
+# (llm.models) at their published widths, the config.json values of each
+# Hugging Face repository written here as numbers, recalled, not read from
+# the files (nothing is downloaded): name -> (repository, family, config,
+# layers run or None for all). Llama-Guard-4-12B's text config is given in
+# Llama4Config's field names (its dense MLP is intermediate_size_mlp; the
+# rope_scaling block is not read, as the reference reads none); NoPE every
+# fourth layer. FalconMamba-7B runs 8 of its 64 layers for the script's time.
+TREE_FAMILIES = {
+    "llama-guard-4-12b": ("meta-llama/Llama-Guard-4-12B (text_config)", "llama4", dict(
+        vocab_size=202048, hidden_size=5120, intermediate_size=8192, num_hidden_layers=48,
+        num_attention_heads=40, num_key_value_heads=8, head_dim=128, rms_norm_eps=1e-5,
+        rope_theta=500000.0, attn_scale=0.1, floor_scale=8192.0, use_qk_norm=True,
+        max_position_embeddings=131072, no_rope_layers=[1, 1, 1, 0] * 12), None),
+    "mamba-2.8b": ("state-spaces/mamba-2.8b-hf", "mamba", dict(
+        model_type="mamba", vocab_size=50280, hidden_size=2560, num_hidden_layers=64,
+        state_size=16, intermediate_size=5120, conv_kernel=4, time_step_rank=160,
+        use_conv_bias=True, use_bias=False, layer_norm_epsilon=1e-5,
+        tie_word_embeddings=True), None),
+    "falcon-mamba-7b": ("tiiuae/falcon-mamba-7b", "mamba", dict(
+        model_type="falcon_mamba", vocab_size=65024, hidden_size=4096, num_hidden_layers=64,
+        state_size=16, intermediate_size=8192, conv_kernel=4, time_step_rank=256,
+        use_conv_bias=True, use_bias=False, mixer_rms_eps=1e-6, layer_norm_epsilon=1e-5,
+        tie_word_embeddings=False), 8),
+    "lfm2-1.2b": ("LiquidAI/LFM2-1.2B", "lfm2", dict(
+        model_type="lfm2", vocab_size=65536, hidden_size=2048, num_hidden_layers=16,
+        num_attention_heads=32, num_key_value_heads=8, intermediate_size=12288,
+        block_auto_adjust_ff_dim=True, block_ffn_dim_multiplier=1.0, block_multiple_of=256,
+        conv_L_cache=3, conv_bias=False, rope_theta=1000000.0, norm_eps=1e-5,
+        max_position_embeddings=128000, tie_word_embeddings=True,
+        layer_types=["full_attention" if i in (2, 5, 8, 10, 12, 14) else "conv"
+                     for i in range(16)]), None),
+}
+# the forward's tokens; Llama-4's generate (no cache: a forward a token):
+# prompt and new tokens; the cached families' generate: prompt and new
+# tokens (after init_fixed_cache(SA_MAX), so the engine's streams, phase
+# 22's SA_* workload, are generate's bits); Mamba's blocked prefill: the
+# prompt, its blocks and the new tokens compared; the CPU slices' prompt
+TR_FWD_S, TR_L4_PROMPT, TR_L4_NEW, TR_PROMPT, TR_NEW = 2048, 32, 16, 512, 32
+TR_BLOCKED_S, TR_BLOCK, TR_BLOCKED_NEW, TR_SLICE_S = 1024, 512, 16, 64
+# Mamba's blocked prefill against one shot on f32 weights: the two scans
+# sum the same products in another order (f32 rounding, grown through 64
+# layers), relative L2 of the last logits
+TR_BLOCKED_F32_TOL = 1e-4
+# the 2-layer slices run on the card and on the CPU: layer indices (a rope
+# and a NoPE layer of Llama-4, a conv and an attention layer of LFM2)
+TR_SLICE = {"llama4": (2, 4), "mamba": (0, 2), "lfm2": (1, 3)}
+# row 15 at LFM2-1.2B's attention: (Hq, Hk, D, MAX, ctx, layers cycled)
+TR_DECODE_ROW = (32, 8, 64, SA_MAX, TR_PROMPT + TR_NEW, 6)
+# the kernels line's row of row 15 at LFM2-1.2B's shape
+D64_ROWS = {"flash_decode_lfm2": ("flash_decode", "lfm2-1.2b")}
+
+
+def tree_model(name: str, dev, cut: bool = True):
+    """(family module, config, model) of TREE_FAMILIES[name] with random
+    bf16 weights from seed 0 on ``dev``, cut to its layers."""
+    import dataclasses
+    import torch
+    from pygpukit_tpu_torch.llm.models import lfm2, llama4, mamba
+    _, family, hf, layers = TREE_FAMILIES[name]
+    if family == "llama4":
+        cfg = llama4.Llama4Config(**hf)
+        return llama4, cfg, llama4.Llama4Model.init_random(cfg, 0, torch.bfloat16, dev)
+    mod = mamba if family == "mamba" else lfm2
+    cfg = (mamba.MambaConfig if family == "mamba" else lfm2.Lfm2Config).from_hf(hf)
+    if layers is not None and cut:
+        cfg = dataclasses.replace(cfg, num_layers=layers)
+    cls = mamba.MambaModel if family == "mamba" else lfm2.Lfm2Model
+    return mod, cfg, cls(cfg, mod.init_params(cfg, 0, torch.bfloat16, dev), dtype=torch.bfloat16)
+
+
+def tree_slice(mod, cfg, params: dict, device):
+    """(config, params) of TREE_SLICE's two layers, the leaves copied to
+    ``device`` (views where they are already there)."""
+    import dataclasses
+    lo, hi = TR_SLICE[mod.__name__.rsplit(".", 1)[1]]
+
+    def to(t):
+        return None if t is None else t.to(device)
+    p = {k: to(v) for k, v in params.items() if k != "layers"}
+    if isinstance(params["layers"], dict):           # Llama-4's stacked leaves
+        p["layers"] = {k: to(v[lo:hi]) for k, v in params["layers"].items()}
+        return dataclasses.replace(cfg, num_hidden_layers=hi - lo,
+                                   no_rope_layers=cfg.rope_flags()[lo:hi]), p
+    p["layers"] = [{k: to(v) for k, v in lp.items()} for lp in params["layers"][lo:hi]]
+    extra = {"layer_types": cfg.layer_types[lo:hi]} if hasattr(cfg, "layer_types") else {}
+    return dataclasses.replace(cfg, num_layers=hi - lo, **extra), p
+
+
+def tree_forward_fn(mod):
+    return mod.llama4_forward_fn if hasattr(mod, "llama4_forward_fn") else mod.forward_fn
+
+
+def tree_forward(mod, cfg, model, dev, what: str) -> tuple:
+    """The TR_FWD_S-token forward: shape, finite, no kernel launched (the
+    reference's prefill attention and scan are plain), a bitwise second
+    call; device ms by graph replay, tok/s and a kernel profile of one
+    eager call. Returns (ms, tok/s, profile line)."""
+    import numpy as np
+    import torch
+    fwd = tree_forward_fn(mod)
+    ids = np.random.default_rng(231).integers(1, cfg.vocab_size, TR_FWD_S).tolist()
+    tokens = torch.tensor(ids, device=dev)
+    torch.cuda.synchronize()
+    reset_counts()
+    out = fwd(cfg, model.params, tokens)
+    torch.cuda.synchronize()
+    launches = {k: n for k, n in launch_counts().items() if n}
+    reset_counts()
+    check(tuple(out.shape) == (TR_FWD_S, cfg.vocab_size) and bool(torch.isfinite(out).all()),
+          f"{what}: forward logits {tuple(out.shape)} or a value not finite")
+    check(not launches, f"{what}: forward launches {launches}, expected none")
+    check(torch.equal(out, fwd(cfg, model.params, tokens)), f"{what}: a second forward differs")
+    del out
+    torch.cuda.empty_cache()
+    ms = time_ms(lambda i: fwd(cfg, model.params, tokens), 1, reps=2)
+    torch.cuda.empty_cache()
+    prof = kernel_profile(lambda i: fwd(cfg, model.params, tokens), n=1)
+    return ms, TR_FWD_S / ms * 1e3, profile_line(prof, 5)
+
+
+def tree_generate(model, cfg, prompt_len: int, n_new: int, what: str) -> tuple:
+    """generate n_new greedy tokens after a seeded prompt twice (a cached
+    family at SA_MAX rows, the second run replaying the first's programs):
+    identical tokens. Returns (tok/s of the second run, its launches)."""
+    import numpy as np
+    import torch
+    prompt = np.random.default_rng(232).integers(1, cfg.vocab_size, prompt_len).tolist()
+    cached = hasattr(model, "init_fixed_cache")
+    if cached:
+        model.init_fixed_cache(SA_MAX)
+    runs = []
+    for _ in range(2):
+        torch.cuda.synchronize()
+        reset_counts()
+        t0 = time.perf_counter()
+        toks = (model.generate(prompt, max_new_tokens=n_new, chunk_size=SA_CHUNK) if cached
+                else model.generate(prompt, max_new_tokens=n_new))
+        torch.cuda.synchronize()
+        runs.append((toks, time.perf_counter() - t0, launch_counts()))
+    reset_counts()
+    (t1, _, _), (t2, secs, launches) = runs
+    check(len(t2) == n_new and t1 == t2, f"{what}: the second generate's tokens differ")
+    return n_new / secs, {k: n for k, n in launches.items() if n}
+
+
+def tree_blocked(model, cfg, what: str) -> str:
+    """Mamba's stateful prefill over TR_BLOCKED_S tokens in blocks of
+    TR_BLOCK against one shot: the last position's logits (relative L2,
+    the same argmax) and TR_BLOCKED_NEW greedy tokens equal; then both
+    prefills again on an f32 copy of the weights, where the two scans
+    differ only in f32 rounding (TR_BLOCKED_F32_TOL): in bf16 the other
+    order's rounding flips grow through the layers."""
+    import numpy as np
+    import torch
+    ids = np.random.default_rng(233).integers(1, cfg.vocab_size, TR_BLOCKED_S)
+
+    def last_logits(m, blk) -> "torch.Tensor":
+        for leaf in (t for c in m.caches for t in c.values()):
+            leaf.zero_()
+        step = blk or TR_BLOCKED_S
+        for off in range(0, TR_BLOCKED_S, step):
+            out = m._replay_prefill(ids[off:off + step])
+        return out.clone()
+
+    def rel_l2(a, b) -> float:
+        return ((a - b).norm() / b.norm()).item()
+    model.init_fixed_cache(2 * TR_BLOCKED_S)
+    blocked, one = (last_logits(model, blk) for blk in (TR_BLOCK, None))
+    rel = rel_l2(blocked, one)
+    same = int(torch.argmax(blocked)) == int(torch.argmax(one))
+    toks = [model.generate(ids, max_new_tokens=TR_BLOCKED_NEW, chunk_size=SA_CHUNK,
+                           prefill_block=blk) for blk in (TR_BLOCK, None)]
+    check(same and toks[0] == toks[1] and rel <= FWD_TOL,
+          f"{what}: blocked prefill (blocks of {TR_BLOCK}) against one shot: last logits "
+          f"relative L2 {rel:.3e}, argmax equal {same}, tokens {toks[0]} vs {toks[1]}")
+    model.graphs.reset()
+    f32 = type(model)(cfg, torch.utils._pytree.tree_map(
+        lambda t: t.float() if isinstance(t, torch.Tensor) and t.is_floating_point() else t,
+        model.params), dtype=torch.float32)
+    f32.init_fixed_cache(2 * TR_BLOCKED_S)
+    rel32 = rel_l2(*(last_logits(f32, blk) for blk in (TR_BLOCK, None)))
+    check(rel32 <= TR_BLOCKED_F32_TOL, f"{what}: f32 blocked prefill against one shot: last "
+          f"logits relative L2 {rel32:.3e} (limit {TR_BLOCKED_F32_TOL})")
+    f32.graphs.reset()
+    del f32
+    torch.cuda.empty_cache()
+    return (f"blocked prefill of {TR_BLOCKED_S} tokens in blocks of {TR_BLOCK} against one "
+            f"shot: last logits relative L2 {rel:.3e} in bf16, {rel32:.3e} on f32 weights "
+            f"(limit {TR_BLOCKED_F32_TOL}), the same argmax, {TR_BLOCKED_NEW} greedy tokens "
+            f"equal")
+
+
+def tree_cpu_slice(mod, cfg, model, what: str) -> str:
+    """TR_SLICE's two layers on the card against the CPU plain path (every
+    product in f32, the same bf16 weights): the TR_SLICE_S-token forward's
+    rows, the largest relative L2 within FWD_TOL."""
+    import numpy as np
+    import torch
+    fwd = tree_forward_fn(mod)
+    scfg, sp = tree_slice(mod, cfg, model.params, model.device)
+    ids = torch.tensor(np.random.default_rng(234).integers(1, cfg.vocab_size, TR_SLICE_S))
+    lc = fwd(scfg, sp, ids.to(model.device)).cpu().numpy()
+    scfg, sp = tree_slice(mod, cfg, model.params, "cpu")
+    t0 = time.perf_counter()
+    lr = fwd(scfg, sp, ids).numpy()
+    cpu_s = time.perf_counter() - t0
+    rows = np.linalg.norm(lc - lr, axis=1) / np.linalg.norm(lr, axis=1)
+    check(rows.max() <= FWD_TOL, f"{what}: 2-layer slice card vs CPU: the largest row's "
+          f"relative L2 {rows.max():.3e} (limit {FWD_TOL})")
+    del sp
+    return (f"2-layer slice (layers {TR_SLICE[mod.__name__.rsplit('.', 1)[1]]}), card vs CPU "
+            f"plain path ({cpu_s:.1f} s), {TR_SLICE_S}-token forward rows' relative L2: median "
+            f"{np.median(rows):.3e}, max {rows.max():.3e} (limit {FWD_TOL})")
+
+
+def tree_decode_row(dev, detail: dict) -> dict:
+    """Row 15 at LFM2-1.2B's attention (TR_DECODE_ROW): one bf16 query
+    over ctx rows of a MAX-row cache against its plain version (ATTN_TOL),
+    a second launch bitwise, timed beside the plain version and SDPA with
+    its bound. Returns the kernels line's row."""
+    import torch
+    from pygpukit_tpu_torch.kernels import flash_decode, flash_decode_plain
+    hq, hk, d, max_len, ctx, nl = TR_DECODE_ROW
+    g = torch.Generator(device=dev)
+    g.manual_seed(2323)
+    kc = torch.randn((nl, max_len, hk, d), generator=g, device=dev).to(torch.bfloat16)
+    vc = torch.randn((nl, max_len, hk, d), generator=g, device=dev).to(torch.bfloat16)
+    q1 = torch.randn((1, hq, d), generator=g, device=dev).to(torch.bfloat16)
+    o = flash_decode(q1, kc[1], vc[1], ctx)
+    err = _attn_err(o, flash_decode_plain(q1, kc[1], vc[1], ctx), "bf16", "lfm2 flash_decode")
+    check(torch.equal(o, flash_decode(q1, kc[1], vc[1], ctx)),
+          "lfm2 flash_decode: a second launch differs")
+    kms = time_ms(lambda i: flash_decode(q1, kc[i], vc[i], ctx), nl)
+    pms = time_ms(lambda i: flash_decode_plain(q1, kc[i], vc[i], ctx), nl)
+    lms = time_ms(lambda i: sdpa(q1.transpose(0, 1)[None], kc[i, :ctx].permute(1, 0, 2)[None],
+                                 vc[i, :ctx].permute(1, 0, 2)[None]), nl)
+    row = kernel_row(err, kms, pms, (2 * ctx * hk * d + 2 * hq * d) * 2, 4 * hq * d * ctx,
+                     "bf16", lms)
+    detail["flash_decode_lfm2"] = dict(row, share=row["bound_ms"] / row["ms"])
+    print(f"phase 23: flash_decode at LFM2-1.2B's attention ({hq}/{hk} heads, D {d}, ctx "
+          f"{ctx} of MAX {max_len}): kernel {kms:.5f} ms, plain {pms:.4f} ms, SDPA {lms:.5f} "
+          f"ms, bound {row['bound_ms']:.6f} ms ({row['bound_by']}) = share "
+          f"{row['bound_ms'] / kms:.3f}; max abs err {err:.3e} [{CARD}]")
+    return {"flash_decode_lfm2": row}
+
+
+def tree_run(name: str, dev, card: str) -> int:
+    """One model of phase 23. Returns the flash_decode launches of its
+    generate and engine runs."""
+    import gc
+    import torch
+    t0 = time.perf_counter()
+    mod, cfg, model = tree_model(name, dev)
+    family = TREE_FAMILIES[name][1]
+    torch.cuda.synchronize()
+    nbytes = sum(t.numel() * t.element_size()
+                 for t in torch.utils._pytree.tree_leaves(model.params)
+                 if isinstance(t, torch.Tensor))
+    secs = {"build": round(time.perf_counter() - t0, 1)}
+    t_lap = [time.perf_counter()]
+
+    def lap(what: str) -> None:
+        now = time.perf_counter()
+        secs[what] = round(now - t_lap[0], 1)
+        t_lap[0] = now
+    report = [f"{nbytes / 1e9:.2f} GB of weights and tables"]
+    ms, tok_s, fwd_prof = tree_forward(mod, cfg, model, dev, name)
+    report.append(f"forward {TR_FWD_S} tokens {ms:.3f} ms device (graph replay) = "
+                  f"{tok_s:.0f} tok/s, no kernel launched; forward " + fwd_prof)
+    lap("forward")
+    n_decode = 0
+    if family == "llama4":
+        gen_tok_s, gen_l = tree_generate(model, cfg, TR_L4_PROMPT, TR_L4_NEW, name)
+        report.append(f"generate {TR_L4_NEW} tokens after a {TR_L4_PROMPT}-token prompt (a "
+                      f"forward a token, no cache) {gen_tok_s:.2f} tok/s, identical twice, "
+                      f"launches {json.dumps(gen_l)}")
+    else:
+        gen_tok_s, gen_l = tree_generate(model, cfg, TR_PROMPT, TR_NEW, name)
+        per_step = gen_l.get("flash_decode", 0) / (TR_NEW - 1)
+        n_att = sum(cfg.is_attn(i) for i in range(cfg.num_layers)) if family == "lfm2" else 0
+        check(per_step == n_att, f"{name}: generate launched flash_decode {per_step} times a "
+              f"step, expected {n_att} (its attention layers)")
+        n_decode += gen_l.get("flash_decode", 0)
+        pos = torch.tensor([TR_PROMPT + TR_NEW], dtype=torch.int32, device=dev)
+        tok = torch.tensor([1], dtype=torch.int32, device=dev)
+        step_prof = kernel_profile(lambda i: mod.decode_step_fn(cfg, model.params,
+                                                                model.caches, tok, pos), n=1)
+        report.append(f"generate {TR_NEW} tokens after a {TR_PROMPT}-token prompt "
+                      f"{gen_tok_s:.1f} tok/s replayed, identical, launches "
+                      f"{json.dumps(gen_l)} ({per_step:.0f} flash_decode a step); one decode "
+                      f"step at pos {TR_PROMPT + TR_NEW} " + profile_line(step_prof, 5))
+    lap("generate")
+    if name == "mamba-2.8b":
+        report.append(tree_blocked(model, cfg, name))
+        lap("blocked prefill")
+    if name in ("mamba-2.8b", "lfm2-1.2b"):
+        model.init_fixed_cache(SA_MAX)
+        eng_tok_s, ttft, eng_l = standalone_engine(model, cfg, name)
+        n_decode += eng_l.get("flash_decode", 0)
+        report.append(f"hybrid engine ({SA_BATCH} slots, MAX {SA_MAX}, {SA_REQS} requests of "
+                      f"{SA_REQ_NEW} new tokens, {SA_STEPS} steps a dispatch, its programs "
+                      f"captured by a warm-up) {eng_tok_s:.1f} tok/s replayed, TTFT p50/p95 "
+                      f"{ttft[0]:.1f}/{ttft[1]:.1f} ms, every stream its prompt's generate, "
+                      f"launches {json.dumps(eng_l)}")
+        lap("engine")
+    if name != "falcon-mamba-7b":
+        report.append(tree_cpu_slice(mod, cfg, model, name))
+        lap("cpu slice")
+    if hasattr(model, "graphs"):
+        model.graphs.reset()
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+    layers = getattr(cfg, "num_layers", getattr(cfg, "num_hidden_layers", None))
+    print(f"phase 23: {name} ({TREE_FAMILIES[name][0]}, {layers} layers, hidden "
+          f"{cfg.hidden_size}): " + "; ".join(report)
+          + f"; {time.perf_counter() - t0:.1f} s (by section {json.dumps(secs)}) [{card}]")
+    return n_decode
+
+
+def trees_phase(dev, card: str) -> tuple[dict, dict]:
+    """Phase 23 (``--phases trees``): each model of TREE_FAMILIES, one at a
+    time, the card freed between them, then row 15 at LFM2-1.2B's shape.
+    Returns (the D64_ROWS row's launches: flash_decode's on LFM2-1.2B's
+    generate and engine runs, and its kernels-line numbers)."""
+    t0 = time.perf_counter()
+    runs = {name: tree_run(name, dev, card) for name in TREE_FAMILIES}
+    detail: dict = {}
+    results = tree_decode_row(dev, detail)
+    launches = {row: runs[fam] for row, (_, fam) in D64_ROWS.items()}
+    for row, n in launches.items():
+        check(n > 0, f"trees: {row} never launched on {D64_ROWS[row][1]}'s path")
+    print("phase 23: lfm2 " + json.dumps(detail))
+    print(f"phase 23 took {time.perf_counter() - t0:.1f} s")
+    return launches, results
+
+
 def main(argv: list[str]) -> int:
     t_script = time.perf_counter()
     import argparse
@@ -5677,6 +6038,10 @@ def main(argv: list[str]) -> int:
         results.update(d80)
     if "standalone" in phases:
         launches["gmm"] = launches.get("gmm", 0) + standalone_phase(dev, card)
+    if "trees" in phases:
+        d64_launches, d64 = trees_phase(dev, card)
+        launches.update(d64_launches)
+        results.update(d64)
     print(f"total {time.perf_counter() - t_start:.1f} s after the build began, "
           f"{time.perf_counter() - t_script:.1f} s the whole script")
     if set(phases) != set(PHASES):
@@ -5687,7 +6052,7 @@ def main(argv: list[str]) -> int:
     summary = {"kernels": []}
     sources = dict(SOURCES, **{row: SOURCES[base]
                                for row, (base, _) in {**D256_ROWS, **D96_ROWS,
-                                                      **D80_ROWS}.items()})
+                                                      **D80_ROWS, **D64_ROWS}.items()})
     for name, (src, rep) in sources.items():
         summary["kernels"].append({"name": name, "route": "cuda", "source": src,
                                    "replaces": rep, "launches": launches[name],

@@ -32,9 +32,10 @@ launch parameters, so a replay computes the eager call's bits.
 - **No eager fallback.** A capture or replay that fails on the card raises
   (a host read inside ``fn``, such as ``int()`` of a device tensor, fails
   the capture); nothing runs ``fn`` eagerly in its place.
-- **CPU arguments** make no graph: ``replay`` binds the arguments the same
-  way and calls ``fn`` on the static inputs, the CPU path the caller asked
-  for by placing the tensors there.
+- **CPU arguments** make no graph: ``capture`` runs nothing, and
+  ``replay`` binds the arguments the same way and calls ``fn`` on the
+  static inputs, the CPU path the caller asked for by placing the tensors
+  there.
 - **One stream at a time.** ``flash_decode`` and the w4a8 GEMM's split-K
   fold keep arrival counters in ``__device__`` memory across launches, so
   replays run on the current stream and never on two streams at once.
@@ -59,7 +60,10 @@ launch parameters, so a replay computes the eager call's bits.
 
 ``ExecutableStats.node_count`` is, on the card, the captured graph's node
 count (``cuGraphGetNodes`` on the graph torch keeps with ``keep_graph``);
-on the CPU, the ATen operations one call dispatches. ``cost_analysis`` is
+on the CPU, the ATen operations one call dispatches, counted by a call on
+clones of the donated arguments when ``node_count`` is first read (so a
+CPU capture that nobody asks the count of runs ``fn`` once a replay, not
+once more at capture). ``cost_analysis`` is
 the per-kernel ``LAUNCHES`` delta of one replay, recorded while capturing
 (the Python counters do not tick on replay). ``memory_analysis`` is the
 bytes the capture reserved in its pool (its own, or its owner's shared
@@ -184,8 +188,6 @@ class Executable:
         try:
             if self.device.type == "cuda":
                 self._capture_graph()
-            else:
-                self._count_cpu_ops()
         finally:
             for g, st in zip(self._generators, states):
                 g.set_state(st)
@@ -198,8 +200,13 @@ class Executable:
 
     def _count_cpu_ops(self) -> None:
         counter = _OpCounter()
-        with counter:
-            self._fn(*self._warm_args())
+        states = [g.get_state() for g in self._generators]
+        try:
+            with counter:
+                self._fn(*self._warm_args())
+        finally:
+            for g, st in zip(self._generators, states):
+                g.set_state(st)
         self.stats.node_count = counter.n
 
     def _capture_graph(self) -> None:
@@ -322,7 +329,10 @@ class Executable:
 
     @property
     def node_count(self) -> int:
-        """Graph nodes on the card, dispatched ATen operations on the CPU."""
+        """Graph nodes on the card, dispatched ATen operations on the CPU
+        (counted at the first read)."""
+        if self._graph is None and not self.stats.node_count and not self._released:
+            self._count_cpu_ops()
         return self.stats.node_count
 
     def cost_analysis(self) -> dict:

@@ -4,7 +4,9 @@
 leaves as numpy arrays (``jax.tree.map(np.asarray, params)``) and returns
 the same nested dict of torch tensors, bytes unchanged: stacked ``[L,
 ...]`` leaves, ``{"q_packed", "scale"}``, ``{"q_packed", "scale_block"}``
-and ``{"q", "scale"}`` dicts, rope tables. bf16 and fp8 leaves cross through
+and ``{"q", "scale"}`` dicts, rope tables, the per-layer lists of Mamba's and
+LFM2's trees and 0-d leaves (Llama-4's per-layer ``use_rope``, kept 0-d).
+bf16 and fp8 leaves cross through
 ``core.host.tensor_from_numpy``'s same-width integer carriers.
 """
 
@@ -45,12 +47,15 @@ def params_from_jax(tree, device=None):
     """A reference param tree of numpy leaves -> the port's tensors, a
     byte-exact conversion: the tensors stay where numpy had them (the CPU)
     unless ``device`` is given. ``None`` leaves (a tied head) stay
-    ``None``; int4_block dicts lose their ``scale_lo``/``scale_hi`` copies
+    ``None``; lists and tuples map element by element (a list stays a
+    list); int4_block dicts lose their ``scale_lo``/``scale_hi`` copies
     (see ``_drop_split_scales``)."""
     if isinstance(tree, dict):
         if "scale_block" in tree and "scale_lo" in tree:
             tree = _drop_split_scales(tree)
         return {k: params_from_jax(v, device) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(params_from_jax(v, device) for v in tree)
     if tree is None:
         return None
     return tensor_from_numpy(tree, device)

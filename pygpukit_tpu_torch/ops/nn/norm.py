@@ -37,6 +37,28 @@ def l2norm_fn(x: torch.Tensor, eps: float = 1e-12):
     return (xf * inv).to(x.dtype)
 
 
+def qk_l2norm_fn(x: torch.Tensor, eps: float = 1e-6):
+    """Parameterless RMS-style "L2 norm" over the last dim: the Llama-4
+    QK norm (rsqrt of the MEAN of squares, transformers'
+    Llama4TextL2Norm), not ``l2norm_fn``'s sum."""
+    xf = x.to(_F32)
+    inv = torch.rsqrt(torch.mean(xf * xf, dim=-1, keepdim=True) + eps)
+    return (xf * inv).to(x.dtype)
+
+
+def groupnorm_fn(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
+                 num_groups: int, eps: float = 1e-5):
+    """GroupNorm over the channel dim of NHWC x [N, H, W, C], C split into
+    ``num_groups`` groups, statistics over H, W and the group's channels."""
+    xf = x.to(_F32)
+    n, h, w, cc = xf.shape
+    xg = xf.reshape(n, h * w, num_groups, cc // num_groups)
+    mu = torch.mean(xg, dim=(1, 3), keepdim=True)
+    var = torch.mean((xg - mu) ** 2, dim=(1, 3), keepdim=True)
+    y = ((xg - mu) * torch.rsqrt(var + eps)).reshape(n, h, w, cc)
+    return (y * weight.to(_F32) + bias.to(_F32)).to(x.dtype)
+
+
 def rmsnorm(x, weight, eps: float = 1e-6, *, out: Array | None = None) -> Array:
     return apply_op(lambda a, w: rmsnorm_fn(a, w, eps), x, weight, out=out)
 
@@ -50,3 +72,9 @@ def layernorm(x, weight, bias=None, eps: float = 1e-5, *,
 
 def l2norm(x, eps: float = 1e-12, *, out: Array | None = None) -> Array:
     return apply_op(lambda a: l2norm_fn(a, eps), x, out=out)
+
+
+def groupnorm(x, weight, bias, num_groups: int, eps: float = 1e-5, *,
+              out: Array | None = None) -> Array:
+    return apply_op(lambda a, w, b: groupnorm_fn(a, w, b, num_groups, eps),
+                    x, weight, bias, out=out)

@@ -2233,4 +2233,46 @@ def test_standalone_families_on_the_card(dev, family):
 def _to_dev(tree, dev):
     if isinstance(tree, dict):
         return {k: _to_dev(v, dev) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_to_dev(v, dev) for v in tree]
     return None if tree is None else tree.to(dev)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_lfm2_decode_step_launches_flash_decode(dev, dtype, monkeypatch):
+    """A 2-layer LFM2 (a conv layer, then attention at LFM2-1.2B's 32/8
+    heads, D 64) on the card: one decode step at a device position
+    launches flash_decode once (its attention layer), the kernel's output
+    within ATTN_TOL (bf16) or 1e-4 of max |ref| (f32) of the plain version
+    on the same inputs, the logits finite; the step's logits within 1e-2
+    (bf16) or 1e-4 (f32) relative L2 of the CPU plain path's."""
+    from pygpukit_tpu_torch.llm.models import lfm2
+    cfg = lfm2.Lfm2Config(vocab_size=512, hidden_size=512, num_layers=2, num_heads=32,
+                          num_kv_heads=8, head_dim=64, intermediate_size=1024,
+                          layer_types=("conv", "full_attention"), max_position_embeddings=512)
+    params = lfm2.init_params(cfg, 0, dtype, "cpu")
+    seen = []
+
+    def traced(q, kc, vc, ctx_len, *a, **kw):
+        out = real(q, kc, vc, ctx_len, *a, **kw)
+        seen.append((out, flash_decode_plain(q, kc, vc, ctx_len)))
+        return out
+    real = lfm2.sdpa_fixed_cache_fn
+    logits = []
+    for where in (dev, torch.device("cpu")):
+        model = lfm2.Lfm2Model(cfg, _to_dev(params, where), dtype=dtype)
+        caches = lfm2.init_caches(cfg, 256, dtype, where)
+        toks = torch.tensor(list(range(3, 43)) + [0] * 24, dtype=torch.int32, device=where)
+        lfm2.prefill_fn(cfg, model.params, caches, toks, 40)
+        pos = torch.tensor([40], dtype=torch.int32, device=where)
+        monkeypatch.setattr(lfm2, "sdpa_fixed_cache_fn", traced)
+        before = LAUNCHES["flash_decode"]
+        _, out = lfm2.decode_step_fn(cfg, model.params, caches, 7, pos)
+        monkeypatch.setattr(lfm2, "sdpa_fixed_cache_fn", real)
+        assert LAUNCHES["flash_decode"] == before + (1 if where.type == "cuda" else 0)
+        assert torch.isfinite(out).all()
+        logits.append(out)
+    (kernel, plain), _ = seen
+    assert kernel.dtype == dtype and _attn_close(kernel, plain)
+    assert _rel(logits[0], logits[1]) < (1e-2 if dtype == torch.bfloat16 else 1e-4)
+

@@ -216,9 +216,9 @@ def test_guard_catches_host_reads():
 
 @pytest.fixture
 def guarded(monkeypatch):
-    """Run every captured program's CPU calls (its warm-up at capture and
-    each replay) under NoHostReads; yields the names of the programs that
-    ran."""
+    """Run every captured program's CPU calls (the call that counts its
+    operations, asked for at capture here, and each replay) under
+    NoHostReads; yields the names of the programs that ran."""
     ran: set = set()
     init, replay = executable_mod.Executable.__init__, executable_mod.Executable.replay
 
@@ -232,6 +232,7 @@ def guarded(monkeypatch):
 
     def new_init(self, fn, *args, **kw):
         init(self, guarded_fn(kw.get("name", "executable"), fn), *args, **kw)
+        assert self.node_count > 0         # a CPU capture runs fn when its count is read
 
     monkeypatch.setattr(executable_mod.Executable, "__init__", new_init)
     monkeypatch.setattr(executable_mod.Executable, "replay", replay)
