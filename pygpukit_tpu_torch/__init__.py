@@ -24,14 +24,20 @@ capture and replay (``core.capture``: CUDA graphs on the card, the
 reference's ``Executable`` API) with ``llm.buffers``; checkpoint loading
 and the model API (``llm.safetensors``, ``llm.config``'s specs and
 ``from_hf_config``, ``llm.loader``, ``llm.streaming``, ``llm.tokenizer``,
-``llm.chat``, ``llm.layers``); and their fifteen kernels.
+``llm.chat``, ``llm.layers``); the standalone families (``llm.models``)
+with the hybrid engine (``llm.serving_hybrid``); the fused and batching
+ops, the host sampler (``llm.sampling``) and the core services (logical
+streams and events, device and memory queries, host copies); and their
+fifteen kernels.
 """
 
 from . import core, kernels, llm, ops
-from .core import (Array, DataType, DataTypeKind, arange, capture, dtypes, empty,
-                   from_numpy, full, ones, ones_like, randn, require_cuda,
-                   resolve_device, set_deterministic_numerics, to_dtype, zeros,
-                   zeros_like)
+from .core import (Array, DataType, DataTypeKind, Event, Stream, StreamManager,
+                   StreamPriority, arange, capture, default_stream, device_count, dtypes,
+                   empty, from_numpy, full, get_device_info, get_memory_info,
+                   is_cuda_available, ones, ones_like, randn, require_cuda,
+                   resolve_device, set_deterministic_numerics, synchronize, to_dtype,
+                   zeros, zeros_like)
 from .core.dtypes import (bfloat16, bool_, float8_e4m3, float8_e5m2, float16,
                           float32, float64, fp8, int4, int8, int16, int32, int64,
                           uint8, uint16, uint32)
@@ -50,6 +56,7 @@ from .ops import (add, add_scaled, argmax, argmin, batched_matmul, cast, clamp,
                   relu2, rmsnorm, rope_init, rope_inplace, rsqrt, sample_token_gpu,
                   sdpa_causal, sdpa_causal_fixed_cache, set_sampling_seed, sigmoid,
                   silu, sin, softmax, sqrt, sub, sum, sum_axis, swiglu, tanh, where)
+from .ops.nn.fused import linear_bias_gelu
 from .ops.tensor import transpose_2d as transpose
 from .ops.unary import abs  # noqa: A004 - reference API name
 

@@ -30,6 +30,7 @@ from .quant import (FP8QuantConfig, ModelOptimizationInfo, PruningConfig, QATCon
 from .safetensors import (LazyModelLoader, SafeTensorsFile, ShardedSafeTensorsFile,
                           TensorInfo, TensorState, load_model_params, load_safetensors,
                           save_model_params, save_safetensors)
+from .sampling import sample_token
 from .serving import ContinuousBatchingEngine, EngineStats, Request
 from .serving_paged import (BlockAllocator, paged_decode_step_fn,
                             paged_prefill_fn, paged_serve_chunk_fn)
@@ -74,7 +75,7 @@ __all__ = ["decode", "STRATEGIES", "DecodeBatch", "DecodeJacobi", "DecodeM1",
            "decode_window_fn", "fused_decode_eligible", "fused_decode_step_fn",
            "generate_scan_fn", "prepare_fused_decode_params", "use_fused_decode",
            "forward_fn", "layer_stack_fn", "fuse_params", "init_params", "prefill_fn",
-           "resolve_kv_dtype", "sample_logits",
+           "resolve_kv_dtype", "sample_logits", "sample_token",
            "ContinuousBatchingEngine", "EngineStats", "Request",
            "BlockAllocator", "paged_decode_step_fn", "paged_prefill_fn",
            "paged_serve_chunk_fn",

@@ -21,12 +21,13 @@ MoE (counterpart of ``pygpukit_tpu/llm/models/deepseek.py``).
   (V2: softmax scores, plain or group-max top-k, never normalized, as
   transformers' V2 gate). Ties take ``lax.top_k``'s order
   (``ops.moe.top_k_fn``).
-- **Routed experts** (``_routed_experts``). The plain version is the
-  reference's dense one-hot formula in f32 over every expert: the route
-  of CPU tensors. CUDA tensors take ``ops.moe.moe_route``'s rule (Mixtral's)
-  with this router and the SiLU product: ``ops.moe.gmm_experts`` (three
-  ``kernels.gmm`` launches) from T * k >= 128 rows, ``gather_experts`` up
-  to T 4, the one-hot formula between (and under ``PYGPUKIT_MOE=dense``).
+- **Routed experts** (``ops.moe.routed_experts``). The plain version is
+  the reference's dense one-hot formula in f32 over every expert
+  (``_experts_plain``): the route of CPU tensors. CUDA tensors take
+  ``ops.moe.moe_route``'s rule (Mixtral's) with this router and the SiLU
+  product: ``ops.moe.gmm_experts`` (three ``kernels.gmm`` launches) from
+  T * k >= 128 rows, ``gather_experts`` up to T 4, the one-hot formula
+  between (and under ``PYGPUKIT_MOE=dense``).
   Shared experts are a dense MLP beside them.
 
 Positions (``pos``, ``true_len``) are host ints or one-element int32
@@ -51,7 +52,7 @@ import torch
 from ...core.backend import resolve_device
 from ...core.executable import ExecutableCache
 from ...ops.embedding import kv_write
-from ...ops.moe import gather_experts, gmm_experts, moe_route, top_k_fn
+from ...ops.moe import routed_experts, top_k_fn
 from ...ops.nn import apply_rope_fn, apply_rope_interleaved_fn, rmsnorm_fn
 from ..model import _last_row, _mm, _slice_layer_params, _table_rows, sample_logits
 from ._standalone import generate_chunked, head_logits, random_normal, rope_tables_from
@@ -278,21 +279,13 @@ def _experts_plain(lp: dict, x, w, eidx):
     return torch.einsum("tne,tn->te", yo, dense)
 
 
-def _routed_experts(cfg: DeepseekV3Config, lp: dict, x, w, eidx):
-    """The routed experts of x [T, E] at the given routing, by the route
-    of the module docstring. f32 [T, E]."""
-    route = moe_route(x.shape[0], cfg.num_experts_per_tok, x.device.type)
-    if not x.is_cuda or route == "dense":
-        return _experts_plain(lp, x, w, eidx)
-    experts = gmm_experts if route == "gmm" else gather_experts
-    return experts(x, (lp["w_experts_gate"], lp["w_experts_up"]), lp["w_experts_down"],
-                   w, eidx, lambda outs, _: _silu(outs[0]).mul_(outs[1]).to(x.dtype))
-
-
 def _moe_mlp(cfg: DeepseekV3Config, lp: dict, x):
     """Routed experts plus the shared experts, in x's dtype."""
     w, eidx = _router(cfg, lp, x)
-    routed = _routed_experts(cfg, lp, x, w, eidx)
+    routed = routed_experts(x, (lp["w_experts_gate"], lp["w_experts_up"]),
+                            lp["w_experts_down"], w, eidx,
+                            lambda outs, _: _silu(outs[0]).mul_(outs[1]).to(x.dtype),
+                            functools.partial(_experts_plain, lp))
     shared = _dense_mlp({"w_gate": lp["w_shared_gate"], "w_up": lp["w_shared_up"],
                          "w_down": lp["w_shared_down"]}, x)
     return routed.to(x.dtype) + shared

@@ -1,15 +1,18 @@
 """Ops re-export hub (counterpart of ``pygpukit_tpu/ops/__init__.py``): the
 reference's names for every ported module. Not ported, so not exported:
-audio, batching, conv, the fused ``linear_bias_gelu``, recurrent and
-llama4 ops, and the Array-handle KV-cache updates
-(``kv_cache_update``/``prefill``). The rope variants, ALiBi and PoPE are
+audio, conv and the recurrent ops (they go with the audio, TTS and
+diffusion stacks). The rope variants, ALiBi and PoPE are
 exported by ``ops.nn``, as the reference exports them."""
 
-from . import (elementwise, embedding, matmul, moe, nn, paged, reduction,
+from . import (batching, elementwise, embedding, matmul, moe, nn, paged, reduction,
                sampling, tensor, unary)
+from .batching import (argmax_sample, check_eos, gather_embeddings, prepare_position_ids,
+                       scatter_last_token_logits)
 from .elementwise import add, add_scaled, clamp, div, maximum, minimum, mul, sub, where
-from .embedding import (embedding_lookup, embedding_lookup_batch, kv_cache_zeros,
-                        kv_dequant, kv_leaf, kv_quant_rows, kv_write, to_kv_dtype)
+from .embedding import (embedding_lookup, embedding_lookup_batch, kv_cache_prefill,
+                        kv_cache_prefill_gqa, kv_cache_update, kv_cache_update_gqa,
+                        kv_cache_zeros, kv_dequant, kv_leaf, kv_quant_rows, kv_write,
+                        to_kv_dtype)
 from .matmul import (batched_matmul, fp8_available, gemv, gemv_bf16, gemv_int4,
                      gemv_w8a16, grouped_matmul, int4_available, int8_available,
                      matmul, matmul_fp8, matmul_int8, matmul_nt, matmul_w8a16,
@@ -17,6 +20,7 @@ from .matmul import (batched_matmul, fp8_available, gemv, gemv_bf16, gemv_int4,
 from .nn import (flash_attention, geglu, gelu, l2norm, layernorm, relu, relu2,
                  rmsnorm, rope_init, rope_inplace, sdpa_causal,
                  sdpa_causal_fixed_cache, silu, swiglu)
+from .nn.fused import linear_bias_gelu
 from .paged import (PagedKVCache, paged_attention_batch_fn,
                     paged_attention_dispatch, paged_attention_fn,
                     reshape_and_cache_fn)

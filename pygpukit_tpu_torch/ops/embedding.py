@@ -29,13 +29,26 @@ def to_kv_dtype(x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
     return x.to(dtype)
 
 
+def embedding_lookup_fn(table: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
+    """Rows of ``table`` [V, E] at integer ``ids`` (any shape)."""
+    return table[ids.to(torch.long)]
+
+
 def embedding_lookup(table, ids, *, out: Array | None = None) -> Array:
     """Rows of ``table`` [V, E] at ``ids`` (any shape)."""
     tt, ti = tensors(table, ids)
-    return apply_op(lambda t: t[ti.to(torch.long)], tt, out=out)
+    return apply_op(lambda t: embedding_lookup_fn(t, ti), tt, out=out)
 
 
 embedding_lookup_batch = embedding_lookup
+
+
+def kv_compute_dtype(cache_dtype: torch.dtype) -> torch.dtype:
+    """The dtype attention runs the cache operands in: fp8 and int8
+    storage is dequantized to bf16 at the read, any other is its own."""
+    if cache_dtype in FP8_MAX or cache_dtype == torch.int8:
+        return torch.bfloat16
+    return cache_dtype
 
 
 def kv_cache_zeros(shape, dtype: torch.dtype, device=None, merged: bool = True):
@@ -110,3 +123,32 @@ def kv_write(cache, new: torch.Tensor, start: tuple):
     else:
         put(cache[idx], to_kv_dtype(new, cache.dtype))
     return cache
+
+
+def kv_cache_update_fn(k_cache, v_cache, k_new: torch.Tensor, v_new: torch.Tensor, pos):
+    """Write k_new/v_new [T, Hk, D] into the [MAX, Hk, D] caches at
+    position ``pos`` (an int or a one-element device tensor), in place.
+    Returns (k_cache, v_cache)."""
+    return kv_write(k_cache, k_new, (pos, 0, 0)), kv_write(v_cache, v_new, (pos, 0, 0))
+
+
+def kv_cache_prefill_fn(k_cache, v_cache, k_new: torch.Tensor, v_new: torch.Tensor):
+    """``kv_cache_update_fn`` at position 0."""
+    return kv_cache_update_fn(k_cache, v_cache, k_new, v_new, 0)
+
+
+def kv_cache_update(k_cache: Array, v_cache: Array, k_new, v_new, pos) -> None:
+    """The Array-handle update: the rows written into the handles' tensors
+    in place (the reference rebinds its handles to the updated buffers)."""
+    kt, vt, kn, vn = tensors(k_cache, v_cache, k_new, v_new)
+    kv_cache_update_fn(kt, vt, kn, vn, pos)
+
+
+kv_cache_update_gqa = kv_cache_update
+
+
+def kv_cache_prefill(k_cache: Array, v_cache: Array, k_new, v_new) -> None:
+    kv_cache_update(k_cache, v_cache, k_new, v_new, 0)
+
+
+kv_cache_prefill_gqa = kv_cache_prefill

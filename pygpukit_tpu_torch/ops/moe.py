@@ -14,8 +14,9 @@ The gmm and gather formulations take a routing made elsewhere:
 ``gmm_experts`` and ``gather_experts`` are given the weights, the expert
 ids and the activation between the two products (and a down bias), so the
 standalone families (``llm/models``) run their own routers and activations
-through them; ``moe_gmm_fn`` and ``moe_gather_fn`` are them with the
-softmax top-k router and the SiLU product.
+through them (``routed_experts`` picks the route, the family's one-hot
+formula its plain version); ``moe_gmm_fn`` and ``moe_gather_fn`` are them
+with the softmax top-k router and the SiLU product.
 
 Rounding points follow the reference, formulation by formulation: dense
 rounds gate, up and down to the activation dtype (``_expert_dot``); gmm and
@@ -126,6 +127,19 @@ def gmm_experts(y, w_in, w_down, weights, topi, act, down_bias=None) -> torch.Te
     for j in range(k):
         out = out + rows[:, j]
     return out
+
+
+def routed_experts(y, w_in, w_down, weights, topi, act, plain) -> torch.Tensor:
+    """The routed experts of y [T, H] at a family's routing, by
+    ``moe_route``'s route: CPU tensors and the dense route take
+    ``plain(y, weights, topi)`` (the family's one-hot formula, its plain
+    version); CUDA tensors otherwise ``gmm_experts`` or ``gather_experts``
+    (arguments as theirs). f32 [T, H]."""
+    route = moe_route(y.shape[0], topi.shape[1], y.device.type)
+    if not y.is_cuda or route == "dense":
+        return plain(y, weights, topi)
+    experts = gmm_experts if route == "gmm" else gather_experts
+    return experts(y, w_in, w_down, weights, topi, act)
 
 
 def moe_gmm_fn(y, w_gate, w_up, w_down, router_logits, k: int) -> torch.Tensor:

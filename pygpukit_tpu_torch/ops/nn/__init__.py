@@ -1,4 +1,4 @@
-from . import activation, attention, llama4, norm, rope
+from . import activation, attention, fused, llama4, norm, rope
 from .activation import (geglu, geglu_fn, gelu, gelu_fn, relu, relu2, relu2_fn,
                          relu_fn, silu, silu_fn, swiglu, swiglu_fn)
 from .attention import (decode_pref, flash_attention, flash_attention_fn,
@@ -16,7 +16,7 @@ from .rope import (alibi_add_bias, alibi_bias_fn, alibi_compute_bias, alibi_init
                    rope_tables_linear, rope_tables_llama3, rope_tables_longrope,
                    rope_tables_ntk_aware, rope_tables_yarn)
 
-__all__ = ["activation", "attention", "llama4", "norm", "rope",
+__all__ = ["activation", "attention", "fused", "llama4", "norm", "rope",
            "geglu", "geglu_fn", "gelu", "gelu_fn", "relu", "relu2", "relu2_fn",
            "relu_fn", "silu", "silu_fn", "swiglu", "swiglu_fn",
            "decode_pref", "flash_attention", "flash_attention_fn", "sdpa_causal",

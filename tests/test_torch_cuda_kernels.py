@@ -1357,6 +1357,9 @@ GMM_CASES = {                       # name -> (group sizes, rows M, K, N)
     "K 136 over four groups": ([50, 70, 0, 80], 200, 136, 256),
     "128 groups of 0-9 rows": ("qwen3", 0, 512, 768),
     "a group that starts mid-tile": ([60, 200, 10, 130], 400, 256, 384),
+    "512 groups, top-10 of 13 tokens (M 130)": ("top10", 130, 2048, 512),
+    "512 groups, top-10 of 13 tokens, the down product": ("top10", 130, 512, 2048),
+    "512 groups, top-10 of 2048 tokens (M 20480)": ("top10", 20480, 2048, 512),
 }
 
 
@@ -1369,6 +1372,9 @@ def _gmm_inputs(dev, name):
     elif sizes == "qwen3":              # many small experts, some empty
         sizes = torch.randint(0, 10, (128,), generator=g, device=dev).tolist()
         m = sum(sizes)
+    elif sizes == "top10":              # Qwen3-Next: top-10 of M / 10 tokens, 512 experts
+        top10 = torch.rand((m // 10, 512), generator=g, device=dev).argsort(dim=-1)[:, :10]
+        sizes = torch.bincount(top10.reshape(-1), minlength=512).tolist()
     lhs = torch.randn((m, k), generator=g, device=dev).to(torch.bfloat16)
     rhs = (torch.randn((len(sizes), k, n), generator=g, device=dev) * 0.1).to(torch.bfloat16)
     return lhs, rhs, torch.tensor(sizes, dtype=torch.int32, device=dev)
@@ -2276,3 +2282,80 @@ def test_lfm2_decode_step_launches_flash_decode(dev, dtype, monkeypatch):
     assert kernel.dtype == dtype and _attn_close(kernel, plain)
     assert _rel(logits[0], logits[1]) < (1e-2 if dtype == torch.bfloat16 else 1e-4)
 
+
+
+def _qwen3next_2layer(dtype, moe: bool):
+    """A 2-layer Qwen3-Next on the CPU: a DeltaNet layer (16 K / 32 V heads
+    of 128) then attention at Qwen3-Next-80B-A3B's 16/2 heads, D 256;
+    with ``moe``, 64 experts top-10 on both layers."""
+    from pygpukit_tpu_torch.llm.models import qwen3next
+    cfg = qwen3next.Qwen3NextConfig(
+        vocab_size=512, hidden_size=512, num_layers=2, num_heads=16, num_kv_heads=2,
+        head_dim=256, intermediate_size=1024, layer_types=("linear_attention", "full_attention"),
+        num_experts=64 if moe else 0, num_experts_per_tok=10, moe_intermediate_size=128,
+        shared_expert_intermediate_size=128, max_position_embeddings=512)
+    return qwen3next, cfg, qwen3next.init_params(cfg, 0, dtype, "cpu")
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_qwen3next_decode_step_launches_flash_decode(dev, dtype, monkeypatch):
+    """A 2-layer Qwen3-Next (a DeltaNet layer, then gated attention at 16/2
+    heads, D 256) on the card: one decode step at a device position
+    launches flash_decode once (its attention layer), the kernel's output
+    within ATTN_TOL (bf16) or 1e-4 of max |ref| (f32) of the plain version
+    on the same inputs, the logits finite; the step's logits within 1e-2
+    (bf16) or 1e-4 (f32) relative L2 of the CPU plain path's."""
+    qwen3next, cfg, params = _qwen3next_2layer(dtype, moe=False)
+    seen = []
+
+    def traced(q, kc, vc, ctx_len, *a, **kw):
+        out = real(q, kc, vc, ctx_len, *a, **kw)
+        seen.append((out, flash_decode_plain(q, kc, vc, ctx_len)))
+        return out
+    real = qwen3next.sdpa_fixed_cache_fn
+    logits = []
+    for where in (dev, torch.device("cpu")):
+        model = qwen3next.Qwen3NextModel(cfg, _to_dev(params, where), dtype=dtype)
+        caches = qwen3next.init_caches(cfg, 256, dtype, where)
+        toks = torch.tensor(list(range(3, 43)) + [0] * 24, dtype=torch.int32, device=where)
+        qwen3next.prefill_fn(cfg, model.params, caches, toks, 40)
+        pos = torch.tensor([40], dtype=torch.int32, device=where)
+        monkeypatch.setattr(qwen3next, "sdpa_fixed_cache_fn", traced)
+        before = LAUNCHES["flash_decode"]
+        _, out = qwen3next.decode_step_fn(cfg, model.params, caches, 7, pos)
+        monkeypatch.setattr(qwen3next, "sdpa_fixed_cache_fn", real)
+        assert LAUNCHES["flash_decode"] == before + (1 if where.type == "cuda" else 0)
+        assert torch.isfinite(out).all()
+        logits.append(out)
+    (kernel, plain), _ = seen
+    assert kernel.dtype == dtype and _attn_close(kernel, plain)
+    assert _rel(logits[0], logits[1]) < (1e-2 if dtype == torch.bfloat16 else 1e-4)
+
+
+def test_qwen3next_prefill_runs_its_experts_on_gmm(dev):
+    """The bf16 2-layer Qwen3-Next with 64 experts top-10 on the card: a
+    16-token prefill (T * k 160) launches gmm three times a MoE layer and
+    no gather; its MoE block through gmm_experts against gather_experts on
+    the same routing within 1e-2 relative L2 (both f32 sums of bf16
+    products, in another order); the logits finite."""
+    from pygpukit_tpu_torch.ops import moe
+    qwen3next, cfg, params = _qwen3next_2layer(torch.bfloat16, moe=True)
+    model = qwen3next.Qwen3NextModel(cfg, _to_dev(params, dev), dtype=torch.bfloat16)
+    caches = qwen3next.init_caches(cfg, 64, torch.bfloat16, dev)
+    toks = torch.tensor(list(range(3, 17)) + [0] * 2, dtype=torch.int32, device=dev)
+    before = _launches()
+    _, logits = qwen3next.prefill_fn(cfg, model.params, caches, toks, 14)
+    torch.cuda.synchronize()
+    after = _launches()
+    moved = {k: n - before.get(k, 0) for k, n in after.items() if n != before.get(k, 0)}
+    assert moved == {"gmm": 6} and torch.isfinite(logits).all()
+    lp = model.params["layers"][1]
+    x = torch.randn((16, cfg.hidden_size), generator=_gen(dev, 23), device=dev).to(torch.bfloat16)
+    w, ids = qwen3next._router(cfg, lp, x)
+
+    def act(outs, _):
+        return (torch.nn.functional.silu(outs[0]) * outs[1]).to(x.dtype)
+    stacks = ((lp["w_experts_gate"], lp["w_experts_up"]), lp["w_experts_down"])
+    a = moe.gmm_experts(x, *stacks, w, ids, act)
+    b = moe.gather_experts(x, *stacks, w, ids, act)
+    assert _rel(a, b) < 1e-2
