@@ -374,7 +374,25 @@ bf16 weight with no scale, torch._grouped_mm for gmm, bf16 out).
     within FWD_TOL; the rows whose CPU routing differs counted), its MoE
     block on gmm against the gather formula (SA_GATHER_TOL), then row 15
     at its attention (16/2 heads, D 256) against its plain version, timed
-    beside SDPA with its bound.
+    beside SDPA with its bound;
+25. Whisper (whisper_phase, ``--phases whisper``): random weights (seed 0)
+    at the config.json values of openai/whisper-large-v3 (WHISPER, recalled,
+    not read from the file; 128 mel bins, width 1280, 32 + 32 layers of 20
+    heads, FFN 5120, vocab 51866, the erf GELU) at full depth, written as a
+    Hugging Face bf16 checkpoint under build/ and loaded by
+    WhisperModel.from_safetensors in f32 (every leaf the written value):
+    compute_mel of 30 s of seeded audio at 16 kHz and at 44.1 kHz
+    (resampled), each against the CPU within WH_MEL_TOL and bitwise a
+    second time; encode timed by graph replay (TFLOP/s against the f32
+    peak, a kernel profile, a bitwise second encode); transcribe_tokens
+    with the 4-token SOT prompt and 64 new tokens twice to the same tokens,
+    its greedy loop's tok/s (the captured step replayed), one step's device
+    ms by graph replay beside its bytes bound, eager ms and kernel
+    profile, no port kernel launched (the path has none); the cached
+    steps' logits against decoder_logits over the same tokens (WH_STEP_TOL
+    a row); transcribe_streaming over six 5 s chunks; a 2 + 2-layer slice
+    at full width against the CPU plain path (encoder output and decoder
+    logits within FWD_TOL).
 Launches per decode step, prefill, forward or layer are counted in phases
 6, 7, 9, 11, 12, 13, 14, 15, 16 and 17 and printed (phases 6-14, 16, 17)
 on one line before the summary. A count is the wrappers' eager launches
@@ -476,7 +494,7 @@ GEN_CHUNK = 16
 ULP_REL, NEAR_ZERO = 2.0 ** -7, 1e-4
 PHASES = ("kernels", "dense", "paged", "tight", "ladder", "block", "parity",
           "forward", "ops", "decode", "moe", "kv", "strategies", "graphs", "load",
-          "families", "rope", "conventions", "standalone", "trees", "qwen3next")
+          "families", "rope", "conventions", "standalone", "trees", "qwen3next", "whisper")
 # phase 17 (graphs): the model's window and chunk, the sampled chunk's
 # temperature and top-k, the draft's tokens, the paged engine's requests
 GRAPH_WINDOW, GRAPH_CHUNK, GRAPH_TEMP, GRAPH_TOPK = 6, 16, 0.8, 40
@@ -6217,6 +6235,239 @@ def qwen3next_phase(dev, card: str) -> tuple[dict, dict]:
     return launches, results
 
 
+# phase 25: openai/whisper-large-v3's config.json values, recalled (the
+# repository holds no copy; nothing is downloaded): 128 mel bins, width
+# 1280, 32 + 32 layers of 20 heads, FFN 5120, vocab 51866, the exact GELU;
+# about 1.54 B parameters, written as a bf16 checkpoint and loaded in f32
+WHISPER = ("openai/whisper-large-v3", dict(
+    model_type="whisper", num_mel_bins=128, d_model=1280, encoder_layers=32,
+    decoder_layers=32, encoder_attention_heads=20, decoder_attention_heads=20,
+    encoder_ffn_dim=5120, decoder_ffn_dim=5120, vocab_size=51866, max_source_positions=1500,
+    max_target_positions=448, activation_function="gelu", eos_token_id=50257,
+    decoder_start_token_id=50258))
+# <|startoftranscript|> <|en|> <|transcribe|> <|notimestamps|> in large-v3's
+# vocabulary (recalled), the new tokens, the cached steps held against the
+# uncached decoder, the streamed chunks (count, seconds), the CPU slice's
+# layers and decoder tokens
+WH_SOT = [50258, 50259, 50360, 50364]
+WH_NEW, WH_CHECK_STEPS, WH_STREAM, WH_SLICE, WH_SLICE_TOKENS = 64, 24, (6, 5.0), 2, 16
+# card against CPU: the features (absolute), the cached steps' logits
+# against the uncached decoder's (relative L2 a row; f32, TF32 off)
+WH_MEL_TOL, WH_STEP_TOL = 1e-3, 1e-3
+
+
+def whisper_audio(sr: int, seconds: float = 30.0):
+    """A seeded test signal at ``sr``: a chirp from 200 Hz rising 60 Hz a
+    second, a 330 Hz tone and noise, the same function of time at every
+    rate."""
+    import numpy as np
+    t = np.arange(int(sr * seconds), dtype=np.float64) / sr
+    noise = np.random.default_rng(250).standard_normal(len(t)) * 0.05
+    return (0.3 * np.sin(2 * np.pi * (200.0 * t + 30.0 * t * t))
+            + 0.1 * np.sin(2 * np.pi * 330.0 * t) + noise).astype(np.float32)
+
+
+def whisper_flops(cfg, t: int, frames: int) -> float:
+    """Products of one 30 s encode: the two stems, then per layer the four
+    projections, the FFN and the attention's two products over t rows."""
+    e, f = cfg.d_model, cfg.ffn_dim
+    stems = 2 * frames * e * cfg.n_mels * 3 + 2 * t * e * e * 3
+    return stems + cfg.encoder_layers * (2 * t * (4 * e * e + 2 * e * f) + 4 * t * t * e)
+
+
+def whisper_phase(dev, card: str) -> None:
+    """Phase 25 (``--phases whisper``; module docstring)."""
+    import dataclasses
+    import shutil
+    import numpy as np
+    import torch
+    from pygpukit_tpu_torch.asr.whisper import WhisperModel
+    from pygpukit_tpu_torch.asr.whisper import model as wm
+    from pygpukit_tpu_torch.llm.safetensors import save_safetensors
+    t0 = time.perf_counter()
+    secs: dict = {}
+    t_lap = [t0]
+
+    def lap(what: str) -> None:
+        now = time.perf_counter()
+        secs[what] = round(now - t_lap[0], 1)
+        t_lap[0] = now
+    cfg = wm.WhisperConfig.from_hf(WHISPER[1])
+    src = wm.init_params(cfg, 0, torch.bfloat16, dev)
+    root = ROOT / "build" / "whisper_phase"
+    shutil.rmtree(root, ignore_errors=True)
+    root.mkdir(parents=True)
+    report = []
+    try:
+        save_safetensors(root / "model.safetensors",
+                         {"model." + k: v for k, v in wm.hf_tensors(src).items()})
+        (root / "config.json").write_text(json.dumps(WHISPER[1]))
+        ckpt_gb = (root / "model.safetensors").stat().st_size / 1e9
+        lap("write")
+        t1 = time.perf_counter()
+        model = WhisperModel.from_safetensors(root, dtype=torch.float32, device=dev)
+        torch.cuda.synchronize()
+        load_s = time.perf_counter() - t1
+        same = all(a.dtype == torch.float32 and torch.equal(a, b.float()) for a, b in zip(
+            torch.utils._pytree.tree_leaves(model.params), torch.utils._pytree.tree_leaves(src)))
+        check(same and model.config == cfg,
+              "whisper: the loaded f32 params are not the written bf16 ones")
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    del src
+    torch.cuda.empty_cache()
+    nbytes = sum(t.numel() * t.element_size() for t in torch.utils._pytree.tree_leaves(model.params))
+    report.append(f"{nbytes / 1e9:.2f} GB of f32 params loaded from a {ckpt_gb:.2f} GB "
+                  f"bf16 checkpoint in {load_s:.1f} s, bitwise the written values")
+    lap("load")
+    # the CPU plain path: the first WH_SLICE layers of each stack at full width
+    scfg = dataclasses.replace(cfg, encoder_layers=WH_SLICE, decoder_layers=WH_SLICE)
+
+    def sliced(where):
+        p = {k: v.to(where) for k, v in model.params.items() if not isinstance(v, dict)}
+        for stack in ("enc_layers", "dec_layers"):
+            p[stack] = {k: v[:WH_SLICE].to(where) for k, v in model.params[stack].items()}
+        return p
+    cpu = WhisperModel(scfg, sliced("cpu"))
+    # 1. the features at 16 kHz and at 44.1 kHz, against the CPU and again
+    mel_err, mels = [], {}
+    for sr in (16000, 44100):
+        audio = whisper_audio(sr)
+        t1 = time.perf_counter()
+        mel = model.compute_mel(audio, sr)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t1) * 1e3
+        err = float((mel.cpu() - cpu.compute_mel(audio, sr)).abs().max())
+        again = torch.equal(mel, model.compute_mel(audio, sr))
+        check(mel.shape == (3000, cfg.n_mels) and err <= WH_MEL_TOL and again,
+              f"whisper: compute_mel at {sr} Hz: shape {tuple(mel.shape)}, max abs err "
+              f"{err:.3e} against the CPU (limit {WH_MEL_TOL}), second run bitwise {again}")
+        mel_err.append(f"{sr} Hz {err:.3e} ({ms:.1f} ms wall)")
+        mels[sr] = mel
+    report.append(f"compute_mel [3000, {cfg.n_mels}] against the CPU, max abs err: "
+                  + ", ".join(mel_err)
+                  + "; second runs bitwise")
+    lap("features")
+    # 2. the encoder: device ms by graph replay, a profile, a bitwise second encode
+    mel = mels[16000]
+    reset_counts()
+    feats = model.encode(mel)
+    check(torch.equal(feats, model.encode(mel)) and torch.isfinite(feats).all()
+          and feats.shape == (cfg.max_source_positions, cfg.d_model),
+          "whisper: a second encode differs (or the features are not finite)")
+    with model._prec():
+        enc_ms = time_ms(lambda i: wm.encoder_fn(cfg, model.params, mel), 1, reps=5)
+        enc_prof = kernel_profile(lambda i: wm.encoder_fn(cfg, model.params, mel), n=1)
+    flops = whisper_flops(cfg, cfg.max_source_positions, mel.shape[0])
+    rate = flops / (enc_ms * 1e-3)
+    report.append(f"encode 30 s: {enc_ms:.3f} ms device (graph replay) = {rate / 1e12:.2f} "
+                  f"TFLOP/s of {flops / 1e12:.3f} TFLOP, {rate / PEAK_OPS_S['f32']:.3f} of the "
+                  f"{PEAK_OPS_S['f32'] / 1e12:.0f} TFLOP/s f32 peak, bound "
+                  f"{flops / PEAK_OPS_S['f32'] * 1e3:.3f} ms; second encode bitwise; encode "
+                  + profile_line(enc_prof, 5))
+    lap("encode")
+    # 3. greedy transcription twice, tok/s; one step timed and profiled
+    audio = whisper_audio(16000)
+    runs = []
+    for _ in range(2):
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        toks = model.transcribe_tokens(audio, WH_SOT, max_new_tokens=WH_NEW)
+        t_all = time.perf_counter() - t1
+        max_len = len(WH_SOT) + WH_NEW + 1
+        t1 = time.perf_counter()
+        raw = model.greedy_tokens(feats, WH_SOT, max_len, WH_NEW)
+        torch.cuda.synchronize()
+        runs.append((toks, raw.tolist(), t_all, time.perf_counter() - t1))
+    (toks1, raw1, _, _), (toks2, raw2, t_all, t_greedy) = runs
+    launched = {k: n for k, n in launch_counts().items() if n}
+    check(toks1 == toks2 and raw1 == raw2 and len(raw2) == WH_NEW,
+          "whisper: a second transcription's tokens differ")
+    check(not launched, f"whisper: the path launched port kernels {launched}")
+    exe = model.graphs.get((max_len, WH_NEW, tuple(feats.shape)))
+    n = cfg.decoder_layers
+    kc = torch.zeros((n, max_len, cfg.d_model), device=dev)
+    vc = torch.zeros_like(kc)
+    with model._prec():
+        ck, cv = wm.cross_kv_fn(cfg, model.params, feats)
+        pos = torch.tensor([max_len // 2], dtype=torch.int32, device=dev)
+        tok = torch.tensor([WH_SOT[0]], dtype=torch.int32, device=dev)
+
+        def step(i):
+            return wm.decoder_step_fn(cfg, model.params, kc, vc, ck, cv, tok, pos)[2]
+        step_ms = time_ms(step, 1, reps=20)
+        step_eager = eager_ms(step, 1, iters=5)
+        step_prof = kernel_profile(step, n=1)
+    # a step reads the decoder's weights but the cross K/V projections, the
+    # tied head, the cross K/V and the self caches, each once
+    read = [v for k, v in model.params["dec_layers"].items()
+            if not k.startswith(("cross.k", "cross.v"))]
+    read += [model.params["tok_embed"], ck, cv, kc, vc]
+    step_bound = sum(t.numel() * t.element_size() for t in read) / HBM_BYTES_S * 1e3
+    report.append(
+        f"transcribe_tokens ({len(WH_SOT)}-token prompt, {WH_NEW} new) twice, identical "
+        f"({len(toks2)} tokens before EOS): {t_all * 1e3:.1f} ms wall a call; its greedy "
+        f"loop ({max_len - 1} replays of the captured step, {exe.node_count} graph nodes) "
+        f"{t_greedy * 1e3:.1f} ms = {WH_NEW / t_greedy:.1f} tok/s; one step "
+        f"{step_ms:.3f} ms device (graph replay), {step_eager:.2f} ms eager wall, bound "
+        f"{step_bound:.3f} ms by bytes; no port kernel "
+        "launched; step " + profile_line(step_prof, 5))
+    lap("transcribe")
+    # 4. the cached steps against the uncached decoder over the same tokens
+    seq = (WH_SOT + raw2)[:WH_CHECK_STEPS]
+    kc.zero_()
+    vc.zero_()
+    with model._prec():
+        rows = torch.stack([wm.decoder_step_fn(cfg, model.params, kc, vc, ck, cv, t, i)[2]
+                            for i, t in enumerate(seq)])
+    full = model.decoder_logits(seq, feats)
+    rel = ((rows - full).norm(dim=-1) / full.norm(dim=-1)).max().item()
+    greedy_ok = rows[len(WH_SOT) - 1:-1].argmax(-1).tolist() == seq[len(WH_SOT):]
+    check(rel <= WH_STEP_TOL and greedy_ok,
+          f"whisper: cached steps against decoder_logits over {len(seq)} tokens: largest "
+          f"row's relative L2 {rel:.3e} (limit {WH_STEP_TOL}), argmax the stream's {greedy_ok}")
+    report.append(f"cached steps against decoder_logits over {len(seq)} tokens: largest "
+                  f"row's relative L2 {rel:.3e} (limit {WH_STEP_TOL}), argmax the stream's")
+    lap("steps vs uncached")
+    # 5. streaming over WH_STREAM chunks
+    n_chunks, chunk_s = WH_STREAM
+    chunk = int(16000 * chunk_s)
+    t1 = time.perf_counter()
+    outs = list(model.transcribe_streaming(
+        (audio[i * chunk:(i + 1) * chunk] for i in range(n_chunks)), WH_SOT,
+        chunk_seconds=chunk_s))
+    torch.cuda.synchronize()
+    stream_s = time.perf_counter() - t1
+    first = model.transcribe_tokens(audio[:chunk], WH_SOT)
+    check(len(outs) == n_chunks and outs[0] == first,
+          f"whisper: streaming gave {len(outs)} windows (expected {n_chunks}), the first "
+          "not the window's own transcription")
+    report.append(f"transcribe_streaming over {n_chunks} chunks of {chunk_s:.0f} s: "
+                  f"{len(outs)} windows in {stream_s:.2f} s wall, the first window's tokens "
+                  "its own transcription's")
+    lap("streaming")
+    # 6. the 2-layer slice at full width against the CPU plain path
+    card_slice = WhisperModel(scfg, sliced(dev))
+    f_card = card_slice.encode(mel)
+    f_cpu = cpu.encode(mel.cpu())
+    l_card = card_slice.decoder_logits(seq[:WH_SLICE_TOKENS], f_card)
+    l_cpu = cpu.decoder_logits(seq[:WH_SLICE_TOKENS], f_cpu)
+    enc_rel, dec_rel = rel_l2(f_card.cpu(), f_cpu), rel_l2(l_card.cpu(), l_cpu)
+    check(enc_rel <= FWD_TOL and dec_rel <= FWD_TOL,
+          f"whisper: {WH_SLICE}-layer slice card vs CPU: encoder relative L2 {enc_rel:.3e}, "
+          f"decoder logits {dec_rel:.3e} (limit {FWD_TOL})")
+    report.append(f"{WH_SLICE} + {WH_SLICE}-layer slice at full width, card vs CPU plain path: "
+                  f"encoder output relative L2 {enc_rel:.3e}, decoder logits over "
+                  f"{WH_SLICE_TOKENS} tokens {dec_rel:.3e} (limit {FWD_TOL})")
+    lap("cpu slice")
+    del model, card_slice, feats, ck, cv, kc, vc
+    torch.cuda.empty_cache()
+    print(f"phase 25: whisper ({WHISPER[0]} widths, {cfg.encoder_layers} + "
+          f"{cfg.decoder_layers} layers, random weights seed 0): " + "; ".join(report)
+          + f"; by section {json.dumps(secs)} [{card}]")
+    print(f"phase 25 took {time.perf_counter() - t0:.1f} s")
+
+
 def main(argv: list[str]) -> int:
     t_script = time.perf_counter()
     import argparse
@@ -6361,6 +6612,8 @@ def main(argv: list[str]) -> int:
         q3n_launches, q3n = qwen3next_phase(dev, card)
         launches.update(q3n_launches)
         results.update(q3n)
+    if "whisper" in phases:
+        whisper_phase(dev, card)
     print(f"total {time.perf_counter() - t_start:.1f} s after the build began, "
           f"{time.perf_counter() - t_script:.1f} s the whole script")
     if set(phases) != set(PHASES):

@@ -27,11 +27,13 @@ and the model API (``llm.safetensors``, ``llm.config``'s specs and
 ``llm.chat``, ``llm.layers``); the standalone families (``llm.models``)
 with the hybrid engine (``llm.serving_hybrid``); the fused and batching
 ops, the host sampler (``llm.sampling``) and the core services (logical
-streams and events, device and memory queries, host copies); and their
+streams and events, device and memory queries, host copies); Whisper
+speech recognition (``asr.whisper``) with the audio DSP library
+(``ops.audio``) and the f32 precision scope (``ops.precision``); and the
 fifteen kernels.
 """
 
-from . import core, kernels, llm, ops
+from . import asr, core, kernels, llm, ops
 from .core import (Array, DataType, DataTypeKind, Event, Stream, StreamManager,
                    StreamPriority, arange, capture, default_stream, device_count, dtypes,
                    empty, from_numpy, full, get_device_info, get_memory_info,

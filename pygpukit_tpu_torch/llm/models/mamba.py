@@ -13,9 +13,9 @@ layer, one dict each in a list (``_base.StandaloneCachedModel``).
   B x, each [S, d_inner, N] in f32.
 - The recurrence h_t = da_t h_{t-1} + dbu_t, y_t = h_t . C_t + D x_t, out
   = out_proj(y * silu(gate)). The prefill and the forward run it as a
-  parallel scan over the (a, b) pairs (``linear_scan``: the odd/even
-  recursion of ``jax.lax.associative_scan``, log-depth, static shapes, no
-  host read, so it captures into a CUDA graph); decode takes one step off
+  parallel scan over the (a, b) pairs (``ops.scan.linear_scan``: the
+  odd/even recursion of ``jax.lax.associative_scan``, log-depth, static
+  shapes, no host read, so it captures into a CUDA graph); decode takes one step off
   the cached state.
 - The prefill is stateful: it continues from the caches it is given (the
   conv reads its left context from the carried raw inputs, and the
@@ -44,6 +44,7 @@ import torch.nn.functional as F
 
 from ...core.backend import resolve_device
 from ...ops.nn import rmsnorm_fn
+from ...ops.scan import linear_scan
 from ._base import (StandaloneCachedModel, causal_depthwise_conv, conv_state_tail, greedy_scan,
                     last_row, lm_head, mm)
 from ._standalone import random_normal
@@ -91,37 +92,6 @@ class MambaConfig:
             norm_eps=hf.get("layer_norm_epsilon", 1e-5),
             tie_word_embeddings=hf.get("tie_word_embeddings", True),
         )
-
-
-# ------------------------------------------------------------------- scan --
-
-def _combine(a1, b1, a2, b2):
-    """(a1, b1) then (a2, b2): the composition of h -> a1 h + b1 and
-    h -> a2 h + b2."""
-    return a2 * a1, a2 * b1 + b2
-
-
-def linear_scan(a: torch.Tensor, b: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
-    """Inclusive scan along dim 0 of h_t = a_t h_{t-1} + b_t (h_{-1} = 0):
-    (prod_{i<=t} a_i, h_t). The odd/even recursion of
-    ``jax.lax.associative_scan``: adjacent pairs combined, the half-length
-    scan of them recursively, then the even positions from their odd
-    neighbours; log2(S) levels of elementwise products over strided views."""
-    n = a.shape[0]
-    if n < 2:
-        return a, b
-    ra, rb = _combine(a[0:-1:2], b[0:-1:2], a[1::2], b[1::2])
-    oa, ob = linear_scan(ra, rb)
-    if n % 2 == 0:
-        ea, eb = _combine(oa[:-1], ob[:-1], a[2::2], b[2::2])
-    else:
-        ea, eb = _combine(oa, ob, a[2::2], b[2::2])
-    out_a, out_b = torch.empty_like(a), torch.empty_like(b)
-    for out, first, even, odd in ((out_a, a, ea, oa), (out_b, b, eb, ob)):
-        out[0] = first[0]
-        out[2::2] = even
-        out[1::2] = odd
-    return out_a, out_b
 
 
 # ------------------------------------------------------------------ mixer --

@@ -1,10 +1,11 @@
 """Ops re-export hub (counterpart of ``pygpukit_tpu/ops/__init__.py``): the
-reference's names for every ported module. Not ported, so not exported:
-audio, conv and the recurrent ops (they go with the audio, TTS and
-diffusion stacks). The rope variants, ALiBi and PoPE are
-exported by ``ops.nn``, as the reference exports them."""
+reference's names for every ported module, the audio library included
+(``ops.audio``, with ``ops.precision`` beside it). Not ported, so not
+exported: conv and the recurrent ops (they go with the TTS and diffusion
+stacks). The rope variants, ALiBi and PoPE are exported by ``ops.nn``, as
+the reference exports them."""
 
-from . import (batching, elementwise, embedding, matmul, moe, nn, paged, reduction,
+from . import (audio, batching, elementwise, embedding, matmul, moe, nn, paged, reduction,
                sampling, tensor, unary)
 from .batching import (argmax_sample, check_eos, gather_embeddings, prepare_position_ids,
                        scatter_last_token_logits)

@@ -2359,3 +2359,47 @@ def test_qwen3next_prefill_runs_its_experts_on_gmm(dev):
     a = moe.gmm_experts(x, *stacks, w, ids, act)
     b = moe.gather_experts(x, *stacks, w, ids, act)
     assert _rel(a, b) < 1e-2
+
+
+def test_whisper_on_the_card_matches_the_cpu(dev):
+    """A tiny random Whisper (2 + 2 layers, width 64, 80 mel bins) on the
+    card against the same params on the CPU, TF32 switched on outside the
+    model (its f32 scope turns it off for cuBLAS and cuDNN): the features
+    within 1e-3 absolute, the encoder output and the decoder logits within
+    1e-4 relative L2, the greedy tokens identical; the greedy loop a CUDA
+    graph replayed step by step, a second transcription the same tokens,
+    the TF32 flags back on after, and no port kernel launched (the path
+    has none)."""
+    import numpy as np
+    from pygpukit_tpu_torch.asr.whisper import WhisperConfig, WhisperModel
+    from pygpukit_tpu_torch.asr.whisper import model as wm
+    cfg = WhisperConfig(n_mels=80, d_model=64, encoder_layers=2, decoder_layers=2, n_heads=4,
+                        vocab_size=256, max_target_positions=64, eos_token_id=3,
+                        sot_token_id=2, ffn_dim=128)
+    params = wm.init_params(cfg, 0, device="cpu")
+    for k in params["dec_layers"]:
+        if not k.startswith("ln"):
+            params["dec_layers"][k] *= 10.0           # a greedy stream that varies
+    cpu, card = WhisperModel(cfg, params), WhisperModel(cfg, _to_dev(params, dev))
+    audio = (np.random.default_rng(25).standard_normal(24000) * 0.1).astype(np.float32)
+    mm, cudnn = torch.backends.cuda.matmul, torch.backends.cudnn
+    before = _launches()
+    try:
+        mm.allow_tf32 = cudnn.allow_tf32 = True
+        mel = card.compute_mel(audio)
+        assert mel.is_cuda and (mel.cpu() - cpu.compute_mel(audio)).abs().max() < 1e-3
+        feats = card.encode(mel)
+        assert _rel(feats, cpu.encode(mel.cpu())) < 1e-4
+        toks = [2, 7, 40, 41, 200]
+        assert _rel(card.decoder_logits(toks, feats),
+                    cpu.decoder_logits(toks, feats.cpu())) < 1e-4
+        got = card.transcribe_tokens(audio, [2, 9], max_new_tokens=12)
+        assert got == cpu.transcribe_tokens(audio, [2, 9], max_new_tokens=12)
+        assert got == card.transcribe_tokens(audio, [2, 9], max_new_tokens=12)
+        assert (mm.allow_tf32, cudnn.allow_tf32) == (True, True)
+    finally:
+        mm.allow_tf32 = cudnn.allow_tf32 = False
+    assert len(set(got)) > 2
+    (exe,) = card.graphs.executables().values()
+    assert exe.node_count > 0 and exe.stats.replays == 2 * (2 + 12 + 1 - 1)
+    assert _launches() == before
