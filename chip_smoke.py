@@ -392,7 +392,30 @@ bf16 weight with no scale, torch._grouped_mm for gmm, bf16 out).
     steps' logits against decoder_logits over the same tokens (WH_STEP_TOL
     a row); transcribe_streaming over six 5 s chunks; a 2 + 2-layer slice
     at full width against the CPU plain path (encoder output and decoder
-    logits within FWD_TOL).
+    logits within FWD_TOL);
+26. Kokoro (kokoro_phase, ``--phases kokoro``): Kokoro82M at
+    hexgrad/Kokoro-82M's dims as KokoroDims records them (ALBERT 768 x 12
+    shared layers, hidden 512, decoder 1024, generator 512 channels; 81.2 M
+    f32 parameters) from a random checkpoint (init_random_flat, seed 0,
+    scale 0.05) written in the reference test's layout (a nested .pth with
+    module. prefixes, config.json with the vocabulary, voices/af_heart.pt)
+    and loaded by Kokoro82M.from_pretrained (bitwise the written values):
+    an 8-id phoneme string on the card and on the CPU with the same sine
+    draws (float durations within KOK_DUR_RTOL with their margins to a
+    rounding boundary, the rounded ones equal, the audio within
+    KOK_AUDIO_TOL relative L2, a second card run bitwise, no port kernel
+    launched); a 50-id text (1040 frames, 624 000 samples) synthesized
+    twice bitwise, its captured program's device ms by replay, node
+    count, the eager wall, audio seconds a wall second, the 12 LSTM
+    directions alone by graph replay and one eager call's kernels by kind;
+    synthesize_streaming over three sentences; the simple KokoroModel at
+    its default config card vs CPU (KOK_SIMPLE_TOL); LLMTTSPipeline on the
+    1.1B int4 LLM at 2 of 22 layers (greedy, 32 tokens through the
+    reference test's character tokenizer) and VoicePipeline (Whisper at
+    large-v3's widths, 2 + 2 layers f32, written by whisper_checkpoint, on
+    silence, 0.5 s of a 220 Hz tone and silence: the four events, the
+    transcript transcribe_tokens' of the utterance), the LLM's launches of
+    rows 1 and 15 added to the summary line's.
 Launches per decode step, prefill, forward or layer are counted in phases
 6, 7, 9, 11, 12, 13, 14, 15, 16 and 17 and printed (phases 6-14, 16, 17)
 on one line before the summary. A count is the wrappers' eager launches
@@ -406,6 +429,7 @@ card is visible or the package is not beside this script.
 
 from __future__ import annotations
 
+import functools
 import json
 import random
 import subprocess
@@ -494,7 +518,8 @@ GEN_CHUNK = 16
 ULP_REL, NEAR_ZERO = 2.0 ** -7, 1e-4
 PHASES = ("kernels", "dense", "paged", "tight", "ladder", "block", "parity",
           "forward", "ops", "decode", "moe", "kv", "strategies", "graphs", "load",
-          "families", "rope", "conventions", "standalone", "trees", "qwen3next", "whisper")
+          "families", "rope", "conventions", "standalone", "trees", "qwen3next", "whisper",
+          "kokoro")
 # phase 17 (graphs): the model's window and chunk, the sampled chunk's
 # temperature and top-k, the draft's tokens, the paged engine's requests
 GRAPH_WINDOW, GRAPH_CHUNK, GRAPH_TEMP, GRAPH_TOPK = 6, 16, 0.8, 40
@@ -6275,6 +6300,23 @@ def whisper_flops(cfg, t: int, frames: int) -> float:
     return stems + cfg.encoder_layers * (2 * t * (4 * e * e + 2 * e * f) + 4 * t * t * e)
 
 
+def whisper_checkpoint(root: Path, hf: dict, dev):
+    """Random bf16 Whisper params of the Hugging Face config ``hf`` (seed 0)
+    written under ``root`` (emptied first) as model.safetensors with
+    "model." names and config.json; returns the params."""
+    import shutil
+    import torch
+    from pygpukit_tpu_torch.asr.whisper import model as wm
+    from pygpukit_tpu_torch.llm.safetensors import save_safetensors
+    src = wm.init_params(wm.WhisperConfig.from_hf(hf), 0, torch.bfloat16, dev)
+    shutil.rmtree(root, ignore_errors=True)
+    root.mkdir(parents=True)
+    save_safetensors(root / "model.safetensors",
+                     {"model." + k: v for k, v in wm.hf_tensors(src).items()})
+    (root / "config.json").write_text(json.dumps(hf))
+    return src
+
+
 def whisper_phase(dev, card: str) -> None:
     """Phase 25 (``--phases whisper``; module docstring)."""
     import dataclasses
@@ -6283,7 +6325,6 @@ def whisper_phase(dev, card: str) -> None:
     import torch
     from pygpukit_tpu_torch.asr.whisper import WhisperModel
     from pygpukit_tpu_torch.asr.whisper import model as wm
-    from pygpukit_tpu_torch.llm.safetensors import save_safetensors
     t0 = time.perf_counter()
     secs: dict = {}
     t_lap = [t0]
@@ -6293,15 +6334,10 @@ def whisper_phase(dev, card: str) -> None:
         secs[what] = round(now - t_lap[0], 1)
         t_lap[0] = now
     cfg = wm.WhisperConfig.from_hf(WHISPER[1])
-    src = wm.init_params(cfg, 0, torch.bfloat16, dev)
     root = ROOT / "build" / "whisper_phase"
-    shutil.rmtree(root, ignore_errors=True)
-    root.mkdir(parents=True)
     report = []
     try:
-        save_safetensors(root / "model.safetensors",
-                         {"model." + k: v for k, v in wm.hf_tensors(src).items()})
-        (root / "config.json").write_text(json.dumps(WHISPER[1]))
+        src = whisper_checkpoint(root, WHISPER[1], dev)
         ckpt_gb = (root / "model.safetensors").stat().st_size / 1e9
         lap("write")
         t1 = time.perf_counter()
@@ -6468,6 +6504,340 @@ def whisper_phase(dev, card: str) -> None:
     print(f"phase 25 took {time.perf_counter() - t0:.1f} s")
 
 
+# phase 26: hexgrad/Kokoro-82M's config.json values as KokoroDims records
+# them (178 tokens, style 128, hidden 512; ALBERT 768 wide, 12 heads, FFN
+# 2048, 12 shared layers; decoder 1024, generator 512 channels, n_fft 20,
+# hop 5, ups (10, 6), resblock kernels (3, 7, 11); 81.2 M f32
+# parameters), random (init_random_flat, seed 0, scale 0.05), the voice
+# seeded. The short string (8 ids) is synthesized on the card and on the
+# CPU; the text is cut to KOK_IDS phoneme ids, a budget of (50 + 2) x 20 =
+# 1040 frames (624 000 samples); the streamed text is three sentences
+KOK_SHORT = "ðə kˈæts"
+KOK_TEXT = ("The quick brown fox jumps over the lazy dog, and then the small "
+            "computer reads every word of the sentence again.")
+KOK_IDS = 50
+KOK_STREAM = "The cat sat. The dog ran. The pig ran."
+# card against the CPU on the short string. The float durations (relative)
+# decide the alignment: a rounded duration that differs fails the phase
+# rather than comparing audio under two alignments. The audio (relative
+# L2): the sine source's phase is a cumulative sum times 2 pi 300, so sin()
+# carries about |phase| 2^-24 of input error; and the harmonic's STFT phase
+# at a bin whose spectrum is real up to rounding (the first and last frames
+# are symmetric under the window) is +pi or -pi by the sign of a rounding
+# residue, a flip that moved a tiny model's audio by 6.7e-3 on the CPU.
+# Expected 1e-5 with no flip, up to a few 1e-2 with several.
+KOK_DUR_RTOL, KOK_AUDIO_TOL = 1e-4, 5e-2
+# the simple KokoroModel, card against CPU (relative L2; no STFT phase on
+# its path: its vocoder's phase is pi tanh of a conv output)
+KOK_SIMPLE_TOL = 1e-3
+# the pipelines: the LLM at CFG_1B's widths, 2 of 22 layers, int4; its new
+# tokens; the voice reply's tokens; Whisper at large-v3's widths, 2 + 2
+# layers (phase 25 runs the full depth)
+KOK_LLM_LAYERS, KOK_LLM_NEW, KOK_REPLY, KOK_WH_LAYERS = 2, 32, 16, 2
+
+
+class EchoTokenizer:
+    """The reference pipeline test's character tokenizer
+    (tests/test_pipeline.py:58-63): ids to letters, text to ids below 97."""
+
+    def encode(self, text):
+        return [min(ord(c), 96) for c in text][:8]
+
+    def decode(self, ids):
+        return "".join(chr(97 + (i % 26)) for i in ids)
+
+
+def kokoro_phonemes(model, text: str, n: int) -> str:
+    """The first ``n`` vocabulary symbols of ``text``'s IPA (the string
+    synthesize(phonemes=) encodes to ``n`` ids)."""
+    ps = model.phonemizer.phonemize(text).replace("tʃ", "ʧ").replace("dʒ", "ʤ")
+    kept = [c for c in ps if c in model.phonemizer.vocab]
+    check(len(kept) >= n, f"kokoro: the text gives {len(kept)} phoneme ids, fewer than {n}")
+    return "".join(kept[:n])
+
+
+def kokoro_durations(model, ids, ref_s):
+    """The float durations [S + 2] of ``ids`` (the bos/eos ids added) on the
+    model's device, before rounding."""
+    import torch
+    from pygpukit_tpu_torch.ops.precision import f32_matmul_context
+    from pygpukit_tpu_torch.tts.kokoro import arch
+    p, d = model.params, model.dims
+    zero = torch.zeros(1, dtype=ids.dtype, device=ids.device)
+    with f32_matmul_context(p):
+        bert = arch.albert_forward(torch.cat([zero, ids, zero]), p["bert"],
+                                   n_layers=d.albert_layers, n_heads=d.albert_heads)
+        d_en = arch.linear(bert, p["bert_encoder"]).T[None]
+        return arch.predict_durations(d_en, ref_s[128:], p["predictor"], 1.0)[1]
+
+
+def replay_ms(exe, args, reps: int = 5) -> float:
+    """Device ms of one replay of the captured ``exe`` (CUDA events around
+    ``reps`` back-to-back replays, after one)."""
+    import torch
+    exe.replay(*args)
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        exe.replay(*args)
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def kernel_split(rows: list) -> dict:
+    """Device ms and kernel counts of a profile by kind: cuDNN convolutions,
+    cuBLAS products (the LSTM steps' and the linears'), FFTs, elementwise
+    kernels, the rest."""
+    kinds = {"convs": ("conv", "cudnn", "xmma", "implicit"), "gemm": ("gemm", "gemv", "gemmk"),
+             "fft": ("fft",), "elementwise": ("elementwise",)}
+    out = {k: [0, 0.0] for k in (*kinds, "other")}
+    for name, n, ms in rows:
+        low = name.lower()
+        kind = next((k for k, keys in kinds.items() if any(w in low for w in keys)), "other")
+        out[kind][0] += n
+        out[kind][1] += ms
+    return {k: {"kernels": n, "ms": round(ms, 3)} for k, (n, ms) in out.items()}
+
+
+def lstm_inputs(dims, s_len: int, frames: int, dev):
+    """The 12 LSTM directions of one forward as (params, input) pairs: the
+    text encoder's (512 wide), the duration encoder's three and the
+    predictor's (640), over s_len tokens; the shared one over the frames."""
+    import torch
+    g = torch.Generator(device=dev)
+    g.manual_seed(26)
+
+    def x(n, w):
+        return torch.randn((n, w), generator=g, device=dev) * 0.5
+    h, sty = dims.hidden_dim, dims.style_dim
+    return [("text_encoder", x(s_len, h)), ("duration", x(s_len, h + sty)),
+            ("predictor", x(s_len, h + sty)), ("shared", x(frames, h + sty))]
+
+
+def kokoro_phase(dev, card: str) -> dict:
+    """Phase 26 (``--phases kokoro``; module docstring). Returns the
+    launches of rows 1 and 15 in the pipelines' LLM runs."""
+    import shutil
+    import numpy as np
+    import torch
+    from pygpukit_tpu_torch.asr.whisper import WhisperModel
+    from pygpukit_tpu_torch.llm import TransformerConfig
+    from pygpukit_tpu_torch.ops.precision import f32_matmul_context
+    from pygpukit_tpu_torch.pipeline import (LLMTTSConfig, LLMTTSPipeline, VADConfig,
+                                             VoicePipeline)
+    from pygpukit_tpu_torch.tts.kokoro import Kokoro82M, KokoroModel, arch, checkpoint, g2p
+    from pygpukit_tpu_torch.tts.kokoro.model import carry_arrays
+    from pygpukit_tpu_torch.tts.kokoro.pretrained import SAMPLE_RATE, _forward
+    t0 = time.perf_counter()
+    secs: dict = {}
+    t_lap = [t0]
+
+    def lap(what: str) -> None:
+        now = time.perf_counter()
+        secs[what] = round(now - t_lap[0], 1)
+        t_lap[0] = now
+    leaves = torch.utils._pytree.tree_leaves
+    report = []
+    root = ROOT / "build" / "kokoro_phase"
+    shutil.rmtree(root, ignore_errors=True)
+    (root / "voices").mkdir(parents=True)
+    try:
+        flat = checkpoint.init_random_flat(seed=0, scale=0.05)
+        n_params = sum(a.size for a in flat.values())
+        nested: dict = {}
+        for name, arr in flat.items():
+            top, rest = name.split(".", 1)
+            nested.setdefault(top, {})[f"module.{rest}"] = torch.from_numpy(arr)
+        torch.save(nested, root / "kokoro-v1_0.pth")
+        del nested
+        d = checkpoint.KokoroDims()
+        (root / "config.json").write_text(json.dumps(
+            {"n_token": d.n_token, "style_dim": d.style_dim, "hidden_dim": d.hidden_dim,
+             "vocab": g2p.default_vocab()}))
+        voice = np.random.default_rng(260).standard_normal((510, 1, 256)).astype(np.float32)
+        torch.save(torch.from_numpy(voice * 0.1), root / "voices" / "af_heart.pt")
+        lap("write")
+        t1 = time.perf_counter()
+        model = Kokoro82M.from_pretrained(root, voice="af_heart", device=dev)
+        torch.cuda.synchronize()
+        load_s = time.perf_counter() - t1
+        cpu = Kokoro82M.from_pretrained(root, voice="af_heart", device="cpu")
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    want = leaves(checkpoint.load_params(flat, device="cpu"))
+    del flat
+    check(model.current_voice == "af_heart" and all(
+        torch.equal(a.cpu(), b) for a, b in zip(leaves(model.params), want)),
+        "kokoro: the loaded params are not the written checkpoint's")
+    report.append(f"{n_params / 1e6:.2f} M f32 params written as a nested .pth and loaded "
+                  f"on the card in {load_s:.2f} s, bitwise the written values")
+    lap("load")
+
+    # 1. a short phoneme string, card against CPU, the same draws
+    ids_l = model.phonemizer.encode(phonemes=KOK_SHORT)
+    check(8 <= len(ids_l) <= 12, f"kokoro: the short string has {len(ids_l)} ids")
+    ids = torch.tensor(ids_l, dtype=torch.int32)
+    ref_s = cpu.ref_s(len(ids_l))
+    draws = cpu.draws(len(ids_l), seed=26)
+    reset_counts()
+    on_card = [model.forward(ids.to(dev), ref_s.to(dev), 1.0, [t.to(dev) for t in draws])
+               for _ in range(2)]
+    check(not {k: n for k, n in launch_counts().items() if n},
+          "kokoro: the synthesis launched a port kernel (its path has none)")
+    check(all(torch.equal(a, b) for a, b in zip(*on_card)),
+          "kokoro: a second card run of the short string differs")
+    on_cpu = cpu.forward(ids, ref_s, 1.0, draws)
+    dur_card = kokoro_durations(model, ids.to(dev), ref_s.to(dev)).cpu()
+    dur_cpu = kokoro_durations(cpu, ids, ref_s)
+    dur_rel = float(((dur_card - dur_cpu).abs() / dur_cpu.abs()).max())
+    margins = [float(((d - d.floor()) - 0.5).abs().min()) for d in (dur_card, dur_cpu)]
+    print(f"phase 26: short string ({len(ids_l)} ids) float durations card vs CPU: largest "
+          f"relative difference {dur_rel:.3e} (limit {KOK_DUR_RTOL}), the nearest to a "
+          f"rounding boundary {margins[0]:.4f} (card) / {margins[1]:.4f} (CPU)")
+    check(dur_rel <= KOK_DUR_RTOL, "kokoro: the float durations differ card vs CPU")
+    check(torch.equal(on_card[0][1].cpu(), on_cpu[1]),
+          f"kokoro: a rounded duration differs card vs CPU ({on_card[0][1].tolist()} against "
+          f"{on_cpu[1].tolist()}): not comparing audio under two alignments")
+    audio_rel = rel_l2(on_card[0][0].cpu(), on_cpu[0])
+    total_s = len(on_cpu[0]) / SAMPLE_RATE
+    check(torch.isfinite(on_card[0][0]).all() and audio_rel <= KOK_AUDIO_TOL,
+          f"kokoro: short string card vs CPU audio relative L2 {audio_rel:.3e} (limit "
+          f"{KOK_AUDIO_TOL})")
+    report.append(f"short string ({len(ids_l)} ids, {int(on_cpu[2])} frames, {total_s:.2f} s "
+                  f"of budget) card vs CPU: durations equal (float {dur_rel:.3e}, margins "
+                  f"{margins[0]:.4f}/{margins[1]:.4f}), audio relative L2 {audio_rel:.3e} "
+                  f"(limit {KOK_AUDIO_TOL}), a second card run bitwise, no port kernel")
+    del cpu
+    lap("short vs cpu")
+
+    # 2. the ~50-phoneme text: twice bitwise, replayed and eager times, a profile
+    ps = kokoro_phonemes(model, KOK_TEXT, KOK_IDS)
+    runs = []
+    for _ in range(2):
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        runs.append(model.synthesize(phonemes=ps, seed=0))
+        runs[-1] = (runs[-1], time.perf_counter() - t1)
+    (r1, first_s), (r2, wall_s) = runs
+    check(np.array_equal(r1.audio, r2.audio) and np.isfinite(r2.audio).all(),
+          "kokoro: a second synthesis of the text differs (or is not finite)")
+    lap("text synthesis")
+    total = (KOK_IDS + 2) * model.max_frames_per_token
+    exe = model.graphs.get((KOK_IDS, total))
+    ids50 = torch.tensor(model.phonemizer.encode(phonemes=ps), dtype=torch.int32, device=dev)
+    args = (model.params, ids50, model.ref_s(KOK_IDS), 1.0, *model.draws(KOK_IDS, 0))
+    dev_ms = replay_ms(exe, args)
+    fwd = functools.partial(_forward, model.dims, total, model.max_frames_per_token)
+    with f32_matmul_context(model.params):
+        wall_ms = eager_ms(lambda i: fwd(*args), 1, iters=2)
+        prof = kernel_profile(lambda i: fwd(*args), n=1)
+        lstm_args = lstm_inputs(model.dims, KOK_IDS + 2, total, dev)
+        pred = model.params["predictor"]
+        lstm_p = {"text_encoder": model.params["text_encoder"]["lstm"],
+                  "duration": pred["text_encoder"]["blocks"][0]["lstm"],
+                  "predictor": pred["lstm"], "shared": pred["shared"]}
+        per = {k: time_ms(lambda i, k=k, x=x: arch.bilstm(x, lstm_p[k]), 1, reps=3)
+               for k, x in lstm_args}
+    lstm_ms = per["text_encoder"] + 3 * per["duration"] + per["predictor"] + per["shared"]
+    audio_s = len(r2.audio) / SAMPLE_RATE
+    split = kernel_split(prof)
+    report.append(
+        f"text of {KOK_IDS} ids ({total} frames, {len(r2.audio)} samples = {audio_s:.2f} s): "
+        f"twice bitwise; {dev_ms:.3f} ms device by graph replay ({exe.node_count} graph "
+        f"nodes), {wall_ms:.1f} ms eager wall, synthesize {wall_s * 1e3:.1f} ms wall "
+        f"(first call {first_s:.2f} s, capture included) = {audio_s / wall_s:.1f} audio s a "
+        f"wall s; the 12 LSTM directions alone {lstm_ms:.3f} ms by graph replay (the shared "
+        f"one over {total} frames {per['shared']:.3f}); one eager call by kind "
+        f"{json.dumps(split)}; " + profile_line(prof, 5))
+    lap("text timing")
+
+    # 3. streaming over three sentences
+    t1 = time.perf_counter()
+    outs = list(model.synthesize_streaming(KOK_STREAM))
+    stream_s = time.perf_counter() - t1
+    check(len(outs) == 3 and all(np.isfinite(o.audio).all() and len(o.audio) for o in outs),
+          f"kokoro: streaming gave {len(outs)} segments (expected 3) or non-finite audio")
+    report.append(f"synthesize_streaming over 3 sentences: {len(outs)} segments, "
+                  f"{sum(len(o.audio) for o in outs) / SAMPLE_RATE:.2f} s of audio in "
+                  f"{stream_s:.2f} s wall")
+    lap("streaming")
+
+    # 4. the simple KokoroModel at its default config, card against CPU
+    simple_cpu = KokoroModel(device="cpu")
+    simple = KokoroModel(device=dev)
+    carry_arrays(simple, simple_cpu)
+    a, b = simple.synthesize("hello world."), simple_cpu.synthesize("hello world.")
+    simple_rel = rel_l2(torch.from_numpy(a.audio), torch.from_numpy(b.audio)) \
+        if a.audio.shape == b.audio.shape else float("inf")
+    check(simple_rel <= KOK_SIMPLE_TOL,
+          f"kokoro: the simple model card vs CPU: {a.audio.shape} against {b.audio.shape} "
+          f"samples, relative L2 {simple_rel:.3e} (limit {KOK_SIMPLE_TOL})")
+    report.append(f"the simple KokoroModel (default config) card vs CPU on the CPU's weights: "
+                  f"{len(a.audio)} samples, relative L2 {simple_rel:.3e} "
+                  f"(limit {KOK_SIMPLE_TOL})")
+    del simple, simple_cpu
+    lap("simple model")
+
+    # 5. the LLM -> TTS pipeline on the 2-layer 1.1B int4 LLM
+    llm = build_model(TransformerConfig(**dict(CFG_1B, num_layers=KOK_LLM_LAYERS)), 0, dev)
+    texts: list = []
+    reset_counts()
+    t1 = time.perf_counter()
+    outs = list(LLMTTSPipeline(llm, EchoTokenizer(), model, LLMTTSConfig(
+        max_new_tokens=KOK_LLM_NEW, temperature=0.0)).run([5, 10, 15], on_text=texts.append))
+    pipe_s = time.perf_counter() - t1
+    pipe_launches = {k: n for k, n in launch_counts().items() if n}
+    check(outs and all(np.isfinite(o.audio).all() and len(o.audio) for o in outs)
+          and len("".join(texts)) == KOK_LLM_NEW,
+          "kokoro: the LLM -> TTS pipeline gave no finite audio (or not its tokens' text)")
+    check(pipe_launches.get("w4a8_gemv", 0) > 0 and pipe_launches.get("flash_decode", 0) > 0,
+          f"kokoro: the pipeline's LLM launched {pipe_launches}, not rows 1 and 15")
+    report.append(f"LLMTTSPipeline (1.1B widths, {KOK_LLM_LAYERS} layers, int4, greedy, "
+                  f"{KOK_LLM_NEW} tokens): {len(outs)} sentence(s), "
+                  f"{sum(len(o.audio) for o in outs) / SAMPLE_RATE:.2f} s of audio in "
+                  f"{pipe_s:.2f} s wall, launches {json.dumps(pipe_launches)}")
+    lap("llm tts")
+
+    # 6. the voice pipeline: Whisper (large-v3 widths, 2 + 2 layers) -> LLM -> Kokoro
+    wroot = ROOT / "build" / "kokoro_whisper"
+    try:
+        whisper_checkpoint(wroot, dict(WHISPER[1], encoder_layers=KOK_WH_LAYERS,
+                                       decoder_layers=KOK_WH_LAYERS), dev)
+        asr = WhisperModel.from_safetensors(wroot, dtype=torch.float32, device=dev)
+    finally:
+        shutil.rmtree(wroot, ignore_errors=True)
+    t = np.arange(8000) / 16000
+    tone = (0.5 * np.sin(2 * np.pi * 220 * t)).astype(np.float32)
+    chunks = [np.zeros(4000, np.float32), tone, np.zeros(4000, np.float32)]
+    reset_counts()
+    t1 = time.perf_counter()
+    events = list(VoicePipeline(asr, llm, EchoTokenizer(), model, sot_sequence=WH_SOT,
+                                vad_config=VADConfig(min_speech_frames=2),
+                                max_reply_tokens=KOK_REPLY).run(chunks))
+    voice_s = time.perf_counter() - t1
+    voice_launches = {k: n for k, n in launch_counts().items() if n}
+    kinds = [e.kind for e in events]
+    want = EchoTokenizer().decode(asr.transcribe_tokens(np.concatenate(chunks[1:]), WH_SOT))
+    check(kinds == ["speech_start", "transcript", "reply", "audio"]
+          and events[1].text == want and np.isfinite(events[3].audio).all(),
+          f"kokoro: the voice pipeline's events {kinds} (the transcript "
+          f"{events[1].text if len(events) > 1 else None!r} against {want!r})")
+    report.append(f"VoicePipeline (Whisper large-v3 widths {KOK_WH_LAYERS} + {KOK_WH_LAYERS} "
+                  f"layers f32, the LLM, Kokoro-82M) on silence, 0.5 s of 220 Hz, silence: "
+                  f"events {kinds}, the transcript ({len(want)} tokens) transcribe_tokens', "
+                  f"{len(events[3].audio) / SAMPLE_RATE:.2f} s of reply audio, {voice_s:.2f} s "
+                  f"wall, launches {json.dumps(voice_launches)}")
+    lap("voice")
+    del asr, llm, model
+    torch.cuda.empty_cache()
+    print(f"phase 26: kokoro (hexgrad/Kokoro-82M dims, random weights seed 0): "
+          + "; ".join(report) + f"; by section {json.dumps(secs)} [{card}]")
+    print(f"phase 26 took {time.perf_counter() - t0:.1f} s")
+    return {k: pipe_launches.get(k, 0) + voice_launches.get(k, 0)
+            for k in ("w4a8_gemv", "flash_decode")}
+
+
 def main(argv: list[str]) -> int:
     t_script = time.perf_counter()
     import argparse
@@ -6614,6 +6984,9 @@ def main(argv: list[str]) -> int:
         results.update(q3n)
     if "whisper" in phases:
         whisper_phase(dev, card)
+    if "kokoro" in phases:
+        for name, n in kokoro_phase(dev, card).items():   # rows 1 and 15 in the pipelines
+            launches[name] = launches.get(name, 0) + n
     print(f"total {time.perf_counter() - t_start:.1f} s after the build began, "
           f"{time.perf_counter() - t_script:.1f} s the whole script")
     if set(phases) != set(PHASES):

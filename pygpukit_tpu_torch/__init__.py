@@ -29,11 +29,14 @@ with the hybrid engine (``llm.serving_hybrid``); the fused and batching
 ops, the host sampler (``llm.sampling``) and the core services (logical
 streams and events, device and memory queries, host copies); Whisper
 speech recognition (``asr.whisper``) with the audio DSP library
-(``ops.audio``) and the f32 precision scope (``ops.precision``); and the
-fifteen kernels.
+(``ops.audio``) and the f32 precision scope (``ops.precision``); Kokoro
+speech synthesis (``tts.kokoro``: Kokoro-82M from its checkpoint and the
+simple layer stack) with the convolutions (``ops.conv``) and the LSTM
+(``ops.nn.recurrent``); the LLM-to-speech and voice pipelines
+(``pipeline``); and the fifteen kernels.
 """
 
-from . import asr, core, kernels, llm, ops
+from . import asr, core, kernels, llm, ops, pipeline, tts
 from .core import (Array, DataType, DataTypeKind, Event, Stream, StreamManager,
                    StreamPriority, arange, capture, default_stream, device_count, dtypes,
                    empty, from_numpy, full, get_device_info, get_memory_info,
@@ -59,6 +62,7 @@ from .ops import (add, add_scaled, argmax, argmin, batched_matmul, cast, clamp,
                   sdpa_causal, sdpa_causal_fixed_cache, set_sampling_seed, sigmoid,
                   silu, sin, softmax, sqrt, sub, sum, sum_axis, swiglu, tanh, where)
 from .ops.nn.fused import linear_bias_gelu
+from .ops.nn.recurrent import lstm as lstm_forward
 from .ops.tensor import transpose_2d as transpose
 from .ops.unary import abs  # noqa: A004 - reference API name
 

@@ -1,14 +1,15 @@
 """Ops re-export hub (counterpart of ``pygpukit_tpu/ops/__init__.py``): the
 reference's names for every ported module, the audio library included
-(``ops.audio``, with ``ops.precision`` beside it). Not ported, so not
-exported: conv and the recurrent ops (they go with the TTS and diffusion
-stacks). The rope variants, ALiBi and PoPE are exported by ``ops.nn``, as
-the reference exports them."""
+(``ops.audio``, with ``ops.precision`` beside it), the convolutions
+(``ops.conv``) and the LSTM (``ops.nn.recurrent``). The rope variants,
+ALiBi and PoPE are exported by ``ops.nn``, as the reference exports
+them."""
 
-from . import (audio, batching, elementwise, embedding, matmul, moe, nn, paged, reduction,
+from . import (audio, batching, conv, elementwise, embedding, matmul, moe, nn, paged, reduction,
                sampling, tensor, unary)
 from .batching import (argmax_sample, check_eos, gather_embeddings, prepare_position_ids,
                        scatter_last_token_logits)
+from .conv import conv1d, conv2d
 from .elementwise import add, add_scaled, clamp, div, maximum, minimum, mul, sub, where
 from .embedding import (embedding_lookup, embedding_lookup_batch, kv_cache_prefill,
                         kv_cache_prefill_gqa, kv_cache_update, kv_cache_update_gqa,

@@ -2403,3 +2403,62 @@ def test_whisper_on_the_card_matches_the_cpu(dev):
     (exe,) = card.graphs.executables().values()
     assert exe.node_count > 0 and exe.stats.replays == 2 * (2 + 12 + 1 - 1)
     assert _launches() == before
+
+
+def test_kokoro82m_on_the_card_matches_the_cpu(dev, monkeypatch):
+    """A tiny Kokoro-82M tree (init_random_flat, seed 3) on the card against
+    the same tree on the CPU, TF32 switched on outside the model (its f32
+    scope turns it off for cuBLAS and cuDNN), the same sine-source draws on
+    both: the float durations within 1e-4, the rounded ones and the true
+    frame count equal, the audio within 1e-4 relative L2 with the STFT
+    phase's branch cut read on one side (-pi as +pi: the end frames'
+    spectra are real up to rounding, tests/test_torch_kokoro.py); the
+    captured program replayed bitwise a second time, the flags back on
+    after, no port kernel launched (the path has none)."""
+    import math
+    from pygpukit_tpu_torch.ops.precision import f32_matmul_context
+    from pygpukit_tpu_torch.tts.kokoro import Kokoro82M, arch, checkpoint
+    d = checkpoint.KokoroDims()
+    d.hidden_dim, d.max_dur, d.albert_emb, d.albert_hidden = 32, 8, 16, 24
+    d.albert_heads, d.albert_ffn, d.albert_layers, d.albert_max_pos = 4, 32, 2, 64
+    d.dec_hidden, d.gen_ch = 48, 16
+    flat = checkpoint.init_random_flat(d, seed=3, scale=0.05)
+    stft = arch._stft_mag_phase
+
+    def one_side(*a):
+        mag, ph = stft(*a)
+        return mag, torch.where(ph < -math.pi + 1e-4, ph + 2 * math.pi, ph)
+    monkeypatch.setattr(arch, "_stft_mag_phase", one_side)
+    cpu = Kokoro82M(checkpoint.load_params(flat, d, device="cpu"), d, device="cpu")
+    card = Kokoro82M(checkpoint.load_params(flat, d, device=dev), d, device=dev)
+    ids = torch.tensor([10, 43, 57, 61, 47, 50, 83], dtype=torch.int32)
+    ref_s = torch.randn(256, generator=_gen("cpu", 4)) * 0.3
+    draws = cpu.draws(len(ids), seed=5)
+    mm, cudnn = torch.backends.cuda.matmul, torch.backends.cudnn
+    before = _launches()
+    try:
+        mm.allow_tf32 = cudnn.allow_tf32 = True
+        out = card.forward(ids.to(dev), ref_s.to(dev), 1.0, [t.to(dev) for t in draws])
+        again = card.forward(ids.to(dev), ref_s.to(dev), 1.0, [t.to(dev) for t in draws])
+        want = cpu.forward(ids, ref_s, 1.0, draws)
+
+        def durations(m, where):
+            p = m.params
+            with f32_matmul_context(p):
+                ids_b = torch.cat([torch.zeros(1, dtype=torch.int32), ids, torch.zeros(
+                    1, dtype=torch.int32)]).to(where)
+                bert = arch.albert_forward(ids_b, p["bert"], n_layers=2, n_heads=4)
+                d_en = arch.linear(bert, p["bert_encoder"]).T[None]
+                return arch.predict_durations(d_en, ref_s.to(where)[128:], p["predictor"],
+                                              1.0)[1]
+        dur_card, dur_cpu = durations(card, dev), durations(cpu, "cpu")
+        assert (mm.allow_tf32, cudnn.allow_tf32) == (True, True)
+    finally:
+        mm.allow_tf32 = cudnn.allow_tf32 = False
+    assert torch.allclose(dur_card.cpu(), dur_cpu, rtol=1e-4, atol=0)
+    assert torch.equal(out[1].cpu(), want[1]) and int(out[2]) == int(want[2])
+    assert all(torch.equal(a, b) for a, b in zip(out, again))
+    assert torch.isfinite(out[0]).all() and _rel(out[0], want[0]) < 1e-4
+    (exe,) = card.graphs.executables().values()
+    assert exe.node_count > 0 and exe.stats.replays == 2
+    assert _launches() == before
