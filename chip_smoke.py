@@ -130,16 +130,17 @@ Phases:
     eager wall and graph device ms of both steps;
 14. the MoE path on Mixtral-8x7B widths (hidden 4096, intermediate 14336,
     8 experts, top-2, 32/8 heads, head_dim 128, vocab 32000, rope theta
-    1e6) at 8 of its 32 layers (about 24 GB of random bf16 weights, seed
-    0, fuse_params): get_logits on 2048 tokens (shape, finite, 24 gmm and
-    8 flash_attention launches, a bitwise second call, device ms, tok/s,
-    a kernel profile); generate of 64 greedy tokens after a 512-token
-    prompt, twice (identical tokens, finite logits, 24 gmm launches in the
-    prefill and none in decode, 8 flash_decode a step), one decode step's
+    1e6) at 4 of its 32 layers (about 12 GB of random bf16 weights, seed
+    0, fuse_params): get_logits on 2048 tokens (shape, finite, 3 gmm and
+    1 flash_attention launches a layer, a bitwise second call, device ms,
+    tok/s, a kernel profile); generate of 64 greedy tokens after a
+    512-token prompt, twice (identical tokens, finite logits, 3 gmm
+    launches a layer in the prefill and none in decode, 1 flash_decode a
+    layer a step), one decode step's
     eager and graph ms beside the gather route's device ms; the batch-8
     engine on 8 requests of 200 + 32 tokens (every request finishes, gmm
-    in the prefills, 8 batch_decode_attention (the row write fused in) a
-    decode step on the dense MoE route, the engine served again from a
+    in the prefills, 1 batch_decode_attention (the row write fused in) a
+    layer a decode step on the dense MoE route, the engine served again from a
     zeroed state replays streams and pools bitwise); a 2-layer full-width model drawn on the CPU, on the
     card (gmm) against the CPU plain path (dense route), held row by row
     (MOE_ROWS_Q);
@@ -253,7 +254,7 @@ bf16 weight with no scale, torch._grouped_mm for gmm, bf16 out).
     GPT-2's attention biases): per family a bf16 forward of 2048 tokens
     (GPT-2 1024) with one flash_attention launch a layer the route takes
     (none on Gemma-2, whose softcap takes the plain route; Gemma-3's four
-    global layers), a bitwise second forward; a 64-token generate warm
+    global layers), a bitwise second forward; a 32-token generate warm
     then replayed (identical tokens, flash_decode on the same layers);
     Gemma-3-1B and GPT-2 written as Hugging Face checkpoints by
     save_safetensors and loaded back (config and leaves bitwise, logits
@@ -323,9 +324,9 @@ bf16 weight with no scale, torch._grouped_mm for gmm, bf16 out).
     launched by every MoE layer and nothing else, a bitwise second
     forward, device ms by graph replay, tok/s), gmm at the model's expert
     shape against gmm_plain and timed with its bound and
-    torch._grouped_mm, a greedy generate replayed identical (32 tokens
+    torch._grouped_mm, a greedy generate replayed identical (16 tokens
     after a 512-token prompt; V3 32 after 64); V2-Lite and gpt-oss: the
-    hybrid engine (4 slots, MAX 1024, 8 requests of 16 new tokens after a
+    hybrid engine (4 slots, MAX 1024, 8 requests of 8 new tokens after a
     warm-up request a prompt bucket that captures its programs), each
     stream its prompt's generate on the card, tok/s and TTFT, and a 2-layer
     slice against the CPU plain path (MOE_ROWS_Q); V3: its MoE layer's gmm
@@ -334,9 +335,9 @@ bf16 weight with no scale, torch._grouped_mm for gmm, bf16 out).
     ``--phases trees``): one at a time with the card freed between them,
     random bf16 weights (seed 0) at the config.json values of
     TREE_FAMILIES (recalled, not read from the files):
-    meta-llama/Llama-Guard-4-12B's text model at 16 of 48 layers (NoPE
+    meta-llama/Llama-Guard-4-12B's text model at 8 of 48 layers (NoPE
     every fourth, 40/8 heads, D 128; 20.3 GB at 48),
-    state-spaces/mamba-2.8b-hf at 16 of 64 layers (5.5 GB at 64),
+    state-spaces/mamba-2.8b-hf at 8 of 64 layers (5.5 GB at 64),
     tiiuae/falcon-mamba-7b's widths at 8 of 64 layers and
     LiquidAI/LFM2-1.2B at full depth (16 layers, attention at six): per
     model a 2048-token forward (no kernel launched: the attention and the
@@ -357,8 +358,8 @@ bf16 weight with no scale, torch._grouped_mm for gmm, bf16 out).
     Qwen/Qwen3-Next-80B-A3B-Instruct (QWEN3NEXT, recalled, not read from
     the file; hidden 2048, 16/2 heads of 256 with a quarter rotated,
     DeltaNet 16 K / 32 V heads of 128, 512 experts top-10 of width 512 and
-    a shared expert, vocab 151936, untied head) at 8 of 48 layers (full
-    attention at layers 3 and 7; 27.75 GB of weights and tables): a
+    a shared expert, vocab 151936, untied head) at 4 of 48 layers (full
+    attention at layer 3; 27.75 GB of weights and tables at 8): a
     2048-token forward (gmm three times a MoE layer and nothing else, a
     bitwise second forward, device ms by graph replay, tok/s, a kernel
     profile), gmm at the expert shape (512 groups at M 20480) against
@@ -415,7 +416,30 @@ bf16 weight with no scale, torch._grouped_mm for gmm, bf16 out).
     large-v3's widths, 2 + 2 layers f32, written by whisper_checkpoint, on
     silence, 0.5 s of a 220 Hz tone and silence: the four events, the
     transcript transcribe_tokens' of the utterance), the LLM's launches of
-    rows 1 and 15 added to the summary line's.
+    rows 1 and 15 added to the summary line's;
+27. image generation (diffusion_phase, ``--phases diffusion``): random
+    weights (seed 0, drawn on the card) at the published widths of
+    black-forest-labs/FLUX.1-schnell (FLUX_SCHNELL, FLUX_VAE, CLIP_L,
+    T5_XXL: recalled, not read from the files; the transformer 11.9 B
+    params in bf16, T5-XXL's encoder 4.76 B in f32) at full depth: the
+    prompt through CLIP-L and T5-XXL with character-level stand-in
+    tokenizers (no tokenizer files in the repository; T5 at schnell's 256
+    tokens); a from_pretrained tree in the reference's layout written under
+    build/ (BFL transformer at 1 + 1 blocks, the VAE, CLIP-L, T5 at 2 of 24
+    layers in 2 bf16 shards) and loaded on the card and the CPU, bitwise
+    the written values; T5 freed; text to image at 1024 x 1024, schnell's
+    4 steps, twice bitwise: the captured denoise program's device ms by
+    replay, a step's TFLOP/s against the f32 peak, its graph nodes, the
+    VAE decode's ms, one eager forward's kernels; img2img and inpaint at
+    the same size, strength 0.5 (2 steps each; the inpainted kept half
+    within 1e-3 of the encoded image); the loaded pipeline at 256 x 256, 2
+    steps, card against CPU (latents within FWD_TOL); SD3-medium
+    (SD3Config's defaults) at 1024 x 1024, CFG 7.0, 4 steps of its 28, and
+    PixArt-XL-2-512 (PixArtConfig's defaults) at 512 x 512, 20 DDIM steps,
+    CFG 4.5, each f32 from init_random_flat, twice bitwise, device ms a
+    forward with its TFLOP/s, and a 2-block slice (the first and last
+    blocks) at full width against the CPU at 256 x 256 (FWD_TOL); no port
+    kernel launched in the phase (the stack has none).
 Launches per decode step, prefill, forward or layer are counted in phases
 6, 7, 9, 11, 12, 13, 14, 15, 16 and 17 and printed (phases 6-14, 16, 17)
 on one line before the summary. A count is the wrappers' eager launches
@@ -519,7 +543,7 @@ ULP_REL, NEAR_ZERO = 2.0 ** -7, 1e-4
 PHASES = ("kernels", "dense", "paged", "tight", "ladder", "block", "parity",
           "forward", "ops", "decode", "moe", "kv", "strategies", "graphs", "load",
           "families", "rope", "conventions", "standalone", "trees", "qwen3next", "whisper",
-          "kokoro")
+          "kokoro", "diffusion")
 # phase 17 (graphs): the model's window and chunk, the sampled chunk's
 # temperature and top-k, the draft's tokens, the paged engine's requests
 GRAPH_WINDOW, GRAPH_CHUNK, GRAPH_TEMP, GRAPH_TOPK = 6, 16, 0.8, 40
@@ -586,12 +610,15 @@ FAM_MAX_DEFAULT = 1024
 # prompts past the sliding windows: (count, least and most length)
 FAM_LONG = {"gemma-3-1b": (4, 600, 700), "gemma-2-2b": (2, 4150, 4250)}
 # forward tokens (GPT-2: its 1024 positions), generate's new tokens after
-# FAM_PROMPT, the engines' requests and new tokens, the CPU slice's depth
-# (Gemma-3: one global layer, its sixth) and prompt
+# FAM_PROMPT, the engines' requests and new tokens (64 and 32 new tokens
+# until phase 27 came), the CPU slice's depth (Gemma-3: one global layer,
+# its sixth) and prompt
 FAM_FWD_S = {"gpt2": 1024}
-FAM_NEW, FAM_PROMPT, FAM_REQS, FAM_REQ_NEW = 64, 16, 16, 32
+FAM_NEW, FAM_PROMPT, FAM_REQS, FAM_REQ_NEW = 32, 16, 16, 16
 FAM_SLICE = {"gemma-3-1b": 6}
-FAM_SLICE_S = 64
+# the slices' prompt and decode steps (4 until phase 27 came: a step's
+# f32 head over a 256000-row vocabulary reads 8.4 GB on the host)
+FAM_SLICE_S, FAM_SLICE_STEPS = 64, 2
 # the round trip through a Hugging Face checkpoint written by save_safetensors
 FAM_CHECKPOINT = ("gpt2", "gemma-3-1b")
 # the D-256 variants on the kernels line: name -> the base kernel whose
@@ -861,10 +888,10 @@ FWD_TOL = 5e-2
 # for this 2-layer model; a wrong layout, rope or mask gives order 1.
 REF_TOL = 1e-1
 # Mixtral-8x7B-v0.1 (huggingface.co/mistralai/Mixtral-8x7B-v0.1, config.json)
-# at its published widths, 8 of its 32 layers: all 32 are 93 GB of bf16
+# at its published widths, 4 of its 32 layers: all 32 are 93 GB of bf16
 # weights, more than the card's 80 GB; 16 ran until phase 22 came (47 GB),
-# 8 are about 24 GB
-CFG_MIXTRAL = dict(vocab_size=32000, hidden_size=4096, num_layers=8, num_heads=32,
+# 8 (about 24 GB) until phase 27 came, 4 are about 12 GB
+CFG_MIXTRAL = dict(vocab_size=32000, hidden_size=4096, num_layers=4, num_heads=32,
                    num_kv_heads=8, intermediate_size=14336, num_experts=8,
                    num_experts_per_tok=2, max_position_embeddings=32768, rope_theta=1e6,
                    norm_eps=1e-5, tie_word_embeddings=False)
@@ -2377,8 +2404,8 @@ def decode_step_times(model, b: int, max_len: int, pos: int, profile: bool = Tru
         return (eager_ms(step, 1, iters=20), time_ms(step, 1, reps=20),
                 kernel_profile(step), step_launches(step))
     shape = (b, cfg.num_layers, max_len, cfg.num_kv_heads * cfg.head_dim)
-    kp = kv_cache_zeros(shape, model.kv_dtype, device=dev)
-    vp = kv_cache_zeros(shape, model.kv_dtype, device=dev)
+    kp = kv_cache_zeros(shape, model.kv_dtype, device=dev, merged=True)
+    vp = kv_cache_zeros(shape, model.kv_dtype, device=dev, merged=True)
     poss = torch.full((b,), pos, dtype=torch.int32, device=dev)
 
     def step(_):
@@ -4654,7 +4681,8 @@ def family_cpu_slice(name: str, cfg, params: dict, dev) -> str:
     """The first FAM_SLICE layers (2; Gemma-3 6, its first global layer
     among them) on the card against the CPU plain path, on a FAM_SLICE_S
     prompt: the bf16 forward (relative L2 within FWD_TOL), bf16 prefill
-    and four decode steps (FWD_TOL), the int4 model's prefill and four
+    and FAM_SLICE_STEPS decode steps (FWD_TOL), the int4 model's prefill and
+    FAM_SLICE_STEPS
     decode steps (REF_TOL). MoE: the bf16 forward only, held row by row as
     phase 14 holds Mixtral's (MOE_ROWS_Q: the card's gmm and the CPU's
     dense route round at other points, so a router near-tie moves a row).
@@ -4708,10 +4736,10 @@ def family_cpu_slice(name: str, cfg, params: dict, dev) -> str:
             for m in (card, cpu):
                 m.init_fixed_cache(128)
             lc, lr = card.prefill(ids), on_cpu(cpu.prefill, ids)
-            for step in range(5):
+            for step in range(FAM_SLICE_STEPS + 1):
                 lc = lc.cpu()
                 errs.append(((lc - lr).norm() / lr.norm()).item())
-                if step < 4:
+                if step < FAM_SLICE_STEPS:
                     tok = int(lc.argmax())
                     lc, lr = card.decode_step(tok), on_cpu(cpu.decode_step, tok)
         check(max(errs) <= tol, f"families {name}: {n}-layer {mode or 'bf16'} card vs CPU "
@@ -4719,7 +4747,7 @@ def family_cpu_slice(name: str, cfg, params: dict, dev) -> str:
         out.append(f"{mode or 'bf16'} {[f'{e:.2e}' for e in errs]} (limit {tol})")
         del card, cpu
     what = (f"forward rows' {MOE_ROWS_Q} quantile" if cfg.is_moe else
-            "forward, prefill and four decode steps")
+            f"forward, prefill and {FAM_SLICE_STEPS} decode steps")
     past = (f" (original_max {FAM_SLICE_THRESHOLD[name]}, the {FAM_SLICE_S}-token prompt "
             f"past it)" if name in FAM_SLICE_THRESHOLD else "")
     return (f"{n}-layer slice{past}, card vs CPU plain path, relative L2 of the {what}: "
@@ -5270,9 +5298,10 @@ STANDALONE = {
 # new tokens and steps a dispatch, its prompts' least and most length
 # (33-120: the engine's prefill bucket is generate's), the CPU slice's
 # prompt, the rows of DeepSeek-V3's gmm-against-gather check. Since phase
-# 23 came: 32 new tokens a generate and 16 a request (64 and 32 before)
-SA_FWD_S, SA_PROMPT, SA_NEW, SA_V3_PROMPT, SA_V3_NEW = 2048, 512, 32, 64, 32
-SA_BATCH, SA_MAX, SA_REQS, SA_REQ_NEW, SA_STEPS, SA_REQ_LEN = 4, 1024, 8, 16, 4, (40, 120)
+# 23 came: 32 new tokens a generate and 16 a request (64 and 32 before);
+# since phase 27 came 16 and 8
+SA_FWD_S, SA_PROMPT, SA_NEW, SA_V3_PROMPT, SA_V3_NEW = 2048, 512, 16, 64, 32
+SA_BATCH, SA_MAX, SA_REQS, SA_REQ_NEW, SA_STEPS, SA_REQ_LEN = 4, 1024, 8, 8, 4, (40, 120)
 SA_SLICE_S, SA_GATHER_ROWS = 64, 16
 # generate's chunk: each chunk length is a captured program whose capture
 # runs it eagerly once, so 8-step chunks (programs of 7 and 8 steps) cost
@@ -5661,18 +5690,19 @@ def standalone_phase(dev, card: str) -> int:
 # rope_scaling block is not read, as the reference reads none); NoPE every
 # fourth layer. For the script's time (on a slower host the whole script
 # took 1136 s of its 1200 s limit with them deeper) Llama-Guard-4-12B runs
-# 16 of its 48 layers, Mamba-2.8B 16 of 64 and FalconMamba-7B 8 of 64.
+# 16 of its 48 layers, Mamba-2.8B 16 of 64 and FalconMamba-7B 8 of 64;
+# since phase 27 came Llama-Guard-4-12B and Mamba-2.8B run 8 layers each.
 TREE_FAMILIES = {
     "llama-guard-4-12b": ("meta-llama/Llama-Guard-4-12B (text_config)", "llama4", dict(
         vocab_size=202048, hidden_size=5120, intermediate_size=8192, num_hidden_layers=48,
         num_attention_heads=40, num_key_value_heads=8, head_dim=128, rms_norm_eps=1e-5,
         rope_theta=500000.0, attn_scale=0.1, floor_scale=8192.0, use_qk_norm=True,
-        max_position_embeddings=131072, no_rope_layers=[1, 1, 1, 0] * 12), 16),
+        max_position_embeddings=131072, no_rope_layers=[1, 1, 1, 0] * 12), 8),
     "mamba-2.8b": ("state-spaces/mamba-2.8b-hf", "mamba", dict(
         model_type="mamba", vocab_size=50280, hidden_size=2560, num_hidden_layers=64,
         state_size=16, intermediate_size=5120, conv_kernel=4, time_step_rank=160,
         use_conv_bias=True, use_bias=False, layer_norm_epsilon=1e-5,
-        tie_word_embeddings=True), 16),
+        tie_word_embeddings=True), 8),
     "falcon-mamba-7b": ("tiiuae/falcon-mamba-7b", "mamba", dict(
         model_type="falcon_mamba", vocab_size=65024, hidden_size=4096, num_hidden_layers=64,
         state_size=16, intermediate_size=8192, conv_kernel=4, time_step_rank=256,
@@ -6002,9 +6032,9 @@ def trees_phase(dev, card: str) -> tuple[dict, dict]:
 # Qwen/Qwen3-Next-80B-A3B-Instruct, written here as numbers, recalled, not
 # read from the file (nothing is downloaded). The file gives no
 # layer_types: every fourth layer is full attention (full_attention_interval
-# 4, as transformers derives it). 8 of the 48 layers run (full attention at
-# layers 3 and 7; 27.75 GB of bf16 weights and tables: 48 layers are about
-# 158 GB)
+# 4, as transformers derives it). 4 of the 48 layers run since phase 27
+# came (full attention at layer 3; 8 before, 27.75 GB of bf16 weights and
+# tables: 48 layers are about 158 GB)
 QWEN3NEXT = ("Qwen/Qwen3-Next-80B-A3B-Instruct", dict(
     model_type="qwen3_next", vocab_size=151936, hidden_size=2048, num_hidden_layers=48,
     num_attention_heads=16, num_key_value_heads=2, head_dim=256, intermediate_size=5120,
@@ -6014,7 +6044,7 @@ QWEN3NEXT = ("Qwen/Qwen3-Next-80B-A3B-Instruct", dict(
     norm_topk_prob=True, decoder_sparse_step=1, mlp_only_layers=[],
     partial_rotary_factor=0.25, rope_theta=10000000.0, rms_norm_eps=1e-6,
     max_position_embeddings=262144, full_attention_interval=4, tie_word_embeddings=False),
-    8)
+    4)
 # the card's delta rules at a layer's widths: tokens, value heads, Dk, Dv,
 # and the true length of the padded check; the reference test's tolerance
 Q3N_DELTA = (2048, 32, 128, 128, 1000)
@@ -6730,14 +6760,14 @@ def kokoro_phase(dev, card: str) -> dict:
     dev_ms = replay_ms(exe, args)
     fwd = functools.partial(_forward, model.dims, total, model.max_frames_per_token)
     with f32_matmul_context(model.params):
-        wall_ms = eager_ms(lambda i: fwd(*args), 1, iters=2)
+        wall_ms = eager_ms(lambda i: fwd(*args), 1, iters=1)
         prof = kernel_profile(lambda i: fwd(*args), n=1)
         lstm_args = lstm_inputs(model.dims, KOK_IDS + 2, total, dev)
         pred = model.params["predictor"]
         lstm_p = {"text_encoder": model.params["text_encoder"]["lstm"],
                   "duration": pred["text_encoder"]["blocks"][0]["lstm"],
                   "predictor": pred["lstm"], "shared": pred["shared"]}
-        per = {k: time_ms(lambda i, k=k, x=x: arch.bilstm(x, lstm_p[k]), 1, reps=3)
+        per = {k: time_ms(lambda i, k=k, x=x: arch.bilstm(x, lstm_p[k]), 1, reps=1)
                for k, x in lstm_args}
     lstm_ms = per["text_encoder"] + 3 * per["duration"] + per["predictor"] + per["shared"]
     audio_s = len(r2.audio) / SAMPLE_RATE
@@ -6836,6 +6866,456 @@ def kokoro_phase(dev, card: str) -> dict:
     print(f"phase 26 took {time.perf_counter() - t0:.1f} s")
     return {k: pipe_launches.get(k, 0) + voice_launches.get(k, 0)
             for k in ("w4a8_gemv", "flash_decode")}
+
+
+
+# phase 27: the published widths of black-forest-labs/FLUX.1-schnell (its
+# transformer, ae and text encoders' config values, recalled, not read from
+# the files): FLUX 3072 wide, 24 heads of 128, 19 double and 38 single
+# blocks, T5 context 4096, CLIP pooled 768, rope axes (16, 56, 56), no
+# guidance embedder; the VAE with 16 latent channels, scaling 0.3611, shift
+# 0.1159, blocks (128, 256, 512, 512) of 2 layers; CLIP-L (openai
+# clip-vit-large-patch14's text tower: 768 wide, 12 layers of 12 heads, FFN
+# 3072, quick GELU, vocab 49408, 77 positions); T5 v1.1 XXL's encoder
+# (d_model 4096, d_kv 64, d_ff 10240, 24 layers of 64 heads, gated GELU,
+# vocab 32128). Random weights, seed 0, drawn on the card: the transformer in
+# bf16 (as from_pretrained holds it), the rest f32
+FLUX_SCHNELL = dict(in_channels=64, hidden_size=3072, num_heads=24, depth=19, depth_single=38,
+                    mlp_ratio=4.0, context_dim=4096, pooled_dim=768, axes_dim=(16, 56, 56),
+                    theta=10000.0, guidance_embed=False)
+FLUX_VAE = dict(in_channels=3, latent_channels=16, block_out_channels=(128, 256, 512, 512),
+                layers_per_block=2, norm_groups=32, scaling_factor=0.3611, shift_factor=0.1159)
+CLIP_L = dict(vocab_size=49408, hidden_size=768, num_layers=12, num_heads=12,
+              intermediate_size=3072, max_position_embeddings=77, eos_token_id=49407,
+              hidden_act="quick_gelu")
+T5_XXL = dict(vocab_size=32128, d_model=4096, d_kv=64, d_ff=10240, num_layers=24, num_heads=64,
+              relative_attention_num_buckets=32, relative_attention_max_distance=128,
+              feed_forward_proj="gated-gelu")
+DIFF_PROMPT = "a photograph of a red fox in fresh snow at sunrise, shallow depth of field"
+# schnell's defaults: 1024 x 1024, 4 steps, T5 max 256 tokens; img2img and
+# inpaint at strength 0.5 (2 of the 4 steps left)
+DIFF_SIZE, DIFF_STEPS, DIFF_T5_LEN, DIFF_STRENGTH = 1024, 4, 256, 0.5
+# the from_pretrained round trip: 1 double + 1 single block, T5 at 2 of 24
+# layers (bf16 on disk, as the published files), the VAE and CLIP-L whole;
+# its card-against-CPU pipeline at 256 x 256, 2 steps
+DIFF_RT_SIZE, DIFF_RT_STEPS, DIFF_RT_T5 = 256, 2, 2
+# SD3-medium (SD3Config's defaults: 1536 wide, 24 blocks of 24 heads, pos
+# 192) at 1024 x 1024 with CFG 7.0: 4 steps of its 28 (cut for time), the
+# context 77 CLIP + 256 T5 rows; PixArt-XL-2-512x512 (PixArtConfig's
+# defaults: 1152 wide, 28 blocks of 16 heads) at 512 x 512, 20 DDIM steps,
+# CFG 4.5, a 120-row caption. Both f32 (init_random_flat, seed 0); their
+# 2-block slices (the first and the last block) against the CPU at 256 x 256
+SD3_RUN = (1024, 4, 7.0, 77 + 256)
+PIXART_RUN = (512, 20, 4.5, 120)
+DIFF_SLICE_SIZE = 256
+
+
+class CharTokenizer:
+    """A character-level stand-in tokenizer (the repository holds no
+    tokenizer files): ``bos``, one id a character, ``eos``, padded with
+    ``pad`` to ``length`` ids."""
+
+    def __init__(self, vocab: int, bos, eos: int, pad: int, length: int):
+        self.vocab, self.bos, self.eos, self.pad, self.length = vocab, bos, eos, pad, length
+
+    def __call__(self, text: str, **kw) -> list:
+        ids = ([] if self.bos is None else [self.bos]) + [3 + ord(c) % (self.vocab - 3)
+                                                         for c in text]
+        ids = ids[:self.length - 1] + [self.eos]
+        return ids + [self.pad] * (self.length - len(ids))
+
+
+def flux_flops(cfg, t_img: int, t_txt: int) -> float:
+    """FLOPs of one FLUX forward: each double block's two streams' linears
+    (12 hidden^2 a token each way), each single block's (24 hidden^2), the
+    joint attention's two products (4 T^2 hidden a block), the embedders."""
+    h, t = cfg.hidden_size, t_img + t_txt
+    blocks = cfg.depth * (24 * h * h * t + 4 * t * t * h) \
+        + cfg.depth_single * (2 * (7 * h * h + 5 * h * h) * t + 4 * t * t * h)
+    return blocks + 2 * (t_img * cfg.in_channels * h + t_txt * cfg.context_dim * h
+                         + t_img * h * cfg.in_channels)
+
+
+def mmdit_flops(h: int, depth: int, t_img: int, t_ctx: int) -> float:
+    """FLOPs of one SD3 forward: each block's linears on both streams (12
+    hidden^2 a token) and the joint attention (4 T^2 hidden)."""
+    t = t_img + t_ctx
+    return depth * (24 * h * h * t + 4 * t * t * h)
+
+
+def pixart_flops(h: int, depth: int, t: int, t_cap: int) -> float:
+    """FLOPs of one PixArt forward: self-attention's four projections,
+    cross-attention's q and out on the tokens and k, v on the caption, the
+    MLP (8 hidden^2), both attentions' products."""
+    return depth * (2 * 14 * h * h * t + 2 * 2 * h * h * t_cap + 4 * t * t * h
+                    + 4 * t * t_cap * h)
+
+
+def timed_replays(exe, times: list):
+    """Wrap ``exe``'s replay (instance attribute) to record CUDA events
+    around each replay into ``times``; returns the undo."""
+    import torch
+    orig = exe.replay
+
+    def timed(*args):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = orig(*args)
+        end.record()
+        times.append((start, end))
+        return out
+    exe.replay = timed
+    return lambda: exe.__dict__.pop("replay", None)
+
+
+def event_ms(fn) -> tuple:
+    """(fn(), device ms between CUDA events around it)."""
+    import torch
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    out = fn()
+    end.record()
+    end.synchronize()
+    return out, start.elapsed_time(end)
+
+
+def diffusion_checkpoint(root: Path, tr, vae, clip, t5) -> float:
+    """The FLUX pipeline's parts written under ``root`` (emptied first) in
+    the reference's layout, bf16 as the published files hold them:
+    transformer/ (BFL names: its first double and single blocks), vae/
+    (diffusers names, config.json), text_encoder/ (CLIP, config.json),
+    text_encoder_2/ (T5's first DIFF_RT_T5 layers over two shards with an
+    index, config.json). Returns the GB written."""
+    import dataclasses
+    import shutil
+    import torch
+    from pygpukit_tpu_torch.diffusion.models import flux, vae as vae_mod
+    from pygpukit_tpu_torch.diffusion.text_encoders import clip as clip_mod, t5 as t5_mod
+    from pygpukit_tpu_torch.llm.safetensors import save_safetensors
+    shutil.rmtree(root, ignore_errors=True)
+    for sub in ("transformer", "vae", "text_encoder", "text_encoder_2"):
+        (root / sub).mkdir(parents=True)
+    cut = dict(tr.params, double_blocks={k: v[:1] for k, v in tr.params["double_blocks"].items()},
+               single_blocks={k: v[:1] for k, v in tr.params["single_blocks"].items()})
+    save_safetensors(root / "transformer" / "flux1-schnell.safetensors",
+                     flux.bfl_tensors(cut))
+    def bf16(tensors: dict) -> dict:
+        return {k: v.to(torch.bfloat16) for k, v in tensors.items()}
+    save_safetensors(root / "vae" / "diffusion_pytorch_model.safetensors",
+                     bf16(vae_mod.diffusers_tensors(vae.params, vae.config)))
+    vc = vae.config
+    (root / "vae" / "config.json").write_text(json.dumps(
+        {"latent_channels": vc.latent_channels, "block_out_channels": list(vc.block_out_channels),
+         "layers_per_block": vc.layers_per_block, "norm_num_groups": vc.norm_groups,
+         "scaling_factor": vc.scaling_factor, "shift_factor": vc.shift_factor}))
+    save_safetensors(root / "text_encoder" / "model.safetensors",
+                     bf16(clip_mod.hf_tensors(clip.params)))
+    cc = clip.config
+    (root / "text_encoder" / "config.json").write_text(json.dumps(
+        {"vocab_size": cc.vocab_size, "hidden_size": cc.hidden_size,
+         "num_hidden_layers": cc.num_layers, "num_attention_heads": cc.num_heads,
+         "intermediate_size": cc.intermediate_size,
+         "max_position_embeddings": cc.max_position_embeddings,
+         "eos_token_id": cc.eos_token_id, "hidden_act": cc.hidden_act}))
+    t5_cut = dict(t5.params, layers={k: v[:DIFF_RT_T5] for k, v in t5.params["layers"].items()})
+    names = bf16(t5_mod.hf_tensors(t5_cut, t5.config))
+    keys = sorted(names)
+    shards = {"model-00001-of-00002.safetensors": keys[:len(keys) // 2],
+              "model-00002-of-00002.safetensors": keys[len(keys) // 2:]}
+    for fname, ks in shards.items():
+        save_safetensors(root / "text_encoder_2" / fname, {k: names[k] for k in ks})
+    (root / "text_encoder_2" / "model.safetensors.index.json").write_text(json.dumps(
+        {"weight_map": {k: f for f, ks in shards.items() for k in ks}}))
+    tc = t5.config
+    (root / "text_encoder_2" / "config.json").write_text(json.dumps(
+        dict(dataclasses.asdict(tc), num_layers=DIFF_RT_T5)))
+    return sum(f.stat().st_size for f in root.rglob("*.safetensors")) / 1e9
+
+
+def diffusion_slice(name: str, model, cfg_slice, forward, args_cpu, dev) -> str:
+    """A 2-block slice (the first and the last block) of ``model`` at full
+    width, its forward on the card against the same f32 params on the CPU
+    (relative L2 within FWD_TOL)."""
+    import torch
+    p = model.params
+    if isinstance(p["blocks"], list):
+        blocks = [p["blocks"][0], p["blocks"][-1]]
+    else:
+        blocks = {k: v[[0, -1]] for k, v in p["blocks"].items()}
+    sl = dict(p, blocks=blocks)
+    cpu = torch.utils._pytree.tree_map(lambda t: t.cpu(), sl)
+    from pygpukit_tpu_torch.ops.precision import full_f32_context
+    with full_f32_context():
+        got = forward(cfg_slice, sl, *[a.to(dev) for a in args_cpu]).cpu()
+        want = forward(cfg_slice, cpu, *args_cpu)
+    rel = rel_l2(got, want)
+    check(torch.isfinite(got).all() and rel <= FWD_TOL,
+          f"diffusion: {name}'s 2-block slice card vs CPU relative L2 {rel:.3e} "
+          f"(limit {FWD_TOL})")
+    return f"{name} 2-block slice card vs CPU relative L2 {rel:.3e} (limit {FWD_TOL})"
+
+
+def diffusion_phase(dev, card: str) -> None:
+    """Phase 27 (``--phases diffusion``; module docstring)."""
+    import dataclasses
+    import shutil
+    import numpy as np
+    import torch
+    from pygpukit_tpu_torch.diffusion import FluxPipeline, PixArtPipeline, SD3Pipeline
+    from pygpukit_tpu_torch.diffusion.models.flux import (FluxConfig, FluxTransformer,
+                                                          flux_forward_fn, make_img_ids,
+                                                          patchify)
+    from pygpukit_tpu_torch.diffusion.models.pixart import (PixArtConfig, PixArtTransformer,
+                                                            pixart_forward_fn)
+    from pygpukit_tpu_torch.diffusion.models.sd3 import (SD3Config, SD3Transformer,
+                                                         sd3_forward_fn)
+    from pygpukit_tpu_torch.diffusion.models.vae import VAE, VAEConfig
+    from pygpukit_tpu_torch.diffusion.text_encoders import (CLIPTextConfig, CLIPTextEncoder,
+                                                            T5Config, T5Encoder)
+    from pygpukit_tpu_torch.ops.precision import full_f32_context
+    t0 = time.perf_counter()
+    secs: dict = {}
+    t_lap = [t0]
+
+    def lap(what: str) -> None:
+        now = time.perf_counter()
+        secs[what] = round(now - t_lap[0], 1)
+        t_lap[0] = now
+    report = []
+    f32_peak = PEAK_OPS_S["f32"]
+    reset_counts()
+
+    # 1. FLUX.1-schnell: the prompt through CLIP-L and T5-XXL, T5 freed
+    fcfg = FluxConfig(**FLUX_SCHNELL)
+    transformer = FluxTransformer.init_random(fcfg, seed=0, dtype=torch.bfloat16, device=dev)
+    vae = VAE.init_random(VAEConfig(**FLUX_VAE), seed=0, device=dev)
+    clip = CLIPTextEncoder.init_random(CLIPTextConfig(**CLIP_L), seed=0, device=dev,
+                                       projection=None)
+    t5 = T5Encoder.init_random(T5Config(**T5_XXL), seed=0, device=dev)
+    torch.cuda.synchronize()
+    n_tr = sum(t.numel() for t in torch.utils._pytree.tree_leaves(transformer.params))
+    n_t5 = sum(t.numel() for t in torch.utils._pytree.tree_leaves(t5.params))
+    lap("init")
+    pipe = FluxPipeline(transformer, vae, clip, t5,
+                        CharTokenizer(49408, 49406, 49407, 49407, 77),
+                        CharTokenizer(32128, None, 1, 0, DIFF_T5_LEN))
+    (txt, pooled), enc_ms = event_ms(lambda: pipe.encode_prompt(DIFF_PROMPT, DIFF_T5_LEN))
+    lap("encode")
+    check(tuple(txt.shape) == (DIFF_T5_LEN, fcfg.context_dim)
+          and tuple(pooled.shape) == (fcfg.pooled_dim,)
+          and bool(torch.isfinite(txt).all()) and bool(torch.isfinite(pooled).all()),
+          f"diffusion: encode_prompt gave {tuple(txt.shape)} / {tuple(pooled.shape)}")
+    # the from_pretrained round trip's tree written and loaded (card and
+    # CPU) while every source is alive: the loads bitwise the sources
+    rt_root = ROOT / "build" / "diffusion_phase"
+    try:
+        rt_gb = diffusion_checkpoint(rt_root, transformer, vae, clip, t5)
+        lap("write")
+        t1 = time.perf_counter()
+        loaded = FluxPipeline.from_pretrained(rt_root, device=dev)
+        torch.cuda.synchronize()
+        load_s = time.perf_counter() - t1
+        lap("load")
+    finally:
+        shutil.rmtree(rt_root, ignore_errors=True)
+    src_tr = dict(transformer.params,
+                  double_blocks={k: v[:1] for k, v in transformer.params["double_blocks"].items()},
+                  single_blocks={k: v[:1] for k, v in transformer.params["single_blocks"].items()})
+    src_t5 = dict(t5.params, layers={k: v[:DIFF_RT_T5] for k, v in t5.params["layers"].items()})
+    as_read = functools.partial(torch.utils._pytree.tree_map,
+                                lambda t: t.to(torch.bfloat16).float())   # bf16 on disk
+    pairs = ((loaded.transformer.params, src_tr), (loaded.vae.params, as_read(vae.params)),
+             (loaded.clip.params, as_read(clip.params)), (loaded.t5.params, as_read(src_t5)))
+    check(all(params_bitwise(a, b) for a, b in pairs)
+          and loaded.transformer.config == dataclasses.replace(fcfg, depth=1, depth_single=1)
+          and loaded.vae.config == vae.config and loaded.t5.config.num_layers == DIFF_RT_T5,
+          "diffusion: from_pretrained did not load the written values")
+    del src_tr, src_t5, pairs
+    lap("compare")
+    pipe.t5 = None
+    del t5
+    torch.cuda.empty_cache()
+    report.append(f"FLUX {n_tr / 1e9:.2f} B bf16 params, T5-XXL {n_t5 / 1e9:.2f} B f32; "
+                  f"the prompt through CLIP-L and T5-XXL ({DIFF_T5_LEN} tokens) "
+                  f"{enc_ms:.1f} ms")
+    # 2. text to image at 1024 x 1024, 4 steps, twice bitwise
+    t1 = time.perf_counter()
+    run1 = pipe(DIFF_PROMPT, DIFF_SIZE, DIFF_SIZE, DIFF_STEPS, seed=0, txt_embeds=txt,
+                pooled=pooled)
+    first_s = time.perf_counter() - t1
+    lat_hw = DIFF_SIZE // 8
+    key = (((lat_hw // 2) ** 2, fcfg.in_channels), (DIFF_T5_LEN, fcfg.context_dim), DIFF_STEPS)
+    exe = pipe.graphs.get(key)
+    check(exe is not None, f"diffusion: no captured denoise program under {key}")
+    times: list = []
+    undo = timed_replays(exe, times)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    run2 = pipe(DIFF_PROMPT, DIFF_SIZE, DIFF_SIZE, DIFF_STEPS, seed=0, txt_embeds=txt,
+                pooled=pooled)
+    wall_s = time.perf_counter() - t1
+    undo()
+    den_ms = times[0][0].elapsed_time(times[0][1])
+    check(np.array_equal(run1.latents, run2.latents)
+          and np.array_equal(run1.images, run2.images) and np.isfinite(run2.latents).all()
+          and run2.images.shape == (1, DIFF_SIZE, DIFF_SIZE, 3),
+          f"diffusion: a second {DIFF_SIZE} x {DIFF_SIZE} text-to-image run differs (or is "
+          "not finite)")
+    lat = torch.from_numpy(run2.latents).to(dev)
+    _, dec_ms = event_ms(lambda: pipe.vae.decode(lat[None]))
+    step_flops = flux_flops(fcfg, (lat_hw // 2) ** 2, DIFF_T5_LEN)
+    step_ms = den_ms / DIFF_STEPS
+    lap("text to image")
+    # the kernels of one eager forward cut to its first double and single
+    # block (each block's share of a step; 19 and 38 of them make a step)
+    img = patchify(lat)
+    p = pipe.transformer.params
+    cut = dict(p, double_blocks={k: v[:1] for k, v in p["double_blocks"].items()},
+               single_blocks={k: v[:1] for k, v in p["single_blocks"].items()})
+    args = (cut, img, make_img_ids(lat_hw // 2, lat_hw // 2, device=dev), txt,
+            torch.zeros((DIFF_T5_LEN, 3), dtype=torch.int32, device=dev))
+    with full_f32_context():
+        prof = kernel_profile(lambda i: flux_forward_fn(
+            fcfg, *args, torch.tensor(1.0, device=dev), pooled,
+            torch.tensor(0.0, device=dev)), n=1)
+    split = {k: {"kernels": 0, "ms": 0.0} for k in ("products", "softmax", "elementwise",
+                                                       "other")}
+    for kname, n, ms in prof:
+        low = kname.lower()
+        kind = ("products" if "gemm" in low else "softmax" if "softmax" in low else
+                "elementwise" if "elementwise" in low or "reduce" in low else "other")
+        split[kind]["kernels"] += n
+        split[kind]["ms"] = round(split[kind]["ms"] + ms, 3)
+    report.append(
+        f"text to image {DIFF_SIZE} x {DIFF_SIZE}, {DIFF_STEPS} steps, twice bitwise: the "
+        f"captured denoise program {den_ms:.1f} ms device by replay ({exe.node_count} graph "
+        f"nodes), {step_ms:.1f} ms a step = {step_flops / (step_ms * 1e-3) / 1e12:.1f} "
+        f"TFLOP/s of {step_flops / 1e12:.2f} TFLOP, "
+        f"{step_flops / (step_ms * 1e-3) / f32_peak:.3f} of the "
+        f"{f32_peak / 1e12:.0f} TFLOP/s f32 peak; VAE decode {dec_ms:.1f} ms; the whole "
+        f"call {wall_s:.2f} s wall (first call {first_s:.2f} s, capture included); one "
+        f"eager forward at 1 + 1 blocks by kind {json.dumps(split)}; "
+        + profile_line(prof, 6))
+    lap("profile")
+
+    # 3. img2img and inpaint at the same size, 2 steps left each
+    image = run2.images[0]
+    i2i = pipe.img2img(image, strength=DIFF_STRENGTH, num_inference_steps=DIFF_STEPS,
+                       seed=1, txt_embeds=txt, pooled=pooled)
+    mask = np.zeros((DIFF_SIZE, DIFF_SIZE), np.float32)
+    mask[:, DIFF_SIZE // 2:] = 1.0
+    inp = pipe.inpaint(image, mask, strength=DIFF_STRENGTH, num_inference_steps=DIFF_STEPS,
+                       seed=2, txt_embeds=txt, pooled=pooled)
+    x0 = pipe._prep_image_latents(image).cpu().numpy()
+    keep = np.abs(inp.latents[:, :, :lat_hw // 2] - x0[:, :, :lat_hw // 2]).max()
+    moved = np.abs(inp.latents[:, :, lat_hw // 2:] - x0[:, :, lat_hw // 2:]).max()
+    check(np.isfinite(i2i.latents).all() and np.isfinite(inp.latents).all()
+          and i2i.images.shape == inp.images.shape == (1, DIFF_SIZE, DIFF_SIZE, 3)
+          and keep <= 1e-3 and moved > 1e-2,
+          f"diffusion: img2img / inpaint at {DIFF_SIZE}: the kept half moved by {keep:.3e}, "
+          f"the repainted half by {moved:.3e}")
+    n_exe = len(pipe.graphs.executables())
+    report.append(f"img2img and inpaint at {DIFF_SIZE} x {DIFF_SIZE}, strength "
+                  f"{DIFF_STRENGTH} (2 steps each): finite, the inpainted kept half within "
+                  f"{keep:.2e} of the encoded image, the repainted half moved {moved:.2f}; "
+                  f"{n_exe} captured programs")
+    launched = {k: n for k, n in launch_counts().items() if n}
+    check(not launched, f"diffusion: the FLUX path launched port kernels {launched} "
+          "(rows 1-20: it has none)")
+    del pipe, transformer, vae, clip, run1, run2, lat, img, args, cut, p
+    torch.cuda.empty_cache()
+    lap("img2img + inpaint")
+
+    # 4. the loaded pipeline: card against the same params on the CPU
+    to_cpu = functools.partial(torch.utils._pytree.tree_map, lambda t: t.cpu())
+    cpu = FluxPipeline(*(type(m)(m.config, to_cpu(m.params)) for m in (
+        loaded.transformer, loaded.vae, loaded.clip, loaded.t5)))
+    for p in (loaded, cpu):
+        p.clip_tokenizer = CharTokenizer(49408, 49406, 49407, 49407, 77)
+        p.t5_tokenizer = CharTokenizer(32128, None, 1, 0, DIFF_T5_LEN)
+    g = torch.Generator().manual_seed(27)
+    rt_lat = torch.randn((16, DIFF_RT_SIZE // 8, DIFF_RT_SIZE // 8), generator=g)
+    got = loaded(DIFF_PROMPT, DIFF_RT_SIZE, DIFF_RT_SIZE, DIFF_RT_STEPS, latents=rt_lat.to(dev))
+    want = cpu(DIFF_PROMPT, DIFF_RT_SIZE, DIFF_RT_SIZE, DIFF_RT_STEPS, latents=rt_lat)
+    rt_rel = rel_l2(torch.from_numpy(got.latents), torch.from_numpy(want.latents))
+    rt_lvl = int(np.abs(got.images.astype(int) - want.images.astype(int)).max())
+    check(rt_rel <= FWD_TOL and np.isfinite(got.latents).all(),
+          f"diffusion: the loaded pipeline card vs CPU relative L2 {rt_rel:.3e} "
+          f"(limit {FWD_TOL})")
+    report.append(f"from_pretrained of a {rt_gb:.2f} GB tree in the reference's layout (BFL "
+                  f"transformer 1 + 1 blocks bf16, the VAE, CLIP-L, T5-XXL {DIFF_RT_T5} of 24 "
+                  f"layers bf16 in 2 shards) in {load_s:.2f} s, bitwise the written values; "
+                  f"its {DIFF_RT_SIZE} x {DIFF_RT_SIZE} {DIFF_RT_STEPS}-step image card vs CPU: "
+                  f"latents relative L2 {rt_rel:.3e} (limit {FWD_TOL}), images within "
+                  f"{rt_lvl} level(s)")
+    del loaded, cpu
+    torch.cuda.empty_cache()
+    lap("round trip run")
+
+    # 5. SD3-medium and PixArt-XL-2-512, f32, twice bitwise, a 2-block slice
+    g = torch.Generator(device=dev)
+    g.manual_seed(270)
+    for name in ("sd3", "pixart"):
+        if name == "sd3":
+            cfg = SD3Config()
+            model = SD3Transformer.init_random(cfg, seed=0, device=dev)
+            size, steps, cfg_scale, t_ctx = SD3_RUN
+            pipe = SD3Pipeline(model)
+            c = torch.randn((t_ctx, cfg.context_dim), generator=g, device=dev)
+            pc = torch.randn((cfg.pooled_dim,), generator=g, device=dev)
+
+            def run():
+                return pipe.generate(caption_embeds=c, pooled_embeds=pc, num_steps=steps,
+                                     guidance_scale=cfg_scale, seed=0)
+            fwd_flops = mmdit_flops(cfg.hidden_size, cfg.depth, (size // 16) ** 2, t_ctx)
+        else:
+            cfg = PixArtConfig()
+            model = PixArtTransformer.init_random(cfg, seed=0, device=dev)
+            size, steps, cfg_scale, t_ctx = PIXART_RUN
+            pipe = PixArtPipeline(model)
+            c = torch.randn((t_ctx, cfg.caption_dim), generator=g, device=dev)
+
+            def run():
+                return pipe.generate(caption_embeds=c, num_steps=steps,
+                                     guidance_scale=cfg_scale, seed=0)
+            fwd_flops = pixart_flops(cfg.hidden_size, cfg.depth, (size // 16) ** 2, t_ctx)
+        n_par = sum(t.numel() for t in torch.utils._pytree.tree_leaves(model.params))
+        a = run()
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        b, ms = event_ms(run)
+        wall = time.perf_counter() - t1
+        check(torch.equal(a, b) and bool(torch.isfinite(b).all()),
+              f"diffusion: a second {name} run differs (or is not finite)")
+        n_fwd = steps * (2 if cfg_scale != 1.0 else 1)
+        per = ms / n_fwd
+        gs = torch.Generator().manual_seed(271)
+        sl_lat = torch.randn((cfg.in_channels, DIFF_SLICE_SIZE // 8, DIFF_SLICE_SIZE // 8),
+                             generator=gs)
+        if name == "sd3":
+            sl_cfg = dataclasses.replace(cfg, depth=2)
+            sl_args = (sl_lat, torch.tensor(600.0), c.cpu(), pc.cpu())
+            line = diffusion_slice("SD3", model, sl_cfg, sd3_forward_fn, sl_args, dev)
+        else:
+            sl_cfg = dataclasses.replace(cfg, depth=2)
+            sl_args = (sl_lat, torch.tensor(600.0), c.cpu())
+            line = diffusion_slice("PixArt", model, sl_cfg, pixart_forward_fn, sl_args, dev)
+        report.append(
+            f"{name} ({n_par / 1e9:.3f} B f32 params) at {size} x {size}, {steps} steps, "
+            f"CFG {cfg_scale}: twice bitwise, {ms:.1f} ms device ({wall:.2f} s wall), "
+            f"{per:.2f} ms a forward = {fwd_flops / (per * 1e-3) / 1e12:.1f} TFLOP/s of "
+            f"{fwd_flops / 1e12:.3f} TFLOP ({fwd_flops / (per * 1e-3) / f32_peak:.3f} of the "
+            f"f32 peak); " + line)
+        del model, pipe, a, b, c
+        torch.cuda.empty_cache()
+        lap(name)
+    launched = {k: n for k, n in launch_counts().items() if n}
+    check(not launched, f"diffusion: the phase launched port kernels {launched} (rows 1-20: "
+          "the stack has none)")
+    print("phase 27: diffusion (FLUX.1-schnell, SD3-medium and PixArt-XL-2-512 widths, random "
+          "weights seed 0, no port kernel launched): " + "; ".join(report)
+          + f"; by section {json.dumps(secs)} [{card}]")
+    print(f"phase 27 took {time.perf_counter() - t0:.1f} s")
 
 
 def main(argv: list[str]) -> int:
@@ -6987,6 +7467,8 @@ def main(argv: list[str]) -> int:
     if "kokoro" in phases:
         for name, n in kokoro_phase(dev, card).items():   # rows 1 and 15 in the pipelines
             launches[name] = launches.get(name, 0) + n
+    if "diffusion" in phases:
+        diffusion_phase(dev, card)
     print(f"total {time.perf_counter() - t_start:.1f} s after the build began, "
           f"{time.perf_counter() - t_script:.1f} s the whole script")
     if set(phases) != set(PHASES):

@@ -33,10 +33,12 @@ speech recognition (``asr.whisper``) with the audio DSP library
 speech synthesis (``tts.kokoro``: Kokoro-82M from its checkpoint and the
 simple layer stack) with the convolutions (``ops.conv``) and the LSTM
 (``ops.nn.recurrent``); the LLM-to-speech and voice pipelines
-(``pipeline``); and the fifteen kernels.
+(``pipeline``); image generation (``diffusion``: FLUX.1 with its CLIP and
+T5 encoders and the VAE, SD3 and PixArt, the schedulers and pipelines);
+and the fifteen kernels.
 """
 
-from . import asr, core, kernels, llm, ops, pipeline, tts
+from . import asr, core, diffusion, kernels, llm, ops, pipeline, tts
 from .core import (Array, DataType, DataTypeKind, Event, Stream, StreamManager,
                    StreamPriority, arange, capture, default_stream, device_count, dtypes,
                    empty, from_numpy, full, get_device_info, get_memory_info,

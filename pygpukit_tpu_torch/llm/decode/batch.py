@@ -72,8 +72,8 @@ class DecodeBatch(DecodeStrategy):
                 pool.zero_()
         else:
             self._release()
-            self.k_cache = kv_cache_zeros(shape, model.dtype, device=model.device)
-            self.v_cache = kv_cache_zeros(shape, model.dtype, device=model.device)
+            self.k_cache = kv_cache_zeros(shape, model.dtype, device=model.device, merged=True)
+            self.v_cache = kv_cache_zeros(shape, model.dtype, device=model.device, merged=True)
         self.max_seq_len = max_seq_len
 
     def _batch_prefill(self, padded: torch.Tensor, lens: torch.Tensor) -> torch.Tensor:

@@ -129,7 +129,7 @@ def _pack_split_half(q: torch.Tensor, dim: int) -> torch.Tensor:
     return ((lo & 0xF) | ((hi & 0xF) << 4)).to(torch.uint8).contiguous()
 
 
-def quantize_weight(w: torch.Tensor, mode: str = "int4",
+def quantize_weight(w: torch.Tensor, mode: str = "fp8",
                     block_size: int = 32) -> dict:
     """One weight [..., in, out] -> a quantized leaf (``mode`` "int4",
     "int8", "fp8", "int4_block" or "nvf4"); ``block_size`` is B of the
@@ -199,7 +199,7 @@ def dequantize_weight(wq: dict, dtype=torch.bfloat16) -> torch.Tensor:
     return (wq["q"].to(_F32) * wq["scale"]).to(dtype)
 
 
-def quantize_model_params(params: dict, mode: str = "int4",
+def quantize_model_params(params: dict, mode: str = "fp8",
                           keys: set[str] | None = None,
                           head: bool | str = True) -> dict:
     """Quantize a model's projection leaves in place of their dense ones,

@@ -240,8 +240,8 @@ class ContinuousBatchingEngine:
         else:
             shape = (max_batch, cfg.num_layers, max_seq_len,
                      cfg.num_kv_heads * cfg.head_dim)
-            self.k_cache = kv_cache_zeros(shape, model.kv_dtype, device=dev)
-            self.v_cache = kv_cache_zeros(shape, model.kv_dtype, device=dev)
+            self.k_cache = kv_cache_zeros(shape, model.kv_dtype, device=dev, merged=True)
+            self.v_cache = kv_cache_zeros(shape, model.kv_dtype, device=dev, merged=True)
         self._generator = torch.Generator(device=dev)
         self._generator.manual_seed(seed)
         self._slots: list[Request | None] = [None] * max_batch

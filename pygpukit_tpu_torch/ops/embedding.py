@@ -51,7 +51,7 @@ def kv_compute_dtype(cache_dtype: torch.dtype) -> torch.dtype:
     return cache_dtype
 
 
-def kv_cache_zeros(shape, dtype: torch.dtype, device=None, merged: bool = True):
+def kv_cache_zeros(shape, dtype: torch.dtype, device=None, merged: bool = False):
     """A zeroed cache on ``device`` (the card unless the caller names one):
     a tensor, or for int8 storage the ``{"q", "s"}`` dict with one scale per
     row. ``merged``: the minor dim is ``Hk*D`` (the serving pools); else

@@ -11,7 +11,9 @@ stem would otherwise run in TF32). ``f32_matmul_context`` turns both off
 for the scope and puts both back on exit.
 
 The flags are process-wide, so the scope covers every thread's products
-while it is open.
+while it is open. ``full_f32_context`` turns them off whatever the weights
+are: the diffusion transformers promote bf16 weights against f32
+activations as JAX does, so their products are f32 on a bf16 model too.
 
 Divergence: the reference's ``PYGPUKIT_ALLOW_TF32=1`` opts out of the
 scope. Nothing in the port reads that variable (the Array API does not
@@ -50,3 +52,11 @@ def f32_matmul_context(params):
     if has_f32 and not has_low:
         return _tf32_off()
     return contextlib.nullcontext()
+
+
+def full_f32_context():
+    """TF32 off (matmul and cuDNN) for the scope, whatever the weights: for
+    stacks whose products are f32 by promotion (bf16 weights against f32
+    activations), where ``f32_matmul_context`` of the bf16 weights would be
+    a null context."""
+    return _tf32_off()

@@ -164,8 +164,8 @@ def time_steps(dev, out: dict) -> None:
     cfg, params = model.config, model.params
     b, mx = 8, 1024
     shape = (b, cfg.num_layers, mx, cfg.num_kv_heads * cfg.head_dim)
-    kp = kv_cache_zeros(shape, torch.bfloat16, device=dev)
-    vp = kv_cache_zeros(shape, torch.bfloat16, device=dev)
+    kp = kv_cache_zeros(shape, torch.bfloat16, device=dev, merged=True)
+    vp = kv_cache_zeros(shape, torch.bfloat16, device=dev, merged=True)
     toks = torch.arange(1, b + 1, device=dev)
     poss = torch.full((b,), 300, dtype=torch.int32, device=dev)
     out["batch8_step"] = [time_ms(

@@ -1600,7 +1600,7 @@ def test_batch_step_graph_replay_bitwise(dev, kv_dtype):
     cfg, b, mx = m.config, 8, 1024
     shape = (b, cfg.num_layers, mx, cfg.num_kv_heads * cfg.head_dim)
     g = _gen(dev, 51)
-    pools = [kv_cache_zeros(shape, m.kv_dtype, device=dev) for _ in range(2)]
+    pools = [kv_cache_zeros(shape, m.kv_dtype, device=dev, merged=True) for _ in range(2)]
     for p in pools:
         leaf = p["q"] if isinstance(p, dict) else p
         leaf.copy_((torch.randn(shape, generator=g, device=dev) * 3).to(leaf.dtype))
@@ -1737,7 +1737,7 @@ def test_captured_batch_step_replays_two_position_vectors(dev):
     cfg, b, mx = m.config, 8, 512
     shape = (b, cfg.num_layers, mx, cfg.num_kv_heads * cfg.head_dim)
     g = _gen(dev, 61)
-    pools = [kv_cache_zeros(shape, torch.bfloat16, device=dev) for _ in range(2)]
+    pools = [kv_cache_zeros(shape, torch.bfloat16, device=dev, merged=True) for _ in range(2)]
     for p in pools:
         p.copy_((torch.randn(shape, generator=g, device=dev) * 2).to(torch.bfloat16))
     toks = torch.arange(1, b + 1, device=dev, dtype=torch.int32)
@@ -2461,4 +2461,62 @@ def test_kokoro82m_on_the_card_matches_the_cpu(dev, monkeypatch):
     assert torch.isfinite(out[0]).all() and _rel(out[0], want[0]) < 1e-4
     (exe,) = card.graphs.executables().values()
     assert exe.node_count > 0 and exe.stats.replays == 2
+    assert _launches() == before
+
+
+def test_diffusion_on_the_card_matches_the_cpu(dev):
+    """A tiny FLUX pipeline (a bf16 transformer promoting to f32 products,
+    an f32 VAE) on the card against the same weights on the CPU, TF32
+    switched on outside (the pipeline's scope and the VAE's own turn it
+    off for cuBLAS and cuDNN): text to image at 3 steps and img2img at 2,
+    the same latents and noise on both sides, within 1e-4 relative L2 and
+    images within one level; the denoise loops CUDA graphs replayed
+    bitwise a second time; the VAE alone (decode and encode, no pipeline
+    scope) within 1e-4 too; the flags back on after, no port kernel
+    launched (the path has none)."""
+    import numpy as np
+    from pygpukit_tpu_torch.diffusion import FluxPipeline
+    from pygpukit_tpu_torch.diffusion.models.flux import FluxConfig, FluxTransformer
+    from pygpukit_tpu_torch.diffusion.models.vae import VAE, VAEConfig
+    fcfg = FluxConfig(in_channels=16, hidden_size=64, num_heads=4, depth=2, depth_single=2,
+                      context_dim=32, pooled_dim=24, axes_dim=(4, 6, 6), guidance_embed=False)
+    vcfg = VAEConfig(block_out_channels=(16, 32), layers_per_block=1, norm_groups=4,
+                     latent_channels=4, scaling_factor=0.3611, shift_factor=0.1159)
+    tr = FluxTransformer.init_random(fcfg, seed=0, dtype=torch.bfloat16, device="cpu")
+    v = VAE.init_random(vcfg, seed=1, device="cpu")
+    cpu = FluxPipeline(tr, v)
+    card = FluxPipeline(FluxTransformer(fcfg, _to_dev(tr.params, dev)),
+                        VAE(vcfg, _to_dev(v.params, dev)))
+    g = _gen("cpu", 2)
+    lat, noise = torch.randn((4, 8, 8), generator=g), torch.randn((4, 8, 8), generator=g)
+    txt, pooled = torch.randn((12, 32), generator=g), torch.randn((24,), generator=g)
+    # the tiny VAE halves once: a 16 x 16 image is an 8 x 8 latent
+    image = np.random.default_rng(3).integers(0, 255, (16, 16, 3), dtype=np.uint8)
+    z, x = torch.randn((2, 4, 8, 8), generator=g), torch.rand((1, 3, 16, 16), generator=g)
+    mm, cudnn = torch.backends.cuda.matmul, torch.backends.cudnn
+    before = _launches()
+    try:
+        mm.allow_tf32 = cudnn.allow_tf32 = True
+        runs = [card(height=64, width=64, num_inference_steps=3, txt_embeds=txt.to(dev),
+                     pooled=pooled.to(dev), latents=lat.to(dev)) for _ in range(2)]
+        i2i = [card.img2img(image, strength=0.5, num_inference_steps=4, txt_embeds=txt,
+                            pooled=pooled, noise=noise.to(dev)) for _ in range(2)]
+        dec, enc = card.vae.decode(z.to(dev)), card.vae.encode(x.to(dev), noise=z[:1])
+        assert (mm.allow_tf32, cudnn.allow_tf32) == (True, True)
+    finally:
+        mm.allow_tf32 = cudnn.allow_tf32 = False
+    want = cpu(height=64, width=64, num_inference_steps=3, txt_embeds=txt, pooled=pooled,
+               latents=lat)
+    want_i2i = cpu.img2img(image, strength=0.5, num_inference_steps=4, txt_embeds=txt,
+                           pooled=pooled, noise=noise)
+    for got, ref in ((runs, want), (i2i, want_i2i)):
+        assert np.array_equal(got[0].latents, got[1].latents)
+        assert np.array_equal(got[0].images, got[1].images)
+        assert _rel(torch.from_numpy(got[0].latents), torch.from_numpy(ref.latents)) < 1e-4
+        assert np.abs(got[0].images.astype(int) - ref.images.astype(int)).max() <= 1
+    assert _rel(dec, v.decode(z)) < 1e-4
+    assert _rel(enc, v.encode(x, noise=z[:1])) < 1e-4
+    exes = card.graphs.executables()
+    assert len(exes) == 2 and all(e.node_count > 0 and e.stats.replays == 2
+                                  for e in exes.values())
     assert _launches() == before

@@ -120,14 +120,14 @@ def test_prefill_device_true_len_is_the_int_path(kv, n):
     rng = np.random.default_rng(n)
     tokens = torch.as_tensor(rng.integers(1, cfg.vocab_size, 16))
     shape = (cfg.num_layers, 32, cfg.num_kv_heads * cfg.head_dim)
-    caches = [[kv_cache_zeros(shape, kv_dtype, device=CPU) for _ in range(2)]
+    caches = [[kv_cache_zeros(shape, kv_dtype, device=CPU, merged=True) for _ in range(2)]
               for _ in range(2)]
     li = prefill_fn(cfg, params, *caches[0], tokens, n)
     lt = prefill_fn(cfg, params, *caches[1], tokens, torch.tensor([n], dtype=torch.int32))
     assert torch.equal(li, lt)
     assert all(_same(_bits(a), _bits(b)) for a, b in zip(*caches))
-    pools = [[kv_cache_zeros((3,) + shape, kv_dtype, device=CPU) for _ in range(2)]
-             for _ in range(2)]
+    pools = [[kv_cache_zeros((3,) + shape, kv_dtype, device=CPU, merged=True)
+              for _ in range(2)] for _ in range(2)]
     li = prefill_fn(cfg, params, *(slot_cache(p, 2) for p in pools[0]), tokens, n)
     lt = prefill_fn(cfg, params, *pools[1], tokens, torch.tensor([n], dtype=torch.int32),
                     torch.tensor([2], dtype=torch.int32))

@@ -98,7 +98,7 @@ def _pools_both(kind):
                 "int8": (jnp.int8, torch.int8)}[kind]
     shape = (B, L, MAX, HK * D)
     jp = [jax_kv_zeros(shape, jdt, merged=True) for _ in range(2)]
-    tp = [kv_cache_zeros(shape, tdt, device="cpu") for _ in range(2)]
+    tp = [kv_cache_zeros(shape, tdt, device="cpu", merged=True) for _ in range(2)]
     return jp, tp
 
 

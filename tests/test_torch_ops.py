@@ -88,7 +88,7 @@ def test_kv_write_clamps_like_dynamic_update_slice(rng, start):
     for dtype, tdtype in ((jnp.float32, torch.float32), (jnp.int8, torch.int8)):
         jc = jemb.kv_cache_zeros((2, 16, 8), dtype, merged=True)
         ref = jemb.kv_write(jc, jnp.asarray(new), (1, start, 0))
-        tc = temb.kv_cache_zeros((2, 16, 8), tdtype, device="cpu")
+        tc = temb.kv_cache_zeros((2, 16, 8), tdtype, device="cpu", merged=True)
         got = temb.kv_write(tc, torch.from_numpy(new), (1, start, 0))
         if isinstance(ref, dict):
             np.testing.assert_array_equal(got["q"].numpy(), np.asarray(ref["q"]))

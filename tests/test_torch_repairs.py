@@ -1,5 +1,5 @@
-"""Two repairs of the port against the reference, and the CPU int8
-product's exact route, on the CPU.
+"""Repairs of the port against the reference, and the CPU int8 product's
+exact route, on the CPU.
 
 - The int8 head's switches: ``PYGPUKIT_INT8_HEAD`` (the head's mode,
   ``PYGPUKIT_INT8_MODE``'s when unset) and ``PYGPUKIT_ACT_QUANT=bf16``
@@ -12,6 +12,10 @@ product's exact route, on the CPU.
   the plain version on CUDA tensors too; the built shapes keep the
   kernels; CPU tensors always take the plain version.
 - ``ops.matmul.int8_dot`` on the CPU: the int32 product's bits.
+- The public defaults are the reference's: ``quantize_weight`` and
+  ``quantize_model_params`` with the mode omitted (fp8) and
+  ``kv_cache_zeros`` with ``merged`` omitted (the ``[..., Hk, D]`` layout,
+  a scale a row of both minor dims), each leaf bitwise the reference's.
 """
 
 import itertools
@@ -24,11 +28,15 @@ import torch
 
 from pygpukit_tpu.llm import TransformerConfig as JaxConfig
 from pygpukit_tpu.llm import model as jax_model
+from pygpukit_tpu.llm import quant as jax_quant
 from pygpukit_tpu.llm.quant import quantize_weight as jax_quantize_weight
+from pygpukit_tpu.ops import embedding as jax_embedding
 from pygpukit_tpu_torch.llm import TransformerConfig, params_from_jax
 from pygpukit_tpu_torch.llm import model as port_model
+from pygpukit_tpu_torch.llm import quant as port_quant
 from pygpukit_tpu_torch.llm.model import batch_attention_route
 from pygpukit_tpu_torch.llm.serving_paged import paged_attention_route
+from pygpukit_tpu_torch.ops import embedding as port_embedding
 from pygpukit_tpu_torch.ops.nn.attention import fixed_cache_route, flash_attention_route
 
 CFG = dict(vocab_size=256, hidden_size=64, num_layers=1, num_heads=4, num_kv_heads=2,
@@ -186,3 +194,70 @@ def test_int8_dot_on_the_cpu_is_the_int32_product(m, k, n):
         want = torch.matmul(xi.to(torch.int32), q.to(torch.int32))
         got = int8_dot(xi, q)
         assert got.dtype == torch.int32 and torch.equal(got, want)
+
+
+# -- the public defaults (the reference's, argument omitted) ----------------
+
+def _leaf_bytes(a) -> tuple:
+    """(shape, item size, raw bytes) of a numpy array (ml_dtypes too) or a
+    tensor."""
+    if isinstance(a, torch.Tensor):
+        t = a.contiguous()
+        return tuple(t.shape), t.element_size(), t.reshape(-1).view(torch.uint8).numpy()
+    a = np.ascontiguousarray(a)
+    return a.shape, a.dtype.itemsize, a.reshape(-1).view(np.uint8)
+
+
+def _assert_leaves_bitwise(ref, got, path="") -> None:
+    if isinstance(ref, dict):
+        assert isinstance(got, dict) and set(ref) == set(got), (path, set(ref), set(got))
+        for k in ref:
+            _assert_leaves_bitwise(ref[k], got[k], f"{path}/{k}")
+        return
+    if ref is None:
+        assert got is None, path
+        return
+    (rs, ri, rb), (gs, gi, gb) = _leaf_bytes(np.asarray(ref)), _leaf_bytes(got)
+    assert (rs, ri) == (gs, gi), (path, rs, ri, gs, gi)
+    assert np.array_equal(rb, gb), path
+
+
+def test_quantize_weight_defaults_to_the_references_fp8():
+    """A [64, 32] f32 weight quantized with the mode omitted: fp8 e4m3
+    ``{"q", "scale"}`` in both packages, bit for bit."""
+    w = np.random.default_rng(14).standard_normal((64, 32)).astype(np.float32) * 0.05
+    ref = jax.tree.map(np.asarray, jax_quant.quantize_weight(jnp.asarray(w)))
+    got = port_quant.quantize_weight(torch.from_numpy(w))
+    assert set(got) == {"q", "scale"} and got["q"].dtype == torch.float8_e4m3fn
+    assert tuple(got["q"].shape) == (64, 32)
+    _assert_leaves_bitwise(ref, got)
+
+
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+def test_quantize_model_params_defaults_to_the_references_fp8(dtype):
+    """A small model's param tree quantized with the mode omitted: every
+    leaf (the fp8 projections and head, the dense rest) bitwise the
+    reference's."""
+    jdt = {"f32": jnp.float32, "bf16": jnp.bfloat16}[dtype]
+    jcfg = JaxConfig(**dict(CFG, num_layers=2))
+    host = jax.tree.map(np.asarray, jax_model.init_params(jcfg, 3, jdt))
+    ref = jax.tree.map(np.asarray, jax_quant.quantize_model_params(
+        jax.tree.map(jnp.asarray, host)))
+    got = port_quant.quantize_model_params(params_from_jax(host))
+    assert got["layers"]["w_q"]["q"].dtype == torch.float8_e4m3fn
+    _assert_leaves_bitwise(ref, got)
+
+
+@pytest.mark.parametrize("dtype", ["int8", "bf16", "f32"])
+def test_kv_cache_zeros_defaults_to_the_references_layout(dtype):
+    """``kv_cache_zeros`` with ``merged`` omitted: int8 at (2, 3, 8, 4, 16)
+    keeps a scale a row of the two minor dims, rows (2, 3, 8), in both
+    packages; every leaf bitwise the reference's."""
+    jdt, tdt = {"int8": (jnp.int8, torch.int8), "bf16": (jnp.bfloat16, torch.bfloat16),
+                "f32": (jnp.float32, torch.float32)}[dtype]
+    shape = (2, 3, 8, 4, 16)
+    ref = jax.tree.map(np.asarray, jax_embedding.kv_cache_zeros(shape, jdt))
+    got = port_embedding.kv_cache_zeros(shape, tdt, device="cpu")
+    if dtype == "int8":
+        assert tuple(got["s"].shape) == (2, 3, 8) == ref["s"].shape
+    _assert_leaves_bitwise(ref, got)

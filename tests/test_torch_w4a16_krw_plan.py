@@ -267,7 +267,7 @@ def test_kv_write_attention_matches_the_pallas_kernels(kind, window):
     qdt = jnp.float32
     shape = (b, nl, mx, hk * d)
     jk, jv = (jax_kv_zeros(shape, jdt, merged=True) for _ in range(2))
-    tk, tv = (kv_cache_zeros(shape, tdt, device="cpu") for _ in range(2))
+    tk, tv = (kv_cache_zeros(shape, tdt, device="cpu", merged=True) for _ in range(2))
     kn = rng.standard_normal((b, hk, d)).astype(np.float32)
     vn = rng.standard_normal((b, hk, d)).astype(np.float32)
     q = rng.standard_normal((b, 1, hq, d)).astype(np.float32)
