@@ -259,7 +259,7 @@ bf16 weight with no scale, torch._grouped_mm for gmm, bf16 out).
     Gemma-3-1B and GPT-2 written as Hugging Face checkpoints by
     save_safetensors and loaded back (config and leaves bitwise, logits
     bitwise); the first 2 layers (Gemma-3 6) on the card against the CPU
-    plain path (bf16 forward, prefill and decode steps within FWD_TOL,
+    plain path (bf16 forward, prefill and a decode step within FWD_TOL,
     int4 within REF_TOL; MoE the forward's rows, MOE_ROWS_Q); the int4
     dense engine and the paged pipelined engine on 16 requests (Gemma-3:
     4 prompts of 600-700 tokens, past its 512 window; Gemma-2: MAX 8192
@@ -440,6 +440,33 @@ bf16 weight with no scale, torch._grouped_mm for gmm, bf16 out).
     forward with its TFLOP/s, and a 2-block slice (the first and last
     blocks) at full width against the CPU at 256 x 256 (FWD_TOL); no port
     kernel launched in the phase (the stack has none).
+28. the runtime services (services_phase, ``--phases services``): the
+    native library built from native/src into build/pygpukit_tpu_torch/
+    (nothing written under native/), and the memory pool, scheduler,
+    partitions and transfer engine each on it; SVC_TASKS tasks of mixed
+    QoS through the native scheduler (test_stress.py's pattern at a larger
+    max_pending) run in the pure-Python scheduler's order with its stats;
+    the transfer engine: H2D_BYTES of f32 up and back bitwise, in two
+    turns with the engine on torch's staging copies and with the plain
+    pageable .to(dev) and .cpu(), each leg's GB/s beside h2d_gbs's pinned
+    copy, a HIGH upload queued behind LOW
+    ones resolving first, SVC_UPLOADS uploads each read by a reduction on
+    the default stream (and freed) while the next ones stream in; two
+    1.1B int4 models (seeds 0 and 1) in a MultiModelController whose
+    budget holds both (a third context refused), a SVC_NEW-token greedy
+    generate on each at once through run_async, each equal to its solo
+    run, MemoryProfiler's delta around building the second at least its
+    bytes; a JITKernel around the single-stream decode step (the caches
+    donated): verify_bitwise_replay, verify_recompile_parity, a background
+    warmup of a second signature (other caches) racing SVC_LOOP-token
+    decode loops on the main thread, each equal to the solo loop;
+    verify_strategy_equivalence on phase 16's peaked model;
+    profile_matmul(8192^3, bf16) beside the same product by CUDA events;
+    Profiler.trace over one decode step naming the w4a8 GEMV and
+    flash_decode kernels; the benchmark CLI's six suites in-process
+    (benchmark.__main__.main), their tables and launches (the attention
+    suite must launch flash_attention, the decode suite flash_decode).
+    The phase's launches are added to the summary line's.
 Launches per decode step, prefill, forward or layer are counted in phases
 6, 7, 9, 11, 12, 13, 14, 15, 16 and 17 and printed (phases 6-14, 16, 17)
 on one line before the summary. A count is the wrappers' eager launches
@@ -543,7 +570,7 @@ ULP_REL, NEAR_ZERO = 2.0 ** -7, 1e-4
 PHASES = ("kernels", "dense", "paged", "tight", "ladder", "block", "parity",
           "forward", "ops", "decode", "moe", "kv", "strategies", "graphs", "load",
           "families", "rope", "conventions", "standalone", "trees", "qwen3next", "whisper",
-          "kokoro", "diffusion")
+          "kokoro", "diffusion", "services")
 # phase 17 (graphs): the model's window and chunk, the sampled chunk's
 # temperature and top-k, the draft's tokens, the paged engine's requests
 GRAPH_WINDOW, GRAPH_CHUNK, GRAPH_TEMP, GRAPH_TOPK = 6, 16, 0.8, 40
@@ -559,20 +586,21 @@ LOAD_NEW, LOAD_MAX, LOAD_CHAT_NEW, LOAD_LONG, H2D_BYTES = 64, 1024, 32, 256, 1 <
 # downloaded): name -> (repository, config.json, layers run or None for all).
 # Depth cut for the script's time since phase 22 came: Qwen2.5-0.5B 6 of
 # 24 layers, Qwen3-0.6B 7 of 28, Gemma-2-2B 4 of 26, Gemma-3-1B 6 of 26
-# (its global layer 6 among them); twice these since phase 21 came
+# (its global layer 6 among them); twice these since phase 21 came; since
+# phase 28 came Qwen2.5-0.5B and Qwen3-0.6B at 4
 FAMILIES = {
     "qwen2.5-0.5b": ("Qwen/Qwen2.5-0.5B", dict(
         model_type="qwen2", vocab_size=151936, hidden_size=896, intermediate_size=4864,
         num_hidden_layers=24, num_attention_heads=14, num_key_value_heads=2,
         max_position_embeddings=32768, max_window_layers=24, rms_norm_eps=1e-6,
         rope_theta=1000000.0, sliding_window=32768, use_sliding_window=False,
-        tie_word_embeddings=True, hidden_act="silu"), 6),
+        tie_word_embeddings=True, hidden_act="silu"), 4),
     "qwen3-0.6b": ("Qwen/Qwen3-0.6B", dict(
         model_type="qwen3", vocab_size=151936, hidden_size=1024, intermediate_size=3072,
         num_hidden_layers=28, num_attention_heads=16, num_key_value_heads=8, head_dim=128,
         max_position_embeddings=40960, max_window_layers=28, rms_norm_eps=1e-6,
         rope_theta=1000000.0, sliding_window=None, use_sliding_window=False,
-        tie_word_embeddings=True, hidden_act="silu"), 7),
+        tie_word_embeddings=True, hidden_act="silu"), 4),
     "gpt2": ("openai-community/gpt2", dict(
         model_type="gpt2", vocab_size=50257, n_embd=768, n_layer=12, n_head=12,
         n_positions=1024, n_ctx=1024, layer_norm_epsilon=1e-5,
@@ -616,9 +644,10 @@ FAM_LONG = {"gemma-3-1b": (4, 600, 700), "gemma-2-2b": (2, 4150, 4250)}
 FAM_FWD_S = {"gpt2": 1024}
 FAM_NEW, FAM_PROMPT, FAM_REQS, FAM_REQ_NEW = 32, 16, 16, 16
 FAM_SLICE = {"gemma-3-1b": 6}
-# the slices' prompt and decode steps (4 until phase 27 came: a step's
-# f32 head over a 256000-row vocabulary reads 8.4 GB on the host)
-FAM_SLICE_S, FAM_SLICE_STEPS = 64, 2
+# the slices' prompt and decode steps (4 until phase 27 came, 2 until
+# phase 28 came: a step's f32 head over a 256000-row vocabulary reads 8.4
+# GB on the host)
+FAM_SLICE_S, FAM_SLICE_STEPS = 64, 1
 # the round trip through a Hugging Face checkpoint written by save_safetensors
 FAM_CHECKPOINT = ("gpt2", "gemma-3-1b")
 # the D-256 variants on the kernels line: name -> the base kernel whose
@@ -647,7 +676,8 @@ def stand_in_factors(seed: int, top: float, n: int = 48) -> list:
 # among them), Phi-3.5-mini 4 of 32 (its 8192-row prefills took 136.5 s
 # at full depth), GLM-4-9B 4 of 40, ERNIE-4.5-0.3B 9 of 18, SmolLM3-3B 4
 # of 36 (NoPE layer 4), Qwen3-0.6B with yarn 7 of 28 (since phase 21
-# came: 8, 6, 8, 4, 18, 8 and 14)
+# came: 8, 6, 8, 4, 18, 8 and 14); since phase 28 came ERNIE at 4 and
+# Qwen3-0.6B with yarn at 4
 ROPE_FAMILIES = {
     "llama-3.2-1b": ("meta-llama/Llama-3.2-1B", dict(
         model_type="llama", vocab_size=128256, hidden_size=2048, intermediate_size=8192,
@@ -684,7 +714,7 @@ ROPE_FAMILIES = {
         model_type="ernie4_5", vocab_size=103424, hidden_size=1024, intermediate_size=3072,
         num_hidden_layers=18, num_attention_heads=16, num_key_value_heads=2, head_dim=128,
         max_position_embeddings=131072, rope_theta=500000.0, rms_norm_eps=1e-5,
-        use_bias=False, tie_word_embeddings=True, hidden_act="silu"), 9),
+        use_bias=False, tie_word_embeddings=True, hidden_act="silu"), 4),
     "smollm3-3b": ("HuggingFaceTB/SmolLM3-3B", dict(
         model_type="smollm3", vocab_size=128256, hidden_size=2048, intermediate_size=11008,
         num_hidden_layers=36, num_attention_heads=16, num_key_value_heads=4,
@@ -694,7 +724,7 @@ ROPE_FAMILIES = {
     "qwen3-0.6b-yarn": ("Qwen/Qwen3-0.6B with its model card's yarn block", dict(
         FAMILIES["qwen3-0.6b"][1], rope_scaling={
             "rope_type": "yarn", "factor": 4.0, "original_max_position_embeddings": 32768}),
-        7),
+        4),
 }
 # the engines' capacity past Phi-3.5's 4096-token threshold and Gemma-3-4B's
 # 1024 window, and the prompts past them (count, least and most length)
@@ -805,6 +835,10 @@ STRAT_POSITIONS, STRAT_STEPS = (17, 100, 300, 511), 128
 # each), and a strategy's KV rows must be DecodeM1's within STRAT_KV_TOL
 # (relative L2 a layer; FUSED_DEEP_TOL's bound for 22 bf16 layers)
 STRAT_TIE, STRAT_KV_TOL = 2.0 ** -5, 5e-2
+# phase 28: the scheduler's tasks, the uploads read while others stream in
+# (64 MiB of int32 each), the two models' generate and the JIT decode loop's
+# new tokens, their cache
+SVC_TASKS, SVC_UPLOADS, SVC_NEW, SVC_LOOP, SVC_MAX = 10_000, 8, 64, 32, 512
 # phase 16's peaked model: the embedding scaled by PEAKED_EMBED and the head
 # the scaled embedding's rows in a seeded permuted order, so the residual
 # stream carries the token and the head maps it to its permuted successor
@@ -3518,6 +3552,18 @@ def strategies_phase(cfg, dev, card: str, per_step: dict) -> dict:
     return out
 
 
+def peaked_model(cfg, dev):
+    """Phase 16's peaked bf16 model (seed 0; PEAKED_EMBED says how it is
+    built)."""
+    import torch
+    from pygpukit_tpu_torch.llm import CausalTransformerModel, init_params
+    params = init_params(cfg, 0, torch.bfloat16, dev)
+    params["embed"] = params["embed"] * PEAKED_EMBED
+    perm = torch.randperm(cfg.vocab_size, generator=torch.Generator().manual_seed(0))
+    params["lm_head"] = params["embed"][perm.to(dev)].t().contiguous()
+    return CausalTransformerModel(cfg, params, dtype=torch.bfloat16)
+
+
 def peaked_agreement(cfg, dev, prompts, card: str) -> None:
     """Phase 16 on a peaked 1.1B-width bf16 model (seed 0; PEAKED_EMBED
     says how it is built): DecodeBatch's slot 0 (the 8 prompts,
@@ -3526,14 +3572,10 @@ def peaked_agreement(cfg, dev, prompts, card: str) -> None:
     must each give DecodeM1's LADDER_NEW tokens."""
     import dataclasses
     import torch
-    from pygpukit_tpu_torch.llm import CausalTransformerModel, init_params, slice_layers
+    from pygpukit_tpu_torch.llm import CausalTransformerModel, slice_layers
     from pygpukit_tpu_torch.llm.decode import (DecodeBatch, DecodeJacobi, DecodeM1,
                                                DecodeSpeculative)
-    params = init_params(cfg, 0, torch.bfloat16, dev)
-    params["embed"] = params["embed"] * PEAKED_EMBED
-    perm = torch.randperm(cfg.vocab_size, generator=torch.Generator().manual_seed(0))
-    params["lm_head"] = params["embed"][perm.to(dev)].t().contiguous()
-    model = CausalTransformerModel(cfg, params, dtype=torch.bfloat16)
+    model = peaked_model(cfg, dev)
     draft = CausalTransformerModel(dataclasses.replace(cfg, num_layers=2),
                                    slice_layers(model.params, 2), dtype=torch.bfloat16)
     model.init_fixed_cache(LADDER_MAX)
@@ -4682,8 +4724,8 @@ def family_cpu_slice(name: str, cfg, params: dict, dev) -> str:
     among them) on the card against the CPU plain path, on a FAM_SLICE_S
     prompt: the bf16 forward (relative L2 within FWD_TOL), bf16 prefill
     and FAM_SLICE_STEPS decode steps (FWD_TOL), the int4 model's prefill and
-    FAM_SLICE_STEPS
-    decode steps (REF_TOL). MoE: the bf16 forward only, held row by row as
+    FAM_SLICE_STEPS decode steps (REF_TOL): the w4a8 kernels at the
+    family's own widths. MoE: the bf16 forward only, held row by row as
     phase 14 holds Mixtral's (MOE_ROWS_Q: the card's gmm and the CPU's
     dense route round at other points, so a router near-tie moves a row).
     LongRoPE (FAM_SLICE_THRESHOLD): the slice's original_max is scaled
@@ -7318,6 +7360,409 @@ def diffusion_phase(dev, card: str) -> None:
     print(f"phase 27 took {time.perf_counter() - t0:.1f} s")
 
 
+def tree_nbytes(tree) -> int:
+    """Bytes of a tree's tensor leaves."""
+    import torch
+    from torch.utils import _pytree as pytree
+    return sum(t.numel() * t.element_size() for t in pytree.tree_leaves(tree)
+               if isinstance(t, torch.Tensor))
+
+
+def take_counts(total: dict) -> None:
+    """Add the launches since the last reset_counts() to ``total``; reset."""
+    import torch
+    torch.cuda.synchronize()
+    for name, n in launch_counts().items():
+        if n:
+            total[name] = total.get(name, 0) + n
+    reset_counts()
+
+
+def services_native() -> None:
+    """Phase 28: the native library from native/src into
+    build/pygpukit_tpu_torch/, nothing written under native/, and each
+    service on it."""
+    from pygpukit_tpu_torch import _native
+    from pygpukit_tpu_torch.memory import MemoryPool
+    from pygpukit_tpu_torch.scheduler import PartitionLimits, PartitionManager, Scheduler
+    from pygpukit_tpu_torch.transfer import AsyncTransferEngine
+
+    def listing():
+        return sorted((str(p.relative_to(ROOT)), p.stat().st_mtime_ns)
+                      for p in (ROOT / "native").rglob("*"))
+    before = listing()
+    t0 = time.perf_counter()
+    lib = _native.get_native()
+    check(lib is not None and _native.native_available(),
+          "services: the native library did not build from native/src")
+    path = _native.library_path()
+    check(path.is_file() and path.parent == ROOT / "build" / "pygpukit_tpu_torch",
+          f"services: the native library is not under build/pygpukit_tpu_torch: {path}")
+    check(listing() == before, "services: the native build wrote under native/")
+    pool = MemoryPool(1 << 30, use_native=True)
+    sched = Scheduler(use_native=True)
+    parts = PartitionManager(sched)
+    eng = AsyncTransferEngine(num_workers=1, use_native=True)
+    native = {"MemoryPool": pool.is_native, "Scheduler": sched.is_native,
+              "PartitionManager": parts.is_native, "AsyncTransferEngine": eng.is_native}
+    check(all(native.values()), f"services: not native: {native}")
+    pid = parts.create(PartitionLimits(memory_bytes=1 << 20))
+    check(parts.acquire(pid, 1 << 19) and parts.usage(pid).memory_used == 1 << 19,
+          "services: the native partition did not bill its acquire")
+    eng.shutdown()
+    print(f"phase 28: native library {lib.pk_version().decode()} at "
+          f"{path.relative_to(ROOT)} in {time.perf_counter() - t0:.1f} s, nothing "
+          f"written under native/; native: {json.dumps(native)}")
+
+
+def services_scheduler() -> None:
+    """Phase 28: SVC_TASKS tasks of mixed QoS (tests/test_stress.py's
+    pattern, max_pending SVC_TASKS) through the native scheduler and the
+    pure-Python one: the order their functions run in and the stats equal."""
+    from pygpukit_tpu_torch.scheduler import Scheduler, Task, TaskPolicy
+    policies = [TaskPolicy.BEST_EFFORT, TaskPolicy.GUARANTEED, TaskPolicy.BURSTABLE]
+    runs, secs = {}, {}
+    for route in (True, False):
+        t0 = time.perf_counter()
+        s = Scheduler(total_memory=1 << 40, max_pending=SVC_TASKS, use_native=route)
+        order: list = []
+        decisions = [int(s.submit(Task(memory_bytes=1024 + i % 7, policy=policies[i % 3],
+                                       priority=(i * 7919) % 5,
+                                       fn=lambda i=i: order.append(i)))[1].decision)
+                     for i in range(SVC_TASKS)]
+        check(s.run_pending() == SVC_TASKS, "services: the scheduler did not run every task")
+        runs[route] = (order, decisions, s.stats())
+        secs[route] = time.perf_counter() - t0
+    check(runs[True] == runs[False],
+          "services: the native scheduler's run order or stats differ from the Python one's")
+    order = runs[True][0]
+    pol = [policies[i % 3] for i in order]
+    check(max(k for k, p in enumerate(pol) if p == TaskPolicy.GUARANTEED)
+          < min(k for k, p in enumerate(pol) if p == TaskPolicy.BEST_EFFORT),
+          "services: a BEST_EFFORT task ran before a GUARANTEED one")
+    print(f"phase 28: {SVC_TASKS} tasks of mixed QoS: native and Python run order and stats "
+          f"equal ({json.dumps(runs[True][2].__dict__)}); submit and run "
+          f"{secs[True]:.3f} s native, {secs[False]:.3f} s Python")
+
+
+def services_transfer(dev, card: str) -> None:
+    """Phase 28: the transfer engine on the card (the phase's docstring)."""
+    import numpy as np
+    import torch
+    from pygpukit_tpu_torch.transfer import AsyncTransferEngine
+    eng = AsyncTransferEngine(num_workers=2, use_native=True)
+    n = H2D_BYTES // 4
+    a = (np.arange(n, dtype=np.uint32) * np.uint32(2654435761)).view(np.float32)
+    staging = AsyncTransferEngine(num_workers=2, use_native=False)
+    for e in (eng, staging):
+        e.d2h(e.h2d(a[: 1 << 20]).result(120)).result(120)   # staging buffers, streams
+
+    def plain_h2d(x):
+        t = torch.from_numpy(x).to(dev)
+        torch.cuda.synchronize()
+        return t
+
+    routes = {"engine": (lambda x: eng.h2d(x).result(600), lambda t: eng.d2h(t).result(600)),
+              "engine, torch staging": (lambda x: staging.h2d(x).result(600),
+                                        lambda t: staging.d2h(t).result(600)),
+              "plain .to(dev), .cpu()": (plain_h2d, lambda t: t.cpu().numpy())}
+    gbs = {k: ([], []) for k in routes}
+    for k in list(routes) + list(routes)[::-1]:        # each route twice, in turns
+        up, down = routes[k]
+        t0 = time.perf_counter()
+        t = up(a)
+        gbs[k][0].append(H2D_BYTES / (time.perf_counter() - t0) / 1e9)
+        check(t.is_cuda and t.dtype == torch.float32 and t.shape == (n,),
+              f"services: {k}: h2d result")
+        t0 = time.perf_counter()
+        back = down(t)
+        gbs[k][1].append(H2D_BYTES / (time.perf_counter() - t0) / 1e9)
+        check(np.array_equal(back.view(np.uint32), a.view(np.uint32)),
+              f"services: {k}: the 1 GiB round trip is not bitwise")
+        del t, back
+    staging.shutdown()
+    yard = h2d_gbs(dev)
+    staged = eng.native_stats()
+    legs = "; ".join(f"{k}: h2d {' '.join(f'{x:.2f}' for x in u)}, d2h "
+                     f"{' '.join(f'{x:.2f}' for x in d)}" for k, (u, d) in gbs.items())
+    print(f"phase 28: transfer, {H2D_BYTES / 2**30:.0f} GiB f32 round trips bitwise, GB/s "
+          f"of each leg (the download into a new array) in two turns: {legs}; one pinned "
+          f"copy (h2d_gbs) {yard:.2f} GB/s; native staging copies {staged.completed}; [{card}]")
+    one = AsyncTransferEngine(num_workers=1, use_native=True)
+    big = one.h2d(a[: n // 4], AsyncTransferEngine.LOW)          # holds the worker
+    lows = [one.h2d(np.full(1 << 20, i, np.float32), AsyncTransferEngine.LOW)
+            for i in range(4)]
+    hi = one.h2d(np.full(1 << 20, 7, np.float32), AsyncTransferEngine.HIGH)
+    one.synchronize()
+    check(all(hi.finished_at < f.finished_at for f in lows),
+          "services: a HIGH upload did not pass the LOW ones queued before it")
+    check(float(hi.result()[-1]) == 7.0 and float(lows[3].result()[0]) == 3.0
+          and big.done(), "services: a priority upload's values")
+    one.shutdown()
+    m = 16 << 20
+    hosts = [np.full(m, i + 1, np.int32) for i in range(SVC_UPLOADS)]
+    t0 = time.perf_counter()
+    futs = [eng.h2d(h) for h in hosts]
+    sums = []
+    for k in range(SVC_UPLOADS):
+        t = futs[k].result(120)
+        futs[k] = None
+        sums.append(t.sum(dtype=torch.int64))        # the default stream reads it ...
+        del t                                        # ... and frees it while it may still read
+    got = [int(x) for x in sums]
+    stream_s = time.perf_counter() - t0
+    check(got == [(i + 1) * m for i in range(SVC_UPLOADS)],
+          f"services: a reduction read a wrong upload: {got}")
+    print(f"phase 28: {SVC_UPLOADS} uploads of {4 * m >> 20} MiB each read by a reduction "
+          f"on the default stream while the next streamed in: values right, "
+          f"{SVC_UPLOADS * 4 * m / stream_s / 1e9:.2f} GB/s")
+    eng.shutdown()
+
+
+def services_models(cfg, dev, card: str, total: dict):
+    """Phase 28: two 1.1B int4 models in a MultiModelController, each
+    context's generate run at once with the other's, equal to its solo run;
+    the memory profiler around the second model's build. Returns model 0."""
+    import asyncio
+    import torch
+    from pygpukit_tpu_torch.profiling import MemoryProfiler
+    from pygpukit_tpu_torch.scheduler import MultiModelController
+    t0 = time.perf_counter()
+    m0 = build_model(cfg, 0, dev)
+    mem = MemoryProfiler()
+    torch.cuda.synchronize()
+    mem.snapshot("before model 1")
+    m1 = build_model(cfg, 1, dev)
+    torch.cuda.synchronize()
+    mem.snapshot("after model 1")
+    nbytes = [tree_nbytes(m.params) for m in (m0, m1)]
+    check(mem.delta() >= nbytes[1],
+          f"services: MemoryProfiler's delta {mem.delta()} < the model's {nbytes[1]} bytes")
+    print(f"phase 28: MemoryProfiler around building model 1: delta {mem.delta()} bytes, "
+          f"the model's {nbytes[1]} bytes ({time.perf_counter() - t0:.1f} s for both builds)")
+    cache = 2 * cfg.num_layers * SVC_MAX * cfg.num_kv_heads * cfg.head_dim * 2
+    budget = [b + cache for b in nbytes]
+    ctrl = MultiModelController(total_memory=sum(budget), max_workers=2)
+    ctxs = [ctrl.create_context(f"model_{i}", budget[i]) for i in range(2)]
+    try:
+        ctrl.create_context("model_2", budget[0])
+        check(False, "services: a third context fit the two models' budget")
+    except MemoryError:
+        pass
+
+    def gen(model):
+        zero_cache(model, SVC_MAX)           # the captured programs stay bound
+        return model.generate(LADDER_PROMPT, max_new_tokens=SVC_NEW, chunk_size=GEN_CHUNK)
+    t0 = time.perf_counter()
+    first = [gen(m) for m in (m0, m1)]       # captures the programs
+    capture_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    solo = [gen(m) for m in (m0, m1)]
+    solo_s = time.perf_counter() - t0
+    check(solo == first, "services: a model's second solo generate differs from its first")
+
+    async def both():
+        return await asyncio.gather(*(ctx.run_async(gen, m, memory_bytes=nbytes[i])
+                                      for i, (ctx, m) in enumerate(zip(ctxs, (m0, m1)))))
+    t0 = time.perf_counter()
+    in_ctx = [ctx.run(gen, m) for ctx, m in zip(ctxs, (m0, m1))]   # pinned, one at a time
+    ctx_s = time.perf_counter() - t0
+    check(in_ctx == solo, "services: a context's tokens differ from its model's solo run")
+    reset_counts()
+    t0 = time.perf_counter()
+    outs = asyncio.run(both())
+    both_s = time.perf_counter() - t0
+    take_counts(total)
+    check(all(len(o) == SVC_NEW for o in solo) and outs == solo,
+          "services: a context's concurrent tokens differ from its model's solo run")
+    check(solo[0] != solo[1], "services: the two models gave the same tokens")
+    check(all(c.stats.executions == 2 for c in ctxs), "services: context executions")
+    ctrl.shutdown()
+    print(f"phase 28: two 1.1B int4 models (seeds 0, 1; {nbytes[0]} bytes each) in one "
+          f"controller of {sum(budget)} bytes, a third context refused; {SVC_NEW}-token "
+          f"greedy generates at once through run_async (programs captured by a first solo "
+          f"run, {capture_s:.2f} s for both) equal their solo runs: {both_s:.2f} s together, "
+          f"{solo_s:.2f} s one after the other, {ctx_s:.2f} s one after the other inside "
+          f"their contexts; [{card}]")
+    del m1
+    torch.cuda.empty_cache()
+    return m0
+
+
+def services_jit(model, cfg, dev, card: str, total: dict) -> None:
+    """Phase 28: a JITKernel around the single-stream decode step; the
+    determinism checks; a background warmup racing the decode loop."""
+    import torch
+    from pygpukit_tpu_torch.jit import (JITKernel, get_warmup_error, reset_warmup_state,
+                                        warmup)
+    from pygpukit_tpu_torch.llm import decode_step_fn
+    from pygpukit_tpu_torch.profiling import verify_bitwise_replay, verify_recompile_parity
+    step = functools.partial(decode_step_fn, cfg)
+    model.init_fixed_cache(SVC_MAX)
+    params, kc, vc = model.params, model.k_cache, model.v_cache
+    tok = torch.tensor(LADDER_PROMPT[0], device=dev)
+    pos = torch.zeros(1, dtype=torch.int32, device=dev)
+
+    def make():
+        return JITKernel(step, name="decode_step", donate_argnums=(1, 2))
+    t0 = time.perf_counter()
+    jk = make()
+    rep = verify_bitwise_replay(jk, params, kc, vc, tok, pos, runs=3)
+    check(bool(rep), f"services: JIT decode step replay: {rep.detail}")
+    par = verify_recompile_parity(make, params, kc, vc, tok, pos)
+    check(bool(par), f"services: JIT decode step recompile: {par.detail}")
+    det_s = time.perf_counter() - t0
+
+    def loop(k, v, t, p) -> list:
+        k.zero_()
+        v.zero_()
+        t.fill_(LADDER_PROMPT[0])
+        p.zero_()
+        out = []
+        for _ in range(SVC_LOOP):
+            nxt = torch.argmax(jk(params, k, v, t, p))
+            t.copy_(nxt)
+            p.add_(1)
+            out.append(int(nxt))
+        return out
+    reset_counts()
+    solo = loop(kc, vc, tok, pos)
+    take_counts(total)
+    kc2, vc2 = torch.zeros_like(kc), torch.zeros_like(vc)
+    tok2, pos2 = torch.zeros_like(tok), torch.zeros_like(pos)
+    reset_warmup_state()
+    t0 = time.perf_counter()
+    th = warmup(jk, params, kc2, vc2, tok2, pos2)
+    loops, raced, overlap = 0, 0, 0.0
+    while True:
+        t1 = time.perf_counter()
+        alive = th.is_alive()
+        got = loop(kc, vc, tok, pos)
+        loops += 1
+        check(got == solo, "services: a decode loop beside the warmup changed its tokens")
+        if alive:
+            raced += 1
+            overlap += time.perf_counter() - t1
+        if not th.is_alive():
+            break
+    th.join()
+    warm_s = time.perf_counter() - t0
+    take_counts(total)
+    check(get_warmup_error() is None, f"services: the warmup failed: {get_warmup_error()}")
+    check(jk.stats.compiles == 2 and raced >= 1,
+          f"services: compiles {jk.stats.compiles}, loops begun beside the warmup {raced}")
+    check(loop(kc2, vc2, tok2, pos2) == solo, "services: the warmed signature's tokens")
+    take_counts(total)
+    print(f"phase 28: JITKernel(decode_step, caches donated): verify_bitwise_replay (3 runs) and "
+          f"verify_recompile_parity passed ({det_s:.2f} s); a background warmup of a second "
+          f"signature ({warm_s:.2f} s) beside {loops} {SVC_LOOP}-token decode loops "
+          f"({raced} begun while it ran, {overlap:.2f} s), each equal to the solo loop, no warmup "
+          f"error; [{card}]")
+
+
+def services_profiler(model, cfg, dev, card: str, total: dict) -> None:
+    """Phase 28: profile_matmul beside CUDA events; a trace of one decode
+    step naming the port's kernels."""
+    import tempfile
+    import torch
+    from pygpukit_tpu_torch.llm import decode_step_fn
+    from pygpukit_tpu_torch.profiling import Profiler, profile_matmul
+    from pygpukit_tpu_torch.profiling.profiler import _f32_product
+    n = GEMM_BENCH_N
+    rec = profile_matmul(n, n, n, "bfloat16")
+    g = torch.Generator(device=dev).manual_seed(0)
+    a = torch.randn((n, n), generator=g, device=dev).to(torch.bfloat16)
+    b = torch.randn((n, n), generator=g, device=dev).to(torch.bfloat16)
+    for _ in range(2):
+        _f32_product(a, b)
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(10):
+        _f32_product(a, b)
+    end.record()
+    end.synchronize()
+    ev_ms = start.elapsed_time(end) / 10
+    print(f"phase 28: profile_matmul({n}^3, bfloat16 -> f32): {rec.ms:.3f} ms, "
+          f"{rec.tflops:.1f} TFLOP/s (host clock); CUDA events {ev_ms:.3f} ms, "
+          f"{2 * n**3 / ev_ms / 1e9:.1f} TFLOP/s; [{card}]")
+    del a, b
+    model.init_fixed_cache(SVC_MAX)
+    decode_step_fn(cfg, model.params, model.k_cache, model.v_cache, LADDER_PROMPT[0], 0)
+    prof = Profiler()
+    reset_counts()
+    (ROOT / "build").mkdir(exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=ROOT / "build") as d:
+        with prof.trace(d):
+            decode_step_fn(cfg, model.params, model.k_cache, model.v_cache,
+                           LADDER_PROMPT[1], 1)
+        with open(prof.last_trace) as f:
+            events = json.load(f)["traceEvents"]
+    take_counts(total)
+    kernels = {e["name"] for e in events if e.get("cat") == "kernel"}
+    named = {key: sorted(k for k in kernels if key in k)[:1]
+             for key in ("w4a8_gemv_kernel", "flash_decode")}
+    check(all(named.values()), f"services: the trace does not name the port's kernels: {named}")
+    print(f"phase 28: Profiler.trace over one decode step: {len(kernels)} kernel names, "
+          f"among them {json.dumps(named)}")
+
+
+def services_bench(card: str, total: dict) -> dict:
+    """Phase 28: the benchmark CLI's six suites in-process; their launches."""
+    from pygpukit_tpu_torch.benchmark.__main__ import main as bench_main
+    from pygpukit_tpu_torch.benchmark.suites import SUITES
+    per = {}
+    for name in SUITES:
+        reset_counts()
+        t0 = time.perf_counter()
+        check(bench_main([name]) == 0, f"services: benchmark suite {name}")
+        counts: dict = {}
+        take_counts(counts)
+        per[name] = counts
+        for k, v in counts.items():
+            total[k] = total.get(k, 0) + v
+        print(f"phase 28: benchmark suite {name}: {time.perf_counter() - t0:.1f} s, "
+              f"launches {json.dumps(counts)}; [{card}]")
+    check(per["attention"].get("flash_attention", 0) > 0,
+          "services: the attention suite launched no flash_attention")
+    check(per["decode"].get("flash_decode", 0) > 0,
+          "services: the decode suite launched no flash_decode")
+    return per
+
+
+def services_phase(dev, card: str) -> dict:
+    """Phase 28 (the module docstring); returns its launches by kernel."""
+    import torch
+    from pygpukit_tpu_torch.llm import TransformerConfig
+    from pygpukit_tpu_torch.profiling import verify_strategy_equivalence
+    t_phase = time.perf_counter()
+    cfg = TransformerConfig(**CFG_1B)
+    total: dict = {}
+    reset_counts()
+    services_native()
+    services_scheduler()
+    services_transfer(dev, card)
+    model = services_models(cfg, dev, card, total)
+    services_jit(model, cfg, dev, card, total)
+    services_profiler(model, cfg, dev, card, total)
+    del model
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    peaked = peaked_model(cfg, dev)
+    reset_counts()
+    rep = verify_strategy_equivalence(peaked, LADDER_PROMPT, n_tokens=16, max_seq_len=SVC_MAX)
+    take_counts(total)
+    check(bool(rep), f"services: strategies on the peaked model: {rep.detail}")
+    print(f"phase 28: verify_strategy_equivalence on phase 16's peaked model "
+          f"(m1, m1_graph, speculative, jacobi; 16 tokens): passed "
+          f"({time.perf_counter() - t0:.1f} s)")
+    del peaked
+    torch.cuda.empty_cache()
+    services_bench(card, total)
+    print(f"phase 28: launches {json.dumps(total)}")
+    print(f"phase 28 took {time.perf_counter() - t_phase:.1f} s")
+    return total
+
+
 def main(argv: list[str]) -> int:
     t_script = time.perf_counter()
     import argparse
@@ -7340,13 +7785,16 @@ def main(argv: list[str]) -> int:
         return 2
     sys.path.insert(0, str(ROOT))
     import numpy as np
-    from pygpukit_tpu_torch import require_cuda, set_deterministic_numerics
+    from pygpukit_tpu_torch import get_backend, require_cuda, set_deterministic_numerics
     from pygpukit_tpu_torch.core.device import card_peaks
     from pygpukit_tpu_torch.kernels import _build
     from pygpukit_tpu_torch.llm import TransformerConfig
 
     global CARD, HBM_BYTES_S, PEAK_OPS_S
     dev = require_cuda()
+    check(get_backend().platform == "gpu",
+          f"the port's backend is {get_backend().platform!r}, not the card "
+          "(PYGPUKIT_BACKEND is set?)")
     peaks = card_peaks(torch.cuda.get_device_name(0))
     HBM_BYTES_S = peaks["hbm_bytes_s"]
     PEAK_OPS_S = {kind: peaks[kind] for kind in ("bf16", "int8", "f32")}
@@ -7469,6 +7917,9 @@ def main(argv: list[str]) -> int:
             launches[name] = launches.get(name, 0) + n
     if "diffusion" in phases:
         diffusion_phase(dev, card)
+    if "services" in phases:
+        for name, n in services_phase(dev, card).items():   # rows 1, 6, 14, 15, 17
+            launches[name] = launches.get(name, 0) + n
     print(f"total {time.perf_counter() - t_start:.1f} s after the build began, "
           f"{time.perf_counter() - t_script:.1f} s the whole script")
     if set(phases) != set(PHASES):

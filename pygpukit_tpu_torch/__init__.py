@@ -35,16 +35,22 @@ simple layer stack) with the convolutions (``ops.conv``) and the LSTM
 (``ops.nn.recurrent``); the LLM-to-speech and voice pipelines
 (``pipeline``); image generation (``diffusion``: FLUX.1 with its CLIP and
 T5 encoders and the VAE, SD3 and PixArt, the schedulers and pipelines);
-and the fifteen kernels.
+the runtime services (the backend choice, ``get_backend``/``set_backend``;
+the native-backed ``memory`` pool, ``scheduler`` with its partitions and
+multi-model controller, and ``transfer`` engine, built from ``native/``
+into ``build/pygpukit_tpu_torch/``; ``dispatch``, ``jit``, ``profiling``
+and the ``benchmark`` CLI); and the fifteen kernels. The reference's
+``is_tpu_available`` is ``is_cuda_available`` here.
 """
 
-from . import asr, core, diffusion, kernels, llm, ops, pipeline, tts
-from .core import (Array, DataType, DataTypeKind, Event, Stream, StreamManager,
+from . import (asr, benchmark, core, diffusion, dispatch, jit, kernels, llm, memory, ops,
+               pipeline, profiling, scheduler, transfer, tts)
+from .core import (Array, Backend, DataType, DataTypeKind, Event, Stream, StreamManager,
                    StreamPriority, arange, capture, default_stream, device_count, dtypes,
-                   empty, from_numpy, full, get_device_info, get_memory_info,
-                   is_cuda_available, ones, ones_like, randn, require_cuda,
-                   resolve_device, set_deterministic_numerics, synchronize, to_dtype,
-                   zeros, zeros_like)
+                   empty, from_numpy, full, get_backend, get_device_info, get_memory_info,
+                   interpret_mode, is_cuda_available, ones, ones_like, randn, require_cuda,
+                   reset_backend, resolve_device, set_backend, set_deterministic_numerics,
+                   synchronize, to_dtype, zeros, zeros_like)
 from .core.dtypes import (bfloat16, bool_, float8_e4m3, float8_e5m2, float16,
                           float32, float64, fp8, int4, int8, int16, int32, int64,
                           uint8, uint16, uint32)
@@ -67,6 +73,7 @@ from .ops.nn.fused import linear_bias_gelu
 from .ops.nn.recurrent import lstm as lstm_forward
 from .ops.tensor import transpose_2d as transpose
 from .ops.unary import abs  # noqa: A004 - reference API name
+from .jit.compiler import JITKernel, get_warmup_error, is_warmup_done, warmup
 
 # The reference's name for the NumPy-like device array.
 GPUArray = Array

@@ -18,7 +18,7 @@ from dataclasses import dataclass, field
 
 import torch
 
-from .backend import require_cuda, resolve_device
+from .backend import get_backend, resolve_device
 
 #: published dense peaks of the H100 SXM (NVIDIA's H100 data sheet, without
 #: sparsity): operations/s by operand type and HBM3 bytes/s
@@ -59,12 +59,11 @@ def host_memory_bytes() -> int:
 
 
 def get_device_info(index: int = 0, device=None) -> DeviceInfo:
-    """The card ``index`` (``device`` None) or the named device; a card
-    missing from CARD_PEAKS has no peaks (None)."""
-    if device is None:
-        require_cuda()
-        device = f"cuda:{index}"
+    """The backend's device ``index`` (``device`` None) or the named
+    device; a card missing from CARD_PEAKS has no peaks (None)."""
     dev = resolve_device(device)
+    if device is None and dev.type == "cuda":
+        dev = torch.device("cuda", index)
     if dev.type != "cuda":
         return DeviceInfo("cpu", "cpu", 0, 1, _CPU_PEAKS["bf16"] / 1e12,
                           _CPU_PEAKS["hbm_bytes_s"] / 1e9, host_memory_bytes() / (1 << 30))

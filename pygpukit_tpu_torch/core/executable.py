@@ -39,6 +39,14 @@ launch parameters, so a replay computes the eager call's bits.
 - **One stream at a time.** ``flash_decode`` and the w4a8 GEMM's split-K
   fold keep arrival counters in ``__device__`` memory across launches, so
   replays run on the current stream and never on two streams at once.
+- **Threads.** A capture holds ``kernels._build.DEVICE_LOCK`` from before
+  its warm-up to after its instantiation, and starts with a device-wide
+  synchronize; every launch and replay takes the same lock. So a capture
+  on one thread (a background JIT warm-up) neither overlaps another
+  thread's counter kernels on the card nor loses that thread's
+  ``LAUNCHES`` counts when it puts the counters back. The graph records in
+  ``thread_local`` capture mode: other threads' CUDA calls stay legal
+  while it records.
 
 - **Shared pools.** An owner (a model, an engine, a strategy) keeps its
   executables in an ``ExecutableCache(shared_pool=True)``: every capture
@@ -77,6 +85,7 @@ no counterpart here.
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import gc
 import threading
@@ -210,10 +219,10 @@ class Executable:
         self.stats.node_count = counter.n
 
     def _capture_graph(self) -> None:
-        from ..kernels._build import LAUNCHES, build
+        from ..kernels._build import LAUNCHES, build, launches_restored
         build()
-        saved = dict(LAUNCHES)
-        try:
+        with launches_restored() as saved:
+            torch.cuda.synchronize(self.device)
             side = torch.cuda.Stream(self.device)
             side.wait_stream(torch.cuda.current_stream(self.device))
             with torch.cuda.stream(side):
@@ -230,7 +239,7 @@ class Executable:
             collecting = gc.isenabled()
             gc.disable()
             try:
-                with torch.cuda.graph(graph, pool=handle):
+                with torch.cuda.graph(graph, pool=handle, capture_error_mode="thread_local"):
                     # read inside: entering the capture empties the allocator's cache
                     reserved = torch.cuda.memory_reserved(self.device)
                     outputs = self._fn(*self._args)
@@ -238,13 +247,11 @@ class Executable:
                 if collecting:
                     gc.enable()
             self._cost = {k: n - saved[k] for k, n in LAUNCHES.items() if n != saved[k]}
-        finally:
-            LAUNCHES.update(saved)
-        self._pool_bytes = torch.cuda.memory_reserved(self.device) - reserved
-        if self._pool is not None:
-            self._pool.nbytes += self._pool_bytes
-        self.stats.node_count = _graph_nodes(graph.raw_cuda_graph())
-        graph.instantiate()
+            self._pool_bytes = torch.cuda.memory_reserved(self.device) - reserved
+            if self._pool is not None:
+                self._pool.nbytes += self._pool_bytes
+            self.stats.node_count = _graph_nodes(graph.raw_cuda_graph())
+            graph.instantiate()
         self._graph = graph
         self._outputs = outputs
 
@@ -295,12 +302,14 @@ class Executable:
         on the card a graph replay on the current stream, returning its
         static outputs, which the next replay overwrites; on the CPU a
         call of ``fn`` on the static inputs. Never recaptures."""
-        self._bind(args)
-        self.stats.replays += 1
-        _REPLAYED.update(self._cost)
-        if self._graph is None:
-            return self._fn(*self._args)
-        self._graph.replay()
+        from ..kernels._build import DEVICE_LOCK
+        with DEVICE_LOCK if self._graph is not None else contextlib.nullcontext():
+            self._bind(args)
+            self.stats.replays += 1
+            _REPLAYED.update(self._cost)
+            if self._graph is None:
+                return self._fn(*self._args)
+            self._graph.replay()
         return self._outputs
 
     __call__ = replay

@@ -19,6 +19,14 @@ returns ``cudaGetLastError()``; :func:`launch` raises on a non-zero code and
 counts the launch. The counts let a run show that its main path went through
 the kernels (``chip_smoke.py`` resets them before the path and reads them
 after).
+
+Threads. ``DEVICE_LOCK`` (re-entrant) is held around every launch and its
+count, every graph replay (``core.executable``) and a whole capture,
+warm-up included. So a capture on one thread (a background JIT warm-up,
+a context's ``run_async``) never overlaps another thread's launches: the
+counters' totals stay exact, and ``flash_decode`` and the w4a8 GEMM's
+split-K fold, whose arrival counters live in ``__device__`` memory, never
+run on two streams at once.
 """
 
 from __future__ import annotations
@@ -29,6 +37,8 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
+from contextlib import contextmanager
 from ctypes import c_float, c_int, c_void_p
 from pathlib import Path
 
@@ -86,11 +96,35 @@ _SIGNATURES = {
 }
 
 _lib: ctypes.CDLL | None = None
+_lib_lock = threading.Lock()
+
+#: held around every launch, replay and capture (module docstring)
+DEVICE_LOCK = threading.RLock()
 
 
 def reset_launches() -> None:
-    for k in LAUNCHES:
-        LAUNCHES[k] = 0
+    with DEVICE_LOCK:
+        for k in LAUNCHES:
+            LAUNCHES[k] = 0
+
+
+def count(kernel: str, n: int = 1) -> None:
+    """Add ``n`` launches of ``kernel`` (under ``DEVICE_LOCK``)."""
+    with DEVICE_LOCK:
+        LAUNCHES[kernel] += n
+
+
+@contextmanager
+def launches_restored():
+    """Hold ``DEVICE_LOCK`` and put ``LAUNCHES`` back as it was on exit:
+    launches made inside (a capture's warm-up and recording) count for no
+    one, and no other thread launches meanwhile."""
+    with DEVICE_LOCK:
+        saved = dict(LAUNCHES)
+        try:
+            yield saved
+        finally:
+            LAUNCHES.update(saved)
 
 
 def nvcc_path() -> str:
@@ -166,27 +200,29 @@ def build_log() -> str:
 def library() -> ctypes.CDLL:
     """The loaded kernel library, built first when needed."""
     global _lib
-    if _lib is None:
-        lib = ctypes.CDLL(str(build()))
-        for name, argtypes in _SIGNATURES.items():
-            fn = getattr(lib, name)
-            fn.argtypes = argtypes
-            fn.restype = c_int
-        lib.pgk_error_string.argtypes = [c_int]
-        lib.pgk_error_string.restype = ctypes.c_char_p
-        _lib = lib
-    return _lib
+    with _lib_lock:
+        if _lib is None:
+            lib = ctypes.CDLL(str(build()))
+            for name, argtypes in _SIGNATURES.items():
+                fn = getattr(lib, name)
+                fn.argtypes = argtypes
+                fn.restype = c_int
+            lib.pgk_error_string.argtypes = [c_int]
+            lib.pgk_error_string.restype = ctypes.c_char_p
+            _lib = lib
+        return _lib
 
 
 def launch(kernel: str, entry: str, *args) -> None:
     """Call C entry ``entry``; raise on a CUDA error, else count one launch
     of ``kernel``."""
     lib = library()
-    rc = getattr(lib, entry)(*args)
-    if rc != 0:
-        msg = lib.pgk_error_string(rc).decode()
-        raise RuntimeError(f"{entry} failed: CUDA error {rc} ({msg})")
-    LAUNCHES[kernel] += 1
+    with DEVICE_LOCK:
+        rc = getattr(lib, entry)(*args)
+        if rc != 0:
+            msg = lib.pgk_error_string(rc).decode()
+            raise RuntimeError(f"{entry} failed: CUDA error {rc} ({msg})")
+        LAUNCHES[kernel] += 1
 
 
 def require_on(device, **tensors) -> None:

@@ -23,7 +23,7 @@ import math
 import torch
 
 from ..ops.embedding import kv_leaf
-from ._build import LAUNCHES, launch, require_on, stream_of
+from ._build import count, launch, require_on, stream_of
 from .attention_split import (ATTN_CHUNK,  # noqa: F401 (re-exported)
                               attention_splits, split_bounds)
 
@@ -199,5 +199,5 @@ def launch_batch_decode_attention(q: torch.Tensor, k_pool, v_pool, layer: int,
            float(scale), float(softcap) if softcap else 0.0,
            int(window) if window else 0, stream_of(leaf))
     if write is not None:
-        LAUNCHES["kv_rows_write_fused"] += 1
+        count("kv_rows_write_fused")
     return out

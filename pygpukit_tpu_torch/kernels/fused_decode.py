@@ -32,7 +32,7 @@ import math
 import torch
 
 from ..core.numerics import require_full_f32, true_div
-from ._build import launch, library, require_on, stream_of
+from ._build import DEVICE_LOCK, launch, library, require_on, stream_of
 
 _F32 = torch.float32
 _BF16 = torch.bfloat16
@@ -243,15 +243,16 @@ def _plan(device: torch.device, dims: tuple) -> ctypes.Array:
     """The kernel's launch plan for ``dims`` on ``device`` (cached): grid,
     K slices per projection, context chunks, scratch words, shared bytes."""
     key = (device.index, *dims)
-    if key not in _plans:
-        plan = (ctypes.c_int * PLAN_INTS)()
-        with torch.cuda.device(device):
-            rc = library().pgk_fused_decode_plan(*dims, ctypes.addressof(plan))
-        if rc != 0:
-            raise RuntimeError(f"fused_decode cannot run {dims}: CUDA error {rc} "
-                               f"({library().pgk_error_string(rc).decode()})")
-        _plans[key] = plan
-    return _plans[key]
+    with DEVICE_LOCK:
+        if key not in _plans:
+            plan = (ctypes.c_int * PLAN_INTS)()
+            with torch.cuda.device(device):
+                rc = library().pgk_fused_decode_plan(*dims, ctypes.addressof(plan))
+            if rc != 0:
+                raise RuntimeError(f"fused_decode cannot run {dims}: CUDA error {rc} "
+                                   f"({library().pgk_error_string(rc).decode()})")
+            _plans[key] = plan
+        return _plans[key]
 
 
 def plan_of(device: torch.device, *, n_layers: int, hidden: int, intermediate: int,

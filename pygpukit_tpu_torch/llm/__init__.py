@@ -37,6 +37,8 @@ from .serving_paged import (BlockAllocator, paged_decode_step_fn,
 from .streaming import (LayerStreamingContext, LoadingStrategy, StreamingConfig,
                         create_streaming_context)
 from .tokenizer import Tokenizer
+from ..core.dtypes import DataType as Dtype
+from ..memory.pool import PoolStats
 
 # the reference's model-class names: the unified model is each of them
 GPT2Model = CausalTransformerModel
@@ -100,4 +102,5 @@ __all__ = ["decode", "STRATEGIES", "DecodeBatch", "DecodeJacobi", "DecodeM1",
            "precompute_freqs_cis", "Linear", "LinearBF16", "LinearFP8", "RMSNorm",
            "LayerNorm", "Norm", "Attention", "CausalSelfAttention", "LlamaAttention",
            "MLP", "LlamaMLP", "MoELayer", "TransformerBlock", "LlamaBlock",
-           "GPT2Model", "LlamaModel", "QwenModel", "apply_rotary_pos_emb_numpy"]
+           "GPT2Model", "LlamaModel", "QwenModel", "apply_rotary_pos_emb_numpy",
+           "PoolStats", "Dtype"]
